@@ -1,0 +1,135 @@
+"""APE: the prompted-inference wrapper (counterpart of
+``ape_tpu/engine/ape_wrapper.py``), instance output only.
+
+It holds the vision model and a language model (any object with
+``forward_text(text_list, cache=True)`` returning the per-text features or a
+dict with ``last_hidden_state_eot``), turns a comma-separated text prompt or
+the eval dataset's vocabulary into padded text features, runs the vision
+model and the instance postprocessing. Dataset metadata comes in as objects
+with ``name`` and ``get(key, default)``, such as the ``Metadata`` of
+``ape_tpu.data.catalog``; the port imports nothing of ``ape_tpu``.
+
+The prompt type (name or phrase) selects which text the class heads align to
+only when the model fuses vision and language; APE-Ti does not, so both
+prompt types run the same forward.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ape_tpu_torch.modeling.ape_deta.postprocess import instance_inference
+
+
+def get_text_list(metadata) -> List[str]:
+    """Name-prompt vocabulary: thing classes, then the stuff classes that are
+    not things (ape_tpu.data.catalog.get_text_list)."""
+    thing = list(metadata.get("thing_classes", []) or [])
+    stuff = list(metadata.get("stuff_classes", []) or [])
+    return thing + [c for c in stuff if c not in thing and c != "things"]
+
+
+class APE:
+    def __init__(
+        self,
+        model,  # APEDeta
+        model_language,
+        dataset_metadata: Sequence = (),
+        dataset_prompts: Optional[Sequence[str]] = None,
+        max_text: int = 128,
+        test_score_thresh: float = 0.05,
+        test_nms_thresh: float = 0.5,
+        select_box_nums_for_evaluation: int = 300,
+    ):
+        self.model = model
+        self.model_language = model_language
+        self.metadata_list = list(dataset_metadata)
+        self.dataset_prompts = list(dataset_prompts or ["name"] * len(self.metadata_list))
+        self.max_text = max_text
+        self.test_score_thresh = test_score_thresh
+        self.test_nms_thresh = test_nms_thresh
+        self.select_box_nums = select_box_nums_for_evaluation
+        self.eval_dataset_id = 0 if self.metadata_list else -1
+        self._text_cache: Dict[tuple, np.ndarray] = {}
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def _encode_vocab(self, text_list: List[str]) -> np.ndarray:
+        key = tuple(text_list)
+        if key not in self._text_cache:
+            out = self.model_language.forward_text(text_list, cache=True)
+            feats = out["last_hidden_state_eot"] if isinstance(out, dict) else out
+            if isinstance(feats, torch.Tensor):
+                feats = feats.detach().float().cpu().numpy()
+            self._text_cache[key] = np.asarray(feats, np.float32)
+        return self._text_cache[key]
+
+    def _text_features(self, text_list: List[str]):
+        """Features padded to a multiple of ``max_text``: (1, T_pad, Cl), (1, T_pad)."""
+        feats = self._encode_vocab(text_list)
+        t = len(text_list)
+        pad = self.max_text * -(-max(t, 1) // self.max_text)
+        out = np.zeros((pad, feats.shape[-1]), np.float32)
+        out[:t] = feats
+        valid = np.arange(pad) < t
+        return (torch.from_numpy(out[None]).to(self.device),
+                torch.from_numpy(valid[None]).to(self.device))
+
+    def prompt_type(self, inp: Dict) -> str:
+        """"phrase" when any comma-separated entry of the text prompt has a
+        space, else "name"; without a prompt, the dataset's prompt type."""
+        tp = inp.get("text_prompt")
+        if tp:
+            words = [w.strip() for w in tp.split(",") if w.strip()]
+            return "phrase" if any(" " in w for w in words) else "name"
+        if 0 <= self.eval_dataset_id < len(self.dataset_prompts):
+            return self.dataset_prompts[self.eval_dataset_id]
+        return "name"
+
+    def vocabulary(self, text_prompt: Optional[str] = None) -> List[str]:
+        if text_prompt:
+            return [w.strip() for w in text_prompt.split(",") if w.strip()]
+        if 0 <= self.eval_dataset_id < len(self.metadata_list):
+            return get_text_list(self.metadata_list[self.eval_dataset_id])
+        return []
+
+    @torch.no_grad()
+    def __call__(self, batched_inputs: List[Dict]) -> List[Dict]:
+        """Inference on mapped inputs: ``image`` (H, W, 3) normalized and padded,
+        ``image_size`` (2,) valid (h, w), optional ``text_prompt`` and ``scale``
+        (input pixels per original pixel)."""
+        results = []
+        for inp in batched_inputs:
+            text_list = self.vocabulary(inp.get("text_prompt")) or ["object"]
+            txt, tvalid = self._text_features(text_list)
+            image = torch.as_tensor(inp["image"], device=self.device)[None]
+            size = torch.as_tensor(inp["image_size"], device=self.device)
+            out = self.model(image, size[None], txt, tvalid)
+
+            # with an explicit thing/stuff split the instance path sees things only
+            inst_valid = tvalid[0]
+            if 0 <= self.eval_dataset_id < len(self.metadata_list) and not inp.get("text_prompt"):
+                n_thing = len(self.metadata_list[self.eval_dataset_id].get("thing_classes", []) or [])
+                if n_thing and n_thing < len(text_list):
+                    inst_valid = inst_valid & (torch.arange(inst_valid.shape[0], device=self.device) < n_thing)
+            inst = instance_inference(
+                out["pred_logits"][0], out["pred_boxes"][0], size, inst_valid,
+                score_thresh=self.test_score_thresh, nms_thresh=self.test_nms_thresh,
+                topk=self.select_box_nums)
+            keep = inst["valid"]
+            results.append({
+                "image_id": inp.get("image_id", 0),
+                "instances": {
+                    "boxes": inst["boxes"][keep] / inp.get("scale", 1.0),
+                    "scores": inst["scores"][keep],
+                    "classes": inst["classes"][keep],
+                },
+                "text_list": text_list,
+                "prompt_type": self.prompt_type(inp),
+            })
+        return results

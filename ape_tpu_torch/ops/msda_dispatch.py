@@ -1,0 +1,136 @@
+"""MSDA entry points: the CUDA gather kernel for CUDA tensors, the plain
+version for CPU tensors.
+
+Counterpart of ``ape_tpu/ops/msda_dispatch.py`` (encoder, window mode) and
+``ape_tpu/ops/msda_decoder.py`` (decoder, exact mode). Both modes reduce to
+one exact bilinear gather, ``csrc/msda_fwd.cu``:
+
+  * window mode takes offsets in value-level pixels around each query's grid
+    center (queries are the pyramid grid itself) and clips them to
+    ``[-radius, radius]`` before the gather, as ``_exact_equiv`` does;
+  * exact mode takes normalized sampling locations as they are.
+
+Locations stay f32 in both modes. (The JAX exact path rounds them to the
+value dtype first, ``loc.astype(value.dtype)``; at bf16 that moves a tap by up
+to 0.25 px on a 128-wide level.)
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from ape_tpu_torch.ops import _build
+from ape_tpu_torch.ops.msda import level_start_index, ms_deform_attn
+
+_NO_GRAD_MSG = "backward kernels land with Ti training"
+
+
+def grid_centers(spatial_shapes: Sequence[Tuple[int, int]], device) -> torch.Tensor:
+    """Normalized (x, y) centers of every cell of the pyramid grid: (S, 2) f32."""
+    pieces = []
+    for hq, wq in spatial_shapes:
+        yy, xx = torch.meshgrid(
+            torch.arange(hq, dtype=torch.float32, device=device),
+            torch.arange(wq, dtype=torch.float32, device=device),
+            indexing="ij",
+        )
+        pieces.append(torch.stack([(xx.reshape(-1) + 0.5) / wq, (yy.reshape(-1) + 0.5) / hq], -1))
+    return torch.cat(pieces, 0)
+
+
+def level_sizes(spatial_shapes: Sequence[Tuple[int, int]], device) -> torch.Tensor:
+    """(L, 2) f32 level sizes as (W, H), the normalizer of (x, y) offsets."""
+    return torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32, device=device)
+
+
+def window_locations(
+    spatial_shapes: Sequence[Tuple[int, int]], pixel_offsets: torch.Tensor, radius: float
+) -> torch.Tensor:
+    """f32 sampling locations ``center + clip(off, -R, R) / size``: (B, Q, H, L, P, 2)."""
+    centers = grid_centers(spatial_shapes, pixel_offsets.device)
+    norm = level_sizes(spatial_shapes, pixel_offsets.device)
+    off = pixel_offsets.float().clamp(-radius, radius)
+    return centers[None, :, None, None, None, :] + off / norm[None, None, None, :, None, :]
+
+
+def msda_fwd_cuda(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    loc: torch.Tensor,
+    att: torch.Tensor,
+) -> torch.Tensor:
+    """Launch ``csrc/msda_fwd.cu``. Shapes and layouts as ``ops.msda.ms_deform_attn``."""
+    b, s, h, d = value.shape
+    if value.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"msda_fwd takes f32 or bf16 value, got {value.dtype}")
+    if loc.dtype != torch.float32:
+        raise TypeError(f"msda_fwd takes f32 locations, got {loc.dtype}")
+    if att.dtype not in (value.dtype, torch.float32):
+        raise TypeError(f"msda_fwd takes attention weights in {value.dtype} or f32, got {att.dtype}")
+    if loc.dim() != 6 or loc.shape[-1] != 2 or loc.shape[0] != b or loc.shape[2] != h:
+        raise ValueError(f"locations {tuple(loc.shape)} do not match value {tuple(value.shape)}")
+    q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    if tuple(att.shape) != (b, q, h, l, p):
+        raise ValueError(f"attention weights {tuple(att.shape)} != {(b, q, h, l, p)}")
+    starts, total = level_start_index(spatial_shapes)
+    if total != s or len(spatial_shapes) != l:
+        raise ValueError(f"value length {s} / {l} levels do not match {spatial_shapes}")
+    for t in (value, loc, att):
+        if t.device != value.device or not t.is_cuda:
+            raise ValueError("msda_fwd takes CUDA tensors on one device")
+        if not t.is_contiguous():
+            raise ValueError("msda_fwd takes contiguous tensors")
+        if t.requires_grad:
+            raise NotImplementedError(_NO_GRAD_MSG)
+    dev = value.device
+    shapes_t = torch.tensor(spatial_shapes, dtype=torch.int64, device=dev)
+    starts_t = torch.tensor(starts, dtype=torch.int64, device=dev)
+    out = torch.empty(b, q, h * d, dtype=value.dtype, device=dev)
+    err = _build.library().ape_msda_fwd(
+        value.data_ptr(), loc.data_ptr(), att.data_ptr(), shapes_t.data_ptr(),
+        starts_t.data_ptr(), out.data_ptr(), b, s, q, h, d, l, p,
+        int(value.dtype == torch.bfloat16), int(att.dtype == torch.float32),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "msda_fwd")
+    _build.LAUNCHES["msda_fwd"] += 1
+    return out
+
+
+def _route(value, spatial_shapes, loc, att):
+    if value.is_cuda:
+        return msda_fwd_cuda(value, spatial_shapes, loc, att)
+    if value.device.type == "cpu":
+        return ms_deform_attn(value, spatial_shapes, loc, att)
+    raise ValueError(f"no MSDA implementation for device {value.device}")
+
+
+def ms_deform_attn_window(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    pixel_offsets: torch.Tensor,
+    attention_weights: torch.Tensor,
+    radius: float = 4,
+) -> torch.Tensor:
+    """Window-clamped MSDA of the encoder: queries are the pyramid grid.
+
+    pixel_offsets (B, Q, H, L, P, 2) are in value-level pixels around each
+    query's center, valid-ratio shift included. Returns (B, Q, H * D).
+    """
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    loc = window_locations(spatial_shapes, pixel_offsets, radius)
+    return _route(value, spatial_shapes, loc.contiguous(), attention_weights.contiguous())
+
+
+def ms_deform_attn_exact(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """Exact MSDA of the decoder at normalized locations. Returns (B, Q, H * D)."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    loc = sampling_locations.float().contiguous()
+    return _route(value, spatial_shapes, loc, attention_weights.contiguous())
