@@ -7,9 +7,12 @@ CUDA C++ here (``csrc/``), built at first use by ``ops/_build.py``; every
 kernel wrapper keeps a plain PyTorch version beside it, which it takes only
 for tensors on the CPU.
 
-This slice covers APE-Ti inference under the reference latency protocol:
-``modeling.build.build_ape_ti`` -> ``engine.ape_wrapper.APE`` ->
-``engine.defaults.DefaultPredictor``.
+It covers APE-Ti inference under the reference latency protocol
+(``modeling.build.build_ape_ti`` -> ``engine.ape_wrapper.APE`` ->
+``engine.defaults.DefaultPredictor``) and APE-Ti detection training
+(``build_ape_ti(use_act_checkpoint=True)`` -> ``engine.optimizer.build_optimizer``
+-> ``engine.train_step.make_train_step`` with
+``modeling.ape_deta.criterion.DeformableCriterion``).
 """
 
 __version__ = "0.1.0"

@@ -20,7 +20,9 @@
 // free. This first version uses plain f32 FMAs (no mma.sync, wgmma or TMA);
 // tensor cores are later work. Inputs are f32 or bf16, the output is in the
 // input dtype, and N is arbitrary: the last key tile is masked, rows past N
-// are not stored.
+// are not stored. With an lse pointer the kernel also writes each row's
+// f32 log-sum-exp of the scaled scores, the residual attn_bwd.cu recomputes
+// the probabilities from (the library kernel saves l and m for the same use).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -54,7 +56,7 @@ constexpr int smem_floats() {
 template <int DH, typename T>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ out, int N, float scale) {
+                T* __restrict__ out, float* __restrict__ lse, int N, float scale) {
   constexpr int CPT = DH / 16;  // output channels per thread
   constexpr int LDQ = kBQ + kPad;
   constexpr int LDK = kBK + kPad;
@@ -181,6 +183,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     const int row = q0 + ty * 4 + i;
     if (row >= N) continue;
     const float inv = 1.f / l[i];
+    if (lse != nullptr && tx == 0) lse[static_cast<int64_t>(blockIdx.y) * N + row] = m[i] + logf(l[i]);
 #pragma unroll
     for (int e = 0; e < CPT; ++e)
       oh[static_cast<int64_t>(row) * DH + tx * CPT + e] = from_f32<T>(o[i][e] * inv);
@@ -188,8 +191,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 }
 
 template <int DH, typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int BH, int N, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int BH, int N,
+           float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<DH>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<DH, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -198,17 +201,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH, int N
   dim3 grid((N + kBQ - 1) / kBQ, BH);
   attn_fwd_kernel<DH, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), N, scale);
+      static_cast<T*>(out), lse, N, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int BH, int N, int DH,
-             float scale, cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* out, float* lse, int BH, int N,
+             int DH, float scale, cudaStream_t stream) {
   switch (DH) {
-    case 32: return launch<32, T>(q, k, v, out, BH, N, scale, stream);
-    case 64: return launch<64, T>(q, k, v, out, BH, N, scale, stream);
-    case 128: return launch<128, T>(q, k, v, out, BH, N, scale, stream);
+    case 32: return launch<32, T>(q, k, v, out, lse, BH, N, scale, stream);
+    case 64: return launch<64, T>(q, k, v, out, lse, BH, N, scale, stream);
+    case 128: return launch<128, T>(q, k, v, out, lse, BH, N, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -216,12 +219,12 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int BH, int
 }  // namespace
 
 // q, k, v, out: (BH, N, DH) contiguous, all bf16 (is_bf16) or all f32.
-// Returns the launch's cudaError_t.
-extern "C" int ape_attn_fwd(const void* q, const void* k, const void* v, void* out, int BH,
-                            int N, int DH, float scale, int is_bf16, void* stream) {
+// lse: (BH, N) f32, or null to skip it. Returns the launch's cudaError_t.
+extern "C" int ape_attn_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
+                            int BH, int N, int DH, float scale, int is_bf16, void* stream) {
   if (BH == 0 || N == 0) return 0;
   if (BH > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return dispatch<__nv_bfloat16>(q, k, v, out, BH, N, DH, scale, st);
-  return dispatch<float>(q, k, v, out, BH, N, DH, scale, st);
+  if (is_bf16) return dispatch<__nv_bfloat16>(q, k, v, out, lse, BH, N, DH, scale, st);
+  return dispatch<float>(q, k, v, out, lse, BH, N, DH, scale, st);
 }

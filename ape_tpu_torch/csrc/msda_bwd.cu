@@ -1,0 +1,191 @@
+// Multi-scale deformable attention backward: gradients of the exact bilinear
+// gather of msda_fwd.cu with respect to value, locations and weights.
+//
+// Replaces the TPU kernel ape_tpu/ops/msda_window_pallas_bwd.py
+// (ms_deform_attn_window_pallas_bwd -> _run_pair_grad_merged, the merged
+// d_value / d_offsets / d_att pass, K2), the encoder's window-MSDA backward,
+// and serves the decoder's exact-MSDA backward as well (ape_tpu/ops/
+// msda_decoder.py _dec_bwd, an XLA gather VJP plus a dense matmul in JAX).
+// The TPU kernel works on pre-shifted value planes because the TPU has no
+// scatter unit; Hopper has native atomics, so this is the scatter-add
+// backward of the reference CUDA op. The window clip and the division by the
+// level size stay in the caller (torch autograd carries their chain rule):
+// the kernel takes the f32 locations the forward sampled at.
+//
+// For each (b, q, h) and sample s = (l, p), with g = dL/dout[b, q, h, :],
+// a = att[s], pixel (x, y) = loc * (W_l, H_l) - 0.5 and corner weights
+// w_c of the four corners v_c (zero outside the level):
+//
+//   d_att[s]    = <g, sum_c w_c v_c>
+//   d_loc[s].x  = a * <g, (1-fy)(v01 - v00) + fy (v11 - v10)> * W_l
+//   d_loc[s].y  = a * <g, (1-fx)(v10 - v00) + fx (v11 - v01)> * H_l
+//   d_value[c] += a * w_c * g            (f32 atomicAdd)
+//
+// A NaN or out-of-range sample contributes nothing, as in the forward (which
+// also skips x = -1 or y = -1 exactly, where it would add 0).
+//
+// What bounds it on an H100: the scatter. Every sample adds four rows of D
+// floats into d_value with atomics (80 warp-wide reductions of 128 bytes per
+// (b, q, h) at L = 5, P = 4), against the same four corner reads as the
+// forward. The design mirrors the forward: one warp per (b, q, h), lanes over
+// D, so each corner read and each atomic row is one coalesced 128-byte
+// transaction; the three dot products are warp shuffles. d_value is an f32
+// buffer the caller zeroes and casts back to the value dtype; atomics make
+// its sums run-order dependent at the last bits.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarpsPerBlock = 8;
+constexpr int kMaxLevels = 16;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename VT, typename AT>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+msda_bwd_kernel(const VT* __restrict__ value,        // (B, S, H, D)
+                const float* __restrict__ loc,       // (B, Q, H, L, P, 2)
+                const AT* __restrict__ att,          // (B, Q, H, L, P)
+                const int64_t* __restrict__ shapes,  // (L, 2) as (H_l, W_l)
+                const int64_t* __restrict__ starts,  // (L,)
+                const VT* __restrict__ grad_out,     // (B, Q, H * D)
+                float* __restrict__ d_value,         // (B, S, H, D), zeroed by the caller
+                float* __restrict__ d_loc,           // (B, Q, H, L, P, 2)
+                float* __restrict__ d_att,           // (B, Q, H, L, P)
+                int B, int S, int Q, int H, int D, int L, int P) {
+  __shared__ int s_h[kMaxLevels];
+  __shared__ int s_w[kMaxLevels];
+  __shared__ int s_start[kMaxLevels];
+  if (threadIdx.x < L) {
+    s_h[threadIdx.x] = static_cast<int>(shapes[2 * threadIdx.x]);
+    s_w[threadIdx.x] = static_cast<int>(shapes[2 * threadIdx.x + 1]);
+    s_start[threadIdx.x] = static_cast<int>(starts[threadIdx.x]);
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int64_t item = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t n_items = static_cast<int64_t>(B) * Q * H;
+  if (item >= n_items) return;  // whole warps only: item is uniform in a warp
+  const int h = static_cast<int>(item % H);
+  const int64_t bq = item / H;
+  const int b = static_cast<int>(bq / Q);
+
+  const int64_t samp0 = item * L * P;
+  const int64_t base = static_cast<int64_t>(b) * S * H * D + static_cast<int64_t>(h) * D;
+  const VT* vb = value + base;
+  float* dvb = d_value + base;
+  const VT* gq = grad_out + item * D;
+  const int64_t row_stride = static_cast<int64_t>(H) * D;
+
+  for (int l = 0; l < L; ++l) {
+    const int hl = s_h[l];
+    const int wl = s_w[l];
+    const int64_t lvl_off = static_cast<int64_t>(s_start[l]) * row_stride;
+    for (int p = 0; p < P; ++p) {
+      const int64_t s = samp0 + l * P + p;
+      const float a = to_f32(att[s]);
+      // rounded as torch rounds loc * size - 0.5 (no FMA contraction): floor()
+      // then picks the same corners at integer pixels, where d_loc is one-sided
+      const float x = __fsub_rn(__fmul_rn(loc[2 * s], static_cast<float>(wl)), 0.5f);
+      const float y = __fsub_rn(__fmul_rn(loc[2 * s + 1], static_cast<float>(hl)), 0.5f);
+      // also false for NaN: such a sample contributes nothing. At x = -1 (or
+      // y = -1) exactly, which the window clip produces, the forward adds 0
+      // but d_loc keeps its one-sided slope toward the first column, as the
+      // plain version's autograd and JAX's VJP have it.
+      if (!(x >= -1.f && y >= -1.f && x < wl && y < hl)) {
+        if (lane == 0) {
+          d_att[s] = 0.f;
+          d_loc[2 * s] = 0.f;
+          d_loc[2 * s + 1] = 0.f;
+        }
+        continue;
+      }
+      const float xf = floorf(x);
+      const float yf = floorf(y);
+      const int x0 = static_cast<int>(xf);
+      const int y0 = static_cast<int>(yf);
+      const float fx = x - xf;
+      const float fy = y - yf;
+      const bool in_y0 = y0 >= 0, in_y1 = y0 + 1 < hl;
+      const bool in_x0 = x0 >= 0, in_x1 = x0 + 1 < wl;
+      const int64_t r00 = lvl_off + (static_cast<int64_t>(y0) * wl + x0) * row_stride;
+      const int64_t r01 = r00 + row_stride;
+      const int64_t r10 = r00 + static_cast<int64_t>(wl) * row_stride;
+      const int64_t r11 = r10 + row_stride;
+      const float w00 = (1.f - fx) * (1.f - fy), w01 = fx * (1.f - fy);
+      const float w10 = (1.f - fx) * fy, w11 = fx * fy;
+
+      float pa = 0.f, px = 0.f, py = 0.f;
+      for (int d = lane; d < D; d += 32) {
+        const float g = to_f32(gq[d]);
+        const float v00 = (in_y0 && in_x0) ? to_f32(vb[r00 + d]) : 0.f;
+        const float v01 = (in_y0 && in_x1) ? to_f32(vb[r01 + d]) : 0.f;
+        const float v10 = (in_y1 && in_x0) ? to_f32(vb[r10 + d]) : 0.f;
+        const float v11 = (in_y1 && in_x1) ? to_f32(vb[r11 + d]) : 0.f;
+        pa += g * (w00 * v00 + w01 * v01 + w10 * v10 + w11 * v11);
+        px += g * ((1.f - fy) * (v01 - v00) + fy * (v11 - v10));
+        py += g * ((1.f - fx) * (v10 - v00) + fx * (v11 - v01));
+        const float ag = a * g;
+        if (in_y0 && in_x0) atomicAdd(dvb + r00 + d, w00 * ag);
+        if (in_y0 && in_x1) atomicAdd(dvb + r01 + d, w01 * ag);
+        if (in_y1 && in_x0) atomicAdd(dvb + r10 + d, w10 * ag);
+        if (in_y1 && in_x1) atomicAdd(dvb + r11 + d, w11 * ag);
+      }
+      pa = warp_sum(pa);
+      px = warp_sum(px);
+      py = warp_sum(py);
+      if (lane == 0) {
+        d_att[s] = pa;
+        d_loc[2 * s] = a * px * wl;
+        d_loc[2 * s + 1] = a * py * hl;
+      }
+    }
+  }
+}
+
+template <typename VT, typename AT>
+int launch(const void* value, const float* loc, const void* att, const int64_t* shapes,
+           const int64_t* starts, const void* grad_out, float* d_value, float* d_loc,
+           float* d_att, int B, int S, int Q, int H, int D, int L, int P, cudaStream_t stream) {
+  const int64_t n_items = static_cast<int64_t>(B) * Q * H;
+  const int64_t blocks = (n_items + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  msda_bwd_kernel<VT, AT><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const VT*>(value), loc, static_cast<const AT*>(att), shapes, starts,
+      static_cast<const VT*>(grad_out), d_value, d_loc, d_att, B, S, Q, H, D, L, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// value_bf16: value and grad_out are bf16 (else f32). att_f32: attention
+// weights are f32 (else the value dtype). d_value (zeroed), d_loc and d_att
+// are f32. Returns the launch's cudaError_t.
+extern "C" int ape_msda_bwd(const void* value, const float* loc, const void* att,
+                            const int64_t* shapes, const int64_t* starts, const void* grad_out,
+                            float* d_value, float* d_loc, float* d_att,
+                            int B, int S, int Q, int H, int D, int L, int P,
+                            int value_bf16, int att_f32, void* stream) {
+  if (L > kMaxLevels || L < 1 || P < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<int64_t>(B) * Q * H == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (value_bf16) {
+    if (att_f32)
+      return launch<__nv_bfloat16, float>(value, loc, att, shapes, starts, grad_out, d_value,
+                                          d_loc, d_att, B, S, Q, H, D, L, P, st);
+    return launch<__nv_bfloat16, __nv_bfloat16>(value, loc, att, shapes, starts, grad_out,
+                                                 d_value, d_loc, d_att, B, S, Q, H, D, L, P, st);
+  }
+  return launch<float, float>(value, loc, att, shapes, starts, grad_out, d_value, d_loc, d_att,
+                              B, S, Q, H, D, L, P, st);
+}

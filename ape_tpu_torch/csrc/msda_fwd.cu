@@ -86,8 +86,10 @@ msda_fwd_kernel(const VT* __restrict__ value,        // (B, S, H, D)
       for (int p = 0; p < P; ++p) {
         const int64_t s = samp0 + l * P + p;
         const float a = to_f32(att[s]);
-        const float x = loc[2 * s] * wl - 0.5f;
-        const float y = loc[2 * s + 1] * hl - 0.5f;
+        // rounded as torch rounds loc * size - 0.5 (no FMA contraction): floor()
+        // then picks the same corners at integer pixels, where d_loc is one-sided
+        const float x = __fsub_rn(__fmul_rn(loc[2 * s], static_cast<float>(wl)), 0.5f);
+        const float y = __fsub_rn(__fmul_rn(loc[2 * s + 1], static_cast<float>(hl)), 0.5f);
         // also false for NaN: such a sample contributes nothing
         if (!(x > -1.f && y > -1.f && x < wl && y < hl)) continue;
         const float xf = floorf(x);

@@ -1,9 +1,13 @@
-"""APE core vision model, inference heads only (counterpart of
+"""APE core vision model without the mask head (counterpart of
 ``ape_tpu/modeling/ape_deta/model.py``):
 
   backbone (SimpleFeaturePyramid) -> ChannelMapper neck -> 5-level tokens, sine
   position embeddings and per-level validity masks -> two-stage DETA
   transformer -> per-decoder-layer VisionLanguageAlign class logits.
+
+The outputs are JAX's: the last layer's heads and, in training mode only,
+the earlier layers' as ``aux_outputs`` and the first stage's as
+``enc_outputs``, which the criterion reads.
 
 Feature maps are channels-last (B, H, W, C) between modules, as in JAX.
 Parameter names are the reference's (``neck.convs.{i}.conv``,
@@ -130,15 +134,32 @@ class APEDeta(nn.Module):
                for m in masks]
         tr = self.transformer(multi_level_feats, masks, pos, enc_class_head=self.class_embed[-1])
 
+        text = text_features.to(self.dtype)
+        fill = torch.full((), -1e4, dtype=text.dtype, device=text.device)
         # inference reads the last decoder layer only; the earlier class heads
         # serve the auxiliary losses of training
-        state = tr["inter_states"][-1]
-        logits = self.class_embed[-2](state, text_features.to(self.dtype))
-        logits = torch.where(text_valid[:, None, :], logits,
-                             torch.full((), -1e4, dtype=logits.dtype, device=logits.device))
-        return {
-            "pred_logits": logits,  # (B, K, T)
-            "pred_boxes": tr["output_coords"][-1],  # (B, K, 4) cxcywh in [0, 1]
+        layers = len(tr["inter_states"]) if self.training else 1
+        logits = [torch.where(text_valid[:, None, :], head(state, text), fill)
+                  for head, state in zip(self.class_embed[-1 - layers : -1],
+                                         tr["inter_states"][-layers:])]
+        coords = tr["output_coords"]
+        out = {
+            "pred_logits": logits[-1],  # (B, K, T)
+            "pred_boxes": coords[-1],  # (B, K, 4) cxcywh in [0, 1]
             "first_stage_indices": tr["first_stage_indices"],  # (B, K)
             "memory": tr["memory"],  # (B, S, C)
         }
+        if self.training:
+            out.update({
+                "aux_outputs": [{"pred_logits": lo, "pred_boxes": bx}
+                                for lo, bx in zip(logits[:-1], coords[:-1])],
+                "init_reference": tr["init_reference"],  # (B, K, 4)
+                "enc_outputs": {
+                    "pred_logits": tr["enc_logits"][..., None],  # (B, S, 1)
+                    "pred_boxes": tr["enc_coords"],  # (B, S, 4)
+                    "anchors": tr["proposals"],  # (B, S, 4)
+                    "valid": tr["proposal_valid"],  # (B, S)
+                },
+                "text_features": text,  # (B, T, Cl)
+            })
+        return out

@@ -1,5 +1,5 @@
 """DETA-style two-stage deformable transformer (counterpart of
-``ape_tpu/modeling/ape_deta/transformer.py``), inference path:
+``ape_tpu/modeling/ape_deta/transformer.py``):
 
   * encoder: num_layers x [window MSDA self-attention -> norm -> FFN -> norm];
   * two-stage proposals (``gen_output_proposals``) and the DETA first-stage
@@ -7,6 +7,12 @@
     scores and boxes of the select in f32;
   * decoder: num_layers x [self-attention -> exact MSDA cross-attention ->
     FFN], iterative box refinement.
+
+Gradients stop (``.detach()``) where JAX's ``jax.lax.stop_gradient`` stops
+them: at the selected proposal boxes and features, and at the references
+between decoder layers (``with_box_refine``). ``use_act_checkpoint`` recomputes every
+encoder and decoder layer in the backward (JAX's ``nn.remat``, policy
+``full``).
 
 Parameter names are the reference's detrex names (``encoder.layers.{i}.
 attentions.0``, ``ffns.0``, ``norms.{j}``, ``decoder.bbox_embed.{i}``, ...).
@@ -20,6 +26,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ape_tpu_torch.layers.common import FFN, MLP, LayerNorm, Linear, MultiheadAttention
 from ape_tpu_torch.layers.msda_module import MultiScaleDeformableAttention
@@ -27,6 +34,13 @@ from ape_tpu_torch.ops.box_ops import box_cxcywh_to_xyxy
 from ape_tpu_torch.ops.misc import inverse_sigmoid
 from ape_tpu_torch.ops.msda import level_start_index
 from ape_tpu_torch.ops.nms import NEG_INF, nms_mask, sort_desc, topk
+
+
+def _run_layer(layer: nn.Module, use_act_checkpoint: bool, *args):
+    if use_act_checkpoint and torch.is_grad_enabled():
+        return checkpoint(layer, *args, use_reentrant=False)
+    return layer(*args)
+
 
 # ---------------------------------------------------------------------------
 # grid helpers
@@ -205,8 +219,10 @@ class EncoderLayer(nn.Module):
 
 class DeformableTransformerEncoder(nn.Module):
     def __init__(self, embed_dim=256, num_heads=8, feedforward_dim=2048, num_layers=6,
-                 num_feature_levels=5, num_points=4, window_radius=4):
+                 num_feature_levels=5, num_points=4, window_radius=4,
+                 use_act_checkpoint=False):
         super().__init__()
+        self.use_act_checkpoint = use_act_checkpoint
         self.layers = nn.ModuleList(
             EncoderLayer(embed_dim, num_heads, feedforward_dim, num_feature_levels,
                          num_points, window_radius)
@@ -215,7 +231,8 @@ class DeformableTransformerEncoder(nn.Module):
 
     def forward(self, x, pos, valid_mask, spatial_shapes, reference_points, grid_corrections):
         for layer in self.layers:
-            x = layer(x, pos, valid_mask, spatial_shapes, reference_points, grid_corrections)
+            x = _run_layer(layer, self.use_act_checkpoint, x, pos, valid_mask, spatial_shapes,
+                           reference_points, grid_corrections)
         return x
 
 
@@ -246,9 +263,10 @@ class DeformableTransformerDecoder(nn.Module):
     (the extra one scores the encoder proposals)."""
 
     def __init__(self, embed_dim=256, num_heads=8, feedforward_dim=2048, num_layers=6,
-                 num_feature_levels=5, num_points=4):
+                 num_feature_levels=5, num_points=4, use_act_checkpoint=False):
         super().__init__()
         self.num_layers = num_layers
+        self.use_act_checkpoint = use_act_checkpoint
         self.layers = nn.ModuleList(
             DecoderLayer(embed_dim, num_heads, feedforward_dim, num_feature_levels, num_points)
             for _ in range(num_layers)
@@ -261,16 +279,21 @@ class DeformableTransformerDecoder(nn.Module):
     def forward(self, query, query_pos, memory, valid_mask, spatial_shapes,
                 reference_points, valid_ratios):
         """reference_points (B, K, 4) in sigmoid space. Returns the stacked
-        per-layer states (layers, B, K, C) and boxes (layers, B, K, 4)."""
+        per-layer states (layers, B, K, C) and boxes (layers, B, K, 4). Each
+        layer's box refines the previous one's, with the gradient stopped at
+        the previous box (``look_forward_twice=False``, as ``ape_tpu``'s
+        builds)."""
         x = query
         refs = reference_points
         states, coords = [], []
         vr4 = torch.cat([valid_ratios, valid_ratios], -1)[:, None, :, :]
         for layer, head in zip(self.layers, self.bbox_embed):
-            x = layer(x, query_pos, memory, valid_mask, spatial_shapes, refs[:, :, None, :] * vr4)
-            refs = torch.sigmoid(head(x) + inverse_sigmoid(refs))
+            x = _run_layer(layer, self.use_act_checkpoint, x, query_pos, memory, valid_mask,
+                           spatial_shapes, refs[:, :, None, :] * vr4)
+            new_refs = torch.sigmoid(head(x) + inverse_sigmoid(refs))
             states.append(x)
-            coords.append(refs)
+            coords.append(new_refs)
+            refs = new_refs.detach()
         return torch.stack(states), torch.stack(coords)
 
 
@@ -322,22 +345,32 @@ class DeformableDetrTransformer(nn.Module):
         enc_coords_unact = torch.where(proposal_valid[..., None], enc_coords_unact,
                                        torch.full_like(enc_coords_unact, 30.0))
 
-        sel = deta_first_stage_select(enc_logits, enc_coords_unact, spatial_shapes,
-                                      self.two_stage_num_proposals)
-        topk_coords_unact = enc_coords_unact.gather(1, sel[..., None].expand(-1, -1, 4))
+        with torch.no_grad():
+            sel = deta_first_stage_select(enc_logits, enc_coords_unact, spatial_shapes,
+                                          self.two_stage_num_proposals)
+        topk_coords_unact = enc_coords_unact.gather(1, sel[..., None].expand(-1, -1, 4)).detach()
         init_reference = torch.sigmoid(topk_coords_unact)
 
         pos_trans = self.pos_trans_norm(self.pos_trans(
             proposal_pos_embed(topk_coords_unact, num_pos_feats=c // 2).to(feat.dtype)))
         query_pos, query = pos_trans.chunk(2, dim=-1)
-        topk_feats = out_memory.gather(1, sel[..., None].expand(-1, -1, c))
+        topk_feats = out_memory.gather(1, sel[..., None].expand(-1, -1, c)).detach()
         query = query + self.pix_trans_norm(self.pix_trans(topk_feats))
 
         inter_states, output_coords = self.decoder(
             query, query_pos, memory, valid, spatial_shapes, init_reference, valid_ratios)
-        return {
+        out = {
             "inter_states": inter_states,  # (layers, B, K, C)
             "output_coords": output_coords,  # (layers, B, K, 4) sigmoid space
             "first_stage_indices": sel,  # (B, K)
             "memory": memory,  # (B, S, C)
         }
+        if self.training:  # the first stage's outputs, for the losses
+            out.update({
+                "init_reference": init_reference,  # (B, K, 4)
+                "enc_logits": enc_logits,  # (B, S)
+                "enc_coords": torch.sigmoid(enc_coords_unact),  # (B, S, 4)
+                "proposals": torch.sigmoid(proposals_unact),  # (B, S, 4) anchors
+                "proposal_valid": proposal_valid,  # (B, S)
+            })
+        return out

@@ -39,11 +39,13 @@ def build_ape_ti(
     window_radius: int = 4,
     scale_factors: Sequence[float] = (4.0, 2.0, 1.0, 0.5),
     dtype: torch.dtype = torch.float32,
+    use_act_checkpoint: bool = False,
 ) -> APEDeta:
     """APE-Ti for any square input size (shapes follow the input). The
     reference latency protocol passes ``mask_on=False`` and
     ``scale_factors=(2.0, 1.0, 0.5)``: the neck then extends the pyramid to 5
-    levels with one stride-2 extra conv."""
+    levels with one stride-2 extra conv. use_act_checkpoint recomputes every
+    encoder and decoder layer in the backward (training at 1024^2)."""
     sfp_names, levels = pyramid_features(scale_factors)
     backbone = SimpleFeaturePyramid(
         EVAViT(patch_size=16, embed_dim=192, depth=12, num_heads=3,
@@ -53,9 +55,11 @@ def build_ape_ti(
     transformer = DeformableDetrTransformer(
         DeformableTransformerEncoder(embed_dim=256, num_heads=8, feedforward_dim=2048,
                                      num_layers=6, num_feature_levels=5,
-                                     window_radius=window_radius),
+                                     window_radius=window_radius,
+                                     use_act_checkpoint=use_act_checkpoint),
         DeformableTransformerDecoder(embed_dim=256, num_heads=8, feedforward_dim=2048,
-                                     num_layers=6, num_feature_levels=5),
+                                     num_layers=6, num_feature_levels=5,
+                                     use_act_checkpoint=use_act_checkpoint),
         embed_dim=256, num_feature_levels=5, two_stage_num_proposals=num_queries)
     return APEDeta(
         backbone, ChannelMapper(sfp_names, 256, 256, num_outs=5), transformer,

@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 All ``ape_tpu_torch/csrc/*.cu`` sources compile with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
-``ctypes``. The library lives in ``build/ape_tpu_torch/<hash>/`` at the root
+(``sm_90a``), one ``nvcc`` process per source, all started together, and link
+into one shared library with a plain C interface, loaded with ``ctypes``. The library lives in ``build/ape_tpu_torch/<hash>/`` at the root
 of the checkout, keyed by a hash of the sources and flags, so a changed source
 rebuilds and an unchanged one loads at once. Nothing is compiled when a
 module is imported: the first kernel launch builds. A failed build raises.
@@ -25,11 +25,12 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ape_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libape_tpu_torch_kernels.so"
 
-LAUNCHES = {"msda_fwd": 0, "attn_fwd": 0}
+LAUNCHES = {"msda_fwd": 0, "msda_bwd": 0, "attn_fwd": 0,
+            "attn_bwd_delta": 0, "attn_bwd_dkv": 0, "attn_bwd_dq": 0}
 
 
 def reset_launches() -> None:
@@ -67,12 +68,25 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in _sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(compiles, procs)]
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    if all(rc == 0 for _, _, rc in logs):
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append((link, proc.stdout, proc.returncode))
+    (out_dir / "nvcc.log").write_text("".join(f"{' '.join(cmd)}\n{out}" for cmd, out, _ in logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    failed = [(cmd, out, rc) for cmd, out, rc in logs if rc != 0]
+    if failed:
+        cmd, out, rc = failed[0]
+        raise RuntimeError(f"kernel build failed ({rc}): {' '.join(cmd)}\n{out[-4000:]}")
     os.replace(tmp, lib)
     return lib
 
@@ -84,8 +98,16 @@ def library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ape_msda_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.ape_msda_fwd.restype = i
-    lib.ape_attn_fwd.argtypes = [p, p, p, p, i, i, i, f, i, p]
+    lib.ape_msda_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.ape_msda_bwd.restype = i
+    lib.ape_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, f, i, p]
     lib.ape_attn_fwd.restype = i
+    lib.ape_attn_bwd_delta.argtypes = [p, p, p, i, i, i, i, p]
+    lib.ape_attn_bwd_delta.restype = i
+    lib.ape_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, i, p]
+    lib.ape_attn_bwd_dkv.restype = i
+    lib.ape_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, f, i, p]
+    lib.ape_attn_bwd_dq.restype = i
     return lib
 
 

@@ -1,5 +1,5 @@
-"""MSDA entry points: the CUDA gather kernel for CUDA tensors, the plain
-version for CPU tensors.
+"""MSDA entry points: the CUDA gather kernel and its backward for CUDA
+tensors, the plain version (and torch autograd of it) for CPU tensors.
 
 Counterpart of ``ape_tpu/ops/msda_dispatch.py`` (encoder, window mode) and
 ``ape_tpu/ops/msda_decoder.py`` (decoder, exact mode). Both modes reduce to
@@ -13,6 +13,13 @@ one exact bilinear gather, ``csrc/msda_fwd.cu``:
 Locations stay f32 in both modes. (The JAX exact path rounds them to the
 value dtype first, ``loc.astype(value.dtype)``; at bf16 that moves a tap by up
 to 0.25 px on a 128-wide level.)
+
+Gradients: ``_MSDAFunction`` pairs the forward with ``csrc/msda_bwd.cu`` (K2,
+the merged backward ``ape_tpu/ops/msda_window_pallas_bwd.py`` runs on the
+TPU), which returns d_value, d_loc and d_att for both modes. The window clip
+and the division by the level size stay in torch (``window_locations``), so
+autograd carries their chain rule. JAX's dense-matmul decoder backward
+(``_dvalue_dense``) is not ported: the decoder's backward runs on K2 too.
 """
 
 from __future__ import annotations
@@ -23,8 +30,6 @@ import torch
 
 from ape_tpu_torch.ops import _build
 from ape_tpu_torch.ops.msda import level_start_index, ms_deform_attn
-
-_NO_GRAD_MSG = "backward kernels land with Ti training"
 
 
 def grid_centers(spatial_shapes: Sequence[Tuple[int, int]], device) -> torch.Tensor:
@@ -55,20 +60,16 @@ def window_locations(
     return centers[None, :, None, None, None, :] + off / norm[None, None, None, :, None, :]
 
 
-def msda_fwd_cuda(
-    value: torch.Tensor,
-    spatial_shapes: Sequence[Tuple[int, int]],
-    loc: torch.Tensor,
-    att: torch.Tensor,
-) -> torch.Tensor:
-    """Launch ``csrc/msda_fwd.cu``. Shapes and layouts as ``ops.msda.ms_deform_attn``."""
+def _check_inputs(name, value, spatial_shapes, loc, att):
+    """Validate the kernels' inputs; returns the sizes and the level tables
+    as int64 tensors on the value's device."""
     b, s, h, d = value.shape
     if value.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"msda_fwd takes f32 or bf16 value, got {value.dtype}")
+        raise TypeError(f"{name} takes f32 or bf16 value, got {value.dtype}")
     if loc.dtype != torch.float32:
-        raise TypeError(f"msda_fwd takes f32 locations, got {loc.dtype}")
+        raise TypeError(f"{name} takes f32 locations, got {loc.dtype}")
     if att.dtype not in (value.dtype, torch.float32):
-        raise TypeError(f"msda_fwd takes attention weights in {value.dtype} or f32, got {att.dtype}")
+        raise TypeError(f"{name} takes attention weights in {value.dtype} or f32, got {att.dtype}")
     if loc.dim() != 6 or loc.shape[-1] != 2 or loc.shape[0] != b or loc.shape[2] != h:
         raise ValueError(f"locations {tuple(loc.shape)} do not match value {tuple(value.shape)}")
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
@@ -79,28 +80,89 @@ def msda_fwd_cuda(
         raise ValueError(f"value length {s} / {l} levels do not match {spatial_shapes}")
     for t in (value, loc, att):
         if t.device != value.device or not t.is_cuda:
-            raise ValueError("msda_fwd takes CUDA tensors on one device")
+            raise ValueError(f"{name} takes CUDA tensors on one device")
         if not t.is_contiguous():
-            raise ValueError("msda_fwd takes contiguous tensors")
-        if t.requires_grad:
-            raise NotImplementedError(_NO_GRAD_MSG)
-    dev = value.device
-    shapes_t = torch.tensor(spatial_shapes, dtype=torch.int64, device=dev)
-    starts_t = torch.tensor(starts, dtype=torch.int64, device=dev)
-    out = torch.empty(b, q, h * d, dtype=value.dtype, device=dev)
+            raise ValueError(f"{name} takes contiguous tensors")
+    tables = (torch.tensor(spatial_shapes, dtype=torch.int64, device=value.device),
+              torch.tensor(starts, dtype=torch.int64, device=value.device))
+    return (b, s, q, h, d, l, p), tables
+
+
+def msda_fwd_cuda(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    loc: torch.Tensor,
+    att: torch.Tensor,
+) -> torch.Tensor:
+    """Launch ``csrc/msda_fwd.cu``. Shapes and layouts as ``ops.msda.ms_deform_attn``."""
+    sizes, (shapes_t, starts_t) = _check_inputs("msda_fwd", value, spatial_shapes, loc, att)
+    b, _, q, h, d, _, _ = sizes
+    out = torch.empty(b, q, h * d, dtype=value.dtype, device=value.device)
     err = _build.library().ape_msda_fwd(
         value.data_ptr(), loc.data_ptr(), att.data_ptr(), shapes_t.data_ptr(),
-        starts_t.data_ptr(), out.data_ptr(), b, s, q, h, d, l, p,
+        starts_t.data_ptr(), out.data_ptr(), *sizes,
         int(value.dtype == torch.bfloat16), int(att.dtype == torch.float32),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(value.device).cuda_stream,
     )
     _build.check(err, "msda_fwd")
     _build.LAUNCHES["msda_fwd"] += 1
     return out
 
 
+def msda_bwd_cuda(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    loc: torch.Tensor,
+    att: torch.Tensor,
+    grad_out: torch.Tensor,
+):
+    """Launch ``csrc/msda_bwd.cu``: (d_value, d_loc, d_att) of ``msda_fwd_cuda``
+    for the upstream gradient grad_out (B, Q, H * D), in the dtypes of value,
+    loc (f32) and att. d_value is summed by f32 atomics, then cast."""
+    sizes, (shapes_t, starts_t) = _check_inputs("msda_bwd", value, spatial_shapes, loc, att)
+    b, s, q, h, d, _, _ = sizes
+    if grad_out.dtype != value.dtype or tuple(grad_out.shape) != (b, q, h * d):
+        raise ValueError(f"msda_bwd: grad {grad_out.dtype} {tuple(grad_out.shape)} does not match "
+                         f"value {value.dtype} and {(b, q, h * d)}")
+    if not grad_out.is_contiguous() or grad_out.device != value.device:
+        raise ValueError("msda_bwd takes a contiguous grad on the value's device")
+    d_value = torch.zeros(b, s, h, d, dtype=torch.float32, device=value.device)
+    d_loc = torch.empty(loc.shape, dtype=torch.float32, device=value.device)
+    d_att = torch.empty(att.shape, dtype=torch.float32, device=value.device)
+    err = _build.library().ape_msda_bwd(
+        value.data_ptr(), loc.data_ptr(), att.data_ptr(), shapes_t.data_ptr(),
+        starts_t.data_ptr(), grad_out.data_ptr(), d_value.data_ptr(), d_loc.data_ptr(),
+        d_att.data_ptr(), *sizes,
+        int(value.dtype == torch.bfloat16), int(att.dtype == torch.float32),
+        torch.cuda.current_stream(value.device).cuda_stream,
+    )
+    _build.check(err, "msda_bwd")
+    _build.LAUNCHES["msda_bwd"] += 1
+    return d_value.to(value.dtype), d_loc, d_att.to(att.dtype)
+
+
+class _MSDAFunction(torch.autograd.Function):
+    """msda_fwd.cu forward, msda_bwd.cu backward (CUDA tensors only)."""
+
+    @staticmethod
+    def forward(ctx, value, loc, att, spatial_shapes):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, att)
+        return msda_fwd_cuda(value, spatial_shapes, loc, att)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, att = ctx.saved_tensors
+        d_value, d_loc, d_att = msda_bwd_cuda(value, ctx.spatial_shapes, loc, att,
+                                              grad_out.contiguous())
+        return d_value, d_loc, d_att, None
+
+
 def _route(value, spatial_shapes, loc, att):
     if value.is_cuda:
+        if torch.is_grad_enabled() and (value.requires_grad or loc.requires_grad
+                                        or att.requires_grad):
+            return _MSDAFunction.apply(value, loc, att, spatial_shapes)
         return msda_fwd_cuda(value, spatial_shapes, loc, att)
     if value.device.type == "cpu":
         return ms_deform_attn(value, spatial_shapes, loc, att)
