@@ -11,6 +11,7 @@ inverted:
                                            kernel as is, torch scatters it)
   LayerNorm / GroupNorm scale           -> weight
   decoder self-attention q/k/v_proj     -> packed in_proj_weight / in_proj_bias
+  mask head lateral_norm / output_norm  -> the ``norm`` of lateral_conv / output_conv
 """
 
 from __future__ import annotations
@@ -113,12 +114,23 @@ def _convert_one(key: str, v, neck_levels, num_layers: int):
     m = re.fullmatch(r"enc_class_head_linear/(kernel|bias)", key)
     if m:
         return f"class_embed.{num_layers}.{_leaf(m[1])}", _tf(m[1])(v)
+    m = re.fullmatch(r"(lateral|output|mask)_conv/kernel", key)
+    if m:
+        return f"{m[1]}_conv.weight", _conv(v)
+    m = re.fullmatch(r"(lateral|output)_norm/(scale|bias)", key)
+    if m:
+        return f"{m[1]}_conv.norm.{_leaf(m[2])}", np.asarray(v)
+    m = re.fullmatch(r"mask_embed(?:_(\d+))?/layer(\d+)/(kernel|bias)", key)
+    if m:
+        head = "mask_embed" if m[1] is None else f"mask_embed.{m[1]}"
+        return f"{head}.layers.{m[2]}.{_leaf(m[3])}", _tf(m[3])(v)
     return None
 
 
 def state_dict_from_jax(flat_params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flat flax params ("a/b/kernel" -> numpy) of the APE-Ti protocol tree
-    to the port's state_dict. Raises on a key it cannot place."""
+    """Flat flax params ("a/b/kernel" -> numpy) of an APE-Ti tree (the
+    protocol's or the masked model's) to the port's state_dict. Raises on a
+    key it cannot place."""
     neck_levels = sorted({m[1] for k in flat_params
                           if (m := re.fullmatch(r"neck/conv_(\w+)/kernel", k))})
     num_layers = len({m[1] for k in flat_params if (m := re.match(r"class_embed_(\d+)/", k))})

@@ -32,24 +32,19 @@
 // transaction; the three dot products are warp shuffles. d_value is an f32
 // buffer the caller zeroes and casts back to the value dtype; atomics make
 // its sums run-order dependent at the last bits.
+//
+// The rounding of loc * size - 0.5 and the boundary test come from
+// msda_sample.cuh, shared with the split form (msda_bwd_split.cu). The rest
+// of the per-sample arithmetic is the same expressions as that header's
+// Sample helpers, written out here: through the Sample struct the bf16
+// instantiations took 80 registers a thread instead of 64 and ran ~11 %
+// slower on an H100.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "msda_sample.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxLevels = 16;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+using namespace ape_msda;
 
 template <typename VT, typename AT>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -63,15 +58,8 @@ msda_bwd_kernel(const VT* __restrict__ value,        // (B, S, H, D)
                 float* __restrict__ d_loc,           // (B, Q, H, L, P, 2)
                 float* __restrict__ d_att,           // (B, Q, H, L, P)
                 int B, int S, int Q, int H, int D, int L, int P) {
-  __shared__ int s_h[kMaxLevels];
-  __shared__ int s_w[kMaxLevels];
-  __shared__ int s_start[kMaxLevels];
-  if (threadIdx.x < L) {
-    s_h[threadIdx.x] = static_cast<int>(shapes[2 * threadIdx.x]);
-    s_w[threadIdx.x] = static_cast<int>(shapes[2 * threadIdx.x + 1]);
-    s_start[threadIdx.x] = static_cast<int>(starts[threadIdx.x]);
-  }
-  __syncthreads();
+  __shared__ Levels lv;
+  load_levels(lv, shapes, starts, L);
 
   const int lane = threadIdx.x & 31;
   const int64_t item = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -89,21 +77,15 @@ msda_bwd_kernel(const VT* __restrict__ value,        // (B, S, H, D)
   const int64_t row_stride = static_cast<int64_t>(H) * D;
 
   for (int l = 0; l < L; ++l) {
-    const int hl = s_h[l];
-    const int wl = s_w[l];
-    const int64_t lvl_off = static_cast<int64_t>(s_start[l]) * row_stride;
+    const int hl = lv.h[l];
+    const int wl = lv.w[l];
+    const int64_t lvl_off = static_cast<int64_t>(lv.start[l]) * row_stride;
     for (int p = 0; p < P; ++p) {
       const int64_t s = samp0 + l * P + p;
       const float a = to_f32(att[s]);
-      // rounded as torch rounds loc * size - 0.5 (no FMA contraction): floor()
-      // then picks the same corners at integer pixels, where d_loc is one-sided
-      const float x = __fsub_rn(__fmul_rn(loc[2 * s], static_cast<float>(wl)), 0.5f);
-      const float y = __fsub_rn(__fmul_rn(loc[2 * s + 1], static_cast<float>(hl)), 0.5f);
-      // also false for NaN: such a sample contributes nothing. At x = -1 (or
-      // y = -1) exactly, which the window clip produces, the forward adds 0
-      // but d_loc keeps its one-sided slope toward the first column, as the
-      // plain version's autograd and JAX's VJP have it.
-      if (!(x >= -1.f && y >= -1.f && x < wl && y < hl)) {
+      const float x = pixel(loc[2 * s], wl);
+      const float y = pixel(loc[2 * s + 1], hl);
+      if (!live(x, y, hl, wl)) {
         if (lane == 0) {
           d_att[s] = 0.f;
           d_loc[2 * s] = 0.f;

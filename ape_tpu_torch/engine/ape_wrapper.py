@@ -1,11 +1,13 @@
 """APE: the prompted-inference wrapper (counterpart of
-``ape_tpu/engine/ape_wrapper.py``), instance output only.
+``ape_tpu/engine/ape_wrapper.py``): instance, semantic and panoptic outputs.
 
 It holds the vision model and a language model (any object with
 ``forward_text(text_list, cache=True)`` returning the per-text features or a
 dict with ``last_hidden_state_eot``), turns a comma-separated text prompt or
 the eval dataset's vocabulary into padded text features, runs the vision
-model and the instance postprocessing. Dataset metadata comes in as objects
+model and the postprocessing of each output it is asked for: instances (with
+their mask logits when the model has a mask head), per-class semantic maps
+``sem_seg``, and the device half of panoptic inference ``panoptic_raw``. Dataset metadata comes in as objects
 with ``name`` and ``get(key, default)``, such as the ``Metadata`` of
 ``ape_tpu.data.catalog``; the port imports nothing of ``ape_tpu``.
 
@@ -21,7 +23,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ape_tpu_torch.modeling.ape_deta.postprocess import instance_inference
+from ape_tpu_torch.modeling.ape_deta.postprocess import (
+    instance_inference,
+    panoptic_scores,
+    semantic_inference,
+)
 
 
 def get_text_list(metadata) -> List[str]:
@@ -43,6 +49,9 @@ class APE:
         test_score_thresh: float = 0.05,
         test_nms_thresh: float = 0.5,
         select_box_nums_for_evaluation: int = 300,
+        instance_on: bool = True,
+        semantic_on: bool = True,
+        panoptic_on: bool = False,
     ):
         self.model = model
         self.model_language = model_language
@@ -52,6 +61,9 @@ class APE:
         self.test_score_thresh = test_score_thresh
         self.test_nms_thresh = test_nms_thresh
         self.select_box_nums = select_box_nums_for_evaluation
+        self.instance_on = instance_on
+        self.semantic_on = semantic_on
+        self.panoptic_on = panoptic_on
         self.eval_dataset_id = 0 if self.metadata_list else -1
         self._text_cache: Dict[tuple, np.ndarray] = {}
 
@@ -102,7 +114,10 @@ class APE:
     def __call__(self, batched_inputs: List[Dict]) -> List[Dict]:
         """Inference on mapped inputs: ``image`` (H, W, 3) normalized and padded,
         ``image_size`` (2,) valid (h, w), optional ``text_prompt`` and ``scale``
-        (input pixels per original pixel)."""
+        (input pixels per original pixel). Mask outputs need ``mask_on``:
+        ``instances["mask_logits"]`` (N, Hm, Wm), ``sem_seg`` (T_pad, Hm, Wm)
+        over the padded vocabulary, and ``panoptic_raw``, all at the
+        mask-feature resolution of the padded input."""
         results = []
         for inp in batched_inputs:
             text_list = self.vocabulary(inp.get("text_prompt")) or ["object"]
@@ -110,26 +125,37 @@ class APE:
             image = torch.as_tensor(inp["image"], device=self.device)[None]
             size = torch.as_tensor(inp["image_size"], device=self.device)
             out = self.model(image, size[None], txt, tvalid)
-
-            # with an explicit thing/stuff split the instance path sees things only
-            inst_valid = tvalid[0]
-            if 0 <= self.eval_dataset_id < len(self.metadata_list) and not inp.get("text_prompt"):
-                n_thing = len(self.metadata_list[self.eval_dataset_id].get("thing_classes", []) or [])
-                if n_thing and n_thing < len(text_list):
-                    inst_valid = inst_valid & (torch.arange(inst_valid.shape[0], device=self.device) < n_thing)
-            inst = instance_inference(
-                out["pred_logits"][0], out["pred_boxes"][0], size, inst_valid,
-                score_thresh=self.test_score_thresh, nms_thresh=self.test_nms_thresh,
-                topk=self.select_box_nums)
-            keep = inst["valid"]
-            results.append({
-                "image_id": inp.get("image_id", 0),
-                "instances": {
-                    "boxes": inst["boxes"][keep] / inp.get("scale", 1.0),
-                    "scores": inst["scores"][keep],
-                    "classes": inst["classes"][keep],
-                },
-                "text_list": text_list,
-                "prompt_type": self.prompt_type(inp),
-            })
+            masks = out["pred_masks"][0] if "pred_masks" in out else None
+            res = {"image_id": inp.get("image_id", 0)}
+            if self.instance_on:
+                res["instances"] = self._instances(inp, out, size, tvalid[0], len(text_list), masks)
+            if self.semantic_on and masks is not None:
+                res["sem_seg"] = semantic_inference(out["pred_logits"][0], masks, tvalid[0])
+            if self.panoptic_on and masks is not None:
+                scores, labels, raw = panoptic_scores(out["pred_logits"][0], tvalid[0])
+                res["panoptic_raw"] = {"scores": scores, "labels": labels, "raw_scores": raw,
+                                       "mask_logits": masks}
+            res.update(text_list=text_list, prompt_type=self.prompt_type(inp))
+            results.append(res)
         return results
+
+    def _instances(self, inp, out, size, tvalid, n_text, masks):
+        # with an explicit thing/stuff split the instance path sees things only
+        inst_valid = tvalid
+        if 0 <= self.eval_dataset_id < len(self.metadata_list) and not inp.get("text_prompt"):
+            n_thing = len(self.metadata_list[self.eval_dataset_id].get("thing_classes", []) or [])
+            if n_thing and n_thing < n_text:
+                inst_valid = inst_valid & (torch.arange(inst_valid.shape[0], device=self.device) < n_thing)
+        inst = instance_inference(
+            out["pred_logits"][0], out["pred_boxes"][0], size, inst_valid,
+            score_thresh=self.test_score_thresh, nms_thresh=self.test_nms_thresh,
+            topk=self.select_box_nums)
+        keep = inst["valid"]
+        instances = {
+            "boxes": inst["boxes"][keep] / inp.get("scale", 1.0),
+            "scores": inst["scores"][keep],
+            "classes": inst["classes"][keep],
+        }
+        if masks is not None:
+            instances["mask_logits"] = masks[inst["query_idx"][keep]]
+        return instances

@@ -46,7 +46,10 @@ class DefaultPredictor:
         self.image_size = image_size
 
     def __call__(self, original_image: np.ndarray, text_prompt: Optional[str] = None) -> Dict:
-        """original_image: RGB uint8 (H, W, 3). Boxes come back in its pixels."""
+        """original_image: RGB uint8 (H, W, 3). Returns the APE wrapper's result
+        for it: instances with boxes in its pixels (and ``mask_logits``), and
+        as the wrapper is configured ``sem_seg`` and ``panoptic_raw``, whose
+        maps cover the padded canvas at the mask-feature resolution."""
         image = torch.as_tensor(original_image, device=self.model.device)
         h0, w0 = image.shape[:2]
         resized, r = resize_shortest_edge(image, self.image_size, self.image_size)

@@ -1,8 +1,14 @@
-"""Instance inference postprocessing (counterpart of
-``ape_tpu/modeling/ape_deta/postprocess.py``): score threshold, a fixed
-pre-NMS top-k over the (queries x classes) scores, class-aware greedy NMS,
-then the top ``topk`` survivors. Outputs keep fixed shapes with a validity
-mask, as in JAX.
+"""Inference postprocessing (counterpart of
+``ape_tpu/modeling/ape_deta/postprocess.py``).
+
+Instances: score threshold, a fixed pre-NMS top-k over the (queries x
+classes) scores, class-aware greedy NMS, then the top ``topk`` survivors.
+Outputs keep fixed shapes with a validity mask, as in JAX.
+
+Semantic and panoptic: per-class probability maps from the query masks, the
+per-query (score, label) of the panoptic merge under the softmax(sigmoid / T)
+transform, and the stuff-score routing. The merge of masks into segments
+(``ape_tpu/evaluation``) runs on the host and is not ported.
 """
 
 from __future__ import annotations
@@ -57,3 +63,63 @@ def instance_inference(
         "query_idx": cand_q[sel],
         "valid": valid,
     }
+
+
+def _class_probs(logits: torch.Tensor, class_valid: torch.Tensor, pano_temp: float,
+                 transform_eval: bool) -> torch.Tensor:
+    """sigmoid of the (K, T) logits, 0 at invalid classes, then with
+    ``transform_eval`` a softmax of sigmoid / pano_temp over the valid classes."""
+    cls = torch.sigmoid(logits.float())
+    cls = torch.where(class_valid[None, :], cls, torch.zeros_like(cls))
+    if transform_eval:
+        cls = torch.softmax(torch.where(class_valid[None, :], cls / pano_temp,
+                                        torch.full_like(cls, -torch.inf)), -1)
+    return cls
+
+
+def semantic_inference(
+    logits: torch.Tensor,  # (K, T)
+    mask_logits: torch.Tensor,  # (K, Hm, Wm)
+    class_valid: torch.Tensor,  # (T,) bool
+    pano_temp: float = 0.06,
+    transform_eval: bool = True,
+) -> torch.Tensor:
+    """Per-class semantic probability maps (T, Hm, Wm) at mask-feature resolution."""
+    cls = _class_probs(logits, class_valid, pano_temp, transform_eval)
+    masks = torch.sigmoid(mask_logits.float())
+    k, hm, wm = masks.shape
+    return torch.matmul(cls.t(), masks.reshape(k, hm * wm)).reshape(-1, hm, wm)
+
+
+def panoptic_scores(
+    logits: torch.Tensor,  # (K, T)
+    class_valid: torch.Tensor,  # (T,) bool
+    pano_temp: float = 0.06,
+    transform_eval: bool = True,
+):
+    """Device half of panoptic inference: per-query (score, label) under the
+    softmax(sigmoid / T) transform, plus the raw sigmoid max for thresholding."""
+    sig = _class_probs(logits, class_valid, pano_temp, False)
+    raw_scores = sig.max(-1).values
+    if not transform_eval:
+        return raw_scores, sig.argmax(-1), raw_scores
+    scores, labels = _class_probs(logits, class_valid, pano_temp, True).max(-1)
+    return scores, labels, raw_scores
+
+
+def get_stuff_score(
+    logits: torch.Tensor,  # (K, T)
+    thing_mask: torch.Tensor,  # (T,) bool, True where the class is a thing
+    stuff_prob_thing: float = -1.0,
+) -> torch.Tensor:
+    """(K, 1 + T): one "things" column (the best thing score, or the constant
+    ``stuff_prob_thing`` when positive), then the stuff classes' scores with
+    the things zeroed."""
+    sig = torch.sigmoid(logits.float())
+    zeros = torch.zeros_like(sig)
+    stuff = torch.where(~thing_mask[None, :], sig, zeros)
+    if stuff_prob_thing > 0:
+        things = torch.full_like(sig[:, :1], stuff_prob_thing)
+    else:
+        things = torch.where(thing_mask[None, :], sig, zeros).max(-1, keepdim=True).values
+    return torch.cat([things, stuff], -1)

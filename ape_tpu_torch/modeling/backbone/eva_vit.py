@@ -213,6 +213,7 @@ class SimpleFeaturePyramid(nn.Module):
                  scale_factors: Sequence[float] = (4.0, 2.0, 1.0, 0.5)):
         super().__init__()
         self.net = net
+        self.out_channels = out_channels
         self.scale_factors = tuple(scale_factors)
         dim = net.embed_dim
         self.stages = []

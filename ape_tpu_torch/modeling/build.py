@@ -1,6 +1,7 @@
 """Model factory for APE-Ti (counterpart of ``ape_tpu/modeling/build.py``):
 EVA-02-Ti backbone (192-d, 12 blocks, 3 heads, window 14, packed SwiGLU), the
-6+6-layer deformable transformer with 900 queries, no vision-language fusion.
+6+6-layer deformable transformer with 900 queries, no vision-language fusion,
+and by default the mask head on the finest pyramid level.
 """
 
 from __future__ import annotations
@@ -40,8 +41,12 @@ def build_ape_ti(
     scale_factors: Sequence[float] = (4.0, 2.0, 1.0, 0.5),
     dtype: torch.dtype = torch.float32,
     use_act_checkpoint: bool = False,
+    mask_encode_level: int = 0,
+    aux_mask: bool = False,
 ) -> APEDeta:
     """APE-Ti for any square input size (shapes follow the input). The
+    defaults are JAX's: the masked model on the 4-scale pyramid (levels p2 …
+    p6), whose mask head reads the finest backbone map and encoder level. The
     reference latency protocol passes ``mask_on=False`` and
     ``scale_factors=(2.0, 1.0, 0.5)``: the neck then extends the pyramid to 5
     levels with one stride-2 extra conv. use_act_checkpoint recomputes every
@@ -64,4 +69,5 @@ def build_ape_ti(
     return APEDeta(
         backbone, ChannelMapper(sfp_names, 256, 256, num_outs=5), transformer,
         embed_dim=256, embed_dim_language=embed_dim_language, in_features=levels,
-        mask_on=mask_on, dtype=dtype)
+        mask_on=mask_on, mask_in_feature=levels[0], mask_encode_level=mask_encode_level,
+        aux_mask=aux_mask, dtype=dtype)

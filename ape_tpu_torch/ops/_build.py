@@ -2,10 +2,12 @@
 
 All ``ape_tpu_torch/csrc/*.cu`` sources compile with ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc`` process per source, all started together, and link
-into one shared library with a plain C interface, loaded with ``ctypes``. The library lives in ``build/ape_tpu_torch/<hash>/`` at the root
-of the checkout, keyed by a hash of the sources and flags, so a changed source
-rebuilds and an unchanged one loads at once. Nothing is compiled when a
-module is imported: the first kernel launch builds. A failed build raises.
+into one shared library with a plain C interface, loaded with ``ctypes``. The
+library lives in ``build/ape_tpu_torch/<hash>/`` at the root of the checkout,
+keyed by a hash of the flags, the sources and the ``*.cuh`` headers they
+include, so a changed file rebuilds and an unchanged build loads at once.
+Nothing is compiled when a module is imported: the first kernel launch
+builds. A failed build raises.
 
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
 where it launches its kernel and nowhere else.
@@ -29,8 +31,8 @@ NVCC_FLAGS = (
 )
 LIB_NAME = "libape_tpu_torch_kernels.so"
 
-LAUNCHES = {"msda_fwd": 0, "msda_bwd": 0, "attn_fwd": 0,
-            "attn_bwd_delta": 0, "attn_bwd_dkv": 0, "attn_bwd_dq": 0}
+LAUNCHES = {"msda_fwd": 0, "msda_bwd": 0, "msda_bwd_offatt": 0, "msda_bwd_value": 0,
+            "attn_fwd": 0, "attn_bwd_delta": 0, "attn_bwd_dkv": 0, "attn_bwd_dq": 0}
 
 
 def reset_launches() -> None:
@@ -55,7 +57,7 @@ def _sources():
 
 def build_dir() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # sources and the headers they include
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_ROOT / digest.hexdigest()[:16]
@@ -100,6 +102,10 @@ def library() -> ctypes.CDLL:
     lib.ape_msda_fwd.restype = i
     lib.ape_msda_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.ape_msda_bwd.restype = i
+    lib.ape_msda_bwd_offatt.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.ape_msda_bwd_offatt.restype = i
+    lib.ape_msda_bwd_value.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.ape_msda_bwd_value.restype = i
     lib.ape_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, f, i, p]
     lib.ape_attn_fwd.restype = i
     lib.ape_attn_bwd_delta.argtypes = [p, p, p, i, i, i, i, p]

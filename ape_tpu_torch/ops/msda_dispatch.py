@@ -16,20 +16,30 @@ to 0.25 px on a 128-wide level.)
 
 Gradients: ``_MSDAFunction`` pairs the forward with ``csrc/msda_bwd.cu`` (K2,
 the merged backward ``ape_tpu/ops/msda_window_pallas_bwd.py`` runs on the
-TPU), which returns d_value, d_loc and d_att for both modes. The window clip
-and the division by the level size stay in torch (``window_locations``), so
-autograd carries their chain rule. JAX's dense-matmul decoder backward
-(``_dvalue_dense``) is not ported: the decoder's backward runs on K2 too.
+TPU), which returns d_value, d_loc and d_att for both modes. With
+``BWD_MERGED`` false (``APE_MSDA_BWD_MERGED=0``, as that file reads it), the
+encoder's window mode takes the split form instead, ``csrc/msda_bwd_split.cu``:
+K3 for d_loc and d_att, K4 for d_value. The flag is read at each backward, so
+one process can run both forms. The decoder stays on K2 (JAX's decoder
+backward never reaches K3 or K4). The window clip and the division by the
+level size stay in torch (``window_locations``), so autograd carries their
+chain rule. JAX's dense-matmul decoder backward (``_dvalue_dense``) is not
+ported: the decoder's backward runs on K2 too.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Sequence, Tuple
 
 import torch
 
 from ape_tpu_torch.ops import _build
 from ape_tpu_torch.ops.msda import level_start_index, ms_deform_attn
+
+# The encoder's window-MSDA backward: merged (K2) unless APE_MSDA_BWD_MERGED=0
+# selects the split kernels (K3 + K4).
+BWD_MERGED = os.environ.get("APE_MSDA_BWD_MERGED", "1") != "0"
 
 
 def grid_centers(spatial_shapes: Sequence[Tuple[int, int]], device) -> torch.Tensor:
@@ -63,29 +73,45 @@ def window_locations(
 def _check_inputs(name, value, spatial_shapes, loc, att):
     """Validate the kernels' inputs; returns the sizes and the level tables
     as int64 tensors on the value's device."""
-    b, s, h, d = value.shape
-    if value.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name} takes f32 or bf16 value, got {value.dtype}")
+    return _check_sampling(name, tuple(value.shape), value.dtype, spatial_shapes, loc, att,
+                           (value, loc, att))
+
+
+def _check_sampling(name, value_shape, value_dtype, spatial_shapes, loc, att, tensors):
+    """``_check_inputs`` for a value of this shape and dtype, which the
+    d_value kernel never reads; ``tensors`` are the ones the kernel takes."""
+    b, s, h, d = value_shape
+    if value_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes f32 or bf16 value, got {value_dtype}")
     if loc.dtype != torch.float32:
         raise TypeError(f"{name} takes f32 locations, got {loc.dtype}")
-    if att.dtype not in (value.dtype, torch.float32):
-        raise TypeError(f"{name} takes attention weights in {value.dtype} or f32, got {att.dtype}")
+    if att.dtype not in (value_dtype, torch.float32):
+        raise TypeError(f"{name} takes attention weights in {value_dtype} or f32, got {att.dtype}")
     if loc.dim() != 6 or loc.shape[-1] != 2 or loc.shape[0] != b or loc.shape[2] != h:
-        raise ValueError(f"locations {tuple(loc.shape)} do not match value {tuple(value.shape)}")
+        raise ValueError(f"locations {tuple(loc.shape)} do not match value {value_shape}")
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
     if tuple(att.shape) != (b, q, h, l, p):
         raise ValueError(f"attention weights {tuple(att.shape)} != {(b, q, h, l, p)}")
     starts, total = level_start_index(spatial_shapes)
     if total != s or len(spatial_shapes) != l:
         raise ValueError(f"value length {s} / {l} levels do not match {spatial_shapes}")
-    for t in (value, loc, att):
-        if t.device != value.device or not t.is_cuda:
+    device = tensors[0].device
+    for t in tensors:
+        if t.device != device or not t.is_cuda:
             raise ValueError(f"{name} takes CUDA tensors on one device")
         if not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous tensors")
-    tables = (torch.tensor(spatial_shapes, dtype=torch.int64, device=value.device),
-              torch.tensor(starts, dtype=torch.int64, device=value.device))
+    tables = (torch.tensor(spatial_shapes, dtype=torch.int64, device=device),
+              torch.tensor(starts, dtype=torch.int64, device=device))
     return (b, s, q, h, d, l, p), tables
+
+
+def _check_grad(name, grad_out, value_dtype, b, q, h, d, device):
+    if grad_out.dtype != value_dtype or tuple(grad_out.shape) != (b, q, h * d):
+        raise ValueError(f"{name}: grad {grad_out.dtype} {tuple(grad_out.shape)} does not match "
+                         f"value {value_dtype} and {(b, q, h * d)}")
+    if not grad_out.is_contiguous() or grad_out.device != device:
+        raise ValueError(f"{name} takes a contiguous grad on the value's device")
 
 
 def msda_fwd_cuda(
@@ -121,11 +147,7 @@ def msda_bwd_cuda(
     loc (f32) and att. d_value is summed by f32 atomics, then cast."""
     sizes, (shapes_t, starts_t) = _check_inputs("msda_bwd", value, spatial_shapes, loc, att)
     b, s, q, h, d, _, _ = sizes
-    if grad_out.dtype != value.dtype or tuple(grad_out.shape) != (b, q, h * d):
-        raise ValueError(f"msda_bwd: grad {grad_out.dtype} {tuple(grad_out.shape)} does not match "
-                         f"value {value.dtype} and {(b, q, h * d)}")
-    if not grad_out.is_contiguous() or grad_out.device != value.device:
-        raise ValueError("msda_bwd takes a contiguous grad on the value's device")
+    _check_grad("msda_bwd", grad_out, value.dtype, b, q, h, d, value.device)
     d_value = torch.zeros(b, s, h, d, dtype=torch.float32, device=value.device)
     d_loc = torch.empty(loc.shape, dtype=torch.float32, device=value.device)
     d_att = torch.empty(att.shape, dtype=torch.float32, device=value.device)
@@ -141,28 +163,89 @@ def msda_bwd_cuda(
     return d_value.to(value.dtype), d_loc, d_att.to(att.dtype)
 
 
+def msda_bwd_offatt_cuda(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    loc: torch.Tensor,
+    att: torch.Tensor,
+    grad_out: torch.Tensor,
+):
+    """Launch K3 of ``csrc/msda_bwd_split.cu``: (d_loc, d_att) of
+    ``msda_fwd_cuda`` for grad_out (B, Q, H * D), d_loc in f32 and d_att in
+    att's dtype. No atomics: deterministic."""
+    sizes, (shapes_t, starts_t) = _check_inputs("msda_bwd_offatt", value, spatial_shapes, loc, att)
+    b, _, q, h, d, _, _ = sizes
+    _check_grad("msda_bwd_offatt", grad_out, value.dtype, b, q, h, d, value.device)
+    d_loc = torch.empty(loc.shape, dtype=torch.float32, device=value.device)
+    d_att = torch.empty(att.shape, dtype=att.dtype, device=value.device)
+    err = _build.library().ape_msda_bwd_offatt(
+        value.data_ptr(), loc.data_ptr(), att.data_ptr(), shapes_t.data_ptr(),
+        starts_t.data_ptr(), grad_out.data_ptr(), d_loc.data_ptr(), d_att.data_ptr(), *sizes,
+        int(value.dtype == torch.bfloat16), int(att.dtype == torch.float32),
+        torch.cuda.current_stream(value.device).cuda_stream,
+    )
+    _build.check(err, "msda_bwd_offatt")
+    _build.LAUNCHES["msda_bwd_offatt"] += 1
+    return d_loc, d_att
+
+
+def msda_bwd_value_cuda(
+    spatial_shapes: Sequence[Tuple[int, int]],
+    loc: torch.Tensor,
+    att: torch.Tensor,
+    grad_out: torch.Tensor,
+) -> torch.Tensor:
+    """Launch K4 of ``csrc/msda_bwd_split.cu``: d_value (B, S, H, D) of
+    ``msda_fwd_cuda`` for grad_out (B, Q, H * D), in grad_out's dtype (the
+    value's). It reads no value. Summed by f32 atomics, then cast."""
+    b, _, h = loc.shape[:3]
+    d = grad_out.shape[-1] // h
+    _, total = level_start_index(spatial_shapes)
+    sizes, (shapes_t, starts_t) = _check_sampling(
+        "msda_bwd_value", (b, total, h, d), grad_out.dtype, spatial_shapes, loc, att,
+        (grad_out, loc, att))
+    _, s, q, _, _, _, _ = sizes
+    _check_grad("msda_bwd_value", grad_out, grad_out.dtype, b, q, h, d, grad_out.device)
+    d_value = torch.zeros(b, s, h, d, dtype=torch.float32, device=grad_out.device)
+    err = _build.library().ape_msda_bwd_value(
+        loc.data_ptr(), att.data_ptr(), shapes_t.data_ptr(), starts_t.data_ptr(),
+        grad_out.data_ptr(), d_value.data_ptr(), *sizes,
+        int(grad_out.dtype == torch.bfloat16), int(att.dtype == torch.float32),
+        torch.cuda.current_stream(grad_out.device).cuda_stream,
+    )
+    _build.check(err, "msda_bwd_value")
+    _build.LAUNCHES["msda_bwd_value"] += 1
+    return d_value.to(grad_out.dtype)
+
+
 class _MSDAFunction(torch.autograd.Function):
-    """msda_fwd.cu forward, msda_bwd.cu backward (CUDA tensors only)."""
+    """msda_fwd.cu forward; msda_bwd.cu backward, or for the encoder's window
+    mode under ``BWD_MERGED = False`` msda_bwd_split.cu (CUDA tensors only)."""
 
     @staticmethod
-    def forward(ctx, value, loc, att, spatial_shapes):
+    def forward(ctx, value, loc, att, spatial_shapes, window):
         ctx.spatial_shapes = spatial_shapes
+        ctx.window = window
         ctx.save_for_backward(value, loc, att)
         return msda_fwd_cuda(value, spatial_shapes, loc, att)
 
     @staticmethod
     def backward(ctx, grad_out):
         value, loc, att = ctx.saved_tensors
-        d_value, d_loc, d_att = msda_bwd_cuda(value, ctx.spatial_shapes, loc, att,
-                                              grad_out.contiguous())
-        return d_value, d_loc, d_att, None
+        grad_out = grad_out.contiguous()
+        if ctx.window and not BWD_MERGED:
+            d_loc, d_att = msda_bwd_offatt_cuda(value, ctx.spatial_shapes, loc, att, grad_out)
+            d_value = msda_bwd_value_cuda(ctx.spatial_shapes, loc, att, grad_out)
+        else:
+            d_value, d_loc, d_att = msda_bwd_cuda(value, ctx.spatial_shapes, loc, att, grad_out)
+        return d_value, d_loc, d_att, None, None
 
 
-def _route(value, spatial_shapes, loc, att):
+def _route(value, spatial_shapes, loc, att, window):
     if value.is_cuda:
         if torch.is_grad_enabled() and (value.requires_grad or loc.requires_grad
                                         or att.requires_grad):
-            return _MSDAFunction.apply(value, loc, att, spatial_shapes)
+            return _MSDAFunction.apply(value, loc, att, spatial_shapes, window)
         return msda_fwd_cuda(value, spatial_shapes, loc, att)
     if value.device.type == "cpu":
         return ms_deform_attn(value, spatial_shapes, loc, att)
@@ -183,7 +266,8 @@ def ms_deform_attn_window(
     """
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     loc = window_locations(spatial_shapes, pixel_offsets, radius)
-    return _route(value, spatial_shapes, loc.contiguous(), attention_weights.contiguous())
+    return _route(value, spatial_shapes, loc.contiguous(), attention_weights.contiguous(),
+                  window=True)
 
 
 def ms_deform_attn_exact(
@@ -195,4 +279,4 @@ def ms_deform_attn_exact(
     """Exact MSDA of the decoder at normalized locations. Returns (B, Q, H * D)."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     loc = sampling_locations.float().contiguous()
-    return _route(value, spatial_shapes, loc, attention_weights.contiguous())
+    return _route(value, spatial_shapes, loc, attention_weights.contiguous(), window=False)

@@ -2,13 +2,19 @@
 (1024^2, batch 2, 300 queries, bf16, recompute checkpointing) on one CUDA
 card, from the root of a checkout:
 
-    python3 -m ape_tpu_torch.tools.profile_train
+    python3 -m ape_tpu_torch.tools.profile_train [--masked]
+
+Without flags the detection model (chip_smoke's phase 8); ``--masked`` the
+full masked model with the mask losses (phase 11). Under
+``APE_MSDA_BWD_MERGED=0`` the encoder's MSDA backward runs on the split
+kernels (K3 + K4) instead of K2.
 
 Prints three JSON lines and the card's nvidia-smi line:
 
 * ``stage_split``: three steps timed by CUDA events: forward with the loss,
   backward (recompute included), clip with the optimizer step, and the
-  forward of the backbone, neck, encoder and decoder;
+  forward of the backbone, neck, encoder, decoder and, with a mask head,
+  the pixel decoder (lateral conv to mask conv);
 * ``profile``: one step under ``torch.profiler``: device busy time (the
   union of kernel intervals) against the step's wall time, kernel and launch
   counts, and the top kernels by summed device time;
@@ -17,6 +23,7 @@ Prints three JSON lines and the card's nvidia-smi line:
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -27,8 +34,10 @@ import chip_smoke as cs
 from ape_tpu_torch.engine.optimizer import build_optimizer
 from ape_tpu_torch.engine.train_step import loss_fn, make_train_step
 from ape_tpu_torch.modeling.build import build_ape_ti
+from ape_tpu_torch.ops import msda_dispatch
 
-PORT_KERNELS = ("msda_fwd", "msda_bwd", "attn_fwd", "attn_bwd")
+PORT_KERNELS = ("msda_fwd", "msda_bwd_kernel", "msda_bwd_offatt", "msda_bwd_value",
+                "attn_fwd", "attn_bwd")
 
 
 def _event():
@@ -43,10 +52,13 @@ def stage_split(model, crit, opt, sched, batch, gen, steps: int = 3):
     splits = []
     for _ in range(steps):
         marks = {}
+        spans = {n: (m, m) for n, m in parts.items()}
+        if model.mask_on:
+            spans["pixel_decoder"] = (model.lateral_conv, model.mask_conv)
         hooks = [m.register_forward_pre_hook(lambda *_, n=n: marks.__setitem__(n + "0", _event()))
-                 for n, m in parts.items()]
+                 for n, (m, _) in spans.items()]
         hooks += [m.register_forward_hook(lambda *_, n=n: marks.__setitem__(n + "1", _event()))
-                  for n, m in parts.items()]
+                  for n, (_, m) in spans.items()]
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
         ev = [_event()]
@@ -65,7 +77,7 @@ def stage_split(model, crit, opt, sched, batch, gen, steps: int = 3):
             wall_ms=(time.perf_counter() - t0) * 1e3,
             forward_and_loss_ms=ev[0].elapsed_time(ev[1]), backward_ms=ev[1].elapsed_time(ev[2]),
             optimizer_ms=ev[2].elapsed_time(ev[3]),
-            forward_modules_ms={n: marks[n + "0"].elapsed_time(marks[n + "1"]) for n in parts}))
+            forward_modules_ms={n: marks[n + "0"].elapsed_time(marks[n + "1"]) for n in spans}))
     return splits
 
 
@@ -105,19 +117,24 @@ def profile_step(step, batch, gen):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--masked", action="store_true", help="the full masked model")
+    args = parser.parse_args()
     cs.device_phase()
     dev = torch.device("cuda", 0)
-    model = build_ape_ti(num_queries=cs.TRAIN_QUERIES, window_radius=cs.RADIUS, mask_on=False,
+    model = build_ape_ti(num_queries=cs.TRAIN_QUERIES, window_radius=cs.RADIUS, mask_on=args.masked,
                          use_act_checkpoint=True, dtype=torch.bfloat16)
     model = cs.init_weights(model, cs.SEED).to(dev)
-    crit = cs._criterion(cs.TRAIN_QUERIES)
+    crit = cs._criterion(cs.TRAIN_QUERIES, args.masked)
     opt, sched = build_optimizer(model)
     step = make_train_step(model, crit, opt, sched)
-    batch = cs._train_batch(dev, cs.TRAIN_BATCH, cs.TRAIN_IMG, cs.SEED + 4)
+    batch = cs._train_batch(dev, cs.TRAIN_BATCH, cs.TRAIN_IMG, cs.SEED + 4, masks=args.masked)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     for _ in range(2):
         step(batch, gen)
     torch.cuda.synchronize()
+    print(json.dumps({"form": {"masked": args.masked, "split": not msda_dispatch.BWD_MERGED}}),
+          flush=True)
     print(json.dumps({"stage_split": stage_split(model, crit, opt, sched, batch, gen)}), flush=True)
     prof, ours = profile_step(step, batch, gen)
     print(json.dumps({"profile": prof}), flush=True)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``ape_tpu_torch``) of APE-Ti on one NVIDIA
-card, from the root of a checkout: protocol inference, then training.
+card, from the root of a checkout: protocol inference, detection training,
+then the full masked model's inference and training.
 
     python3 chip_smoke.py
 
@@ -8,10 +9,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi's own line too);
 2. build: compile ``ape_tpu_torch/csrc/*.cu`` into ``build/ape_tpu_torch/``;
-3. kernels: each forward CUDA kernel against its plain PyTorch version at the
-   shapes the main paths give it, in f32 (TF32 off) and bf16, with times;
+3. kernels: each forward CUDA kernel against its plain PyTorch version at
+   every shape set the main paths give it (the protocol pyramid at batch 1;
+   the 4-scale pyramid at batch 1 with 900 decoder queries and at batch 2
+   with 300), in f32 (TF32 off) and bf16, with times;
 4. backward kernels: each backward kernel against torch autograd of its
-   plain version at the training shapes, in f32 and bf16, with times;
+   plain version at the training shapes, in f32 and bf16, with times; the
+   split MSDA backward (K3, K4) also against the merged one (K2);
 5. slice: ``build_ape_ti`` at the reference latency protocol (1024^2, bf16,
    900 queries, 80 text features of width 1024, N(0, 0.02) weights with the
    ring-init offsets re-armed): launch counts per forward, host syncs,
@@ -26,7 +30,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 9. train f32: one f32 step at 512^2, batch 1, protocol pyramid, fan-in
    weights: every parameter's gradient held against the plain versions on
    the CPU, and the plain gradients' own floor under a perturbation of the
-   images at f32 rounding size.
+   images at f32 rounding size;
+10. full serve: ``build_ape_ti()`` with its defaults, the masked model on the
+    4-scale pyramid (1024^2, bf16, 900 queries, S = 87,296 tokens): launches
+    per forward, finite ``pred_masks`` (1, 900, 256, 256), images/s, and
+    three ``DefaultPredictor`` requests with ``mask_logits`` and ``sem_seg``;
+11. full train: the masked model as ``tools/bench_train.py`` trains it (as 8,
+    with ``masks`` (2, 8, 256, 256) drawn as rand > 0.7 and losses class,
+    boxes and masks): one warm-up and three timed steps with the merged MSDA
+    backward (K2), then as many with the split one (K3 + K4,
+    ``msda_dispatch.BWD_MERGED = False``); exact launches of each form;
+12. full train f32: phase 9 for the masked model on the default pyramid,
+    then the same step once more with the split backward, held against the
+    merged one.
 
 Then the kernels line and, last, {"ok": true, "device": {...}}. The script
 needs the repository around it and a CUDA card; it imports no JAX.
@@ -59,6 +75,16 @@ BOUNDS = {"float32": {"msda": 1e-5, "attn": 1e-4}, "bfloat16": {"msda": 3.2e-2, 
 # kernel's gradients are rounded to bf16 (2^-8 relative) where the inputs are
 # bf16.
 GRAD_BOUNDS = {"float32": 1e-4, "bfloat16": 1e-2}
+# The split backward (K3: d_loc, d_att; K4: d_value) against the merged one
+# (K2) on the same inputs, each output over its own max |K2|. Both round and
+# bound each sample by csrc/msda_sample.cuh and compute the same per-sample
+# expressions, so K3's outputs differ from K2's only where the two compiled
+# kernels contract FMAs differently, and K4's f32 d_value by the run-dependent
+# order of up to ~100 atomic adds per entry (K2 read 2.9e-6 against autograd,
+# PERF.md). bf16: d_att and d_value are
+# rounded to bf16 after those f32 sums, so an entry may land one bf16 step
+# (2^-8 of itself) apart.
+SPLIT_BOUNDS = {"float32": 1e-5, "bfloat16": 4e-3}
 MEMORY_BOUND = 1e-3  # f32 encoder memory, CUDA kernels vs plain on the CPU
 SEED = 0
 
@@ -69,6 +95,12 @@ TRAIN_SHAPES = ((256, 256), (128, 128), (64, 64), (32, 32), (16, 16))  # default
 # each; the backbone (not recomputed) runs 4 global blocks once each way.
 STEP_LAUNCHES = {"msda_fwd": 24, "msda_bwd": 12, "attn_fwd": 4,
                  "attn_bwd_delta": 4, "attn_bwd_dkv": 4, "attn_bwd_dq": 4}
+# With the split form the encoder's 6 MSDA backwards run K3 + K4 and the
+# decoder's 6 stay on K2. The mask head launches no MSDA or attention kernel.
+SPLIT_STEP_LAUNCHES = dict(STEP_LAUNCHES, msda_bwd=6, msda_bwd_offatt=6, msda_bwd_value=6)
+# Per forward of either model: 6 + 6 MSDA layers, 4 global attention blocks.
+FORWARD_LAUNCHES = {"msda_fwd": 12, "attn_fwd": 4}
+MASK_SIDE = IMG // 4  # mask features and GT masks of the full model at 1024^2
 F32_TRAIN_IMG = 512
 # f32 train step, CUDA kernels vs plain on the CPU: per parameter, max |diff|
 # over max |CPU gradient|, bound about 3x the <= 5.1e-3 these read on the
@@ -82,6 +114,12 @@ F32_TRAIN_IMG = 512
 F32_GRAD_RTOL = 1.5e-2
 F32_OFFSET_GRAD_RTOL = 5e-2
 PERTURB = 1e-7
+# f32 masked step, split backward against merged, per parameter as above. The
+# forward is the same launch for launch, and both backward forms run the same
+# per-sample arithmetic (csrc/msda_sample.cuh): they differ by the order of
+# the f32 atomic adds into d_value (a few 1e-6 relative, phase 4), carried
+# back through the backbone.
+F32_SPLIT_RTOL = 1e-3
 
 
 def log(**rec):
@@ -140,56 +178,82 @@ def _ring(levels: int):
     return torch.from_numpy(_offset_bias_init(HEADS, levels, POINTS)).view(HEADS, levels, POINTS, 2)
 
 
+def _msda_inputs(g, shapes, batch: int, queries: int, dev):
+    """Seeded MSDA inputs on a pyramid: (value (B, S, H, D) f32 on the CPU,
+    {mode: f32 locations on dev}, {mode: attention weights (B, Q, H, L, P)
+    f32 on the CPU}) for the encoder's window mode (queries are the pyramid
+    grid; ring-init offsets, radius p + 1 px, plus learned-scale noise,
+    clipped to R) and the decoder's exact mode (``queries`` box references,
+    loc = ref + off / P * wh * 0.5)."""
+    import torch
+
+    from ape_tpu_torch.ops.msda_dispatch import window_locations
+
+    s, lv = sum(h * w for h, w in shapes), len(shapes)
+    value = torch.randn(batch, s, HEADS, HEAD_DIM, generator=g)
+    off = _ring(lv)[None, None] + 1.5 * torch.randn(batch, s, HEADS, lv, POINTS, 2, generator=g)
+    refs = torch.cat([0.1 + 0.8 * torch.rand(batch, queries, 1, 2, generator=g),
+                      0.02 + 0.3 * torch.rand(batch, queries, 1, 2, generator=g)], -1)
+    doff = _ring(lv)[None, None] + torch.randn(batch, queries, HEADS, lv, POINTS, 2, generator=g)
+    locs = {"encoder": window_locations(shapes, off.to(dev), RADIUS).contiguous(),
+            "decoder": (refs[:, :, None, :, None, :2] + doff / POINTS
+                        * refs[:, :, None, :, None, 2:] * 0.5).to(dev).contiguous()}
+    atts = {m: torch.softmax(torch.randn(batch, l.shape[1], HEADS, lv * POINTS, generator=g), -1)
+            .view(batch, l.shape[1], HEADS, lv, POINTS) for m, l in locs.items()}
+    return value, locs, atts
+
+
+# The forward kernels' cases, one per shape set a main path gives them:
+# (suffix of the case names, pyramid, batch, decoder queries, attention
+# checked). The protocol forward; the full serve forward (4-scale pyramid,
+# S = 87,296; its attention is the protocol's); training (batch 2, 300
+# queries). The kernels line reads the protocol's cases.
+FWD_CASES = (("", SHAPES, 1, QUERIES, True),
+             ("_full_serve", TRAIN_SHAPES, 1, QUERIES, False),
+             ("_train", TRAIN_SHAPES, TRAIN_BATCH, TRAIN_QUERIES, True))
+
+
 def kernels_phase(dev):
-    """Kernel against plain version at main-path shapes; returns per-kernel
-    results at the main path's dtype (bf16)."""
+    """Each forward kernel against its plain version at every shape set of
+    the main paths (FWD_CASES), in f32 and bf16; returns per-case results."""
     import torch
 
     from ape_tpu_torch.ops.attention import attn_fwd_cuda, global_attention_plain
     from ape_tpu_torch.ops.msda import ms_deform_attn
-    from ape_tpu_torch.ops.msda_dispatch import msda_fwd_cuda, window_locations
+    from ape_tpu_torch.ops.msda_dispatch import msda_fwd_cuda
 
     g = torch.Generator().manual_seed(SEED)
-    s = sum(h * w for h, w in SHAPES)
-    lv = len(SHAPES)
-    value32 = torch.randn(1, s, HEADS, HEAD_DIM, generator=g)
-    att32 = torch.softmax(torch.randn(1, s, HEADS, lv * POINTS, generator=g), -1)
-    # encoder: ring-init offsets (radius p + 1 px) plus learned-scale noise, clipped to R
-    off = _ring(lv)[None, None] + 1.5 * torch.randn(1, s, HEADS, lv, POINTS, 2, generator=g)
-    enc_loc = window_locations(SHAPES, off.to(dev), RADIUS).contiguous()
-    # decoder: 900 box references, loc = ref + off / P * wh * 0.5
-    refs = torch.cat([0.1 + 0.8 * torch.rand(1, QUERIES, 1, 2, generator=g),
-                      0.02 + 0.3 * torch.rand(1, QUERIES, 1, 2, generator=g)], -1)
-    doff = _ring(lv)[None, None] + torch.randn(1, QUERIES, HEADS, lv, POINTS, 2, generator=g)
-    dec_loc = (refs[:, :, None, :, None, :2]
-               + doff / POINTS * refs[:, :, None, :, None, 2:] * 0.5).to(dev).contiguous()
-    datt32 = torch.softmax(torch.randn(1, QUERIES, HEADS, lv * POINTS, generator=g), -1)
-    qkv32 = [torch.randn(1, 3, 4096, 64, generator=g) for _ in range(3)]
-
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
-        value = value32.to(dev, dtype)
-        enc_att = att32.view(1, s, HEADS, lv, POINTS).to(dev, dtype)
-        dec_att = datt32.view(1, QUERIES, HEADS, lv, POINTS).to(dev, dtype)
-        q, k, v = (t.to(dev, dtype) for t in qkv32)
-        cases = {
-            "msda_encoder": (lambda: msda_fwd_cuda(value, SHAPES, enc_loc, enc_att),
-                             lambda: ms_deform_attn(value, SHAPES, enc_loc, enc_att), "msda"),
-            "msda_decoder": (lambda: msda_fwd_cuda(value, SHAPES, dec_loc, dec_att),
-                             lambda: ms_deform_attn(value, SHAPES, dec_loc, dec_att), "msda"),
-            "attention": (lambda: attn_fwd_cuda(q, k, v, 64**-0.5),
-                          lambda: global_attention_plain(q, k, v, 64**-0.5), "attn"),
-        }
-        for name, (kernel, plain, kind) in cases.items():
-            err = float((kernel().float() - plain().float()).abs().max())
-            bound = BOUNDS[dname][kind]
-            rec = dict(phase="kernel", name=name, dtype=dname, max_abs_err=err, bound=bound,
-                       ms=cuda_ms(kernel), plain_ms=cuda_ms(plain))
-            log(**rec)
-            if not err <= bound:
-                fail(f"{name} {dname}: max |kernel - plain| {err} > {bound}")
-            results[(name, dname)] = rec
+    for suffix, shapes, batch, queries, with_attn in FWD_CASES:
+        value32, locs, atts32 = _msda_inputs(g, shapes, batch, queries, dev)
+        qkv32 = [torch.randn(batch, 3, 4096, 64, generator=g) for _ in range(3)]
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            value = value32.to(dev, dtype)
+            cases = {}
+            for mode, loc in locs.items():
+                att = atts32[mode].to(dev, dtype)
+                cases[f"msda_{mode}{suffix}"] = (
+                    lambda loc=loc, att=att: msda_fwd_cuda(value, shapes, loc, att),
+                    lambda loc=loc, att=att: ms_deform_attn(value, shapes, loc, att), "msda",
+                    {"value": list(value.shape), "queries": loc.shape[1]})
+            if with_attn:
+                q, k, v = (t.to(dev, dtype) for t in qkv32)
+                cases[f"attention{suffix}"] = (lambda: attn_fwd_cuda(q, k, v, 64**-0.5),
+                                               lambda: global_attention_plain(q, k, v, 64**-0.5),
+                                               "attn", {"q": list(q.shape)})
+            for name, (kernel, plain, kind, shape) in cases.items():
+                err = float((kernel().float() - plain().float()).abs().max())
+                bound = BOUNDS[dname][kind]
+                rec = dict(phase="kernel", name=name, dtype=dname, shape=shape, max_abs_err=err,
+                           bound=bound, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain))
+                log(**rec)
+                if not err <= bound:
+                    fail(f"{name} {dname}: max |kernel - plain| {err} > {bound}")
+                results[(name, dname)] = rec
+            del value, cases
+        del value32, locs, atts32, qkv32
+        torch.cuda.empty_cache()
     return results
 
 
@@ -217,39 +281,41 @@ def backward_kernels_phase(dev):
         global_attention_plain,
     )
     from ape_tpu_torch.ops.msda import ms_deform_attn
-    from ape_tpu_torch.ops.msda_dispatch import msda_bwd_cuda, window_locations
+    from ape_tpu_torch.ops.msda_dispatch import (
+        msda_bwd_cuda,
+        msda_bwd_offatt_cuda,
+        msda_bwd_value_cuda,
+    )
 
     g = torch.Generator().manual_seed(SEED + 3)
-    b, s, lv = TRAIN_BATCH, sum(h * w for h, w in TRAIN_SHAPES), len(TRAIN_SHAPES)
-    value32 = torch.randn(b, s, HEADS, HEAD_DIM, generator=g)
-    off = _ring(lv)[None, None] + 1.5 * torch.randn(b, s, HEADS, lv, POINTS, 2, generator=g)
-    refs = torch.cat([0.1 + 0.8 * torch.rand(b, TRAIN_QUERIES, 1, 2, generator=g),
-                      0.02 + 0.3 * torch.rand(b, TRAIN_QUERIES, 1, 2, generator=g)], -1)
-    doff = _ring(lv)[None, None] + torch.randn(b, TRAIN_QUERIES, HEADS, lv, POINTS, 2, generator=g)
-    msda_cases = {
-        "msda_bwd_encoder": window_locations(TRAIN_SHAPES, off.to(dev), RADIUS).contiguous(),
-        "msda_bwd_decoder": (refs[:, :, None, :, None, :2] + doff / POINTS
-                             * refs[:, :, None, :, None, 2:] * 0.5).to(dev).contiguous(),
-    }
-    atts = {n: torch.softmax(torch.randn(b, l.shape[1], HEADS, lv * POINTS, generator=g), -1)
-            .view(b, l.shape[1], HEADS, lv, POINTS) for n, l in msda_cases.items()}
+    b = TRAIN_BATCH
+    value32, locs, atts = _msda_inputs(g, TRAIN_SHAPES, b, TRAIN_QUERIES, dev)
+    msda_cases = {f"msda_bwd_{mode}": loc for mode, loc in locs.items()}
+    atts = {f"msda_bwd_{mode}": att for mode, att in atts.items()}
     gouts = {n: torch.randn(b, l.shape[1], HEADS * HEAD_DIM, generator=g) for n, l in msda_cases.items()}
     qkvo32 = [torch.randn(TRAIN_BATCH, 3, 4096, 64, generator=g) for _ in range(4)]
     scale = 64**-0.5
 
     results = {}
 
-    def record(name, dname, errors, kernel, plain):
+    def record(name, dname, errors, kernel, plain, vs_merged=None):
         rec = dict(phase="kernel_bwd", name=name, dtype=dname,
                    max_abs_err=max(e[0] for e in errors.values()),
                    abs_err={n: e[0] for n, e in errors.items()},
                    rel_err={n: e[1] for n, e in errors.items()}, bound=GRAD_BOUNDS[dname],
                    ms=cuda_ms(kernel), plain_ms=cuda_ms(plain))
+        if vs_merged is not None:
+            rec.update(rel_err_vs_msda_bwd={n: e[1] for n, e in vs_merged.items()},
+                       bound_vs_msda_bwd=SPLIT_BOUNDS[dname])
         log(**rec)
         for n, (_, rel) in errors.items():
             if not rel <= GRAD_BOUNDS[dname]:
                 fail(f"{name} {dname}: {n}: max |kernel - autograd of plain| / max |plain| {rel} "
                      f"> {GRAD_BOUNDS[dname]}")
+        for n, (_, rel) in (vs_merged or {}).items():
+            if not rel <= SPLIT_BOUNDS[dname]:
+                fail(f"{name} {dname}: {n}: max |split - merged| / max |merged| {rel} "
+                     f"> {SPLIT_BOUNDS[dname]}")
         results[(name, dname)] = rec
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -257,18 +323,39 @@ def backward_kernels_phase(dev):
         value = value32.to(dev, dtype)
         for name, loc in msda_cases.items():
             att, gout = atts[name].to(dev, dtype), gouts[name].to(dev, dtype)
-            got = msda_bwd_cuda(value, TRAIN_SHAPES, loc, att, gout)
+            merged = msda_bwd_cuda(value, TRAIN_SHAPES, loc, att, gout)
             leaves = [value.detach().float().requires_grad_(), loc.detach().clone().requires_grad_(),
                       att.detach().float().requires_grad_()]
             want = torch.autograd.grad(ms_deform_attn(leaves[0], TRAIN_SHAPES, *leaves[1:]),
                                        leaves, gout.float())
-            err = _errors(("d_value", "d_loc", "d_att"), got, want)
-            del got, leaves, want
+            err = _errors(("d_value", "d_loc", "d_att"), merged, want)
+            split = None
+            if name == "msda_bwd_encoder":  # the split form serves the encoder only
+                offatt = msda_bwd_offatt_cuda(value, TRAIN_SHAPES, loc, att, gout)
+                d_value = msda_bwd_value_cuda(TRAIN_SHAPES, loc, att, gout)
+                split = {"msda_bwd_offatt": (_errors(("d_loc", "d_att"), offatt, want[1:]),
+                                             _errors(("d_loc", "d_att"), offatt, merged[1:])),
+                         "msda_bwd_value": (_errors(("d_value",), [d_value], want[:1]),
+                                            _errors(("d_value",), [d_value], merged[:1]))}
+                del offatt, d_value
+            del merged, leaves, want
             plain_leaves = [t.detach().clone().requires_grad_() for t in (value, loc, att)]
             out = ms_deform_attn(plain_leaves[0], TRAIN_SHAPES, *plain_leaves[1:])
-            record(name, dname, err,
-                   lambda: msda_bwd_cuda(value, TRAIN_SHAPES, loc, att, gout),
-                   lambda: torch.autograd.grad(out, plain_leaves, gout, retain_graph=True))
+
+            def plain_bwd(*which):  # autograd of the plain version for these of (value, loc, att)
+                return lambda: torch.autograd.grad(out, [plain_leaves[i] for i in which], gout,
+                                                   retain_graph=True)
+
+            record(name, dname, err, lambda: msda_bwd_cuda(value, TRAIN_SHAPES, loc, att, gout),
+                   plain_bwd(0, 1, 2))
+            if split is not None:
+                errs, vs = split["msda_bwd_offatt"]
+                record("msda_bwd_offatt", dname, errs,
+                       lambda: msda_bwd_offatt_cuda(value, TRAIN_SHAPES, loc, att, gout),
+                       plain_bwd(1, 2), vs)
+                errs, vs = split["msda_bwd_value"]
+                record("msda_bwd_value", dname, errs,
+                       lambda: msda_bwd_value_cuda(TRAIN_SHAPES, loc, att, gout), plain_bwd(0), vs)
             del out, plain_leaves
             torch.cuda.empty_cache()
 
@@ -365,8 +452,8 @@ def slice_phase(dev, card):
                 torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
-        if launches != dict(dict.fromkeys(launches, 0), msda_fwd=12, attn_fwd=4):
-            fail(f"launches per forward {launches}, expected 12 MSDA and 4 attention")
+        if launches != dict(dict.fromkeys(launches, 0), **FORWARD_LAUNCHES):
+            fail(f"launches per forward {launches}, expected {FORWARD_LAUNCHES}")
         logits, boxes = out["pred_logits"], out["pred_boxes"]
         if tuple(logits.shape) != (1, QUERIES, NUM_TEXT) or tuple(boxes.shape) != (1, QUERIES, 4):
             fail(f"output shapes {tuple(logits.shape)} {tuple(boxes.shape)}")
@@ -383,7 +470,7 @@ def slice_phase(dev, card):
     log(phase="slice", dtype="bfloat16", launches_per_forward=launches,
         host_syncs_per_forward=syncs, logits_shape=list(logits.shape),
         boxes_shape=list(boxes.shape), images_per_s=img_s, iters=iters, card=card)
-    return model
+    return model, launches
 
 
 def f32_phase(model):
@@ -418,10 +505,11 @@ def f32_phase(model):
         fail("f32 first-stage indices differ between the CUDA kernels and the plain versions")
 
 
-def _train_batch(dev, batch: int, img: int, seed: int):
-    """Seeded inputs and detection targets as tools/bench_train.py draws them:
-    80 texts of width 1024; 8 target slots per image, 4 valid, labels in
-    [0, 80), cxcywh boxes uniform in [0.2, 0.6)."""
+def _train_batch(dev, batch: int, img: int, seed: int, masks: bool = False):
+    """Seeded inputs and targets as tools/bench_train.py draws them: 80 texts
+    of width 1024; 8 target slots per image, 4 valid, labels in [0, 80),
+    cxcywh boxes uniform in [0.2, 0.6); with ``masks`` GT masks at img / 4
+    drawn as rand > 0.7."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -437,35 +525,50 @@ def _train_batch(dev, batch: int, img: int, seed: int):
             "valid": (torch.arange(slots) < 4)[None].repeat(batch, 1),
         },
     }
-    return {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev))
-            for k, v in out.items()}
+    if masks:
+        out["targets"]["masks"] = torch.rand(batch, slots, img // 4, img // 4, generator=g) > 0.7
+    return _to(out, dev)
 
 
-def _criterion(queries: int):
+def _to(batch, dev):
+    return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev)) for k, v in batch.items()}
+
+
+def _criterion(queries: int, mask_on: bool):
     from ape_tpu_torch.modeling.ape_deta.criterion import DeformableCriterion, default_weight_dict
 
     return DeformableCriterion(num_classes=NUM_TEXT, weight_dict=default_weight_dict(),
-                               num_queries=queries)
+                               num_queries=queries,
+                               losses=("class", "boxes", "masks") if mask_on else ("class", "boxes"))
 
 
-def train_phase(dev, card):
-    """APE-Ti training at 1024^2, batch 2, bf16, with recompute checkpointing:
-    finite losses and gradients, launches per step, s/step, peak memory."""
+def _train_setup(dev, mask_on: bool):
+    """APE-Ti for bf16 training at 1024^2 with recompute checkpointing, its
+    optimizer and train step, and a seeded batch: (model, step, batch)."""
     import torch
 
     from ape_tpu_torch.engine.optimizer import build_optimizer
     from ape_tpu_torch.engine.train_step import make_train_step
     from ape_tpu_torch.modeling.build import build_ape_ti
-    from ape_tpu_torch.ops import _build
 
-    model = build_ape_ti(num_queries=TRAIN_QUERIES, window_radius=RADIUS, mask_on=False,
+    model = build_ape_ti(num_queries=TRAIN_QUERIES, window_radius=RADIUS, mask_on=mask_on,
                          use_act_checkpoint=True, dtype=torch.bfloat16)
     model = init_weights(model, SEED).to(dev)
     optimizer, scheduler = build_optimizer(model)
-    step = make_train_step(model, _criterion(TRAIN_QUERIES), optimizer, scheduler)
-    batch = _train_batch(dev, TRAIN_BATCH, TRAIN_IMG, SEED + 4)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step = make_train_step(model, _criterion(TRAIN_QUERIES, mask_on), optimizer, scheduler)
+    batch = _train_batch(dev, TRAIN_BATCH, TRAIN_IMG, SEED + 4, masks=mask_on)
+    return model, step, batch
 
+
+def _train_steps(model, step, batch, dev, per_step, steps: int = TRAIN_STEPS):
+    """One warm-up step, whose losses and every parameter's gradient must be
+    finite, then ``steps`` timed steps with the launch counts set to 0 just
+    before them and held to ``per_step`` each. Returns the record's fields."""
+    import torch
+
+    from ape_tpu_torch.ops import _build
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     metrics = step(batch, gen)  # warm-up
     torch.cuda.synchronize()
     bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
@@ -475,10 +578,10 @@ def train_phase(dev, card):
         fail(f"warm-up step: non-finite {bad}; missing or non-finite gradients {no_grad[:10]}")
 
     torch.cuda.reset_peak_memory_stats(dev)
-    want = {k: TRAIN_STEPS * STEP_LAUNCHES.get(k, 0) for k in _build.LAUNCHES}
+    want = {k: steps * per_step.get(k, 0) for k in _build.LAUNCHES}
     _build.reset_launches()
     seconds = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         metrics = step(batch, gen)
         torch.cuda.synchronize()
@@ -488,15 +591,52 @@ def train_phase(dev, card):
             fail(f"non-finite train metrics {bad}")
     launches = dict(_build.LAUNCHES)
     if launches != want:
-        fail(f"launches over {TRAIN_STEPS} train steps {launches}, expected {want}")
+        fail(f"launches over {steps} train steps {launches}, expected {want}")
     s_step = sum(seconds) / len(seconds)
+    return dict(steps=steps, seconds_per_step=seconds, s_per_step=s_step,
+                images_per_s=TRAIN_BATCH / s_step,
+                max_memory_allocated_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                launches=launches, launches_per_step={k: v // steps for k, v in launches.items()},
+                losses={k: float(v) for k, v in metrics.items()})
+
+
+def train_phase(dev, card):
+    """APE-Ti detection training at 1024^2, batch 2, bf16, with recompute
+    checkpointing: finite losses and gradients, launches per step, s/step,
+    peak memory."""
+    model, step, batch = _train_setup(dev, mask_on=False)
+    rec = _train_steps(model, step, batch, dev, STEP_LAUNCHES)
+    launches = rec.pop("launches")
     log(phase="train", dtype="bfloat16", image=TRAIN_IMG, batch=TRAIN_BATCH, queries=TRAIN_QUERIES,
-        tokens=sum(h * w for h, w in TRAIN_SHAPES), steps=TRAIN_STEPS, seconds_per_step=seconds,
-        s_per_step=s_step, images_per_s=TRAIN_BATCH / s_step,
-        max_memory_allocated_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
-        launches_per_step={k: v // TRAIN_STEPS for k, v in launches.items()},
-        losses={k: float(v) for k, v in metrics.items()}, card=card)
+        tokens=sum(h * w for h, w in TRAIN_SHAPES), **rec, card=card)
     return launches
+
+
+def full_train_phase(dev, card):
+    """The masked model's bf16 training as tools/bench_train.py runs it, with
+    the merged MSDA backward and then the split one: per form, finite losses
+    (the mask losses among them) and gradients, exact launches, s/step, peak
+    memory. Returns the launches of both forms together."""
+    from ape_tpu_torch.ops import msda_dispatch
+
+    model, step, batch = _train_setup(dev, mask_on=True)
+    total = {}
+    for merged, per_step in ((True, STEP_LAUNCHES), (False, SPLIT_STEP_LAUNCHES)):
+        msda_dispatch.BWD_MERGED = merged
+        try:
+            rec = _train_steps(model, step, batch, dev, per_step)
+        finally:
+            msda_dispatch.BWD_MERGED = True
+        missing = [k for k in ("loss_mask", "loss_dice") if k not in rec["losses"]]
+        if missing:
+            fail(f"full train step ({'merged' if merged else 'split'}): no {missing}")
+        for k, v in rec.pop("launches").items():
+            total[k] = total.get(k, 0) + v
+        log(phase="full_train", msda_backward="merged" if merged else "split", dtype="bfloat16",
+            image=TRAIN_IMG, batch=TRAIN_BATCH, queries=TRAIN_QUERIES,
+            tokens=sum(h * w for h, w in TRAIN_SHAPES), masks=list(batch["targets"]["masks"].shape),
+            **rec, card=card)
+    return total
 
 
 def grad_rel_errors(got, want):
@@ -532,26 +672,54 @@ def step_grads(model, crit, batch, seed: int):
             {n: p.grad.cpu() for n, p in model.named_parameters()})
 
 
-def train_f32_phase(dev):
-    """One f32 step (512^2, batch 1, protocol pyramid, fan-in weights) with the
-    CUDA kernels, every parameter's gradient held against the plain versions
-    on the CPU within its bound; the first-stage indices must match. Then the
-    plain version against itself on perturbed images: the gradients' floor."""
+def train_f32_phase(dev, mask_on: bool = False):
+    """One f32 step (512^2, batch 1, fan-in weights) with the CUDA kernels,
+    every parameter's gradient held against the plain versions on the CPU
+    within its bound; the first-stage indices must match. Then the plain
+    version against itself on perturbed images: the gradients' floor. The
+    detection model runs the protocol pyramid; the masked model (mask_on) the
+    default one, and its step runs once more with the split MSDA backward,
+    held against the merged one."""
     import torch
 
     from ape_tpu_torch.modeling.build import build_ape_ti
+    from ape_tpu_torch.ops import _build, msda_dispatch
 
-    model = build_ape_ti(num_queries=TRAIN_QUERIES, window_radius=RADIUS, mask_on=False,
-                         scale_factors=(2.0, 1.0, 0.5), use_act_checkpoint=True)
+    pyramid = {} if mask_on else {"scale_factors": (2.0, 1.0, 0.5)}
+    model = build_ape_ti(num_queries=TRAIN_QUERIES, window_radius=RADIUS, mask_on=mask_on,
+                         use_act_checkpoint=True, **pyramid)
     model = init_weights(model, SEED, fan_in=True).train()
+    if mask_on:
+        # The encoder's sampling_offsets weights at 0, as the reference
+        # initialises them: the samples then sit where the biases put them,
+        # whatever the activations, and the 4-scale encoder's 4x more samples
+        # add no crossings of integer pixels to the floor (phase 9 keeps the
+        # fan-in weights there).
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.startswith("transformer.encoder.") and name.endswith("sampling_offsets.weight"):
+                    p.zero_()
     cpu_model = copy.deepcopy(model)
     model.to(dev)
-    crit = _criterion(TRAIN_QUERIES)
-    batch = _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5)
+    crit = _criterion(TRAIN_QUERIES, mask_on)
+    batch = _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5, masks=mask_on)
+    gpu_batch = _to(batch, dev)
     t0 = time.perf_counter()
-    gpu_total, gpu_sel, gpu_grads = step_grads(
-        model, crit, {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
-                          else v.to(dev)) for k, v in batch.items()}, SEED)
+    gpu_total, gpu_sel, gpu_grads = step_grads(model, crit, gpu_batch, SEED)
+    split = {}
+    if mask_on:
+        msda_dispatch.BWD_MERGED = False
+        _build.reset_launches()
+        try:
+            _, split_sel, split_grads = step_grads(model, crit, gpu_batch, SEED)
+        finally:
+            msda_dispatch.BWD_MERGED = True
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if launches != SPLIT_STEP_LAUNCHES or not torch.equal(split_sel, gpu_sel):
+            fail(f"f32 split step: launches {launches}, expected {SPLIT_STEP_LAUNCHES}; "
+                 f"first-stage indices as the merged step's: {torch.equal(split_sel, gpu_sel)}")
+        split = grad_rel_errors(split_grads, gpu_grads)
+        del split_grads
     cpu_total, cpu_sel, cpu_grads = step_grads(cpu_model, crit, batch, SEED)
     _, floor_sel, floor_grads = step_grads(cpu_model, crit, perturbed(batch, SEED + 6), SEED)
     rel = grad_rel_errors(gpu_grads, cpu_grads)
@@ -564,17 +732,26 @@ def train_f32_phase(dev):
                       key=lambda kv: -kv[1])[:3]
 
     same_sel = bool(torch.equal(gpu_sel, cpu_sel))
-    log(phase="train_f32_vs_plain", image=F32_TRAIN_IMG, total_loss_cuda=gpu_total,
+    rec = {}
+    if mask_on:
+        rec = dict(split_worst_grad_rel_err=sorted(split.items(), key=lambda kv: -kv[1])[:3],
+                   split_bound=F32_SPLIT_RTOL)
+    log(phase="full_train_f32_vs_plain" if mask_on else "train_f32_vs_plain", image=F32_TRAIN_IMG,
+        total_loss_cuda=gpu_total,
         total_loss_cpu=cpu_total, first_stage_indices_identical=same_sel, params=len(rel),
         worst_grad_rel_err=worst(rel, False), bound=F32_GRAD_RTOL,
         worst_offset_grad_rel_err=worst(rel, True), offset_bound=F32_OFFSET_GRAD_RTOL,
         perturbation=PERTURB, floor_first_stage_indices_identical=bool(torch.equal(floor_sel, cpu_sel)),
         floor_worst_grad_rel_err=worst(floor, False), floor_worst_offset_grad_rel_err=worst(floor, True),
-        seconds=time.perf_counter() - t0)
+        **rec, seconds=time.perf_counter() - t0)
     if not same_sel:
         fail("f32 train step: first-stage indices differ between the CUDA kernels and the plain versions")
     if over:
         fail(f"f32 train step: {len(over)} gradients over their bound, worst (name, rel, bound) {over[:3]}")
+    split_over = [(n, r) for n, r in split.items() if not r <= F32_SPLIT_RTOL]
+    if split_over:
+        fail(f"f32 split step: {len(split_over)} gradients differ from the merged step's by more "
+             f"than {F32_SPLIT_RTOL}, e.g. {split_over[:3]}")
 
 
 class StubLanguage:
@@ -587,7 +764,27 @@ class StubLanguage:
                          for t in text_list]).astype(np.float32)
 
 
-def serve_phase(model):
+def _check_mask_outputs(res, h, w):
+    """A masked model's request: finite instance mask logits, one per kept
+    instance, and finite sem_seg maps over the padded vocabulary, both at the
+    mask-feature resolution of the 1024^2 canvas. Returns sem_seg's shape."""
+    import torch
+
+    masks, n = res["instances"]["mask_logits"], int(res["instances"]["scores"].numel())
+    if tuple(masks.shape) != (n, MASK_SIDE, MASK_SIDE) or not bool(torch.isfinite(masks).all()):
+        fail(f"request {h}x{w}: mask_logits {tuple(masks.shape)} for {n} instances, or not finite")
+    sem = res["sem_seg"]
+    if (sem.dim() != 3 or sem.shape[0] < len(res["text_list"])
+            or tuple(sem.shape[1:]) != (MASK_SIDE, MASK_SIDE) or not bool(torch.isfinite(sem).all())):
+        fail(f"request {h}x{w}: sem_seg {tuple(sem.shape)} for {len(res['text_list'])} texts, "
+             f"or not finite")
+    return list(sem.shape)
+
+
+def serve_phase(model, phase: str = "serve"):
+    """Three non-square requests through DefaultPredictor: finite boxes inside
+    the image, classes inside the prompt, and for a masked model the mask
+    outputs; the launches of the requests."""
     import numpy as np
     import torch
 
@@ -600,12 +797,12 @@ def serve_phase(model):
                 ((800, 600), "a person riding a bike"),
                 ((600, 800), "cat, bus, umbrella")]
     _build.reset_launches()
-    counts = []
     for (h, w), prompt in requests:
         image = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
         t0 = time.perf_counter()
         res = predictor(image, prompt)
         torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
         inst = res["instances"]
         n = int(inst["scores"].numel())
         boxes = inst["boxes"]
@@ -613,15 +810,59 @@ def serve_phase(model):
             fail(f"request {h}x{w}: boxes not finite or outside the image")
         if n and int(inst["classes"].max()) >= len(res["text_list"]):
             fail(f"request {h}x{w}: class index outside the prompt")
-        counts.append(n)
-        log(phase="serve", image=[h, w], prompt=prompt, prompt_type=res["prompt_type"],
-            instances=n, seconds=time.perf_counter() - t0)
+        masks = {"sem_seg_shape": _check_mask_outputs(res, h, w)} if model.mask_on else {}
+        log(phase=phase, image=[h, w], prompt=prompt, prompt_type=res["prompt_type"],
+            instances=n, **masks, seconds=seconds)
     launches = dict(_build.LAUNCHES)
-    want = dict(dict.fromkeys(launches, 0), msda_fwd=12 * len(requests),
-                attn_fwd=4 * len(requests))
+    want = dict(dict.fromkeys(launches, 0),
+                **{k: v * len(requests) for k, v in FORWARD_LAUNCHES.items()})
     if launches != want:
-        fail(f"serve launches {launches}, expected {want}")
+        fail(f"{phase} launches {launches}, expected {want}")
     return launches
+
+
+def full_serve_phase(dev, card):
+    """``build_ape_ti()`` with its defaults (the masked model, 4-scale pyramid)
+    in bf16 at 1024^2 with 900 queries and N(0, 0.02) weights: launches per
+    forward, finite outputs with pred_masks (1, 900, 256, 256), images/s over
+    10 forwards; then three predictor requests. Returns the launches of the
+    measured forward and of the requests."""
+    import torch
+
+    from ape_tpu_torch.modeling.build import build_ape_ti
+    from ape_tpu_torch.ops import _build
+
+    model = build_ape_ti(num_queries=QUERIES, window_radius=RADIUS, dtype=torch.bfloat16)
+    model = init_weights(model, SEED).eval().to(dev)
+    inputs = tuple(t.to(dev) for t in _inputs())
+    with torch.no_grad():
+        model(*inputs)  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = model(*inputs)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        if launches != dict(dict.fromkeys(launches, 0), **FORWARD_LAUNCHES):
+            fail(f"full model: launches per forward {launches}, expected {FORWARD_LAUNCHES}")
+        shapes = {k: tuple(out[k].shape) for k in ("pred_logits", "pred_boxes", "pred_masks")}
+        want = {"pred_logits": (1, QUERIES, NUM_TEXT), "pred_boxes": (1, QUERIES, 4),
+                "pred_masks": (1, QUERIES, MASK_SIDE, MASK_SIDE)}
+        if shapes != want:
+            fail(f"full model: output shapes {shapes}, expected {want}")
+        if not all(bool(torch.isfinite(out[k]).all()) for k in want):
+            fail("full model: non-finite outputs")
+        del out
+        iters = 10
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model(*inputs)
+        torch.cuda.synchronize()
+        img_s = iters / (time.perf_counter() - t0)
+    log(phase="full_serve", dtype="bfloat16", image=IMG, queries=QUERIES,
+        tokens=sum(h * w for h, w in TRAIN_SHAPES), launches_per_forward=launches,
+        output_shapes=shapes, images_per_s=img_s, iters=iters, card=card)
+    served = serve_phase(model, "full_serve_request")
+    return {k: v + served[k] for k, v in launches.items()}
 
 
 def main():
@@ -635,21 +876,36 @@ def main():
     build_phase()
     kern = kernels_phase(dev)
     kern.update(backward_kernels_phase(dev))
-    model = slice_phase(dev, card)
-    serve_phase(model)
+    # launches over every main-path run: each phase sets the counts to 0
+    # just before its run and reads them just after
+    runs = []
+    model, slice_launches = slice_phase(dev, card)
+    runs += [slice_launches, serve_phase(model)]
     f32_phase(model)
     del model
     torch.cuda.empty_cache()
-    launches = train_phase(dev, card)
+    runs.append(train_phase(dev, card))
     train_f32_phase(dev)
+    torch.cuda.empty_cache()
+    runs.append(full_serve_phase(dev, card))
+    torch.cuda.empty_cache()
+    runs.append(full_train_phase(dev, card))
+    torch.cuda.empty_cache()
+    train_f32_phase(dev, mask_on=True)
+    launches = {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
+    pallas_bwd = "ape_tpu/ops/msda_window_pallas_bwd.py"
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     sources = {"msda_fwd": ("msda_fwd.cu", "ape_tpu/ops/msda_window_pallas_v2.py:795", "msda_encoder"),
-               "msda_bwd": ("msda_bwd.cu", "ape_tpu/ops/msda_window_pallas_bwd.py:961",
-                            "msda_bwd_encoder"),
+               "msda_bwd": ("msda_bwd.cu", f"{pallas_bwd}:961", "msda_bwd_encoder"),
+               "msda_bwd_offatt": ("msda_bwd_split.cu", f"{pallas_bwd}:283", "msda_bwd_offatt"),
+               "msda_bwd_value": ("msda_bwd_split.cu", f"{pallas_bwd}:487", "msda_bwd_value"),
                "attn_fwd": ("attn_fwd.cu", "ape_tpu/modeling/backbone/eva_vit.py:136", "attention"),
                "attn_bwd_delta": ("attn_bwd.cu", f"{flash}:273", "attn_bwd_delta"),
                "attn_bwd_dkv": ("attn_bwd.cu", f"{flash}:941", "attn_bwd_dkv"),
                "attn_bwd_dq": ("attn_bwd.cu", f"{flash}:1287", "attn_bwd_dq")}
+    unlaunched = [name for name in sources if not launches[name]]
+    if unlaunched:
+        fail(f"kernels the main paths never launched: {unlaunched}")
     kernels = []
     for name, (source, replaces, case) in sources.items():
         source = f"ape_tpu_torch/csrc/{source}"

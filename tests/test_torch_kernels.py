@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on an NVIDIA card.
 
-These tests (forward and backward kernels) need a CUDA device and the CUDA toolkit: the kernels have no CPU
+These tests (forward and backward kernels, the merged and the split MSDA
+backward) need a CUDA device and the CUDA toolkit: the kernels have no CPU
 mode, so without a card they skip. The file imports neither JAX nor the
 test conftest, so it runs on a machine that has no JAX:
 
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from ape_tpu_torch.ops import _build
+from ape_tpu_torch.ops import _build, msda_dispatch
 from ape_tpu_torch.ops.attention import (
     attn_bwd_cuda,
     attn_fwd_cuda,
@@ -19,7 +20,14 @@ from ape_tpu_torch.ops.attention import (
     global_attention_plain,
 )
 from ape_tpu_torch.ops.msda import ms_deform_attn
-from ape_tpu_torch.ops.msda_dispatch import msda_bwd_cuda, msda_fwd_cuda, ms_deform_attn_window
+from ape_tpu_torch.ops.msda_dispatch import (
+    ms_deform_attn_exact,
+    ms_deform_attn_window,
+    msda_bwd_cuda,
+    msda_bwd_offatt_cuda,
+    msda_bwd_value_cuda,
+    msda_fwd_cuda,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -101,6 +109,59 @@ def test_msda_autograd_runs_the_kernels(device):
     out.backward(grad)
     assert _build.LAUNCHES["msda_fwd"] == 1 and _build.LAUNCHES["msda_bwd"] == 1
     assert torch.isfinite(off.grad).all() and torch.isfinite(v.grad).all()
+
+
+# The split kernels against the merged one, each output over its own largest
+# entry: the same rounding, boundary test and per-sample expressions
+# (msda_sample.cuh), so f32 differs only by FMA contraction and atomic order;
+# bf16 outputs may sit one bf16 step apart.
+SPLIT_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_msda_split_backward_kernels_match_autograd_and_merged(device, dtype):
+    """K3 (d_loc, d_att) and K4 (d_value) against autograd of the plain
+    version and against K2 on the same inputs."""
+    shapes, value, loc, att, grad = _msda_grad_inputs(device, dtype)
+    d_loc, d_att = msda_bwd_offatt_cuda(value, shapes, loc, att, grad)
+    d_value = msda_bwd_value_cuda(shapes, loc, att, grad)
+    assert (d_value.dtype, d_loc.dtype, d_att.dtype) == (dtype, torch.float32, dtype)
+    leaves = [value.detach().float().requires_grad_(), loc.clone().requires_grad_(),
+              att.detach().float().requires_grad_()]
+    want = torch.autograd.grad(ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2]),
+                               leaves, grad.float())
+    merged = msda_bwd_cuda(value, shapes, loc, att, grad)
+    for name, g, w, m in zip(("value", "loc", "att"), (d_value, d_loc, d_att), want, merged):
+        assert g.shape == w.shape, name
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g.float() - w).abs().max()) < GRAD_TOL[dtype] * scale, name
+        m_scale = max(float(m.float().abs().max()), 1e-30)
+        assert float((g.float() - m.float()).abs().max()) <= SPLIT_TOL[dtype] * m_scale, name
+
+
+def test_msda_split_route_serves_the_encoder_only(device, monkeypatch):
+    """With BWD_MERGED off, the window mode's backward launches K3 and K4 and
+    gives K2's gradients; the exact mode (the decoder's) stays on K2."""
+    shapes, value, _, att, grad = _msda_grad_inputs(device, torch.float32, q=sum(
+        h * w for h, w in ((16, 16), (8, 8), (4, 4))))
+    off = torch.from_numpy(np.random.RandomState(4).randn(*att.shape, 2).astype(np.float32))
+    grads = {}
+    for merged in (True, False):
+        monkeypatch.setattr(msda_dispatch, "BWD_MERGED", merged)
+        _build.reset_launches()
+        o = off.to(device).requires_grad_()
+        v = value.clone().requires_grad_()
+        ms_deform_attn_window(v, shapes, o, att, 2).backward(grad)
+        grads[merged] = (v.grad, o.grad)
+        split = {k: _build.LAUNCHES[k] for k in ("msda_bwd", "msda_bwd_offatt", "msda_bwd_value")}
+        assert split == ({"msda_bwd": 1, "msda_bwd_offatt": 0, "msda_bwd_value": 0} if merged
+                         else {"msda_bwd": 0, "msda_bwd_offatt": 1, "msda_bwd_value": 1})
+    for g, m in zip(grads[False], grads[True]):
+        assert float((g - m).abs().max()) <= SPLIT_TOL[torch.float32] * float(m.abs().max())
+    _build.reset_launches()
+    loc = torch.rand(2, value.shape[1], 8, 3, 4, 2, device=device, requires_grad=True)
+    ms_deform_attn_exact(value.clone().requires_grad_(), shapes, loc, att).backward(grad)
+    assert _build.LAUNCHES["msda_bwd"] == 1 and _build.LAUNCHES["msda_bwd_offatt"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -24,9 +24,8 @@ import jax.numpy as jnp
 from tests.parity_harness import DIMS, FakeLanguage
 from tests.torch_parity import (
     flatten,
-    init_params,
     jax_tiny_protocol,
-    load_port,
+    model_pair,
     tiny_inputs,
     torch_tiny_protocol,
 )
@@ -39,10 +38,7 @@ def _t(x):
 @pytest.fixture(scope="module")
 def tiny_pair():
     """ape_tpu and port models at tiny protocol dims with the same weights."""
-    jm = jax_tiny_protocol()
-    args = tuple(jnp.asarray(a) for a in tiny_inputs())
-    flat, params = init_params(jm, *args)
-    return jm, params, flat, load_port(torch_tiny_protocol(), flat, "", "")
+    return model_pair(jax_tiny_protocol(), torch_tiny_protocol())
 
 
 @pytest.mark.parametrize("h,w", [(256, 256), (200, 240)])

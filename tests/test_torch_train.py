@@ -26,10 +26,11 @@ import jax.numpy as jnp
 from tests.parity_harness import DIMS
 from tests.torch_parity import (
     flatten,
-    init_params,
+    jax_tiny_masked,
     jax_tiny_protocol,
-    load_port,
+    model_pair,
     tiny_inputs,
+    torch_tiny_masked,
     torch_tiny_protocol,
 )
 
@@ -64,7 +65,7 @@ def _targets(boxes, valid, labels):
 
 
 def _port_targets(t):
-    return {"labels": _t(t["labels"]).long(), "boxes": _t(t["boxes"]), "valid": _t(t["valid"])}
+    return {**{k: _t(v) for k, v in t.items()}, "labels": _t(t["labels"]).long()}
 
 
 def _jax_targets(t):
@@ -176,8 +177,10 @@ def test_criterion_matches(rng):
 
 
 def test_criterion_refuses_unported_losses():
+    """The point-sampled mask loss is not ported: asking for it raises."""
     with pytest.raises(NotImplementedError):
-        DeformableCriterion(num_classes=3, weight_dict={}, losses=("class", "masks"))
+        DeformableCriterion(num_classes=3, weight_dict={}, losses=("class", "masks_maskdino"),
+                            mask_point_sample=True)
 
 
 @pytest.mark.parametrize("name,layer", [
@@ -187,6 +190,11 @@ def test_criterion_refuses_unported_losses():
     ("backbone.net.blocks.11.mlp.w3.bias", 12),
     ("backbone.simfp_4.0.weight", 13),
     ("transformer.encoder.layers.0.attentions.0.sampling_offsets.weight", 13),
+    ("lateral_conv.weight", 13),
+    ("output_conv.norm.weight", 13),
+    ("mask_conv.weight", 13),
+    ("mask_embed.layers.2.bias", 13),
+    ("mask_embed.3.layers.0.weight", 13),
 ])
 def test_vit_layer_id(name, layer):
     from ape_tpu.engine.optimizer import vit_layer_id as j_layer_id
@@ -208,21 +216,30 @@ def test_lr_lambda_matches_schedule():
 @pytest.fixture(scope="module")
 def tiny_pair():
     """ape_tpu and port models at tiny protocol dims with the same weights."""
-    jm = jax_tiny_protocol()
-    args = tuple(jnp.asarray(a) for a in tiny_inputs())
-    flat, params = init_params(jm, *args)
-    return jm, params, flat, load_port(torch_tiny_protocol(), flat, "", "")
+    return model_pair(jax_tiny_protocol(), torch_tiny_protocol())
 
 
-def test_optimizer_matches_optax(tiny_pair):
-    """Three AdamW steps with warmup and a milestone from identical gradients,
-    against optax's chain; parameters within 1e-6."""
+@pytest.fixture(scope="module")
+def masked_pair():
+    """The masked models (default 4-scale pyramid, mask head) at tiny dims,
+    with the encoder's sampling_offsets kernels at 0 (the reference's init).
+    With random kernels the 4-scale encoder's ~440k samples a layer sit at
+    random sub-pixel positions, and the two frameworks' f32 rounding moves a
+    few of them across an integer pixel, where d_loc is one-sided: that alone
+    moved an encoder sampling_offsets gradient by 1.8e-2 and backbone ones by
+    3.6e-3 (the port against itself on images perturbed by 1e-7). With zero
+    kernels the encoder's samples sit where the biases put them, whatever the
+    activations, and the step agrees to ~3e-5."""
+    return model_pair(jax_tiny_masked(), torch_tiny_masked(), zero_encoder_offsets=True)
+
+
+def _optimizer_matches_optax(pair):
     from ape_tpu.engine.optimizer import build_optimizer as j_build_optimizer
     from tests.torch_parity import unflatten
 
     import optax
 
-    jm, params, flat, pm = tiny_pair
+    jm, params, flat, pm = pair
     pm = copy.deepcopy(pm)
     kw = dict(vit_num_layers=DIMS["vit_depth"], warmup_steps=1, milestones=(1,))
     tx = j_build_optimizer(params, **kw)
@@ -251,6 +268,18 @@ def test_optimizer_matches_optax(tiny_pair):
     assert moved == len(want)
 
 
+def test_optimizer_matches_optax(tiny_pair):
+    """Three AdamW steps with warmup and a milestone from identical gradients,
+    against optax's chain; parameters within 1e-6."""
+    _optimizer_matches_optax(tiny_pair)
+
+
+def test_optimizer_matches_optax_masked(masked_pair):
+    """The same with the mask head: its parameters land in JAX's layer-decay
+    and weight-decay groups."""
+    _optimizer_matches_optax(masked_pair)
+
+
 def _slice_batch(h=200, w=240):
     """One padded image, its text features, and two gt boxes (labels 0 and 3)."""
     img, sizes, text, valid = tiny_inputs(h=h, w=w)
@@ -260,23 +289,30 @@ def _slice_batch(h=200, w=240):
             "targets": tg}
 
 
+def _masked_batch():
+    """The slice batch with GT masks at the mask resolution (img / 4), drawn
+    as rand > 0.7 as tools/bench_train.py draws them."""
+    batch = _slice_batch()
+    side = DIMS["img"] // 4
+    batch["targets"]["masks"] = np.random.RandomState(11).rand(1, 3, side, side) > 0.7
+    return batch
+
+
 def _port_batch(batch):
     out = {k: _t(v) for k, v in batch.items() if k != "targets"}
     out["targets"] = _port_targets(batch["targets"])
     return out
 
 
-@pytest.fixture(scope="module")
-def jax_step(tiny_pair):
+def _jax_step(pair, batch, losses):
     """JAX's loss and gradient of one step: model.apply, then the criterion
     (train_step.py loss_fn), with the first-stage indices it selected."""
     import ape_tpu.modeling.ape_deta.transformer as jt
 
-    jm, params, _, _ = tiny_pair
-    batch = _slice_batch()
+    jm, params, _, _ = pair
     crit = j_criterion.DeformableCriterion(num_classes=NUM_TEXT, num_queries=QUERIES,
                                            weight_dict=j_criterion.default_weight_dict(),
-                                           losses=("class", "boxes"))
+                                           losses=losses)
     targets = _jax_targets(batch["targets"])
     selected = []
     select = jt.deta_first_stage_select
@@ -307,6 +343,19 @@ def jax_step(tiny_pair):
                 anchors=np.asarray(enc["anchors"]), anchor_valid=np.asarray(enc["valid"]))
 
 
+@pytest.fixture(scope="module")
+def jax_step(tiny_pair):
+    """JAX's detection step on the protocol model."""
+    return _jax_step(tiny_pair, _slice_batch(), ("class", "boxes"))
+
+
+@pytest.fixture(scope="module")
+def masked_jax_step(masked_pair):
+    """JAX's masked step, losses ("class", "boxes", "masks"), as the JAX
+    train benchmark runs it."""
+    return _jax_step(masked_pair, _masked_batch(), ("class", "boxes", "masks"))
+
+
 def _port_step(pm, batch, use_act_checkpoint=False):
     pm = copy.deepcopy(pm).train()
     pm.transformer.encoder.use_act_checkpoint = use_act_checkpoint
@@ -331,11 +380,9 @@ def _grad_mismatches(pm, want_grads):
     return bad
 
 
-@pytest.mark.parametrize("use_act_checkpoint", [False, True])
-def test_train_step_loss_and_grads_match(tiny_pair, jax_step, use_act_checkpoint):
-    """Total loss, every loss term, and every parameter's gradient of one
-    step, with identical first-stage indices; with and without recompute."""
-    _, _, _, pm = tiny_pair
+def _check_step(pm, jax_step, use_act_checkpoint):
+    """The port's step against JAX's: identical first-stage indices, every
+    loss term, the total and every parameter's gradient."""
     batch = jax_step["batch"]
     pm, total, losses, outputs = _port_step(pm, batch, use_act_checkpoint)
     np.testing.assert_array_equal(outputs["first_stage_indices"].numpy(), jax_step["selected"])
@@ -349,9 +396,25 @@ def test_train_step_loss_and_grads_match(tiny_pair, jax_step, use_act_checkpoint
     for k, v in losses.items():
         np.testing.assert_allclose(v.item(), jax_step["losses"][k], atol=LOSS_ATOL, rtol=1e-4,
                                    err_msg=k)
-    np.testing.assert_allclose(float(total), jax_step["total"], rtol=1e-4)
+    np.testing.assert_allclose(total.item(), jax_step["total"], rtol=1e-4)
     assert not _grad_mismatches(pm, jax_step["grads"])
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in pm.parameters())
+    return losses
+
+
+@pytest.mark.parametrize("use_act_checkpoint", [False, True])
+def test_train_step_loss_and_grads_match(tiny_pair, jax_step, use_act_checkpoint):
+    """Total loss, every loss term, and every parameter's gradient of one
+    step, with identical first-stage indices; with and without recompute."""
+    _check_step(tiny_pair[3], jax_step, use_act_checkpoint)
+
+
+@pytest.mark.parametrize("use_act_checkpoint", [False, True])
+def test_masked_train_step_loss_and_grads_match(masked_pair, masked_jax_step, use_act_checkpoint):
+    """The same for the masked model with the mask losses: every parameter's
+    gradient, the mask head's included."""
+    losses = _check_step(masked_pair[3], masked_jax_step, use_act_checkpoint)
+    assert losses["loss_mask"].item() > 0 and losses["loss_dice"].item() > 0
 
 
 def _without_detach(cls, target):

@@ -7,6 +7,8 @@ loaded under the full-model name of the place it holds in APE, so one
 converter serves every module test.
 """
 
+import re
+
 import numpy as np
 
 import jax
@@ -15,6 +17,7 @@ import jax.numpy as jnp
 from tests.parity_harness import DIMS
 
 PROTOCOL_SCALES = (2.0, 1.0, 0.5)
+MASKED_SCALES = (4.0, 2.0, 1.0, 0.5)
 
 
 def flatten(tree, prefix=""):
@@ -77,8 +80,22 @@ def load_port(module, flat, jax_prefix, torch_prefix):
     return module.eval()
 
 
-def jax_tiny_protocol(d=DIMS, window_radius=4):
-    """ape_tpu APEDeta at the parity-harness dims with the protocol pyramid."""
+def model_pair(jax_model, torch_model, zero_encoder_offsets=False):
+    """An ape_tpu APEDeta and the port's with the same seeded weights:
+    (jax model, param tree, flat params, port model). With
+    ``zero_encoder_offsets`` the encoder's sampling_offsets kernels are 0, as
+    the reference initialises them."""
+    flat, _ = init_params(jax_model, *(jnp.asarray(a) for a in tiny_inputs()))
+    if zero_encoder_offsets:
+        flat = {k: (np.zeros_like(v) if re.fullmatch(r"transformer/encoder/.*sampling_offsets/kernel", k)
+                    else v) for k, v in flat.items()}
+    return jax_model, unflatten(flat), flat, load_port(torch_model, flat, "", "")
+
+
+def jax_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, **apedeta_kw):
+    """ape_tpu APEDeta at the parity-harness dims on the given pyramid; the
+    neck extends it to 5 levels. ``apedeta_kw`` (mask_on, aux_mask, ...) go
+    to APEDeta; the mask head reads the finest level."""
     from ape_tpu.modeling.ape_deta.model import APEDeta, ChannelMapper
     from ape_tpu.modeling.ape_deta.transformer import (
         DeformableDetrTransformer,
@@ -86,13 +103,15 @@ def jax_tiny_protocol(d=DIMS, window_radius=4):
         DeformableTransformerEncoder,
     )
     from ape_tpu.modeling.backbone.eva_vit import EVAViT, SimpleFeaturePyramid
+    from ape_tpu_torch.modeling.build import pyramid_features
 
+    _, levels = pyramid_features(scale_factors)
     backbone = SimpleFeaturePyramid(
         net=EVAViT(img_size=d["img"], patch_size=16, embed_dim=d["vit_embed"],
                    depth=d["vit_depth"], num_heads=d["vit_heads"], mlp_ratio=4 * 2 / 3,
                    window_size=d["win"], window_block_indexes=(0,),
                    pretrain_img_size=224, pt_hw_seq_len=16, packed_swiglu=True),
-        out_channels=d["embed"], scale_factors=PROTOCOL_SCALES)
+        out_channels=d["embed"], scale_factors=scale_factors)
     transformer = DeformableDetrTransformer(
         encoder=DeformableTransformerEncoder(
             embed_dim=d["embed"], num_heads=d["heads"], feedforward_dim=d["ffn"],
@@ -104,12 +123,12 @@ def jax_tiny_protocol(d=DIMS, window_radius=4):
     return APEDeta(
         backbone=backbone, neck=ChannelMapper(out_channels=d["embed"], num_outs=5),
         transformer=transformer, embed_dim=d["embed"], embed_dim_language=d["ldim"],
-        num_queries=d["queries"], in_features=("p3", "p4", "p5", "p6", "extra0"),
-        mask_on=False)
+        num_queries=d["queries"], in_features=levels, mask_in_feature=levels[0],
+        **{"mask_on": False, **apedeta_kw})
 
 
-def torch_tiny_protocol(d=DIMS, window_radius=4):
-    """The port's APEDeta at the same dims."""
+def torch_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, **apedeta_kw):
+    """The port's APEDeta at the same dims and pyramid."""
     from ape_tpu_torch.modeling.ape_deta.model import APEDeta, ChannelMapper
     from ape_tpu_torch.modeling.ape_deta.transformer import (
         DeformableDetrTransformer,
@@ -119,12 +138,12 @@ def torch_tiny_protocol(d=DIMS, window_radius=4):
     from ape_tpu_torch.modeling.backbone.eva_vit import EVAViT, SimpleFeaturePyramid
     from ape_tpu_torch.modeling.build import pyramid_features
 
-    sfp, levels = pyramid_features(PROTOCOL_SCALES)
+    sfp, levels = pyramid_features(scale_factors)
     backbone = SimpleFeaturePyramid(
         EVAViT(patch_size=16, embed_dim=d["vit_embed"], depth=d["vit_depth"],
                num_heads=d["vit_heads"], mlp_ratio=4 * 2 / 3, window_size=d["win"],
                window_block_indexes=(0,), pretrain_img_size=224, pt_hw_seq_len=16),
-        out_channels=d["embed"], scale_factors=PROTOCOL_SCALES)
+        out_channels=d["embed"], scale_factors=scale_factors)
     transformer = DeformableDetrTransformer(
         DeformableTransformerEncoder(d["embed"], d["heads"], d["ffn"], d["layers"], 5,
                                      window_radius=window_radius),
@@ -132,7 +151,29 @@ def torch_tiny_protocol(d=DIMS, window_radius=4):
         embed_dim=d["embed"], num_feature_levels=5, two_stage_num_proposals=d["queries"])
     return APEDeta(backbone, ChannelMapper(sfp, d["embed"], d["embed"], num_outs=5),
                    transformer, embed_dim=d["embed"], embed_dim_language=d["ldim"],
-                   in_features=levels, mask_on=False)
+                   in_features=levels, mask_in_feature=levels[0],
+                   **{"mask_on": False, **apedeta_kw})
+
+
+def jax_tiny_protocol(d=DIMS, window_radius=4):
+    """ape_tpu APEDeta at the parity-harness dims with the protocol pyramid."""
+    return jax_tiny(d, window_radius)
+
+
+def torch_tiny_protocol(d=DIMS, window_radius=4):
+    """The port's APEDeta at the same dims."""
+    return torch_tiny(d, window_radius)
+
+
+def jax_tiny_masked(d=DIMS, window_radius=4, **kw):
+    """ape_tpu APEDeta at the parity-harness dims as APE-Ti builds it by
+    default: the 4-scale pyramid (levels p2 ... p6) and the mask head."""
+    return jax_tiny(d, window_radius, MASKED_SCALES, mask_on=True, **kw)
+
+
+def torch_tiny_masked(d=DIMS, window_radius=4, **kw):
+    """The port's masked APEDeta at the same dims."""
+    return torch_tiny(d, window_radius, MASKED_SCALES, mask_on=True, **kw)
 
 
 def tiny_inputs(d=DIMS, seed=3, h=None, w=None):
