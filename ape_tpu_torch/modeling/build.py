@@ -43,6 +43,7 @@ def build_ape_ti(
     use_act_checkpoint: bool = False,
     mask_encode_level: int = 0,
     aux_mask: bool = False,
+    device=None,
 ) -> APEDeta:
     """APE-Ti for any square input size (shapes follow the input). The
     defaults are JAX's: the masked model on the 4-scale pyramid (levels p2 …
@@ -50,7 +51,15 @@ def build_ape_ti(
     reference latency protocol passes ``mask_on=False`` and
     ``scale_factors=(2.0, 1.0, 0.5)``: the neck then extends the pyramid to 5
     levels with one stride-2 extra conv. use_act_checkpoint recomputes every
-    encoder and decoder layer in the backward (training at 1024^2)."""
+    encoder and decoder layer in the backward (training at 1024^2).
+
+    The model lies on ``device``: by default the CUDA card, and with no card
+    it raises rather than fall back to the CPU; pass ``device="cpu"`` to
+    build it there."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("build_ape_ti: no CUDA device; pass device='cpu' to build on the CPU")
+        device = torch.device("cuda")
     sfp_names, levels = pyramid_features(scale_factors)
     backbone = SimpleFeaturePyramid(
         EVAViT(patch_size=16, embed_dim=192, depth=12, num_heads=3,
@@ -70,4 +79,4 @@ def build_ape_ti(
         backbone, ChannelMapper(sfp_names, 256, 256, num_outs=5), transformer,
         embed_dim=256, embed_dim_language=embed_dim_language, in_features=levels,
         mask_on=mask_on, mask_in_feature=levels[0], mask_encode_level=mask_encode_level,
-        aux_mask=aux_mask, dtype=dtype)
+        aux_mask=aux_mask, dtype=dtype).to(device)

@@ -32,7 +32,8 @@ NVCC_FLAGS = (
 LIB_NAME = "libape_tpu_torch_kernels.so"
 
 LAUNCHES = {"msda_fwd": 0, "msda_bwd": 0, "msda_bwd_offatt": 0, "msda_bwd_value": 0,
-            "attn_fwd": 0, "attn_bwd_delta": 0, "attn_bwd_dkv": 0, "attn_bwd_dq": 0}
+            "attn_fwd": 0, "attn_bwd_delta": 0, "attn_bwd_dkv": 0, "attn_bwd_dq": 0,
+            "msda_fwd_pair": 0, "msda_fwd_rows": 0, "msda_fwd_qlevel": 0, "msda_fwd_dense": 0}
 
 
 def reset_launches() -> None:
@@ -114,6 +115,12 @@ def library() -> ctypes.CDLL:
     lib.ape_attn_bwd_dkv.restype = i
     lib.ape_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, f, i, p]
     lib.ape_attn_bwd_dq.restype = i
+    # the window-MSDA forms (csrc/msda_window.cuh): value, offsets, att, out,
+    # the int plan (host memory), radius, value_bf16, att_f32, stream
+    for name in ("pair", "rows", "qlevel", "dense"):
+        fn = getattr(lib, f"ape_msda_fwd_{name}")
+        fn.argtypes = [p, p, p, p, ctypes.POINTER(i), f, i, i, p]
+        fn.restype = i
     return lib
 
 

@@ -29,7 +29,7 @@ def level_start_index(spatial_shapes: Sequence[Tuple[int, int]]):
     return tuple(starts[:-1]), starts[-1]
 
 
-def _sample_level(value_l, loc_l, w_l, height: int, width: int) -> torch.Tensor:
+def sample_level(value_l, loc_l, w_l, height: int, width: int) -> torch.Tensor:
     """Weighted bilinear samples of one level, summed over points.
 
     value_l (B, HW, H, D) f32, loc_l (B, Q, H, P, 2), w_l (B, Q, H, P) -> (B, Q, H, D) f32.
@@ -81,5 +81,5 @@ def ms_deform_attn(
     out = torch.zeros(b, q, h, d, dtype=torch.float32, device=value.device)
     for lvl, (hh, ww) in enumerate(spatial_shapes):
         value_l = value32[:, starts[lvl] : starts[lvl] + hh * ww]
-        out = out + _sample_level(value_l, loc[:, :, :, lvl], att[:, :, :, lvl], hh, ww)
+        out = out + sample_level(value_l, loc[:, :, :, lvl], att[:, :, :, lvl], hh, ww)
     return out.reshape(b, q, h * d).to(value.dtype)

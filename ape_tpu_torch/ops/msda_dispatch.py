@@ -25,6 +25,23 @@ backward never reaches K3 or K4). The window clip and the division by the
 level size stay in torch (``window_locations``), so autograd carries their
 chain rule. JAX's dense-matmul decoder backward (``_dvalue_dense``) is not
 ported: the decoder's backward runs on K2 too.
+
+Forms of the encoder's forward. JAX selects two other window-MSDA forwards
+with environment variables, and so does the port, with module flags of the
+same names, read at each call so that one process can run every form:
+
+  * ``FUSED`` (``APE_MSDA_FUSED`` != "0"): K8, ``csrc/msda_fwd_qlevel.cu``,
+    every value level of a query level in one launch;
+  * ``V6`` (``APE_MSDA_V6`` != "0"), taken only with 8 heads: K9,
+    ``csrc/msda_fwd_dense.cu``, on the query levels whose width is a
+    multiple of 128, the narrower ones on K1.
+
+``FUSED`` goes first, as in JAX (``ape_tpu/ops/msda_dispatch.py:49-60``).
+Only the encoder's window mode takes them; the decoder's exact mode stays on
+K1. Under autograd each form's forward pairs with the backward above (K2,
+or K3 + K4), as JAX's ``custom_vjp`` pairs any of its forwards with one
+backward. The forms' plans and kernels are in ``msda_window_forms.py``; on
+CPU tensors every form is the plain version.
 """
 
 from __future__ import annotations
@@ -34,12 +51,27 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ape_tpu_torch.ops import _build
+from ape_tpu_torch.ops import _build, msda_window_forms
 from ape_tpu_torch.ops.msda import level_start_index, ms_deform_attn
 
 # The encoder's window-MSDA backward: merged (K2) unless APE_MSDA_BWD_MERGED=0
 # selects the split kernels (K3 + K4).
 BWD_MERGED = os.environ.get("APE_MSDA_BWD_MERGED", "1") != "0"
+# The encoder's window-MSDA forward: K1 unless APE_MSDA_FUSED (K8) or, with 8
+# heads, APE_MSDA_V6 (K9 + K1) selects another form.
+FUSED = os.environ.get("APE_MSDA_FUSED", "0") != "0"
+V6 = os.environ.get("APE_MSDA_V6", "0") != "0"
+
+
+def window_form(heads: int) -> str:
+    """The form the encoder's window forward takes on a card now: "qlevel"
+    (K8) under FUSED, else "dense" (K9) under V6 with 8 heads, else
+    "gather" (K1)."""
+    if FUSED:
+        return "qlevel"
+    if V6 and heads == 8:
+        return "dense"
+    return "gather"
 
 
 def grid_centers(spatial_shapes: Sequence[Tuple[int, int]], device) -> torch.Tensor:
@@ -61,10 +93,13 @@ def level_sizes(spatial_shapes: Sequence[Tuple[int, int]], device) -> torch.Tens
 
 
 def window_locations(
-    spatial_shapes: Sequence[Tuple[int, int]], pixel_offsets: torch.Tensor, radius: float
+    spatial_shapes: Sequence[Tuple[int, int]], pixel_offsets: torch.Tensor, radius: float,
+    first_query: int = 0,
 ) -> torch.Tensor:
-    """f32 sampling locations ``center + clip(off, -R, R) / size``: (B, Q, H, L, P, 2)."""
+    """f32 sampling locations ``center + clip(off, -R, R) / size``: (B, Q, H,
+    L, P, 2), for the Q queries of the pyramid grid from ``first_query`` on."""
     centers = grid_centers(spatial_shapes, pixel_offsets.device)
+    centers = centers[first_query:first_query + pixel_offsets.shape[1]]
     norm = level_sizes(spatial_shapes, pixel_offsets.device)
     off = pixel_offsets.float().clamp(-radius, radius)
     return centers[None, :, None, None, None, :] + off / norm[None, None, None, :, None, :]
@@ -219,15 +254,18 @@ def msda_bwd_value_cuda(
 
 
 class _MSDAFunction(torch.autograd.Function):
-    """msda_fwd.cu forward; msda_bwd.cu backward, or for the encoder's window
-    mode under ``BWD_MERGED = False`` msda_bwd_split.cu (CUDA tensors only)."""
+    """msda_fwd.cu forward, or for the encoder's window mode another form
+    (``window``: (form, pixel offsets, radius), ``window_form``);
+    msda_bwd.cu backward, or for the window mode under ``BWD_MERGED = False``
+    msda_bwd_split.cu (CUDA tensors only). Every form's backward reads the
+    locations, whose gradient carries the clip's."""
 
     @staticmethod
     def forward(ctx, value, loc, att, spatial_shapes, window):
         ctx.spatial_shapes = spatial_shapes
-        ctx.window = window
+        ctx.window = window is not None
         ctx.save_for_backward(value, loc, att)
-        return msda_fwd_cuda(value, spatial_shapes, loc, att)
+        return _forward(value, spatial_shapes, loc, att, window)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -241,12 +279,22 @@ class _MSDAFunction(torch.autograd.Function):
         return d_value, d_loc, d_att, None, None
 
 
-def _route(value, spatial_shapes, loc, att, window):
+def _forward(value, spatial_shapes, loc, att, window):
+    """The forward kernels: K1, or the window form ``window`` names."""
+    if window is None or window[0] == "gather":
+        return msda_fwd_cuda(value, spatial_shapes, loc, att)
+    form, pixel_offsets, radius = window
+    return msda_window_forms.window_form_cuda(form, value, spatial_shapes, pixel_offsets, att,
+                                              radius)
+
+
+def _route(value, spatial_shapes, loc, att, window=None):
+    """window: None for the exact mode, else (form, pixel offsets, radius)."""
     if value.is_cuda:
         if torch.is_grad_enabled() and (value.requires_grad or loc.requires_grad
                                         or att.requires_grad):
             return _MSDAFunction.apply(value, loc, att, spatial_shapes, window)
-        return msda_fwd_cuda(value, spatial_shapes, loc, att)
+        return _forward(value, spatial_shapes, loc, att, window)
     if value.device.type == "cpu":
         return ms_deform_attn(value, spatial_shapes, loc, att)
     raise ValueError(f"no MSDA implementation for device {value.device}")
@@ -266,8 +314,10 @@ def ms_deform_attn_window(
     """
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     loc = window_locations(spatial_shapes, pixel_offsets, radius)
+    form = window_form(value.shape[2]) if value.is_cuda else "gather"
+    off = None if form == "gather" else pixel_offsets.detach().float().contiguous()
     return _route(value, spatial_shapes, loc.contiguous(), attention_weights.contiguous(),
-                  window=True)
+                  window=(form, off, radius))
 
 
 def ms_deform_attn_exact(
@@ -279,4 +329,4 @@ def ms_deform_attn_exact(
     """Exact MSDA of the decoder at normalized locations. Returns (B, Q, H * D)."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     loc = sampling_locations.float().contiguous()
-    return _route(value, spatial_shapes, loc, attention_weights.contiguous(), window=False)
+    return _route(value, spatial_shapes, loc, attention_weights.contiguous())

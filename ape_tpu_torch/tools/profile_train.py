@@ -7,7 +7,8 @@ card, from the root of a checkout:
 Without flags the detection model (chip_smoke's phase 8); ``--masked`` the
 full masked model with the mask losses (phase 11). Under
 ``APE_MSDA_BWD_MERGED=0`` the encoder's MSDA backward runs on the split
-kernels (K3 + K4) instead of K2.
+kernels (K3 + K4) instead of K2; under ``APE_MSDA_FUSED=1`` (K8) or
+``APE_MSDA_V6=1`` (K9 + K1) its forward takes another form.
 
 Prints three JSON lines and the card's nvidia-smi line:
 
@@ -36,8 +37,8 @@ from ape_tpu_torch.engine.train_step import loss_fn, make_train_step
 from ape_tpu_torch.modeling.build import build_ape_ti
 from ape_tpu_torch.ops import msda_dispatch
 
-PORT_KERNELS = ("msda_fwd", "msda_bwd_kernel", "msda_bwd_offatt", "msda_bwd_value",
-                "attn_fwd", "attn_bwd")
+PORT_KERNELS = ("msda_fwd_kernel", "msda_fwd_qlevel", "msda_fwd_dense", "msda_bwd_kernel",
+                "msda_bwd_offatt", "msda_bwd_value", "attn_fwd", "attn_bwd")
 
 
 def _event():
@@ -123,8 +124,8 @@ def main():
     cs.device_phase()
     dev = torch.device("cuda", 0)
     model = build_ape_ti(num_queries=cs.TRAIN_QUERIES, window_radius=cs.RADIUS, mask_on=args.masked,
-                         use_act_checkpoint=True, dtype=torch.bfloat16)
-    model = cs.init_weights(model, cs.SEED).to(dev)
+                         use_act_checkpoint=True, dtype=torch.bfloat16, device=dev)
+    model = cs.init_weights(model, cs.SEED)
     crit = cs._criterion(cs.TRAIN_QUERIES, args.masked)
     opt, sched = build_optimizer(model)
     step = make_train_step(model, crit, opt, sched)
@@ -133,8 +134,8 @@ def main():
     for _ in range(2):
         step(batch, gen)
     torch.cuda.synchronize()
-    print(json.dumps({"form": {"masked": args.masked, "split": not msda_dispatch.BWD_MERGED}}),
-          flush=True)
+    print(json.dumps({"form": {"masked": args.masked, "split": not msda_dispatch.BWD_MERGED,
+                               "window_forward": msda_dispatch.window_form(8)}}), flush=True)
     print(json.dumps({"stage_split": stage_split(model, crit, opt, sched, batch, gen)}), flush=True)
     prof, ours = profile_step(step, batch, gen)
     print(json.dumps({"profile": prof}), flush=True)

@@ -12,21 +12,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3. kernels: each forward CUDA kernel against its plain PyTorch version at
    every shape set the main paths give it (the protocol pyramid at batch 1;
    the 4-scale pyramid at batch 1 with 900 decoder queries and at batch 2
-   with 300), in f32 (TF32 off) and bf16, with times;
+   with 300), in f32 (TF32 off) and bf16, with times, and attention's beside
+   ``F.scaled_dot_product_attention``; then the encoder's other window
+   forms, K6 (all pairs), K7 (+ K6), K8 and K9 (+ K1), each against the
+   plain version and against K1 at the protocol pyramid (batch 1) and the
+   4-scale one (batch 2);
 4. backward kernels: each backward kernel against torch autograd of its
-   plain version at the training shapes, in f32 and bf16, with times; the
-   split MSDA backward (K3, K4) also against the merged one (K2);
+   plain version at the training shapes, in f32 and bf16, with times (the
+   attention backward beside that of ``F.scaled_dot_product_attention``);
+   the split MSDA backward (K3, K4) also against the merged one (K2);
 5. slice: ``build_ape_ti`` at the reference latency protocol (1024^2, bf16,
    900 queries, 80 text features of width 1024, N(0, 0.02) weights with the
    ring-init offsets re-armed): launch counts per forward, host syncs,
    output checks, images/s;
 6. serve: ``DefaultPredictor`` answers three non-square requests;
-7. f32: the same forward in f32 held against the plain versions on the CPU;
+   forms: the same forward under ``msda_dispatch.FUSED`` (K8) and under
+   ``V6`` (K9 + K1): exact launches, outputs, images/s;
+7. f32: the same forward in f32 held against the plain versions on the CPU,
+   its encoder memory also under each form;
 8. train: APE-Ti training as ``tools/bench_train.py`` runs it without masks
    (1024^2, batch 2, 300 queries, default pyramid, bf16 over f32 params,
    recompute checkpointing, 80 texts, 8 target slots with 4 valid), through
    ``build_optimizer`` and ``make_train_step``: one warm-up step, three timed
    steps; finite losses and gradients, launches per step, s/step, memory;
+   then a warm-up and one step under ``FUSED`` (K8 forward and recompute,
+   K2 backward);
 9. train f32: one f32 step at 512^2, batch 1, protocol pyramid, fan-in
    weights: every parameter's gradient held against the plain versions on
    the CPU, and the plain gradients' own floor under a perturbation of the
@@ -35,6 +45,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     4-scale pyramid (1024^2, bf16, 900 queries, S = 87,296 tokens): launches
     per forward, finite ``pred_masks`` (1, 900, 256, 256), images/s, and
     three ``DefaultPredictor`` requests with ``mask_logits`` and ``sem_seg``;
+    then a forward under ``V6``, whose two 128-wide query levels take K9;
 11. full train: the masked model as ``tools/bench_train.py`` trains it (as 8,
     with ``masks`` (2, 8, 256, 256) drawn as rand > 0.7 and losses class,
     boxes and masks): one warm-up and three timed steps with the merged MSDA
@@ -42,10 +53,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     ``msda_dispatch.BWD_MERGED = False``); exact launches of each form;
 12. full train f32: phase 9 for the masked model on the default pyramid,
     then the same step once more with the split backward, held against the
-    merged one.
+    merged one;
+13. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
+    form at both pyramids and both offset draws, and its per-pair suites.
 
-Then the kernels line and, last, {"ok": true, "device": {...}}. The script
-needs the repository around it and a CUDA card; it imports no JAX.
+Then the kernels line (each kernel's launches over the main paths, error,
+time, plain and library time, and bound) and, last, {"ok": true, "device":
+{...}}. The script needs the repository around it and a CUDA card; it
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -100,6 +115,20 @@ STEP_LAUNCHES = {"msda_fwd": 24, "msda_bwd": 12, "attn_fwd": 4,
 SPLIT_STEP_LAUNCHES = dict(STEP_LAUNCHES, msda_bwd=6, msda_bwd_offatt=6, msda_bwd_value=6)
 # Per forward of either model: 6 + 6 MSDA layers, 4 global attention blocks.
 FORWARD_LAUNCHES = {"msda_fwd": 12, "attn_fwd": 4}
+ENCODER_LAYERS = 6
+# The encoder's other forward forms, by the flag of msda_dispatch that
+# selects them: K8 under FUSED, K9 (+ K1 on the narrow query levels) under V6.
+FORM_FLAGS = {"qlevel": "FUSED", "dense": "V6"}
+WINDOW_FORMS = ("pair", "rows", "qlevel", "dense")
+FORM_ITERS = 10  # timed calls per form (kernels phase) and per race measurement
+# Peaks of an H100 SXM at 700 W: HBM bytes/s; dense bf16 tensor-core
+# FLOP/s for the attention products; f32 FLOP/s outside the tensor cores
+# for MSDA's per-sample arithmetic and f32 attention.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# f32 flops per (sample, channel): forward 4 corner FMAs and the weight's;
+# K2 adds the three dot products (d_att, d_x, d_y) and the 4 scatters.
+MSDA_SAMPLE_FLOPS = {"msda_fwd": 10, "msda_bwd": 26, "msda_bwd_offatt": 22, "msda_bwd_value": 4}
 MASK_SIDE = IMG // 4  # mask features and GT masks of the full model at 1024^2
 F32_TRAIN_IMG = 512
 # f32 train step, CUDA kernels vs plain on the CPU: per parameter, max |diff|
@@ -143,6 +172,50 @@ def cuda_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, peak: float):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over their peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def msda_bound(kernel: str, b: int, s: int, q: int, l: int, esize: int):
+    """Bound of an MSDA kernel with HEADS x HEAD_DIM channels, S value
+    tokens, Q queries, L levels: each input read once and each output written
+    once (locations and d_loc f32, the rest in the value's dtype)."""
+    value, rows = b * s * HEADS * HEAD_DIM * esize, b * q * HEADS * HEAD_DIM * esize
+    samples = b * q * HEADS * l * POINTS
+    loc, att = samples * 8, samples * esize
+    nbytes = {"msda_fwd": value + loc + att + rows,
+              "msda_bwd": 2 * (value + loc + att) + rows,
+              "msda_bwd_offatt": value + 2 * (loc + att) + rows,
+              "msda_bwd_value": loc + att + rows + value}[kernel]
+    return bound(nbytes, samples * HEAD_DIM * MSDA_SAMPLE_FLOPS[kernel], PEAK_FLOPS["float32"])
+
+
+def attn_bound(kernel: str, shape, dname: str):
+    """Bound of an attention kernel on (B, heads, N, Dh) tensors: q, k, v
+    (and dO, lse, delta) read once, outputs written once; 4 N^2 Dh flops a
+    head forward, 8 for dK and dV, 6 for dQ."""
+    b, h, n, dh = shape
+    t, f32 = b * h * n * dh * (2 if dname == "bfloat16" else 4), b * h * n * 4
+    nbytes, mults = {"attn_fwd": (4 * t, 4), "attn_bwd_delta": (2 * t + f32, 0),
+                     "attn_bwd_dkv": (6 * t + 2 * f32, 8), "attn_bwd_dq": (5 * t + 2 * f32, 6),
+                     "attn_bwd": (8 * t + f32, 14)}[kernel]
+    return bound(nbytes, mults * b * h * n * n * dh, PEAK_FLOPS[dname])
+
+
+def with_form(base: dict, form: str, shapes, esize: int, passes: int = 1) -> dict:
+    """``base`` launches with the encoder's K1 forwards (ENCODER_LAYERS per
+    pass) taken by a form's launches (ops/msda_window_forms.plan_layer)."""
+    from ape_tpu_torch.ops.msda_window_forms import launches_per_layer, plan_layer
+
+    out = dict(base, msda_fwd=base["msda_fwd"] - passes * ENCODER_LAYERS)
+    for k, v in launches_per_layer(plan_layer(form, shapes, HEAD_DIM, esize, RADIUS)).items():
+        out[k] = out.get(k, 0) + passes * ENCODER_LAYERS * v
+    return out
 
 
 def device_phase():
@@ -215,8 +288,10 @@ FWD_CASES = (("", SHAPES, 1, QUERIES, True),
 
 def kernels_phase(dev):
     """Each forward kernel against its plain version at every shape set of
-    the main paths (FWD_CASES), in f32 and bf16; returns per-case results."""
+    the main paths (FWD_CASES), in f32 and bf16, then the window forms
+    (forms_kernels_step); returns per-case results."""
     import torch
+    import torch.nn.functional as F
 
     from ape_tpu_torch.ops.attention import attn_fwd_cuda, global_attention_plain
     from ape_tpu_torch.ops.msda import ms_deform_attn
@@ -227,6 +302,7 @@ def kernels_phase(dev):
     for suffix, shapes, batch, queries, with_attn in FWD_CASES:
         value32, locs, atts32 = _msda_inputs(g, shapes, batch, queries, dev)
         qkv32 = [torch.randn(batch, 3, 4096, 64, generator=g) for _ in range(3)]
+        s = sum(h * w for h, w in shapes)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             value = value32.to(dev, dtype)
@@ -235,18 +311,24 @@ def kernels_phase(dev):
                 att = atts32[mode].to(dev, dtype)
                 cases[f"msda_{mode}{suffix}"] = (
                     lambda loc=loc, att=att: msda_fwd_cuda(value, shapes, loc, att),
-                    lambda loc=loc, att=att: ms_deform_attn(value, shapes, loc, att), "msda",
-                    {"value": list(value.shape), "queries": loc.shape[1]})
+                    lambda loc=loc, att=att: ms_deform_attn(value, shapes, loc, att), None, "msda",
+                    {"value": list(value.shape), "queries": loc.shape[1]},
+                    msda_bound("msda_fwd", batch, s, loc.shape[1], len(shapes),
+                               value.element_size()))
             if with_attn:
                 q, k, v = (t.to(dev, dtype) for t in qkv32)
-                cases[f"attention{suffix}"] = (lambda: attn_fwd_cuda(q, k, v, 64**-0.5),
-                                               lambda: global_attention_plain(q, k, v, 64**-0.5),
-                                               "attn", {"q": list(q.shape)})
-            for name, (kernel, plain, kind, shape) in cases.items():
+                cases[f"attention{suffix}"] = (
+                    lambda: attn_fwd_cuda(q, k, v, 64**-0.5),
+                    lambda: global_attention_plain(q, k, v, 64**-0.5),
+                    lambda: F.scaled_dot_product_attention(q, k, v, scale=64**-0.5), "attn",
+                    {"q": list(q.shape)}, attn_bound("attn_fwd", tuple(q.shape), dname))
+            for name, (kernel, plain, library, kind, shape, (bound_ms, bound_by)) in cases.items():
                 err = float((kernel().float() - plain().float()).abs().max())
                 bound = BOUNDS[dname][kind]
                 rec = dict(phase="kernel", name=name, dtype=dname, shape=shape, max_abs_err=err,
-                           bound=bound, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain))
+                           bound=bound, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                           library_ms=cuda_ms(library) if library else None, bound_ms=bound_ms,
+                           bound_by=bound_by)
                 log(**rec)
                 if not err <= bound:
                     fail(f"{name} {dname}: max |kernel - plain| {err} > {bound}")
@@ -254,6 +336,62 @@ def kernels_phase(dev):
             del value, cases
         del value32, locs, atts32, qkv32
         torch.cuda.empty_cache()
+    results.update(forms_kernels_step(dev))
+    return results
+
+
+# The window forms' cases: (suffix, pyramid, batch). The kernels line reads
+# the protocol's.
+FORM_CASES = (("", SHAPES, 1), ("_train", TRAIN_SHAPES, TRAIN_BATCH))
+
+
+def forms_kernels_step(dev):
+    """K6 (all pairs), K7 (+ K6), K8 and K9 (+ K1), each as the whole window
+    op of one encoder layer, against the plain version and against K1 on the
+    same inputs (the ring draw), at the protocol pyramid (batch 1) and the
+    4-scale one (batch 2), in f32 and bf16: errors, times, bound, launches
+    per layer."""
+    import torch
+
+    from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.ops.msda_dispatch import msda_fwd_cuda, window_locations
+    from ape_tpu_torch.ops.msda_window_forms import window_form_cuda, window_plain
+    from ape_tpu_torch.tools.msda_race import window_inputs
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    results = {}
+    for suffix, shapes, batch in FORM_CASES:
+        s = sum(h * w for h, w in shapes)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            value, off, att = window_inputs(g, shapes, batch, "ring", dtype, dev)
+            plain = window_plain(value, shapes, off, att, RADIUS)
+            plain_ms = cuda_ms(lambda: window_plain(value, shapes, off, att, RADIUS), FORM_ITERS)
+            k1 = msda_fwd_cuda(value, shapes, window_locations(shapes, off, RADIUS).contiguous(),
+                               att)
+            bound_ms, bound_by = msda_bound("msda_fwd", batch, s, s, len(shapes),
+                                            value.element_size())
+            limit = BOUNDS[dname]["msda"]
+            for form in WINDOW_FORMS:
+                name = f"msda_fwd_{form}{suffix}"
+                before = dict(_build.LAUNCHES)
+                got = window_form_cuda(form, value, shapes, off, att, RADIUS)
+                launches = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+                err = float((got.float() - plain.float()).abs().max())
+                err_k1 = float((got.float() - k1.float()).abs().max())
+                rec = dict(phase="kernel_form", name=name, dtype=dname, batch=batch, tokens=s,
+                           max_abs_err=err, max_abs_err_vs_msda_fwd=err_k1, bound=limit,
+                           launches_per_layer=launches,
+                           ms=cuda_ms(lambda: window_form_cuda(form, value, shapes, off, att,
+                                                               RADIUS), FORM_ITERS),
+                           plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                           bound_by=bound_by)
+                log(**rec)
+                if not (err <= limit and err_k1 <= limit):
+                    fail(f"{name} {dname}: max |form - plain| {err}, |form - K1| {err_k1} > {limit}")
+                results[(name, dname)] = rec
+            del value, off, att, plain, k1
+            torch.cuda.empty_cache()
     return results
 
 
@@ -281,6 +419,8 @@ def backward_kernels_phase(dev):
         global_attention_plain,
     )
     from ape_tpu_torch.ops.msda import ms_deform_attn
+    import torch.nn.functional as F
+
     from ape_tpu_torch.ops.msda_dispatch import (
         msda_bwd_cuda,
         msda_bwd_offatt_cuda,
@@ -298,12 +438,14 @@ def backward_kernels_phase(dev):
 
     results = {}
 
-    def record(name, dname, errors, kernel, plain, vs_merged=None):
+    def record(name, dname, errors, kernel, plain, bound_ms, vs_merged=None, library=None):
         rec = dict(phase="kernel_bwd", name=name, dtype=dname,
                    max_abs_err=max(e[0] for e in errors.values()),
                    abs_err={n: e[0] for n, e in errors.items()},
                    rel_err={n: e[1] for n, e in errors.items()}, bound=GRAD_BOUNDS[dname],
-                   ms=cuda_ms(kernel), plain_ms=cuda_ms(plain))
+                   ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                   library_ms=cuda_ms(library) if library else None,
+                   bound_ms=bound_ms[0], bound_by=bound_ms[1])
         if vs_merged is not None:
             rec.update(rel_err_vs_msda_bwd={n: e[1] for n, e in vs_merged.items()},
                        bound_vs_msda_bwd=SPLIT_BOUNDS[dname])
@@ -321,8 +463,10 @@ def backward_kernels_phase(dev):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         value = value32.to(dev, dtype)
+        s, lv = value.shape[1], len(TRAIN_SHAPES)
         for name, loc in msda_cases.items():
             att, gout = atts[name].to(dev, dtype), gouts[name].to(dev, dtype)
+            nq, es = loc.shape[1], value.element_size()
             merged = msda_bwd_cuda(value, TRAIN_SHAPES, loc, att, gout)
             leaves = [value.detach().float().requires_grad_(), loc.detach().clone().requires_grad_(),
                       att.detach().float().requires_grad_()]
@@ -347,15 +491,16 @@ def backward_kernels_phase(dev):
                                                    retain_graph=True)
 
             record(name, dname, err, lambda: msda_bwd_cuda(value, TRAIN_SHAPES, loc, att, gout),
-                   plain_bwd(0, 1, 2))
+                   plain_bwd(0, 1, 2), msda_bound("msda_bwd", b, s, nq, lv, es))
             if split is not None:
                 errs, vs = split["msda_bwd_offatt"]
                 record("msda_bwd_offatt", dname, errs,
                        lambda: msda_bwd_offatt_cuda(value, TRAIN_SHAPES, loc, att, gout),
-                       plain_bwd(1, 2), vs)
+                       plain_bwd(1, 2), msda_bound("msda_bwd_offatt", b, s, nq, lv, es), vs)
                 errs, vs = split["msda_bwd_value"]
                 record("msda_bwd_value", dname, errs,
-                       lambda: msda_bwd_value_cuda(TRAIN_SHAPES, loc, att, gout), plain_bwd(0), vs)
+                       lambda: msda_bwd_value_cuda(TRAIN_SHAPES, loc, att, gout), plain_bwd(0),
+                       msda_bound("msda_bwd_value", b, s, nq, lv, es), vs)
             del out, plain_leaves
             torch.cuda.empty_cache()
 
@@ -376,18 +521,32 @@ def backward_kernels_phase(dev):
             return (attn_bwd_dq_cuda(q, k, v, go, lse, d, scale),
                     *attn_bwd_dkv_cuda(q, k, v, go, lse, d, scale))
 
+        # the library yardstick: scaled_dot_product_attention's whole
+        # backward (dQ, dK, dV), beside K5-dkv and K5-dq; vecdot beside delta
+        lib_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib_leaves, scale=scale)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, lib_leaves, go, retain_graph=True)
+
+        shape = tuple(q.shape)
         record("attn_bwd_delta", dname,
                _errors(("delta",), [delta], [(out.float() * go.float()).sum(-1)]),
-               lambda: attn_bwd_delta_cuda(out, go), lambda: (out.float() * go.float()).sum(-1))
+               lambda: attn_bwd_delta_cuda(out, go), lambda: (out.float() * go.float()).sum(-1),
+               attn_bound("attn_bwd_delta", shape, dname),
+               library=lambda: torch.linalg.vecdot(out, go))
         record("attn_bwd_dkv", dname,
                _errors(("dk", "dv"), attn_bwd_dkv_cuda(q, k, v, go, lse, delta, scale), want[1:]),
-               lambda: attn_bwd_dkv_cuda(q, k, v, go, lse, delta, scale), plain_bwd(1, 2))
+               lambda: attn_bwd_dkv_cuda(q, k, v, go, lse, delta, scale), plain_bwd(1, 2),
+               attn_bound("attn_bwd_dkv", shape, dname), library=lib_bwd)
         record("attn_bwd_dq", dname,
                _errors(("dq",), [attn_bwd_dq_cuda(q, k, v, go, lse, delta, scale)], want[:1]),
-               lambda: attn_bwd_dq_cuda(q, k, v, go, lse, delta, scale), plain_bwd(0))
+               lambda: attn_bwd_dq_cuda(q, k, v, go, lse, delta, scale), plain_bwd(0),
+               attn_bound("attn_bwd_dq", shape, dname), library=lib_bwd)
         record("attn_bwd", dname, _errors(("dq", "dk", "dv"), kernel_bwd(), want),
-               kernel_bwd, plain_bwd(0, 1, 2))
-        del out, lse, delta, leaves, want, plain_leaves, plain_out
+               kernel_bwd, plain_bwd(0, 1, 2), attn_bound("attn_bwd", shape, dname),
+               library=lib_bwd)
+        del out, lse, delta, leaves, want, plain_leaves, plain_out, lib_leaves, lib_out
         torch.cuda.empty_cache()
     return results
 
@@ -437,7 +596,7 @@ def slice_phase(dev, card):
 
     model = build_ape_ti(num_queries=QUERIES, mask_on=False, window_radius=RADIUS,
                          scale_factors=(2.0, 1.0, 0.5), dtype=torch.bfloat16)
-    model = init_weights(model, SEED).eval().to(dev)
+    model = init_weights(model, SEED).eval()
     inputs = tuple(t.to(dev) for t in _inputs())
     with torch.no_grad():
         model(*inputs)  # warm-up
@@ -473,12 +632,65 @@ def slice_phase(dev, card):
     return model, launches
 
 
+def _set_form(form: str):
+    """Select the encoder's window forward form through msda_dispatch's flags
+    (both off for "gather")."""
+    from ape_tpu_torch.ops import msda_dispatch
+
+    for f, flag in FORM_FLAGS.items():
+        setattr(msda_dispatch, flag, f == form)
+
+
+def forms_phase(model, dev, card):
+    """The protocol forward in bf16 under FUSED (K8) and under V6 (K9 + K1):
+    exact launches per forward, finite outputs of the right shapes, images/s.
+    Returns the launches of the measured forwards."""
+    import torch
+
+    from ape_tpu_torch.ops import _build
+
+    inputs = tuple(t.to(dev) for t in _inputs())
+    runs = []
+    for form in FORM_FLAGS:
+        want = with_form(FORWARD_LAUNCHES, form, SHAPES, 2)
+        _set_form(form)
+        try:
+            with torch.no_grad():
+                model(*inputs)  # warm-up
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                out = model(*inputs)
+                torch.cuda.synchronize()
+                launches = dict(_build.LAUNCHES)
+                iters = 10
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    model(*inputs)
+                torch.cuda.synchronize()
+                img_s = iters / (time.perf_counter() - t0)
+        finally:
+            _set_form("gather")
+        if launches != dict(dict.fromkeys(launches, 0), **want):
+            fail(f"form {form}: launches per forward {launches}, expected {want}")
+        logits, boxes = out["pred_logits"], out["pred_boxes"]
+        if tuple(logits.shape) != (1, QUERIES, NUM_TEXT) or tuple(boxes.shape) != (1, QUERIES, 4) \
+                or not (torch.isfinite(logits).all() and torch.isfinite(boxes).all()):
+            fail(f"form {form}: outputs {tuple(logits.shape)} {tuple(boxes.shape)} or not finite")
+        log(phase="forms", form=form, flag=FORM_FLAGS[form], dtype="bfloat16",
+            launches_per_forward={k: v for k, v in launches.items() if v}, images_per_s=img_s,
+            iters=iters, card=card)
+        runs.append(launches)
+    return runs
+
+
 def f32_phase(model):
     """The same forward in f32, CUDA kernels against the plain versions (CPU
     tensors take them), with fan-in weights: under the bench's N(0, 0.02)
     weights the first-stage scores are spread so thinly that float order
     alone reorders near-ties, which would test the weights, not the kernels."""
     import torch
+
+    from ape_tpu_torch.ops import _build
 
     init_weights(model, SEED, fan_in=True)
     model.dtype = torch.float32
@@ -489,6 +701,24 @@ def f32_phase(model):
         t0 = time.perf_counter()
         gpu = model(*(t.to(dev) for t in inputs))
         cpu = cpu_model(*inputs)
+    forms = {}
+    for form in FORM_FLAGS:  # the encoder memory under each other form, f32
+        _set_form(form)
+        _build.reset_launches()
+        try:
+            with torch.no_grad():
+                memory = model(*(t.to(dev) for t in inputs))["memory"]
+        finally:
+            _set_form("gather")
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        want = with_form(FORWARD_LAUNCHES, form, SHAPES, 4)
+        forms[form] = dict(memory_max_abs_err=float((memory.cpu() - cpu["memory"]).abs().max()),
+                           launches_per_forward=launches)
+        if launches != want:
+            fail(f"f32 form {form}: launches per forward {launches}, expected {want}")
+        if not forms[form]["memory_max_abs_err"] <= MEMORY_BOUND:
+            fail(f"f32 form {form}: encoder memory differs by "
+                 f"{forms[form]['memory_max_abs_err']} > {MEMORY_BOUND}")
     mem_err = float((gpu["memory"].cpu() - cpu["memory"]).abs().max())
     sel_gpu, sel_cpu = gpu["first_stage_indices"].cpu(), cpu["first_stage_indices"]
     same_sel = bool(torch.equal(sel_gpu, sel_cpu))
@@ -498,7 +728,7 @@ def f32_phase(model):
         first_stage_positions_differing=int((sel_gpu != sel_cpu).sum()),
         pred_boxes_max_abs_err=float((gpu["pred_boxes"].cpu() - cpu["pred_boxes"]).abs().max()),
         pred_logits_max_abs_err=float((gpu["pred_logits"].cpu() - cpu["pred_logits"]).abs().max()),
-        seconds=time.perf_counter() - t0)
+        forms=forms, seconds=time.perf_counter() - t0)
     if not mem_err <= MEMORY_BOUND:
         fail(f"f32 encoder memory differs by {mem_err} > {MEMORY_BOUND}")
     if not same_sel:
@@ -553,7 +783,7 @@ def _train_setup(dev, mask_on: bool):
 
     model = build_ape_ti(num_queries=TRAIN_QUERIES, window_radius=RADIUS, mask_on=mask_on,
                          use_act_checkpoint=True, dtype=torch.bfloat16)
-    model = init_weights(model, SEED).to(dev)
+    model = init_weights(model, SEED)
     optimizer, scheduler = build_optimizer(model)
     step = make_train_step(model, _criterion(TRAIN_QUERIES, mask_on), optimizer, scheduler)
     batch = _train_batch(dev, TRAIN_BATCH, TRAIN_IMG, SEED + 4, masks=mask_on)
@@ -609,7 +839,17 @@ def train_phase(dev, card):
     launches = rec.pop("launches")
     log(phase="train", dtype="bfloat16", image=TRAIN_IMG, batch=TRAIN_BATCH, queries=TRAIN_QUERIES,
         tokens=sum(h * w for h, w in TRAIN_SHAPES), **rec, card=card)
-    return launches
+    # under FUSED: K8 in the encoder's forward and in its recompute, K2 backward
+    _set_form("qlevel")
+    try:
+        fused = _train_steps(model, step, batch, dev,
+                             with_form(STEP_LAUNCHES, "qlevel", TRAIN_SHAPES, 2, passes=2), steps=1)
+    finally:
+        _set_form("gather")
+    fused_launches = fused.pop("launches")
+    log(phase="train_fused", form="qlevel", dtype="bfloat16", image=TRAIN_IMG, batch=TRAIN_BATCH,
+        **fused, card=card)
+    return launches, fused_launches
 
 
 def full_train_phase(dev, card):
@@ -699,8 +939,7 @@ def train_f32_phase(dev, mask_on: bool = False):
             for name, p in model.named_parameters():
                 if name.startswith("transformer.encoder.") and name.endswith("sampling_offsets.weight"):
                     p.zero_()
-    cpu_model = copy.deepcopy(model)
-    model.to(dev)
+    cpu_model = copy.deepcopy(model).cpu()
     crit = _criterion(TRAIN_QUERIES, mask_on)
     batch = _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5, masks=mask_on)
     gpu_batch = _to(batch, dev)
@@ -833,7 +1072,7 @@ def full_serve_phase(dev, card):
     from ape_tpu_torch.ops import _build
 
     model = build_ape_ti(num_queries=QUERIES, window_radius=RADIUS, dtype=torch.bfloat16)
-    model = init_weights(model, SEED).eval().to(dev)
+    model = init_weights(model, SEED).eval()
     inputs = tuple(t.to(dev) for t in _inputs())
     with torch.no_grad():
         model(*inputs)  # warm-up
@@ -858,11 +1097,44 @@ def full_serve_phase(dev, card):
             model(*inputs)
         torch.cuda.synchronize()
         img_s = iters / (time.perf_counter() - t0)
+        _set_form("dense")  # V6: the 256- and 128-wide query levels take K9
+        try:
+            model(*inputs)  # warm-up
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            out = model(*inputs)
+            torch.cuda.synchronize()
+            dense = dict(_build.LAUNCHES)
+        finally:
+            _set_form("gather")
+        want_dense = with_form(FORWARD_LAUNCHES, "dense", TRAIN_SHAPES, 2)
+        if dense != dict(dict.fromkeys(dense, 0), **want_dense):
+            fail(f"full model under V6: launches per forward {dense}, expected {want_dense}")
+        if not all(bool(torch.isfinite(out[k]).all()) for k in want):
+            fail("full model under V6: non-finite outputs")
+        del out
     log(phase="full_serve", dtype="bfloat16", image=IMG, queries=QUERIES,
         tokens=sum(h * w for h, w in TRAIN_SHAPES), launches_per_forward=launches,
-        output_shapes=shapes, images_per_s=img_s, iters=iters, card=card)
+        output_shapes=shapes, images_per_s=img_s, iters=iters,
+        v6_launches_per_forward={k: v for k, v in dense.items() if v}, card=card)
     served = serve_phase(model, "full_serve_request")
-    return {k: v + served[k] for k, v in launches.items()}
+    return {k: v + served[k] + dense[k] for k, v in launches.items()}
+
+
+def race_phase(dev, card):
+    """``ape_tpu_torch.tools.msda_race`` as a path of its own: every
+    window-MSDA form at both pyramids and offset draws, then the per-pair
+    suites, one line each. Returns the launches of the race."""
+    from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.tools.msda_race import race
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    recs = race(dev, card, iters=FORM_ITERS)
+    launches = dict(_build.LAUNCHES)
+    log(phase="race_done", records=len(recs), seconds=time.perf_counter() - t0,
+        launches={k: v for k, v in launches.items() if v})
+    return launches
 
 
 def main():
@@ -881,10 +1153,11 @@ def main():
     runs = []
     model, slice_launches = slice_phase(dev, card)
     runs += [slice_launches, serve_phase(model)]
+    runs += forms_phase(model, dev, card)
     f32_phase(model)
     del model
     torch.cuda.empty_cache()
-    runs.append(train_phase(dev, card))
+    runs += train_phase(dev, card)
     train_f32_phase(dev)
     torch.cuda.empty_cache()
     runs.append(full_serve_phase(dev, card))
@@ -892,6 +1165,8 @@ def main():
     runs.append(full_train_phase(dev, card))
     torch.cuda.empty_cache()
     train_f32_phase(dev, mask_on=True)
+    torch.cuda.empty_cache()
+    runs.append(race_phase(dev, card))
     launches = {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
     pallas_bwd = "ape_tpu/ops/msda_window_pallas_bwd.py"
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -902,7 +1177,15 @@ def main():
                "attn_fwd": ("attn_fwd.cu", "ape_tpu/modeling/backbone/eva_vit.py:136", "attention"),
                "attn_bwd_delta": ("attn_bwd.cu", f"{flash}:273", "attn_bwd_delta"),
                "attn_bwd_dkv": ("attn_bwd.cu", f"{flash}:941", "attn_bwd_dkv"),
-               "attn_bwd_dq": ("attn_bwd.cu", f"{flash}:1287", "attn_bwd_dq")}
+               "attn_bwd_dq": ("attn_bwd.cu", f"{flash}:1287", "attn_bwd_dq"),
+               "msda_fwd_pair": ("msda_fwd_pair.cu", "experiments/msda_window_pallas_v1.py:318",
+                                 "msda_fwd_pair"),
+               "msda_fwd_rows": ("msda_fwd_rows.cu", "experiments/msda_window_pallas_v3.py:292",
+                                 "msda_fwd_rows"),
+               "msda_fwd_qlevel": ("msda_fwd_qlevel.cu", "experiments/msda_window_pallas_v5.py:324",
+                                   "msda_fwd_qlevel"),
+               "msda_fwd_dense": ("msda_fwd_dense.cu", "experiments/msda_window_pallas_v6.py:394",
+                                  "msda_fwd_dense")}
     unlaunched = [name for name in sources if not launches[name]]
     if unlaunched:
         fail(f"kernels the main paths never launched: {unlaunched}")
@@ -912,7 +1195,8 @@ def main():
         rec = kern[(case, "bfloat16")]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": rec["max_abs_err"],
-                        "ms": rec["ms"], "plain_ms": rec["plain_ms"]})
+                        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

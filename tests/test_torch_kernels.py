@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions on an NVIDIA card.
 
 These tests (forward and backward kernels, the merged and the split MSDA
-backward) need a CUDA device and the CUDA toolkit: the kernels have no CPU
+backward, the encoder's other window forward forms K6-K9) need a CUDA device and the CUDA toolkit: the kernels have no CPU
 mode, so without a card they skip. The file imports neither JAX nor the
 test conftest, so it runs on a machine that has no JAX:
 
@@ -27,7 +27,10 @@ from ape_tpu_torch.ops.msda_dispatch import (
     msda_bwd_offatt_cuda,
     msda_bwd_value_cuda,
     msda_fwd_cuda,
+    window_locations,
 )
+from ape_tpu_torch.ops.msda_window_forms import window_form_cuda, window_plain
+from ape_tpu_torch.tools.msda_race import PYRAMIDS, RADIUS, window_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -185,3 +188,61 @@ def test_attention_backward_kernels_match_autograd(device, dtype, n, dh):
     assert {k: _build.LAUNCHES[k] for k in ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkv",
                                             "attn_bwd_dq")} == dict.fromkeys(
         ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkv", "attn_bwd_dq"), 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pyramid", sorted(PYRAMIDS))
+@pytest.mark.parametrize("form", ["pair", "rows", "qlevel", "dense"])
+def test_window_form_kernels_match_plain_and_k1(device, form, pyramid, dtype):
+    """K6 (all pairs), K7 (+ K6), K8 and K9 (+ K1) as the whole window op at
+    the protocol pyramid (batch 1) and the 4-scale one (batch 2), radius 4,
+    against the plain version and against K1 on the same inputs."""
+    shapes, batch = PYRAMIDS[pyramid]
+    value, off, att = window_inputs(torch.Generator().manual_seed(5), shapes, batch, "ring", dtype,
+                                    device)
+    got = window_form_cuda(form, value, shapes, off, att, RADIUS)
+    assert got.dtype == dtype and got.shape == (batch, value.shape[1], 256)
+    plain = window_plain(value, shapes, off, att, RADIUS)
+    k1 = msda_fwd_cuda(value, shapes, window_locations(shapes, off, RADIUS).contiguous(), att)
+    assert float((got.float() - plain.float()).abs().max()) < TOL[dtype]
+    assert float((got.float() - k1.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("flag,kernel", [("FUSED", "msda_fwd_qlevel"), ("V6", "msda_fwd_dense")])
+def test_window_form_flags_route_forward_and_keep_the_backward(device, monkeypatch, flag, kernel):
+    """Under FUSED (K8) or V6 (K9 + K1, 8 heads) the encoder's window forward
+    launches the form's kernels, the backward stays K2, and the output and
+    gradients are K1's."""
+    shapes = ((128, 128), (64, 64), (32, 32))
+    value, off, att = window_inputs(torch.Generator().manual_seed(6), shapes, 1, "ring",
+                                    torch.float32, device)
+    grad = torch.randn(1, value.shape[1], 256, device=device)
+    results = {}
+    for on in (False, True):
+        monkeypatch.setattr(msda_dispatch, flag, on)
+        _build.reset_launches()
+        v, o = value.clone().requires_grad_(), off.clone().requires_grad_()
+        out = ms_deform_attn_window(v, shapes, o, att, RADIUS)
+        out.backward(grad)
+        results[on] = (out.detach(), v.grad, o.grad)
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        assert launches.get("msda_bwd") == 1
+        assert (launches.get(kernel, 0) > 0) == on
+    for got, want in zip(results[True], results[False]):
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) < 1e-5 * scale
+
+
+def test_window_form_refuses_bad_inputs(device):
+    shapes = ((16, 16), (8, 8))
+    value, off, att = window_inputs(torch.Generator().manual_seed(7), shapes, 1, "ring",
+                                    torch.float32, device)
+    with pytest.raises(TypeError):
+        window_form_cuda("qlevel", value.half(), shapes, off, att.half(), RADIUS)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = off.transpose(-1, -2).contiguous().transpose(-1, -2)
+        window_form_cuda("qlevel", value, shapes, strided, att, RADIUS)
+    wide = torch.zeros(1, value.shape[1], 4, 64, device=device)
+    with pytest.raises(ValueError, match="head width"):
+        window_form_cuda("pair", wide, shapes, off[:, :, :4].contiguous(),
+                         att[:, :, :4].contiguous(), RADIUS)

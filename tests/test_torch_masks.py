@@ -74,7 +74,7 @@ def test_weight_round_trip_masked_tree(tree):
     from ape_tpu_torch.modeling.build import build_ape_ti
 
     if tree == "ti":
-        jm, pm, size, ldim = j_build(img_size=64, num_queries=12), build_ape_ti(num_queries=12), 64, 1024
+        jm, pm, size, ldim = j_build(img_size=64, num_queries=12), build_ape_ti(num_queries=12, device="cpu"), 64, 1024
     else:
         jm, pm, size, ldim = (jax_tiny_masked(aux_mask=True), torch_tiny_masked(aux_mask=True),
                               DIMS["img"], DIMS["ldim"])

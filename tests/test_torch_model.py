@@ -88,7 +88,7 @@ def test_weight_round_trip_ti_protocol_tree():
     assert sorted(back) == sorted(flat)
     for k in flat:
         np.testing.assert_array_equal(back[k], flat[k], err_msg=k)
-    build_ape_ti(**kw).load_state_dict(sd, strict=True)
+    build_ape_ti(**kw, device="cpu").load_state_dict(sd, strict=True)
 
 
 def test_instance_inference_matches(rng):
@@ -153,19 +153,34 @@ def test_predictor_resize_matches_pil(rng):
         assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 1
 
 
+def test_build_refuses_to_fall_back_to_the_cpu(monkeypatch):
+    """build_ape_ti() builds on the card by default: with no card and no
+    device it raises instead of handing back a CPU model."""
+    from ape_tpu_torch.modeling.build import build_ape_ti
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_ape_ti(num_queries=12, mask_on=False)
+    model = build_ape_ti(num_queries=12, mask_on=False, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
 def test_import_closure_and_tiny_serve():
-    """In a fresh interpreter that refuses jax, flax and PIL, the port
-    imports (its training modules too), builds, and serves a non-square
-    image through the predictor."""
+    """In a fresh interpreter that refuses jax, flax, PIL and the JAX
+    package (ape_tpu, experiments), the port imports (its training modules,
+    the window-MSDA forms and the race tool too), builds, and serves a
+    non-square image through the predictor."""
     code = textwrap.dedent("""
         import sys
         class Refuse:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib", "flax", "PIL"):
+                if name.split(".")[0] in ("jax", "jaxlib", "flax", "PIL", "ape_tpu", "experiments"):
                     raise ImportError("refused: " + name)
         sys.meta_path.insert(0, Refuse())
         import numpy as np, torch
         import ape_tpu_torch
+        from ape_tpu_torch.ops import msda_window_forms
+        from ape_tpu_torch.tools import msda_race
         from ape_tpu_torch.checkpoint import state_dict_from_jax
         from ape_tpu_torch.engine import APE, DefaultPredictor
         from ape_tpu_torch.ops import _build
@@ -176,7 +191,8 @@ def test_import_closure_and_tiny_serve():
         from ape_tpu_torch.modeling.ape_deta.matchers import stage1_assign, stage2_assign
         torch.manual_seed(0)
         model = build_ape_ti(num_queries=60, embed_dim_language=32,
-                             mask_on=False, scale_factors=(2.0, 1.0, 0.5)).eval()
+                             mask_on=False, scale_factors=(2.0, 1.0, 0.5),
+                             device="cpu").eval()
         class Lang:
             def forward_text(self, texts, cache=False):
                 return np.random.RandomState(0).randn(len(texts), 32).astype(np.float32)
