@@ -1,7 +1,8 @@
 // Per-sample arithmetic of the MSDA backward kernels. The rounding (pixel)
 // and the boundary test (live) are shared by the merged backward
 // (msda_bwd.cu) and the split one (msda_bwd_split.cu), so that the two forms
-// pick the same corners and boundary cases. The split kernels take the rest
+// pick the same corners and boundary cases, and by the pair probe
+// (msda_pair_probe.cu), whose base variant K1 checks them against. The split kernels take the rest
 // (corners, weights, dot products, scatter) from Sample and its helpers; the
 // merged kernel writes the same expressions out, as its registers need.
 //

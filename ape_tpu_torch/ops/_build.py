@@ -33,7 +33,8 @@ LIB_NAME = "libape_tpu_torch_kernels.so"
 
 LAUNCHES = {"msda_fwd": 0, "msda_bwd": 0, "msda_bwd_offatt": 0, "msda_bwd_value": 0,
             "attn_fwd": 0, "attn_bwd_delta": 0, "attn_bwd_dkv": 0, "attn_bwd_dq": 0,
-            "msda_fwd_pair": 0, "msda_fwd_rows": 0, "msda_fwd_qlevel": 0, "msda_fwd_dense": 0}
+            "msda_fwd_pair": 0, "msda_fwd_rows": 0, "msda_fwd_qlevel": 0, "msda_fwd_dense": 0,
+            "msda_pair_probe": 0, "attn_fwd_tiles": 0}
 
 
 def reset_launches() -> None:
@@ -121,7 +122,55 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, f"ape_msda_fwd_{name}")
         fn.argtypes = [p, p, p, p, ctypes.POINTER(i), f, i, i, p]
         fn.restype = i
+    # the probes: K10 (value, loc, att, out, B, Q, H, P, hv, wv, D, variant,
+    # value_bf16, stream) and K11 (q, k, v, out, BH, N, DH, scale, is_bf16,
+    # bq, bk, stream)
+    lib.ape_msda_pair_probe.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.ape_msda_pair_probe.restype = i
+    lib.ape_attn_fwd_tiles.argtypes = [p, p, p, p, i, i, i, f, i, i, i, p]
+    lib.ape_attn_fwd_tiles.restype = i
     return lib
+
+
+def ptxas_info(log: Path | None = None) -> dict:
+    """Per compiled kernel (mangled name), what ``-Xptxas -v`` printed in the
+    build's nvcc.log: {"registers", "spill_stores", "spill_loads"}."""
+    text = (log or build_dir() / "nvcc.log").read_text()
+    info, name = {}, None
+    for line in text.splitlines():
+        if "Function properties for " in line:
+            name = line.split("Function properties for ")[1].strip()
+            info[name] = {}
+        elif name and "spill stores" in line:
+            words = line.replace(",", "").split()
+            info[name]["spill_stores"] = int(words[words.index("spill") - 2])
+            info[name]["spill_loads"] = int(words[words.index("loads") - 3])
+        elif name and "Used" in line and "registers" in line:
+            words = line.split()
+            info[name]["registers"] = int(words[words.index("Used") + 1])
+            name = None
+    return info
+
+
+def sass_counts(pattern: str) -> dict:
+    """Per compiled kernel whose mangled name holds ``pattern``, its global
+    loads and stores in the built library's SASS (``cuobjdump -sass``):
+    {name: {"LDG": n, "STG": n}}. Static instructions, not executions."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build())], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            name = name if pattern in name else None
+            if name:
+                counts[name] = {"LDG": 0, "STG": 0}
+        elif name:
+            for op in ("LDG", "STG"):
+                if f" {op}." in line or f" {op} " in line:
+                    counts[name][op] += 1
+    return counts
 
 
 def check(err: int, kernel: str) -> None:

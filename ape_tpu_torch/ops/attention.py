@@ -10,6 +10,12 @@ backward kernels, dK/dV and dQ, after a pre-pass for rowsum(dO * O)), from
 the log-sum-exp the forward saves; on the CPU, torch autograd of the plain
 version.
 
+``attn_fwd_tiles`` runs the same forward at another tile (K11,
+``csrc/attn_fwd_tiles.cu``), the counterpart of the block-size study of
+``experiments/backbone_fix_probe.py``; ``attn_tile_smem`` is the shared
+memory a tile takes, in plain Python, and a tile that does not fit a block
+is refused before any launch.
+
 Layout: q, k, v and the result are (B, H, N, Dh), as in JAX.
 """
 
@@ -20,6 +26,9 @@ import torch
 from ape_tpu_torch.ops import _build
 
 HEAD_DIMS = (32, 64, 128)
+# K11's tiles (queries, keys a block); K5 is (64, 64)
+TILES = ((32, 32), (64, 64), (64, 128), (128, 64), (128, 128))
+SMEM_LIMIT = 232448  # dynamic shared memory one block may take on an H100 (227 KB)
 
 
 def global_attention_plain(q, k, v, scale: float) -> torch.Tensor:
@@ -136,6 +145,52 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = attn_bwd_cuda(q, k, v, out, grad_out.contiguous(), lse, ctx.scale)
         return dq, dk, dv, None
+
+
+def attn_tile_smem(bq: int, bk: int, dh: int) -> int:
+    """Shared bytes of csrc/attn_fwd.cuh's block at a tile: the transposed
+    query and key tiles, the value tile and the probabilities, in f32, rows
+    padded by 4."""
+    return 4 * (dh * (bq + 4) + dh * (bk + 4) + bk * dh + bk * (bq + 4))
+
+
+def attn_tile_fits(bq: int, bk: int, dh: int) -> bool:
+    return attn_tile_smem(bq, bk, dh) <= SMEM_LIMIT
+
+
+def _check_tile(bq: int, bk: int, dh: int) -> None:
+    if (bq, bk) not in TILES:
+        raise ValueError(f"attn_fwd_tiles takes the tiles {TILES}, got {(bq, bk)}")
+    if not attn_tile_fits(bq, bk, dh):
+        raise ValueError(f"tile {(bq, bk)} at head_dim {dh} needs {attn_tile_smem(bq, bk, dh)} "
+                         f"bytes of shared memory; a block has {SMEM_LIMIT}")
+
+
+def attn_fwd_tiles_cuda(q, k, v, scale: float, bq: int, bk: int) -> torch.Tensor:
+    """Launch ``csrc/attn_fwd_tiles.cu`` at the tile (bq, bk) on (B, H, N, Dh)
+    tensors."""
+    _check("attn_fwd_tiles", q, k, v)
+    b, h, n, dh = q.shape
+    _check_tile(bq, bk, dh)
+    out = torch.empty_like(q)
+    err = _build.library().ape_attn_fwd_tiles(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, n, dh, float(scale),
+        int(q.dtype == torch.bfloat16), bq, bk, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "attn_fwd_tiles")
+    _build.LAUNCHES["attn_fwd_tiles"] += 1
+    return out
+
+
+def attn_fwd_tiles(q, k, v, scale: float, bq: int, bk: int) -> torch.Tensor:
+    """The attention forward at a tile: the kernel for CUDA tensors, the
+    plain version for CPU tensors; a tile that does not fit is refused on
+    both."""
+    if q.is_cuda:
+        return attn_fwd_tiles_cuda(q, k, v, scale, bq, bk)
+    if q.device.type == "cpu":
+        _check_tile(bq, bk, q.shape[-1])
+        return global_attention_plain(q, k, v, scale)
+    raise ValueError(f"no attention implementation for device {q.device}")
 
 
 def global_attention(q, k, v, scale: float) -> torch.Tensor:

@@ -55,12 +55,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     then the same step once more with the split backward, held against the
     merged one;
 13. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
-    form at both pyramids and both offset draws, and its per-pair suites.
+    form at both pyramids and both offset draws, and its per-pair suites;
+14. probes: ``ape_tpu_torch.tools.pair_probe`` (K10, every variant on the
+    four pairs, bf16 value, each within 1e-5 of its plain version, bf16fma
+    within 6.4e-2 of base, base against K1 bit for bit) and
+    ``ape_tpu_torch.tools.backbone_fix_probe`` (K11, every tile beside K5,
+    the einsum forms and ``scaled_dot_product_attention``, each tile and K5
+    against the plain attention in bf16 within four bf16 steps of its largest
+    output and in f32 within 1e-4, (64, 64) against K5 bit for bit; and the
+    patchify as a convolution and as a matmul).
 
-Then the kernels line (each kernel's launches over the main paths, error,
-time, plain and library time, and bound) and, last, {"ok": true, "device":
-{...}}. The script needs the repository around it and a CUDA card; it
-imports no JAX.
+Then the kernels line (each kernel's launches over every path: ``launches``
+over all of them, ``launches_main`` over the serving and training phases
+alone, 5-11; error, time, plain and library time, and bound) and, last,
+{"ok": true, "device": {...}}. The script needs the repository around it and
+a CUDA card; it imports no JAX.
 """
 
 from __future__ import annotations
@@ -1137,6 +1146,34 @@ def race_phase(dev, card):
     return launches
 
 
+def probes_phase(dev, card):
+    """The two probes as a path of their own, one line a record: K10's
+    variants on the four pairs and K11's tiles, each within its bound of its
+    plain version, K10 base equal to K1 on each pair and K11 (64, 64) to K5.
+    Returns the probes' launches and the kernels line's K10 row (base on the
+    256^2 pair) and K11 row (the fastest tile)."""
+    from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.tools import backbone_fix_probe, pair_probe
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    pairs = pair_probe.probe(dev, card, iters=FORM_ITERS)
+    attn = backbone_fix_probe.probe(dev, card, iters=FORM_ITERS)
+    launches = dict(_build.LAUNCHES)
+    # each variant and tile within its bounds of its plain version (the
+    # tools' BOUND, BF16FMA_VS_BASE, bf16_steps and F32_BOUND), K10 base = K1
+    # and K11 (64, 64) = K5 bit for bit
+    bad = pair_probe.failures(pairs) + backbone_fix_probe.failures(attn)
+    if bad:
+        fail(f"probes: {'; '.join(bad)}")
+    base = {r["pair"]: r for r in pairs if r["phase"] == "probe_pair" and r["variant"] == "base"}
+    tiles = [r for r in attn if r["name"].startswith("tile_") and r["fits"]]
+    log(phase="probes_done", records=len(pairs) + len(attn), seconds=time.perf_counter() - t0,
+        launches={k: v for k, v in launches.items() if v})
+    return launches, {"msda_pair_probe": base["same"],
+                      "attn_fwd_tiles": min(tiles, key=lambda r: r["ms"])}
+
+
 def main():
     import torch
 
@@ -1148,8 +1185,9 @@ def main():
     build_phase()
     kern = kernels_phase(dev)
     kern.update(backward_kernels_phase(dev))
-    # launches over every main-path run: each phase sets the counts to 0
-    # just before its run and reads them just after
+    # launches over every run: each phase sets the counts to 0 just before
+    # its run and reads them just after. The serving and training phases are
+    # the main paths; the race and the probes are paths of their own.
     runs = []
     model, slice_launches = slice_phase(dev, card)
     runs += [slice_launches, serve_phase(model)]
@@ -1166,8 +1204,13 @@ def main():
     torch.cuda.empty_cache()
     train_f32_phase(dev, mask_on=True)
     torch.cuda.empty_cache()
+    main_runs = list(runs)
     runs.append(race_phase(dev, card))
+    torch.cuda.empty_cache()
+    probe_launches, probe_rows = probes_phase(dev, card)
+    runs.append(probe_launches)
     launches = {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
+    launches_main = {k: sum(r.get(k, 0) for r in main_runs) for k in runs[0]}
     pallas_bwd = "ape_tpu/ops/msda_window_pallas_bwd.py"
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     sources = {"msda_fwd": ("msda_fwd.cu", "ape_tpu/ops/msda_window_pallas_v2.py:795", "msda_encoder"),
@@ -1185,17 +1228,20 @@ def main():
                "msda_fwd_qlevel": ("msda_fwd_qlevel.cu", "experiments/msda_window_pallas_v5.py:324",
                                    "msda_fwd_qlevel"),
                "msda_fwd_dense": ("msda_fwd_dense.cu", "experiments/msda_window_pallas_v6.py:394",
-                                  "msda_fwd_dense")}
+                                  "msda_fwd_dense"),
+               "msda_pair_probe": ("msda_pair_probe.cu", "experiments/pair_probe.py:304", None),
+               "attn_fwd_tiles": ("attn_fwd_tiles.cu", "experiments/backbone_fix_probe.py:26", None)}
     unlaunched = [name for name in sources if not launches[name]]
     if unlaunched:
-        fail(f"kernels the main paths never launched: {unlaunched}")
+        fail(f"kernels no path launched: {unlaunched}")
     kernels = []
     for name, (source, replaces, case) in sources.items():
         source = f"ape_tpu_torch/csrc/{source}"
-        rec = kern[(case, "bfloat16")]
+        rec = kern[(case, "bfloat16")] if case else probe_rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": rec["max_abs_err"],
-                        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                        "launches": launches[name], "launches_main": launches_main[name],
+                        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on an NVIDIA card.
 
 These tests (forward and backward kernels, the merged and the split MSDA
-backward, the encoder's other window forward forms K6-K9) need a CUDA device and the CUDA toolkit: the kernels have no CPU
+backward, the encoder's other window forward forms K6-K9, the probes K10
+and K11) need a CUDA device and the CUDA toolkit: the kernels have no CPU
 mode, so without a card they skip. The file imports neither JAX nor the
 test conftest, so it runs on a machine that has no JAX:
 
@@ -13,9 +14,13 @@ import pytest
 import torch
 
 from ape_tpu_torch.ops import _build, msda_dispatch
+from ape_tpu_torch.ops import msda_pair_probe as k10
 from ape_tpu_torch.ops.attention import (
+    TILES,
     attn_bwd_cuda,
     attn_fwd_cuda,
+    attn_fwd_tiles_cuda,
+    attn_tile_fits,
     global_attention,
     global_attention_plain,
 )
@@ -31,6 +36,7 @@ from ape_tpu_torch.ops.msda_dispatch import (
 )
 from ape_tpu_torch.ops.msda_window_forms import window_form_cuda, window_plain
 from ape_tpu_torch.tools.msda_race import PYRAMIDS, RADIUS, window_inputs
+from ape_tpu_torch.tools.pair_probe import BOUND as PROBE_BOUND, pair_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -246,3 +252,61 @@ def test_window_form_refuses_bad_inputs(device):
     with pytest.raises(ValueError, match="head width"):
         window_form_cuda("pair", wide, shapes, off[:, :, :4].contiguous(),
                          att[:, :, :4].contiguous(), RADIUS)
+
+
+# K10's pairs (experiments/pair_probe.py) at a quarter of their sides
+PROBE_PAIRS = {name: tuple(n // 4 for n in g) for name, g in k10.PAIRS.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pair", sorted(PROBE_PAIRS))
+@pytest.mark.parametrize("variant", k10.VARIANTS)
+def test_pair_probe_variants_match_plain(device, variant, pair, dtype):
+    """Every K10 variant against its plain version (f32 outputs of the same
+    inputs; bf16fma's rounds as the kernel's bf16 blend), and base against
+    K1 on the pair, bit for bit in the value's dtype."""
+    hq, wq, hv, wv = PROBE_PAIRS[pair]
+    value, _, loc, att = pair_inputs(hq, wq, hv, wv, device, dtype)
+    got = k10.pair_probe_cuda(variant, value, loc, att, hv, wv)
+    want = k10.pair_probe_plain(variant, value, loc, att, hv, wv)
+    assert got.dtype == torch.float32 and got.shape == (1, hq * wq, 256)
+    assert float((got - want).abs().max()) <= PROBE_BOUND
+    if variant == "base":
+        k1 = msda_fwd_cuda(value, ((hv, wv),), loc[:, :, :, None], att[:, :, :, None])
+        assert torch.equal(got.to(dtype).view(k1.shape), k1)
+
+
+def test_pair_probe_bf16fma_rounds_once_a_corner(device):
+    """A sample whose corner 01 times its weight lies halfway between two
+    bf16 values, after a corner 00 of 1e-30: __hfma2 rounds the exact sum
+    once, up; a sum rounded to f32 first would land on the tie and round
+    down. The kernel equals the plain version's single rounding."""
+    value = torch.tensor([1e-30, 1 + 3 / 128, 0.0, 0.0], device=device)
+    value = value.view(1, 4, 1, 1).expand(1, 4, 1, 32).to(torch.bfloat16).contiguous()
+    loc = torch.tensor([0.625, 0.25], device=device).view(1, 1, 1, 1, 2)
+    att = torch.ones(1, 1, 1, 1, device=device)
+    got = k10.pair_probe_cuda("bf16fma", value, loc, att, 2, 2)
+    assert torch.equal(got, k10.pair_probe_plain("bf16fma", value, loc, att, 2, 2))
+    assert torch.equal(got, torch.full_like(got, 0.76953125))  # 0.75 * (1 + 3/128) rounded up
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("n,dh", [(333, 64), (64, 32), (200, 128)])
+def test_attention_tiles_match_plain_and_k5(device, tile, dtype, n, dh):
+    """Every K11 tile against the plain attention, and (64, 64) against K5
+    bit for bit; a tile that does not fit a block is refused unlaunched."""
+    rng = np.random.RandomState(7)
+    q, k, v = (torch.from_numpy(rng.randn(2, 3, n, dh).astype(np.float32)).to(device, dtype)
+               for _ in range(3))
+    if not attn_tile_fits(*tile, dh):
+        before = _build.LAUNCHES["attn_fwd_tiles"]
+        with pytest.raises(ValueError, match="shared memory"):
+            attn_fwd_tiles_cuda(q, k, v, dh**-0.5, *tile)
+        assert _build.LAUNCHES["attn_fwd_tiles"] == before
+        return
+    got = attn_fwd_tiles_cuda(q, k, v, dh**-0.5, *tile)
+    want = global_attention_plain(q.float(), k.float(), v.float(), dh**-0.5)
+    assert got.dtype == dtype and float((got.float() - want).abs().max()) < TOL[dtype]
+    if tile == (64, 64):
+        assert torch.equal(got, attn_fwd_cuda(q, k, v, dh**-0.5))

@@ -168,8 +168,8 @@ def test_build_refuses_to_fall_back_to_the_cpu(monkeypatch):
 def test_import_closure_and_tiny_serve():
     """In a fresh interpreter that refuses jax, flax, PIL and the JAX
     package (ape_tpu, experiments), the port imports (its training modules,
-    the window-MSDA forms and the race tool too), builds, and serves a
-    non-square image through the predictor."""
+    the window-MSDA forms, the race and the two probe tools too), builds,
+    and serves a non-square image through the predictor."""
     code = textwrap.dedent("""
         import sys
         class Refuse:
@@ -180,7 +180,8 @@ def test_import_closure_and_tiny_serve():
         import numpy as np, torch
         import ape_tpu_torch
         from ape_tpu_torch.ops import msda_window_forms
-        from ape_tpu_torch.tools import msda_race
+        from ape_tpu_torch.tools import backbone_fix_probe, msda_race, pair_probe
+        from ape_tpu_torch.ops import msda_pair_probe
         from ape_tpu_torch.checkpoint import state_dict_from_jax
         from ape_tpu_torch.engine import APE, DefaultPredictor
         from ape_tpu_torch.ops import _build
