@@ -5,26 +5,22 @@
 // kernel jax.experimental.pallas.ops.tpu.flash_attention. On APE-Ti it runs
 // in 4 global blocks per image at q, k, v = (1, 3, 4096, 64).
 //
-// What bounds it on an H100: arithmetic. At N = 4096 and head_dim 64 a call
+// What bounds it on an H100: operations. At N = 4096 and head_dim 64 a call
 // is 4*N*N*Dh*heads = 12.9 GFLOP against 6 MB of input, far above the card's
 // flops-per-byte balance, so the N x N score matrix must never reach device
-// memory and the time is set by how fast the block turns FMAs.
+// memory, and below the 193 us the f32 FMAs would need only the tensor cores
+// go.
 //
-// The design (the body is attn_fwd.cuh, shared with the tile sweep K11 in
-// attn_fwd_tiles.cu): one block of 256 threads per (batch*head, 64-query
-// tile). The query tile stays in shared memory; key and value tiles of 64
-// rows stream through shared memory; the softmax is online (running max and
-// sum per row, in f32), so scores and probabilities live only in registers
-// and one 64x64 shared tile. Each thread owns a 4x4 patch of the score tile
-// and 4 rows of Dh/16 output channels: every shared-memory float4 read feeds
-// 8-16 FMAs. Q and K are stored transposed ([d][row]) so those reads are
-// bank-conflict free. This first version uses plain f32 FMAs (no mma.sync,
-// wgmma or TMA); tensor cores are later work. Inputs are f32 or bf16, the
-// output is in the input dtype, and N is arbitrary: the last key tile is
-// masked, rows past N are not stored. With an lse pointer the kernel also
-// writes each row's f32 log-sum-exp of the scaled scores, the residual
-// attn_bwd.cu recomputes the probabilities from (the library kernel saves l
-// and m for the same use).
+// The design is attn_fwd.cuh's body (shared with the tile sweep K11 in
+// attn_fwd_tiles.cu) at the tile BQ = BK = 64: in bf16, 4 warps of 16 query
+// rows on mma.sync m16n8k16 with f32 accumulators, key and value tiles
+// double-buffered by cp.async, the online softmax in registers and P fed to
+// P V without leaving them; in f32 (the parity checks), plain FMAs on a
+// 16 x 16 thread grid. Inputs are f32 or bf16, the output is in the input
+// dtype, and N is arbitrary: the last key tile is masked, rows past N are
+// not stored. With an lse pointer the kernel also writes each row's f32
+// log-sum-exp of the scaled scores, the residual attn_bwd.cu recomputes the
+// probabilities from (the library kernel saves l and m for the same use).
 
 #include "attn_fwd.cuh"
 

@@ -6,19 +6,20 @@
 // JAX's library Pallas flash_attention at its default block sizes and at
 // 1024-row blocks, timed beside einsum attention on the global blocks'
 // q, k, v = (1, 3, 4096, 64) bf16. On the TPU a block size trades VMEM and
-// grid steps; on Hopper a tile trades shared memory a block (4 (DH (BQ + 4) +
-// DH (BK + 4) + BK DH + BK (BQ + 4)) bytes: 31 / 67 / 116 / 99 / 164 KB at
-// DH 64), blocks in flight an SM and registers a thread against the reuse of
-// each shared-memory read (a thread's (BQ / 16) x (BK / 16) score patch).
-// JAX's 1024-row blocks would need about 4.8 MB of f32 staging: no Hopper
-// block holds that, and the sweep's tool reports them so.
+// grid steps; on Hopper a tile trades shared memory a block, blocks in
+// flight an SM and registers a thread against the reuse of each tile. The
+// bf16 body takes a tile as BQ / 16 warps (2, 4, 4, 8 and 8) and 2 (BQ +
+// 4 BK)(DH + 8) bytes of shared memory (23 / 45 / 81 / 54 / 90 KB at DH 64);
+// the f32 body 256 threads and 4 (DH (BQ + 4) + DH (BK + 4) + BK DH + BK (BQ
+// + 4)) bytes (31 / 67 / 116 / 99 / 164 KB). JAX's 1024-row blocks would need
+// about 720 KB in bf16: no Hopper block holds that, and the sweep's tool
+// reports them so.
 //
-// What bounds it on an H100: arithmetic, as K5: 12.9 GFLOP a call at the
-// global blocks' shape, 13 us at the bf16 tensor-core peak; these plain-FMA
-// tiles are the measurement a tensor-core K5 picks its tile from.
-// (64, 64) is K5's own instance: the same code and the same outputs, bit for
-// bit. A tile whose shared memory exceeds a block's is refused by the
-// wrapper and, if called, returns cudaErrorInvalidValue without launching.
+// What bounds it on an H100: operations, as K5: 12.9 GFLOP a call at the
+// global blocks' shape, 13 us at the bf16 tensor-core peak. (64, 64) is
+// K5's own instance: the same code and the same outputs, bit for bit. A tile
+// whose shared memory exceeds a block's is refused by the wrapper and, if
+// called, returns cudaErrorInvalidValue without launching.
 
 #include "attn_fwd.cuh"
 

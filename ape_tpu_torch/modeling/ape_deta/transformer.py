@@ -33,7 +33,9 @@ from ape_tpu_torch.layers.msda_module import MultiScaleDeformableAttention
 from ape_tpu_torch.ops.box_ops import box_cxcywh_to_xyxy
 from ape_tpu_torch.ops.misc import inverse_sigmoid
 from ape_tpu_torch.ops.msda import level_start_index
+from ape_tpu_torch.ops.msda_dispatch import level_sizes
 from ape_tpu_torch.ops.nms import NEG_INF, nms_mask, sort_desc, topk
+from ape_tpu_torch.ops.tables import device_table, shapes_key
 
 
 def _run_layer(layer: nn.Module, use_act_checkpoint: bool, *args):
@@ -63,10 +65,15 @@ def _per_query_valid(spatial_shapes, valid_ratios: torch.Tensor) -> torch.Tensor
                       for lvl, (h, w) in enumerate(spatial_shapes)], 1)
 
 
+@device_table
+def _grid_base_on(spatial_shapes, device) -> torch.Tensor:
+    """``_grid_base`` as an f32 table on ``device`` (cached: read-only)."""
+    return torch.as_tensor(_grid_base(spatial_shapes), dtype=torch.float32, device=device)
+
+
 def encoder_reference_points(spatial_shapes, valid_ratios: torch.Tensor) -> torch.Tensor:
     """ref[b, q(of level lq), lv] = grid_center(q) / valid[lq] * valid[lv]: (B, S, L, 2)."""
-    base = torch.as_tensor(_grid_base(spatial_shapes), dtype=torch.float32,
-                           device=valid_ratios.device)
+    base = _grid_base_on(shapes_key(spatial_shapes), valid_ratios.device)
     lq_valid = _per_query_valid(spatial_shapes, valid_ratios)
     return base[None, :, None, :] / lq_valid[:, :, None, :] * valid_ratios[:, None, :, :]
 
@@ -74,11 +81,9 @@ def encoder_reference_points(spatial_shapes, valid_ratios: torch.Tensor) -> torc
 def encoder_grid_corrections(spatial_shapes, valid_ratios: torch.Tensor) -> torch.Tensor:
     """Pixel shift of the true sampling center against the static grid map of the
     window MSDA: (B, S, L, 2). Zero when there is no padding."""
-    base = torch.as_tensor(_grid_base(spatial_shapes), dtype=torch.float32,
-                           device=valid_ratios.device)
+    base = _grid_base_on(shapes_key(spatial_shapes), valid_ratios.device)
     lq_valid = _per_query_valid(spatial_shapes, valid_ratios)
-    sizes = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
-                         device=valid_ratios.device)
+    sizes = level_sizes(spatial_shapes, valid_ratios.device)
     ratio = valid_ratios[:, None, :, :] / lq_valid[:, :, None, :]
     return base[None, :, None, :] * sizes[None, None, :, :] * (ratio - 1.0)
 
@@ -109,6 +114,7 @@ def gen_output_proposals(memory, valid_mask, spatial_shapes, valid_ratios):
     Returns (masked_memory (B,S,C), proposals_unact (B,S,4) f32, proposal_valid (B,S)).
     """
     props = []
+    sizes = level_sizes(spatial_shapes, memory.device)
     for lvl, (h, w) in enumerate(spatial_shapes):
         yy, xx = torch.meshgrid(
             torch.arange(h, dtype=torch.float32, device=memory.device),
@@ -116,7 +122,7 @@ def gen_output_proposals(memory, valid_mask, spatial_shapes, valid_ratios):
             indexing="ij",
         )
         grid = torch.stack([xx.reshape(-1), yy.reshape(-1)], -1)
-        scale = valid_ratios[:, lvl, :] * torch.tensor([w, h], dtype=torch.float32, device=memory.device)
+        scale = valid_ratios[:, lvl, :] * sizes[lvl]
         center = (grid[None] + 0.5) / scale[:, None, :]
         props.append(torch.cat([center, torch.full_like(center, 0.05 * (2.0**lvl))], -1))
     proposals = torch.cat(props, 1)

@@ -30,6 +30,7 @@ from ape_tpu_torch.modeling.backbone.vit_utils import (
     window_unpartition,
 )
 from ape_tpu_torch.ops.attention import global_attention
+from ape_tpu_torch.ops.tables import device_table
 
 
 class Attention(nn.Module):
@@ -117,6 +118,13 @@ class PatchEmbed(nn.Module):
         return x @ kernel.to(x.dtype) + self.proj.bias.to(x.dtype)
 
 
+@device_table
+def _rope_on(half: int, seq_len: int, pt_seq_len: int, device):
+    """The RoPE (cos, sin) tables on ``device`` (cached: read-only)."""
+    cos, sin = rope_2d_table(half, seq_len, pt_seq_len)
+    return torch.as_tensor(cos, device=device), torch.as_tensor(sin, device=device)
+
+
 class EVAViT(nn.Module):
     """Plain ViT with windowed and global blocks producing one stride-16 map."""
 
@@ -162,9 +170,7 @@ class EVAViT(nn.Module):
         )
 
     def _rope(self, seq_len: int, device):
-        half = self.embed_dim // self.num_heads // 2
-        cos, sin = rope_2d_table(half, seq_len, self.pt_hw_seq_len)
-        return torch.as_tensor(cos, device=device), torch.as_tensor(sin, device=device)
+        return _rope_on(self.embed_dim // self.num_heads // 2, seq_len, self.pt_hw_seq_len, device)
 
     def forward(self, x):
         """x: (B, H, W, 3) -> (B, H/16, W/16, embed_dim)."""

@@ -2,7 +2,8 @@
 window partition, 2-D axial RoPE tables, bicubic position-embedding resize.
 
 Tensors are channels-last (B, H, W, C), as in the JAX package. The RoPE tables
-and the bicubic resize matrices are numpy constants, computed once per shape.
+and the bicubic resize matrices are numpy constants, computed once per shape;
+the resize matrices are also cached on each device (``ops.tables``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ape_tpu_torch.ops.tables import device_table
 
 
 def window_partition(x: torch.Tensor, window: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
@@ -91,6 +94,12 @@ def bicubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m.astype(np.float32)
 
 
+@device_table
+def _resize_matrix_on(in_size: int, out_size: int, device, dtype) -> torch.Tensor:
+    """``bicubic_resize_matrix`` on ``device`` in ``dtype`` (cached: read-only)."""
+    return torch.as_tensor(bicubic_resize_matrix(in_size, out_size), device=device, dtype=dtype)
+
+
 def resize_abs_pos(abs_pos: torch.Tensor, has_cls_token: bool, hw: Tuple[int, int]) -> torch.Tensor:
     """Bicubic-resize (1, num_positions, C) pretraining position embeddings to
     the token grid: returns (1, h, w, C)."""
@@ -104,8 +113,8 @@ def resize_abs_pos(abs_pos: torch.Tensor, has_cls_token: bool, hw: Tuple[int, in
     grid = abs_pos.reshape(size, size, -1)
     if size == h and size == w:
         return grid[None]
-    my = torch.as_tensor(bicubic_resize_matrix(size, h), device=grid.device, dtype=grid.dtype)
-    mx = torch.as_tensor(bicubic_resize_matrix(size, w), device=grid.device, dtype=grid.dtype)
+    my = _resize_matrix_on(size, h, grid.device, grid.dtype)
+    mx = _resize_matrix_on(size, w, grid.device, grid.dtype)
     out = torch.einsum("hs,stc->htc", my, grid)
     out = torch.einsum("wt,htc->hwc", mx, out)
     return out[None]

@@ -152,25 +152,36 @@ def ptxas_info(log: Path | None = None) -> dict:
     return info
 
 
-def sass_counts(pattern: str) -> dict:
-    """Per compiled kernel whose mangled name holds ``pattern``, its global
-    loads and stores in the built library's SASS (``cuobjdump -sass``):
-    {name: {"LDG": n, "STG": n}}. Static instructions, not executions."""
-    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(build())], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
+# SASS opcodes sass_counts counts: global loads and stores, tensor-core
+# products (HMMA: mma.sync), shared-memory matrix loads (LDSM: ldmatrix) and
+# asynchronous global-to-shared copies (LDGSTS: cp.async)
+SASS_OPS = ("LDG", "STG", "HMMA", "LDSM", "LDGSTS")
+
+
+def parse_sass(sass: str, pattern: str) -> dict:
+    """Per function of a ``cuobjdump -sass`` listing whose mangled name holds
+    ``pattern``: {name: {op: static count}} for the ops of ``SASS_OPS``."""
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             name = name if pattern in name else None
             if name:
-                counts[name] = {"LDG": 0, "STG": 0}
+                counts[name] = dict.fromkeys(SASS_OPS, 0)
         elif name:
-            for op in ("LDG", "STG"):
+            for op in SASS_OPS:
                 if f" {op}." in line or f" {op} " in line:
                     counts[name][op] += 1
     return counts
+
+
+def sass_counts(pattern: str) -> dict:
+    """``parse_sass`` of the built library's SASS: static instructions, not
+    executions."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build())], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    return parse_sass(sass, pattern)
 
 
 def check(err: int, kernel: str) -> None:

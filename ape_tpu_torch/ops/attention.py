@@ -8,7 +8,9 @@ JAX runs the einsum path, which ``global_attention_plain`` mirrors.
 Gradients on the card run ``csrc/attn_bwd.cu`` (the library kernel's two
 backward kernels, dK/dV and dQ, after a pre-pass for rowsum(dO * O)), from
 the log-sum-exp the forward saves; on the CPU, torch autograd of the plain
-version.
+version. In bf16 the forward and dK/dV run on the tensor cores (mma.sync,
+P and dS rounded to bf16 before their second product); in f32 every kernel
+is plain f32 FMAs.
 
 ``attn_fwd_tiles`` runs the same forward at another tile (K11,
 ``csrc/attn_fwd_tiles.cu``), the counterpart of the block-size study of
@@ -39,7 +41,8 @@ def global_attention_plain(q, k, v, scale: float) -> torch.Tensor:
 
 
 def _check(name, *tensors):
-    """Equal (B, H, N, Dh) shapes, one f32 or bf16 dtype, contiguous, one CUDA device."""
+    """Equal (B, H, N, Dh) shapes, one f32 or bf16 dtype, contiguous, one CUDA
+    device; bf16 rows start 16-byte aligned (the kernels copy them by cp.async)."""
     q = tensors[0]
     if q.dim() != 4 or any(t.shape != q.shape for t in tensors):
         raise ValueError(f"{name} takes equal (B, H, N, Dh) tensors: {[tuple(t.shape) for t in tensors]}")
@@ -52,6 +55,8 @@ def _check(name, *tensors):
             raise ValueError(f"{name} takes CUDA tensors on one device")
         if not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous tensors")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} takes bf16 tensors at 16-byte aligned addresses")
 
 
 def attn_fwd_cuda(q, k, v, scale: float, with_lse: bool = False):
@@ -147,23 +152,27 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def attn_tile_smem(bq: int, bk: int, dh: int) -> int:
-    """Shared bytes of csrc/attn_fwd.cuh's block at a tile: the transposed
-    query and key tiles, the value tile and the probabilities, in f32, rows
-    padded by 4."""
+def attn_tile_smem(bq: int, bk: int, dh: int, dtype: torch.dtype) -> int:
+    """Shared bytes of csrc/attn_fwd.cuh's block at a tile. f32 body: the
+    transposed query and key tiles, the value tile and the probabilities, in
+    f32, rows padded by 4. bf16 body: the query tile and two buffers each of
+    the key and value tiles, in bf16, rows padded by 8."""
+    if dtype == torch.bfloat16:
+        return 2 * (bq + 4 * bk) * (dh + 8)
     return 4 * (dh * (bq + 4) + dh * (bk + 4) + bk * dh + bk * (bq + 4))
 
 
-def attn_tile_fits(bq: int, bk: int, dh: int) -> bool:
-    return attn_tile_smem(bq, bk, dh) <= SMEM_LIMIT
+def attn_tile_fits(bq: int, bk: int, dh: int, dtype: torch.dtype) -> bool:
+    return attn_tile_smem(bq, bk, dh, dtype) <= SMEM_LIMIT
 
 
-def _check_tile(bq: int, bk: int, dh: int) -> None:
+def _check_tile(bq: int, bk: int, dh: int, dtype: torch.dtype) -> None:
     if (bq, bk) not in TILES:
         raise ValueError(f"attn_fwd_tiles takes the tiles {TILES}, got {(bq, bk)}")
-    if not attn_tile_fits(bq, bk, dh):
-        raise ValueError(f"tile {(bq, bk)} at head_dim {dh} needs {attn_tile_smem(bq, bk, dh)} "
-                         f"bytes of shared memory; a block has {SMEM_LIMIT}")
+    if not attn_tile_fits(bq, bk, dh, dtype):
+        raise ValueError(f"tile {(bq, bk)} at head_dim {dh} in {dtype} needs "
+                         f"{attn_tile_smem(bq, bk, dh, dtype)} bytes of shared memory; "
+                         f"a block has {SMEM_LIMIT}")
 
 
 def attn_fwd_tiles_cuda(q, k, v, scale: float, bq: int, bk: int) -> torch.Tensor:
@@ -171,7 +180,7 @@ def attn_fwd_tiles_cuda(q, k, v, scale: float, bq: int, bk: int) -> torch.Tensor
     tensors."""
     _check("attn_fwd_tiles", q, k, v)
     b, h, n, dh = q.shape
-    _check_tile(bq, bk, dh)
+    _check_tile(bq, bk, dh, q.dtype)
     out = torch.empty_like(q)
     err = _build.library().ape_attn_fwd_tiles(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, n, dh, float(scale),
@@ -188,7 +197,7 @@ def attn_fwd_tiles(q, k, v, scale: float, bq: int, bk: int) -> torch.Tensor:
     if q.is_cuda:
         return attn_fwd_tiles_cuda(q, k, v, scale, bq, bk)
     if q.device.type == "cpu":
-        _check_tile(bq, bk, q.shape[-1])
+        _check_tile(bq, bk, q.shape[-1], q.dtype)
         return global_attention_plain(q, k, v, scale)
     raise ValueError(f"no attention implementation for device {q.device}")
 

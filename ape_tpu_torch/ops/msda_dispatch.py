@@ -53,6 +53,7 @@ import torch
 
 from ape_tpu_torch.ops import _build, msda_window_forms
 from ape_tpu_torch.ops.msda import level_start_index, ms_deform_attn
+from ape_tpu_torch.ops.tables import device_table, shapes_key
 
 # The encoder's window-MSDA backward: merged (K2) unless APE_MSDA_BWD_MERGED=0
 # selects the split kernels (K3 + K4).
@@ -75,7 +76,13 @@ def window_form(heads: int) -> str:
 
 
 def grid_centers(spatial_shapes: Sequence[Tuple[int, int]], device) -> torch.Tensor:
-    """Normalized (x, y) centers of every cell of the pyramid grid: (S, 2) f32."""
+    """Normalized (x, y) centers of every cell of the pyramid grid: (S, 2) f32
+    (a cached table: read-only)."""
+    return _grid_centers(shapes_key(spatial_shapes), torch.device(device))
+
+
+@device_table
+def _grid_centers(spatial_shapes, device) -> torch.Tensor:
     pieces = []
     for hq, wq in spatial_shapes:
         yy, xx = torch.meshgrid(
@@ -88,8 +95,22 @@ def grid_centers(spatial_shapes: Sequence[Tuple[int, int]], device) -> torch.Ten
 
 
 def level_sizes(spatial_shapes: Sequence[Tuple[int, int]], device) -> torch.Tensor:
-    """(L, 2) f32 level sizes as (W, H), the normalizer of (x, y) offsets."""
+    """(L, 2) f32 level sizes as (W, H), the normalizer of (x, y) offsets (a
+    cached table: read-only)."""
+    return _level_sizes(shapes_key(spatial_shapes), torch.device(device))
+
+
+@device_table
+def _level_sizes(spatial_shapes, device) -> torch.Tensor:
     return torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32, device=device)
+
+
+@device_table
+def _level_tables(spatial_shapes, device):
+    """The kernels' int64 level shapes (L, 2) and start offsets (L,)."""
+    starts, _ = level_start_index(spatial_shapes)
+    return (torch.tensor(spatial_shapes, dtype=torch.int64, device=device),
+            torch.tensor(starts, dtype=torch.int64, device=device))
 
 
 def window_locations(
@@ -127,7 +148,7 @@ def _check_sampling(name, value_shape, value_dtype, spatial_shapes, loc, att, te
     q, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
     if tuple(att.shape) != (b, q, h, l, p):
         raise ValueError(f"attention weights {tuple(att.shape)} != {(b, q, h, l, p)}")
-    starts, total = level_start_index(spatial_shapes)
+    _, total = level_start_index(spatial_shapes)
     if total != s or len(spatial_shapes) != l:
         raise ValueError(f"value length {s} / {l} levels do not match {spatial_shapes}")
     device = tensors[0].device
@@ -136,9 +157,7 @@ def _check_sampling(name, value_shape, value_dtype, spatial_shapes, loc, att, te
             raise ValueError(f"{name} takes CUDA tensors on one device")
         if not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous tensors")
-    tables = (torch.tensor(spatial_shapes, dtype=torch.int64, device=device),
-              torch.tensor(starts, dtype=torch.int64, device=device))
-    return (b, s, q, h, d, l, p), tables
+    return (b, s, q, h, d, l, p), _level_tables(shapes_key(spatial_shapes), device)
 
 
 def _check_grad(name, grad_out, value_dtype, b, q, h, d, device):

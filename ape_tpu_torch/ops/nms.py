@@ -18,6 +18,9 @@ import torch
 
 NEG_INF = -1e10
 TILE = 256
+# Host syncs taken by the fixpoint's loop test, counted: chip_smoke.py holds
+# a forward's host syncs to this count (every other sync would be a fault).
+SYNCS = {"fixpoint": 0}
 
 
 def sort_desc(x: torch.Tensor, dim: int = -1):
@@ -50,6 +53,7 @@ def _greedy_fixpoint(alive: torch.Tensor, sup: torch.Tensor) -> torch.Tensor:
     elim = ~alive
     for _ in range(t):
         undecided = alive & ~kept & ~elim
+        SYNCS["fixpoint"] += 1
         if not bool(undecided.any()):  # host sync
             break
         potential = kept | undecided

@@ -125,8 +125,9 @@ def probe(device=None, card: str = "", shape=SHAPE, image: int = IMAGE, iters: i
                 lambda: global_attention(q32, k32, v32, scale))
     record("sdpa", lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
     for bq, bk in (*TILES, (JAX_BLOCK, JAX_BLOCK)):
-        tile = dict(tile=[bq, bk], smem_bytes=attn_tile_smem(bq, bk, dh),
-                    fits=attn_tile_fits(bq, bk, dh), **built.get((dh, bq, bk, "bfloat16"), {}))
+        tile = dict(tile=[bq, bk], smem_bytes=attn_tile_smem(bq, bk, dh, DTYPE),
+                    fits=attn_tile_fits(bq, bk, dh, DTYPE),
+                    **built.get((dh, bq, bk, "bfloat16"), {}))
         if (bq, bk) not in TILES or not tile["fits"]:  # recorded, never launched
             recs.append(dict(base, name=f"tile_{bq}x{bk}", ms=None, max_abs_err=None, **tile))
             continue

@@ -9,6 +9,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi's own line too);
 2. build: compile ``ape_tpu_torch/csrc/*.cu`` into ``build/ape_tpu_torch/``;
+   then the SASS: every bf16 instance of the attention forward and dK/dV
+   kernels holds tensor-core products (HMMA), no f32 one does, and none
+   spills at head width 64;
 3. kernels: each forward CUDA kernel against its plain PyTorch version at
    every shape set the main paths give it (the protocol pyramid at batch 1;
    the 4-scale pyramid at batch 1 with 900 decoder queries and at batch 2
@@ -23,8 +26,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the split MSDA backward (K3, K4) also against the merged one (K2);
 5. slice: ``build_ape_ti`` at the reference latency protocol (1024^2, bf16,
    900 queries, 80 text features of width 1024, N(0, 0.02) weights with the
-   ring-init offsets re-armed): launch counts per forward, host syncs,
-   output checks, images/s;
+   ring-init offsets re-armed): launch counts per forward, host syncs (each
+   one the NMS fixpoint's loop test), output checks, images/s;
 6. serve: ``DefaultPredictor`` answers three non-square requests;
    forms: the same forward under ``msda_dispatch.FUSED`` (K8) and under
    ``V6`` (K9 + K1): exact launches, outputs, images/s;
@@ -97,7 +100,8 @@ BOUNDS = {"float32": {"msda": 1e-5, "attn": 1e-4}, "bfloat16": {"msda": 3.2e-2, 
 # f32: sums in another order, d_value by atomics in a run-dependent order.
 # bf16: both sides see the same bf16 inputs (plain upcast to f32); the
 # kernel's gradients are rounded to bf16 (2^-8 relative) where the inputs are
-# bf16.
+# bf16, and K5-dkv also rounds P^T and dS^T to bf16 before its second
+# products (emulated on the CPU by tests/test_torch_attention.py: under 5e-3).
 GRAD_BOUNDS = {"float32": 1e-4, "bfloat16": 1e-2}
 # The split backward (K3: d_loc, d_att; K4: d_value) against the merged one
 # (K2) on the same inputs, each output over its own max |K2|. Both round and
@@ -250,6 +254,44 @@ def build_phase():
     lib = _build.build()
     _build.library()
     log(phase="build", seconds=time.perf_counter() - t0, library=str(lib.relative_to(ROOT)))
+    tensor_core_check()
+
+
+# Kernels whose bf16 instances run on the tensor cores (mma.sync, HMMA in their
+# SASS) and whose f32 instances must not (there they would compute in TF32).
+TENSOR_CORE_KERNELS = ("attn_fwd_kernel", "attn_bwd_dkv_kernel")
+
+
+def tensor_core_check():
+    """Every instance of TENSOR_CORE_KERNELS in the built library: HMMA in
+    each bf16 one and in no f32 one, and no spills at head width 64 (the
+    main path's). One record an instance: its static SASS counts and what
+    ptxas reported."""
+    import re
+
+    from ape_tpu_torch.ops import _build
+
+    info = _build.ptxas_info()
+    recs, bad = [], []
+    for name, ops in sorted(_build.sass_counts("attn_").items()):
+        m = re.search(r"(attn_fwd_kernel|attn_bwd_dkv_kernel)ILi(\d+)E", name)
+        if m is None:
+            continue
+        bf16 = "__nv_bfloat16" in name
+        rec = dict(phase="sass", kernel=m.group(1), head_dim=int(m.group(2)),
+                   dtype="bfloat16" if bf16 else "float32", name=name, **ops,
+                   **info.get(name, {}))
+        log(**rec)
+        recs.append(rec)
+        if bf16 != (ops["HMMA"] > 0):
+            bad.append(f"{name}: {ops['HMMA']} HMMA in a {rec['dtype']} instance")
+        if bf16 and rec["head_dim"] == 64 and rec.get("spill_stores", 0):
+            bad.append(f"{name}: spills {rec['spill_stores']} bytes at head width 64")
+    found = {(r["kernel"], r["dtype"]) for r in recs}
+    missing = [(k, d) for k in TENSOR_CORE_KERNELS for d in ("bfloat16", "float32")
+               if (k, d) not in found]
+    if missing or bad:
+        fail(f"tensor-core check: instances missing {missing}; {'; '.join(bad)}")
 
 
 def _ring(levels: int):
@@ -601,16 +643,17 @@ def slice_phase(dev, card):
     import torch
 
     from ape_tpu_torch.modeling.build import build_ape_ti
-    from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.ops import _build, nms
 
     model = build_ape_ti(num_queries=QUERIES, mask_on=False, window_radius=RADIUS,
                          scale_factors=(2.0, 1.0, 0.5), dtype=torch.bfloat16)
     model = init_weights(model, SEED).eval()
     inputs = tuple(t.to(dev) for t in _inputs())
     with torch.no_grad():
-        model(*inputs)  # warm-up
+        model(*inputs)  # warm-up: builds the constant tables (ops/tables.py)
         torch.cuda.synchronize()
         _build.reset_launches()
+        nms.SYNCS["fixpoint"] = 0
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -628,6 +671,11 @@ def slice_phase(dev, card):
         if not (torch.isfinite(logits).all() and torch.isfinite(boxes).all()):
             fail("non-finite outputs")
         syncs = sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+        # every host sync of a forward is the NMS fixpoint's loop test: a
+        # table copied to the card at each call (F5) would add its own
+        nms_syncs = nms.SYNCS["fixpoint"]
+        if syncs != nms_syncs:
+            fail(f"host syncs per forward {syncs}, the NMS fixpoint's tests {nms_syncs}")
 
         iters = 10
         t0 = time.perf_counter()
@@ -636,7 +684,8 @@ def slice_phase(dev, card):
         torch.cuda.synchronize()
         img_s = iters / (time.perf_counter() - t0)
     log(phase="slice", dtype="bfloat16", launches_per_forward=launches,
-        host_syncs_per_forward=syncs, logits_shape=list(logits.shape),
+        host_syncs_per_forward=syncs, nms_fixpoint_syncs=nms_syncs,
+        logits_shape=list(logits.shape),
         boxes_shape=list(boxes.shape), images_per_s=img_s, iters=iters, card=card)
     return model, launches
 

@@ -66,8 +66,15 @@ def test_msda_kernel_matches_plain(device, dtype):
     assert float((got - want).abs().max()) < TOL[dtype]
 
 
+# Sequence lengths the tensor-core fragments make hard (one row, a ragged
+# n8 or k16 tile, one past or short of a 64-row tile, the global blocks'
+# 4096) at every head width, beside the earlier cases.
+ATTN_SIZES = [(333, 64), (64, 32), (200, 128),
+              *((n, dh) for n in (1, 15, 17, 63, 65, 4096) for dh in (32, 64, 128))]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,dh", [(333, 64), (64, 32), (200, 128)])
+@pytest.mark.parametrize("n,dh", ATTN_SIZES)
 def test_attention_kernel_matches_plain(device, dtype, n, dh):
     rng = np.random.RandomState(1)
     q, k, v = (torch.from_numpy(rng.randn(2, 3, n, dh).astype(np.float32)).to(device, dtype)
@@ -174,7 +181,7 @@ def test_msda_split_route_serves_the_encoder_only(device, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,dh", [(333, 64), (64, 32), (200, 128)])
+@pytest.mark.parametrize("n,dh", ATTN_SIZES)
 def test_attention_backward_kernels_match_autograd(device, dtype, n, dh):
     rng = np.random.RandomState(3)
     q, k, v, go = (torch.from_numpy(rng.randn(2, 3, n, dh).astype(np.float32)).to(device, dtype)
@@ -292,14 +299,14 @@ def test_pair_probe_bf16fma_rounds_once_a_corner(device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tile", TILES)
-@pytest.mark.parametrize("n,dh", [(333, 64), (64, 32), (200, 128)])
+@pytest.mark.parametrize("n,dh", ATTN_SIZES)
 def test_attention_tiles_match_plain_and_k5(device, tile, dtype, n, dh):
     """Every K11 tile against the plain attention, and (64, 64) against K5
     bit for bit; a tile that does not fit a block is refused unlaunched."""
     rng = np.random.RandomState(7)
     q, k, v = (torch.from_numpy(rng.randn(2, 3, n, dh).astype(np.float32)).to(device, dtype)
                for _ in range(3))
-    if not attn_tile_fits(*tile, dh):
+    if not attn_tile_fits(*tile, dh, dtype):
         before = _build.LAUNCHES["attn_fwd_tiles"]
         with pytest.raises(ValueError, match="shared memory"):
             attn_fwd_tiles_cuda(q, k, v, dh**-0.5, *tile)

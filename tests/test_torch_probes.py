@@ -230,20 +230,30 @@ def test_plain_attention_matches_library_flash_in_interpret_mode(monkeypatch, rn
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
 
 
-# shared bytes a block: 31, 67, 116, 99, 164 KB at head width 64
+# shared bytes a block at head width 64. f32 body: 31, 67, 116, 99, 164 KB;
+# bf16 body (Q, two buffers each of K and V, rows of 64 + 8 bf16): 23, 45,
+# 81, 54, 90 KB
 TILE_SMEM_64 = {(32, 32): 31232, (64, 64): 68608, (64, 128): 118784, (128, 64): 101376,
                 (128, 128): 167936}
+TILE_SMEM_64_BF16 = {(32, 32): 23040, (64, 64): 46080, (64, 128): 82944, (128, 64): 55296,
+                     (128, 128): 92160}
 
 
 def test_attn_tile_shared_memory():
-    assert {t: attention.attn_tile_smem(*t, 64) for t in attention.TILES} == TILE_SMEM_64
-    assert all(attention.attn_tile_fits(*t, 64) for t in attention.TILES)
-    assert attention.attn_tile_smem(128, 128, 128) == 268288  # 262 KB
-    assert not attention.attn_tile_fits(128, 128, 128)
-    assert attention.attn_tile_fits(128, 64, 128)
-    # the TPU probe's 1024-row blocks: about 4.8 MB of f32 staging
-    assert attention.attn_tile_smem(1024, 1024, 64) == 4999168
-    assert not attention.attn_tile_fits(1024, 1024, 64)
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert {t: attention.attn_tile_smem(*t, 64, f32) for t in attention.TILES} == TILE_SMEM_64
+    assert {t: attention.attn_tile_smem(*t, 64, bf16) for t in attention.TILES} == TILE_SMEM_64_BF16
+    assert all(attention.attn_tile_fits(*t, 64, d) for t in attention.TILES for d in (f32, bf16))
+    assert attention.attn_tile_smem(128, 128, 128, f32) == 268288  # 262 KB
+    assert not attention.attn_tile_fits(128, 128, 128, f32)
+    assert attention.attn_tile_fits(128, 64, 128, f32)
+    # every tile fits in bf16 at head width 128: (128, 128) takes 170 KB
+    assert attention.attn_tile_smem(128, 128, 128, bf16) == 174080
+    assert all(attention.attn_tile_fits(*t, 128, bf16) for t in attention.TILES)
+    # the TPU probe's 1024-row blocks: about 4.8 MB of f32 staging, 720 KB in bf16
+    assert attention.attn_tile_smem(1024, 1024, 64, f32) == 4999168
+    assert attention.attn_tile_smem(1024, 1024, 64, bf16) == 737280
+    assert not any(attention.attn_tile_fits(1024, 1024, 64, d) for d in (f32, bf16))
 
 
 def test_attn_fwd_tiles_refuses_before_launch(rng):
@@ -317,3 +327,36 @@ def test_ptxas_info_reads_the_build_log(tmp_path):
         "ptxas info    : Used 255 registers, used 1 barriers, 380 bytes cmem[0]\n")
     assert _build.ptxas_info(log) == {"_Z1kv": {"spill_stores": 12, "spill_loads": 16,
                                                 "registers": 255}}
+
+
+# A cuobjdump -sass excerpt: a bf16 instance on the tensor cores (cp.async,
+# ldmatrix, mma.sync), an f32 one on FMAs, and a kernel the pattern skips.
+SASS = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_115attn_fwd_kernelILi64ELi64ELi64E13__nv_bfloat16EEvPKT2_S4_S4_PS2_Pfif
+	.headerflags	@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0090*/              @!P0 LDGSTS.E.BYPASS.LTC128B.128 [R5], desc[UR6][R2.64] ;
+        /*00a0*/                   LDGDEPBAR ;
+        /*00b0*/                   DEPBAR.LE SB0, 0x1 ;
+        /*00c0*/                   LDSM.16.M88.4 R8, [R12] ;
+        /*00d0*/                   LDSM.16.MT88.4 R16, [R12+0x800] ;
+        /*00e0*/                   HMMA.16816.F32.BF16 R20, R8, R16, R20 ;
+        /*00f0*/                   HMMA.16816.F32.BF16 R24, R8, R18, R24 ;
+        /*0100*/                   STG.E [R2.64], R20 ;
+		Function : _ZN12_GLOBAL__N_115attn_fwd_kernelILi64ELi64ELi64EfEEvPKT2_S3_S3_PS1_Pfif
+        /*0000*/                   LDG.E R4, desc[UR4][R2.64] ;
+        /*0010*/                   FFMA R5, R4, R4, R5 ;
+        /*0020*/                   STG.E [R2.64], R5 ;
+		Function : _ZN12_GLOBAL__N_115msda_fwd_kernelIffEEvv
+        /*0000*/                   LDG.E R4, desc[UR4][R2.64] ;
+"""
+
+
+def test_parse_sass_counts_tensor_core_ops():
+    counts = _build.parse_sass(SASS, "attn_fwd_kernel")
+    bf16, f32 = sorted(counts, key=lambda n: "__nv_bfloat16" not in n)
+    assert counts[bf16] == {"LDG": 0, "STG": 1, "HMMA": 2, "LDSM": 2, "LDGSTS": 1}
+    assert counts[f32] == {"LDG": 1, "STG": 1, "HMMA": 0, "LDSM": 0, "LDGSTS": 0}
+    assert list(_build.parse_sass(SASS, "msda_fwd_kernel").values()) == [
+        {"LDG": 1, "STG": 0, "HMMA": 0, "LDSM": 0, "LDGSTS": 0}]
