@@ -25,20 +25,36 @@
 // also skips x = -1 or y = -1 exactly, where it would add 0).
 //
 // What bounds it on an H100: the scatter. Every sample adds four rows of D
-// floats into d_value with atomics (80 warp-wide reductions of 128 bytes per
-// (b, q, h) at L = 5, P = 4), against the same four corner reads as the
-// forward. The design mirrors the forward: one warp per (b, q, h), lanes over
-// D, so each corner read and each atomic row is one coalesced 128-byte
-// transaction; the three dot products are warp shuffles. d_value is an f32
-// buffer the caller zeroes and casts back to the value dtype; atomics make
-// its sums run-order dependent at the last bits.
+// floats into d_value with atomics, against the same four corner reads as the
+// forward. d_value is an f32 buffer the caller zeroes and casts back to the
+// value dtype; atomics make its sums run-order dependent at the last bits.
+//
+// Two bodies, one branch on D in the launch:
+//   * D = 32, every MSDA layer of APE (8 heads of 32 channels): 8 lanes an
+//     item (b, q, h) and 4 channels a lane, so a warp holds 4 items (4 heads
+//     of one query). Each corner read is one 8-byte load of 4
+//     bf16 (16 bytes in f32), each corner's d_value update one 16-byte
+//     vector reduction (atomicAdd on float4, compute capability 9.x): 4x
+//     fewer reduction instructions than lanes over D, and loads on channel
+//     groups, which the pair probe K10 measured 37-42 % faster on the
+//     forward's gather (vec2). The 8 lanes load the item's locations and
+//     weights 8 samples at a time, coalesced, and share them by shuffles; the
+//     three dot products take 3 shuffle steps over the 8 lanes, and lane j
+//     stores the results of its sample j. At most 64 registers a thread
+//     (__launch_bounds__ with 4 blocks an SM).
+//   * any other D: one warp per (b, q, h), lanes over D, each corner read
+//     and each atomic row one coalesced 128-byte transaction, the dot
+//     products by warp shuffles.
 //
 // The rounding of loc * size - 0.5 and the boundary test come from
-// msda_sample.cuh, shared with the split form (msda_bwd_split.cu). The rest
-// of the per-sample arithmetic is the same expressions as that header's
-// Sample helpers, written out here: through the Sample struct the bf16
+// msda_sample.cuh, shared with the split form (msda_bwd_split.cu), so the
+// two forms pick the same corners and boundary cases. The rest of the
+// per-sample arithmetic is the same expressions as that header's Sample
+// helpers, written out here: through the Sample struct the bf16
 // instantiations took 80 registers a thread instead of 64 and ran ~11 %
 // slower on an H100.
+
+#include <math.h>
 
 #include "msda_sample.cuh"
 
@@ -136,11 +152,161 @@ msda_bwd_kernel(const VT* __restrict__ value,        // (B, S, H, D)
   }
 }
 
+// The D = 32 body (APE's every MSDA layer: 8 heads of 32 channels). 8 lanes
+// an item and 4 channels a lane, so a warp holds kItemsPerWarp = 4 items.
+constexpr int kD32 = 32;
+constexpr int kItemLanes = 8;
+// A warp's 4 items are 4 heads of one query (item = bq * H + h, 4 at a time):
+// on an H100 80GB HBM3 at 700 W that order ran 0.2-0.4 % faster than one head
+// of 4 neighbouring queries at the encoder's training shape (4.90-4.91 against
+// 4.92 ms), and tied at the decoder's.
+constexpr int kItemsPerWarp = 32 / kItemLanes;
+
+// 4 channels as f32: one 16-byte load of f32, one 8-byte load of bf16
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+
+// d_value[p .. p + 3] += w * ag[0 .. 3]: one 16-byte vector reduction
+// (atomicAdd on float4, global memory, compute capability 9.x)
+__device__ __forceinline__ void red_add4(float* p, float w, const float (&ag)[4]) {
+  atomicAdd(reinterpret_cast<float4*>(p), make_float4(w * ag[0], w * ag[1], w * ag[2], w * ag[3]));
+}
+
+__device__ __forceinline__ float item_sum(float v) {
+#pragma unroll
+  for (int off = 1; off < kItemLanes; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename VT, typename AT>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, 4)
+msda_bwd_kernel_d32(const VT* __restrict__ value, const float* __restrict__ loc,
+                    const AT* __restrict__ att, const int64_t* __restrict__ shapes,
+                    const int64_t* __restrict__ starts, const VT* __restrict__ grad_out,
+                    float* __restrict__ d_value, float* __restrict__ d_loc,
+                    float* __restrict__ d_att, int B, int S, int Q, int H, int L, int P) {
+  __shared__ Levels lv;
+  load_levels(lv, shapes, starts, L);
+
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (kItemLanes - 1);  // lane within the item: channels 4 sub .. 4 sub + 3
+  const int slot = lane / kItemLanes;       // item within the warp
+  const int64_t warp = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t n_items = static_cast<int64_t>(B) * Q * H;
+  const int64_t first = warp * kItemsPerWarp;
+  if (first >= n_items) return;  // whole warps only: every item of this one is past the end
+  // a lane of an item past the end (the last warp's) loads nothing and
+  // stores nothing, but takes part in the shuffles
+  const bool valid = first + slot < n_items;
+  const int64_t item = valid ? first + slot : 0;
+  const int h = static_cast<int>(item % H);
+  const int b = static_cast<int>(item / H / Q);
+  const int c0 = sub * 4;
+  const int64_t base = static_cast<int64_t>(b) * S * H * kD32 + static_cast<int64_t>(h) * kD32 + c0;
+  const VT* vb = value + base;
+  float* dvb = d_value + base;
+  const int64_t row_stride = static_cast<int64_t>(H) * kD32;
+  float g[4] = {0.f, 0.f, 0.f, 0.f};
+  if (valid) load4(grad_out + item * kD32 + c0, g);
+
+  const int LP = L * P;
+  const int64_t samp0 = item * LP;
+  for (int s0 = 0; s0 < LP; s0 += kItemLanes) {
+    // the item's next 8 samples: lane sub loads sample s0 + sub (coalesced
+    // over the 8 lanes), and every lane of the item reads them by shuffles
+    const int mine = s0 + sub;
+    const bool mine_ok = valid && mine < LP;
+    float2 my_loc = make_float2(NAN, NAN);
+    float my_a = 0.f;
+    if (mine_ok) {
+      my_loc = *reinterpret_cast<const float2*>(loc + 2 * (samp0 + mine));
+      my_a = to_f32(att[samp0 + mine]);
+    }
+    float out_att = 0.f, out_x = 0.f, out_y = 0.f;  // lane sub's own sample
+    const int n = min(kItemLanes, LP - s0);  // uniform over the warp
+    for (int j = 0; j < n; ++j) {
+      const int src = slot * kItemLanes + j;
+      const float lx = __shfl_sync(0xffffffffu, my_loc.x, src);
+      const float ly = __shfl_sync(0xffffffffu, my_loc.y, src);
+      const float a = __shfl_sync(0xffffffffu, my_a, src);
+      const int l = (s0 + j) / P;
+      const int hl = lv.h[l];
+      const int wl = lv.w[l];
+      const float x = pixel(lx, wl);
+      const float y = pixel(ly, hl);
+      float pa = 0.f, px = 0.f, py = 0.f;
+      if (live(x, y, hl, wl)) {
+        const float xf = floorf(x);
+        const float yf = floorf(y);
+        const int x0 = static_cast<int>(xf);
+        const int y0 = static_cast<int>(yf);
+        const float fx = x - xf;
+        const float fy = y - yf;
+        const bool in_y0 = y0 >= 0, in_y1 = y0 + 1 < hl;
+        const bool in_x0 = x0 >= 0, in_x1 = x0 + 1 < wl;
+        const int64_t r00 = static_cast<int64_t>(lv.start[l]) * row_stride +
+                            (static_cast<int64_t>(y0) * wl + x0) * row_stride;
+        const int64_t r01 = r00 + row_stride;
+        const int64_t r10 = r00 + static_cast<int64_t>(wl) * row_stride;
+        const int64_t r11 = r10 + row_stride;
+        const float w00 = (1.f - fx) * (1.f - fy), w01 = fx * (1.f - fy);
+        const float w10 = (1.f - fx) * fy, w11 = fx * fy;
+        float v00[4] = {0.f, 0.f, 0.f, 0.f}, v01[4] = {0.f, 0.f, 0.f, 0.f};
+        float v10[4] = {0.f, 0.f, 0.f, 0.f}, v11[4] = {0.f, 0.f, 0.f, 0.f};
+        if (in_y0 && in_x0) load4(vb + r00, v00);
+        if (in_y0 && in_x1) load4(vb + r01, v01);
+        if (in_y1 && in_x0) load4(vb + r10, v10);
+        if (in_y1 && in_x1) load4(vb + r11, v11);
+        float ag[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          pa += g[c] * (w00 * v00[c] + w01 * v01[c] + w10 * v10[c] + w11 * v11[c]);
+          px += g[c] * ((1.f - fy) * (v01[c] - v00[c]) + fy * (v11[c] - v10[c]));
+          py += g[c] * ((1.f - fx) * (v10[c] - v00[c]) + fx * (v11[c] - v01[c]));
+          ag[c] = a * g[c];
+        }
+        if (in_y0 && in_x0) red_add4(dvb + r00, w00, ag);
+        if (in_y0 && in_x1) red_add4(dvb + r01, w01, ag);
+        if (in_y1 && in_x0) red_add4(dvb + r10, w10, ag);
+        if (in_y1 && in_x1) red_add4(dvb + r11, w11, ag);
+      }
+      pa = item_sum(pa);
+      px = item_sum(px);
+      py = item_sum(py);
+      if (sub == j) {
+        out_att = pa;
+        out_x = a * px * wl;
+        out_y = a * py * hl;
+      }
+    }
+    if (mine_ok) {
+      d_att[samp0 + mine] = out_att;
+      *reinterpret_cast<float2*>(d_loc + 2 * (samp0 + mine)) = make_float2(out_x, out_y);
+    }
+  }
+}
+
 template <typename VT, typename AT>
 int launch(const void* value, const float* loc, const void* att, const int64_t* shapes,
            const int64_t* starts, const void* grad_out, float* d_value, float* d_loc,
            float* d_att, int B, int S, int Q, int H, int D, int L, int P, cudaStream_t stream) {
   const int64_t n_items = static_cast<int64_t>(B) * Q * H;
+  if (D == kD32) {
+    const int64_t warps = (n_items + kItemsPerWarp - 1) / kItemsPerWarp;
+    const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    msda_bwd_kernel_d32<VT, AT><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0, stream>>>(
+        static_cast<const VT*>(value), loc, static_cast<const AT*>(att), shapes, starts,
+        static_cast<const VT*>(grad_out), d_value, d_loc, d_att, B, S, Q, H, L, P);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int64_t blocks = (n_items + kWarpsPerBlock - 1) / kWarpsPerBlock;
   msda_bwd_kernel<VT, AT><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0, stream>>>(
       static_cast<const VT*>(value), loc, static_cast<const AT*>(att), shapes, starts,

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 LIB_NAME = "libape_tpu_torch_kernels.so"
 
 LAUNCHES = {"msda_fwd": 0, "msda_bwd": 0, "msda_bwd_offatt": 0, "msda_bwd_value": 0,
-            "attn_fwd": 0, "attn_bwd_delta": 0, "attn_bwd_dkv": 0, "attn_bwd_dq": 0,
+            "attn_fwd": 0, "attn_bwd_dkv": 0, "attn_bwd_dq": 0,
             "msda_fwd_pair": 0, "msda_fwd_rows": 0, "msda_fwd_qlevel": 0, "msda_fwd_dense": 0,
             "msda_pair_probe": 0, "attn_fwd_tiles": 0}
 
@@ -110,11 +110,9 @@ def library() -> ctypes.CDLL:
     lib.ape_msda_bwd_value.restype = i
     lib.ape_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, f, i, p]
     lib.ape_attn_fwd.restype = i
-    lib.ape_attn_bwd_delta.argtypes = [p, p, p, i, i, i, i, p]
-    lib.ape_attn_bwd_delta.restype = i
     lib.ape_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, i, p]
     lib.ape_attn_bwd_dkv.restype = i
-    lib.ape_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, f, i, p]
+    lib.ape_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, i, p]
     lib.ape_attn_bwd_dq.restype = i
     # the window-MSDA forms (csrc/msda_window.cuh): value, offsets, att, out,
     # the int plan (host memory), radius, value_bf16, att_f32, stream
@@ -153,25 +151,31 @@ def ptxas_info(log: Path | None = None) -> dict:
 
 
 # SASS opcodes sass_counts counts: global loads and stores, tensor-core
-# products (HMMA: mma.sync), shared-memory matrix loads (LDSM: ldmatrix) and
-# asynchronous global-to-shared copies (LDGSTS: cp.async)
-SASS_OPS = ("LDG", "STG", "HMMA", "LDSM", "LDGSTS")
+# products (HMMA: mma.sync), shared-memory matrix loads (LDSM: ldmatrix),
+# asynchronous global-to-shared copies (LDGSTS: cp.async) and global
+# reductions (REDG: an atomicAdd whose result is unused); REDG_V4 counts the
+# REDGs of four f32 lanes in one 16-byte access (REDG.E.ADD.F32x4: atomicAdd
+# on float4, compute capability 9.x).
+SASS_OPS = ("LDG", "STG", "HMMA", "LDSM", "LDGSTS", "REDG")
 
 
 def parse_sass(sass: str, pattern: str) -> dict:
     """Per function of a ``cuobjdump -sass`` listing whose mangled name holds
-    ``pattern``: {name: {op: static count}} for the ops of ``SASS_OPS``."""
+    ``pattern``: {name: {op: static count}} for the ops of ``SASS_OPS`` and
+    REDG_V4."""
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             name = name if pattern in name else None
             if name:
-                counts[name] = dict.fromkeys(SASS_OPS, 0)
+                counts[name] = dict.fromkeys(SASS_OPS + ("REDG_V4",), 0)
         elif name:
             for op in SASS_OPS:
                 if f" {op}." in line or f" {op} " in line:
                     counts[name][op] += 1
+            if " REDG." in line and "x4." in line:
+                counts[name]["REDG_V4"] += 1
     return counts
 
 

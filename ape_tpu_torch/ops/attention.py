@@ -6,11 +6,11 @@ JAX library Pallas kernel ``flash_attention`` that
 ``ape_tpu/modeling/backbone/eva_vit.py:111-136`` calls on the TPU; off the TPU
 JAX runs the einsum path, which ``global_attention_plain`` mirrors.
 Gradients on the card run ``csrc/attn_bwd.cu`` (the library kernel's two
-backward kernels, dK/dV and dQ, after a pre-pass for rowsum(dO * O)), from
-the log-sum-exp the forward saves; on the CPU, torch autograd of the plain
-version. In bf16 the forward and dK/dV run on the tensor cores (mma.sync,
-P and dS rounded to bf16 before their second product); in f32 every kernel
-is plain f32 FMAs.
+backward kernels: dQ, whose prologue also computes rowsum(dO * O), then
+dK/dV), from the log-sum-exp the forward saves; on the CPU, torch autograd
+of the plain version. In bf16 every kernel runs on the tensor cores
+(mma.sync; P and dS rounded to bf16 before their second product); in f32
+every kernel is plain f32 FMAs.
 
 ``attn_fwd_tiles`` runs the same forward at another tile (K11,
 ``csrc/attn_fwd_tiles.cu``), the counterpart of the block-size study of
@@ -76,19 +76,6 @@ def attn_fwd_cuda(q, k, v, scale: float, with_lse: bool = False):
     return (out, lse) if with_lse else out
 
 
-def attn_bwd_delta_cuda(out, grad_out) -> torch.Tensor:
-    """Launch the pre-pass of ``csrc/attn_bwd.cu``: rowsum(grad_out * out), (B, H, N) f32."""
-    _check("attn_bwd_delta", out, grad_out)
-    b, h, n, dh = out.shape
-    delta = torch.empty(b, h, n, dtype=torch.float32, device=out.device)
-    err = _build.library().ape_attn_bwd_delta(
-        out.data_ptr(), grad_out.data_ptr(), delta.data_ptr(), b * h, n, dh,
-        int(out.dtype == torch.bfloat16), torch.cuda.current_stream(out.device).cuda_stream)
-    _build.check(err, "attn_bwd_delta")
-    _build.LAUNCHES["attn_bwd_delta"] += 1
-    return delta
-
-
 def _check_rows(name, q, *rows):
     for t in rows:
         if (t.dtype != torch.float32 or tuple(t.shape) != tuple(q.shape[:3])
@@ -112,27 +99,29 @@ def attn_bwd_dkv_cuda(q, k, v, grad_out, lse, delta, scale: float):
     return dk, dv
 
 
-def attn_bwd_dq_cuda(q, k, v, grad_out, lse, delta, scale: float) -> torch.Tensor:
-    """Launch the dQ kernel of ``csrc/attn_bwd.cu``."""
-    _check("attn_bwd_dq", q, k, v, grad_out)
-    _check_rows("attn_bwd_dq", q, lse, delta)
+def attn_bwd_dq_cuda(q, k, v, out, grad_out, lse, scale: float):
+    """Launch the dQ kernel of ``csrc/attn_bwd.cu``; returns (dq, delta), delta
+    = rowsum(grad_out * out) as (B, H, N) f32, which the kernel computes in its
+    prologue for the dK/dV launch."""
+    _check("attn_bwd_dq", q, k, v, out, grad_out)
+    _check_rows("attn_bwd_dq", q, lse)
     b, h, n, dh = q.shape
     dq = torch.empty_like(q)
+    delta = torch.empty(b, h, n, dtype=torch.float32, device=q.device)
     err = _build.library().ape_attn_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), b * h, n, dh, float(scale),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, n, dh, float(scale),
         int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "attn_bwd_dq")
     _build.LAUNCHES["attn_bwd_dq"] += 1
-    return dq
+    return dq, delta
 
 
 def attn_bwd_cuda(q, k, v, out, grad_out, lse, scale: float):
-    """(dq, dk, dv) of ``attn_fwd_cuda`` from its output and log-sum-exp:
-    the delta pre-pass, then the dK/dV and dQ kernels."""
-    delta = attn_bwd_delta_cuda(out, grad_out)
-    dk, dv = attn_bwd_dkv_cuda(q, k, v, grad_out, lse, delta, scale)
-    return attn_bwd_dq_cuda(q, k, v, grad_out, lse, delta, scale), dk, dv
+    """(dq, dk, dv) of ``attn_fwd_cuda`` from its output and log-sum-exp: the
+    dQ kernel, which also writes delta, then the dK/dV kernel, which reads it."""
+    dq, delta = attn_bwd_dq_cuda(q, k, v, out, grad_out, lse, scale)
+    return (dq, *attn_bwd_dkv_cuda(q, k, v, grad_out, lse, delta, scale))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -198,10 +198,15 @@ def msda_bwd_cuda(
 ):
     """Launch ``csrc/msda_bwd.cu``: (d_value, d_loc, d_att) of ``msda_fwd_cuda``
     for the upstream gradient grad_out (B, Q, H * D), in the dtypes of value,
-    loc (f32) and att. d_value is summed by f32 atomics, then cast."""
+    loc (f32) and att. d_value is summed by f32 atomics, then cast. At D = 32
+    the kernel reads 4 channels a lane in one load, so value, grad_out and
+    loc must start 16-byte aligned."""
     sizes, (shapes_t, starts_t) = _check_inputs("msda_bwd", value, spatial_shapes, loc, att)
     b, s, q, h, d, _, _ = sizes
     _check_grad("msda_bwd", grad_out, value.dtype, b, q, h, d, value.device)
+    if d == 32 and any(t.data_ptr() % 16 for t in (value, grad_out, loc)):
+        raise ValueError("msda_bwd at head width 32 takes value, grad and locations at "
+                         "16-byte aligned addresses")
     d_value = torch.zeros(b, s, h, d, dtype=torch.float32, device=value.device)
     d_loc = torch.empty(loc.shape, dtype=torch.float32, device=value.device)
     d_att = torch.empty(att.shape, dtype=torch.float32, device=value.device)

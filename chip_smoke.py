@@ -9,9 +9,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi's own line too);
 2. build: compile ``ape_tpu_torch/csrc/*.cu`` into ``build/ape_tpu_torch/``;
-   then the SASS: every bf16 instance of the attention forward and dK/dV
+   then the SASS: every bf16 instance of the attention forward, dQ and dK/dV
    kernels holds tensor-core products (HMMA), no f32 one does, and none
-   spills at head width 64;
+   spills at head width 64; every instance of the merged MSDA backward's
+   D = 32 body holds 16-byte vector reductions into d_value, no scalar one,
+   and spills nothing; its general body's instances are recorded beside;
 3. kernels: each forward CUDA kernel against its plain PyTorch version at
    every shape set the main paths give it (the protocol pyramid at batch 1;
    the 4-scale pyramid at batch 1 with 900 decoder queries and at batch 2
@@ -22,8 +24,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    4-scale one (batch 2);
 4. backward kernels: each backward kernel against torch autograd of its
    plain version at the training shapes, in f32 and bf16, with times (the
-   attention backward beside that of ``F.scaled_dot_product_attention``);
-   the split MSDA backward (K3, K4) also against the merged one (K2);
+   attention backward beside that of ``F.scaled_dot_product_attention``,
+   both also as their kernels' device time by ``torch.profiler``; the dQ
+   kernel's delta also against the plain row sum of O * dO); the split
+   MSDA backward (K3, K4) also against the merged one (K2); K2 at head
+   width 32 (the encoder's and the decoder's case) and, for its general
+   body, 64 (the decoder's);
 5. slice: ``build_ape_ti`` at the reference latency protocol (1024^2, bf16,
    900 queries, 80 text features of width 1024, N(0, 0.02) weights with the
    ring-init offsets re-armed): launch counts per forward, host syncs (each
@@ -59,6 +65,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     merged one;
 13. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
     form at both pyramids and both offset draws, and its per-pair suites;
+    then ``ape_tpu_torch.tools.msda_bwd_race``, the backward forms (K2, K3 +
+    K4, autograd of the plain version) at the same pyramids and draws, each
+    within its bound of the plain version or of K2;
 14. probes: ``ape_tpu_torch.tools.pair_probe`` (K10, every variant on the
     four pairs, bf16 value, each within 1e-5 of its plain version, bf16fma
     within 6.4e-2 of base, base against K1 bit for bit) and
@@ -95,24 +104,8 @@ HEADS, HEAD_DIM, POINTS, RADIUS = 8, 32, 4, 4
 # |kernel - plain| bounds. f32: both accumulate in f32 in another order. bf16:
 # the output is rounded to bf16 (8 bits) at magnitudes up to ~4, so one ulp.
 BOUNDS = {"float32": {"msda": 1e-5, "attn": 1e-4}, "bfloat16": {"msda": 3.2e-2, "attn": 3.2e-2}}
-# Backward kernels, for each output on its own (d_value, d_loc, d_att; dK,
-# dV; dQ): max |kernel - autograd of plain| over that output's max |plain|.
-# f32: sums in another order, d_value by atomics in a run-dependent order.
-# bf16: both sides see the same bf16 inputs (plain upcast to f32); the
-# kernel's gradients are rounded to bf16 (2^-8 relative) where the inputs are
-# bf16, and K5-dkv also rounds P^T and dS^T to bf16 before its second
-# products (emulated on the CPU by tests/test_torch_attention.py: under 5e-3).
-GRAD_BOUNDS = {"float32": 1e-4, "bfloat16": 1e-2}
-# The split backward (K3: d_loc, d_att; K4: d_value) against the merged one
-# (K2) on the same inputs, each output over its own max |K2|. Both round and
-# bound each sample by csrc/msda_sample.cuh and compute the same per-sample
-# expressions, so K3's outputs differ from K2's only where the two compiled
-# kernels contract FMAs differently, and K4's f32 d_value by the run-dependent
-# order of up to ~100 atomic adds per entry (K2 read 2.9e-6 against autograd,
-# PERF.md). bf16: d_att and d_value are
-# rounded to bf16 after those f32 sums, so an entry may land one bf16 step
-# (2^-8 of itself) apart.
-SPLIT_BOUNDS = {"float32": 1e-5, "bfloat16": 4e-3}
+# The backward kernels' bounds (against autograd of the plain version, and
+# the split MSDA backward against the merged one) are ops/bounds.py's.
 MEMORY_BOUND = 1e-3  # f32 encoder memory, CUDA kernels vs plain on the CPU
 SEED = 0
 
@@ -121,8 +114,8 @@ TRAIN_SHAPES = ((256, 256), (128, 128), (64, 64), (32, 32), (16, 16))  # default
 # Launches per train step with every encoder and decoder layer recomputed in
 # the backward: 6 + 6 MSDA forwards, again in the recompute, one backward
 # each; the backbone (not recomputed) runs 4 global blocks once each way.
-STEP_LAUNCHES = {"msda_fwd": 24, "msda_bwd": 12, "attn_fwd": 4,
-                 "attn_bwd_delta": 4, "attn_bwd_dkv": 4, "attn_bwd_dq": 4}
+STEP_LAUNCHES = {"msda_fwd": 24, "msda_bwd": 12, "attn_fwd": 4, "attn_bwd_dkv": 4,
+                 "attn_bwd_dq": 4}
 # With the split form the encoder's 6 MSDA backwards run K3 + K4 and the
 # decoder's 6 stay on K2. The mask head launches no MSDA or attention kernel.
 SPLIT_STEP_LAUNCHES = dict(STEP_LAUNCHES, msda_bwd=6, msda_bwd_offatt=6, msda_bwd_value=6)
@@ -187,6 +180,27 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn, iters: int = 20) -> float:
+    """Summed device time of the kernels fn() launches, per call, by
+    torch.profiler over ``iters`` calls after one warm-up: unlike
+    ``cuda_ms``, it leaves out the device's idle time between launches,
+    where the host is still in Python or autograd."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation)
+    if not us > 0:
+        fail("torch.profiler recorded no device time")
+    return us / 1e3 / iters
+
+
 def bound(nbytes: float, flops: float, peak: float):
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
     the operations over their peak."""
@@ -194,29 +208,29 @@ def bound(nbytes: float, flops: float, peak: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def msda_bound(kernel: str, b: int, s: int, q: int, l: int, esize: int):
-    """Bound of an MSDA kernel with HEADS x HEAD_DIM channels, S value
-    tokens, Q queries, L levels: each input read once and each output written
-    once (locations and d_loc f32, the rest in the value's dtype)."""
-    value, rows = b * s * HEADS * HEAD_DIM * esize, b * q * HEADS * HEAD_DIM * esize
+def msda_bound(kernel: str, b: int, s: int, q: int, l: int, esize: int, d: int = HEAD_DIM):
+    """Bound of an MSDA kernel with HEADS x d channels, S value tokens, Q
+    queries, L levels: each input read once and each output written once
+    (locations and d_loc f32, the rest in the value's dtype)."""
+    value, rows = b * s * HEADS * d * esize, b * q * HEADS * d * esize
     samples = b * q * HEADS * l * POINTS
     loc, att = samples * 8, samples * esize
     nbytes = {"msda_fwd": value + loc + att + rows,
               "msda_bwd": 2 * (value + loc + att) + rows,
               "msda_bwd_offatt": value + 2 * (loc + att) + rows,
               "msda_bwd_value": loc + att + rows + value}[kernel]
-    return bound(nbytes, samples * HEAD_DIM * MSDA_SAMPLE_FLOPS[kernel], PEAK_FLOPS["float32"])
+    return bound(nbytes, samples * d * MSDA_SAMPLE_FLOPS[kernel], PEAK_FLOPS["float32"])
 
 
 def attn_bound(kernel: str, shape, dname: str):
-    """Bound of an attention kernel on (B, heads, N, Dh) tensors: q, k, v
-    (and dO, lse, delta) read once, outputs written once; 4 N^2 Dh flops a
-    head forward, 8 for dK and dV, 6 for dQ."""
+    """Bound of an attention kernel on (B, heads, N, Dh) tensors: inputs
+    read once, outputs written once (dQ: q, k, v, O, dO and lse in, dQ and
+    delta out; dK/dV: q, k, v, dO, lse and delta in); 4 N^2 Dh flops a head
+    forward, 8 for dK and dV, 6 for dQ."""
     b, h, n, dh = shape
     t, f32 = b * h * n * dh * (2 if dname == "bfloat16" else 4), b * h * n * 4
-    nbytes, mults = {"attn_fwd": (4 * t, 4), "attn_bwd_delta": (2 * t + f32, 0),
-                     "attn_bwd_dkv": (6 * t + 2 * f32, 8), "attn_bwd_dq": (5 * t + 2 * f32, 6),
-                     "attn_bwd": (8 * t + f32, 14)}[kernel]
+    nbytes, mults = {"attn_fwd": (4 * t, 4), "attn_bwd_dkv": (6 * t + 2 * f32, 8),
+                     "attn_bwd_dq": (6 * t + 2 * f32, 6), "attn_bwd": (8 * t + f32, 14)}[kernel]
     return bound(nbytes, mults * b * h * n * n * dh, PEAK_FLOPS[dname])
 
 
@@ -255,11 +269,12 @@ def build_phase():
     _build.library()
     log(phase="build", seconds=time.perf_counter() - t0, library=str(lib.relative_to(ROOT)))
     tensor_core_check()
+    vector_reduction_check()
 
 
 # Kernels whose bf16 instances run on the tensor cores (mma.sync, HMMA in their
 # SASS) and whose f32 instances must not (there they would compute in TF32).
-TENSOR_CORE_KERNELS = ("attn_fwd_kernel", "attn_bwd_dkv_kernel")
+TENSOR_CORE_KERNELS = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")
 
 
 def tensor_core_check():
@@ -274,7 +289,7 @@ def tensor_core_check():
     info = _build.ptxas_info()
     recs, bad = [], []
     for name, ops in sorted(_build.sass_counts("attn_").items()):
-        m = re.search(r"(attn_fwd_kernel|attn_bwd_dkv_kernel)ILi(\d+)E", name)
+        m = re.search(rf"({'|'.join(TENSOR_CORE_KERNELS)})ILi(\d+)E", name)
         if m is None:
             continue
         bf16 = "__nv_bfloat16" in name
@@ -292,6 +307,44 @@ def tensor_core_check():
                if (k, d) not in found]
     if missing or bad:
         fail(f"tensor-core check: instances missing {missing}; {'; '.join(bad)}")
+
+
+# The merged MSDA backward's D = 32 body (K2 on every main path): each corner's
+# d_value update is one 16-byte vector reduction (REDG.E.ADD.F32x4).
+VECTOR_REDUCTION_KERNEL = "msda_bwd_kernel_d32"
+# K2's general body, for every other head width (mangled as
+# msda_bwd_kernelI<types>): scalar reductions, recorded beside it
+GENERAL_K2_KERNEL = "msda_bwd_kernelI"
+# instances of each: (value, attention weights) bf16/bf16, bf16/f32, f32/f32
+VECTOR_REDUCTION_INSTANCES = 3
+
+
+def vector_reduction_check():
+    """Every instance of VECTOR_REDUCTION_KERNEL in the built library: vector
+    reductions into d_value and no scalar one, and no spills; and every
+    instance of K2's general body, present. One record an instance: its
+    static SASS counts and what ptxas reported."""
+    from ape_tpu_torch.ops import _build
+
+    info = _build.ptxas_info()
+    counts = _build.sass_counts(VECTOR_REDUCTION_KERNEL)
+    general = _build.sass_counts(GENERAL_K2_KERNEL)
+    bad = []
+    for name, ops in sorted(counts.items()):
+        rec = dict(phase="sass", kernel=VECTOR_REDUCTION_KERNEL, name=name, **ops,
+                   **info.get(name, {}))
+        log(**rec)
+        if not 0 < ops["REDG_V4"] == ops["REDG"]:
+            bad.append(f"{name}: {ops['REDG_V4']} vector reductions of {ops['REDG']}")
+        if rec.get("spill_stores", 0):
+            bad.append(f"{name}: spills {rec['spill_stores']} bytes")
+    for name, ops in sorted(general.items()):
+        log(phase="sass", kernel="msda_bwd_kernel", name=name, **ops, **info.get(name, {}))
+    if (len(counts) != VECTOR_REDUCTION_INSTANCES or len(general) != VECTOR_REDUCTION_INSTANCES
+            or bad):
+        fail(f"vector-reduction check: {len(counts)} instances of {VECTOR_REDUCTION_KERNEL} and "
+             f"{len(general)} of msda_bwd_kernel, expected {VECTOR_REDUCTION_INSTANCES} each; "
+             f"{'; '.join(bad)}")
 
 
 def _ring(levels: int):
@@ -455,20 +508,30 @@ def _errors(names, got, want):
     return out
 
 
+# K2's general body takes every head width but 32, which no model of the
+# repo has; the backward phase holds it to its bounds at the decoder's
+# training shape at this width.
+K2_GENERAL_HEAD_DIM = 64
+
+
 def backward_kernels_phase(dev):
     """Each backward kernel against torch autograd of its plain version at the
     training shapes: errors against the plain version in f32 on the same
-    inputs, times against the plain backward in the same dtype. Returns
-    per-case results at bf16."""
+    inputs, times against the plain backward in the same dtype; K2 at
+    HEAD_DIM (its D = 32 body) and at K2_GENERAL_HEAD_DIM (its general
+    body). The attention backward's library yardstick is SDPA's whole
+    backward, timed as the device time of its kernels (``kernel_ms``), with
+    the port's beside it timed the same way. Returns per-case results at
+    bf16."""
     import torch
 
     from ape_tpu_torch.ops.attention import (
-        attn_bwd_delta_cuda,
         attn_bwd_dkv_cuda,
         attn_bwd_dq_cuda,
         attn_fwd_cuda,
         global_attention_plain,
     )
+    from ape_tpu_torch.ops.bounds import GRAD_BOUNDS, SPLIT_BOUNDS
     from ape_tpu_torch.ops.msda import ms_deform_attn
     import torch.nn.functional as F
 
@@ -481,10 +544,15 @@ def backward_kernels_phase(dev):
     g = torch.Generator().manual_seed(SEED + 3)
     b = TRAIN_BATCH
     value32, locs, atts = _msda_inputs(g, TRAIN_SHAPES, b, TRAIN_QUERIES, dev)
-    msda_cases = {f"msda_bwd_{mode}": loc for mode, loc in locs.items()}
-    atts = {f"msda_bwd_{mode}": att for mode, att in atts.items()}
-    gouts = {n: torch.randn(b, l.shape[1], HEADS * HEAD_DIM, generator=g) for n, l in msda_cases.items()}
+    # (value f32 on the CPU, locations on dev, weights, upstream grad) per case
+    msda_cases = {f"msda_bwd_{mode}": [value32, loc, atts[mode]] for mode, loc in locs.items()}
+    for case in msda_cases.values():
+        case.append(torch.randn(b, case[1].shape[1], HEADS * HEAD_DIM, generator=g))
     qkvo32 = [torch.randn(TRAIN_BATCH, 3, 4096, 64, generator=g) for _ in range(4)]
+    wide = K2_GENERAL_HEAD_DIM
+    msda_cases[f"msda_bwd_decoder_d{wide}"] = [
+        torch.randn(b, value32.shape[1], HEADS, wide, generator=g), locs["decoder"],
+        atts["decoder"], torch.randn(b, TRAIN_QUERIES, HEADS * wide, generator=g)]
     scale = 64**-0.5
 
     results = {}
@@ -495,8 +563,10 @@ def backward_kernels_phase(dev):
                    abs_err={n: e[0] for n, e in errors.items()},
                    rel_err={n: e[1] for n, e in errors.items()}, bound=GRAD_BOUNDS[dname],
                    ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
-                   library_ms=cuda_ms(library) if library else None,
+                   library_ms=kernel_ms(library) if library else None,
                    bound_ms=bound_ms[0], bound_by=bound_ms[1])
+        if library:  # both timed alike, and the library's by events too
+            rec.update(kernel_device_ms=kernel_ms(kernel), library_event_ms=cuda_ms(library))
         if vs_merged is not None:
             rec.update(rel_err_vs_msda_bwd={n: e[1] for n, e in vs_merged.items()},
                        bound_vs_msda_bwd=SPLIT_BOUNDS[dname])
@@ -513,11 +583,10 @@ def backward_kernels_phase(dev):
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        value = value32.to(dev, dtype)
-        s, lv = value.shape[1], len(TRAIN_SHAPES)
-        for name, loc in msda_cases.items():
-            att, gout = atts[name].to(dev, dtype), gouts[name].to(dev, dtype)
-            nq, es = loc.shape[1], value.element_size()
+        lv = len(TRAIN_SHAPES)
+        for name, (value, loc, att, gout) in msda_cases.items():
+            value, att, gout = (t.to(dev, dtype) for t in (value, att, gout))
+            (_, s, _, d), nq, es = value.shape, loc.shape[1], value.element_size()
             merged = msda_bwd_cuda(value, TRAIN_SHAPES, loc, att, gout)
             leaves = [value.detach().float().requires_grad_(), loc.detach().clone().requires_grad_(),
                       att.detach().float().requires_grad_()]
@@ -542,7 +611,7 @@ def backward_kernels_phase(dev):
                                                    retain_graph=True)
 
             record(name, dname, err, lambda: msda_bwd_cuda(value, TRAIN_SHAPES, loc, att, gout),
-                   plain_bwd(0, 1, 2), msda_bound("msda_bwd", b, s, nq, lv, es))
+                   plain_bwd(0, 1, 2), msda_bound("msda_bwd", b, s, nq, lv, es, d))
             if split is not None:
                 errs, vs = split["msda_bwd_offatt"]
                 record("msda_bwd_offatt", dname, errs,
@@ -552,12 +621,12 @@ def backward_kernels_phase(dev):
                 record("msda_bwd_value", dname, errs,
                        lambda: msda_bwd_value_cuda(TRAIN_SHAPES, loc, att, gout), plain_bwd(0),
                        msda_bound("msda_bwd_value", b, s, nq, lv, es), vs)
-            del out, plain_leaves
+            del value, att, gout, out, plain_leaves
             torch.cuda.empty_cache()
 
         q, k, v, go = (t.to(dev, dtype) for t in qkvo32)
         out, lse = attn_fwd_cuda(q, k, v, scale, with_lse=True)
-        delta = attn_bwd_delta_cuda(out, go)
+        dq, delta = attn_bwd_dq_cuda(q, k, v, out, go, lse, scale)
         leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
         want = torch.autograd.grad(global_attention_plain(*leaves, scale), leaves, go.float())
         plain_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -567,13 +636,14 @@ def backward_kernels_phase(dev):
             return lambda: torch.autograd.grad(plain_out, [plain_leaves[i] for i in which], go,
                                                retain_graph=True)
 
-        def kernel_bwd():  # the attention backward's three launches, as the train path runs them
-            d = attn_bwd_delta_cuda(out, go)
-            return (attn_bwd_dq_cuda(q, k, v, go, lse, d, scale),
-                    *attn_bwd_dkv_cuda(q, k, v, go, lse, d, scale))
+        def kernel_bwd():  # the attention backward's two launches, as the train path runs them
+            dq_, d = attn_bwd_dq_cuda(q, k, v, out, go, lse, scale)
+            return (dq_, *attn_bwd_dkv_cuda(q, k, v, go, lse, d, scale))
 
         # the library yardstick: scaled_dot_product_attention's whole
-        # backward (dQ, dK, dV), beside K5-dkv and K5-dq; vecdot beside delta
+        # backward (dQ, dK, dV), beside K5-dkv and K5-dq; timed by its
+        # kernels' device time, as autograd's host time between them would
+        # otherwise count (record)
         lib_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         lib_out = F.scaled_dot_product_attention(*lib_leaves, scale=scale)
 
@@ -581,23 +651,20 @@ def backward_kernels_phase(dev):
             return torch.autograd.grad(lib_out, lib_leaves, go, retain_graph=True)
 
         shape = tuple(q.shape)
-        record("attn_bwd_delta", dname,
-               _errors(("delta",), [delta], [(out.float() * go.float()).sum(-1)]),
-               lambda: attn_bwd_delta_cuda(out, go), lambda: (out.float() * go.float()).sum(-1),
-               attn_bound("attn_bwd_delta", shape, dname),
-               library=lambda: torch.linalg.vecdot(out, go))
         record("attn_bwd_dkv", dname,
                _errors(("dk", "dv"), attn_bwd_dkv_cuda(q, k, v, go, lse, delta, scale), want[1:]),
                lambda: attn_bwd_dkv_cuda(q, k, v, go, lse, delta, scale), plain_bwd(1, 2),
                attn_bound("attn_bwd_dkv", shape, dname), library=lib_bwd)
+        # dQ against autograd, and the delta it writes against the plain row
+        # sum of O * dO (f32 sums of 64 products in two orders)
         record("attn_bwd_dq", dname,
-               _errors(("dq",), [attn_bwd_dq_cuda(q, k, v, go, lse, delta, scale)], want[:1]),
-               lambda: attn_bwd_dq_cuda(q, k, v, go, lse, delta, scale), plain_bwd(0),
+               _errors(("dq", "delta"), [dq, delta], [want[0], (out.float() * go.float()).sum(-1)]),
+               lambda: attn_bwd_dq_cuda(q, k, v, out, go, lse, scale), plain_bwd(0),
                attn_bound("attn_bwd_dq", shape, dname), library=lib_bwd)
         record("attn_bwd", dname, _errors(("dq", "dk", "dv"), kernel_bwd(), want),
                kernel_bwd, plain_bwd(0, 1, 2), attn_bound("attn_bwd", shape, dname),
                library=lib_bwd)
-        del out, lse, delta, leaves, want, plain_leaves, plain_out, lib_leaves, lib_out
+        del out, lse, dq, delta, leaves, want, plain_leaves, plain_out, lib_leaves, lib_out
         torch.cuda.empty_cache()
     return results
 
@@ -1182,15 +1249,21 @@ def full_serve_phase(dev, card):
 def race_phase(dev, card):
     """``ape_tpu_torch.tools.msda_race`` as a path of its own: every
     window-MSDA form at both pyramids and offset draws, then the per-pair
-    suites, one line each. Returns the launches of the race."""
+    suites; then ``msda_bwd_race``'s backward forms, each within its bound;
+    one line each. Returns the launches of the races."""
     from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.tools import msda_bwd_race
     from ape_tpu_torch.tools.msda_race import race
 
     _build.reset_launches()
     t0 = time.perf_counter()
     recs = race(dev, card, iters=FORM_ITERS)
+    bwd = msda_bwd_race.race(dev, card, iters=FORM_ITERS)
     launches = dict(_build.LAUNCHES)
-    log(phase="race_done", records=len(recs), seconds=time.perf_counter() - t0,
+    bad = msda_bwd_race.failures(bwd)
+    if bad:
+        fail(f"backward race: {'; '.join(bad)}")
+    log(phase="race_done", records=len(recs) + len(bwd), seconds=time.perf_counter() - t0,
         launches={k: v for k, v in launches.items() if v})
     return launches
 
@@ -1267,7 +1340,6 @@ def main():
                "msda_bwd_offatt": ("msda_bwd_split.cu", f"{pallas_bwd}:283", "msda_bwd_offatt"),
                "msda_bwd_value": ("msda_bwd_split.cu", f"{pallas_bwd}:487", "msda_bwd_value"),
                "attn_fwd": ("attn_fwd.cu", "ape_tpu/modeling/backbone/eva_vit.py:136", "attention"),
-               "attn_bwd_delta": ("attn_bwd.cu", f"{flash}:273", "attn_bwd_delta"),
                "attn_bwd_dkv": ("attn_bwd.cu", f"{flash}:941", "attn_bwd_dkv"),
                "attn_bwd_dq": ("attn_bwd.cu", f"{flash}:1287", "attn_bwd_dq"),
                "msda_fwd_pair": ("msda_fwd_pair.cu", "experiments/msda_window_pallas_v1.py:318",

@@ -13,11 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from ape_tpu_torch.ops import _build, msda_dispatch
+from ape_tpu_torch.ops import _build, bounds, msda_dispatch
 from ape_tpu_torch.ops import msda_pair_probe as k10
 from ape_tpu_torch.ops.attention import (
     TILES,
     attn_bwd_cuda,
+    attn_bwd_dq_cuda,
     attn_fwd_cuda,
     attn_fwd_tiles_cuda,
     attn_tile_fits,
@@ -99,6 +100,11 @@ def _msda_grad_inputs(device, dtype, b=2, q=37, seed=2):
 # d_loc carries a factor of the level size, so 1e-4 absolute on values of
 # order 10. bf16: value and grad are rounded to 8 bits before both versions.
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# Each backward output over its own largest entry, as chip_smoke.py holds
+# them (ops/bounds.py): f32 sums in another order; bf16 rounds the gradients
+# (2^-8) and, in K5-dq, dS before dS K (tests/test_torch_attention.py
+# emulates it).
+GRAD_BOUNDS = {getattr(torch, k): v for k, v in bounds.GRAD_BOUNDS.items()}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -113,6 +119,50 @@ def test_msda_backward_kernel_matches_autograd(device, dtype):
         assert g.shape == w.shape, name
         scale = max(1.0, float(w.abs().max()))
         assert float((g.float() - w).abs().max()) < GRAD_TOL[dtype] * scale, name
+
+
+def _msda_edge_inputs(device, dtype, heads, dim, seed=8):
+    """Seeded MSDA inputs (batch 2, 37 queries, three levels) with each
+    level's points 0-3 placed on the edges: x = -1 exactly (the window
+    clip's edge, where d_loc is one-sided), y = -1, the last pixel (x = W - 1,
+    y = H - 1), and x = W - 1/2 (its right corner outside)."""
+    rng = np.random.RandomState(seed)
+    shapes = ((16, 16), (8, 8), (4, 4))
+    s = sum(h * w for h, w in shapes)
+    b, q = 2, 37
+    value = rng.randn(b, s, heads, dim).astype(np.float32)
+    loc = rng.uniform(-0.1, 1.1, (b, q, heads, 3, 4, 2)).astype(np.float32)
+    for lvl, (hl, wl) in enumerate(shapes):
+        loc[:, :, :, lvl, 0, 0] = -0.5 / wl
+        loc[:, :, :, lvl, 1, 1] = -0.5 / hl
+        loc[:, :, :, lvl, 2] = ((wl - 0.5) / wl, (hl - 0.5) / hl)
+        loc[:, :, :, lvl, 3, 0] = 1.0
+    att = rng.rand(b, q, heads, 3, 4).astype(np.float32)
+    grad = rng.randn(b, q, heads * dim).astype(np.float32)
+    return (shapes, torch.from_numpy(value).to(device, dtype), torch.from_numpy(loc).to(device),
+            torch.from_numpy(att).to(device, dtype), torch.from_numpy(grad).to(device, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,dim", [(8, 32), (3, 32), (8, 64)])
+def test_msda_backward_kernel_edges_and_partial_warps(device, dtype, heads, dim):
+    """K2 against autograd of the plain version, each output over its own
+    largest entry: on the D = 32 body (8 lanes an item, 4 items a warp) with
+    B * Q * H = 592 and, at 3 heads, 222, not a multiple of 4 (the last
+    warp's items past the end stay empty), and on the other body (D = 64);
+    every sample set of each level holds the edge cases."""
+    shapes, value, loc, att, grad = _msda_edge_inputs(device, dtype, heads, dim)
+    d_value, d_loc, d_att = msda_bwd_cuda(value, shapes, loc, att, grad)
+    assert (d_value.dtype, d_loc.dtype, d_att.dtype) == (dtype, torch.float32, dtype)
+    leaves = [value.detach().float().requires_grad_(), loc.clone().requires_grad_(),
+              att.detach().float().requires_grad_()]
+    want = torch.autograd.grad(ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2]),
+                               leaves, grad.float())
+    for name, g, w in zip(("value", "loc", "att"), (d_value, d_loc, d_att), want):
+        assert g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        rel = float((g.float() - w).abs().max()) / float(w.abs().max())
+        assert rel <= GRAD_BOUNDS[dtype], (name, rel)
 
 
 def test_msda_autograd_runs_the_kernels(device):
@@ -198,9 +248,32 @@ def test_attention_backward_kernels_match_autograd(device, dtype, n, dh):
     _build.reset_launches()
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     global_attention(*leaves, dh**-0.5).backward(go)
-    assert {k: _build.LAUNCHES[k] for k in ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkv",
-                                            "attn_bwd_dq")} == dict.fromkeys(
-        ("attn_fwd", "attn_bwd_delta", "attn_bwd_dkv", "attn_bwd_dq"), 1)
+    names = ("attn_fwd", "attn_bwd_dkv", "attn_bwd_dq")
+    assert {k: _build.LAUNCHES[k] for k in names} == dict.fromkeys(names, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,dh", ATTN_SIZES)
+def test_attention_dq_kernel_returns_delta(device, dtype, n, dh):
+    """K5-dq with the delta folded in, in one launch: dQ against autograd of
+    the plain attention, and the delta it returns against the plain row sum
+    of O * dO within f32 rounding (dh terms, each side rounding its own sum)."""
+    rng = np.random.RandomState(4)
+    q, k, v, go = (torch.from_numpy(rng.randn(2, 3, n, dh).astype(np.float32)).to(device, dtype)
+                   for _ in range(4))
+    out, lse = attn_fwd_cuda(q, k, v, dh**-0.5, with_lse=True)
+    before = _build.LAUNCHES["attn_bwd_dq"]
+    dq, delta = attn_bwd_dq_cuda(q, k, v, out, go, lse, dh**-0.5)
+    assert _build.LAUNCHES["attn_bwd_dq"] == before + 1
+    assert dq.dtype == dtype and delta.dtype == torch.float32 and delta.shape == (2, 3, n)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    (want,) = torch.autograd.grad(global_attention_plain(*leaves, dh**-0.5), leaves[:1], go.float())
+    # at N = 1 the softmax is constant and dQ exactly 0: the floor keeps the
+    # bound finite there
+    scale = max(float(want.abs().max()), 1e-2)
+    assert float((dq.float() - want).abs().max()) <= GRAD_BOUNDS[dtype] * scale
+    prod = out.float() * go.float()
+    assert bool(((delta - prod.sum(-1)).abs() <= 2 * dh * 2**-24 * prod.abs().sum(-1)).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

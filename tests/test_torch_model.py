@@ -9,6 +9,7 @@ conv). Sum over levels of min(1000, H_l * W_l) is 1344 >= 60 queries, so the
 JAX select never falls back to its index-0 pad slots.
 """
 
+import os
 import subprocess
 import sys
 import textwrap
@@ -168,8 +169,10 @@ def test_build_refuses_to_fall_back_to_the_cpu(monkeypatch):
 def test_import_closure_and_tiny_serve():
     """In a fresh interpreter that refuses jax, flax, PIL and the JAX
     package (ape_tpu, experiments), the port imports (its training modules,
-    the window-MSDA forms, the race and the two probe tools too), builds,
-    and serves a non-square image through the predictor."""
+    the window-MSDA forms, both races and the two probe tools too), builds,
+    and serves a non-square image through the predictor. The interpreter
+    runs torch on two threads, so that beside the suite's other workers it
+    does not take every core; its time limit catches a hang, not load."""
     code = textwrap.dedent("""
         import sys
         class Refuse:
@@ -178,9 +181,10 @@ def test_import_closure_and_tiny_serve():
                     raise ImportError("refused: " + name)
         sys.meta_path.insert(0, Refuse())
         import numpy as np, torch
+        torch.set_num_threads(2)
         import ape_tpu_torch
         from ape_tpu_torch.ops import msda_window_forms
-        from ape_tpu_torch.tools import backbone_fix_probe, msda_race, pair_probe
+        from ape_tpu_torch.tools import backbone_fix_probe, msda_bwd_race, msda_race, pair_probe
         from ape_tpu_torch.ops import msda_pair_probe
         from ape_tpu_torch.checkpoint import state_dict_from_jax
         from ape_tpu_torch.engine import APE, DefaultPredictor
@@ -205,7 +209,8 @@ def test_import_closure_and_tiny_serve():
         assert set(_build.LAUNCHES.values()) == {0}
         print("ok", len(out["instances"]["scores"]))
     """)
+    env = dict(os.environ, OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          timeout=120, cwd=Path(__file__).resolve().parents[1])
+                          timeout=600, env=env, cwd=Path(__file__).resolve().parents[1])
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")

@@ -30,7 +30,7 @@ from ape_tpu_torch.ops import _build
 from ape_tpu_torch.ops import attention
 from ape_tpu_torch.ops import msda_pair_probe as k10
 from ape_tpu_torch.ops.msda_window_forms import window_pair_plain
-from ape_tpu_torch.tools import backbone_fix_probe, pair_probe
+from ape_tpu_torch.tools import backbone_fix_probe, msda_bwd_race, msda_race, pair_probe
 
 # (hq, wq, hv, wv): value as fine as the queries, coarser by 2, finer by 2
 GEOMETRIES = {"same": (16, 16, 16, 16), "coarser": (16, 16, 8, 8), "finer": (8, 8, 16, 16)}
@@ -311,11 +311,41 @@ def test_backbone_fix_probe_tool_on_the_cpu():
     assert backbone_fix_probe.failures(recs) == []
 
 
+def test_msda_bwd_race_tool_on_the_cpu(capsys):
+    """The backward race's plumbing at a tiny pyramid: one record per draw
+    and form, the plain version in every form's place (errors 0, no times),
+    each form's bound, and the failures its bounds would report."""
+    recs = msda_bwd_race.race(device="cpu", pyramids={"tiny": (((8, 8), (4, 4)), 2)}, iters=2)
+    assert [(r["draw"], r["form"]) for r in recs] == [
+        (d, f) for d in msda_race.DRAWS for f in msda_bwd_race.FORMS]
+    for rec in recs:
+        assert {"pyramid", "batch", "tokens", "draw", "dtype", "form", "kernels", "launches",
+                "median_ms", "min_ms", "max_ms", "iters", "card"} <= rec.keys()
+        assert rec["tokens"] == 80 and rec["median_ms"] is None and rec["launches"] == {}
+    by_form = {f: [r for r in recs if r["form"] == f] for f in msda_bwd_race.FORMS}
+    for rec in by_form["merged"]:
+        assert rec["rel_err_vs_plain"] == dict.fromkeys(msda_bwd_race.OUTPUTS, 0.0)
+    for rec in by_form["split"]:
+        assert rec["rel_err_vs_merged"] == dict.fromkeys(msda_bwd_race.OUTPUTS, 0.0)
+        assert rec["bound_ms"] > by_form["merged"][0]["bound_ms"] > 0
+    assert "bound_ms" not in by_form["plain"][0]
+    assert msda_bwd_race.failures(recs) == []
+    wrong = dict(by_form["merged"][0], rel_err_vs_plain={"d_loc": 2e-2})
+    assert len(msda_bwd_race.failures([wrong])) == 1
+    assert len(capsys.readouterr().out.splitlines()) == len(recs)
+
+
 @pytest.mark.parametrize("tool", [pair_probe, backbone_fix_probe])
 def test_tools_need_a_card_unless_told_cpu(monkeypatch, tool):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="NVIDIA"):
         tool.probe()
+
+
+def test_msda_bwd_race_needs_a_card_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="NVIDIA"):
+        msda_bwd_race.race()
 
 
 def test_ptxas_info_reads_the_build_log(tmp_path):
@@ -353,10 +383,37 @@ SASS = """
 """
 
 
+def _ops(**nonzero):
+    return dict(dict.fromkeys(_build.SASS_OPS + ("REDG_V4",), 0), **nonzero)
+
+
 def test_parse_sass_counts_tensor_core_ops():
     counts = _build.parse_sass(SASS, "attn_fwd_kernel")
     bf16, f32 = sorted(counts, key=lambda n: "__nv_bfloat16" not in n)
-    assert counts[bf16] == {"LDG": 0, "STG": 1, "HMMA": 2, "LDSM": 2, "LDGSTS": 1}
-    assert counts[f32] == {"LDG": 1, "STG": 1, "HMMA": 0, "LDSM": 0, "LDGSTS": 0}
-    assert list(_build.parse_sass(SASS, "msda_fwd_kernel").values()) == [
-        {"LDG": 1, "STG": 0, "HMMA": 0, "LDSM": 0, "LDGSTS": 0}]
+    assert counts[bf16] == _ops(STG=1, HMMA=2, LDSM=2, LDGSTS=1)
+    assert counts[f32] == _ops(LDG=1, STG=1)
+    assert list(_build.parse_sass(SASS, "msda_fwd_kernel").values()) == [_ops(LDG=1)]
+
+
+# A cuobjdump -sass excerpt of the merged MSDA backward (H100, sm_90a): the
+# D = 32 body's vector reductions (atomicAdd on float4) and the other body's
+# scalar ones.
+SASS_RED = """
+		Function : _ZN44_GLOBAL__N__5246dc38_11_msda_bwd_cu_ffe0d3cf19msda_bwd_kernel_d32IffEEvPKT_PKfPKT0_PKlSA_S3_PfSB_SB_iiiiii
+        /*0990*/                   LDG.E.128.CONSTANT R8, desc[UR6][R12.64] ;
+        /*0a10*/                   LDG.E.64.CONSTANT R4, desc[UR6][R2.64] ;
+        /*1470*/              @P0 REDG.E.ADD.F32x4.FTZ.RN.STRONG.GPU desc[UR10][R14.64], R32 ;
+        /*1510*/                   REDG.E.ADD.F32x4.FTZ.RN.STRONG.GPU desc[UR10][R16.64], R36 ;
+        /*1600*/                   STG.E.64 desc[UR6][R6.64], R20 ;
+		Function : _ZN44_GLOBAL__N__5246dc38_11_msda_bwd_cu_ffe0d3cf15msda_bwd_kernelIffEEvPKT_PKfPKT0_PKlSA_S3_PfSB_SB_iiiiiii
+        /*1470*/                   REDG.E.ADD.F32.FTZ.RN.STRONG.GPU desc[UR10][R14.64], R33 ;
+        /*15b0*/              @P1 REDG.E.ADD.F32.FTZ.RN.STRONG.GPU desc[UR10][R4.64], R15 ;
+"""
+
+
+def test_parse_sass_counts_vector_reductions():
+    (d32,) = _build.parse_sass(SASS_RED, "msda_bwd_kernel_d32").values()
+    assert d32 == _ops(LDG=2, STG=1, REDG=2, REDG_V4=2)
+    counts = _build.parse_sass(SASS_RED, "msda_bwd_kernel")
+    assert sorted(c["REDG_V4"] for c in counts.values()) == [0, 2]
+    assert sorted(c["REDG"] for c in counts.values()) == [2, 2]

@@ -7,14 +7,36 @@ loaded under the full-model name of the place it holds in APE, so one
 converter serves every module test.
 """
 
+import os
 import re
 
 import numpy as np
+import torch
 
 import jax
 import jax.numpy as jnp
 
 from tests.parity_harness import DIMS
+
+
+
+def cap_torch_threads():
+    """Give each pytest-xdist worker its share of the cores for torch's
+    intra-op threads, and at least two. Left alone, each of N workers
+    starts one thread per core, so the port's tiny models run N-fold
+    oversubscribed and their times measure the neighbours. Not one thread:
+    the summation order of one thread moves two entries of
+    test_torch_masks.py's masked sem_seg (magnitude ~25) 1.2e-4 from JAX's,
+    past that test's 1e-4, where two to eight threads stay inside it. One
+    process keeps torch's default."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if workers > 1:
+        torch.set_num_threads(max(2, len(os.sched_getaffinity(0)) // workers))
+
+
+# every worker imports every test module while it collects, so this runs in
+# each worker before any of the port's tests
+cap_torch_threads()
 
 PROTOCOL_SCALES = (2.0, 1.0, 0.5)
 MASKED_SCALES = (4.0, 2.0, 1.0, 0.5)
