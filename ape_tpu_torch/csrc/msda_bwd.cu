@@ -152,27 +152,13 @@ msda_bwd_kernel(const VT* __restrict__ value,        // (B, S, H, D)
   }
 }
 
-// The D = 32 body (APE's every MSDA layer: 8 heads of 32 channels). 8 lanes
-// an item and 4 channels a lane, so a warp holds kItemsPerWarp = 4 items.
-constexpr int kD32 = 32;
-constexpr int kItemLanes = 8;
-// A warp's 4 items are 4 heads of one query (item = bq * H + h, 4 at a time):
-// on an H100 80GB HBM3 at 700 W that order ran 0.2-0.4 % faster than one head
-// of 4 neighbouring queries at the encoder's training shape (4.90-4.91 against
-// 4.92 ms), and tied at the decoder's.
-constexpr int kItemsPerWarp = 32 / kItemLanes;
-
-// 4 channels as f32: one 16-byte load of f32, one 8-byte load of bf16
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
-  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
-}
+// The D = 32 body (APE's every MSDA layer: 8 heads of 32 channels), on
+// msda_sample.cuh's D = 32 layout: 8 lanes an item and 4 channels a lane, so
+// a warp holds kItemsPerWarp = 4 items. A warp's 4 items are 4 heads of one
+// query (item = bq * H + h, 4 at a time): on an H100 80GB HBM3 at 700 W that
+// order ran 0.2-0.4 % faster than one head of 4 neighbouring queries at the
+// encoder's training shape (4.90-4.91 against 4.92 ms), and tied at the
+// decoder's.
 
 // d_value[p .. p + 3] += w * ag[0 .. 3]: one 16-byte vector reduction
 // (atomicAdd on float4, global memory, compute capability 9.x)

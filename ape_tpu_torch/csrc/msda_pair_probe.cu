@@ -11,6 +11,7 @@
 // bilinear and attention weight math, the four corner loads and the store:
 //
 //   base          K1's body on the pair: its f32 accumulator bit for bit
+//                 (the same explicitly rounded blend as both of K1's bodies)
 //   vec2          lanes over channel pairs (float2 / bf16x2 corner loads),
 //                 two (b, q, h) items a warp: base's arithmetic per channel
 //   bf16fma       vec2 with the four-corner blend in bf16 (__hfma2), folded
@@ -222,17 +223,17 @@ msda_pair_probe_kernel(const VT* __restrict__ value,   // (B, hl * wl, H, kD)
       const float fy = y - yf;
       const VT* r0 = vl + (static_cast<int64_t>(y0) * wl + x0) * row_stride;
       const VT* r1 = r0 + static_cast<int64_t>(wl) * row_stride;
-      if constexpr (V == kBase) {  // msda_fwd.cu's sample, one level
+      if constexpr (V == kBase) {  // msda_fwd.cu's sample, one level, rounded as it rounds
         float v = 0.f;
         if (y0 >= 0) {
-          if (x0 >= 0) v += (1.f - fx) * (1.f - fy) * to_f32(r0[0]);
-          if (x0 + 1 < wl) v += fx * (1.f - fy) * to_f32(r0[row_stride]);
+          if (x0 >= 0) v = __fmaf_rn(__fmul_rn(1.f - fx, 1.f - fy), to_f32(r0[0]), v);
+          if (x0 + 1 < wl) v = __fmaf_rn(__fmul_rn(fx, 1.f - fy), to_f32(r0[row_stride]), v);
         }
         if (y0 + 1 < hl) {
-          if (x0 >= 0) v += (1.f - fx) * fy * to_f32(r1[0]);
-          if (x0 + 1 < wl) v += fx * fy * to_f32(r1[row_stride]);
+          if (x0 >= 0) v = __fmaf_rn(__fmul_rn(1.f - fx, fy), to_f32(r1[0]), v);
+          if (x0 + 1 < wl) v = __fmaf_rn(__fmul_rn(fx, fy), to_f32(r1[row_stride]), v);
         }
-        acc += a * v;
+        acc = __fmaf_rn(a, v, acc);
       } else if constexpr (V == kNoCorners) {
         float v = 0.f;
         if (y0 >= 0) {

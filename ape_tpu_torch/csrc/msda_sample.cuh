@@ -2,7 +2,8 @@
 // and the boundary test (live) are shared by the merged backward
 // (msda_bwd.cu) and the split one (msda_bwd_split.cu), so that the two forms
 // pick the same corners and boundary cases, and by the pair probe
-// (msda_pair_probe.cu), whose base variant K1 checks them against. The split kernels take the rest
+// (msda_pair_probe.cu), whose base variant K1 checks them against; the
+// rounding also by K1 (msda_fwd.cu), which shares the D = 32 layout with K2. The split kernels take the rest
 // (corners, weights, dot products, scatter) from Sample and its helpers; the
 // merged kernel writes the same expressions out, as its registers need.
 //
@@ -71,6 +72,25 @@ __device__ __forceinline__ float pixel(float l, int size) {
 // and JAX's VJP have it.
 __device__ __forceinline__ bool live(float x, float y, int hl, int wl) {
   return x >= -1.f && y >= -1.f && x < wl && y < hl;
+}
+
+// The D = 32 layout of K1's and K2's bodies for APE's head width: 8 lanes an
+// item (b, q, h) and 4 channels a lane, so a warp holds kItemsPerWarp = 4
+// items, and each corner row is read as one vector load a lane.
+constexpr int kD32 = 32;
+constexpr int kItemLanes = 8;
+constexpr int kItemsPerWarp = 32 / kItemLanes;
+
+// 4 channels as f32: one 16-byte load of f32, one 8-byte load of bf16
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
 }
 
 struct Sample {

@@ -19,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -31,7 +32,7 @@ NVCC_FLAGS = (
 )
 LIB_NAME = "libape_tpu_torch_kernels.so"
 
-LAUNCHES = {"msda_fwd": 0, "msda_bwd": 0, "msda_bwd_offatt": 0, "msda_bwd_value": 0,
+LAUNCHES = {"msda_fwd": 0, "msda_fwd_window": 0, "msda_bwd": 0, "msda_bwd_offatt": 0, "msda_bwd_value": 0,
             "attn_fwd": 0, "attn_bwd_dkv": 0, "attn_bwd_dq": 0,
             "msda_fwd_pair": 0, "msda_fwd_rows": 0, "msda_fwd_qlevel": 0, "msda_fwd_dense": 0,
             "msda_pair_probe": 0, "attn_fwd_tiles": 0}
@@ -100,8 +101,14 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ape_msda_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.ape_msda_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     lib.ape_msda_fwd.restype = i
+    # K1's window entry: value, offsets, att, shapes, starts, centers, sizes,
+    # radius, first_query, out, B, S, Q, H, D, L, P, value_bf16, att_f32,
+    # body, stream
+    lib.ape_msda_fwd_window.argtypes = [p, p, p, p, p, p, p, f, i, p, i, i, i, i, i, i, i, i, i,
+                                        i, p]
+    lib.ape_msda_fwd_window.restype = i
     lib.ape_msda_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.ape_msda_bwd.restype = i
     lib.ape_msda_bwd_offatt.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
@@ -155,27 +162,44 @@ def ptxas_info(log: Path | None = None) -> dict:
 # asynchronous global-to-shared copies (LDGSTS: cp.async) and global
 # reductions (REDG: an atomicAdd whose result is unused); REDG_V4 counts the
 # REDGs of four f32 lanes in one 16-byte access (REDG.E.ADD.F32x4: atomicAdd
-# on float4, compute capability 9.x).
+# on float4, compute capability 9.x). LDG_<bits> counts the global loads by
+# width: LDG.E.U16 16 bits, LDG.E 32, LDG.E.64 64, LDG.E.128 128.
 SASS_OPS = ("LDG", "STG", "HMMA", "LDSM", "LDGSTS", "REDG")
+LDG_WIDTHS = ("LDG_8", "LDG_16", "LDG_32", "LDG_64", "LDG_128")
+_LDG = re.compile(r"\bLDG((?:\.[A-Z0-9_]+)*)\s")
+
+
+def ldg_width(modifiers: str) -> int:
+    """Bits of a global load, from its opcode's modifiers (".E.64", ...)."""
+    mods = set(modifiers.split("."))
+    for bits in (128, 64):
+        if str(bits) in mods:
+            return bits
+    if mods & {"U16", "S16"}:
+        return 16
+    return 8 if mods & {"U8", "S8"} else 32
 
 
 def parse_sass(sass: str, pattern: str) -> dict:
     """Per function of a ``cuobjdump -sass`` listing whose mangled name holds
-    ``pattern``: {name: {op: static count}} for the ops of ``SASS_OPS`` and
-    REDG_V4."""
+    ``pattern``: {name: {op: static count}} for the ops of ``SASS_OPS``,
+    REDG_V4 and the load widths of ``LDG_WIDTHS``."""
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             name = name if pattern in name else None
             if name:
-                counts[name] = dict.fromkeys(SASS_OPS + ("REDG_V4",), 0)
+                counts[name] = dict.fromkeys(SASS_OPS + ("REDG_V4",) + LDG_WIDTHS, 0)
         elif name:
             for op in SASS_OPS:
                 if f" {op}." in line or f" {op} " in line:
                     counts[name][op] += 1
             if " REDG." in line and "x4." in line:
                 counts[name]["REDG_V4"] += 1
+            m = _LDG.search(line)
+            if m:
+                counts[name][f"LDG_{ldg_width(m.group(1))}"] += 1
     return counts
 
 

@@ -7,8 +7,17 @@ one exact bilinear gather, ``csrc/msda_fwd.cu``:
 
   * window mode takes offsets in value-level pixels around each query's grid
     center (queries are the pyramid grid itself) and clips them to
-    ``[-radius, radius]`` before the gather, as ``_exact_equiv`` does;
+    ``[-radius, radius]`` before the gather, as ``_exact_equiv`` does. With
+    no gradient to carry (serving, ``torch.inference_mode``), K1's window
+    entry (``msda_fwd_window_cuda``) clips inside the kernel, as the TPU
+    kernel does; under autograd the clip stays in torch
+    (``window_locations``) and K1 takes the locations (``window_route``);
   * exact mode takes normalized sampling locations as they are.
+
+K1 has two bodies at head width 32, which every MSDA layer of APE has: the
+D = 32 body (8 lanes an item), which launches take there, and the general
+one (a warp an item, every head width), equal bit for bit; ``body`` selects
+either, so that the card can compare them.
 
 Locations stay f32 in both modes. (The JAX exact path rounds them to the
 value dtype first, ``loc.astype(value.dtype)``; at bf16 that moves a tap by up
@@ -62,6 +71,31 @@ BWD_MERGED = os.environ.get("APE_MSDA_BWD_MERGED", "1") != "0"
 # heads, APE_MSDA_V6 (K9 + K1) selects another form.
 FUSED = os.environ.get("APE_MSDA_FUSED", "0") != "0"
 V6 = os.environ.get("APE_MSDA_V6", "0") != "0"
+
+
+# K1's two bodies (csrc/msda_fwd.cu), by the entries' ``body`` argument.
+BODIES = {"general": 0, "d32": 1}
+
+
+def fwd_body(head_dim: int) -> str:
+    """K1's body for a launch: "d32" at head width 32, else "general". No
+    launch of few items needs the general body: on an H100 80GB HBM3 at 700 W
+    the D = 32 body took less device time at every item count measured, from
+    400 items (0.0095 against 0.019 ms) through the decoder's 4,800 and 7,200
+    (0.012-0.013 against 0.026-0.035) to the encoder's 174,592 and more
+    (3.0-3.6x less); ``chip_smoke.py``'s kernels phase times both (PERF.md)."""
+    return "d32" if head_dim == 32 else "general"
+
+
+def window_route(form: str, device_type: str, needs_grad: bool) -> str:
+    """How the encoder's window op runs: "window", K1's window entry with the
+    clip inside, for the "gather" form on a card when no gradient is needed;
+    else "locations", ``window_locations`` in torch (whose autograd carries
+    the clip's chain rule), then K1, another form, or on the CPU the plain
+    version."""
+    if form == "gather" and device_type == "cuda" and not needs_grad:
+        return "window"
+    return "locations"
 
 
 def window_form(heads: int) -> str:
@@ -168,24 +202,77 @@ def _check_grad(name, grad_out, value_dtype, b, q, h, d, device):
         raise ValueError(f"{name} takes a contiguous grad on the value's device")
 
 
+def _fwd_out(name, sizes, value, loc, body):
+    """K1's output buffer and body code (``BODIES``) for a launch: ``body``
+    None picks by ``fwd_body``. At head width 32 the D = 32 body reads 4
+    channels a lane in one load, so value, loc and out must start 16-byte
+    aligned."""
+    b, _, q, h, d, _, _ = sizes
+    body = fwd_body(d) if body is None else body
+    if body not in BODIES or (body == "d32" and d != 32):
+        raise ValueError(f"{name}: no body {body!r} at head width {d}")
+    out = torch.empty(b, q, h * d, dtype=value.dtype, device=value.device)
+    if d == 32 and any(t.data_ptr() % 16 for t in (value, loc, out)):
+        raise ValueError(f"{name} at head width 32 takes value, locations and out at "
+                         "16-byte aligned addresses")
+    return out, BODIES[body]
+
+
 def msda_fwd_cuda(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
     loc: torch.Tensor,
     att: torch.Tensor,
+    body: str | None = None,
 ) -> torch.Tensor:
-    """Launch ``csrc/msda_fwd.cu``. Shapes and layouts as ``ops.msda.ms_deform_attn``."""
+    """Launch ``csrc/msda_fwd.cu``. Shapes and layouts as ``ops.msda.ms_deform_attn``;
+    ``body`` ("d32" or "general") overrides ``fwd_body``."""
     sizes, (shapes_t, starts_t) = _check_inputs("msda_fwd", value, spatial_shapes, loc, att)
-    b, _, q, h, d, _, _ = sizes
-    out = torch.empty(b, q, h * d, dtype=value.dtype, device=value.device)
+    out, code = _fwd_out("msda_fwd", sizes, value, loc, body)
     err = _build.library().ape_msda_fwd(
         value.data_ptr(), loc.data_ptr(), att.data_ptr(), shapes_t.data_ptr(),
         starts_t.data_ptr(), out.data_ptr(), *sizes,
-        int(value.dtype == torch.bfloat16), int(att.dtype == torch.float32),
+        int(value.dtype == torch.bfloat16), int(att.dtype == torch.float32), code,
         torch.cuda.current_stream(value.device).cuda_stream,
     )
     _build.check(err, "msda_fwd")
     _build.LAUNCHES["msda_fwd"] += 1
+    return out
+
+
+def msda_fwd_window_cuda(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    pixel_offsets: torch.Tensor,
+    att: torch.Tensor,
+    radius: float,
+    first_query: int = 0,
+    body: str | None = None,
+) -> torch.Tensor:
+    """Launch K1's window entry (``csrc/msda_fwd.cu``): the window op of the
+    Q queries of the pyramid grid from ``first_query`` on, with the clip
+    inside the kernel; equal bit for bit to ``msda_fwd_cuda`` on
+    ``window_locations(spatial_shapes, pixel_offsets, radius, first_query)``.
+    pixel_offsets (B, Q, H, L, P, 2) f32; the rest as ``msda_fwd_cuda``."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    sizes, (shapes_t, starts_t) = _check_inputs("msda_fwd_window", value, spatial_shapes,
+                                                pixel_offsets, att)
+    _, s, q = sizes[:3]
+    if not 0 <= first_query <= s - q:
+        raise ValueError(f"msda_fwd_window: queries {first_query} .. {first_query + q - 1} "
+                         f"outside the grid's {s}")
+    out, code = _fwd_out("msda_fwd_window", sizes, value, pixel_offsets, body)
+    centers = grid_centers(spatial_shapes, value.device)
+    norm = level_sizes(spatial_shapes, value.device)
+    err = _build.library().ape_msda_fwd_window(
+        value.data_ptr(), pixel_offsets.data_ptr(), att.data_ptr(), shapes_t.data_ptr(),
+        starts_t.data_ptr(), centers.data_ptr(), norm.data_ptr(), float(radius), first_query,
+        out.data_ptr(), *sizes,
+        int(value.dtype == torch.bfloat16), int(att.dtype == torch.float32), code,
+        torch.cuda.current_stream(value.device).cuda_stream,
+    )
+    _build.check(err, "msda_fwd_window")
+    _build.LAUNCHES["msda_fwd_window"] += 1
     return out
 
 
@@ -337,8 +424,13 @@ def ms_deform_attn_window(
     query's center, valid-ratio shift included. Returns (B, Q, H * D).
     """
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    loc = window_locations(spatial_shapes, pixel_offsets, radius)
     form = window_form(value.shape[2]) if value.is_cuda else "gather"
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (value, pixel_offsets, attention_weights))
+    if window_route(form, value.device.type, needs_grad) == "window":
+        return msda_fwd_window_cuda(value, spatial_shapes, pixel_offsets.float().contiguous(),
+                                    attention_weights.contiguous(), radius)
+    loc = window_locations(spatial_shapes, pixel_offsets, radius)
     off = None if form == "gather" else pixel_offsets.detach().float().contiguous()
     return _route(value, spatial_shapes, loc.contiguous(), attention_weights.contiguous(),
                   window=(form, off, radius))

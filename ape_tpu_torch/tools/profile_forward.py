@@ -1,0 +1,148 @@
+"""Profile APE-Ti's bf16 forward on one CUDA card, from the root of a
+checkout: the protocol forward (``chip_smoke.py``'s slice phase: 1024^2,
+batch 1, 900 queries, 80 texts, the 3-scale pyramid, no masks) and the full
+serve forward (``build_ape_ti()``'s defaults: the masked model on the 4-scale
+pyramid), each with N(0, 0.02) weights and the ring-init offsets re-armed.
+
+    python3 -m ape_tpu_torch.tools.profile_forward [--models protocol full_serve]
+                                                   [--iters 10]
+
+The counterpart of ``profile_train.py`` for the forward, and of the JAX
+repository's ``experiments/attrib.py``. For each model, after two warm-up
+forwards, one JSON line each:
+
+* ``forward_stages``: ``--iters`` forwards under ``torch.no_grad``, each
+  timed by CUDA events at module hooks (device clock: a span includes the
+  device's idle time while the host runs ahead or behind): backbone, neck,
+  ``pre_encoder`` (level masks, position embeddings, flattening), encoder,
+  select (the proposals and the DETA first-stage select, NMS included, up to
+  the decoder), decoder, heads (the class heads), and for the masked model
+  the mask head (pixel decoder and mask product); the host wall time of each
+  forward; the median and spread of each;
+* ``forward_profile``: one more forward under ``torch.profiler``: its wall
+  time, device busy time (the union of kernel intervals) and share of the
+  wall, kernel count, launch calls, the top kernels by summed device time,
+  and the port's own kernels' launches and device time (``[count, ms]``).
+
+Then the card's nvidia-smi line. The encoder's window MSDA forward runs on
+K1's window entry (``msda_dispatch.ms_deform_attn_window``); its other forms
+under ``APE_MSDA_FUSED=1`` or ``APE_MSDA_V6=1``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+
+import torch
+
+import chip_smoke as cs
+from ape_tpu_torch.modeling.build import build_ape_ti
+from ape_tpu_torch.tools.profile_train import profile_call
+
+MODELS = ("protocol", "full_serve")
+
+
+def build(name: str, dev):
+    """The model of a cell, bf16, eval, with chip_smoke's weights."""
+    if name == "protocol":
+        model = build_ape_ti(num_queries=cs.QUERIES, mask_on=False, window_radius=cs.RADIUS,
+                             scale_factors=(2.0, 1.0, 0.5), dtype=torch.bfloat16, device=dev)
+    else:
+        model = build_ape_ti(num_queries=cs.QUERIES, window_radius=cs.RADIUS,
+                             dtype=torch.bfloat16, device=dev)
+    return cs.init_weights(model, cs.SEED).eval()
+
+
+def _event():
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def stage_hooks(model, marks: dict):
+    """Hooks that record a CUDA event at the start ("<span>0") and end
+    ("<span>1") of each module span; returns their handles."""
+    tr = model.transformer
+    spans = {"backbone": (model.backbone, model.backbone), "neck": (model.neck, model.neck),
+             "encoder": (tr.encoder, tr.encoder), "decoder": (tr.decoder, tr.decoder)}
+    if model.mask_on:
+        spans["pixel_decoder"] = (model.lateral_conv, model.mask_conv)
+    hooks = [m.register_forward_pre_hook(lambda *_, n=n: marks.__setitem__(n + "0", _event()))
+             for n, (m, _) in spans.items()]
+    hooks += [m.register_forward_hook(lambda *_, n=n: marks.__setitem__(n + "1", _event()))
+              for n, (_, m) in spans.items()]
+    return hooks
+
+
+def stages(marks: dict, mask_on: bool) -> dict:
+    """Stage times in ms from one forward's events: the module spans and the
+    gaps between them, which hold the rest of the forward."""
+    def ms(a, b):
+        return marks[a].elapsed_time(marks[b])
+
+    out = {"backbone": ms("backbone0", "backbone1"), "neck": ms("neck0", "neck1"),
+           "pre_encoder": ms("neck1", "encoder0"), "encoder": ms("encoder0", "encoder1"),
+           "select": ms("encoder1", "decoder0"), "decoder": ms("decoder0", "decoder1")}
+    if mask_on:
+        out["heads"] = ms("decoder1", "pixel_decoder0")
+        out["mask_head"] = ms("pixel_decoder0", "end")
+    else:
+        out["heads"] = ms("decoder1", "end")
+    out["forward"] = ms("start", "end")
+    return out
+
+
+def summary(values) -> dict:
+    return {"median": statistics.median(values), "min": min(values), "max": max(values)}
+
+
+def profile_model(name: str, dev, iters: int, card: str):
+    model = build(name, dev)
+    inputs = tuple(t.to(dev) for t in cs._inputs())
+    with torch.no_grad():
+        for _ in range(2):
+            model(*inputs)
+        torch.cuda.synchronize()
+        runs, walls = [], []
+        for _ in range(iters):
+            marks = {}
+            hooks = stage_hooks(model, marks)
+            t0 = time.perf_counter()
+            marks["start"] = _event()
+            model(*inputs)
+            marks["end"] = _event()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            for h in hooks:
+                h.remove()
+            runs.append(stages(marks, model.mask_on))
+        split = {k: summary([r[k] for r in runs]) for k in runs[0]}
+        print(json.dumps({"forward_stages": {"model": name, "iters": iters, "ms": split,
+                                             "wall_ms": summary(walls), "card": card}}),
+              flush=True)
+        prof, ours = profile_call(lambda: model(*inputs), top_n=30)
+    print(json.dumps({"forward_profile": {"model": name, **prof, "port_kernels": ours,
+                                          "card": card}}), flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--models", nargs="+", choices=MODELS, default=list(MODELS))
+    parser.add_argument("--iters", type=int, default=10, help="forwards timed by events")
+    args = parser.parse_args()
+    _, card = cs.device_phase()
+    dev = torch.device("cuda", 0)
+    for name in args.models:
+        profile_model(name, dev, args.iters, card)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -19,7 +19,8 @@ Prints three JSON lines and the card's nvidia-smi line:
 * ``profile``: one step under ``torch.profiler``: device busy time (the
   union of kernel intervals) against the step's wall time, kernel and launch
   counts, and the top kernels by summed device time;
-* ``kernels``: the port's own kernels' summed device time in that step.
+* ``kernels``: the port's own kernels' launches and summed device time in
+  that step, [count, ms] by name.
 """
 
 from __future__ import annotations
@@ -82,12 +83,16 @@ def stage_split(model, crit, opt, sched, batch, gen, steps: int = 3):
     return splits
 
 
-def profile_step(step, batch, gen):
+def profile_call(fn, top_n: int = 25):
+    """fn() once under torch.profiler: (its wall time, device busy time (the
+    union of kernel intervals) and share of the wall, kernel and launch
+    counts, the top_n kernels by summed device time; the port's own
+    kernels' summed device time by PORT_KERNELS)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch, gen)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
@@ -110,8 +115,9 @@ def profile_step(step, batch, gen):
         d[1] += e.time_range.elapsed_us() / 1e3
     launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
                    for e in events)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:25]
-    ours = {k: sum(ms for n, (_, ms) in by_name.items() if k in n) for k in PORT_KERNELS}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top_n]
+    ours = {k: [sum(c for n, (c, _) in by_name.items() if k in n),
+                sum(ms for n, (_, ms) in by_name.items() if k in n)] for k in PORT_KERNELS}
     return (dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                  busy_share_of_wall=busy_us / 1e3 / wall_ms, kernels=len(kern),
                  launch_calls=launches, top=[[n, c, ms] for n, (c, ms) in top]), ours)
@@ -137,7 +143,7 @@ def main():
     print(json.dumps({"form": {"masked": args.masked, "split": not msda_dispatch.BWD_MERGED,
                                "window_forward": msda_dispatch.window_form(8)}}), flush=True)
     print(json.dumps({"stage_split": stage_split(model, crit, opt, sched, batch, gen)}), flush=True)
-    prof, ours = profile_step(step, batch, gen)
+    prof, ours = profile_call(lambda: step(batch, gen))
     print(json.dumps({"profile": prof}), flush=True)
     print(json.dumps({"kernels": ours}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

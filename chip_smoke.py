@@ -13,15 +13,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    kernels holds tensor-core products (HMMA), no f32 one does, and none
    spills at head width 64; every instance of the merged MSDA backward's
    D = 32 body holds 16-byte vector reductions into d_value, no scalar one,
-   and spills nothing; its general body's instances are recorded beside;
+   and spills nothing; every instance of K1's D = 32 body reads its corners
+   by 64-bit (bf16) or 128-bit (f32) loads, no 16-bit one, and spills
+   nothing; the general bodies' instances are recorded beside;
 3. kernels: each forward CUDA kernel against its plain PyTorch version at
    every shape set the main paths give it (the protocol pyramid at batch 1;
    the 4-scale pyramid at batch 1 with 900 decoder queries and at batch 2
    with 300), in f32 (TF32 off) and bf16, with times, and attention's beside
-   ``F.scaled_dot_product_attention``; then the encoder's other window
-   forms, K6 (all pairs), K7 (+ K6), K8 and K9 (+ K1), each against the
-   plain version and against K1 at the protocol pyramid (batch 1) and the
-   4-scale one (batch 2);
+   ``F.scaled_dot_product_attention``; K1's D = 32 body against its general
+   body bit for bit, and its window entry (the clip inside) against K1 on
+   ``window_locations`` bit for bit, each timed, the window entry also
+   against the ``window_locations`` + K1 it replaces; then the encoder's
+   other window forms, K6 (all pairs), K7 (+ K6), K8 and K9 (+ K1), each
+   against the plain version and against K1 at the protocol pyramid (batch
+   1) and the 4-scale one (batch 2);
 4. backward kernels: each backward kernel against torch autograd of its
    plain version at the training shapes, in f32 and bf16, with times (the
    attention backward beside that of ``F.scaled_dot_product_attention``,
@@ -79,7 +84,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 Then the kernels line (each kernel's launches over every path: ``launches``
 over all of them, ``launches_main`` over the serving and training phases
-alone, 5-11; error, time, plain and library time, and bound) and, last,
+alone, 5-11, ``launches_default`` over those of them that run the default
+flags: slice, serve, train, full serve and full train with the merged
+backward; error, time, plain and library time, and bound) and, last,
 {"ok": true, "device": {...}}. The script needs the repository around it and
 a CUDA card; it imports no JAX.
 """
@@ -119,8 +126,10 @@ STEP_LAUNCHES = {"msda_fwd": 24, "msda_bwd": 12, "attn_fwd": 4, "attn_bwd_dkv": 
 # With the split form the encoder's 6 MSDA backwards run K3 + K4 and the
 # decoder's 6 stay on K2. The mask head launches no MSDA or attention kernel.
 SPLIT_STEP_LAUNCHES = dict(STEP_LAUNCHES, msda_bwd=6, msda_bwd_offatt=6, msda_bwd_value=6)
-# Per forward of either model: 6 + 6 MSDA layers, 4 global attention blocks.
-FORWARD_LAUNCHES = {"msda_fwd": 12, "attn_fwd": 4}
+# Per forward of either model: 4 global attention blocks, 6 + 6 MSDA
+# layers: the encoder's on K1's window entry (no gradient: the clip runs in
+# the kernel), the decoder's on K1.
+FORWARD_LAUNCHES = {"msda_fwd": 6, "msda_fwd_window": 6, "attn_fwd": 4}
 ENCODER_LAYERS = 6
 # The encoder's other forward forms, by the flag of msda_dispatch that
 # selects them: K8 under FUSED, K9 (+ K1 on the narrow query levels) under V6.
@@ -134,7 +143,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # f32 flops per (sample, channel): forward 4 corner FMAs and the weight's;
 # K2 adds the three dot products (d_att, d_x, d_y) and the 4 scatters.
-MSDA_SAMPLE_FLOPS = {"msda_fwd": 10, "msda_bwd": 26, "msda_bwd_offatt": 22, "msda_bwd_value": 4}
+MSDA_SAMPLE_FLOPS = {"msda_fwd": 10, "msda_fwd_window": 10, "msda_bwd": 26,
+                     "msda_bwd_offatt": 22, "msda_bwd_value": 4}
 MASK_SIDE = IMG // 4  # mask features and GT masks of the full model at 1024^2
 F32_TRAIN_IMG = 512
 # f32 train step, CUDA kernels vs plain on the CPU: per parameter, max |diff|
@@ -211,10 +221,15 @@ def bound(nbytes: float, flops: float, peak: float):
 def msda_bound(kernel: str, b: int, s: int, q: int, l: int, esize: int, d: int = HEAD_DIM):
     """Bound of an MSDA kernel with HEADS x d channels, S value tokens, Q
     queries, L levels: each input read once and each output written once
-    (locations and d_loc f32, the rest in the value's dtype)."""
+    (locations, offsets and d_loc f32, the rest in the value's dtype; K1's
+    window entry also reads Q grid centers, (x, y) in f32, and 2 flops an
+    offset's coordinate, the divide and the add)."""
     value, rows = b * s * HEADS * d * esize, b * q * HEADS * d * esize
     samples = b * q * HEADS * l * POINTS
     loc, att = samples * 8, samples * esize
+    if kernel == "msda_fwd_window":
+        nbytes = value + loc + att + rows + q * 8
+        return bound(nbytes, samples * (d * MSDA_SAMPLE_FLOPS[kernel] + 4), PEAK_FLOPS["float32"])
     nbytes = {"msda_fwd": value + loc + att + rows,
               "msda_bwd": 2 * (value + loc + att) + rows,
               "msda_bwd_offatt": value + 2 * (loc + att) + rows,
@@ -236,10 +251,14 @@ def attn_bound(kernel: str, shape, dname: str):
 
 def with_form(base: dict, form: str, shapes, esize: int, passes: int = 1) -> dict:
     """``base`` launches with the encoder's K1 forwards (ENCODER_LAYERS per
-    pass) taken by a form's launches (ops/msda_window_forms.plan_layer)."""
+    pass: on K1's window entry where ``base`` counts one, else on K1) taken
+    by a form's launches (ops/msda_window_forms.plan_layer)."""
     from ape_tpu_torch.ops.msda_window_forms import launches_per_layer, plan_layer
 
-    out = dict(base, msda_fwd=base["msda_fwd"] - passes * ENCODER_LAYERS)
+    key = "msda_fwd_window" if "msda_fwd_window" in base else "msda_fwd"
+    out = dict(base, **{key: base[key] - passes * ENCODER_LAYERS})
+    if not out[key]:
+        del out[key]
     for k, v in launches_per_layer(plan_layer(form, shapes, HEAD_DIM, esize, RADIUS)).items():
         out[k] = out.get(k, 0) + passes * ENCODER_LAYERS * v
     return out
@@ -270,6 +289,7 @@ def build_phase():
     log(phase="build", seconds=time.perf_counter() - t0, library=str(lib.relative_to(ROOT)))
     tensor_core_check()
     vector_reduction_check()
+    vector_gather_check()
 
 
 # Kernels whose bf16 instances run on the tensor cores (mma.sync, HMMA in their
@@ -347,6 +367,70 @@ def vector_reduction_check():
              f"{'; '.join(bad)}")
 
 
+# K1's D = 32 body (every main path's MSDA forward): each corner read is one
+# 64-bit load of 4 bf16 channels or one 128-bit load of 4 f32 ones.
+VECTOR_GATHER_KERNEL = "msda_fwd_kernel_d32"
+GENERAL_K1_KERNEL = "msda_fwd_kernelI"  # the general body, every head width
+# instances of each: (value, attention weights) bf16/bf16, bf16/f32, f32/f32,
+# each for the location entry and the window entry
+VECTOR_GATHER_INSTANCES = 6
+
+
+def _gather_instance(name: str):
+    """(value dtype, attention-weight dtype, window entry) of an instance of
+    K1's D = 32 body, from its mangled template arguments."""
+    import re
+
+    m = re.search(rf"{VECTOR_GATHER_KERNEL}I(.+?)Lb([01])E", name)
+    if m is None:
+        fail(f"unexpected instance {name}")
+    args = m.group(1)
+    value = "bfloat16" if args.startswith("13__nv_bfloat16") else "float32"
+    return value, "float32" if args.endswith("f") else value, m.group(2) == "1"
+
+
+def gather_faults(name: str, ops: dict, info: dict):
+    """One instance of VECTOR_GATHER_KERNEL: (its record, its faults): fewer
+    than four corner loads of the value dtype's 4-channel width (64 bits in
+    bf16, 128 in f32; the location loads are 64-bit too), a 16-bit load
+    besides a bf16 attention weight's one, a spill."""
+    value, att, window = _gather_instance(name)
+    width = 64 if value == "bfloat16" else 128
+    rec = dict(phase="sass", kernel=VECTOR_GATHER_KERNEL, value=value, att=att, window=window,
+               corner_load_bits=width, name=name, **ops, **info)
+    bad = []
+    if ops[f"LDG_{width}"] < 4:
+        bad.append(f"{name}: {ops[f'LDG_{width}']} {width}-bit loads, fewer than 4 corners")
+    if ops["LDG_16"] > (att == "bfloat16"):
+        bad.append(f"{name}: {ops['LDG_16']} 16-bit loads")
+    if info.get("spill_stores", 0) or info.get("spill_loads", 0):
+        bad.append(f"{name}: spills {info.get('spill_stores')} / {info.get('spill_loads')} bytes")
+    return rec, bad
+
+
+def vector_gather_check():
+    """Every instance of VECTOR_GATHER_KERNEL held to ``gather_faults``, one
+    record an instance (its static SASS counts and what ptxas reported), the
+    general body's instances recorded beside."""
+    from ape_tpu_torch.ops import _build
+
+    info = _build.ptxas_info()
+    counts = _build.sass_counts(VECTOR_GATHER_KERNEL)
+    general = _build.sass_counts(GENERAL_K1_KERNEL)
+    bad = []
+    for name, ops in sorted(counts.items()):
+        rec, faults = gather_faults(name, ops, info.get(name, {}))
+        log(**rec)
+        bad += faults
+    for name, ops in sorted(general.items()):
+        log(phase="sass", kernel="msda_fwd_kernel", name=name, **ops, **info.get(name, {}))
+    if (len(counts) != VECTOR_GATHER_INSTANCES or len(general) != VECTOR_GATHER_INSTANCES
+            or bad):
+        fail(f"vector-gather check: {len(counts)} instances of {VECTOR_GATHER_KERNEL} and "
+             f"{len(general)} of msda_fwd_kernel, expected {VECTOR_GATHER_INSTANCES} each; "
+             f"{'; '.join(bad)}")
+
+
 def _ring(levels: int):
     import torch
 
@@ -358,26 +442,27 @@ def _ring(levels: int):
 def _msda_inputs(g, shapes, batch: int, queries: int, dev):
     """Seeded MSDA inputs on a pyramid: (value (B, S, H, D) f32 on the CPU,
     {mode: f32 locations on dev}, {mode: attention weights (B, Q, H, L, P)
-    f32 on the CPU}) for the encoder's window mode (queries are the pyramid
-    grid; ring-init offsets, radius p + 1 px, plus learned-scale noise,
-    clipped to R) and the decoder's exact mode (``queries`` box references,
-    loc = ref + off / P * wh * 0.5)."""
+    f32 on the CPU}, the encoder's pixel offsets on dev) for the encoder's
+    window mode (queries are the pyramid grid; ring-init offsets, radius
+    p + 1 px, plus learned-scale noise, clipped to R) and the decoder's exact
+    mode (``queries`` box references, loc = ref + off / P * wh * 0.5)."""
     import torch
 
     from ape_tpu_torch.ops.msda_dispatch import window_locations
 
     s, lv = sum(h * w for h, w in shapes), len(shapes)
     value = torch.randn(batch, s, HEADS, HEAD_DIM, generator=g)
-    off = _ring(lv)[None, None] + 1.5 * torch.randn(batch, s, HEADS, lv, POINTS, 2, generator=g)
+    off = (_ring(lv)[None, None] + 1.5 * torch.randn(batch, s, HEADS, lv, POINTS, 2, generator=g)
+           ).to(dev)
     refs = torch.cat([0.1 + 0.8 * torch.rand(batch, queries, 1, 2, generator=g),
                       0.02 + 0.3 * torch.rand(batch, queries, 1, 2, generator=g)], -1)
     doff = _ring(lv)[None, None] + torch.randn(batch, queries, HEADS, lv, POINTS, 2, generator=g)
-    locs = {"encoder": window_locations(shapes, off.to(dev), RADIUS).contiguous(),
+    locs = {"encoder": window_locations(shapes, off, RADIUS).contiguous(),
             "decoder": (refs[:, :, None, :, None, :2] + doff / POINTS
                         * refs[:, :, None, :, None, 2:] * 0.5).to(dev).contiguous()}
     atts = {m: torch.softmax(torch.randn(batch, l.shape[1], HEADS, lv * POINTS, generator=g), -1)
             .view(batch, l.shape[1], HEADS, lv, POINTS) for m, l in locs.items()}
-    return value, locs, atts
+    return value, locs, atts, off
 
 
 # The forward kernels' cases, one per shape set a main path gives them:
@@ -390,35 +475,131 @@ FWD_CASES = (("", SHAPES, 1, QUERIES, True),
              ("_train", TRAIN_SHAPES, TRAIN_BATCH, TRAIN_QUERIES, True))
 
 
+def k1_bodies(value, shapes, loc, att, name: str, dname: str) -> dict:
+    """K1's two bodies on the same inputs: the D = 32 body against the
+    general one bit for bit, each timed; the record's fields."""
+    import torch
+
+    from ape_tpu_torch.ops.msda_dispatch import BODIES, fwd_body, msda_fwd_cuda
+
+    outs = {b: msda_fwd_cuda(value, shapes, loc, att, body=b) for b in BODIES}
+    if not torch.equal(outs["d32"], outs["general"]):
+        err = float((outs["d32"].float() - outs["general"].float()).abs().max())
+        fail(f"{name} {dname}: K1's D = 32 body differs from its general body by {err}")
+    b, q, h = loc.shape[:3]
+    rec = dict(body=fwd_body(value.shape[-1]), items=b * q * h, d32_equals_general=True)
+    for body in BODIES:  # by events, and by device time (a short launch follows the host)
+        def fn(body=body):
+            return msda_fwd_cuda(value, shapes, loc, att, body=body)
+
+        rec.update({f"{body}_ms": cuda_ms(fn), f"{body}_device_ms": kernel_ms(fn)})
+    return rec
+
+
+# Item counts (B * Q * H) at which the kernels phase times K1's two bodies on
+# the decoder's 4-scale batch-2 inputs, the decoder's own among them: the
+# D = 32 body takes every launch at head width 32 (ops/msda_dispatch.fwd_body)
+# while it is the faster at each, which the record's d32_slower_at lists.
+BODY_SWEEP_ITEMS = (400, 800, 1600, 3200, 4800, 7200, 9600, 14400, 19200, 38400)
+
+
+def k1_body_sweep(dev):
+    """K1's two bodies timed by their device time (``kernel_ms``: at these
+    sizes a launch takes about as long as the host's call) at
+    BODY_SWEEP_ITEMS items in bf16, the first queries of the decoder's
+    inputs (4-scale pyramid, batch 2); one record."""
+    import torch
+
+    from ape_tpu_torch.ops.msda_dispatch import BODIES, msda_fwd_cuda
+
+    g = torch.Generator().manual_seed(SEED + 8)
+    queries = max(BODY_SWEEP_ITEMS) // (TRAIN_BATCH * HEADS)
+    value32, locs, atts, _ = _msda_inputs(g, TRAIN_SHAPES, TRAIN_BATCH, queries, dev)
+    value = value32.to(dev, torch.bfloat16)
+    times = {b: [] for b in BODIES}
+    for items in BODY_SWEEP_ITEMS:
+        q = items // (TRAIN_BATCH * HEADS)
+        loc = locs["decoder"][:, :q].contiguous()
+        att = atts["decoder"][:, :q].to(dev, torch.bfloat16).contiguous()
+        for b in BODIES:
+            times[b].append(kernel_ms(lambda: msda_fwd_cuda(value, TRAIN_SHAPES, loc, att,
+                                                            body=b), 50))
+    log(phase="kernel_k1_bodies", dtype="bfloat16", items=list(BODY_SWEEP_ITEMS),
+        **{f"{b}_device_ms": t for b, t in times.items()},
+        d32_slower_at=[n for n, d, gen in zip(BODY_SWEEP_ITEMS, times["d32"], times["general"])
+                       if d > gen])
+
+
+def k1_window(value, shapes, off, loc, att, name: str, dname: str) -> dict:
+    """K1's window entry against K1 on ``window_locations`` (``loc``), bit
+    for bit with each body, and timed against the ``window_locations`` + K1
+    it replaces; the record's fields."""
+    import torch
+
+    from ape_tpu_torch.ops.msda_dispatch import (
+        BODIES,
+        msda_fwd_cuda,
+        msda_fwd_window_cuda,
+        window_locations,
+    )
+
+    for b in BODIES:
+        got = msda_fwd_window_cuda(value, shapes, off, att, RADIUS, body=b)
+        want = msda_fwd_cuda(value, shapes, loc, att, body=b)
+        if not torch.equal(got, want):
+            err = float((got.float() - want.float()).abs().max())
+            fail(f"{name} {dname}: K1's window entry ({b} body) differs from K1 on "
+                 f"window_locations by {err}")
+    return dict(equals_msda_fwd=True,
+                locations_and_msda_fwd_ms=cuda_ms(lambda: msda_fwd_cuda(
+                    value, shapes, window_locations(shapes, off, RADIUS).contiguous(), att)))
+
+
 def kernels_phase(dev):
     """Each forward kernel against its plain version at every shape set of
-    the main paths (FWD_CASES), in f32 and bf16, then the window forms
-    (forms_kernels_step); returns per-case results."""
+    the main paths (FWD_CASES), in f32 and bf16, K1's two bodies and its
+    window entry against each other (k1_bodies, k1_window), then the window
+    forms (forms_kernels_step); returns per-case results."""
     import torch
     import torch.nn.functional as F
 
     from ape_tpu_torch.ops.attention import attn_fwd_cuda, global_attention_plain
     from ape_tpu_torch.ops.msda import ms_deform_attn
-    from ape_tpu_torch.ops.msda_dispatch import msda_fwd_cuda
+    from ape_tpu_torch.ops.msda_dispatch import (
+        msda_fwd_cuda,
+        msda_fwd_window_cuda,
+        window_locations,
+    )
 
     g = torch.Generator().manual_seed(SEED)
     results = {}
     for suffix, shapes, batch, queries, with_attn in FWD_CASES:
-        value32, locs, atts32 = _msda_inputs(g, shapes, batch, queries, dev)
+        value32, locs, atts32, off = _msda_inputs(g, shapes, batch, queries, dev)
         qkv32 = [torch.randn(batch, 3, 4096, 64, generator=g) for _ in range(3)]
         s = sum(h * w for h, w in shapes)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             value = value32.to(dev, dtype)
-            cases = {}
+            cases, extra = {}, {}
             for mode, loc in locs.items():
                 att = atts32[mode].to(dev, dtype)
-                cases[f"msda_{mode}{suffix}"] = (
+                name = f"msda_{mode}{suffix}"
+                cases[name] = (
                     lambda loc=loc, att=att: msda_fwd_cuda(value, shapes, loc, att),
                     lambda loc=loc, att=att: ms_deform_attn(value, shapes, loc, att), None, "msda",
                     {"value": list(value.shape), "queries": loc.shape[1]},
                     msda_bound("msda_fwd", batch, s, loc.shape[1], len(shapes),
                                value.element_size()))
+                extra[name] = k1_bodies(value, shapes, loc, att, name, dname)
+            att = atts32["encoder"].to(dev, dtype)
+            name = f"msda_window{suffix}"
+            cases[name] = (
+                lambda att=att: msda_fwd_window_cuda(value, shapes, off, att, RADIUS),
+                lambda att=att: ms_deform_attn(value, shapes, window_locations(shapes, off, RADIUS),
+                                               att), None, "msda",
+                {"value": list(value.shape), "queries": s},
+                msda_bound("msda_fwd_window", batch, s, s, len(shapes), value.element_size()))
+            extra[name] = k1_window(value, shapes, off, locs["encoder"], att, name, dname)
             if with_attn:
                 q, k, v = (t.to(dev, dtype) for t in qkv32)
                 cases[f"attention{suffix}"] = (
@@ -432,14 +613,15 @@ def kernels_phase(dev):
                 rec = dict(phase="kernel", name=name, dtype=dname, shape=shape, max_abs_err=err,
                            bound=bound, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
                            library_ms=cuda_ms(library) if library else None, bound_ms=bound_ms,
-                           bound_by=bound_by)
+                           bound_by=bound_by, **extra.get(name, {}))
                 log(**rec)
                 if not err <= bound:
                     fail(f"{name} {dname}: max |kernel - plain| {err} > {bound}")
                 results[(name, dname)] = rec
-            del value, cases
-        del value32, locs, atts32, qkv32
+            del value, cases, extra
+        del value32, locs, atts32, qkv32, off
         torch.cuda.empty_cache()
+    k1_body_sweep(dev)
     results.update(forms_kernels_step(dev))
     return results
 
@@ -543,7 +725,7 @@ def backward_kernels_phase(dev):
 
     g = torch.Generator().manual_seed(SEED + 3)
     b = TRAIN_BATCH
-    value32, locs, atts = _msda_inputs(g, TRAIN_SHAPES, b, TRAIN_QUERIES, dev)
+    value32, locs, atts, _ = _msda_inputs(g, TRAIN_SHAPES, b, TRAIN_QUERIES, dev)
     # (value f32 on the CPU, locations on dev, weights, upstream grad) per case
     msda_cases = {f"msda_bwd_{mode}": [value32, loc, atts[mode]] for mode, loc in locs.items()}
     for case in msda_cases.values():
@@ -981,11 +1163,11 @@ def full_train_phase(dev, card):
     """The masked model's bf16 training as tools/bench_train.py runs it, with
     the merged MSDA backward and then the split one: per form, finite losses
     (the mask losses among them) and gradients, exact launches, s/step, peak
-    memory. Returns the launches of both forms together."""
+    memory. Returns the launches of each form: (merged, split)."""
     from ape_tpu_torch.ops import msda_dispatch
 
     model, step, batch = _train_setup(dev, mask_on=True)
-    total = {}
+    runs = []
     for merged, per_step in ((True, STEP_LAUNCHES), (False, SPLIT_STEP_LAUNCHES)):
         msda_dispatch.BWD_MERGED = merged
         try:
@@ -995,13 +1177,12 @@ def full_train_phase(dev, card):
         missing = [k for k in ("loss_mask", "loss_dice") if k not in rec["losses"]]
         if missing:
             fail(f"full train step ({'merged' if merged else 'split'}): no {missing}")
-        for k, v in rec.pop("launches").items():
-            total[k] = total.get(k, 0) + v
+        runs.append(rec.pop("launches"))
         log(phase="full_train", msda_backward="merged" if merged else "split", dtype="bfloat16",
             image=TRAIN_IMG, batch=TRAIN_BATCH, queries=TRAIN_QUERIES,
             tokens=sum(h * w for h, w in TRAIN_SHAPES), masks=list(batch["targets"]["masks"].shape),
             **rec, card=card)
-    return total
+    return tuple(runs)
 
 
 def grad_rel_errors(got, want):
@@ -1189,8 +1370,9 @@ def full_serve_phase(dev, card):
     """``build_ape_ti()`` with its defaults (the masked model, 4-scale pyramid)
     in bf16 at 1024^2 with 900 queries and N(0, 0.02) weights: launches per
     forward, finite outputs with pred_masks (1, 900, 256, 256), images/s over
-    10 forwards; then three predictor requests. Returns the launches of the
-    measured forward and of the requests."""
+    10 forwards; then a forward under ``V6`` and three predictor requests.
+    Returns the launches of the measured forward and the requests (default
+    flags) and of the forward under V6."""
     import torch
 
     from ape_tpu_torch.modeling.build import build_ape_ti
@@ -1243,7 +1425,7 @@ def full_serve_phase(dev, card):
         output_shapes=shapes, images_per_s=img_s, iters=iters,
         v6_launches_per_forward={k: v for k, v in dense.items() if v}, card=card)
     served = serve_phase(model, "full_serve_request")
-    return {k: v + served[k] + dense[k] for k, v in launches.items()}
+    return {k: v + served[k] for k, v in launches.items()}, dense
 
 
 def race_phase(dev, card):
@@ -1309,33 +1491,47 @@ def main():
     kern.update(backward_kernels_phase(dev))
     # launches over every run: each phase sets the counts to 0 just before
     # its run and reads them just after. The serving and training phases are
-    # the main paths; the race and the probes are paths of their own.
-    runs = []
+    # the main paths: those with the default flags (FUSED and V6 off, the
+    # merged backward), and those under another form; the race and the
+    # probes are paths of their own.
+    default_runs, flag_runs = [], []
     model, slice_launches = slice_phase(dev, card)
-    runs += [slice_launches, serve_phase(model)]
-    runs += forms_phase(model, dev, card)
+    default_runs += [slice_launches, serve_phase(model)]
+    flag_runs += forms_phase(model, dev, card)
     f32_phase(model)
     del model
     torch.cuda.empty_cache()
-    runs += train_phase(dev, card)
+    train_launches, fused_launches = train_phase(dev, card)
+    default_runs.append(train_launches)
+    flag_runs.append(fused_launches)
     train_f32_phase(dev)
     torch.cuda.empty_cache()
-    runs.append(full_serve_phase(dev, card))
+    full_serve_launches, v6_launches = full_serve_phase(dev, card)
+    default_runs.append(full_serve_launches)
+    flag_runs.append(v6_launches)
     torch.cuda.empty_cache()
-    runs.append(full_train_phase(dev, card))
+    merged_launches, split_launches = full_train_phase(dev, card)
+    default_runs.append(merged_launches)
+    flag_runs.append(split_launches)
     torch.cuda.empty_cache()
     train_f32_phase(dev, mask_on=True)
     torch.cuda.empty_cache()
-    main_runs = list(runs)
+    main_runs = default_runs + flag_runs
+    runs = list(main_runs)
     runs.append(race_phase(dev, card))
     torch.cuda.empty_cache()
     probe_launches, probe_rows = probes_phase(dev, card)
     runs.append(probe_launches)
-    launches = {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
-    launches_main = {k: sum(r.get(k, 0) for r in main_runs) for k in runs[0]}
+
+    def total(which):
+        return {k: sum(r.get(k, 0) for r in which) for k in runs[0]}
+
+    launches, launches_main, launches_default = total(runs), total(main_runs), total(default_runs)
     pallas_bwd = "ape_tpu/ops/msda_window_pallas_bwd.py"
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     sources = {"msda_fwd": ("msda_fwd.cu", "ape_tpu/ops/msda_window_pallas_v2.py:795", "msda_encoder"),
+               "msda_fwd_window": ("msda_fwd.cu", "ape_tpu/ops/msda_window_pallas_v2.py:795",
+                                   "msda_window"),
                "msda_bwd": ("msda_bwd.cu", f"{pallas_bwd}:961", "msda_bwd_encoder"),
                "msda_bwd_offatt": ("msda_bwd_split.cu", f"{pallas_bwd}:283", "msda_bwd_offatt"),
                "msda_bwd_value": ("msda_bwd_split.cu", f"{pallas_bwd}:487", "msda_bwd_value"),
@@ -1361,6 +1557,7 @@ def main():
         rec = kern[(case, "bfloat16")] if case else probe_rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "launches_main": launches_main[name],
+                        "launches_default": launches_default[name],
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})

@@ -27,12 +27,15 @@ from ape_tpu_torch.ops.attention import (
 )
 from ape_tpu_torch.ops.msda import ms_deform_attn
 from ape_tpu_torch.ops.msda_dispatch import (
+    BODIES,
+    fwd_body,
     ms_deform_attn_exact,
     ms_deform_attn_window,
     msda_bwd_cuda,
     msda_bwd_offatt_cuda,
     msda_bwd_value_cuda,
     msda_fwd_cuda,
+    msda_fwd_window_cuda,
     window_locations,
 )
 from ape_tpu_torch.ops.msda_window_forms import window_form_cuda, window_plain
@@ -65,6 +68,147 @@ def test_msda_kernel_matches_plain(device, dtype):
     want = ms_deform_attn(value.float(), shapes, loc, att.float())
     assert got.shape == (2, 37, 256)
     assert float((got - want).abs().max()) < TOL[dtype]
+
+
+def _window_edge_offsets(shapes, b, q, heads, radius, first_query, seed=9):
+    """Seeded pixel offsets (B, Q, H, L, P, 2) spread past the radius, with
+    edge cases at fixed places: NaN, +-inf, exactly +-R, exactly 0 and -0;
+    and for each query in column 0 of its level's grid, point 1's x offset
+    on that same level at -1 px, which lands on pixel -1 exactly (center
+    0.5 / W; every width here is a power of 2)."""
+    rng = np.random.RandomState(seed)
+    off = rng.uniform(-1.5 * radius, 1.5 * radius, (b, q, heads, len(shapes), 4, 2))
+    off = off.astype(np.float32)
+    edges = np.array([np.nan, np.inf, -np.inf, radius, -radius, 0.0, -0.0, np.nan], np.float32)
+    flat = off.reshape(-1)
+    flat[rng.choice(flat.size, 8 * 64, replace=False)] = np.tile(edges, 64)
+    start = 0
+    for lvl, (hl, wl) in enumerate(shapes):
+        rows = np.arange(start, start + hl * wl, wl) - first_query  # column 0 of the level
+        rows = rows[(rows >= 0) & (rows < q)]
+        off[:, rows, :, lvl, 1, 0] = -1.0
+        start += hl * wl
+    return off
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [8, 3])
+def test_msda_d32_body_equals_general_body(device, dtype, heads):
+    """K1's D = 32 body against its general body, bit for bit, with every
+    level's samples on the edges (x = -1 and y = -1 exactly, the last pixel,
+    a right corner outside); B * Q * H = 592 at 8 heads and 222 at 3, where
+    the last warp holds two items and two lanes' worth of items past the end."""
+    shapes, value, loc, att, _ = _msda_edge_inputs(device, dtype, heads, 32)
+    loc[0, 5, 0, 1, 2] = float("nan")
+    loc[1, 7, heads - 1, 2, 1, 0] = float("inf")
+    bodies = {b: msda_fwd_cuda(value, shapes, loc, att, body=b) for b in BODIES}
+    assert torch.equal(bodies["d32"], bodies["general"])
+    want = ms_deform_attn(value.float(), shapes, loc, att.float())
+    assert float((bodies["d32"].float() - want).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,first_query", [(8, 0), (8, 100), (3, 7)])
+def test_msda_window_entry_equals_k1_on_window_locations(device, dtype, heads, first_query):
+    """K1's window entry against K1 on window_locations, bit for bit with each
+    body, on offsets holding NaN, +-inf, exactly +-R, 0 and -0 and offsets
+    landing on pixel -1, for the queries from first_query on; and against
+    the plain version."""
+    shapes = ((16, 16), (8, 8), (4, 4))
+    s = sum(h * w for h, w in shapes)
+    q, radius = s - first_query - 3, 4
+    rng = np.random.RandomState(10)
+    value = torch.from_numpy(rng.randn(2, s, heads, 32).astype(np.float32)).to(device, dtype)
+    off = torch.from_numpy(_window_edge_offsets(shapes, 2, q, heads, radius, first_query))
+    off = off.to(device)
+    att = torch.from_numpy(rng.rand(2, q, heads, 3, 4).astype(np.float32)).to(device, dtype)
+    loc = window_locations(shapes, off, radius, first_query=first_query).contiguous()
+    for b in BODIES:
+        got = msda_fwd_window_cuda(value, shapes, off, att, radius, first_query, body=b)
+        assert torch.equal(got, msda_fwd_cuda(value, shapes, loc, att, body=b)), b
+    assert bool(torch.isfinite(got).all())
+    want = ms_deform_attn(value.float(), shapes, loc, att.float())
+    assert float((got.float() - want).abs().max()) < TOL[dtype]
+
+
+def test_msda_fwd_refuses_unaligned_inputs_at_head_width_32(device):
+    """At head width 32 both K1 entries refuse value, locations or offsets
+    that do not start 16-byte aligned, and launch nothing."""
+    shapes, value, loc, att, _ = _msda_edge_inputs(device, torch.float32, 8, 32)
+
+    def shifted(t):  # the same values 8 bytes past an aligned address
+        buf = torch.empty(t.numel() + 2, dtype=t.dtype, device=device)
+        out = buf[2:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    before = dict(_build.LAUNCHES)
+    for args in ((shifted(value), loc), (value, shifted(loc))):
+        with pytest.raises(ValueError, match="16-byte"):
+            msda_fwd_cuda(args[0], shapes, args[1], att)
+        with pytest.raises(ValueError, match="16-byte"):
+            msda_fwd_window_cuda(args[0], shapes, args[1], att, 4)
+    assert _build.LAUNCHES == before
+    with pytest.raises(ValueError, match="no body"):
+        msda_fwd_cuda(value[..., :16].contiguous(), shapes, loc, att, body="d32")
+
+
+def _launched_body(fn):
+    """Which of K1's bodies fn() launched, by the kernel names the profiler
+    recorded on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if "msda_fwd_kernel" in e.name}
+    assert len(names) == 1, names
+    return "d32" if "msda_fwd_kernel_d32" in names.pop() else "general"
+
+
+@pytest.mark.parametrize("items", [8, 4800, 7200, 174592])
+def test_msda_fwd_takes_the_d32_body_at_head_width_32(device, items):
+    """At head width 32 launches of few items (down to one query) and of many
+    take the D = 32 body, the decoder's 4,800 and 7,200 items among them; at
+    64 the general body. Both bodies agree bit for bit."""
+    shapes = ((16, 16), (8, 8), (4, 4))
+    s = sum(h * w for h, w in shapes)
+    rng = np.random.RandomState(11)
+    for dim in (32, 64):
+        value = torch.from_numpy(rng.randn(1, s, 8, dim).astype(np.float32)).to(device)
+        q = items // 8
+        loc = torch.from_numpy(rng.rand(1, q, 8, 3, 4, 2).astype(np.float32)).to(device)
+        att = torch.from_numpy(rng.rand(1, q, 8, 3, 4).astype(np.float32)).to(device)
+        assert _launched_body(lambda: msda_fwd_cuda(value, shapes, loc, att)) == fwd_body(dim)
+    assert fwd_body(32) == "d32"
+    value = value[..., :32].contiguous()
+    assert torch.equal(msda_fwd_cuda(value, shapes, loc, att, body="d32"),
+                       msda_fwd_cuda(value, shapes, loc, att, body="general"))
+
+
+def test_msda_window_entry_serves_inference_only(device):
+    """Under torch.inference_mode (and no_grad) the encoder's window op
+    launches K1's window entry alone; under autograd window_locations, K1
+    and K2, with the same forward output."""
+    shapes = ((16, 16), (8, 8), (4, 4))
+    s = sum(h * w for h, w in shapes)
+    rng = np.random.RandomState(12)
+    value = torch.from_numpy(rng.randn(2, s, 8, 32).astype(np.float32)).to(device)
+    off = torch.from_numpy(rng.randn(2, s, 8, 3, 4, 2).astype(np.float32) * 3).to(device)
+    att = torch.from_numpy(rng.rand(2, s, 8, 3, 4).astype(np.float32)).to(device)
+    outs = {}
+    for mode in ("inference", "no_grad"):
+        _build.reset_launches()
+        with torch.inference_mode() if mode == "inference" else torch.no_grad():
+            outs[mode] = ms_deform_attn_window(value, shapes, off, att, 4)
+        assert {k: n for k, n in _build.LAUNCHES.items() if n} == {"msda_fwd_window": 1}, mode
+    _build.reset_launches()
+    o = off.clone().requires_grad_()
+    out = ms_deform_attn_window(value, shapes, o, att, 4)
+    out.backward(torch.ones_like(out))
+    assert {k: n for k, n in _build.LAUNCHES.items() if n} == {"msda_fwd": 1, "msda_bwd": 1}
+    assert torch.equal(outs["inference"], out.detach()) and torch.equal(outs["no_grad"],
+                                                                       out.detach())
 
 
 # Sequence lengths the tensor-core fragments make hard (one row, a ragged

@@ -159,6 +159,55 @@ def test_msda_window_matches_pallas_kernel(rng):
     assert float(np.abs(got.numpy() - np.asarray(want)).max()) < 2e-2
 
 
+def test_msda_window_nan_and_inf_offsets(rng):
+    """NaN and +-inf pixel offsets. +-inf clip to +-R: JAX's dispatch, the
+    Pallas kernel (interpret mode) and the port agree within the bounds
+    above. A NaN sample contributes nothing in the port (torch.clamp keeps
+    it NaN, and the gather's liveness test drops it, as K1's window entry
+    does): its items equal the port's output with that sample's weight at 0,
+    and so JAX's with the same weight at 0. JAX's exact path makes those
+    items NaN instead, and the Pallas kernel spreads the NaN over the NaN
+    sample's query level (ROADMAP, traits of the reference); on every other
+    item and query level they agree with the port as above."""
+    from ape_tpu.ops.msda_window_pallas_v2 import ms_deform_attn_window_pallas_v2
+
+    shapes = ((8, 8), (4, 4))
+    value, off, w = _msda_inputs(rng, shapes, b=2, max_off=4.0)
+    nan_at = [(0, 3, 0, 0, 0, 0), (1, 5, 1, 1, 1, 1), (1, 60, 0, 1, 0, 0)]  # query level 0
+    for i in nan_at:
+        off[i] = np.nan
+    for i, v in (((0, 70, 1, 0, 1, 0), np.inf), ((1, 75, 0, 1, 0, 1), -np.inf)):  # level 1
+        off[i] = v
+    got = ms_deform_attn_window(_t(value), shapes, _t(off), _t(w), 2).numpy()
+    assert np.isfinite(got).all()
+    w0, off0 = w.copy(), off.copy()
+    for i in nan_at:
+        w0[i[:5]] = 0.0
+        off0[i] = 0.0
+    zeroed = ms_deform_attn_window(_t(value), shapes, _t(off0), _t(w0), 2).numpy()
+    np.testing.assert_array_equal(got, zeroed)
+
+    jax_nan = np.asarray(ms_deform_attn_window_dispatch(jnp.asarray(value), shapes,
+                                                        jnp.asarray(off), jnp.asarray(w), radius=2))
+    jax_zeroed = ms_deform_attn_window_dispatch(jnp.asarray(value), shapes, jnp.asarray(off0),
+                                                jnp.asarray(w0), radius=2)
+    np.testing.assert_allclose(got, np.asarray(jax_zeroed), atol=ATOL)
+    d = value.shape[-1]
+    nan_items = {(b, q, h) for b, q, h, *_ in nan_at}
+    for b, q in np.ndindex(*got.shape[:2]):
+        for h in range(value.shape[2]):
+            cols = slice(h * d, (h + 1) * d)
+            if (b, q, h) in nan_items:
+                assert np.isnan(jax_nan[b, q, cols]).all()
+            else:
+                np.testing.assert_allclose(got[b, q, cols], jax_nan[b, q, cols], atol=ATOL)
+
+    pallas = np.asarray(ms_deform_attn_window_pallas_v2(
+        jnp.asarray(value), shapes, jnp.asarray(off), jnp.asarray(w), radius=2, interpret=True))
+    level1 = slice(64, 80)  # the query level without a NaN sample, with the +-inf ones
+    assert float(np.abs(got[:, level1] - pallas[:, level1]).max()) < 2e-2
+
+
 @pytest.mark.parametrize("n,dh", [(256, 32), (200, 64)])
 def test_global_attention_matches_jax_einsum(rng, n, dh):
     """The plain version against the einsum path JAX runs off the TPU

@@ -384,15 +384,15 @@ SASS = """
 
 
 def _ops(**nonzero):
-    return dict(dict.fromkeys(_build.SASS_OPS + ("REDG_V4",), 0), **nonzero)
+    return dict(dict.fromkeys(_build.SASS_OPS + ("REDG_V4",) + _build.LDG_WIDTHS, 0), **nonzero)
 
 
 def test_parse_sass_counts_tensor_core_ops():
     counts = _build.parse_sass(SASS, "attn_fwd_kernel")
     bf16, f32 = sorted(counts, key=lambda n: "__nv_bfloat16" not in n)
     assert counts[bf16] == _ops(STG=1, HMMA=2, LDSM=2, LDGSTS=1)
-    assert counts[f32] == _ops(LDG=1, STG=1)
-    assert list(_build.parse_sass(SASS, "msda_fwd_kernel").values()) == [_ops(LDG=1)]
+    assert counts[f32] == _ops(LDG=1, LDG_32=1, STG=1)
+    assert list(_build.parse_sass(SASS, "msda_fwd_kernel").values()) == [_ops(LDG=1, LDG_32=1)]
 
 
 # A cuobjdump -sass excerpt of the merged MSDA backward (H100, sm_90a): the
@@ -413,7 +413,48 @@ SASS_RED = """
 
 def test_parse_sass_counts_vector_reductions():
     (d32,) = _build.parse_sass(SASS_RED, "msda_bwd_kernel_d32").values()
-    assert d32 == _ops(LDG=2, STG=1, REDG=2, REDG_V4=2)
+    assert d32 == _ops(LDG=2, LDG_64=1, LDG_128=1, STG=1, REDG=2, REDG_V4=2)
     counts = _build.parse_sass(SASS_RED, "msda_bwd_kernel")
     assert sorted(c["REDG_V4"] for c in counts.values()) == [0, 2]
     assert sorted(c["REDG"] for c in counts.values()) == [2, 2]
+
+
+# A cuobjdump -sass excerpt of K1's D = 32 body (H100, sm_90a), bf16 value
+# and weights, window entry: the location and center loads, the four corner
+# loads of 4 bf16 channels, the weight's 16-bit load; and an f32 instance
+# whose corners were read 32 bits at a time.
+SASS_GATHER = """
+		Function : _ZN44_GLOBAL__N__c9d79e2e_11_msda_fwd_cu_f8e97b1319msda_fwd_kernel_d32I13__nv_bfloat16S1_Lb1EEEvPKT_PKfPKT0_PKlSB_NS_6WindowEPS2_iiiiii
+        /*0100*/                   LDG.E.64.CONSTANT R2, desc[UR6][R2.64] ;
+        /*0110*/                   LDG.E.64.CONSTANT R4, desc[UR6][R4.64] ;
+        /*0120*/                   LDG.E.U16.CONSTANT R6, desc[UR6][R6.64] ;
+        /*0130*/              @P0 LDG.E.64.CONSTANT R8, desc[UR6][R8.64] ;
+        /*0140*/              @P1 LDG.E.64.CONSTANT R10, desc[UR6][R10.64] ;
+        /*0150*/              @P2 LDG.E.64.CONSTANT R12, desc[UR6][R12.64] ;
+        /*0160*/              @P3 LDG.E.64.CONSTANT R14, desc[UR6][R14.64] ;
+        /*0170*/                   STG.E.64 desc[UR6][R16.64], R18 ;
+		Function : _ZN44_GLOBAL__N__c9d79e2e_11_msda_fwd_cu_f8e97b1319msda_fwd_kernel_d32IffLb0EEEvPKT_PKfPKT0_PKlSA_NS_6WindowEPS1_iiiiii
+        /*0100*/                   LDG.E.64.CONSTANT R2, desc[UR6][R2.64] ;
+        /*0110*/                   LDG.E.CONSTANT R6, desc[UR6][R6.64] ;
+        /*0120*/              @P0 LDG.E.CONSTANT R8, desc[UR6][R8.64] ;
+        /*0130*/              @P0 LDG.E.U16.CONSTANT R9, desc[UR6][R8.64] ;
+        /*0170*/                   STG.E.128 desc[UR6][R16.64], R20 ;
+"""
+
+
+def test_k1_gather_check_reads_load_widths():
+    """chip_smoke's check of K1's D = 32 body: an instance's value and weight
+    dtypes and entry from its mangled name, its corner loads by width; the
+    bf16 window instance passes, the f32 one with 32-bit corner reads, a
+    16-bit load and a spill fails on each."""
+    import chip_smoke
+
+    counts = _build.parse_sass(SASS_GATHER, chip_smoke.VECTOR_GATHER_KERNEL)
+    bf16, f32 = sorted(counts, key=lambda n: "__nv_bfloat16" not in n)
+    assert counts[bf16] == _ops(LDG=7, LDG_16=1, LDG_64=6, STG=1)
+    assert chip_smoke._gather_instance(bf16) == ("bfloat16", "bfloat16", True)
+    assert chip_smoke._gather_instance(f32) == ("float32", "float32", False)
+    rec, bad = chip_smoke.gather_faults(bf16, counts[bf16], {"registers": 51})
+    assert bad == [] and rec["corner_load_bits"] == 64 and rec["registers"] == 51
+    _, bad = chip_smoke.gather_faults(f32, counts[f32], {"spill_stores": 8, "spill_loads": 8})
+    assert len(bad) == 3 and "128-bit" in bad[0] and "16-bit" in bad[1] and "spills" in bad[2]
