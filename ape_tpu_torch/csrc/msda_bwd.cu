@@ -48,11 +48,12 @@
 //
 // The rounding of loc * size - 0.5 and the boundary test come from
 // msda_sample.cuh, shared with the split form (msda_bwd_split.cu), so the
-// two forms pick the same corners and boundary cases. The rest of the
-// per-sample arithmetic is the same expressions as that header's Sample
-// helpers, written out here: through the Sample struct the bf16
-// instantiations took 80 registers a thread instead of 64 and ran ~11 %
-// slower on an H100.
+// two forms pick the same corners and boundary cases; the D = 32 body's dot
+// products too (sample_dots4, which K3's D = 32 body calls), so K3's d_loc
+// and d_att there equal this body's bit for bit. The rest of the per-sample
+// arithmetic is the same expressions as that header's Sample helpers,
+// written out here: through the Sample struct the bf16 instantiations took
+// 80 registers a thread instead of 64 and ran ~11 % slower on an H100.
 
 #include <math.h>
 
@@ -166,12 +167,6 @@ __device__ __forceinline__ void red_add4(float* p, float w, const float (&ag)[4]
   atomicAdd(reinterpret_cast<float4*>(p), make_float4(w * ag[0], w * ag[1], w * ag[2], w * ag[3]));
 }
 
-__device__ __forceinline__ float item_sum(float v) {
-#pragma unroll
-  for (int off = 1; off < kItemLanes; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 template <typename VT, typename AT>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, 4)
 msda_bwd_kernel_d32(const VT* __restrict__ value, const float* __restrict__ loc,
@@ -251,14 +246,10 @@ msda_bwd_kernel_d32(const VT* __restrict__ value, const float* __restrict__ loc,
         if (in_y0 && in_x1) load4(vb + r01, v01);
         if (in_y1 && in_x0) load4(vb + r10, v10);
         if (in_y1 && in_x1) load4(vb + r11, v11);
+        sample_dots4(g, fx, fy, w00, w01, w10, w11, v00, v01, v10, v11, pa, px, py);
         float ag[4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          pa += g[c] * (w00 * v00[c] + w01 * v01[c] + w10 * v10[c] + w11 * v11[c]);
-          px += g[c] * ((1.f - fy) * (v01[c] - v00[c]) + fy * (v11[c] - v10[c]));
-          py += g[c] * ((1.f - fx) * (v10[c] - v00[c]) + fx * (v11[c] - v01[c]));
-          ag[c] = a * g[c];
-        }
+        for (int c = 0; c < 4; ++c) ag[c] = a * g[c];
         if (in_y0 && in_x0) red_add4(dvb + r00, w00, ag);
         if (in_y0 && in_x1) red_add4(dvb + r01, w01, ag);
         if (in_y1 && in_x0) red_add4(dvb + r10, w10, ag);

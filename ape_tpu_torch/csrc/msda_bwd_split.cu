@@ -28,9 +28,24 @@
 // reads per sample, as the forward (memory latency and L2 traffic); it writes
 // each output once and uses no atomics, so it is deterministic. msda_bwd_value:
 // the scatter, four coalesced 128-byte atomic rows per sample into a d_value
-// buffer the caller zeroes (f32) and casts back. The design of both follows
-// msda_fwd.cu: one warp per (b, q, h), lanes over D, dot products by warp
-// shuffles.
+// buffer the caller zeroes (f32) and casts back.
+//
+// msda_bwd_offatt has two bodies, chosen by the caller (ops/msda_dispatch.
+// fwd_body, as for K1):
+//   * D = 32, every MSDA layer of APE: msda_bwd_offatt_kernel_d32, K2's D = 32
+//     body (msda_bwd.cu) without the scatter. 8 lanes an item and 4 channels
+//     a lane, 4 items a warp; the grad row is loaded once, 4 channels a lane,
+//     each corner read is one 8-byte load of 4 bf16 (16 bytes in f32); the
+//     item's 8 lanes load its locations and weights 8 samples at a time,
+//     coalesced, and share them by shuffles; the three dot products
+//     (msda_sample.cuh's sample_dots4, which K2 calls too) reduce over the
+//     item's 8 lanes in 3 shuffle steps, and lane j stores sample j's d_att
+//     and its d_loc as one float2. Its d_loc and d_att equal K2's bit for bit
+//     (with bf16 weights d_att is K2's f32 d_att rounded once).
+//   * any D (and D = 32 when asked, so that the card can compare the two):
+//     msda_bwd_offatt_kernel, one warp per (b, q, h), lanes over D, dot
+//     products by warp shuffles.
+// msda_bwd_value keeps one warp per (b, q, h), lanes over D.
 
 #include "msda_sample.cuh"
 
@@ -88,6 +103,104 @@ msda_bwd_offatt_kernel(const VT* __restrict__ value,        // (B, S, H, D)
   }
 }
 
+// The D = 32 body: K2's D = 32 body without the scatter (msda_bwd.cu). A
+// warp's 4 items are 4 heads of one query (item = bq * H + h, 4 at a time).
+// At most 64 registers a thread (4 blocks an SM).
+template <typename VT, typename AT>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, 4)
+msda_bwd_offatt_kernel_d32(const VT* __restrict__ value, const float* __restrict__ loc,
+                           const AT* __restrict__ att, const int64_t* __restrict__ shapes,
+                           const int64_t* __restrict__ starts, const VT* __restrict__ grad_out,
+                           float* __restrict__ d_loc, AT* __restrict__ d_att, int B, int S, int Q,
+                           int H, int L, int P) {
+  __shared__ Levels lv;
+  load_levels(lv, shapes, starts, L);
+
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (kItemLanes - 1);  // lane within the item: channels 4 sub .. 4 sub + 3
+  const int slot = lane / kItemLanes;       // item within the warp
+  const int64_t warp = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t n_items = static_cast<int64_t>(B) * Q * H;
+  const int64_t first = warp * kItemsPerWarp;
+  if (first >= n_items) return;  // whole warps only: every item of this one is past the end
+  // a lane of an item past the end (the last warp's) loads nothing and
+  // stores nothing, but takes part in the shuffles
+  const bool valid = first + slot < n_items;
+  const int64_t item = valid ? first + slot : 0;
+  const int h = static_cast<int>(item % H);
+  const int b = static_cast<int>(item / H / Q);
+  const int c0 = sub * 4;
+  const VT* vb = value + static_cast<int64_t>(b) * S * H * kD32 + static_cast<int64_t>(h) * kD32 + c0;
+  const int64_t row_stride = static_cast<int64_t>(H) * kD32;
+  float g[4] = {0.f, 0.f, 0.f, 0.f};
+  if (valid) load4(grad_out + item * kD32 + c0, g);
+
+  const int LP = L * P;
+  const int64_t samp0 = item * LP;
+  for (int s0 = 0; s0 < LP; s0 += kItemLanes) {
+    // the item's next 8 samples: lane sub loads sample s0 + sub (coalesced
+    // over the 8 lanes), and every lane of the item reads them by shuffles
+    const int mine = s0 + sub;
+    const bool mine_ok = valid && mine < LP;
+    float2 my_loc = make_float2(NAN, NAN);
+    float my_a = 0.f;
+    if (mine_ok) {
+      my_loc = *reinterpret_cast<const float2*>(loc + 2 * (samp0 + mine));
+      my_a = to_f32(att[samp0 + mine]);
+    }
+    float out_att = 0.f, out_x = 0.f, out_y = 0.f;  // lane sub's own sample
+    const int n = min(kItemLanes, LP - s0);  // uniform over the warp
+    for (int j = 0; j < n; ++j) {
+      const int src = slot * kItemLanes + j;
+      const float lx = __shfl_sync(0xffffffffu, my_loc.x, src);
+      const float ly = __shfl_sync(0xffffffffu, my_loc.y, src);
+      const float a = __shfl_sync(0xffffffffu, my_a, src);
+      const int l = (s0 + j) / P;
+      const int hl = lv.h[l];
+      const int wl = lv.w[l];
+      const float x = pixel(lx, wl);
+      const float y = pixel(ly, hl);
+      float pa = 0.f, px = 0.f, py = 0.f;
+      if (live(x, y, hl, wl)) {
+        const float xf = floorf(x);
+        const float yf = floorf(y);
+        const int x0 = static_cast<int>(xf);
+        const int y0 = static_cast<int>(yf);
+        const float fx = x - xf;
+        const float fy = y - yf;
+        const bool in_y0 = y0 >= 0, in_y1 = y0 + 1 < hl;
+        const bool in_x0 = x0 >= 0, in_x1 = x0 + 1 < wl;
+        const int64_t r00 = static_cast<int64_t>(lv.start[l]) * row_stride +
+                            (static_cast<int64_t>(y0) * wl + x0) * row_stride;
+        const int64_t r01 = r00 + row_stride;
+        const int64_t r10 = r00 + static_cast<int64_t>(wl) * row_stride;
+        const int64_t r11 = r10 + row_stride;
+        const float w00 = (1.f - fx) * (1.f - fy), w01 = fx * (1.f - fy);
+        const float w10 = (1.f - fx) * fy, w11 = fx * fy;
+        float v00[4] = {0.f, 0.f, 0.f, 0.f}, v01[4] = {0.f, 0.f, 0.f, 0.f};
+        float v10[4] = {0.f, 0.f, 0.f, 0.f}, v11[4] = {0.f, 0.f, 0.f, 0.f};
+        if (in_y0 && in_x0) load4(vb + r00, v00);
+        if (in_y0 && in_x1) load4(vb + r01, v01);
+        if (in_y1 && in_x0) load4(vb + r10, v10);
+        if (in_y1 && in_x1) load4(vb + r11, v11);
+        sample_dots4(g, fx, fy, w00, w01, w10, w11, v00, v01, v10, v11, pa, px, py);
+      }
+      pa = item_sum(pa);
+      px = item_sum(px);
+      py = item_sum(py);
+      if (sub == j) {
+        out_att = pa;
+        out_x = a * px * wl;
+        out_y = a * py * hl;
+      }
+    }
+    if (mine_ok) {
+      d_att[samp0 + mine] = from_f32<AT>(out_att);
+      *reinterpret_cast<float2*>(d_loc + 2 * (samp0 + mine)) = make_float2(out_x, out_y);
+    }
+  }
+}
+
 template <typename GT, typename AT>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 msda_bwd_value_kernel(const float* __restrict__ loc,       // (B, Q, H, L, P, 2)
@@ -134,7 +247,17 @@ inline unsigned n_blocks(int B, int Q, int H) {
 template <typename VT, typename AT>
 int launch_offatt(const void* value, const float* loc, const void* att, const int64_t* shapes,
                   const int64_t* starts, const void* grad_out, float* d_loc, void* d_att,
-                  int B, int S, int Q, int H, int D, int L, int P, cudaStream_t stream) {
+                  int B, int S, int Q, int H, int D, int L, int P, bool d32,
+                  cudaStream_t stream) {
+  if (d32) {
+    const int64_t warps = (static_cast<int64_t>(B) * Q * H + kItemsPerWarp - 1) / kItemsPerWarp;
+    const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    msda_bwd_offatt_kernel_d32<VT, AT>
+        <<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0, stream>>>(
+            static_cast<const VT*>(value), loc, static_cast<const AT*>(att), shapes, starts,
+            static_cast<const VT*>(grad_out), d_loc, static_cast<AT*>(d_att), B, S, Q, H, L, P);
+    return static_cast<int>(cudaGetLastError());
+  }
   msda_bwd_offatt_kernel<VT, AT><<<n_blocks(B, Q, H), kWarpsPerBlock * 32, 0, stream>>>(
       static_cast<const VT*>(value), loc, static_cast<const AT*>(att), shapes, starts,
       static_cast<const VT*>(grad_out), d_loc, static_cast<AT*>(d_att), B, S, Q, H, D, L, P);
@@ -159,25 +282,30 @@ int check_sizes(int D, int L, int P) {
 }  // namespace
 
 // value_bf16: value and grad_out are bf16 (else f32). att_f32: attention
-// weights, and so d_att, are f32 (else the value dtype). d_loc is f32.
-// Returns the launch's cudaError_t.
+// weights, and so d_att, are f32 (else the value dtype). d_loc is f32. body:
+// 0 the general body, 1 the D = 32 body (D must be 32; value, loc, grad_out
+// and d_loc 16-byte aligned). Returns the launch's cudaError_t.
 extern "C" int ape_msda_bwd_offatt(const void* value, const float* loc, const void* att,
                                    const int64_t* shapes, const int64_t* starts,
                                    const void* grad_out, float* d_loc, void* d_att,
                                    int B, int S, int Q, int H, int D, int L, int P,
-                                   int value_bf16, int att_f32, void* stream) {
+                                   int value_bf16, int att_f32, int body, void* stream) {
   if (const int err = check_sizes(D, L, P)) return err;
+  if (body < 0 || body > 1 || (body == 1 && D != kD32))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<int64_t>(B) * Q * H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool d32 = body == 1;
   if (value_bf16) {
     if (att_f32)
       return launch_offatt<__nv_bfloat16, float>(value, loc, att, shapes, starts, grad_out, d_loc,
-                                                 d_att, B, S, Q, H, D, L, P, st);
+                                                 d_att, B, S, Q, H, D, L, P, d32, st);
     return launch_offatt<__nv_bfloat16, __nv_bfloat16>(value, loc, att, shapes, starts, grad_out,
-                                                        d_loc, d_att, B, S, Q, H, D, L, P, st);
+                                                        d_loc, d_att, B, S, Q, H, D, L, P, d32,
+                                                        st);
   }
   return launch_offatt<float, float>(value, loc, att, shapes, starts, grad_out, d_loc, d_att,
-                                     B, S, Q, H, D, L, P, st);
+                                     B, S, Q, H, D, L, P, d32, st);
 }
 
 // grad_bf16: grad_out is bf16 (else f32). att_f32: attention weights are f32

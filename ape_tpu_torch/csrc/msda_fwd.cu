@@ -50,8 +50,9 @@
 //     read one coalesced row of the (B, S, H, D) value tensor.
 //
 // Both bodies accumulate in f32 per channel in the same (l, p) order with the
-// same explicitly rounded expressions (blend below), and K10's base variant
-// (msda_pair_probe.cu) writes the same ones: the three agree bit for bit.
+// same explicitly rounded expressions (msda_sample.cuh's blend and blend4),
+// and K10's base variant (msda_pair_probe.cu) and K8's D = 32
+// body (msda_fwd_qlevel.cu) write the same ones: they agree bit for bit.
 
 #include <math.h>
 
@@ -95,17 +96,6 @@ __device__ __forceinline__ float2 sample_loc(float2 in, float2 center,
   return make_float2(__fadd_rn(center.x, __fdiv_rn(clip(in.x, radius), size[l][0])),
                      __fadd_rn(center.y, __fdiv_rn(clip(in.y, radius), size[l][1])));
 }
-
-// K1's liveness: a sample touches the level. Strict at -1, unlike
-// msda_sample.cuh's live() (the backward's): at x = -1 or y = -1 exactly,
-// which the window clip produces at the grid's edge, every corner inside the
-// level has weight 0, so the forward skips the sample. False for NaN.
-__device__ __forceinline__ bool touches(float x, float y, int hl, int wl) {
-  return x > -1.f && y > -1.f && x < wl && y < hl;
-}
-
-// One corner's term of the blend, v += w * c, as one rounding (an FMA)
-__device__ __forceinline__ float blend(float v, float w, float c) { return __fmaf_rn(w, c, v); }
 
 // Registers: the location entry's instances at most 32 a thread (8 blocks an
 // SM), the window entry's, which hold the center and radius besides, at most
@@ -189,19 +179,6 @@ msda_fwd_kernel(const VT* __restrict__ value,        // (B, S, H, D)
   }
 }
 
-// 4 channels from f32: one 16-byte store of f32, one 8-byte store of bf16
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 t;
-  t.x = *reinterpret_cast<const uint32_t*>(&lo);
-  t.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = t;
-}
-
 // The D = 32 body, on msda_sample.cuh's D = 32 layout: 8 lanes an item and 4
 // channels a lane, kItemsPerWarp = 4 items a warp, 4 heads of one query
 // (item = bq * H + h, 4 at a time), the order K2 measured fastest. At most
@@ -264,38 +241,19 @@ msda_fwd_kernel_d32(const VT* __restrict__ value, const float* __restrict__ loc,
       const float x = pixel(lx, wl);
       const float y = pixel(ly, hl);
       if (!touches(x, y, hl, wl)) continue;
-      const float xf = floorf(x);
-      const float yf = floorf(y);
-      const int x0 = static_cast<int>(xf);
-      const int y0 = static_cast<int>(yf);
-      const float fx = x - xf;
-      const float fy = y - yf;
-      const bool in_y0 = y0 >= 0, in_y1 = y0 + 1 < hl;
-      const bool in_x0 = x0 >= 0, in_x1 = x0 + 1 < wl;
+      const Cell c = cell(x, y, hl, wl);
       const int64_t r00 = static_cast<int64_t>(lv.start[l]) * row_stride +
-                          (static_cast<int64_t>(y0) * wl + x0) * row_stride;
+                          (static_cast<int64_t>(c.y0) * wl + c.x0) * row_stride;
       const int64_t r01 = r00 + row_stride;
       const int64_t r10 = r00 + static_cast<int64_t>(wl) * row_stride;
       const int64_t r11 = r10 + row_stride;
-      // a corner outside the level reads as 0: its term w * 0 leaves v as it
-      // is, as the general body's skipped term does
       float v00[4] = {0.f, 0.f, 0.f, 0.f}, v01[4] = {0.f, 0.f, 0.f, 0.f};
       float v10[4] = {0.f, 0.f, 0.f, 0.f}, v11[4] = {0.f, 0.f, 0.f, 0.f};
-      if (in_y0 && in_x0) load4(vb + r00, v00);
-      if (in_y0 && in_x1) load4(vb + r01, v01);
-      if (in_y1 && in_x0) load4(vb + r10, v10);
-      if (in_y1 && in_x1) load4(vb + r11, v11);
-      const float w00 = __fmul_rn(1.f - fx, 1.f - fy), w01 = __fmul_rn(fx, 1.f - fy);
-      const float w10 = __fmul_rn(1.f - fx, fy), w11 = __fmul_rn(fx, fy);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float v = 0.f;
-        v = blend(v, w00, v00[c]);
-        v = blend(v, w01, v01[c]);
-        v = blend(v, w10, v10[c]);
-        v = blend(v, w11, v11[c]);
-        acc[c] = __fmaf_rn(a, v, acc[c]);
-      }
+      if (c.c00) load4(vb + r00, v00);
+      if (c.c01) load4(vb + r01, v01);
+      if (c.c10) load4(vb + r10, v10);
+      if (c.c11) load4(vb + r11, v11);
+      blend4(acc, a, c, v00, v01, v10, v11);
     }
   }
   if (valid) store4(out + item * kD32 + c0, acc);

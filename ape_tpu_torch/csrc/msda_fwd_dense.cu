@@ -114,8 +114,7 @@ msda_fwd_dense_kernel(const void* value_, const float* off, const void* att_, vo
   float* taps = reinterpret_cast<float*>(smem_raw + p.tap_off) +
                 warp * (p.win * p.win + 3 * kMaxPoints);
   float acc[kQueriesPerWarp];
-#pragma unroll
-  for (int k = 0; k < kQueriesPerWarp; ++k) acc[k] = 0.f;
+  init_tile(acc, p, t, out, warp, lane);
   for (int j = 0; j < p.n_lv; ++j) {
     const bool fine = finer(p, p.lv[j]);
     if (!fine) {

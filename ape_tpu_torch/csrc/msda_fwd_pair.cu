@@ -5,9 +5,9 @@
 // per pair, the value level's halo tile DMA'd into VMEM, and for strided
 // pairs the level phase-decomposed into s x s planes so that every strided
 // window read is a contiguous slice. Computes K1's function (msda_fwd.cu)
-// one pair at a time: the pairs of a query level run in order on one stream
-// and add into one f32 (B, Q, H * D) buffer, without atomics; the caller
-// casts it.
+// one pair at a time: the pairs of a query level run in order on one stream,
+// each continuing the sums of the f32 (B, Q, H * D) partial the one before
+// stored (out mode 2), without atomics; the caller casts it.
 //
 // What bounds it on an H100: the samples' corner reads, about 8 flops for
 // each byte read, so latency and bytes, not arithmetic. Read once, value,
@@ -47,8 +47,7 @@ msda_fwd_pair_kernel(const void* value_, const float* off, const void* att_, voi
     __syncthreads();
   }
   float acc[kQueriesPerWarp];
-#pragma unroll
-  for (int k = 0; k < kQueriesPerWarp; ++k) acc[k] = 0.f;
+  init_tile(acc, p, t, out, warp, lane);
   sample_level<VT, AT>(acc, p, t, 0, value, off, att, smem, warp, lane);
   write_tile<VT>(acc, p, t, out, warp, lane);
 }

@@ -7,7 +7,8 @@
 // the innermost, sequential grid axis of one kernel, the f32 accumulator
 // kept in VMEM scratch across those levels and the output written once;
 // the finer pairs stay on a pair kernel. Here they go to K6
-// (msda_fwd_pair.cu), which adds into the f32 buffer this kernel stores.
+// (msda_fwd_pair.cu), which continues from the f32 partial this kernel
+// stores.
 //
 // What bounds it on an H100: as K1 (msda_fwd.cu), the samples' corner
 // reads; the bytes it must move are value, offsets, weights and the output
@@ -39,8 +40,7 @@ msda_fwd_rows_kernel(const void* value_, const float* off, const void* att_, voi
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   float acc[kQueriesPerWarp];
-#pragma unroll
-  for (int k = 0; k < kQueriesPerWarp; ++k) acc[k] = 0.f;
+  init_tile(acc, p, t, out, warp, lane);
   for (int j = 0; j < p.n_lv; ++j) {  // the plan gives no finer level
     stage_box(tile_box(p, t, j, smem), level(p, value, t, p.lv[j]), p.D);
     cp_async_wait(0);

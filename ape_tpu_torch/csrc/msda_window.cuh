@@ -61,7 +61,8 @@ struct Plan {
   int B, S, Q, H, D, L, P;
   int hq, wq, q_start;   // the query level: its size and first query row
   int tq_y, tq_x;        // the query tile
-  int out_mode;          // 0: store in the value's dtype, 1: store f32, 2: add f32
+  int out_mode;          // 0: store in the value's dtype, 1: store f32, 2: continue from
+                         // the f32 partial in out (start the sums there) and store f32
   int n_lv;              // value levels of this launch
   int smem_bytes;
   int win;               // window taps per axis, 2 ceil(R) + 3
@@ -197,7 +198,7 @@ __device__ __forceinline__ Level<VT> level(const Plan& p, const VT* value, const
 }
 
 // Whether value level l is finer than the query level along either axis.
-__device__ __forceinline__ bool finer(const Plan& p, int l) {
+__host__ __device__ __forceinline__ bool finer(const Plan& p, int l) {
   return p.lvl_h[l] > p.hq || p.lvl_w[l] > p.wq;
 }
 
@@ -360,8 +361,21 @@ __device__ __forceinline__ void sample_level(float (&acc)[kQueriesPerWarp], cons
   }
 }
 
-// Writes the warp's accumulators: in the value's dtype, or stored or added
-// in f32 (out_mode).
+// The warp's accumulators at the start of a launch: 0, or under out_mode 2
+// the f32 partial that an earlier launch of the query level stored, so that
+// the launch continues its sums.
+__device__ __forceinline__ void init_tile(float (&acc)[kQueriesPerWarp], const Plan& p,
+                                          const Tile& t, const void* out, int warp, int lane) {
+#pragma unroll
+  for (int k = 0; k < kQueriesPerWarp; ++k) {
+    const QueryRef r = query_ref(p, t, warp, k);
+    acc[k] = p.out_mode == 2 && r.valid && lane < p.D
+                 ? static_cast<const float*>(out)[r.item * p.D + lane]
+                 : 0.f;
+  }
+}
+
+// Writes the warp's accumulators: in the value's dtype, or in f32 (out_mode).
 template <typename VT>
 __device__ __forceinline__ void write_tile(const float (&acc)[kQueriesPerWarp], const Plan& p,
                                            const Tile& t, void* out, int warp, int lane) {
@@ -373,10 +387,8 @@ __device__ __forceinline__ void write_tile(const float (&acc)[kQueriesPerWarp], 
     const int64_t i = r.item * p.D + lane;
     if (p.out_mode == 0)
       static_cast<VT*>(out)[i] = from_f32<VT>(acc[k]);
-    else if (p.out_mode == 1)
-      static_cast<float*>(out)[i] = acc[k];
     else
-      static_cast<float*>(out)[i] += acc[k];
+      static_cast<float*>(out)[i] = acc[k];
   }
 }
 

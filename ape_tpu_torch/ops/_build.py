@@ -111,7 +111,7 @@ def library() -> ctypes.CDLL:
     lib.ape_msda_fwd_window.restype = i
     lib.ape_msda_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.ape_msda_bwd.restype = i
-    lib.ape_msda_bwd_offatt.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.ape_msda_bwd_offatt.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     lib.ape_msda_bwd_offatt.restype = i
     lib.ape_msda_bwd_value.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.ape_msda_bwd_value.restype = i
@@ -127,6 +127,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, f"ape_msda_fwd_{name}")
         fn.argtypes = [p, p, p, p, ctypes.POINTER(i), f, i, i, p]
         fn.restype = i
+    # K8's D = 32 body: value, offsets, att, grid centers, out, the int plan,
+    # radius, value_bf16, att_f32, variant, stream
+    lib.ape_msda_fwd_qlevel_d32.argtypes = [p, p, p, p, p, ctypes.POINTER(i), f, i, i, i, p]
+    lib.ape_msda_fwd_qlevel_d32.restype = i
     # the probes: K10 (value, loc, att, out, B, Q, H, P, hv, wv, D, variant,
     # value_bf16, stream) and K11 (q, k, v, out, BH, N, DH, scale, is_bf16,
     # bq, bk, stream)
@@ -159,18 +163,26 @@ def ptxas_info(log: Path | None = None) -> dict:
 
 # SASS opcodes sass_counts counts: global loads and stores, tensor-core
 # products (HMMA: mma.sync), shared-memory matrix loads (LDSM: ldmatrix),
-# asynchronous global-to-shared copies (LDGSTS: cp.async) and global
-# reductions (REDG: an atomicAdd whose result is unused); REDG_V4 counts the
+# asynchronous global-to-shared copies (LDGSTS: cp.async), global
+# reductions (REDG: an atomicAdd whose result is unused), atomics that
+# return their result (ATOMG global, ATOM generic), shared-memory loads
+# (LDS) and TMA loads (UTMALDG: cp.async.bulk.tensor); REDG_V4 counts the
 # REDGs of four f32 lanes in one 16-byte access (REDG.E.ADD.F32x4: atomicAdd
 # on float4, compute capability 9.x). LDG_<bits> counts the global loads by
-# width: LDG.E.U16 16 bits, LDG.E 32, LDG.E.64 64, LDG.E.128 128.
-SASS_OPS = ("LDG", "STG", "HMMA", "LDSM", "LDGSTS", "REDG")
+# width: LDG.E.U16 16 bits, LDG.E 32, LDG.E.64 64, LDG.E.128 128; LDS_<bits>
+# the shared-memory loads (LDS.U16, LDS, LDS.64, LDS.128).
+SASS_OPS = ("LDG", "STG", "HMMA", "LDSM", "LDGSTS", "REDG", "ATOMG", "ATOM", "LDS", "UTMALDG")
 LDG_WIDTHS = ("LDG_8", "LDG_16", "LDG_32", "LDG_64", "LDG_128")
+LDS_WIDTHS = ("LDS_8", "LDS_16", "LDS_32", "LDS_64", "LDS_128")
+# every key of a function's counts (parse_sass)
+SASS_KEYS = SASS_OPS + ("REDG_V4",) + LDG_WIDTHS + LDS_WIDTHS
 _LDG = re.compile(r"\bLDG((?:\.[A-Z0-9_]+)*)\s")
+_LDS = re.compile(r"\bLDS((?:\.[A-Z0-9_]+)*)\s")
 
 
 def ldg_width(modifiers: str) -> int:
-    """Bits of a global load, from its opcode's modifiers (".E.64", ...)."""
+    """Bits of a global or shared-memory load, from its opcode's modifiers
+    (".E.64", ...)."""
     mods = set(modifiers.split("."))
     for bits in (128, 64):
         if str(bits) in mods:
@@ -183,23 +195,25 @@ def ldg_width(modifiers: str) -> int:
 def parse_sass(sass: str, pattern: str) -> dict:
     """Per function of a ``cuobjdump -sass`` listing whose mangled name holds
     ``pattern``: {name: {op: static count}} for the ops of ``SASS_OPS``,
-    REDG_V4 and the load widths of ``LDG_WIDTHS``."""
+    REDG_V4 and the load widths of ``LDG_WIDTHS`` and ``LDS_WIDTHS``
+    (``SASS_KEYS``)."""
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             name = name if pattern in name else None
             if name:
-                counts[name] = dict.fromkeys(SASS_OPS + ("REDG_V4",) + LDG_WIDTHS, 0)
+                counts[name] = dict.fromkeys(SASS_KEYS, 0)
         elif name:
             for op in SASS_OPS:
                 if f" {op}." in line or f" {op} " in line:
                     counts[name][op] += 1
             if " REDG." in line and "x4." in line:
                 counts[name]["REDG_V4"] += 1
-            m = _LDG.search(line)
-            if m:
-                counts[name][f"LDG_{ldg_width(m.group(1))}"] += 1
+            for kind, pat in (("LDG", _LDG), ("LDS", _LDS)):
+                m = pat.search(line)
+                if m:
+                    counts[name][f"{kind}_{ldg_width(m.group(1))}"] += 1
     return counts
 
 

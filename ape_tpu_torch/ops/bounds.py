@@ -14,10 +14,12 @@ GRAD_BOUNDS = {"float32": 1e-4, "bfloat16": 1e-2}
 # The split backward (K3: d_loc, d_att; K4: d_value) against the merged one
 # (K2) on the same inputs, each output over its own max |K2|. Both round and
 # bound each sample by csrc/msda_sample.cuh and compute the same per-sample
-# expressions, so K3's outputs differ from K2's only by the order of the
-# channel sums (K3: 32 lanes of one channel; K2 at D = 32: 8 lanes of 4
-# channels) and FMA contraction, and K4's f32 d_value by the run-dependent
-# order of up to ~100 atomic adds per entry (K2 read 2.9e-6 against autograd,
-# PERF.md). bf16: d_att and d_value are rounded to bf16 after those f32 sums,
-# so an entry may land one bf16 step (2^-8 of itself) apart.
+# expressions. K3's D = 32 body shares K2's dot products (sample_dots4) and
+# equals it bit for bit, so the bound serves K3's general body, whose
+# outputs differ from K2's by the order of the channel sums (32 lanes of one
+# channel against 8 lanes of 4 channels) and FMA contraction, and K4's f32
+# d_value, by the run-dependent order of up to ~100 atomic adds per entry
+# (K2 read 2.9e-6 against autograd, PERF.md). bf16: d_att and d_value are
+# rounded to bf16 after those f32 sums, so an entry may land one bf16 step
+# (2^-8 of itself) apart.
 SPLIT_BOUNDS = {"float32": 1e-5, "bfloat16": 4e-3}

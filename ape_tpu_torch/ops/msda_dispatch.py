@@ -17,7 +17,9 @@ one exact bilinear gather, ``csrc/msda_fwd.cu``:
 K1 has two bodies at head width 32, which every MSDA layer of APE has: the
 D = 32 body (8 lanes an item), which launches take there, and the general
 one (a warp an item, every head width), equal bit for bit; ``body`` selects
-either, so that the card can compare them.
+either, so that the card can compare them. K3 (the split backward's d_loc
+and d_att) has the same two bodies, chosen the same way, and K8 (``FUSED``)
+a D = 32 body and a general one (``msda_window_forms.QLEVEL_BODIES``).
 
 Locations stay f32 in both modes. (The JAX exact path rounds them to the
 value dtype first, ``loc.astype(value.dtype)``; at bf16 that moves a tap by up
@@ -315,19 +317,29 @@ def msda_bwd_offatt_cuda(
     loc: torch.Tensor,
     att: torch.Tensor,
     grad_out: torch.Tensor,
+    body: str | None = None,
 ):
     """Launch K3 of ``csrc/msda_bwd_split.cu``: (d_loc, d_att) of
     ``msda_fwd_cuda`` for grad_out (B, Q, H * D), d_loc in f32 and d_att in
-    att's dtype. No atomics: deterministic."""
+    att's dtype. No atomics: deterministic. Two bodies, as K1's: ``body``
+    ("d32" or "general") overrides ``fwd_body``; the D = 32 body's d_loc and
+    d_att equal K2's bit for bit (d_att rounded once to att's dtype), and it
+    takes value, loc and grad_out at 16-byte aligned addresses."""
     sizes, (shapes_t, starts_t) = _check_inputs("msda_bwd_offatt", value, spatial_shapes, loc, att)
     b, _, q, h, d, _, _ = sizes
     _check_grad("msda_bwd_offatt", grad_out, value.dtype, b, q, h, d, value.device)
+    body = fwd_body(d) if body is None else body
+    if body not in BODIES or (body == "d32" and d != 32):
+        raise ValueError(f"msda_bwd_offatt: no body {body!r} at head width {d}")
+    if body == "d32" and any(t.data_ptr() % 16 for t in (value, grad_out, loc)):
+        raise ValueError("msda_bwd_offatt's D = 32 body takes value, grad and locations at "
+                         "16-byte aligned addresses")
     d_loc = torch.empty(loc.shape, dtype=torch.float32, device=value.device)
     d_att = torch.empty(att.shape, dtype=att.dtype, device=value.device)
     err = _build.library().ape_msda_bwd_offatt(
         value.data_ptr(), loc.data_ptr(), att.data_ptr(), shapes_t.data_ptr(),
         starts_t.data_ptr(), grad_out.data_ptr(), d_loc.data_ptr(), d_att.data_ptr(), *sizes,
-        int(value.dtype == torch.bfloat16), int(att.dtype == torch.float32),
+        int(value.dtype == torch.bfloat16), int(att.dtype == torch.float32), BODIES[body],
         torch.cuda.current_stream(value.device).cuda_stream,
     )
     _build.check(err, "msda_bwd_offatt")

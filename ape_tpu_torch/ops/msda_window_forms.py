@@ -15,7 +15,11 @@ with the clip inside the kernel:
   * ``qlevel`` (K8, ``experiments/msda_window_pallas_v5.py``, JAX's
     ``APE_MSDA_FUSED``): per query level one launch of
     ``csrc/msda_fwd_qlevel.cu`` over every value level, or one per group of
-    levels where a block's shared memory cannot hold them all;
+    levels where a block's shared memory cannot hold them all. At head width
+    32 its D = 32 body (``QLEVEL_BODIES``): TMA boxes of the same-or-coarser
+    levels, the finer ones read from device memory, equal to K1's window
+    entry bit for bit; at other widths its general body, which stages a
+    finer level's windows per query;
   * ``dense``  (K9, ``experiments/msda_window_pallas_v6.py``, JAX's
     ``APE_MSDA_V6``): ``csrc/msda_fwd_dense.cu`` on each query level whose
     width is a multiple of 128, one K1 launch over each run of contiguous
@@ -34,6 +38,7 @@ For a CUDA tensor each form launches its kernels or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import Sequence, Tuple
@@ -51,7 +56,23 @@ MAX_LEVELS = 16      # msda_sample.cuh: kMaxLevels
 # Query tiles, largest first, at most WARPS * 16 queries (kQueriesPerWarp).
 TILES = ((8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
 DENSE_WIDTH = 128    # K9 takes the query levels whose width is a multiple of this
-OUT_MODES = {"value": 0, "store": 1, "add": 2}
+# A launch's output: in the value's dtype, the f32 sums stored, or the sums
+# continued from the f32 partial an earlier launch of the query level stored
+# (loaded into the accumulators, then stored).
+OUT_MODES = {"value": 0, "store": 1, "continue": 2}
+# K8's bodies: "d32" (csrc/msda_fwd_qlevel.cu msda_fwd_qlevel_kernel_d32,
+# head width 32 only) and "general" (every head width up to 32).
+QLEVEL_BODIES = ("d32", "general")
+D32_HEADER_BYTES = 256  # the D = 32 body's barriers and box corners, before its boxes
+TMA_ALIGN = 128         # bytes: a TMA box's shared-memory address
+# The D = 32 body's tiles: at most 64 queries, one pass of its 16 warps of 4
+# queries (csrc/msda_fwd_qlevel.cu: kD32Warps)
+D32_TILES = tuple(t for t in TILES if t[0] * t[1] <= 64)
+# What a launch of the D = 32 body does: the op ("whole"), or to time its
+# parts, only the staged levels' samples, only the finer levels', or the
+# whole op with the boxes staged by cp.async instead of TMA (csrc/
+# msda_fwd_qlevel.cu: Variant). Only "whole" gives the op's output.
+D32_VARIANTS = {"whole": 0, "boxes_only": 1, "finer_only": 2, "cp_async": 3}
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -77,7 +98,8 @@ def box_extent(t: int, nq: int, nv: int, win: int) -> int:
 class Launch:
     """One kernel launch of a form: the kernel, its query rows (a query level,
     or for K1 a run of them) and value levels, its tile, the staged box of each
-    value level ((0, 0) for a finer level), shared memory, and output mode."""
+    value level ((0, 0) for a finer level), shared memory, output mode, and
+    body (K8's "d32" or "general"; the other kernels have one body)."""
 
     kernel: str
     query_levels: Tuple[int, ...]
@@ -86,12 +108,36 @@ class Launch:
     boxes: Tuple[Tuple[int, int], ...] = ()
     smem: int = 0
     out_mode: str = "value"
+    body: str = "general"
 
 
-def _layout(kernel, shapes: Shapes, lq: int, lvs, tile, head_dim: int, esize: int, win: int):
+def _d32_layout(shapes: Shapes, lq: int, lvs, tile, esize: int, win: int):
+    """``_layout`` of K8's D = 32 body: the header (D32_HEADER_BYTES), then
+    each staged box at a TMA_ALIGN-byte aligned offset; no query windows (a
+    finer level is read from device memory)."""
+    hq, wq = shapes[lq]
+    boxes, offsets, total = [], [], D32_HEADER_BYTES
+    for lv in lvs:
+        if finer(shapes[lq], shapes[lv]):
+            boxes.append((0, 0))
+            offsets.append(0)
+            continue
+        hv, wv = shapes[lv]
+        box = (box_extent(tile[0], hq, hv, win), box_extent(tile[1], wq, wv, win))
+        total = -(-total // TMA_ALIGN) * TMA_ALIGN
+        boxes.append(box)
+        offsets.append(total // esize)
+        total += box[0] * box[1] * 32 * esize
+    return tuple(boxes), tuple(offsets), 0, 0, total
+
+
+def _layout(kernel, shapes: Shapes, lq: int, lvs, tile, head_dim: int, esize: int, win: int,
+            body: str = "general"):
     """(boxes, box element offsets, window offset, tap byte offset, shared
     bytes) of one launch at a tile. K8 holds every box at once; the other
     kernels re-use one box buffer for their levels."""
+    if body == "d32":
+        return _d32_layout(shapes, lq, lvs, tile, esize, win)
     hq, wq = shapes[lq]
     boxes, offsets, total, widest = [], [], 0, 0
     for lv in lvs:
@@ -114,32 +160,32 @@ def _layout(kernel, shapes: Shapes, lq: int, lvs, tile, head_dim: int, esize: in
     return tuple(boxes), tuple(offsets), win_off, tap_off, smem
 
 
-def _tiles(hq: int, wq: int):
+def _tiles(hq: int, wq: int, body: str = "general"):
     seen = []
-    for ty, tx in TILES:
+    for ty, tx in D32_TILES if body == "d32" else TILES:
         t = (min(ty, hq), min(tx, wq))
         if t not in seen:
             seen.append(t)
     return seen
 
 
-def _fit(kernel, shapes, lq, lvs, head_dim, esize, win, budget, tiles=None):
+def _fit(kernel, shapes, lq, lvs, head_dim, esize, win, budget, tiles=None, body="general"):
     """The largest tile at which the launch fits ``budget`` bytes, with its
     layout; None if none does."""
-    for tile in tiles or _tiles(*shapes[lq]):
-        layout = _layout(kernel, shapes, lq, lvs, tile, head_dim, esize, win)
+    for tile in tiles or _tiles(*shapes[lq], body):
+        layout = _layout(kernel, shapes, lq, lvs, tile, head_dim, esize, win, body)
         if layout[-1] <= budget:
             return tile, layout
     return None
 
 
-def _launch(kernel, shapes, lq, lvs, head_dim, esize, win, budget, out_mode):
-    fit = _fit(kernel, shapes, lq, lvs, head_dim, esize, win, budget)
+def _launch(kernel, shapes, lq, lvs, head_dim, esize, win, budget, out_mode, body="general"):
+    fit = _fit(kernel, shapes, lq, lvs, head_dim, esize, win, budget, body=body)
     if fit is None:
         raise ValueError(f"{kernel}: query level {shapes[lq]} with value levels {lvs} fits no "
                          f"tile in {budget} bytes of shared memory")
     tile, (boxes, _, _, _, smem) = fit
-    return Launch(kernel, (lq,), tuple(lvs), tile, boxes, smem, out_mode)
+    return Launch(kernel, (lq,), tuple(lvs), tile, boxes, smem, out_mode, body)
 
 
 def single_launch(kernel: str, spatial_shapes, lq: int, value_levels: Sequence[int],
@@ -152,14 +198,14 @@ def single_launch(kernel: str, spatial_shapes, lq: int, value_levels: Sequence[i
                    SMEM_LIMIT, out_mode)
 
 
-def _qlevel_groups(shapes, lq, head_dim, esize, win, budget):
+def _qlevel_groups(shapes, lq, head_dim, esize, win, budget, body):
     """v5's greedy packing: a level joins the current group while the group
     still fits at the query level's default tile."""
-    default = _tiles(*shapes[lq])[:1]
+    default = _tiles(*shapes[lq], body)[:1]
     groups, cur = [], []
     for lv in range(len(shapes)):
         if cur and _fit("msda_fwd_qlevel", shapes, lq, cur + [lv], head_dim, esize, win,
-                        budget, default) is None:
+                        budget, default, body) is None:
             groups.append(cur)
             cur = []
         cur.append(lv)
@@ -167,10 +213,25 @@ def _qlevel_groups(shapes, lq, head_dim, esize, win, budget):
 
 
 def plan_layer(form: str, spatial_shapes: Sequence[Tuple[int, int]], head_dim: int,
-               esize: int, radius: float, budget: int = SMEM_LIMIT) -> Tuple[Launch, ...]:
+               esize: int, radius: float, budget: int = SMEM_LIMIT,
+               body: str | None = None) -> Tuple[Launch, ...]:
     """The launches of one encoder layer's window MSDA under a form, for a
-    value of ``esize`` bytes an element. Pure Python: no card needed."""
+    value of ``esize`` bytes an element; K8 takes its body by the head width
+    as K1 does (``msda_dispatch.fwd_body``) unless ``body``
+    (``QLEVEL_BODIES``) says. Pure Python: no card needed; each plan is made
+    once and kept, as the wrappers ask for it at every call."""
+    from ape_tpu_torch.ops.msda_dispatch import fwd_body
+
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    body = fwd_body(head_dim) if body is None else body
+    if body not in QLEVEL_BODIES or (body == "d32" and head_dim != 32):
+        raise ValueError(f"K8 has no body {body!r} at head width {head_dim}")
+    return _plan_layer(form, shapes, head_dim, esize, radius, budget, body)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_layer(form: str, shapes: Shapes, head_dim: int, esize: int, radius: float,
+                budget: int, body: str) -> Tuple[Launch, ...]:
     levels = range(len(shapes))
     win = window_taps(radius)
     if form == "gather":
@@ -180,19 +241,19 @@ def plan_layer(form: str, spatial_shapes: Sequence[Tuple[int, int]], head_dim: i
         if form == "pair":
             for lv in levels:
                 plan.append(_launch("msda_fwd_pair", shapes, lq, [lv], head_dim, esize, win,
-                                    budget, "store" if lv == 0 else "add"))
+                                    budget, "store" if lv == 0 else "continue"))
         elif form == "rows":
             fused = [lv for lv in levels if not finer(shapes[lq], shapes[lv])]
             plan.append(_launch("msda_fwd_rows", shapes, lq, fused, head_dim, esize, win,
                                 budget, "store"))
-            plan += [_launch("msda_fwd_pair", shapes, lq, [lv], head_dim, esize, win, budget, "add")
-                     for lv in levels if lv not in fused]
+            plan += [_launch("msda_fwd_pair", shapes, lq, [lv], head_dim, esize, win, budget,
+                             "continue") for lv in levels if lv not in fused]
         elif form == "qlevel":
-            groups = _qlevel_groups(shapes, lq, head_dim, esize, win, budget)
+            groups = _qlevel_groups(shapes, lq, head_dim, esize, win, budget, body)
             for i, grp in enumerate(groups):
-                mode = "value" if len(groups) == 1 else ("store" if i == 0 else "add")
+                mode = "value" if len(groups) == 1 else ("store" if i == 0 else "continue")
                 plan.append(_launch("msda_fwd_qlevel", shapes, lq, grp, head_dim, esize, win,
-                                    budget, mode))
+                                    budget, mode, body))
         elif form == "dense":
             if shapes[lq][1] % DENSE_WIDTH == 0:
                 plan.append(_launch("msda_fwd_dense", shapes, lq, list(levels), head_dim, esize,
@@ -235,16 +296,23 @@ def window_pair_plain(value_lv: torch.Tensor, offsets_pair: torch.Tensor, att_pa
 
 
 def window_qlevel_plain(value: torch.Tensor, spatial_shapes, lq: int, pixel_offsets: torch.Tensor,
-                        attention_weights: torch.Tensor, radius: float) -> torch.Tensor:
-    """Query level lq's rows of the window op, the sum of its pairs: value
-    (B, S, H, D), pixel_offsets (B, S, H, L, P, 2), attention_weights (B, S,
-    H, L, P) -> (B, H_lq * W_lq, H * D) f32."""
+                        attention_weights: torch.Tensor, radius: float,
+                        value_levels: Sequence[int] | None = None,
+                        partial: torch.Tensor | None = None) -> torch.Tensor:
+    """Query level lq's rows of the window op, the sum of its pairs in level
+    order: value (B, S, H, D), pixel_offsets (B, S, H, L, P, 2),
+    attention_weights (B, S, H, L, P) -> (B, H_lq * W_lq, H * D) f32. The
+    plain model of one K8 launch: over ``value_levels`` (default: every
+    level), its sums continued from ``partial``, the f32 rows an earlier
+    group of the query level gave (out mode "continue"). Chained over a
+    plan's groups it gives the whole query level."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     starts, _ = level_start_index(shapes)
     hq, wq = shapes[lq]
     rows = slice(starts[lq], starts[lq] + hq * wq)
-    out = None
-    for lv, (hv, wv) in enumerate(shapes):
+    out = partial
+    for lv in range(len(shapes)) if value_levels is None else value_levels:
+        hv, wv = shapes[lv]
         part = window_pair_plain(value[:, starts[lv]:starts[lv] + hv * wv],
                                  pixel_offsets[:, rows, :, lv], attention_weights[:, rows, :, lv],
                                  hq, wq, hv, wv, radius)
@@ -299,13 +367,15 @@ def _check(form, value, spatial_shapes, pixel_offsets, att):
     return b, s, h, d, l, p
 
 
+@functools.lru_cache(maxsize=None)
 def _plan_ints(launch: Launch, shapes: Shapes, sizes, esize: int, win: int) -> ctypes.Array:
-    """The int plan that ``csrc/msda_window.cuh``'s parse_plan reads."""
+    """The int plan that ``csrc/msda_window.cuh``'s parse_plan reads (made
+    once per launch and sizes, and never written)."""
     b, s, h, d, l, p = sizes
     lq = launch.query_levels[0]
     starts, _ = level_start_index(shapes)
     _, offsets, win_off, tap_off, smem = _layout(launch.kernel, shapes, lq, launch.value_levels,
-                                                 launch.tile, d, esize, win)
+                                                 launch.tile, d, esize, win, launch.body)
     hq, wq = shapes[lq]
     ints = [b, s, s, h, d, l, p, hq, wq, starts[lq], launch.tile[0], launch.tile[1],
             OUT_MODES[launch.out_mode], len(launch.value_levels), smem, win, win_off, tap_off]
@@ -316,10 +386,20 @@ def _plan_ints(launch: Launch, shapes: Shapes, sizes, esize: int, win: int) -> c
     return (ctypes.c_int * len(ints))(*ints)
 
 
+# csrc/msda_fwd_qlevel.cu's codes for tensor maps it could not make
+TENSOR_MAP_ERRORS = {-1: "libcuda has no cuTensorMapEncodeTiled",
+                     -2: "cuTensorMapEncodeTiled refused a level's tensor map"}
+
+
 def launch_cuda(launch: Launch, value: torch.Tensor, spatial_shapes, pixel_offsets: torch.Tensor,
-                att: torch.Tensor, out: torch.Tensor, radius: float) -> None:
+                att: torch.Tensor, out: torch.Tensor, radius: float,
+                variant: str = "whole") -> None:
     """Launch one of a plan's form kernels into ``out`` (B, S, H * D): the
-    value's dtype for out mode "value", else f32."""
+    value's dtype for out mode "value", else f32. K8's D = 32 body runs as
+    ``variant`` (``D32_VARIANTS``) and raises if its TMA tensor maps cannot
+    be made; nothing else runs in its place."""
+    from ape_tpu_torch.ops.msda_dispatch import grid_centers
+
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     sizes = _check(launch.kernel, value, shapes, pixel_offsets, att)
     b, s, h, d = sizes[:4]
@@ -329,24 +409,39 @@ def launch_cuda(launch: Launch, value: torch.Tensor, spatial_shapes, pixel_offse
         raise ValueError(f"{launch.kernel}: out {out.dtype} {tuple(out.shape)} is not a "
                          f"contiguous {want} {(b, s, h * d)} on the value's device")
     plan = _plan_ints(launch, shapes, sizes, value.element_size(), window_taps(radius))
-    err = getattr(_build.library(), "ape_" + launch.kernel)(
-        value.data_ptr(), pixel_offsets.data_ptr(), att.data_ptr(), out.data_ptr(), plan,
-        float(radius), int(value.dtype == torch.bfloat16), int(att.dtype == torch.float32),
-        torch.cuda.current_stream(value.device).cuda_stream)
+    flags = (float(radius), int(value.dtype == torch.bfloat16), int(att.dtype == torch.float32),
+             torch.cuda.current_stream(value.device).cuda_stream)
+    if launch.body == "d32":
+        if d != 32 or out.data_ptr() % 16:
+            raise ValueError(f"{launch.kernel}: the D = 32 body takes head width 32 and a "
+                             f"16-byte aligned out, got {d}")
+        err = _build.library().ape_msda_fwd_qlevel_d32(
+            value.data_ptr(), pixel_offsets.data_ptr(), att.data_ptr(),
+            grid_centers(shapes, value.device).data_ptr(), out.data_ptr(), plan, *flags[:3],
+            D32_VARIANTS[variant], flags[3])
+        if err in TENSOR_MAP_ERRORS:
+            raise RuntimeError(f"{launch.kernel}: no TMA tensor map: {TENSOR_MAP_ERRORS[err]} "
+                               f"(boxes {launch.boxes}, {torch.cuda.get_device_name()})")
+    else:
+        err = getattr(_build.library(), "ape_" + launch.kernel)(
+            value.data_ptr(), pixel_offsets.data_ptr(), att.data_ptr(), out.data_ptr(), plan,
+            *flags)
     _build.check(err, launch.kernel)
     _build.LAUNCHES[launch.kernel] += 1
 
 
 def window_form_cuda(form: str, value: torch.Tensor, spatial_shapes, pixel_offsets: torch.Tensor,
-                     att: torch.Tensor, radius: float) -> torch.Tensor:
+                     att: torch.Tensor, radius: float, body: str | None = None,
+                     budget: int = SMEM_LIMIT) -> torch.Tensor:
     """The window op under a form on CUDA tensors: value (B, S, H, D),
     pixel_offsets (B, S, H, L, P, 2) f32, att (B, S, H, L, P) -> (B, S, H *
-    D) in the value's dtype, by the form's plan (``plan_layer``)."""
+    D) in the value's dtype, by the form's plan (``plan_layer``, with K8's
+    ``body`` and the shared-memory ``budget``)."""
     from ape_tpu_torch.ops import msda_dispatch
 
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     d = _check(form, value, shapes, pixel_offsets, att)[3]
-    plan = plan_layer(form, shapes, d, value.element_size(), radius)
+    plan = plan_layer(form, shapes, d, value.element_size(), radius, budget, body)
     return run_plan(plan, value, shapes, pixel_offsets, att, radius, launch_cuda,
                     msda_dispatch.msda_fwd_cuda)
 
@@ -356,8 +451,9 @@ def run_plan(plan: Sequence[Launch], value, shapes: Shapes, pixel_offsets, att, 
     """Run a plan's launches: ``launch(x, value, shapes, pixel_offsets, att,
     out, radius)`` for a form kernel, ``gather(value, shapes, loc, att)`` (K1)
     for a run of query levels. Launches of out mode "value" write the output
-    in the value's dtype; the others store and add f32 partials, which are
-    cast once a query level's launches have all run."""
+    in the value's dtype; the others store f32 partials and continue from
+    them, and the partials are cast once a query level's launches have all
+    run."""
     from ape_tpu_torch.ops import msda_dispatch
 
     b, s, h, d = value.shape

@@ -16,7 +16,11 @@ offset draws: ``ring`` (the ring init plus 1.5 N(0, 1) pixels, as
 ``full_op_race.py`` at its default OFF_SCALE). Then per-pair times: K6 for
 every pair of the 4-scale pyramid, as ``pair_suite.py``; K9 beside K1 for
 the pairs of the 128-wide query levels, as ``pair_suite_v6.py``; and K1 on
-every pair.
+every pair. Last, where K8's D = 32 body spends its time (ring draw): the
+device time (``device_ms``) of the whole op and of each query level's launch, for the op
+and for its parts (``msda_window_forms.D32_VARIANTS``: the staged levels'
+samples alone, the finer levels' alone, the boxes staged by cp.async
+instead of TMA), beside K1's window entry and K8's general body.
 
 Each line is one JSON record with the form's launches per layer, its bound
 (the bytes it must move over 3.35 TB/s: value, offsets, weights and output
@@ -38,7 +42,7 @@ from ape_tpu_torch.layers.msda_module import _offset_bias_init
 from ape_tpu_torch.ops import _build
 from ape_tpu_torch.ops import msda_window_forms as forms
 from ape_tpu_torch.ops.msda import level_start_index
-from ape_tpu_torch.ops.msda_dispatch import msda_fwd_cuda, window_locations
+from ape_tpu_torch.ops.msda_dispatch import msda_fwd_cuda, msda_fwd_window_cuda, window_locations
 
 HEADS, HEAD_DIM, POINTS, RADIUS = 8, 32, 4, 4
 PYRAMIDS = {"protocol": (((128, 128), (64, 64), (32, 32), (16, 16), (8, 8)), 1),
@@ -91,6 +95,58 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of fn()'s launches per call, run back to back: after a
+    warm-up a spin kernel (``torch.cuda._sleep``) holds the stream while
+    the host enqueues ``iters`` calls between two CUDA events, so the host's
+    time between launches does not count, as it does in ``cuda_ms`` for a
+    launch shorter than its call. The hold grows until the host is done
+    before the first event is reached. (``torch.profiler``'s device time,
+    which ``chip_smoke.kernel_ms`` reads, came back with some kernels
+    missing late in a long process on an H100: 0.020 ms for K1's window
+    entry, whose events read 0.206.)"""
+    fn()
+    torch.cuda.synchronize()
+    hold = 10_000_000  # clock cycles, about 5 ms
+    for _ in range(6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        held = not start.query()  # the stream was still held when the last call was enqueued
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / iters
+        hold *= 4
+    raise RuntimeError("device_ms: the host did not enqueue the calls within the hold")
+
+
+def qlevel_parts(value, shapes, off, att, iters: int, card: str, base: dict):
+    """Records of K8's D = 32 body by its parts: for each variant, the
+    device time of the whole op (its plan's launches) and of each query
+    level's launch; K1's window entry and K8's general body beside."""
+    plan = forms.plan_layer("qlevel", shapes, HEAD_DIM, value.element_size(), RADIUS)
+    out = torch.empty(*value.shape[:2], HEADS * HEAD_DIM, dtype=value.dtype, device=value.device)
+
+    def run(launches, variant):
+        return lambda: [forms.launch_cuda(x, value, shapes, off, att, out, RADIUS, variant)
+                        for x in launches]
+
+    recs = [dict(base, body="general", device_ms=device_ms(lambda: forms.window_form_cuda(
+                "qlevel", value, shapes, off, att, RADIUS, body="general"), iters), card=card),
+            dict(base, kernel="msda_fwd_window", device_ms=device_ms(
+                lambda: msda_fwd_window_cuda(value, shapes, off, att, RADIUS), iters), card=card)]
+    for variant in forms.D32_VARIANTS:
+        recs.append(dict(base, body="d32", variant=variant, device_ms=device_ms(run(plan, variant),
+                                                                                iters),
+                         per_query_level_ms=[device_ms(run([x], variant), iters) for x in plan],
+                         tiles=[list(x.tile) for x in plan], smem=[x.smem for x in plan],
+                         card=card))
+    return recs
 
 
 def form_op(form: str, value, shapes, off, att):
@@ -166,8 +222,10 @@ def race(dev, card: str, iters: int = 20):
                            card=card)
                 print(json.dumps(rec), flush=True)
                 recs.append(rec)
+            parts = qlevel_parts(value, shapes, off, att, iters, card,
+                                 dict(base, phase="race_qlevel")) if draw == "ring" else []
             for rec in _pairs(value, shapes, off, att, batch, esize, iters, card,
-                              dict(base, phase="race_pair")):
+                              dict(base, phase="race_pair")) + parts:
                 print(json.dumps(rec), flush=True)
                 recs.append(rec)
             del value, off, att, gather

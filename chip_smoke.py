@@ -15,7 +15,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    D = 32 body holds 16-byte vector reductions into d_value, no scalar one,
    and spills nothing; every instance of K1's D = 32 body reads its corners
    by 64-bit (bf16) or 128-bit (f32) loads, no 16-bit one, and spills
-   nothing; the general bodies' instances are recorded beside;
+   nothing; every instance of K8's D = 32 body loads its boxes by TMA
+   (UTMALDG) and reads them by 64-bit (bf16) or 128-bit (f32) shared loads,
+   no 16-bit value load, within 64 registers and no spill; every instance of
+   K3's D = 32 body reads its corners by 64- or 128-bit loads, holds no
+   reduction or atomic, and spills nothing; the general bodies' instances
+   are recorded beside;
 3. kernels: each forward CUDA kernel against its plain PyTorch version at
    every shape set the main paths give it (the protocol pyramid at batch 1;
    the 4-scale pyramid at batch 1 with 900 decoder queries and at batch 2
@@ -26,15 +31,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    against the ``window_locations`` + K1 it replaces; then the encoder's
    other window forms, K6 (all pairs), K7 (+ K6), K8 and K9 (+ K1), each
    against the plain version and against K1 at the protocol pyramid (batch
-   1) and the 4-scale one (batch 2);
+   1) and the 4-scale one (batch 2); K8's D = 32 body also against K1's
+   window entry and K1 on ``window_locations`` bit for bit, as planned and
+   with a budget cut to force groups, and its general body timed beside;
 4. backward kernels: each backward kernel against torch autograd of its
    plain version at the training shapes, in f32 and bf16, with times (the
    attention backward beside that of ``F.scaled_dot_product_attention``,
    both also as their kernels' device time by ``torch.profiler``; the dQ
    kernel's delta also against the plain row sum of O * dO); the split
-   MSDA backward (K3, K4) also against the merged one (K2); K2 at head
-   width 32 (the encoder's and the decoder's case) and, for its general
-   body, 64 (the decoder's);
+   MSDA backward (K3, K4) also against the merged one (K2), K3's D = 32
+   body's d_loc and d_att bit for bit, its general body within bounds and
+   timed beside; K2 at head width 32 (the encoder's and the decoder's case)
+   and, for its general body, 64 (the decoder's);
 5. slice: ``build_ape_ti`` at the reference latency protocol (1024^2, bf16,
    900 queries, 80 text features of width 1024, N(0, 0.02) weights with the
    ring-init offsets re-armed): launch counts per forward, host syncs (each
@@ -69,7 +77,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     then the same step once more with the split backward, held against the
     merged one;
 13. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
-    form at both pyramids and both offset draws, and its per-pair suites;
+    form at both pyramids and both offset draws, its per-pair suites, and
+    K8's D = 32 body by its parts (device time per query level);
     then ``ape_tpu_torch.tools.msda_bwd_race``, the backward forms (K2, K3 +
     K4, autograd of the plain version) at the same pyramids and draws, each
     within its bound of the plain version or of K2;
@@ -86,7 +95,9 @@ Then the kernels line (each kernel's launches over every path: ``launches``
 over all of them, ``launches_main`` over the serving and training phases
 alone, 5-11, ``launches_default`` over those of them that run the default
 flags: slice, serve, train, full serve and full train with the merged
-backward; error, time, plain and library time, and bound) and, last,
+backward; error, time, plain and library time, and bound; for K1, K3 and
+K8, whose D = 32 body runs there, the general body's time as
+``general_ms``) and, last,
 {"ok": true, "device": {...}}. The script needs the repository around it and
 a CUDA card; it imports no JAX.
 """
@@ -190,25 +201,32 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+PROFILE_TRIES = 3
+
+
 def kernel_ms(fn, iters: int = 20) -> float:
     """Summed device time of the kernels fn() launches, per call, by
     torch.profiler over ``iters`` calls after one warm-up: unlike
     ``cuda_ms``, it leaves out the device's idle time between launches,
-    where the host is still in Python or autograd."""
+    where the host is still in Python or autograd. A profiled window at
+    times comes back with no device activity at all (once in the K1 body
+    sweep of one run on an H100): it is profiled again, at most
+    PROFILE_TRIES times in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation)
-    if not us > 0:
-        fail("torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation)
+        if us > 0:
+            return us / 1e3 / iters
+    fail(f"torch.profiler recorded no device time in {PROFILE_TRIES} windows")
 
 
 def bound(nbytes: float, flops: float, peak: float):
@@ -290,6 +308,8 @@ def build_phase():
     tensor_core_check()
     vector_reduction_check()
     vector_gather_check()
+    d32_body_check(QLEVEL_D32_KERNEL, GENERAL_K8_KERNEL, qlevel_faults, D32_INSTANCES)
+    d32_body_check(OFFATT_D32_KERNEL, GENERAL_K3_KERNEL, offatt_faults, D32_INSTANCES)
 
 
 # Kernels whose bf16 instances run on the tensor cores (mma.sync, HMMA in their
@@ -403,32 +423,103 @@ def gather_faults(name: str, ops: dict, info: dict):
         bad.append(f"{name}: {ops[f'LDG_{width}']} {width}-bit loads, fewer than 4 corners")
     if ops["LDG_16"] > (att == "bfloat16"):
         bad.append(f"{name}: {ops['LDG_16']} 16-bit loads")
-    if info.get("spill_stores", 0) or info.get("spill_loads", 0):
-        bad.append(f"{name}: spills {info.get('spill_stores')} / {info.get('spill_loads')} bytes")
-    return rec, bad
+    return rec, bad + _spill_faults(name, info)
 
 
 def vector_gather_check():
-    """Every instance of VECTOR_GATHER_KERNEL held to ``gather_faults``, one
-    record an instance (its static SASS counts and what ptxas reported), the
-    general body's instances recorded beside."""
+    """Every instance of VECTOR_GATHER_KERNEL held to ``gather_faults``, the
+    general body's instances recorded beside (``d32_body_check``)."""
+    d32_body_check(VECTOR_GATHER_KERNEL, GENERAL_K1_KERNEL, gather_faults,
+                   VECTOR_GATHER_INSTANCES)
+
+
+def d32_body_check(kernel: str, general: str, faults, instances: int):
+    """Every instance of a D = 32 body in the built library held to
+    ``faults(name, ops, info) -> (record, faults)``, one record an instance
+    (its static SASS counts and what ptxas reported), and each instance of
+    the kernel's general body (mangled ``general``) recorded beside; each
+    body must have ``instances`` instances."""
     from ape_tpu_torch.ops import _build
 
     info = _build.ptxas_info()
-    counts = _build.sass_counts(VECTOR_GATHER_KERNEL)
-    general = _build.sass_counts(GENERAL_K1_KERNEL)
+    counts = _build.sass_counts(kernel)
+    others = _build.sass_counts(general)
     bad = []
     for name, ops in sorted(counts.items()):
-        rec, faults = gather_faults(name, ops, info.get(name, {}))
+        rec, found = faults(name, ops, info.get(name, {}))
         log(**rec)
-        bad += faults
-    for name, ops in sorted(general.items()):
-        log(phase="sass", kernel="msda_fwd_kernel", name=name, **ops, **info.get(name, {}))
-    if (len(counts) != VECTOR_GATHER_INSTANCES or len(general) != VECTOR_GATHER_INSTANCES
-            or bad):
-        fail(f"vector-gather check: {len(counts)} instances of {VECTOR_GATHER_KERNEL} and "
-             f"{len(general)} of msda_fwd_kernel, expected {VECTOR_GATHER_INSTANCES} each; "
-             f"{'; '.join(bad)}")
+        bad += found
+    for name, ops in sorted(others.items()):
+        log(phase="sass", kernel=general.rstrip("I"), name=name, **ops, **info.get(name, {}))
+    if len(counts) != instances or len(others) != instances or bad:
+        fail(f"SASS check of {kernel}: {len(counts)} instances and {len(others)} of "
+             f"{general.rstrip('I')}, expected {instances} each; {'; '.join(bad)}")
+
+
+# K8's and K3's D = 32 bodies, and their general ones (every head width),
+# each with instances (value, attention weights) bf16/bf16, bf16/f32, f32/f32.
+QLEVEL_D32_KERNEL, GENERAL_K8_KERNEL = "msda_fwd_qlevel_kernel_d32", "msda_fwd_qlevel_kernelI"
+OFFATT_D32_KERNEL, GENERAL_K3_KERNEL = "msda_bwd_offatt_kernel_d32", "msda_bwd_offatt_kernelI"
+D32_INSTANCES = 3
+D32_MAX_REGISTERS = 64  # __launch_bounds__(256, 4)
+
+
+def _instance_dtypes(kernel: str, name: str):
+    """(value dtype, attention-weight dtype) of an instance of a kernel
+    templated on <value, weights>, from its mangled template arguments."""
+    import re
+
+    m = re.search(rf"{kernel}I(.+?)EEv", name)
+    if m is None:
+        fail(f"unexpected instance {name}")
+    args = m.group(1)
+    value = "bfloat16" if args.startswith("13__nv_bfloat16") else "float32"
+    return value, "float32" if args.endswith("f") else value
+
+
+def _spill_faults(name: str, info: dict):
+    if info.get("spill_stores", 0) or info.get("spill_loads", 0):
+        return [f"{name}: spills {info.get('spill_stores')} / {info.get('spill_loads')} bytes"]
+    return []
+
+
+def qlevel_faults(name: str, ops: dict, info: dict):
+    """One instance of K8's D = 32 body: (its record, its faults): no TMA load
+    (UTMALDG), fewer than four box corner reads of the value dtype's
+    4-channel width from shared memory (LDS.64 in bf16, LDS.128 in f32), a
+    16-bit load from shared memory or, besides a bf16 attention weight's,
+    from device memory, over D32_MAX_REGISTERS registers, a spill."""
+    value, att = _instance_dtypes(QLEVEL_D32_KERNEL, name)
+    width = 64 if value == "bfloat16" else 128
+    rec = dict(phase="sass", kernel=QLEVEL_D32_KERNEL, value=value, att=att,
+               box_load_bits=width, name=name, **ops, **info)
+    bad = _spill_faults(name, info)
+    if ops["UTMALDG"] < 1:
+        bad.append(f"{name}: no TMA load")
+    if ops[f"LDS_{width}"] < 4:
+        bad.append(f"{name}: {ops[f'LDS_{width}']} {width}-bit shared loads, fewer than 4 corners")
+    if ops["LDS_16"] or ops["LDG_16"] > (att == "bfloat16"):
+        bad.append(f"{name}: {ops['LDS_16']} 16-bit shared and {ops['LDG_16']} device loads")
+    if info.get("registers", 0) > D32_MAX_REGISTERS:
+        bad.append(f"{name}: {info['registers']} registers")
+    return rec, bad
+
+
+def offatt_faults(name: str, ops: dict, info: dict):
+    """One instance of K3's D = 32 body: (its record, its faults): fewer than
+    four corner loads of the value dtype's 4-channel width (LDG.E.64 in
+    bf16, LDG.E.128 in f32), any reduction or atomic (it writes each output
+    once), a spill."""
+    value, att = _instance_dtypes(OFFATT_D32_KERNEL, name)
+    width = 64 if value == "bfloat16" else 128
+    rec = dict(phase="sass", kernel=OFFATT_D32_KERNEL, value=value, att=att,
+               corner_load_bits=width, name=name, **ops, **info)
+    bad = _spill_faults(name, info)
+    if ops[f"LDG_{width}"] < 4:
+        bad.append(f"{name}: {ops[f'LDG_{width}']} {width}-bit loads, fewer than 4 corners")
+    if ops["REDG"] or ops["ATOMG"] or ops["ATOM"]:
+        bad.append(f"{name}: {ops['REDG']} REDG, {ops['ATOMG']} ATOMG, {ops['ATOM']} ATOM")
+    return rec, bad
 
 
 def _ring(levels: int):
@@ -629,6 +720,41 @@ def kernels_phase(dev):
 # The window forms' cases: (suffix, pyramid, batch). The kernels line reads
 # the protocol's.
 FORM_CASES = (("", SHAPES, 1), ("_train", TRAIN_SHAPES, TRAIN_BATCH))
+# K8's shared-memory budget, per byte of a value element, that forces its
+# D = 32 body's plan into two or more groups at most query levels of both
+# pyramids (14-17 launches a layer against 5)
+FORCED_GROUP_BUDGET = 12 * 1024
+
+
+def qlevel_bodies(value, shapes, off, att, k1, name: str, dname: str) -> dict:
+    """K8's D = 32 body against K1's window entry and against K1 on
+    ``window_locations`` (``k1``) bit for bit, as planned and under
+    FORCED_GROUP_BUDGET, and its general body timed beside; the record's
+    fields."""
+    import torch
+
+    from ape_tpu_torch.ops.msda_dispatch import msda_fwd_window_cuda
+    from ape_tpu_torch.ops.msda_window_forms import plan_layer, window_form_cuda
+
+    k1w = msda_fwd_window_cuda(value, shapes, off, att, RADIUS)
+    budget = FORCED_GROUP_BUDGET * value.element_size()
+    runs = {"planned": window_form_cuda("qlevel", value, shapes, off, att, RADIUS, body="d32"),
+            "forced_groups": window_form_cuda("qlevel", value, shapes, off, att, RADIUS,
+                                              body="d32", budget=budget)}
+    grouped = len(plan_layer("qlevel", shapes, HEAD_DIM, value.element_size(), RADIUS, budget))
+    for run, got in runs.items():
+        for ref, want in (("msda_fwd_window", k1w), ("msda_fwd on window_locations", k1)):
+            if not torch.equal(got, want):
+                err = float((got.float() - want.float()).abs().max())
+                fail(f"{name} {dname}: K8's D = 32 body ({run}) differs from {ref} by {err}")
+    return dict(d32_equals_msda_fwd_window=True, forced_group_launches=grouped,
+                forced_groups_ms=cuda_ms(lambda: window_form_cuda(
+                    "qlevel", value, shapes, off, att, RADIUS, body="d32", budget=budget),
+                    FORM_ITERS),
+                general_ms=cuda_ms(lambda: window_form_cuda(
+                    "qlevel", value, shapes, off, att, RADIUS, body="general"), FORM_ITERS),
+                msda_fwd_window_ms=cuda_ms(lambda: msda_fwd_window_cuda(
+                    value, shapes, off, att, RADIUS), FORM_ITERS))
 
 
 def forms_kernels_step(dev):
@@ -636,7 +762,7 @@ def forms_kernels_step(dev):
     op of one encoder layer, against the plain version and against K1 on the
     same inputs (the ring draw), at the protocol pyramid (batch 1) and the
     4-scale one (batch 2), in f32 and bf16: errors, times, bound, launches
-    per layer."""
+    per layer; K8's two bodies also by ``qlevel_bodies``."""
     import torch
 
     from ape_tpu_torch.ops import _build
@@ -672,6 +798,8 @@ def forms_kernels_step(dev):
                                                                RADIUS), FORM_ITERS),
                            plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                            bound_by=bound_by)
+                if form == "qlevel":
+                    rec.update(qlevel_bodies(value, shapes, off, att, k1, name, dname))
                 log(**rec)
                 if not (err <= limit and err_k1 <= limit):
                     fail(f"{name} {dname}: max |form - plain| {err}, |form - K1| {err_k1} > {limit}")
@@ -739,7 +867,8 @@ def backward_kernels_phase(dev):
 
     results = {}
 
-    def record(name, dname, errors, kernel, plain, bound_ms, vs_merged=None, library=None):
+    def record(name, dname, errors, kernel, plain, bound_ms, vs_merged=None, library=None,
+               extra=None):
         rec = dict(phase="kernel_bwd", name=name, dtype=dname,
                    max_abs_err=max(e[0] for e in errors.values()),
                    abs_err={n: e[0] for n, e in errors.items()},
@@ -752,6 +881,7 @@ def backward_kernels_phase(dev):
         if vs_merged is not None:
             rec.update(rel_err_vs_msda_bwd={n: e[1] for n, e in vs_merged.items()},
                        bound_vs_msda_bwd=SPLIT_BOUNDS[dname])
+        rec.update(extra or {})
         log(**rec)
         for n, (_, rel) in errors.items():
             if not rel <= GRAD_BOUNDS[dname]:
@@ -777,13 +907,27 @@ def backward_kernels_phase(dev):
             err = _errors(("d_value", "d_loc", "d_att"), merged, want)
             split = None
             if name == "msda_bwd_encoder":  # the split form serves the encoder only
-                offatt = msda_bwd_offatt_cuda(value, TRAIN_SHAPES, loc, att, gout)
+                # K3's D = 32 body: K2's d_loc and d_att bit for bit; its
+                # general body within bounds of autograd and of K2
+                offatt = msda_bwd_offatt_cuda(value, TRAIN_SHAPES, loc, att, gout, body="d32")
+                general = msda_bwd_offatt_cuda(value, TRAIN_SHAPES, loc, att, gout,
+                                               body="general")
+                for out_name, got, ref in zip(("d_loc", "d_att"), offatt, merged[1:]):
+                    if not torch.equal(got, ref):
+                        err = float((got.float() - ref.float()).abs().max())
+                        fail(f"msda_bwd_offatt {dname}: the D = 32 body's {out_name} differs "
+                             f"from K2's by {err}")
                 d_value = msda_bwd_value_cuda(TRAIN_SHAPES, loc, att, gout)
                 split = {"msda_bwd_offatt": (_errors(("d_loc", "d_att"), offatt, want[1:]),
-                                             _errors(("d_loc", "d_att"), offatt, merged[1:])),
+                                             _errors(("d_loc", "d_att"), general, merged[1:])),
                          "msda_bwd_value": (_errors(("d_value",), [d_value], want[:1]),
                                             _errors(("d_value",), [d_value], merged[:1]))}
-                del offatt, d_value
+                general_errs = _errors(("d_loc", "d_att"), general, want[1:])
+                for n, (_, rel) in general_errs.items():
+                    if not rel <= GRAD_BOUNDS[dname]:
+                        fail(f"msda_bwd_offatt {dname}: the general body's {n}: max |kernel - "
+                             f"autograd of plain| / max |plain| {rel} > {GRAD_BOUNDS[dname]}")
+                del offatt, general, d_value
             del merged, leaves, want
             plain_leaves = [t.detach().clone().requires_grad_() for t in (value, loc, att)]
             out = ms_deform_attn(plain_leaves[0], TRAIN_SHAPES, *plain_leaves[1:])
@@ -798,7 +942,12 @@ def backward_kernels_phase(dev):
                 errs, vs = split["msda_bwd_offatt"]
                 record("msda_bwd_offatt", dname, errs,
                        lambda: msda_bwd_offatt_cuda(value, TRAIN_SHAPES, loc, att, gout),
-                       plain_bwd(1, 2), msda_bound("msda_bwd_offatt", b, s, nq, lv, es), vs)
+                       plain_bwd(1, 2), msda_bound("msda_bwd_offatt", b, s, nq, lv, es), vs,
+                       extra=dict(
+                           d32_equals_msda_bwd=True, vs_msda_bwd_body="general",
+                           general_rel_err={n: e[1] for n, e in general_errs.items()},
+                           general_ms=cuda_ms(lambda: msda_bwd_offatt_cuda(
+                               value, TRAIN_SHAPES, loc, att, gout, body="general"))))
                 errs, vs = split["msda_bwd_value"]
                 record("msda_bwd_value", dname, errs,
                        lambda: msda_bwd_value_cuda(TRAIN_SHAPES, loc, att, gout), plain_bwd(0),
@@ -1560,7 +1709,8 @@ def main():
                         "launches_default": launches_default[name],
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+                        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                        **({"general_ms": rec["general_ms"]} if "general_ms" in rec else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -9,6 +9,8 @@ test conftest, so it runs on a machine that has no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +40,7 @@ from ape_tpu_torch.ops.msda_dispatch import (
     msda_fwd_window_cuda,
     window_locations,
 )
+from ape_tpu_torch.ops import msda_window_forms as forms
 from ape_tpu_torch.ops.msda_window_forms import window_form_cuda, window_plain
 from ape_tpu_torch.tools.msda_race import PYRAMIDS, RADIUS, window_inputs
 from ape_tpu_torch.tools.pair_probe import BOUND as PROBE_BOUND, pair_inputs
@@ -328,12 +331,15 @@ def test_msda_autograd_runs_the_kernels(device):
 SPLIT_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
 
 
+@pytest.mark.parametrize("body", sorted(BODIES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_msda_split_backward_kernels_match_autograd_and_merged(device, dtype):
-    """K3 (d_loc, d_att) and K4 (d_value) against autograd of the plain
-    version and against K2 on the same inputs."""
+def test_msda_split_backward_kernels_match_autograd_and_merged(device, dtype, body):
+    """K3 (d_loc, d_att; each body) and K4 (d_value) against autograd of the
+    plain version and against K2 on the same inputs; K3's D = 32 body equals
+    K2's d_loc and d_att bit for bit (d_att rounded once to the weights'
+    dtype)."""
     shapes, value, loc, att, grad = _msda_grad_inputs(device, dtype)
-    d_loc, d_att = msda_bwd_offatt_cuda(value, shapes, loc, att, grad)
+    d_loc, d_att = msda_bwd_offatt_cuda(value, shapes, loc, att, grad, body=body)
     d_value = msda_bwd_value_cuda(shapes, loc, att, grad)
     assert (d_value.dtype, d_loc.dtype, d_att.dtype) == (dtype, torch.float32, dtype)
     leaves = [value.detach().float().requires_grad_(), loc.clone().requires_grad_(),
@@ -347,6 +353,12 @@ def test_msda_split_backward_kernels_match_autograd_and_merged(device, dtype):
         assert float((g.float() - w).abs().max()) < GRAD_TOL[dtype] * scale, name
         m_scale = max(float(m.float().abs().max()), 1e-30)
         assert float((g.float() - m.float()).abs().max()) <= SPLIT_TOL[dtype] * m_scale, name
+    if body == "d32":
+        assert torch.equal(d_loc, merged[1]) and torch.equal(d_att, merged[2])
+    f32_att = msda_bwd_offatt_cuda(value, shapes, loc, att.float(), grad, body=body)[1]
+    assert f32_att.dtype == torch.float32
+    if body == "d32":
+        assert torch.equal(f32_att, msda_bwd_cuda(value, shapes, loc, att.float(), grad)[2])
 
 
 def test_msda_split_route_serves_the_encoder_only(device, monkeypatch):
@@ -420,22 +432,67 @@ def test_attention_dq_kernel_returns_delta(device, dtype, n, dh):
     assert bool(((delta - prod.sum(-1)).abs() <= 2 * dh * 2**-24 * prod.abs().sum(-1)).all())
 
 
+# (form, body): K8 (qlevel) with each of its bodies; the other forms have one
+FORM_BODIES = [("pair", None), ("rows", None), ("qlevel", "d32"), ("qlevel", "general"),
+               ("dense", None)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pyramid", sorted(PYRAMIDS))
-@pytest.mark.parametrize("form", ["pair", "rows", "qlevel", "dense"])
-def test_window_form_kernels_match_plain_and_k1(device, form, pyramid, dtype):
-    """K6 (all pairs), K7 (+ K6), K8 and K9 (+ K1) as the whole window op at
-    the protocol pyramid (batch 1) and the 4-scale one (batch 2), radius 4,
-    against the plain version and against K1 on the same inputs."""
+@pytest.mark.parametrize("form,body", FORM_BODIES)
+def test_window_form_kernels_match_plain_and_k1(device, form, body, pyramid, dtype):
+    """K6 (all pairs), K7 (+ K6), K8 (each body) and K9 (+ K1) as the whole
+    window op at the protocol pyramid (batch 1) and the 4-scale one (batch
+    2), radius 4, against the plain version and against K1 on the same
+    inputs; K8's D = 32 body equal to K1's window entry and to K1 on
+    ``window_locations`` bit for bit."""
     shapes, batch = PYRAMIDS[pyramid]
     value, off, att = window_inputs(torch.Generator().manual_seed(5), shapes, batch, "ring", dtype,
                                     device)
-    got = window_form_cuda(form, value, shapes, off, att, RADIUS)
+    got = window_form_cuda(form, value, shapes, off, att, RADIUS, body=body)
     assert got.dtype == dtype and got.shape == (batch, value.shape[1], 256)
     plain = window_plain(value, shapes, off, att, RADIUS)
     k1 = msda_fwd_cuda(value, shapes, window_locations(shapes, off, RADIUS).contiguous(), att)
     assert float((got.float() - plain.float()).abs().max()) < TOL[dtype]
     assert float((got.float() - k1.float()).abs().max()) < TOL[dtype]
+    if body == "d32":
+        assert torch.equal(got, k1)
+        assert torch.equal(got, msda_fwd_window_cuda(value, shapes, off, att, RADIUS))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pyramid", sorted(PYRAMIDS))
+def test_qlevel_d32_many_groups_equal_k1_window(device, pyramid, dtype):
+    """K8's D = 32 body under a shared-memory budget that splits most query
+    levels into two or more groups: each later group continues the f32
+    partial, and the whole op still equals K1's window entry bit for bit."""
+    shapes, batch = PYRAMIDS[pyramid]
+    value, off, att = window_inputs(torch.Generator().manual_seed(8), shapes, batch, "ring", dtype,
+                                    device)
+    budget = 12 * 1024 * value.element_size()
+    plan = forms.plan_layer("qlevel", shapes, 32, value.element_size(), RADIUS, budget)
+    assert len(plan) >= 2 * len(shapes)
+    before = _build.LAUNCHES["msda_fwd_qlevel"]
+    got = window_form_cuda("qlevel", value, shapes, off, att, RADIUS, budget=budget)
+    assert _build.LAUNCHES["msda_fwd_qlevel"] - before == len(plan)
+    assert torch.equal(got, msda_fwd_window_cuda(value, shapes, off, att, RADIUS))
+
+
+def test_qlevel_d32_tensor_map_failure_raises(device):
+    """A box the TMA cannot take (257 pixels along an axis; a box side is at
+    most 256) makes the tensor-map encode fail: K8's D = 32 wrapper raises,
+    launches nothing, and runs no other body in its place."""
+    shapes, batch = PYRAMIDS["protocol"]
+    value, off, att = window_inputs(torch.Generator().manual_seed(9), shapes, batch, "ring",
+                                    torch.bfloat16, device)
+    launch = forms.plan_layer("qlevel", shapes, 32, 2, RADIUS)[0]
+    bad = dataclasses.replace(launch, boxes=((1, 257),) + launch.boxes[1:])
+    out = torch.zeros(batch, value.shape[1], 256, dtype=value.dtype, device=device)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="tensor map"):
+        forms.launch_cuda(bad, value, shapes, off, att, out, RADIUS)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == before and not out.any()
 
 
 @pytest.mark.parametrize("flag,kernel", [("FUSED", "msda_fwd_qlevel"), ("V6", "msda_fwd_dense")])

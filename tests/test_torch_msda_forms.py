@@ -139,9 +139,10 @@ def test_flags_follow_the_environment(env, flags):
 
 
 # Launches per layer of each form, head width 32 (APE-Ti), radius 4, for bf16
-# and f32 values: K8 groups the levels of a query level where 227 KB of
-# shared memory cannot hold their boxes and windows (f32 at the 64^2 and
-# 32^2 query levels); K9 takes the 128-wide query levels.
+# and f32 values: K8's D = 32 body holds every box of a query level in 227 KB
+# of shared memory, one group a query level (its general body groups the f32
+# 64^2 and 32^2 query levels: GENERAL_QLEVEL_LAUNCHES); K9 takes the 128-wide
+# query levels.
 PLANS = {
     ("protocol", 2): {"gather": {"msda_fwd": 1}, "pair": {"msda_fwd_pair": 25},
                       "rows": {"msda_fwd_rows": 5, "msda_fwd_pair": 10},
@@ -149,7 +150,7 @@ PLANS = {
                       "dense": {"msda_fwd_dense": 1, "msda_fwd": 1}},
     ("protocol", 4): {"gather": {"msda_fwd": 1}, "pair": {"msda_fwd_pair": 25},
                       "rows": {"msda_fwd_rows": 5, "msda_fwd_pair": 10},
-                      "qlevel": {"msda_fwd_qlevel": 7},
+                      "qlevel": {"msda_fwd_qlevel": 5},
                       "dense": {"msda_fwd_dense": 1, "msda_fwd": 1}},
     ("four_scale", 2): {"gather": {"msda_fwd": 1}, "pair": {"msda_fwd_pair": 25},
                         "rows": {"msda_fwd_rows": 5, "msda_fwd_pair": 10},
@@ -157,7 +158,7 @@ PLANS = {
                         "dense": {"msda_fwd_dense": 2, "msda_fwd": 1}},
     ("four_scale", 4): {"gather": {"msda_fwd": 1}, "pair": {"msda_fwd_pair": 25},
                         "rows": {"msda_fwd_rows": 5, "msda_fwd_pair": 10},
-                        "qlevel": {"msda_fwd_qlevel": 7},
+                        "qlevel": {"msda_fwd_qlevel": 5},
                         "dense": {"msda_fwd_dense": 2, "msda_fwd": 1}},
 }
 SHAPES = {"protocol": PROTOCOL, "four_scale": FOUR_SCALE}
@@ -171,6 +172,57 @@ def test_plan_launches_per_layer(pyramid, esize, form):
     for launch in plan:
         assert launch.smem <= forms.SMEM_LIMIT
         assert launch.tile[0] * launch.tile[1] <= forms.WARPS * 16
+        assert launch.body == ("d32" if launch.kernel == "msda_fwd_qlevel" else "general")
+
+
+# K8's general body at head width 32: the f32 64^2 and 32^2 query levels
+# take two groups each, their boxes and the warps' query windows over 227 KB.
+GENERAL_QLEVEL_LAUNCHES = {("protocol", 2): 5, ("protocol", 4): 7, ("four_scale", 2): 5,
+                           ("four_scale", 4): 7}
+
+
+@pytest.mark.parametrize("pyramid,esize", sorted(GENERAL_QLEVEL_LAUNCHES))
+def test_general_qlevel_plan_launches_per_layer(pyramid, esize):
+    plan = forms.plan_layer("qlevel", SHAPES[pyramid], 32, esize, 4, body="general")
+    assert forms.launches_per_layer(plan) == {
+        "msda_fwd_qlevel": GENERAL_QLEVEL_LAUNCHES[(pyramid, esize)]}
+    assert all(x.body == "general" and x.smem <= forms.SMEM_LIMIT for x in plan)
+
+
+@pytest.mark.parametrize("pyramid", sorted(SHAPES))
+@pytest.mark.parametrize("esize", [2, 4])
+def test_d32_plan_stages_aligned_boxes_and_no_windows(pyramid, esize):
+    """K8's D = 32 layout: the header, then each same-or-coarser level's box
+    at a 128-byte aligned offset (a TMA destination), one after another
+    within the launch's shared memory; no region for query windows (a finer
+    level is read from device memory), so each launch takes its boxes' bytes
+    and no more than the alignment's padding; a tile of at most 64 queries,
+    one pass of the body's 16 warps of 4."""
+    shapes = SHAPES[pyramid]
+    for launch in forms.plan_layer("qlevel", shapes, 32, esize, 4):
+        assert launch.tile[0] * launch.tile[1] <= 64
+        (lq,) = launch.query_levels
+        boxes, offsets, win_off, tap_off, smem = forms._layout(
+            launch.kernel, shapes, lq, launch.value_levels, launch.tile, 32, esize,
+            forms.window_taps(4), "d32")
+        assert boxes == launch.boxes and smem == launch.smem and win_off == tap_off == 0
+        staged = [(o * esize, h * w * 32 * esize) for (h, w), o in zip(boxes, offsets)
+                  if (h, w) != (0, 0)]
+        assert len(staged) == sum(not forms.finer(shapes[lq], shapes[lv])
+                                  for lv in launch.value_levels)
+        end = forms.D32_HEADER_BYTES
+        for at, nbytes in staged:
+            assert at % forms.TMA_ALIGN == 0 and end <= at < end + forms.TMA_ALIGN
+            end = at + nbytes
+        assert smem == end
+
+
+def test_plan_refuses_a_d32_qlevel_body_at_another_width():
+    with pytest.raises(ValueError, match="no body"):
+        forms.plan_layer("qlevel", PROTOCOL, 16, 2, 4, body="d32")
+    with pytest.raises(ValueError, match="no body"):
+        forms.plan_layer("qlevel", PROTOCOL, 32, 2, 4, body="wide")
+    assert {x.body for x in forms.plan_layer("qlevel", PROTOCOL, 16, 2, 4)} == {"general"}
 
 
 @pytest.mark.parametrize("pyramid", sorted(SHAPES))
@@ -198,17 +250,21 @@ def test_plan_covers_every_pair_once(pyramid, esize):
         assert [lv for g in groups for lv in g] == list(range(5))
         modes = [x.out_mode for x in forms.plan_layer("qlevel", shapes, 32, esize, 4)
                  if x.query_levels == (lq,)]
-        assert modes == (["value"] if len(groups) == 1 else ["store"] + ["add"] * (len(groups) - 1))
+        assert modes == (["value"] if len(groups) == 1
+                         else ["store"] + ["continue"] * (len(groups) - 1))
 
 
 @pytest.mark.parametrize("budget", [64 * 1024, 96 * 1024, 128 * 1024])
 def test_qlevel_groups_fit_the_budget(budget):
     """A smaller shared-memory budget packs K8's levels into more groups,
-    each within it (a finer level's warp windows alone take 62 KB in bf16)."""
-    full = forms.plan_layer("qlevel", PROTOCOL, 32, 2, 4)
-    plan = forms.plan_layer("qlevel", PROTOCOL, 32, 2, 4, budget=budget)
-    assert all(x.smem <= budget for x in plan)
-    assert len(plan) > len(full)
+    each within it: in f32 for the D = 32 body (its boxes take up to 162 KB
+    at the 128^2 query level), in bf16 for the general one (a finer level's
+    warp windows alone take 62 KB)."""
+    for body, esize in (("d32", 4), ("general", 2)):
+        full = forms.plan_layer("qlevel", PROTOCOL, 32, esize, 4, body=body)
+        plan = forms.plan_layer("qlevel", PROTOCOL, 32, esize, 4, budget=budget, body=body)
+        assert all(x.smem <= budget and x.body == body for x in plan)
+        assert len(plan) > len(full), body
 
 
 def _f32(x):
@@ -241,7 +297,7 @@ def test_staged_windows_hold_every_corner(rng, pyramid):
                 x0 = np.floor(x).astype(int)
                 base = np.array([_window_base(i, nq, nv, win) for i in q])
                 assert (x0 >= base[:, None]).all() and (x0 + 1 <= base[:, None] + win - 1).all()
-            x = forms.plan_layer("qlevel", shapes, 32, 2, radius)
+            x = forms.plan_layer("qlevel", shapes, 32, 2, radius, body="general")
             for launch in x:
                 if launch.query_levels != (lq,) or lv not in launch.value_levels:
                     continue
@@ -258,21 +314,16 @@ def test_staged_windows_hold_every_corner(rng, pyramid):
 
 
 def _plain_launch(x, value, shapes, off, att, out, radius):
-    """A form kernel's launch in plain torch: its query level's pairs over
-    its value levels, stored or added as its out mode says."""
+    """A form kernel's launch in plain torch (``window_qlevel_plain``): its
+    query level's pairs over its value levels, from 0 or continued from the
+    f32 partial in ``out`` as its out mode says, stored."""
     (lq,) = x.query_levels
     starts, _ = level_start_index(shapes)
-    hq, wq = shapes[lq]
-    rows = slice(starts[lq], starts[lq] + hq * wq)
+    rows = slice(starts[lq], starts[lq] + shapes[lq][0] * shapes[lq][1])
     assert out.dtype == (value.dtype if x.out_mode == "value" else torch.float32)
-    part = sum(forms.window_pair_plain(value[:, starts[lv]:starts[lv] + hv * wv],
-                                       off[:, rows, :, lv], att[:, rows, :, lv], hq, wq, hv, wv,
-                                       radius)
-               for lv, (hv, wv) in ((lv, shapes[lv]) for lv in x.value_levels))
-    if x.out_mode == "add":
-        out[:, rows] += part
-    else:
-        out[:, rows] = part.to(out.dtype)
+    partial = out[:, rows].clone() if x.out_mode == "continue" else None
+    part = forms.window_qlevel_plain(value, shapes, lq, off, att, radius, x.value_levels, partial)
+    out[:, rows] = part.to(out.dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -298,6 +349,36 @@ def test_run_plan_assembles_the_window_op(rng, form, dtype):
     assert got.dtype == dtype
     tol = TOL if dtype == torch.float32 else 2 ** -7 * float(want.float().abs().max())
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("pyramid", [p for p in sorted(PYRAMIDS) if len(PYRAMIDS[p][0]) > 1])
+def test_qlevel_groups_continue_to_the_window_oracle(rng, pyramid):
+    """The plain model of K8's groups at head width 32 (its D = 32 body's
+    plan, the budget cut to force two or more groups a query level): each
+    group's launch continues the f32 partial the one before stored
+    (``window_qlevel_plain`` with ``partial``), and the chain over a query
+    level's groups gives JAX's ms_deform_attn_window."""
+    shapes, radius = PYRAMIDS[pyramid]
+    value, off, att = (torch.from_numpy(x) for x in _inputs(rng, shapes, b=2, heads=2, d=32, p=2))
+    want = np.asarray(jax_window(jnp.asarray(value.numpy()), shapes, jnp.asarray(off.numpy()),
+                                 jnp.asarray(att.numpy()), radius=radius))
+    budget = 24 * 1024
+    plan = forms.plan_layer("qlevel", shapes, 32, 4, radius, budget=budget)
+    starts, _ = level_start_index(shapes)
+    most = 0
+    for lq, (hq, wq) in enumerate(shapes):
+        groups = [x for x in plan if x.query_levels == (lq,)]
+        most = max(most, len(groups))
+        assert [x.out_mode for x in groups] == (
+            ["value"] if len(groups) == 1 else ["store"] + ["continue"] * (len(groups) - 1))
+        rows = None
+        for x in groups:
+            assert x.body == "d32" and x.smem <= budget
+            rows = forms.window_qlevel_plain(value, shapes, lq, off, att, radius, x.value_levels,
+                                             rows)
+        np.testing.assert_allclose(rows.numpy(), want[:, starts[lq]:starts[lq] + hq * wq],
+                                   rtol=0, atol=TOL, err_msg=f"query level {lq}")
+    assert most >= 2
 
 
 def test_form_cuda_refuses_cpu_tensors(rng):

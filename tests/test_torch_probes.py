@@ -384,7 +384,7 @@ SASS = """
 
 
 def _ops(**nonzero):
-    return dict(dict.fromkeys(_build.SASS_OPS + ("REDG_V4",) + _build.LDG_WIDTHS, 0), **nonzero)
+    return dict(dict.fromkeys(_build.SASS_KEYS, 0), **nonzero)
 
 
 def test_parse_sass_counts_tensor_core_ops():
@@ -458,3 +458,77 @@ def test_k1_gather_check_reads_load_widths():
     assert bad == [] and rec["corner_load_bits"] == 64 and rec["registers"] == 51
     _, bad = chip_smoke.gather_faults(f32, counts[f32], {"spill_stores": 8, "spill_loads": 8})
     assert len(bad) == 3 and "128-bit" in bad[0] and "16-bit" in bad[1] and "spills" in bad[2]
+
+
+# A cuobjdump -sass excerpt of K8's D = 32 body (bf16 value and weights): the
+# TMA box load, the offsets' and the weight's loads, the corner reads from
+# the box (LDS.64) and from device memory (LDG.E.64); and an f32 instance
+# whose box corners were read 32 bits at a time and with no TMA load.
+SASS_QLEVEL = """
+		Function : _ZN47_GLOBAL__N__0c1b2a3d_18_msda_fwd_qlevel_cu_9e8f7a6b26msda_fwd_qlevel_kernel_d32I13__nv_bfloat16S1_EEvPKT_PKfPKT0_S6_PvN12ape_msda_win4PlanENS_8TileMapsE
+        /*0100*/                   UTMALDG.5D [UR8], [UR4] ;
+        /*0110*/                   LDG.E.64.CONSTANT R2, desc[UR6][R2.64] ;
+        /*0120*/                   LDG.E.U16.CONSTANT R6, desc[UR6][R6.64] ;
+        /*0130*/              @P0 LDS.64 R8, [R8] ;
+        /*0140*/              @P1 LDS.64 R10, [R10] ;
+        /*0150*/              @P2 LDS.64 R12, [R12] ;
+        /*0160*/              @P3 LDS.64 R14, [R14] ;
+        /*0170*/              @!P0 LDG.E.64.CONSTANT R8, desc[UR6][R16.64] ;
+        /*0180*/                   STG.E.64 desc[UR6][R16.64], R18 ;
+		Function : _ZN47_GLOBAL__N__0c1b2a3d_18_msda_fwd_qlevel_cu_9e8f7a6b26msda_fwd_qlevel_kernel_d32IffEEvPKT_PKfPKT0_S6_PvN12ape_msda_win4PlanENS_8TileMapsE
+        /*0100*/                   LDS R8, [R8] ;
+        /*0110*/                   LDS.U16 R9, [R8+0x2] ;
+        /*0120*/                   STG.E.128 desc[UR6][R16.64], R20 ;
+"""
+
+
+def test_k8_sass_check_reads_tma_and_box_loads():
+    """chip_smoke's check of K8's D = 32 body: the bf16 instance with its TMA
+    load and four 64-bit box reads passes; the f32 one, with no TMA load,
+    32-bit box reads, a 16-bit shared load and 80 registers, fails on each."""
+    import chip_smoke
+
+    counts = _build.parse_sass(SASS_QLEVEL, chip_smoke.QLEVEL_D32_KERNEL)
+    bf16, f32 = sorted(counts, key=lambda n: "__nv_bfloat16" not in n)
+    assert counts[bf16] == _ops(UTMALDG=1, LDG=3, LDG_16=1, LDG_64=2, LDS=4, LDS_64=4, STG=1)
+    assert counts[f32] == _ops(LDS=2, LDS_32=1, LDS_16=1, STG=1)
+    rec, bad = chip_smoke.qlevel_faults(bf16, counts[bf16], {"registers": 56})
+    assert bad == [] and (rec["value"], rec["att"], rec["box_load_bits"]) == ("bfloat16", "bfloat16", 64)
+    rec, bad = chip_smoke.qlevel_faults(f32, counts[f32], {"registers": 80})
+    assert (rec["value"], rec["att"]) == ("float32", "float32")
+    assert len(bad) == 4 and "TMA" in bad[0] and "128-bit" in bad[1] and "16-bit" in bad[2]
+    assert "80 registers" in bad[3]
+
+
+# A cuobjdump -sass excerpt of K3's D = 32 body: a bf16 instance with f32
+# weights (four corner LDG.E.64, the grad row, a d_att and a d_loc store), and
+# an f32 instance holding a reduction.
+SASS_OFFATT = """
+		Function : _ZN50_GLOBAL__N__1a2b3c4d_17_msda_bwd_split_cu_5e6f7a8b26msda_bwd_offatt_kernel_d32I13__nv_bfloat16fEEvPKT_PKfPKT0_PKlSB_S3_PfPS6_iiiiii
+        /*0100*/                   LDG.E.64.CONSTANT R2, desc[UR6][R2.64] ;
+        /*0110*/              @P0 LDG.E.64.CONSTANT R8, desc[UR6][R8.64] ;
+        /*0120*/              @P1 LDG.E.64.CONSTANT R10, desc[UR6][R10.64] ;
+        /*0130*/              @P2 LDG.E.64.CONSTANT R12, desc[UR6][R12.64] ;
+        /*0140*/              @P3 LDG.E.64.CONSTANT R14, desc[UR6][R14.64] ;
+        /*0150*/                   STG.E desc[UR6][R16.64], R18 ;
+        /*0160*/                   STG.E.64 desc[UR6][R20.64], R22 ;
+		Function : _ZN50_GLOBAL__N__1a2b3c4d_17_msda_bwd_split_cu_5e6f7a8b26msda_bwd_offatt_kernel_d32IffEEvPKT_PKfPKT0_PKlSB_S3_PfPS6_iiiiii
+        /*0100*/              @P0 LDG.E.128.CONSTANT R8, desc[UR6][R8.64] ;
+        /*0110*/                   REDG.E.ADD.F32.FTZ.RN.STRONG.GPU desc[UR10][R14.64], R33 ;
+"""
+
+
+def test_k3_sass_check_reads_corner_loads_and_no_atomics():
+    """chip_smoke's check of K3's D = 32 body: the bf16 instance (f32
+    weights) passes; the f32 one, with one 128-bit corner load, a reduction
+    and a spill, fails on each."""
+    import chip_smoke
+
+    counts = _build.parse_sass(SASS_OFFATT, chip_smoke.OFFATT_D32_KERNEL)
+    bf16, f32 = sorted(counts, key=lambda n: "__nv_bfloat16" not in n)
+    assert counts[bf16] == _ops(LDG=5, LDG_64=5, STG=2)
+    rec, bad = chip_smoke.offatt_faults(bf16, counts[bf16], {"registers": 60})
+    assert bad == [] and (rec["value"], rec["att"], rec["corner_load_bits"]) == (
+        "bfloat16", "float32", 64)
+    _, bad = chip_smoke.offatt_faults(f32, counts[f32], {"spill_stores": 4, "spill_loads": 4})
+    assert len(bad) == 3 and "spills" in bad[0] and "128-bit" in bad[1] and "REDG" in bad[2]
