@@ -159,13 +159,8 @@ msda_bwd_kernel(const VT* __restrict__ value,        // (B, S, H, D)
 // query (item = bq * H + h, 4 at a time): on an H100 80GB HBM3 at 700 W that
 // order ran 0.2-0.4 % faster than one head of 4 neighbouring queries at the
 // encoder's training shape (4.90-4.91 against 4.92 ms), and tied at the
-// decoder's.
-
-// d_value[p .. p + 3] += w * ag[0 .. 3]: one 16-byte vector reduction
-// (atomicAdd on float4, global memory, compute capability 9.x)
-__device__ __forceinline__ void red_add4(float* p, float w, const float (&ag)[4]) {
-  atomicAdd(reinterpret_cast<float4*>(p), make_float4(w * ag[0], w * ag[1], w * ag[2], w * ag[3]));
-}
+// decoder's. Each corner's d_value update is msda_sample.cuh's red_add4,
+// which K4's D = 32 body (msda_bwd_split.cu) calls with the same addends.
 
 template <typename VT, typename AT>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, 4)

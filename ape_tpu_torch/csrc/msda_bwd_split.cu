@@ -45,7 +45,22 @@
 //   * any D (and D = 32 when asked, so that the card can compare the two):
 //     msda_bwd_offatt_kernel, one warp per (b, q, h), lanes over D, dot
 //     products by warp shuffles.
-// msda_bwd_value keeps one warp per (b, q, h), lanes over D.
+// msda_bwd_value has two bodies too, chosen the same way:
+//   * D = 32: msda_bwd_value_kernel_d32, K2's D = 32 body without the gather
+//     and the dot products. 8 lanes an item and 4 channels a lane, 4 items a
+//     warp (4 heads of one query); the grad row loaded once, 4 channels a
+//     lane; the item's 8 lanes load its locations (float2) and weights 8
+//     samples at a time, coalesced, and share them by shuffles; for each
+//     live sample the lanes form ag = a * g and add each corner inside the
+//     level by msda_sample.cuh's red_add4, one 16-byte vector reduction a
+//     lane and corner (REDG.E.ADD.F32x4), which K2's D = 32 body calls with
+//     the same addends: a quarter of the reduction instructions of lanes
+//     over D, and no load of the sample in every lane. It reads no value.
+//     Its d_value differs from K2's only by the run-dependent order of the
+//     f32 atomics. What bounds it is the L2's reduction throughput, as K2's
+//     scatter: 4 corners x 32 f32 channels a sample.
+//   * any D (and D = 32 when asked): msda_bwd_value_kernel, one warp per
+//     (b, q, h), lanes over D, one scalar reduction a lane and corner.
 
 #include "msda_sample.cuh"
 
@@ -239,6 +254,88 @@ msda_bwd_value_kernel(const float* __restrict__ loc,       // (B, Q, H, L, P, 2)
   }
 }
 
+// The D = 32 body (see the note at the top). A warp's 4 items are 4 heads
+// of one query (item = bq * H + h, 4 at a time). At most 64 registers a
+// thread (4 blocks an SM).
+template <typename GT, typename AT>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, 4)
+msda_bwd_value_kernel_d32(const float* __restrict__ loc, const AT* __restrict__ att,
+                          const int64_t* __restrict__ shapes, const int64_t* __restrict__ starts,
+                          const GT* __restrict__ grad_out, float* __restrict__ d_value, int B,
+                          int S, int Q, int H, int L, int P) {
+  __shared__ Levels lv;
+  load_levels(lv, shapes, starts, L);
+
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (kItemLanes - 1);  // lane within the item: channels 4 sub .. 4 sub + 3
+  const int slot = lane / kItemLanes;       // item within the warp
+  const int64_t warp = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t n_items = static_cast<int64_t>(B) * Q * H;
+  const int64_t first = warp * kItemsPerWarp;
+  if (first >= n_items) return;  // whole warps only: every item of this one is past the end
+  // a lane of an item past the end (the last warp's) loads nothing and adds
+  // nothing, but takes part in the shuffles
+  const bool valid = first + slot < n_items;
+  const int64_t item = valid ? first + slot : 0;
+  const int h = static_cast<int>(item % H);
+  const int b = static_cast<int>(item / H / Q);
+  const int c0 = sub * 4;
+  float* dvb = d_value + static_cast<int64_t>(b) * S * H * kD32 + static_cast<int64_t>(h) * kD32 + c0;
+  const int64_t row_stride = static_cast<int64_t>(H) * kD32;
+  float g[4] = {0.f, 0.f, 0.f, 0.f};
+  if (valid) load4(grad_out + item * kD32 + c0, g);
+
+  const int LP = L * P;
+  const int64_t samp0 = item * LP;
+  for (int s0 = 0; s0 < LP; s0 += kItemLanes) {
+    // the item's next 8 samples: lane sub loads sample s0 + sub (coalesced
+    // over the 8 lanes), and every lane of the item reads them by shuffles
+    const int mine = s0 + sub;
+    float2 my_loc = make_float2(NAN, NAN);
+    float my_a = 0.f;
+    if (valid && mine < LP) {
+      my_loc = *reinterpret_cast<const float2*>(loc + 2 * (samp0 + mine));
+      my_a = to_f32(att[samp0 + mine]);
+    }
+    const int n = min(kItemLanes, LP - s0);  // uniform over the warp
+    for (int j = 0; j < n; ++j) {
+      const int src = slot * kItemLanes + j;
+      const float lx = __shfl_sync(0xffffffffu, my_loc.x, src);
+      const float ly = __shfl_sync(0xffffffffu, my_loc.y, src);
+      const float a = __shfl_sync(0xffffffffu, my_a, src);
+      const int l = (s0 + j) / P;
+      const int hl = lv.h[l];
+      const int wl = lv.w[l];
+      const float x = pixel(lx, wl);
+      const float y = pixel(ly, hl);
+      if (live(x, y, hl, wl)) {
+        const float xf = floorf(x);
+        const float yf = floorf(y);
+        const int x0 = static_cast<int>(xf);
+        const int y0 = static_cast<int>(yf);
+        const float fx = x - xf;
+        const float fy = y - yf;
+        const bool in_y0 = y0 >= 0, in_y1 = y0 + 1 < hl;
+        const bool in_x0 = x0 >= 0, in_x1 = x0 + 1 < wl;
+        const int64_t r00 = static_cast<int64_t>(lv.start[l]) * row_stride +
+                            (static_cast<int64_t>(y0) * wl + x0) * row_stride;
+        const int64_t r01 = r00 + row_stride;
+        const int64_t r10 = r00 + static_cast<int64_t>(wl) * row_stride;
+        const int64_t r11 = r10 + row_stride;
+        const float w00 = (1.f - fx) * (1.f - fy), w01 = fx * (1.f - fy);
+        const float w10 = (1.f - fx) * fy, w11 = fx * fy;
+        float ag[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) ag[c] = a * g[c];
+        if (in_y0 && in_x0) red_add4(dvb + r00, w00, ag);
+        if (in_y0 && in_x1) red_add4(dvb + r01, w01, ag);
+        if (in_y1 && in_x0) red_add4(dvb + r10, w10, ag);
+        if (in_y1 && in_x1) red_add4(dvb + r11, w11, ag);
+      }
+    }
+  }
+}
+
 inline unsigned n_blocks(int B, int Q, int H) {
   const int64_t n_items = static_cast<int64_t>(B) * Q * H;
   return static_cast<unsigned>((n_items + kWarpsPerBlock - 1) / kWarpsPerBlock);
@@ -267,7 +364,16 @@ int launch_offatt(const void* value, const float* loc, const void* att, const in
 template <typename GT, typename AT>
 int launch_value(const float* loc, const void* att, const int64_t* shapes, const int64_t* starts,
                  const void* grad_out, float* d_value, int B, int S, int Q, int H, int D, int L,
-                 int P, cudaStream_t stream) {
+                 int P, bool d32, cudaStream_t stream) {
+  if (d32) {
+    const int64_t warps = (static_cast<int64_t>(B) * Q * H + kItemsPerWarp - 1) / kItemsPerWarp;
+    const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    msda_bwd_value_kernel_d32<GT, AT>
+        <<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0, stream>>>(
+            loc, static_cast<const AT*>(att), shapes, starts, static_cast<const GT*>(grad_out),
+            d_value, B, S, Q, H, L, P);
+    return static_cast<int>(cudaGetLastError());
+  }
   msda_bwd_value_kernel<GT, AT><<<n_blocks(B, Q, H), kWarpsPerBlock * 32, 0, stream>>>(
       loc, static_cast<const AT*>(att), shapes, starts, static_cast<const GT*>(grad_out), d_value,
       B, S, Q, H, D, L, P);
@@ -309,22 +415,26 @@ extern "C" int ape_msda_bwd_offatt(const void* value, const float* loc, const vo
 }
 
 // grad_bf16: grad_out is bf16 (else f32). att_f32: attention weights are f32
-// (else grad_out's dtype). d_value is f32, zeroed by the caller. Returns the
-// launch's cudaError_t.
+// (else grad_out's dtype). d_value is f32, zeroed by the caller. body: 0 the
+// general body, 1 the D = 32 body (D must be 32; loc, grad_out and d_value
+// 16-byte aligned). Returns the launch's cudaError_t.
 extern "C" int ape_msda_bwd_value(const float* loc, const void* att, const int64_t* shapes,
                                   const int64_t* starts, const void* grad_out, float* d_value,
                                   int B, int S, int Q, int H, int D, int L, int P,
-                                  int grad_bf16, int att_f32, void* stream) {
+                                  int grad_bf16, int att_f32, int body, void* stream) {
   if (const int err = check_sizes(D, L, P)) return err;
+  if (body < 0 || body > 1 || (body == 1 && D != kD32))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<int64_t>(B) * Q * H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool d32 = body == 1;
   if (grad_bf16) {
     if (att_f32)
       return launch_value<__nv_bfloat16, float>(loc, att, shapes, starts, grad_out, d_value,
-                                                B, S, Q, H, D, L, P, st);
+                                                B, S, Q, H, D, L, P, d32, st);
     return launch_value<__nv_bfloat16, __nv_bfloat16>(loc, att, shapes, starts, grad_out, d_value,
-                                                       B, S, Q, H, D, L, P, st);
+                                                       B, S, Q, H, D, L, P, d32, st);
   }
   return launch_value<float, float>(loc, att, shapes, starts, grad_out, d_value,
-                                    B, S, Q, H, D, L, P, st);
+                                    B, S, Q, H, D, L, P, d32, st);
 }

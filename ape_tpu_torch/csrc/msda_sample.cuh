@@ -5,7 +5,8 @@
 // (msda_pair_probe.cu), whose base variant K1 checks them against; the
 // rounding also by K1 (msda_fwd.cu). The D = 32 bodies share more: K1's
 // and K8's the forward's cell and blend (cell, blend4), K2's and K3's the
-// backward's dot products (sample_dots4). The split kernels' general bodies
+// backward's dot products (sample_dots4), K2's and K4's the d_value
+// reduction (red_add4). The split kernels' general bodies
 // take the rest (corners, weights, dot products, scatter) from Sample and
 // its helpers.
 //
@@ -76,7 +77,7 @@ __device__ __forceinline__ bool live(float x, float y, int hl, int wl) {
   return x >= -1.f && y >= -1.f && x < wl && y < hl;
 }
 
-// The D = 32 layout of the MSDA bodies for APE's head width (K1, K2, K3, K8):
+// The D = 32 layout of the MSDA bodies for APE's head width (K1-K4, K8):
 // 8 lanes an item (b, q, h) and 4 channels a lane, so a warp holds
 // kItemsPerWarp = 4 items, and each corner row is read as one vector load a
 // lane.
@@ -204,6 +205,16 @@ __device__ __forceinline__ void sample_dots4(const float (&g)[4], float fx, floa
     px = __fmaf_rn(g[c], dx, px);
     py = __fmaf_rn(g[c], dy, py);
   }
+}
+
+// ---- the backward's d_value scatter (K2 msda_bwd.cu, K4 msda_bwd_split.cu) ----
+
+// d_value[p .. p + 3] += w * ag[0 .. 3]: one 16-byte vector reduction
+// (atomicAdd on float4, global memory, compute capability 9.x). K2's D = 32
+// body and K4's call it with the same w and ag, so each addend is the same
+// in both; only the order of the atomics differs from run to run.
+__device__ __forceinline__ void red_add4(float* p, float w, const float (&ag)[4]) {
+  atomicAdd(reinterpret_cast<float4*>(p), make_float4(w * ag[0], w * ag[1], w * ag[2], w * ag[3]));
 }
 
 struct Sample {

@@ -35,9 +35,12 @@
 
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "msda_sample.cuh"
 
@@ -390,6 +393,120 @@ __device__ __forceinline__ void write_tile(const float (&acc)[kQueriesPerWarp], 
     else
       static_cast<float*>(out)[i] = acc[k];
   }
+}
+
+// ---- TMA (K8's and K9's D = 32 bodies) ---------------------------------------
+
+// One tensor map per launch level whose box is staged.
+struct TileMaps {
+  CUtensorMap map[kMaxLevels];
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+// Makes the barriers' initialisation visible to the TMA unit.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The arming thread's arrival, expecting `bytes` from the TMA.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 5-d tensor map, at coordinates (c0 .. c4) innermost first,
+// into shared memory; its bytes complete on the barrier.
+__device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                             int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// Error codes of the entries that stage by TMA, besides cudaError_t's:
+// libcuda has no cuTensorMapEncodeTiled, or it refused a level's tensor map.
+constexpr int kNoTensorMapEncoder = -1;
+constexpr int kTensorMapRefused = -2;
+
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// libcuda's cuTensorMapEncodeTiled, through the runtime; null if missing.
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of each staged launch level of a D = 32 plan: the level of
+// the (B, S, H, 32) value as (32, H, W_l, H_l, B), innermost first, based at
+// its first pixel; a box of (32, 1, box_w, box_h, 1); zeros outside the
+// level; the box's pixel rows swizzled as asked.
+inline int encode_maps(const Plan& p, const void* value, bool bf16, CUtensorMapSwizzle swizzle,
+                       TileMaps& maps) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return kNoTensorMapEncoder;
+  memset(&maps, 0, sizeof(maps));
+  const cuuint64_t es = bf16 ? 2 : 4;
+  for (int j = 0; j < p.n_lv; ++j) {
+    const int l = p.lv[j];
+    if (finer(p, l)) continue;
+    const cuuint64_t dims[5] = {static_cast<cuuint64_t>(ape_msda::kD32), static_cast<cuuint64_t>(p.H),
+                                static_cast<cuuint64_t>(p.lvl_w[l]),
+                                static_cast<cuuint64_t>(p.lvl_h[l]),
+                                static_cast<cuuint64_t>(p.B)};
+    const cuuint64_t pixel_bytes = static_cast<cuuint64_t>(p.H) * ape_msda::kD32 * es;
+    const cuuint64_t strides[4] = {ape_msda::kD32 * es, pixel_bytes, p.lvl_w[l] * pixel_bytes,
+                                   static_cast<cuuint64_t>(p.S) * pixel_bytes};
+    const cuuint32_t box[5] = {static_cast<cuuint32_t>(ape_msda::kD32), 1,
+                               static_cast<cuuint32_t>(p.box_w[j]),
+                               static_cast<cuuint32_t>(p.box_h[j]), 1};
+    const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+    void* base = static_cast<char*>(const_cast<void*>(value)) + p.lvl_start[l] * pixel_bytes;
+    const CUresult r = encode(&maps.map[j],
+                              bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                              5, base, dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return kTensorMapRefused;
+  }
+  return 0;
 }
 
 // The signature of the four kernels; each casts value and att to its VT, AT.

@@ -113,7 +113,7 @@ def library() -> ctypes.CDLL:
     lib.ape_msda_bwd.restype = i
     lib.ape_msda_bwd_offatt.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     lib.ape_msda_bwd_offatt.restype = i
-    lib.ape_msda_bwd_value.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.ape_msda_bwd_value.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     lib.ape_msda_bwd_value.restype = i
     lib.ape_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, f, i, p]
     lib.ape_attn_fwd.restype = i
@@ -131,6 +131,10 @@ def library() -> ctypes.CDLL:
     # radius, value_bf16, att_f32, variant, stream
     lib.ape_msda_fwd_qlevel_d32.argtypes = [p, p, p, p, p, ctypes.POINTER(i), f, i, i, i, p]
     lib.ape_msda_fwd_qlevel_d32.restype = i
+    # K9's D = 32 body: value (bf16), offsets, att, out, the int plan, radius,
+    # att_f32, variant, stream
+    lib.ape_msda_fwd_dense_d32.argtypes = [p, p, p, p, ctypes.POINTER(i), f, i, i, p]
+    lib.ape_msda_fwd_dense_d32.restype = i
     # the probes: K10 (value, loc, att, out, B, Q, H, P, hv, wv, D, variant,
     # value_bf16, stream) and K11 (q, k, v, out, BH, N, DH, scale, is_bf16,
     # bq, bk, stream)

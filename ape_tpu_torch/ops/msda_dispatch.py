@@ -17,9 +17,10 @@ one exact bilinear gather, ``csrc/msda_fwd.cu``:
 K1 has two bodies at head width 32, which every MSDA layer of APE has: the
 D = 32 body (8 lanes an item), which launches take there, and the general
 one (a warp an item, every head width), equal bit for bit; ``body`` selects
-either, so that the card can compare them. K3 (the split backward's d_loc
-and d_att) has the same two bodies, chosen the same way, and K8 (``FUSED``)
-a D = 32 body and a general one (``msda_window_forms.QLEVEL_BODIES``).
+either, so that the card can compare them. K3 and K4 (the split backward's
+d_loc and d_att, and d_value) have the same two bodies, chosen the same
+way, and K8 (``FUSED``) and K9 (``V6``) a D = 32 body and a general one
+(``msda_window_forms.BODIES``; K9's D = 32 body takes bf16 only).
 
 Locations stay f32 in both modes. (The JAX exact path rounds them to the
 value dtype first, ``loc.astype(value.dtype)``; at bf16 that moves a tap by up
@@ -352,10 +353,14 @@ def msda_bwd_value_cuda(
     loc: torch.Tensor,
     att: torch.Tensor,
     grad_out: torch.Tensor,
+    body: str | None = None,
 ) -> torch.Tensor:
     """Launch K4 of ``csrc/msda_bwd_split.cu``: d_value (B, S, H, D) of
     ``msda_fwd_cuda`` for grad_out (B, Q, H * D), in grad_out's dtype (the
-    value's). It reads no value. Summed by f32 atomics, then cast."""
+    value's). It reads no value. Summed by f32 atomics, then cast. Two
+    bodies, as K3's: ``body`` ("d32" or "general") overrides ``fwd_body``;
+    the D = 32 body adds K2's addends (differing from K2 only by the order of
+    the atomics), and takes loc and grad_out at 16-byte aligned addresses."""
     b, _, h = loc.shape[:3]
     d = grad_out.shape[-1] // h
     _, total = level_start_index(spatial_shapes)
@@ -364,11 +369,17 @@ def msda_bwd_value_cuda(
         (grad_out, loc, att))
     _, s, q, _, _, _, _ = sizes
     _check_grad("msda_bwd_value", grad_out, grad_out.dtype, b, q, h, d, grad_out.device)
+    body = fwd_body(d) if body is None else body
+    if body not in BODIES or (body == "d32" and d != 32):
+        raise ValueError(f"msda_bwd_value: no body {body!r} at head width {d}")
+    if body == "d32" and any(t.data_ptr() % 16 for t in (grad_out, loc)):
+        raise ValueError("msda_bwd_value's D = 32 body takes grad and locations at 16-byte "
+                         "aligned addresses")
     d_value = torch.zeros(b, s, h, d, dtype=torch.float32, device=grad_out.device)
     err = _build.library().ape_msda_bwd_value(
         loc.data_ptr(), att.data_ptr(), shapes_t.data_ptr(), starts_t.data_ptr(),
         grad_out.data_ptr(), d_value.data_ptr(), *sizes,
-        int(grad_out.dtype == torch.bfloat16), int(att.dtype == torch.float32),
+        int(grad_out.dtype == torch.bfloat16), int(att.dtype == torch.float32), BODIES[body],
         torch.cuda.current_stream(grad_out.device).cuda_stream,
     )
     _build.check(err, "msda_bwd_value")

@@ -16,14 +16,18 @@ with the clip inside the kernel:
     ``APE_MSDA_FUSED``): per query level one launch of
     ``csrc/msda_fwd_qlevel.cu`` over every value level, or one per group of
     levels where a block's shared memory cannot hold them all. At head width
-    32 its D = 32 body (``QLEVEL_BODIES``): TMA boxes of the same-or-coarser
+    32 its D = 32 body (``BODIES``): TMA boxes of the same-or-coarser
     levels, the finer ones read from device memory, equal to K1's window
     entry bit for bit; at other widths its general body, which stages a
     finer level's windows per query;
   * ``dense``  (K9, ``experiments/msda_window_pallas_v6.py``, JAX's
     ``APE_MSDA_V6``): ``csrc/msda_fwd_dense.cu`` on each query level whose
     width is a multiple of 128, one K1 launch over each run of contiguous
-    narrower query levels;
+    narrower query levels. At head width 32 with a bf16 value its D = 32
+    body (``dense_body``): the tile's weight matrix W (K1's corner weights,
+    f32) against each staged box on the tensor cores, W split into two bf16
+    halves; the finer levels read from device memory. Else its general
+    body, a dense tap map per query contracted by FMAs;
   * ``gather`` (K1, ``csrc/msda_fwd.cu``): the default, for comparison.
 
 ``plan_layer`` makes each form's launches for a pyramid in plain Python, so
@@ -60,9 +64,10 @@ DENSE_WIDTH = 128    # K9 takes the query levels whose width is a multiple of th
 # continued from the f32 partial an earlier launch of the query level stored
 # (loaded into the accumulators, then stored).
 OUT_MODES = {"value": 0, "store": 1, "continue": 2}
-# K8's bodies: "d32" (csrc/msda_fwd_qlevel.cu msda_fwd_qlevel_kernel_d32,
-# head width 32 only) and "general" (every head width up to 32).
-QLEVEL_BODIES = ("d32", "general")
+# The bodies of K8 and K9: "d32" (head width 32 only: csrc/msda_fwd_qlevel.cu
+# msda_fwd_qlevel_kernel_d32; csrc/msda_fwd_dense.cu msda_fwd_dense_kernel_d32,
+# a bf16 value only) and "general" (every head width up to 32).
+BODIES = ("d32", "general")
 D32_HEADER_BYTES = 256  # the D = 32 body's barriers and box corners, before its boxes
 TMA_ALIGN = 128         # bytes: a TMA box's shared-memory address
 # The D = 32 body's tiles: at most 64 queries, one pass of its 16 warps of 4
@@ -73,6 +78,20 @@ D32_TILES = tuple(t for t in TILES if t[0] * t[1] <= 64)
 # whole op with the boxes staged by cp.async instead of TMA (csrc/
 # msda_fwd_qlevel.cu: Variant). Only "whole" gives the op's output.
 D32_VARIANTS = {"whole": 0, "boxes_only": 1, "finer_only": 2, "cp_async": 3}
+# K9's D = 32 body: tiles of at most 32 queries, two m16 blocks of its
+# mma.sync products (csrc/msda_fwd_dense.cu: kDenseRows); its shared memory:
+# the f32 out tile (32 rows of 40 floats), W (32 rows of a stride of 8 mod 32
+# floats), one box (64 swizzled bytes a pixel, padded to 16 pixels) at a
+# 1024-byte aligned offset, the box's mbarrier (16 bytes).
+DENSE_D32_TILES = tuple(t for t in TILES if t[0] * t[1] <= 32)
+DENSE_D32_ROWS, DENSE_D32_OUT_ROW, DENSE_D32_BOX_ROW = 32, 40, 64
+DENSE_D32_BOX_ALIGN, DENSE_D32_BARRIER = 1024, 16
+# What a launch of K9's D = 32 body does (csrc/msda_fwd_dense.cu:
+# DenseVariant): the op ("whole"), or to time its parts, the box levels
+# alone, the finer levels alone, the box levels without the products, or
+# only their staging. Only "whole" gives the op's output.
+DENSE_D32_VARIANTS = {"whole": 0, "boxes_only": 1, "finer_only": 2, "no_mma": 3,
+                      "staging_only": 4}
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -131,12 +150,41 @@ def _d32_layout(shapes: Shapes, lq: int, lvs, tile, esize: int, win: int):
     return tuple(boxes), tuple(offsets), 0, 0, total
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _dense_d32_layout(shapes: Shapes, lq: int, lvs, tile, win: int):
+    """``_layout`` of K9's D = 32 body (bf16): the f32 out tile, then W, then
+    at a DENSE_D32_BOX_ALIGN-byte aligned offset one box of the largest
+    staged level's pixels, re-used by every level, then the box's mbarrier
+    (csrc/msda_fwd_dense.cu: dense_layout); no query windows (a finer level
+    is read from device memory)."""
+    hq, wq = shapes[lq]
+    boxes, k_max = [], 16
+    for lv in lvs:
+        if finer(shapes[lq], shapes[lv]):
+            boxes.append((0, 0))
+            continue
+        hv, wv = shapes[lv]
+        box = (box_extent(tile[0], hq, hv, win), box_extent(tile[1], wq, wv, win))
+        boxes.append(box)
+        k_max = max(k_max, _round_up(box[0] * box[1], 16))
+    w_stride = _round_up(k_max, 32) + 8
+    box_at = _round_up(DENSE_D32_ROWS * DENSE_D32_OUT_ROW * 4 + DENSE_D32_ROWS * w_stride * 4,
+                       DENSE_D32_BOX_ALIGN)
+    smem = box_at + k_max * DENSE_D32_BOX_ROW + DENSE_D32_BARRIER
+    return tuple(boxes), (0,) * len(boxes), 0, 0, smem
+
+
 def _layout(kernel, shapes: Shapes, lq: int, lvs, tile, head_dim: int, esize: int, win: int,
             body: str = "general"):
     """(boxes, box element offsets, window offset, tap byte offset, shared
     bytes) of one launch at a tile. K8 holds every box at once; the other
     kernels re-use one box buffer for their levels."""
     if body == "d32":
+        if kernel == "msda_fwd_dense":
+            return _dense_d32_layout(shapes, lq, lvs, tile, win)
         return _d32_layout(shapes, lq, lvs, tile, esize, win)
     hq, wq = shapes[lq]
     boxes, offsets, total, widest = [], [], 0, 0
@@ -160,9 +208,12 @@ def _layout(kernel, shapes: Shapes, lq: int, lvs, tile, head_dim: int, esize: in
     return tuple(boxes), tuple(offsets), win_off, tap_off, smem
 
 
-def _tiles(hq: int, wq: int, body: str = "general"):
+def _tiles(kernel: str, hq: int, wq: int, body: str = "general"):
+    tiles = TILES
+    if body == "d32":
+        tiles = DENSE_D32_TILES if kernel == "msda_fwd_dense" else D32_TILES
     seen = []
-    for ty, tx in D32_TILES if body == "d32" else TILES:
+    for ty, tx in tiles:
         t = (min(ty, hq), min(tx, wq))
         if t not in seen:
             seen.append(t)
@@ -172,7 +223,7 @@ def _tiles(hq: int, wq: int, body: str = "general"):
 def _fit(kernel, shapes, lq, lvs, head_dim, esize, win, budget, tiles=None, body="general"):
     """The largest tile at which the launch fits ``budget`` bytes, with its
     layout; None if none does."""
-    for tile in tiles or _tiles(*shapes[lq], body):
+    for tile in tiles or _tiles(kernel, *shapes[lq], body):
         layout = _layout(kernel, shapes, lq, lvs, tile, head_dim, esize, win, body)
         if layout[-1] <= budget:
             return tile, layout
@@ -201,7 +252,7 @@ def single_launch(kernel: str, spatial_shapes, lq: int, value_levels: Sequence[i
 def _qlevel_groups(shapes, lq, head_dim, esize, win, budget, body):
     """v5's greedy packing: a level joins the current group while the group
     still fits at the query level's default tile."""
-    default = _tiles(*shapes[lq], body)[:1]
+    default = _tiles("msda_fwd_qlevel", *shapes[lq], body)[:1]
     groups, cur = [], []
     for lv in range(len(shapes)):
         if cur and _fit("msda_fwd_qlevel", shapes, lq, cur + [lv], head_dim, esize, win,
@@ -212,20 +263,40 @@ def _qlevel_groups(shapes, lq, head_dim, esize, win, budget, body):
     return groups + [cur]
 
 
+def dense_body(head_dim: int, esize: int) -> str:
+    """K9's body for a launch: "d32" at head width 32 with a bf16 value (2
+    bytes an element), else "general": the D = 32 body's products round V
+    to bf16, which an f32 value's 1e-5 bound does not allow."""
+    return "d32" if head_dim == 32 and esize == 2 else "general"
+
+
+def form_body(form: str, head_dim: int, esize: int) -> str:
+    """The body a form's own kernel takes by default: K8's by the head width
+    as K1's (``msda_dispatch.fwd_body``), K9's by ``dense_body``; the other
+    forms have one body."""
+    from ape_tpu_torch.ops.msda_dispatch import fwd_body
+
+    if form == "qlevel":
+        return fwd_body(head_dim)
+    if form == "dense":
+        return dense_body(head_dim, esize)
+    return "general"
+
+
 def plan_layer(form: str, spatial_shapes: Sequence[Tuple[int, int]], head_dim: int,
                esize: int, radius: float, budget: int = SMEM_LIMIT,
                body: str | None = None) -> Tuple[Launch, ...]:
     """The launches of one encoder layer's window MSDA under a form, for a
-    value of ``esize`` bytes an element; K8 takes its body by the head width
-    as K1 does (``msda_dispatch.fwd_body``) unless ``body``
-    (``QLEVEL_BODIES``) says. Pure Python: no card needed; each plan is made
-    once and kept, as the wrappers ask for it at every call."""
-    from ape_tpu_torch.ops.msda_dispatch import fwd_body
-
+    value of ``esize`` bytes an element; K8 and K9 take their body by
+    ``form_body`` unless ``body`` (``BODIES``) says. Pure Python: no card
+    needed; each plan is made once and kept, as the wrappers ask for it at
+    every call."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    body = fwd_body(head_dim) if body is None else body
-    if body not in QLEVEL_BODIES or (body == "d32" and head_dim != 32):
-        raise ValueError(f"K8 has no body {body!r} at head width {head_dim}")
+    body = form_body(form, head_dim, esize) if body is None else body
+    if body not in BODIES or (body == "d32" and head_dim != 32):
+        raise ValueError(f"{form}: no body {body!r} at head width {head_dim}")
+    if form == "dense" and body == "d32" and esize != 2:
+        raise ValueError(f"dense: no body 'd32' for a value of {esize} bytes: it takes bf16")
     return _plan_layer(form, shapes, head_dim, esize, radius, budget, body)
 
 
@@ -257,7 +328,7 @@ def _plan_layer(form: str, shapes: Shapes, head_dim: int, esize: int, radius: fl
         elif form == "dense":
             if shapes[lq][1] % DENSE_WIDTH == 0:
                 plan.append(_launch("msda_fwd_dense", shapes, lq, list(levels), head_dim, esize,
-                                    win, budget, "value"))
+                                    win, budget, "value", body))
             elif plan and plan[-1].kernel == "msda_fwd" and plan[-1].query_levels[-1] == lq - 1:
                 plan[-1] = Launch("msda_fwd", plan[-1].query_levels + (lq,), tuple(levels))
             else:
@@ -386,7 +457,8 @@ def _plan_ints(launch: Launch, shapes: Shapes, sizes, esize: int, win: int) -> c
     return (ctypes.c_int * len(ints))(*ints)
 
 
-# csrc/msda_fwd_qlevel.cu's codes for tensor maps it could not make
+# csrc/msda_window.cuh's codes for tensor maps K8's or K9's D = 32 entry
+# could not make
 TENSOR_MAP_ERRORS = {-1: "libcuda has no cuTensorMapEncodeTiled",
                      -2: "cuTensorMapEncodeTiled refused a level's tensor map"}
 
@@ -396,8 +468,9 @@ def launch_cuda(launch: Launch, value: torch.Tensor, spatial_shapes, pixel_offse
                 variant: str = "whole") -> None:
     """Launch one of a plan's form kernels into ``out`` (B, S, H * D): the
     value's dtype for out mode "value", else f32. K8's D = 32 body runs as
-    ``variant`` (``D32_VARIANTS``) and raises if its TMA tensor maps cannot
-    be made; nothing else runs in its place."""
+    ``variant`` (``D32_VARIANTS``), K9's as ``variant``
+    (``DENSE_D32_VARIANTS``); each raises if its TMA tensor maps cannot be
+    made, and nothing else runs in its place."""
     from ape_tpu_torch.ops.msda_dispatch import grid_centers
 
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
@@ -411,21 +484,28 @@ def launch_cuda(launch: Launch, value: torch.Tensor, spatial_shapes, pixel_offse
     plan = _plan_ints(launch, shapes, sizes, value.element_size(), window_taps(radius))
     flags = (float(radius), int(value.dtype == torch.bfloat16), int(att.dtype == torch.float32),
              torch.cuda.current_stream(value.device).cuda_stream)
-    if launch.body == "d32":
-        if d != 32 or out.data_ptr() % 16:
-            raise ValueError(f"{launch.kernel}: the D = 32 body takes head width 32 and a "
-                             f"16-byte aligned out, got {d}")
+    if launch.body == "d32" and (d != 32 or out.data_ptr() % 16):
+        raise ValueError(f"{launch.kernel}: the D = 32 body takes head width 32 and a "
+                         f"16-byte aligned out, got {d}")
+    if launch.body == "d32" and launch.kernel == "msda_fwd_dense":
+        if value.dtype != torch.bfloat16:
+            raise ValueError(f"{launch.kernel}: the D = 32 body takes a bf16 value, got "
+                             f"{value.dtype}")
+        err = _build.library().ape_msda_fwd_dense_d32(
+            value.data_ptr(), pixel_offsets.data_ptr(), att.data_ptr(), out.data_ptr(), plan,
+            flags[0], flags[2], DENSE_D32_VARIANTS[variant], flags[3])
+    elif launch.body == "d32":
         err = _build.library().ape_msda_fwd_qlevel_d32(
             value.data_ptr(), pixel_offsets.data_ptr(), att.data_ptr(),
             grid_centers(shapes, value.device).data_ptr(), out.data_ptr(), plan, *flags[:3],
             D32_VARIANTS[variant], flags[3])
-        if err in TENSOR_MAP_ERRORS:
-            raise RuntimeError(f"{launch.kernel}: no TMA tensor map: {TENSOR_MAP_ERRORS[err]} "
-                               f"(boxes {launch.boxes}, {torch.cuda.get_device_name()})")
     else:
         err = getattr(_build.library(), "ape_" + launch.kernel)(
             value.data_ptr(), pixel_offsets.data_ptr(), att.data_ptr(), out.data_ptr(), plan,
             *flags)
+    if launch.body == "d32" and err in TENSOR_MAP_ERRORS:
+        raise RuntimeError(f"{launch.kernel}: no TMA tensor map: {TENSOR_MAP_ERRORS[err]} "
+                           f"(boxes {launch.boxes}, {torch.cuda.get_device_name()})")
     _build.check(err, launch.kernel)
     _build.LAUNCHES[launch.kernel] += 1
 
@@ -435,8 +515,8 @@ def window_form_cuda(form: str, value: torch.Tensor, spatial_shapes, pixel_offse
                      budget: int = SMEM_LIMIT) -> torch.Tensor:
     """The window op under a form on CUDA tensors: value (B, S, H, D),
     pixel_offsets (B, S, H, L, P, 2) f32, att (B, S, H, L, P) -> (B, S, H *
-    D) in the value's dtype, by the form's plan (``plan_layer``, with K8's
-    ``body`` and the shared-memory ``budget``)."""
+    D) in the value's dtype, by the form's plan (``plan_layer``, with K8's or
+    K9's ``body`` and the shared-memory ``budget``)."""
     from ape_tpu_torch.ops import msda_dispatch
 
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)

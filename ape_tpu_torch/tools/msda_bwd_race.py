@@ -29,6 +29,12 @@ split against merged) and the card's name and power limit. ``failures``
 holds the errors over their bf16 bounds (``ops/bounds.py``); ``chip_smoke.py``
 calls ``race`` in its race phase. ``device="cpu"`` runs the plain version
 in every form's place, untimed, to test the plumbing.
+
+On the card, under the ring draw, ``value_parts`` adds where K4's time goes:
+the device time of its D = 32 body and of its general body with every
+value level's samples live, and of the D = 32 body with one value level's
+samples live at a time (the others' locations NaN, which the kernel drops),
+beside K2.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from ape_tpu_torch.tools.msda_race import (
     RADIUS,
     _launches,
     card_line,
+    device_ms,
     window_inputs,
 )
 from ape_tpu_torch.tools.pair_probe import PEAK_F32_FLOPS, device_or_card
@@ -160,9 +167,35 @@ def race(device=None, card: str | None = None, iters: int = 10, pyramids=PYRAMID
             recs[-2]["rel_err_vs_merged"] = _rel_errors(got["split"], got["merged"])
             for rec in recs[-3:]:
                 print(json.dumps(rec), flush=True)
+            if cuda and draw == "ring":
+                for rec in value_parts(shapes, value, loc, att, grad, iters,
+                                       dict(base, phase="bwd_race_value")):
+                    print(json.dumps(rec), flush=True)
+                    recs.append(rec)
             del value, off, att, loc, grad, leaves, out, got
             if cuda:
                 torch.cuda.empty_cache()
+    return recs
+
+
+def value_parts(shapes, value, loc, att, grad, iters: int, base: dict) -> list:
+    """Records of K4 by its parts (device time, ``msda_race.device_ms``): its
+    D = 32 body and its general body over every value level, K2 beside; the
+    D = 32 body with only one value level's samples live, for each level."""
+    recs = [dict(base, kernel="msda_bwd_value", body=body, value_levels="all",
+                 device_ms=device_ms(lambda body=body: msda_bwd_value_cuda(
+                     shapes, loc, att, grad, body=body), iters))
+            for body in ("d32", "general")]
+    recs.append(dict(base, kernel="msda_bwd", value_levels="all",
+                     device_ms=device_ms(lambda: msda_bwd_cuda(value, shapes, loc, att, grad),
+                                         iters)))
+    for lv, size in enumerate(shapes):
+        one = loc.clone()
+        one[:, :, :, [i for i in range(len(shapes)) if i != lv]] = float("nan")
+        recs.append(dict(base, kernel="msda_bwd_value", body="d32", value_levels=[lv],
+                         value_level_shape=list(size),
+                         device_ms=device_ms(lambda one=one: msda_bwd_value_cuda(
+                             shapes, one, att, grad, body="d32"), iters)))
     return recs
 
 

@@ -20,7 +20,13 @@ every pair. Last, where K8's D = 32 body spends its time (ring draw): the
 device time (``device_ms``) of the whole op and of each query level's launch, for the op
 and for its parts (``msda_window_forms.D32_VARIANTS``: the staged levels'
 samples alone, the finer levels' alone, the boxes staged by cp.async
-instead of TMA), beside K1's window entry and K8's general body.
+instead of TMA), beside K1's window entry and K8's general body; and where
+K9's D = 32 body spends its time: the device time of the whole op (its K9
+launches and the K1 launch of the narrow query levels), of each K9 launch
+(one a query level) and of the K1 launch, for the op and for its parts
+(``msda_window_forms.DENSE_D32_VARIANTS``: the box levels alone, the finer
+levels alone, the box levels without the products, their staging alone),
+beside K1's window entry and K9's general body.
 
 Each line is one JSON record with the form's launches per layer, its bound
 (the bytes it must move over 3.35 TB/s: value, offsets, weights and output
@@ -149,6 +155,47 @@ def qlevel_parts(value, shapes, off, att, iters: int, card: str, base: dict):
     return recs
 
 
+def dense_parts(value, shapes, off, att, iters: int, card: str, base: dict):
+    """Records of K9's D = 32 body by its parts: for each variant, the
+    device time of the plan's K9 launches and of each of them (one a query
+    level), and the K1 launch of the narrow query levels; the whole op
+    under the D = 32 body and under the general body, and K1's window entry,
+    beside."""
+    plan = forms.plan_layer("dense", shapes, HEAD_DIM, value.element_size(), RADIUS)
+    dense = [x for x in plan if x.kernel == "msda_fwd_dense"]
+    k1 = [x for x in plan if x.kernel == "msda_fwd"]
+    out = torch.empty(*value.shape[:2], HEADS * HEAD_DIM, dtype=value.dtype, device=value.device)
+    starts, _ = level_start_index(shapes)
+
+    def run(launches, variant):
+        return lambda: [forms.launch_cuda(x, value, shapes, off, att, out, RADIUS, variant)
+                        for x in launches]
+
+    def k1_run(x):
+        first, last = x.query_levels[0], x.query_levels[-1]
+        rows = slice(starts[first], starts[last] + shapes[last][0] * shapes[last][1])
+        loc = window_locations(shapes, off[:, rows], RADIUS, first_query=rows.start).contiguous()
+        att_rows = att[:, rows].contiguous()
+        return lambda: msda_fwd_cuda(value, shapes, loc, att_rows)
+
+    recs = [dict(base, body=body, kernel="msda_fwd_dense", device_ms=device_ms(
+                lambda body=body: forms.window_form_cuda("dense", value, shapes, off, att, RADIUS,
+                                                         body=body), iters), card=card)
+            for body in ("d32", "general")]
+    recs.append(dict(base, kernel="msda_fwd_window", device_ms=device_ms(
+        lambda: msda_fwd_window_cuda(value, shapes, off, att, RADIUS), iters), card=card))
+    recs.append(dict(base, kernel="msda_fwd", query_levels=[list(x.query_levels) for x in k1],
+                     device_ms=[device_ms(k1_run(x), iters) for x in k1], card=card))
+    for variant in forms.DENSE_D32_VARIANTS:
+        recs.append(dict(base, body="d32", variant=variant,
+                         device_ms=device_ms(run(dense, variant), iters),
+                         per_query_level_ms=[device_ms(run([x], variant), iters) for x in dense],
+                         query_levels=[x.query_levels[0] for x in dense],
+                         tiles=[list(x.tile) for x in dense], smem=[x.smem for x in dense],
+                         card=card))
+    return recs
+
+
 def form_op(form: str, value, shapes, off, att):
     """The whole window op under a form, as a callable."""
     if form == "gather":
@@ -222,8 +269,12 @@ def race(dev, card: str, iters: int = 20):
                            card=card)
                 print(json.dumps(rec), flush=True)
                 recs.append(rec)
-            parts = qlevel_parts(value, shapes, off, att, iters, card,
-                                 dict(base, phase="race_qlevel")) if draw == "ring" else []
+            parts = []
+            if draw == "ring":
+                parts = (qlevel_parts(value, shapes, off, att, iters, card,
+                                      dict(base, phase="race_qlevel"))
+                         + dense_parts(value, shapes, off, att, iters, card,
+                                       dict(base, phase="race_dense")))
             for rec in _pairs(value, shapes, off, att, batch, esize, iters, card,
                               dict(base, phase="race_pair")) + parts:
                 print(json.dumps(rec), flush=True)

@@ -19,8 +19,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (UTMALDG) and reads them by 64-bit (bf16) or 128-bit (f32) shared loads,
    no 16-bit value load, within 64 registers and no spill; every instance of
    K3's D = 32 body reads its corners by 64- or 128-bit loads, holds no
-   reduction or atomic, and spills nothing; the general bodies' instances
-   are recorded beside;
+   reduction or atomic, and spills nothing; every instance of K4's D = 32
+   body holds only 16-byte vector reductions, within 64 registers and no
+   spill; every instance of K9's D = 32 body holds tensor-core products
+   (HMMA) and TMA loads (UTMALDG) and spills nothing; the general bodies'
+   instances are recorded beside;
 3. kernels: each forward CUDA kernel against its plain PyTorch version at
    every shape set the main paths give it (the protocol pyramid at batch 1;
    the 4-scale pyramid at batch 1 with 900 decoder queries and at batch 2
@@ -34,15 +37,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    1) and the 4-scale one (batch 2); K8's D = 32 body also against K1's
    window entry and K1 on ``window_locations`` bit for bit, as planned and
    with a budget cut to force groups, and its general body timed beside;
+   K9's D = 32 body (bf16) also in out mode "store" against the f32 plain
+   version within 2e-4, its general body timed beside;
 4. backward kernels: each backward kernel against torch autograd of its
    plain version at the training shapes, in f32 and bf16, with times (the
    attention backward beside that of ``F.scaled_dot_product_attention``,
    both also as their kernels' device time by ``torch.profiler``; the dQ
    kernel's delta also against the plain row sum of O * dO); the split
    MSDA backward (K3, K4) also against the merged one (K2), K3's D = 32
-   body's d_loc and d_att bit for bit, its general body within bounds and
-   timed beside; K2 at head width 32 (the encoder's and the decoder's case)
-   and, for its general body, 64 (the decoder's);
+   body's d_loc and d_att bit for bit, K4's D = 32 body's d_value within
+   the split bound, their general bodies within bounds and timed beside;
+   K2 at head width 32 (the encoder's and the decoder's case) and, for its
+   general body, 64 (the decoder's);
 5. slice: ``build_ape_ti`` at the reference latency protocol (1024^2, bf16,
    900 queries, 80 text features of width 1024, N(0, 0.02) weights with the
    ring-init offsets re-armed): launch counts per forward, host syncs (each
@@ -95,8 +101,8 @@ Then the kernels line (each kernel's launches over every path: ``launches``
 over all of them, ``launches_main`` over the serving and training phases
 alone, 5-11, ``launches_default`` over those of them that run the default
 flags: slice, serve, train, full serve and full train with the merged
-backward; error, time, plain and library time, and bound; for K1, K3 and
-K8, whose D = 32 body runs there, the general body's time as
+backward; error, time, plain and library time, and bound; for K1, K3, K4,
+K8 and K9, whose D = 32 body runs there, the general body's time as
 ``general_ms``) and, last,
 {"ok": true, "device": {...}}. The script needs the repository around it and
 a CUDA card; it imports no JAX.
@@ -119,11 +125,9 @@ NUM_TEXT = 80
 QUERIES = 900
 SHAPES = ((128, 128), (64, 64), (32, 32), (16, 16), (8, 8))  # protocol pyramid at 1024^2
 HEADS, HEAD_DIM, POINTS, RADIUS = 8, 32, 4, 4
-# |kernel - plain| bounds. f32: both accumulate in f32 in another order. bf16:
-# the output is rounded to bf16 (8 bits) at magnitudes up to ~4, so one ulp.
-BOUNDS = {"float32": {"msda": 1e-5, "attn": 1e-4}, "bfloat16": {"msda": 3.2e-2, "attn": 3.2e-2}}
-# The backward kernels' bounds (against autograd of the plain version, and
-# the split MSDA backward against the merged one) are ops/bounds.py's.
+# The kernels' bounds (the forward ones against the plain version, the
+# backward ones against autograd of it, and the split MSDA backward against
+# the merged one) are ops/bounds.py's.
 MEMORY_BOUND = 1e-3  # f32 encoder memory, CUDA kernels vs plain on the CPU
 SEED = 0
 
@@ -310,6 +314,8 @@ def build_phase():
     vector_gather_check()
     d32_body_check(QLEVEL_D32_KERNEL, GENERAL_K8_KERNEL, qlevel_faults, D32_INSTANCES)
     d32_body_check(OFFATT_D32_KERNEL, GENERAL_K3_KERNEL, offatt_faults, D32_INSTANCES)
+    d32_body_check(VALUE_D32_KERNEL, GENERAL_K4_KERNEL, value_faults, D32_INSTANCES)
+    d32_body_check(DENSE_D32_KERNEL, GENERAL_K9_KERNEL, dense_faults, DENSE_D32_INSTANCES)
 
 
 # Kernels whose bf16 instances run on the tensor cores (mma.sync, HMMA in their
@@ -433,12 +439,13 @@ def vector_gather_check():
                    VECTOR_GATHER_INSTANCES)
 
 
-def d32_body_check(kernel: str, general: str, faults, instances: int):
+def d32_body_check(kernel: str, general: str, faults, instances):
     """Every instance of a D = 32 body in the built library held to
     ``faults(name, ops, info) -> (record, faults)``, one record an instance
     (its static SASS counts and what ptxas reported), and each instance of
     the kernel's general body (mangled ``general``) recorded beside; each
-    body must have ``instances`` instances."""
+    body must have ``instances`` instances (an int, or (D = 32 body,
+    general body))."""
     from ape_tpu_torch.ops import _build
 
     info = _build.ptxas_info()
@@ -451,16 +458,22 @@ def d32_body_check(kernel: str, general: str, faults, instances: int):
         bad += found
     for name, ops in sorted(others.items()):
         log(phase="sass", kernel=general.rstrip("I"), name=name, **ops, **info.get(name, {}))
-    if len(counts) != instances or len(others) != instances or bad:
+    want = instances if isinstance(instances, tuple) else (instances, instances)
+    if (len(counts), len(others)) != want or bad:
         fail(f"SASS check of {kernel}: {len(counts)} instances and {len(others)} of "
-             f"{general.rstrip('I')}, expected {instances} each; {'; '.join(bad)}")
+             f"{general.rstrip('I')}, expected {want}; {'; '.join(bad)}")
 
 
-# K8's and K3's D = 32 bodies, and their general ones (every head width),
-# each with instances (value, attention weights) bf16/bf16, bf16/f32, f32/f32.
+# K8's, K3's and K4's D = 32 bodies, and their general ones (every head
+# width), each with instances (value or grad, attention weights) bf16/bf16,
+# bf16/f32, f32/f32; K9's D = 32 body takes a bf16 value only, with bf16 or
+# f32 weights, its general body the three pairs.
 QLEVEL_D32_KERNEL, GENERAL_K8_KERNEL = "msda_fwd_qlevel_kernel_d32", "msda_fwd_qlevel_kernelI"
 OFFATT_D32_KERNEL, GENERAL_K3_KERNEL = "msda_bwd_offatt_kernel_d32", "msda_bwd_offatt_kernelI"
+VALUE_D32_KERNEL, GENERAL_K4_KERNEL = "msda_bwd_value_kernel_d32", "msda_bwd_value_kernelI"
+DENSE_D32_KERNEL, GENERAL_K9_KERNEL = "msda_fwd_dense_kernel_d32", "msda_fwd_dense_kernelI"
 D32_INSTANCES = 3
+DENSE_D32_INSTANCES = (2, 3)
 D32_MAX_REGISTERS = 64  # __launch_bounds__(256, 4)
 
 
@@ -475,6 +488,17 @@ def _instance_dtypes(kernel: str, name: str):
     args = m.group(1)
     value = "bfloat16" if args.startswith("13__nv_bfloat16") else "float32"
     return value, "float32" if args.endswith("f") else value
+
+
+def _dense_att(name: str):
+    """The attention-weight dtype of an instance of K9's D = 32 body, its one
+    template argument."""
+    import re
+
+    m = re.search(rf"{DENSE_D32_KERNEL}I(.+?)EEv", name)
+    if m is None:
+        fail(f"unexpected instance {name}")
+    return "float32" if m.group(1) == "f" else "bfloat16"
 
 
 def _spill_faults(name: str, info: dict):
@@ -519,6 +543,34 @@ def offatt_faults(name: str, ops: dict, info: dict):
         bad.append(f"{name}: {ops[f'LDG_{width}']} {width}-bit loads, fewer than 4 corners")
     if ops["REDG"] or ops["ATOMG"] or ops["ATOM"]:
         bad.append(f"{name}: {ops['REDG']} REDG, {ops['ATOMG']} ATOMG, {ops['ATOM']} ATOM")
+    return rec, bad
+
+
+def value_faults(name: str, ops: dict, info: dict):
+    """One instance of K4's D = 32 body: (its record, its faults): a
+    reduction into d_value that is not a 16-byte vector one, none at all,
+    over D32_MAX_REGISTERS registers, a spill."""
+    grad, att = _instance_dtypes(VALUE_D32_KERNEL, name)
+    rec = dict(phase="sass", kernel=VALUE_D32_KERNEL, grad=grad, att=att, name=name, **ops,
+               **info)
+    bad = _spill_faults(name, info)
+    if not 0 < ops["REDG_V4"] == ops["REDG"] or ops["ATOMG"] or ops["ATOM"]:
+        bad.append(f"{name}: {ops['REDG_V4']} vector reductions of {ops['REDG']} REDG, "
+                   f"{ops['ATOMG']} ATOMG, {ops['ATOM']} ATOM")
+    if info.get("registers", 0) > D32_MAX_REGISTERS:
+        bad.append(f"{name}: {info['registers']} registers")
+    return rec, bad
+
+
+def dense_faults(name: str, ops: dict, info: dict):
+    """One instance of K9's D = 32 body: (its record, its faults): no
+    tensor-core product (HMMA), no ldmatrix (LDSM), no TMA load (UTMALDG),
+    a spill."""
+    rec = dict(phase="sass", kernel=DENSE_D32_KERNEL, value="bfloat16", att=_dense_att(name),
+               name=name, **ops, **info)
+    bad = _spill_faults(name, info)
+    if ops["HMMA"] < 1 or ops["LDSM"] < 1 or ops["UTMALDG"] < 1:
+        bad.append(f"{name}: {ops['HMMA']} HMMA, {ops['LDSM']} LDSM, {ops['UTMALDG']} UTMALDG")
     return rec, bad
 
 
@@ -655,6 +707,7 @@ def kernels_phase(dev):
     import torch.nn.functional as F
 
     from ape_tpu_torch.ops.attention import attn_fwd_cuda, global_attention_plain
+    from ape_tpu_torch.ops.bounds import FWD_BOUNDS as BOUNDS
     from ape_tpu_torch.ops.msda import ms_deform_attn
     from ape_tpu_torch.ops.msda_dispatch import (
         msda_fwd_cuda,
@@ -757,15 +810,65 @@ def qlevel_bodies(value, shapes, off, att, k1, name: str, dname: str) -> dict:
                     value, shapes, off, att, RADIUS), FORM_ITERS))
 
 
+def dense_bodies(value, shapes, off, att, name: str, dname: str) -> dict:
+    """K9's D = 32 body (bf16) beside its general body: each K9 launch of
+    the plan in out mode "store" against the plain version on the same
+    inputs upcast to f32, within DENSE_STORE_BOUND of its largest output;
+    the whole op under the general body, its error and time; the record's
+    fields."""
+    import dataclasses
+
+    import torch
+
+    from ape_tpu_torch.ops.bounds import DENSE_STORE_BOUND, FWD_BOUNDS as BOUNDS
+    from ape_tpu_torch.ops.msda import level_start_index
+    from ape_tpu_torch.ops.msda_window_forms import (
+        launch_cuda,
+        plan_layer,
+        window_form_cuda,
+        window_plain,
+        window_qlevel_plain,
+    )
+
+    starts, _ = level_start_index(shapes)
+    store = []
+    for x in plan_layer("dense", shapes, HEAD_DIM, value.element_size(), RADIUS):
+        if x.kernel != "msda_fwd_dense":
+            continue
+        if x.body != "d32":
+            fail(f"{name} {dname}: a K9 launch of the plan takes the {x.body} body")
+        out = torch.zeros(*value.shape[:2], HEADS * HEAD_DIM, device=value.device)
+        launch_cuda(dataclasses.replace(x, out_mode="store"), value, shapes, off, att, out, RADIUS)
+        (lq,) = x.query_levels
+        rows = slice(starts[lq], starts[lq] + shapes[lq][0] * shapes[lq][1])
+        want = window_qlevel_plain(value.float(), shapes, lq, off, att.float(), RADIUS)
+        store.append(float((out[:, rows] - want).abs().max()) / float(want.abs().max()))
+        if not store[-1] <= DENSE_STORE_BOUND:
+            fail(f"{name} {dname}: K9's D = 32 body in f32 out mode at query level {lq}: "
+                 f"max |kernel - f32 plain| / max |plain| {store[-1]} > {DENSE_STORE_BOUND}")
+    general = window_form_cuda("dense", value, shapes, off, att, RADIUS, body="general")
+    err = float((general.float() - window_plain(value, shapes, off, att, RADIUS).float())
+                .abs().max())
+    if not err <= BOUNDS[dname]["msda"]:
+        fail(f"{name} {dname}: K9's general body: max |form - plain| {err} > "
+             f"{BOUNDS[dname]['msda']}")
+    return dict(body="d32", store_rel_err=store, store_bound=DENSE_STORE_BOUND,
+                general_max_abs_err=err,
+                general_ms=cuda_ms(lambda: window_form_cuda(
+                    "dense", value, shapes, off, att, RADIUS, body="general"), FORM_ITERS))
+
+
 def forms_kernels_step(dev):
     """K6 (all pairs), K7 (+ K6), K8 and K9 (+ K1), each as the whole window
     op of one encoder layer, against the plain version and against K1 on the
     same inputs (the ring draw), at the protocol pyramid (batch 1) and the
     4-scale one (batch 2), in f32 and bf16: errors, times, bound, launches
-    per layer; K8's two bodies also by ``qlevel_bodies``."""
+    per layer; K8's two bodies also by ``qlevel_bodies``, K9's (bf16) by
+    ``dense_bodies``."""
     import torch
 
     from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.ops.bounds import FWD_BOUNDS as BOUNDS
     from ape_tpu_torch.ops.msda_dispatch import msda_fwd_cuda, window_locations
     from ape_tpu_torch.ops.msda_window_forms import window_form_cuda, window_plain
     from ape_tpu_torch.tools.msda_race import window_inputs
@@ -800,6 +903,8 @@ def forms_kernels_step(dev):
                            bound_by=bound_by)
                 if form == "qlevel":
                     rec.update(qlevel_bodies(value, shapes, off, att, k1, name, dname))
+                if form == "dense" and dtype == torch.bfloat16:
+                    rec.update(dense_bodies(value, shapes, off, att, name, dname))
                 log(**rec)
                 if not (err <= limit and err_k1 <= limit):
                     fail(f"{name} {dname}: max |form - plain| {err}, |form - K1| {err_k1} > {limit}")
@@ -917,17 +1022,29 @@ def backward_kernels_phase(dev):
                         err = float((got.float() - ref.float()).abs().max())
                         fail(f"msda_bwd_offatt {dname}: the D = 32 body's {out_name} differs "
                              f"from K2's by {err}")
-                d_value = msda_bwd_value_cuda(TRAIN_SHAPES, loc, att, gout)
+                # K4's D = 32 body: K2's d_value within the split bound (the
+                # same addends, the atomics in another order); its general
+                # body within bounds of autograd and of K2
+                d_value = msda_bwd_value_cuda(TRAIN_SHAPES, loc, att, gout, body="d32")
+                value_general = msda_bwd_value_cuda(TRAIN_SHAPES, loc, att, gout, body="general")
                 split = {"msda_bwd_offatt": (_errors(("d_loc", "d_att"), offatt, want[1:]),
                                              _errors(("d_loc", "d_att"), general, merged[1:])),
                          "msda_bwd_value": (_errors(("d_value",), [d_value], want[:1]),
                                             _errors(("d_value",), [d_value], merged[:1]))}
                 general_errs = _errors(("d_loc", "d_att"), general, want[1:])
-                for n, (_, rel) in general_errs.items():
-                    if not rel <= GRAD_BOUNDS[dname]:
-                        fail(f"msda_bwd_offatt {dname}: the general body's {n}: max |kernel - "
-                             f"autograd of plain| / max |plain| {rel} > {GRAD_BOUNDS[dname]}")
-                del offatt, general, d_value
+                value_general_errs = (_errors(("d_value",), [value_general], want[:1]),
+                                      _errors(("d_value",), [value_general], merged[:1]))
+                for kname, (errs, vs) in (("msda_bwd_offatt", (general_errs, {})),
+                                          ("msda_bwd_value", value_general_errs)):
+                    for n, (_, rel) in errs.items():
+                        if not rel <= GRAD_BOUNDS[dname]:
+                            fail(f"{kname} {dname}: the general body's {n}: max |kernel - "
+                                 f"autograd of plain| / max |plain| {rel} > {GRAD_BOUNDS[dname]}")
+                    for n, (_, rel) in vs.items():
+                        if not rel <= SPLIT_BOUNDS[dname]:
+                            fail(f"{kname} {dname}: the general body's {n}: max |split - merged|"
+                                 f" / max |merged| {rel} > {SPLIT_BOUNDS[dname]}")
+                del offatt, general, d_value, value_general
             del merged, leaves, want
             plain_leaves = [t.detach().clone().requires_grad_() for t in (value, loc, att)]
             out = ms_deform_attn(plain_leaves[0], TRAIN_SHAPES, *plain_leaves[1:])
@@ -951,7 +1068,14 @@ def backward_kernels_phase(dev):
                 errs, vs = split["msda_bwd_value"]
                 record("msda_bwd_value", dname, errs,
                        lambda: msda_bwd_value_cuda(TRAIN_SHAPES, loc, att, gout), plain_bwd(0),
-                       msda_bound("msda_bwd_value", b, s, nq, lv, es), vs)
+                       msda_bound("msda_bwd_value", b, s, nq, lv, es), vs,
+                       extra=dict(
+                           body="d32",
+                           general_rel_err={n: e[1] for n, e in value_general_errs[0].items()},
+                           general_rel_err_vs_msda_bwd={
+                               n: e[1] for n, e in value_general_errs[1].items()},
+                           general_ms=cuda_ms(lambda: msda_bwd_value_cuda(
+                               TRAIN_SHAPES, loc, att, gout, body="general"))))
             del value, att, gout, out, plain_leaves
             torch.cuda.empty_cache()
 

@@ -21,9 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from ape_tpu_torch.ops.attention import global_attention_plain
-from ape_tpu_torch.ops.bounds import GRAD_BOUNDS
+from ape_tpu_torch.ops.bounds import FWD_BOUNDS, GRAD_BOUNDS
 from ape_tpu_torch.tools.backbone_fix_probe import bf16_steps
 
 TILE = 64  # keys a step of the forward, queries a step of dK/dV
@@ -124,7 +123,7 @@ def test_forward_rounding_within_the_card_bounds(n):
     plain = global_attention_plain(q, k, v, 0.125)
     plain32 = global_attention_plain(q.float(), k.float(), v.float(), 0.125)
     err = float((got.float() - plain.float()).abs().max())
-    assert err <= chip_smoke.BOUNDS["bfloat16"]["attn"]
+    assert err <= FWD_BOUNDS["bfloat16"]["attn"]
     assert err <= bf16_steps(plain)
     assert float((got.float() - plain32).abs().max()) <= bf16_steps(plain32)
 

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions on an NVIDIA card.
 
 These tests (forward and backward kernels, the merged and the split MSDA
-backward, the encoder's other window forward forms K6-K9, the probes K10
-and K11) need a CUDA device and the CUDA toolkit: the kernels have no CPU
+backward with K4's two bodies, the encoder's other window forward forms
+K6-K9 with K8's and K9's D = 32 bodies, the probes K10 and K11) need a CUDA device and the CUDA toolkit: the kernels have no CPU
 mode, so without a card they skip. The file imports neither JAX nor the
 test conftest, so it runs on a machine that has no JAX:
 
@@ -27,7 +27,7 @@ from ape_tpu_torch.ops.attention import (
     global_attention,
     global_attention_plain,
 )
-from ape_tpu_torch.ops.msda import ms_deform_attn
+from ape_tpu_torch.ops.msda import level_start_index, ms_deform_attn
 from ape_tpu_torch.ops.msda_dispatch import (
     BODIES,
     fwd_body,
@@ -156,21 +156,49 @@ def test_msda_fwd_refuses_unaligned_inputs_at_head_width_32(device):
         msda_fwd_cuda(value[..., :16].contiguous(), shapes, loc, att, body="d32")
 
 
-def _launched_body(fn):
-    """Which of K1's bodies fn() launched, by the kernel names the profiler
-    recorded on the card."""
+# torch.profiler windows a check reads before it fails, each of
+# PROFILE_CALLS calls, a second apart: a window at times comes back with no
+# device activity (chip_smoke.kernel_ms profiles again too), on an H100 once
+# three short windows in a row
+PROFILE_TRIES, PROFILE_CALLS = 5, 5
+
+
+def _launched_kernels(fn, part: str):
+    """The set of names of the kernels with ``part`` in their name that fn()
+    ran on the card, by torch.profiler over PROFILE_CALLS calls; a window
+    that recorded none of them is profiled again, at most PROFILE_TRIES
+    times in all."""
+    import time
+
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = {e.name for e in prof.events() if "msda_fwd_kernel" in e.name}
-    assert len(names) == 1, names
-    return "d32" if "msda_fwd_kernel_d32" in names.pop() else "general"
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and part in e.name}
+        if names:
+            return names
+        time.sleep(1.0)
+    pytest.fail(f"torch.profiler recorded no {part} in {PROFILE_TRIES} windows")
+
+
+def _launched_body(monkeypatch, fn):
+    """Which of K1's bodies fn() launched: by the body code its one call of
+    the library's K1 entry passed (``_entries``), and by the name of the one
+    K1 kernel it ran on the card, which must agree."""
+    calls = [args for name, args in _entries(monkeypatch, fn) if name == "ape_msda_fwd"]
+    assert len(calls) == 1, calls
+    body = {code: body for body, code in BODIES.items()}[calls[0][-2]]
+    (name,) = _launched_kernels(fn, "msda_fwd_kernel")
+    assert ("msda_fwd_kernel_d32" in name) == (body == "d32"), (body, name)
+    return body
 
 
 @pytest.mark.parametrize("items", [8, 4800, 7200, 174592])
-def test_msda_fwd_takes_the_d32_body_at_head_width_32(device, items):
+def test_msda_fwd_takes_the_d32_body_at_head_width_32(device, monkeypatch, items):
     """At head width 32 launches of few items (down to one query) and of many
     take the D = 32 body, the decoder's 4,800 and 7,200 items among them; at
     64 the general body. Both bodies agree bit for bit."""
@@ -182,7 +210,8 @@ def test_msda_fwd_takes_the_d32_body_at_head_width_32(device, items):
         q = items // 8
         loc = torch.from_numpy(rng.rand(1, q, 8, 3, 4, 2).astype(np.float32)).to(device)
         att = torch.from_numpy(rng.rand(1, q, 8, 3, 4).astype(np.float32)).to(device)
-        assert _launched_body(lambda: msda_fwd_cuda(value, shapes, loc, att)) == fwd_body(dim)
+        assert _launched_body(monkeypatch,
+                              lambda: msda_fwd_cuda(value, shapes, loc, att)) == fwd_body(dim)
     assert fwd_body(32) == "d32"
     value = value[..., :32].contiguous()
     assert torch.equal(msda_fwd_cuda(value, shapes, loc, att, body="d32"),
@@ -384,6 +413,188 @@ def test_msda_split_route_serves_the_encoder_only(device, monkeypatch):
     loc = torch.rand(2, value.shape[1], 8, 3, 4, 2, device=device, requires_grad=True)
     ms_deform_attn_exact(value.clone().requires_grad_(), shapes, loc, att).backward(grad)
     assert _build.LAUNCHES["msda_bwd"] == 1 and _build.LAUNCHES["msda_bwd_offatt"] == 0
+
+
+class _EntrySpy:
+    """The kernel library with a record of the C entries called through it,
+    each with its arguments (by the library's calls, not the profiler's
+    record of kernel names, which can miss launches late in a long
+    process)."""
+
+    def __init__(self, lib):
+        self._lib, self.calls = lib, []
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+
+        def call(*args):
+            self.calls.append((name, args))
+            return fn(*args)
+
+        return call
+
+
+def _entries(monkeypatch, fn):
+    """The (entry, arguments) calls fn() made into the kernel library."""
+    spy = _EntrySpy(_build.library())
+    monkeypatch.setattr(_build, "library", lambda: spy)
+    fn()
+    monkeypatch.undo()
+    return spy.calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pyramid", sorted(PYRAMIDS))
+def test_msda_bwd_value_d32_matches_k2_and_general(device, monkeypatch, pyramid, dtype):
+    """K4's D = 32 body (8 lanes an item, one float4 reduction a lane and
+    corner) on one encoder layer's window inputs at each pyramid: its
+    d_value within SPLIT_BOUNDS of K2's and of K4's general body (the same
+    addends as K2's, the atomics in another order); the wrapper takes it at
+    head width 32."""
+    shapes, batch = PYRAMIDS[pyramid]
+    value, off, att = window_inputs(torch.Generator().manual_seed(13), shapes, batch, "ring",
+                                    dtype, device)
+    loc = window_locations(shapes, off, RADIUS).contiguous()
+    grad = torch.randn(batch, value.shape[1], 256, generator=torch.Generator().manual_seed(14))
+    grad = grad.to(device, dtype)
+    merged = msda_bwd_cuda(value, shapes, loc, att, grad)[0]
+    bodies = {b: msda_bwd_value_cuda(shapes, loc, att, grad, body=b) for b in BODIES}
+    bound = bounds.SPLIT_BOUNDS[str(dtype).split(".")[-1]]
+    for body, got in bodies.items():
+        assert got.dtype == dtype and got.shape == merged.shape
+        assert bool(torch.isfinite(got).all())
+        for ref in (merged, bodies["general"]):
+            scale = float(ref.float().abs().max())
+            assert float((got.float() - ref.float()).abs().max()) <= bound * scale, body
+
+    def run():
+        return msda_bwd_value_cuda(shapes, loc, att, grad)
+
+    calls = _entries(monkeypatch, run)
+    assert [(name, args[-2]) for name, args in calls] == [("ape_msda_bwd_value", BODIES["d32"])]
+    (name,) = _launched_kernels(run, "msda_bwd_value_kernel")
+    assert "msda_bwd_value_kernel_d32" in name, name
+
+
+BF16_MSDA_BOUND = bounds.FWD_BOUNDS["bfloat16"]["msda"]
+
+
+@pytest.mark.parametrize("pyramid", sorted(PYRAMIDS))
+def test_dense_d32_matches_k1_window_plain_and_general(device, monkeypatch, pyramid):
+    """K9's D = 32 body (bf16: each tile's weight matrix against the staged
+    boxes on the tensor cores, the finer levels from device memory) in the
+    whole window op (+ K1 on the narrow query levels) at both pyramids:
+    within the bf16 MSDA bound of K1's window entry, of the plain version
+    and of K9's general body; every K9 launch takes the D = 32 body."""
+    shapes, batch = PYRAMIDS[pyramid]
+    value, off, att = window_inputs(torch.Generator().manual_seed(15), shapes, batch, "ring",
+                                    torch.bfloat16, device)
+    plan = forms.plan_layer("dense", shapes, 32, 2, RADIUS)
+    assert {x.body for x in plan if x.kernel == "msda_fwd_dense"} == {"d32"}
+    got = window_form_cuda("dense", value, shapes, off, att, RADIUS)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    for ref in (msda_fwd_window_cuda(value, shapes, off, att, RADIUS),
+                window_plain(value, shapes, off, att, RADIUS),
+                window_form_cuda("dense", value, shapes, off, att, RADIUS, body="general")):
+        assert float((got.float() - ref.float()).abs().max()) <= BF16_MSDA_BOUND
+
+    def run():
+        return window_form_cuda("dense", value, shapes, off, att, RADIUS)
+
+    calls = _entries(monkeypatch, run)
+    dense = [name for name, _ in calls if name.startswith("ape_msda_fwd_dense")]
+    n_dense = sum(x.kernel == "msda_fwd_dense" for x in plan)
+    assert dense == ["ape_msda_fwd_dense_d32"] * n_dense
+    (name,) = _launched_kernels(run, "msda_fwd_dense_kernel")
+    assert "msda_fwd_dense_kernel_d32" in name, name
+
+
+DENSE_STORE_BOUND = bounds.DENSE_STORE_BOUND
+
+
+@pytest.mark.parametrize("att_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pyramid", sorted(PYRAMIDS))
+def test_dense_d32_store_mode_holds_the_f32_plain_version(device, pyramid, att_dtype):
+    """Each K9 launch of the bf16 plan with out mode "store" (f32 output):
+    its query level's rows within 2e-4 of the largest output of the plain
+    version on the same inputs upcast to f32."""
+    shapes, batch = PYRAMIDS[pyramid]
+    value, off, att = window_inputs(torch.Generator().manual_seed(16), shapes, batch, "ring",
+                                    torch.bfloat16, device)
+    att = att.to(att_dtype)
+    starts, _ = level_start_index(shapes)
+    for x in forms.plan_layer("dense", shapes, 32, 2, RADIUS):
+        if x.kernel != "msda_fwd_dense":
+            continue
+        out = torch.zeros(batch, value.shape[1], 256, device=device)
+        forms.launch_cuda(dataclasses.replace(x, out_mode="store"), value, shapes, off, att, out,
+                          RADIUS)
+        (lq,) = x.query_levels
+        rows = slice(starts[lq], starts[lq] + shapes[lq][0] * shapes[lq][1])
+        want = forms.window_qlevel_plain(value.float(), shapes, lq, off, att.float(), RADIUS)
+        rel = float((out[:, rows] - want).abs().max()) / float(want.abs().max())
+        assert rel <= DENSE_STORE_BOUND, (lq, rel)
+
+
+def test_dense_d32_nan_and_inf_offsets(device):
+    """NaN and +-inf offsets, exactly +-R, 0 and -0, and offsets landing on
+    pixel -1, through K9's D = 32 body: finite; a NaN sample adds nothing
+    (the output equals, bit for bit, that with the sample's weight and
+    offset at 0); +-inf clip to +-R, as K1's window entry does, within the
+    bf16 bound of it and of the plain version."""
+    shapes = ((8, 128), (4, 64), (2, 32))
+    s = sum(h * w for h, w in shapes)
+    rng = np.random.RandomState(17)
+    off_np = _window_edge_offsets(shapes, 2, s, 8, RADIUS, 0, seed=18)
+    att_np = rng.rand(2, s, 8, 3, 4).astype(np.float32)
+    value = torch.from_numpy(rng.randn(2, s, 8, 32).astype(np.float32)).to(device, torch.bfloat16)
+
+    def run(off_np, att_np):
+        off = torch.from_numpy(off_np).to(device)
+        att = torch.from_numpy(att_np).to(device, torch.bfloat16)
+        return window_form_cuda("dense", value, shapes, off, att, RADIUS), off, att
+
+    got, off, att = run(off_np, att_np)
+    assert bool(torch.isfinite(got).all())
+    nan = np.isnan(off_np).any(-1)
+    assert nan[:, :128 * 8].any()  # NaN samples on the K9 query level
+    off0, att0 = off_np.copy(), att_np.copy()
+    off0[nan], att0[nan] = 0.0, 0.0
+    assert torch.equal(got, run(off0, att0)[0])
+    for ref in (msda_fwd_window_cuda(value, shapes, off, att, RADIUS),
+                window_plain(value, shapes, off, att, RADIUS)):
+        assert float((got.float() - ref.float()).abs().max()) <= BF16_MSDA_BOUND
+
+
+def test_dense_d32_eight_points(device):
+    """K9's D = 32 body with 8 points a level, more than a query row's 4
+    threads place at once (two chunks of points; W's rows zeroed over the
+    staged rows instead of reset entry by entry): within the bf16 bound of
+    the plain version and of K1's window entry, in both out modes."""
+    shapes = ((8, 128), (16, 256), (4, 64))
+    s = sum(h * w for h, w in shapes)
+    rng = np.random.RandomState(19)
+    value = torch.from_numpy(rng.randn(1, s, 8, 32).astype(np.float32)).to(device, torch.bfloat16)
+    off = torch.from_numpy(rng.uniform(-6, 6, (1, s, 8, 3, 8, 2)).astype(np.float32)).to(device)
+    att = torch.from_numpy(rng.rand(1, s, 8, 3, 8).astype(np.float32) / 12).to(device,
+                                                                              torch.bfloat16)
+    got = window_form_cuda("dense", value, shapes, off, att, RADIUS)
+    for ref in (msda_fwd_window_cuda(value, shapes, off, att, RADIUS),
+                window_plain(value, shapes, off, att, RADIUS)):
+        assert float((got.float() - ref.float()).abs().max()) <= BF16_MSDA_BOUND
+    starts, _ = level_start_index(shapes)
+    for x in forms.plan_layer("dense", shapes, 32, 2, RADIUS):
+        if x.kernel != "msda_fwd_dense":
+            continue
+        assert x.body == "d32"
+        out = torch.zeros(1, s, 256, device=device)
+        forms.launch_cuda(dataclasses.replace(x, out_mode="store"), value, shapes, off, att, out,
+                          RADIUS)
+        (lq,) = x.query_levels
+        rows = slice(starts[lq], starts[lq] + shapes[lq][0] * shapes[lq][1])
+        want = forms.window_qlevel_plain(value.float(), shapes, lq, off, att.float(), RADIUS)
+        assert float((out[:, rows] - want).abs().max()) <= DENSE_STORE_BOUND * float(
+            want.abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -142,7 +142,7 @@ def test_flags_follow_the_environment(env, flags):
 # and f32 values: K8's D = 32 body holds every box of a query level in 227 KB
 # of shared memory, one group a query level (its general body groups the f32
 # 64^2 and 32^2 query levels: GENERAL_QLEVEL_LAUNCHES); K9 takes the 128-wide
-# query levels.
+# query levels, on its D = 32 body in bf16.
 PLANS = {
     ("protocol", 2): {"gather": {"msda_fwd": 1}, "pair": {"msda_fwd_pair": 25},
                       "rows": {"msda_fwd_rows": 5, "msda_fwd_pair": 10},
@@ -172,7 +172,9 @@ def test_plan_launches_per_layer(pyramid, esize, form):
     for launch in plan:
         assert launch.smem <= forms.SMEM_LIMIT
         assert launch.tile[0] * launch.tile[1] <= forms.WARPS * 16
-        assert launch.body == ("d32" if launch.kernel == "msda_fwd_qlevel" else "general")
+        d32 = launch.kernel == "msda_fwd_qlevel" or (launch.kernel == "msda_fwd_dense"
+                                                     and esize == 2)
+        assert launch.body == ("d32" if d32 else "general")
 
 
 # K8's general body at head width 32: the f32 64^2 and 32^2 query levels
