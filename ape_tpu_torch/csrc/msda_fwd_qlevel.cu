@@ -49,8 +49,12 @@
 // The tensor maps are encoded on the host for each launch by libcuda's
 // cuTensorMapEncodeTiled, reached through the runtime's entry-point query
 // (cudaGetDriverEntryPoint) so that the library links no libcuda, and
-// passed as a __grid_constant__ parameter (msda_window.cuh, shared with K9's
-// D = 32 body).
+// passed as a __grid_constant__ parameter (msda_window.cuh, shared with the
+// D = 32 bodies of K6, K7 and K9). The layout of the header of the block's
+// shared memory, the plan's checks and the launch are msda_window.cuh's
+// too, shared with K6's and K7's D = 32 bodies; this body keeps its own
+// inline copy of the header's pointers and of the corner fetch
+// (msda_window.cuh says why).
 
 #include "msda_window.cuh"
 
@@ -98,18 +102,6 @@ using ape_msda::kItemsPerWarp;
 using ape_msda::load4;
 using ape_msda::store4;
 using ape_msda::touches;
-
-// The first bytes of the D = 32 body's shared memory: an mbarrier, the box's
-// first row and its first column for each launch level. The boxes follow, at
-// 128-byte aligned offsets (ops/msda_window_forms.py: D32_HEADER_BYTES).
-constexpr int kD32HeaderBytes = 256;
-static_assert(kMaxLevels * (8 + 2 * 4) <= kD32HeaderBytes, "header");
-
-// The D = 32 body's block: 16 warps of 4 queries, so a tile of at most 64
-// queries takes one pass (ops/msda_window_forms.py: D32_TILES), and at most
-// 83 KB of boxes (bf16) two blocks an SM, 32 warps.
-constexpr int kD32Warps = 16;
-constexpr int kD32Threads = kD32Warps * 32;
 
 // What a launch of the D = 32 body does (the variant argument): the whole
 // op; or, to time its parts, only the samples of the staged levels, only
@@ -276,42 +268,6 @@ msda_fwd_qlevel_kernel_d32(const VT* __restrict__ value, const float* __restrict
       if (!(fine >> j & 1u)) mbar_wait(bar + j, 0);
 }
 
-// Whether a plan is one the D = 32 body takes: head width 32, a tile of one
-// pass, the launch's levels consecutive, every staged box at a 128-byte
-// aligned offset past the header and inside the plan's shared memory.
-bool d32_plan(const Plan& p, int es) {
-  if (p.D != kD32 || p.tq_y * p.tq_x > kD32Warps * kItemsPerWarp) return false;
-  for (int j = 0; j < p.n_lv; ++j) {
-    if (p.lv[j] != p.lv[0] + j) return false;
-    if (finer(p, p.lv[j])) continue;
-    const int64_t at = static_cast<int64_t>(p.box_off[j]) * es;
-    const int64_t bytes = static_cast<int64_t>(p.box_h[j]) * p.box_w[j] * kD32 * es;
-    if (p.box_h[j] < 1 || p.box_w[j] < 1 || at % 128 || at < kD32HeaderBytes ||
-        at + bytes > p.smem_bytes)
-      return false;
-  }
-  return true;
-}
-
-template <typename VT, typename AT>
-int launch_d32(const Plan& p, const TileMaps& maps, int variant, cudaStream_t stream,
-               const void* value, const float* off, const void* att, const float* centers,
-               void* out) {
-  const auto kernel = msda_fwd_qlevel_kernel_d32<VT, AT>;
-  if (p.smem_bytes > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int tiles = ((p.hq + p.tq_y - 1) / p.tq_y) * ((p.wq + p.tq_x - 1) / p.tq_x);
-  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(p.H),
-                  static_cast<unsigned>(p.B));
-  kernel<<<grid, kD32Threads, p.smem_bytes, stream>>>(
-      static_cast<const VT*>(value), off, static_cast<const AT*>(att), centers, out, p, maps,
-      variant);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 APE_MSDA_WINDOW_ENTRY(ape_msda_fwd_qlevel, msda_fwd_qlevel_kernel)
@@ -328,19 +284,17 @@ extern "C" int ape_msda_fwd_qlevel_d32(const void* value, const float* off, cons
   using namespace ape_msda_win;
   Plan p;
   const int es = value_bf16 ? 2 : 4;
-  if (!parse_plan(plan, radius, es, p) || !d32_plan(p, es) || variant < kWhole ||
-      variant > kCpAsync)
+  if (!parse_plan(plan, radius, es, p) || !d32_plan(p, es, kD32TileQueries) ||
+      variant < kWhole || variant > kCpAsync)
     return static_cast<int>(cudaErrorInvalidValue);
   TileMaps maps;
   if (const int err = encode_maps(p, value, value_bf16 != 0, CU_TENSOR_MAP_SWIZZLE_NONE, maps))
     return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (value_bf16) {
-    if (att_f32)
-      return launch_d32<__nv_bfloat16, float>(p, maps, variant, st, value, off, att, centers,
-                                              out);
-    return launch_d32<__nv_bfloat16, __nv_bfloat16>(p, maps, variant, st, value, off, att,
-                                                    centers, out);
-  }
-  return launch_d32<float, float>(p, maps, variant, st, value, off, att, centers, out);
+  return by_dtypes(value_bf16, att_f32, [&](auto v, auto a) {
+    using VT = decltype(v);
+    using AT = decltype(a);
+    return launch_d32(msda_fwd_qlevel_kernel_d32<VT, AT>, p, kD32Threads,
+                      static_cast<cudaStream_t>(stream), static_cast<const VT*>(value), off,
+                      static_cast<const AT*>(att), centers, out, p, maps, variant);
+  });
 }

@@ -32,6 +32,20 @@
 // Per axis a query's samples lie within win = 2 ceil(R) + 3 pixels starting
 // at window_base(): the clip bounds the offset by R, and its center pixel
 // c rounds to base + R + 1.
+//
+// That is the design of the general bodies (every head width up to 32). At
+// head width 32, every MSDA layer of APE, K6, K7 and K8 run D = 32 bodies of
+// another design, whose shared parts are the last section here: one thread
+// stages each box of a same-or-coarser level by one TMA load (the tensor
+// maps of encode_maps, an mbarrier each), a finer level is read from device
+// memory, not staged, and the sampling is K1's D = 32 layout
+// (msda_sample.cuh: 8 lanes an item, 4 channels a lane, one vector load a
+// corner), so each equals K1's window entry bit for bit. The section holds
+// the header at the start of their shared memory (the barriers and the
+// boxes' corners), the corner fetch from a box or from device memory, the
+// plan's checks and the launch; K8 calls only some of them (the section says
+// which and why). K9's D = 32 body (msda_fwd_dense.cu) shares only the TMA
+// parts.
 
 #pragma once
 
@@ -395,7 +409,7 @@ __device__ __forceinline__ void write_tile(const float (&acc)[kQueriesPerWarp], 
   }
 }
 
-// ---- TMA (K8's and K9's D = 32 bodies) ---------------------------------------
+// ---- TMA (the D = 32 bodies of K6-K9) -------------------------------------------
 
 // One tensor map per launch level whose box is staged.
 struct TileMaps {
@@ -420,6 +434,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// One arrival on the barrier (not a TMA's).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
 // Waits until the barrier's phase of this parity has completed.
@@ -526,6 +545,180 @@ inline int launch_plan(Kernel kernel, const Plan& p, cudaStream_t stream, const 
                   static_cast<unsigned>(p.B));
   kernel<<<grid, kThreads, p.smem_bytes, stream>>>(value, off, att, out, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the D = 32 bodies of K6, K7 and K8 ------------------------------------------
+//
+// K8's body (msda_fwd_qlevel.cu) takes the header's layout, d32_plan,
+// launch_d32 and by_dtypes from here. It keeps its own inline copies of
+// d32_header's pointers, the corner fetch (box_corners, device_corners),
+// the query lookup and the sums' start and store, as it had them before K6
+// and K7 shared them: calling the shared corner fetch and header moved its
+// code (62 to 64 registers, 2-3 % more device time on an H100 80GB HBM3 at
+// 700 W), so only K6 and K7 call those.
+
+using ape_msda::Cell;
+using ape_msda::kD32;
+using ape_msda::kItemsPerWarp;
+
+// The first bytes of a D = 32 body's shared memory: kMaxLevels mbarriers,
+// then the box's first row and first column for each launch level. The
+// boxes follow, at 128-byte aligned offsets (ops/msda_window_forms.py:
+// D32_HEADER_BYTES).
+constexpr int kD32HeaderBytes = 256;
+static_assert(kMaxLevels * (8 + 2 * 4) <= kD32HeaderBytes, "header");
+
+struct D32Header {
+  uint64_t* bar;
+  int* box_y0;
+  int* box_x0;
+};
+
+__device__ __forceinline__ D32Header d32_header(unsigned char* smem) {
+  D32Header h;
+  h.bar = reinterpret_cast<uint64_t*>(smem);
+  h.box_y0 = reinterpret_cast<int*>(smem + kMaxLevels * sizeof(uint64_t));
+  h.box_x0 = h.box_y0 + kMaxLevels;
+  return h;
+}
+
+// K7's and K8's D = 32 block: 16 warps of 4 queries, so a tile of at most
+// 64 queries takes one pass (ops/msda_window_forms.py: D32_TILES).
+constexpr int kD32Warps = 16;
+constexpr int kD32Threads = kD32Warps * 32;
+constexpr int kD32TileQueries = kD32Warps * kItemsPerWarp;
+
+// Query i of the tile: q (of the value's Q rows) and its item (b * Q + q) *
+// H + h.
+struct D32Query {
+  int64_t q, item;
+};
+
+__device__ __forceinline__ D32Query d32_query(const Plan& p, const Tile& t, int i) {
+  const int iy = i / t.nx;
+  D32Query r;
+  r.q = p.q_start + static_cast<int64_t>(t.qy0 + iy) * p.wq + t.qx0 + (i - iy * t.nx);
+  r.item = (static_cast<int64_t>(t.b) * p.Q + r.q) * p.H + t.h;
+  return r;
+}
+
+// A lane's 4 sums of a query (channels c0 .. c0 + 3) at the start of a
+// launch: 0, or under out mode 2 the f32 partial an earlier launch of the
+// query level stored, so that the launch continues them.
+__device__ __forceinline__ void d32_start_sums(float (&acc)[4], const Plan& p, const void* out,
+                                               bool valid, int64_t item, int c0) {
+  acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
+  if (valid && p.out_mode == 2)
+    ape_msda::load4(static_cast<const float*>(out) + item * kD32 + c0, acc);
+}
+
+// Stores them: in the value's dtype (out mode 0), else in f32.
+template <typename VT>
+__device__ __forceinline__ void d32_store_sums(const float (&acc)[4], const Plan& p, void* out,
+                                               bool valid, int64_t item, int c0) {
+  if (!valid) return;
+  if (p.out_mode == 0)
+    ape_msda::store4(static_cast<VT*>(out) + item * kD32 + c0, acc);
+  else
+    ape_msda::store4(static_cast<float*>(out) + item * kD32 + c0, acc);
+}
+
+// A lane's 4 channels of the corners of cell c inside the level, as K1
+// reads them: from device memory, v00 at the cell's corner 00 and the
+// lane's channels, row_stride H * D, wl the level's width. A corner outside
+// the level is left as the caller set it (0).
+template <typename VT>
+__device__ __forceinline__ void device_corners(const Cell& c, const VT* v00, int64_t row_stride,
+                                               int wl, float (&c00)[4], float (&c01)[4],
+                                               float (&c10)[4], float (&c11)[4]) {
+  using ape_msda::load4;
+  if (c.c00) load4(v00, c00);
+  if (c.c01) load4(v00 + row_stride, c01);
+  if (c.c10) load4(v00 + wl * row_stride, c10);
+  if (c.c11) load4(v00 + (wl + 1) * row_stride, c11);
+}
+
+// The same corners from a staged box: box at its pixel (0, 0) and the
+// lane's channels, (by0, bx0) its first row and column on the level, bh x
+// bw pixels. A corner outside the box (where float rounding moved a window
+// by a pixel) is read from device memory, so the result never depends on
+// the box's size.
+template <typename VT>
+__device__ __forceinline__ void box_corners(const Cell& c, const VT* box, int by0, int bx0, int bh,
+                                            int bw, const VT* v00, int64_t row_stride, int wl,
+                                            float (&c00)[4], float (&c01)[4], float (&c10)[4],
+                                            float (&c11)[4]) {
+  using ape_msda::load4;
+  const int ry = c.y0 - by0, rx = c.x0 - bx0;
+  const VT* b00 = box + (ry * bw + rx) * kD32;
+  const bool y0_in = static_cast<unsigned>(ry) < static_cast<unsigned>(bh);
+  const bool y1_in = static_cast<unsigned>(ry + 1) < static_cast<unsigned>(bh);
+  const bool x0_in = static_cast<unsigned>(rx) < static_cast<unsigned>(bw);
+  const bool x1_in = static_cast<unsigned>(rx + 1) < static_cast<unsigned>(bw);
+  if (c.c00) {
+    if (y0_in && x0_in) load4(b00, c00);
+    else load4(v00, c00);
+  }
+  if (c.c01) {
+    if (y0_in && x1_in) load4(b00 + kD32, c01);
+    else load4(v00 + row_stride, c01);
+  }
+  if (c.c10) {
+    if (y1_in && x0_in) load4(b00 + bw * kD32, c10);
+    else load4(v00 + wl * row_stride, c10);
+  }
+  if (c.c11) {
+    if (y1_in && x1_in) load4(b00 + (bw + 1) * kD32, c11);
+    else load4(v00 + (wl + 1) * row_stride, c11);
+  }
+}
+
+// Whether a plan is one a D = 32 body takes: head width 32, a tile of at
+// most tile_queries (one pass), the launch's levels consecutive, every
+// staged box at a 128-byte aligned offset past the header and inside the
+// plan's shared memory.
+inline bool d32_plan(const Plan& p, int es, int tile_queries) {
+  if (p.D != kD32 || p.tq_y * p.tq_x > tile_queries) return false;
+  for (int j = 0; j < p.n_lv; ++j) {
+    if (p.lv[j] != p.lv[0] + j) return false;
+    if (finer(p, p.lv[j])) continue;
+    const int64_t at = static_cast<int64_t>(p.box_off[j]) * es;
+    const int64_t bytes = static_cast<int64_t>(p.box_h[j]) * p.box_w[j] * kD32 * es;
+    if (p.box_h[j] < 1 || p.box_w[j] < 1 || at % 128 || at < kD32HeaderBytes ||
+        at + bytes > p.smem_bytes)
+      return false;
+  }
+  return true;
+}
+
+// Launches a D = 32 body over the plan's tiles x heads x batch on a
+// stream, `threads` a block, raising its shared memory where the plan asks
+// for more than 48 KB; args are the kernel's.
+template <typename... Params, typename... Args>
+inline int launch_d32(void (*kernel)(Params...), const Plan& p, int threads, cudaStream_t stream,
+                      Args... args) {
+  if (p.smem_bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int tiles = ((p.hq + p.tq_y - 1) / p.tq_y) * ((p.wq + p.tq_x - 1) / p.tq_x);
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(p.H),
+                  static_cast<unsigned>(p.B));
+  kernel<<<grid, threads, p.smem_bytes, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Calls launch(VT{}, AT{}) for the value's and the weights' dtypes, as the
+// entries take them (value_bf16, att_f32): bf16 with bf16 or f32 weights,
+// or f32 with f32.
+template <typename F>
+inline int by_dtypes(int value_bf16, int att_f32, F&& launch) {
+  if (value_bf16) {
+    if (att_f32) return launch(__nv_bfloat16{}, float{});
+    return launch(__nv_bfloat16{}, __nv_bfloat16{});
+  }
+  return launch(float{}, float{});
 }
 
 }  // namespace ape_msda_win

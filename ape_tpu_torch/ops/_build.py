@@ -131,6 +131,11 @@ def library() -> ctypes.CDLL:
     # radius, value_bf16, att_f32, variant, stream
     lib.ape_msda_fwd_qlevel_d32.argtypes = [p, p, p, p, p, ctypes.POINTER(i), f, i, i, i, p]
     lib.ape_msda_fwd_qlevel_d32.restype = i
+    # K6's and K7's D = 32 bodies: as K8's, without the variant
+    for name in ("pair", "rows"):
+        fn = getattr(lib, f"ape_msda_fwd_{name}_d32")
+        fn.argtypes = [p, p, p, p, p, ctypes.POINTER(i), f, i, i, p]
+        fn.restype = i
     # K9's D = 32 body: value (bf16), offsets, att, out, the int plan, radius,
     # att_f32, variant, stream
     lib.ape_msda_fwd_dense_d32.argtypes = [p, p, p, p, ctypes.POINTER(i), f, i, i, p]
@@ -221,13 +226,18 @@ def parse_sass(sass: str, pattern: str) -> dict:
     return counts
 
 
+@functools.lru_cache(maxsize=None)
+def _sass(lib: Path) -> str:
+    """``cuobjdump -sass`` of a built library, disassembled once a process."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+
+
 def sass_counts(pattern: str) -> dict:
     """``parse_sass`` of the built library's SASS: static instructions, not
     executions."""
-    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(build())], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
-    return parse_sass(sass, pattern)
+    return parse_sass(_sass(build()), pattern)
 
 
 def check(err: int, kernel: str) -> None:

@@ -8,18 +8,22 @@ with the clip inside the kernel:
 
   * ``pair``   (K6, ``experiments/msda_window_pallas_v1.py``): one launch of
     ``csrc/msda_fwd_pair.cu`` per (query level, value level) pair, 25 a
-    layer on five levels, added into one f32 buffer;
+    layer on five levels, added into one f32 buffer. At head width 32 its
+    D = 32 body: one TMA box of a same-or-coarser level, a finer one read
+    from device memory;
   * ``rows``   (K7, ``experiments/msda_window_pallas_v3.py``): per query
-    level one launch of ``csrc/msda_fwd_rows.cu`` over its same-or-coarser
-    value levels, the finer pairs on K6;
+    level its finer pairs on K6, then one launch of ``csrc/msda_fwd_rows.cu``
+    over its same-or-coarser value levels, which continues their sums. At
+    head width 32 its D = 32 body: the levels in a loop inside the block,
+    their boxes through a ring of two shared-memory slots filled by TMA;
   * ``qlevel`` (K8, ``experiments/msda_window_pallas_v5.py``, JAX's
     ``APE_MSDA_FUSED``): per query level one launch of
     ``csrc/msda_fwd_qlevel.cu`` over every value level, or one per group of
     levels where a block's shared memory cannot hold them all. At head width
     32 its D = 32 body (``BODIES``): TMA boxes of the same-or-coarser
-    levels, the finer ones read from device memory, equal to K1's window
-    entry bit for bit; at other widths its general body, which stages a
-    finer level's windows per query;
+    levels, the finer ones read from device memory; at other widths its
+    general body, which stages a finer level's windows per query, as K6's
+    and K7's general bodies do;
   * ``dense``  (K9, ``experiments/msda_window_pallas_v6.py``, JAX's
     ``APE_MSDA_V6``): ``csrc/msda_fwd_dense.cu`` on each query level whose
     width is a multiple of 128, one K1 launch over each run of contiguous
@@ -29,6 +33,9 @@ with the clip inside the kernel:
     halves; the finer levels read from device memory. Else its general
     body, a dense tap map per query contracted by FMAs;
   * ``gather`` (K1, ``csrc/msda_fwd.cu``): the default, for comparison.
+
+The D = 32 bodies of K6, K7 and K8 add each query's samples in K1's order
+and equal K1's window entry bit for bit.
 
 ``plan_layer`` makes each form's launches for a pyramid in plain Python, so
 the tests check the routing with no card and ``chip_smoke.py`` knows the
@@ -64,14 +71,15 @@ DENSE_WIDTH = 128    # K9 takes the query levels whose width is a multiple of th
 # continued from the f32 partial an earlier launch of the query level stored
 # (loaded into the accumulators, then stored).
 OUT_MODES = {"value": 0, "store": 1, "continue": 2}
-# The bodies of K8 and K9: "d32" (head width 32 only: csrc/msda_fwd_qlevel.cu
-# msda_fwd_qlevel_kernel_d32; csrc/msda_fwd_dense.cu msda_fwd_dense_kernel_d32,
-# a bf16 value only) and "general" (every head width up to 32).
+# The bodies of K6-K9: "d32" (head width 32 only: msda_fwd_pair_kernel_d32,
+# msda_fwd_rows_kernel_d32, msda_fwd_qlevel_kernel_d32 and, for a bf16 value
+# only, msda_fwd_dense_kernel_d32) and "general" (every head width up to 32).
 BODIES = ("d32", "general")
-D32_HEADER_BYTES = 256  # the D = 32 body's barriers and box corners, before its boxes
+D32_HEADER_BYTES = 256  # the D = 32 bodies' barriers and box corners, before their boxes
 TMA_ALIGN = 128         # bytes: a TMA box's shared-memory address
-# The D = 32 body's tiles: at most 64 queries, one pass of its 16 warps of 4
-# queries (csrc/msda_fwd_qlevel.cu: kD32Warps)
+# The tiles of K6's, K7's and K8's D = 32 bodies: at most 64 queries, one
+# pass of K7's and K8's 16 warps of 4 queries (csrc/msda_window.cuh:
+# kD32TileQueries) and of K6's 8 warps of 8
 D32_TILES = tuple(t for t in TILES if t[0] * t[1] <= 64)
 # What a launch of the D = 32 body does: the op ("whole"), or to time its
 # parts, only the staged levels' samples, only the finer levels', or the
@@ -118,7 +126,8 @@ class Launch:
     """One kernel launch of a form: the kernel, its query rows (a query level,
     or for K1 a run of them) and value levels, its tile, the staged box of each
     value level ((0, 0) for a finer level), shared memory, output mode, and
-    body (K8's "d32" or "general"; the other kernels have one body)."""
+    body ("d32" or "general", ``BODIES``; K1 takes its own by the head
+    width)."""
 
     kernel: str
     query_levels: Tuple[int, ...]
@@ -131,9 +140,9 @@ class Launch:
 
 
 def _d32_layout(shapes: Shapes, lq: int, lvs, tile, esize: int, win: int):
-    """``_layout`` of K8's D = 32 body: the header (D32_HEADER_BYTES), then
-    each staged box at a TMA_ALIGN-byte aligned offset; no query windows (a
-    finer level is read from device memory)."""
+    """``_layout`` of K8's and K6's D = 32 bodies: the header
+    (D32_HEADER_BYTES), then each staged box at a TMA_ALIGN-byte aligned
+    offset; no query windows (a finer level is read from device memory)."""
     hq, wq = shapes[lq]
     boxes, offsets, total = [], [], D32_HEADER_BYTES
     for lv in lvs:
@@ -152,6 +161,23 @@ def _d32_layout(shapes: Shapes, lq: int, lvs, tile, esize: int, win: int):
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _ring_layout(shapes: Shapes, lq: int, lvs, tile, esize: int, win: int):
+    """``_layout`` of K7's D = 32 body: the header, then two slots at
+    TMA_ALIGN-byte aligned offsets, each sized for the launch's largest box;
+    level j's box goes to slot j mod 2 (csrc/msda_fwd_rows.cu: ring_plan).
+    Every level is staged: the rows plan gives K7 no finer level."""
+    hq, wq = shapes[lq]
+    if any(finer(shapes[lq], shapes[lv]) for lv in lvs):
+        raise ValueError(f"msda_fwd_rows: value levels {lvs} hold one finer than {shapes[lq]}")
+    boxes = tuple((box_extent(tile[0], hq, shapes[lv][0], win),
+                   box_extent(tile[1], wq, shapes[lv][1], win)) for lv in lvs)
+    largest = max(h * w for h, w in boxes) * 32 * esize
+    slots = (_round_up(D32_HEADER_BYTES, TMA_ALIGN),)
+    slots += (slots[0] + _round_up(largest, TMA_ALIGN),)
+    offsets = tuple(slots[j % 2] // esize for j in range(len(lvs)))
+    return boxes, offsets, 0, 0, slots[1] + largest
 
 
 def _dense_d32_layout(shapes: Shapes, lq: int, lvs, tile, win: int):
@@ -185,6 +211,8 @@ def _layout(kernel, shapes: Shapes, lq: int, lvs, tile, head_dim: int, esize: in
     if body == "d32":
         if kernel == "msda_fwd_dense":
             return _dense_d32_layout(shapes, lq, lvs, tile, win)
+        if kernel == "msda_fwd_rows":
+            return _ring_layout(shapes, lq, lvs, tile, esize, win)
         return _d32_layout(shapes, lq, lvs, tile, esize, win)
     hq, wq = shapes[lq]
     boxes, offsets, total, widest = [], [], 0, 0
@@ -240,13 +268,14 @@ def _launch(kernel, shapes, lq, lvs, head_dim, esize, win, budget, out_mode, bod
 
 
 def single_launch(kernel: str, spatial_shapes, lq: int, value_levels: Sequence[int],
-                  head_dim: int, esize: int, radius: float, out_mode: str = "value") -> Launch:
+                  head_dim: int, esize: int, radius: float, out_mode: str = "value",
+                  body: str = "general") -> Launch:
     """One launch of a form kernel for query level lq over the given value
-    levels, at the largest tile that fits a block: what the race times per
-    pair."""
+    levels, on ``body``, at the largest tile that fits a block: what the race
+    times per pair."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     return _launch(kernel, shapes, lq, list(value_levels), head_dim, esize, window_taps(radius),
-                   SMEM_LIMIT, out_mode)
+                   SMEM_LIMIT, out_mode, body)
 
 
 def _qlevel_groups(shapes, lq, head_dim, esize, win, budget, body):
@@ -271,23 +300,21 @@ def dense_body(head_dim: int, esize: int) -> str:
 
 
 def form_body(form: str, head_dim: int, esize: int) -> str:
-    """The body a form's own kernel takes by default: K8's by the head width
-    as K1's (``msda_dispatch.fwd_body``), K9's by ``dense_body``; the other
-    forms have one body."""
+    """The body a form's own kernels take by default: K6's, K7's and K8's by
+    the head width as K1's (``msda_dispatch.fwd_body``), K9's by
+    ``dense_body``; K1 (``gather``) has its own rule."""
     from ape_tpu_torch.ops.msda_dispatch import fwd_body
 
-    if form == "qlevel":
-        return fwd_body(head_dim)
     if form == "dense":
         return dense_body(head_dim, esize)
-    return "general"
+    return fwd_body(head_dim)
 
 
 def plan_layer(form: str, spatial_shapes: Sequence[Tuple[int, int]], head_dim: int,
                esize: int, radius: float, budget: int = SMEM_LIMIT,
                body: str | None = None) -> Tuple[Launch, ...]:
     """The launches of one encoder layer's window MSDA under a form, for a
-    value of ``esize`` bytes an element; K8 and K9 take their body by
+    value of ``esize`` bytes an element; K6-K9 take their body by
     ``form_body`` unless ``body`` (``BODIES``) says. Pure Python: no card
     needed; each plan is made once and kept, as the wrappers ask for it at
     every call."""
@@ -312,13 +339,18 @@ def _plan_layer(form: str, shapes: Shapes, head_dim: int, esize: int, radius: fl
         if form == "pair":
             for lv in levels:
                 plan.append(_launch("msda_fwd_pair", shapes, lq, [lv], head_dim, esize, win,
-                                    budget, "store" if lv == 0 else "continue"))
+                                    budget, "store" if lv == 0 else "continue", body))
         elif form == "rows":
+            # the finer pairs first, then K7 over the rest: in a pyramid
+            # from fine to coarse, each query's levels in K1's order
             fused = [lv for lv in levels if not finer(shapes[lq], shapes[lv])]
-            plan.append(_launch("msda_fwd_rows", shapes, lq, fused, head_dim, esize, win,
-                                budget, "store"))
-            plan += [_launch("msda_fwd_pair", shapes, lq, [lv], head_dim, esize, win, budget,
-                             "continue") for lv in levels if lv not in fused]
+            if body == "d32" and fused != list(range(fused[0], fused[0] + len(fused))):
+                raise ValueError(f"rows: K7's D = 32 body takes consecutive value levels, not "
+                                 f"{fused} of {shapes}")
+            runs = [("msda_fwd_pair", [lv]) for lv in levels if lv not in fused]
+            for i, (kernel, lvs) in enumerate(runs + [("msda_fwd_rows", fused)]):
+                plan.append(_launch(kernel, shapes, lq, lvs, head_dim, esize, win, budget,
+                                    "store" if i == 0 else "continue", body))
         elif form == "qlevel":
             groups = _qlevel_groups(shapes, lq, head_dim, esize, win, budget, body)
             for i, grp in enumerate(groups):
@@ -457,20 +489,43 @@ def _plan_ints(launch: Launch, shapes: Shapes, sizes, esize: int, win: int) -> c
     return (ctypes.c_int * len(ints))(*ints)
 
 
-# csrc/msda_window.cuh's codes for tensor maps K8's or K9's D = 32 entry
-# could not make
+# csrc/msda_window.cuh's codes for tensor maps a D = 32 entry could not make
 TENSOR_MAP_ERRORS = {-1: "libcuda has no cuTensorMapEncodeTiled",
                      -2: "cuTensorMapEncodeTiled refused a level's tensor map"}
+
+
+# The entries' arguments, by name: the general entries' (csrc/msda_window.cuh:
+# APE_MSDA_WINDOW_ENTRY); K6's and K7's D = 32 entries add the grid centers,
+# K8's its variant; K9's D = 32 entry takes a bf16 value only, and its variant.
+_GENERAL_ARGS = ("value", "off", "att", "out", "plan", "radius", "bf16", "att_f32", "stream")
+_CENTERS_ARGS = ("value", "off", "att", "centers", "out", "plan", "radius", "bf16", "att_f32",
+                 "stream")
+_QLEVEL_D32_ARGS = _CENTERS_ARGS[:-1] + ("variant", "stream")
+_DENSE_D32_ARGS = ("value", "off", "att", "out", "plan", "radius", "att_f32", "variant", "stream")
+_WHOLE = {"whole": 0}
+# (kernel, body) -> the library entry that launches it, its arguments, and
+# the variants it runs (the op, "whole", or one of its parts)
+ENTRIES = {
+    ("msda_fwd_pair", "general"): ("ape_msda_fwd_pair", _GENERAL_ARGS, _WHOLE),
+    ("msda_fwd_rows", "general"): ("ape_msda_fwd_rows", _GENERAL_ARGS, _WHOLE),
+    ("msda_fwd_qlevel", "general"): ("ape_msda_fwd_qlevel", _GENERAL_ARGS, _WHOLE),
+    ("msda_fwd_dense", "general"): ("ape_msda_fwd_dense", _GENERAL_ARGS, _WHOLE),
+    ("msda_fwd_pair", "d32"): ("ape_msda_fwd_pair_d32", _CENTERS_ARGS, _WHOLE),
+    ("msda_fwd_rows", "d32"): ("ape_msda_fwd_rows_d32", _CENTERS_ARGS, _WHOLE),
+    ("msda_fwd_qlevel", "d32"): ("ape_msda_fwd_qlevel_d32", _QLEVEL_D32_ARGS, D32_VARIANTS),
+    ("msda_fwd_dense", "d32"): ("ape_msda_fwd_dense_d32", _DENSE_D32_ARGS, DENSE_D32_VARIANTS),
+}
 
 
 def launch_cuda(launch: Launch, value: torch.Tensor, spatial_shapes, pixel_offsets: torch.Tensor,
                 att: torch.Tensor, out: torch.Tensor, radius: float,
                 variant: str = "whole") -> None:
     """Launch one of a plan's form kernels into ``out`` (B, S, H * D): the
-    value's dtype for out mode "value", else f32. K8's D = 32 body runs as
-    ``variant`` (``D32_VARIANTS``), K9's as ``variant``
-    (``DENSE_D32_VARIANTS``); each raises if its TMA tensor maps cannot be
-    made, and nothing else runs in its place."""
+    value's dtype for out mode "value", else f32. Each (kernel, body) has its
+    one entry (``ENTRIES``); K8's D = 32 body runs as ``variant``
+    (``D32_VARIANTS``), K9's as ``variant`` (``DENSE_D32_VARIANTS``), the
+    others only as "whole". A D = 32 body raises if its TMA tensor maps cannot
+    be made, and nothing else runs in its place."""
     from ape_tpu_torch.ops.msda_dispatch import grid_centers
 
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
@@ -481,28 +536,26 @@ def launch_cuda(launch: Launch, value: torch.Tensor, spatial_shapes, pixel_offse
             or out.device != value.device:
         raise ValueError(f"{launch.kernel}: out {out.dtype} {tuple(out.shape)} is not a "
                          f"contiguous {want} {(b, s, h * d)} on the value's device")
-    plan = _plan_ints(launch, shapes, sizes, value.element_size(), window_taps(radius))
-    flags = (float(radius), int(value.dtype == torch.bfloat16), int(att.dtype == torch.float32),
-             torch.cuda.current_stream(value.device).cuda_stream)
+    entry, args, variants = ENTRIES[(launch.kernel, launch.body)]
+    if variant not in variants:
+        raise ValueError(f"{launch.kernel}: the {launch.body} body runs {tuple(variants)}, "
+                         f"not {variant!r}")
     if launch.body == "d32" and (d != 32 or out.data_ptr() % 16):
         raise ValueError(f"{launch.kernel}: the D = 32 body takes head width 32 and a "
                          f"16-byte aligned out, got {d}")
-    if launch.body == "d32" and launch.kernel == "msda_fwd_dense":
-        if value.dtype != torch.bfloat16:
-            raise ValueError(f"{launch.kernel}: the D = 32 body takes a bf16 value, got "
-                             f"{value.dtype}")
-        err = _build.library().ape_msda_fwd_dense_d32(
-            value.data_ptr(), pixel_offsets.data_ptr(), att.data_ptr(), out.data_ptr(), plan,
-            flags[0], flags[2], DENSE_D32_VARIANTS[variant], flags[3])
-    elif launch.body == "d32":
-        err = _build.library().ape_msda_fwd_qlevel_d32(
-            value.data_ptr(), pixel_offsets.data_ptr(), att.data_ptr(),
-            grid_centers(shapes, value.device).data_ptr(), out.data_ptr(), plan, *flags[:3],
-            D32_VARIANTS[variant], flags[3])
-    else:
-        err = getattr(_build.library(), "ape_" + launch.kernel)(
-            value.data_ptr(), pixel_offsets.data_ptr(), att.data_ptr(), out.data_ptr(), plan,
-            *flags)
+    if launch.body == "d32" and launch.kernel == "msda_fwd_dense" \
+            and value.dtype != torch.bfloat16:
+        raise ValueError(f"{launch.kernel}: the D = 32 body takes a bf16 value, got "
+                         f"{value.dtype}")
+    given = dict(value=value.data_ptr(), off=pixel_offsets.data_ptr(), att=att.data_ptr(),
+                 out=out.data_ptr(), plan=_plan_ints(launch, shapes, sizes, value.element_size(),
+                                                     window_taps(radius)),
+                 radius=float(radius), bf16=int(value.dtype == torch.bfloat16),
+                 att_f32=int(att.dtype == torch.float32), variant=variants[variant],
+                 stream=torch.cuda.current_stream(value.device).cuda_stream)
+    if launch.body == "d32":
+        given["centers"] = grid_centers(shapes, value.device).data_ptr()
+    err = getattr(_build.library(), entry)(*(given[k] for k in args))
     if launch.body == "d32" and err in TENSOR_MAP_ERRORS:
         raise RuntimeError(f"{launch.kernel}: no TMA tensor map: {TENSOR_MAP_ERRORS[err]} "
                            f"(boxes {launch.boxes}, {torch.cuda.get_device_name()})")
@@ -515,8 +568,8 @@ def window_form_cuda(form: str, value: torch.Tensor, spatial_shapes, pixel_offse
                      budget: int = SMEM_LIMIT) -> torch.Tensor:
     """The window op under a form on CUDA tensors: value (B, S, H, D),
     pixel_offsets (B, S, H, L, P, 2) f32, att (B, S, H, L, P) -> (B, S, H *
-    D) in the value's dtype, by the form's plan (``plan_layer``, with K8's or
-    K9's ``body`` and the shared-memory ``budget``)."""
+    D) in the value's dtype, by the form's plan (``plan_layer``, with the
+    form's ``body`` and the shared-memory ``budget``)."""
     from ape_tpu_torch.ops import msda_dispatch
 
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)

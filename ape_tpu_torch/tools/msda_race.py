@@ -13,14 +13,19 @@ K6 (``rows``), K8 (``qlevel``) and K9 with the narrow query levels on K1
 the 4-scale training pyramid (256^2 ... 16^2, batch 2, S 87,296); under two
 offset draws: ``ring`` (the ring init plus 1.5 N(0, 1) pixels, as
 ``chip_smoke.py`` draws them) and ``randn2`` (2 N(0, 1) pixels, JAX's
-``full_op_race.py`` at its default OFF_SCALE). Then per-pair times: K6 for
-every pair of the 4-scale pyramid, as ``pair_suite.py``; K9 beside K1 for
-the pairs of the 128-wide query levels, as ``pair_suite_v6.py``; and K1 on
-every pair. Last, where K8's D = 32 body spends its time (ring draw): the
-device time (``device_ms``) of the whole op and of each query level's launch, for the op
-and for its parts (``msda_window_forms.D32_VARIANTS``: the staged levels'
-samples alone, the finer levels' alone, the boxes staged by cp.async
-instead of TMA), beside K1's window entry and K8's general body; and where
+``full_op_race.py`` at its default OFF_SCALE). Then per-pair times: K6 (its
+D = 32 body) for every pair of the 4-scale pyramid, as ``pair_suite.py``;
+K9 beside K1 for the pairs of the 128-wide query levels, as
+``pair_suite_v6.py``; and K1 on every pair. Then, for the ring draw, the
+``pair`` and ``rows`` ops by device time (``device_ms``) under each body,
+beside K1's window entry and K8's D = 32 body, with each query level's
+launches on their own: ``pair``'s five K6 launches, and ``rows``' K7
+launch and its K6 launches of the finer pairs. Last, where K8's D = 32
+body spends its time (ring draw): the device time of the whole op and of
+each query level's launch, for the op and for its parts
+(``msda_window_forms.D32_VARIANTS``: the staged levels' samples alone, the
+finer levels' alone, the boxes staged by cp.async instead of TMA), beside
+K1's window entry and K8's general body; and where
 K9's D = 32 body spends its time: the device time of the whole op (its K9
 launches and the K1 launch of the narrow query levels), of each K9 launch
 (one a query level) and of the K1 launch, for the op and for its parts
@@ -155,6 +160,43 @@ def qlevel_parts(value, shapes, off, att, iters: int, card: str, base: dict):
     return recs
 
 
+def pair_rows_parts(value, shapes, off, att, iters: int, card: str, base: dict):
+    """Records of the ``pair`` (K6) and ``rows`` (K7 + K6) ops: the device
+    time of each op under each body; for the D = 32 plans, that of each
+    query level's launches on their own (K6's five launches; K7's launch and
+    the K6 launches of its finer pairs, apart); K1's window entry and K8's
+    D = 32 body beside."""
+    buf = torch.zeros(*value.shape[:2], HEADS * HEAD_DIM, dtype=torch.float32,
+                      device=value.device)
+
+    def run(launches):
+        return lambda: [forms.launch_cuda(x, value, shapes, off, att, buf, RADIUS)
+                        for x in launches]
+
+    def op(form, body):
+        return lambda: forms.window_form_cuda(form, value, shapes, off, att, RADIUS, body=body)
+
+    recs = [dict(base, kernel="msda_fwd_window", device_ms=device_ms(
+                lambda: msda_fwd_window_cuda(value, shapes, off, att, RADIUS), iters), card=card),
+            dict(base, form="qlevel", body="d32", device_ms=device_ms(op("qlevel", "d32"), iters),
+                 card=card)]
+    for form in ("pair", "rows"):
+        for body in forms.BODIES:
+            recs.append(dict(base, form=form, body=body, device_ms=device_ms(op(form, body), iters),
+                             card=card))
+        plan = forms.plan_layer(form, shapes, HEAD_DIM, value.element_size(), RADIUS, body="d32")
+        per_level = []  # per query level: {kernel: device ms of its launches there}
+        for lq in range(len(shapes)):
+            mine = [x for x in plan if x.query_levels == (lq,)]
+            per_level.append({k: device_ms(run([x for x in mine if x.kernel == k]), iters)
+                              for k in ("msda_fwd_pair", "msda_fwd_rows")
+                              if any(x.kernel == k for x in mine)})
+        recs.append(dict(base, form=form, body="d32", per_query_level_ms=per_level,
+                         tiles=[list(x.tile) for x in plan], smem=[x.smem for x in plan],
+                         card=card))
+    return recs
+
+
 def dense_parts(value, shapes, off, att, iters: int, card: str, base: dict):
     """Records of K9's D = 32 body by its parts: for each variant, the
     device time of the plan's K9 launches and of each of them (one a query
@@ -213,8 +255,8 @@ def _launches(fn):
 
 def _pairs(value, shapes, off, att, batch, esize, iters, card, base):
     """Per-pair records: K1 on every pair (its locations and weights cut to
-    the pair beforehand), K6 on every pair of the 4-scale pyramid, K9 on the
-    pairs of the 128-wide query levels."""
+    the pair beforehand), K6 (its D = 32 body) on every pair of the 4-scale
+    pyramid, K9 on the pairs of the 128-wide query levels."""
     starts, s = level_start_index(shapes)
     c = HEADS * HEAD_DIM
     loc = window_locations(shapes, off, RADIUS)
@@ -229,7 +271,7 @@ def _pairs(value, shapes, off, att, batch, esize, iters, card, base):
             times = {}
             if base["pyramid"] == "four_scale":
                 k6 = forms.single_launch("msda_fwd_pair", shapes, lq, [lv], HEAD_DIM, esize,
-                                         RADIUS, "store")
+                                         RADIUS, "store", "d32")
                 times["K6"] = cuda_ms(lambda: forms.launch_cuda(k6, value, shapes, off, att, buf,
                                                                 RADIUS), iters)
             if wq % forms.DENSE_WIDTH == 0:
@@ -271,8 +313,10 @@ def race(dev, card: str, iters: int = 20):
                 recs.append(rec)
             parts = []
             if draw == "ring":
-                parts = (qlevel_parts(value, shapes, off, att, iters, card,
-                                      dict(base, phase="race_qlevel"))
+                parts = (pair_rows_parts(value, shapes, off, att, iters, card,
+                                         dict(base, phase="race_pair_rows"))
+                         + qlevel_parts(value, shapes, off, att, iters, card,
+                                        dict(base, phase="race_qlevel"))
                          + dense_parts(value, shapes, off, att, iters, card,
                                        dict(base, phase="race_dense")))
             for rec in _pairs(value, shapes, off, att, batch, esize, iters, card,

@@ -15,15 +15,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    D = 32 body holds 16-byte vector reductions into d_value, no scalar one,
    and spills nothing; every instance of K1's D = 32 body reads its corners
    by 64-bit (bf16) or 128-bit (f32) loads, no 16-bit one, and spills
-   nothing; every instance of K8's D = 32 body loads its boxes by TMA
-   (UTMALDG) and reads them by 64-bit (bf16) or 128-bit (f32) shared loads,
-   no 16-bit value load, within 64 registers and no spill; every instance of
-   K3's D = 32 body reads its corners by 64- or 128-bit loads, holds no
-   reduction or atomic, and spills nothing; every instance of K4's D = 32
-   body holds only 16-byte vector reductions, within 64 registers and no
-   spill; every instance of K9's D = 32 body holds tensor-core products
-   (HMMA) and TMA loads (UTMALDG) and spills nothing; the general bodies'
-   instances are recorded beside;
+   nothing; every instance of K6's, K7's and K8's D = 32 bodies loads its
+   boxes by TMA (UTMALDG) and reads them by 64-bit (bf16) or 128-bit (f32)
+   shared loads, no 16-bit value load, within 64 registers and no spill;
+   every instance of K3's D = 32 body reads its corners by 64- or 128-bit
+   loads, holds no reduction or atomic, and spills nothing; every instance
+   of K4's D = 32 body holds only 16-byte vector reductions, within 64
+   registers and no spill; every instance of K9's D = 32 body holds
+   tensor-core products (HMMA) and TMA loads (UTMALDG) and spills nothing;
+   the general bodies' instances are recorded beside;
 3. kernels: each forward CUDA kernel against its plain PyTorch version at
    every shape set the main paths give it (the protocol pyramid at batch 1;
    the 4-scale pyramid at batch 1 with 900 decoder queries and at batch 2
@@ -34,9 +34,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    against the ``window_locations`` + K1 it replaces; then the encoder's
    other window forms, K6 (all pairs), K7 (+ K6), K8 and K9 (+ K1), each
    against the plain version and against K1 at the protocol pyramid (batch
-   1) and the 4-scale one (batch 2); K8's D = 32 body also against K1's
-   window entry and K1 on ``window_locations`` bit for bit, as planned and
-   with a budget cut to force groups, and its general body timed beside;
+   1) and the 4-scale one (batch 2); the D = 32 bodies of K6, K7 and K8
+   also against K1's window entry and K1 on ``window_locations`` bit for
+   bit (K8's as planned and with a budget cut to force groups), K6's and
+   K7's timed by device time too, and each general body timed beside;
    K9's D = 32 body (bf16) also in out mode "store" against the f32 plain
    version within 2e-4, its general body timed beside;
 4. backward kernels: each backward kernel against torch autograd of its
@@ -84,7 +85,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     merged one;
 13. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
     form at both pyramids and both offset draws, its per-pair suites, and
-    K8's D = 32 body by its parts (device time per query level);
+    the ``pair`` and ``rows`` ops by device time under each body, each query
+    level's launches apart, and K8's D = 32 body by its parts (device time
+    per query level);
     then ``ape_tpu_torch.tools.msda_bwd_race``, the backward forms (K2, K3 +
     K4, autograd of the plain version) at the same pyramids and draws, each
     within its bound of the plain version or of K2;
@@ -102,8 +105,9 @@ over all of them, ``launches_main`` over the serving and training phases
 alone, 5-11, ``launches_default`` over those of them that run the default
 flags: slice, serve, train, full serve and full train with the merged
 backward; error, time, plain and library time, and bound; for K1, K3, K4,
-K8 and K9, whose D = 32 body runs there, the general body's time as
-``general_ms``) and, last,
+K6, K7, K8 and K9, whose D = 32 body runs there, the general body's time as
+``general_ms``; for K6 and K7 also the op's device time, ``device_ms``)
+and, last,
 {"ok": true, "device": {...}}. The script needs the repository around it and
 a CUDA card; it imports no JAX.
 """
@@ -111,6 +115,7 @@ a CUDA card; it imports no JAX.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import subprocess
 import sys
@@ -182,8 +187,12 @@ PERTURB = 1e-7
 F32_SPLIT_RTOL = 1e-3
 
 
+START = time.monotonic()
+
+
 def log(**rec):
-    print(json.dumps(rec), flush=True)
+    """One record a line, with ``t``: seconds since the script started."""
+    print(json.dumps(dict(rec, t=round(time.monotonic() - START, 1))), flush=True)
 
 
 def fail(msg: str):
@@ -309,13 +318,16 @@ def build_phase():
     lib = _build.build()
     _build.library()
     log(phase="build", seconds=time.perf_counter() - t0, library=str(lib.relative_to(ROOT)))
+    t0 = time.perf_counter()
     tensor_core_check()
     vector_reduction_check()
     vector_gather_check()
-    d32_body_check(QLEVEL_D32_KERNEL, GENERAL_K8_KERNEL, qlevel_faults, D32_INSTANCES)
+    for kernel, general in TMA_D32_KERNELS:
+        d32_body_check(kernel, general, functools.partial(tma_faults, kernel), D32_INSTANCES)
     d32_body_check(OFFATT_D32_KERNEL, GENERAL_K3_KERNEL, offatt_faults, D32_INSTANCES)
     d32_body_check(VALUE_D32_KERNEL, GENERAL_K4_KERNEL, value_faults, D32_INSTANCES)
     d32_body_check(DENSE_D32_KERNEL, GENERAL_K9_KERNEL, dense_faults, DENSE_D32_INSTANCES)
+    log(phase="sass_done", seconds=time.perf_counter() - t0)
 
 
 # Kernels whose bf16 instances run on the tensor cores (mma.sync, HMMA in their
@@ -464,11 +476,16 @@ def d32_body_check(kernel: str, general: str, faults, instances):
              f"{general.rstrip('I')}, expected {want}; {'; '.join(bad)}")
 
 
-# K8's, K3's and K4's D = 32 bodies, and their general ones (every head
-# width), each with instances (value or grad, attention weights) bf16/bf16,
-# bf16/f32, f32/f32; K9's D = 32 body takes a bf16 value only, with bf16 or
-# f32 weights, its general body the three pairs.
+# K6's, K7's, K8's, K3's and K4's D = 32 bodies, and their general ones
+# (every head width), each with instances (value or grad, attention weights)
+# bf16/bf16, bf16/f32, f32/f32; K9's D = 32 body takes a bf16 value only,
+# with bf16 or f32 weights, its general body the three pairs. K6's, K7's and
+# K8's stage their boxes by TMA.
+PAIR_D32_KERNEL, GENERAL_K6_KERNEL = "msda_fwd_pair_kernel_d32", "msda_fwd_pair_kernelI"
+ROWS_D32_KERNEL, GENERAL_K7_KERNEL = "msda_fwd_rows_kernel_d32", "msda_fwd_rows_kernelI"
 QLEVEL_D32_KERNEL, GENERAL_K8_KERNEL = "msda_fwd_qlevel_kernel_d32", "msda_fwd_qlevel_kernelI"
+TMA_D32_KERNELS = ((PAIR_D32_KERNEL, GENERAL_K6_KERNEL), (ROWS_D32_KERNEL, GENERAL_K7_KERNEL),
+                   (QLEVEL_D32_KERNEL, GENERAL_K8_KERNEL))
 OFFATT_D32_KERNEL, GENERAL_K3_KERNEL = "msda_bwd_offatt_kernel_d32", "msda_bwd_offatt_kernelI"
 VALUE_D32_KERNEL, GENERAL_K4_KERNEL = "msda_bwd_value_kernel_d32", "msda_bwd_value_kernelI"
 DENSE_D32_KERNEL, GENERAL_K9_KERNEL = "msda_fwd_dense_kernel_d32", "msda_fwd_dense_kernelI"
@@ -507,16 +524,17 @@ def _spill_faults(name: str, info: dict):
     return []
 
 
-def qlevel_faults(name: str, ops: dict, info: dict):
-    """One instance of K8's D = 32 body: (its record, its faults): no TMA load
-    (UTMALDG), fewer than four box corner reads of the value dtype's
-    4-channel width from shared memory (LDS.64 in bf16, LDS.128 in f32), a
-    16-bit load from shared memory or, besides a bf16 attention weight's,
-    from device memory, over D32_MAX_REGISTERS registers, a spill."""
-    value, att = _instance_dtypes(QLEVEL_D32_KERNEL, name)
+def tma_faults(kernel: str, name: str, ops: dict, info: dict):
+    """One instance of K6's, K7's or K8's D = 32 body (``kernel``): (its
+    record, its faults): no TMA load (UTMALDG), fewer than four box corner
+    reads of the value dtype's 4-channel width from shared memory (LDS.64 in
+    bf16, LDS.128 in f32), a 16-bit load from shared memory or, besides a
+    bf16 attention weight's, from device memory, over D32_MAX_REGISTERS
+    registers, a spill."""
+    value, att = _instance_dtypes(kernel, name)
     width = 64 if value == "bfloat16" else 128
-    rec = dict(phase="sass", kernel=QLEVEL_D32_KERNEL, value=value, att=att,
-               box_load_bits=width, name=name, **ops, **info)
+    rec = dict(phase="sass", kernel=kernel, value=value, att=att, box_load_bits=width, name=name,
+               **ops, **info)
     bad = _spill_faults(name, info)
     if ops["UTMALDG"] < 1:
         bad.append(f"{name}: no TMA load")
@@ -810,6 +828,32 @@ def qlevel_bodies(value, shapes, off, att, k1, name: str, dname: str) -> dict:
                     value, shapes, off, att, RADIUS), FORM_ITERS))
 
 
+def d32_form_bodies(form: str, value, shapes, off, att, k1, name: str, dname: str) -> dict:
+    """K6's (``pair``) or K7's (``rows``, + K6) D = 32 body as the form's op
+    against K1's window entry and against K1 on ``window_locations``
+    (``k1``) bit for bit; the op's device time, and its general body's time
+    by events and by device time beside; the record's fields."""
+    import torch
+
+    from ape_tpu_torch.ops.msda_dispatch import msda_fwd_window_cuda
+    from ape_tpu_torch.ops.msda_window_forms import window_form_cuda
+    from ape_tpu_torch.tools.msda_race import device_ms
+
+    def op(body):
+        return lambda: window_form_cuda(form, value, shapes, off, att, RADIUS, body=body)
+
+    got = op("d32")()
+    for ref, want in (("msda_fwd_window", msda_fwd_window_cuda(value, shapes, off, att, RADIUS)),
+                      ("msda_fwd on window_locations", k1)):
+        if not torch.equal(got, want):
+            err = float((got.float() - want.float()).abs().max())
+            fail(f"{name} {dname}: the D = 32 body differs from {ref} by {err}")
+    return dict(body="d32", d32_equals_msda_fwd_window=True,
+                device_ms=device_ms(op("d32"), FORM_ITERS),
+                general_ms=cuda_ms(op("general"), FORM_ITERS),
+                general_device_ms=device_ms(op("general"), FORM_ITERS))
+
+
 def dense_bodies(value, shapes, off, att, name: str, dname: str) -> dict:
     """K9's D = 32 body (bf16) beside its general body: each K9 launch of
     the plan in out mode "store" against the plain version on the same
@@ -863,8 +907,8 @@ def forms_kernels_step(dev):
     op of one encoder layer, against the plain version and against K1 on the
     same inputs (the ring draw), at the protocol pyramid (batch 1) and the
     4-scale one (batch 2), in f32 and bf16: errors, times, bound, launches
-    per layer; K8's two bodies also by ``qlevel_bodies``, K9's (bf16) by
-    ``dense_bodies``."""
+    per layer; K6's and K7's two bodies also by ``d32_form_bodies``, K8's
+    by ``qlevel_bodies``, K9's (bf16) by ``dense_bodies``."""
     import torch
 
     from ape_tpu_torch.ops import _build
@@ -901,6 +945,8 @@ def forms_kernels_step(dev):
                                                                RADIUS), FORM_ITERS),
                            plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                            bound_by=bound_by)
+                if form in ("pair", "rows"):
+                    rec.update(d32_form_bodies(form, value, shapes, off, att, k1, name, dname))
                 if form == "qlevel":
                     rec.update(qlevel_bodies(value, shapes, off, att, k1, name, dname))
                 if form == "dense" and dtype == torch.bfloat16:
@@ -1834,7 +1880,7 @@ def main():
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                        **({"general_ms": rec["general_ms"]} if "general_ms" in rec else {})})
+                        **{k: rec[k] for k in ("general_ms", "device_ms") if k in rec}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

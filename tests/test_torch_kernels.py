@@ -2,9 +2,10 @@
 
 These tests (forward and backward kernels, the merged and the split MSDA
 backward with K4's two bodies, the encoder's other window forward forms
-K6-K9 with K8's and K9's D = 32 bodies, the probes K10 and K11) need a CUDA device and the CUDA toolkit: the kernels have no CPU
-mode, so without a card they skip. The file imports neither JAX nor the
-test conftest, so it runs on a machine that has no JAX:
+K6-K9 with their D = 32 bodies, the probes K10 and K11) need a CUDA device
+and the CUDA toolkit: the kernels have no CPU mode, so without a card they
+skip. The file imports neither JAX nor the test conftest, so it runs on a
+machine that has no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda -q
 """
@@ -643,9 +644,10 @@ def test_attention_dq_kernel_returns_delta(device, dtype, n, dh):
     assert bool(((delta - prod.sum(-1)).abs() <= 2 * dh * 2**-24 * prod.abs().sum(-1)).all())
 
 
-# (form, body): K8 (qlevel) with each of its bodies; the other forms have one
-FORM_BODIES = [("pair", None), ("rows", None), ("qlevel", "d32"), ("qlevel", "general"),
-               ("dense", None)]
+# (form, body): K6 (pair), K7 (rows, + K6) and K8 (qlevel) with each of their
+# bodies; K9 (dense, + K1) with its default (its D = 32 body in bf16)
+FORM_BODIES = [("pair", "d32"), ("pair", "general"), ("rows", "d32"), ("rows", "general"),
+               ("qlevel", "d32"), ("qlevel", "general"), ("dense", None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -655,8 +657,8 @@ def test_window_form_kernels_match_plain_and_k1(device, form, body, pyramid, dty
     """K6 (all pairs), K7 (+ K6), K8 (each body) and K9 (+ K1) as the whole
     window op at the protocol pyramid (batch 1) and the 4-scale one (batch
     2), radius 4, against the plain version and against K1 on the same
-    inputs; K8's D = 32 body equal to K1's window entry and to K1 on
-    ``window_locations`` bit for bit."""
+    inputs; the D = 32 bodies of K6, K7 and K8 equal to K1's window entry
+    and to K1 on ``window_locations`` bit for bit."""
     shapes, batch = PYRAMIDS[pyramid]
     value, off, att = window_inputs(torch.Generator().manual_seed(5), shapes, batch, "ring", dtype,
                                     device)
@@ -704,6 +706,71 @@ def test_qlevel_d32_tensor_map_failure_raises(device):
         forms.launch_cuda(bad, value, shapes, off, att, out, RADIUS)
     torch.cuda.synchronize()
     assert _build.LAUNCHES == before and not out.any()
+
+
+# The kernels each form's D = 32 plan launches per layer, by kernel name
+# (five levels): K6 only for "pair"; K7 one a query level and K6 on the
+# finer pairs for "rows"
+D32_FORM_KERNELS = {"pair": {"msda_fwd_pair_kernel_d32": 25},
+                    "rows": {"msda_fwd_rows_kernel_d32": 5, "msda_fwd_pair_kernel_d32": 10}}
+
+
+@pytest.mark.parametrize("form", sorted(D32_FORM_KERNELS))
+def test_pair_and_rows_d32_route_to_their_bodies(device, monkeypatch, form):
+    """At head width 32 the "pair" and "rows" ops call only the D = 32
+    entries, as many times a layer as their plans say, and the card runs
+    only the D = 32 bodies' kernels, by the profiler's kernel names."""
+    shapes, batch = PYRAMIDS["protocol"]
+    value, off, att = window_inputs(torch.Generator().manual_seed(21), shapes, batch, "ring",
+                                    torch.bfloat16, device)
+
+    def run():
+        return window_form_cuda(form, value, shapes, off, att, RADIUS)
+
+    calls = [name for name, _ in _entries(monkeypatch, run) if name.startswith("ape_msda_fwd")]
+    want = D32_FORM_KERNELS[form]
+    assert sorted(calls) == sorted(f"ape_{k.replace('_kernel_d32', '_d32')}"
+                                   for k, n in want.items() for _ in range(n))
+    names = _launched_kernels(run, "msda_fwd_")
+    assert {k for k in want if any(k in name for name in names)} == set(want)
+    assert all(any(k in name for k in want) for name in names), names
+
+
+@pytest.mark.parametrize("form", ["pair", "rows"])
+def test_pair_and_rows_d32_tensor_map_failure_raises(device, form):
+    """A box the TMA cannot take (257 pixels along an axis) makes the
+    tensor-map encode fail: K6's and K7's D = 32 wrappers raise, launch
+    nothing, and run no other body in its place."""
+    shapes, batch = PYRAMIDS["protocol"]
+    value, off, att = window_inputs(torch.Generator().manual_seed(22), shapes, batch, "ring",
+                                    torch.bfloat16, device)
+    kernel = {"pair": "msda_fwd_pair", "rows": "msda_fwd_rows"}[form]
+    launch = next(x for x in forms.plan_layer(form, shapes, 32, 2, RADIUS)
+                  if x.kernel == kernel and x.boxes[0] != (0, 0))
+    bad = dataclasses.replace(launch, boxes=((1, 257),) + launch.boxes[1:])
+    out = torch.zeros(batch, value.shape[1], 256, device=device)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="tensor map"):
+        forms.launch_cuda(bad, value, shapes, off, att, out, RADIUS)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == before and not out.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["pair", "rows", "qlevel"])
+def test_window_d32_bodies_nan_and_inf_offsets(device, form, dtype):
+    """NaN and +-inf offsets, exactly +-R, 0 and -0, and offsets landing on
+    pixel -1, through the D = 32 bodies of K6, K7 (+ K6) and K8: what K1's
+    window entry gives, bit for bit."""
+    shapes = ((32, 32), (16, 16), (8, 8), (4, 4))
+    s = sum(h * w for h, w in shapes)
+    rng = np.random.RandomState(23)
+    off = torch.from_numpy(_window_edge_offsets(shapes, 2, s, 8, RADIUS, 0, seed=24)).to(device)
+    att = torch.from_numpy(rng.rand(2, s, 8, 4, 4).astype(np.float32)).to(device, dtype)
+    value = torch.from_numpy(rng.randn(2, s, 8, 32).astype(np.float32)).to(device, dtype)
+    got = window_form_cuda(form, value, shapes, off, att, RADIUS, body="d32")
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, msda_fwd_window_cuda(value, shapes, off, att, RADIUS))
 
 
 @pytest.mark.parametrize("flag,kernel", [("FUSED", "msda_fwd_qlevel"), ("V6", "msda_fwd_dense")])

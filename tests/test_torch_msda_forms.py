@@ -139,10 +139,11 @@ def test_flags_follow_the_environment(env, flags):
 
 
 # Launches per layer of each form, head width 32 (APE-Ti), radius 4, for bf16
-# and f32 values: K8's D = 32 body holds every box of a query level in 227 KB
-# of shared memory, one group a query level (its general body groups the f32
-# 64^2 and 32^2 query levels: GENERAL_QLEVEL_LAUNCHES); K9 takes the 128-wide
-# query levels, on its D = 32 body in bf16.
+# and f32 values: K6, K7 and K8 on their D = 32 bodies; K8's holds every box
+# of a query level in 227 KB of shared memory, one group a query level (its
+# general body groups the f32 64^2 and 32^2 query levels:
+# GENERAL_QLEVEL_LAUNCHES); K9 takes the 128-wide query levels, on its D = 32
+# body in bf16.
 PLANS = {
     ("protocol", 2): {"gather": {"msda_fwd": 1}, "pair": {"msda_fwd_pair": 25},
                       "rows": {"msda_fwd_rows": 5, "msda_fwd_pair": 10},
@@ -172,8 +173,8 @@ def test_plan_launches_per_layer(pyramid, esize, form):
     for launch in plan:
         assert launch.smem <= forms.SMEM_LIMIT
         assert launch.tile[0] * launch.tile[1] <= forms.WARPS * 16
-        d32 = launch.kernel == "msda_fwd_qlevel" or (launch.kernel == "msda_fwd_dense"
-                                                     and esize == 2)
+        d32 = launch.kernel in ("msda_fwd_pair", "msda_fwd_rows", "msda_fwd_qlevel") or (
+            launch.kernel == "msda_fwd_dense" and esize == 2)
         assert launch.body == ("d32" if d32 else "general")
 
 
@@ -225,6 +226,80 @@ def test_plan_refuses_a_d32_qlevel_body_at_another_width():
     with pytest.raises(ValueError, match="no body"):
         forms.plan_layer("qlevel", PROTOCOL, 32, 2, 4, body="wide")
     assert {x.body for x in forms.plan_layer("qlevel", PROTOCOL, 16, 2, 4)} == {"general"}
+
+
+@pytest.mark.parametrize("form", ["pair", "rows"])
+@pytest.mark.parametrize("esize", [2, 4])
+@pytest.mark.parametrize("head_dim", [8, 16, 32])
+def test_pair_and_rows_take_their_body_by_head_width(form, esize, head_dim):
+    """K6 and K7 take their D = 32 bodies at head width 32 and their general
+    ones at any other, in both element sizes; a D = 32 plan at another width
+    is refused."""
+    want = "d32" if head_dim == 32 else "general"
+    assert forms.form_body(form, head_dim, esize) == want
+    assert {x.body for x in forms.plan_layer(form, PROTOCOL, head_dim, esize, 4)} == {want}
+    if head_dim != 32:
+        with pytest.raises(ValueError, match="no body"):
+            forms.plan_layer(form, PROTOCOL, head_dim, esize, 4, body="d32")
+
+
+@pytest.mark.parametrize("pyramid", sorted(SHAPES))
+@pytest.mark.parametrize("esize", [2, 4])
+def test_pair_and_rows_d32_plans(pyramid, esize):
+    """K6's and K7's D = 32 plans: the launches per layer of the general
+    plans (25; 5 + 10); tiles of at most 64 queries; each K6 box at a
+    TMA_ALIGN offset past the header, a finer level unstaged; K7 one launch a
+    query level (no group split) over its same-or-coarser levels, its ring
+    the header and two TMA_ALIGN-aligned slots of the largest box, level j's
+    box in slot j mod 2, within SMEM_LIMIT; the finer pairs before K7, the
+    first launch of a query level storing and the others continuing."""
+    shapes = SHAPES[pyramid]
+    win = forms.window_taps(4)
+    for form in ("pair", "rows"):
+        plan = forms.plan_layer(form, shapes, 32, esize, 4, body="d32")
+        general = forms.plan_layer(form, shapes, 32, esize, 4, body="general")
+        assert forms.launches_per_layer(plan) == forms.launches_per_layer(general)
+        for lq in range(len(shapes)):
+            mine = [x for x in plan if x.query_levels == (lq,)]
+            assert [x.out_mode for x in mine] == ["store"] + ["continue"] * (len(mine) - 1)
+            assert [lv for x in mine for lv in x.value_levels] == list(range(len(shapes)))
+        for x in plan:
+            (lq,) = x.query_levels
+            assert x.body == "d32" and x.tile[0] * x.tile[1] <= 64 and x.smem <= forms.SMEM_LIMIT
+            boxes, offsets, win_off, tap_off, smem = forms._layout(
+                x.kernel, shapes, lq, x.value_levels, x.tile, 32, esize, win, "d32")
+            assert boxes == x.boxes and smem == x.smem and win_off == tap_off == 0
+            sizes = [h * w * 32 * esize for h, w in boxes]
+            if x.kernel == "msda_fwd_pair":
+                (lv,) = x.value_levels
+                if forms.finer(shapes[lq], shapes[lv]):
+                    assert boxes == ((0, 0),) and smem == forms.D32_HEADER_BYTES
+                    continue
+                at = offsets[0] * esize
+                assert at % forms.TMA_ALIGN == 0
+                assert forms.D32_HEADER_BYTES <= at < forms.D32_HEADER_BYTES + forms.TMA_ALIGN
+                assert smem == at + sizes[0]
+                continue
+            assert not any(forms.finer(shapes[lq], shapes[lv]) for lv in x.value_levels)
+            assert sum(y.kernel == "msda_fwd_rows" and y.query_levels == (lq,) for y in plan) == 1
+            slot0 = offsets[0] * esize
+            slot1 = slot0 + -(-max(sizes) // forms.TMA_ALIGN) * forms.TMA_ALIGN
+            assert slot0 % forms.TMA_ALIGN == 0 and slot1 % forms.TMA_ALIGN == 0
+            assert forms.D32_HEADER_BYTES <= slot0 < forms.D32_HEADER_BYTES + forms.TMA_ALIGN
+            assert [o * esize for o in offsets] == [(slot0, slot1)[j % 2]
+                                                    for j in range(len(boxes))]
+            assert smem == slot1 + max(sizes) <= forms.SMEM_LIMIT
+
+
+def test_rows_d32_refuses_levels_out_of_order():
+    """K7's D = 32 body takes consecutive value levels; a pyramid whose
+    same-or-coarser levels are not consecutive is refused at plan time (its
+    general body takes it)."""
+    shapes = ((16, 16), (32, 32), (8, 8))
+    with pytest.raises(ValueError, match="consecutive"):
+        forms.plan_layer("rows", shapes, 32, 2, 4, body="d32")
+    assert forms.launches_per_layer(forms.plan_layer("rows", shapes, 32, 2, 4, body="general")) \
+        == {"msda_fwd_rows": 3, "msda_fwd_pair": 3}
 
 
 @pytest.mark.parametrize("pyramid", sorted(SHAPES))
@@ -280,14 +355,32 @@ def _window_base(q, nq, nv, win):
     return int(np.floor(_f32(c + _f32(0.5)))) - (win - 3) // 2 - 1
 
 
+# The plans whose boxes test_staged_windows_hold_every_corner holds to the
+# windows: K8's general body, and the D = 32 bodies of K6, K7 (its ring
+# slots) and K8, whose tiles are smaller
+STAGING_PLANS = (("qlevel", "general"), ("pair", "d32"), ("rows", "d32"), ("qlevel", "d32"))
+
+
 @pytest.mark.parametrize("pyramid", sorted(SHAPES))
 def test_staged_windows_hold_every_corner(rng, pyramid):
     """The kernels' geometry, in f32 as they compute it: every bilinear
     corner of a clipped sample lies in its query's window (the per-query
     staging and K9's taps), and every window of a tile in the box the plan
-    bounds (the tile staging), so no corner is read from device memory."""
+    bounds (the tile staging: K8's general body, K6's, K7's and K8's D = 32
+    bodies), so no corner is read from device memory; each of K7's boxes
+    fits the ring slot it is staged in, in both element sizes."""
     shapes, radius = SHAPES[pyramid], 4
     win = forms.window_taps(radius)
+    for esize in (2, 4):
+        for x in forms.plan_layer("rows", shapes, 32, esize, radius, body="d32"):
+            if x.kernel != "msda_fwd_rows":
+                continue
+            (lq,) = x.query_levels
+            _, offsets, _, _, smem = forms._layout(x.kernel, shapes, lq, x.value_levels, x.tile,
+                                                   32, esize, win, "d32")
+            ends = [offsets[1] * esize if len(offsets) > 1 else smem, smem]
+            for j, (h, w) in enumerate(x.boxes):
+                assert offsets[j] * esize + h * w * 32 * esize <= ends[j % 2], (lq, j)
     for lq, (hq, wq) in enumerate(shapes):
         for lv, (hv, wv) in enumerate(shapes):
             for nq, nv in ((hq, hv), (wq, wv)):
@@ -299,7 +392,9 @@ def test_staged_windows_hold_every_corner(rng, pyramid):
                 x0 = np.floor(x).astype(int)
                 base = np.array([_window_base(i, nq, nv, win) for i in q])
                 assert (x0 >= base[:, None]).all() and (x0 + 1 <= base[:, None] + win - 1).all()
-            x = forms.plan_layer("qlevel", shapes, 32, 2, radius, body="general")
+            x = [launch for form, body in STAGING_PLANS
+                 for launch in forms.plan_layer(form, shapes, 32, 2, radius, body=body)
+                 if launch.kernel != "msda_fwd"]
             for launch in x:
                 if launch.query_levels != (lq,) or lv not in launch.value_levels:
                     continue
@@ -351,6 +446,23 @@ def test_run_plan_assembles_the_window_op(rng, form, dtype):
     assert got.dtype == dtype
     tol = TOL if dtype == torch.float32 else 2 ** -7 * float(want.float().abs().max())
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("form", ["pair", "rows", "qlevel"])
+@pytest.mark.parametrize("pyramid", ["three", "oblong"])
+def test_run_plan_assembles_the_d32_window_op(rng, pyramid, form):
+    """The D = 32 plans of K6, K7 (its finer pairs first, each query level's
+    first launch storing the f32 partial and the rest continuing it) and K8
+    at head width 32, each launch done in plain torch: the plain whole op,
+    in f32."""
+    shapes, radius = PYRAMIDS[pyramid]
+    value, off, att = (torch.from_numpy(x) for x in _inputs(rng, shapes, b=2, heads=2, d=32, p=4))
+    plan = forms.plan_layer(form, shapes, 32, 4, radius, body="d32")
+    assert {x.body for x in plan} == {"d32"}
+    got = forms.run_plan(plan, value, shapes, off, att, radius, _plain_launch, None)
+    want = forms.window_plain(value, shapes, off, att, radius)
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= TOL
 
 
 @pytest.mark.parametrize("pyramid", [p for p in sorted(PYRAMIDS) if len(PYRAMIDS[p][0]) > 1])

@@ -492,12 +492,34 @@ def test_k8_sass_check_reads_tma_and_box_loads():
     bf16, f32 = sorted(counts, key=lambda n: "__nv_bfloat16" not in n)
     assert counts[bf16] == _ops(UTMALDG=1, LDG=3, LDG_16=1, LDG_64=2, LDS=4, LDS_64=4, STG=1)
     assert counts[f32] == _ops(LDS=2, LDS_32=1, LDS_16=1, STG=1)
-    rec, bad = chip_smoke.qlevel_faults(bf16, counts[bf16], {"registers": 56})
+    rec, bad = chip_smoke.tma_faults(chip_smoke.QLEVEL_D32_KERNEL, bf16, counts[bf16],
+                                     {"registers": 56})
     assert bad == [] and (rec["value"], rec["att"], rec["box_load_bits"]) == ("bfloat16", "bfloat16", 64)
-    rec, bad = chip_smoke.qlevel_faults(f32, counts[f32], {"registers": 80})
+    rec, bad = chip_smoke.tma_faults(chip_smoke.QLEVEL_D32_KERNEL, f32, counts[f32],
+                                     {"registers": 80})
     assert (rec["value"], rec["att"]) == ("float32", "float32")
     assert len(bad) == 4 and "TMA" in bad[0] and "128-bit" in bad[1] and "16-bit" in bad[2]
     assert "80 registers" in bad[3]
+
+
+@pytest.mark.parametrize("kernel,source", [("msda_fwd_pair_kernel_d32", "msda_fwd_pair_cu"),
+                                           ("msda_fwd_rows_kernel_d32", "msda_fwd_rows_cu")])
+def test_pair_and_rows_sass_check_reads_tma_and_box_loads(kernel, source):
+    """chip_smoke's check of K6's and K7's D = 32 bodies is K8's: on the
+    same excerpts, renamed, the bf16 instance passes and the f32 one fails
+    on each of its four faults; the smoke checks both bodies."""
+    import chip_smoke
+
+    sass = SASS_QLEVEL.replace("msda_fwd_qlevel_cu", source).replace(
+        "26msda_fwd_qlevel_kernel_d32", f"{len(kernel)}{kernel}")
+    counts = _build.parse_sass(sass, kernel)
+    bf16, f32 = sorted(counts, key=lambda n: "__nv_bfloat16" not in n)
+    rec, bad = chip_smoke.tma_faults(kernel, bf16, counts[bf16], {"registers": 64})
+    assert bad == []
+    assert (rec["kernel"], rec["value"], rec["box_load_bits"]) == (kernel, "bfloat16", 64)
+    _, bad = chip_smoke.tma_faults(kernel, f32, counts[f32], {"registers": 65})
+    assert len(bad) == 4 and "TMA" in bad[0] and "65 registers" in bad[3]
+    assert (kernel, kernel.replace("_d32", "I")) in chip_smoke.TMA_D32_KERNELS
 
 
 # A cuobjdump -sass excerpt of K3's D = 32 body: a bf16 instance with f32
