@@ -3,8 +3,8 @@
 // (msda_bwd.cu) and the split one (msda_bwd_split.cu), so that the two forms
 // pick the same corners and boundary cases, and by the pair probe
 // (msda_pair_probe.cu), whose base variant K1 checks them against; the
-// rounding also by K1 (msda_fwd.cu). The D = 32 bodies share more: K1's
-// and K8's the forward's cell and blend (cell, blend4), K2's and K3's the
+// rounding also by K1 (msda_fwd.cu). The D = 32 bodies share more: K1's,
+// K8's and K10's the forward's cell and blend (cell, blend4), K2's and K3's the
 // backward's dot products (sample_dots4), K2's and K4's the d_value
 // reduction (red_add4). The split kernels' general bodies
 // take the rest (corners, weights, dot products, scatter) from Sample and
@@ -77,7 +77,7 @@ __device__ __forceinline__ bool live(float x, float y, int hl, int wl) {
   return x >= -1.f && y >= -1.f && x < wl && y < hl;
 }
 
-// The D = 32 layout of the MSDA bodies for APE's head width (K1-K4, K8):
+// The D = 32 layout of the MSDA bodies for APE's head width (K1-K4, K8, K10):
 // 8 lanes an item (b, q, h) and 4 channels a lane, so a warp holds
 // kItemsPerWarp = 4 items, and each corner row is read as one vector load a
 // lane.
@@ -160,8 +160,8 @@ __device__ __forceinline__ Cell cell(float x, float y, int hl, int wl) {
 // c, from its 4 corners' channels v00 .. v11; a corner outside the level
 // reads as 0, and its term w * 0 leaves the sum as the general body's
 // skipped term does. Every product and sum is explicitly rounded, so K1's
-// D = 32 body and K8's, which both call this, and K1's general body, which
-// writes the same expressions per channel, agree bit for bit. The callers
+// D = 32 body, K8's and K10's base, which call this, and K1's general body,
+// which writes the same expressions per channel, agree bit for bit. The callers
 // load the corners themselves: K1 was 30 % slower (0.245 against 0.187 ms,
 // protocol shape, bf16, H100 80GB HBM3, 700 W) with the addresses made by
 // one callback a corner instead of one 64-bit offset and three additions.

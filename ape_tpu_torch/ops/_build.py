@@ -179,19 +179,21 @@ def ptxas_info(log: Path | None = None) -> dict:
 # REDGs of four f32 lanes in one 16-byte access (REDG.E.ADD.F32x4: atomicAdd
 # on float4, compute capability 9.x). LDG_<bits> counts the global loads by
 # width: LDG.E.U16 16 bits, LDG.E 32, LDG.E.64 64, LDG.E.128 128; LDS_<bits>
-# the shared-memory loads (LDS.U16, LDS, LDS.64, LDS.128).
+# the shared-memory loads (LDS.U16, LDS, LDS.64, LDS.128), STG_<bits> the
+# global stores (STG.E.U16, STG.E, STG.E.64, STG.E.128).
 SASS_OPS = ("LDG", "STG", "HMMA", "LDSM", "LDGSTS", "REDG", "ATOMG", "ATOM", "LDS", "UTMALDG")
 LDG_WIDTHS = ("LDG_8", "LDG_16", "LDG_32", "LDG_64", "LDG_128")
 LDS_WIDTHS = ("LDS_8", "LDS_16", "LDS_32", "LDS_64", "LDS_128")
+STG_WIDTHS = ("STG_8", "STG_16", "STG_32", "STG_64", "STG_128")
 # every key of a function's counts (parse_sass)
-SASS_KEYS = SASS_OPS + ("REDG_V4",) + LDG_WIDTHS + LDS_WIDTHS
-_LDG = re.compile(r"\bLDG((?:\.[A-Z0-9_]+)*)\s")
-_LDS = re.compile(r"\bLDS((?:\.[A-Z0-9_]+)*)\s")
+SASS_KEYS = SASS_OPS + ("REDG_V4",) + LDG_WIDTHS + LDS_WIDTHS + STG_WIDTHS
+_WIDTHS = tuple((kind, re.compile(rf"\b{kind}((?:\.[A-Z0-9_]+)*)\s"))
+                for kind in ("LDG", "LDS", "STG"))
 
 
 def ldg_width(modifiers: str) -> int:
-    """Bits of a global or shared-memory load, from its opcode's modifiers
-    (".E.64", ...)."""
+    """Bits of a global or shared-memory load or a global store, from its
+    opcode's modifiers (".E.64", ...)."""
     mods = set(modifiers.split("."))
     for bits in (128, 64):
         if str(bits) in mods:
@@ -204,8 +206,8 @@ def ldg_width(modifiers: str) -> int:
 def parse_sass(sass: str, pattern: str) -> dict:
     """Per function of a ``cuobjdump -sass`` listing whose mangled name holds
     ``pattern``: {name: {op: static count}} for the ops of ``SASS_OPS``,
-    REDG_V4 and the load widths of ``LDG_WIDTHS`` and ``LDS_WIDTHS``
-    (``SASS_KEYS``)."""
+    REDG_V4 and the widths of ``LDG_WIDTHS``, ``LDS_WIDTHS`` and
+    ``STG_WIDTHS`` (``SASS_KEYS``)."""
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -219,7 +221,7 @@ def parse_sass(sass: str, pattern: str) -> dict:
                     counts[name][op] += 1
             if " REDG." in line and "x4." in line:
                 counts[name]["REDG_V4"] += 1
-            for kind, pat in (("LDG", _LDG), ("LDS", _LDS)):
+            for kind, pat in _WIDTHS:
                 m = pat.search(line)
                 if m:
                     counts[name][f"{kind}_{ldg_width(m.group(1))}"] += 1

@@ -5,7 +5,10 @@ The counterpart of the JAX repository's ``experiments/pair_probe.py``, whose
 ``run_pair_variant`` runs the v2 window-MSDA pair kernel in about fifteen
 variants to split its time by stage. The port's pair kernel is K1
 (``csrc/msda_fwd.cu``) on one value level; ``csrc/msda_pair_probe.cu`` runs
-it in the eight ``VARIANTS`` (its header says what each keeps and drops).
+it in the eight ``VARIANTS`` (its header says what each keeps and drops),
+every variant but ``vec2`` on K1's D = 32 layout (8 lanes an item, 4
+channels a lane), ``vec2`` on 16 lanes an item, so that the split measures
+the body the model runs.
 Every variant takes the pair's clipped normalized locations, as K1 takes
 them (``pair_locations``), and writes f32 (B, Q, H * D), as the TPU kernel
 does; ``base`` rounded to the value's dtype is K1's output on the pair.
@@ -15,7 +18,9 @@ product and sum (``__hfma2``), so it sits up to a few bf16 steps from
 ``base``'s at the probe's sizes.
 
 ``pair_probe`` launches the kernel for CUDA tensors and takes the plain
-version for CPU tensors; ``pair_probe_cuda`` launches or raises.
+version for CPU tensors; ``pair_probe_cuda`` launches or raises. The
+kernel reads a corner's 4 channels in one 8- or 16-byte load and stores 16
+bytes a lane, so value, locations and output must start 16-byte aligned.
 
 Layout: value (B, hv * wv, H, D) with D = 32, locations (B, Q, H, P, 2) f32,
 attention weights (B, Q, H, P) f32. (The TPU probe keeps channels head-minor,
@@ -156,6 +161,8 @@ def _check(value_lv, loc_pair, att_pair, hv: int, wv: int):
             raise ValueError("msda_pair_probe takes CUDA tensors on one device")
         if not t.is_contiguous():
             raise ValueError("msda_pair_probe takes contiguous tensors")
+    if value_lv.data_ptr() % 16 or loc_pair.data_ptr() % 16:
+        raise ValueError("msda_pair_probe takes value and locations at 16-byte aligned addresses")
     return tuple(att_pair.shape)
 
 

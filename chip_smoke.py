@@ -23,7 +23,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    of K4's D = 32 body holds only 16-byte vector reductions, within 64
    registers and no spill; every instance of K9's D = 32 body holds
    tensor-core products (HMMA) and TMA loads (UTMALDG) and spills nothing;
-   the general bodies' instances are recorded beside;
+   every instance of K10's 8-lane body (seven probe variants, two value
+   dtypes) reads its corners by 64-bit (bf16) or 128-bit (f32) loads, no
+   16-bit one, stores by 128-bit stores alone, within 64 registers and no
+   spill; the general bodies' instances (K10: vec2's) are recorded beside;
 3. kernels: each forward CUDA kernel against its plain PyTorch version at
    every shape set the main paths give it (the protocol pyramid at batch 1;
    the 4-scale pyramid at batch 1 with 900 decoder queries and at batch 2
@@ -92,8 +95,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     K4, autograd of the plain version) at the same pyramids and draws, each
     within its bound of the plain version or of K2;
 14. probes: ``ape_tpu_torch.tools.pair_probe`` (K10, every variant on the
-    four pairs, bf16 value, each within 1e-5 of its plain version, bf16fma
-    within 6.4e-2 of base, base against K1 bit for bit) and
+    four pairs, bf16 and f32 value, each within 1e-5 of its plain version,
+    bf16fma within 6.4e-2 of base, base against K1 bit for bit, K1's time
+    on each pair beside) and
     ``ape_tpu_torch.tools.backbone_fix_probe`` (K11, every tile beside K5,
     the einsum forms and ``scaled_dot_product_attention``, each tile and K5
     against the plain attention in bf16 within four bf16 steps of its largest
@@ -327,6 +331,7 @@ def build_phase():
     d32_body_check(OFFATT_D32_KERNEL, GENERAL_K3_KERNEL, offatt_faults, D32_INSTANCES)
     d32_body_check(VALUE_D32_KERNEL, GENERAL_K4_KERNEL, value_faults, D32_INSTANCES)
     d32_body_check(DENSE_D32_KERNEL, GENERAL_K9_KERNEL, dense_faults, DENSE_D32_INSTANCES)
+    d32_body_check(PROBE_D32_KERNEL, PROBE_VEC2_KERNEL, probe_faults, PROBE_INSTANCES)
     log(phase="sass_done", seconds=time.perf_counter() - t0)
 
 
@@ -589,6 +594,41 @@ def dense_faults(name: str, ops: dict, info: dict):
     bad = _spill_faults(name, info)
     if ops["HMMA"] < 1 or ops["LDSM"] < 1 or ops["UTMALDG"] < 1:
         bad.append(f"{name}: {ops['HMMA']} HMMA, {ops['LDSM']} LDSM, {ops['UTMALDG']} UTMALDG")
+    return rec, bad
+
+
+# K10's 8-lane body (every probe variant but vec2; its instances: 7
+# variants x value bf16/f32) and vec2's 16-lane body (bf16/f32), recorded
+# beside; the variants of the 8-lane body that read corners.
+PROBE_D32_KERNEL, PROBE_VEC2_KERNEL = "msda_pair_probe_kernel_d32", "msda_pair_probe_kernel_vec2"
+PROBE_INSTANCES = (14, 2)
+PROBE_CORNER_VARIANTS = ("base", "bf16fma", "branchless", "const_w", "corners_only")
+
+
+def probe_faults(name: str, ops: dict, info: dict):
+    """One instance of K10's 8-lane body: (its record, its faults): for a
+    variant that reads corners, fewer than four corner loads of the value
+    dtype's 4-channel width (LDG.E.64 in bf16, LDG.E.128 in f32); any 16-bit
+    load (the weights are f32); no store, or one that is not a 16-byte
+    STG.E.128; over D32_MAX_REGISTERS registers; a spill."""
+    from ape_tpu_torch.tools.pair_probe import sass_instance
+
+    found = sass_instance(name)
+    if found is None or found[0] == "vec2":
+        fail(f"unexpected instance {name}")
+    variant, value = found
+    width = 64 if value == "bfloat16" else 128
+    rec = dict(phase="sass", kernel=PROBE_D32_KERNEL, variant=variant, value=value,
+               corner_load_bits=width, name=name, **ops, **info)
+    bad = _spill_faults(name, info)
+    if variant in PROBE_CORNER_VARIANTS and ops[f"LDG_{width}"] < 4:
+        bad.append(f"{name}: {ops[f'LDG_{width}']} {width}-bit loads, fewer than 4 corners")
+    if ops["LDG_16"]:
+        bad.append(f"{name}: {ops['LDG_16']} 16-bit loads")
+    if not 0 < ops["STG_128"] == ops["STG"]:
+        bad.append(f"{name}: {ops['STG_128']} 128-bit stores of {ops['STG']}")
+    if info.get("registers", 0) > D32_MAX_REGISTERS:
+        bad.append(f"{name}: {info['registers']} registers")
     return rec, bad
 
 
@@ -1771,10 +1811,11 @@ def race_phase(dev, card):
 
 def probes_phase(dev, card):
     """The two probes as a path of their own, one line a record: K10's
-    variants on the four pairs and K11's tiles, each within its bound of its
-    plain version, K10 base equal to K1 on each pair and K11 (64, 64) to K5.
-    Returns the probes' launches and the kernels line's K10 row (base on the
-    256^2 pair) and K11 row (the fastest tile)."""
+    variants on the four pairs with a bf16 and an f32 value and K11's tiles,
+    each within its bound of its plain version, K10 base equal to K1 on each
+    pair and K11 (64, 64) to K5. Returns the probes' launches and the kernels
+    line's K10 row (base on the 256^2 pair, bf16) and K11 row (the fastest
+    tile)."""
     from ape_tpu_torch.ops import _build
     from ape_tpu_torch.tools import backbone_fix_probe, pair_probe
 
@@ -1789,7 +1830,8 @@ def probes_phase(dev, card):
     bad = pair_probe.failures(pairs) + backbone_fix_probe.failures(attn)
     if bad:
         fail(f"probes: {'; '.join(bad)}")
-    base = {r["pair"]: r for r in pairs if r["phase"] == "probe_pair" and r["variant"] == "base"}
+    base = {r["pair"]: r for r in pairs if r["phase"] == "probe_pair" and r["variant"] == "base"
+            and r["dtype"] == "bfloat16"}
     tiles = [r for r in attn if r["name"].startswith("tile_") and r["fits"]]
     log(phase="probes_done", records=len(pairs) + len(attn), seconds=time.perf_counter() - t0,
         launches={k: v for k, v in launches.items() if v})

@@ -831,8 +831,53 @@ def test_pair_probe_variants_match_plain(device, variant, pair, dtype):
     assert got.dtype == torch.float32 and got.shape == (1, hq * wq, 256)
     assert float((got - want).abs().max()) <= PROBE_BOUND
     if variant == "base":
-        k1 = msda_fwd_cuda(value, ((hv, wv),), loc[:, :, :, None], att[:, :, :, None])
-        assert torch.equal(got.to(dtype).view(k1.shape), k1)
+        _assert_base_is_k1(got, value, loc, att, hv, wv)
+
+
+def _assert_base_is_k1(got, value, loc, att, hv: int, wv: int):
+    """K10 base equals K1 on the pair: rounded to the value's dtype, bit for
+    bit; and with the value in f32, its f32 output exactly."""
+    shapes, loc1, att1 = ((hv, wv),), loc[:, :, :, None], att[:, :, :, None]
+    k1 = msda_fwd_cuda(value, shapes, loc1, att1)
+    assert torch.equal(got.to(value.dtype).view(k1.shape), k1)
+    value32 = value.float()
+    k1_32 = msda_fwd_cuda(value32, shapes, loc1, att1)
+    assert torch.equal(k10.pair_probe_cuda("base", value32, loc, att, hv, wv).view(k1_32.shape),
+                       k1_32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("points", [3, 9])
+@pytest.mark.parametrize("variant", k10.VARIANTS)
+def test_pair_probe_variants_on_a_ragged_launch(device, variant, points, dtype):
+    """Every K10 variant against its plain version where the items (37
+    queries x 3 heads) fill no whole block nor warp, so the last warp's
+    empty items take part in the shuffles; P = 3 leaves lanes of an item
+    without a sample and P = 9 takes two rounds of 8. base equals K1."""
+    rng = np.random.RandomState(5)
+    q, heads, hv, wv = 37, 3, 5, 7
+    value = torch.from_numpy(rng.randn(1, hv * wv, heads, 32).astype(np.float32)).to(device, dtype)
+    loc = torch.from_numpy(rng.uniform(-0.15, 1.15, (1, q, heads, points, 2)).astype(np.float32))
+    att = torch.from_numpy(rng.rand(1, q, heads, points).astype(np.float32))
+    loc, att = loc.to(device), att.to(device)
+    got = k10.pair_probe_cuda(variant, value, loc, att, hv, wv)
+    want = k10.pair_probe_plain(variant, value, loc, att, hv, wv)
+    assert got.dtype == torch.float32 and got.shape == (1, q, heads * 32)
+    assert float((got - want).abs().max()) <= PROBE_BOUND
+    if variant == "base":
+        _assert_base_is_k1(got, value, loc, att, hv, wv)
+
+
+def test_pair_probe_refuses_unaligned_inputs(device):
+    """The 8-lane body reads a corner's 4 channels in one 8- or 16-byte
+    load: a value that does not start 16-byte aligned is refused unlaunched."""
+    value, _, loc, att = pair_inputs(4, 4, 4, 4, device, torch.float32)
+    shifted = torch.empty(value.numel() + 1, device=device)[1:].view(value.shape)
+    shifted.copy_(value)
+    before = _build.LAUNCHES["msda_pair_probe"]
+    with pytest.raises(ValueError, match="16-byte"):
+        k10.pair_probe_cuda("base", shifted, loc, att, 4, 4)
+    assert _build.LAUNCHES["msda_pair_probe"] == before
 
 
 def test_pair_probe_bf16fma_rounds_once_a_corner(device):

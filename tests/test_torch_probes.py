@@ -285,16 +285,46 @@ def test_patchify_conv_matches_the_matmul(rng):
 
 def test_pair_probe_tool_on_the_cpu(capsys):
     recs = pair_probe.probe(device="cpu", pairs={"tiny": (16, 16, 8, 8)})
-    assert [r["variant"] for r in recs] == list(k10.VARIANTS)
+    assert [(r["dtype"], r["variant"]) for r in recs] == [
+        (d, v) for d in ("bfloat16", "float32") for v in k10.VARIANTS]
     for rec in recs:
-        assert {"pair", "geometry", "variant", "jax", "ms", "plain_ms", "bound_ms", "bound_by",
-                "share_of_base", "max_abs_err", "bound", "card"} <= rec.keys()
+        assert {"pair", "geometry", "dtype", "variant", "jax", "ms", "plain_ms", "bound_ms",
+                "bound_by", "share_of_base", "max_abs_err", "bound", "card"} <= rec.keys()
         assert rec["ms"] is None and rec["max_abs_err"] == 0.0
-    assert recs[0]["equals_msda_fwd"] is True
-    assert 0 < recs[k10.VARIANTS.index("bf16fma")]["max_abs_err_vs_base"] <= BF16_TOL
+    bf16, f32 = recs[:len(k10.VARIANTS)], recs[len(k10.VARIANTS):]
+    assert bf16[0]["equals_msda_fwd"] is True and f32[0]["equals_msda_fwd"] is True
+    assert f32[0]["bound_ms"] > bf16[0]["bound_ms"]  # the f32 value's bytes
+    for half in (bf16, f32):
+        assert 0 < half[k10.VARIANTS.index("bf16fma")]["max_abs_err_vs_base"] <= BF16_TOL
     assert pair_probe.failures(recs) == []
+    f32[0]["equals_msda_fwd"] = False
+    assert pair_probe.failures(recs) == ["tiny float32 base differs from K1 on the pair"]
     assert len(capsys.readouterr().out.splitlines()) == len(recs)
     assert pair_probe._variants("base,no_fma,k32,tile") == ("base", "no_corners", "vec2")
+
+
+def test_pair_probe_stage_split():
+    """The probe_split line of a pair: the stages by difference, and base
+    beside K1 on the pair."""
+    ms = {"base": 0.15, "no_corners": 0.06, "const_w": 0.11, "store_only": 0.03, "vec2": 0.2}
+    rec = pair_probe.stage_split("same", "bfloat16", ms, 0.125, 0.0376, "card")
+    assert rec["phase"] == "probe_split" and (rec["pair"], rec["dtype"]) == ("same", "bfloat16")
+    assert math.isclose(rec["corner_loads_ms"], 0.09) and math.isclose(rec["weight_math_ms"], 0.04)
+    assert rec["launch_store_ms"] == 0.03 and rec["base_ms"] == 0.15
+    assert rec["msda_fwd_ms"] == 0.125 and math.isclose(rec["base_vs_msda_fwd"], 1.2)
+
+
+def test_probe_tools_run_on_the_card_unless_told_otherwise():
+    """The probes' entry points take the card by default and raise without
+    one; device="cpu" runs the plain versions."""
+    assert pair_probe.device_or_card("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert pair_probe.device_or_card(None) == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="NVIDIA card"):
+            pair_probe.probe(pairs={"tiny": (4, 4, 4, 4)})
+        with pytest.raises(RuntimeError, match="NVIDIA card"):
+            backbone_fix_probe.probe(shape=(1, 2, 128, 64), image=64)
 
 
 def test_backbone_fix_probe_tool_on_the_cpu():
@@ -390,8 +420,8 @@ def _ops(**nonzero):
 def test_parse_sass_counts_tensor_core_ops():
     counts = _build.parse_sass(SASS, "attn_fwd_kernel")
     bf16, f32 = sorted(counts, key=lambda n: "__nv_bfloat16" not in n)
-    assert counts[bf16] == _ops(STG=1, HMMA=2, LDSM=2, LDGSTS=1)
-    assert counts[f32] == _ops(LDG=1, LDG_32=1, STG=1)
+    assert counts[bf16] == _ops(STG=1, STG_32=1, HMMA=2, LDSM=2, LDGSTS=1)
+    assert counts[f32] == _ops(LDG=1, LDG_32=1, STG=1, STG_32=1)
     assert list(_build.parse_sass(SASS, "msda_fwd_kernel").values()) == [_ops(LDG=1, LDG_32=1)]
 
 
@@ -413,7 +443,7 @@ SASS_RED = """
 
 def test_parse_sass_counts_vector_reductions():
     (d32,) = _build.parse_sass(SASS_RED, "msda_bwd_kernel_d32").values()
-    assert d32 == _ops(LDG=2, LDG_64=1, LDG_128=1, STG=1, REDG=2, REDG_V4=2)
+    assert d32 == _ops(LDG=2, LDG_64=1, LDG_128=1, STG=1, STG_64=1, REDG=2, REDG_V4=2)
     counts = _build.parse_sass(SASS_RED, "msda_bwd_kernel")
     assert sorted(c["REDG_V4"] for c in counts.values()) == [0, 2]
     assert sorted(c["REDG"] for c in counts.values()) == [2, 2]
@@ -451,7 +481,7 @@ def test_k1_gather_check_reads_load_widths():
 
     counts = _build.parse_sass(SASS_GATHER, chip_smoke.VECTOR_GATHER_KERNEL)
     bf16, f32 = sorted(counts, key=lambda n: "__nv_bfloat16" not in n)
-    assert counts[bf16] == _ops(LDG=7, LDG_16=1, LDG_64=6, STG=1)
+    assert counts[bf16] == _ops(LDG=7, LDG_16=1, LDG_64=6, STG=1, STG_64=1)
     assert chip_smoke._gather_instance(bf16) == ("bfloat16", "bfloat16", True)
     assert chip_smoke._gather_instance(f32) == ("float32", "float32", False)
     rec, bad = chip_smoke.gather_faults(bf16, counts[bf16], {"registers": 51})
@@ -490,8 +520,9 @@ def test_k8_sass_check_reads_tma_and_box_loads():
 
     counts = _build.parse_sass(SASS_QLEVEL, chip_smoke.QLEVEL_D32_KERNEL)
     bf16, f32 = sorted(counts, key=lambda n: "__nv_bfloat16" not in n)
-    assert counts[bf16] == _ops(UTMALDG=1, LDG=3, LDG_16=1, LDG_64=2, LDS=4, LDS_64=4, STG=1)
-    assert counts[f32] == _ops(LDS=2, LDS_32=1, LDS_16=1, STG=1)
+    assert counts[bf16] == _ops(UTMALDG=1, LDG=3, LDG_16=1, LDG_64=2, LDS=4, LDS_64=4, STG=1,
+                                STG_64=1)
+    assert counts[f32] == _ops(LDS=2, LDS_32=1, LDS_16=1, STG=1, STG_128=1)
     rec, bad = chip_smoke.tma_faults(chip_smoke.QLEVEL_D32_KERNEL, bf16, counts[bf16],
                                      {"registers": 56})
     assert bad == [] and (rec["value"], rec["att"], rec["box_load_bits"]) == ("bfloat16", "bfloat16", 64)
@@ -548,9 +579,78 @@ def test_k3_sass_check_reads_corner_loads_and_no_atomics():
 
     counts = _build.parse_sass(SASS_OFFATT, chip_smoke.OFFATT_D32_KERNEL)
     bf16, f32 = sorted(counts, key=lambda n: "__nv_bfloat16" not in n)
-    assert counts[bf16] == _ops(LDG=5, LDG_64=5, STG=2)
+    assert counts[bf16] == _ops(LDG=5, LDG_64=5, STG=2, STG_32=1, STG_64=1)
     rec, bad = chip_smoke.offatt_faults(bf16, counts[bf16], {"registers": 60})
     assert bad == [] and (rec["value"], rec["att"], rec["corner_load_bits"]) == (
         "bfloat16", "float32", 64)
     _, bad = chip_smoke.offatt_faults(f32, counts[f32], {"spill_stores": 4, "spill_loads": 4})
     assert len(bad) == 3 and "spills" in bad[0] and "128-bit" in bad[1] and "REDG" in bad[2]
+
+
+# A cuobjdump -sass excerpt of K10's bodies (H100, sm_90a): base with a bf16
+# value (the location and weight loads, four 64-bit corner loads, one
+# 128-bit store), vec2 with a bf16 value, and const_w with an f32 value whose
+# corners were read 32 bits at a time and whose output was stored 64 bits
+# at a time.
+SASS_PROBE = """
+		Function : _ZN46_GLOBAL__N__1a2b3c4d_18_msda_pair_probe_cu_5e6f7a8b26msda_pair_probe_kernel_d32ILi0E13__nv_bfloat16EEvPKT0_PKfS7_Pfiiiiii
+        /*0100*/              @P0 LDG.E.64.CONSTANT R2, desc[UR6][R2.64] ;
+        /*0110*/              @P0 LDG.E.CONSTANT R6, desc[UR6][R6.64] ;
+        /*0130*/              @P1 LDG.E.64.CONSTANT R8, desc[UR6][R8.64] ;
+        /*0140*/              @P2 LDG.E.64.CONSTANT R10, desc[UR6][R10.64] ;
+        /*0150*/              @P3 LDG.E.64.CONSTANT R12, desc[UR6][R12.64] ;
+        /*0160*/              @P4 LDG.E.64.CONSTANT R14, desc[UR6][R14.64] ;
+        /*0170*/              @P5 STG.E.128 desc[UR6][R16.64], R20 ;
+		Function : _ZN46_GLOBAL__N__1a2b3c4d_18_msda_pair_probe_cu_5e6f7a8b27msda_pair_probe_kernel_vec2I13__nv_bfloat16EEvPKT_PKfS6_Pfiiiiii
+        /*0100*/                   LDG.E.CONSTANT R6, desc[UR6][R6.64] ;
+        /*0110*/              @P1 LDG.E.CONSTANT R8, desc[UR6][R8.64] ;
+        /*0120*/                   STG.E.64 desc[UR6][R16.64], R18 ;
+		Function : _ZN46_GLOBAL__N__1a2b3c4d_18_msda_pair_probe_cu_5e6f7a8b26msda_pair_probe_kernel_d32ILi4EfEEvPKT0_PKfS5_Pfiiiiii
+        /*0100*/                   LDG.E.64.CONSTANT R2, desc[UR6][R2.64] ;
+        /*0110*/              @P1 LDG.E.CONSTANT R8, desc[UR6][R8.64] ;
+        /*0120*/              @P1 LDG.E.U16.CONSTANT R9, desc[UR6][R8.64] ;
+        /*0130*/                   STG.E.64 desc[UR6][R16.64], R20 ;
+"""
+
+
+def test_k10_sass_check_reads_load_and_store_widths(monkeypatch):
+    """chip_smoke's check of K10's 8-lane body and the probe tool's SASS
+    records: each instance's variant and value dtype from its mangled name;
+    the bf16 base instance with four 64-bit corner loads and a 128-bit store
+    passes; the f32 const_w one, with no 128-bit corner load, a 16-bit load,
+    a 64-bit store, 72 registers and a spill, fails on each. The tool reads
+    both bodies and raises on none."""
+    import chip_smoke
+
+    counts = _build.parse_sass(SASS_PROBE, chip_smoke.PROBE_D32_KERNEL)
+    vec2 = _build.parse_sass(SASS_PROBE, chip_smoke.PROBE_VEC2_KERNEL)
+    assert len(counts) == 2 and len(vec2) == 1
+    base, const_w = sorted(counts, key=lambda n: "__nv_bfloat16" not in n)
+    assert counts[base] == _ops(LDG=6, LDG_32=1, LDG_64=5, STG=1, STG_128=1)
+    assert pair_probe.sass_instance(base) == ("base", "bfloat16")
+    assert pair_probe.sass_instance(const_w) == ("const_w", "float32")
+    assert pair_probe.sass_instance(next(iter(vec2))) == ("vec2", "bfloat16")
+    assert pair_probe.sass_instance("msda_fwd_kernel_d32IffLb0EEEv") is None
+    rec, bad = chip_smoke.probe_faults(base, counts[base], {"registers": 56})
+    assert bad == [] and (rec["variant"], rec["value"], rec["corner_load_bits"]) == (
+        "base", "bfloat16", 64)
+    _, bad = chip_smoke.probe_faults(const_w, counts[const_w],
+                                     {"registers": 72, "spill_stores": 8, "spill_loads": 8})
+    assert len(bad) == 5 and "spills" in bad[0] and "128-bit loads" in bad[1]
+    assert "16-bit" in bad[2] and "128-bit stores" in bad[3] and "72 registers" in bad[4]
+    # no store at all fails too
+    _, bad = chip_smoke.probe_faults(base, dict(counts[base], STG=0, STG_128=0), {})
+    assert bad == [f"{base}: 0 128-bit stores of 0"]
+
+    monkeypatch.setattr(_build, "ptxas_info", lambda: {base: {"registers": 56}})
+    monkeypatch.setattr(_build, "sass_counts",
+                        lambda pattern: _build.parse_sass(SASS_PROBE, pattern))
+    recs = pair_probe.sass_records("card")
+    assert [(r["kernel"], r["variant"], r["dtype"]) for r in recs] == [
+        ("msda_pair_probe_kernel_d32", "base", "bfloat16"),
+        ("msda_pair_probe_kernel_d32", "const_w", "float32"),
+        ("msda_pair_probe_kernel_vec2", "vec2", "bfloat16")]
+    assert recs[0]["registers"] == 56 and recs[0]["STG_128"] == 1
+    monkeypatch.setattr(_build, "sass_counts", lambda pattern: {})
+    with pytest.raises(RuntimeError, match="no instance"):
+        pair_probe.sass_records("card")
