@@ -12,7 +12,9 @@ It covers APE-Ti inference under the reference latency protocol
 ``engine.defaults.DefaultPredictor``) and APE-Ti detection training
 (``build_ape_ti(use_act_checkpoint=True)`` -> ``engine.optimizer.build_optimizer``
 -> ``engine.train_step.make_train_step`` with
-``modeling.ape_deta.criterion.DeformableCriterion``).
+``modeling.ape_deta.criterion.DeformableCriterion``), and APE-L_D serving
+(``modeling.build.build_ape_l_d`` with prompts encoded by
+``modeling.text.EVA02CLIP`` -> ``APE`` -> ``DefaultPredictor``).
 """
 
 __version__ = "0.1.0"

@@ -12,6 +12,11 @@ inverted:
   LayerNorm / GroupNorm scale           -> weight
   decoder self-attention q/k/v_proj     -> packed in_proj_weight / in_proj_bias
   mask head lateral_norm / output_norm  -> the ``norm`` of lateral_conv / output_conv
+  encoder vl_layers_{i}                 -> vl_layers.{i}.b_attn (the reference's
+                                           fusion wrapper, which JAX's converter strips)
+
+``language_state_dict_from_jax`` is likewise the inverse of
+``convert_language_state_dict`` for the EVA-CLIP text tower.
 """
 
 from __future__ import annotations
@@ -102,6 +107,17 @@ def _convert_one(key: str, v, neck_levels, num_layers: int):
         else:
             return None
         return f"transformer.{side}.layers.{i}.{name}.{_leaf(kind)}", _tf(kind)(v)
+    m = re.fullmatch(r"transformer/encoder/vl_layers_(\d+)/(?:attn/(\w+)|(layer_norm_[vl]))/"
+                     r"(kernel|scale|bias)", key)
+    if m:
+        i, proj, norm, kind = m.groups()
+        part = f"attn.{proj}" if proj else norm
+        return f"transformer.encoder.vl_layers.{i}.b_attn.{part}.{_leaf(kind)}", _tf(kind)(v)
+    m = re.fullmatch(r"transformer/encoder/vl_layers_(\d+)/(gamma_[vl])", key)
+    if m:
+        return f"transformer.encoder.vl_layers.{m[1]}.b_attn.{m[2]}", np.asarray(v)
+    if key == "name_prompt_fusion_feature":
+        return key, np.asarray(v)
     m = re.fullmatch(r"transformer/decoder/bbox_embed_(\d+)/layer(\d+)/(kernel|bias)", key)
     if m:
         return f"transformer.decoder.bbox_embed.{m[1]}.layers.{m[2]}.{_leaf(m[3])}", _tf(m[3])(v)
@@ -128,9 +144,9 @@ def _convert_one(key: str, v, neck_levels, num_layers: int):
 
 
 def state_dict_from_jax(flat_params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flat flax params ("a/b/kernel" -> numpy) of an APE-Ti tree (the
-    protocol's or the masked model's) to the port's state_dict. Raises on a
-    key it cannot place."""
+    """Flat flax params ("a/b/kernel" -> numpy) of an APE-Ti or APE-L_D tree
+    (the protocol's or the masked model's) to the port's state_dict. Raises
+    on a key it cannot place."""
     neck_levels = sorted({m[1] for k in flat_params
                           if (m := re.fullmatch(r"neck/conv_(\w+)/kernel", k))})
     num_layers = len({m[1] for k in flat_params if (m := re.match(r"class_embed_(\d+)/", k))})
@@ -157,4 +173,36 @@ def state_dict_from_jax(flat_params: Mapping[str, np.ndarray]) -> Dict[str, torc
         out[name] = np.concatenate([qkv["q"], qkv["k"], qkv["v"]], axis=0)
     if unplaced:
         raise KeyError(f"state_dict_from_jax: no rule for {len(unplaced)} keys: {unplaced[:10]}")
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in out.items()}
+
+
+_TEXT_BLOCK = {"in_proj/kernel": "attn.in_proj_weight", "in_proj/bias": "attn.in_proj_bias",
+               "out_proj/kernel": "attn.out_proj.weight", "out_proj/bias": "attn.out_proj.bias",
+               "ln_1/scale": "ln_1.weight", "ln_1/bias": "ln_1.bias",
+               "ln_2/scale": "ln_2.weight", "ln_2/bias": "ln_2.bias",
+               "mlp_fc/kernel": "mlp.c_fc.weight", "mlp_fc/bias": "mlp.c_fc.bias",
+               "mlp_proj/kernel": "mlp.c_proj.weight", "mlp_proj/bias": "mlp.c_proj.bias"}
+_TEXT_TOP = {"token_embedding/embedding": "token_embedding.weight",
+             "positional_embedding": "positional_embedding",
+             "text_projection": "text_projection",
+             "ln_final/scale": "ln_final.weight", "ln_final/bias": "ln_final.bias"}
+
+
+def language_state_dict_from_jax(flat_params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flat flax params of ``CLIPTextTransformer`` to the port tower's
+    state_dict (the reference's EVA-CLIP names). ``text_projection`` keeps
+    its layout: both use it as x @ P. Raises on a key it cannot place."""
+    out: Dict[str, np.ndarray] = {}
+    unplaced = []
+    for key, v in flat_params.items():
+        m = re.fullmatch(r"resblocks_(\d+)/(.+)", key)
+        if key in _TEXT_TOP:
+            out[_TEXT_TOP[key]] = np.asarray(v)
+        elif m and m[2] in _TEXT_BLOCK:
+            out[f"transformer.resblocks.{m[1]}.{_TEXT_BLOCK[m[2]]}"] = _tf(m[2].split("/")[1])(v)
+        else:
+            unplaced.append(key)
+    if unplaced:
+        raise KeyError(f"language_state_dict_from_jax: no rule for {len(unplaced)} keys: "
+                       f"{unplaced[:10]}")
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in out.items()}

@@ -11,9 +11,14 @@ their mask logits when the model has a mask head), per-class semantic maps
 with ``name`` and ``get(key, default)``, such as the ``Metadata`` of
 ``ape_tpu.data.catalog``; the port imports nothing of ``ape_tpu``.
 
-The prompt type (name or phrase) selects which text the class heads align to
-only when the model fuses vision and language; APE-Ti does not, so both
-prompt types run the same forward.
+The prompt routing is JAX's (deformable_detr_segm_vl.py:342-360,
+:445-448): phrase and expression prompts fuse against the text and align the
+class heads to the fused text; name prompts align to the original text and
+fuse against the text where the dataset is flagged in
+``name_prompt_fusion_text``, else against ``name_prompt_fusion_type``'s
+token ("zero" or "learnable"), or not at all ("none"). A model without
+fusion layers (APE-Ti) runs the same forward for every prompt type. Per
+dataset, ``select_box_nums_for_evaluation_list`` sets the box budget.
 """
 
 from __future__ import annotations
@@ -49,6 +54,9 @@ class APE:
         test_score_thresh: float = 0.05,
         test_nms_thresh: float = 0.5,
         select_box_nums_for_evaluation: int = 300,
+        select_box_nums_for_evaluation_list: Optional[Sequence[int]] = None,
+        name_prompt_fusion_text: Optional[Sequence[bool]] = None,
+        name_prompt_fusion_type: str = "zero",
         instance_on: bool = True,
         semantic_on: bool = True,
         panoptic_on: bool = False,
@@ -60,16 +68,59 @@ class APE:
         self.max_text = max_text
         self.test_score_thresh = test_score_thresh
         self.test_nms_thresh = test_nms_thresh
-        self.select_box_nums = select_box_nums_for_evaluation
+        self.select_box_nums_default = select_box_nums_for_evaluation
+        self.select_box_nums_list = (None if select_box_nums_for_evaluation_list is None
+                                     else list(select_box_nums_for_evaluation_list))
+        self.name_prompt_fusion_text = (None if name_prompt_fusion_text is None
+                                        else list(name_prompt_fusion_text))
+        self.name_prompt_fusion_type = name_prompt_fusion_type
         self.instance_on = instance_on
         self.semantic_on = semantic_on
         self.panoptic_on = panoptic_on
         self.eval_dataset_id = 0 if self.metadata_list else -1
+        self._apply_dataset_protocol()
         self._text_cache: Dict[tuple, np.ndarray] = {}
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    def set_eval_dataset(self, dataset_name: str):
+        """Pick the dataset whose vocabulary, prompt type, box budget and
+        fusion flag apply (deformable_detr.py:524-549): an exact name wins,
+        else the first whose "+"-joined name has a part inside dataset_name;
+        none: -1."""
+        match = -1
+        for i, m in enumerate(self.metadata_list):
+            if m.name == dataset_name:
+                match = i
+                break
+            if match < 0 and any(part and part in dataset_name for part in m.name.split("+")):
+                match = i
+        self.eval_dataset_id = match
+        self._apply_dataset_protocol()
+
+    def _apply_dataset_protocol(self):
+        """The eval dataset's box budget (deformable_detr.py:195-196)."""
+        i = self.eval_dataset_id
+        if self.select_box_nums_list is not None and 0 <= i < len(self.select_box_nums_list):
+            self.select_box_nums = int(self.select_box_nums_list[i])
+        else:
+            self.select_box_nums = self.select_box_nums_default
+
+    def fusion_mode(self, prompt_type: str) -> str:
+        """What the fusion layers see for a prompt type: "text" for phrases
+        and for names of a dataset flagged in name_prompt_fusion_text, else
+        name_prompt_fusion_type's "zero" or "learnable" token, else "none"."""
+        if prompt_type != "name":
+            return "text"
+        i = self.eval_dataset_id
+        if (self.name_prompt_fusion_text is not None and 0 <= i < len(self.name_prompt_fusion_text)
+                and self.name_prompt_fusion_text[i]):
+            return "text"
+        if self.name_prompt_fusion_type in ("zero", "learnable"):
+            return self.name_prompt_fusion_type
+        return "none"
 
     def _encode_vocab(self, text_list: List[str]) -> np.ndarray:
         key = tuple(text_list)
@@ -124,7 +175,9 @@ class APE:
             txt, tvalid = self._text_features(text_list)
             image = torch.as_tensor(inp["image"], device=self.device)[None]
             size = torch.as_tensor(inp["image_size"], device=self.device)
-            out = self.model(image, size[None], txt, tvalid)
+            ptype = self.prompt_type(inp)
+            out = self.model(image, size[None], txt, tvalid, align_on_fused=ptype != "name",
+                             fusion_text_mode=self.fusion_mode(ptype))
             masks = out["pred_masks"][0] if "pred_masks" in out else None
             res = {"image_id": inp.get("image_id", 0)}
             if self.instance_on:
@@ -135,7 +188,7 @@ class APE:
                 scores, labels, raw = panoptic_scores(out["pred_logits"][0], tvalid[0])
                 res["panoptic_raw"] = {"scores": scores, "labels": labels, "raw_scores": raw,
                                        "mask_logits": masks}
-            res.update(text_list=text_list, prompt_type=self.prompt_type(inp))
+            res.update(text_list=text_list, prompt_type=ptype)
             results.append(res)
         return results
 

@@ -3,8 +3,10 @@ MultiheadAttention, FFN and MLP, plus the dtype-following Linear and LayerNorm
 every port module builds on.
 
 Dtype policy, as in the JAX package: parameters are f32, compute runs in the
-dtype of the activations (the model dtype); ``Linear`` and ``LayerNorm`` cast
-their parameters to the input's dtype. Softmax runs in f32.
+dtype of the activations (the model dtype); ``Linear`` casts its parameters
+to the input's dtype, ``LayerNorm`` normalises, scales and shifts in f32 with
+its f32 parameters and rounds once to the input's dtype, as flax's
+``LayerNorm(dtype=...)``. Softmax runs in f32.
 
 Parameter names are the reference's detectron2/detrex names, so that
 ``ape_tpu.checkpoint.convert.convert_torch_state_dict`` maps a port state dict
@@ -31,12 +33,14 @@ class Linear(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """nn.LayerNorm over the last dim, computing in its input's dtype."""
+    """nn.LayerNorm over the last dim, returning its input's dtype. A bf16
+    input is normalised in f32 with the f32 scale and bias, then rounded
+    once, as flax's LayerNorm: scale and bias rounded to bf16 first would
+    put some outputs one bf16 step away."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(
-            x, self.normalized_shape, self.weight.to(x.dtype), self.bias.to(x.dtype), self.eps
-        )
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
 
 
 class _PackedInProj(nn.Module):

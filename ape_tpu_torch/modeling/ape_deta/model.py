@@ -7,7 +7,13 @@
   the encoder memory plus a lateral backbone map, and mask logits as the
   product of each query's ``mask_embed`` with the pixel features.
 
-The outputs are JAX's: the last layer's heads and, in training mode only,
+With a fusing transformer (APE-L_D) the encoder's fusion layers see the
+text, a single zero or learned token, or nothing (``fusion_text_mode``), and
+the class heads align to the fused or the original text
+(``align_on_fused``), as JAX's ``APEDeta`` routes them.
+
+The outputs are JAX's: the last layer's heads, the text the heads aligned
+to (``text_features``) and, in training mode only,
 the earlier layers' as ``aux_outputs`` (with masks only under ``aux_mask``)
 and the first stage's as ``enc_outputs``, which the criterion reads.
 
@@ -36,8 +42,11 @@ PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 
 
 def _group_norm(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
-    """GroupNorm of an NCHW map, computing in the map's dtype."""
-    return F.group_norm(x, gn.num_groups, gn.weight.to(x.dtype), gn.bias.to(x.dtype), gn.eps)
+    """GroupNorm of an NCHW map in the map's dtype: a bf16 map is normalised
+    in f32 with the f32 scale and bias and rounded once, as flax's GroupNorm
+    (and layers.common.LayerNorm)."""
+    return F.group_norm(x.float(), gn.num_groups, gn.weight.float(), gn.bias.float(),
+                        gn.eps).to(x.dtype)
 
 
 class Conv2d(nn.Conv2d):
@@ -137,8 +146,12 @@ class APEDeta(nn.Module):
         mask_in_feature: str = "p2",
         mask_encode_level: int = 0,
         aux_mask: bool = False,
+        name_prompt_fusion_feature: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
+        """name_prompt_fusion_feature: hold the learned fusion token (1, 1,
+        Cl) that ``fusion_text_mode="learnable"`` fuses; JAX creates it on
+        the first call in that mode."""
         super().__init__()
         self.backbone = backbone
         self.neck = neck
@@ -146,6 +159,8 @@ class APEDeta(nn.Module):
         self.embed_dim = embed_dim
         self.in_features = tuple(in_features)
         self.dtype = dtype
+        if name_prompt_fusion_feature:
+            self.name_prompt_fusion_feature = nn.Parameter(torch.randn(1, 1, embed_dim_language))
         num_layers = len(transformer.decoder.layers)
         binary = Linear(embed_dim, 1)
         nn.init.constant_(binary.bias, PRIOR_BIAS)
@@ -167,6 +182,22 @@ class APEDeta(nn.Module):
                                                 for _ in range(num_layers))
             else:
                 self.mask_embed = MLP(embed_dim, embed_dim, embed_dim, 3)
+
+    def _fusion_text(self, mode: str, text_features, text_valid):
+        """(text, valid) that the encoder's fusion layers see under ``mode``."""
+        if mode == "text":
+            return text_features, text_valid
+        if mode == "none":
+            return None, None
+        b = text_features.shape[0]
+        if mode == "learnable":
+            tok = self.name_prompt_fusion_feature
+        elif mode == "zero":
+            tok = text_features.new_zeros(1, 1, text_features.shape[-1])
+        else:
+            raise ValueError(f"fusion_text_mode {mode!r}: one of text, zero, learnable, none")
+        return (tok.expand(b, 1, -1).to(self.dtype),
+                torch.ones(b, 1, dtype=torch.bool, device=text_valid.device))
 
     def pixel_decoder(self, memory: torch.Tensor, level_shapes, backbone_feats) -> torch.Tensor:
         """Mask features (B, C, Hm, Wm): encoder memory level
@@ -197,7 +228,15 @@ class APEDeta(nn.Module):
         image_sizes: torch.Tensor,  # (B, 2) valid (h, w) pixels
         text_features: torch.Tensor,  # (B, T, Cl)
         text_valid: torch.Tensor,  # (B, T) bool
+        align_on_fused: bool = True,
+        fusion_text_mode: str = "text",
     ) -> Dict[str, torch.Tensor]:
+        """fusion_text_mode: what the fusion layers see: ``"text"`` the text
+        features, ``"zero"`` one zero token, ``"learnable"`` the learned
+        token (built with ``name_prompt_fusion_feature``), ``"none"`` nothing
+        (no fusion). align_on_fused: the class heads align to the fused text,
+        else to the original; only ``"text"`` has fused text to align to. A
+        model without fusion layers gives the same outputs under both."""
         backbone_feats = self.backbone(images.to(self.dtype))
         feats = self.neck(backbone_feats)
         multi_level_feats = [feats[f] for f in self.in_features]
@@ -205,9 +244,12 @@ class APEDeta(nn.Module):
         masks = level_valid_masks(image_sizes, tuple(images.shape[1:3]), level_shapes)
         pos = [position_embedding_sine(m, num_pos_feats=self.embed_dim // 2).to(self.dtype)
                for m in masks]
-        tr = self.transformer(multi_level_feats, masks, pos, enc_class_head=self.class_embed[-1])
+        fusion_text, fusion_valid = self._fusion_text(fusion_text_mode, text_features, text_valid)
+        tr = self.transformer(multi_level_feats, masks, pos, enc_class_head=self.class_embed[-1],
+                              text=fusion_text, text_valid=fusion_valid)
 
-        text = text_features.to(self.dtype)
+        fused = align_on_fused and fusion_text_mode == "text"
+        text = (tr["text"] if fused else text_features).to(self.dtype)
         fill = torch.full((), -1e4, dtype=text.dtype, device=text.device)
         # inference reads the last decoder layer only; the earlier class heads
         # serve the auxiliary losses of training
@@ -221,6 +263,7 @@ class APEDeta(nn.Module):
             "pred_boxes": coords[-1],  # (B, K, 4) cxcywh in [0, 1]
             "first_stage_indices": tr["first_stage_indices"],  # (B, K)
             "memory": tr["memory"],  # (B, S, C)
+            "text_features": text,  # (B, T, Cl) the text the heads aligned to
         }
         aux = [{"pred_logits": lo, "pred_boxes": bx} for lo, bx in zip(logits[:-1], coords[:-1])]
         if self.mask_on:
@@ -241,6 +284,5 @@ class APEDeta(nn.Module):
                     "anchors": tr["proposals"],  # (B, S, 4)
                     "valid": tr["proposal_valid"],  # (B, S)
                 },
-                "text_features": text,  # (B, T, Cl)
             })
         return out

@@ -1,7 +1,9 @@
 """DETA-style two-stage deformable transformer (counterpart of
 ``ape_tpu/modeling/ape_deta/transformer.py``):
 
-  * encoder: num_layers x [window MSDA self-attention -> norm -> FFN -> norm];
+  * encoder: num_layers x [window MSDA self-attention -> norm -> FFN -> norm],
+    under ``vl_fusion`` each layer after a bi-directional vision-language
+    fusion layer (``layers/fuse.py``) when text is given;
   * two-stage proposals (``gen_output_proposals``) and the DETA first-stage
     select (per-level top-k -> per-level NMS -> level-balanced top-k), with the
     scores and boxes of the select in f32;
@@ -29,6 +31,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ape_tpu_torch.layers.common import FFN, MLP, LayerNorm, Linear, MultiheadAttention
+from ape_tpu_torch.layers.fuse import VisionLanguageFusion
 from ape_tpu_torch.layers.msda_module import MultiScaleDeformableAttention
 from ape_tpu_torch.ops.box_ops import box_cxcywh_to_xyxy
 from ape_tpu_torch.ops.misc import inverse_sigmoid
@@ -224,9 +227,14 @@ class EncoderLayer(nn.Module):
 
 
 class DeformableTransformerEncoder(nn.Module):
+    """Encoder layers, each after a fusion layer ``vl_layers.{i}`` under
+    ``vl_fusion`` (the reference's defaults: embed 2048, 8 heads, layer
+    scale 1e-4; APE-L_D builds it with 1/6)."""
+
     def __init__(self, embed_dim=256, num_heads=8, feedforward_dim=2048, num_layers=6,
                  num_feature_levels=5, num_points=4, window_radius=4,
-                 use_act_checkpoint=False):
+                 use_act_checkpoint=False, vl_fusion=False, vl_embed_dim=2048, vl_num_heads=8,
+                 vl_init_values=1e-4, embed_dim_language=1024):
         super().__init__()
         self.use_act_checkpoint = use_act_checkpoint
         self.layers = nn.ModuleList(
@@ -234,12 +242,21 @@ class DeformableTransformerEncoder(nn.Module):
                          num_points, window_radius)
             for _ in range(num_layers)
         )
+        self.vl_layers = nn.ModuleList(
+            VisionLanguageFusion(embed_dim, embed_dim_language, vl_embed_dim, vl_num_heads,
+                                 vl_init_values)
+            for _ in range(num_layers)) if vl_fusion else None
 
-    def forward(self, x, pos, valid_mask, spatial_shapes, reference_points, grid_corrections):
-        for layer in self.layers:
+    def forward(self, x, pos, valid_mask, spatial_shapes, reference_points, grid_corrections,
+                text=None, text_valid=None):
+        """Returns (memory, text): the text fused by every fusion layer, or
+        as given when there is no fusion or no text."""
+        for i, layer in enumerate(self.layers):
+            if self.vl_layers is not None and text is not None:
+                x, text = self.vl_layers[i](x, text, text_valid)
             x = _run_layer(layer, self.use_act_checkpoint, x, pos, valid_mask, spatial_shapes,
                            reference_points, grid_corrections)
-        return x
+        return x, text
 
 
 class DecoderLayer(nn.Module):
@@ -323,9 +340,11 @@ class DeformableDetrTransformer(nn.Module):
         self.pix_trans_norm = LayerNorm(c, eps=1e-5)
 
     def forward(self, multi_level_feats, multi_level_masks, multi_level_pos,
-                enc_class_head) -> Dict[str, torch.Tensor]:
+                enc_class_head, text=None, text_valid=None) -> Dict[str, torch.Tensor]:
         """multi_level_feats/pos: per level (B, H, W, C); masks (B, H, W) True = valid.
-        enc_class_head: (B, S, C) -> (B, S, 1) binary objectness."""
+        enc_class_head: (B, S, C) -> (B, S, 1) binary objectness. text (B, T,
+        Cl) and text_valid (B, T), or None: what the encoder's fusion layers
+        see; ``"text"`` in the result is the text they return."""
         b, _, _, c = multi_level_feats[0].shape
         spatial_shapes = tuple((int(f.shape[1]), int(f.shape[2])) for f in multi_level_feats)
         feat = torch.cat([f.reshape(b, -1, c) for f in multi_level_feats], 1)
@@ -336,7 +355,8 @@ class DeformableDetrTransformer(nn.Module):
         enc_refs = encoder_reference_points(spatial_shapes, valid_ratios)
         grid_corr = encoder_grid_corrections(spatial_shapes, valid_ratios)
 
-        memory = self.encoder(feat, pos, valid, spatial_shapes, enc_refs, grid_corr)
+        memory, text = self.encoder(feat, pos, valid, spatial_shapes, enc_refs, grid_corr,
+                                    text, text_valid)
 
         out_memory, proposals_unact, proposal_valid = gen_output_proposals(
             memory, valid, spatial_shapes, valid_ratios)
@@ -370,6 +390,7 @@ class DeformableDetrTransformer(nn.Module):
             "output_coords": output_coords,  # (layers, B, K, 4) sigmoid space
             "first_stage_indices": sel,  # (B, K)
             "memory": memory,  # (B, S, C)
+            "text": text,  # (B, T, Cl) after the fusion layers, or as given, or None
         }
         if self.training:  # the first stage's outputs, for the losses
             out.update({

@@ -1,15 +1,25 @@
 """EVA-02 ViT backbone + SimpleFeaturePyramid (counterpart of
-``ape_tpu/modeling/backbone/eva_vit.py``), with the APE-Ti flags only: packed
-qkv with q/v-only bias, 2-D RoPE, windowed and global blocks, packed SwiGLU.
+``ape_tpu/modeling/backbone/eva_vit.py``): q/v-only bias, 2-D RoPE, windowed
+and global blocks, and a SwiGLU MLP. APE-Ti's EVA-02 packs qkv and SwiGLU's
+w12; APE-L_D's EVA-02-CLIP (``subln``, ``inner_attn_ln``, ``swiglu_subln``)
+projects q, k and v apart, normalizes the attention output before ``proj``,
+and normalizes SwiGLU's hidden layer (``ffn_ln``) before ``w3``. EVA-01's
+relative positions and GELU MLP and ViT-E's post-norm are not ported.
 
 Tokens stay channels-last (B, H, W, C) as in the JAX package; the pyramid's
 convolutions run channels-first inside. Global blocks (window_size 0) run
 ``ops.attention.global_attention`` (the CUDA flash kernel on the card);
-windowed blocks (196 tokens) stay plain matmul + softmax, as JAX leaves them
-to an XLA einsum.
+windowed blocks (196 tokens for Ti, 1024 for L_D) stay plain matmul +
+softmax, as JAX leaves every block under 2048 tokens to an XLA einsum.
 
-Parameter names are the reference's (vit_eva02.py): ``net.blocks.{i}.attn.qkv``,
-``net.patch_embed.proj``, ``simfp_{stage}.{index}``, ...
+Stochastic depth is not ported: a block with a drop-path rate above 0 is the
+identity in ``eval()`` mode, as JAX's ``deterministic=True``, and raises in
+``train()`` mode.
+
+Parameter names are the reference's (vit_eva02.py, vit_eva_clip.py):
+``net.blocks.{i}.attn.qkv`` or ``.attn.{q,k,v}_proj``, ``.attn.inner_attn_ln``,
+``.mlp.w12`` or ``.mlp.{w1,w2}``, ``.mlp.ffn_ln``, ``net.patch_embed.proj``,
+``simfp_{stage}.{index}``, ...
 """
 
 from __future__ import annotations
@@ -34,16 +44,26 @@ from ape_tpu_torch.ops.tables import device_table
 
 
 class Attention(nn.Module):
-    """EVA attention: packed qkv without bias, q/v-only bias, 2-D RoPE on q and k."""
+    """EVA attention: q, k and v projected without bias (packed as ``qkv``, or
+    apart under ``subln``), q/v-only bias, 2-D RoPE on q and k, and under
+    ``inner_attn_ln`` a LayerNorm (eps 1e-6) on the output before ``proj``."""
 
-    def __init__(self, dim: int, num_heads: int, global_attn: bool):
+    def __init__(self, dim: int, num_heads: int, global_attn: bool, subln: bool = False,
+                 inner_attn_ln: bool = False):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
         self.global_attn = global_attn
-        self.qkv = Linear(dim, 3 * dim, bias=False)
+        self.subln = subln
+        if subln:
+            self.q_proj = Linear(dim, dim, bias=False)
+            self.k_proj = Linear(dim, dim, bias=False)
+            self.v_proj = Linear(dim, dim, bias=False)
+        else:
+            self.qkv = Linear(dim, 3 * dim, bias=False)
         self.q_bias = nn.Parameter(torch.zeros(dim))
         self.v_bias = nn.Parameter(torch.zeros(dim))
+        self.inner_attn_ln = LayerNorm(dim, eps=1e-6) if inner_attn_ln else None
         self.proj = Linear(dim, dim)
 
     def forward(self, x, rope_cos, rope_sin):
@@ -51,7 +71,11 @@ class Attention(nn.Module):
         n = h * w
         head_dim = self.dim // self.num_heads
         scale = head_dim**-0.5
-        q, k, v = self.qkv(x.reshape(b, n, c)).chunk(3, dim=-1)
+        x = x.reshape(b, n, c)
+        if self.subln:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        else:
+            q, k, v = self.qkv(x).chunk(3, dim=-1)
         q = q + self.q_bias.to(q.dtype)
         v = v + self.v_bias.to(v.dtype)
         q, k, v = (t.reshape(b, n, self.num_heads, head_dim).transpose(1, 2) for t in (q, k, v))
@@ -64,32 +88,55 @@ class Attention(nn.Module):
             attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
             out = torch.matmul(attn, v)
         out = out.transpose(1, 2).reshape(b, n, self.dim)
+        if self.inner_attn_ln is not None:
+            out = self.inner_attn_ln(out)
         return self.proj(out).reshape(b, h, w, self.dim)
 
 
 class SwiGLU(nn.Module):
-    """EVA-02's packed SwiGLU (xops_SwiGLU: w12 packed, then w3)."""
+    """SwiGLU: EVA-02's packed ``w12`` (xops_SwiGLU), or EVA-CLIP's ``w1`` and
+    ``w2`` apart, with ``subln`` a LayerNorm ``ffn_ln`` (eps 1e-6) on the
+    hidden layer; then ``w3``."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, packed: bool = True, subln: bool = False):
         super().__init__()
-        self.w12 = Linear(dim, 2 * hidden_dim)
+        self.packed = packed
+        if packed:
+            self.w12 = Linear(dim, 2 * hidden_dim)
+        else:
+            self.w1 = Linear(dim, hidden_dim)
+            self.w2 = Linear(dim, hidden_dim)
+        self.ffn_ln = LayerNorm(hidden_dim, eps=1e-6) if subln else None
         self.w3 = Linear(hidden_dim, dim)
 
     def forward(self, x):
-        x1, x2 = self.w12(x).chunk(2, dim=-1)
-        return self.w3(F.silu(x1) * x2)
+        if self.packed:
+            x1, x2 = self.w12(x).chunk(2, dim=-1)
+        else:
+            x1, x2 = self.w1(x), self.w2(x)
+        hidden = F.silu(x1) * x2
+        if self.ffn_ln is not None:
+            hidden = self.ffn_ln(hidden)
+        return self.w3(hidden)
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_hidden_dim: int, window_size: int = 0):
+    def __init__(self, dim: int, num_heads: int, mlp_hidden_dim: int, window_size: int = 0,
+                 subln: bool = False, inner_attn_ln: bool = False, packed_swiglu: bool = True,
+                 swiglu_subln: bool = False, drop_path: float = 0.0):
         super().__init__()
         self.window_size = window_size
+        self.drop_path = drop_path
         self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, global_attn=window_size == 0)
+        self.attn = Attention(dim, num_heads, window_size == 0, subln, inner_attn_ln)
         self.norm2 = LayerNorm(dim, eps=1e-6)
-        self.mlp = SwiGLU(dim, mlp_hidden_dim)
+        self.mlp = SwiGLU(dim, mlp_hidden_dim, packed_swiglu, swiglu_subln)
 
     def forward(self, x, rope_cos, rope_sin):
+        if self.training and self.drop_path > 0:
+            raise NotImplementedError(
+                f"drop path (rate {self.drop_path}) in training is not ported; eval() runs it as "
+                "the identity")
         y = self.norm1(x)
         if self.window_size > 0:
             h, w = y.shape[1], y.shape[2]
@@ -142,13 +189,17 @@ class EVAViT(nn.Module):
         pt_hw_seq_len: int = 16,
         packed_swiglu: bool = True,
         subln: bool = False,
+        inner_attn_ln: bool = False,
+        swiglu_subln: bool = False,
+        drop_path_rate: float = 0.0,
         use_rel_pos: bool = False,
         postnorm: bool = False,
         mlp_type: str = "swiglu",
     ):
         super().__init__()
-        if subln or use_rel_pos or postnorm or mlp_type != "swiglu" or not packed_swiglu:
-            raise NotImplementedError("the port's EVAViT has the APE-Ti flags only")
+        if use_rel_pos or postnorm or mlp_type != "swiglu":
+            raise NotImplementedError("the port's EVAViT has EVA-02's and EVA-02-CLIP's flags only: "
+                                      "no relative positions, post-norm or GELU MLP")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.window_size = window_size
@@ -165,6 +216,11 @@ class EVAViT(nn.Module):
                 num_heads,
                 int(embed_dim * mlp_ratio),
                 window_size if i in self.window_block_indexes else 0,
+                subln=subln,
+                inner_attn_ln=inner_attn_ln,
+                packed_swiglu=packed_swiglu,
+                swiglu_subln=swiglu_subln,
+                drop_path=drop_path_rate * i / max(depth - 1, 1),
             )
             for i in range(depth)
         )

@@ -1,12 +1,40 @@
 """The error bounds the kernels are held to on the card, by dtype name, in
-one place for ``chip_smoke.py``, the backward race (``tools/msda_bwd_race.py``)
-and the tests."""
+one place for ``chip_smoke.py``, the backward race (``tools/msda_bwd_race.py``),
+the attention probe (``tools/backbone_fix_probe.py``) and the tests."""
+
+import math
 
 # Forward kernels, |kernel - plain| on the same inputs, by dtype and kind.
-# f32: both accumulate in f32 in another order. bf16: the output is rounded
-# to bf16 (8 bits) at magnitudes up to ~4, so one ulp.
+# f32: both accumulate in f32 in another order. bf16 MSDA: the output is
+# rounded to bf16 (8 bits) at magnitudes up to ~4, so one ulp. bf16
+# attention: see ATTN_BF16_STEPS (``fwd_bound``).
 FWD_BOUNDS = {"float32": {"msda": 1e-5, "attn": 1e-4},
-              "bfloat16": {"msda": 3.2e-2, "attn": 3.2e-2}}
+              "bfloat16": {"msda": 3.2e-2}}
+# bf16 attention (K5, K11's tiles) against the plain attention in bf16: n
+# bf16 steps at the plain output's largest magnitude. An output is a
+# softmax-weighted mean of the values, so its size follows the draw (max
+# |O| about 0.2 on unit-normal q, k, v over 4096 keys), and a fixed bound
+# says little. Both sides round their output to bf16; the plain version
+# also rounds its logits and probabilities, the kernel only P: K5 reads 2-3
+# steps from it on chip_smoke.py's draws (0.5 from the plain version in
+# f32), a kernel with its scale 2 % off 17-19, one that reads a key tile in
+# place of another 70-91 (PERF.md).
+ATTN_BF16_STEPS = 4
+
+
+def bf16_steps(x, n: int = ATTN_BF16_STEPS) -> float:
+    """n bf16 steps (8 significant bits) at the largest magnitude of the
+    tensor x."""
+    _, e = math.frexp(float(x.float().abs().max()))  # the largest is in [2^(e-1), 2^e)
+    return n * math.ldexp(1.0, e - 8)
+
+
+def fwd_bound(kind: str, dname: str, plain) -> float:
+    """The bound of a forward kernel of ``kind`` ("msda", "attn") in dtype
+    ``dname`` against its plain version's output ``plain``."""
+    if kind == "attn" and dname == "bfloat16":
+        return bf16_steps(plain)
+    return FWD_BOUNDS[dname][kind]
 # K9's D = 32 body in out mode "store" (f32 rows) on bf16 inputs against the
 # f32 plain version on the same inputs upcast, over its largest output: W's
 # two bf16 halves keep about 2^-16 of each weight, V and the products are

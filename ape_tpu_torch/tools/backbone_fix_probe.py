@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import re
 
 import numpy as np
@@ -45,6 +44,7 @@ from ape_tpu_torch.ops.attention import (
     global_attention,
     global_attention_plain,
 )
+from ape_tpu_torch.ops.bounds import bf16_steps
 from ape_tpu_torch.tools.msda_race import HBM_BYTES_PER_S, card_line, cuda_ms
 from ape_tpu_torch.tools.pair_probe import device_or_card
 
@@ -65,15 +65,6 @@ def _bound(nbytes: float, flops: float):
 def einsum_bf16_softmax(q, k, v, scale: float):
     """The TPU probe's ``einsum_bf16sm``: the softmax in the inputs' dtype."""
     return torch.matmul(torch.softmax(torch.matmul(q * scale, k.transpose(-1, -2)), -1), v)
-
-
-def bf16_steps(x: torch.Tensor, n: int = 4) -> float:
-    """n bf16 steps at the largest magnitude of x: |kernel - plain| in bf16,
-    where each side rounds its output to bf16 and the plain version also
-    its probabilities (K5, every tile and SDPA all land two steps from it at
-    the probe's draws)."""
-    _, e = math.frexp(float(x.float().abs().max()))  # the largest is in [2^(e-1), 2^e)
-    return n * math.ldexp(1.0, e - 8)
 
 
 def _tile_build_info():

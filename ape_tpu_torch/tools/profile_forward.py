@@ -1,11 +1,19 @@
-"""Profile APE-Ti's bf16 forward on one CUDA card, from the root of a
-checkout: the protocol forward (``chip_smoke.py``'s slice phase: 1024^2,
-batch 1, 900 queries, 80 texts, the 3-scale pyramid, no masks) and the full
-serve forward (``build_ape_ti()``'s defaults: the masked model on the 4-scale
-pyramid), each with N(0, 0.02) weights and the ring-init offsets re-armed.
+"""Profile APE's bf16 forward on one CUDA card, from the root of a
+checkout, in four cells, each with N(0, 0.02) weights and the ring-init
+offsets re-armed, 1024^2, batch 1, 900 queries:
 
-    python3 -m ape_tpu_torch.tools.profile_forward [--models protocol full_serve]
-                                                   [--iters 10]
+* ``protocol``: APE-Ti's protocol forward (``chip_smoke.py``'s slice phase:
+  80 texts, the 3-scale pyramid, no masks);
+* ``full_serve``: ``build_ape_ti()``'s defaults (the masked model on the
+  4-scale pyramid), 80 texts;
+* ``l_d-protocol``: APE-L_D's protocol forward (``chip_smoke.py``'s
+  l_d_slice phase, bench.py's ``BENCH_MODEL=l_d``: 1203 texts, the 3-scale
+  pyramid, no masks);
+* ``l_d-full``: ``build_ape_l_d()``'s defaults (the masked model on the
+  4-scale pyramid), 1203 texts.
+
+    python3 -m ape_tpu_torch.tools.profile_forward [--models protocol full_serve
+                                                    l_d-protocol l_d-full] [--iters 10]
 
 The counterpart of ``profile_train.py`` for the forward, and of the JAX
 repository's ``experiments/attrib.py``. For each model, after two warm-up
@@ -17,8 +25,9 @@ forwards, one JSON line each:
   ``pre_encoder`` (level masks, position embeddings, flattening), encoder,
   select (the proposals and the DETA first-stage select, NMS included, up to
   the decoder), decoder, heads (the class heads), and for the masked model
-  the mask head (pixel decoder and mask product); the host wall time of each
-  forward; the median and spread of each;
+  the mask head (pixel decoder and mask product); for L_D also ``fusion``,
+  the sum of the encoder's 6 fusion layers' spans, a part of ``encoder``;
+  the host wall time of each forward; the median and spread of each;
 * ``forward_profile``: one more forward under ``torch.profiler``: its wall
   time, device busy time (the union of kernel intervals) and share of the
   wall, kernel count, launch calls, the top kernels by summed device time,
@@ -40,21 +49,23 @@ import time
 import torch
 
 import chip_smoke as cs
-from ape_tpu_torch.modeling.build import build_ape_ti
+from ape_tpu_torch.modeling.build import build_ape_l_d, build_ape_ti
 from ape_tpu_torch.tools.profile_train import profile_call
 
-MODELS = ("protocol", "full_serve")
+MODELS = ("protocol", "full_serve", "l_d-protocol", "l_d-full")
 
 
 def build(name: str, dev):
-    """The model of a cell, bf16, eval, with chip_smoke's weights."""
-    if name == "protocol":
-        model = build_ape_ti(num_queries=cs.QUERIES, mask_on=False, window_radius=cs.RADIUS,
-                             scale_factors=(2.0, 1.0, 0.5), dtype=torch.bfloat16, device=dev)
+    """The model of a cell, bf16, eval, with chip_smoke's weights, and the
+    cell's number of texts."""
+    kw = dict(num_queries=cs.QUERIES, window_radius=cs.RADIUS, dtype=torch.bfloat16, device=dev)
+    if name.endswith("protocol"):
+        kw.update(mask_on=False, scale_factors=(2.0, 1.0, 0.5))
+    if name.startswith("l_d"):
+        model, texts = build_ape_l_d(use_act_checkpoint=False, drop_path_rate=0.0, **kw), cs.L_D_TEXT
     else:
-        model = build_ape_ti(num_queries=cs.QUERIES, window_radius=cs.RADIUS,
-                             dtype=torch.bfloat16, device=dev)
-    return cs.init_weights(model, cs.SEED).eval()
+        model, texts = build_ape_ti(**kw), cs.NUM_TEXT
+    return cs.init_weights(model, cs.SEED).eval(), texts
 
 
 def _event():
@@ -71,6 +82,8 @@ def stage_hooks(model, marks: dict):
              "encoder": (tr.encoder, tr.encoder), "decoder": (tr.decoder, tr.decoder)}
     if model.mask_on:
         spans["pixel_decoder"] = (model.lateral_conv, model.mask_conv)
+    for i, layer in enumerate(tr.encoder.vl_layers or ()):
+        spans[f"fusion{i}."] = (layer, layer)
     hooks = [m.register_forward_pre_hook(lambda *_, n=n: marks.__setitem__(n + "0", _event()))
              for n, (m, _) in spans.items()]
     hooks += [m.register_forward_hook(lambda *_, n=n: marks.__setitem__(n + "1", _event()))
@@ -80,9 +93,13 @@ def stage_hooks(model, marks: dict):
 
 def stages(marks: dict, mask_on: bool) -> dict:
     """Stage times in ms from one forward's events: the module spans and the
-    gaps between them, which hold the rest of the forward."""
+    gaps between them, which hold the rest of the forward; ``fusion``, where
+    the encoder fuses, is the sum of its fusion layers' spans, inside
+    ``encoder``."""
     def ms(a, b):
         return marks[a].elapsed_time(marks[b])
+
+    fusion = [ms(k, k[:-1] + "1") for k in marks if k.startswith("fusion") and k.endswith(".0")]
 
     out = {"backbone": ms("backbone0", "backbone1"), "neck": ms("neck0", "neck1"),
            "pre_encoder": ms("neck1", "encoder0"), "encoder": ms("encoder0", "encoder1"),
@@ -92,6 +109,8 @@ def stages(marks: dict, mask_on: bool) -> dict:
         out["mask_head"] = ms("pixel_decoder0", "end")
     else:
         out["heads"] = ms("decoder1", "end")
+    if fusion:
+        out["fusion"] = sum(fusion)
     out["forward"] = ms("start", "end")
     return out
 
@@ -101,8 +120,8 @@ def summary(values) -> dict:
 
 
 def profile_model(name: str, dev, iters: int, card: str):
-    model = build(name, dev)
-    inputs = tuple(t.to(dev) for t in cs._inputs())
+    model, texts = build(name, dev)
+    inputs = tuple(t.to(dev) for t in cs._inputs(texts))
     with torch.no_grad():
         for _ in range(2):
             model(*inputs)
@@ -121,7 +140,8 @@ def profile_model(name: str, dev, iters: int, card: str):
                 h.remove()
             runs.append(stages(marks, model.mask_on))
         split = {k: summary([r[k] for r in runs]) for k in runs[0]}
-        print(json.dumps({"forward_stages": {"model": name, "iters": iters, "ms": split,
+        print(json.dumps({"forward_stages": {"model": name, "texts": texts, "iters": iters,
+                                             "ms": split,
                                              "wall_ms": summary(walls), "card": card}}),
               flush=True)
         prof, ours = profile_call(lambda: model(*inputs), top_n=30)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (``ape_tpu_torch``) of APE-Ti on one NVIDIA
-card, from the root of a checkout: protocol inference, detection training,
-then the full masked model's inference and training.
+"""Drive the PyTorch/CUDA port (``ape_tpu_torch``) of APE on one NVIDIA card,
+from the root of a checkout: APE-Ti's protocol inference, detection
+training, the full masked model's inference and training, then APE-L_D's
+serving (the flagship, whose encoder fuses vision and language).
 
     python3 chip_smoke.py
 
@@ -31,7 +32,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    every shape set the main paths give it (the protocol pyramid at batch 1;
    the 4-scale pyramid at batch 1 with 900 decoder queries and at batch 2
    with 300), in f32 (TF32 off) and bf16, with times, and attention's beside
-   ``F.scaled_dot_product_attention``; K1's D = 32 body against its general
+   ``F.scaled_dot_product_attention``, in bf16 within four bf16 steps of the
+   plain output's largest magnitude, a bound that a K5 with its scale 2 %
+   off or with one key tile read in place of another must fail
+   (``attn_faults``); K1's D = 32 body against its general
    body bit for bit, and its window entry (the clip inside) against K1 on
    ``window_locations`` bit for bit, each timed, the window entry also
    against the ``window_locations`` + K1 it replaces; then the encoder's
@@ -53,6 +57,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the split bound, their general bodies within bounds and timed beside;
    K2 at head width 32 (the encoder's and the decoder's case) and, for its
    general body, 64 (the decoder's);
+   l_d_kernels: the attention forward (K5) at APE-L_D's global blocks'
+   shape, (1, 16, 4096, 64), in f32 and bf16 against the plain version
+   within the attention bounds (bf16: with ``attn_faults``), timed beside
+   it and SDPA;
 5. slice: ``build_ape_ti`` at the reference latency protocol (1024^2, bf16,
    900 queries, 80 text features of width 1024, N(0, 0.02) weights with the
    ring-init offsets re-armed): launch counts per forward, host syncs (each
@@ -86,7 +94,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 12. full train f32: phase 9 for the masked model on the default pyramid,
     then the same step once more with the split backward, held against the
     merged one;
-13. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
+13. L_D: the port's text tower (``EVA02CLIP``, random weights, the
+    HashTokenizer) on the card, timed on 1203 prompts; ``l_d_slice``:
+    ``build_ape_l_d`` at the reference latency protocol (1024^2, bf16, 900
+    queries, the 1203 LVIS text features of bench.py's ``BENCH_MODEL=l_d``
+    passed in, all valid): launches per forward exactly ``{"msda_fwd": 6,
+    "msda_fwd_window": 6, "attn_fwd": 8}``, host syncs (each the NMS
+    fixpoint's loop test), finite (1, 900, 1203) logits, images/s, peak
+    memory; ``l_d_serve``: ``build_ape_l_d()``'s defaults (the masked model,
+    4-scale) behind ``APE`` and ``DefaultPredictor`` with the text tower:
+    a name prompt (fused against the zero token) and two phrase prompts
+    (aligned to the fused text), finite ``mask_logits`` and ``sem_seg``;
+    ``l_d_f32``: L_D at full width with the depth cut (6 backbone blocks, 2
+    of them global, 2 + 2 layers) at 512^2 in f32 with fan-in weights (the
+    fusion's layer scales at 1/6), its encoder memory and fused text
+    within 1e-3 of the plain versions on the CPU, then its bf16
+    forward against its f32 one (the gap reported);
+14. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
     form at both pyramids and both offset draws, its per-pair suites, and
     the ``pair`` and ``rows`` ops by device time under each body, each query
     level's launches apart, and K8's D = 32 body by its parts (device time
@@ -94,7 +118,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     then ``ape_tpu_torch.tools.msda_bwd_race``, the backward forms (K2, K3 +
     K4, autograd of the plain version) at the same pyramids and draws, each
     within its bound of the plain version or of K2;
-14. probes: ``ape_tpu_torch.tools.pair_probe`` (K10, every variant on the
+15. probes: ``ape_tpu_torch.tools.pair_probe`` (K10, every variant on the
     four pairs, bf16 and f32 value, each within 1e-5 of its plain version,
     bf16fma within 6.4e-2 of base, base against K1 bit for bit, K1's time
     on each pair beside) and
@@ -106,11 +130,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 Then the kernels line (each kernel's launches over every path: ``launches``
 over all of them, ``launches_main`` over the serving and training phases
-alone, 5-11, ``launches_default`` over those of them that run the default
-flags: slice, serve, train, full serve and full train with the merged
-backward; error, time, plain and library time, and bound; for K1, K3, K4,
-K6, K7, K8 and K9, whose D = 32 body runs there, the general body's time as
-``general_ms``; for K6 and K7 also the op's device time, ``device_ms``)
+alone, 5-13, ``launches_default`` over those of them that run the default
+flags: slice, serve, train, full serve, full train with the merged backward,
+and L_D's slice and serve; error, time, plain and library time, and bound;
+for K1, K3, K4, K6, K7, K8 and K9, whose D = 32 body runs there, the general
+body's time as ``general_ms``; for K6 and K7 also the op's device time,
+``device_ms``; for K5 its bf16 record at L_D's 16 heads as ``l_d``)
 and, last,
 {"ok": true, "device": {...}}. The script needs the repository around it and
 a CUDA card; it imports no JAX.
@@ -282,6 +307,27 @@ def attn_bound(kernel: str, shape, dname: str):
     nbytes, mults = {"attn_fwd": (4 * t, 4), "attn_bwd_dkv": (6 * t + 2 * f32, 8),
                      "attn_bwd_dq": (6 * t + 2 * f32, 6), "attn_bwd": (8 * t + f32, 14)}[kernel]
     return bound(nbytes, mults * b * h * n * n * dh, PEAK_FLOPS[dname])
+
+
+def attn_faults(q, k, v, scale: float, plain, bound: float) -> dict:
+    """The power of the bf16 attention bound: K5 made wrong on purpose, with
+    its scale 2 % off and with key tile 5 (keys 320-383) read in place of
+    tile 40 in k and v, against the same plain output; each must land above
+    ``bound``. Returns {fault: max |faulty kernel - plain|}."""
+    from ape_tpu_torch.ops.attention import attn_fwd_cuda
+
+    def tile_swapped(t):
+        t = t.clone()
+        t[..., 320:384, :] = t[..., 2560:2624, :]
+        return t
+
+    errs = {name: float((out.float() - plain.float()).abs().max()) for name, out in (
+        ("scale_2pc", attn_fwd_cuda(q, k, v, scale * 1.02)),
+        ("tile_swapped", attn_fwd_cuda(q, tile_swapped(k), tile_swapped(v), scale)))}
+    caught = {name: err > bound for name, err in errs.items()}
+    if not all(caught.values()):
+        fail(f"attention bound {bound} at {tuple(q.shape)} passes a faulty kernel: {errs}")
+    return errs
 
 
 def with_form(base: dict, form: str, shapes, esize: int, passes: int = 1) -> dict:
@@ -765,7 +811,7 @@ def kernels_phase(dev):
     import torch.nn.functional as F
 
     from ape_tpu_torch.ops.attention import attn_fwd_cuda, global_attention_plain
-    from ape_tpu_torch.ops.bounds import FWD_BOUNDS as BOUNDS
+    from ape_tpu_torch.ops.bounds import fwd_bound
     from ape_tpu_torch.ops.msda import ms_deform_attn
     from ape_tpu_torch.ops.msda_dispatch import (
         msda_fwd_cuda,
@@ -810,8 +856,11 @@ def kernels_phase(dev):
                     lambda: F.scaled_dot_product_attention(q, k, v, scale=64**-0.5), "attn",
                     {"q": list(q.shape)}, attn_bound("attn_fwd", tuple(q.shape), dname))
             for name, (kernel, plain, library, kind, shape, (bound_ms, bound_by)) in cases.items():
-                err = float((kernel().float() - plain().float()).abs().max())
-                bound = BOUNDS[dname][kind]
+                want = plain()
+                err = float((kernel().float() - want.float()).abs().max())
+                bound = fwd_bound(kind, dname, want)
+                if kind == "attn" and dname == "bfloat16":
+                    extra[name] = {"faulty_err": attn_faults(q, k, v, 64**-0.5, want, bound)}
                 rec = dict(phase="kernel", name=name, dtype=dname, shape=shape, max_abs_err=err,
                            bound=bound, ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
                            library_ms=cuda_ms(library) if library else None, bound_ms=bound_ms,
@@ -1214,7 +1263,9 @@ def init_weights(model, seed: int, fan_in: bool = False):
     """Seeded weights, then every sampling_offsets bias re-armed with the ring
     init (realistic offsets). Default: N(0, 0.02) for every parameter, the
     bench protocol. fan_in: weight matrices N(0, 1 / fan-in), norm scales 1,
-    the rest N(0, 0.02), so activations and first-stage scores spread out."""
+    the fusion's layer scales at their init (1/6, as JAX's build), the rest
+    N(0, 0.02), so activations and first-stage scores spread out and the
+    fusion moves the text and the memory as much as a fresh L_D does."""
     import torch
 
     from ape_tpu_torch.layers.msda_module import MultiScaleDeformableAttention, _offset_bias_init
@@ -1228,6 +1279,8 @@ def init_weights(model, seed: int, fan_in: bool = False):
             if fan_in and id(p) in norms:
                 p.fill_(1.0)
                 continue
+            if fan_in and name.endswith(("gamma_v", "gamma_l")):
+                continue
             if fan_in and p.dim() >= 2 and not name.endswith("pos_embed"):
                 std = p[0].numel() ** -0.5
             p.copy_(std * torch.randn(p.shape, generator=g))
@@ -1238,12 +1291,14 @@ def init_weights(model, seed: int, fan_in: bool = False):
     return model
 
 
-def _inputs():
+def _inputs(num_text: int = NUM_TEXT, img: int = IMG):
+    """Seeded inputs of one forward: an image, its size, num_text text
+    features of width 1024, all valid."""
     import torch
 
     g = torch.Generator().manual_seed(SEED + 1)
-    return (torch.randn(1, IMG, IMG, 3, generator=g), torch.tensor([[IMG, IMG]]),
-            torch.randn(1, NUM_TEXT, 1024, generator=g), torch.ones(1, NUM_TEXT, dtype=torch.bool))
+    return (torch.randn(1, img, img, 3, generator=g), torch.tensor([[img, img]]),
+            torch.randn(1, num_text, 1024, generator=g), torch.ones(1, num_text, dtype=torch.bool))
 
 
 def slice_phase(dev, card):
@@ -1251,17 +1306,32 @@ def slice_phase(dev, card):
     import torch
 
     from ape_tpu_torch.modeling.build import build_ape_ti
-    from ape_tpu_torch.ops import _build, nms
 
     model = build_ape_ti(num_queries=QUERIES, mask_on=False, window_radius=RADIUS,
                          scale_factors=(2.0, 1.0, 0.5), dtype=torch.bfloat16)
     model = init_weights(model, SEED).eval()
     inputs = tuple(t.to(dev) for t in _inputs())
+    rec = checked_forward(model, inputs, FORWARD_LAUNCHES, NUM_TEXT, "protocol forward")
+    log(phase="slice", dtype="bfloat16", **rec, card=card)
+    return model, rec["launches_per_forward"]
+
+
+def checked_forward(model, inputs, want_launches: dict, num_text: int, label: str,
+                    iters: int = 10) -> dict:
+    """A bf16 forward after a warm-up: exactly ``want_launches``, every host
+    sync the NMS fixpoint's loop test, finite logits (1, QUERIES, num_text)
+    and boxes; then images/s over ``iters`` forwards and the peak memory of
+    one. Returns the record's fields."""
+    import torch
+
+    from ape_tpu_torch.ops import _build, nms
+
     with torch.no_grad():
         model(*inputs)  # warm-up: builds the constant tables (ops/tables.py)
         torch.cuda.synchronize()
         _build.reset_launches()
         nms.SYNCS["fixpoint"] = 0
+        torch.cuda.reset_peak_memory_stats()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -1270,32 +1340,31 @@ def slice_phase(dev, card):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
         launches = dict(_build.LAUNCHES)
-        if launches != dict(dict.fromkeys(launches, 0), **FORWARD_LAUNCHES):
-            fail(f"launches per forward {launches}, expected {FORWARD_LAUNCHES}")
+        if launches != dict(dict.fromkeys(launches, 0), **want_launches):
+            fail(f"{label}: launches per forward {launches}, expected {want_launches}")
         logits, boxes = out["pred_logits"], out["pred_boxes"]
-        if tuple(logits.shape) != (1, QUERIES, NUM_TEXT) or tuple(boxes.shape) != (1, QUERIES, 4):
-            fail(f"output shapes {tuple(logits.shape)} {tuple(boxes.shape)}")
+        if tuple(logits.shape) != (1, QUERIES, num_text) or tuple(boxes.shape) != (1, QUERIES, 4):
+            fail(f"{label}: output shapes {tuple(logits.shape)} {tuple(boxes.shape)}")
         if not (torch.isfinite(logits).all() and torch.isfinite(boxes).all()):
-            fail("non-finite outputs")
+            fail(f"{label}: non-finite outputs")
         syncs = sum("synchronizing CUDA operation" in str(w.message) for w in caught)
         # every host sync of a forward is the NMS fixpoint's loop test: a
         # table copied to the card at each call (F5) would add its own
         nms_syncs = nms.SYNCS["fixpoint"]
         if syncs != nms_syncs:
-            fail(f"host syncs per forward {syncs}, the NMS fixpoint's tests {nms_syncs}")
-
-        iters = 10
+            fail(f"{label}: host syncs per forward {syncs}, the NMS fixpoint's tests {nms_syncs}")
+        del out
         t0 = time.perf_counter()
         for _ in range(iters):
             model(*inputs)
         torch.cuda.synchronize()
         img_s = iters / (time.perf_counter() - t0)
-    log(phase="slice", dtype="bfloat16", launches_per_forward=launches,
-        host_syncs_per_forward=syncs, nms_fixpoint_syncs=nms_syncs,
-        logits_shape=list(logits.shape),
-        boxes_shape=list(boxes.shape), images_per_s=img_s, iters=iters, card=card)
-    return model, launches
+    return dict(launches_per_forward=launches, host_syncs_per_forward=syncs,
+                nms_fixpoint_syncs=nms_syncs, logits_shape=list(logits.shape),
+                boxes_shape=list(boxes.shape), images_per_s=img_s, iters=iters,
+                peak_memory_gib=peak / 2**30)
 
 
 def _set_form(form: str):
@@ -1685,21 +1754,26 @@ def _check_mask_outputs(res, h, w):
     return list(sem.shape)
 
 
-def serve_phase(model, phase: str = "serve"):
-    """Three non-square requests through DefaultPredictor: finite boxes inside
-    the image, classes inside the prompt, and for a masked model the mask
-    outputs; the launches of the requests."""
+SERVE_REQUESTS = (((480, 640), "person, car, dog, umbrella"),
+                  ((800, 600), "a person riding a bike"),
+                  ((600, 800), "cat, bus, umbrella"))
+
+
+def serve_phase(model, phase: str = "serve", language=None, per_forward=FORWARD_LAUNCHES,
+                requests=SERVE_REQUESTS):
+    """Non-square requests (size, prompt) through DefaultPredictor: finite
+    boxes inside the image, classes inside the prompt, and for a masked model
+    the mask outputs; the launches of the requests, ``per_forward`` each.
+    ``language``: the text tower (default: seeded features a text)."""
     import numpy as np
     import torch
 
     from ape_tpu_torch.engine import APE, DefaultPredictor
     from ape_tpu_torch.ops import _build
 
-    predictor = DefaultPredictor(APE(model, StubLanguage()), image_size=IMG)
+    ape = APE(model, language or StubLanguage())
+    predictor = DefaultPredictor(ape, image_size=IMG)
     rng = np.random.RandomState(SEED + 2)
-    requests = [((480, 640), "person, car, dog, umbrella"),
-                ((800, 600), "a person riding a bike"),
-                ((600, 800), "cat, bus, umbrella")]
     _build.reset_launches()
     for (h, w), prompt in requests:
         image = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
@@ -1716,10 +1790,11 @@ def serve_phase(model, phase: str = "serve"):
             fail(f"request {h}x{w}: class index outside the prompt")
         masks = {"sem_seg_shape": _check_mask_outputs(res, h, w)} if model.mask_on else {}
         log(phase=phase, image=[h, w], prompt=prompt, prompt_type=res["prompt_type"],
-            instances=n, **masks, seconds=seconds)
+            fusion_mode=ape.fusion_mode(res["prompt_type"]), instances=n, **masks,
+            seconds=seconds)
     launches = dict(_build.LAUNCHES)
     want = dict(dict.fromkeys(launches, 0),
-                **{k: v * len(requests) for k, v in FORWARD_LAUNCHES.items()})
+                **{k: v * len(requests) for k, v in per_forward.items()})
     if launches != want:
         fail(f"{phase} launches {launches}, expected {want}")
     return launches
@@ -1787,6 +1862,182 @@ def full_serve_phase(dev, card):
     return {k: v + served[k] for k, v in launches.items()}, dense
 
 
+# APE-L_D: the flagship as bench.py's BENCH_MODEL=l_d runs it, with the
+# 1203 texts of the LVIS vocabulary (BENCH_TEXT) passed to the model as
+# features, all valid.
+L_D_TEXT = 1203
+# Per forward of L_D: 8 global attention blocks (24 blocks, every third
+# global), the same 6 + 6 MSDA layers as Ti; the fusion and the windowed
+# blocks are matmuls.
+L_D_FORWARD_LAUNCHES = {"msda_fwd": 6, "msda_fwd_window": 6, "attn_fwd": 8}
+L_D_ATTN_SHAPE = (1, 16, 4096, 64)  # a global block at 1024^2: 64^2 tokens, 16 heads of 64
+# The f32 check: full width, the depth cut (6 backbone blocks, 2 of them
+# global; 2 + 2 transformer layers) so that the CPU's plain forward takes
+# seconds, at 512^2.
+L_D_F32_IMG, L_D_F32_DEPTH, L_D_F32_LAYERS = 512, 6, 2
+L_D_REQUESTS = (((480, 640), "person, car, dog, umbrella"),
+                ((800, 600), "a person riding a bike"),
+                ((600, 800), "a red umbrella, a dog on the grass"))
+
+
+def l_d_kernels_phase(dev):
+    """K5 at L_D's global blocks' shape, (1, 16, 4096, 64), in f32 (TF32 off)
+    and bf16 against the plain version within the attention bounds (bf16:
+    with ``attn_faults``), timed beside the plain version and
+    ``F.scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from ape_tpu_torch.ops.attention import attn_fwd_cuda, global_attention_plain
+    from ape_tpu_torch.ops.bounds import fwd_bound
+
+    g = torch.Generator().manual_seed(SEED + 3)
+    qkv32 = [torch.randn(*L_D_ATTN_SHAPE, generator=g) for _ in range(3)]
+    scale = L_D_ATTN_SHAPE[-1] ** -0.5
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        q, k, v = (t.to(dev, dtype) for t in qkv32)
+        want = global_attention_plain(q, k, v, scale)
+        err = float((attn_fwd_cuda(q, k, v, scale).float() - want.float()).abs().max())
+        bound = fwd_bound("attn", dname, want)
+        faults = ({"faulty_err": attn_faults(q, k, v, scale, want, bound)}
+                  if dname == "bfloat16" else {})
+        bound_ms, bound_by = attn_bound("attn_fwd", L_D_ATTN_SHAPE, dname)
+        rec = dict(phase="l_d_kernel", name="attention_l_d", dtype=dname,
+                   shape=list(L_D_ATTN_SHAPE), max_abs_err=err, bound=bound, **faults,
+                   ms=cuda_ms(lambda: attn_fwd_cuda(q, k, v, scale)),
+                   plain_ms=cuda_ms(lambda: global_attention_plain(q, k, v, scale)),
+                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        log(**rec)
+        if not err <= rec["bound"]:
+            fail(f"K5 at {L_D_ATTN_SHAPE} {dname}: max |kernel - plain| {err} > {rec['bound']}")
+        results[dname] = rec
+    return results
+
+
+def l_d_text_tower(dev, card):
+    """The port's EVA02CLIP on the card (random weights from its seed,
+    HashTokenizer ids): the seconds it takes for L_D_TEXT prompts, after a
+    warm-up on other prompts. Returns the tower."""
+    import torch
+
+    from ape_tpu_torch.modeling.text import EVA02CLIP
+
+    t0 = time.perf_counter()
+    tower = EVA02CLIP(rng_seed=SEED, device=dev)
+    build_s = time.perf_counter() - t0
+    tower.forward_text([f"warm-up prompt {i}" for i in range(256)])
+    torch.cuda.synchronize()
+    prompts = [f"lvis class {i}" for i in range(L_D_TEXT)]
+    t0 = time.perf_counter()
+    out = tower.forward_text(prompts)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    eot = out["last_hidden_state_eot"]
+    if tuple(eot.shape) != (L_D_TEXT, 1024) or not bool(torch.isfinite(eot).all()):
+        fail(f"text tower: features {tuple(eot.shape)} for {L_D_TEXT} prompts, or not finite")
+    log(phase="l_d_text", prompts=L_D_TEXT, chunk=tower.max_batch_size, seconds=seconds,
+        build_seconds=build_s, card=card)
+    return tower
+
+
+def l_d_slice_phase(dev, card):
+    """``build_ape_l_d`` at the reference latency protocol (1024^2, bf16, 900
+    queries, 1203 text features, N(0, 0.02) weights with the ring-init
+    offsets re-armed): exact launches, host syncs, finite (1, 900, 1203)
+    logits, images/s, peak memory. Returns the launches of one forward."""
+    import torch
+
+    from ape_tpu_torch.modeling.build import build_ape_l_d
+
+    model = build_ape_l_d(num_queries=QUERIES, mask_on=False, window_radius=RADIUS,
+                          scale_factors=(2.0, 1.0, 0.5), use_act_checkpoint=False,
+                          drop_path_rate=0.0, dtype=torch.bfloat16, device=dev)
+    model = init_weights(model, SEED).eval()
+    inputs = tuple(t.to(dev) for t in _inputs(L_D_TEXT))
+    rec = checked_forward(model, inputs, L_D_FORWARD_LAUNCHES, L_D_TEXT, "L_D protocol forward")
+    log(phase="l_d_slice", dtype="bfloat16", texts=L_D_TEXT, **rec, card=card)
+    del model
+    torch.cuda.empty_cache()
+    return rec["launches_per_forward"]
+
+
+def l_d_serve_phase(dev, card, tower):
+    """``build_ape_l_d()`` with its defaults (the masked model on the 4-scale
+    pyramid, drop path 0.4 as the identity in eval) in bf16 behind APE and
+    DefaultPredictor, prompts encoded on the card by ``tower``: a name prompt
+    (fused against the zero token, aligned to the original text) and two
+    phrase prompts (fused against the text, aligned to the fused text), each
+    with finite boxes, mask logits and sem_seg. Returns the launches."""
+    import torch
+
+    from ape_tpu_torch.modeling.build import build_ape_l_d
+
+    model = init_weights(build_ape_l_d(dtype=torch.bfloat16, device=dev), SEED).eval()
+    torch.cuda.reset_peak_memory_stats()
+    launches = serve_phase(model, "l_d_serve", tower, L_D_FORWARD_LAUNCHES, L_D_REQUESTS)
+    log(phase="l_d_serve_done", peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        card=card)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def l_d_f32_phase(dev):
+    """L_D at full width with its depth cut (L_D_F32_DEPTH blocks,
+    L_D_F32_LAYERS + L_D_F32_LAYERS layers) at 512^2 in f32 (TF32 off) with
+    fan-in weights: the card's encoder memory and fused text within
+    MEMORY_BOUND of the plain versions on the CPU; then the same weights in
+    bf16 on the card against the card's f32, the gap reported."""
+    import torch
+
+    from ape_tpu_torch.modeling.build import build_ape_l_d
+    from ape_tpu_torch.ops import _build
+
+    model = build_ape_l_d(num_queries=QUERIES, mask_on=False, window_radius=RADIUS,
+                          scale_factors=(2.0, 1.0, 0.5), use_act_checkpoint=False,
+                          drop_path_rate=0.0, depth=L_D_F32_DEPTH, num_layers=L_D_F32_LAYERS,
+                          device="cpu")
+    model = init_weights(model, SEED, fan_in=True).eval()
+    inputs = _inputs(L_D_TEXT, L_D_F32_IMG)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu = model(*inputs)
+        cpu_s = time.perf_counter() - t0
+        model = model.to(dev)
+        _build.reset_launches()
+        gpu = model(*(t.to(dev) for t in inputs))
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        model.dtype = torch.bfloat16
+        bf16 = model(*(t.to(dev) for t in inputs))
+    want = {"msda_fwd": L_D_F32_LAYERS, "msda_fwd_window": L_D_F32_LAYERS,
+            "attn_fwd": L_D_F32_DEPTH // 3}
+    if launches != want:
+        fail(f"L_D f32: launches per forward {launches}, expected {want}")
+
+    def gap(a, b, key):
+        return float((a[key].float().cpu() - b[key].float().cpu()).abs().max())
+
+    keys = ("memory", "text_features", "pred_logits", "pred_boxes")
+    errs = {k: gap(gpu, cpu, k) for k in keys}
+    bf16_gap = {k: gap(bf16, gpu, k) for k in keys}
+    log(phase="l_d_f32_vs_plain", image=L_D_F32_IMG, depth=L_D_F32_DEPTH, layers=L_D_F32_LAYERS,
+        texts=L_D_TEXT, launches_per_forward=launches,
+        **{f"{k}_max_abs_err": v for k, v in errs.items()}, bound=MEMORY_BOUND,
+        memory_max_abs=float(cpu["memory"].abs().max()),
+        text_max_abs=float(cpu["text_features"].abs().max()),
+        first_stage_indices_identical=bool(torch.equal(gpu["first_stage_indices"].cpu(),
+                                                       cpu["first_stage_indices"])),
+        bf16_vs_f32_max_abs=bf16_gap, cpu_seconds=cpu_s)
+    for k in ("memory", "text_features"):
+        if not errs[k] <= MEMORY_BOUND:
+            fail(f"L_D f32 {k} differs from the CPU's by {errs[k]} > {MEMORY_BOUND}")
+    del model, cpu, gpu, bf16
+    torch.cuda.empty_cache()
+
+
 def race_phase(dev, card):
     """``ape_tpu_torch.tools.msda_race`` as a path of its own: every
     window-MSDA form at both pyramids and offset draws, then the per-pair
@@ -1850,6 +2101,7 @@ def main():
     build_phase()
     kern = kernels_phase(dev)
     kern.update(backward_kernels_phase(dev))
+    l_d_attn = l_d_kernels_phase(dev)
     # launches over every run: each phase sets the counts to 0 just before
     # its run and reads them just after. The serving and training phases are
     # the main paths: those with the default flags (FUSED and V6 off, the
@@ -1877,6 +2129,13 @@ def main():
     torch.cuda.empty_cache()
     train_f32_phase(dev, mask_on=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tower = l_d_text_tower(dev, card)
+    default_runs.append(l_d_slice_phase(dev, card))
+    default_runs.append(l_d_serve_phase(dev, card, tower))
+    del tower
+    l_d_f32_phase(dev)
+    log(phase="l_d_done", seconds=time.perf_counter() - t0)
     main_runs = default_runs + flag_runs
     runs = list(main_runs)
     runs.append(race_phase(dev, card))
@@ -1916,13 +2175,17 @@ def main():
     for name, (source, replaces, case) in sources.items():
         source = f"ape_tpu_torch/csrc/{source}"
         rec = kern[(case, "bfloat16")] if case else probe_rows[name]
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "launches_main": launches_main[name],
-                        "launches_default": launches_default[name],
-                        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                        **{k: rec[k] for k in ("general_ms", "device_ms") if k in rec}})
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launches[name], "launches_main": launches_main[name],
+               "launches_default": launches_default[name],
+               "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+               "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+               "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+               **{k: rec[k] for k in ("general_ms", "device_ms") if k in rec}}
+        if name == "attn_fwd":  # K5 at L_D's 16 heads, bf16
+            row["l_d"] = {k: l_d_attn["bfloat16"][k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -22,8 +22,7 @@ import pytest
 import torch
 
 from ape_tpu_torch.ops.attention import global_attention_plain
-from ape_tpu_torch.ops.bounds import FWD_BOUNDS, GRAD_BOUNDS
-from ape_tpu_torch.tools.backbone_fix_probe import bf16_steps
+from ape_tpu_torch.ops.bounds import GRAD_BOUNDS, bf16_steps, fwd_bound
 
 TILE = 64  # keys a step of the forward, queries a step of dK/dV
 LOG2E = 1.0 / math.log(2.0)
@@ -116,16 +115,43 @@ def test_emulated_forward_is_the_online_softmax(n):
 @pytest.mark.parametrize("n", [1024, 1000])
 def test_forward_rounding_within_the_card_bounds(n):
     """K5's rounding against the plain attention in bf16 (chip_smoke.py's
-    bound, 3.2e-2, and the probe's four bf16 steps of the largest output)
-    and in f32 on the same bf16 inputs."""
+    and the probe's bound, four bf16 steps of the largest output) and in
+    f32 on the same bf16 inputs."""
     q, k, v = _draws(n, 3)
     got, _ = emulated_forward(q, k, v, 0.125)
     plain = global_attention_plain(q, k, v, 0.125)
     plain32 = global_attention_plain(q.float(), k.float(), v.float(), 0.125)
     err = float((got.float() - plain.float()).abs().max())
-    assert err <= FWD_BOUNDS["bfloat16"]["attn"]
-    assert err <= bf16_steps(plain)
+    assert err <= fwd_bound("attn", "bfloat16", plain) == bf16_steps(plain, 4)
     assert float((got.float() - plain32).abs().max()) <= bf16_steps(plain32)
+
+
+def _tile_swapped(t):
+    """chip_smoke.attn_faults' fault: key tile 5 read in place of tile 40."""
+    t = t.clone()
+    t[..., 320:384, :] = t[..., 2560:2624, :]
+    return t
+
+
+@pytest.mark.parametrize("fault", ["none", "scale_2pc", "tile_swapped"])
+def test_forward_bound_catches_a_faulty_kernel(fault):
+    """The bf16 bound has power at the card's shapes (4096 keys): K5's
+    rounding lands within it, and K5 with its scale 2 % off or with a key
+    tile read in place of another (chip_smoke.attn_faults) lands above it;
+    the former fixed bound, 3.2e-2, let the scale fault through."""
+    q, k, v = _draws(4096, 3)
+    plain = global_attention_plain(q, k, v, 0.125)
+    scale, keys, values = 0.125, k, v
+    if fault == "scale_2pc":
+        scale = 0.125 * 1.02
+    elif fault == "tile_swapped":
+        keys, values = _tile_swapped(k), _tile_swapped(v)
+    got, _ = emulated_forward(q, keys, values, scale)
+    err = float((got.float() - plain.float()).abs().max())
+    bound = fwd_bound("attn", "bfloat16", plain)
+    assert (err <= bound) if fault == "none" else (err > bound)
+    if fault == "scale_2pc":
+        assert err < 3.2e-2
 
 
 @pytest.mark.parametrize("n", [1024, 1000])

@@ -59,9 +59,13 @@ def test_eva_vit_windowed_and_global_blocks(rng):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
-def test_eva_vit_refuses_other_flags():
+@pytest.mark.parametrize("flag", [dict(use_rel_pos=True), dict(postnorm=True),
+                                  dict(mlp_type="gelu")])
+def test_eva_vit_refuses_other_flags(flag):
+    """EVA-01's relative positions and GELU MLP and ViT-E's post-norm are
+    not ported (EVA-02-CLIP's subln flags are: tests/test_torch_l_d.py)."""
     with pytest.raises(NotImplementedError):
-        eva_vit.EVAViT(subln=True, **VIT)
+        eva_vit.EVAViT(**flag, **VIT)
 
 
 @pytest.mark.parametrize("scales", [PROTOCOL_SCALES, (4.0, 2.0, 1.0, 0.5)])

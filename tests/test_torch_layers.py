@@ -1,12 +1,14 @@
 """The port's layers against ape_tpu's on the CPU, in f32 (atol 1e-4):
 MultiScaleDeformableAttention in window mode (padded batch, grid
 corrections) and exact mode (2- and 4-d references), MultiheadAttention,
-FFN, MLP and VisionLanguageAlign."""
+FFN, MLP and VisionLanguageAlign; and the LayerNorm and the neck's
+GroupNorm in bf16 against flax's, which round as flax does."""
 
 import numpy as np
 import pytest
 import torch
 
+import flax.linen as nn
 import jax.numpy as jnp
 
 from ape_tpu.layers import common as j_common
@@ -18,7 +20,7 @@ from ape_tpu.modeling.ape_deta.transformer import (
 )
 from ape_tpu_torch.layers import msda_module
 from ape_tpu_torch.layers.align import VisionLanguageAlign
-from ape_tpu_torch.layers.common import FFN, MLP, MultiheadAttention
+from ape_tpu_torch.layers.common import FFN, MLP, LayerNorm, MultiheadAttention
 from tests.torch_parity import init_params, load_port
 
 ATOL = 1e-4
@@ -115,3 +117,34 @@ def test_vision_language_align(rng):
                      "class_embed.0.", (x, emb))
     assert got.shape == (2, 7, 5)
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("norm,dtype", [("layer", "bfloat16"), ("layer", "float32"),
+                                        ("group", "bfloat16")])
+def test_norms_in_bf16_round_as_flax(rng, norm, dtype):
+    """LayerNorm (bf16 vision tokens; f32 text into a bf16 model, rounded
+    after the norm) and the neck's GroupNorm against flax's with
+    dtype=bfloat16: normalised, scaled and shifted in f32 with the f32
+    parameters, rounded once. The two multiply by rsqrt and the scale in
+    another order, so a rare output lands one bf16 step away; with the
+    scale and bias rounded to bf16 first, about a third would."""
+    from ape_tpu_torch.modeling.ape_deta.model import _group_norm
+
+    x = (rng.randn(4, 8, 8, 64) * 3 + 1).astype(np.float32)
+    scale, bias = rng.randn(64).astype(np.float32), rng.randn(64).astype(np.float32)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    jm = (nn.LayerNorm(epsilon=1e-5, dtype=jnp.bfloat16) if norm == "layer"
+          else nn.GroupNorm(num_groups=32, epsilon=1e-5, dtype=jnp.bfloat16))
+    want = np.asarray(jm.apply({"params": {"scale": jnp.asarray(scale),
+                                           "bias": jnp.asarray(bias)}}, jx).astype(jnp.float32))
+    tx = _t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    pm = LayerNorm(64, eps=1e-5) if norm == "layer" else torch.nn.GroupNorm(32, 64, eps=1e-5)
+    pm.weight.data, pm.bias.data = _t(scale), _t(bias)
+    with torch.no_grad():
+        got = (pm(tx).to(torch.bfloat16) if norm == "layer"
+               else _group_norm(tx.permute(0, 3, 1, 2), pm).permute(0, 2, 3, 1))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    step = np.exp2(np.floor(np.log2(np.abs(want))) - 7)
+    assert np.all(np.abs(got - want) <= step)
+    assert np.mean(got != want) < 1e-3

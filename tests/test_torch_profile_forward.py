@@ -1,7 +1,8 @@
 """``ape_tpu_torch/tools/profile_forward.py`` on the CPU: its module hooks
-and stage split on tiny models of both cells (the protocol pyramid without
-masks, the 4-scale pyramid with the mask head), with host-clock events in
-place of the card's CUDA events. The profile itself needs a card."""
+and stage split on tiny models of its cells (the protocol pyramid without
+masks, the 4-scale pyramid with the mask head, and a tiny APE-L_D whose
+encoder fuses), with host-clock events in place of the card's CUDA events.
+The profile itself needs a card."""
 
 import time
 
@@ -9,7 +10,7 @@ import pytest
 import torch
 
 from ape_tpu_torch.tools import profile_forward
-from tests.torch_parity import tiny_inputs, torch_tiny_masked, torch_tiny_protocol
+from tests.torch_parity import tiny_inputs, torch_tiny_l_d, torch_tiny_masked, torch_tiny_protocol
 
 
 class HostEvent:
@@ -23,7 +24,8 @@ class HostEvent:
 
 
 @pytest.mark.parametrize("build,mask_on", [(torch_tiny_protocol, False),
-                                           (torch_tiny_masked, True)])
+                                           (torch_tiny_masked, True),
+                                           (torch_tiny_l_d, False)])
 def test_stage_hooks_split_the_forward(monkeypatch, build, mask_on):
     monkeypatch.setattr(profile_forward, "_event", HostEvent)
     torch.manual_seed(0)
@@ -38,11 +40,16 @@ def test_stage_hooks_split_the_forward(monkeypatch, build, mask_on):
     for h in hooks:
         h.remove()
     split = profile_forward.stages(marks, mask_on)
+    fuses = model.transformer.encoder.vl_layers is not None
     parts = ["backbone", "neck", "pre_encoder", "encoder", "select", "decoder", "heads"]
-    assert sorted(split) == sorted(parts + ["forward"] + (["mask_head"] if mask_on else []))
+    assert sorted(split) == sorted(parts + ["forward"] + (["mask_head"] if mask_on else [])
+                                   + (["fusion"] if fuses else []))
     assert all(v >= 0 for v in split.values())
-    # the stages are disjoint spans of the forward, in order
-    assert sum(v for k, v in split.items() if k != "forward") <= split["forward"]
+    # the stages are disjoint spans of the forward, in order; fusion lies
+    # inside the encoder
+    assert sum(v for k, v in split.items() if k not in ("forward", "fusion")) <= split["forward"]
+    if fuses:
+        assert 0 < split["fusion"] <= split["encoder"]
     assert not model._forward_hooks and not model.transformer.encoder._forward_pre_hooks
     summary = profile_forward.summary([3.0, 1.0, 2.0])
     assert summary == {"median": 2.0, "min": 1.0, "max": 3.0}

@@ -70,6 +70,9 @@ def _synth(key, shape, rng, heads, points):
     from ape_tpu.layers.msda_module import _offset_bias_init
 
     noise = rng.normal(0.0, 0.05, shape)
+    if key.endswith(("/gamma_v", "/gamma_l")):
+        # layer scales large enough that the fusion moves its outputs
+        return 0.5 + noise
     if key.endswith("/kernel"):
         return rng.normal(0.0, 1.0 / np.sqrt(np.prod(shape[:-1])), shape)
     if key.endswith("/scale"):
@@ -102,22 +105,35 @@ def load_port(module, flat, jax_prefix, torch_prefix):
     return module.eval()
 
 
-def model_pair(jax_model, torch_model, zero_encoder_offsets=False):
+def model_pair(jax_model, torch_model, zero_encoder_offsets=False, **init_kw):
     """An ape_tpu APEDeta and the port's with the same seeded weights:
     (jax model, param tree, flat params, port model). With
     ``zero_encoder_offsets`` the encoder's sampling_offsets kernels are 0, as
-    the reference initialises them."""
-    flat, _ = init_params(jax_model, *(jnp.asarray(a) for a in tiny_inputs()))
+    the reference initialises them. ``init_kw`` go to the JAX model's init
+    (``fusion_text_mode="learnable"`` creates the learned fusion token)."""
+    flat, _ = init_params(jax_model, *(jnp.asarray(a) for a in tiny_inputs()), **init_kw)
     if zero_encoder_offsets:
         flat = {k: (np.zeros_like(v) if re.fullmatch(r"transformer/encoder/.*sampling_offsets/kernel", k)
                     else v) for k, v in flat.items()}
     return jax_model, unflatten(flat), flat, load_port(torch_model, flat, "", "")
 
 
-def jax_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, **apedeta_kw):
+# The tiny APE-L_D: EVA-02-CLIP blocks (subln, inner attention LN, SwiGLU's
+# ffn_ln unpacked), three blocks with the last global, windows of 8 tokens,
+# the position table pretrained at 336 (21^2 + 1 rows, resized to 16^2), and
+# a fusion layer before each encoder layer (embed 64, 2 heads).
+L_D_VIT = dict(subln=True, inner_attn_ln=True, swiglu_subln=True, packed_swiglu=False,
+               depth=3, window_size=8, window_block_indexes=(0, 1), pretrain_img_size=336)
+L_D_FUSION = dict(vl_fusion=True, vl_embed_dim=64, vl_num_heads=2, vl_init_values=1.0 / 6)
+
+
+def jax_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, vit=None, fusion=None,
+             **apedeta_kw):
     """ape_tpu APEDeta at the parity-harness dims on the given pyramid; the
-    neck extends it to 5 levels. ``apedeta_kw`` (mask_on, aux_mask, ...) go
-    to APEDeta; the mask head reads the finest level."""
+    neck extends it to 5 levels. ``vit`` overrides EVAViT's arguments and
+    ``fusion`` adds the encoder's (L_D_VIT, L_D_FUSION); ``apedeta_kw``
+    (mask_on, aux_mask, ...) go to APEDeta; the mask head reads the finest
+    level."""
     from ape_tpu.modeling.ape_deta.model import APEDeta, ChannelMapper
     from ape_tpu.modeling.ape_deta.transformer import (
         DeformableDetrTransformer,
@@ -128,16 +144,17 @@ def jax_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, **apedeta_k
     from ape_tpu_torch.modeling.build import pyramid_features
 
     _, levels = pyramid_features(scale_factors)
+    vit = {"depth": d["vit_depth"], "window_size": d["win"], "window_block_indexes": (0,),
+           "pretrain_img_size": 224, "packed_swiglu": True, **(vit or {})}
     backbone = SimpleFeaturePyramid(
         net=EVAViT(img_size=d["img"], patch_size=16, embed_dim=d["vit_embed"],
-                   depth=d["vit_depth"], num_heads=d["vit_heads"], mlp_ratio=4 * 2 / 3,
-                   window_size=d["win"], window_block_indexes=(0,),
-                   pretrain_img_size=224, pt_hw_seq_len=16, packed_swiglu=True),
+                   num_heads=d["vit_heads"], mlp_ratio=4 * 2 / 3, pt_hw_seq_len=16, **vit),
         out_channels=d["embed"], scale_factors=scale_factors)
     transformer = DeformableDetrTransformer(
         encoder=DeformableTransformerEncoder(
             embed_dim=d["embed"], num_heads=d["heads"], feedforward_dim=d["ffn"],
-            num_layers=d["layers"], num_feature_levels=5, window_radius=window_radius),
+            num_layers=d["layers"], num_feature_levels=5, window_radius=window_radius,
+            embed_dim_language=d["ldim"], **(fusion or {})),
         decoder=DeformableTransformerDecoder(
             embed_dim=d["embed"], num_heads=d["heads"], feedforward_dim=d["ffn"],
             num_layers=d["layers"], num_feature_levels=5, look_forward_twice=False),
@@ -149,7 +166,8 @@ def jax_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, **apedeta_k
         **{"mask_on": False, **apedeta_kw})
 
 
-def torch_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, **apedeta_kw):
+def torch_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, vit=None, fusion=None,
+               **apedeta_kw):
     """The port's APEDeta at the same dims and pyramid."""
     from ape_tpu_torch.modeling.ape_deta.model import APEDeta, ChannelMapper
     from ape_tpu_torch.modeling.ape_deta.transformer import (
@@ -161,14 +179,16 @@ def torch_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, **apedeta
     from ape_tpu_torch.modeling.build import pyramid_features
 
     sfp, levels = pyramid_features(scale_factors)
+    vit = {"depth": d["vit_depth"], "window_size": d["win"], "window_block_indexes": (0,),
+           "pretrain_img_size": 224, **(vit or {})}
     backbone = SimpleFeaturePyramid(
-        EVAViT(patch_size=16, embed_dim=d["vit_embed"], depth=d["vit_depth"],
-               num_heads=d["vit_heads"], mlp_ratio=4 * 2 / 3, window_size=d["win"],
-               window_block_indexes=(0,), pretrain_img_size=224, pt_hw_seq_len=16),
+        EVAViT(patch_size=16, embed_dim=d["vit_embed"], num_heads=d["vit_heads"],
+               mlp_ratio=4 * 2 / 3, pt_hw_seq_len=16, **vit),
         out_channels=d["embed"], scale_factors=scale_factors)
     transformer = DeformableDetrTransformer(
         DeformableTransformerEncoder(d["embed"], d["heads"], d["ffn"], d["layers"], 5,
-                                     window_radius=window_radius),
+                                     window_radius=window_radius, embed_dim_language=d["ldim"],
+                                     **(fusion or {})),
         DeformableTransformerDecoder(d["embed"], d["heads"], d["ffn"], d["layers"], 5),
         embed_dim=d["embed"], num_feature_levels=5, two_stage_num_proposals=d["queries"])
     return APEDeta(backbone, ChannelMapper(sfp, d["embed"], d["embed"], num_outs=5),
@@ -196,6 +216,16 @@ def jax_tiny_masked(d=DIMS, window_radius=4, **kw):
 def torch_tiny_masked(d=DIMS, window_radius=4, **kw):
     """The port's masked APEDeta at the same dims."""
     return torch_tiny(d, window_radius, MASKED_SCALES, mask_on=True, **kw)
+
+
+def jax_tiny_l_d(d=DIMS, **kw):
+    """ape_tpu APEDeta as a tiny APE-L_D on the protocol pyramid."""
+    return jax_tiny(d, vit=L_D_VIT, fusion=L_D_FUSION, **kw)
+
+
+def torch_tiny_l_d(d=DIMS, **kw):
+    """The port's tiny APE-L_D, holding the learned fusion token."""
+    return torch_tiny(d, vit=L_D_VIT, fusion=L_D_FUSION, name_prompt_fusion_feature=True, **kw)
 
 
 def tiny_inputs(d=DIMS, seed=3, h=None, w=None):
