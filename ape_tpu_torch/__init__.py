@@ -12,9 +12,12 @@ It covers APE-Ti inference under the reference latency protocol
 ``engine.defaults.DefaultPredictor``) and APE-Ti detection training
 (``build_ape_ti(use_act_checkpoint=True)`` -> ``engine.optimizer.build_optimizer``
 -> ``engine.train_step.make_train_step`` with
-``modeling.ape_deta.criterion.DeformableCriterion``), and APE-L_D serving
+``modeling.ape_deta.criterion.DeformableCriterion``), APE-L_D serving
 (``modeling.build.build_ape_l_d`` with prompts encoded by
-``modeling.text.EVA02CLIP`` -> ``APE`` -> ``DefaultPredictor``).
+``modeling.text.EVA02CLIP`` -> ``APE`` -> ``DefaultPredictor``), and APE-L_D
+training (``build_ape_l_d(num_queries=300)``, drop path and the federated
+class loss with ``data.datasets.metadata.fed_loss_cls_weights``, through
+``build_optimizer(vit_num_layers=24)`` and ``make_train_step``).
 """
 
 __version__ = "0.1.0"

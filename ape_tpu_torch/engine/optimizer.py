@@ -1,7 +1,8 @@
 """AdamW with layerwise lr decay and per-parameter multipliers (counterpart of
 ``ape_tpu/engine/optimizer.py``).
 
-The recipe (COCO 12ep config + get_vit_lr_decay_rate): AdamW lr 2e-4, weight
+The recipe (COCO 12ep config + get_vit_lr_decay_rate; APE-L_D with
+``vit_num_layers=24``, the LVIS recipe's): AdamW lr 2e-4, weight
 decay 0.05 except on norms, biases, 1-d tensors, ``pos_embed`` and
 ``level_embeds``; layerwise decay 0.8 over the ViT blocks (patch and
 position embeddings are layer 0); 0.1x lr for ``sampling_offsets`` and

@@ -9,6 +9,12 @@ micro-batches along B; their gradients are summed and divided by
 ``iter_size`` (JAX: a ``lax.scan`` over micro-batches). ``num_boxes`` is the
 micro-batch's count of valid targets, clamped to 1.
 
+``prompt`` is the loader group's prompt type, as in JAX: ``"name"`` aligns
+the class logits to the original text features, a phrase or expression to
+the fused ones (``align_on_fused=prompt != "name"``). The step's generator
+serves both the model (drop path) and the criterion (assignment subsamples,
+the federated class subset), as JAX's one ``rng`` does.
+
 A non-finite total loss raises ``FloatingPointError`` before the update,
 as ``ape_tpu/engine/trainer.py`` raises.
 """
@@ -34,9 +40,10 @@ def _micro(batch: Dict, i: int, n: int) -> Dict:
 
 
 def loss_fn(model, criterion: DeformableCriterion, batch: Dict,
-            generator: Optional[torch.Generator] = None):
+            generator: Optional[torch.Generator] = None, prompt: str = "name"):
     """(total, losses, outputs) of one batch: the model, then the criterion."""
-    outputs = model(*(batch[k] for k in BATCH_KEYS))
+    outputs = model(*(batch[k] for k in BATCH_KEYS), align_on_fused=prompt != "name",
+                    generator=generator)
     targets = batch["targets"]
     num_boxes = targets["valid"].float().sum().clamp(min=1.0)
     losses = criterion(outputs, targets, num_boxes, batch.get("class_valid"), generator)
@@ -50,6 +57,7 @@ def make_train_step(
     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
     iter_size: int = 1,
     ema_decay: float = 0.0,
+    prompt: str = "name",
 ) -> Callable:
     """Returns step(batch, generator=None) -> metrics (tensors, on the device).
 
@@ -64,7 +72,7 @@ def make_train_step(
         totals, losses = [], {}
         for i in range(iter_size):
             micro = _micro(batch, i, iter_size) if iter_size > 1 else batch
-            total, losses, _ = loss_fn(model, criterion, micro, generator)
+            total, losses, _ = loss_fn(model, criterion, micro, generator, prompt)
             total.backward()
             totals.append(total.detach())
         total = torch.stack(totals).mean()

@@ -66,9 +66,10 @@ class BiMultiHeadAttention(nn.Module):
         out_l = torch.matmul(attn_l, val_v)
         del attn_l
 
-        # vision -> attends over the language tokens
+        # vision -> attends over the language tokens; the mask out of place,
+        # since autograd keeps the language side's max input, a view of logits
         if valid_l is not None:
-            logits = logits.masked_fill_(~valid_l[:, None, None, :], -torch.inf)
+            logits = logits.masked_fill(~valid_l[:, None, None, :], -torch.inf)
         attn_v = torch.softmax(logits.float(), -1).to(v.dtype)
         del logits
         out_v = torch.matmul(attn_v, val_l)

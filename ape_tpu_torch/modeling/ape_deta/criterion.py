@@ -1,7 +1,10 @@
 """DETA criterion (counterpart of ``ape_tpu/modeling/ape_deta/criterion.py``),
 losses ``("class", "boxes", "masks")``:
 
-  * focal class loss over the text columns, L1 + GIoU box losses;
+  * focal class loss over the text columns, with ``use_fed_loss`` over the
+    federated class subset (every ground-truth class and a weighted draw of
+    ``fed_loss_num_classes`` columns by the Gumbel top-k trick); L1 + GIoU
+    box losses;
   * dense mask losses at the mask-feature resolution: focal loss averaged
     over pixels and dice, against GT masks resized by nearest neighbour with
     half-pixel centres (``jax.image.resize(..., "nearest")``); the auxiliary
@@ -18,16 +21,26 @@ Targets are fixed-shape padded tensors: labels (B, G) int, boxes (B, G, 4)
 cxcywh in [0, 1], valid (B, G) bool, and for the mask losses masks
 (B, G, Hg, Wg) bool or float in [0, 1].
 
-Not ported yet: the federated class subset, the point-sampled
-``masks_maskdino`` loss (``mask_point_sample=True``; without it
-``masks_maskdino`` is the dense loss, as in JAX), the ``pred_iou`` /
-``anchor_iou`` losses and the Hungarian fallback.
+The federated subset's uniforms are drawn once a call, for every logits
+width at once, on the generator's device and copied in one transfer
+(``draw_fed_uniforms``), so a run on the card and one on the CPU given
+generators of one seed keep the same columns; the selection itself
+(``fed_class_mask``) is deterministic. As in JAX, the binary first-stage
+loss takes the subset too: its one column broadcasts against the
+vocabulary-wide mask, so with any first-stage match that loss is summed once
+per kept column (ROADMAP, Queue 3, trait 10).
+
+Not ported yet: the point-sampled ``masks_maskdino`` loss
+(``mask_point_sample=True``; without it ``masks_maskdino`` is the dense loss,
+as in JAX), the ``pred_iou`` / ``anchor_iou`` losses and the Hungarian
+fallback.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+import logging
+from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -76,6 +89,48 @@ def _to_f32(outputs: Dict) -> Dict:
     return out
 
 
+def _fed_pad_value(w: torch.Tensor, pad_type: Optional[str], num_classes: int) -> torch.Tensor:
+    """The weight of the classes past a weight table shorter than num_classes."""
+    n = w.shape[0]
+    if pad_type == "max":
+        return w.max()
+    if pad_type == "max1000":
+        return w.max() * 1000.0
+    if pad_type == "mean":
+        return w.mean()
+    if pad_type == "median":  # torch.median's: the lower of the two middle values
+        return w.sort().values[(n - 1) // 2]
+    if pad_type == "cat":
+        return w.new_zeros(())
+    k = min(max(int(num_classes * 7.0 / 10), 1), n)  # the k-th smallest, 1-indexed
+    return w.sort().values[k - 1]
+
+
+def fed_class_mask(weights: torch.Tensor, uniforms: torch.Tensor, cls: torch.Tensor,
+                   matched: torch.Tensor, c: int, num_sample: int,
+                   pad_start: Optional[int] = None) -> torch.Tensor:
+    """The federated class subset (JAX's ``_fed_class_mask``): every
+    ground-truth class, and the classes whose log weight plus Gumbel noise
+    from ``uniforms`` (c,) in (0, 1) reaches the ``num_sample``-th largest
+    score; columns past the weights weigh 1e-12; with ``pad_start`` (the
+    "cat" pad) every column from it on. cls (B, K) classes of the matched
+    queries, matched (B, K). Returns the column mask, (c,) bool, or the
+    weights' length where that is longer than c, as JAX broadcasts it."""
+    device = weights.device
+    gt = torch.where(matched, cls, torch.full_like(cls, c)).reshape(-1)
+    is_gt = torch.zeros(c + 1, dtype=torch.bool, device=device).index_fill_(0, gt, True)[:-1]
+    w = weights.float().clamp(min=1e-12)
+    if w.shape[0] < c:
+        w = torch.cat([w, torch.full((c - w.shape[0],), 1e-12, device=device)])
+    gumbel = -torch.log(-torch.log(uniforms))
+    score = torch.where(is_gt, torch.full((), torch.inf, device=device), torch.log(w) + gumbel)
+    kth = torch.topk(score, min(num_sample, c)).values[-1]
+    mask = is_gt | (score >= kth)
+    if pad_start is not None:
+        mask = mask | (torch.arange(c, device=device) >= pad_start)
+    return mask
+
+
 def default_weight_dict(class_weight=1.0, bbox_weight=5.0, giou_weight=2.0, mask_weight=5.0,
                         dice_weight=5.0):
     """Criterion weights as configured in ape_deta_r50.py:139-147."""
@@ -102,6 +157,15 @@ class DeformableCriterion:
     stage1_t_high: float = 0.7
     stage1_max_k: int = 4
     mask_point_sample: bool = False
+    # the federated class subset (JAX's fields): weights (num_classes,) or
+    # shorter, padded by fed_loss_pad_type: "max", "max1000", "mean",
+    # "median" (the lower one) or "cat" (weight 0, and the appended range
+    # always kept); by default the weights' k-th smallest, k = 7/10 of
+    # num_classes
+    use_fed_loss: bool = False
+    fed_loss_num_classes: int = 50
+    fed_loss_cls_weights: Optional[torch.Tensor] = None
+    fed_loss_pad_type: Optional[str] = None
 
     def __post_init__(self):
         unknown = set(self.losses) - set(PORTED)
@@ -110,15 +174,53 @@ class DeformableCriterion:
         if "masks_maskdino" in self.losses and self.mask_point_sample:
             raise NotImplementedError("the port's criterion has no point-sampled masks_maskdino "
                                       "loss yet (mask_point_sample=True)")
+        self._fed_pad_start = None
+        w = self.fed_loss_cls_weights
+        if w is None:
+            if self.use_fed_loss:
+                logging.getLogger(__name__).warning(
+                    "use_fed_loss=True but fed_loss_cls_weights is None: the federated class "
+                    "subset is off and loss_labels is the plain focal loss")
+            return
+        w = torch.as_tensor(w, dtype=torch.float32)
+        n = w.shape[0]
+        if n > self.num_classes:
+            raise ValueError(f"fed_loss_cls_weights has {n} entries > num_classes="
+                             f"{self.num_classes}")
+        if n < self.num_classes:
+            if self.fed_loss_pad_type == "cat":
+                self._fed_pad_start = n
+            pad = _fed_pad_value(w, self.fed_loss_pad_type, self.num_classes)
+            w = torch.cat([w, pad.expand(self.num_classes - n)])
+        self.fed_loss_cls_weights = w
 
-    def loss_labels(self, outputs, targets, assign, num_boxes, class_valid):
+    def draw_fed_uniforms(self, widths: Iterable[int], generator: Optional[torch.Generator],
+                          device) -> Dict[int, torch.Tensor]:
+        """{width: uniforms (width,) in [1e-9, 1) on ``device``} for the
+        federated subset of logits of each width, drawn at once on the
+        generator's device (the CPU's default one without a generator) and
+        copied in one transfer. JAX draws them from one key per step, so
+        every decoder layer's class loss shares its width's draw."""
+        widths = sorted(set(widths))
+        gen_device = generator.device if generator is not None else "cpu"
+        u = torch.rand(sum(widths), generator=generator, device=gen_device).clamp_(min=1e-9)
+        return dict(zip(widths, u.to(device).split(widths)))
+
+    def loss_labels(self, outputs, targets, assign, num_boxes, class_valid, fed_uniforms=None):
+        """fed_uniforms: {logits width: uniforms} of the federated subset
+        (``draw_fed_uniforms``), or None for the plain focal loss."""
         logits = outputs["pred_logits"]  # (B, K, C)
         c = logits.shape[-1]
         cls = torch.where(assign >= 0, _gather_gt(targets["labels"], assign),
                           torch.full_like(assign, c))  # background = c
         onehot = F.one_hot(cls, c + 1)[..., :c].to(logits.dtype)  # background row -> zeros
+        col_mask = class_valid
+        if fed_uniforms is not None:
+            col_mask = col_mask & fed_class_mask(
+                self.fed_loss_cls_weights.to(logits.device), fed_uniforms[c], cls, assign >= 0,
+                c, self.fed_loss_num_classes, self._fed_pad_start)[None, :]
         loss = sigmoid_focal_loss(logits, onehot, self.alpha, self.gamma)
-        loss = torch.where(class_valid[:, None, :], loss, torch.zeros_like(loss))
+        loss = torch.where(col_mask[:, None, :], loss, torch.zeros_like(loss))
         return {"loss_class": loss.sum() / num_boxes}
 
     def loss_boxes(self, outputs, targets, assign, num_boxes):
@@ -174,11 +276,17 @@ class DeformableCriterion:
             class_valid = torch.ones(lo.shape[0], lo.shape[2], dtype=torch.bool, device=lo.device)
         with torch.no_grad():
             assign = self.match(outputs, targets, generator)
+        fed_u = None
+        if self.use_fed_loss and self.fed_loss_cls_weights is not None:
+            widths = [outputs["pred_logits"].shape[-1]]
+            if "enc_outputs" in outputs:
+                widths.append(outputs["enc_outputs"]["pred_logits"].shape[-1])
+            fed_u = self.draw_fed_uniforms(widths, generator, outputs["pred_logits"].device)
         losses = {}
         heads = [(outputs, "")] + [(aux, f"_{i}") for i, aux in enumerate(outputs.get("aux_outputs", []))]
         for out, suffix in heads:
             if "class" in self.losses:
-                l = self.loss_labels(out, targets, assign, num_boxes, class_valid)
+                l = self.loss_labels(out, targets, assign, num_boxes, class_valid, fed_u)
                 losses[f"loss_class{suffix}"] = l["loss_class"]
             if "boxes" in self.losses:
                 for k, v in self.loss_boxes(out, targets, assign, num_boxes).items():
@@ -195,7 +303,7 @@ class DeformableCriterion:
             enc_valid = torch.ones(enc["pred_logits"].shape[0], 1, dtype=torch.bool,
                                    device=enc["pred_logits"].device)
             losses["loss_class_enc"] = self.loss_labels(
-                enc, bin_targets, enc_assign, num_boxes, enc_valid)["loss_class"]
+                enc, bin_targets, enc_assign, num_boxes, enc_valid, fed_u)["loss_class"]
             l = self.loss_boxes(enc, bin_targets, enc_assign, num_boxes)
             losses["loss_bbox_enc"] = l["loss_bbox"]
             losses["loss_giou_enc"] = l["loss_giou"]

@@ -230,14 +230,17 @@ class APEDeta(nn.Module):
         text_valid: torch.Tensor,  # (B, T) bool
         align_on_fused: bool = True,
         fusion_text_mode: str = "text",
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """fusion_text_mode: what the fusion layers see: ``"text"`` the text
         features, ``"zero"`` one zero token, ``"learnable"`` the learned
         token (built with ``name_prompt_fusion_feature``), ``"none"`` nothing
         (no fusion). align_on_fused: the class heads align to the fused text,
         else to the original; only ``"text"`` has fused text to align to. A
-        model without fusion layers gives the same outputs under both."""
-        backbone_feats = self.backbone(images.to(self.dtype))
+        model without fusion layers gives the same outputs under both.
+        generator: the backbone's drop-path draws in ``train()`` mode (JAX's
+        ``rngs={"dropout": rng}``)."""
+        backbone_feats = self.backbone(images.to(self.dtype), generator)
         feats = self.neck(backbone_feats)
         multi_level_feats = [feats[f] for f in self.in_features]
         level_shapes = [(f.shape[1], f.shape[2]) for f in multi_level_feats]

@@ -14,7 +14,8 @@ Gradients stop (``.detach()``) where JAX's ``jax.lax.stop_gradient`` stops
 them: at the selected proposal boxes and features, and at the references
 between decoder layers (``with_box_refine``). ``use_act_checkpoint`` recomputes every
 encoder and decoder layer in the backward (JAX's ``nn.remat``, policy
-``full``).
+``full``), and every fusion layer (JAX's ``nn.remat(BiAttentionBlock)``): only
+one fusion layer's (S, T) logits and softmaxes are then alive at a time.
 
 Parameter names are the reference's detrex names (``encoder.layers.{i}.
 attentions.0``, ``ffns.0``, ``norms.{j}``, ``decoder.bbox_embed.{i}``, ...).
@@ -253,7 +254,8 @@ class DeformableTransformerEncoder(nn.Module):
         as given when there is no fusion or no text."""
         for i, layer in enumerate(self.layers):
             if self.vl_layers is not None and text is not None:
-                x, text = self.vl_layers[i](x, text, text_valid)
+                x, text = _run_layer(self.vl_layers[i], self.use_act_checkpoint, x, text,
+                                     text_valid)
             x = _run_layer(layer, self.use_act_checkpoint, x, pos, valid_mask, spatial_shapes,
                            reference_points, grid_corrections)
         return x, text

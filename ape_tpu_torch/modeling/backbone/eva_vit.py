@@ -12,9 +12,13 @@ convolutions run channels-first inside. Global blocks (window_size 0) run
 windowed blocks (196 tokens for Ti, 1024 for L_D) stay plain matmul +
 softmax, as JAX leaves every block under 2048 tokens to an XLA einsum.
 
-Stochastic depth is not ported: a block with a drop-path rate above 0 is the
-identity in ``eval()`` mode, as JAX's ``deterministic=True``, and raises in
-``train()`` mode.
+Stochastic depth (``DropPath``) drops both residual branches of a block per
+sample in ``train()`` mode, at rates rising linearly with depth, as JAX's
+``deterministic=False``; in ``eval()`` it is the identity. ``EVAViT`` draws
+every block's keep masks at once from the caller's ``torch.Generator``
+(``draw_keep``) and copies them to the device in one transfer, so a run on
+the card and one on the CPU given generators of one seed drop the same
+branches. A dropped branch is still computed, as in JAX.
 
 Parameter names are the reference's (vit_eva02.py, vit_eva_clip.py):
 ``net.blocks.{i}.attn.qkv`` or ``.attn.{q,k,v}_proj``, ``.attn.inner_attn_ln``,
@@ -25,7 +29,7 @@ Parameter names are the reference's (vit_eva02.py, vit_eva_clip.py):
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -120,23 +124,55 @@ class SwiGLU(nn.Module):
         return self.w3(hidden)
 
 
+class DropPath(nn.Module):
+    """Stochastic depth per sample (JAX's ``DropPath``, timm's semantics): in
+    ``train()`` mode at a rate above 0, each sample's branch ``x`` is scaled
+    by 1 / keep or zeroed, by the sample's entry of ``keep_mask`` (B,) bool,
+    which the caller draws (``draw_keep``); otherwise the identity."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, keep_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if keep_mask is None:
+            raise ValueError(f"drop path at rate {self.rate} in train() needs its keep mask "
+                             "(draw_keep)")
+        keep = 1.0 - self.rate
+        mask = keep_mask.view(-1, *(1,) * (x.dim() - 1))
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def draw_keep(rates: Sequence[float], batch: int, device,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Keep masks (len(rates), 2, batch) bool on ``device``: entry [i, j, b]
+    keeps branch j of block i for sample b with probability 1 - rates[i]
+    (JAX's ``bernoulli``: a uniform below the keep rate). All are drawn on
+    the generator's device (the CPU's default one without a generator), then
+    copied in one transfer."""
+    gen_device = generator.device if generator is not None else "cpu"
+    u = torch.rand(len(rates), 2, batch, generator=generator, device=gen_device)
+    keep = torch.tensor([1.0 - r for r in rates], device=gen_device)
+    return (u < keep[:, None, None]).to(device)
+
+
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_hidden_dim: int, window_size: int = 0,
                  subln: bool = False, inner_attn_ln: bool = False, packed_swiglu: bool = True,
                  swiglu_subln: bool = False, drop_path: float = 0.0):
         super().__init__()
         self.window_size = window_size
-        self.drop_path = drop_path
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, window_size == 0, subln, inner_attn_ln)
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = SwiGLU(dim, mlp_hidden_dim, packed_swiglu, swiglu_subln)
+        self.drop_path = DropPath(drop_path)  # of both branches, as JAX's two
 
-    def forward(self, x, rope_cos, rope_sin):
-        if self.training and self.drop_path > 0:
-            raise NotImplementedError(
-                f"drop path (rate {self.drop_path}) in training is not ported; eval() runs it as "
-                "the identity")
+    def forward(self, x, rope_cos, rope_sin, keep_mask: Optional[torch.Tensor] = None):
+        """keep_mask: (2, B) bool, this block's keep masks of the attention
+        and the MLP branch; read in ``train()`` mode at a rate above 0."""
         y = self.norm1(x)
         if self.window_size > 0:
             h, w = y.shape[1], y.shape[2]
@@ -144,8 +180,9 @@ class Block(nn.Module):
         y = self.attn(y, rope_cos, rope_sin)
         if self.window_size > 0:
             y = window_unpartition(y, self.window_size, pad_hw, (h, w))
-        x = x + y
-        return x + self.mlp(self.norm2(x))
+        keep1, keep2 = (None, None) if keep_mask is None else keep_mask
+        x = x + self.drop_path(y, keep1)
+        return x + self.drop_path(self.mlp(self.norm2(x)), keep2)
 
 
 class PatchEmbed(nn.Module):
@@ -206,6 +243,7 @@ class EVAViT(nn.Module):
         self.pt_hw_seq_len = pt_hw_seq_len
         self.pretrain_use_cls_token = pretrain_use_cls_token
         self.window_block_indexes = tuple(window_block_indexes)
+        self.drop_path_rates = [drop_path_rate * i / max(depth - 1, 1) for i in range(depth)]
         self.patch_embed = PatchEmbed(3, embed_dim, patch_size)
         num_positions = (pretrain_img_size // patch_size) ** 2 + int(pretrain_use_cls_token)
         self.pos_embed = nn.Parameter(torch.zeros(1, num_positions, embed_dim))
@@ -220,7 +258,7 @@ class EVAViT(nn.Module):
                 inner_attn_ln=inner_attn_ln,
                 packed_swiglu=packed_swiglu,
                 swiglu_subln=swiglu_subln,
-                drop_path=drop_path_rate * i / max(depth - 1, 1),
+                drop_path=self.drop_path_rates[i],
             )
             for i in range(depth)
         )
@@ -228,15 +266,20 @@ class EVAViT(nn.Module):
     def _rope(self, seq_len: int, device):
         return _rope_on(self.embed_dim // self.num_heads // 2, seq_len, self.pt_hw_seq_len, device)
 
-    def forward(self, x):
-        """x: (B, H, W, 3) -> (B, H/16, W/16, embed_dim)."""
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """x: (B, H, W, 3) -> (B, H/16, W/16, embed_dim). In ``train()`` mode
+        with drop path the keep masks come from ``generator``."""
         x = self.patch_embed(x)
         b, h, w, c = x.shape
         x = x + resize_abs_pos(self.pos_embed, self.pretrain_use_cls_token, (h, w)).to(x.dtype)
         rope_w = self._rope(self.window_size, x.device)
         rope_g = self._rope(h, x.device)
+        keep = None
+        if self.training and any(self.drop_path_rates):
+            keep = draw_keep(self.drop_path_rates, b, x.device, generator)
         for i, blk in enumerate(self.blocks):
-            x = blk(x, *(rope_w if i in self.window_block_indexes else rope_g))
+            x = blk(x, *(rope_w if i in self.window_block_indexes else rope_g),
+                    None if keep is None else keep[i])
         return x
 
 
@@ -297,8 +340,8 @@ class SimpleFeaturePyramid(nn.Module):
             self.add_module(f"simfp_{stage}", nn.Sequential(*layers))
             self.stages.append(stage)
 
-    def forward(self, x) -> Dict[str, torch.Tensor]:
-        feat = self.net(x).permute(0, 3, 1, 2)
+    def forward(self, x, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        feat = self.net(x, generator).permute(0, 3, 1, 2)
         results = {}
         for stage in self.stages:
             results[f"p{stage}"] = getattr(self, f"simfp_{stage}")(feat).permute(0, 2, 3, 1)

@@ -131,8 +131,10 @@ def build_ape_l_d(
     model on the 4-scale pyramid, recompute, drop path 0.4 by depth). The
     reference latency protocol passes ``mask_on=False`` and
     ``scale_factors=(2.0, 1.0, 0.5)``. Drop path is the identity in
-    ``eval()`` mode; a block whose rate is above 0 raises in ``train()``
-    mode (not ported). name_prompt_fusion_feature: hold the learned token of
+    ``eval()`` mode; in ``train()`` mode it drops branches by the masks
+    the forward's ``generator`` draws. Training passes
+    ``build_optimizer(model, vit_num_layers=24)`` to ``make_train_step``.
+    name_prompt_fusion_feature: hold the learned token of
     ``fusion_text_mode="learnable"``. depth and num_layers (backbone blocks,
     encoder and decoder layers) cut the model for tests and checks.
 

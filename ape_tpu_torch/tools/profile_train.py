@@ -1,11 +1,15 @@
-"""Profile one APE-Ti train step in ``chip_smoke.py``'s train configuration
-(1024^2, batch 2, 300 queries, bf16, recompute checkpointing) on one CUDA
-card, from the root of a checkout:
+"""Profile one train step on one CUDA card, from the root of a checkout: APE-Ti
+in ``chip_smoke.py``'s train configuration (1024^2, batch 2, 300 queries,
+bf16, recompute checkpointing), or APE-L_D in its ``l_d_train`` one (batch
+1, the masked model, drop path 0.4, 1203 texts, the LVIS recipe's
+criterion with the federated loss, ``vit_num_layers=24``):
 
-    python3 -m ape_tpu_torch.tools.profile_train [--masked]
+    python3 -m ape_tpu_torch.tools.profile_train [--masked] [--model l_d] [--batch N]
 
-Without flags the detection model (chip_smoke's phase 8); ``--masked`` the
-full masked model with the mask losses (phase 11). Under
+Without flags the Ti detection model (chip_smoke's phase 8); ``--masked``
+the full masked Ti model with the mask losses (phase 11); ``--model l_d``
+APE-L_D (phase 13's ``l_d_train``); ``--batch`` another batch size (a
+step that runs out of card memory prints its peak and exits 1). Under
 ``APE_MSDA_BWD_MERGED=0`` the encoder's MSDA backward runs on the split
 kernels (K3 + K4) instead of K2; under ``APE_MSDA_FUSED=1`` (K8) or
 ``APE_MSDA_V6=1`` (K9 + K1) its forward takes another form.
@@ -13,9 +17,14 @@ kernels (K3 + K4) instead of K2; under ``APE_MSDA_FUSED=1`` (K8) or
 Prints three JSON lines and the card's nvidia-smi line:
 
 * ``stage_split``: three steps timed by CUDA events: forward with the loss,
-  backward (recompute included), clip with the optimizer step, and the
-  forward of the backbone, neck, encoder, decoder and, with a mask head,
-  the pixel decoder (lateral conv to mask conv);
+  backward (recompute included), clip with the optimizer step; the
+  forward of the backbone, neck, encoder (for L_D with its fusion layers,
+  also apart as ``fusion``), decoder and, with a mask head, the pixel
+  decoder (lateral conv to mask conv); the criterion (the model's end to
+  the loss); the recompute inside the backward (the fusion, encoder and
+  decoder layers' forwards there); the fusion layers' backward, their
+  recompute inside it (from the gradient reaching a layer's outputs to
+  the one leaving its inputs); peak memory;
 * ``profile``: one step under ``torch.profiler``: device busy time (the
   union of kernel intervals) against the step's wall time, kernel and launch
   counts, and the top kernels by summed device time;
@@ -28,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import sys
 import time
 
 import torch
@@ -35,7 +45,7 @@ import torch
 import chip_smoke as cs
 from ape_tpu_torch.engine.optimizer import build_optimizer
 from ape_tpu_torch.engine.train_step import loss_fn, make_train_step
-from ape_tpu_torch.modeling.build import build_ape_ti
+from ape_tpu_torch.modeling.build import build_ape_l_d, build_ape_ti
 from ape_tpu_torch.ops import msda_dispatch
 
 PORT_KERNELS = ("msda_fwd_kernel", "msda_fwd_qlevel", "msda_fwd_dense", "msda_bwd_kernel",
@@ -48,19 +58,84 @@ def _event():
     return ev
 
 
+def span_hooks(spans: dict, marks: dict):
+    """Forward pre- and post-hooks that record a CUDA event into ``marks``
+    as ``{name}0`` and ``{name}1`` for each span (first module, last module);
+    a module that runs more than once keeps its last run."""
+    hooks = [m.register_forward_pre_hook(lambda *_, n=n: marks.__setitem__(n + "0", _event()))
+             for n, (m, _) in spans.items()]
+    hooks += [m.register_forward_hook(lambda *_, n=n: marks.__setitem__(n + "1", _event()))
+              for n, (_, m) in spans.items()]
+    return hooks
+
+
+def timed_forwards(modules: dict, marks: dict):
+    """Wrap each module's forward to record CUDA events into ``marks`` as
+    ``{name}0`` and ``{name}1``: unlike hooks, this also times the forwards
+    that checkpoint's recompute runs inside the backward, which stops each
+    once it has what the backward needs (by an exception, hence the
+    ``finally``). Returns the undo."""
+    for name, m in modules.items():
+        def forward(*args, _f=m.forward, _n=name, **kwargs):
+            marks[_n + "0"] = _event()
+            try:
+                return _f(*args, **kwargs)
+            finally:
+                marks[_n + "1"] = _event()
+
+        m.forward = forward
+    return lambda: [delattr(m, "forward") for m in modules.values()]
+
+
+def backward_spans(modules: dict, marks: dict):
+    """Wrap each module's forward so that the gradients reaching its outputs
+    and leaving through its inputs record CUDA events into ``marks``:
+    ``{name}0`` as the last output gradient arrives, ``{name}1`` as the last
+    input gradient leaves. The span is the module's backward, checkpoint's
+    recompute inside it. Undo before the backward (the returned call): the
+    hooks stay on the forward's tensors."""
+    def mark(key):
+        def hook(grad):
+            marks[key] = _event()
+        return hook
+
+    for name, m in modules.items():
+        def forward(*args, _f=m.forward, _n=name, **kwargs):
+            out = _f(*args, **kwargs)
+            for key, ts in ((_n + "0", out if isinstance(out, tuple) else (out,)),
+                            (_n + "1", args)):
+                for t in ts:
+                    if isinstance(t, torch.Tensor) and t.requires_grad:
+                        t.register_hook(mark(key))
+            return out
+
+        m.forward = forward
+    return lambda: [delattr(m, "forward") for m in modules.values()]
+
+
+def _summed(marks: dict, prefix: str) -> float:
+    """The summed ms of every recorded span whose name starts with prefix."""
+    return sum(marks[k].elapsed_time(marks[k[:-1] + "1"]) for k in marks
+               if k.startswith(prefix) and k.endswith("0") and k[:-1] + "1" in marks)
+
+
 def stage_split(model, crit, opt, sched, batch, gen, steps: int = 3):
-    parts = {"backbone": model.backbone, "neck": model.neck,
-             "encoder": model.transformer.encoder, "decoder": model.transformer.decoder}
+    enc, dec = model.transformer.encoder, model.transformer.decoder
+    spans = {"backbone": (model.backbone, model.backbone), "neck": (model.neck, model.neck),
+             "encoder": (enc, enc), "decoder": (dec, dec), "model": (model, model)}
+    if model.mask_on:
+        spans["pixel_decoder"] = (model.lateral_conv, model.mask_conv)
+    # the layers the backward recomputes (use_act_checkpoint), each a span
+    layers = {f"encoder_layer{i}.": m for i, m in enumerate(enc.layers)}
+    layers.update({f"decoder_layer{i}.": m for i, m in enumerate(dec.layers)})
+    layers.update({f"fusion{i}.": m for i, m in enumerate(enc.vl_layers or ())})
+    fusion = {n: m for n, m in layers.items() if n.startswith("fusion")}
     splits = []
     for _ in range(steps):
-        marks = {}
-        spans = {n: (m, m) for n, m in parts.items()}
-        if model.mask_on:
-            spans["pixel_decoder"] = (model.lateral_conv, model.mask_conv)
-        hooks = [m.register_forward_pre_hook(lambda *_, n=n: marks.__setitem__(n + "0", _event()))
-                 for n, (m, _) in spans.items()]
-        hooks += [m.register_forward_hook(lambda *_, n=n: marks.__setitem__(n + "1", _event()))
-                  for n, (_, m) in spans.items()]
+        marks, recompute, backward = {}, {}, {}
+        hooks = span_hooks({**spans, **{n: (m, m) for n, m in fusion.items()}}, marks)
+        undo = backward_spans(fusion, backward)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
         ev = [_event()]
@@ -68,18 +143,28 @@ def stage_split(model, crit, opt, sched, batch, gen, steps: int = 3):
         ev.append(_event())
         for h in hooks:
             h.remove()
+        undo()
+        undo = timed_forwards(layers, recompute)
         total.backward()
         ev.append(_event())
+        undo()
         torch.nn.utils.clip_grad_norm_(list(model.parameters()), 0.1)
         opt.step()
         sched.step()
         ev.append(_event())
         torch.cuda.synchronize()
+        modules = {n: marks[n + "0"].elapsed_time(marks[n + "1"]) for n in spans if n != "model"}
+        if enc.vl_layers is not None:
+            modules["fusion"] = _summed(marks, "fusion")
         splits.append(dict(
             wall_ms=(time.perf_counter() - t0) * 1e3,
             forward_and_loss_ms=ev[0].elapsed_time(ev[1]), backward_ms=ev[1].elapsed_time(ev[2]),
-            optimizer_ms=ev[2].elapsed_time(ev[3]),
-            forward_modules_ms={n: marks[n + "0"].elapsed_time(marks[n + "1"]) for n in spans}))
+            optimizer_ms=ev[2].elapsed_time(ev[3]), forward_modules_ms=modules,
+            criterion_ms=marks["model1"].elapsed_time(ev[1]),
+            recompute_ms={k: _summed(recompute, k) for k in ("fusion", "encoder_layer",
+                                                               "decoder_layer")},
+            fusion_backward_ms=_summed(backward, "fusion"),
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30))
     return splits
 
 
@@ -123,25 +208,56 @@ def profile_call(fn, top_n: int = 25):
                  launch_calls=launches, top=[[n, c, ms] for n, (c, ms) in top]), ours)
 
 
+def setup(model_name: str, masked: bool, batch_size, dev):
+    """(model, criterion, optimizer, scheduler, batch, generator) of the
+    smoke's train phase for ``model_name``."""
+    if model_name == "l_d":
+        model = build_ape_l_d(num_queries=cs.TRAIN_QUERIES, window_radius=cs.RADIUS,
+                              dtype=torch.bfloat16, device=dev)
+        crit = cs._l_d_criterion()
+        opt, sched = build_optimizer(model, vit_num_layers=24, milestones=(150000, 180000),
+                                     warmup_steps=2000)
+        batch = cs._train_batch(dev, batch_size or cs.L_D_TRAIN_BATCH, cs.TRAIN_IMG, cs.SEED + 4,
+                                masks=True, num_text=cs.L_D_TEXT)
+        gen = torch.Generator().manual_seed(cs.SEED)
+    else:
+        model = build_ape_ti(num_queries=cs.TRAIN_QUERIES, window_radius=cs.RADIUS,
+                             mask_on=masked, use_act_checkpoint=True, dtype=torch.bfloat16,
+                             device=dev)
+        crit = cs._criterion(cs.TRAIN_QUERIES, masked)
+        opt, sched = build_optimizer(model)
+        batch = cs._train_batch(dev, batch_size or cs.TRAIN_BATCH, cs.TRAIN_IMG, cs.SEED + 4,
+                                masks=masked)
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    return cs.init_weights(model, cs.SEED), crit, opt, sched, batch, gen
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--masked", action="store_true", help="the full masked model")
+    parser.add_argument("--masked", action="store_true", help="the full masked Ti model")
+    parser.add_argument("--model", choices=("ti", "l_d"), default="ti",
+                        help="APE-Ti, or APE-L_D (masked, batch 1 by default)")
+    parser.add_argument("--batch", type=int, default=None,
+                        help="batch size (default: 2 for Ti, 1 for L_D)")
     args = parser.parse_args()
     cs.device_phase()
     dev = torch.device("cuda", 0)
-    model = build_ape_ti(num_queries=cs.TRAIN_QUERIES, window_radius=cs.RADIUS, mask_on=args.masked,
-                         use_act_checkpoint=True, dtype=torch.bfloat16, device=dev)
-    model = cs.init_weights(model, cs.SEED)
-    crit = cs._criterion(cs.TRAIN_QUERIES, args.masked)
-    opt, sched = build_optimizer(model)
+    model, crit, opt, sched, batch, gen = setup(args.model, args.masked, args.batch, dev)
     step = make_train_step(model, crit, opt, sched)
-    batch = cs._train_batch(dev, cs.TRAIN_BATCH, cs.TRAIN_IMG, cs.SEED + 4, masks=args.masked)
-    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    for _ in range(2):
-        step(batch, gen)
-    torch.cuda.synchronize()
-    print(json.dumps({"form": {"masked": args.masked, "split": not msda_dispatch.BWD_MERGED,
-                               "window_forward": msda_dispatch.window_form(8)}}), flush=True)
+    form = {"model": args.model, "masked": args.masked or args.model == "l_d",
+            "batch": batch["images"].shape[0], "split": not msda_dispatch.BWD_MERGED,
+            "window_forward": msda_dispatch.window_form(8)}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for _ in range(2):
+            step(batch, gen)
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        print(json.dumps({"out_of_memory": {**form, "peak_memory_gib":
+                                            torch.cuda.max_memory_allocated() / 2**30,
+                                            "error": str(e).splitlines()[0]}}), flush=True)
+        sys.exit(1)
+    print(json.dumps({"form": form}), flush=True)
     print(json.dumps({"stage_split": stage_split(model, crit, opt, sched, batch, gen)}), flush=True)
     prof, ours = profile_call(lambda: step(batch, gen))
     print(json.dumps({"profile": prof}), flush=True)

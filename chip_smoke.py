@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (``ape_tpu_torch``) of APE on one NVIDIA card,
 from the root of a checkout: APE-Ti's protocol inference, detection
 training, the full masked model's inference and training, then APE-L_D's
-serving (the flagship, whose encoder fuses vision and language).
+serving and training (the flagship, whose encoder fuses vision and
+language).
 
     python3 chip_smoke.py
 
@@ -30,8 +31,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    spill; the general bodies' instances (K10: vec2's) are recorded beside;
 3. kernels: each forward CUDA kernel against its plain PyTorch version at
    every shape set the main paths give it (the protocol pyramid at batch 1;
-   the 4-scale pyramid at batch 1 with 900 decoder queries and at batch 2
-   with 300), in f32 (TF32 off) and bf16, with times, and attention's beside
+   the 4-scale pyramid at batch 1 with 900 decoder queries, at batch 2
+   with 300 and, APE-L_D's training, at batch 1 with 300), in f32 (TF32
+   off) and bf16, with times, and attention's beside
    ``F.scaled_dot_product_attention``, in bf16 within four bf16 steps of the
    plain output's largest magnitude, a bound that a K5 with its scale 2 %
    off or with one key tile read in place of another must fail
@@ -55,12 +57,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    MSDA backward (K3, K4) also against the merged one (K2), K3's D = 32
    body's d_loc and d_att bit for bit, K4's D = 32 body's d_value within
    the split bound, their general bodies within bounds and timed beside;
-   K2 at head width 32 (the encoder's and the decoder's case) and, for its
-   general body, 64 (the decoder's);
+   K2 at head width 32 (the encoder's and the decoder's case; at batch 2
+   and, APE-L_D's training, at batch 1) and, for its general body, 64 (the
+   decoder's);
    l_d_kernels: the attention forward (K5) at APE-L_D's global blocks'
    shape, (1, 16, 4096, 64), in f32 and bf16 against the plain version
    within the attention bounds (bf16: with ``attn_faults``), timed beside
-   it and SDPA;
+   it and SDPA; then its backward (K5-dkv, K5-dq and the two together) at
+   that shape against autograd of the plain version, in f32 (1e-4) and
+   bf16 (1e-2 of each output's largest entry), timed beside the plain
+   backward and SDPA's;
 5. slice: ``build_ape_ti`` at the reference latency protocol (1024^2, bf16,
    900 queries, 80 text features of width 1024, N(0, 0.02) weights with the
    ring-init offsets re-armed): launch counts per forward, host syncs (each
@@ -109,7 +115,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     of them global, 2 + 2 layers) at 512^2 in f32 with fan-in weights (the
     fusion's layer scales at 1/6), its encoder memory and fused text
     within 1e-3 of the plain versions on the CPU, then its bf16
-    forward against its f32 one (the gap reported);
+    forward against its f32 one (the gap reported); ``l_d_train``:
+    ``build_ape_l_d(num_queries=300)`` trained as the LVIS recipe trains it
+    (1024^2, batch 1, bf16 over f32 params, masked on the 4-scale pyramid,
+    recompute of the encoder's fusion and deformable layers and the
+    decoder's, drop path 0.4 by depth, 1203 texts, 8 target slots with 4
+    valid and masks, the federated class loss over 50 classes with the LVIS
+    weights, ``build_optimizer(vit_num_layers=24)``, ``make_train_step``
+    with name prompts): a warm-up step, then three timed steps, each
+    launching exactly ``{"msda_fwd": 24, "msda_bwd": 12, "attn_fwd": 8,
+    "attn_bwd_dkv": 8, "attn_bwd_dq": 8}``; finite losses and gradients
+    (none for the last fusion layer's language side, which name prompts do
+    not read), s/step, images/s, peak memory; ``l_d_train_f32``: one f32
+    step of the cut L_D (as ``l_d_f32``, masked on the 4-scale pyramid,
+    300 queries, drop path 0.4, the fed loss, phrase prompts, so that every
+    parameter's gradient is read) with the CUDA kernels against
+    the plain versions on the CPU, both drawing keep masks, assignment
+    noise and the federated uniforms from CPU generators of one seed:
+    exact launches, identical first-stage indices, every gradient within
+    F32_GRAD_RTOL (sampling offsets F32_OFFSET_GRAD_RTOL);
 14. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
     form at both pyramids and both offset draws, its per-pair suites, and
     the ``pair`` and ``rows`` ops by device time under each body, each query
@@ -132,10 +156,11 @@ Then the kernels line (each kernel's launches over every path: ``launches``
 over all of them, ``launches_main`` over the serving and training phases
 alone, 5-13, ``launches_default`` over those of them that run the default
 flags: slice, serve, train, full serve, full train with the merged backward,
-and L_D's slice and serve; error, time, plain and library time, and bound;
-for K1, K3, K4, K6, K7, K8 and K9, whose D = 32 body runs there, the general
-body's time as ``general_ms``; for K6 and K7 also the op's device time,
-``device_ms``; for K5 its bf16 record at L_D's 16 heads as ``l_d``)
+and L_D's slice, serve, train and f32 train; error, time, plain and library
+time, and bound; for K1, K3, K4, K6, K7, K8 and K9, whose D = 32 body runs
+there, the general body's time as ``general_ms``; for K6 and K7 also the
+op's device time, ``device_ms``; for K5, K5-dkv and K5-dq their bf16
+records at L_D's 16 heads as ``l_d``)
 and, last,
 {"ok": true, "device": {...}}. The script needs the repository around it and
 a CUDA card; it imports no JAX.
@@ -175,6 +200,15 @@ STEP_LAUNCHES = {"msda_fwd": 24, "msda_bwd": 12, "attn_fwd": 4, "attn_bwd_dkv": 
 # With the split form the encoder's 6 MSDA backwards run K3 + K4 and the
 # decoder's 6 stay on K2. The mask head launches no MSDA or attention kernel.
 SPLIT_STEP_LAUNCHES = dict(STEP_LAUNCHES, msda_bwd=6, msda_bwd_offatt=6, msda_bwd_value=6)
+# APE-L_D training as the LVIS recipe runs it (tools/bench_train.py with
+# BENCH_MODEL=l_d, at batch 1): build_ape_l_d's defaults (masked, 4-scale,
+# recompute, drop path 0.4 by depth) with 300 queries and 1203 texts, the
+# federated class loss over 50 classes with the LVIS weights. Per step Ti's
+# launches with EVA-02-CLIP-L's 8 global blocks; its fusion layers and
+# windowed blocks are matmuls, and a dropped branch still runs.
+L_D_TRAIN_BATCH = 1
+L_D_STEP_LAUNCHES = dict(STEP_LAUNCHES, attn_fwd=8, attn_bwd_dkv=8, attn_bwd_dq=8)
+L_D_FED_CLASSES = 50
 # Per forward of either model: 4 global attention blocks, 6 + 6 MSDA
 # layers: the encoder's on K1's window entry (no gradient: the clip runs in
 # the kernel), the decoder's on K1.
@@ -278,21 +312,50 @@ def bound(nbytes: float, flops: float, peak: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def msda_bound(kernel: str, b: int, s: int, q: int, l: int, esize: int, d: int = HEAD_DIM):
+def touched_rows(shapes, loc) -> int:
+    """The value rows (batch, token, head) that the bilinear corners of the
+    sampling locations ``loc`` (B, Q, H, L, P, 2) in [0, 1] reach: what a
+    gather of these locations must read of the value. Far fewer than all
+    where few queries sample a large pyramid (the decoder's 300)."""
+    import torch
+
+    b, _, h, _, _, _ = loc.shape
+    hw = torch.tensor(shapes, device=loc.device)  # (L, 2): (H_l, W_l)
+    starts = torch.cumsum(hw[:, 0] * hw[:, 1], 0) - hw[:, 0] * hw[:, 1]
+    s = int((hw[:, 0] * hw[:, 1]).sum())
+    x = loc[..., 0] * hw[:, 1, None] - 0.5  # (B, Q, H, L, P)
+    y = loc[..., 1] * hw[:, 0, None] - 0.5
+    bi = torch.arange(b, device=loc.device).view(b, 1, 1, 1, 1)
+    hi = torch.arange(h, device=loc.device).view(1, 1, h, 1, 1)
+    rows = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xi, yi = torch.floor(x).long() + dx, torch.floor(y).long() + dy
+            inside = (xi >= 0) & (xi < hw[:, 1, None]) & (yi >= 0) & (yi < hw[:, 0, None])
+            token = starts[:, None] + yi * hw[:, 1, None] + xi
+            rows.append(torch.where(inside, (bi * s + token) * h + hi, -1).reshape(-1))
+    return int((torch.unique(torch.cat(rows)) >= 0).sum())
+
+
+def msda_bound(kernel: str, b: int, s: int, q: int, l: int, esize: int, d: int = HEAD_DIM,
+               value_rows=None):
     """Bound of an MSDA kernel with HEADS x d channels, S value tokens, Q
     queries, L levels: each input read once and each output written once
     (locations, offsets and d_loc f32, the rest in the value's dtype; K1's
     window entry also reads Q grid centers, (x, y) in f32, and 2 flops an
-    offset's coordinate, the divide and the add)."""
+    offset's coordinate, the divide and the add). Of the value, a gather
+    reads ``value_rows`` rows of d channels (``touched_rows``; by default
+    every row); d_value is written whole."""
     value, rows = b * s * HEADS * d * esize, b * q * HEADS * d * esize
+    read = value if value_rows is None else value_rows * d * esize
     samples = b * q * HEADS * l * POINTS
     loc, att = samples * 8, samples * esize
     if kernel == "msda_fwd_window":
-        nbytes = value + loc + att + rows + q * 8
+        nbytes = read + loc + att + rows + q * 8
         return bound(nbytes, samples * (d * MSDA_SAMPLE_FLOPS[kernel] + 4), PEAK_FLOPS["float32"])
-    nbytes = {"msda_fwd": value + loc + att + rows,
-              "msda_bwd": 2 * (value + loc + att) + rows,
-              "msda_bwd_offatt": value + 2 * (loc + att) + rows,
+    nbytes = {"msda_fwd": read + loc + att + rows,
+              "msda_bwd": read + value + 2 * (loc + att) + rows,
+              "msda_bwd_offatt": read + 2 * (loc + att) + rows,
               "msda_bwd_value": loc + att + rows + value}[kernel]
     return bound(nbytes, samples * d * MSDA_SAMPLE_FLOPS[kernel], PEAK_FLOPS["float32"])
 
@@ -716,10 +779,12 @@ def _msda_inputs(g, shapes, batch: int, queries: int, dev):
 # (suffix of the case names, pyramid, batch, decoder queries, attention
 # checked). The protocol forward; the full serve forward (4-scale pyramid,
 # S = 87,296; its attention is the protocol's); training (batch 2, 300
-# queries). The kernels line reads the protocol's cases.
+# queries); APE-L_D training (batch 1, 300 queries; its attention is
+# l_d_kernels_phase's). The kernels line reads the protocol's cases.
 FWD_CASES = (("", SHAPES, 1, QUERIES, True),
              ("_full_serve", TRAIN_SHAPES, 1, QUERIES, False),
-             ("_train", TRAIN_SHAPES, TRAIN_BATCH, TRAIN_QUERIES, True))
+             ("_train", TRAIN_SHAPES, TRAIN_BATCH, TRAIN_QUERIES, True),
+             ("_l_d_train", TRAIN_SHAPES, L_D_TRAIN_BATCH, TRAIN_QUERIES, False))
 
 
 def k1_bodies(value, shapes, loc, att, name: str, dname: str) -> dict:
@@ -837,7 +902,7 @@ def kernels_phase(dev):
                     lambda loc=loc, att=att: ms_deform_attn(value, shapes, loc, att), None, "msda",
                     {"value": list(value.shape), "queries": loc.shape[1]},
                     msda_bound("msda_fwd", batch, s, loc.shape[1], len(shapes),
-                               value.element_size()))
+                               value.element_size(), value_rows=touched_rows(shapes, loc)))
                 extra[name] = k1_bodies(value, shapes, loc, att, name, dname)
             att = atts32["encoder"].to(dev, dtype)
             name = f"msda_window{suffix}"
@@ -1064,6 +1129,96 @@ def _errors(names, got, want):
 K2_GENERAL_HEAD_DIM = 64
 
 
+def record_bwd(results: dict, phase: str, name, dname, errors, kernel, plain, bound_ms,
+               vs_merged=None, library=None, extra=None):
+    """Log one backward kernel's record (its errors against autograd of the
+    plain version, its time beside the plain backward's and, with
+    ``library``, beside that call's device time), fail past its bounds, and
+    keep it in ``results`` under (name, dname)."""
+    from ape_tpu_torch.ops.bounds import GRAD_BOUNDS, SPLIT_BOUNDS
+
+    rec = dict(phase=phase, name=name, dtype=dname,
+               max_abs_err=max(e[0] for e in errors.values()),
+               abs_err={n: e[0] for n, e in errors.items()},
+               rel_err={n: e[1] for n, e in errors.items()}, bound=GRAD_BOUNDS[dname],
+               ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+               library_ms=kernel_ms(library) if library else None,
+               bound_ms=bound_ms[0], bound_by=bound_ms[1])
+    if library:  # both timed alike, and the library's by events too
+        rec.update(kernel_device_ms=kernel_ms(kernel), library_event_ms=cuda_ms(library))
+    if vs_merged is not None:
+        rec.update(rel_err_vs_msda_bwd={n: e[1] for n, e in vs_merged.items()},
+                   bound_vs_msda_bwd=SPLIT_BOUNDS[dname])
+    rec.update(extra or {})
+    log(**rec)
+    for n, (_, rel) in errors.items():
+        if not rel <= GRAD_BOUNDS[dname]:
+            fail(f"{name} {dname}: {n}: max |kernel - autograd of plain| / max |plain| {rel} "
+                 f"> {GRAD_BOUNDS[dname]}")
+    for n, (_, rel) in (vs_merged or {}).items():
+        if not rel <= SPLIT_BOUNDS[dname]:
+            fail(f"{name} {dname}: {n}: max |split - merged| / max |merged| {rel} "
+                 f"> {SPLIT_BOUNDS[dname]}")
+    results[(name, dname)] = rec
+
+
+def attention_bwd(record, q, k, v, go, scale: float, dname: str):
+    """The attention backward's kernels on (B, heads, N, 64) inputs: K5-dkv,
+    K5-dq (its delta also against the plain row sum of O * dO) and the two
+    as the train path runs them, each against autograd of the plain
+    attention in f32 on the same inputs, timed beside the plain backward and
+    SDPA's whole backward (``record``, a ``record_bwd``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ape_tpu_torch.ops.attention import (
+        attn_bwd_dkv_cuda,
+        attn_bwd_dq_cuda,
+        attn_fwd_cuda,
+        global_attention_plain,
+    )
+
+    out, lse = attn_fwd_cuda(q, k, v, scale, with_lse=True)
+    dq, delta = attn_bwd_dq_cuda(q, k, v, out, go, lse, scale)
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(global_attention_plain(*leaves, scale), leaves, go.float())
+    plain_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    plain_out = global_attention_plain(*plain_leaves, scale)
+
+    def plain_bwd(*which):  # autograd of the plain version for these of (q, k, v)
+        return lambda: torch.autograd.grad(plain_out, [plain_leaves[i] for i in which], go,
+                                           retain_graph=True)
+
+    def kernel_bwd():  # the attention backward's two launches, as the train path runs them
+        dq_, d = attn_bwd_dq_cuda(q, k, v, out, go, lse, scale)
+        return (dq_, *attn_bwd_dkv_cuda(q, k, v, go, lse, d, scale))
+
+    # the library yardstick: scaled_dot_product_attention's whole backward
+    # (dQ, dK, dV), beside K5-dkv and K5-dq; timed by its kernels' device
+    # time, as autograd's host time between them would otherwise count
+    lib_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_leaves, scale=scale)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, lib_leaves, go, retain_graph=True)
+
+    shape = tuple(q.shape)
+    extra = {"shape": list(shape)}
+    record("attn_bwd_dkv", dname,
+           _errors(("dk", "dv"), attn_bwd_dkv_cuda(q, k, v, go, lse, delta, scale), want[1:]),
+           lambda: attn_bwd_dkv_cuda(q, k, v, go, lse, delta, scale), plain_bwd(1, 2),
+           attn_bound("attn_bwd_dkv", shape, dname), library=lib_bwd, extra=extra)
+    # dQ against autograd, and the delta it writes against the plain row sum
+    # of O * dO (f32 sums of 64 products in two orders)
+    record("attn_bwd_dq", dname,
+           _errors(("dq", "delta"), [dq, delta], [want[0], (out.float() * go.float()).sum(-1)]),
+           lambda: attn_bwd_dq_cuda(q, k, v, out, go, lse, scale), plain_bwd(0),
+           attn_bound("attn_bwd_dq", shape, dname), library=lib_bwd, extra=extra)
+    record("attn_bwd", dname, _errors(("dq", "dk", "dv"), kernel_bwd(), want),
+           kernel_bwd, plain_bwd(0, 1, 2), attn_bound("attn_bwd", shape, dname),
+           library=lib_bwd, extra=extra)
+
+
 def backward_kernels_phase(dev):
     """Each backward kernel against torch autograd of its plain version at the
     training shapes: errors against the plain version in f32 on the same
@@ -1075,16 +1230,8 @@ def backward_kernels_phase(dev):
     bf16."""
     import torch
 
-    from ape_tpu_torch.ops.attention import (
-        attn_bwd_dkv_cuda,
-        attn_bwd_dq_cuda,
-        attn_fwd_cuda,
-        global_attention_plain,
-    )
     from ape_tpu_torch.ops.bounds import GRAD_BOUNDS, SPLIT_BOUNDS
     from ape_tpu_torch.ops.msda import ms_deform_attn
-    import torch.nn.functional as F
-
     from ape_tpu_torch.ops.msda_dispatch import (
         msda_bwd_cuda,
         msda_bwd_offatt_cuda,
@@ -1103,42 +1250,24 @@ def backward_kernels_phase(dev):
     msda_cases[f"msda_bwd_decoder_d{wide}"] = [
         torch.randn(b, value32.shape[1], HEADS, wide, generator=g), locs["decoder"],
         atts["decoder"], torch.randn(b, TRAIN_QUERIES, HEADS * wide, generator=g)]
+    # K2 at APE-L_D training's shapes: the same pyramid and queries at batch 1
+    g1 = torch.Generator().manual_seed(SEED + 9)
+    value1, locs1, atts1, _ = _msda_inputs(g1, TRAIN_SHAPES, L_D_TRAIN_BATCH, TRAIN_QUERIES, dev)
+    for mode, loc in locs1.items():
+        msda_cases[f"msda_bwd_{mode}_l_d_train"] = [
+            value1, loc, atts1[mode],
+            torch.randn(L_D_TRAIN_BATCH, loc.shape[1], HEADS * HEAD_DIM, generator=g1)]
     scale = 64**-0.5
 
     results = {}
-
-    def record(name, dname, errors, kernel, plain, bound_ms, vs_merged=None, library=None,
-               extra=None):
-        rec = dict(phase="kernel_bwd", name=name, dtype=dname,
-                   max_abs_err=max(e[0] for e in errors.values()),
-                   abs_err={n: e[0] for n, e in errors.items()},
-                   rel_err={n: e[1] for n, e in errors.items()}, bound=GRAD_BOUNDS[dname],
-                   ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
-                   library_ms=kernel_ms(library) if library else None,
-                   bound_ms=bound_ms[0], bound_by=bound_ms[1])
-        if library:  # both timed alike, and the library's by events too
-            rec.update(kernel_device_ms=kernel_ms(kernel), library_event_ms=cuda_ms(library))
-        if vs_merged is not None:
-            rec.update(rel_err_vs_msda_bwd={n: e[1] for n, e in vs_merged.items()},
-                       bound_vs_msda_bwd=SPLIT_BOUNDS[dname])
-        rec.update(extra or {})
-        log(**rec)
-        for n, (_, rel) in errors.items():
-            if not rel <= GRAD_BOUNDS[dname]:
-                fail(f"{name} {dname}: {n}: max |kernel - autograd of plain| / max |plain| {rel} "
-                     f"> {GRAD_BOUNDS[dname]}")
-        for n, (_, rel) in (vs_merged or {}).items():
-            if not rel <= SPLIT_BOUNDS[dname]:
-                fail(f"{name} {dname}: {n}: max |split - merged| / max |merged| {rel} "
-                     f"> {SPLIT_BOUNDS[dname]}")
-        results[(name, dname)] = rec
+    record = functools.partial(record_bwd, results, "kernel_bwd")
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         lv = len(TRAIN_SHAPES)
         for name, (value, loc, att, gout) in msda_cases.items():
             value, att, gout = (t.to(dev, dtype) for t in (value, att, gout))
-            (_, s, _, d), nq, es = value.shape, loc.shape[1], value.element_size()
+            (nb, s, _, d), nq, es = value.shape, loc.shape[1], value.element_size()
             merged = msda_bwd_cuda(value, TRAIN_SHAPES, loc, att, gout)
             leaves = [value.detach().float().requires_grad_(), loc.detach().clone().requires_grad_(),
                       att.detach().float().requires_grad_()]
@@ -1189,12 +1318,16 @@ def backward_kernels_phase(dev):
                                                    retain_graph=True)
 
             record(name, dname, err, lambda: msda_bwd_cuda(value, TRAIN_SHAPES, loc, att, gout),
-                   plain_bwd(0, 1, 2), msda_bound("msda_bwd", b, s, nq, lv, es, d))
+                   plain_bwd(0, 1, 2),
+                   msda_bound("msda_bwd", nb, s, nq, lv, es, d, touched_rows(TRAIN_SHAPES, loc)),
+                   extra={"value": list(value.shape), "queries": nq})
             if split is not None:
                 errs, vs = split["msda_bwd_offatt"]
                 record("msda_bwd_offatt", dname, errs,
                        lambda: msda_bwd_offatt_cuda(value, TRAIN_SHAPES, loc, att, gout),
-                       plain_bwd(1, 2), msda_bound("msda_bwd_offatt", b, s, nq, lv, es), vs,
+                       plain_bwd(1, 2), msda_bound("msda_bwd_offatt", nb, s, nq, lv, es,
+                                                   value_rows=touched_rows(TRAIN_SHAPES, loc)),
+                       vs,
                        extra=dict(
                            d32_equals_msda_bwd=True, vs_msda_bwd_body="general",
                            general_rel_err={n: e[1] for n, e in general_errs.items()},
@@ -1203,7 +1336,7 @@ def backward_kernels_phase(dev):
                 errs, vs = split["msda_bwd_value"]
                 record("msda_bwd_value", dname, errs,
                        lambda: msda_bwd_value_cuda(TRAIN_SHAPES, loc, att, gout), plain_bwd(0),
-                       msda_bound("msda_bwd_value", b, s, nq, lv, es), vs,
+                       msda_bound("msda_bwd_value", nb, s, nq, lv, es), vs,
                        extra=dict(
                            body="d32",
                            general_rel_err={n: e[1] for n, e in value_general_errs[0].items()},
@@ -1215,46 +1348,8 @@ def backward_kernels_phase(dev):
             torch.cuda.empty_cache()
 
         q, k, v, go = (t.to(dev, dtype) for t in qkvo32)
-        out, lse = attn_fwd_cuda(q, k, v, scale, with_lse=True)
-        dq, delta = attn_bwd_dq_cuda(q, k, v, out, go, lse, scale)
-        leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
-        want = torch.autograd.grad(global_attention_plain(*leaves, scale), leaves, go.float())
-        plain_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        plain_out = global_attention_plain(*plain_leaves, scale)
-
-        def plain_bwd(*which):  # autograd of the plain version for these of (q, k, v)
-            return lambda: torch.autograd.grad(plain_out, [plain_leaves[i] for i in which], go,
-                                               retain_graph=True)
-
-        def kernel_bwd():  # the attention backward's two launches, as the train path runs them
-            dq_, d = attn_bwd_dq_cuda(q, k, v, out, go, lse, scale)
-            return (dq_, *attn_bwd_dkv_cuda(q, k, v, go, lse, d, scale))
-
-        # the library yardstick: scaled_dot_product_attention's whole
-        # backward (dQ, dK, dV), beside K5-dkv and K5-dq; timed by its
-        # kernels' device time, as autograd's host time between them would
-        # otherwise count (record)
-        lib_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        lib_out = F.scaled_dot_product_attention(*lib_leaves, scale=scale)
-
-        def lib_bwd():
-            return torch.autograd.grad(lib_out, lib_leaves, go, retain_graph=True)
-
-        shape = tuple(q.shape)
-        record("attn_bwd_dkv", dname,
-               _errors(("dk", "dv"), attn_bwd_dkv_cuda(q, k, v, go, lse, delta, scale), want[1:]),
-               lambda: attn_bwd_dkv_cuda(q, k, v, go, lse, delta, scale), plain_bwd(1, 2),
-               attn_bound("attn_bwd_dkv", shape, dname), library=lib_bwd)
-        # dQ against autograd, and the delta it writes against the plain row
-        # sum of O * dO (f32 sums of 64 products in two orders)
-        record("attn_bwd_dq", dname,
-               _errors(("dq", "delta"), [dq, delta], [want[0], (out.float() * go.float()).sum(-1)]),
-               lambda: attn_bwd_dq_cuda(q, k, v, out, go, lse, scale), plain_bwd(0),
-               attn_bound("attn_bwd_dq", shape, dname), library=lib_bwd)
-        record("attn_bwd", dname, _errors(("dq", "dk", "dv"), kernel_bwd(), want),
-               kernel_bwd, plain_bwd(0, 1, 2), attn_bound("attn_bwd", shape, dname),
-               library=lib_bwd)
-        del out, lse, dq, delta, leaves, want, plain_leaves, plain_out, lib_leaves, lib_out
+        attention_bwd(record, q, k, v, go, scale, dname)
+        del q, k, v, go
         torch.cuda.empty_cache()
     return results
 
@@ -1470,11 +1565,12 @@ def f32_phase(model):
         fail("f32 first-stage indices differ between the CUDA kernels and the plain versions")
 
 
-def _train_batch(dev, batch: int, img: int, seed: int, masks: bool = False):
-    """Seeded inputs and targets as tools/bench_train.py draws them: 80 texts
-    of width 1024; 8 target slots per image, 4 valid, labels in [0, 80),
-    cxcywh boxes uniform in [0.2, 0.6); with ``masks`` GT masks at img / 4
-    drawn as rand > 0.7."""
+def _train_batch(dev, batch: int, img: int, seed: int, masks: bool = False,
+                 num_text: int = NUM_TEXT):
+    """Seeded inputs and targets as tools/bench_train.py draws them: num_text
+    texts of width 1024; 8 target slots per image, 4 valid, labels in [0,
+    num_text), cxcywh boxes uniform in [0.2, 0.6); with ``masks`` GT masks at
+    img / 4 drawn as rand > 0.7."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -1482,10 +1578,10 @@ def _train_batch(dev, batch: int, img: int, seed: int, masks: bool = False):
     out = {
         "images": torch.randn(batch, img, img, 3, generator=g),
         "image_sizes": torch.tensor([[img, img]] * batch),
-        "text_features": torch.randn(batch, NUM_TEXT, 1024, generator=g),
-        "text_valid": torch.ones(batch, NUM_TEXT, dtype=torch.bool),
+        "text_features": torch.randn(batch, num_text, 1024, generator=g),
+        "text_valid": torch.ones(batch, num_text, dtype=torch.bool),
         "targets": {
-            "labels": torch.randint(0, NUM_TEXT, (batch, slots), generator=g),
+            "labels": torch.randint(0, num_text, (batch, slots), generator=g),
             "boxes": 0.2 + 0.4 * torch.rand(batch, slots, 4, generator=g),
             "valid": (torch.arange(slots) < 4)[None].repeat(batch, 1),
         },
@@ -1525,22 +1621,28 @@ def _train_setup(dev, mask_on: bool):
     return model, step, batch
 
 
-def _train_steps(model, step, batch, dev, per_step, steps: int = TRAIN_STEPS):
+def _train_steps(model, step, batch, dev, per_step, steps: int = TRAIN_STEPS, gen=None,
+                 unused=frozenset()):
     """One warm-up step, whose losses and every parameter's gradient must be
-    finite, then ``steps`` timed steps with the launch counts set to 0 just
-    before them and held to ``per_step`` each. Returns the record's fields."""
+    finite (none for the parameters in ``unused``, which the loss does not
+    read), then ``steps`` timed steps with the launch counts set to 0 just
+    before them and held to ``per_step`` each. The step's generator is
+    ``gen``, by default one on the card. Returns the record's fields."""
     import torch
 
     from ape_tpu_torch.ops import _build
 
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if gen is None:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
     metrics = step(batch, gen)  # warm-up
     torch.cuda.synchronize()
     bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
     no_grad = [n for n, p in model.named_parameters()
-               if p.requires_grad and (p.grad is None or not bool(torch.isfinite(p.grad).all()))]
+               if p.requires_grad and ((p.grad is None) != (n in unused) or (
+                   p.grad is not None and not bool(torch.isfinite(p.grad).all())))]
     if bad or no_grad:
-        fail(f"warm-up step: non-finite {bad}; missing or non-finite gradients {no_grad[:10]}")
+        fail(f"warm-up step: non-finite {bad}; missing, unexpected or non-finite gradients "
+             f"{no_grad[:10]}")
 
     torch.cuda.reset_peak_memory_stats(dev)
     want = {k: steps * per_step.get(k, 0) for k in _build.LAUNCHES}
@@ -1559,7 +1661,7 @@ def _train_steps(model, step, batch, dev, per_step, steps: int = TRAIN_STEPS):
         fail(f"launches over {steps} train steps {launches}, expected {want}")
     s_step = sum(seconds) / len(seconds)
     return dict(steps=steps, seconds_per_step=seconds, s_per_step=s_step,
-                images_per_s=TRAIN_BATCH / s_step,
+                images_per_s=batch["images"].shape[0] / s_step,
                 max_memory_allocated_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
                 launches=launches, launches_per_step={k: v // steps for k, v in launches.items()},
                 losses={k: float(v) for k, v in metrics.items()})
@@ -1632,18 +1734,19 @@ def perturbed(batch, seed: int):
     return dict(batch, images=images * (1 + PERTURB * noise.to(images.device)))
 
 
-def step_grads(model, crit, batch, seed: int):
-    """One f32 loss and backward: (total, first-stage indices, {name: gradient
-    on the CPU})."""
+def step_grads(model, crit, batch, seed: int, prompt: str = "name"):
+    """One f32 loss and backward with ``prompt``'s routing, its draws from a
+    CPU generator of ``seed``: (total, first-stage indices, {name: gradient
+    on the CPU} of the parameters the loss reads)."""
     import torch
 
     from ape_tpu_torch.engine.train_step import loss_fn
 
     model.zero_grad(set_to_none=True)
-    total, _, outputs = loss_fn(model, crit, batch, torch.Generator().manual_seed(seed))
+    total, _, outputs = loss_fn(model, crit, batch, torch.Generator().manual_seed(seed), prompt)
     total.backward()
     return (total.item(), outputs["first_stage_indices"].cpu(),
-            {n: p.grad.cpu() for n, p in model.named_parameters()})
+            {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None})
 
 
 def train_f32_phase(dev, mask_on: bool = False):
@@ -1884,7 +1987,10 @@ def l_d_kernels_phase(dev):
     """K5 at L_D's global blocks' shape, (1, 16, 4096, 64), in f32 (TF32 off)
     and bf16 against the plain version within the attention bounds (bf16:
     with ``attn_faults``), timed beside the plain version and
-    ``F.scaled_dot_product_attention``."""
+    ``F.scaled_dot_product_attention``; then its backward, K5-dkv and K5-dq,
+    at that shape against autograd of the plain version within
+    ``GRAD_BOUNDS``, timed beside the plain backward and SDPA's
+    (``attention_bwd``). Returns the records by (name, dtype)."""
     import torch
     import torch.nn.functional as F
 
@@ -1893,6 +1999,7 @@ def l_d_kernels_phase(dev):
 
     g = torch.Generator().manual_seed(SEED + 3)
     qkv32 = [torch.randn(*L_D_ATTN_SHAPE, generator=g) for _ in range(3)]
+    go32 = torch.randn(*L_D_ATTN_SHAPE, generator=g)
     scale = L_D_ATTN_SHAPE[-1] ** -0.5
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1913,7 +2020,11 @@ def l_d_kernels_phase(dev):
         log(**rec)
         if not err <= rec["bound"]:
             fail(f"K5 at {L_D_ATTN_SHAPE} {dname}: max |kernel - plain| {err} > {rec['bound']}")
-        results[dname] = rec
+        results[("attention", dname)] = rec
+        attention_bwd(functools.partial(record_bwd, results, "l_d_kernel_bwd"), q, k, v,
+                      go32.to(dev, dtype), scale, dname)
+        del q, k, v, want
+        torch.cuda.empty_cache()
     return results
 
 
@@ -2038,6 +2149,151 @@ def l_d_f32_phase(dev):
     torch.cuda.empty_cache()
 
 
+def l_d_unused(model) -> frozenset:
+    """The parameters an L_D step with name prompts does not read: the last
+    fusion layer's language side, whose fused text no head aligns to (JAX's
+    gradients there are 0)."""
+    pre = f"transformer.encoder.vl_layers.{len(model.transformer.encoder.vl_layers) - 1}.b_attn."
+    return frozenset(pre + n for n in ("attn.values_v_proj.weight", "attn.values_v_proj.bias",
+                                       "attn.out_l_proj.weight", "attn.out_l_proj.bias",
+                                       "gamma_l"))
+
+
+def _l_d_criterion():
+    """The LVIS recipe's criterion: losses class, boxes and masks over 1203
+    classes, the federated class loss over L_D_FED_CLASSES with the LVIS
+    weights (the port's copy of the counts)."""
+    import torch
+
+    from ape_tpu_torch.data.datasets.metadata import fed_loss_cls_weights
+    from ape_tpu_torch.modeling.ape_deta.criterion import DeformableCriterion, default_weight_dict
+
+    return DeformableCriterion(
+        num_classes=L_D_TEXT, weight_dict=default_weight_dict(), num_queries=TRAIN_QUERIES,
+        losses=("class", "boxes", "masks"), use_fed_loss=True,
+        fed_loss_num_classes=L_D_FED_CLASSES,
+        fed_loss_cls_weights=torch.tensor(fed_loss_cls_weights("lvis_v1_train")))
+
+
+def l_d_train_phase(dev, card):
+    """APE-L_D training at 1024^2, batch 1, bf16 over f32 parameters:
+    ``build_ape_l_d(num_queries=300)`` (masked, 4-scale, recompute, drop path
+    0.4 by depth), 1203 texts, 8 target slots with 4 valid and masks, the
+    LVIS recipe's criterion, ``build_optimizer(vit_num_layers=24)`` with the
+    recipe's warmup and milestones, ``make_train_step`` with name prompts;
+    its generator on the CPU. A warm-up step (finite losses, every read
+    parameter's gradient finite), then three timed steps: exact launches,
+    s/step, images/s, peak memory. Returns the launches."""
+    import torch
+
+    from ape_tpu_torch.engine.optimizer import build_optimizer
+    from ape_tpu_torch.engine.train_step import make_train_step
+    from ape_tpu_torch.modeling.build import build_ape_l_d
+
+    model = build_ape_l_d(num_queries=TRAIN_QUERIES, window_radius=RADIUS, dtype=torch.bfloat16,
+                          device=dev)
+    model = init_weights(model, SEED)
+    optimizer, scheduler = build_optimizer(model, vit_num_layers=24, milestones=(150000, 180000),
+                                           warmup_steps=2000)
+    step = make_train_step(model, _l_d_criterion(), optimizer, scheduler)
+    batch = _train_batch(dev, L_D_TRAIN_BATCH, TRAIN_IMG, SEED + 4, masks=True, num_text=L_D_TEXT)
+    rec = _train_steps(model, step, batch, dev, L_D_STEP_LAUNCHES,
+                       gen=torch.Generator().manual_seed(SEED), unused=l_d_unused(model))
+    launches = rec.pop("launches")
+    missing = [k for k in ("loss_mask", "loss_dice", "loss_class_enc") if k not in rec["losses"]]
+    if missing:
+        fail(f"L_D train step: no {missing}")
+    log(phase="l_d_train", dtype="bfloat16", image=TRAIN_IMG, batch=L_D_TRAIN_BATCH,
+        queries=TRAIN_QUERIES, texts=L_D_TEXT, tokens=sum(h * w for h, w in TRAIN_SHAPES),
+        drop_path=max(model.backbone.net.drop_path_rates), fed_loss_classes=L_D_FED_CLASSES,
+        params=sum(p.numel() for p in model.parameters()), **rec, card=card)
+    del model, step, optimizer, scheduler, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def l_d_train_f32_phase(dev):
+    """One f32 step (TF32 off) of L_D at full width with its depth cut
+    (L_D_F32_DEPTH blocks, 2 of them global; L_D_F32_LAYERS + L_D_F32_LAYERS
+    layers) at 512^2, masked on the 4-scale pyramid, 1203 texts, fan-in
+    weights with the encoder's sampling_offsets weights at 0 (as phase 12),
+    drop path 0.4 and the federated loss: the card's step with the CUDA
+    kernels and the plain versions' on the CPU draw their keep masks,
+    assignment noise and federated uniforms from CPU generators of one
+    seed. The step routes phrase prompts, so that every parameter's
+    gradient is read and none is zero by the softmax's shift invariance:
+    under name prompts the last fusion layer's key bias reaches only the
+    vision side's softmax over the text, which a bias shared by every key
+    leaves unchanged, so its gradient is rounding alone (13x apart on the
+    card and the CPU, relative to the CPU's). Every gradient held against
+    the CPU's within F32_GRAD_RTOL (F32_OFFSET_GRAD_RTOL for sampling
+    offsets), the first-stage indices identical. Returns the card step's
+    launches."""
+    import torch
+
+    from ape_tpu_torch.modeling.backbone.eva_vit import draw_keep
+    from ape_tpu_torch.modeling.build import build_ape_l_d
+    from ape_tpu_torch.ops import _build
+
+    model = build_ape_l_d(num_queries=TRAIN_QUERIES, window_radius=RADIUS, depth=L_D_F32_DEPTH,
+                          num_layers=L_D_F32_LAYERS, device="cpu")
+    model = init_weights(model, SEED, fan_in=True).train()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("transformer.encoder.") and name.endswith("sampling_offsets.weight"):
+                p.zero_()
+    cpu_model = copy.deepcopy(model)
+    # without recompute on the CPU: the same gradients, one forward fewer
+    cpu_model.transformer.encoder.use_act_checkpoint = False
+    cpu_model.transformer.decoder.use_act_checkpoint = False
+    model = model.to(dev)
+    crit = _l_d_criterion()
+    batch = _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5, masks=True, num_text=L_D_TEXT)
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    gpu_total, gpu_sel, gpu_grads = step_grads(model, crit, _to(batch, dev), SEED, "phrase")
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    layers = 2 * L_D_F32_LAYERS  # encoder and decoder
+    global_blocks = L_D_F32_DEPTH // 3
+    want = {"msda_fwd": 2 * layers, "msda_bwd": layers, "attn_fwd": global_blocks,
+            "attn_bwd_dkv": global_blocks, "attn_bwd_dq": global_blocks}
+    if launches != want:
+        fail(f"L_D f32 train step: launches {launches}, expected {want}")
+    gpu_s = time.perf_counter() - t0
+    cpu_total, cpu_sel, cpu_grads = step_grads(cpu_model, crit, batch, SEED, "phrase")
+    names = set(n for n, _ in model.named_parameters())
+    if set(gpu_grads) != names or set(cpu_grads) != names:
+        fail(f"L_D f32 train step: parameters without a gradient "
+             f"{sorted(names - set(gpu_grads))} (card), {sorted(names - set(cpu_grads))} (CPU)")
+    rel = grad_rel_errors(gpu_grads, cpu_grads)
+    over = sorted(((n, r, f32_grad_bound(n)) for n, r in rel.items() if not r <= f32_grad_bound(n)),
+                  key=lambda t: -t[1] / t[2])
+    same_sel = bool(torch.equal(gpu_sel, cpu_sel))
+    # the step's keep masks: its generator's first draw
+    keep = draw_keep(model.backbone.net.drop_path_rates, 1, "cpu",
+                     torch.Generator().manual_seed(SEED))
+    dropped = int((~keep).sum())
+    log(phase="l_d_train_f32_vs_plain", image=F32_TRAIN_IMG, depth=L_D_F32_DEPTH,
+        layers=L_D_F32_LAYERS, texts=L_D_TEXT, prompt="phrase", launches=launches,
+        total_loss_cuda=gpu_total,
+        total_loss_cpu=cpu_total, first_stage_indices_identical=same_sel, params=len(rel),
+        dropped_branches=dropped,
+        worst_grad_rel_err=sorted(((n, r) for n, r in rel.items() if "sampling_offsets" not in n),
+                                  key=lambda kv: -kv[1])[:3], bound=F32_GRAD_RTOL,
+        worst_offset_grad_rel_err=sorted(((n, r) for n, r in rel.items()
+                                          if "sampling_offsets" in n), key=lambda kv: -kv[1])[:3],
+        offset_bound=F32_OFFSET_GRAD_RTOL, gpu_seconds=gpu_s,
+        cpu_seconds=time.perf_counter() - t0 - gpu_s)
+    if not same_sel:
+        fail("L_D f32 train step: first-stage indices differ between the card and the CPU")
+    if over:
+        fail(f"L_D f32 train step: {len(over)} gradients over their bound, worst (name, rel, "
+             f"bound) {over[:3]}")
+    del model, cpu_model, gpu_grads, cpu_grads
+    torch.cuda.empty_cache()
+    return launches
+
+
 def race_phase(dev, card):
     """``ape_tpu_torch.tools.msda_race`` as a path of its own: every
     window-MSDA form at both pyramids and offset draws, then the per-pair
@@ -2135,6 +2391,8 @@ def main():
     default_runs.append(l_d_serve_phase(dev, card, tower))
     del tower
     l_d_f32_phase(dev)
+    default_runs.append(l_d_train_phase(dev, card))
+    default_runs.append(l_d_train_f32_phase(dev))
     log(phase="l_d_done", seconds=time.perf_counter() - t0)
     main_runs = default_runs + flag_runs
     runs = list(main_runs)
@@ -2182,8 +2440,10 @@ def main():
                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                **{k: rec[k] for k in ("general_ms", "device_ms") if k in rec}}
-        if name == "attn_fwd":  # K5 at L_D's 16 heads, bf16
-            row["l_d"] = {k: l_d_attn["bfloat16"][k] for k in (
+        l_d_case = {"attn_fwd": "attention", "attn_bwd_dkv": "attn_bwd_dkv",
+                    "attn_bwd_dq": "attn_bwd_dq"}.get(name)
+        if l_d_case:  # K5 and its backward at L_D's 16 heads, bf16
+            row["l_d"] = {k: l_d_attn[(l_d_case, "bfloat16")][k] for k in (
                 "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)

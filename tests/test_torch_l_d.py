@@ -124,22 +124,6 @@ def test_l_d_block_at_full_width_in_a_padded_window(rng):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
-def test_drop_path_is_the_identity_in_eval_and_refused_in_training(rng):
-    """A backbone built with drop path equals one without it in eval();
-    in train() a block whose rate is above 0 raises (not ported)."""
-    vit = dict(patch_size=16, embed_dim=32, depth=3, num_heads=2, window_size=2,
-               window_block_indexes=(0, 1), packed_swiglu=False, subln=True)
-    torch.manual_seed(0)
-    plain = eva_vit.EVAViT(**vit).eval()
-    dropping = eva_vit.EVAViT(drop_path_rate=0.4, **vit).eval()
-    dropping.load_state_dict(plain.state_dict())
-    x = _t(rng.randn(1, 64, 64, 3).astype(np.float32))
-    with torch.no_grad():
-        torch.testing.assert_close(dropping(x), plain(x), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="drop path"):
-        dropping.train()(x)
-
-
 @pytest.mark.parametrize("clamped", [False, True])
 def test_bi_attention_block_with_padded_text(rng, clamped):
     """Both outputs of the fusion block, text with invalid slots; with the

@@ -1,0 +1,45 @@
+"""``ape_tpu_torch/tools/profile_train.py`` on the CPU: its stage split of one
+train step of a tiny APE-L_D, with host-clock events in place of the card's
+CUDA events: the fusion layers' forward, the recompute inside the backward
+(which module hooks do not see, and which checkpoint stops early) and the
+fusion layers' backward spans; the wrappers gone after the step. The
+profile itself needs a card."""
+
+import pytest
+import torch
+
+from ape_tpu_torch.engine.optimizer import build_optimizer
+from ape_tpu_torch.modeling.ape_deta.criterion import DeformableCriterion, default_weight_dict
+from ape_tpu_torch.tools import profile_train
+from tests.test_torch_profile_forward import HostEvent
+from tests.test_torch_train import NUM_TEXT, QUERIES, _port_batch, _slice_batch
+from tests.torch_parity import torch_tiny_l_d
+
+
+@pytest.mark.parametrize("recompute", [False, True], ids=["no_recompute", "recompute"])
+def test_train_stage_split_times_the_fusion_and_the_recompute(monkeypatch, recompute):
+    monkeypatch.setattr(profile_train, "_event", HostEvent)
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    torch.manual_seed(0)
+    model = torch_tiny_l_d()
+    model.transformer.encoder.use_act_checkpoint = recompute
+    model.transformer.decoder.use_act_checkpoint = recompute
+    crit = DeformableCriterion(num_classes=NUM_TEXT, num_queries=QUERIES,
+                               weight_dict=default_weight_dict())
+    opt, sched = build_optimizer(model)
+    (split,) = profile_train.stage_split(model, crit, opt, sched, _port_batch(_slice_batch()),
+                                         torch.Generator().manual_seed(0), steps=1)
+    modules = split["forward_modules_ms"]
+    assert 0 < modules["fusion"] < modules["encoder"] < split["forward_and_loss_ms"]
+    assert 0 < split["criterion_ms"] < split["forward_and_loss_ms"]
+    recomputed = split["recompute_ms"]
+    assert sorted(recomputed) == ["decoder_layer", "encoder_layer", "fusion"]
+    if recompute:
+        assert all(v > 0 for v in recomputed.values())
+        assert recomputed["fusion"] < split["fusion_backward_ms"] < split["backward_ms"]
+    else:
+        assert not any(recomputed.values())
+        assert 0 < split["fusion_backward_ms"] < split["backward_ms"]
+    assert not any("forward" in vars(m) for m in model.modules())  # the wrappers undone
