@@ -14,6 +14,15 @@ inverted:
   mask head lateral_norm / output_norm  -> the ``norm`` of lateral_conv / output_conv
   encoder vl_layers_{i}                 -> vl_layers.{i}.b_attn (the reference's
                                            fusion wrapper, which JAX's converter strips)
+  ResNet stem_conv / stem_norm          -> stem.conv1 / stem.conv1.norm
+  res{s}_block{i}/conv{j}, norm{j}      -> res{s}.{i}.conv{j}, conv{j}.norm
+  res{s}_block{i}/shortcut{,_norm}      -> res{s}.{i}.shortcut{,.norm}
+  FrozenBN scale / bias / mean / var    -> weight / bias / running_mean /
+                                           running_var (buffers)
+
+JAX's converter has no rule for three leaves of the closed-vocabulary and
+single-stage trees, which keep JAX's names here: ``class_embedding``,
+``transformer.query_embed`` and ``transformer.reference_points``.
 
 ``language_state_dict_from_jax`` is likewise the inverse of
 ``convert_language_state_dict`` for the EVA-CLIP text tower.
@@ -62,8 +71,33 @@ _DEC_PARTS = {"cross_attn": "attentions.1", "ffn/fc1": "ffns.0.layers.0.0",
               "norm3": "norms.2"}
 
 
+_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _convert_resnet(key: str, v):
+    """(torch name, numpy value) of a ResNet key (the inverse of JAX's
+    ``_convert_resnet``: stem_{conv,norm}, res{s}_block{i}/{conv,norm}{j},
+    shortcut{,_norm}), or None."""
+    m = re.fullmatch(r"backbone/stem_(conv|norm)/(kernel|scale|bias|mean|var)", key)
+    if m:
+        return ("backbone.stem.conv1.weight", _conv(v)) if m[1] == "conv" else (
+            f"backbone.stem.conv1.norm.{_BN[m[2]]}", np.asarray(v))
+    m = re.fullmatch(r"backbone/(res\d)_block(\d+)/(conv\d|norm\d|shortcut|shortcut_norm)/"
+                     r"(kernel|scale|bias|mean|var)", key)
+    if not m:
+        return None
+    stage, block, part, kind = m.groups()
+    base = f"backbone.{stage}.{block}."
+    if part.startswith("conv") or part == "shortcut":
+        return f"{base}{part}.weight", _conv(v)
+    conv = "shortcut" if part == "shortcut_norm" else f"conv{part[-1]}"
+    return f"{base}{conv}.norm.{_BN[kind]}", np.asarray(v)
+
+
 def _convert_one(key: str, v, neck_levels, num_layers: int):
     """(torch name, numpy value) for one flat flax key, or None."""
+    if key.startswith(("backbone/res", "backbone/stem_")):
+        return _convert_resnet(key, v)
     m = re.fullmatch(r"backbone/net/patch_embed/(kernel|bias)", key)
     if m:
         return f"backbone.net.patch_embed.proj.{_leaf(m[1])}", _tf(m[1], _conv)(v)
@@ -90,8 +124,11 @@ def _convert_one(key: str, v, neck_levels, num_layers: int):
     m = re.fullmatch(r"neck/extra_(conv|gn)_(\d+)/(kernel|scale|bias)", key)
     if m:
         return f"neck.extra_convs.{m[2]}.{m[1]}.{_leaf(m[3])}", _tf(m[3], _conv)(v)
-    if key == "transformer/level_embeds":
-        return "transformer.level_embeds", np.asarray(v)
+    if key in ("transformer/level_embeds", "transformer/query_embed", "class_embedding"):
+        return key.replace("/", "."), np.asarray(v)
+    m = re.fullmatch(r"transformer/reference_points/(kernel|bias)", key)
+    if m:
+        return f"transformer.reference_points.{_leaf(m[1])}", _tf(m[1])(v)
     m = re.fullmatch(r"transformer/(enc_output|pos_trans|pix_trans)(_norm)?/(kernel|scale|bias)", key)
     if m:
         return f"transformer.{m[1]}{m[2] or ''}.{_leaf(m[3])}", _tf(m[3])(v)
@@ -144,9 +181,9 @@ def _convert_one(key: str, v, neck_levels, num_layers: int):
 
 
 def state_dict_from_jax(flat_params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flat flax params ("a/b/kernel" -> numpy) of an APE-Ti or APE-L_D tree
-    (the protocol's or the masked model's) to the port's state_dict. Raises
-    on a key it cannot place."""
+    """Flat flax params ("a/b/kernel" -> numpy) of an APE-Ti, APE-L_D or R50
+    tree (the protocol's or the masked model's; Deformable-DETR's) to the
+    port's state_dict. Raises on a key it cannot place."""
     neck_levels = sorted({m[1] for k in flat_params
                           if (m := re.fullmatch(r"neck/conv_(\w+)/kernel", k))})
     num_layers = len({m[1] for k in flat_params if (m := re.match(r"class_embed_(\d+)/", k))})

@@ -10,7 +10,10 @@ losses ``("class", "boxes", "masks")``:
     half-pixel centres (``jax.image.resize(..., "nearest")``); the auxiliary
     layers take them only when the model emits their masks (``aux_mask``);
   * stage2 assignment against the detached initial references, shared by the
-    final and the auxiliary decoder layers;
+    final and the auxiliary decoder layers; with ``use_stage2=False`` (the
+    Deformable-DETR R50 recipes) each decoder layer matched by the
+    Hungarian instead (focal, L1 and GIoU costs, JAX's auction on the host:
+    ``matchers.hungarian_match``, one host sync a call);
   * stage1 assignment on the binary encoder proposals against their anchors;
   * ``total`` weighs every term by ``weight_dict`` with the ``_{i}`` and
     ``_enc`` suffixes fanned out to their base name.
@@ -32,8 +35,7 @@ per kept column (ROADMAP, Queue 3, trait 10).
 
 Not ported yet: the point-sampled ``masks_maskdino`` loss
 (``mask_point_sample=True``; without it ``masks_maskdino`` is the dense loss,
-as in JAX), the ``pred_iou`` / ``anchor_iou`` losses and the Hungarian
-fallback.
+as in JAX) and the ``pred_iou`` / ``anchor_iou`` losses.
 """
 
 from __future__ import annotations
@@ -45,7 +47,11 @@ from typing import Dict, Iterable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ape_tpu_torch.modeling.ape_deta.matchers import stage1_assign, stage2_assign
+from ape_tpu_torch.modeling.ape_deta.matchers import (
+    hungarian_match,
+    stage1_assign,
+    stage2_assign,
+)
 from ape_tpu_torch.ops.box_ops import box_cxcywh_to_xyxy, elementwise_generalized_box_iou
 from ape_tpu_torch.ops.misc import sigmoid_focal_loss
 
@@ -151,6 +157,8 @@ class DeformableCriterion:
     alpha: float = 0.25
     gamma: float = 2.0
     num_queries: int = 900
+    # False: every decoder layer matched by the Hungarian, not stage2
+    use_stage2: bool = True
     stage2_iou_thresh: float = 0.6
     stage2_max_k: int = 4
     stage1_t_low: float = 0.3
@@ -274,8 +282,13 @@ class DeformableCriterion:
         if class_valid is None:
             lo = outputs["pred_logits"]
             class_valid = torch.ones(lo.shape[0], lo.shape[2], dtype=torch.bool, device=lo.device)
-        with torch.no_grad():
-            assign = self.match(outputs, targets, generator)
+        heads = [(outputs, "")] + [(aux, f"_{i}") for i, aux in enumerate(outputs.get("aux_outputs", []))]
+        if self.use_stage2:
+            with torch.no_grad():
+                assigns = [self.match(outputs, targets, generator)] * len(heads)
+        else:
+            assigns = hungarian_match([h for h, _ in heads], targets["labels"], targets["boxes"],
+                                      targets["valid"]).unbind(0)
         fed_u = None
         if self.use_fed_loss and self.fed_loss_cls_weights is not None:
             widths = [outputs["pred_logits"].shape[-1]]
@@ -283,8 +296,7 @@ class DeformableCriterion:
                 widths.append(outputs["enc_outputs"]["pred_logits"].shape[-1])
             fed_u = self.draw_fed_uniforms(widths, generator, outputs["pred_logits"].device)
         losses = {}
-        heads = [(outputs, "")] + [(aux, f"_{i}") for i, aux in enumerate(outputs.get("aux_outputs", []))]
-        for out, suffix in heads:
+        for (out, suffix), assign in zip(heads, assigns):
             if "class" in self.losses:
                 l = self.loss_labels(out, targets, assign, num_boxes, class_valid, fed_u)
                 losses[f"loss_class{suffix}"] = l["loss_class"]

@@ -1,8 +1,10 @@
 """APE core vision model (counterpart of ``ape_tpu/modeling/ape_deta/model.py``):
 
-  backbone (SimpleFeaturePyramid) -> ChannelMapper neck -> 5-level tokens, sine
-  position embeddings and per-level validity masks -> two-stage DETA
-  transformer -> per-decoder-layer VisionLanguageAlign class logits, and with
+  backbone (SimpleFeaturePyramid, or the R50 family's ResNet) -> ChannelMapper
+  neck -> 5-level tokens, sine position embeddings and per-level validity
+  masks -> two-stage DETA transformer (or Deformable-DETR's single-stage one)
+  -> per-decoder-layer VisionLanguageAlign class logits (against the text, or
+  the closed vocabulary's learned ``class_embedding``), and with
   ``mask_on`` the MaskDINO-style mask head: a pixel decoder from one level of
   the encoder memory plus a lateral backbone map, and mask logits as the
   product of each query's ``mask_embed`` with the pixel features.
@@ -94,16 +96,22 @@ class ChannelMapper(nn.Module):
     """Per-level 1x1 conv + GroupNorm(32) to a common width; with num_outs
     above the input count, stride-2 3x3 extra convs, the first on the raw last
     input and the rest chained (detrex ChannelMapper). Dict of (B, H, W, C)
-    maps in, dict out: the inputs under their names, extras as ``extra{i}``."""
+    maps in, dict out: the inputs under their names, extras as ``extra{i}``.
+    in_channels: one width for every input, or one per input (R50's res3-res5:
+    512, 1024, 2048)."""
 
-    def __init__(self, in_features: Sequence[str], in_channels: int, out_channels: int = 256,
-                 num_outs: int = 5, num_groups: int = 32):
+    def __init__(self, in_features: Sequence[str], in_channels: Sequence[int] | int,
+                 out_channels: int = 256, num_outs: int = 5, num_groups: int = 32):
         super().__init__()
         self.in_features = tuple(in_features)
+        widths = ([in_channels] * len(self.in_features) if isinstance(in_channels, int)
+                  else list(in_channels))
+        if len(widths) != len(self.in_features):
+            raise ValueError(f"ChannelMapper: {len(widths)} widths for {self.in_features}")
         self.convs = nn.ModuleList(
-            _ConvGN(in_channels, out_channels, 1, 1, num_groups) for _ in self.in_features)
+            _ConvGN(w, out_channels, 1, 1, num_groups) for w in widths)
         self.extra_convs = nn.ModuleList(
-            _ConvGN(in_channels if i == 0 else out_channels, out_channels, 3, 2, num_groups)
+            _ConvGN(widths[-1] if i == 0 else out_channels, out_channels, 3, 2, num_groups)
             for i in range(num_outs - len(self.in_features)))
 
     def forward(self, feats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -147,11 +155,15 @@ class APEDeta(nn.Module):
         mask_encode_level: int = 0,
         aux_mask: bool = False,
         name_prompt_fusion_feature: bool = False,
+        num_learned_classes: int = 0,
         dtype: torch.dtype = torch.float32,
     ):
         """name_prompt_fusion_feature: hold the learned fusion token (1, 1,
         Cl) that ``fusion_text_mode="learnable"`` fuses; JAX creates it on
-        the first call in that mode."""
+        the first call in that mode. num_learned_classes: the closed
+        vocabulary's learned class bank ``class_embedding`` (N, Cl), which
+        replaces the text passed to the forward, all valid (DETA and
+        Deformable-DETR R50: 80)."""
         super().__init__()
         self.backbone = backbone
         self.neck = neck
@@ -161,18 +173,25 @@ class APEDeta(nn.Module):
         self.dtype = dtype
         if name_prompt_fusion_feature:
             self.name_prompt_fusion_feature = nn.Parameter(torch.randn(1, 1, embed_dim_language))
+        self.num_learned_classes = num_learned_classes
+        if num_learned_classes:
+            self.class_embedding = nn.Parameter(
+                0.02 * torch.randn(num_learned_classes, embed_dim_language))
         num_layers = len(transformer.decoder.layers)
-        binary = Linear(embed_dim, 1)
-        nn.init.constant_(binary.bias, PRIOR_BIAS)
-        self.class_embed = nn.ModuleList(
-            [VisionLanguageAlign(embed_dim, embed_dim_language) for _ in range(num_layers)]
-            + [binary])
+        heads = [VisionLanguageAlign(embed_dim, embed_dim_language) for _ in range(num_layers)]
+        if transformer.as_two_stage:  # the first stage's binary objectness head
+            binary = Linear(embed_dim, 1)
+            nn.init.constant_(binary.bias, PRIOR_BIAS)
+            heads.append(binary)
+        self.class_embed = nn.ModuleList(heads)
         self.mask_on = mask_on
         self.mask_in_feature = mask_in_feature
         self.mask_encode_level = mask_encode_level
         self.aux_mask = aux_mask
         if mask_on:
-            self.lateral_conv = Conv2d(backbone.out_channels, embed_dim, 1, bias=False,
+            width = backbone.out_channels  # one int (SFP), or a dict by name (ResNet)
+            width = width[mask_in_feature] if isinstance(width, dict) else width
+            self.lateral_conv = Conv2d(width, embed_dim, 1, bias=False,
                                        norm=nn.GroupNorm(32, embed_dim, eps=1e-5))
             self.output_conv = Conv2d(embed_dim, embed_dim, 3, bias=False,
                                       norm=nn.GroupNorm(32, embed_dim, eps=1e-5))
@@ -239,7 +258,13 @@ class APEDeta(nn.Module):
         else to the original; only ``"text"`` has fused text to align to. A
         model without fusion layers gives the same outputs under both.
         generator: the backbone's drop-path draws in ``train()`` mode (JAX's
-        ``rngs={"dropout": rng}``)."""
+        ``rngs={"dropout": rng}``). With a class bank the text passed in is
+        not read."""
+        if self.num_learned_classes:
+            b = images.shape[0]
+            text_features = self.class_embedding[None].expand(b, -1, -1).to(self.dtype)
+            text_valid = torch.ones(b, self.num_learned_classes, dtype=torch.bool,
+                                    device=images.device)
         backbone_feats = self.backbone(images.to(self.dtype), generator)
         feats = self.neck(backbone_feats)
         multi_level_feats = [feats[f] for f in self.in_features]
@@ -248,7 +273,9 @@ class APEDeta(nn.Module):
         pos = [position_embedding_sine(m, num_pos_feats=self.embed_dim // 2).to(self.dtype)
                for m in masks]
         fusion_text, fusion_valid = self._fusion_text(fusion_text_mode, text_features, text_valid)
-        tr = self.transformer(multi_level_feats, masks, pos, enc_class_head=self.class_embed[-1],
+        num_layers = len(self.transformer.decoder.layers)
+        enc_head = self.class_embed[num_layers] if len(self.class_embed) > num_layers else None
+        tr = self.transformer(multi_level_feats, masks, pos, enc_class_head=enc_head,
                               text=fusion_text, text_valid=fusion_valid)
 
         fused = align_on_fused and fusion_text_mode == "text"
@@ -258,16 +285,17 @@ class APEDeta(nn.Module):
         # serve the auxiliary losses of training
         layers = len(tr["inter_states"]) if self.training else 1
         logits = [torch.where(text_valid[:, None, :], head(state, text), fill)
-                  for head, state in zip(self.class_embed[-1 - layers : -1],
+                  for head, state in zip(self.class_embed[num_layers - layers : num_layers],
                                          tr["inter_states"][-layers:])]
         coords = tr["output_coords"]
         out = {
             "pred_logits": logits[-1],  # (B, K, T)
             "pred_boxes": coords[-1],  # (B, K, 4) cxcywh in [0, 1]
-            "first_stage_indices": tr["first_stage_indices"],  # (B, K)
             "memory": tr["memory"],  # (B, S, C)
             "text_features": text,  # (B, T, Cl) the text the heads aligned to
         }
+        if "first_stage_indices" in tr:  # two-stage: (B, K) the selected proposals
+            out["first_stage_indices"] = tr["first_stage_indices"]
         aux = [{"pred_logits": lo, "pred_boxes": bx} for lo, bx in zip(logits[:-1], coords[:-1])]
         if self.mask_on:
             mask_features = self.pixel_decoder(tr["memory"], level_shapes, backbone_feats)

@@ -1,4 +1,4 @@
-"""DETA-style two-stage deformable transformer (counterpart of
+"""DETA-style deformable transformer (counterpart of
 ``ape_tpu/modeling/ape_deta/transformer.py``):
 
   * encoder: num_layers x [window MSDA self-attention -> norm -> FFN -> norm],
@@ -6,9 +6,11 @@
     fusion layer (``layers/fuse.py``) when text is given;
   * two-stage proposals (``gen_output_proposals``) and the DETA first-stage
     select (per-level top-k -> per-level NMS -> level-balanced top-k), with the
-    scores and boxes of the select in f32;
+    scores and boxes of the select in f32, or a plain top-k of the scores
+    (``assign_first_stage=False``); or single-stage learned queries;
   * decoder: num_layers x [self-attention -> exact MSDA cross-attention ->
-    FFN], iterative box refinement.
+    FFN], iterative box refinement (``with_box_refine``) from 4-d boxes
+    or 2-d points.
 
 Gradients stop (``.detach()``) where JAX's ``jax.lax.stop_gradient`` stops
 them: at the selected proposal boxes and features, and at the references
@@ -284,56 +286,81 @@ class DecoderLayer(nn.Module):
 
 
 class DeformableTransformerDecoder(nn.Module):
-    """Decoder with iterative box refinement; owns the num_layers + 1 bbox MLPs
-    (the extra one scores the encoder proposals)."""
+    """Decoder with iterative box refinement (``with_box_refine``; without
+    it every layer samples around the initial references); owns a bbox MLP
+    a layer and, with ``enc_bbox_head`` (a two-stage transformer's), one
+    more that scores the encoder's proposals."""
 
     def __init__(self, embed_dim=256, num_heads=8, feedforward_dim=2048, num_layers=6,
-                 num_feature_levels=5, num_points=4, use_act_checkpoint=False):
+                 num_feature_levels=5, num_points=4, use_act_checkpoint=False,
+                 with_box_refine=True, enc_bbox_head=True):
         super().__init__()
         self.num_layers = num_layers
         self.use_act_checkpoint = use_act_checkpoint
+        self.with_box_refine = with_box_refine
         self.layers = nn.ModuleList(
             DecoderLayer(embed_dim, num_heads, feedforward_dim, num_feature_levels, num_points)
             for _ in range(num_layers)
         )
-        self.bbox_embed = nn.ModuleList(MLP(embed_dim, embed_dim, 4, 3) for _ in range(num_layers + 1))
+        self.bbox_embed = nn.ModuleList(MLP(embed_dim, embed_dim, 4, 3)
+                                        for _ in range(num_layers + int(enc_bbox_head)))
 
     def enc_bbox_head(self, x):
         return self.bbox_embed[self.num_layers](x)
 
     def forward(self, query, query_pos, memory, valid_mask, spatial_shapes,
                 reference_points, valid_ratios):
-        """reference_points (B, K, 4) in sigmoid space. Returns the stacked
-        per-layer states (layers, B, K, C) and boxes (layers, B, K, 4). Each
-        layer's box refines the previous one's, with the gradient stopped at
-        the previous box (``look_forward_twice=False``, as ``ape_tpu``'s
-        builds)."""
+        """reference_points (B, K, 4) boxes or (B, K, 2) points (the
+        single-stage Deformable-DETR's), in sigmoid space. Returns the
+        stacked per-layer states (layers, B, K, C) and boxes (layers, B, K,
+        4). A layer's box refines its reference: all four coordinates of a
+        box; of a point, x and y, with w and h from the head alone. Under
+        ``with_box_refine`` the next layer's reference is that box, with the
+        gradient stopped there (``look_forward_twice=False``, as
+        ``ape_tpu``'s builds); else every layer keeps the initial one."""
         x = query
         refs = reference_points
         states, coords = [], []
-        vr4 = torch.cat([valid_ratios, valid_ratios], -1)[:, None, :, :]
         for layer, head in zip(self.layers, self.bbox_embed):
+            vr = valid_ratios if refs.shape[-1] == 2 else torch.cat([valid_ratios, valid_ratios], -1)
             x = _run_layer(layer, self.use_act_checkpoint, x, query_pos, memory, valid_mask,
-                           spatial_shapes, refs[:, :, None, :] * vr4)
-            new_refs = torch.sigmoid(head(x) + inverse_sigmoid(refs))
+                           spatial_shapes, refs[:, :, None, :] * vr[:, None, :, :])
+            delta = head(x)
+            if refs.shape[-1] == 4:
+                new_refs = torch.sigmoid(delta + inverse_sigmoid(refs))
+            else:
+                new_refs = torch.sigmoid(torch.cat([delta[..., :2] + inverse_sigmoid(refs),
+                                                    delta[..., 2:]], -1))
             states.append(x)
             coords.append(new_refs)
-            refs = new_refs.detach()
+            if self.with_box_refine:
+                refs = new_refs.detach()
         return torch.stack(states), torch.stack(coords)
 
 
 class DeformableDetrTransformer(nn.Module):
-    """Two-stage transformer: flattening, level embeds, proposals, select, decoder."""
+    """Flattening, level embeds, the encoder, then the decoder's queries:
+    two-stage (``as_two_stage``), from the encoder's proposals by DETA's
+    select (``assign_first_stage``) or a plain top-k of their scores; or
+    single-stage, from learned ``query_embed`` (K, 2C) and 2-d
+    ``reference_points`` (the Deformable-DETR R50 recipes)."""
 
     def __init__(self, encoder: DeformableTransformerEncoder, decoder: DeformableTransformerDecoder,
                  embed_dim: int = 256, num_feature_levels: int = 5,
-                 two_stage_num_proposals: int = 900):
+                 two_stage_num_proposals: int = 900, as_two_stage: bool = True,
+                 assign_first_stage: bool = True):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
         self.two_stage_num_proposals = two_stage_num_proposals
+        self.as_two_stage = as_two_stage
+        self.assign_first_stage = assign_first_stage
         c = embed_dim
         self.level_embeds = nn.Parameter(torch.randn(num_feature_levels, c))
+        if not as_two_stage:
+            self.query_embed = nn.Parameter(torch.randn(two_stage_num_proposals, 2 * c))
+            self.reference_points = Linear(c, 2)
+            return
         self.enc_output = Linear(c, c)
         self.enc_output_norm = LayerNorm(c, eps=1e-5)
         self.pos_trans = Linear(2 * c, 2 * c)
@@ -341,12 +368,35 @@ class DeformableDetrTransformer(nn.Module):
         self.pix_trans = Linear(c, c)
         self.pix_trans_norm = LayerNorm(c, eps=1e-5)
 
+    def _single_stage(self, b, feat, memory, valid, spatial_shapes, valid_ratios, text):
+        """The decoder on the learned queries; in training, JAX's placeholder
+        first-stage outputs, no proposal valid (their losses take no
+        gradient)."""
+        c = feat.shape[-1]
+        query_pos, query = self.query_embed.to(feat.dtype)[None].expand(b, -1, -1).split(c, -1)
+        init_reference = torch.sigmoid(self.reference_points(query_pos))  # (B, K, 2)
+        inter_states, output_coords = self.decoder(
+            query, query_pos, memory, valid, spatial_shapes, init_reference, valid_ratios)
+        out = {"inter_states": inter_states, "output_coords": output_coords, "memory": memory,
+               "text": text}
+        if self.training:
+            s = feat.shape[1]
+            out.update({
+                "init_reference": init_reference,
+                "enc_logits": feat.new_zeros(b, s),
+                "enc_coords": feat.new_full((b, s, 4), 0.5),
+                "proposals": feat.new_full((b, s, 4), 0.5),
+                "proposal_valid": torch.zeros(b, s, dtype=torch.bool, device=feat.device),
+            })
+        return out
+
     def forward(self, multi_level_feats, multi_level_masks, multi_level_pos,
-                enc_class_head, text=None, text_valid=None) -> Dict[str, torch.Tensor]:
+                enc_class_head=None, text=None, text_valid=None) -> Dict[str, torch.Tensor]:
         """multi_level_feats/pos: per level (B, H, W, C); masks (B, H, W) True = valid.
-        enc_class_head: (B, S, C) -> (B, S, 1) binary objectness. text (B, T,
-        Cl) and text_valid (B, T), or None: what the encoder's fusion layers
-        see; ``"text"`` in the result is the text they return."""
+        enc_class_head: (B, S, C) -> (B, S, 1) binary objectness (two-stage
+        only). text (B, T, Cl) and text_valid (B, T), or None: what the
+        encoder's fusion layers see; ``"text"`` in the result is the text
+        they return."""
         b, _, _, c = multi_level_feats[0].shape
         spatial_shapes = tuple((int(f.shape[1]), int(f.shape[2])) for f in multi_level_feats)
         feat = torch.cat([f.reshape(b, -1, c) for f in multi_level_feats], 1)
@@ -359,6 +409,8 @@ class DeformableDetrTransformer(nn.Module):
 
         memory, text = self.encoder(feat, pos, valid, spatial_shapes, enc_refs, grid_corr,
                                     text, text_valid)
+        if not self.as_two_stage:
+            return self._single_stage(b, feat, memory, valid, spatial_shapes, valid_ratios, text)
 
         out_memory, proposals_unact, proposal_valid = gen_output_proposals(
             memory, valid, spatial_shapes, valid_ratios)
@@ -374,8 +426,11 @@ class DeformableDetrTransformer(nn.Module):
                                        torch.full_like(enc_coords_unact, 30.0))
 
         with torch.no_grad():
-            sel = deta_first_stage_select(enc_logits, enc_coords_unact, spatial_shapes,
-                                          self.two_stage_num_proposals)
+            if self.assign_first_stage:
+                sel = deta_first_stage_select(enc_logits, enc_coords_unact, spatial_shapes,
+                                              self.two_stage_num_proposals)
+            else:  # a plain top-k of the scores: no NMS, no host sync
+                sel = topk(enc_logits, self.two_stage_num_proposals)[1]
         topk_coords_unact = enc_coords_unact.gather(1, sel[..., None].expand(-1, -1, 4)).detach()
         init_reference = torch.sigmoid(topk_coords_unact)
 

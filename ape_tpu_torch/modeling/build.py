@@ -8,13 +8,27 @@
   pretrained at 336), the same transformer with a vision-language fusion
   layer before each encoder layer (embed 2048, 8 heads, layer scale 1/6).
 
-Both carry by default the mask head on the finest pyramid level.
+Both carry by default the mask head on the finest pyramid level. The
+ResNet-50 family (``configs/common/models/ape_deta_r50.py``): a FrozenBN
+ResNet-50 (``freeze_at=1``) whose res3-res5 the neck maps to 5 levels with
+two stride-2 extra convs, the mask head's lateral map on res2:
+
+* APE-DETA R50 (``build_ape_r50``): open vocabulary, masked, 900 queries,
+  DETA's two-stage select; with ``vl_fusion`` the fusion layers of
+  ``ape_deta_r50_vlf_12ep.py``; with ``num_learned_classes=80`` DETA R50,
+  closed vocabulary (``deformable_deta_segm_r50_12ep.py``);
+* Deformable-DETR R50 (``build_deformable_detr_r50``): 300 queries, no
+  masks, a class bank of 80, single-stage or two-stage by a plain top-k,
+  with or without box refinement (``configs/COCO_Detection/
+  deformable_detr/``).
+
+Their optimizer is the R50 recipe's (``engine.optimizer.R50_RECIPE``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -26,6 +40,11 @@ from ape_tpu_torch.modeling.ape_deta.transformer import (
     DeformableTransformerEncoder,
 )
 from ape_tpu_torch.modeling.backbone.eva_vit import EVAViT, SimpleFeaturePyramid
+from ape_tpu_torch.modeling.backbone.resnet import ResNet
+
+# the R50 family's neck: res3-res5 and two stride-2 extras, the mask head on res2
+R50_NECK_IN = ("res3", "res4", "res5")
+R50_LEVELS = R50_NECK_IN + ("extra0", "extra1")
 
 
 def window_indexes(depth: int):
@@ -55,10 +74,13 @@ def build_backbone_l(scale_factors: Sequence[float] = (4.0, 2.0, 1.0, 0.5),
 
 def build_transformer(num_queries: int = 900, num_layers: int = 6, vl_fusion: bool = False,
                       embed_dim_language: int = 1024, window_radius: int = 4,
-                      use_act_checkpoint: bool = False) -> DeformableDetrTransformer:
-    """The two-stage transformer of every APE build: 256-d, 8 heads, FFN 2048,
-    5 levels; with ``vl_fusion`` its encoder's fusion layers are APE-L_D's
-    (embed 2048, 8 heads, layer scale 1/6)."""
+                      use_act_checkpoint: bool = False, as_two_stage: bool = True,
+                      assign_first_stage: bool = True,
+                      with_box_refine: bool = True) -> DeformableDetrTransformer:
+    """The transformer of every APE build: 256-d, 8 heads, FFN 2048, 5
+    levels, by default two-stage with DETA's select and box refinement;
+    with ``vl_fusion`` its encoder's fusion layers are APE-L_D's (embed
+    2048, 8 heads, layer scale 1/6)."""
     return DeformableDetrTransformer(
         DeformableTransformerEncoder(embed_dim=256, num_heads=8, feedforward_dim=2048,
                                      num_layers=num_layers, num_feature_levels=5,
@@ -69,8 +91,11 @@ def build_transformer(num_queries: int = 900, num_layers: int = 6, vl_fusion: bo
                                      embed_dim_language=embed_dim_language),
         DeformableTransformerDecoder(embed_dim=256, num_heads=8, feedforward_dim=2048,
                                      num_layers=num_layers, num_feature_levels=5,
-                                     use_act_checkpoint=use_act_checkpoint),
-        embed_dim=256, num_feature_levels=5, two_stage_num_proposals=num_queries)
+                                     use_act_checkpoint=use_act_checkpoint,
+                                     with_box_refine=with_box_refine,
+                                     enc_bbox_head=as_two_stage),
+        embed_dim=256, num_feature_levels=5, two_stage_num_proposals=num_queries,
+        as_two_stage=as_two_stage, assign_first_stage=assign_first_stage)
 
 
 def build_ape_ti(
@@ -149,3 +174,73 @@ def build_ape_l_d(
         embed_dim=256, embed_dim_language=embed_dim_language, in_features=levels,
         mask_on=mask_on, mask_in_feature=levels[0],
         name_prompt_fusion_feature=name_prompt_fusion_feature, dtype=dtype).to(device)
+
+
+def build_backbone_r50() -> ResNet:
+    """The R50 family's backbone: FrozenBN ResNet-50, res2-res5, the
+    gradient stopped at the stem (``freeze_at=1``)."""
+    return ResNet()
+
+
+def _r50_model(transformer, mask_on: bool, num_learned_classes: int,
+               dtype: torch.dtype) -> APEDeta:
+    backbone = build_backbone_r50()
+    neck = ChannelMapper(R50_NECK_IN, [backbone.out_channels[n] for n in R50_NECK_IN], 256,
+                         num_outs=5)
+    return APEDeta(backbone, neck, transformer, embed_dim=256, embed_dim_language=1024,
+                   in_features=R50_LEVELS,
+                   mask_on=mask_on, mask_in_feature="res2", mask_encode_level=0,
+                   num_learned_classes=num_learned_classes, dtype=dtype)
+
+
+def build_ape_r50(
+    mask_on: bool = True,
+    num_queries: int = 900,
+    vl_fusion: bool = False,
+    num_learned_classes: int = 0,
+    use_act_checkpoint: Optional[bool] = None,
+    window_radius: int = 4,
+    num_layers: int = 6,
+    dtype: torch.dtype = torch.float32,
+    device=None,
+) -> APEDeta:
+    """APE-DETA R50 (``ape_deta_r50_12ep.py``): the ResNet-50, the two-stage
+    transformer with DETA's select and box refinement, 900 queries, masked.
+    vl_fusion: the fusion layers of ``ape_deta_r50_vlf_12ep.py`` (embed 2048,
+    layer scale 1/6; APE's name prompts fuse the zero token, its default).
+    num_learned_classes: DETA R50's class bank (80), which takes the place
+    of the text. use_act_checkpoint recomputes the encoder's and decoder's
+    layers in the backward; by default on with the fusion, as the VLF
+    recipe. num_layers cuts the encoder and the decoder for tests and
+    checks. Train with ``build_optimizer(model, **R50_RECIPE)``.
+
+    The model lies on ``device``, by the rule of ``build_ape_ti``."""
+    device = default_device("build_ape_r50", device)
+    if use_act_checkpoint is None:
+        use_act_checkpoint = vl_fusion
+    transformer = build_transformer(num_queries, num_layers, vl_fusion, 1024, window_radius,
+                                    use_act_checkpoint)
+    return _r50_model(transformer, mask_on, num_learned_classes, dtype).to(device)
+
+
+def build_deformable_detr_r50(
+    as_two_stage: bool = False,
+    with_box_refine: bool = False,
+    window_radius: int = 4,
+    num_layers: int = 6,
+    dtype: torch.dtype = torch.float32,
+    device=None,
+) -> APEDeta:
+    """Deformable-DETR R50 (``deformable_detr_r50_50ep.py`` and its
+    ``_with_box_refinement_`` and ``_two_stage_`` files): the ResNet-50, 300
+    queries, no masks, the class bank of 80; single-stage learned queries
+    with 2-d references unless ``as_two_stage`` (the encoder's proposals by
+    a plain top-k, ``assign_first_stage=False``). Its criterion matches
+    every layer by the Hungarian (``use_stage2=False``).
+
+    The model lies on ``device``, by the rule of ``build_ape_ti``."""
+    device = default_device("build_deformable_detr_r50", device)
+    transformer = build_transformer(300, num_layers, False, 1024, window_radius,
+                                    as_two_stage=as_two_stage, assign_first_stage=False,
+                                    with_box_refine=with_box_refine)
+    return _r50_model(transformer, False, 80, dtype).to(device)

@@ -10,10 +10,17 @@ offsets re-armed, 1024^2, batch 1, 900 queries:
   l_d_slice phase, bench.py's ``BENCH_MODEL=l_d``: 1203 texts, the 3-scale
   pyramid, no masks);
 * ``l_d-full``: ``build_ape_l_d()``'s defaults (the masked model on the
-  4-scale pyramid), 1203 texts.
+  4-scale pyramid), 1203 texts;
+* ``r50-protocol``: APE-DETA R50 at the protocol (``chip_smoke.py``'s
+  r50_slice phase: ``build_ape_r50(mask_on=False)``, 80 texts; its res3-res5
+  and two extras make the protocol pyramid);
+* ``r50-full``: ``build_ape_r50()``'s defaults (masked), 80 texts;
+* ``detr-r50``: ``build_deformable_detr_r50()`` (single-stage, 300
+  queries, the class bank of 80; the texts passed are not read).
 
     python3 -m ape_tpu_torch.tools.profile_forward [--models protocol full_serve
-                                                    l_d-protocol l_d-full] [--iters 10]
+                                                    l_d-protocol l_d-full r50-protocol
+                                                    r50-full detr-r50] [--iters 10]
 
 The counterpart of ``profile_train.py`` for the forward, and of the JAX
 repository's ``experiments/attrib.py``. For each model, after two warm-up
@@ -49,16 +56,29 @@ import time
 import torch
 
 import chip_smoke as cs
-from ape_tpu_torch.modeling.build import build_ape_l_d, build_ape_ti
+from ape_tpu_torch.modeling.build import (
+    build_ape_l_d,
+    build_ape_r50,
+    build_ape_ti,
+    build_deformable_detr_r50,
+)
 from ape_tpu_torch.tools.profile_train import profile_call
 
-MODELS = ("protocol", "full_serve", "l_d-protocol", "l_d-full")
+MODELS = ("protocol", "full_serve", "l_d-protocol", "l_d-full", "r50-protocol", "r50-full",
+          "detr-r50")
 
 
 def build(name: str, dev):
     """The model of a cell, bf16, eval, with chip_smoke's weights, and the
     cell's number of texts."""
     kw = dict(num_queries=cs.QUERIES, window_radius=cs.RADIUS, dtype=torch.bfloat16, device=dev)
+    if name.startswith(("r50", "detr")):
+        if name == "detr-r50":
+            model = build_deformable_detr_r50(window_radius=cs.RADIUS, dtype=torch.bfloat16,
+                                              device=dev)
+        else:
+            model = build_ape_r50(mask_on=name == "r50-full", **kw)
+        return cs.init_frozen_bn(cs.init_weights(model, cs.SEED), cs.SEED + 1).eval(), cs.NUM_TEXT
     if name.endswith("protocol"):
         kw.update(mask_on=False, scale_factors=(2.0, 1.0, 0.5))
     if name.startswith("l_d"):

@@ -1,14 +1,20 @@
 """Profile one train step on one CUDA card, from the root of a checkout: APE-Ti
 in ``chip_smoke.py``'s train configuration (1024^2, batch 2, 300 queries,
-bf16, recompute checkpointing), or APE-L_D in its ``l_d_train`` one (batch
+bf16, recompute checkpointing), APE-L_D in its ``l_d_train`` one (batch
 1, the masked model, drop path 0.4, 1203 texts, the LVIS recipe's
-criterion with the federated loss, ``vit_num_layers=24``):
+criterion with the federated loss, ``vit_num_layers=24``), or the R50
+family in its ``r50_train`` and ``detr_r50_train`` ones (batch 2, 300
+queries, the R50 recipe's optimizer):
 
-    python3 -m ape_tpu_torch.tools.profile_train [--masked] [--model l_d] [--batch N]
+    python3 -m ape_tpu_torch.tools.profile_train [--masked] [--model ti|l_d|r50|detr_r50]
+                                                 [--batch N]
 
 Without flags the Ti detection model (chip_smoke's phase 8); ``--masked``
 the full masked Ti model with the mask losses (phase 11); ``--model l_d``
-APE-L_D (phase 13's ``l_d_train``); ``--batch`` another batch size (a
+APE-L_D (phase 13's ``l_d_train``); ``--model r50`` APE-DETA R50 (masked,
+recompute, DETA's criterion with masks); ``--model detr_r50``
+Deformable-DETR R50 (no masks, the Hungarian on every layer, no
+recompute); ``--batch`` another batch size (a
 step that runs out of card memory prints its peak and exits 1). Under
 ``APE_MSDA_BWD_MERGED=0`` the encoder's MSDA backward runs on the split
 kernels (K3 + K4) instead of K2; under ``APE_MSDA_FUSED=1`` (K8) or
@@ -43,9 +49,14 @@ import time
 import torch
 
 import chip_smoke as cs
-from ape_tpu_torch.engine.optimizer import build_optimizer
+from ape_tpu_torch.engine.optimizer import R50_RECIPE, build_optimizer
 from ape_tpu_torch.engine.train_step import loss_fn, make_train_step
-from ape_tpu_torch.modeling.build import build_ape_l_d, build_ape_ti
+from ape_tpu_torch.modeling.build import (
+    build_ape_l_d,
+    build_ape_r50,
+    build_ape_ti,
+    build_deformable_detr_r50,
+)
 from ape_tpu_torch.ops import msda_dispatch
 
 PORT_KERNELS = ("msda_fwd_kernel", "msda_fwd_qlevel", "msda_fwd_dense", "msda_bwd_kernel",
@@ -220,6 +231,18 @@ def setup(model_name: str, masked: bool, batch_size, dev):
         batch = cs._train_batch(dev, batch_size or cs.L_D_TRAIN_BATCH, cs.TRAIN_IMG, cs.SEED + 4,
                                 masks=True, num_text=cs.L_D_TEXT)
         gen = torch.Generator().manual_seed(cs.SEED)
+    elif model_name in ("r50", "detr_r50"):
+        detr = model_name == "detr_r50"
+        kw = dict(window_radius=cs.RADIUS, dtype=torch.bfloat16, device=dev)
+        model = build_deformable_detr_r50(**kw) if detr else build_ape_r50(
+            num_queries=cs.TRAIN_QUERIES, use_act_checkpoint=True, **kw)
+        crit = cs._detr_criterion() if detr else cs._criterion(cs.TRAIN_QUERIES, True)
+        opt, sched = build_optimizer(model, **R50_RECIPE, milestones=(
+            cs.DETR_MILESTONES if detr else cs.R50_MILESTONES))
+        batch = cs._train_batch(dev, batch_size or cs.TRAIN_BATCH, cs.TRAIN_IMG, cs.SEED + 4,
+                                masks=not detr)
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+        model = cs.init_frozen_bn(model, cs.SEED + 1)
     else:
         model = build_ape_ti(num_queries=cs.TRAIN_QUERIES, window_radius=cs.RADIUS,
                              mask_on=masked, use_act_checkpoint=True, dtype=torch.bfloat16,
@@ -235,16 +258,17 @@ def setup(model_name: str, masked: bool, batch_size, dev):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--masked", action="store_true", help="the full masked Ti model")
-    parser.add_argument("--model", choices=("ti", "l_d"), default="ti",
-                        help="APE-Ti, or APE-L_D (masked, batch 1 by default)")
+    parser.add_argument("--model", choices=("ti", "l_d", "r50", "detr_r50"), default="ti",
+                        help="APE-Ti, APE-L_D (masked, batch 1 by default), APE-DETA R50 "
+                             "(masked) or Deformable-DETR R50")
     parser.add_argument("--batch", type=int, default=None,
-                        help="batch size (default: 2 for Ti, 1 for L_D)")
+                        help="batch size (default: 2, 1 for L_D)")
     args = parser.parse_args()
     cs.device_phase()
     dev = torch.device("cuda", 0)
     model, crit, opt, sched, batch, gen = setup(args.model, args.masked, args.batch, dev)
     step = make_train_step(model, crit, opt, sched)
-    form = {"model": args.model, "masked": args.masked or args.model == "l_d",
+    form = {"model": args.model, "masked": args.masked or args.model in ("l_d", "r50"),
             "batch": batch["images"].shape[0], "split": not msda_dispatch.BWD_MERGED,
             "window_forward": msda_dispatch.window_form(8)}
     torch.cuda.reset_peak_memory_stats()

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``ape_tpu_torch``) of APE on one NVIDIA card,
 from the root of a checkout: APE-Ti's protocol inference, detection
-training, the full masked model's inference and training, then APE-L_D's
+training, the full masked model's inference and training, APE-L_D's
 serving and training (the flagship, whose encoder fuses vision and
-language).
+language), then the ResNet-50 family's (APE-DETA R50 with and without
+fusion, DETA R50, Deformable-DETR R50).
 
     python3 chip_smoke.py
 
@@ -134,7 +135,39 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     noise and the federated uniforms from CPU generators of one seed:
     exact launches, identical first-stage indices, every gradient within
     F32_GRAD_RTOL (sampling offsets F32_OFFSET_GRAD_RTOL);
-14. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
+14. R50 (the ResNet-50 family, ``build_ape_r50`` and
+    ``build_deformable_detr_r50``, on the protocol pyramid that res3-res5
+    and two extras make at 1024^2, S = 21,824): ``r50_kernels``, cases of
+    phases 3 and 4, K1 and K1w at batch 2 with 300 decoder queries and K2
+    at R50 training's shapes (batch 2, the encoder's Q = S, the decoder's
+    300), in f32 and bf16, the kernels line's ``r50`` records; ``r50_serve``
+    (beside L_D's serving, on the same text tower): the masked
+    ``build_ape_r50()`` and its fusion tree behind ``APE`` and
+    ``DefaultPredictor``, a name prompt and two phrases each, exact
+    launches, then one forward of DETA R50 (the class bank of 80, the text
+    passed not read); ``r50_slice``: ``build_ape_r50(mask_on=False)`` at the
+    protocol (bf16, 80 texts, 900 queries): launches exactly
+    ``{"msda_fwd": 6, "msda_fwd_window": 6}``, host syncs the NMS tests,
+    finite (1, 900, 80) logits, images/s, peak memory, the ResNet's ms by
+    events and by device time; ``r50_f32``: the full-depth
+    ResNet with 2 + 2 layers at 512^2 in f32 (TF32 off for cuBLAS and
+    cuDNN), fan-in weights and FrozenBN near identity, APE-DETA R50 and
+    Deformable-DETR R50, encoder memory within 1e-3 of the CPU's;
+    ``r50_train``: APE-DETA R50 masked at 1024^2, batch 2, bf16 over f32
+    params, 300 queries, recompute, 80 texts, 8 target slots (4 valid),
+    ``build_optimizer(**R50_RECIPE)``: a warm-up and three timed steps,
+    exactly ``{"msda_fwd": 24, "msda_bwd": 12}`` each, finite losses and
+    gradients (none for the stem behind ``freeze_at``), FrozenBN's buffers
+    bit for bit, the stem stepped by the optimizer every step and moved as
+    its decay alone moves it, s/step, images/s,
+    peak memory, one step's host syncs; ``detr_r50_train``: Deformable-DETR
+    R50 likewise (no masks, no recompute, the Hungarian on every layer,
+    exactly ``{"msda_fwd": 12, "msda_bwd": 12}``), with its host syncs per
+    step and the Hungarian's; ``r50_train_f32``: one f32 step of APE-DETA
+    R50, DETA R50 and Deformable-DETR R50 cut to 2 + 2 layers at 512^2 on
+    the card against the CPU's, every gradient within F32_GRAD_RTOL or
+    twice the plain version's own floor, first-stage indices identical;
+15. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
     form at both pyramids and both offset draws, its per-pair suites, and
     the ``pair`` and ``rows`` ops by device time under each body, each query
     level's launches apart, and K8's D = 32 body by its parts (device time
@@ -142,7 +175,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     then ``ape_tpu_torch.tools.msda_bwd_race``, the backward forms (K2, K3 +
     K4, autograd of the plain version) at the same pyramids and draws, each
     within its bound of the plain version or of K2;
-15. probes: ``ape_tpu_torch.tools.pair_probe`` (K10, every variant on the
+16. probes: ``ape_tpu_torch.tools.pair_probe`` (K10, every variant on the
     four pairs, bf16 and f32 value, each within 1e-5 of its plain version,
     bf16fma within 6.4e-2 of base, base against K1 bit for bit, K1's time
     on each pair beside) and
@@ -154,13 +187,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 Then the kernels line (each kernel's launches over every path: ``launches``
 over all of them, ``launches_main`` over the serving and training phases
-alone, 5-13, ``launches_default`` over those of them that run the default
+alone, 5-14, ``launches_default`` over those of them that run the default
 flags: slice, serve, train, full serve, full train with the merged backward,
-and L_D's slice, serve, train and f32 train; error, time, plain and library
+L_D's slice, serve, train and f32 train, and R50's; error, time, plain and library
 time, and bound; for K1, K3, K4, K6, K7, K8 and K9, whose D = 32 body runs
 there, the general body's time as ``general_ms``; for K6 and K7 also the
 op's device time, ``device_ms``; for K5, K5-dkv and K5-dq their bf16
-records at L_D's 16 heads as ``l_d``)
+records at L_D's 16 heads as ``l_d``; for K1, K1w and K2 their bf16 records
+at the R50 family's training shapes as ``r50``)
 and, last,
 {"ok": true, "device": {...}}. The script needs the repository around it and
 a CUDA card; it imports no JAX.
@@ -780,11 +814,15 @@ def _msda_inputs(g, shapes, batch: int, queries: int, dev):
 # checked). The protocol forward; the full serve forward (4-scale pyramid,
 # S = 87,296; its attention is the protocol's); training (batch 2, 300
 # queries); APE-L_D training (batch 1, 300 queries; its attention is
-# l_d_kernels_phase's). The kernels line reads the protocol's cases.
+# l_d_kernels_phase's); the R50 family's training (batch 2, 300 queries, on
+# the protocol pyramid, which R50's res3-res5 and two extras make at 1024^2;
+# no attention). The kernels line reads the protocol's cases, and the R50
+# ones as its K1 and K1w rows' ``r50`` records.
 FWD_CASES = (("", SHAPES, 1, QUERIES, True),
              ("_full_serve", TRAIN_SHAPES, 1, QUERIES, False),
              ("_train", TRAIN_SHAPES, TRAIN_BATCH, TRAIN_QUERIES, True),
-             ("_l_d_train", TRAIN_SHAPES, L_D_TRAIN_BATCH, TRAIN_QUERIES, False))
+             ("_l_d_train", TRAIN_SHAPES, L_D_TRAIN_BATCH, TRAIN_QUERIES, False),
+             ("_r50_train", SHAPES, TRAIN_BATCH, TRAIN_QUERIES, False))
 
 
 def k1_bodies(value, shapes, loc, att, name: str, dname: str) -> dict:
@@ -1224,7 +1262,8 @@ def backward_kernels_phase(dev):
     training shapes: errors against the plain version in f32 on the same
     inputs, times against the plain backward in the same dtype; K2 at
     HEAD_DIM (its D = 32 body) and at K2_GENERAL_HEAD_DIM (its general
-    body). The attention backward's library yardstick is SDPA's whole
+    body); K2 also at APE-L_D's (batch 1) and the R50 family's training
+    shapes (batch 2 on the protocol pyramid). The attention backward's library yardstick is SDPA's whole
     backward, timed as the device time of its kernels (``kernel_ms``), with
     the port's beside it timed the same way. Returns per-case results at
     bf16."""
@@ -1257,6 +1296,16 @@ def backward_kernels_phase(dev):
         msda_cases[f"msda_bwd_{mode}_l_d_train"] = [
             value1, loc, atts1[mode],
             torch.randn(L_D_TRAIN_BATCH, loc.shape[1], HEADS * HEAD_DIM, generator=g1)]
+    # K2 at the R50 family's training shapes: batch 2 on the protocol
+    # pyramid (S = 21,824), the encoder's Q = S and the decoder's 300
+    g2 = torch.Generator().manual_seed(SEED + 10)
+    value2, locs2, atts2, _ = _msda_inputs(g2, SHAPES, TRAIN_BATCH, TRAIN_QUERIES, dev)
+    case_shapes = {}
+    for mode, loc in locs2.items():
+        msda_cases[f"msda_bwd_{mode}_r50_train"] = [
+            value2, loc, atts2[mode],
+            torch.randn(TRAIN_BATCH, loc.shape[1], HEADS * HEAD_DIM, generator=g2)]
+        case_shapes[f"msda_bwd_{mode}_r50_train"] = SHAPES
     scale = 64**-0.5
 
     results = {}
@@ -1264,14 +1313,15 @@ def backward_kernels_phase(dev):
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        lv = len(TRAIN_SHAPES)
         for name, (value, loc, att, gout) in msda_cases.items():
+            shapes = case_shapes.get(name, TRAIN_SHAPES)
+            lv = len(shapes)
             value, att, gout = (t.to(dev, dtype) for t in (value, att, gout))
             (nb, s, _, d), nq, es = value.shape, loc.shape[1], value.element_size()
-            merged = msda_bwd_cuda(value, TRAIN_SHAPES, loc, att, gout)
+            merged = msda_bwd_cuda(value, shapes, loc, att, gout)
             leaves = [value.detach().float().requires_grad_(), loc.detach().clone().requires_grad_(),
                       att.detach().float().requires_grad_()]
-            want = torch.autograd.grad(ms_deform_attn(leaves[0], TRAIN_SHAPES, *leaves[1:]),
+            want = torch.autograd.grad(ms_deform_attn(leaves[0], shapes, *leaves[1:]),
                                        leaves, gout.float())
             err = _errors(("d_value", "d_loc", "d_att"), merged, want)
             split = None
@@ -1311,15 +1361,15 @@ def backward_kernels_phase(dev):
                 del offatt, general, d_value, value_general
             del merged, leaves, want
             plain_leaves = [t.detach().clone().requires_grad_() for t in (value, loc, att)]
-            out = ms_deform_attn(plain_leaves[0], TRAIN_SHAPES, *plain_leaves[1:])
+            out = ms_deform_attn(plain_leaves[0], shapes, *plain_leaves[1:])
 
             def plain_bwd(*which):  # autograd of the plain version for these of (value, loc, att)
                 return lambda: torch.autograd.grad(out, [plain_leaves[i] for i in which], gout,
                                                    retain_graph=True)
 
-            record(name, dname, err, lambda: msda_bwd_cuda(value, TRAIN_SHAPES, loc, att, gout),
+            record(name, dname, err, lambda: msda_bwd_cuda(value, shapes, loc, att, gout),
                    plain_bwd(0, 1, 2),
-                   msda_bound("msda_bwd", nb, s, nq, lv, es, d, touched_rows(TRAIN_SHAPES, loc)),
+                   msda_bound("msda_bwd", nb, s, nq, lv, es, d, touched_rows(shapes, loc)),
                    extra={"value": list(value.shape), "queries": nq})
             if split is not None:
                 errs, vs = split["msda_bwd_offatt"]
@@ -1736,8 +1786,9 @@ def perturbed(batch, seed: int):
 
 def step_grads(model, crit, batch, seed: int, prompt: str = "name"):
     """One f32 loss and backward with ``prompt``'s routing, its draws from a
-    CPU generator of ``seed``: (total, first-stage indices, {name: gradient
-    on the CPU} of the parameters the loss reads)."""
+    CPU generator of ``seed``: (total, first-stage indices or None for a
+    single-stage model, {name: gradient on the CPU} of the parameters the
+    loss reads)."""
     import torch
 
     from ape_tpu_torch.engine.train_step import loss_fn
@@ -1745,7 +1796,8 @@ def step_grads(model, crit, batch, seed: int, prompt: str = "name"):
     model.zero_grad(set_to_none=True)
     total, _, outputs = loss_fn(model, crit, batch, torch.Generator().manual_seed(seed), prompt)
     total.backward()
-    return (total.item(), outputs["first_stage_indices"].cpu(),
+    sel = outputs.get("first_stage_indices")
+    return (total.item(), None if sel is None else sel.cpu(),
             {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None})
 
 
@@ -2294,6 +2346,384 @@ def l_d_train_f32_phase(dev):
     return launches
 
 
+# The R50 family (configs/common/models/ape_deta_r50.py): a FrozenBN
+# ResNet-50 whose res3-res5 and two stride-2 extras make the protocol
+# pyramid at 1024^2 (SHAPES, S = 21,824). Per forward: the 6 + 6 MSDA
+# layers, no attention kernel (the ResNet's convolutions are cuDNN's).
+R50_FORWARD_LAUNCHES = {"msda_fwd": 6, "msda_fwd_window": 6}
+# APE-DETA R50 training with recompute: Ti's step without the ViT's
+# attention; Deformable-DETR R50 (no recompute, as its recipe) runs each
+# MSDA forward once.
+R50_STEP_LAUNCHES = {"msda_fwd": 24, "msda_bwd": 12}
+DETR_STEP_LAUNCHES = {"msda_fwd": 12, "msda_bwd": 12}
+R50_STEM = "backbone.stem.conv1.weight"  # behind freeze_at's stop: no gradient
+# the recipes' milestones (ape_deta_r50_12ep.py, deformable_detr_r50_50ep.py)
+R50_MILESTONES, DETR_MILESTONES = (75000, 90000), (330000, 375000)
+# the f32 checks: full-depth ResNet, 2 + 2 transformer layers, at 512^2
+R50_F32_LAYERS = 2
+DETR_WEIGHTS = {"loss_class": 2.0, "loss_bbox": 5.0, "loss_giou": 2.0}
+
+
+def init_frozen_bn(model, seed: int):
+    """FrozenBN constants drawn near identity (scale 1 + 0.05 N, bias and
+    mean 0.05 N, variance 1 + 0.05 U): with N(0, 0.02) statistics a
+    variance near 0 would blow 53 norms up."""
+    import torch
+
+    from ape_tpu_torch.modeling.backbone.resnet import FrozenBatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FrozenBatchNorm):
+                n = m.weight.shape[0]
+                m.weight.copy_(1 + 0.05 * torch.randn(n, generator=g))
+                m.bias.copy_(0.05 * torch.randn(n, generator=g))
+                m.running_mean.copy_(0.05 * torch.randn(n, generator=g))
+                m.running_var.copy_(1 + 0.05 * torch.rand(n, generator=g))
+    return model
+
+
+def backbone_ms(backbone, images, iters: int = 10) -> dict:
+    """The ResNet's forward on the port's channels-last images in ms: by
+    CUDA events (mean of ``iters``; at batch 1 they time the host's
+    launches) and as its kernels' device time (``kernel_ms``)."""
+    import torch
+
+    with torch.no_grad():
+        return {"events": cuda_ms(lambda: backbone(images), iters),
+                "device": kernel_ms(lambda: backbone(images), iters)}
+
+
+def r50_slice_phase(dev, card):
+    """``build_ape_r50(mask_on=False)`` at the protocol (1024^2, bf16, batch
+    1, 80 texts, 900 queries, N(0, 0.02) weights with the ring-init offsets
+    re-armed): exact launches (no attention kernel), host syncs the NMS
+    tests, finite (1, 900, 80) logits, images/s over 10 forwards, peak
+    memory, and the backbone's ms. Returns the launches."""
+    import torch
+
+    from ape_tpu_torch.modeling.build import build_ape_r50
+
+    model = build_ape_r50(mask_on=False, num_queries=QUERIES, window_radius=RADIUS,
+                          dtype=torch.bfloat16, device=dev)
+    model = init_weights(model, SEED).eval()
+    inputs = tuple(t.to(dev) for t in _inputs())
+    rec = checked_forward(model, inputs, R50_FORWARD_LAUNCHES, NUM_TEXT, "R50 protocol forward")
+    log(phase="r50_slice", dtype="bfloat16", texts=NUM_TEXT, **rec,
+        backbone_ms=backbone_ms(model.backbone, inputs[0].to(torch.bfloat16)), card=card)
+    del model
+    torch.cuda.empty_cache()
+    return rec["launches_per_forward"]
+
+
+def r50_serve_phase(dev, card, tower):
+    """The masked ``build_ape_r50()`` and its fusion tree
+    (``vl_fusion=True``) in bf16 behind APE and DefaultPredictor, prompts
+    encoded on the card by ``tower``: a name prompt and two phrases each,
+    finite boxes, mask logits and sem_seg, exact launches; then one forward
+    of DETA R50 (the class bank of 80; the text passed is not read): finite
+    (1, 900, 80) logits and the masks. Returns the launches."""
+    import torch
+
+    from ape_tpu_torch.modeling.build import build_ape_r50
+    from ape_tpu_torch.ops import _build
+
+    launches = {}
+    for vlf in (False, True):
+        model = init_weights(build_ape_r50(vl_fusion=vlf, dtype=torch.bfloat16, device=dev),
+                             SEED).eval()
+        torch.cuda.reset_peak_memory_stats()
+        got = serve_phase(model, "r50_vlf_serve" if vlf else "r50_serve", tower,
+                          R50_FORWARD_LAUNCHES, L_D_REQUESTS)
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        log(phase="r50_serve_done", vl_fusion=vlf,
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, card=card)
+        del model
+        torch.cuda.empty_cache()
+    model = init_weights(build_ape_r50(num_learned_classes=NUM_TEXT, dtype=torch.bfloat16,
+                                       device=dev), SEED).eval()
+    inputs = tuple(t.to(dev) for t in _inputs(7))  # 7 texts passed, 80 classes scored
+    with torch.no_grad():
+        model(*inputs)  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = model(*inputs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    got = dict(_build.LAUNCHES)
+    if got != dict(dict.fromkeys(got, 0), **R50_FORWARD_LAUNCHES):
+        fail(f"DETA R50 forward: launches {got}, expected {R50_FORWARD_LAUNCHES}")
+    shapes = {k: tuple(out[k].shape) for k in ("pred_logits", "pred_boxes", "pred_masks")}
+    want = {"pred_logits": (1, QUERIES, NUM_TEXT), "pred_boxes": (1, QUERIES, 4),
+            "pred_masks": (1, QUERIES, MASK_SIDE, MASK_SIDE)}
+    if shapes != want or not all(bool(torch.isfinite(out[k]).all()) for k in want):
+        fail(f"DETA R50 forward: outputs {shapes} (expected {want}) or not finite")
+    log(phase="deta_r50_forward", dtype="bfloat16", classes=NUM_TEXT, texts_passed=7,
+        launches_per_forward={k: v for k, v in got.items() if v}, output_shapes=shapes,
+        seconds=seconds, card=card)
+    del model, out
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) + got[k] for k in got}
+
+
+def _r50_cpu_model(build_name: str, seed: int, **kw):
+    """An R50 tree cut to R50_F32_LAYERS + R50_F32_LAYERS layers on the CPU
+    with fan-in weights and FrozenBN near identity."""
+    from ape_tpu_torch.modeling import build
+
+    model = getattr(build, build_name)(num_layers=R50_F32_LAYERS, window_radius=RADIUS,
+                                       device="cpu", **kw)
+    return init_frozen_bn(init_weights(model, seed, fan_in=True), seed + 1)
+
+
+def r50_f32_phase(dev):
+    """The full-depth ResNet with a 2 + 2-layer transformer at 512^2, f32
+    (TF32 off for cuBLAS and cuDNN), fan-in weights and FrozenBN near
+    identity, APE-DETA R50 (900 queries, no masks) and Deformable-DETR R50:
+    the card's encoder memory within MEMORY_BOUND of the plain versions' on
+    the CPU, exact launches; the heads' gaps reported."""
+    import torch
+
+    from ape_tpu_torch.ops import _build
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("r50 f32: TF32 is on")
+    for name, build_name, kw in (("ape_r50", "build_ape_r50", {"mask_on": False}),
+                                 ("deformable_detr_r50", "build_deformable_detr_r50", {})):
+        model = _r50_cpu_model(build_name, SEED, **kw).eval()
+        inputs = _inputs(NUM_TEXT, F32_TRAIN_IMG)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cpu = model(*inputs)
+            cpu_s = time.perf_counter() - t0
+            model = model.to(dev)
+            _build.reset_launches()
+            gpu = model(*(t.to(dev) for t in inputs))
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        want = {"msda_fwd": R50_F32_LAYERS, "msda_fwd_window": R50_F32_LAYERS}
+        if launches != want:
+            fail(f"{name} f32: launches per forward {launches}, expected {want}")
+        errs = {k: float((gpu[k].cpu() - cpu[k]).abs().max())
+                for k in ("memory", "pred_logits", "pred_boxes")}
+        same = (bool(torch.equal(gpu["first_stage_indices"].cpu(), cpu["first_stage_indices"]))
+                if "first_stage_indices" in cpu else None)
+        log(phase="r50_f32_vs_plain", model=name, image=F32_TRAIN_IMG, layers=R50_F32_LAYERS,
+            launches_per_forward=launches, **{f"{k}_max_abs_err": v for k, v in errs.items()},
+            bound=MEMORY_BOUND, memory_max_abs=float(cpu["memory"].abs().max()),
+            first_stage_indices_identical=same, cpu_seconds=cpu_s)
+        if not errs["memory"] <= MEMORY_BOUND:
+            fail(f"{name} f32: encoder memory differs from the CPU's by {errs['memory']} "
+                 f"> {MEMORY_BOUND}")
+        del model, cpu, gpu
+        torch.cuda.empty_cache()
+
+
+def _detr_criterion():
+    """Deformable-DETR R50's criterion: 80 classes, 300 queries, the
+    Hungarian on every layer (use_stage2=False), class and boxes at 2 / 5 /
+    2."""
+    from ape_tpu_torch.modeling.ape_deta.criterion import DeformableCriterion
+
+    return DeformableCriterion(num_classes=NUM_TEXT, weight_dict=DETR_WEIGHTS,
+                               num_queries=TRAIN_QUERIES, use_stage2=False,
+                               losses=("class", "boxes"))
+
+
+def _frozen_state(model) -> dict:
+    """Copies of the FrozenBN buffers and the stem's weight."""
+    out = {n: b.detach().clone() for n, b in model.named_buffers() if ".norm." in n}
+    out[R50_STEM] = dict(model.named_parameters())[R50_STEM].detach().clone()
+    return out
+
+
+def _check_frozen(model, before: dict, optimizer, steps: int, label: str) -> dict:
+    """FrozenBN's buffers bit for bit as before; the stem stepped as optax
+    steps a leaf whose gradient is zero: counted in every step
+    (``optimizer.state[stem]["step"] == steps``, which torch's own AdamW,
+    skipping a parameter without a gradient, never sets), its Adam moments
+    0, and moved by its decay alone, p *= 1 - lr x weight decay a step in
+    f32, its group's lr being the recipe's x 0.1 (at 2e-5 x 1e-4 below f32
+    rounding: unchanged, so the value alone cannot tell the decay from a
+    skip). Returns the record's fields."""
+    import torch
+
+    now = dict(model.named_buffers())
+    moved = [n for n in before if n != R50_STEM and not torch.equal(now[n], before[n])]
+    if moved:
+        fail(f"{label}: FrozenBN buffers changed: {moved[:5]}")
+    stem = dict(model.named_parameters())[R50_STEM]
+    group = next(g for g in optimizer.param_groups if any(p is stem for p in g["params"]))
+    state = optimizer.state.get(stem, {})
+    stepped = int(state["step"]) if "step" in state else 0
+    if stepped != steps:
+        fail(f"{label}: the optimizer stepped the stem {stepped} times in {steps} steps")
+    if state["exp_avg"].any() or state["exp_avg_sq"].any():
+        fail(f"{label}: the stem's Adam moments moved without a gradient")
+    stem = stem.detach()
+    want = before[R50_STEM]
+    for _ in range(steps):
+        want = want * (1 - group["lr"] * group["weight_decay"])
+    if not torch.equal(stem, want):
+        fail(f"{label}: the stem moved by {float((stem - before[R50_STEM]).abs().max())}, "
+             f"not as the decay alone moves it")
+    return dict(frozen_bn_buffers_identical=len(before) - 1, stem_steps=stepped,
+                stem_lr=group["lr"],
+                stem_weight_decay=group["weight_decay"],
+                stem_max_abs_change=float((stem - before[R50_STEM]).abs().max()))
+
+
+def _host_syncs(step, batch, gen):
+    """One step with the sync debug mode on: (its host syncs, the Hungarian
+    matcher's)."""
+    import torch
+
+    from ape_tpu_torch.modeling.ape_deta import matchers
+
+    before = matchers.SYNCS["hungarian"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(batch, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+    return syncs, matchers.SYNCS["hungarian"] - before
+
+
+def r50_train_phase(dev, card, detr: bool = False):
+    """R50 training at 1024^2, batch 2, bf16 over f32 parameters, the R50
+    recipe's optimizer (weight decay 1e-4, 0.1x backbone, milestones), 8
+    target slots with 4 valid, 80 texts: APE-DETA R50 (masked, 300
+    queries, recompute, DETA's criterion with masks) or, with ``detr``,
+    Deformable-DETR R50 (300 queries, no masks, the Hungarian on every
+    layer). A warm-up step, then three timed steps with exact launches,
+    finite losses and gradients (none for the stem), FrozenBN's buffers bit
+    for bit and the stem stepped every step, moved as the decay alone moves
+    it; then one step's host
+    syncs. Returns the launches."""
+    import torch
+
+    from ape_tpu_torch.engine.optimizer import R50_RECIPE, build_optimizer
+    from ape_tpu_torch.engine.train_step import make_train_step
+    from ape_tpu_torch.modeling.build import build_ape_r50, build_deformable_detr_r50
+
+    if detr:
+        model = build_deformable_detr_r50(window_radius=RADIUS, dtype=torch.bfloat16, device=dev)
+        crit, per_step, milestones = _detr_criterion(), DETR_STEP_LAUNCHES, DETR_MILESTONES
+    else:
+        model = build_ape_r50(num_queries=TRAIN_QUERIES, window_radius=RADIUS,
+                              use_act_checkpoint=True, dtype=torch.bfloat16, device=dev)
+        crit = _criterion(TRAIN_QUERIES, True)
+        per_step, milestones = R50_STEP_LAUNCHES, R50_MILESTONES
+    model = init_frozen_bn(init_weights(model, SEED), SEED + 1)
+    optimizer, scheduler = build_optimizer(model, **R50_RECIPE, milestones=milestones)
+    step = make_train_step(model, crit, optimizer, scheduler)
+    batch = _train_batch(dev, TRAIN_BATCH, TRAIN_IMG, SEED + 4, masks=not detr)
+    before = _frozen_state(model)
+    rec = _train_steps(model, step, batch, dev, per_step, unused=frozenset({R50_STEM}))
+    frozen = _check_frozen(model, before, optimizer, TRAIN_STEPS + 1, "R50 train")
+    launches = rec.pop("launches")
+    syncs, hungarian = _host_syncs(step, batch, torch.Generator(device=dev).manual_seed(SEED))
+    label = "detr_r50_train" if detr else "r50_train"
+    if not detr and "loss_mask" not in rec["losses"]:
+        fail(f"{label}: no mask loss")
+    log(phase=label, dtype="bfloat16", image=TRAIN_IMG, batch=TRAIN_BATCH,
+        queries=TRAIN_QUERIES, texts=NUM_TEXT, tokens=sum(h * w for h, w in SHAPES),
+        params=sum(p.numel() for p in model.parameters()), **rec, **frozen,
+        host_syncs_per_step=syncs, hungarian_syncs_per_step=hungarian, card=card)
+    del model, step, optimizer, scheduler, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+R50_F32_TREES = (("ape_r50", "build_ape_r50", {"num_queries": TRAIN_QUERIES}),
+                 ("deta_r50", "build_ape_r50", {"num_queries": TRAIN_QUERIES,
+                                                "num_learned_classes": NUM_TEXT}),
+                 ("deformable_detr_r50", "build_deformable_detr_r50", {}))
+
+
+def r50_train_f32_phase(dev):
+    """One f32 step (TF32 off) of each R50 tree cut to 2 + 2 layers at
+    512^2, batch 1, fan-in weights, FrozenBN near identity, the encoder's
+    sampling_offsets weights at 0 (as phase 12): APE-DETA R50 and DETA R50
+    masked (300 queries, DETA's criterion with masks), Deformable-DETR R50
+    (the Hungarian on every layer). The card's step with the CUDA kernels
+    against the plain versions' on the CPU, draws from CPU generators of one
+    seed: exact launches, identical first-stage indices (two-stage trees),
+    every gradient within F32_GRAD_RTOL (sampling offsets
+    F32_OFFSET_GRAD_RTOL) or within twice the plain version's own floor
+    (its step again with the images perturbed by PERTURB): the ResNet's 49
+    ReLUs flip a gate where a pre-activation sits next to 0, which moves the
+    gradient of a weight that reads it by that position's term. Returns
+    the launches of the card's steps."""
+    import torch
+
+    from ape_tpu_torch.ops import _build
+
+    total_launches = {}
+    for name, build_name, kw in R50_F32_TREES:
+        detr = build_name == "build_deformable_detr_r50"
+        model = _r50_cpu_model(build_name, SEED, **kw).train()
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n.startswith("transformer.encoder.") and n.endswith("sampling_offsets.weight"):
+                    p.zero_()
+        cpu_model = copy.deepcopy(model)
+        model = model.to(dev)
+        crit = _detr_criterion() if detr else _criterion(TRAIN_QUERIES, True)
+        batch = _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5, masks=not detr)
+        t0 = time.perf_counter()
+        _build.reset_launches()
+        gpu_total, gpu_sel, gpu_grads = step_grads(model, crit, _to(batch, dev), SEED)
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        layers = 2 * R50_F32_LAYERS
+        want = {"msda_fwd": layers, "msda_bwd": layers}
+        if launches != want:
+            fail(f"{name} f32 train step: launches {launches}, expected {want}")
+        total_launches = {k: total_launches.get(k, 0) + v for k, v in launches.items()}
+        gpu_s = time.perf_counter() - t0
+        cpu_total, cpu_sel, cpu_grads = step_grads(cpu_model, crit, batch, SEED)
+        _, _, floor_grads = step_grads(cpu_model, crit, perturbed(batch, SEED + 6), SEED)
+        rel = grad_rel_errors(gpu_grads, cpu_grads)
+        floor = grad_rel_errors(floor_grads, cpu_grads)
+        by_floor = sorted(n for n, r in rel.items()
+                          if f32_grad_bound(n) < r <= 2 * floor.get(n, 0.0))
+        over = sorted(((n, r, f32_grad_bound(n), floor.get(n, 0.0)) for n, r in rel.items()
+                       if not r <= max(f32_grad_bound(n), 2 * floor.get(n, 0.0))),
+                      key=lambda t: -t[1])
+        names = set(n for n, _ in model.named_parameters()) - {R50_STEM}
+        if set(gpu_grads) != names or set(cpu_grads) != names:
+            fail(f"{name} f32 train step: gradients of {sorted(set(gpu_grads) ^ names)[:5]} "
+                 f"(card), {sorted(set(cpu_grads) ^ names)[:5]} (CPU) against the parameters "
+                 f"but the stem")
+        same_sel = None if gpu_sel is None else bool(torch.equal(gpu_sel, cpu_sel))
+        log(phase="r50_train_f32_vs_plain", model=name, image=F32_TRAIN_IMG,
+            layers=R50_F32_LAYERS, launches=launches, total_loss_cuda=gpu_total,
+            total_loss_cpu=cpu_total, first_stage_indices_identical=same_sel, params=len(rel),
+            worst_grad_rel_err=sorted(((n, r) for n, r in rel.items()
+                                       if "sampling_offsets" not in n),
+                                      key=lambda kv: -kv[1])[:3], bound=F32_GRAD_RTOL,
+            worst_offset_grad_rel_err=sorted(((n, r) for n, r in rel.items()
+                                              if "sampling_offsets" in n),
+                                             key=lambda kv: -kv[1])[:3],
+            offset_bound=F32_OFFSET_GRAD_RTOL, perturbation=PERTURB,
+            floor_worst_grad_rel_err=sorted(floor.items(), key=lambda kv: -kv[1])[:3],
+            held_by_floor=by_floor, gpu_seconds=gpu_s,
+            cpu_seconds=time.perf_counter() - t0 - gpu_s)
+        if same_sel is False:
+            fail(f"{name} f32 train step: first-stage indices differ between the card and the CPU")
+        if over:
+            fail(f"{name} f32 train step: {len(over)} gradients over their bound and twice the "
+                 f"floor, worst (name, rel, bound, floor) {over[:3]}")
+        del model, cpu_model, gpu_grads, cpu_grads, floor_grads
+        torch.cuda.empty_cache()
+    return total_launches
+
+
 def race_phase(dev, card):
     """``ape_tpu_torch.tools.msda_race`` as a path of its own: every
     window-MSDA form at both pyramids and offset draws, then the per-pair
@@ -2389,11 +2819,24 @@ def main():
     tower = l_d_text_tower(dev, card)
     default_runs.append(l_d_slice_phase(dev, card))
     default_runs.append(l_d_serve_phase(dev, card, tower))
+    # the R50 trees' requests take the same tower, before L_D's training
+    # (whose peak memory the tower would otherwise join)
+    t1 = time.perf_counter()
+    default_runs.append(r50_serve_phase(dev, card, tower))
+    r50_serve_s = time.perf_counter() - t1
     del tower
+    torch.cuda.empty_cache()
     l_d_f32_phase(dev)
     default_runs.append(l_d_train_phase(dev, card))
     default_runs.append(l_d_train_f32_phase(dev))
-    log(phase="l_d_done", seconds=time.perf_counter() - t0)
+    log(phase="l_d_done", seconds=time.perf_counter() - t0 - r50_serve_s)
+    t0 = time.perf_counter() - r50_serve_s
+    default_runs.append(r50_slice_phase(dev, card))
+    r50_f32_phase(dev)
+    default_runs.append(r50_train_phase(dev, card))
+    default_runs.append(r50_train_phase(dev, card, detr=True))
+    default_runs.append(r50_train_f32_phase(dev))
+    log(phase="r50_done", seconds=time.perf_counter() - t0)
     main_runs = default_runs + flag_runs
     runs = list(main_runs)
     runs.append(race_phase(dev, card))
@@ -2440,11 +2883,18 @@ def main():
                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                **{k: rec[k] for k in ("general_ms", "device_ms") if k in rec}}
+        fields = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
         l_d_case = {"attn_fwd": "attention", "attn_bwd_dkv": "attn_bwd_dkv",
                     "attn_bwd_dq": "attn_bwd_dq"}.get(name)
         if l_d_case:  # K5 and its backward at L_D's 16 heads, bf16
-            row["l_d"] = {k: l_d_attn[(l_d_case, "bfloat16")][k] for k in (
-                "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            row["l_d"] = {k: l_d_attn[(l_d_case, "bfloat16")][k] for k in ("shape",) + fields}
+        r50_case = {"msda_fwd": "msda_decoder_r50_train", "msda_fwd_window": "msda_window_r50_train",
+                    "msda_bwd": "msda_bwd_encoder_r50_train"}.get(name)
+        if r50_case:  # K1, K1w and K2 at the R50 family's training shapes, bf16
+            rec = kern[(r50_case, "bfloat16")]
+            row["r50"] = {"case": r50_case, **{k: rec[k] for k in fields},
+                          **{k: rec[k] for k in ("value", "queries") if k in rec},
+                          **({"shape": rec["shape"]} if "shape" in rec else {})}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

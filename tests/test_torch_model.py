@@ -169,7 +169,8 @@ def test_build_refuses_to_fall_back_to_the_cpu(monkeypatch):
 def test_import_closure_and_tiny_serve():
     """In a fresh interpreter that refuses jax, flax, PIL and the JAX
     package (ape_tpu, experiments), the port imports (its training modules,
-    the window-MSDA forms, both races and the two probe tools too), reads
+    the window-MSDA forms, both races and the two probe tools, the ResNet,
+    the R50 builders and the Hungarian matcher too), reads
     its own copy of the LVIS counts for the federated loss, builds,
     and serves a non-square image through the predictor. The interpreter
     runs torch on two threads, so that beside the suite's other workers it
@@ -195,6 +196,9 @@ def test_import_closure_and_tiny_serve():
         from ape_tpu_torch.engine.train_step import make_train_step
         from ape_tpu_torch.modeling.ape_deta.criterion import DeformableCriterion
         from ape_tpu_torch.modeling.ape_deta.matchers import stage1_assign, stage2_assign
+        from ape_tpu_torch.modeling.ape_deta.matchers import auction_assign, hungarian_match
+        from ape_tpu_torch.modeling.backbone.resnet import ResNet
+        from ape_tpu_torch.modeling.build import build_ape_r50, build_deformable_detr_r50
         from ape_tpu_torch.data.datasets.metadata import fed_loss_cls_weights
         assert len(fed_loss_cls_weights("lvis_v1_train")) == 1203
         torch.manual_seed(0)

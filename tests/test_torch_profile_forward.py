@@ -1,8 +1,9 @@
 """``ape_tpu_torch/tools/profile_forward.py`` on the CPU: its module hooks
 and stage split on tiny models of its cells (the protocol pyramid without
-masks, the 4-scale pyramid with the mask head, and a tiny APE-L_D whose
-encoder fuses), with host-clock events in place of the card's CUDA events.
-The profile itself needs a card."""
+masks, the 4-scale pyramid with the mask head, a tiny APE-L_D whose
+encoder fuses, and the tiny R50 trees: APE-DETA R50 masked and
+Deformable-DETR R50 single-stage), with host-clock events in place of the
+card's CUDA events. The profile itself needs a card."""
 
 import time
 
@@ -10,7 +11,14 @@ import pytest
 import torch
 
 from ape_tpu_torch.tools import profile_forward
-from tests.torch_parity import tiny_inputs, torch_tiny_l_d, torch_tiny_masked, torch_tiny_protocol
+from tests.torch_parity import (
+    R50_DIMS,
+    tiny_inputs,
+    torch_tiny_l_d,
+    torch_tiny_masked,
+    torch_tiny_protocol,
+    torch_tiny_r50,
+)
 
 
 class HostEvent:
@@ -23,14 +31,16 @@ class HostEvent:
         return (other.t - self.t) * 1e3
 
 
-@pytest.mark.parametrize("build,mask_on", [(torch_tiny_protocol, False),
-                                           (torch_tiny_masked, True),
-                                           (torch_tiny_l_d, False)])
-def test_stage_hooks_split_the_forward(monkeypatch, build, mask_on):
+@pytest.mark.parametrize("build,mask_on,dims", [
+    (torch_tiny_protocol, False, None), (torch_tiny_masked, True, None),
+    (torch_tiny_l_d, False, None), (lambda: torch_tiny_r50("ape"), True, R50_DIMS),
+    (lambda: torch_tiny_r50("detr"), False, R50_DIMS)], ids=["protocol", "masked", "l_d",
+                                                             "r50", "detr_r50"])
+def test_stage_hooks_split_the_forward(monkeypatch, build, mask_on, dims):
     monkeypatch.setattr(profile_forward, "_event", HostEvent)
     torch.manual_seed(0)
     model = build().eval()
-    inputs = [torch.from_numpy(x) for x in tiny_inputs()]
+    inputs = [torch.from_numpy(x) for x in tiny_inputs(*([dims] if dims else []))]
     marks = {}
     hooks = profile_forward.stage_hooks(model, marks)
     with torch.no_grad():
@@ -53,3 +63,22 @@ def test_stage_hooks_split_the_forward(monkeypatch, build, mask_on):
     assert not model._forward_hooks and not model.transformer.encoder._forward_pre_hooks
     summary = profile_forward.summary([3.0, 1.0, 2.0])
     assert summary == {"median": 2.0, "min": 1.0, "max": 3.0}
+
+
+def test_r50_cells_build_the_r50_trees(monkeypatch):
+    """The R50 cells' builders, their masks, queries and the class bank
+    (the builders swapped for ones that cut the model to 1 + 1 layers on
+    the CPU); the model list names them."""
+    from ape_tpu_torch.modeling import build as port_build
+
+    for name in ("build_ape_r50", "build_deformable_detr_r50"):
+        real = getattr(port_build, name)
+        monkeypatch.setattr(profile_forward, name, lambda *a, _f=real, **k: _f(
+            *a, **dict(k, num_layers=1, device="cpu")))
+    assert {"r50-protocol", "r50-full", "detr-r50"} <= set(profile_forward.MODELS)
+    got = {n: profile_forward.build(n, "cpu") for n in ("r50-protocol", "r50-full", "detr-r50")}
+    assert [m.mask_on for m, _ in got.values()] == [False, True, False]
+    assert got["detr-r50"][0].num_learned_classes == 80
+    assert not got["detr-r50"][0].transformer.as_two_stage
+    assert got["r50-full"][0].transformer.two_stage_num_proposals == 900
+    assert all(t == 80 and not m.training for m, t in got.values())

@@ -2,8 +2,9 @@
 train step of a tiny APE-L_D, with host-clock events in place of the card's
 CUDA events: the fusion layers' forward, the recompute inside the backward
 (which module hooks do not see, and which checkpoint stops early) and the
-fusion layers' backward spans; the wrappers gone after the step. The
-profile itself needs a card."""
+fusion layers' backward spans; the wrappers gone after the step; and the
+same split of a tiny R50 step (APE-DETA R50 masked, Deformable-DETR R50's
+Hungarian). The profile itself needs a card."""
 
 import pytest
 import torch
@@ -43,3 +44,32 @@ def test_train_stage_split_times_the_fusion_and_the_recompute(monkeypatch, recom
         assert not any(recomputed.values())
         assert 0 < split["fusion_backward_ms"] < split["backward_ms"]
     assert not any("forward" in vars(m) for m in model.modules())  # the wrappers undone
+
+
+@pytest.mark.parametrize("tree", ["ape", "detr"])
+def test_train_stage_split_of_an_r50_step(monkeypatch, tree):
+    """The stage split of one step of a tiny R50 tree under the R50 recipe's
+    optimizer: the backbone (the ResNet), the pixel decoder where masked,
+    and the criterion inside the forward with the loss; nothing recomputed
+    without recompute, no fusion."""
+    from ape_tpu_torch.engine.optimizer import R50_RECIPE
+    from tests.test_torch_r50_train import _criterion_kw, _num_classes, _r50_batch
+    from tests.torch_parity import torch_tiny_r50
+
+    monkeypatch.setattr(profile_train, "_event", HostEvent)
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    torch.manual_seed(0)
+    model = torch_tiny_r50(tree)
+    crit = DeformableCriterion(**_criterion_kw(tree, _num_classes(tree)))
+    opt, sched = build_optimizer(model, **R50_RECIPE)
+    (split,) = profile_train.stage_split(model, crit, opt, sched, _port_batch(_r50_batch(tree)),
+                                         torch.Generator().manual_seed(0), steps=1)
+    modules = split["forward_modules_ms"]
+    assert sorted(modules) == sorted(["backbone", "neck", "encoder", "decoder"]
+                                     + (["pixel_decoder"] if tree == "ape" else []))
+    assert 0 < modules["backbone"] < split["forward_and_loss_ms"]
+    assert 0 < split["criterion_ms"] < split["forward_and_loss_ms"]
+    assert not any(split["recompute_ms"].values()) and split["fusion_backward_ms"] == 0
+    assert not any("forward" in vars(m) for m in model.modules())

@@ -75,6 +75,10 @@ def _synth(key, shape, rng, heads, points):
         return 0.5 + noise
     if key.endswith("/kernel"):
         return rng.normal(0.0, 1.0 / np.sqrt(np.prod(shape[:-1])), shape)
+    if key.endswith("/var"):  # FrozenBN statistics far from identity, so that
+        return rng.uniform(0.5, 2.0, shape)  # a swapped mean and var shows
+    if key.endswith("/mean"):
+        return rng.normal(0.0, 0.5, shape)
     if key.endswith("/scale"):
         return 1.0 + noise
     if key.endswith("sampling_offsets/bias"):
@@ -240,3 +244,89 @@ def tiny_inputs(d=DIMS, seed=3, h=None, w=None):
     text = rng.randn(1, d["num_text"] + 1, d["ldim"]).astype(np.float32)
     valid = np.arange(d["num_text"] + 1)[None] < d["num_text"]
     return img, sizes, text, valid
+
+
+# The tiny R50 trees (configs/tests/ape_deta_tiny_r50.py): the real
+# depth-50 FrozenBN ResNet at 64^2, its res3-res5 mapped to 5 levels (8^2,
+# 4^2, 2^2, 1^2, 1^2) at width 64 by the neck's two stride-2 extras, 2 + 2
+# layers, 24 queries; the mask head's lateral map on res2 (16^2).
+R50_DIMS = dict(DIMS, img=256, queries=24)
+R50_NECK_IN = ("res3", "res4", "res5")
+R50_LEVELS = R50_NECK_IN + ("extra0", "extra1")
+# the variants: APE-DETA R50 (masked or not), its fusion tree, DETA R50's
+# class bank, and Deformable-DETR R50 single-stage, with box refinement, and
+# two-stage with box refinement; (transformer keywords, APEDeta keywords)
+R50_TREES = {
+    "ape": ({}, {"mask_on": True}),
+    "ape_protocol": ({}, {}),
+    "ape_vlf": ({"fusion": L_D_FUSION}, {"mask_on": True}),
+    "deta": ({}, {"mask_on": True, "num_learned_classes": 10}),
+    "detr": ({"as_two_stage": False, "assign_first_stage": False, "with_box_refine": False},
+             {"num_learned_classes": 10}),
+    "detr_refine": ({"as_two_stage": False, "assign_first_stage": False,
+                     "with_box_refine": True}, {"num_learned_classes": 10}),
+    "detr_two_stage": ({"as_two_stage": True, "assign_first_stage": False,
+                        "with_box_refine": True}, {"num_learned_classes": 10}),
+}
+
+
+def jax_tiny_r50(tree: str, d=R50_DIMS, window_radius=4):
+    """ape_tpu APEDeta as the tiny R50 tree ``tree`` of R50_TREES."""
+    from ape_tpu.modeling.ape_deta.model import APEDeta, ChannelMapper
+    from ape_tpu.modeling.ape_deta.transformer import (
+        DeformableDetrTransformer,
+        DeformableTransformerDecoder,
+        DeformableTransformerEncoder,
+    )
+    from ape_tpu.modeling.backbone.resnet import ResNet
+
+    tr_kw, kw = R50_TREES[tree]
+    tr_kw = dict(tr_kw)
+    fusion = tr_kw.pop("fusion", None)
+    refine = tr_kw.pop("with_box_refine", True)
+    transformer = DeformableDetrTransformer(
+        encoder=DeformableTransformerEncoder(
+            embed_dim=d["embed"], num_heads=d["heads"], feedforward_dim=d["ffn"],
+            num_layers=d["layers"], num_feature_levels=5, window_radius=window_radius,
+            embed_dim_language=d["ldim"], **(fusion or {})),
+        decoder=DeformableTransformerDecoder(
+            embed_dim=d["embed"], num_heads=d["heads"], feedforward_dim=d["ffn"],
+            num_layers=d["layers"], num_feature_levels=5, look_forward_twice=False,
+            with_box_refine=refine),
+        num_feature_levels=5, two_stage_num_proposals=d["queries"], **tr_kw)
+    return APEDeta(
+        backbone=ResNet(depth=50, freeze_at=1),
+        neck=ChannelMapper(out_channels=d["embed"], in_features=R50_NECK_IN, num_outs=5),
+        transformer=transformer, embed_dim=d["embed"], embed_dim_language=d["ldim"],
+        num_queries=d["queries"], in_features=R50_LEVELS, mask_in_feature="res2",
+        **{"mask_on": False, **kw})
+
+
+def torch_tiny_r50(tree: str, d=R50_DIMS, window_radius=4):
+    """The port's APEDeta as the same tiny R50 tree."""
+    from ape_tpu_torch.modeling.ape_deta.model import APEDeta, ChannelMapper
+    from ape_tpu_torch.modeling.ape_deta.transformer import (
+        DeformableDetrTransformer,
+        DeformableTransformerDecoder,
+        DeformableTransformerEncoder,
+    )
+    from ape_tpu_torch.modeling.backbone.resnet import ResNet
+
+    tr_kw, kw = R50_TREES[tree]
+    tr_kw = dict(tr_kw)
+    fusion = tr_kw.pop("fusion", None)
+    refine = tr_kw.pop("with_box_refine", True)
+    backbone = ResNet()
+    transformer = DeformableDetrTransformer(
+        DeformableTransformerEncoder(d["embed"], d["heads"], d["ffn"], d["layers"], 5,
+                                     window_radius=window_radius, embed_dim_language=d["ldim"],
+                                     **(fusion or {})),
+        DeformableTransformerDecoder(d["embed"], d["heads"], d["ffn"], d["layers"], 5,
+                                     with_box_refine=refine,
+                                     enc_bbox_head=tr_kw.get("as_two_stage", True)),
+        embed_dim=d["embed"], num_feature_levels=5, two_stage_num_proposals=d["queries"], **tr_kw)
+    neck = ChannelMapper(R50_NECK_IN, [backbone.out_channels[n] for n in R50_NECK_IN],
+                         d["embed"], num_outs=5)
+    return APEDeta(backbone, neck, transformer, embed_dim=d["embed"],
+                   embed_dim_language=d["ldim"], in_features=R50_LEVELS,
+                   mask_in_feature="res2", **{"mask_on": False, **kw})
