@@ -17,7 +17,10 @@ It covers APE-Ti inference under the reference latency protocol
 ``modeling.text.EVA02CLIP`` -> ``APE`` -> ``DefaultPredictor``), and APE-L_D
 training (``build_ape_l_d(num_queries=300)``, drop path and the federated
 class loss with ``data.datasets.metadata.fed_loss_cls_weights``, through
-``build_optimizer(vit_num_layers=24)`` and ``make_train_step``).
+``build_optimizer(vit_num_layers=24)`` and ``make_train_step``), APE-L on the
+non-CLIP EVA-02-L (``build_ape_l``), the ambiguous first-stage heads
+(``proposal_ambiguous``) and mask prompts, and the host side of semantic and
+panoptic evaluation (``evaluation``: NumPy only, no PIL).
 """
 
 __version__ = "0.1.0"

@@ -19,6 +19,8 @@ inverted:
   res{s}_block{i}/shortcut{,_norm}      -> res{s}.{i}.shortcut{,.norm}
   FrozenBN scale / bias / mean / var    -> weight / bias / running_mean /
                                            running_var (buffers)
+  decoder {bbox,class}_embed_ambiguous_{i} -> {bbox,class}_embed_ambiguous.{i}
+                                           (``proposal_ambiguous``'s head copies)
 
 JAX's converter has no rule for three leaves of the closed-vocabulary and
 single-stage trees, which keep JAX's names here: ``class_embedding``,
@@ -155,9 +157,15 @@ def _convert_one(key: str, v, neck_levels, num_layers: int):
         return f"transformer.encoder.vl_layers.{m[1]}.b_attn.{m[2]}", np.asarray(v)
     if key == "name_prompt_fusion_feature":
         return key, np.asarray(v)
-    m = re.fullmatch(r"transformer/decoder/bbox_embed_(\d+)/layer(\d+)/(kernel|bias)", key)
+    m = re.fullmatch(r"transformer/decoder/bbox_embed(_ambiguous)?_(\d+)/layer(\d+)/(kernel|bias)",
+                     key)
     if m:
-        return f"transformer.decoder.bbox_embed.{m[1]}.layers.{m[2]}.{_leaf(m[3])}", _tf(m[3])(v)
+        amb, i, j, kind = m.groups()
+        return (f"transformer.decoder.bbox_embed{amb or ''}.{i}.layers.{j}.{_leaf(kind)}",
+                _tf(kind)(v))
+    m = re.fullmatch(r"transformer/decoder/class_embed_ambiguous_(\d+)/(kernel|bias)", key)
+    if m:
+        return f"transformer.decoder.class_embed_ambiguous.{m[1]}.{_leaf(m[2])}", _tf(m[2])(v)
     m = re.fullmatch(r"class_embed_(\d+)/dot_product_projection_text/(kernel|bias)", key)
     if m:
         return f"class_embed.{m[1]}.dot_product_projection_text.{_leaf(m[2])}", _tf(m[2])(v)
@@ -181,8 +189,9 @@ def _convert_one(key: str, v, neck_levels, num_layers: int):
 
 
 def state_dict_from_jax(flat_params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flat flax params ("a/b/kernel" -> numpy) of an APE-Ti, APE-L_D or R50
-    tree (the protocol's or the masked model's; Deformable-DETR's) to the
+    """Flat flax params ("a/b/kernel" -> numpy) of an APE-Ti, APE-L_D, APE-L or
+    R50 tree (the protocol's or the masked model's, with or without
+    ambiguous head copies; Deformable-DETR's) to the
     port's state_dict. Raises on a key it cannot place."""
     neck_levels = sorted({m[1] for k in flat_params
                           if (m := re.fullmatch(r"neck/conv_(\w+)/kernel", k))})

@@ -2,7 +2,10 @@
 inference against an ``APE`` wrapper. The test-time resize and pad run in torch
 on the model's device: the shortest edge goes to ``image_size`` with the
 longest capped at ``image_size``, bilinear as PIL resizes, then the image is
-padded bottom-right to a square canvas.
+padded bottom-right to a square canvas. A ``mask_prompt`` goes into the
+input under its key as given, as JAX's predictor sets it; JAX's ``APE``
+reads no such key, and neither does the port's (a mask prompt reaches the
+model only through ``APEDeta.forward(mask_prompt=...)``).
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ class DefaultPredictor:
         self.model = ape_model
         self.image_size = image_size
 
-    def __call__(self, original_image: np.ndarray, text_prompt: Optional[str] = None) -> Dict:
+    def __call__(self, original_image: np.ndarray, text_prompt: Optional[str] = None,
+                 mask_prompt: Optional[np.ndarray] = None) -> Dict:
         """original_image: RGB uint8 (H, W, 3). Returns the APE wrapper's result
         for it: instances with boxes in its pixels (and ``mask_logits``), and
         as the wrapper is configured ``sem_seg`` and ``panoptic_raw``, whose
@@ -62,4 +66,6 @@ class DefaultPredictor:
         }
         if text_prompt:
             inp["text_prompt"] = text_prompt
+        if mask_prompt is not None:
+            inp["mask_prompt"] = mask_prompt
         return self.model([inp])[0]

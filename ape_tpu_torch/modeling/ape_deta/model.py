@@ -9,6 +9,10 @@
   the encoder memory plus a lateral backbone map, and mask logits as the
   product of each query's ``mask_embed`` with the pixel features.
 
+A mask prompt (B, H, W) bool over the padded image limits the first
+stage's proposals to the cells it covers: each level takes every
+(H // H_l)-th row and (W // W_l)-th column of it, as JAX subsamples it.
+
 With a fusing transformer (APE-L_D) the encoder's fusion layers see the
 text, a single zero or learned token, or nothing (``fusion_text_mode``), and
 the class heads align to the fused or the original text
@@ -28,7 +32,6 @@ Parameter names are the reference's (``neck.convs.{i}.conv``,
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -37,10 +40,8 @@ import torch.nn.functional as F
 
 from ape_tpu_torch.layers.align import VisionLanguageAlign
 from ape_tpu_torch.layers.common import MLP, Linear
-from ape_tpu_torch.modeling.ape_deta.transformer import DeformableDetrTransformer
+from ape_tpu_torch.modeling.ape_deta.transformer import PRIOR_BIAS, DeformableDetrTransformer
 from ape_tpu_torch.ops.posemb import position_embedding_sine
-
-PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 
 
 def _group_norm(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
@@ -137,6 +138,22 @@ def level_valid_masks(image_sizes: torch.Tensor, image_hw: Tuple[int, int],
         xs = torch.arange(wl, device=image_sizes.device)[None, None, :]
         masks.append((ys < vh[:, None, None]) & (xs < vw[:, None, None]))
     return masks
+
+
+def flatten_mask_prompt(mask_prompt: torch.Tensor, level_shapes) -> torch.Tensor:
+    """(B, H, W) bool -> (B, S): level (H_l, W_l) reads every (H // H_l)-th
+    row and (W // W_l)-th column from the first, as JAX's ``mask_prompt[:,
+    ::sy, ::sx]``. A level whose size does not divide the image's gets more
+    cells than it has, and JAX fails on the shapes; so does this."""
+    b, hh, ww = mask_prompt.shape
+    pieces = []
+    for hl, wl in level_shapes:
+        piece = mask_prompt[:, :: hh // hl, :: ww // wl]
+        if tuple(piece.shape[1:]) != (hl, wl):
+            raise ValueError(f"mask_prompt {hh}x{ww} subsampled to level {hl}x{wl} gives "
+                             f"{tuple(piece.shape[1:])}: the level's size must divide the image's")
+        pieces.append(piece.reshape(b, -1))
+    return torch.cat(pieces, 1)
 
 
 class APEDeta(nn.Module):
@@ -250,6 +267,7 @@ class APEDeta(nn.Module):
         align_on_fused: bool = True,
         fusion_text_mode: str = "text",
         generator: Optional[torch.Generator] = None,
+        mask_prompt: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         """fusion_text_mode: what the fusion layers see: ``"text"`` the text
         features, ``"zero"`` one zero token, ``"learnable"`` the learned
@@ -259,7 +277,8 @@ class APEDeta(nn.Module):
         model without fusion layers gives the same outputs under both.
         generator: the backbone's drop-path draws in ``train()`` mode (JAX's
         ``rngs={"dropout": rng}``). With a class bank the text passed in is
-        not read."""
+        not read. mask_prompt: (B, H, W) bool, where the first stage may
+        propose."""
         if self.num_learned_classes:
             b = images.shape[0]
             text_features = self.class_embedding[None].expand(b, -1, -1).to(self.dtype)
@@ -275,8 +294,9 @@ class APEDeta(nn.Module):
         fusion_text, fusion_valid = self._fusion_text(fusion_text_mode, text_features, text_valid)
         num_layers = len(self.transformer.decoder.layers)
         enc_head = self.class_embed[num_layers] if len(self.class_embed) > num_layers else None
+        prompt = None if mask_prompt is None else flatten_mask_prompt(mask_prompt, level_shapes)
         tr = self.transformer(multi_level_feats, masks, pos, enc_class_head=enc_head,
-                              text=fusion_text, text_valid=fusion_valid)
+                              text=fusion_text, text_valid=fusion_valid, mask_prompt=prompt)
 
         fused = align_on_fused and fusion_text_mode == "text"
         text = (tr["text"] if fused else text_features).to(self.dtype)
@@ -296,6 +316,8 @@ class APEDeta(nn.Module):
         }
         if "first_stage_indices" in tr:  # two-stage: (B, K) the selected proposals
             out["first_stage_indices"] = tr["first_stage_indices"]
+        if "first_stage_heads" in tr:  # proposal_ambiguous: (B, S) each proposal's head
+            out["first_stage_heads"] = tr["first_stage_heads"]
         aux = [{"pred_logits": lo, "pred_boxes": bx} for lo, bx in zip(logits[:-1], coords[:-1])]
         if self.mask_on:
             mask_features = self.pixel_decoder(tr["memory"], level_shapes, backbone_feats)

@@ -10,7 +10,14 @@
     (``assign_first_stage=False``); or single-stage learned queries;
   * decoder: num_layers x [self-attention -> exact MSDA cross-attention ->
     FFN], iterative box refinement (``with_box_refine``) from 4-d boxes
-    or 2-d points.
+    or 2-d points;
+  * with ``proposal_ambiguous`` N copies of the first stage's objectness
+    head and box MLP: per proposal, the argmax over the 1 + N objectness
+    logits picks whose logit and box go on (a gather, so the gradient
+    reaches the picked head alone, as JAX's ``take_along_axis``).
+
+A mask prompt (B, S) bool, the image's prompt subsampled to each level,
+takes the cells it leaves out of the first stage as padding does.
 
 Gradients stop (``.detach()``) where JAX's ``jax.lax.stop_gradient`` stops
 them: at the selected proposal boxes and features, and at the references
@@ -42,6 +49,9 @@ from ape_tpu_torch.ops.msda import level_start_index
 from ape_tpu_torch.ops.msda_dispatch import level_sizes
 from ape_tpu_torch.ops.nms import NEG_INF, nms_mask, sort_desc, topk
 from ape_tpu_torch.ops.tables import device_table, shapes_key
+
+# the focal prior of the first stage's objectness heads: sigmoid(bias) = 0.01
+PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 
 
 def _run_layer(layer: nn.Module, use_act_checkpoint: bool, *args):
@@ -114,8 +124,10 @@ def level_ids(spatial_shapes, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def gen_output_proposals(memory, valid_mask, spatial_shapes, valid_ratios):
-    """Per-cell anchor proposals in logit space; invalid cells -> +inf.
+def gen_output_proposals(memory, valid_mask, spatial_shapes, valid_ratios, mask_prompt=None):
+    """Per-cell anchor proposals in logit space; invalid cells -> +inf. A
+    cell is valid inside the image, with its anchor inside (0.01, 0.99),
+    and where ``mask_prompt`` (B, S) bool, if given, allows it.
 
     Returns (masked_memory (B,S,C), proposals_unact (B,S,4) f32, proposal_valid (B,S)).
     """
@@ -133,6 +145,8 @@ def gen_output_proposals(memory, valid_mask, spatial_shapes, valid_ratios):
         props.append(torch.cat([center, torch.full_like(center, 0.05 * (2.0**lvl))], -1))
     proposals = torch.cat(props, 1)
     ok = ((proposals > 0.01) & (proposals < 0.99)).all(-1) & valid_mask
+    if mask_prompt is not None:
+        ok = ok & mask_prompt
     unact = torch.log(proposals / (1 - proposals.clamp(max=1 - 1e-7)))
     unact = torch.where(ok[..., None], unact, torch.full_like(unact, math.inf))
     mem = torch.where(ok[..., None], memory, torch.zeros_like(memory))
@@ -289,11 +303,14 @@ class DeformableTransformerDecoder(nn.Module):
     """Decoder with iterative box refinement (``with_box_refine``; without
     it every layer samples around the initial references); owns a bbox MLP
     a layer and, with ``enc_bbox_head`` (a two-stage transformer's), one
-    more that scores the encoder's proposals."""
+    more that scores the encoder's proposals; with ``proposal_ambiguous``
+    N copies of the first stage's heads, ``class_embed_ambiguous.{i}``
+    (``Linear(C, 1)`` with the focal prior bias) and
+    ``bbox_embed_ambiguous.{i}`` (the 3-layer box MLP)."""
 
     def __init__(self, embed_dim=256, num_heads=8, feedforward_dim=2048, num_layers=6,
                  num_feature_levels=5, num_points=4, use_act_checkpoint=False,
-                 with_box_refine=True, enc_bbox_head=True):
+                 with_box_refine=True, enc_bbox_head=True, proposal_ambiguous=0):
         super().__init__()
         self.num_layers = num_layers
         self.use_act_checkpoint = use_act_checkpoint
@@ -304,9 +321,22 @@ class DeformableTransformerDecoder(nn.Module):
         )
         self.bbox_embed = nn.ModuleList(MLP(embed_dim, embed_dim, 4, 3)
                                         for _ in range(num_layers + int(enc_bbox_head)))
+        self.proposal_ambiguous = proposal_ambiguous
+        if proposal_ambiguous:
+            self.bbox_embed_ambiguous = nn.ModuleList(
+                MLP(embed_dim, embed_dim, 4, 3) for _ in range(proposal_ambiguous))
+            self.class_embed_ambiguous = nn.ModuleList(
+                Linear(embed_dim, 1) for _ in range(proposal_ambiguous))
+            for head in self.class_embed_ambiguous:
+                nn.init.constant_(head.bias, PRIOR_BIAS)
 
     def enc_bbox_head(self, x):
         return self.bbox_embed[self.num_layers](x)
+
+    def enc_ambiguous_heads(self, x):
+        """The copies' objectness logits [(B, S)] and box deltas [(B, S, 4)]."""
+        return ([h(x)[..., 0] for h in self.class_embed_ambiguous],
+                [h(x) for h in self.bbox_embed_ambiguous])
 
     def forward(self, query, query_pos, memory, valid_mask, spatial_shapes,
                 reference_points, valid_ratios):
@@ -391,12 +421,14 @@ class DeformableDetrTransformer(nn.Module):
         return out
 
     def forward(self, multi_level_feats, multi_level_masks, multi_level_pos,
-                enc_class_head=None, text=None, text_valid=None) -> Dict[str, torch.Tensor]:
+                enc_class_head=None, text=None, text_valid=None,
+                mask_prompt=None) -> Dict[str, torch.Tensor]:
         """multi_level_feats/pos: per level (B, H, W, C); masks (B, H, W) True = valid.
         enc_class_head: (B, S, C) -> (B, S, 1) binary objectness (two-stage
         only). text (B, T, Cl) and text_valid (B, T), or None: what the
         encoder's fusion layers see; ``"text"`` in the result is the text
-        they return."""
+        they return. mask_prompt: (B, S) bool over the flattened levels, the
+        cells the first stage may propose (two-stage only)."""
         b, _, _, c = multi_level_feats[0].shape
         spatial_shapes = tuple((int(f.shape[1]), int(f.shape[2])) for f in multi_level_feats)
         feat = torch.cat([f.reshape(b, -1, c) for f in multi_level_feats], 1)
@@ -413,7 +445,7 @@ class DeformableDetrTransformer(nn.Module):
             return self._single_stage(b, feat, memory, valid, spatial_shapes, valid_ratios, text)
 
         out_memory, proposals_unact, proposal_valid = gen_output_proposals(
-            memory, valid, spatial_shapes, valid_ratios)
+            memory, valid, spatial_shapes, valid_ratios, mask_prompt)
         out_memory = self.enc_output_norm(self.enc_output(out_memory))
         # unmasked, as the reference: invalid proposals score the head on zeroed
         # memory and take part in the select
@@ -421,6 +453,18 @@ class DeformableDetrTransformer(nn.Module):
         masked_props = torch.where(proposal_valid[..., None], proposals_unact,
                                    torch.zeros_like(proposals_unact))
         enc_coords_unact = self.decoder.enc_bbox_head(out_memory) + masked_props
+        heads = None
+        if self.decoder.proposal_ambiguous:
+            # per proposal, the head with the largest objectness logit gives
+            # its logit and its box (jnp.argmax: the first on a tie)
+            amb_cls, amb_box = self.decoder.enc_ambiguous_heads(out_memory)
+            cls_stack = torch.stack([enc_logits] + amb_cls, 1)  # (B, 1 + N, S)
+            box_stack = torch.stack([enc_coords_unact] + [bx + masked_props for bx in amb_box],
+                                    1)  # (B, 1 + N, S, 4)
+            heads = cls_stack.argmax(1)  # (B, S)
+            enc_logits = cls_stack.gather(1, heads[:, None])[:, 0]
+            enc_coords_unact = box_stack.gather(
+                1, heads[:, None, :, None].expand(-1, 1, -1, 4))[:, 0]
         # invalid proposals: 30 saturates the sigmoid to 1.0 like the reference's +inf
         enc_coords_unact = torch.where(proposal_valid[..., None], enc_coords_unact,
                                        torch.full_like(enc_coords_unact, 30.0))
@@ -449,6 +493,8 @@ class DeformableDetrTransformer(nn.Module):
             "memory": memory,  # (B, S, C)
             "text": text,  # (B, T, Cl) after the fusion layers, or as given, or None
         }
+        if heads is not None:
+            out["first_stage_heads"] = heads  # (B, S) the head each proposal took
         if self.training:  # the first stage's outputs, for the losses
             out.update({
                 "init_reference": init_reference,  # (B, K, 4)

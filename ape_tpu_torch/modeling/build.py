@@ -6,9 +6,18 @@
 * APE-L_D: EVA-02-CLIP-L backbone (1024-d, 24 blocks, 16 heads, window 32,
   subln, inner attention LN, SwiGLU with ``ffn_ln``, position table
   pretrained at 336), the same transformer with a vision-language fusion
-  layer before each encoder layer (embed 2048, 8 heads, layer scale 1/6).
+  layer before each encoder layer (embed 2048, 8 heads, layer scale 1/6);
+* APE-L (``build_ape_l``, the ADE20k, LVIS and ODinW recipes on
+  ``configs/common/backbone/vitl_eva02.py``): the non-CLIP EVA-02-L
+  (1024-d, 24 blocks, 16 heads, window 16 with every sixth block global,
+  ``subln``, SwiGLU unpacked with ``ffn_ln``, no inner attention LN,
+  position table pretrained at 224), the transformer without fusion, or
+  with its ``_vlf_`` twin's.
 
-Both carry by default the mask head on the finest pyramid level. The
+All carry by default the mask head on the finest pyramid level. Every
+two-stage build takes ``proposal_ambiguous``: copies of the first stage's
+heads whose per-proposal argmax wins (the ``*_mdl``, ``_mp`` and eval
+configs set 1). The
 ResNet-50 family (``configs/common/models/ape_deta_r50.py``): a FrozenBN
 ResNet-50 (``freeze_at=1``) whose res3-res5 the neck maps to 5 levels with
 two stride-2 extra convs, the mask head's lateral map on res2:
@@ -47,9 +56,9 @@ R50_NECK_IN = ("res3", "res4", "res5")
 R50_LEVELS = R50_NECK_IN + ("extra0", "extra1")
 
 
-def window_indexes(depth: int):
-    """2/3 of the blocks windowed, every third global."""
-    return tuple(i for i in range(depth) if (i + 1) % 3 != 0)
+def window_indexes(depth: int, every: int = 3):
+    """The windowed blocks: all but every ``every``-th, which is global."""
+    return tuple(i for i in range(depth) if (i + 1) % every != 0)
 
 
 def pyramid_features(scale_factors: Sequence[float]):
@@ -72,15 +81,30 @@ def build_backbone_l(scale_factors: Sequence[float] = (4.0, 2.0, 1.0, 0.5),
         out_channels=256, scale_factors=scale_factors)
 
 
+def build_backbone_l_eva02(scale_factors: Sequence[float], drop_path_rate: float,
+                           depth: int) -> SimpleFeaturePyramid:
+    """The non-CLIP EVA-02-L and its pyramid (``vitl_eva02.py``): window 16,
+    every sixth block global, position table pretrained at 224, no inner
+    attention LN; SwiGLU unpacked, as JAX's EVAViT default (the config sets
+    no ``packed_swiglu``). ``depth`` below 24 cuts it for tests and checks."""
+    return SimpleFeaturePyramid(
+        EVAViT(patch_size=16, embed_dim=1024, depth=depth, num_heads=16, mlp_ratio=4 * 2 / 3,
+               window_size=16, window_block_indexes=window_indexes(depth, 6),
+               pretrain_img_size=224, pt_hw_seq_len=16, packed_swiglu=False, subln=True,
+               swiglu_subln=True, drop_path_rate=drop_path_rate),
+        out_channels=256, scale_factors=scale_factors)
+
+
 def build_transformer(num_queries: int = 900, num_layers: int = 6, vl_fusion: bool = False,
                       embed_dim_language: int = 1024, window_radius: int = 4,
                       use_act_checkpoint: bool = False, as_two_stage: bool = True,
-                      assign_first_stage: bool = True,
-                      with_box_refine: bool = True) -> DeformableDetrTransformer:
+                      assign_first_stage: bool = True, with_box_refine: bool = True,
+                      proposal_ambiguous: int = 0) -> DeformableDetrTransformer:
     """The transformer of every APE build: 256-d, 8 heads, FFN 2048, 5
     levels, by default two-stage with DETA's select and box refinement;
     with ``vl_fusion`` its encoder's fusion layers are APE-L_D's (embed
-    2048, 8 heads, layer scale 1/6)."""
+    2048, 8 heads, layer scale 1/6); ``proposal_ambiguous`` copies of the
+    first stage's heads."""
     return DeformableDetrTransformer(
         DeformableTransformerEncoder(embed_dim=256, num_heads=8, feedforward_dim=2048,
                                      num_layers=num_layers, num_feature_levels=5,
@@ -93,7 +117,8 @@ def build_transformer(num_queries: int = 900, num_layers: int = 6, vl_fusion: bo
                                      num_layers=num_layers, num_feature_levels=5,
                                      use_act_checkpoint=use_act_checkpoint,
                                      with_box_refine=with_box_refine,
-                                     enc_bbox_head=as_two_stage),
+                                     enc_bbox_head=as_two_stage,
+                                     proposal_ambiguous=proposal_ambiguous),
         embed_dim=256, num_feature_levels=5, two_stage_num_proposals=num_queries,
         as_two_stage=as_two_stage, assign_first_stage=assign_first_stage)
 
@@ -108,6 +133,7 @@ def build_ape_ti(
     use_act_checkpoint: bool = False,
     mask_encode_level: int = 0,
     aux_mask: bool = False,
+    proposal_ambiguous: int = 0,
     device=None,
 ) -> APEDeta:
     """APE-Ti for any square input size (shapes follow the input). The
@@ -129,7 +155,7 @@ def build_ape_ti(
                pretrain_img_size=224, pt_hw_seq_len=16),
         out_channels=256, scale_factors=scale_factors)
     transformer = build_transformer(num_queries, 6, False, embed_dim_language, window_radius,
-                                    use_act_checkpoint)
+                                    use_act_checkpoint, proposal_ambiguous=proposal_ambiguous)
     return APEDeta(
         backbone, ChannelMapper(sfp_names, 256, 256, num_outs=5), transformer,
         embed_dim=256, embed_dim_language=embed_dim_language, in_features=levels,
@@ -149,6 +175,7 @@ def build_ape_l_d(
     name_prompt_fusion_feature: bool = False,
     depth: int = 24,
     num_layers: int = 6,
+    proposal_ambiguous: int = 0,
     device=None,
 ) -> APEDeta:
     """APE-L_D, the flagship: the EVA-02-CLIP-L backbone and the transformer
@@ -167,13 +194,53 @@ def build_ape_l_d(
     device = default_device("build_ape_l_d", device)
     sfp_names, levels = pyramid_features(scale_factors)
     transformer = build_transformer(num_queries, num_layers, True, embed_dim_language,
-                                    window_radius, use_act_checkpoint)
+                                    window_radius, use_act_checkpoint,
+                                    proposal_ambiguous=proposal_ambiguous)
     return APEDeta(
         build_backbone_l(scale_factors, drop_path_rate, depth),
         ChannelMapper(sfp_names, 256, 256, num_outs=5), transformer,
         embed_dim=256, embed_dim_language=embed_dim_language, in_features=levels,
         mask_on=mask_on, mask_in_feature=levels[0],
         name_prompt_fusion_feature=name_prompt_fusion_feature, dtype=dtype).to(device)
+
+
+def build_ape_l(
+    vl_fusion: bool = False,
+    mask_on: bool = True,
+    scale_factors: Sequence[float] = (4.0, 2.0, 1.0, 0.5),
+    dtype: torch.dtype = torch.float32,
+    depth: int = 24,
+    num_layers: int = 6,
+    proposal_ambiguous: int = 0,
+    device=None,
+) -> APEDeta:
+    """APE-L on the non-CLIP EVA-02-L, as
+    ``configs/ADE20k_PanopticSegmentation/ape_deta/ape_deta_vitl_eva02_lsj1024.py``
+    and ``configs/LVIS_InstanceSegmentation/ape_deta/ape_deta_vitl_eva02_lsj1024_cp_24ep.py``
+    build it: the masked model on the 4-scale pyramid, 900 queries, drop
+    path 0.4 by depth, no fusion and no recompute. ``vl_fusion``: their
+    ``_vlf_`` twins, whose encoder puts a fusion layer (embed 2048, layer
+    scale 1/6) before each layer and recomputes its layers in the backward
+    (the configs set ``encoder.use_act_checkpoint`` alone: the decoder keeps
+    its activations); their APE fuses name prompts against the zero token,
+    the wrapper's default. The reference latency protocol passes
+    ``mask_on=False`` and ``scale_factors=(2.0, 1.0, 0.5)``. The text tower
+    of these recipes is ``EVA02CLIP(width=768, heads=12, layers=12,
+    output_dim=1024)``. Train with ``build_optimizer(model,
+    vit_num_layers=24)``. depth and num_layers cut the model for tests and
+    checks.
+
+    The model lies on ``device``, by the rule of ``build_ape_ti``."""
+    device = default_device("build_ape_l", device)
+    sfp_names, levels = pyramid_features(scale_factors)
+    transformer = build_transformer(900, num_layers, vl_fusion,
+                                    proposal_ambiguous=proposal_ambiguous)
+    transformer.encoder.use_act_checkpoint = vl_fusion
+    return APEDeta(
+        build_backbone_l_eva02(scale_factors, 0.4, depth),
+        ChannelMapper(sfp_names, 256, 256, num_outs=5), transformer,
+        embed_dim=256, embed_dim_language=1024, in_features=levels,
+        mask_on=mask_on, mask_in_feature=levels[0], dtype=dtype).to(device)
 
 
 def build_backbone_r50() -> ResNet:
@@ -201,6 +268,7 @@ def build_ape_r50(
     use_act_checkpoint: Optional[bool] = None,
     window_radius: int = 4,
     num_layers: int = 6,
+    proposal_ambiguous: int = 0,
     dtype: torch.dtype = torch.float32,
     device=None,
 ) -> APEDeta:
@@ -212,14 +280,16 @@ def build_ape_r50(
     of the text. use_act_checkpoint recomputes the encoder's and decoder's
     layers in the backward; by default on with the fusion, as the VLF
     recipe. num_layers cuts the encoder and the decoder for tests and
-    checks. Train with ``build_optimizer(model, **R50_RECIPE)``.
+    checks. proposal_ambiguous: 1 in the two ``_mp`` recipes
+    (``ape_deta_r50_24ep_mp.py``, ``ape_deta_r50_50ep_mp.py``). Train with
+    ``build_optimizer(model, **R50_RECIPE)``.
 
     The model lies on ``device``, by the rule of ``build_ape_ti``."""
     device = default_device("build_ape_r50", device)
     if use_act_checkpoint is None:
         use_act_checkpoint = vl_fusion
     transformer = build_transformer(num_queries, num_layers, vl_fusion, 1024, window_radius,
-                                    use_act_checkpoint)
+                                    use_act_checkpoint, proposal_ambiguous=proposal_ambiguous)
     return _r50_model(transformer, mask_on, num_learned_classes, dtype).to(device)
 
 

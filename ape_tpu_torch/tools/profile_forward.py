@@ -11,6 +11,10 @@ offsets re-armed, 1024^2, batch 1, 900 queries:
   pyramid, no masks);
 * ``l_d-full``: ``build_ape_l_d()``'s defaults (the masked model on the
   4-scale pyramid), 1203 texts;
+* ``l-protocol``: APE-L (the non-CLIP EVA-02-L) at the protocol
+  (``chip_smoke.py``'s l_slice phase: ``build_ape_l(mask_on=False,
+  scale_factors=(2.0, 1.0, 0.5))``, 1203 texts);
+* ``l-full``: ``build_ape_l()``'s defaults (masked, 4-scale), 1203 texts;
 * ``r50-protocol``: APE-DETA R50 at the protocol (``chip_smoke.py``'s
   r50_slice phase: ``build_ape_r50(mask_on=False)``, 80 texts; its res3-res5
   and two extras make the protocol pyramid);
@@ -19,8 +23,9 @@ offsets re-armed, 1024^2, batch 1, 900 queries:
   queries, the class bank of 80; the texts passed are not read).
 
     python3 -m ape_tpu_torch.tools.profile_forward [--models protocol full_serve
-                                                    l_d-protocol l_d-full r50-protocol
-                                                    r50-full detr-r50] [--iters 10]
+                                                    l_d-protocol l_d-full l-protocol l-full
+                                                    r50-protocol r50-full detr-r50]
+                                                   [--iters 10]
 
 The counterpart of ``profile_train.py`` for the forward, and of the JAX
 repository's ``experiments/attrib.py``. For each model, after two warm-up
@@ -57,6 +62,7 @@ import torch
 
 import chip_smoke as cs
 from ape_tpu_torch.modeling.build import (
+    build_ape_l,
     build_ape_l_d,
     build_ape_r50,
     build_ape_ti,
@@ -64,8 +70,8 @@ from ape_tpu_torch.modeling.build import (
 )
 from ape_tpu_torch.tools.profile_train import profile_call
 
-MODELS = ("protocol", "full_serve", "l_d-protocol", "l_d-full", "r50-protocol", "r50-full",
-          "detr-r50")
+MODELS = ("protocol", "full_serve", "l_d-protocol", "l_d-full", "l-protocol", "l-full",
+          "r50-protocol", "r50-full", "detr-r50")
 
 
 def build(name: str, dev):
@@ -81,6 +87,10 @@ def build(name: str, dev):
         return cs.init_frozen_bn(cs.init_weights(model, cs.SEED), cs.SEED + 1).eval(), cs.NUM_TEXT
     if name.endswith("protocol"):
         kw.update(mask_on=False, scale_factors=(2.0, 1.0, 0.5))
+    if name.startswith("l-"):
+        model = build_ape_l(**{k: v for k, v in kw.items() if k not in ("num_queries",
+                                                                         "window_radius")})
+        return cs.init_weights(model, cs.SEED).eval(), cs.L_D_TEXT
     if name.startswith("l_d"):
         model, texts = build_ape_l_d(use_act_checkpoint=False, drop_path_rate=0.0, **kw), cs.L_D_TEXT
     else:

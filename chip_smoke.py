@@ -3,8 +3,10 @@
 from the root of a checkout: APE-Ti's protocol inference, detection
 training, the full masked model's inference and training, APE-L_D's
 serving and training (the flagship, whose encoder fuses vision and
-language), then the ResNet-50 family's (APE-DETA R50 with and without
-fusion, DETA R50, Deformable-DETR R50).
+language), the ADE20k panoptic path (APE-L_D with the ambiguous first
+stage, the host merge and evaluators; APE-L on the non-CLIP EVA-02-L,
+serving and training), then the ResNet-50 family's (APE-DETA R50 with and
+without fusion, DETA R50, Deformable-DETR R50).
 
     python3 chip_smoke.py
 
@@ -33,7 +35,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3. kernels: each forward CUDA kernel against its plain PyTorch version at
    every shape set the main paths give it (the protocol pyramid at batch 1;
    the 4-scale pyramid at batch 1 with 900 decoder queries, at batch 2
-   with 300 and, APE-L_D's training, at batch 1 with 300), in f32 (TF32
+   with 300, APE-L_D's training, at batch 1 with 300 and, APE-L's, at
+   batch 2 with 900), in f32 (TF32
    off) and bf16, with times, and attention's beside
    ``F.scaled_dot_product_attention``, in bf16 within four bf16 steps of the
    plain output's largest magnitude, a bound that a K5 with its scale 2 %
@@ -58,11 +61,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    MSDA backward (K3, K4) also against the merged one (K2), K3's D = 32
    body's d_loc and d_att bit for bit, K4's D = 32 body's d_value within
    the split bound, their general bodies within bounds and timed beside;
-   K2 at head width 32 (the encoder's and the decoder's case; at batch 2
-   and, APE-L_D's training, at batch 1) and, for its general body, 64 (the
-   decoder's);
-   l_d_kernels: the attention forward (K5) at APE-L_D's global blocks'
-   shape, (1, 16, 4096, 64), in f32 and bf16 against the plain version
+   K2 at head width 32 (the encoder's and the decoder's case; at batch 2,
+   APE-L_D's training at batch 1 and APE-L's decoder at batch 2 with 900
+   queries) and, for its general body, 64 (the decoder's);
+   l_d_kernel and l_kernel: the attention forward (K5) at APE-L_D's global
+   blocks' shape, (1, 16, 4096, 64), and at APE-L training's, (2, 16, 4096,
+   64), in f32 and bf16 against the plain version
    within the attention bounds (bf16: with ``attn_faults``), timed beside
    it and SDPA; then its backward (K5-dkv, K5-dq and the two together) at
    that shape against autograd of the plain version, in f32 (1e-4) and
@@ -135,7 +139,37 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     noise and the federated uniforms from CPU generators of one seed:
     exact launches, identical first-stage indices, every gradient within
     F32_GRAD_RTOL (sampling offsets F32_OFFSET_GRAD_RTOL);
-14. R50 (the ResNet-50 family, ``build_ape_r50`` and
+14. ADE20k panoptic and APE-L: ``ambiguous_serve`` (beside L_D's serving,
+    on the same tower): ``build_ape_l_d(proposal_ambiguous=1)`` (masked,
+    4-scale, fan-in weights so that mask logits saturate and segments form)
+    behind ``APE(instance_on, semantic_on, panoptic_on)`` with a dataset of
+    150 names (100 things), three non-square requests with L_D's launches,
+    each request's host evaluation at its size (``host_eval_checks``: the
+    mask and sem_seg maps resized as PIL resizes, the panoptic merge, each
+    timed; PQ 100 on the merge's own output and the closed-form PQ with a
+    quarter of its largest segment void; mIoU 100 on the labels themselves
+    and the closed-form mIoU and pixel accuracy with a quarter of the most
+    frequent class relabelled as an absent one), then one forward with a mask prompt over
+    the upper-left quarter: the same launches, syncs the NMS tests, of the
+    selected proposals outside the prompt at most one a level;
+    ``ambiguous_f32``: L_D cut as ``l_d_f32`` with the copies, f32 on the
+    card and the CPU: the heads picked and the first-stage indices
+    identical, memory within 1e-3; ``l_slice``: ``build_ape_l(mask_on=False,
+    scale_factors=(2.0, 1.0, 0.5))`` at the protocol (bf16, 900 queries,
+    1203 texts): launches exactly ``{"msda_fwd": 6, "msda_fwd_window": 6,
+    "attn_fwd": 4}``, syncs the NMS tests, finite (1, 900, 1203) logits,
+    images/s, peak memory, then its _vlf_ twin's forward with the same
+    launches; ``l_serve``: ``build_ape_l()`` (masked, 4-scale) behind
+    ``APE`` with the recipes' 768-wide, 12-layer ``EVA02CLIP``, a name
+    prompt over the 150 names and two phrases; ``l_f32``: APE-L cut to 6
+    blocks (block 5 global), 2 + 2 layers, 512^2, f32: memory within 1e-3
+    of the CPU's; ``l_train``: the ADE20k panoptic recipe at 1024^2, batch
+    2, bf16 over f32 params, masked, 900 queries, no recompute, drop path
+    0.4, 150 classes in 160 text slots: a warm-up and three timed steps,
+    exactly ``{"msda_fwd": 12, "msda_bwd": 12, "attn_fwd": 4,
+    "attn_bwd_dkv": 4, "attn_bwd_dq": 4}`` each, s/step, images/s, peak
+    memory, one step's host syncs;
+15. R50 (the ResNet-50 family, ``build_ape_r50`` and
     ``build_deformable_detr_r50``, on the protocol pyramid that res3-res5
     and two extras make at 1024^2, S = 21,824): ``r50_kernels``, cases of
     phases 3 and 4, K1 and K1w at batch 2 with 300 decoder queries and K2
@@ -167,7 +201,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     R50, DETA R50 and Deformable-DETR R50 cut to 2 + 2 layers at 512^2 on
     the card against the CPU's, every gradient within F32_GRAD_RTOL or
     twice the plain version's own floor, first-stage indices identical;
-15. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
+16. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
     form at both pyramids and both offset draws, its per-pair suites, and
     the ``pair`` and ``rows`` ops by device time under each body, each query
     level's launches apart, and K8's D = 32 body by its parts (device time
@@ -175,7 +209,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     then ``ape_tpu_torch.tools.msda_bwd_race``, the backward forms (K2, K3 +
     K4, autograd of the plain version) at the same pyramids and draws, each
     within its bound of the plain version or of K2;
-16. probes: ``ape_tpu_torch.tools.pair_probe`` (K10, every variant on the
+17. probes: ``ape_tpu_torch.tools.pair_probe`` (K10, every variant on the
     four pairs, bf16 and f32 value, each within 1e-5 of its plain version,
     bf16fma within 6.4e-2 of base, base against K1 bit for bit, K1's time
     on each pair beside) and
@@ -187,14 +221,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 Then the kernels line (each kernel's launches over every path: ``launches``
 over all of them, ``launches_main`` over the serving and training phases
-alone, 5-14, ``launches_default`` over those of them that run the default
+alone, 5-15, ``launches_default`` over those of them that run the default
 flags: slice, serve, train, full serve, full train with the merged backward,
-L_D's slice, serve, train and f32 train, and R50's; error, time, plain and library
+L_D's slice, serve, train and f32 train, the ADE20k and APE-L phases but the
+f32 ones, and R50's; error, time, plain and library
 time, and bound; for K1, K3, K4, K6, K7, K8 and K9, whose D = 32 body runs
 there, the general body's time as ``general_ms``; for K6 and K7 also the
 op's device time, ``device_ms``; for K5, K5-dkv and K5-dq their bf16
-records at L_D's 16 heads as ``l_d``; for K1, K1w and K2 their bf16 records
-at the R50 family's training shapes as ``r50``)
+records at L_D's 16 heads as ``l_d`` and at APE-L training's batch 2 as
+``l``; for K1 and K2 their bf16 records at APE-L training's decoder (batch
+2, 900 queries) as ``l``; for K1, K1w and K2 their bf16 records at the R50
+family's training shapes as ``r50``)
 and, last,
 {"ok": true, "device": {...}}. The script needs the repository around it and
 a CUDA card; it imports no JAX.
@@ -243,6 +280,24 @@ SPLIT_STEP_LAUNCHES = dict(STEP_LAUNCHES, msda_bwd=6, msda_bwd_offatt=6, msda_bw
 L_D_TRAIN_BATCH = 1
 L_D_STEP_LAUNCHES = dict(STEP_LAUNCHES, attn_fwd=8, attn_bwd_dkv=8, attn_bwd_dq=8)
 L_D_FED_CLASSES = 50
+# APE-L on the non-CLIP EVA-02-L (configs/common/backbone/vitl_eva02.py): 4
+# global blocks of 24 (5, 11, 17, 23), windows of 16; a forward launches
+# Ti's FORWARD_LAUNCHES. The ADE20k panoptic recipe (ape_deta_vitl_eva02_lsj1024.py): 16 images a
+# step over 8 cards, 150 classes in 160 text slots, 900 queries, masked, no
+# recompute (so the encoder's 6 MSDA forwards run once, on K1 under
+# autograd), drop path 0.4.
+L_TRAIN_BATCH, L_CLASSES, L_TEXT_SLOTS = 2, 150, 160
+L_STEP_LAUNCHES = {"msda_fwd": 12, "msda_bwd": 12, "attn_fwd": 4, "attn_bwd_dkv": 4,
+                   "attn_bwd_dq": 4}
+L_MILESTONES = (75000, 90000)
+L_ATTN_SHAPE = (L_TRAIN_BATCH, 16, 4096, 64)  # a global block of the recipe's step
+L_TOWER = dict(width=768, heads=12, layers=12, output_dim=1024)  # the recipes' text tower
+# 150 single-word names (a name prompt) as ADE20k's 100 things and 50 stuff
+ADE_NAMES = tuple(f"ade{i}" for i in range(L_CLASSES))
+ADE_THINGS = 100
+L_REQUESTS = (((480, 640), ", ".join(ADE_NAMES)),
+              ((800, 600), "a person riding a bike"),
+              ((600, 800), "a red umbrella, a dog on the grass"))
 # Per forward of either model: 4 global attention blocks, 6 + 6 MSDA
 # layers: the encoder's on K1's window entry (no gradient: the clip runs in
 # the kernel), the decoder's on K1.
@@ -814,14 +869,17 @@ def _msda_inputs(g, shapes, batch: int, queries: int, dev):
 # checked). The protocol forward; the full serve forward (4-scale pyramid,
 # S = 87,296; its attention is the protocol's); training (batch 2, 300
 # queries); APE-L_D training (batch 1, 300 queries; its attention is
-# l_d_kernels_phase's); the R50 family's training (batch 2, 300 queries, on
-# the protocol pyramid, which R50's res3-res5 and two extras make at 1024^2;
-# no attention). The kernels line reads the protocol's cases, and the R50
-# ones as its K1 and K1w rows' ``r50`` records.
+# attn_kernels_phase's); APE-L's ADE20k training (batch 2, 900 queries; its
+# encoder's window case is training's, its attention attn_kernels_phase's);
+# the R50 family's training (batch 2, 300 queries, on the protocol pyramid,
+# which R50's res3-res5 and two extras make at 1024^2; no attention). The
+# kernels line reads the protocol's cases, and the R50 ones as its K1 and
+# K1w rows' ``r50`` records.
 FWD_CASES = (("", SHAPES, 1, QUERIES, True),
              ("_full_serve", TRAIN_SHAPES, 1, QUERIES, False),
              ("_train", TRAIN_SHAPES, TRAIN_BATCH, TRAIN_QUERIES, True),
              ("_l_d_train", TRAIN_SHAPES, L_D_TRAIN_BATCH, TRAIN_QUERIES, False),
+             ("_l_train", TRAIN_SHAPES, L_TRAIN_BATCH, QUERIES, False),
              ("_r50_train", SHAPES, TRAIN_BATCH, TRAIN_QUERIES, False))
 
 
@@ -1262,8 +1320,9 @@ def backward_kernels_phase(dev):
     training shapes: errors against the plain version in f32 on the same
     inputs, times against the plain backward in the same dtype; K2 at
     HEAD_DIM (its D = 32 body) and at K2_GENERAL_HEAD_DIM (its general
-    body); K2 also at APE-L_D's (batch 1) and the R50 family's training
-    shapes (batch 2 on the protocol pyramid). The attention backward's library yardstick is SDPA's whole
+    body); K2 also at APE-L_D's (batch 1), APE-L's (the decoder's 900
+    queries at batch 2) and the R50 family's training shapes (batch 2 on
+    the protocol pyramid). The attention backward's library yardstick is SDPA's whole
     backward, timed as the device time of its kernels (``kernel_ms``), with
     the port's beside it timed the same way. Returns per-case results at
     bf16."""
@@ -1296,6 +1355,13 @@ def backward_kernels_phase(dev):
         msda_cases[f"msda_bwd_{mode}_l_d_train"] = [
             value1, loc, atts1[mode],
             torch.randn(L_D_TRAIN_BATCH, loc.shape[1], HEADS * HEAD_DIM, generator=g1)]
+    # K2 at APE-L's ADE20k training shapes: the decoder's 900 queries at
+    # batch 2 (its encoder's case is training's, msda_bwd_encoder)
+    g3 = torch.Generator().manual_seed(SEED + 11)
+    value3, locs3, atts3, _ = _msda_inputs(g3, TRAIN_SHAPES, L_TRAIN_BATCH, QUERIES, dev)
+    msda_cases["msda_bwd_decoder_l_train"] = [
+        value3, locs3["decoder"], atts3["decoder"],
+        torch.randn(L_TRAIN_BATCH, QUERIES, HEADS * HEAD_DIM, generator=g3)]
     # K2 at the R50 family's training shapes: batch 2 on the protocol
     # pyramid (S = 21,824), the encoder's Q = S and the decoder's 300
     g2 = torch.Generator().manual_seed(SEED + 10)
@@ -1616,22 +1682,24 @@ def f32_phase(model):
 
 
 def _train_batch(dev, batch: int, img: int, seed: int, masks: bool = False,
-                 num_text: int = NUM_TEXT):
+                 num_text: int = NUM_TEXT, classes: int = 0):
     """Seeded inputs and targets as tools/bench_train.py draws them: num_text
-    texts of width 1024; 8 target slots per image, 4 valid, labels in [0,
-    num_text), cxcywh boxes uniform in [0.2, 0.6); with ``masks`` GT masks at
-    img / 4 drawn as rand > 0.7."""
+    texts of width 1024, the first ``classes`` valid (all by default); 8
+    target slots per image, 4 valid, labels among the valid texts, cxcywh
+    boxes uniform in [0.2, 0.6); with ``masks`` GT masks at img / 4 drawn as
+    rand > 0.7."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
     slots = 8
+    classes = classes or num_text
     out = {
         "images": torch.randn(batch, img, img, 3, generator=g),
         "image_sizes": torch.tensor([[img, img]] * batch),
         "text_features": torch.randn(batch, num_text, 1024, generator=g),
-        "text_valid": torch.ones(batch, num_text, dtype=torch.bool),
+        "text_valid": (torch.arange(num_text) < classes)[None].repeat(batch, 1),
         "targets": {
-            "labels": torch.randint(0, num_text, (batch, slots), generator=g),
+            "labels": torch.randint(0, classes, (batch, slots), generator=g),
             "boxes": 0.2 + 0.4 * torch.rand(batch, slots, 4, generator=g),
             "valid": (torch.arange(slots) < 4)[None].repeat(batch, 1),
         },
@@ -2035,14 +2103,16 @@ L_D_REQUESTS = (((480, 640), "person, car, dog, umbrella"),
                 ((600, 800), "a red umbrella, a dog on the grass"))
 
 
-def l_d_kernels_phase(dev):
-    """K5 at L_D's global blocks' shape, (1, 16, 4096, 64), in f32 (TF32 off)
-    and bf16 against the plain version within the attention bounds (bf16:
-    with ``attn_faults``), timed beside the plain version and
-    ``F.scaled_dot_product_attention``; then its backward, K5-dkv and K5-dq,
-    at that shape against autograd of the plain version within
-    ``GRAD_BOUNDS``, timed beside the plain backward and SDPA's
-    (``attention_bwd``). Returns the records by (name, dtype)."""
+def attn_kernels_phase(dev, shape, tag: str):
+    """K5 at a model's global blocks' shape (L_D's (1, 16, 4096, 64), APE-L
+    training's (2, 16, 4096, 64)), in f32 (TF32 off) and bf16 against the
+    plain version within the attention bounds (bf16: with ``attn_faults``),
+    timed beside the plain version and ``F.scaled_dot_product_attention``;
+    then its backward, K5-dkv and K5-dq, at that shape against autograd of
+    the plain version within ``GRAD_BOUNDS``, timed beside the plain
+    backward and SDPA's (``attention_bwd``). Records under the phases
+    ``{tag}_kernel`` and ``{tag}_kernel_bwd``; returns them by (name,
+    dtype)."""
     import torch
     import torch.nn.functional as F
 
@@ -2050,9 +2120,9 @@ def l_d_kernels_phase(dev):
     from ape_tpu_torch.ops.bounds import fwd_bound
 
     g = torch.Generator().manual_seed(SEED + 3)
-    qkv32 = [torch.randn(*L_D_ATTN_SHAPE, generator=g) for _ in range(3)]
-    go32 = torch.randn(*L_D_ATTN_SHAPE, generator=g)
-    scale = L_D_ATTN_SHAPE[-1] ** -0.5
+    qkv32 = [torch.randn(*shape, generator=g) for _ in range(3)]
+    go32 = torch.randn(*shape, generator=g)
+    scale = shape[-1] ** -0.5
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -2062,18 +2132,18 @@ def l_d_kernels_phase(dev):
         bound = fwd_bound("attn", dname, want)
         faults = ({"faulty_err": attn_faults(q, k, v, scale, want, bound)}
                   if dname == "bfloat16" else {})
-        bound_ms, bound_by = attn_bound("attn_fwd", L_D_ATTN_SHAPE, dname)
-        rec = dict(phase="l_d_kernel", name="attention_l_d", dtype=dname,
-                   shape=list(L_D_ATTN_SHAPE), max_abs_err=err, bound=bound, **faults,
+        bound_ms, bound_by = attn_bound("attn_fwd", shape, dname)
+        rec = dict(phase=f"{tag}_kernel", name=f"attention_{tag}", dtype=dname,
+                   shape=list(shape), max_abs_err=err, bound=bound, **faults,
                    ms=cuda_ms(lambda: attn_fwd_cuda(q, k, v, scale)),
                    plain_ms=cuda_ms(lambda: global_attention_plain(q, k, v, scale)),
                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
                    bound_ms=bound_ms, bound_by=bound_by)
         log(**rec)
         if not err <= rec["bound"]:
-            fail(f"K5 at {L_D_ATTN_SHAPE} {dname}: max |kernel - plain| {err} > {rec['bound']}")
+            fail(f"K5 at {shape} {dname}: max |kernel - plain| {err} > {rec['bound']}")
         results[("attention", dname)] = rec
-        attention_bwd(functools.partial(record_bwd, results, "l_d_kernel_bwd"), q, k, v,
+        attention_bwd(functools.partial(record_bwd, results, f"{tag}_kernel_bwd"), q, k, v,
                       go32.to(dev, dtype), scale, dname)
         del q, k, v, want
         torch.cuda.empty_cache()
@@ -2148,57 +2218,97 @@ def l_d_serve_phase(dev, card, tower):
     return launches
 
 
-def l_d_f32_phase(dev):
-    """L_D at full width with its depth cut (L_D_F32_DEPTH blocks,
-    L_D_F32_LAYERS + L_D_F32_LAYERS layers) at 512^2 in f32 (TF32 off) with
-    fan-in weights: the card's encoder memory and fused text within
-    MEMORY_BOUND of the plain versions on the CPU; then the same weights in
-    bf16 on the card against the card's f32, the gap reported."""
+def cut_f32_check(dev, model, phase: str, want_launches: dict, bf16_gap: bool = False,
+                  **fields):
+    """A model at full width with its depth cut, on the CPU in f32 with
+    fan-in weights, at L_D_F32_IMG with L_D_TEXT texts: the plain versions
+    there, then the CUDA kernels on the card (TF32 off), exactly
+    ``want_launches``: the card's encoder memory and the text the heads
+    aligned to within MEMORY_BOUND of the CPU's. The first stage: whether
+    the selected proposals are the CPU's, in order and as a set, and
+    whether the select run on the CPU from the card's scores and boxes gives
+    the card's indices (its order among near-equal priorities follows f32
+    rounding upstream); the last layer's logits and boxes compared with the
+    queries aligned by proposal where the sets agree. With ``bf16_gap`` the
+    same weights in bf16 on the card against the card's f32, the gap
+    reported. Logs the record under ``phase`` with ``fields``; returns (the
+    CPU's outputs, the card's f32 outputs, the first stage's comparison)."""
     import torch
 
-    from ape_tpu_torch.modeling.build import build_ape_l_d
+    from ape_tpu_torch.modeling.ape_deta import transformer as tr
     from ape_tpu_torch.ops import _build
 
-    model = build_ape_l_d(num_queries=QUERIES, mask_on=False, window_radius=RADIUS,
-                          scale_factors=(2.0, 1.0, 0.5), use_act_checkpoint=False,
-                          drop_path_rate=0.0, depth=L_D_F32_DEPTH, num_layers=L_D_F32_LAYERS,
-                          device="cpu")
     model = init_weights(model, SEED, fan_in=True).eval()
     inputs = _inputs(L_D_TEXT, L_D_F32_IMG)
+    select, recorded = tr.deta_first_stage_select, []
+
+    def recording_select(*args):
+        recorded.append([a.cpu() if torch.is_tensor(a) else a for a in args])
+        return select(*args)
+
     t0 = time.perf_counter()
     with torch.no_grad():
         cpu = model(*inputs)
         cpu_s = time.perf_counter() - t0
         model = model.to(dev)
         _build.reset_launches()
-        gpu = model(*(t.to(dev) for t in inputs))
+        tr.deta_first_stage_select = recording_select
+        try:
+            gpu = model(*(t.to(dev) for t in inputs))
+        finally:
+            tr.deta_first_stage_select = select
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-        model.dtype = torch.bfloat16
-        bf16 = model(*(t.to(dev) for t in inputs))
-    want = {"msda_fwd": L_D_F32_LAYERS, "msda_fwd_window": L_D_F32_LAYERS,
-            "attn_fwd": L_D_F32_DEPTH // 3}
-    if launches != want:
-        fail(f"L_D f32: launches per forward {launches}, expected {want}")
+        if bf16_gap:
+            model.dtype = torch.bfloat16
+            bf16 = model(*(t.to(dev) for t in inputs))
+    if launches != want_launches:
+        fail(f"{phase}: launches per forward {launches}, expected {want_launches}")
 
     def gap(a, b, key):
         return float((a[key].float().cpu() - b[key].float().cpu()).abs().max())
 
     keys = ("memory", "text_features", "pred_logits", "pred_boxes")
     errs = {k: gap(gpu, cpu, k) for k in keys}
-    bf16_gap = {k: gap(bf16, gpu, k) for k in keys}
-    log(phase="l_d_f32_vs_plain", image=L_D_F32_IMG, depth=L_D_F32_DEPTH, layers=L_D_F32_LAYERS,
-        texts=L_D_TEXT, launches_per_forward=launches,
+    extra = {"bf16_vs_f32_max_abs": {k: gap(bf16, gpu, k) for k in keys}} if bf16_gap else {}
+    sel_gpu, sel_cpu = gpu["first_stage_indices"].cpu(), cpu["first_stage_indices"]
+    stage = {"identical": bool(torch.equal(sel_gpu, sel_cpu)),
+             "same_set": bool(torch.equal(sel_gpu.sort(-1).values, sel_cpu.sort(-1).values)),
+             "positions_differing": int((sel_gpu != sel_cpu).sum()),
+             "replayed_on_cpu": bool(torch.equal(select(*recorded[0]), sel_gpu))}
+    if stage["same_set"]:  # the last layer's outputs, each query beside the CPU's of its proposal
+        order_gpu, order_cpu = sel_gpu.argsort(-1), sel_cpu.argsort(-1)
+        for key in ("pred_logits", "pred_boxes"):
+            g, c = gpu[key].float().cpu(), cpu[key]
+            g, c = (t.gather(1, o[..., None].expand(-1, -1, t.shape[-1]))
+                    for t, o in ((g, order_gpu), (c, order_cpu)))
+            stage[f"{key}_aligned_max_abs_err"] = float((g - c).abs().max())
+    log(phase=phase, image=L_D_F32_IMG, texts=L_D_TEXT, launches_per_forward=launches,
         **{f"{k}_max_abs_err": v for k, v in errs.items()}, bound=MEMORY_BOUND,
         memory_max_abs=float(cpu["memory"].abs().max()),
-        text_max_abs=float(cpu["text_features"].abs().max()),
-        first_stage_indices_identical=bool(torch.equal(gpu["first_stage_indices"].cpu(),
-                                                       cpu["first_stage_indices"])),
-        bf16_vs_f32_max_abs=bf16_gap, cpu_seconds=cpu_s)
+        text_max_abs=float(cpu["text_features"].abs().max()), first_stage=stage,
+        cpu_seconds=cpu_s, **extra, **fields)
     for k in ("memory", "text_features"):
         if not errs[k] <= MEMORY_BOUND:
-            fail(f"L_D f32 {k} differs from the CPU's by {errs[k]} > {MEMORY_BOUND}")
-    del model, cpu, gpu, bf16
+            fail(f"{phase}: {k} differs from the CPU's by {errs[k]} > {MEMORY_BOUND}")
+    del model
     torch.cuda.empty_cache()
+    return cpu, gpu, stage
+
+
+def l_d_f32_phase(dev):
+    """L_D at full width with its depth cut (L_D_F32_DEPTH blocks,
+    L_D_F32_LAYERS + L_D_F32_LAYERS layers) at 512^2 (``cut_f32_check``),
+    its bf16 gap reported."""
+    from ape_tpu_torch.modeling.build import build_ape_l_d
+
+    model = build_ape_l_d(num_queries=QUERIES, mask_on=False, window_radius=RADIUS,
+                          scale_factors=(2.0, 1.0, 0.5), use_act_checkpoint=False,
+                          drop_path_rate=0.0, depth=L_D_F32_DEPTH, num_layers=L_D_F32_LAYERS,
+                          device="cpu")
+    want = {"msda_fwd": L_D_F32_LAYERS, "msda_fwd_window": L_D_F32_LAYERS,
+            "attn_fwd": L_D_F32_DEPTH // 3}
+    cut_f32_check(dev, model, "l_d_f32_vs_plain", want, bf16_gap=True, depth=L_D_F32_DEPTH,
+                  layers=L_D_F32_LAYERS)
 
 
 def l_d_unused(model) -> frozenset:
@@ -2344,6 +2454,347 @@ def l_d_train_f32_phase(dev):
     del model, cpu_model, gpu_grads, cpu_grads
     torch.cuda.empty_cache()
     return launches
+
+
+def l_slice_phase(dev, card):
+    """``build_ape_l`` (the non-CLIP EVA-02-L) at the reference latency
+    protocol (1024^2, bf16, 900 queries, L_D_TEXT text features, N(0, 0.02)
+    weights with the ring-init offsets re-armed): exact launches, host
+    syncs, finite (1, 900, 1203) logits, images/s, peak memory; then its
+    _vlf_ twin, one forward with the same launches (the fusion launches no
+    kernel). Returns the launches of both."""
+    import torch
+
+    from ape_tpu_torch.modeling.build import build_ape_l
+
+    inputs = tuple(t.to(dev) for t in _inputs(L_D_TEXT))
+    launches = []
+    for vlf, iters in ((False, 10), (True, 1)):
+        model = build_ape_l(vl_fusion=vlf, mask_on=False, scale_factors=(2.0, 1.0, 0.5),
+                            dtype=torch.bfloat16, device=dev)
+        model = init_weights(model, SEED).eval()
+        rec = checked_forward(model, inputs, FORWARD_LAUNCHES, L_D_TEXT,
+                              f"APE-L{' vlf' if vlf else ''} protocol forward", iters=iters)
+        log(phase="l_slice_vlf" if vlf else "l_slice", dtype="bfloat16", texts=L_D_TEXT, **rec,
+            card=card)
+        launches.append(rec["launches_per_forward"])
+        del model
+        torch.cuda.empty_cache()
+    return {k: sum(r[k] for r in launches) for k in launches[0]}
+
+
+def l_serve_phase(dev, card):
+    """``build_ape_l()`` with its defaults (masked, 4-scale, drop path 0.4 as
+    the identity in eval) in bf16 behind APE and DefaultPredictor, with the
+    recipes' 768-wide, 12-layer EVA02CLIP on the card (random weights from
+    its seed): a name prompt over the 150 ADE names, then two phrase prompts,
+    each with finite boxes, mask logits and sem_seg, exact launches. Returns
+    the launches."""
+    import torch
+
+    from ape_tpu_torch.modeling.build import build_ape_l
+    from ape_tpu_torch.modeling.text import EVA02CLIP
+
+    tower = EVA02CLIP(rng_seed=SEED, device=dev, **L_TOWER)
+    model = init_weights(build_ape_l(dtype=torch.bfloat16, device=dev), SEED).eval()
+    torch.cuda.reset_peak_memory_stats()
+    launches = serve_phase(model, "l_serve", tower, FORWARD_LAUNCHES, L_REQUESTS)
+    log(phase="l_serve_done", peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        tower=L_TOWER, card=card)
+    del model, tower
+    torch.cuda.empty_cache()
+    return launches
+
+
+def l_f32_phase(dev):
+    """APE-L at full width with its depth cut (L_D_F32_DEPTH blocks, block 5
+    global; L_D_F32_LAYERS + L_D_F32_LAYERS layers) at 512^2
+    (``cut_f32_check``): the card's encoder memory within MEMORY_BOUND of the
+    CPU's."""
+    from ape_tpu_torch.modeling.build import build_ape_l
+
+    model = build_ape_l(mask_on=False, scale_factors=(2.0, 1.0, 0.5), depth=L_D_F32_DEPTH,
+                        num_layers=L_D_F32_LAYERS, device="cpu")
+    want = {"msda_fwd": L_D_F32_LAYERS, "msda_fwd_window": L_D_F32_LAYERS,
+            "attn_fwd": L_D_F32_DEPTH // 6}
+    cut_f32_check(dev, model, "l_f32_vs_plain", want, depth=L_D_F32_DEPTH, layers=L_D_F32_LAYERS)
+
+
+def _l_criterion():
+    """The ADE20k panoptic recipe's criterion: losses class, boxes and masks
+    over L_CLASSES classes, 900 queries."""
+    from ape_tpu_torch.modeling.ape_deta.criterion import DeformableCriterion, default_weight_dict
+
+    return DeformableCriterion(num_classes=L_CLASSES, weight_dict=default_weight_dict(),
+                               num_queries=QUERIES, losses=("class", "boxes", "masks"))
+
+
+def l_train_phase(dev, card):
+    """APE-L trained as the ADE20k panoptic recipe trains it
+    (``ape_deta_vitl_eva02_lsj1024.py``): 1024^2, batch L_TRAIN_BATCH (the
+    recipe's 16 over 8 cards), bf16 over f32 parameters, ``build_ape_l()``
+    (masked, 4-scale, 900 queries, no recompute, drop path 0.4), 150 classes
+    in 160 text slots, 8 target slots with 4 valid and masks, losses class,
+    boxes and masks, ``build_optimizer(vit_num_layers=24)`` with the
+    recipe's warmup and milestones, ``make_train_step`` with name prompts,
+    its generator on the CPU: a warm-up step (finite losses, every
+    parameter's gradient finite), three timed steps launching exactly
+    L_STEP_LAUNCHES each, then one step's host syncs. Returns the launches
+    of the timed steps."""
+    import torch
+
+    from ape_tpu_torch.engine.optimizer import build_optimizer
+    from ape_tpu_torch.engine.train_step import make_train_step
+    from ape_tpu_torch.modeling.build import build_ape_l
+
+    model = init_weights(build_ape_l(dtype=torch.bfloat16, device=dev), SEED)
+    optimizer, scheduler = build_optimizer(model, vit_num_layers=24, milestones=L_MILESTONES,
+                                           warmup_steps=2000)
+    step = make_train_step(model, _l_criterion(), optimizer, scheduler)
+    batch = _train_batch(dev, L_TRAIN_BATCH, TRAIN_IMG, SEED + 4, masks=True,
+                         num_text=L_TEXT_SLOTS, classes=L_CLASSES)
+    gen = torch.Generator().manual_seed(SEED)
+    rec = _train_steps(model, step, batch, dev, L_STEP_LAUNCHES, gen=gen)
+    launches = rec.pop("launches")
+    syncs, _ = _host_syncs(step, batch, gen)
+    log(phase="l_train", dtype="bfloat16", image=TRAIN_IMG, batch=L_TRAIN_BATCH,
+        queries=QUERIES, classes=L_CLASSES, text_slots=L_TEXT_SLOTS,
+        tokens=sum(h * w for h, w in TRAIN_SHAPES),
+        drop_path=max(model.backbone.net.drop_path_rates),
+        params=sum(p.numel() for p in model.parameters()), host_syncs_per_step=syncs, **rec,
+        card=card)
+    del model, step, optimizer, scheduler, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+class Metadata(dict):
+    """A dataset's metadata as APE reads it: ``name`` and ``get``."""
+
+    def __init__(self, name: str, **fields):
+        super().__init__(fields)
+        self.name = name
+
+
+def _closed_form_pq(info, seg, gt, thing_ids) -> float:
+    """The PQ that PanopticEvaluator must give for ``seg`` against ``gt``,
+    where ``gt`` is ``seg`` with part of one segment set to void (0): that
+    segment's IoU is its remaining share, every other segment's 1, and PQ
+    is the mean over the classes of their mean IoU."""
+    import numpy as np
+
+    by_class = {}
+    for s in info:
+        area = int((seg == s["id"]).sum())
+        kept = int((gt == s["id"]).sum())
+        iou = kept / area if kept / area > 0.5 else 0.0
+        by_class.setdefault(s["category_id"], []).append(iou)
+    return 100.0 * float(np.mean([np.mean(v) for v in by_class.values()]))
+
+
+def host_eval_checks(res, h: int, w: int, thing_ids) -> dict:
+    """The host side of one panoptic request, as the port's evaluation runs
+    it at the ground truth's size (h, w): the sem_seg maps resized and their
+    argmax, the mask logits resized, their sigmoid, the merge, each timed;
+    then the evaluators on synthetic truths: the merge's own output (PQ
+    100), that output with a quarter of its largest segment made void (PQ
+    by the closed form), the semantic labels themselves (mIoU 100) and with
+    a quarter of the most frequent class relabelled as a class the labels
+    lack (mIoU and pixel accuracy by the closed form). Returns the record's
+    fields."""
+    import numpy as np
+
+    from ape_tpu_torch.evaluation.eval_runner import to_host, upsample_prob_maps
+    from ape_tpu_torch.evaluation.other_evals import PanopticEvaluator, SemSegEvaluator
+    from ape_tpu_torch.evaluation.panoptic_merge import panoptic_merge
+
+    raw, sem = to_host(res["panoptic_raw"]), to_host(res["sem_seg"])
+    n_text = len(res["text_list"])
+    t0 = time.perf_counter()
+    masks_prob = 1.0 / (1.0 + np.exp(-upsample_prob_maps(raw["mask_logits"], h, w)))
+    t1 = time.perf_counter()
+    seg, info = panoptic_merge(raw["scores"], raw["labels"], raw["raw_scores"], masks_prob,
+                               thing_ids)
+    t2 = time.perf_counter()
+    labels = upsample_prob_maps(sem, h, w).argmax(0)
+    t3 = time.perf_counter()
+    if seg.dtype != np.int32 or seg.shape != (h, w) or not info:
+        fail(f"panoptic merge at {h}x{w}: map {seg.dtype} {seg.shape}, {len(info)} segments")
+    if sorted(np.unique(seg[seg > 0]).tolist()) != sorted(s["id"] for s in info):
+        fail(f"panoptic merge at {h}x{w}: segment ids disagree with segments_info")
+
+    def pq(gt):
+        ev = PanopticEvaluator(n_text, thing_ids)
+        ev.process(seg, info, gt, info)
+        return ev.evaluate()["panoptic/PQ"]
+
+    largest = max(info, key=lambda s: int((seg == s["id"]).sum()))
+    where = np.flatnonzero(seg == largest["id"])
+    gt = seg.copy()
+    gt.flat[where[: len(where) // 4]] = 0
+    got_pq = {"own": pq(seg), "void_quarter": pq(gt)}
+    want_pq = {"own": 100.0, "void_quarter": _closed_form_pq(info, seg, gt, thing_ids)}
+
+    def miou(gt):
+        ev = SemSegEvaluator(n_text)
+        ev.process(labels, gt)
+        out = ev.evaluate()
+        return out["sem_seg/mIoU"], out["sem_seg/pACC"]
+
+    classes, counts = np.unique(labels, return_counts=True)
+    c, n = classes[counts.argmax()], int(counts.max())
+    absent = min(set(range(n_text)) - set(classes.tolist()))
+    m = n // 4
+    gt_sem = labels.copy()
+    gt_sem.flat[np.flatnonzero(labels == c)[:m]] = absent
+    # c keeps (n - m) / n of its union; the absent class 0 of its m pixels
+    ious = [1.0] * (len(classes) - 1) + [(n - m) / n, 0.0]
+    got_sem = {"own": miou(labels), "relabel_quarter": miou(gt_sem)}
+    want_sem = {"own": (100.0, 100.0),
+                "relabel_quarter": (100.0 * float(np.mean(ious)), 100.0 * (h * w - m) / (h * w))}
+    for k in got_pq:
+        if not abs(got_pq[k] - want_pq[k]) <= 1e-9:
+            fail(f"PQ at {h}x{w} ({k}): {got_pq[k]}, the closed form {want_pq[k]}")
+    for k in got_sem:
+        if not np.allclose(got_sem[k], want_sem[k], rtol=0, atol=1e-9):
+            fail(f"mIoU, pACC at {h}x{w} ({k}): {got_sem[k]}, the closed form {want_sem[k]}")
+    return dict(segments=len(info), things=sum(s["isthing"] for s in info),
+                kept_queries=int((raw["raw_scores"] > 0.25).sum()), pq=got_pq,
+                miou_pacc=got_sem, sem_classes=len(classes), maps=[int(raw["mask_logits"].shape[0]),
+                                                                   int(sem.shape[0])],
+                mask_resize_ms=(t1 - t0) * 1e3, merge_ms=(t2 - t1) * 1e3,
+                sem_resize_argmax_ms=(t3 - t2) * 1e3)
+
+
+def ambiguous_serve_phase(dev, card, tower):
+    """``build_ape_l_d(proposal_ambiguous=1)`` (masked, 4-scale) in bf16 with
+    fan-in weights (so that mask logits saturate and segments form) behind
+    ``APE(instance_on, semantic_on, panoptic_on)`` and DefaultPredictor, the
+    L_D tower encoding the 150 ADE names of a dataset whose first 100 are
+    things: three non-square requests with L_D's launches each, each
+    request's host evaluation (``host_eval_checks``); then one forward with
+    a mask prompt over the upper-left quarter of the canvas: the same
+    launches, every host sync the NMS fixpoint's test, and of the selected
+    proposals outside the prompt at most one a level (they compete in the
+    select with one shared score and box; NMS keeps one of them). Returns
+    the launches."""
+    import numpy as np
+    import torch
+
+    from ape_tpu_torch.engine import APE, DefaultPredictor
+    from ape_tpu_torch.modeling.ape_deta.model import flatten_mask_prompt, level_valid_masks
+    from ape_tpu_torch.modeling.ape_deta.transformer import (
+        gen_output_proposals,
+        valid_ratios_from_masks,
+    )
+    from ape_tpu_torch.modeling.build import build_ape_l_d
+    from ape_tpu_torch.ops import _build, nms
+
+    model = build_ape_l_d(proposal_ambiguous=1, dtype=torch.bfloat16, device=dev)
+    model = init_weights(model, SEED, fan_in=True).eval()
+    thing_ids = set(range(ADE_THINGS))
+    meta = Metadata("ade20k_panoptic_val", thing_classes=list(ADE_NAMES[:ADE_THINGS]),
+                    stuff_classes=list(ADE_NAMES[ADE_THINGS:]))
+    ape = APE(model, tower, dataset_metadata=[meta], instance_on=True, semantic_on=True,
+              panoptic_on=True)
+    predictor = DefaultPredictor(ape, image_size=IMG)
+    rng = np.random.RandomState(SEED + 2)
+    _build.reset_launches()
+    for h, w in ((480, 640), (800, 600), (600, 800)):
+        image = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        t0 = time.perf_counter()
+        res = predictor(image)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if res["prompt_type"] != "name" or len(res["text_list"]) != L_CLASSES:
+            fail(f"ambiguous request {h}x{w}: {res['prompt_type']} over {len(res['text_list'])}")
+        n = int(res["instances"]["scores"].numel())
+        if n and int(res["instances"]["classes"].max()) >= ADE_THINGS:
+            fail(f"ambiguous request {h}x{w}: an instance outside the things")
+        _check_mask_outputs(res, h, w)
+        log(phase="ambiguous_serve", image=[h, w], instances=n, seconds=seconds,
+            **host_eval_checks(res, h, w, thing_ids))
+    launches = dict(_build.LAUNCHES)
+    want = dict(dict.fromkeys(launches, 0), **{k: 3 * v for k, v in L_D_FORWARD_LAUNCHES.items()})
+    if launches != want:
+        fail(f"ambiguous_serve launches {launches}, expected {want}")
+
+    # a mask prompt over the upper-left quarter, straight into the model
+    prompt = torch.zeros(1, IMG, IMG, dtype=torch.bool, device=dev)
+    prompt[:, : IMG // 2, : IMG // 2] = True
+    text, text_valid = ape._text_features(list(ADE_NAMES))
+    image = torch.randn(1, IMG, IMG, 3, generator=torch.Generator().manual_seed(SEED + 5))
+    args = (image.to(dev), torch.tensor([[IMG, IMG]], device=dev), text, text_valid)
+    with torch.no_grad():
+        _build.reset_launches()
+        nms.SYNCS["fixpoint"] = 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = model(*args, align_on_fused=False, fusion_text_mode="zero",
+                            mask_prompt=prompt)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    prompt_launches = dict(_build.LAUNCHES)
+    syncs = sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+    if prompt_launches != dict(dict.fromkeys(prompt_launches, 0), **L_D_FORWARD_LAUNCHES):
+        fail(f"mask prompt forward: launches {prompt_launches}, expected {L_D_FORWARD_LAUNCHES}")
+    if syncs != nms.SYNCS["fixpoint"]:
+        fail(f"mask prompt forward: host syncs {syncs}, the NMS fixpoint's {nms.SYNCS['fixpoint']}")
+    # the validity the first stage saw: the anchors in range inside the prompt
+    shapes = [(IMG // 4 >> i, IMG // 4 >> i) for i in range(5)]
+    masks = level_valid_masks(args[1], (IMG, IMG), shapes)
+    flat = torch.cat([m.reshape(1, -1) for m in masks], 1)
+    s = flat.shape[1]
+    valid = gen_output_proposals(torch.zeros(1, s, 1, device=dev), flat, shapes,
+                                 valid_ratios_from_masks(masks),
+                                 flatten_mask_prompt(prompt, shapes))[2][0]
+    sel = out["first_stage_indices"][0]
+    starts = torch.tensor([sum(h * w for h, w in shapes[:i]) for i in range(1, 5)], device=dev)
+    outside = torch.bucketize(sel[~valid[sel]], starts, right=True).tolist()
+    per_level = [int(valid[st:st + h * w].sum()) for st, (h, w) in
+                 zip([0] + starts.tolist(), shapes)]
+    log(phase="ambiguous_mask_prompt", launches=prompt_launches, host_syncs=syncs,
+        nms_fixpoint_syncs=nms.SYNCS["fixpoint"], selected=int(sel.numel()),
+        selected_outside_prompt_by_level=outside, valid_in_prompt_by_level=per_level,
+        heads_picked=torch.bincount(out["first_stage_heads"][0].flatten(), minlength=2).tolist(),
+        card=card)
+    if len(set(outside)) != len(outside):
+        fail(f"mask prompt forward: two selected proposals outside the prompt in one level "
+             f"({outside})")
+    del model, ape, predictor, out
+    torch.cuda.empty_cache()
+    return {k: launches[k] + prompt_launches.get(k, 0) for k in launches}
+
+
+def ambiguous_f32_phase(dev):
+    """L_D cut as in ``l_d_f32_phase``, with ``proposal_ambiguous=1``
+    (``cut_f32_check``), memory within MEMORY_BOUND: the head each proposal
+    took identical on the card and the CPU, the selected proposals the
+    CPU's as a set, and the select run on the CPU from the card's scores and
+    boxes giving the card's indices in their order."""
+    import torch
+
+    from ape_tpu_torch.modeling.build import build_ape_l_d
+
+    model = build_ape_l_d(num_queries=QUERIES, mask_on=False, window_radius=RADIUS,
+                          scale_factors=(2.0, 1.0, 0.5), use_act_checkpoint=False,
+                          drop_path_rate=0.0, depth=L_D_F32_DEPTH, num_layers=L_D_F32_LAYERS,
+                          proposal_ambiguous=1, device="cpu")
+    want = {"msda_fwd": L_D_F32_LAYERS, "msda_fwd_window": L_D_F32_LAYERS,
+            "attn_fwd": L_D_F32_DEPTH // 3}
+    cpu, gpu, stage = cut_f32_check(dev, model, "ambiguous_f32_vs_plain", want,
+                                    depth=L_D_F32_DEPTH, layers=L_D_F32_LAYERS,
+                                    proposal_ambiguous=1)
+    heads_cpu, heads_gpu = cpu["first_stage_heads"], gpu["first_stage_heads"].cpu()
+    same_heads = torch.equal(heads_gpu, heads_cpu)
+    log(phase="ambiguous_f32_heads", heads_identical=same_heads,
+        heads_differing=int((heads_gpu != heads_cpu).sum()),
+        heads_picked=torch.bincount(heads_cpu.flatten(), minlength=2).tolist())
+    if not (same_heads and stage["same_set"] and stage["replayed_on_cpu"]):
+        fail(f"ambiguous f32: heads identical {same_heads}, first stage {stage}")
 
 
 # The R50 family (configs/common/models/ape_deta_r50.py): a FrozenBN
@@ -2787,7 +3238,8 @@ def main():
     build_phase()
     kern = kernels_phase(dev)
     kern.update(backward_kernels_phase(dev))
-    l_d_attn = l_d_kernels_phase(dev)
+    l_d_attn = attn_kernels_phase(dev, L_D_ATTN_SHAPE, "l_d")
+    l_attn = attn_kernels_phase(dev, L_ATTN_SHAPE, "l")
     # launches over every run: each phase sets the counts to 0 just before
     # its run and reads them just after. The serving and training phases are
     # the main paths: those with the default flags (FUSED and V6 off, the
@@ -2824,12 +3276,23 @@ def main():
     t1 = time.perf_counter()
     default_runs.append(r50_serve_phase(dev, card, tower))
     r50_serve_s = time.perf_counter() - t1
+    # the ADE20k panoptic requests to the ambiguous L_D, on the same tower
+    t1 = time.perf_counter()
+    default_runs.append(ambiguous_serve_phase(dev, card, tower))
+    ade_serve_s = time.perf_counter() - t1
     del tower
     torch.cuda.empty_cache()
     l_d_f32_phase(dev)
     default_runs.append(l_d_train_phase(dev, card))
     default_runs.append(l_d_train_f32_phase(dev))
-    log(phase="l_d_done", seconds=time.perf_counter() - t0 - r50_serve_s)
+    log(phase="l_d_done", seconds=time.perf_counter() - t0 - r50_serve_s - ade_serve_s)
+    t0 = time.perf_counter() - ade_serve_s
+    ambiguous_f32_phase(dev)
+    default_runs.append(l_slice_phase(dev, card))
+    default_runs.append(l_serve_phase(dev, card))
+    l_f32_phase(dev)
+    default_runs.append(l_train_phase(dev, card))
+    log(phase="l_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter() - r50_serve_s
     default_runs.append(r50_slice_phase(dev, card))
     r50_f32_phase(dev)
@@ -2886,8 +3349,16 @@ def main():
         fields = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
         l_d_case = {"attn_fwd": "attention", "attn_bwd_dkv": "attn_bwd_dkv",
                     "attn_bwd_dq": "attn_bwd_dq"}.get(name)
-        if l_d_case:  # K5 and its backward at L_D's 16 heads, bf16
+        if l_d_case:  # K5 and its backward at L_D's 16 heads and APE-L training's batch 2, bf16
             row["l_d"] = {k: l_d_attn[(l_d_case, "bfloat16")][k] for k in ("shape",) + fields}
+            row["l"] = {k: l_attn[(l_d_case, "bfloat16")][k] for k in ("shape",) + fields}
+        l_case = {"msda_fwd": "msda_decoder_l_train",
+                  "msda_bwd": "msda_bwd_decoder_l_train"}.get(name)
+        if l_case:  # K1 and K2 at APE-L training's decoder (batch 2, 900 queries), bf16
+            rec = kern[(l_case, "bfloat16")]
+            row["l"] = {"case": l_case, **{k: rec[k] for k in fields},
+                        **{k: rec[k] for k in ("value", "queries") if k in rec},
+                        **({"shape": rec["shape"]} if "shape" in rec else {})}
         r50_case = {"msda_fwd": "msda_decoder_r50_train", "msda_fwd_window": "msda_window_r50_train",
                     "msda_bwd": "msda_bwd_encoder_r50_train"}.get(name)
         if r50_case:  # K1, K1w and K2 at the R50 family's training shapes, bf16

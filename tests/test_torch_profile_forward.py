@@ -1,9 +1,10 @@
 """``ape_tpu_torch/tools/profile_forward.py`` on the CPU: its module hooks
 and stage split on tiny models of its cells (the protocol pyramid without
 masks, the 4-scale pyramid with the mask head, a tiny APE-L_D whose
-encoder fuses, and the tiny R50 trees: APE-DETA R50 masked and
-Deformable-DETR R50 single-stage), with host-clock events in place of the
-card's CUDA events. The profile itself needs a card."""
+encoder fuses, a tiny APE-L (the non-CLIP tree, masked), and the tiny R50
+trees: APE-DETA R50 masked and Deformable-DETR R50 single-stage), with
+host-clock events in place of the card's CUDA events; the APE-L and R50
+cells' build functions. The profile itself needs a card."""
 
 import time
 
@@ -14,6 +15,7 @@ from ape_tpu_torch.tools import profile_forward
 from tests.torch_parity import (
     R50_DIMS,
     tiny_inputs,
+    torch_tiny_l,
     torch_tiny_l_d,
     torch_tiny_masked,
     torch_tiny_protocol,
@@ -33,8 +35,9 @@ class HostEvent:
 
 @pytest.mark.parametrize("build,mask_on,dims", [
     (torch_tiny_protocol, False, None), (torch_tiny_masked, True, None),
-    (torch_tiny_l_d, False, None), (lambda: torch_tiny_r50("ape"), True, R50_DIMS),
-    (lambda: torch_tiny_r50("detr"), False, R50_DIMS)], ids=["protocol", "masked", "l_d",
+    (torch_tiny_l_d, False, None), (torch_tiny_l, True, None),
+    (lambda: torch_tiny_r50("ape"), True, R50_DIMS),
+    (lambda: torch_tiny_r50("detr"), False, R50_DIMS)], ids=["protocol", "masked", "l_d", "l",
                                                              "r50", "detr_r50"])
 def test_stage_hooks_split_the_forward(monkeypatch, build, mask_on, dims):
     monkeypatch.setattr(profile_forward, "_event", HostEvent)
@@ -82,3 +85,20 @@ def test_r50_cells_build_the_r50_trees(monkeypatch):
     assert not got["detr-r50"][0].transformer.as_two_stage
     assert got["r50-full"][0].transformer.two_stage_num_proposals == 900
     assert all(t == 80 and not m.training for m, t in got.values())
+
+
+def test_l_cells_build_ape_l(monkeypatch):
+    """The APE-L cells build the non-CLIP tree (cut to 1 block and 1 + 1
+    layers on the CPU): the protocol without masks, the full one masked,
+    both with L_D's 1203 texts, in eval mode."""
+    import chip_smoke
+    from ape_tpu_torch.modeling import build as port_build
+
+    monkeypatch.setattr(profile_forward, "build_ape_l", lambda **k: port_build.build_ape_l(
+        **dict(k, depth=1, num_layers=1, device="cpu")))
+    assert {"l-protocol", "l-full"} <= set(profile_forward.MODELS)
+    got = {n: profile_forward.build(n, "cpu") for n in ("l-protocol", "l-full")}
+    assert [m.mask_on for m, _ in got.values()] == [False, True]
+    assert all(t == chip_smoke.L_D_TEXT and not m.training for m, t in got.values())
+    assert all(m.backbone.net.window_size == 16 and m.dtype == torch.bfloat16
+               for m, _ in got.values())

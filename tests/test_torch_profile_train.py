@@ -4,7 +4,7 @@ CUDA events: the fusion layers' forward, the recompute inside the backward
 (which module hooks do not see, and which checkpoint stops early) and the
 fusion layers' backward spans; the wrappers gone after the step; and the
 same split of a tiny R50 step (APE-DETA R50 masked, Deformable-DETR R50's
-Hungarian). The profile itself needs a card."""
+Hungarian); the APE-L setup's recipe. The profile itself needs a card."""
 
 import pytest
 import torch
@@ -73,3 +73,21 @@ def test_train_stage_split_of_an_r50_step(monkeypatch, tree):
     assert 0 < split["criterion_ms"] < split["forward_and_loss_ms"]
     assert not any(split["recompute_ms"].values()) and split["fusion_backward_ms"] == 0
     assert not any("forward" in vars(m) for m in model.modules())
+
+
+def test_l_setup_is_the_ade20k_recipe(monkeypatch):
+    """``--model l``: build_ape_l (cut to 1 block and 1 + 1 layers on the
+    CPU), the recipe's criterion (150 classes, masks), batch 2 at 1024^2
+    with 150 valid texts of 160, the ViT-L layer decay, a CPU generator."""
+    import chip_smoke as cs
+    from ape_tpu_torch.modeling import build as port_build
+
+    monkeypatch.setattr(profile_train, "build_ape_l", lambda **k: port_build.build_ape_l(
+        **dict(k, depth=1, num_layers=1, device="cpu")))
+    model, crit, opt, sched, batch, gen = profile_train.setup("l", False, None, "cpu")
+    assert model.mask_on and model.transformer.two_stage_num_proposals == 900
+    assert crit.num_classes == cs.L_CLASSES and "masks" in crit.losses
+    assert batch["images"].shape == (cs.L_TRAIN_BATCH, cs.TRAIN_IMG, cs.TRAIN_IMG, 3)
+    assert batch["text_valid"].sum(1).tolist() == [cs.L_CLASSES] * cs.L_TRAIN_BATCH
+    assert int(batch["targets"]["labels"].max()) < cs.L_CLASSES
+    assert gen.device.type == "cpu" and len(opt.param_groups) > 2

@@ -129,15 +129,22 @@ def model_pair(jax_model, torch_model, zero_encoder_offsets=False, **init_kw):
 L_D_VIT = dict(subln=True, inner_attn_ln=True, swiglu_subln=True, packed_swiglu=False,
                depth=3, window_size=8, window_block_indexes=(0, 1), pretrain_img_size=336)
 L_D_FUSION = dict(vl_fusion=True, vl_embed_dim=64, vl_num_heads=2, vl_init_values=1.0 / 6)
+# The tiny non-CLIP EVA-02-L (configs/common/backbone/vitl_eva02.py): subln
+# attention without the inner LayerNorm, SwiGLU unpacked with ffn_ln, six
+# blocks with every sixth global (block 5), windows of 4 tokens, the
+# position table pretrained at 224.
+L_VIT = dict(subln=True, inner_attn_ln=False, swiglu_subln=True, packed_swiglu=False, depth=6,
+             window_size=4, window_block_indexes=(0, 1, 2, 3, 4), pretrain_img_size=224)
 
 
 def jax_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, vit=None, fusion=None,
-             **apedeta_kw):
+             proposal_ambiguous=0, **apedeta_kw):
     """ape_tpu APEDeta at the parity-harness dims on the given pyramid; the
     neck extends it to 5 levels. ``vit`` overrides EVAViT's arguments and
-    ``fusion`` adds the encoder's (L_D_VIT, L_D_FUSION); ``apedeta_kw``
-    (mask_on, aux_mask, ...) go to APEDeta; the mask head reads the finest
-    level."""
+    ``fusion`` adds the encoder's (L_D_VIT, L_D_FUSION); the decoder holds
+    ``proposal_ambiguous`` copies of the first stage's heads;
+    ``apedeta_kw`` (mask_on, aux_mask, ...) go to APEDeta; the mask head
+    reads the finest level."""
     from ape_tpu.modeling.ape_deta.model import APEDeta, ChannelMapper
     from ape_tpu.modeling.ape_deta.transformer import (
         DeformableDetrTransformer,
@@ -161,7 +168,8 @@ def jax_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, vit=None, f
             embed_dim_language=d["ldim"], **(fusion or {})),
         decoder=DeformableTransformerDecoder(
             embed_dim=d["embed"], num_heads=d["heads"], feedforward_dim=d["ffn"],
-            num_layers=d["layers"], num_feature_levels=5, look_forward_twice=False),
+            num_layers=d["layers"], num_feature_levels=5, look_forward_twice=False,
+            proposal_ambiguous=proposal_ambiguous),
         num_feature_levels=5, two_stage_num_proposals=d["queries"], assign_first_stage=True)
     return APEDeta(
         backbone=backbone, neck=ChannelMapper(out_channels=d["embed"], num_outs=5),
@@ -171,7 +179,7 @@ def jax_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, vit=None, f
 
 
 def torch_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, vit=None, fusion=None,
-               **apedeta_kw):
+               proposal_ambiguous=0, **apedeta_kw):
     """The port's APEDeta at the same dims and pyramid."""
     from ape_tpu_torch.modeling.ape_deta.model import APEDeta, ChannelMapper
     from ape_tpu_torch.modeling.ape_deta.transformer import (
@@ -193,7 +201,8 @@ def torch_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, vit=None,
         DeformableTransformerEncoder(d["embed"], d["heads"], d["ffn"], d["layers"], 5,
                                      window_radius=window_radius, embed_dim_language=d["ldim"],
                                      **(fusion or {})),
-        DeformableTransformerDecoder(d["embed"], d["heads"], d["ffn"], d["layers"], 5),
+        DeformableTransformerDecoder(d["embed"], d["heads"], d["ffn"], d["layers"], 5,
+                                     proposal_ambiguous=proposal_ambiguous),
         embed_dim=d["embed"], num_feature_levels=5, two_stage_num_proposals=d["queries"])
     return APEDeta(backbone, ChannelMapper(sfp, d["embed"], d["embed"], num_outs=5),
                    transformer, embed_dim=d["embed"], embed_dim_language=d["ldim"],
@@ -230,6 +239,19 @@ def jax_tiny_l_d(d=DIMS, **kw):
 def torch_tiny_l_d(d=DIMS, **kw):
     """The port's tiny APE-L_D, holding the learned fusion token."""
     return torch_tiny(d, vit=L_D_VIT, fusion=L_D_FUSION, name_prompt_fusion_feature=True, **kw)
+
+
+def jax_tiny_l(d=DIMS, vl_fusion=False, **kw):
+    """ape_tpu APEDeta as a tiny APE-L (the non-CLIP tree), masked on the
+    4-scale pyramid; with ``vl_fusion`` its _vlf_ twin."""
+    return jax_tiny(d, 4, MASKED_SCALES, vit=L_VIT, fusion=L_D_FUSION if vl_fusion else None,
+                    mask_on=True, **kw)
+
+
+def torch_tiny_l(d=DIMS, vl_fusion=False, **kw):
+    """The port's tiny APE-L, or its _vlf_ twin."""
+    return torch_tiny(d, 4, MASKED_SCALES, vit=L_VIT, fusion=L_D_FUSION if vl_fusion else None,
+                      mask_on=True, **kw)
 
 
 def tiny_inputs(d=DIMS, seed=3, h=None, w=None):
