@@ -14,6 +14,8 @@ inverted:
   mask head lateral_norm / output_norm  -> the ``norm`` of lateral_conv / output_conv
   encoder vl_layers_{i}                 -> vl_layers.{i}.b_attn (the reference's
                                            fusion wrapper, which JAX's converter strips)
+  EVA-01 mlp/fc{1,2}, attn/rel_pos_{h,w} -> mlp.fc{1,2}, attn.rel_pos_{h,w} (the
+                                           post-norm tree keeps norm1 and norm2)
   ResNet stem_conv / stem_norm          -> stem.conv1 / stem.conv1.norm
   res{s}_block{i}/conv{j}, norm{j}      -> res{s}.{i}.conv{j}, conv{j}.norm
   res{s}_block{i}/shortcut{,_norm}      -> res{s}.{i}.shortcut{,.norm}
@@ -108,7 +110,7 @@ def _convert_one(key: str, v, neck_levels, num_layers: int):
     m = re.fullmatch(r"backbone/net/blocks_(\d+)/(.+)/(kernel|scale|bias)", key)
     if m:
         return f"backbone.net.blocks.{m[1]}.{m[2].replace('/', '.')}.{_leaf(m[3])}", _tf(m[3])(v)
-    m = re.fullmatch(r"backbone/net/blocks_(\d+)/attn/([qv]_bias)", key)
+    m = re.fullmatch(r"backbone/net/blocks_(\d+)/attn/([qv]_bias|rel_pos_[hw])", key)
     if m:
         return f"backbone.net.blocks.{m[1]}.attn.{m[2]}", np.asarray(v)
     m = re.fullmatch(r"backbone/simfp_(\d)_(\w+?)(/conv|/norm)?/(kernel|scale|bias)", key)

@@ -1,16 +1,29 @@
-"""EVA-02 ViT backbone + SimpleFeaturePyramid (counterpart of
-``ape_tpu/modeling/backbone/eva_vit.py``): q/v-only bias, 2-D RoPE, windowed
-and global blocks, and a SwiGLU MLP. APE-Ti's EVA-02 packs qkv and SwiGLU's
-w12; APE-L_D's EVA-02-CLIP (``subln``, ``inner_attn_ln``, ``swiglu_subln``)
-projects q, k and v apart, normalizes the attention output before ``proj``,
-and normalizes SwiGLU's hidden layer (``ffn_ln``) before ``w3``. EVA-01's
-relative positions and GELU MLP and ViT-E's post-norm are not ported.
+"""EVA ViT backbone + SimpleFeaturePyramid (counterpart of
+``ape_tpu/modeling/backbone/eva_vit.py``): q/v-only bias, windowed and global
+blocks, and one module for every tree of ``configs/``. APE-Ti's EVA-02 packs
+qkv and SwiGLU's w12 under 2-D RoPE; APE-L_D's EVA-02-CLIP (``subln``,
+``inner_attn_ln``, ``swiglu_subln``) projects q, k and v apart, normalizes
+the attention output before ``proj``, and normalizes SwiGLU's hidden layer
+(``ffn_ln``) before ``w3``. ViTDet and EVA-01 (``rope=False``,
+``mlp_type="gelu"``, ``use_rel_pos``) add decomposed relative positions to
+the attention logits and run a GELU MLP (``fc1``, ``fc2``); ViT-E
+(``postnorm``) normalizes each sublayer's output inside its residual branch
+in place of its input.
 
 Tokens stay channels-last (B, H, W, C) as in the JAX package; the pyramid's
-convolutions run channels-first inside. Global blocks (window_size 0) run
-``ops.attention.global_attention`` (the CUDA flash kernel on the card);
-windowed blocks (196 tokens for Ti, 1024 for L_D) stay plain matmul +
-softmax, as JAX leaves every block under 2048 tokens to an XLA einsum.
+convolutions run channels-first inside. A global block (window_size 0)
+takes ``ops.attention.global_attention`` (the CUDA flash kernel, K5, on the
+card) under JAX's own condition for its library kernel (eva_vit.py:114-120):
+head width 32, 64 or 128 and no relative positions. Every other block,
+windowed or global (rel-pos, EVA-01-CLIP-g's head width 88, ViT-E's 112),
+runs the plain product here: the scaled logits in the compute dtype, the
+relative-position terms added in it, softmax in f32, the second product;
+JAX runs those blocks as XLA einsums, outside any Pallas kernel.
+
+Relative-position tables are sized at construction, (2 h - 1, head_dim) and
+(2 w - 1, head_dim) for the block's input (h, w): the window for a windowed
+block, the token grid of ``img_size`` for a global one, as JAX creates them
+at its init input. A forward at another grid raises in ``get_rel_pos``.
 
 Stochastic depth (``DropPath``) drops both residual branches of a block per
 sample in ``train()`` mode, at rates rising linearly with depth, as JAX's
@@ -20,16 +33,16 @@ every block's keep masks at once from the caller's ``torch.Generator``
 the card and one on the CPU given generators of one seed drop the same
 branches. A dropped branch is still computed, as in JAX.
 
-Parameter names are the reference's (vit_eva02.py, vit_eva_clip.py):
+Parameter names are the reference's (vit_eva02.py, vit_eva_clip.py, vit_eva.py):
 ``net.blocks.{i}.attn.qkv`` or ``.attn.{q,k,v}_proj``, ``.attn.inner_attn_ln``,
-``.mlp.w12`` or ``.mlp.{w1,w2}``, ``.mlp.ffn_ln``, ``net.patch_embed.proj``,
-``simfp_{stage}.{index}``, ...
+``.attn.rel_pos_{h,w}``, ``.mlp.w12`` or ``.mlp.{w1,w2}``, ``.mlp.ffn_ln``,
+``.mlp.fc{1,2}``, ``net.patch_embed.proj``, ``simfp_{stage}.{index}``, ...
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -37,28 +50,36 @@ import torch.nn.functional as F
 
 from ape_tpu_torch.layers.common import LayerNorm, Linear
 from ape_tpu_torch.modeling.backbone.vit_utils import (
+    add_decomposed_rel_pos,
     apply_rope,
     resize_abs_pos,
     rope_2d_table,
     window_partition,
     window_unpartition,
 )
-from ape_tpu_torch.ops.attention import global_attention
+from ape_tpu_torch.ops.attention import HEAD_DIMS, global_attention
 from ape_tpu_torch.ops.tables import device_table
 
 
 class Attention(nn.Module):
     """EVA attention: q, k and v projected without bias (packed as ``qkv``, or
-    apart under ``subln``), q/v-only bias, 2-D RoPE on q and k, and under
-    ``inner_attn_ln`` a LayerNorm (eps 1e-6) on the output before ``proj``."""
+    apart under ``subln``), q/v-only bias, 2-D RoPE on q and k where the
+    caller passes its tables, under ``use_rel_pos`` the decomposed
+    relative positions of a block whose input is ``input_size`` (h, w), and
+    under ``inner_attn_ln`` a LayerNorm (eps 1e-6) on the output before
+    ``proj``. ``flash``: the block runs K5 (``global_attention``), fixed here
+    by JAX's rule; otherwise the plain product."""
 
     def __init__(self, dim: int, num_heads: int, global_attn: bool, subln: bool = False,
-                 inner_attn_ln: bool = False):
+                 inner_attn_ln: bool = False, use_rel_pos: bool = False,
+                 input_size: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
-        self.global_attn = global_attn
         self.subln = subln
+        self.use_rel_pos = use_rel_pos
+        head_dim = dim // num_heads
+        self.flash = global_attn and head_dim in HEAD_DIMS and not use_rel_pos
         if subln:
             self.q_proj = Linear(dim, dim, bias=False)
             self.k_proj = Linear(dim, dim, bias=False)
@@ -67,6 +88,10 @@ class Attention(nn.Module):
             self.qkv = Linear(dim, 3 * dim, bias=False)
         self.q_bias = nn.Parameter(torch.zeros(dim))
         self.v_bias = nn.Parameter(torch.zeros(dim))
+        if use_rel_pos:
+            h, w = input_size
+            self.rel_pos_h = nn.Parameter(torch.zeros(2 * h - 1, head_dim))
+            self.rel_pos_w = nn.Parameter(torch.zeros(2 * w - 1, head_dim))
         self.inner_attn_ln = LayerNorm(dim, eps=1e-6) if inner_attn_ln else None
         self.proj = Linear(dim, dim)
 
@@ -83,12 +108,17 @@ class Attention(nn.Module):
         q = q + self.q_bias.to(q.dtype)
         v = v + self.v_bias.to(v.dtype)
         q, k, v = (t.reshape(b, n, self.num_heads, head_dim).transpose(1, 2) for t in (q, k, v))
-        q = apply_rope(q, rope_cos.to(q.dtype), rope_sin.to(q.dtype))
-        k = apply_rope(k, rope_cos.to(k.dtype), rope_sin.to(k.dtype))
-        if self.global_attn:
+        if rope_cos is not None:
+            q = apply_rope(q, rope_cos.to(q.dtype), rope_sin.to(q.dtype))
+            k = apply_rope(k, rope_cos.to(k.dtype), rope_sin.to(k.dtype))
+        if self.flash:
             out = global_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale)
         else:
             attn = torch.matmul(q * scale, k.transpose(-1, -2))
+            if self.use_rel_pos:  # on the unscaled q, after any RoPE
+                attn = add_decomposed_rel_pos(
+                    attn.reshape(b * self.num_heads, n, n), q.reshape(b * self.num_heads, n, -1),
+                    self.rel_pos_h, self.rel_pos_w, (h, w), (h, w)).reshape(b, self.num_heads, n, n)
             attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
             out = torch.matmul(attn, v)
         out = out.transpose(1, 2).reshape(b, n, self.dim)
@@ -122,6 +152,18 @@ class SwiGLU(nn.Module):
         if self.ffn_ln is not None:
             hidden = self.ffn_ln(hidden)
         return self.w3(hidden)
+
+
+class Mlp(nn.Module):
+    """EVA-01's plain MLP (timm's): ``fc1``, exact GELU, ``fc2``."""
+
+    def __init__(self, dim: int, hidden_dim: int):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden_dim)
+        self.fc2 = Linear(hidden_dim, dim)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
 
 
 class DropPath(nn.Module):
@@ -159,30 +201,48 @@ def draw_keep(rates: Sequence[float], batch: int, device,
 
 
 class Block(nn.Module):
+    """A pre-norm block, x + attn(norm1(x)), then x + mlp(norm2(x)); under
+    ``postnorm`` (ViT-E) x + norm1(attn(x)), then x + norm2(mlp(x)), each
+    norm inside its residual branch. ``mlp_type``: "swiglu" or "gelu".
+    ``input_size``: the token grid, which sizes a global block's
+    relative-position tables."""
+
     def __init__(self, dim: int, num_heads: int, mlp_hidden_dim: int, window_size: int = 0,
                  subln: bool = False, inner_attn_ln: bool = False, packed_swiglu: bool = True,
-                 swiglu_subln: bool = False, drop_path: float = 0.0):
+                 swiglu_subln: bool = False, drop_path: float = 0.0, mlp_type: str = "swiglu",
+                 use_rel_pos: bool = False, postnorm: bool = False,
+                 input_size: Optional[Tuple[int, int]] = None):
         super().__init__()
+        if mlp_type not in ("swiglu", "gelu"):
+            raise ValueError(f"mlp_type is 'swiglu' or 'gelu', got {mlp_type!r}")
         self.window_size = window_size
+        self.postnorm = postnorm
         self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, window_size == 0, subln, inner_attn_ln)
+        self.attn = Attention(dim, num_heads, window_size == 0, subln, inner_attn_ln, use_rel_pos,
+                              (window_size, window_size) if window_size > 0 else input_size)
         self.norm2 = LayerNorm(dim, eps=1e-6)
-        self.mlp = SwiGLU(dim, mlp_hidden_dim, packed_swiglu, swiglu_subln)
+        self.mlp = (Mlp(dim, mlp_hidden_dim) if mlp_type == "gelu"
+                    else SwiGLU(dim, mlp_hidden_dim, packed_swiglu, swiglu_subln))
         self.drop_path = DropPath(drop_path)  # of both branches, as JAX's two
 
     def forward(self, x, rope_cos, rope_sin, keep_mask: Optional[torch.Tensor] = None):
         """keep_mask: (2, B) bool, this block's keep masks of the attention
         and the MLP branch; read in ``train()`` mode at a rate above 0."""
-        y = self.norm1(x)
+        y = x if self.postnorm else self.norm1(x)
         if self.window_size > 0:
             h, w = y.shape[1], y.shape[2]
             y, pad_hw = window_partition(y, self.window_size)
         y = self.attn(y, rope_cos, rope_sin)
         if self.window_size > 0:
             y = window_unpartition(y, self.window_size, pad_hw, (h, w))
+        if self.postnorm:
+            y = self.norm1(y)
         keep1, keep2 = (None, None) if keep_mask is None else keep_mask
         x = x + self.drop_path(y, keep1)
-        return x + self.drop_path(self.mlp(self.norm2(x)), keep2)
+        y = self.mlp(x if self.postnorm else self.norm2(x))
+        if self.postnorm:
+            y = self.norm2(y)
+        return x + self.drop_path(y, keep2)
 
 
 class PatchEmbed(nn.Module):
@@ -210,10 +270,14 @@ def _rope_on(half: int, seq_len: int, pt_seq_len: int, device):
 
 
 class EVAViT(nn.Module):
-    """Plain ViT with windowed and global blocks producing one stride-16 map."""
+    """Plain ViT with windowed and global blocks producing one stride-16 map.
+    ``img_size`` (an int, or (H, W)) sizes the global blocks'
+    relative-position tables under ``use_rel_pos``; ``rope=False`` applies
+    no RoPE table (EVA-01, ViTDet, ViT-E)."""
 
     def __init__(
         self,
+        img_size: Union[int, Tuple[int, int]] = 1024,
         patch_size: int = 16,
         embed_dim: int = 768,
         depth: int = 12,
@@ -224,6 +288,7 @@ class EVAViT(nn.Module):
         pretrain_img_size: int = 224,
         pretrain_use_cls_token: bool = True,
         pt_hw_seq_len: int = 16,
+        rope: bool = True,
         packed_swiglu: bool = True,
         subln: bool = False,
         inner_attn_ln: bool = False,
@@ -234,13 +299,12 @@ class EVAViT(nn.Module):
         mlp_type: str = "swiglu",
     ):
         super().__init__()
-        if use_rel_pos or postnorm or mlp_type != "swiglu":
-            raise NotImplementedError("the port's EVAViT has EVA-02's and EVA-02-CLIP's flags only: "
-                                      "no relative positions, post-norm or GELU MLP")
+        img_h, img_w = (img_size, img_size) if isinstance(img_size, int) else img_size
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.window_size = window_size
         self.pt_hw_seq_len = pt_hw_seq_len
+        self.rope = rope
         self.pretrain_use_cls_token = pretrain_use_cls_token
         self.window_block_indexes = tuple(window_block_indexes)
         self.drop_path_rates = [drop_path_rate * i / max(depth - 1, 1) for i in range(depth)]
@@ -259,11 +323,17 @@ class EVAViT(nn.Module):
                 packed_swiglu=packed_swiglu,
                 swiglu_subln=swiglu_subln,
                 drop_path=self.drop_path_rates[i],
+                mlp_type=mlp_type,
+                use_rel_pos=use_rel_pos,
+                postnorm=postnorm,
+                input_size=(img_h // patch_size, img_w // patch_size),
             )
             for i in range(depth)
         )
 
     def _rope(self, seq_len: int, device):
+        if not self.rope:
+            return None, None
         return _rope_on(self.embed_dim // self.num_heads // 2, seq_len, self.pt_hw_seq_len, device)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):

@@ -1,9 +1,11 @@
 """ViT backbone utilities (counterpart of ``ape_tpu/modeling/backbone/vit_utils.py``):
-window partition, 2-D axial RoPE tables, bicubic position-embedding resize.
+window partition, 2-D axial RoPE tables, bicubic position-embedding resize,
+and EVA-01's decomposed relative positions.
 
-Tensors are channels-last (B, H, W, C), as in the JAX package. The RoPE tables
-and the bicubic resize matrices are numpy constants, computed once per shape;
-the resize matrices are also cached on each device (``ops.tables``).
+Tensors are channels-last (B, H, W, C), as in the JAX package. The RoPE tables,
+the bicubic resize matrices and the relative-position index tables are numpy
+constants, computed once per shape; the resize matrices and the index tables
+are also cached on each device (``ops.tables``).
 """
 
 from __future__ import annotations
@@ -118,3 +120,49 @@ def resize_abs_pos(abs_pos: torch.Tensor, has_cls_token: bool, hw: Tuple[int, in
     out = torch.einsum("hs,stc->htc", my, grid)
     out = torch.einsum("wt,htc->hwc", mx, out)
     return out[None]
+
+
+@functools.lru_cache(maxsize=32)
+def rel_pos_index(q_size: int, k_size: int) -> np.ndarray:
+    """(q_size, k_size) int64 rows of a relative-position table: the scaled
+    coordinate delta of each query and key, shifted to start at 0."""
+    q_coords = np.arange(q_size)[:, None] * max(k_size / q_size, 1.0)
+    k_coords = np.arange(k_size)[None, :] * max(q_size / k_size, 1.0)
+    rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
+    return rel.astype(np.int64)
+
+
+@device_table
+def _rel_pos_index_on(q_size: int, k_size: int, device) -> torch.Tensor:
+    """``rel_pos_index`` on ``device`` (cached: read-only)."""
+    return torch.as_tensor(rel_pos_index(q_size, k_size), device=device)
+
+
+def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
+    """The (q_size, k_size, C) slice of a (2 * max(q, k) - 1, C) relative
+    position table. JAX creates each table at that length, so only its index
+    path runs; a table of another length (JAX's linear resize) raises."""
+    max_rel_dist = 2 * max(q_size, k_size) - 1
+    if rel_pos.shape[0] != max_rel_dist:
+        raise ValueError(f"relative-position table of {rel_pos.shape[0]} rows for q {q_size}, "
+                         f"k {k_size}: expected {max_rel_dist} (the block's input size)")
+    return rel_pos[_rel_pos_index_on(q_size, k_size, rel_pos.device)]
+
+
+def add_decomposed_rel_pos(attn: torch.Tensor, q: torch.Tensor, rel_pos_h: torch.Tensor,
+                           rel_pos_w: torch.Tensor, q_hw: Tuple[int, int],
+                           k_hw: Tuple[int, int]) -> torch.Tensor:
+    """attn (B, qh * qw, kh * kw) + the decomposed relative-position biases
+    of the queries q (B, qh * qw, C): the height term and then the width
+    term, each added in attn's dtype."""
+    qh, qw = q_hw
+    kh, kw = k_hw
+    rh = get_rel_pos(qh, kh, rel_pos_h)
+    rw = get_rel_pos(qw, kw, rel_pos_w)
+    b = q.shape[0]
+    r_q = q.reshape(b, qh, qw, -1)
+    rel_h = torch.einsum("bhwc,hkc->bhwk", r_q, rh.to(q.dtype))
+    rel_w = torch.einsum("bhwc,wkc->bhwk", r_q, rw.to(q.dtype))
+    attn = attn.reshape(b, qh, qw, kh, kw)
+    attn = attn + rel_h[:, :, :, :, None] + rel_w[:, :, :, None, :]
+    return attn.reshape(b, qh * qw, kh * kw)

@@ -32,12 +32,22 @@ two stride-2 extra convs, the mask head's lateral map on res2:
   deformable_detr/``).
 
 Their optimizer is the R50 recipe's (``engine.optimizer.R50_RECIPE``).
+
+Every ViT backbone of ``configs/`` is an entry of ``VIT_TREES``: the
+``EVAViT`` arguments of one backbone, copied from the config file it names
+(the 11 files of ``configs/common/backbone/`` and the trees the task
+configs write inline). ``build_backbone_vit`` builds an entry's
+SimpleFeaturePyramid and ``build_ape_vit`` the APE-DETA model around it, as
+``configs/common/models/ape_deta.py`` does: ViTDet-B/L (relative positions,
+GELU MLP, no RoPE), EVA-01-L and ViT-g (with and without CLIP), EVA-02-L
+and EVA-02-CLIP-L at LSJ 1536, ViT-E (post-norm), open vocabulary or with
+a class bank (the DETA configs), with or without the ``_vlf_`` fusion.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -69,30 +79,99 @@ def pyramid_features(scale_factors: Sequence[float]):
     return tuple(sfp), tuple(sfp + [f"extra{i}" for i in range(5 - len(sfp))])
 
 
-def build_backbone_l(scale_factors: Sequence[float] = (4.0, 2.0, 1.0, 0.5),
-                     drop_path_rate: float = 0.0, depth: int = 24) -> SimpleFeaturePyramid:
-    """EVA-02-CLIP-L and its pyramid (``vitl_eva02_clip.py``); every third
-    block global. ``depth`` below 24 cuts the backbone for tests and checks."""
-    return SimpleFeaturePyramid(
-        EVAViT(patch_size=16, embed_dim=1024, depth=depth, num_heads=16, mlp_ratio=4 * 2 / 3,
-               window_size=32, window_block_indexes=window_indexes(depth),
-               pretrain_img_size=336, pt_hw_seq_len=16, packed_swiglu=False, subln=True,
-               inner_attn_ln=True, swiglu_subln=True, drop_path_rate=drop_path_rate),
-        out_channels=256, scale_factors=scale_factors)
+def _tree(config: str, **kw) -> dict:
+    """One VIT_TREES entry: JAX's EVAViT defaults (the port's packs SwiGLU
+    by default, JAX's does not), overridden by what ``config`` sets."""
+    return {"config": config, "img_size": 1024, "patch_size": 16, "mlp_ratio": 4 * 2 / 3,
+            "pretrain_img_size": 224, "pt_hw_seq_len": 16, "rope": True, "packed_swiglu": False,
+            "subln": False, "inner_attn_ln": False, "swiglu_subln": False, "mlp_type": "swiglu",
+            "use_rel_pos": False, "postnorm": False, "drop_path_rate": 0.0, **kw}
 
 
-def build_backbone_l_eva02(scale_factors: Sequence[float], drop_path_rate: float,
-                           depth: int) -> SimpleFeaturePyramid:
-    """The non-CLIP EVA-02-L and its pyramid (``vitl_eva02.py``): window 16,
-    every sixth block global, position table pretrained at 224, no inner
-    attention LN; SwiGLU unpacked, as JAX's EVAViT default (the config sets
-    no ``packed_swiglu``). ``depth`` below 24 cuts it for tests and checks."""
-    return SimpleFeaturePyramid(
-        EVAViT(patch_size=16, embed_dim=1024, depth=depth, num_heads=16, mlp_ratio=4 * 2 / 3,
-               window_size=16, window_block_indexes=window_indexes(depth, 6),
-               pretrain_img_size=224, pt_hw_seq_len=16, packed_swiglu=False, subln=True,
-               swiglu_subln=True, drop_path_rate=drop_path_rate),
-        out_channels=256, scale_factors=scale_factors)
+_BACKBONE = "configs/common/backbone/"
+_EVA02_L = dict(embed_dim=1024, depth=24, num_heads=16, subln=True, swiglu_subln=True)
+_EVA02_CLIP_L = dict(_EVA02_L, window_size=32, window_block_indexes=window_indexes(24),
+                     pretrain_img_size=336, inner_attn_ln=True, drop_path_rate=0.4)
+_EVA01 = dict(rope=False, mlp_type="gelu")  # EVA-01 and ViTDet: GELU MLP, no RoPE
+_VITB = dict(_EVA01, embed_dim=768, depth=12, num_heads=12, window_size=14,
+             window_block_indexes=window_indexes(12))
+_VITG = dict(_EVA01, embed_dim=1408, depth=40, num_heads=16,
+             window_block_indexes=window_indexes(40, 4))
+_VITG_EVA01 = dict(_VITG, mlp_ratio=6144 / 1408, drop_path_rate=0.6)
+_VITE = dict(_EVA01, embed_dim=1792, depth=64, num_heads=16, mlp_ratio=8.571428571428571,
+             window_size=32, window_block_indexes=window_indexes(64, 4), use_rel_pos=True,
+             postnorm=True, drop_path_rate=0.4)
+# Each backbone of configs/: EVAViT's arguments and the file they come from.
+# The inline ViTDet, EVA-01-L and ViT-g trees set no mlp_ratio, so their GELU
+# MLPs take JAX's default 4 * 2 / 3 (ROADMAP Queue 3, trait 17).
+VIT_TREES = {
+    "vitt_eva02": _tree(_BACKBONE + "vitt_eva02.py", embed_dim=192, depth=12, num_heads=3,
+                        window_size=14, window_block_indexes=window_indexes(12),
+                        packed_swiglu=True),
+    "vitl_eva02_clip": _tree(_BACKBONE + "vitl_eva02_clip.py", **_EVA02_CLIP_L),
+    "vitl_eva02_clip_1536": _tree(_BACKBONE + "vitl_eva02_clip_1536.py", **_EVA02_CLIP_L,
+                                  img_size=1536),
+    "vitl_eva02": _tree(_BACKBONE + "vitl_eva02.py", **_EVA02_L, window_size=16,
+                        window_block_indexes=window_indexes(24, 6), drop_path_rate=0.4),
+    "vitl_eva02_1536": _tree(_BACKBONE + "vitl_eva02_1536.py", **_EVA02_L, img_size=1536,
+                             window_size=32, window_block_indexes=window_indexes(24),
+                             drop_path_rate=0.4),
+    "vitl_eva02_deta": _tree(
+        "configs/COCO_Detection/deformable_deta/deformable_deta_vitl_eva02_lsj1024_cp_12ep.py",
+        **_EVA02_L, window_size=16, window_block_indexes=window_indexes(24, 6)),
+    "vitb": _tree("configs/COCO_Detection/deformable_deta/deformable_deta_vitb_lsj1024_12ep.py",
+                  **_VITB, use_rel_pos=True),
+    "vitb_clip_openai": _tree("configs/COCO_Detection/deformable_deta/"
+                              "deformable_deta_vitb_clip_openai_lsj1024_cp_12ep.py", **_VITB),
+    "vitl": _tree("configs/COCO_InstanceSegmentation/ape_deta/ape_deta_vitl_lsj1024_cp_12ep.py",
+                  **_EVA01, embed_dim=1024, depth=24, num_heads=16, window_size=14,
+                  window_block_indexes=window_indexes(24, 6), use_rel_pos=True),
+    "vitl_eva": _tree("configs/COCO_Detection/deformable_deta/"
+                      "deformable_deta_vitl_eva_lsj1024_cp_12ep.py", **_EVA01, embed_dim=1024,
+                      depth=24, num_heads=16, window_size=16,
+                      window_block_indexes=window_indexes(24, 4), use_rel_pos=True),
+    "vitg_eva": _tree("configs/COCO_Detection/deformable_deta/"
+                      "deformable_deta_vitg_eva_lsj1024_12ep.py", **_VITG, window_size=16,
+                      use_rel_pos=True),
+    "vitg_eva01": _tree(_BACKBONE + "vitg_eva01.py", **_VITG_EVA01, window_size=16,
+                        use_rel_pos=True),
+    "vitg_eva01_1536": _tree(_BACKBONE + "vitg_eva01_1536.py", **_VITG_EVA01, img_size=1536,
+                             window_size=32, use_rel_pos=True),
+    "vitg_eva01_clip_1024": _tree(_BACKBONE + "vitg_eva01_clip_1024.py", **_VITG_EVA01,
+                                  window_size=32),
+    "vitg_eva01_clip_1536": _tree(_BACKBONE + "vitg_eva01_clip_1536.py", **_VITG_EVA01,
+                                  img_size=1536, window_size=32),
+    "vite_eva02_clip_1024": _tree(_BACKBONE + "vite_eva02_clip_1024.py", **_VITE),
+    "vite_eva02_clip_1536": _tree(_BACKBONE + "vite_eva02_clip_1536.py", **_VITE, img_size=1536),
+}
+
+
+def vit_args(tree: str, depth: Optional[int] = None,
+             img_size: Union[int, Tuple[int, int], None] = None) -> dict:
+    """EVAViT's arguments of VIT_TREES[tree]. ``depth`` cuts the tree to
+    its first blocks, each windowed or global as in the tree; ``img_size``
+    resizes the global blocks' relative-position tables (cut checks on
+    smaller images)."""
+    kw = {k: v for k, v in VIT_TREES[tree].items() if k != "config"}
+    if depth is not None:
+        kw["depth"] = depth
+        kw["window_block_indexes"] = tuple(i for i in kw["window_block_indexes"] if i < depth)
+    if img_size is not None:
+        kw["img_size"] = img_size
+    return kw
+
+
+def build_backbone_vit(tree: str, scale_factors: Sequence[float] = (4.0, 2.0, 1.0, 0.5),
+                       depth: Optional[int] = None,
+                       img_size: Union[int, Tuple[int, int], None] = None,
+                       drop_path_rate: Optional[float] = None) -> SimpleFeaturePyramid:
+    """VIT_TREES[tree] and its pyramid (256 channels); ``depth`` and
+    ``img_size`` as ``vit_args``; ``drop_path_rate`` in place of the tree's
+    (``build_ape_l_d``'s protocol builds L_D without drop path)."""
+    kw = vit_args(tree, depth, img_size)
+    if drop_path_rate is not None:
+        kw["drop_path_rate"] = drop_path_rate
+    return SimpleFeaturePyramid(EVAViT(**kw), out_channels=256, scale_factors=scale_factors)
 
 
 def build_transformer(num_queries: int = 900, num_layers: int = 6, vl_fusion: bool = False,
@@ -149,11 +228,7 @@ def build_ape_ti(
     build it there."""
     device = default_device("build_ape_ti", device)
     sfp_names, levels = pyramid_features(scale_factors)
-    backbone = SimpleFeaturePyramid(
-        EVAViT(patch_size=16, embed_dim=192, depth=12, num_heads=3,
-               mlp_ratio=4 * 2 / 3, window_size=14, window_block_indexes=window_indexes(12),
-               pretrain_img_size=224, pt_hw_seq_len=16),
-        out_channels=256, scale_factors=scale_factors)
+    backbone = build_backbone_vit("vitt_eva02", scale_factors)
     transformer = build_transformer(num_queries, 6, False, embed_dim_language, window_radius,
                                     use_act_checkpoint, proposal_ambiguous=proposal_ambiguous)
     return APEDeta(
@@ -197,7 +272,7 @@ def build_ape_l_d(
                                     window_radius, use_act_checkpoint,
                                     proposal_ambiguous=proposal_ambiguous)
     return APEDeta(
-        build_backbone_l(scale_factors, drop_path_rate, depth),
+        build_backbone_vit("vitl_eva02_clip", scale_factors, depth, drop_path_rate=drop_path_rate),
         ChannelMapper(sfp_names, 256, 256, num_outs=5), transformer,
         embed_dim=256, embed_dim_language=embed_dim_language, in_features=levels,
         mask_on=mask_on, mask_in_feature=levels[0],
@@ -230,17 +305,10 @@ def build_ape_l(
     vit_num_layers=24)``. depth and num_layers cut the model for tests and
     checks.
 
-    The model lies on ``device``, by the rule of ``build_ape_ti``."""
-    device = default_device("build_ape_l", device)
-    sfp_names, levels = pyramid_features(scale_factors)
-    transformer = build_transformer(900, num_layers, vl_fusion,
-                                    proposal_ambiguous=proposal_ambiguous)
-    transformer.encoder.use_act_checkpoint = vl_fusion
-    return APEDeta(
-        build_backbone_l_eva02(scale_factors, 0.4, depth),
-        ChannelMapper(sfp_names, 256, 256, num_outs=5), transformer,
-        embed_dim=256, embed_dim_language=1024, in_features=levels,
-        mask_on=mask_on, mask_in_feature=levels[0], dtype=dtype).to(device)
+    The model is built on ``device`` by ``build_ape_vit``."""
+    return build_ape_vit("vitl_eva02", vl_fusion, mask_on=mask_on, scale_factors=scale_factors,
+                         dtype=dtype, depth=depth, num_layers=num_layers,
+                         proposal_ambiguous=proposal_ambiguous, device=device)
 
 
 def build_backbone_r50() -> ResNet:
@@ -314,3 +382,49 @@ def build_deformable_detr_r50(
                                     as_two_stage=as_two_stage, assign_first_stage=False,
                                     with_box_refine=with_box_refine)
     return _r50_model(transformer, False, 80, dtype).to(device)
+
+
+def build_ape_vit(
+    tree: str,
+    vl_fusion: bool = False,
+    num_learned_classes: int = 0,
+    mask_on: bool = True,
+    scale_factors: Sequence[float] = (4.0, 2.0, 1.0, 0.5),
+    dtype: torch.dtype = torch.float32,
+    depth: Optional[int] = None,
+    num_layers: int = 6,
+    proposal_ambiguous: int = 0,
+    img_size: Union[int, Tuple[int, int], None] = None,
+    device=None,
+) -> APEDeta:
+    """APE-DETA on the ViT backbone VIT_TREES[tree], as
+    ``configs/common/models/ape_deta.py`` builds it: 900 queries, the
+    two-stage DETA select with box refinement, 5 levels, by default masked
+    on the 4-scale pyramid. vl_fusion: the ``_vlf_`` recipes' fusion layer
+    before each encoder layer (embed 2048, layer scale 1/6).
+    num_learned_classes: the DETA configs' class bank (80 or 1203) in place
+    of the text. With the fusion the encoder recomputes its layers in the
+    backward, as the ``_vlf_`` recipes set ``encoder.use_act_checkpoint``
+    alone (the decoder keeps its activations); without it nothing is
+    recomputed. proposal_ambiguous: copies of the first stage's heads, by the
+    rule of ``build_transformer``. Drop path follows the tree. Train
+    with ``build_optimizer(model, vit_num_layers=<the tree's depth>)``. The
+    1536 trees serve behind ``DefaultPredictor(image_size=1536)``. depth,
+    num_layers and img_size cut the model for tests and checks.
+
+    The model is built on ``device`` itself (``with torch.device``), so that
+    ViT-E's 4.35 B parameters take no host memory; by default the CUDA card,
+    by the rule of ``build_ape_ti``; ``device="meta"`` builds the structure
+    alone."""
+    device = default_device("build_ape_vit", device)
+    sfp_names, levels = pyramid_features(scale_factors)
+    with torch.device(device):
+        transformer = build_transformer(900, num_layers, vl_fusion,
+                                        proposal_ambiguous=proposal_ambiguous)
+        transformer.encoder.use_act_checkpoint = vl_fusion
+        model = APEDeta(
+            build_backbone_vit(tree, scale_factors, depth, img_size),
+            ChannelMapper(sfp_names, 256, 256, num_outs=5), transformer,
+            embed_dim=256, embed_dim_language=1024, in_features=levels, mask_on=mask_on,
+            mask_in_feature=levels[0], num_learned_classes=num_learned_classes, dtype=dtype)
+    return model.to(device)

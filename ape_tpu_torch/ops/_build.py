@@ -236,10 +236,18 @@ def _sass(lib: Path) -> str:
                           timeout=300, check=True).stdout
 
 
+@functools.lru_cache(maxsize=None)
+def _sass_functions(lib: Path) -> dict:
+    """``parse_sass`` of every function of a built library, parsed once a
+    process."""
+    return parse_sass(_sass(lib), "")
+
+
 def sass_counts(pattern: str) -> dict:
-    """``parse_sass`` of the built library's SASS: static instructions, not
-    executions."""
-    return parse_sass(_sass(build()), pattern)
+    """``parse_sass`` of the built library's SASS for the functions whose
+    mangled name holds ``pattern``: static instructions, not executions."""
+    return {name: dict(ops) for name, ops in _sass_functions(build()).items()
+            if pattern in name}
 
 
 def check(err: int, kernel: str) -> None:

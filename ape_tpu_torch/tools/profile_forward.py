@@ -1,6 +1,6 @@
 """Profile APE's bf16 forward on one CUDA card, from the root of a
-checkout, in four cells, each with N(0, 0.02) weights and the ring-init
-offsets re-armed, 1024^2, batch 1, 900 queries:
+checkout, in the cells below, each with N(0, 0.02) weights and the ring-init
+offsets re-armed, batch 1, 900 queries, at 1024^2 unless said:
 
 * ``protocol``: APE-Ti's protocol forward (``chip_smoke.py``'s slice phase:
   80 texts, the 3-scale pyramid, no masks);
@@ -20,11 +20,20 @@ offsets re-armed, 1024^2, batch 1, 900 queries:
   and two extras make the protocol pyramid);
 * ``r50-full``: ``build_ape_r50()``'s defaults (masked), 80 texts;
 * ``detr-r50``: ``build_deformable_detr_r50()`` (single-stage, 300
-  queries, the class bank of 80; the texts passed are not read).
+  queries, the class bank of 80; the texts passed are not read);
+* ``vit-<tree>``: each tree of ``chip_smoke.py``'s vit_slice phase
+  (``VIT_SLICE``: ViTDet-L, ViTDet-B clip_openai's DETA, EVA-01-CLIP-g at
+  1536, ViT-E and EVA-02-CLIP-L at 1536 with the fusion) at the protocol
+  (``build_ape_vit(tree, mask_on=False, scale_factors=(2.0, 1.0, 0.5))``), at
+  its own image size and texts.
 
     python3 -m ape_tpu_torch.tools.profile_forward [--models protocol full_serve
                                                     l_d-protocol l_d-full l-protocol l-full
-                                                    r50-protocol r50-full detr-r50]
+                                                    r50-protocol r50-full detr-r50
+                                                    vit-vitl vit-vitb_clip_openai
+                                                    vit-vitg_eva01_clip_1536
+                                                    vit-vite_eva02_clip_1024
+                                                    vit-vitl_eva02_clip_1536]
                                                    [--iters 10]
 
 The counterpart of ``profile_train.py`` for the forward, and of the JAX
@@ -66,18 +75,28 @@ from ape_tpu_torch.modeling.build import (
     build_ape_l_d,
     build_ape_r50,
     build_ape_ti,
+    build_ape_vit,
     build_deformable_detr_r50,
 )
 from ape_tpu_torch.tools.profile_train import profile_call
 
+# the ViT trees' cells: {cell: (tree, build_ape_vit keywords, image side, texts,
+# weights drawn on the card)}, as chip_smoke's vit_slice
+VIT_CELLS = {f"vit-{tree}": (tree, kw, img, texts, on_card)
+             for tree, kw, img, texts, _, on_card, _ in cs.VIT_SLICE}
 MODELS = ("protocol", "full_serve", "l_d-protocol", "l_d-full", "l-protocol", "l-full",
-          "r50-protocol", "r50-full", "detr-r50")
+          "r50-protocol", "r50-full", "detr-r50") + tuple(VIT_CELLS)
 
 
 def build(name: str, dev):
     """The model of a cell, bf16, eval, with chip_smoke's weights, and the
     cell's number of texts."""
     kw = dict(num_queries=cs.QUERIES, window_radius=cs.RADIUS, dtype=torch.bfloat16, device=dev)
+    if name in VIT_CELLS:
+        tree, vit_kw, _, texts, on_card = VIT_CELLS[name]
+        model = build_ape_vit(tree, mask_on=False, scale_factors=(2.0, 1.0, 0.5),
+                              dtype=torch.bfloat16, device=dev, **vit_kw)
+        return cs.init_weights(model, cs.SEED, device=dev if on_card else "cpu").eval(), texts
     if name.startswith(("r50", "detr")):
         if name == "detr-r50":
             model = build_deformable_detr_r50(window_radius=cs.RADIUS, dtype=torch.bfloat16,
@@ -151,7 +170,8 @@ def summary(values) -> dict:
 
 def profile_model(name: str, dev, iters: int, card: str):
     model, texts = build(name, dev)
-    inputs = tuple(t.to(dev) for t in cs._inputs(texts))
+    img = VIT_CELLS[name][2] if name in VIT_CELLS else cs.IMG
+    inputs = tuple(t.to(dev) for t in cs._inputs(texts, img))
     with torch.no_grad():
         for _ in range(2):
             model(*inputs)
@@ -170,7 +190,8 @@ def profile_model(name: str, dev, iters: int, card: str):
                 h.remove()
             runs.append(stages(marks, model.mask_on))
         split = {k: summary([r[k] for r in runs]) for k in runs[0]}
-        print(json.dumps({"forward_stages": {"model": name, "texts": texts, "iters": iters,
+        print(json.dumps({"forward_stages": {"model": name, "texts": texts, "image": img,
+                                             "iters": iters,
                                              "ms": split,
                                              "wall_ms": summary(walls), "card": card}}),
               flush=True)

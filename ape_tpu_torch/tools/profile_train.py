@@ -4,17 +4,21 @@ bf16, recompute checkpointing), APE-L_D in its ``l_d_train`` one (batch
 1, the masked model, drop path 0.4, 1203 texts, the LVIS recipe's
 criterion with the federated loss, ``vit_num_layers=24``), APE-L in its
 ``l_train`` one (the ADE20k panoptic recipe: batch 2, masked, 900 queries,
-no recompute, 150 classes in 160 text slots), or the R50 family in its
+no recompute, 150 classes in 160 text slots), the R50 family in its
 ``r50_train`` and ``detr_r50_train`` ones (batch 2, 300 queries, the R50
-recipe's optimizer):
+recipe's optimizer), or ViTDet-L APE-DETA in its ``vitl_train`` one (the
+COCO recipe: batch 2, masked, 900 queries, no recompute, 80 classes in 96
+text slots):
 
-    python3 -m ape_tpu_torch.tools.profile_train [--masked] [--model ti|l_d|l|r50|detr_r50]
+    python3 -m ape_tpu_torch.tools.profile_train [--masked]
+                                                 [--model ti|l_d|l|r50|detr_r50|vitl]
                                                  [--batch N]
 
 Without flags the Ti detection model (chip_smoke's phase 8); ``--masked``
 the full masked Ti model with the mask losses (phase 11); ``--model l_d``
 APE-L_D (phase 13's ``l_d_train``); ``--model l`` APE-L (phase 14's
-``l_train``); ``--model r50`` APE-DETA R50 (masked,
+``l_train``); ``--model vitl`` ViTDet-L APE-DETA (phase 16's
+``vitl_train``); ``--model r50`` APE-DETA R50 (masked,
 recompute, DETA's criterion with masks); ``--model detr_r50``
 Deformable-DETR R50 (no masks, the Hungarian on every layer, no
 recompute); ``--batch`` another batch size (a
@@ -59,6 +63,7 @@ from ape_tpu_torch.modeling.build import (
     build_ape_l_d,
     build_ape_r50,
     build_ape_ti,
+    build_ape_vit,
     build_deformable_detr_r50,
 )
 from ape_tpu_torch.ops import msda_dispatch
@@ -243,6 +248,15 @@ def setup(model_name: str, masked: bool, batch_size, dev):
         batch = cs._train_batch(dev, batch_size or cs.L_TRAIN_BATCH, cs.TRAIN_IMG, cs.SEED + 4,
                                 masks=True, num_text=cs.L_TEXT_SLOTS, classes=cs.L_CLASSES)
         gen = torch.Generator().manual_seed(cs.SEED)
+    elif model_name == "vitl":
+        model = build_ape_vit("vitl", dtype=torch.bfloat16, device=dev)
+        crit = cs._vitl_criterion()
+        opt, sched = build_optimizer(model, vit_num_layers=24, milestones=cs.L_MILESTONES,
+                                     warmup_steps=2000)
+        batch = cs._train_batch(dev, batch_size or cs.VITL_TRAIN_BATCH, cs.TRAIN_IMG,
+                                cs.SEED + 4, masks=True, num_text=cs.VITL_TEXT_SLOTS,
+                                classes=cs.VITL_CLASSES)
+        gen = torch.Generator().manual_seed(cs.SEED)
     elif model_name in ("r50", "detr_r50"):
         detr = model_name == "detr_r50"
         kw = dict(window_radius=cs.RADIUS, dtype=torch.bfloat16, device=dev)
@@ -270,9 +284,11 @@ def setup(model_name: str, masked: bool, batch_size, dev):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--masked", action="store_true", help="the full masked Ti model")
-    parser.add_argument("--model", choices=("ti", "l_d", "l", "r50", "detr_r50"), default="ti",
+    parser.add_argument("--model", choices=("ti", "l_d", "l", "r50", "detr_r50", "vitl"),
+                        default="ti",
                         help="APE-Ti, APE-L_D (masked, batch 1 by default), APE-L (masked), "
-                             "APE-DETA R50 (masked) or Deformable-DETR R50")
+                             "APE-DETA R50 (masked), Deformable-DETR R50 or ViTDet-L APE-DETA "
+                             "(masked)")
     parser.add_argument("--batch", type=int, default=None,
                         help="batch size (default: 2, 1 for L_D)")
     args = parser.parse_args()
@@ -280,7 +296,8 @@ def main():
     dev = torch.device("cuda", 0)
     model, crit, opt, sched, batch, gen = setup(args.model, args.masked, args.batch, dev)
     step = make_train_step(model, crit, opt, sched)
-    form = {"model": args.model, "masked": args.masked or args.model in ("l_d", "l", "r50"),
+    form = {"model": args.model,
+            "masked": args.masked or args.model in ("l_d", "l", "r50", "vitl"),
             "batch": batch["images"].shape[0], "split": not msda_dispatch.BWD_MERGED,
             "window_forward": msda_dispatch.window_form(8)}
     torch.cuda.reset_peak_memory_stats()

@@ -5,8 +5,9 @@ training, the full masked model's inference and training, APE-L_D's
 serving and training (the flagship, whose encoder fuses vision and
 language), the ADE20k panoptic path (APE-L_D with the ambiguous first
 stage, the host merge and evaluators; APE-L on the non-CLIP EVA-02-L,
-serving and training), then the ResNet-50 family's (APE-DETA R50 with and
-without fusion, DETA R50, Deformable-DETR R50).
+serving and training), the ResNet-50 family's (APE-DETA R50 with and
+without fusion, DETA R50, Deformable-DETR R50), then the other ViT trees'
+(ViTDet, EVA-01, ViT-E and the LSJ-1536 trees serving; ViTDet-L training).
 
     python3 chip_smoke.py
 
@@ -14,7 +15,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi's own line too);
 2. build: compile ``ape_tpu_torch/csrc/*.cu`` into ``build/ape_tpu_torch/``;
-   then the SASS: every bf16 instance of the attention forward, dQ and dK/dV
+   the library's disassembly runs on a thread beside phases 3-4 and is
+   parsed once (``sass_wait``, ``sass_done``, after phase 4); then the
+   SASS: every bf16 instance of the attention forward, dQ and dK/dV
    kernels holds tensor-core products (HMMA), no f32 one does, and none
    spills at head width 64; every instance of the merged MSDA backward's
    D = 32 body holds 16-byte vector reductions into d_value, no scalar one,
@@ -143,8 +146,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     on the same tower): ``build_ape_l_d(proposal_ambiguous=1)`` (masked,
     4-scale, fan-in weights so that mask logits saturate and segments form)
     behind ``APE(instance_on, semantic_on, panoptic_on)`` with a dataset of
-    150 names (100 things), three non-square requests with L_D's launches,
-    each request's host evaluation at its size (``host_eval_checks``: the
+    150 names (100 things), a non-square request with L_D's launches, its
+    host evaluation at its size (``host_eval_checks``: the
     mask and sem_seg maps resized as PIL resizes, the panoptic merge, each
     timed; PQ 100 on the merge's own output and the closed-form PQ with a
     quarter of its largest segment void; mIoU 100 on the labels themselves
@@ -201,7 +204,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     R50, DETA R50 and Deformable-DETR R50 cut to 2 + 2 layers at 512^2 on
     the card against the CPU's, every gradient within F32_GRAD_RTOL or
     twice the plain version's own floor, first-stage indices identical;
-16. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
+16. the other ViT trees (``build_ape_vit`` on ``VIT_TREES``): ``vit_*_kernel``,
+    K5 at ViTDet-B clip_openai's (1, 12, 4096, 64) and the 1536
+    EVA-02-CLIP-L's (1, 16, 9216, 64), forward only, as phase 4's attention
+    cases; K1 and K1w at the 1536 protocol pyramid (S = 49,104), cases of
+    phase 3; ``vit_1536_serve`` (beside L_D's serving, on the same tower):
+    ``build_ape_vit("vitl_eva02_clip_1536", vl_fusion=True)`` masked behind
+    ``APE`` and ``DefaultPredictor(image_size=1536)``, a name prompt over
+    1203 names and a phrase on non-square images, mask outputs at 384^2,
+    exact launches, peak memory;
+    ``vit_slice``: five trees at full width and depth at the protocol
+    (bf16, 900 queries, each at its own image size; ``VIT_SLICE``):
+    ViTDet-L, ViTDet-B clip_openai's DETA, EVA-01-CLIP-g at 1536, ViT-E with
+    the fusion (weights drawn on the card) and EVA-02-CLIP-L at 1536 with
+    the fusion: launches exactly Ti's MSDA and K5 0, 4, 0, 0 and 8, syncs the
+    NMS tests, finite logits, images/s, peak memory, parameters;
+    ``vit_f32``: ViTDet-B (3 blocks, a padded window, a rel-pos global
+    block), ViT-E (4 blocks, post-norm) and EVA-01-CLIP-g (4 blocks, a
+    global block at head width 88) with 2 + 2 layers at 512^2 in f32,
+    memory within VIT_F32_BOUND (2e-4) of the CPU's; ``vitl_train``: ViTDet-L APE-DETA as
+    its COCO recipe (1024^2, batch 2, masked, 900 queries, no recompute, 80
+    classes in 96 slots): a warm-up and three timed steps, exactly
+    ``{"msda_fwd": 12, "msda_bwd": 12}`` each, s/step, peak memory, host
+    syncs; ``vitl_train_f32``: ViTDet-L cut to 6 blocks and 2 + 2 layers at
+    512^2, one f32 step on the card against the CPU's, every gradient (the
+    relative-position tables' among them) within F32_GRAD_RTOL
+    (F32_OFFSET_GRAD_RTOL for sampling offsets), first-stage indices
+    identical;
+17. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
     form at both pyramids and both offset draws, its per-pair suites, and
     the ``pair`` and ``rows`` ops by device time under each body, each query
     level's launches apart, and K8's D = 32 body by its parts (device time
@@ -209,7 +239,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     then ``ape_tpu_torch.tools.msda_bwd_race``, the backward forms (K2, K3 +
     K4, autograd of the plain version) at the same pyramids and draws, each
     within its bound of the plain version or of K2;
-17. probes: ``ape_tpu_torch.tools.pair_probe`` (K10, every variant on the
+18. probes: ``ape_tpu_torch.tools.pair_probe`` (K10, every variant on the
     four pairs, bf16 and f32 value, each within 1e-5 of its plain version,
     bf16fma within 6.4e-2 of base, base against K1 bit for bit, K1's time
     on each pair beside) and
@@ -221,17 +251,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 Then the kernels line (each kernel's launches over every path: ``launches``
 over all of them, ``launches_main`` over the serving and training phases
-alone, 5-15, ``launches_default`` over those of them that run the default
+alone, 5-16, ``launches_default`` over those of them that run the default
 flags: slice, serve, train, full serve, full train with the merged backward,
 L_D's slice, serve, train and f32 train, the ADE20k and APE-L phases but the
-f32 ones, and R50's; error, time, plain and library
+f32 ones, R50's and the ViT trees'; error, time, plain and library
 time, and bound; for K1, K3, K4, K6, K7, K8 and K9, whose D = 32 body runs
 there, the general body's time as ``general_ms``; for K6 and K7 also the
 op's device time, ``device_ms``; for K5, K5-dkv and K5-dq their bf16
 records at L_D's 16 heads as ``l_d`` and at APE-L training's batch 2 as
 ``l``; for K1 and K2 their bf16 records at APE-L training's decoder (batch
 2, 900 queries) as ``l``; for K1, K1w and K2 their bf16 records at the R50
-family's training shapes as ``r50``)
+family's training shapes as ``r50``; for K5 its bf16 records at the ViT
+trees' shapes as ``vit`` (by tree), for K1 and K1w theirs at the 1536
+protocol pyramid as ``vit``)
 and, last,
 {"ok": true, "device": {...}}. The script needs the repository around it and
 a CUDA card; it imports no JAX.
@@ -239,6 +271,7 @@ a CUDA card; it imports no JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import functools
 import json
@@ -254,6 +287,7 @@ IMG = 1024
 NUM_TEXT = 80
 QUERIES = 900
 SHAPES = ((128, 128), (64, 64), (32, 32), (16, 16), (8, 8))  # protocol pyramid at 1024^2
+SHAPES_1536 = ((192, 192), (96, 96), (48, 48), (24, 24), (12, 12))  # protocol pyramid at 1536^2
 HEADS, HEAD_DIM, POINTS, RADIUS = 8, 32, 4, 4
 # The kernels' bounds (the forward ones against the plain version, the
 # backward ones against autograd of it, and the split MSDA backward against
@@ -514,12 +548,27 @@ def device_phase():
 
 
 def build_phase():
+    """Builds and loads the kernels' library, then starts its disassembly
+    (``cuobjdump``, tens of seconds) on a thread, which the kernel phases
+    overlap. Returns the disassembly's future, for ``sass_phase``."""
     from ape_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     lib = _build.build()
     _build.library()
     log(phase="build", seconds=time.perf_counter() - t0, library=str(lib.relative_to(ROOT)))
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(_build._sass, lib)
+    pool.shutdown(wait=False)
+    return future
+
+
+def sass_phase(disassembly):
+    """The static checks of the kernels' SASS, once ``disassembly`` (from
+    ``build_phase``) has ended."""
+    t0 = time.perf_counter()
+    disassembly.result()
+    log(phase="sass_wait", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     tensor_core_check()
     vector_reduction_check()
@@ -872,15 +921,18 @@ def _msda_inputs(g, shapes, batch: int, queries: int, dev):
 # attn_kernels_phase's); APE-L's ADE20k training (batch 2, 900 queries; its
 # encoder's window case is training's, its attention attn_kernels_phase's);
 # the R50 family's training (batch 2, 300 queries, on the protocol pyramid,
-# which R50's res3-res5 and two extras make at 1024^2; no attention). The
-# kernels line reads the protocol's cases, and the R50 ones as its K1 and
-# K1w rows' ``r50`` records.
+# which R50's res3-res5 and two extras make at 1024^2; no attention); the
+# LSJ-1536 trees' protocol forward (batch 1, 900 queries, S = 49,104; their
+# attention is attn_kernels_phase's). The kernels line reads the protocol's
+# cases, the R50 ones as its K1 and K1w rows' ``r50`` records and the 1536
+# ones as their ``vit`` records.
 FWD_CASES = (("", SHAPES, 1, QUERIES, True),
              ("_full_serve", TRAIN_SHAPES, 1, QUERIES, False),
              ("_train", TRAIN_SHAPES, TRAIN_BATCH, TRAIN_QUERIES, True),
              ("_l_d_train", TRAIN_SHAPES, L_D_TRAIN_BATCH, TRAIN_QUERIES, False),
              ("_l_train", TRAIN_SHAPES, L_TRAIN_BATCH, QUERIES, False),
-             ("_r50_train", SHAPES, TRAIN_BATCH, TRAIN_QUERIES, False))
+             ("_r50_train", SHAPES, TRAIN_BATCH, TRAIN_QUERIES, False),
+             ("_vit_1536", SHAPES_1536, 1, QUERIES, False))
 
 
 def k1_bodies(value, shapes, loc, att, name: str, dname: str) -> dict:
@@ -1470,18 +1522,21 @@ def backward_kernels_phase(dev):
     return results
 
 
-def init_weights(model, seed: int, fan_in: bool = False):
+def init_weights(model, seed: int, fan_in: bool = False, device="cpu"):
     """Seeded weights, then every sampling_offsets bias re-armed with the ring
     init (realistic offsets). Default: N(0, 0.02) for every parameter, the
     bench protocol. fan_in: weight matrices N(0, 1 / fan-in), norm scales 1,
     the fusion's layer scales at their init (1/6, as JAX's build), the rest
     N(0, 0.02), so activations and first-stage scores spread out and the
-    fusion moves the text and the memory as much as a fresh L_D does."""
+    fusion moves the text and the memory as much as a fresh L_D does.
+    ``device``: where the generator draws (the CPU's by default; ViT-E's
+    4.35 B draws on the card, where the CPU and the copy would take most of
+    a phase)."""
     import torch
 
     from ape_tpu_torch.layers.msda_module import MultiScaleDeformableAttention, _offset_bias_init
 
-    g = torch.Generator().manual_seed(seed)
+    g = torch.Generator(device).manual_seed(seed)
     norms = {id(m.weight) for m in model.modules()
              if isinstance(m, (torch.nn.LayerNorm, torch.nn.GroupNorm))}
     with torch.no_grad():
@@ -1494,7 +1549,7 @@ def init_weights(model, seed: int, fan_in: bool = False):
                 continue
             if fan_in and p.dim() >= 2 and not name.endswith("pos_embed"):
                 std = p[0].numel() ** -0.5
-            p.copy_(std * torch.randn(p.shape, generator=g))
+            p.copy_(std * torch.randn(p.shape, generator=g, device=device))
         for m in model.modules():
             if isinstance(m, MultiScaleDeformableAttention):
                 m.sampling_offsets.bias.copy_(torch.from_numpy(
@@ -1897,6 +1952,9 @@ def train_f32_phase(dev, mask_on: bool = False):
                 if name.startswith("transformer.encoder.") and name.endswith("sampling_offsets.weight"):
                     p.zero_()
     cpu_model = copy.deepcopy(model).cpu()
+    # without recompute on the CPU: the same gradients, one forward fewer
+    cpu_model.transformer.encoder.use_act_checkpoint = False
+    cpu_model.transformer.decoder.use_act_checkpoint = False
     crit = _criterion(TRAIN_QUERIES, mask_on)
     batch = _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5, masks=mask_on)
     gpu_batch = _to(batch, dev)
@@ -1960,18 +2018,19 @@ class StubLanguage:
                          for t in text_list]).astype(np.float32)
 
 
-def _check_mask_outputs(res, h, w):
+def _check_mask_outputs(res, h, w, side: int = MASK_SIDE):
     """A masked model's request: finite instance mask logits, one per kept
     instance, and finite sem_seg maps over the padded vocabulary, both at the
-    mask-feature resolution of the 1024^2 canvas. Returns sem_seg's shape."""
+    mask-feature resolution ``side`` of the canvas (256 at 1024^2). Returns
+    sem_seg's shape."""
     import torch
 
     masks, n = res["instances"]["mask_logits"], int(res["instances"]["scores"].numel())
-    if tuple(masks.shape) != (n, MASK_SIDE, MASK_SIDE) or not bool(torch.isfinite(masks).all()):
+    if tuple(masks.shape) != (n, side, side) or not bool(torch.isfinite(masks).all()):
         fail(f"request {h}x{w}: mask_logits {tuple(masks.shape)} for {n} instances, or not finite")
     sem = res["sem_seg"]
     if (sem.dim() != 3 or sem.shape[0] < len(res["text_list"])
-            or tuple(sem.shape[1:]) != (MASK_SIDE, MASK_SIDE) or not bool(torch.isfinite(sem).all())):
+            or tuple(sem.shape[1:]) != (side, side) or not bool(torch.isfinite(sem).all())):
         fail(f"request {h}x{w}: sem_seg {tuple(sem.shape)} for {len(res['text_list'])} texts, "
              f"or not finite")
     return list(sem.shape)
@@ -1983,11 +2042,12 @@ SERVE_REQUESTS = (((480, 640), "person, car, dog, umbrella"),
 
 
 def serve_phase(model, phase: str = "serve", language=None, per_forward=FORWARD_LAUNCHES,
-                requests=SERVE_REQUESTS):
-    """Non-square requests (size, prompt) through DefaultPredictor: finite
-    boxes inside the image, classes inside the prompt, and for a masked model
-    the mask outputs; the launches of the requests, ``per_forward`` each.
-    ``language``: the text tower (default: seeded features a text)."""
+                requests=SERVE_REQUESTS, image_size: int = IMG):
+    """Non-square requests (size, prompt) through DefaultPredictor on an
+    ``image_size`` canvas: finite boxes inside the image, classes inside the
+    prompt, and for a masked model the mask outputs; the launches of the
+    requests, ``per_forward`` each. ``language``: the text tower (default:
+    seeded features a text)."""
     import numpy as np
     import torch
 
@@ -1995,7 +2055,7 @@ def serve_phase(model, phase: str = "serve", language=None, per_forward=FORWARD_
     from ape_tpu_torch.ops import _build
 
     ape = APE(model, language or StubLanguage())
-    predictor = DefaultPredictor(ape, image_size=IMG)
+    predictor = DefaultPredictor(ape, image_size=image_size)
     rng = np.random.RandomState(SEED + 2)
     _build.reset_launches()
     for (h, w), prompt in requests:
@@ -2011,10 +2071,13 @@ def serve_phase(model, phase: str = "serve", language=None, per_forward=FORWARD_
             fail(f"request {h}x{w}: boxes not finite or outside the image")
         if n and int(inst["classes"].max()) >= len(res["text_list"]):
             fail(f"request {h}x{w}: class index outside the prompt")
-        masks = {"sem_seg_shape": _check_mask_outputs(res, h, w)} if model.mask_on else {}
-        log(phase=phase, image=[h, w], prompt=prompt, prompt_type=res["prompt_type"],
+        masks = ({"sem_seg_shape": _check_mask_outputs(res, h, w, image_size // 4)}
+                 if model.mask_on else {})
+        texts = len(res["text_list"])
+        log(phase=phase, image=[h, w], prompt=prompt if len(prompt) <= 200 else f"{texts} names",
+            texts=texts, prompt_type=res["prompt_type"],
             fusion_mode=ape.fusion_mode(res["prompt_type"]), instances=n, **masks,
-            seconds=seconds)
+            seconds=seconds, peak_memory_gib_so_far=torch.cuda.max_memory_allocated() / 2**30)
     launches = dict(_build.LAUNCHES)
     want = dict(dict.fromkeys(launches, 0),
                 **{k: v * len(requests) for k, v in per_forward.items()})
@@ -2103,14 +2166,15 @@ L_D_REQUESTS = (((480, 640), "person, car, dog, umbrella"),
                 ((600, 800), "a red umbrella, a dog on the grass"))
 
 
-def attn_kernels_phase(dev, shape, tag: str):
+def attn_kernels_phase(dev, shape, tag: str, backward: bool = True):
     """K5 at a model's global blocks' shape (L_D's (1, 16, 4096, 64), APE-L
-    training's (2, 16, 4096, 64)), in f32 (TF32 off) and bf16 against the
-    plain version within the attention bounds (bf16: with ``attn_faults``),
-    timed beside the plain version and ``F.scaled_dot_product_attention``;
-    then its backward, K5-dkv and K5-dq, at that shape against autograd of
-    the plain version within ``GRAD_BOUNDS``, timed beside the plain
-    backward and SDPA's (``attention_bwd``). Records under the phases
+    training's (2, 16, 4096, 64), the ViT trees' (1, 12, 4096, 64) and (1,
+    16, 9216, 64)), in f32 (TF32 off) and bf16 against the plain version
+    within the attention bounds (bf16: with ``attn_faults``), timed beside
+    the plain version and ``F.scaled_dot_product_attention``; then, with
+    ``backward``, K5-dkv and K5-dq at that shape against autograd of the
+    plain version within ``GRAD_BOUNDS``, timed beside the plain backward
+    and SDPA's (``attention_bwd``). Records under the phases
     ``{tag}_kernel`` and ``{tag}_kernel_bwd``; returns them by (name,
     dtype)."""
     import torch
@@ -2143,8 +2207,9 @@ def attn_kernels_phase(dev, shape, tag: str):
         if not err <= rec["bound"]:
             fail(f"K5 at {shape} {dname}: max |kernel - plain| {err} > {rec['bound']}")
         results[("attention", dname)] = rec
-        attention_bwd(functools.partial(record_bwd, results, f"{tag}_kernel_bwd"), q, k, v,
-                      go32.to(dev, dtype), scale, dname)
+        if backward:
+            attention_bwd(functools.partial(record_bwd, results, f"{tag}_kernel_bwd"), q, k, v,
+                          go32.to(dev, dtype), scale, dname)
         del q, k, v, want
         torch.cuda.empty_cache()
     return results
@@ -2219,12 +2284,12 @@ def l_d_serve_phase(dev, card, tower):
 
 
 def cut_f32_check(dev, model, phase: str, want_launches: dict, bf16_gap: bool = False,
-                  **fields):
+                  bound: float = MEMORY_BOUND, **fields):
     """A model at full width with its depth cut, on the CPU in f32 with
     fan-in weights, at L_D_F32_IMG with L_D_TEXT texts: the plain versions
     there, then the CUDA kernels on the card (TF32 off), exactly
     ``want_launches``: the card's encoder memory and the text the heads
-    aligned to within MEMORY_BOUND of the CPU's. The first stage: whether
+    aligned to within ``bound`` of the CPU's. The first stage: whether
     the selected proposals are the CPU's, in order and as a set, and
     whether the select run on the CPU from the card's scores and boxes gives
     the card's indices (its order among near-equal priorities follows f32
@@ -2283,13 +2348,13 @@ def cut_f32_check(dev, model, phase: str, want_launches: dict, bf16_gap: bool = 
                     for t, o in ((g, order_gpu), (c, order_cpu)))
             stage[f"{key}_aligned_max_abs_err"] = float((g - c).abs().max())
     log(phase=phase, image=L_D_F32_IMG, texts=L_D_TEXT, launches_per_forward=launches,
-        **{f"{k}_max_abs_err": v for k, v in errs.items()}, bound=MEMORY_BOUND,
+        **{f"{k}_max_abs_err": v for k, v in errs.items()}, bound=bound,
         memory_max_abs=float(cpu["memory"].abs().max()),
         text_max_abs=float(cpu["text_features"].abs().max()), first_stage=stage,
         cpu_seconds=cpu_s, **extra, **fields)
     for k in ("memory", "text_features"):
-        if not errs[k] <= MEMORY_BOUND:
-            fail(f"{phase}: {k} differs from the CPU's by {errs[k]} > {MEMORY_BOUND}")
+        if not errs[k] <= bound:
+            fail(f"{phase}: {k} differs from the CPU's by {errs[k]} > {bound}")
     del model
     torch.cuda.empty_cache()
     return cpu, gpu, stage
@@ -2666,13 +2731,19 @@ def host_eval_checks(res, h: int, w: int, thing_ids) -> dict:
                 sem_resize_argmax_ms=(t3 - t2) * 1e3)
 
 
+# The evaluated ADE20k requests: a landscape and a portrait one, so that the
+# host's evaluation crops the padding on either axis (the resizes and merge
+# take about 10 s a request with random weights, PERF.md §5).
+AMBIGUOUS_REQUESTS = ((480, 640), (800, 600))
+
+
 def ambiguous_serve_phase(dev, card, tower):
     """``build_ape_l_d(proposal_ambiguous=1)`` (masked, 4-scale) in bf16 with
     fan-in weights (so that mask logits saturate and segments form) behind
     ``APE(instance_on, semantic_on, panoptic_on)`` and DefaultPredictor, the
     L_D tower encoding the 150 ADE names of a dataset whose first 100 are
-    things: three non-square requests with L_D's launches each, each
-    request's host evaluation (``host_eval_checks``); then one forward with
+    things: AMBIGUOUS_REQUESTS non-square requests with L_D's launches each,
+    each request's host evaluation (``host_eval_checks``); then one forward with
     a mask prompt over the upper-left quarter of the canvas: the same
     launches, every host sync the NMS fixpoint's test, and of the selected
     proposals outside the prompt at most one a level (they compete in the
@@ -2700,7 +2771,7 @@ def ambiguous_serve_phase(dev, card, tower):
     predictor = DefaultPredictor(ape, image_size=IMG)
     rng = np.random.RandomState(SEED + 2)
     _build.reset_launches()
-    for h, w in ((480, 640), (800, 600), (600, 800)):
+    for h, w in AMBIGUOUS_REQUESTS:
         image = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
         t0 = time.perf_counter()
         res = predictor(image)
@@ -2715,7 +2786,8 @@ def ambiguous_serve_phase(dev, card, tower):
         log(phase="ambiguous_serve", image=[h, w], instances=n, seconds=seconds,
             **host_eval_checks(res, h, w, thing_ids))
     launches = dict(_build.LAUNCHES)
-    want = dict(dict.fromkeys(launches, 0), **{k: 3 * v for k, v in L_D_FORWARD_LAUNCHES.items()})
+    want = dict(dict.fromkeys(launches, 0),
+                **{k: len(AMBIGUOUS_REQUESTS) * v for k, v in L_D_FORWARD_LAUNCHES.items()})
     if launches != want:
         fail(f"ambiguous_serve launches {launches}, expected {want}")
 
@@ -3175,6 +3247,231 @@ def r50_train_f32_phase(dev):
     return total_launches
 
 
+# The other ViT trees (modeling/build.py's VIT_TREES), full width and depth,
+# on the reference latency protocol: (tree, build_ape_vit keywords, image
+# side, texts, K5 launches a forward, whether the weights are drawn on the
+# card, timed forwards). ViTDet-L (relative positions in every block: its 4
+# global blocks on the plain product) as APE; ViTDet-B clip_openai's DETA
+# (no relative positions: K5 at 12 heads of 64 over 4096 tokens, 4 blocks);
+# EVA-01-CLIP-g at 1536 (head width 88: its 10 global blocks on the plain
+# product over 9216 tokens); ViT-E with the fusion (relative positions, head
+# width 112: 16 global blocks on the plain product; 4.35 B parameters, drawn
+# on the card); EVA-02-CLIP-L at 1536 with the fusion (K5 at 16 heads over
+# 9216 tokens, 8 blocks). Each forward's MSDA launches are Ti's.
+VIT_SLICE = (("vitl", {}, 1024, L_D_TEXT, 0, False, 5),
+             ("vitb_clip_openai", {"num_learned_classes": NUM_TEXT}, 1024, NUM_TEXT, 4, False, 10),
+             ("vitg_eva01_clip_1536", {}, 1536, L_D_TEXT, 0, False, 3),
+             ("vite_eva02_clip_1024", {"vl_fusion": True}, 1024, L_D_TEXT, 0, True, 3),
+             ("vitl_eva02_clip_1536", {"vl_fusion": True}, 1536, L_D_TEXT, 8, False, 3))
+VIT_ATTN_SHAPES = {"vitb_clip_openai": (1, 12, 4096, 64), "vitl_eva02_clip_1536": (1, 16, 9216, 64)}
+# The 1536 serve: EVA-02-CLIP-L at LSJ 1536 with the fusion, masked, behind
+# DefaultPredictor(image_size=1536) with the L_D tower: a name prompt over
+# the LVIS vocabulary's 1203 names (the *_lsj1536 recipes' LVIS evaluation:
+# names fuse one zero token, name_prompt_fusion_type "zero"), then a phrase
+# on a portrait image.
+VIT_1536 = 1536
+VIT_1536_REQUESTS = (((1080, 1440), ", ".join(f"lvis_{i}" for i in range(L_D_TEXT))),
+                     ((1400, 1050), "a person riding a bike"))
+# The f32 checks: (tree, depth) cut to 2 + 2 layers at 512^2 (cut_f32_check):
+# ViTDet-B's first 3 blocks (2 windows of 14 over the 32^2 grid, padded to
+# 42^2, then a global block with relative positions; GELU, no RoPE), ViT-E's
+# first 4 (post-norm, relative positions, one global block) and EVA-01-CLIP-g's
+# first 4 (its global block at head width 88 on the plain product).
+VIT_F32 = (("vitb", 3), ("vite_eva02_clip_1024", 4), ("vitg_eva01_clip_1024", 4))
+# Their encoder memory's bound: the three read 1.29e-5, 5.08e-5 and 1.50e-5
+# on an H100 (the same in three runs; ViT-E's post-norm blocks the widest).
+VIT_F32_BOUND = 2e-4
+# ViTDet-L APE-DETA training as
+# configs/COCO_InstanceSegmentation/ape_deta/ape_deta_vitl_lsj1024_cp_12ep.py
+# runs it: 1024^2, masked, 900 queries, no recompute (the encoder's 6 MSDA
+# forwards on K1 under autograd, the decoder's 6), no drop path, 80 classes
+# in 96 text slots, AdamW lr 2e-4, wd 0.05, layer decay 0.8 over 24 blocks,
+# clip 0.1. Its global blocks are rel-pos: no attention kernel a step.
+VITL_TRAIN_BATCH, VITL_CLASSES, VITL_TEXT_SLOTS = 2, 80, 96
+VITL_STEP_LAUNCHES = {"msda_fwd": 12, "msda_bwd": 12}
+VITL_F32_DEPTH = 6  # blocks 0-4 windowed (padded), block 5 global
+
+
+def vit_slice_phase(dev, card):
+    """Each VIT_SLICE tree's ``build_ape_vit`` at the reference latency
+    protocol (bf16, 900 queries, mask_on=False, scales (2, 1, 0.5), N(0,
+    0.02) weights with the ring-init offsets re-armed) at its own image
+    size: exact launches, host syncs the NMS tests, finite logits, images/s,
+    peak memory, parameter count; each model freed before the next. Returns
+    the launches of the measured forwards."""
+    import torch
+
+    from ape_tpu_torch.modeling.build import VIT_TREES, build_ape_vit
+
+    runs = []
+    for tree, kw, img, texts, attn, on_card, iters in VIT_SLICE:
+        t0 = time.perf_counter()
+        model = build_ape_vit(tree, mask_on=False, scale_factors=(2.0, 1.0, 0.5),
+                              dtype=torch.bfloat16, device=dev, **kw)
+        model = init_weights(model, SEED, device=dev if on_card else "cpu").eval()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        inputs = tuple(t.to(dev) for t in _inputs(texts, img))
+        want = dict(FORWARD_LAUNCHES, attn_fwd=attn)
+        rec = checked_forward(model, inputs, want, texts, f"{tree} protocol forward", iters=iters)
+        net = model.backbone.net
+        log(phase="vit_slice", tree=tree, config=VIT_TREES[tree]["config"], dtype="bfloat16",
+            image=img, texts=texts, **kw, **rec,
+            global_blocks=sum(b.window_size == 0 for b in net.blocks),
+            k5_blocks=sum(b.attn.flash for b in net.blocks),
+            params=sum(p.numel() for p in model.parameters()),
+            backbone_params=sum(p.numel() for p in net.parameters()), build_seconds=build_s,
+            weights_drawn_on="card" if on_card else "cpu", card=card)
+        runs.append(rec["launches_per_forward"])
+        del model, inputs
+        torch.cuda.empty_cache()
+    return {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
+
+
+def vit_1536_serve_phase(dev, card, tower):
+    """``build_ape_vit("vitl_eva02_clip_1536", vl_fusion=True)`` masked on
+    the 4-scale pyramid (S = 196,416 at 1536^2) in bf16 behind APE and
+    ``DefaultPredictor(image_size=1536)``, prompts encoded by the L_D
+    ``tower``: VIT_1536_REQUESTS, finite boxes, mask logits and sem_seg at
+    384^2, exact launches, peak memory. Returns the launches."""
+    import torch
+
+    from ape_tpu_torch.modeling.build import build_ape_vit
+
+    model = build_ape_vit("vitl_eva02_clip_1536", vl_fusion=True, dtype=torch.bfloat16,
+                          device=dev)
+    model = init_weights(model, SEED).eval()
+    torch.cuda.reset_peak_memory_stats()
+    launches = serve_phase(model, "vit_1536_serve", tower, L_D_FORWARD_LAUNCHES,
+                           VIT_1536_REQUESTS, image_size=VIT_1536)
+    log(phase="vit_1536_serve_done", image_size=VIT_1536,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30, card=card)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vit_f32_phase(dev):
+    """Each VIT_F32 tree at full width with its depth cut, 2 + 2 layers, at
+    512^2 in f32 (``cut_f32_check``): exact launches (no attention kernel:
+    each global block is rel-pos or 88 wide), the card's encoder memory
+    within VIT_F32_BOUND of the CPU's."""
+    from ape_tpu_torch.modeling.build import build_ape_vit
+
+    for tree, depth in VIT_F32:
+        model = build_ape_vit(tree, mask_on=False, scale_factors=(2.0, 1.0, 0.5), depth=depth,
+                              num_layers=L_D_F32_LAYERS, img_size=L_D_F32_IMG, device="cpu")
+        if [b.attn.flash for b in model.backbone.net.blocks] != [False] * depth:
+            fail(f"vit_f32 {tree}: a block routed to K5")
+        want = {"msda_fwd": L_D_F32_LAYERS, "msda_fwd_window": L_D_F32_LAYERS}
+        cut_f32_check(dev, model, "vit_f32_vs_plain", want, bound=VIT_F32_BOUND, tree=tree,
+                      depth=depth, layers=L_D_F32_LAYERS)
+
+
+def _vitl_criterion():
+    """ViTDet-L's COCO recipe's criterion: losses class, boxes and masks over
+    VITL_CLASSES classes, 900 queries."""
+    from ape_tpu_torch.modeling.ape_deta.criterion import DeformableCriterion, default_weight_dict
+
+    return DeformableCriterion(num_classes=VITL_CLASSES, weight_dict=default_weight_dict(),
+                               num_queries=QUERIES, losses=("class", "boxes", "masks"))
+
+
+def vitl_train_phase(dev, card):
+    """ViTDet-L APE-DETA trained as its COCO recipe: 1024^2, batch
+    VITL_TRAIN_BATCH, bf16 over f32 parameters, masked, 900 queries, no
+    recompute, 80 classes in 96 text slots, 8 target slots with 4 valid and
+    masks, ``build_optimizer(vit_num_layers=24)`` (lr 2e-4, wd 0.05, decay
+    0.8; ``make_train_step`` clips at 0.1) with the recipe's warmup and
+    milestones, name prompts, its generator on the CPU: a warm-up step, three
+    timed steps launching exactly VITL_STEP_LAUNCHES each, then one step's
+    host syncs. Returns the launches of the timed steps."""
+    import torch
+
+    from ape_tpu_torch.engine.optimizer import build_optimizer
+    from ape_tpu_torch.engine.train_step import make_train_step
+    from ape_tpu_torch.modeling.build import build_ape_vit
+
+    model = init_weights(build_ape_vit("vitl", dtype=torch.bfloat16, device=dev), SEED)
+    optimizer, scheduler = build_optimizer(model, vit_num_layers=24, milestones=L_MILESTONES,
+                                           warmup_steps=2000)
+    step = make_train_step(model, _vitl_criterion(), optimizer, scheduler)
+    batch = _train_batch(dev, VITL_TRAIN_BATCH, TRAIN_IMG, SEED + 4, masks=True,
+                         num_text=VITL_TEXT_SLOTS, classes=VITL_CLASSES)
+    gen = torch.Generator().manual_seed(SEED)
+    rec = _train_steps(model, step, batch, dev, VITL_STEP_LAUNCHES, gen=gen)
+    launches = rec.pop("launches")
+    syncs, _ = _host_syncs(step, batch, gen)
+    log(phase="vitl_train", dtype="bfloat16", image=TRAIN_IMG, batch=VITL_TRAIN_BATCH,
+        queries=QUERIES, classes=VITL_CLASSES, text_slots=VITL_TEXT_SLOTS,
+        params=sum(p.numel() for p in model.parameters()), host_syncs_per_step=syncs, **rec,
+        card=card)
+    del model, step, optimizer, scheduler, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vitl_train_f32_phase(dev):
+    """One f32 step (TF32 off) of ViTDet-L APE-DETA cut to VITL_F32_DEPTH
+    blocks and 2 + 2 layers at 512^2 on the protocol pyramid, fan-in
+    weights, 80 texts, name prompts: the card's step with the CUDA kernels
+    against the plain versions' on the CPU, exact launches, identical
+    first-stage indices, every gradient (the relative-position tables'
+    among them) within F32_GRAD_RTOL (sampling offsets
+    F32_OFFSET_GRAD_RTOL). Returns the card step's launches."""
+    import torch
+
+    from ape_tpu_torch.modeling.ape_deta.criterion import DeformableCriterion, default_weight_dict
+    from ape_tpu_torch.modeling.build import build_ape_vit
+    from ape_tpu_torch.ops import _build
+
+    model = build_ape_vit("vitl", mask_on=False, scale_factors=(2.0, 1.0, 0.5),
+                          depth=VITL_F32_DEPTH, num_layers=L_D_F32_LAYERS, img_size=F32_TRAIN_IMG,
+                          device="cpu")
+    model = init_weights(model, SEED, fan_in=True).train()
+    cpu_model = copy.deepcopy(model)
+    model = model.to(dev)
+    crit = DeformableCriterion(num_classes=NUM_TEXT, weight_dict=default_weight_dict(),
+                               num_queries=QUERIES, losses=("class", "boxes"))
+    batch = _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5)
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    gpu_total, gpu_sel, gpu_grads = step_grads(model, crit, _to(batch, dev), SEED)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    want = {"msda_fwd": 2 * L_D_F32_LAYERS, "msda_bwd": 2 * L_D_F32_LAYERS}
+    if launches != want:
+        fail(f"ViTDet-L f32 train step: launches {launches}, expected {want}")
+    gpu_s = time.perf_counter() - t0
+    cpu_total, cpu_sel, cpu_grads = step_grads(cpu_model, crit, batch, SEED)
+    names = set(n for n, _ in model.named_parameters())
+    if set(gpu_grads) != names or set(cpu_grads) != names:
+        fail(f"ViTDet-L f32 train step: parameters without a gradient "
+             f"{sorted(names - set(gpu_grads))} (card), {sorted(names - set(cpu_grads))} (CPU)")
+    rel = grad_rel_errors(gpu_grads, cpu_grads)
+    over = sorted(((n, r, f32_grad_bound(n)) for n, r in rel.items() if not r <= f32_grad_bound(n)),
+                  key=lambda t: -t[1] / t[2])
+    same_sel = bool(torch.equal(gpu_sel, cpu_sel))
+    rel_pos = {n: r for n, r in rel.items() if "rel_pos" in n}
+    log(phase="vitl_train_f32_vs_plain", image=F32_TRAIN_IMG, depth=VITL_F32_DEPTH,
+        layers=L_D_F32_LAYERS, launches=launches, total_loss_cuda=gpu_total,
+        total_loss_cpu=cpu_total, first_stage_indices_identical=same_sel, params=len(rel),
+        worst_grad_rel_err=sorted(((n, r) for n, r in rel.items() if "sampling_offsets" not in n),
+                                  key=lambda kv: -kv[1])[:3], bound=F32_GRAD_RTOL,
+        worst_offset_grad_rel_err=sorted(((n, r) for n, r in rel.items()
+                                          if "sampling_offsets" in n), key=lambda kv: -kv[1])[:3],
+        offset_bound=F32_OFFSET_GRAD_RTOL, rel_pos_tables=len(rel_pos),
+        worst_rel_pos_grad_rel_err=max(rel_pos.values()), gpu_seconds=gpu_s,
+        cpu_seconds=time.perf_counter() - t0 - gpu_s)
+    if not same_sel:
+        fail("ViTDet-L f32 train step: first-stage indices differ between the card and the CPU")
+    if over:
+        fail(f"ViTDet-L f32 train step: {len(over)} gradients over their bound, worst (name, rel, "
+             f"bound) {over[:3]}")
+    del model, cpu_model, gpu_grads, cpu_grads
+    torch.cuda.empty_cache()
+    return launches
+
+
 def race_phase(dev, card):
     """``ape_tpu_torch.tools.msda_race`` as a path of its own: every
     window-MSDA form at both pyramids and offset draws, then the per-pair
@@ -3235,11 +3532,17 @@ def main():
     sys.path.insert(0, str(ROOT))
     kind, card = device_phase()
     dev = torch.device("cuda", 0)
-    build_phase()
+    disassembly = build_phase()
     kern = kernels_phase(dev)
     kern.update(backward_kernels_phase(dev))
     l_d_attn = attn_kernels_phase(dev, L_D_ATTN_SHAPE, "l_d")
     l_attn = attn_kernels_phase(dev, L_ATTN_SHAPE, "l")
+    # K5 at the ViT trees' global blocks: ViTDet-B clip_openai's 12 heads and
+    # the 1536 EVA-02-CLIP-L's 9216 tokens (forward only: no tree of this
+    # slice trains K5)
+    vit_attn = {tree: attn_kernels_phase(dev, shape, f"vit_{tree}", backward=False)
+                for tree, shape in VIT_ATTN_SHAPES.items()}
+    sass_phase(disassembly)
     # launches over every run: each phase sets the counts to 0 just before
     # its run and reads them just after. The serving and training phases are
     # the main paths: those with the default flags (FUSED and V6 off, the
@@ -3280,12 +3583,17 @@ def main():
     t1 = time.perf_counter()
     default_runs.append(ambiguous_serve_phase(dev, card, tower))
     ade_serve_s = time.perf_counter() - t1
+    # the LSJ-1536 requests to EVA-02-CLIP-L with the fusion, on the same tower
+    t1 = time.perf_counter()
+    default_runs.append(vit_1536_serve_phase(dev, card, tower))
+    vit_serve_s = time.perf_counter() - t1
     del tower
     torch.cuda.empty_cache()
     l_d_f32_phase(dev)
     default_runs.append(l_d_train_phase(dev, card))
     default_runs.append(l_d_train_f32_phase(dev))
-    log(phase="l_d_done", seconds=time.perf_counter() - t0 - r50_serve_s - ade_serve_s)
+    log(phase="l_d_done",
+        seconds=time.perf_counter() - t0 - r50_serve_s - ade_serve_s - vit_serve_s)
     t0 = time.perf_counter() - ade_serve_s
     ambiguous_f32_phase(dev)
     default_runs.append(l_slice_phase(dev, card))
@@ -3300,6 +3608,12 @@ def main():
     default_runs.append(r50_train_phase(dev, card, detr=True))
     default_runs.append(r50_train_f32_phase(dev))
     log(phase="r50_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter() - vit_serve_s
+    default_runs.append(vit_slice_phase(dev, card))
+    vit_f32_phase(dev)
+    default_runs.append(vitl_train_phase(dev, card))
+    default_runs.append(vitl_train_f32_phase(dev))
+    log(phase="vit_done", seconds=time.perf_counter() - t0)
     main_runs = default_runs + flag_runs
     runs = list(main_runs)
     runs.append(race_phase(dev, card))
@@ -3359,6 +3673,16 @@ def main():
             row["l"] = {"case": l_case, **{k: rec[k] for k in fields},
                         **{k: rec[k] for k in ("value", "queries") if k in rec},
                         **({"shape": rec["shape"]} if "shape" in rec else {})}
+        if l_d_case == "attention":  # K5 at the ViT trees' global blocks, bf16
+            row["vit"] = {tree: {k: recs[("attention", "bfloat16")][k] for k in ("shape",) + fields}
+                          for tree, recs in vit_attn.items()}
+        vit_case = {"msda_fwd": "msda_decoder_vit_1536",
+                    "msda_fwd_window": "msda_window_vit_1536"}.get(name)
+        if vit_case:  # K1 and K1w at the LSJ-1536 protocol pyramid (S = 49,104), bf16
+            rec = kern[(vit_case, "bfloat16")]
+            row["vit"] = {"case": vit_case, **{k: rec[k] for k in fields},
+                          **{k: rec[k] for k in ("value", "queries") if k in rec},
+                          **({"shape": rec["shape"]} if "shape" in rec else {})}
         r50_case = {"msda_fwd": "msda_decoder_r50_train", "msda_fwd_window": "msda_window_r50_train",
                     "msda_bwd": "msda_bwd_encoder_r50_train"}.get(name)
         if r50_case:  # K1, K1w and K2 at the R50 family's training shapes, bf16

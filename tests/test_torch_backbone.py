@@ -1,5 +1,6 @@
 """The port's ViT backbone against ape_tpu's on the CPU, in f32 (atol 1e-4):
-vit_utils, EVAViT with windowed (padded) and global blocks, and the
+vit_utils, EVAViT with windowed (padded) and global blocks, under each of
+EVA-01's and ViT-E's flags too, and the
 SimpleFeaturePyramid at the protocol scales and at the full four scales
 (the latter runs the ConvTranspose kernel flip twice)."""
 
@@ -60,12 +61,22 @@ def test_eva_vit_windowed_and_global_blocks(rng):
 
 
 @pytest.mark.parametrize("flag", [dict(use_rel_pos=True), dict(postnorm=True),
-                                  dict(mlp_type="gelu")])
-def test_eva_vit_refuses_other_flags(flag):
-    """EVA-01's relative positions and GELU MLP and ViT-E's post-norm are
-    not ported (EVA-02-CLIP's subln flags are: tests/test_torch_l_d.py)."""
-    with pytest.raises(NotImplementedError):
-        eva_vit.EVAViT(**flag, **VIT)
+                                  dict(mlp_type="gelu")], ids=["rel_pos", "postnorm", "gelu"])
+def test_eva_vit_takes_other_flags(rng, flag):
+    """EVA-01's relative positions (here under RoPE: the terms read the
+    rotated, unscaled q) and GELU MLP and ViT-E's post-norm, each alone on
+    the windowed and global blocks, match JAX's (the rest:
+    tests/test_torch_vit_trees.py)."""
+    x = rng.randn(1, 96, 96, 3).astype(np.float32)
+    jm = j_vit.EVAViT(packed_swiglu=True, **flag, **VIT)
+    flat, params = init_params(jm, jnp.asarray(x))
+    assert all(np.abs(v).min() > 0 for k, v in flat.items() if "rel_pos" in k)
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    pm = load_port(eva_vit.EVAViT(img_size=96, **flag, **VIT), flat, "backbone/net/",
+                   "backbone.net.")
+    with torch.no_grad():
+        got = pm(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
 
 
 @pytest.mark.parametrize("scales", [PROTOCOL_SCALES, (4.0, 2.0, 1.0, 0.5)])

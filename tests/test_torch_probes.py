@@ -425,6 +425,26 @@ def test_parse_sass_counts_tensor_core_ops():
     assert list(_build.parse_sass(SASS, "msda_fwd_kernel").values()) == [_ops(LDG=1, LDG_32=1)]
 
 
+@pytest.mark.parametrize("pattern", ["attn_fwd_kernel", "msda_fwd_kernel", "_kernel", "absent"])
+def test_sass_counts_filters_one_parse_of_the_listing(monkeypatch, tmp_path, pattern):
+    """sass_counts parses the listing once and filters it by name: the same
+    counts as parse_sass with the pattern, and a caller's edit of a result
+    reaches neither the cache nor a later call."""
+    lib = tmp_path / "lib.so"
+    monkeypatch.setattr(_build, "build", lambda: lib)
+    monkeypatch.setattr(_build, "_sass", lambda path: SASS if path == lib else "")
+    _build._sass_functions.cache_clear()
+    try:
+        got = _build.sass_counts(pattern)
+        assert got == _build.parse_sass(SASS, pattern)
+        for ops in got.values():
+            ops["LDG"] = -1
+        assert _build.sass_counts(pattern) == _build.parse_sass(SASS, pattern)
+        assert _build._sass_functions.cache_info().misses == 1
+    finally:
+        _build._sass_functions.cache_clear()
+
+
 # A cuobjdump -sass excerpt of the merged MSDA backward (H100, sm_90a): the
 # D = 32 body's vector reductions (atomicAdd on float4) and the other body's
 # scalar ones.

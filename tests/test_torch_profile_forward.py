@@ -102,3 +102,26 @@ def test_l_cells_build_ape_l(monkeypatch):
     assert all(t == chip_smoke.L_D_TEXT and not m.training for m, t in got.values())
     assert all(m.backbone.net.window_size == 16 and m.dtype == torch.bfloat16
                for m, _ in got.values())
+
+
+def test_vit_cells_build_the_vit_slice_trees(monkeypatch):
+    """The ViT cells build chip_smoke's vit_slice trees (cut to 1 block and
+    1 + 1 layers on the CPU) at the protocol, each with its texts, class
+    bank, fusion and image side, in eval mode."""
+    import chip_smoke
+    from ape_tpu_torch.modeling import build as port_build
+
+    monkeypatch.setattr(profile_forward, "build_ape_vit", lambda tree, **k: port_build.build_ape_vit(
+        tree, **dict(k, depth=1, num_layers=1, device="cpu")))
+    monkeypatch.setattr(chip_smoke, "init_weights", lambda m, *a, **k: m)
+    cells = {f"vit-{t[0]}": t for t in chip_smoke.VIT_SLICE}
+    assert set(cells) <= set(profile_forward.MODELS) and len(cells) == 5
+    for name, (tree, kw, img, texts, _, _, _) in cells.items():
+        model, got_texts = profile_forward.build(name, "cpu")
+        assert got_texts == texts and not model.training and not model.mask_on, name
+        assert model.num_learned_classes == kw.get("num_learned_classes", 0), name
+        assert (model.transformer.encoder.vl_layers is not None) == kw.get("vl_fusion", False)
+        assert model.dtype == torch.bfloat16 and profile_forward.VIT_CELLS[name][2] == img
+        tables = [p.shape[0] for n, p in model.named_parameters() if n.endswith("rel_pos_h")]
+        assert all(t in (2 * (img // 16) - 1, 2 * model.backbone.net.window_size - 1)
+                   for t in tables), name

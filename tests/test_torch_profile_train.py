@@ -91,3 +91,24 @@ def test_l_setup_is_the_ade20k_recipe(monkeypatch):
     assert batch["text_valid"].sum(1).tolist() == [cs.L_CLASSES] * cs.L_TRAIN_BATCH
     assert int(batch["targets"]["labels"].max()) < cs.L_CLASSES
     assert gen.device.type == "cpu" and len(opt.param_groups) > 2
+
+
+def test_vitl_setup_is_the_coco_recipe(monkeypatch):
+    """``--model vitl``: build_ape_vit("vitl") (cut to 1 block and 1 + 1
+    layers on the CPU), masked, 900 queries, the recipe's criterion (80
+    classes, masks), batch 2 at 1024^2 with 80 valid texts of 96, the ViT-L
+    layer decay, a CPU generator."""
+    import chip_smoke as cs
+    from ape_tpu_torch.modeling import build as port_build
+
+    monkeypatch.setattr(profile_train, "build_ape_vit", lambda tree, **k: port_build.build_ape_vit(
+        tree, **dict(k, depth=1, num_layers=1, device="cpu")))
+    model, crit, opt, sched, batch, gen = profile_train.setup("vitl", False, None, "cpu")
+    assert model.mask_on and model.transformer.two_stage_num_proposals == 900
+    assert model.backbone.net.blocks[0].attn.use_rel_pos and not model.backbone.net.rope
+    assert crit.num_classes == cs.VITL_CLASSES and "masks" in crit.losses
+    assert crit.num_queries == cs.QUERIES
+    assert batch["images"].shape == (cs.VITL_TRAIN_BATCH, cs.TRAIN_IMG, cs.TRAIN_IMG, 3)
+    assert batch["text_valid"].sum(1).tolist() == [cs.VITL_CLASSES] * cs.VITL_TRAIN_BATCH
+    assert batch["text_valid"].shape[1] == cs.VITL_TEXT_SLOTS
+    assert gen.device.type == "cpu" and len(opt.param_groups) > 2

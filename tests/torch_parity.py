@@ -136,6 +136,13 @@ L_D_FUSION = dict(vl_fusion=True, vl_embed_dim=64, vl_num_heads=2, vl_init_value
 L_VIT = dict(subln=True, inner_attn_ln=False, swiglu_subln=True, packed_swiglu=False, depth=6,
              window_size=4, window_block_indexes=(0, 1, 2, 3, 4), pretrain_img_size=224)
 
+# The tiny ViTDet-L (the inline tree of
+# configs/COCO_InstanceSegmentation/ape_deta/ape_deta_vitl_lsj1024_cp_12ep.py):
+# no RoPE, decomposed relative positions, GELU MLP; three blocks with the
+# last global, windows of 3 tokens (the 16^2 grid padded to 18^2).
+VITDET_VIT = dict(rope=False, use_rel_pos=True, mlp_type="gelu", packed_swiglu=False, depth=3,
+                  window_size=3, window_block_indexes=(0, 1), pretrain_img_size=224)
+
 
 def jax_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, vit=None, fusion=None,
              proposal_ambiguous=0, **apedeta_kw):
@@ -194,8 +201,8 @@ def torch_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, vit=None,
     vit = {"depth": d["vit_depth"], "window_size": d["win"], "window_block_indexes": (0,),
            "pretrain_img_size": 224, **(vit or {})}
     backbone = SimpleFeaturePyramid(
-        EVAViT(patch_size=16, embed_dim=d["vit_embed"], num_heads=d["vit_heads"],
-               mlp_ratio=4 * 2 / 3, pt_hw_seq_len=16, **vit),
+        EVAViT(img_size=d["img"], patch_size=16, embed_dim=d["vit_embed"],
+               num_heads=d["vit_heads"], mlp_ratio=4 * 2 / 3, pt_hw_seq_len=16, **vit),
         out_channels=d["embed"], scale_factors=scale_factors)
     transformer = DeformableDetrTransformer(
         DeformableTransformerEncoder(d["embed"], d["heads"], d["ffn"], d["layers"], 5,
@@ -252,6 +259,17 @@ def torch_tiny_l(d=DIMS, vl_fusion=False, **kw):
     """The port's tiny APE-L, or its _vlf_ twin."""
     return torch_tiny(d, 4, MASKED_SCALES, vit=L_VIT, fusion=L_D_FUSION if vl_fusion else None,
                       mask_on=True, **kw)
+
+
+def jax_tiny_vitdet(d=DIMS, **kw):
+    """ape_tpu APEDeta as a tiny ViTDet-L APE-DETA, masked on the 4-scale
+    pyramid."""
+    return jax_tiny(d, 4, MASKED_SCALES, vit=VITDET_VIT, mask_on=True, **kw)
+
+
+def torch_tiny_vitdet(d=DIMS, **kw):
+    """The port's tiny ViTDet-L APE-DETA."""
+    return torch_tiny(d, 4, MASKED_SCALES, vit=VITDET_VIT, mask_on=True, **kw)
 
 
 def tiny_inputs(d=DIMS, seed=3, h=None, w=None):
