@@ -21,6 +21,13 @@ class loss with ``data.datasets.metadata.fed_loss_cls_weights``, through
 non-CLIP EVA-02-L (``build_ape_l``), the ambiguous first-stage heads
 (``proposal_ambiguous``) and mask prompts, and the host side of semantic and
 panoptic evaluation (``evaluation``: NumPy only, no PIL).
+
+It is driven as APE is, by ``python -m ape_tpu_torch.tools.train_net
+--config-file <config>``: the repository's config files read without JAX
+(``config``), the model and criterion built from them (``model_zoo``), a
+COCO-format dataset read from PNG without PIL (``data``), the trainer,
+checkpoints and the COCO and LVIS evaluators (``engine``, ``checkpoint``,
+``evaluation``).
 """
 
 __version__ = "0.1.0"

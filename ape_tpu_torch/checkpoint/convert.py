@@ -30,15 +30,22 @@ single-stage trees, which keep JAX's names here: ``class_embedding``,
 
 ``language_state_dict_from_jax`` is likewise the inverse of
 ``convert_language_state_dict`` for the EVA-CLIP text tower.
+
+``load_checkpoint_tolerant`` loads a checkpoint of reference names (the
+released ``.pth`` files, or the port's own) into a port model, as JAX's
+``load_params_tolerant`` loads one into its param tree.
 """
 
 from __future__ import annotations
 
+import logging
 import re
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+logger = logging.getLogger("ape_tpu_torch")
 
 
 def _linear(w):
@@ -254,3 +261,102 @@ def language_state_dict_from_jax(flat_params: Mapping[str, np.ndarray]) -> Dict[
         raise KeyError(f"language_state_dict_from_jax: no rule for {len(unplaced)} keys: "
                        f"{unplaced[:10]}")
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# Loading a reference-named checkpoint into the port (counterpart of JAX's
+# load_params_tolerant, checkpoint/convert.py:513-562)
+# ---------------------------------------------------------------------------
+
+def interpolate_patch_embed(kernel_hwio: np.ndarray, new_hw) -> np.ndarray:
+    """Bicubic-resize a (kh, kw, in, out) patch kernel (JAX's
+    ``interpolate_patch_embed``, the same f64 products)."""
+    from ape_tpu_torch.modeling.backbone.vit_utils import bicubic_resize_matrix
+
+    mh = bicubic_resize_matrix(kernel_hwio.shape[0], new_hw[0]).astype(np.float64)
+    mw = bicubic_resize_matrix(kernel_hwio.shape[1], new_hw[1]).astype(np.float64)
+    out = np.einsum("Hh,hwio->Hwio", mh, kernel_hwio.astype(np.float64))
+    out = np.einsum("Ww,Hwio->HWio", mw, out)
+    return out.astype(kernel_hwio.dtype)
+
+
+def interpolate_pos_embed_np(pos: np.ndarray, new_len: int, num_extra: int = 1) -> np.ndarray:
+    """Bicubic-resize a (1, N + extra, C) absolute position table to (1,
+    new_len, C) (JAX's ``interpolate_pos_embed_np``)."""
+    from ape_tpu_torch.modeling.backbone.vit_utils import bicubic_resize_matrix
+
+    squeeze = pos.ndim == 2
+    if squeeze:
+        pos = pos[None]
+    extra, grid = pos[:, :num_extra], pos[:, num_extra:]
+    size, new_size = int(round(grid.shape[1] ** 0.5)), int(round((new_len - num_extra) ** 0.5))
+    if size * size != grid.shape[1] or new_size * new_size != new_len - num_extra:
+        raise ValueError(f"position table of {grid.shape[1]} rows to {new_len - num_extra}: "
+                         "not square grids")
+    g = grid.reshape(size, size, -1).astype(np.float64)
+    m = bicubic_resize_matrix(size, new_size).astype(np.float64)
+    g = np.einsum("Hh,hwc->Hwc", m, g)
+    g = np.einsum("Ww,Hwc->HWc", m, g)
+    out = np.concatenate([extra.astype(np.float64), g.reshape(1, new_size * new_size, -1)], 1)
+    out = out.astype(pos.dtype)
+    return out[0] if squeeze else out
+
+
+def adapt_shapes(src: Dict[str, np.ndarray], dst_shapes: Mapping[str, tuple]) -> Dict[str, np.ndarray]:
+    """JAX's ``adapt_shapes`` on reference names: a patch embedding whose
+    kernel size differs is resized bicubically (in JAX's (kh, kw, in, out)
+    layout, then back), a position table of another grid likewise."""
+    out = dict(src)
+    for k, v in src.items():
+        if k not in dst_shapes or tuple(v.shape) == tuple(dst_shapes[k]):
+            continue
+        dst = tuple(dst_shapes[k])
+        if k.endswith("patch_embed.proj.weight") and v.ndim == 4 and v.shape[:2] == dst[:2]:
+            hwio = np.transpose(v, (2, 3, 1, 0))
+            out[k] = np.ascontiguousarray(np.transpose(interpolate_patch_embed(hwio, dst[2:]),
+                                                       (3, 2, 0, 1)))
+            logger.info(f"adapt: {k} {v.shape} -> {dst} (bicubic patch kernel)")
+        elif "pos_embed" in k and v.ndim == len(dst) and v.shape[-1] == dst[-1]:
+            out[k] = interpolate_pos_embed_np(v, dst[-2])
+            logger.info(f"adapt: {k} {v.shape} -> {dst} (bicubic pos embed)")
+    return out
+
+
+def read_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """The reference-named arrays of a torch ``.pth``/``.pt``/``.pkl``
+    checkpoint (its ``["model"]`` or the bare dict), as NumPy."""
+    if not path.endswith((".pth", ".pt", ".pkl")):
+        raise ValueError(f"unsupported checkpoint: {path}")
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if "model" in sd:
+        sd = sd["model"]
+    return {k.removeprefix("model.").removeprefix("model_vision."):
+            (v.detach().float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+            for k, v in sd.items() if hasattr(v, "shape")}
+
+
+def load_checkpoint_tolerant(path: str, model: torch.nn.Module) -> Dict[str, list]:
+    """Load a reference-named checkpoint into ``model`` in place, as JAX's
+    ``load_params_tolerant`` loads one into a param tree: shapes adapted
+    (``adapt_shapes``), a key the file lacks keeps the model's value, a
+    shape that still differs is skipped; both are logged. Returns
+    {"loaded", "missing", "skipped"}."""
+    own = model.state_dict()
+    src = adapt_shapes(read_state_dict(path), {k: tuple(v.shape) for k, v in own.items()})
+    loaded, skipped, new = [], [], {}
+    for k, v in src.items():
+        if k not in own:
+            continue
+        if tuple(own[k].shape) == tuple(v.shape):
+            new[k] = torch.from_numpy(np.ascontiguousarray(v)).to(own[k].dtype)
+            loaded.append(k)
+        else:
+            skipped.append((k, tuple(v.shape), tuple(own[k].shape)))
+    missing = sorted(set(own) - set(new))
+    model.load_state_dict(new, strict=False)
+    logger.info(f"loaded {len(loaded)}/{len(own)} tensors from {path}")
+    if missing:
+        logger.warning(f"kept the model's value for {len(missing)} keys: {missing[:10]}")
+    if skipped:
+        logger.warning(f"shape-skipped: {skipped[:10]}")
+    return {"loaded": loaded, "missing": missing, "skipped": skipped}

@@ -1,7 +1,8 @@
 """Dataset metadata the port reads (counterpart of
 ``ape_tpu/data/datasets/metadata.py``): LVIS v1's per-category image counts
 (``assets/lvis_v1_coco_category_image_count.json``, a copy of the JAX
-package's asset) and the federated loss's class weights from them.
+package's asset) and the federated loss's class weights from them, and
+SegInW's category tables, which the SegInW data configs read at load time.
 """
 
 from __future__ import annotations
@@ -30,3 +31,16 @@ def fed_loss_cls_weights(dataset: str, freq_weight_power: float = 0.5) -> List[f
         raise ValueError(f"{dataset!r}: the port keeps the category image counts of LVIS only")
     counts = lvis_category_image_counts()
     return [counts[i] ** freq_weight_power for i in sorted(counts)]
+
+
+@functools.lru_cache(maxsize=None)
+def _seginw() -> dict:
+    with open(_ASSETS / "seginw_categories.json") as f:
+        return json.load(f)
+
+
+def seginw_categories() -> Dict[str, List[dict]]:
+    """SegInW's category tables by dataset (``assets/seginw_categories.json``,
+    a copy of the JAX package's asset), as the SegInW data configs read them
+    at load time."""
+    return _seginw()["SEGINW_CATEGORIES"]

@@ -28,19 +28,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ape_tpu_torch.data.catalog import MetadataCatalog, get_text_list
 from ape_tpu_torch.modeling.ape_deta.postprocess import (
     instance_inference,
     panoptic_scores,
     semantic_inference,
 )
-
-
-def get_text_list(metadata) -> List[str]:
-    """Name-prompt vocabulary: thing classes, then the stuff classes that are
-    not things (ape_tpu.data.catalog.get_text_list)."""
-    thing = list(metadata.get("thing_classes", []) or [])
-    stuff = list(metadata.get("stuff_classes", []) or [])
-    return thing + [c for c in stuff if c not in thing and c != "things"]
 
 
 class APE:
@@ -49,6 +42,7 @@ class APE:
         model,  # APEDeta
         model_language,
         dataset_metadata: Sequence = (),
+        dataset_names: Sequence[str] = (),
         dataset_prompts: Optional[Sequence[str]] = None,
         max_text: int = 128,
         test_score_thresh: float = 0.05,
@@ -63,7 +57,8 @@ class APE:
     ):
         self.model = model
         self.model_language = model_language
-        self.metadata_list = list(dataset_metadata)
+        self.metadata_list = (list(dataset_metadata)
+                              + [MetadataCatalog.get(n) for n in dataset_names])
         self.dataset_prompts = list(dataset_prompts or ["name"] * len(self.metadata_list))
         self.max_text = max_text
         self.test_score_thresh = test_score_thresh

@@ -1,4 +1,5 @@
-"""DefaultPredictor (counterpart of ``ape_tpu/engine/defaults.py``): single-image
+"""DefaultPredictor and the argument parser (counterpart of
+``ape_tpu/engine/defaults.py``). DefaultPredictor: single-image
 inference against an ``APE`` wrapper. The test-time resize and pad run in torch
 on the model's device: the shortest edge goes to ``image_size`` with the
 longest capped at ``image_size``, bilinear as PIL resizes, then the image is
@@ -10,6 +11,7 @@ model only through ``APEDeta.forward(mask_prompt=...)``).
 
 from __future__ import annotations
 
+import argparse
 from typing import Dict, Optional
 
 import numpy as np
@@ -69,3 +71,21 @@ class DefaultPredictor:
         if mask_prompt is not None:
             inp["mask_prompt"] = mask_prompt
         return self.model([inp])[0]
+
+
+def default_argument_parser():
+    """The command line of ``tools/train_net.py`` (JAX's parser, detectron2's
+    flags): ``--config-file``, ``--resume``, ``--eval-only``, ``--num-gpus``
+    (one card and one process until DDP is ported), the multi-machine flags,
+    and ``key=value`` config overrides."""
+    parser = argparse.ArgumentParser(description="APE on PyTorch: training and evaluation")
+    parser.add_argument("--config-file", default="", metavar="FILE")
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--eval-only", action="store_true")
+    parser.add_argument("--num-gpus", type=int, default=1)
+    parser.add_argument("--num-machines", type=int, default=1)
+    parser.add_argument("--machine-rank", type=int, default=0)
+    parser.add_argument("--dist-url", default="auto")
+    parser.add_argument("opts", help="dotted-path config overrides, e.g. train.max_iter=100",
+                        default=None, nargs=argparse.REMAINDER)
+    return parser

@@ -58,13 +58,19 @@ def make_train_step(
     iter_size: int = 1,
     ema_decay: float = 0.0,
     prompt: str = "name",
+    ema: Optional[list] = None,
 ) -> Callable:
     """Returns step(batch, generator=None) -> metrics (tensors, on the device).
 
     With ema_decay > 0, ``step.ema`` holds the exponential moving average of
-    the parameters, updated after every step."""
+    the trainable parameters, updated after every step: ``ema`` (one tensor
+    a trainable parameter, in order) when given, so that the step functions
+    of one run share it, else a copy of the parameters."""
     params = [p for p in model.parameters() if p.requires_grad]
-    ema = [p.detach().clone() for p in params] if ema_decay > 0 else None
+    if ema_decay > 0 and ema is None:
+        ema = [p.detach().clone() for p in params]
+    elif ema_decay <= 0:
+        ema = None
 
     def step(batch: Dict, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         model.train()

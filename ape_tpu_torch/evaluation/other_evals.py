@@ -1,6 +1,5 @@
 """Semantic / panoptic / grounding evaluators (a copy of
-``ape_tpu/evaluation/other_evals.py``, with ``box_iou_xyxy`` of
-``ape_tpu/evaluation/coco_eval.py``, which the port may not import):
+``ape_tpu/evaluation/other_evals.py``; the box IoU is ``coco_eval``'s):
   * SemSegEvaluator (detectron2, used by reference configs): per-class IoU
     confusion matrix -> mIoU, fwIoU, pACC.
   * RefCOCOEvaluator (ape/evaluation/refcoco_evaluation.py:31-753): precision at
@@ -16,19 +15,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-
-def box_iou_xyxy(a: np.ndarray, b: np.ndarray, iscrowd: Optional[np.ndarray] = None):
-    """(N,4) x (M,4) -> (N,M); crowd GTs use IoF (intersection over detection)."""
-    area_a = np.clip(a[:, 2] - a[:, 0], 0, None) * np.clip(a[:, 3] - a[:, 1], 0, None)
-    area_b = np.clip(b[:, 2] - b[:, 0], 0, None) * np.clip(b[:, 3] - b[:, 1], 0, None)
-    lt = np.maximum(a[:, None, :2], b[None, :, :2])
-    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
-    wh = np.clip(rb - lt, 0, None)
-    inter = wh[..., 0] * wh[..., 1]
-    union = area_a[:, None] + area_b[None, :] - inter
-    if iscrowd is not None:
-        union = np.where(iscrowd[None, :], area_a[:, None], union)
-    return inter / np.maximum(union, 1e-9)
+from ape_tpu_torch.evaluation.coco_eval import box_iou_xyxy
 
 
 class SemSegEvaluator:

@@ -310,11 +310,13 @@ class DeformableTransformerDecoder(nn.Module):
 
     def __init__(self, embed_dim=256, num_heads=8, feedforward_dim=2048, num_layers=6,
                  num_feature_levels=5, num_points=4, use_act_checkpoint=False,
-                 with_box_refine=True, enc_bbox_head=True, proposal_ambiguous=0):
+                 with_box_refine=True, enc_bbox_head=True, proposal_ambiguous=0,
+                 look_forward_twice=False):
         super().__init__()
         self.num_layers = num_layers
         self.use_act_checkpoint = use_act_checkpoint
         self.with_box_refine = with_box_refine
+        self.look_forward_twice = look_forward_twice
         self.layers = nn.ModuleList(
             DecoderLayer(embed_dim, num_heads, feedforward_dim, num_feature_levels, num_points)
             for _ in range(num_layers)
@@ -346,10 +348,13 @@ class DeformableTransformerDecoder(nn.Module):
         4). A layer's box refines its reference: all four coordinates of a
         box; of a point, x and y, with w and h from the head alone. Under
         ``with_box_refine`` the next layer's reference is that box, with the
-        gradient stopped there (``look_forward_twice=False``, as
-        ``ape_tpu``'s builds); else every layer keeps the initial one."""
+        gradient stopped there; else every layer keeps the initial one. With
+        ``look_forward_twice`` (JAX's default, which the model configs turn
+        off) a layer's output box refines the previous layer's box before
+        the stop, so its gradient reaches both heads; the values are the
+        same."""
         x = query
-        refs = reference_points
+        refs = prev_live = reference_points
         states, coords = [], []
         for layer, head in zip(self.layers, self.bbox_embed):
             vr = valid_ratios if refs.shape[-1] == 2 else torch.cat([valid_ratios, valid_ratios], -1)
@@ -362,7 +367,11 @@ class DeformableTransformerDecoder(nn.Module):
                 new_refs = torch.sigmoid(torch.cat([delta[..., :2] + inverse_sigmoid(refs),
                                                     delta[..., 2:]], -1))
             states.append(x)
-            coords.append(new_refs)
+            if self.look_forward_twice and prev_live.shape[-1] == 4:
+                coords.append(torch.sigmoid(delta + inverse_sigmoid(prev_live)))
+            else:
+                coords.append(new_refs)
+            prev_live = new_refs
             if self.with_box_refine:
                 refs = new_refs.detach()
         return torch.stack(states), torch.stack(coords)
@@ -373,16 +382,21 @@ class DeformableDetrTransformer(nn.Module):
     two-stage (``as_two_stage``), from the encoder's proposals by DETA's
     select (``assign_first_stage``) or a plain top-k of their scores; or
     single-stage, from learned ``query_embed`` (K, 2C) and 2-d
-    ``reference_points`` (the Deformable-DETR R50 recipes)."""
+    ``reference_points`` (the Deformable-DETR R50 recipes). DETA's select
+    keeps ``pre_nms_topk`` candidates a level and suppresses them at IoU
+    ``nms_thresh_enc``."""
 
     def __init__(self, encoder: DeformableTransformerEncoder, decoder: DeformableTransformerDecoder,
                  embed_dim: int = 256, num_feature_levels: int = 5,
                  two_stage_num_proposals: int = 900, as_two_stage: bool = True,
-                 assign_first_stage: bool = True):
+                 assign_first_stage: bool = True, pre_nms_topk: int = 1000,
+                 nms_thresh_enc: float = 0.9):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
         self.two_stage_num_proposals = two_stage_num_proposals
+        self.pre_nms_topk = pre_nms_topk
+        self.nms_thresh_enc = nms_thresh_enc
         self.as_two_stage = as_two_stage
         self.assign_first_stage = assign_first_stage
         c = embed_dim
@@ -472,7 +486,8 @@ class DeformableDetrTransformer(nn.Module):
         with torch.no_grad():
             if self.assign_first_stage:
                 sel = deta_first_stage_select(enc_logits, enc_coords_unact, spatial_shapes,
-                                              self.two_stage_num_proposals)
+                                              self.two_stage_num_proposals, self.pre_nms_topk,
+                                              self.nms_thresh_enc)
             else:  # a plain top-k of the scores: no NMS, no host sync
                 sel = topk(enc_logits, self.two_stage_num_proposals)[1]
         topk_coords_unact = enc_coords_unact.gather(1, sel[..., None].expand(-1, -1, 4)).detach()

@@ -377,7 +377,7 @@ class _ChannelLN(LayerNorm):
 
 class SimpleFeaturePyramid(nn.Module):
     """ViTDet SimpleFeaturePyramid: scale the stride-16 map to p{stage} maps,
-    plus the LastLevelMaxPool p6. Returns {"p3": (B, H, W, C), ...} channels-last.
+    plus the LastLevelMaxPool p6 (unless ``top_block`` is False). Returns {"p3": (B, H, W, C), ...} channels-last.
 
     ``simfp_{stage}`` Sequential indices follow the reference: scale 4.0 is
     (deconv, LN, GELU, deconv, conv1x1, conv3x3), 2.0 is (deconv, conv1x1,
@@ -385,9 +385,10 @@ class SimpleFeaturePyramid(nn.Module):
     """
 
     def __init__(self, net: EVAViT, out_channels: int = 256,
-                 scale_factors: Sequence[float] = (4.0, 2.0, 1.0, 0.5)):
+                 scale_factors: Sequence[float] = (4.0, 2.0, 1.0, 0.5), top_block: bool = True):
         super().__init__()
         self.net = net
+        self.top_block = top_block
         self.out_channels = out_channels
         self.scale_factors = tuple(scale_factors)
         dim = net.embed_dim
@@ -415,5 +416,6 @@ class SimpleFeaturePyramid(nn.Module):
         results = {}
         for stage in self.stages:
             results[f"p{stage}"] = getattr(self, f"simfp_{stage}")(feat).permute(0, 2, 3, 1)
-        results["p6"] = results[f"p{self.stages[-1]}"][:, ::2, ::2]
+        if self.top_block:
+            results["p6"] = results[f"p{self.stages[-1]}"][:, ::2, ::2]
         return results

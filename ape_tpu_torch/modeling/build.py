@@ -203,6 +203,7 @@ def build_transformer(num_queries: int = 900, num_layers: int = 6, vl_fusion: bo
 
 
 def build_ape_ti(
+    img_size: int = 1024,
     num_queries: int = 900,
     embed_dim_language: int = 1024,
     mask_on: bool = True,
@@ -213,6 +214,8 @@ def build_ape_ti(
     mask_encode_level: int = 0,
     aux_mask: bool = False,
     proposal_ambiguous: int = 0,
+    num_layers: int = 6,
+    num_learned_classes: int = 0,
     device=None,
 ) -> APEDeta:
     """APE-Ti for any square input size (shapes follow the input). The
@@ -222,20 +225,24 @@ def build_ape_ti(
     ``scale_factors=(2.0, 1.0, 0.5)``: the neck then extends the pyramid to 5
     levels with one stride-2 extra conv. use_act_checkpoint recomputes every
     encoder and decoder layer in the backward (training at 1024^2).
+    num_layers cuts the encoder and the decoder for checks. img_size sizes
+    the backbone's position tables; num_learned_classes > 0 selects the
+    closed-vocabulary head (a learned class bank in place of the text).
 
     The model lies on ``device``: by default the CUDA card, and with no card
     it raises rather than fall back to the CPU; pass ``device="cpu"`` to
     build it there."""
     device = default_device("build_ape_ti", device)
     sfp_names, levels = pyramid_features(scale_factors)
-    backbone = build_backbone_vit("vitt_eva02", scale_factors)
-    transformer = build_transformer(num_queries, 6, False, embed_dim_language, window_radius,
-                                    use_act_checkpoint, proposal_ambiguous=proposal_ambiguous)
+    backbone = build_backbone_vit("vitt_eva02", scale_factors, img_size=img_size)
+    transformer = build_transformer(num_queries, num_layers, False, embed_dim_language,
+                                    window_radius, use_act_checkpoint,
+                                    proposal_ambiguous=proposal_ambiguous)
     return APEDeta(
         backbone, ChannelMapper(sfp_names, 256, 256, num_outs=5), transformer,
         embed_dim=256, embed_dim_language=embed_dim_language, in_features=levels,
         mask_on=mask_on, mask_in_feature=levels[0], mask_encode_level=mask_encode_level,
-        aux_mask=aux_mask, dtype=dtype).to(device)
+        aux_mask=aux_mask, num_learned_classes=num_learned_classes, dtype=dtype).to(device)
 
 
 def build_ape_l_d(

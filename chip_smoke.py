@@ -7,7 +7,8 @@ language), the ADE20k panoptic path (APE-L_D with the ambiguous first
 stage, the host merge and evaluators; APE-L on the non-CLIP EVA-02-L,
 serving and training), the ResNet-50 family's (APE-DETA R50 with and
 without fusion, DETA R50, Deformable-DETR R50), then the other ViT trees'
-(ViTDet, EVA-01, ViT-E and the LSJ-1536 trees serving; ViTDet-L training).
+(ViTDet, EVA-01, ViT-E and the LSJ-1536 trees serving; ViTDet-L training),
+then ``train_net`` on APE-Ti's COCO recipe (train, resume, evaluate).
 
     python3 chip_smoke.py
 
@@ -106,7 +107,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     backward (K2), then as many with the split one (K3 + K4,
     ``msda_dispatch.BWD_MERGED = False``); exact launches of each form;
 12. full train f32: phase 9 for the masked model on the default pyramid,
-    then the same step once more with the split backward, held against the
+    its encoder and decoder cut to F32_MASKED_LAYERS (3 + 3) layers, then
+    the same step once more with the split backward, held against the
     merged one;
 13. L_D: the port's text tower (``EVA02CLIP``, random weights, the
     HashTokenizer) on the card, timed on 1203 prompts; ``l_d_slice``:
@@ -231,7 +233,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     relative-position tables' among them) within F32_GRAD_RTOL
     (F32_OFFSET_GRAD_RTOL for sampling offsets), first-stage indices
     identical;
-17. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
+17. train_net: ``python -m ape_tpu_torch.tools.train_net`` on APE-Ti's COCO
+    recipe (TN_CONFIG, read by the port's ``LazyConfig``; 1024^2 LSJ, 900
+    queries, masks, the 4-scale pyramid, bf16) through
+    ``train_net.main`` on a synthetic COCO layout of PNG files under
+    ``$DETECTRON2_DATASETS`` (8 train and 4 val images, 80 categories,
+    polygons and a crowd RLE): TN_STEPS steps at batch 2 from seeded
+    weights, then ``--resume`` (the first run's state, its checkpoint and
+    the state a resume loads equal bit for bit, the schedule's lr) to
+    TN_RESUME_STEPS, then ``--eval-only`` (bbox and segm): exact
+    launches a step and an image, finite losses and metrics, two
+    checkpoints kept, COCOEvaluator's AP 100 on the ground truth itself;
+    s/step, data wait, the mapper's seconds an image, host syncs, peak
+    memory, checkpoint seconds, eval images/s by stage;
+18. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
     form at both pyramids and both offset draws, its per-pair suites, and
     the ``pair`` and ``rows`` ops by device time under each body, each query
     level's launches apart, and K8's D = 32 body by its parts (device time
@@ -239,7 +254,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     then ``ape_tpu_torch.tools.msda_bwd_race``, the backward forms (K2, K3 +
     K4, autograd of the plain version) at the same pyramids and draws, each
     within its bound of the plain version or of K2;
-18. probes: ``ape_tpu_torch.tools.pair_probe`` (K10, every variant on the
+19. probes: ``ape_tpu_torch.tools.pair_probe`` (K10, every variant on the
     four pairs, bf16 and f32 value, each within 1e-5 of its plain version,
     bf16fma within 6.4e-2 of base, base against K1 bit for bit, K1's time
     on each pair beside) and
@@ -251,10 +266,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 Then the kernels line (each kernel's launches over every path: ``launches``
 over all of them, ``launches_main`` over the serving and training phases
-alone, 5-16, ``launches_default`` over those of them that run the default
+alone, 5-17, ``launches_default`` over those of them that run the default
 flags: slice, serve, train, full serve, full train with the merged backward,
 L_D's slice, serve, train and f32 train, the ADE20k and APE-L phases but the
-f32 ones, R50's and the ViT trees'; error, time, plain and library
+f32 ones, R50's, the ViT trees' and train_net's; error, time, plain and library
 time, and bound; for K1, K3, K4, K6, K7, K8 and K9, whose D = 32 body runs
 there, the general body's time as ``general_ms``; for K6 and K7 also the
 op's device time, ``device_ms``; for K5, K5-dkv and K5-dq their bf16
@@ -305,6 +320,10 @@ STEP_LAUNCHES = {"msda_fwd": 24, "msda_bwd": 12, "attn_fwd": 4, "attn_bwd_dkv": 
 # With the split form the encoder's 6 MSDA backwards run K3 + K4 and the
 # decoder's 6 stay on K2. The mask head launches no MSDA or attention kernel.
 SPLIT_STEP_LAUNCHES = dict(STEP_LAUNCHES, msda_bwd=6, msda_bwd_offatt=6, msda_bwd_value=6)
+# The masked f32 step's encoder and decoder layers: 3 + 3, which keeps the
+# smoke inside its ~450 s budget with the train_net phase (the step's CPU
+# half at 6 + 6 took most of its 54 s)
+F32_MASKED_LAYERS = 3
 # APE-L_D training as the LVIS recipe runs it (tools/bench_train.py with
 # BENCH_MODEL=l_d, at batch 1): build_ape_l_d's defaults (masked, 4-scale,
 # recompute, drop path 0.4 by depth) with 300 queries and 1203 texts, the
@@ -1938,8 +1957,9 @@ def train_f32_phase(dev, mask_on: bool = False):
     from ape_tpu_torch.ops import _build, msda_dispatch
 
     pyramid = {} if mask_on else {"scale_factors": (2.0, 1.0, 0.5)}
+    layers = F32_MASKED_LAYERS if mask_on else 6
     model = build_ape_ti(num_queries=TRAIN_QUERIES, window_radius=RADIUS, mask_on=mask_on,
-                         use_act_checkpoint=True, **pyramid)
+                         use_act_checkpoint=True, num_layers=layers, **pyramid)
     model = init_weights(model, SEED, fan_in=True).train()
     if mask_on:
         # The encoder's sampling_offsets weights at 0, as the reference
@@ -1969,8 +1989,10 @@ def train_f32_phase(dev, mask_on: bool = False):
         finally:
             msda_dispatch.BWD_MERGED = True
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-        if launches != SPLIT_STEP_LAUNCHES or not torch.equal(split_sel, gpu_sel):
-            fail(f"f32 split step: launches {launches}, expected {SPLIT_STEP_LAUNCHES}; "
+        want = dict(SPLIT_STEP_LAUNCHES, msda_fwd=4 * layers, msda_bwd=layers,
+                    msda_bwd_offatt=layers, msda_bwd_value=layers)
+        if launches != want or not torch.equal(split_sel, gpu_sel):
+            fail(f"f32 split step: launches {launches}, expected {want}; "
                  f"first-stage indices as the merged step's: {torch.equal(split_sel, gpu_sel)}")
         split = grad_rel_errors(split_grads, gpu_grads)
         del split_grads
@@ -1991,7 +2013,7 @@ def train_f32_phase(dev, mask_on: bool = False):
         rec = dict(split_worst_grad_rel_err=sorted(split.items(), key=lambda kv: -kv[1])[:3],
                    split_bound=F32_SPLIT_RTOL)
     log(phase="full_train_f32_vs_plain" if mask_on else "train_f32_vs_plain", image=F32_TRAIN_IMG,
-        total_loss_cuda=gpu_total,
+        layers=layers, total_loss_cuda=gpu_total,
         total_loss_cpu=cpu_total, first_stage_indices_identical=same_sel, params=len(rel),
         worst_grad_rel_err=worst(rel, False), bound=F32_GRAD_RTOL,
         worst_offset_grad_rel_err=worst(rel, True), offset_bound=F32_OFFSET_GRAD_RTOL,
@@ -3472,6 +3494,314 @@ def vitl_train_f32_phase(dev):
     return launches
 
 
+# --- train_net: the config-driven entry point on APE-Ti's COCO recipe ---
+TN_CONFIG = "configs/COCO_InstanceSegmentation/ape_deta/ape_deta_vitt_eva02_lsj1024_12ep.py"
+TN_SIZES = ((480, 640), (640, 480), (640, 427))  # (h, w): landscape and portrait
+TN_TRAIN, TN_VAL, TN_CATEGORIES = 8, 4, 80
+TN_STEPS, TN_RESUME_STEPS, TN_PERIOD = 6, 8, 3
+# a train step of the recipe (no recompute, masked, 900 queries, 4 global
+# blocks of 3 heads): the encoder's and decoder's 6 + 6 K1 and their K2, K5
+# and its two backward kernels once a global block
+TN_STEP_LAUNCHES = {"msda_fwd": 12, "msda_bwd": 12, "attn_fwd": 4, "attn_bwd_dkv": 4,
+                    "attn_bwd_dq": 4}
+
+
+def _tn_polygon(rng, h: int, w: int):
+    """A convex-ish polygon of 5-9 vertices inside an (h, w) image, flat."""
+    import numpy as np
+
+    cx, cy = rng.uniform(0.15, 0.85) * w, rng.uniform(0.15, 0.85) * h
+    r = rng.uniform(0.04, 0.2) * min(h, w)
+    ang = np.sort(rng.uniform(0, 2 * np.pi, rng.randint(5, 10)))
+    xs = np.clip(cx + r * rng.uniform(0.6, 1.0, ang.size) * np.cos(ang), 0, w - 1)
+    ys = np.clip(cy + r * rng.uniform(0.6, 1.0, ang.size) * np.sin(ang), 0, h - 1)
+    return [float(v) for xy in zip(xs, ys) for v in xy]
+
+
+def write_coco_layout(root: Path, seed: int = SEED):
+    """A synthetic COCO layout under ``root`` as ``configs/common/data/coco.py``
+    reads it: ``coco/annotations/instances_{train,val}2017.json`` and
+    ``coco/{train,val}2017/*.png`` (the port's PNG writer), TN_TRAIN and TN_VAL
+    images of TN_SIZES, TN_CATEGORIES categories, 1-12 objects an image with
+    polygon segmentations drawn into the image, one crowd region as RLE in
+    each split, one train image without annotations."""
+    import numpy as np
+
+    from ape_tpu_torch.data.image_io import write_png
+    from ape_tpu_torch.data.transforms import polygons_to_mask, rle_encode
+
+    rng = np.random.RandomState(seed)
+    cats = [{"id": i + 1, "name": f"category {i}"} for i in range(TN_CATEGORIES)]
+    (root / "coco" / "annotations").mkdir(parents=True, exist_ok=True)
+    for split, n in (("train2017", TN_TRAIN), ("val2017", TN_VAL)):
+        (root / "coco" / split).mkdir(exist_ok=True)
+        images, anns = [], []
+        for i in range(n):
+            h, w = TN_SIZES[i % len(TN_SIZES)]
+            img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8) // 4
+            objects = 0 if (split == "train2017" and i == n - 1) else rng.randint(1, 13)
+            for j in range(objects):
+                poly = _tn_polygon(rng, h, w)
+                mask = polygons_to_mask([poly], h, w)
+                img[mask] = rng.randint(64, 256, 3)
+                ys, xs = np.nonzero(mask)
+                crowd = j == 0 and i == 1
+                seg = rle_encode(mask) if crowd else [poly]
+                if crowd:
+                    seg["counts"] = seg["counts"].decode()
+                x0, y0 = float(xs.min()), float(ys.min())
+                anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                             "category_id": int(rng.randint(1, TN_CATEGORIES + 1)),
+                             "bbox": [x0, y0, float(xs.max()) + 1 - x0, float(ys.max()) + 1 - y0],
+                             "area": float(mask.sum()), "iscrowd": int(crowd),
+                             "segmentation": seg})
+            write_png(str(root / "coco" / split / f"{i:012d}.png"), img)
+            images.append({"id": i + 1, "file_name": f"{i:012d}.png", "height": h, "width": w})
+        with open(root / "coco" / "annotations" / f"instances_{split}.json", "w") as f:
+            json.dump({"images": images, "annotations": anns, "categories": cats}, f)
+
+
+def _tn_metrics(out: Path):
+    with open(out / "metrics.json") as f:
+        return [json.loads(line) for line in f]
+
+
+def _tn_host(obj):
+    """A copy of ``obj`` with its tensors on the host."""
+    import numpy as np
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, np.ndarray):
+        return obj.copy()
+    if isinstance(obj, dict):
+        return {k: _tn_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_tn_host(v) for v in obj)
+    return obj
+
+
+def _tn_state(summary) -> dict:
+    """What a train_net run left, on the host, under its checkpoint's keys:
+    the parameters, the optimizer (AdamW's moments and steps), the
+    scheduler, the step's generator, the loaders' positions and mapper
+    draws, and the text bank."""
+    trainer = summary["trainer"]
+    return _tn_host({"model": summary["model"].state_dict(),
+                     "optimizer": summary["optimizer"].state_dict(),
+                     "scheduler": summary["scheduler"].state_dict(),
+                     "generator": trainer.generator.get_state(),
+                     "loaders": [ld.state_dict() for ld in trainer.loaders],
+                     "text_bank": trainer.text_fn.bank})
+
+
+def _tn_differences(want, got, path: str = "") -> list:
+    """The paths under ``want``'s keys where ``got`` is not bit for bit the
+    same (a dict's keys, a sequence's length, a tensor's or an array's
+    dtype and values, any other value by ``==``)."""
+    import numpy as np
+    import torch
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(want) != set(got):
+            return [path or "/"]
+        return [d for k in want for d in _tn_differences(want[k], got[k], f"{path}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(want) != len(got):
+            return [path]
+        return [d for i, (w, g) in enumerate(zip(want, got))
+                for d in _tn_differences(w, g, f"{path}/{i}")]
+    if isinstance(want, torch.Tensor):
+        same = (isinstance(got, torch.Tensor) and want.dtype == got.dtype
+                and torch.equal(want, got.cpu()))
+    elif isinstance(want, np.ndarray):
+        same = isinstance(got, np.ndarray) and want.dtype == got.dtype and np.array_equal(want, got)
+    else:
+        same = want == got
+    return [] if same else [path]
+
+
+def closed_form_ap(name: str) -> dict:
+    """COCOEvaluator fed the dataset's own non-crowd ground truth as
+    detections (score 1, polygons rasterized at the image's size): AP 100
+    in bbox and segm, as COCO defines it."""
+    import numpy as np
+
+    from ape_tpu_torch.data.catalog import DatasetCatalog
+    from ape_tpu_torch.data.transforms import polygons_to_mask
+    from ape_tpu_torch.evaluation.coco_eval import COCOEvaluator
+
+    dicts = DatasetCatalog.get(name)
+    out = {}
+    for iou_type in ("bbox", "segm"):
+        ev = COCOEvaluator(dicts, iou_type)
+        for d in dicts:
+            anns = [a for a in d["annotations"] if not a["iscrowd"]]
+            ev.process([{"image_id": d["image_id"], "instances": {
+                "boxes": np.asarray([a["bbox"] for a in anns], np.float64).reshape(-1, 4),
+                "scores": np.ones(len(anns)),
+                "classes": np.asarray([a["category_id"] for a in anns]),
+                "masks": [polygons_to_mask(a["segmentation"], d["height"], d["width"])
+                          for a in anns]}}])
+        out.update(ev.evaluate())
+    return out
+
+
+def train_net_phase(dev, card):
+    """``python -m ape_tpu_torch.tools.train_net`` on APE-Ti's COCO recipe
+    (TN_CONFIG: 1024^2 LSJ, 900 queries, masks, the 4-scale pyramid, bf16
+    over f32 parameters) through ``train_net.main``, on a synthetic COCO
+    layout under ``$DETECTRON2_DATASETS`` (``write_coco_layout``), seeded
+    weights (``init_weights``, the ring-init offsets re-armed) handed in as
+    ``train.init_checkpoint``: TN_STEPS steps at batch 2 (the recipe's 16
+    a step spread over many cards), checkpoints every TN_PERIOD; then
+    ``--resume`` to TN_STEPS (a load and no step) and to TN_RESUME_STEPS;
+    then ``--eval-only`` on the 4 val images, bbox and segm. Gates: finite
+    losses, exact launches a step (TN_STEP_LAUNCHES) and an eval image
+    (FORWARD_LAUNCHES), two checkpoints kept; the state the first run left
+    (``_tn_state``: parameters, AdamW's moments, scheduler, generator,
+    loader positions, text bank) equal bit for bit to its
+    ``model_final.pth`` and to the state a resume loads, which starts at
+    TN_STEPS with the uninterrupted schedule's lr; every metric finite or
+    NaN, and the closed-form AP. Returns the launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ape_tpu_torch.config import LazyConfig, instantiate
+    from ape_tpu_torch.data.catalog import DatasetCatalog
+    from ape_tpu_torch.engine.optimizer import lr_lambda
+    from ape_tpu_torch.model_zoo import build_model
+    from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="train_net_"))
+    os.environ["DETECTRON2_DATASETS"] = str(tmp / "datasets")
+    write_coco_layout(tmp / "datasets")
+    cfg_file = str(ROOT / TN_CONFIG)
+    cfg = LazyConfig.load(cfg_file)
+    model = init_weights(build_model(cfg, device="cpu"), SEED)
+    torch.save({"model": model.state_dict()}, tmp / "init.pth")
+    del model
+    out = tmp / "output"
+    common = [f"train.output_dir={out}", "train.log_period=1", "train.eval_period=0",
+              f"train.checkpoint_period={TN_PERIOD}", "train.sync_debug=True",
+              "dataloader.train.batch_size=2"]
+    argv = ["--config-file", cfg_file, *common, f"train.init_checkpoint={tmp / 'init.pth'}"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    summary = train_net.main(argv + [f"train.max_iter={TN_STEPS}"])
+    train_s = time.perf_counter() - t0
+    train_launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    want = {k: TN_STEPS * TN_STEP_LAUNCHES.get(k, 0) for k in _build.LAUNCHES}
+    if train_launches != want:
+        fail(f"train_net: launches over {TN_STEPS} steps {train_launches}, expected {want}")
+    rows = _tn_metrics(out)
+    losses = {k: v for r in rows for k, v in r.items() if "loss" in k}
+    if len(rows) != TN_STEPS or not all(np.isfinite(v) for r in rows for k, v in r.items()
+                                         if "loss" in k):
+        fail(f"train_net: {len(rows)} metric rows, losses {losses}")
+    kept = summary["checkpoints"]
+    if len(kept) != 2 or not all((out / k).exists() for k in kept):
+        fail(f"train_net: checkpoints kept {kept}, expected two")
+    step_s = [r["time"] for r in rows]
+    data_s = [r["data_time"] for r in rows]
+    # the host mapper's own time an image (read, LSJ, masks), one thread
+    mapper = instantiate(cfg.dataloader.train.mapper)
+    records = DatasetCatalog.get("coco_2017_train")
+    t0 = time.perf_counter()
+    for record in records:
+        mapper(record)
+    mapper_s = (time.perf_counter() - t0) / len(records)
+    syncs = [r.get("host_syncs") for r in rows]
+    saves = [s for _, s in summary["checkpoint_seconds"]]
+    # the first run's live state, against its model_final.pth and against
+    # a resume to TN_STEPS (which loads the file and takes no step)
+    live = _tn_state(summary)
+    del summary
+    torch.cuda.empty_cache()
+    saved = torch.load(out / "model_final.pth", map_location="cpu", weights_only=False)
+    checks = {"file_differs": _tn_differences(live, {k: saved.get(k) for k in live}),
+              "moments": len(live["optimizer"]["state"])}
+    _build.reset_launches()
+    summary = train_net.main(["--resume"] + argv + [f"train.max_iter={TN_STEPS}"])
+    loaded = _tn_state(summary)
+    checks["loaded_differs"] = _tn_differences(live, loaded)
+    factor = lr_lambda(cfg.optimizer.milestones, cfg.optimizer.warmup_steps)
+    checks["lr_equal"] = summary["scheduler"].get_last_lr() == [
+        g["initial_lr"] * factor(TN_STEPS) for g in summary["optimizer"].param_groups]
+    if (summary["start_iter"] != TN_STEPS or any(_build.LAUNCHES.values())
+            or checks["file_differs"] or checks["loaded_differs"] or not checks["lr_equal"]):
+        fail(f"train_net --resume: started at {summary['start_iter']} (expected {TN_STEPS}), "
+             f"launches {dict(_build.LAUNCHES)} before a step; the state the first run left, "
+             f"its model_final.pth and the resumed state {checks}")
+    del summary, live, saved, loaded
+    torch.cuda.empty_cache()
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    summary = train_net.main(["--resume"] + argv + [f"train.max_iter={TN_RESUME_STEPS}"])
+    resume_s = time.perf_counter() - t0
+    resume_launches = dict(_build.LAUNCHES)
+    steps = TN_RESUME_STEPS - TN_STEPS
+    want = {k: steps * TN_STEP_LAUNCHES.get(k, 0) for k in _build.LAUNCHES}
+    if summary["start_iter"] != TN_STEPS or resume_launches != want:
+        fail(f"train_net --resume: started at {summary['start_iter']}, launches "
+             f"{resume_launches}, expected {TN_STEPS} and {want}")
+    load_s = summary["load_seconds"]
+    rows = _tn_metrics(out)[TN_STEPS:]
+    if len(rows) != steps or not all(np.isfinite(v) for r in rows for k, v in r.items()
+                                     if "loss" in k):
+        fail(f"train_net --resume: metric rows {rows}")
+    del summary
+    torch.cuda.empty_cache()
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    results = train_net.main(["--eval-only", "--config-file", cfg_file, f"train.output_dir={out}",
+                              f"train.init_checkpoint={out / 'model_final.pth'}"])
+    eval_s = time.perf_counter() - t0
+    eval_launches = dict(_build.LAUNCHES)
+    stage = {k.split("/", 1)[1]: v for k, v in results["coco_2017_val"].items()
+             if k.startswith("seconds/")}
+    n = results["coco_2017_val"]["images"]
+    want = {k: n * FORWARD_LAUNCHES.get(k, 0) for k in _build.LAUNCHES}
+    metrics = {k: v for k, v in results["coco_2017_val"].items()
+               if k.startswith(("bbox/", "segm/"))}
+    if n != TN_VAL or eval_launches != want:
+        fail(f"train_net --eval-only: {n} images, launches {eval_launches}, "
+             f"expected {TN_VAL} and {want}")
+    if sorted(metrics) != sorted(f"{t}/AP{s}" for t in ("bbox", "segm")
+                                 for s in ("", "50", "75", "s", "m", "l")) or not all(
+            np.isfinite(v) or np.isnan(v) for v in metrics.values()):
+        fail(f"train_net --eval-only: metrics {metrics}")
+    closed = closed_form_ap("coco_2017_val")
+    if closed["bbox/AP"] != 100.0 or closed["segm/AP"] != 100.0:
+        fail(f"COCOEvaluator on the ground truth itself: {closed}, expected AP 100")
+    log(phase="train_net", config=TN_CONFIG, batch=2, steps=TN_STEPS, resume_steps=steps,
+        s_per_step=float(np.median(step_s[1:])), seconds_per_step=step_s,
+        data_wait_s=float(np.median(data_s[1:])), data_seconds_per_step=data_s,
+        mapper_s_per_image=mapper_s,
+        host_syncs_per_step=syncs, max_memory_allocated_gib=peak_gib,
+        checkpoint_save_s=saves, checkpoint_load_s=load_s, checkpoints=kept,
+        resume=checks, losses_last=rows[-1], train_s=train_s, resume_s=resume_s,
+        launches_per_step=TN_STEP_LAUNCHES, card=card)
+    log(phase="train_net_eval", images=n, images_per_s=n / (stage["data"] + stage["compute"]
+                                                            + stage["eval"]),
+        device_s_per_image=stage["device"] / n, postprocess_s_per_image=stage["postprocess"] / n,
+        evaluator_s_per_image=stage["eval"] / n, data_s_per_image=stage["data"] / n,
+        metrics=metrics, closed_form=closed, eval_s=eval_s,
+        launches_per_image=FORWARD_LAUNCHES, card=card)
+    log(phase="train_net_done", seconds=time.perf_counter() - t_phase)
+    return train_launches, resume_launches, eval_launches
+
+
 def race_phase(dev, card):
     """``ape_tpu_torch.tools.msda_race`` as a path of its own: every
     window-MSDA form at both pyramids and offset draws, then the per-pair
@@ -3614,6 +3944,7 @@ def main():
     default_runs.append(vitl_train_phase(dev, card))
     default_runs.append(vitl_train_f32_phase(dev))
     log(phase="vit_done", seconds=time.perf_counter() - t0)
+    default_runs += train_net_phase(dev, card)
     main_runs = default_runs + flag_runs
     runs = list(main_runs)
     runs.append(race_phase(dev, card))
