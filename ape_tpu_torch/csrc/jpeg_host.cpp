@@ -1,0 +1,1369 @@
+// JPEG codec for the host CPU, in plain C++17 (no library): the port's
+// counterpart of PIL's JPEG plugin over libjpeg-turbo 3.1.
+//
+// Decoder: Huffman-coded baseline and extended sequential (SOF0, SOF1) and
+// progressive (SOF2) frames of 8-bit samples with 1, 3 or 4 components, to
+// RGB exactly as PIL's `Image.open(f).convert("RGB")` gives it with
+// libjpeg-turbo's defaults:
+//   * the ISLOW integer IDCT (jidctint.c, CONST_BITS 13, PASS1_BITS 2) in
+//     the 16-bit arithmetic of the SIMD build that PIL ships (`idct_islow`);
+//   * fancy upsampling (jdsample.c): h2v1 and h2v2 triangle filters with
+//     their alternating rounding biases, h1v2, and replication for every
+//     other integral ratio and for a component at most 2 samples wide; the
+//     context rows above and below a component replicate its first and last
+//     real rows (jdmainct.c);
+//   * YCbCr -> RGB through jdcolor.c's tables (SCALEBITS 16); RGB (Adobe
+//     transform 0) copied; gray repeated over the three channels;
+//   * 4-component Adobe CMYK read as PIL reads it ("CMYK;I", then its
+//     cmyk2rgb).
+// The colour space is libjpeg's guess (jdapimin.c default_decompress_parms):
+// a JFIF marker, then the Adobe transform, then the component ids.
+// Progressive files are decoded whole before the output pass, as libjpeg
+// does when it is not in buffered-image mode; a file whose scans leave any
+// of the first ten coefficients of a component unrefined would take
+// libjpeg's block smoothing, which is not ported, and is refused.
+//
+// Refused with an "unsupported" status naming the feature: arithmetic coding,
+// lossless and hierarchical frames, 12-bit samples, YCCK, 2 components,
+// fractional sampling ratios, DNL. A damaged or truncated stream gives a
+// "corrupt" status.
+//
+// Encoder: the bytes of PIL's `Image.fromarray(x).save(f)` with no options,
+// for RGB and gray: JFIF 1.01 (density 1:1, no unit), quality 75 with
+// force_baseline, 4:2:0 for RGB (jcsample.c h2v2_downsample), jccolor.c's
+// RGB -> YCbCr, the ISLOW forward DCT (jfdctint.c), quantisation by
+// jcdctmgr.c's reciprocals (16-bit DCTELEM, as in the SIMD build), the
+// standard Huffman tables, libjpeg's marker order.
+//
+// C interface (ctypes): ape_jpeg_decode / ape_jpeg_encode return 0, 1
+// (corrupt) or 2 (unsupported) and write a message into `err`; their
+// output buffers are released with ape_jpeg_free.
+
+#include <algorithm>
+#include <array>
+#include <cstddef>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+struct Failure {
+  int code;  // 1 corrupt, 2 unsupported
+  std::string message;
+};
+
+[[noreturn]] void corrupt(const std::string& m) { throw Failure{1, m}; }
+[[noreturn]] void unsupported(const std::string& m) { throw Failure{2, m}; }
+
+// jpeg_natural_order: zigzag index -> natural index, with 16 extra entries
+// (63) that absorb a run past the block in damaged data, as libjpeg's do.
+constexpr std::array<int, 80> make_natural() {
+  std::array<int, 80> order{};
+  int idx = 0;
+  for (int s = 0; s < 15; ++s) {
+    int lo = s > 7 ? s - 7 : 0, hi = s < 7 ? s : 7;
+    if (s % 2 == 0) {
+      for (int r = hi; r >= lo; --r) order[idx++] = r * 8 + (s - r);
+    } else {
+      for (int r = lo; r <= hi; ++r) order[idx++] = r * 8 + (s - r);
+    }
+  }
+  for (; idx < 80; ++idx) order[idx] = 63;
+  return order;
+}
+constexpr std::array<int, 80> kNatural = make_natural();
+
+// libjpeg's fixed-point constants (CONST_BITS 13)
+constexpr int32_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_541196100 = 4433,
+                  FIX_0_765366865 = 6270, FIX_0_899976223 = 7373, FIX_1_175875602 = 9633,
+                  FIX_1_501321110 = 12299, FIX_1_847759065 = 15137, FIX_1_961570560 = 16069,
+                  FIX_2_053119869 = 16819, FIX_2_562915447 = 20995, FIX_3_072711026 = 25172;
+constexpr int CONST_BITS = 13, PASS1_BITS = 2;
+
+inline int32_t descale(int64_t x, int n) { return (int32_t)((x + ((int64_t)1 << (n - 1))) >> n); }
+
+// ---------------------------------------------------------------- decoder
+
+struct HuffTable {
+  bool defined = false;
+  int32_t maxcode[18];
+  int32_t valoffset[18];
+  uint8_t vals[256];
+  uint16_t look[512];  // 9-bit lookahead: (length << 8) | symbol, 0 for longer codes
+};
+
+// jdhuff.c jpeg_make_d_derived_tbl
+void build_huff(HuffTable& t, const uint8_t bits[17], const uint8_t* vals, bool dc) {
+  int huffsize[257];
+  uint32_t huffcode[257];
+  int p = 0;
+  for (int l = 1; l <= 16; ++l) {
+    int i = bits[l];
+    if (p + i > 256) corrupt("bad Huffman table");
+    while (i--) huffsize[p++] = l;
+  }
+  huffsize[p] = 0;
+  int numsymbols = p;
+  uint32_t code = 0;
+  int si = huffsize[0];
+  p = 0;
+  while (huffsize[p]) {
+    while (huffsize[p] == si) {
+      huffcode[p++] = code;
+      code++;
+    }
+    if (code >= (1u << si)) corrupt("bad Huffman table");
+    code <<= 1;
+    si++;
+  }
+  p = 0;
+  for (int l = 1; l <= 16; ++l) {
+    if (bits[l]) {
+      t.valoffset[l] = p - (int32_t)huffcode[p];
+      p += bits[l];
+      t.maxcode[l] = (int32_t)huffcode[p - 1];
+    } else {
+      t.maxcode[l] = -1;
+    }
+  }
+  t.valoffset[17] = 0;
+  t.maxcode[17] = 0x7FFFFFFF;
+  std::memcpy(t.vals, vals, numsymbols);
+  std::memset(t.look, 0, sizeof(t.look));
+  p = 0;
+  for (int l = 1; l <= 9; ++l) {
+    for (int i = 1; i <= bits[l]; ++i, ++p) {
+      int lookbits = (int)(huffcode[p] << (9 - l));
+      for (int ctr = 1 << (9 - l); ctr > 0; --ctr) t.look[lookbits++] = (uint16_t)((l << 8) | vals[p]);
+    }
+  }
+  if (dc) {
+    for (int i = 0; i < numsymbols; ++i)
+      if (vals[i] > 15) corrupt("bad Huffman table");
+  }
+  t.defined = true;
+}
+
+// Entropy-coded data: bytes with 0xFF 0x00 stuffing, up to the next marker.
+// Past a marker (or the end of the data) it supplies zero bits, but
+// consuming any of them is an error: a complete stream never needs them.
+struct BitReader {
+  const uint8_t* d = nullptr;
+  size_t n = 0, pos = 0;
+  uint64_t buf = 0;  // MSB-aligned
+  int cnt = 0;       // valid bits in buf, padding included
+  int pad = 0;       // trailing zero bits supplied past the data
+  bool stopped = false, at_eof = false;
+
+  void reset() {
+    buf = 0;
+    cnt = pad = 0;
+    stopped = at_eof = false;
+  }
+
+  void fill() {
+    while (cnt <= 56) {
+      int byte = 0;
+      bool real = false;
+      if (!stopped) {
+        if (pos >= n) {
+          stopped = at_eof = true;
+        } else if (d[pos] != 0xFF) {
+          byte = d[pos++];
+          real = true;
+        } else {
+          size_t q = pos + 1;
+          while (q < n && d[q] == 0xFF) ++q;
+          if (q >= n) {
+            stopped = at_eof = true;
+          } else if (d[q] == 0) {
+            byte = 0xFF;
+            pos = q + 1;
+            real = true;
+          } else {
+            stopped = true;  // a marker: pos stays on its first 0xFF
+          }
+        }
+      }
+      if (!real) pad += 8;
+      buf |= (uint64_t)byte << (56 - cnt);
+      cnt += 8;
+    }
+  }
+
+  void consume(int k) {
+    if (k > cnt - pad) {
+      if (at_eof) corrupt("image file is truncated");
+      corrupt("entropy-coded data ran into a marker");
+    }
+    buf <<= k;
+    cnt -= k;
+  }
+
+  int get_bits(int k) {
+    if (k == 0) return 0;
+    if (cnt < k + 8) fill();
+    int v = (int)(buf >> (64 - k));
+    consume(k);
+    return v;
+  }
+
+  int decode(const HuffTable& t) {
+    if (cnt < 24) fill();
+    int e = t.look[buf >> (64 - 9)];
+    if (e) {
+      consume(e >> 8);
+      return e & 0xFF;
+    }
+    int l = 10;
+    int32_t code = (int32_t)(buf >> (64 - l));
+    while (l <= 16 && code > t.maxcode[l]) {
+      ++l;
+      code = (int32_t)(buf >> (64 - l));
+    }
+    if (l > 16) corrupt("bad Huffman code");
+    consume(l);
+    return t.vals[(t.valoffset[l] + code) & 0xFF];
+  }
+};
+
+inline int extend(int r, int s) { return r < (1 << (s - 1)) ? r + (int)((~0u) << s) + 1 : r; }
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int width_in_blocks = 0, height_in_blocks = 0;  // jdinput.c initial_setup
+  int dw = 0, dh = 0;                             // downsampled width and height
+  int bw = 0, bh = 0;                             // stored blocks (MCU-padded)
+  std::vector<int16_t> coef;
+  uint16_t qt[64] = {};  // latched at the component's first scan
+  bool latched = false;
+  int coef_bits[64];
+};
+
+class Decoder {
+ public:
+  Decoder(const uint8_t* data, size_t len) : d_(data), n_(len) {}
+
+  std::vector<uint8_t> decode(int* out_w, int* out_h) {
+    if (n_ < 3 || d_[0] != 0xFF || d_[1] != 0xD8) corrupt("not a JPEG file (no SOI marker)");
+    pos_ = 2;
+    bool done = false;
+    while (!done) {
+      int m = next_marker();
+      switch (m) {
+        case 0xC0:
+        case 0xC1:
+        case 0xC2: read_sof(m); break;
+        case 0xC3: unsupported("lossless JPEG (SOF3)");
+        case 0xC5: case 0xC6: case 0xC7: case 0xDE: case 0xDF:
+          unsupported("hierarchical JPEG (differential frames, DHP, EXP)");
+        case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF: case 0xCC:
+          unsupported("arithmetic-coded JPEG (SOF9-11, SOF13-15, DAC)");
+        case 0xC4: read_dht(); break;
+        case 0xDB: read_dqt(); break;
+        case 0xDD: read_dri(); break;
+        case 0xDA: read_sos(); break;
+        case 0xD9: done = true; break;
+        case 0xE0: read_app0(); break;
+        case 0xEE: read_app14(); break;
+        case 0xDC: skip_segment(); break;  // DNL: libjpeg skips it
+        case 0xD0: case 0xD1: case 0xD2: case 0xD3: case 0xD4: case 0xD5: case 0xD6: case 0xD7:
+        case 0x01: break;  // parameterless
+        default:
+          if ((m >= 0xE1 && m <= 0xEF) || m == 0xFE) {
+            skip_segment();
+            break;
+          }
+          corrupt("unknown JPEG marker 0x" + hex(m));
+      }
+    }
+    if (!frame_) corrupt("no frame before EOI");
+    if (scans_ == 0) corrupt("no scan before EOI");
+    if (progressive_) check_complete();
+    *out_w = width_;
+    *out_h = height_;
+    return output();
+  }
+
+ private:
+  const uint8_t* d_;
+  size_t n_, pos_ = 0;
+  uint16_t qt_[4][64];
+  bool qt_defined_[4] = {false, false, false, false};
+  HuffTable dc_[4], ac_[4];
+  int restart_interval_ = 0;
+  bool jfif_ = false, adobe_ = false;
+  int adobe_transform_ = -1;
+  bool frame_ = false, progressive_ = false;
+  int width_ = 0, height_ = 0, ncomp_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
+  int scans_ = 0;
+  Component comp_[4];
+  BitReader br_;
+
+  static std::string hex(int v) {
+    const char* digits = "0123456789ABCDEF";
+    return std::string(1, digits[(v >> 4) & 15]) + digits[v & 15];
+  }
+
+  int byte() {
+    if (pos_ >= n_) corrupt("image file is truncated");
+    return d_[pos_++];
+  }
+  int word() {
+    int hi = byte();
+    return (hi << 8) | byte();
+  }
+
+  // jdmarker.c next_marker: skip to 0xFF, skip fill bytes, return the code
+  int next_marker() {
+    for (;;) {
+      int c = byte();
+      while (c != 0xFF) c = byte();  // garbage before a marker (libjpeg warns)
+      do c = byte(); while (c == 0xFF);
+      if (c != 0) return c;
+    }
+  }
+
+  // a segment's payload: [pos_, end)
+  size_t segment_end() {
+    int len = word();
+    if (len < 2) corrupt("bad marker length");
+    size_t end = pos_ + (size_t)len - 2;
+    if (end > n_) corrupt("image file is truncated");
+    return end;
+  }
+
+  void skip_segment() { pos_ = segment_end(); }
+
+  void read_app0() {
+    size_t end = segment_end();
+    if (end - pos_ >= 14 && std::memcmp(d_ + pos_, "JFIF\0", 5) == 0) jfif_ = true;
+    pos_ = end;
+  }
+
+  void read_app14() {
+    size_t end = segment_end();
+    if (end - pos_ >= 12 && std::memcmp(d_ + pos_, "Adobe", 5) == 0) {
+      adobe_ = true;
+      adobe_transform_ = d_[pos_ + 11];
+    }
+    pos_ = end;
+  }
+
+  void read_dqt() {
+    size_t end = segment_end();
+    while (pos_ < end) {
+      int pq = byte();
+      int prec = pq >> 4, tq = pq & 15;
+      if (tq > 3 || prec > 1) corrupt("bad DQT table");
+      for (int i = 0; i < 64; ++i) {
+        int q = prec ? word() : byte();
+        qt_[tq][kNatural[i]] = (uint16_t)q;
+      }
+      qt_defined_[tq] = true;
+    }
+    if (pos_ != end) corrupt("bad DQT length");
+  }
+
+  void read_dht() {
+    size_t end = segment_end();
+    while (pos_ < end) {
+      int tc_th = byte();
+      int tc = tc_th >> 4, th = tc_th & 15;
+      if (tc > 1 || th > 3) corrupt("bad DHT table");
+      uint8_t bits[17] = {0};
+      int count = 0;
+      for (int l = 1; l <= 16; ++l) {
+        bits[l] = (uint8_t)byte();
+        count += bits[l];
+      }
+      if (count > 256 || pos_ + count > end) corrupt("bad Huffman table");
+      uint8_t vals[256] = {0};
+      for (int i = 0; i < count; ++i) vals[i] = (uint8_t)byte();
+      build_huff(tc ? ac_[th] : dc_[th], bits, vals, tc == 0);
+    }
+    if (pos_ != end) corrupt("bad DHT length");
+  }
+
+  void read_dri() {
+    size_t end = segment_end();
+    if (end - pos_ != 2) corrupt("bad DRI length");
+    restart_interval_ = word();
+  }
+
+  void read_sof(int marker) {
+    if (frame_) corrupt("a second frame header");
+    size_t end = segment_end();
+    int precision = byte();
+    height_ = word();
+    width_ = word();
+    ncomp_ = byte();
+    if (precision != 8) unsupported(std::to_string(precision) + "-bit JPEG samples");
+    if (height_ == 0) unsupported("JPEG without its height (DNL)");
+    if (width_ == 0) corrupt("empty JPEG image");
+    if ((int64_t)width_ * height_ > 178956970)
+      corrupt("image size exceeds the decompression-bomb limit");
+    if (ncomp_ == 2 || ncomp_ > 4 || ncomp_ == 0)
+      unsupported(std::to_string(ncomp_) + "-component JPEG");
+    if (end - pos_ != (size_t)(3 * ncomp_)) corrupt("bad SOF length");
+    for (int c = 0; c < ncomp_; ++c) {
+      Component& k = comp_[c];
+      k.id = byte();
+      int hv = byte();
+      k.h = hv >> 4;
+      k.v = hv & 15;
+      k.tq = byte();
+      if (k.h < 1 || k.h > 4 || k.v < 1 || k.v > 4 || k.tq > 3) corrupt("bad sampling factors");
+      hmax_ = std::max(hmax_, k.h);
+      vmax_ = std::max(vmax_, k.v);
+    }
+    mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
+    mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
+    for (int c = 0; c < ncomp_; ++c) {
+      Component& k = comp_[c];
+      if (hmax_ % k.h || vmax_ % k.v) unsupported("fractional JPEG sampling ratios");
+      k.dw = (int)(((int64_t)width_ * k.h + hmax_ - 1) / hmax_);
+      k.dh = (int)(((int64_t)height_ * k.v + vmax_ - 1) / vmax_);
+      k.width_in_blocks = (int)(((int64_t)width_ * k.h + 8 * hmax_ - 1) / (8 * hmax_));
+      k.height_in_blocks = (int)(((int64_t)height_ * k.v + 8 * vmax_ - 1) / (8 * vmax_));
+      k.bw = mcux_ * k.h;
+      k.bh = mcuy_ * k.v;
+      k.coef.assign((size_t)k.bw * k.bh * 64, 0);
+      for (int i = 0; i < 64; ++i) k.coef_bits[i] = -1;
+    }
+    progressive_ = marker == 0xC2;
+    frame_ = true;
+  }
+
+  void read_sos() {
+    if (!frame_) corrupt("SOS before the frame header");
+    size_t end = segment_end();
+    int ns = byte();
+    if (ns < 1 || ns > 4 || end - pos_ != (size_t)(2 * ns + 3)) corrupt("bad SOS");
+    int idx[4], td[4], ta[4];
+    for (int i = 0; i < ns; ++i) {
+      int id = byte(), t = byte();
+      idx[i] = -1;
+      for (int c = 0; c < ncomp_; ++c)
+        if (comp_[c].id == id) idx[i] = c;
+      if (idx[i] < 0) corrupt("SOS names an unknown component");
+      for (int j = 0; j < i; ++j)
+        if (idx[j] == idx[i]) corrupt("SOS names a component twice");
+      td[i] = t >> 4;
+      ta[i] = t & 15;
+      if (td[i] > 3 || ta[i] > 3) corrupt("bad Huffman table number");
+    }
+    int ss = byte(), se = byte(), a = byte();
+    int ah = a >> 4, al = a & 15;
+    if (ns > 1) {
+      int blocks = 0;
+      for (int i = 0; i < ns; ++i) blocks += comp_[idx[i]].h * comp_[idx[i]].v;
+      if (blocks > 10) corrupt("too many blocks in an MCU");
+    }
+    for (int i = 0; i < ns; ++i) {  // jdinput.c latch_quant_tables
+      Component& k = comp_[idx[i]];
+      if (!k.latched) {
+        if (!qt_defined_[k.tq]) corrupt("a component's quantization table is not defined");
+        std::memcpy(k.qt, qt_[k.tq], sizeof(k.qt));
+        k.latched = true;
+      }
+    }
+    if (progressive_) {
+      bool dc_band = ss == 0;
+      bool bad = dc_band ? se != 0 : (ss > se || se > 63 || ns != 1);
+      if (ah != 0 && al != ah - 1) bad = true;
+      if (al > 13) bad = true;
+      if (bad) corrupt("bad progression parameters");
+      for (int i = 0; i < ns; ++i) {
+        Component& k = comp_[idx[i]];
+        if (!dc_band && k.coef_bits[0] < 0) corrupt("an AC scan before the DC scan");
+        for (int c = ss; c <= se; ++c) {
+          int expected = k.coef_bits[c] < 0 ? 0 : k.coef_bits[c];
+          if (ah != expected) corrupt("bogus progression");
+          k.coef_bits[c] = al;
+        }
+      }
+    }
+    for (int i = 0; i < ns; ++i) {
+      bool need_dc = !progressive_ || (ss == 0 && ah == 0);
+      bool need_ac = !progressive_ || ss != 0;
+      if (need_dc && !dc_[td[i]].defined) corrupt("undefined Huffman table");
+      if (need_ac && !ac_[ta[i]].defined) corrupt("undefined Huffman table");
+    }
+    scan(ns, idx, td, ta, ss, se, ah, al);
+    ++scans_;
+  }
+
+  void scan(int ns, const int* idx, const int* td, const int* ta, int ss, int se, int ah, int al) {
+    br_.d = d_;
+    br_.n = n_;
+    br_.pos = pos_;
+    br_.reset();
+    int pred[4] = {0, 0, 0, 0};
+    int eobrun = 0;
+    int mx_count, my_count;
+    if (ns == 1) {
+      mx_count = comp_[idx[0]].width_in_blocks;
+      my_count = comp_[idx[0]].height_in_blocks;
+    } else {
+      mx_count = mcux_;
+      my_count = mcuy_;
+    }
+    int64_t total = (int64_t)mx_count * my_count;
+    int restarts_left = restart_interval_, next_rst = 0;
+    for (int64_t m = 0; m < total; ++m) {
+      if (restart_interval_ && restarts_left == 0) {
+        restart(next_rst);
+        next_rst = (next_rst + 1) & 7;
+        restarts_left = restart_interval_;
+        pred[0] = pred[1] = pred[2] = pred[3] = 0;
+        eobrun = 0;
+      }
+      int my = (int)(m / mx_count), mx = (int)(m % mx_count);
+      for (int i = 0; i < ns; ++i) {
+        Component& k = comp_[idx[i]];
+        int nv = ns == 1 ? 1 : k.v, nh = ns == 1 ? 1 : k.h;
+        for (int v = 0; v < nv; ++v) {
+          for (int h = 0; h < nh; ++h) {
+            int by = ns == 1 ? my : my * k.v + v, bx = ns == 1 ? mx : mx * k.h + h;
+            int16_t* blk = &k.coef[((size_t)by * k.bw + bx) * 64];
+            if (!progressive_) {
+              sequential_block(blk, dc_[td[i]], ac_[ta[i]], pred[i]);
+            } else if (ss == 0) {
+              if (ah == 0) {
+                int s = br_.decode(dc_[td[i]]);
+                if (s) s = extend(br_.get_bits(s), s);
+                pred[i] = (int)((unsigned)pred[i] + (unsigned)s);
+                blk[0] = (int16_t)(int)((unsigned)pred[i] << al);
+              } else if (br_.get_bits(1)) {
+                blk[0] = (int16_t)(blk[0] | (1 << al));
+              }
+            } else if (ah == 0) {
+              ac_first(blk, ac_[ta[i]], ss, se, al, eobrun);
+            } else {
+              ac_refine(blk, ac_[ta[i]], ss, se, al, eobrun);
+            }
+          }
+        }
+      }
+      --restarts_left;
+    }
+    pos_ = after_entropy();
+  }
+
+  void sequential_block(int16_t* blk, const HuffTable& dct, const HuffTable& act, int& pred) {
+    int s = br_.decode(dct);
+    if (s) s = extend(br_.get_bits(s), s);
+    pred = (int)((unsigned)pred + (unsigned)s);
+    blk[0] = (int16_t)pred;
+    for (int k = 1; k < 64; ++k) {
+      s = br_.decode(act);
+      int r = s >> 4;
+      s &= 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = (int16_t)extend(br_.get_bits(s), s);
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+  }
+
+  void ac_first(int16_t* blk, const HuffTable& t, int ss, int se, int al, int& eobrun) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int s = br_.decode(t);
+      int r = s >> 4;
+      s &= 15;
+      if (s) {
+        k += r;
+        int v = extend(br_.get_bits(s), s);
+        blk[kNatural[k]] = (int16_t)(int)((unsigned)v << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += br_.get_bits(r);
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  void ac_refine(int16_t* blk, const HuffTable& t, int ss, int se, int al, int& eobrun) {
+    int p1 = 1 << al, m1 = (int)((~0u) << al);
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int s = br_.decode(t);
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          if (s != 1) corrupt("bad coefficient in a refinement scan");
+          s = br_.get_bits(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br_.get_bits(r);
+          break;
+        }
+        do {
+          int16_t* c = &blk[kNatural[k]];
+          if (*c != 0) {
+            if (br_.get_bits(1) && (*c & p1) == 0) *c = (int16_t)(*c >= 0 ? *c + p1 : *c + m1);
+          } else {
+            if (--r < 0) break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t* c = &blk[kNatural[k]];
+        if (*c != 0 && br_.get_bits(1) && (*c & p1) == 0)
+          *c = (int16_t)(*c >= 0 ? *c + p1 : *c + m1);
+      }
+      --eobrun;
+    }
+  }
+
+  // the marker that ends entropy-coded data: its position and code
+  size_t marker_at(size_t p, int* code) {
+    for (;;) {
+      if (p >= n_) corrupt("image file is truncated");
+      if (d_[p] != 0xFF) {
+        ++p;  // extraneous bytes before the marker (libjpeg warns and skips)
+        continue;
+      }
+      size_t q = p + 1;
+      while (q < n_ && d_[q] == 0xFF) ++q;
+      if (q >= n_) corrupt("image file is truncated");
+      if (d_[q] != 0) {
+        *code = d_[q];
+        return p;
+      }
+      p = q + 1;
+    }
+  }
+
+  void restart(int expected) {
+    int code;
+    size_t p = marker_at(br_.pos, &code);
+    if (code != 0xD0 + expected) corrupt("missing restart marker");
+    while (d_[p] == 0xFF) ++p;
+    br_.pos = p + 1;
+    br_.reset();
+  }
+
+  size_t after_entropy() {
+    int code;
+    return marker_at(br_.pos, &code);  // next_marker reads it from here
+  }
+
+  // jdcoefct.c smoothing_ok: libjpeg smooths when any of a component's first
+  // ten coefficients is left unrefined; the port does not, so it refuses.
+  void check_complete() {
+    bool dc_known = true, useful = false;
+    for (int c = 0; c < ncomp_; ++c) {
+      if (comp_[c].coef_bits[0] < 0) dc_known = false;
+      for (int i = 1; i < 10; ++i)
+        if (comp_[c].coef_bits[i] != 0) useful = true;
+    }
+    if (dc_known && useful)
+      unsupported("progressive JPEG whose scans leave low-frequency coefficients unrefined "
+                  "(libjpeg's block smoothing)");
+  }
+
+  // --- output pass
+
+  // jidctint.c's ISLOW IDCT as libjpeg-turbo's SIMD build computes it
+  // (jsimd_idct_islow_sse2/avx2, the one PIL ships and runs): the same
+  // constants and rounding, but in 16-bit lanes. The dequantised
+  // coefficients are the low 16 bits of coefficient x quantizer; in0 + in4,
+  // in0 - in4, in7 + in3 and in5 + in1 are 16-bit sums; each pass's outputs
+  // saturate to int16 and the samples to -128..127 (no RANGE_MASK wrap);
+  // the DC-only shortcut applies to the whole block (every AC row zero) and
+  // shifts in 16 bits. On a file an encoder writes every intermediate fits
+  // and this equals the C code; large coefficients or 16-bit tables tell
+  // them apart.
+  static inline int16_t sat16(int64_t v) {
+    return (int16_t)(v < -32768 ? -32768 : v > 32767 ? 32767 : v);
+  }
+
+  // one 8-point pass over 16-bit inputs: in[k * step], k = 0..7
+  static void idct_pass(const int16_t* in, int step, int shift, int32_t out[8]) {
+    int32_t in0 = in[0], in1 = in[step], in2 = in[2 * step], in3 = in[3 * step],
+            in4 = in[4 * step], in5 = in[5 * step], in6 = in[6 * step], in7 = in[7 * step];
+    int64_t tmp3 = (int64_t)in2 * (FIX_0_541196100 + FIX_0_765366865) + (int64_t)in6 * FIX_0_541196100;
+    int64_t tmp2 = (int64_t)in2 * FIX_0_541196100 + (int64_t)in6 * (FIX_0_541196100 - FIX_1_847759065);
+    int64_t tmp0 = (int64_t)(int16_t)(in0 + in4) * (1 << CONST_BITS);
+    int64_t tmp1 = (int64_t)(int16_t)(in0 - in4) * (1 << CONST_BITS);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    int64_t z3 = (int16_t)(in7 + in3), z4 = (int16_t)(in5 + in1);
+    int64_t z3r = z3 * (FIX_1_175875602 - FIX_1_961570560) + z4 * FIX_1_175875602;
+    int64_t z4r = z3 * FIX_1_175875602 + z4 * (FIX_1_175875602 - FIX_0_390180644);
+    tmp0 = (int64_t)in7 * (FIX_0_298631336 - FIX_0_899976223) + (int64_t)in1 * -FIX_0_899976223 + z3r;
+    tmp1 = (int64_t)in5 * (FIX_2_053119869 - FIX_2_562915447) + (int64_t)in3 * -FIX_2_562915447 + z4r;
+    tmp2 = (int64_t)in5 * -FIX_2_562915447 + (int64_t)in3 * (FIX_3_072711026 - FIX_2_562915447) + z3r;
+    tmp3 = (int64_t)in7 * -FIX_0_899976223 + (int64_t)in1 * (FIX_1_501321110 - FIX_0_899976223) + z4r;
+    out[0] = sat16(descale(tmp10 + tmp3, shift));
+    out[7] = sat16(descale(tmp10 - tmp3, shift));
+    out[1] = sat16(descale(tmp11 + tmp2, shift));
+    out[6] = sat16(descale(tmp11 - tmp2, shift));
+    out[2] = sat16(descale(tmp12 + tmp1, shift));
+    out[5] = sat16(descale(tmp12 - tmp1, shift));
+    out[3] = sat16(descale(tmp13 + tmp0, shift));
+    out[4] = sat16(descale(tmp13 - tmp0, shift));
+  }
+
+  static void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
+    int16_t deq[64], ws[64];
+    bool ac_zero = true;
+    for (int i = 0; i < 64; ++i) {
+      deq[i] = (int16_t)(uint16_t)((uint32_t)(int32_t)in[i] * q[i]);
+      if (i >= 8 && in[i] != 0) ac_zero = false;
+    }
+    int32_t col[8];
+    for (int c = 0; c < 8; ++c) {
+      if (ac_zero) {
+        int16_t dc = (int16_t)(uint16_t)((uint32_t)(uint16_t)deq[c] << PASS1_BITS);
+        for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dc;
+        continue;
+      }
+      idct_pass(deq + c, 8, CONST_BITS - PASS1_BITS, col);
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = (int16_t)col[r];
+    }
+    for (int r = 0; r < 8; ++r) {
+      idct_pass(ws + r * 8, 1, CONST_BITS + PASS1_BITS + 3, col);
+      uint8_t* op = out + (size_t)r * stride;
+      for (int c = 0; c < 8; ++c) op[c] = (uint8_t)(std::min(std::max(col[c], -128), 127) + 128);
+    }
+  }
+
+  // A component's samples: (height_in_blocks * 8, width_in_blocks * 8)
+  std::vector<uint8_t> samples(const Component& k, int* stride) const {
+    int sw = k.width_in_blocks * 8, sh = k.height_in_blocks * 8;
+    std::vector<uint8_t> plane((size_t)sw * sh);
+    for (int by = 0; by < k.height_in_blocks; ++by)
+      for (int bx = 0; bx < k.width_in_blocks; ++bx)
+        idct_islow(&k.coef[((size_t)by * k.bw + bx) * 64], k.qt,
+                   &plane[(size_t)by * 8 * sw + (size_t)bx * 8], sw);
+    *stride = sw;
+    return plane;
+  }
+
+  // jdsample.c: the component upsampled to (height_, width_)
+  std::vector<uint8_t> upsampled(const Component& k) const {
+    int sw;
+    std::vector<uint8_t> in = samples(k, &sw);
+    int he = hmax_ / k.h, ve = vmax_ / k.v;
+    const int W = width_, H = height_, dw = k.dw, dh = k.dh;
+    std::vector<uint8_t> out((size_t)W * H);
+    auto row = [&](int y) { return &in[(size_t)std::min(std::max(y, 0), dh - 1) * sw]; };
+    if (he == 1 && ve == 1) {
+      for (int y = 0; y < H; ++y) std::memcpy(&out[(size_t)y * W], row(y), W);
+    } else if (he == 2 && ve == 1 && dw > 2) {  // h2v1_fancy_upsample
+      std::vector<uint8_t> line((size_t)2 * dw);
+      for (int y = 0; y < H; ++y) {
+        const uint8_t* ip = row(y);
+        uint8_t* op = line.data();
+        int v = ip[0];
+        op[0] = (uint8_t)v;
+        op[1] = (uint8_t)((v * 3 + ip[1] + 2) >> 2);
+        for (int x = 1; x < dw - 1; ++x) {
+          v = ip[x] * 3;
+          op[2 * x] = (uint8_t)((v + ip[x - 1] + 1) >> 2);
+          op[2 * x + 1] = (uint8_t)((v + ip[x + 1] + 2) >> 2);
+        }
+        v = ip[dw - 1];
+        op[2 * dw - 2] = (uint8_t)((v * 3 + ip[dw - 2] + 1) >> 2);
+        op[2 * dw - 1] = (uint8_t)v;
+        std::memcpy(&out[(size_t)y * W], op, W);
+      }
+    } else if (he == 1 && ve == 2) {  // h1v2_fancy_upsample
+      for (int y = 0; y < H; ++y) {
+        int i = y >> 1;
+        const uint8_t* p0 = row(i);
+        const uint8_t* p1 = (y & 1) ? row(i + 1) : row(i - 1);
+        int bias = (y & 1) ? 2 : 1;
+        uint8_t* op = &out[(size_t)y * W];
+        for (int x = 0; x < W; ++x) op[x] = (uint8_t)((p0[x] * 3 + p1[x] + bias) >> 2);
+      }
+    } else if (he == 2 && ve == 2 && dw > 2) {  // h2v2_fancy_upsample
+      std::vector<uint8_t> line((size_t)2 * dw);
+      for (int y = 0; y < H; ++y) {
+        int i = y >> 1;
+        const uint8_t* p0 = row(i);
+        const uint8_t* p1 = (y & 1) ? row(i + 1) : row(i - 1);
+        uint8_t* op = line.data();
+        int thiscol = p0[0] * 3 + p1[0], nextcol = p0[1] * 3 + p1[1], lastcol;
+        op[0] = (uint8_t)((thiscol * 4 + 8) >> 4);
+        op[1] = (uint8_t)((thiscol * 3 + nextcol + 7) >> 4);
+        lastcol = thiscol;
+        thiscol = nextcol;
+        for (int x = 2; x < dw; ++x) {
+          nextcol = p0[x] * 3 + p1[x];
+          op[2 * x - 2] = (uint8_t)((thiscol * 3 + lastcol + 8) >> 4);
+          op[2 * x - 1] = (uint8_t)((thiscol * 3 + nextcol + 7) >> 4);
+          lastcol = thiscol;
+          thiscol = nextcol;
+        }
+        op[2 * dw - 2] = (uint8_t)((thiscol * 3 + lastcol + 8) >> 4);
+        op[2 * dw - 1] = (uint8_t)((thiscol * 4 + 7) >> 4);
+        std::memcpy(&out[(size_t)y * W], op, W);
+      }
+    } else {  // h2v1_upsample, h2v2_upsample, int_upsample: replication
+      for (int y = 0; y < H; ++y) {
+        const uint8_t* ip = row(y / ve);
+        uint8_t* op = &out[(size_t)y * W];
+        for (int x = 0; x < W; ++x) op[x] = ip[x / he];
+      }
+    }
+    return out;
+  }
+
+  std::vector<uint8_t> output() const {
+    // 4 components: CMYK unless the Adobe marker says YCCK (libjpeg's guess)
+    if (ncomp_ == 4 && adobe_ && adobe_transform_ != 0) unsupported("YCCK JPEG (Adobe transform 2)");
+    const size_t npix = (size_t)width_ * height_;
+    std::vector<uint8_t> rgb(npix * 3);
+    std::vector<uint8_t> planes[4];
+    for (int c = 0; c < ncomp_; ++c) planes[c] = upsampled(comp_[c]);
+    if (ncomp_ == 1) {
+      for (size_t i = 0; i < npix; ++i) rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = planes[0][i];
+      return rgb;
+    }
+    if (ncomp_ == 3) {
+      bool ycc;
+      if (jfif_) {
+        ycc = true;
+      } else if (adobe_) {
+        ycc = adobe_transform_ != 0;
+      } else {
+        ycc = !(comp_[0].id == 82 && comp_[1].id == 71 && comp_[2].id == 66);  // 'R' 'G' 'B'
+      }
+      if (!ycc) {
+        for (size_t i = 0; i < npix; ++i)
+          for (int c = 0; c < 3; ++c) rgb[3 * i + c] = planes[c][i];
+        return rgb;
+      }
+      // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
+      constexpr int SCALEBITS = 16;
+      constexpr int64_t ONE_HALF = (int64_t)1 << (SCALEBITS - 1);
+      auto fix = [](double x) { return (int64_t)(x * (1 << SCALEBITS) + 0.5); };
+      int cr_r[256], cb_b[256];
+      int64_t cr_g[256], cb_g[256];
+      for (int i = 0, x = -128; i < 256; ++i, ++x) {
+        cr_r[i] = (int)((fix(1.40200) * x + ONE_HALF) >> SCALEBITS);
+        cb_b[i] = (int)((fix(1.77200) * x + ONE_HALF) >> SCALEBITS);
+        cr_g[i] = -fix(0.71414) * x;
+        cb_g[i] = -fix(0.34414) * x + ONE_HALF;
+      }
+      auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+      for (size_t i = 0; i < npix; ++i) {
+        int y = planes[0][i], cb = planes[1][i], cr = planes[2][i];
+        rgb[3 * i] = clamp(y + cr_r[cr]);
+        rgb[3 * i + 1] = clamp(y + (int)((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
+        rgb[3 * i + 2] = clamp(y + cb_b[cb]);
+      }
+      return rgb;
+    }
+    for (size_t i = 0; i < npix; ++i) {
+      // PIL's "CMYK;I" unpack inverts, then its cmyk2rgb
+      int c = 255 - planes[0][i], m = 255 - planes[1][i], yy = 255 - planes[2][i];
+      int nk = 255 - (255 - planes[3][i]);
+      auto muldiv255 = [](int a, int b) {
+        int tmp = a * b + 128;
+        return ((tmp >> 8) + tmp) >> 8;
+      };
+      auto clip8 = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+      rgb[3 * i] = clip8(nk - muldiv255(c, nk));
+      rgb[3 * i + 1] = clip8(nk - muldiv255(m, nk));
+      rgb[3 * i + 2] = clip8(nk - muldiv255(yy, nk));
+    }
+    return rgb;
+  }
+};
+
+// ---------------------------------------------------------------- encoder
+
+// jstdhuff.c: the standard tables of the JPEG specification, K.3
+const uint8_t kDcLumBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromBits[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
+    0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
+    0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
+    0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
+    0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
+    0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
+    0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
+    0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromBits[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
+    0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
+    0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
+    0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
+    0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
+    0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
+    0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
+    0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// jcparam.c: the standard quantization tables (natural order)
+const uint16_t kLumQuant[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const uint16_t kChromQuant[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+struct HuffEncode {
+  uint32_t code[256];
+  uint8_t size[256];
+};
+
+// jchuff.c jpeg_make_c_derived_tbl
+HuffEncode encode_table(const uint8_t bits[17], const uint8_t* vals) {
+  HuffEncode t{};
+  int huffsize[257];
+  uint32_t huffcode[257];
+  int p = 0;
+  for (int l = 1; l <= 16; ++l)
+    for (int i = 0; i < bits[l]; ++i) huffsize[p++] = l;
+  huffsize[p] = 0;
+  int last = p;
+  uint32_t code = 0;
+  int si = huffsize[0];
+  p = 0;
+  while (huffsize[p]) {
+    while (huffsize[p] == si) huffcode[p++] = code++;
+    code <<= 1;
+    si++;
+  }
+  for (p = 0; p < last; ++p) {
+    t.code[vals[p]] = huffcode[p];
+    t.size[vals[p]] = (uint8_t)huffsize[p];
+  }
+  return t;
+}
+
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint64_t acc = 0;
+  int nbits = 0;
+  explicit BitWriter(std::vector<uint8_t>& o) : out(o) {}
+  void put(uint32_t code, int size) {
+    acc = (acc << size) | (code & ((1u << size) - 1));
+    nbits += size;
+    while (nbits >= 8) {
+      uint8_t b = (uint8_t)(acc >> (nbits - 8));
+      out.push_back(b);
+      if (b == 0xFF) out.push_back(0);
+      nbits -= 8;
+    }
+  }
+  void flush() {  // the partial byte filled with 1 bits (jchuff.c flush_bits)
+    put(0x7F, 7);
+    nbits = 0;
+    acc = 0;
+  }
+};
+
+// jfdctint.c jpeg_fdct_islow, in place
+void fdct_islow(int32_t* data) {
+  for (int r = 0; r < 8; ++r) {
+    int32_t* p = data + r * 8;
+    int64_t tmp0 = p[0] + p[7], tmp7 = p[0] - p[7], tmp1 = p[1] + p[6], tmp6 = p[1] - p[6];
+    int64_t tmp2 = p[2] + p[5], tmp5 = p[2] - p[5], tmp3 = p[3] + p[4], tmp4 = p[3] - p[4];
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    p[0] = (int32_t)((tmp10 + tmp11) * (1 << PASS1_BITS));
+    p[4] = (int32_t)((tmp10 - tmp11) * (1 << PASS1_BITS));
+    int64_t z1 = (tmp12 + tmp13) * FIX_0_541196100;
+    p[2] = descale(z1 + tmp13 * FIX_0_765366865, CONST_BITS - PASS1_BITS);
+    p[6] = descale(z1 + tmp12 * -FIX_1_847759065, CONST_BITS - PASS1_BITS);
+    z1 = tmp4 + tmp7;
+    int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp4 *= FIX_0_298631336;
+    tmp5 *= FIX_2_053119869;
+    tmp6 *= FIX_3_072711026;
+    tmp7 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    p[7] = descale(tmp4 + z1 + z3, CONST_BITS - PASS1_BITS);
+    p[5] = descale(tmp5 + z2 + z4, CONST_BITS - PASS1_BITS);
+    p[3] = descale(tmp6 + z2 + z3, CONST_BITS - PASS1_BITS);
+    p[1] = descale(tmp7 + z1 + z4, CONST_BITS - PASS1_BITS);
+  }
+  for (int c = 0; c < 8; ++c) {
+    int32_t* p = data + c;
+    int64_t tmp0 = p[0] + p[56], tmp7 = p[0] - p[56], tmp1 = p[8] + p[48], tmp6 = p[8] - p[48];
+    int64_t tmp2 = p[16] + p[40], tmp5 = p[16] - p[40], tmp3 = p[24] + p[32],
+            tmp4 = p[24] - p[32];
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    p[0] = descale(tmp10 + tmp11, PASS1_BITS);
+    p[32] = descale(tmp10 - tmp11, PASS1_BITS);
+    int64_t z1 = (tmp12 + tmp13) * FIX_0_541196100;
+    p[16] = descale(z1 + tmp13 * FIX_0_765366865, CONST_BITS + PASS1_BITS);
+    p[48] = descale(z1 + tmp12 * -FIX_1_847759065, CONST_BITS + PASS1_BITS);
+    z1 = tmp4 + tmp7;
+    int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp4 *= FIX_0_298631336;
+    tmp5 *= FIX_2_053119869;
+    tmp6 *= FIX_3_072711026;
+    tmp7 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    p[56] = descale(tmp4 + z1 + z3, CONST_BITS + PASS1_BITS);
+    p[40] = descale(tmp5 + z2 + z4, CONST_BITS + PASS1_BITS);
+    p[24] = descale(tmp6 + z2 + z3, CONST_BITS + PASS1_BITS);
+    p[8] = descale(tmp7 + z1 + z4, CONST_BITS + PASS1_BITS);
+  }
+}
+
+// jcdctmgr.c compute_reciprocal for a 16-bit DCTELEM: (recip, corr, shift)
+struct Divisor {
+  uint32_t recip, corr;
+  int shift;
+};
+
+Divisor reciprocal(uint32_t divisor) {
+  int b = 31 - __builtin_clz(divisor);
+  int r = 16 + b;
+  uint32_t fq = (1u << r) / divisor, fr = (1u << r) % divisor;
+  uint32_t c = divisor / 2;
+  if (fr == 0) {
+    fq >>= 1;
+    r--;
+  } else if (fr <= divisor / 2u) {
+    c++;
+  } else {
+    fq++;
+  }
+  return Divisor{fq, c, r};
+}
+
+struct EncComponent {
+  int id, h, v, tq, tbl;
+  int width_in_blocks, height_in_blocks;
+  int pw, ph;  // the padded, downsampled plane
+  std::vector<uint8_t> plane;
+};
+
+std::vector<uint8_t> encode(const uint8_t* px, int W, int H, int channels) {
+  if (W < 1 || H < 1 || W > 65500 || H > 65500) unsupported("image size outside 1..65500");
+  if (channels != 1 && channels != 3) unsupported("only gray and RGB images are encoded");
+  const int ncomp = channels;
+  const int hmax = ncomp == 3 ? 2 : 1, vmax = hmax;
+  // quality 75: scale factor 50, force_baseline (jcparam.c jpeg_add_quant_table)
+  uint16_t q[2][64];
+  for (int t = 0; t < 2; ++t)
+    for (int i = 0; i < 64; ++i) {
+      long v = ((long)(t ? kChromQuant : kLumQuant)[i] * 50 + 50) / 100;
+      q[t][i] = (uint16_t)std::min(255L, std::max(1L, v));
+    }
+  // jccolor.c rgb_ycc_convert (or the gray copy) into full planes
+  const size_t npix = (size_t)W * H;
+  std::vector<uint8_t> full[3];
+  if (ncomp == 1) {
+    full[0].assign(px, px + npix);
+  } else {
+    constexpr int SCALEBITS = 16;
+    constexpr int64_t ONE_HALF = (int64_t)1 << (SCALEBITS - 1);
+    constexpr int64_t CBCR_OFFSET = (int64_t)128 << SCALEBITS;
+    auto fix = [](double x) { return (int64_t)(x * (1 << SCALEBITS) + 0.5); };
+    std::vector<int64_t> tab(8 * 256);
+    for (int i = 0; i < 256; ++i) {
+      tab[i] = fix(0.29900) * i;
+      tab[256 + i] = fix(0.58700) * i;
+      tab[512 + i] = fix(0.11400) * i + ONE_HALF;
+      tab[768 + i] = -fix(0.16874) * i;
+      tab[1024 + i] = -fix(0.33126) * i;
+      tab[1280 + i] = fix(0.50000) * i + CBCR_OFFSET + ONE_HALF - 1;
+      tab[1536 + i] = -fix(0.41869) * i;
+      tab[1792 + i] = -fix(0.08131) * i;
+    }
+    for (int c = 0; c < 3; ++c) full[c].resize(npix);
+    for (size_t i = 0; i < npix; ++i) {
+      int r = px[3 * i], g = px[3 * i + 1], b = px[3 * i + 2];
+      full[0][i] = (uint8_t)((tab[r] + tab[256 + g] + tab[512 + b]) >> SCALEBITS);
+      full[1][i] = (uint8_t)((tab[768 + r] + tab[1024 + g] + tab[1280 + b]) >> SCALEBITS);
+      full[2][i] = (uint8_t)((tab[1280 + r] + tab[1536 + g] + tab[1792 + b]) >> SCALEBITS);
+    }
+  }
+  const int mcux = (W + 8 * hmax - 1) / (8 * hmax), mcuy = (H + 8 * vmax - 1) / (8 * vmax);
+  std::vector<EncComponent> comps;
+  for (int c = 0; c < ncomp; ++c) {
+    EncComponent k;
+    k.id = c + 1;
+    k.h = k.v = c == 0 ? hmax : 1;
+    k.tq = k.tbl = c == 0 ? 0 : 1;
+    k.width_in_blocks = (W * k.h + 8 * hmax - 1) / (8 * hmax);
+    k.height_in_blocks = (H * k.v + 8 * vmax - 1) / (8 * vmax);
+    k.pw = k.width_in_blocks * 8;
+    k.ph = mcuy * k.v * 8;  // a full iMCU row at the bottom (jcprepct.c)
+    k.plane.resize((size_t)k.pw * k.ph);
+    // the image rows, padded to a multiple of vmax by repeating the last
+    const int rows_in = (H + vmax - 1) / vmax * vmax;
+    auto src = [&](int y, int x) { return full[c][(size_t)std::min(y, H - 1) * W + std::min(x, W - 1)]; };
+    int produced;
+    if (k.h == hmax) {  // fullsize_downsample: columns padded to pw by repetition
+      produced = rows_in;
+      for (int y = 0; y < produced; ++y)
+        for (int x = 0; x < k.pw; ++x) k.plane[(size_t)y * k.pw + x] = src(y, x);
+    } else {  // h2v2_downsample: input padded to 2 * pw columns, biases 1, 2, 1, 2, ...
+      produced = rows_in / 2;
+      for (int y = 0; y < produced; ++y) {
+        int bias = 1;
+        for (int x = 0; x < k.pw; ++x) {
+          int s = src(2 * y, 2 * x) + src(2 * y, 2 * x + 1) + src(2 * y + 1, 2 * x) +
+                  src(2 * y + 1, 2 * x + 1);
+          k.plane[(size_t)y * k.pw + x] = (uint8_t)((s + bias) >> 2);
+          bias ^= 3;
+        }
+      }
+    }
+    for (int y = produced; y < k.ph; ++y)  // expand_bottom_edge to the iMCU row
+      std::memcpy(&k.plane[(size_t)y * k.pw], &k.plane[(size_t)(produced - 1) * k.pw], k.pw);
+    comps.push_back(std::move(k));
+  }
+  Divisor div[2][64];
+  for (int t = 0; t < 2; ++t)
+    for (int i = 0; i < 64; ++i) div[t][i] = reciprocal((uint32_t)q[t][i] << 3);
+  HuffEncode dc[2] = {encode_table(kDcLumBits, kDcVals), encode_table(kDcChromBits, kDcVals)};
+  HuffEncode ac[2] = {encode_table(kAcLumBits, kAcLumVals),
+                      encode_table(kAcChromBits, kAcChromVals)};
+
+  std::vector<uint8_t> out;
+  auto marker = [&](int m) {
+    out.push_back(0xFF);
+    out.push_back((uint8_t)m);
+  };
+  auto word = [&](int v) {
+    out.push_back((uint8_t)(v >> 8));
+    out.push_back((uint8_t)v);
+  };
+  marker(0xD8);
+  marker(0xE0);  // JFIF 1.01, density 1:1, no unit, no thumbnail
+  word(16);
+  const uint8_t jfif[14] = {'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0};
+  out.insert(out.end(), jfif, jfif + 14);
+  for (int t = 0; t < (ncomp == 3 ? 2 : 1); ++t) {
+    marker(0xDB);
+    word(67);
+    out.push_back((uint8_t)t);
+    for (int i = 0; i < 64; ++i) out.push_back((uint8_t)q[t][kNatural[i]]);
+  }
+  marker(0xC0);
+  word(8 + 3 * ncomp);
+  out.push_back(8);
+  word(H);
+  word(W);
+  out.push_back((uint8_t)ncomp);
+  for (auto& k : comps) {
+    out.push_back((uint8_t)k.id);
+    out.push_back((uint8_t)((k.h << 4) | k.v));
+    out.push_back((uint8_t)k.tq);
+  }
+  auto dht = [&](int cls_id, const uint8_t* bits, const uint8_t* vals) {
+    int count = 0;
+    for (int l = 1; l <= 16; ++l) count += bits[l];
+    marker(0xC4);
+    word(count + 2 + 1 + 16);
+    out.push_back((uint8_t)cls_id);
+    out.insert(out.end(), bits + 1, bits + 17);
+    out.insert(out.end(), vals, vals + count);
+  };
+  dht(0x00, kDcLumBits, kDcVals);
+  dht(0x10, kAcLumBits, kAcLumVals);
+  if (ncomp == 3) {
+    dht(0x01, kDcChromBits, kDcVals);
+    dht(0x11, kAcChromBits, kAcChromVals);
+  }
+  marker(0xDA);
+  word(6 + 2 * ncomp);
+  out.push_back((uint8_t)ncomp);
+  for (auto& k : comps) {
+    out.push_back((uint8_t)k.id);
+    out.push_back((uint8_t)((k.tbl << 4) | k.tbl));
+  }
+  out.push_back(0);
+  out.push_back(63);
+  out.push_back(0);
+
+  BitWriter bw(out);
+  int last_dc[3] = {0, 0, 0};
+  int32_t work[64];
+  auto encode_block = [&](const int16_t* blk, int c, int t) {
+    int temp = blk[0] - last_dc[c];
+    last_dc[c] = blk[0];
+    int temp2 = temp;
+    if (temp < 0) {
+      temp = -temp;
+      temp2--;
+    }
+    int nbits = 0;
+    while (temp) {
+      nbits++;
+      temp >>= 1;
+    }
+    bw.put(dc[t].code[nbits], dc[t].size[nbits]);
+    if (nbits) bw.put((uint32_t)temp2, nbits);
+    int r = 0;
+    for (int k = 1; k < 64; ++k) {
+      temp = blk[kNatural[k]];
+      if (temp == 0) {
+        r++;
+        continue;
+      }
+      while (r > 15) {
+        bw.put(ac[t].code[0xF0], ac[t].size[0xF0]);
+        r -= 16;
+      }
+      temp2 = temp;
+      if (temp < 0) {
+        temp = -temp;
+        temp2--;
+      }
+      nbits = 1;
+      while ((temp >>= 1)) nbits++;
+      int sym = (r << 4) + nbits;
+      bw.put(ac[t].code[sym], ac[t].size[sym]);
+      bw.put((uint32_t)temp2, nbits);
+      r = 0;
+    }
+    if (r > 0) bw.put(ac[t].code[0], ac[t].size[0]);
+  };
+  auto forward = [&](const EncComponent& k, int by, int bx, int16_t* outblk) {
+    for (int y = 0; y < 8; ++y)
+      for (int x = 0; x < 8; ++x)
+        work[y * 8 + x] = (int32_t)k.plane[(size_t)(by * 8 + y) * k.pw + bx * 8 + x] - 128;
+    fdct_islow(work);
+    for (int i = 0; i < 64; ++i) {  // jcdctmgr.c quantize
+      const Divisor& dv = div[k.tq][i];
+      int32_t t = work[i];
+      uint32_t a = (uint32_t)(t < 0 ? -t : t);
+      uint32_t v = (uint32_t)(((uint64_t)(a + dv.corr) * dv.recip) >> dv.shift);
+      outblk[i] = (int16_t)(t < 0 ? -(int32_t)v : (int32_t)v);
+    }
+  };
+  for (int my = 0; my < mcuy; ++my) {
+    for (int mx = 0; mx < mcux; ++mx) {
+      for (int c = 0; c < ncomp; ++c) {
+        const EncComponent& k = comps[c];
+        // jccoefct.c compress_data: a dummy block past the component's
+        // blocks carries no AC and the DC of the block before it (in a row
+        // of dummies, of the block before the row)
+        int16_t mcu[16][64];
+        int n = 0;
+        for (int v = 0; v < k.v; ++v) {
+          int by = my * k.v + v, row_start = n;
+          for (int h = 0; h < k.h; ++h, ++n) {
+            int bx = mx * k.h + h;
+            if (by < k.height_in_blocks && bx < k.width_in_blocks) {
+              forward(k, by, bx, mcu[n]);
+            } else {
+              std::memset(mcu[n], 0, sizeof(mcu[n]));
+              mcu[n][0] = by < k.height_in_blocks ? mcu[n - 1][0] : mcu[row_start - 1][0];
+            }
+          }
+        }
+        for (int i = 0; i < n; ++i) encode_block(mcu[i], c, k.tbl);
+      }
+    }
+  }
+  bw.flush();
+  marker(0xD9);
+  return out;
+}
+
+void set_error(char* err, int errlen, const std::string& m) {
+  if (err && errlen > 0) {
+    std::strncpy(err, m.c_str(), (size_t)errlen - 1);
+    err[errlen - 1] = 0;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// JPEG bytes -> RGB uint8 (H, W, 3), allocated here (release with ape_jpeg_free).
+int ape_jpeg_decode(const uint8_t* data, size_t len, uint8_t** out, int* width, int* height,
+                    char* err, int errlen) {
+  *out = nullptr;
+  try {
+    Decoder dec(data, len);
+    std::vector<uint8_t> rgb = dec.decode(width, height);
+    *out = static_cast<uint8_t*>(std::malloc(rgb.size()));
+    if (!*out) {
+      set_error(err, errlen, "out of memory");
+      return 1;
+    }
+    std::memcpy(*out, rgb.data(), rgb.size());
+    return 0;
+  } catch (const Failure& f) {
+    set_error(err, errlen, f.message);
+    return f.code;
+  } catch (const std::bad_alloc&) {
+    set_error(err, errlen, "out of memory");
+    return 1;
+  }
+}
+
+// uint8 (H, W) or (H, W, 3) pixels -> JPEG bytes, allocated here.
+int ape_jpeg_encode(const uint8_t* pixels, int width, int height, int channels, uint8_t** out,
+                    size_t* out_len, char* err, int errlen) {
+  *out = nullptr;
+  try {
+    std::vector<uint8_t> bytes = encode(pixels, width, height, channels);
+    *out = static_cast<uint8_t*>(std::malloc(bytes.size()));
+    if (!*out) {
+      set_error(err, errlen, "out of memory");
+      return 1;
+    }
+    std::memcpy(*out, bytes.data(), bytes.size());
+    *out_len = bytes.size();
+    return 0;
+  } catch (const Failure& f) {
+    set_error(err, errlen, f.message);
+    return f.code;
+  } catch (const std::bad_alloc&) {
+    set_error(err, errlen, "out of memory");
+    return 1;
+  }
+}
+
+void ape_jpeg_free(void* p) { std::free(p); }
+
+}  // extern "C"

@@ -5,27 +5,34 @@ lacks).
 ``read_image`` returns RGB uint8 (H, W, 3) as PIL's ``convert("RGB")`` gives
 it, for:
 
+* JPEG, decoded by the port's host codec (``data.jpeg``) bit for bit as
+  PIL 12.1 on libjpeg-turbo 3.1 decodes it (no EXIF orientation applied,
+  as JAX's reader applies none);
 * PNG, decoded with the standard library's ``zlib``: 8-bit gray, gray +
   alpha, RGB, RGBA and palette (bit depth 1, 2, 4 or 8), every filter type,
   not interlaced. The alpha channel is dropped, gray is repeated over the
   three channels and a palette is looked up, as PIL converts.
 * ``.npy``: a uint8 (H, W) or (H, W, 3|4) array.
 
-JPEG, which real COCO and LVIS images are, raises ``ValueError`` naming
-ROADMAP Queue 1 #3's first item (a JPEG decoder), as does any other format
-or PNG feature the port does not decode (interlace, 16-bit samples). A file
-of a supported format that is corrupt (a bad CRC, a truncated stream)
-returns None with a warning, as JAX's reader returns None on an unreadable
-file and its mapper then drops the record.
+The format is read off the file's first bytes, as PIL sniffs it: a PNG
+named ``.jpg`` reads as PNG and a JPEG named ``.png`` as JPEG. Any other
+format, and a coding the port does not decode (interlaced or 16-bit PNG;
+arithmetic-coded, lossless, hierarchical, 12-bit or YCCK JPEG), raises
+``ValueError`` naming it. A file of a supported format that is corrupt (a
+bad CRC, a truncated stream) returns None with a warning, as JAX's reader
+returns None on an unreadable file and its mapper then drops the record.
 
 ``write_png`` writes gray, RGB or RGBA uint8 arrays (filter type 0 or 1 per
-row, alternating, so the reader's filters are exercised); the tests and
-``chip_smoke.py`` write their datasets with it.
+row, alternating, so the reader's filters are exercised). ``write_image``
+is the counterpart of PIL's ``Image.fromarray(x).save(path)``: ``.jpg`` and
+``.jpeg`` through ``encode_jpeg`` (PIL's bytes), ``.png`` through
+``write_png`` (the same pixels, not PIL's bytes).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import struct
 import zlib
 from typing import Optional
@@ -35,8 +42,7 @@ import numpy as np
 logger = logging.getLogger("ape_tpu_torch")
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-JPEG_QUEUED = ("JPEG is not decoded by the port yet (ROADMAP Queue 1 #3, item 1: nvJPEG on "
-               "the card or a NumPy baseline decoder); convert the dataset's images to PNG")
+JPEG_MAGIC = b"\xff\xd8\xff"  # PIL's JpegImagePlugin._accept
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG color type -> samples a pixel
 
 
@@ -165,8 +171,9 @@ def decode_png(data: bytes) -> np.ndarray:
 
 
 def read_image(file_name: str) -> Optional[np.ndarray]:
-    """RGB uint8 (H, W, 3) of a PNG or ``.npy`` file (module docstring); None
-    with a warning for a corrupt one; ValueError for JPEG or another format."""
+    """RGB uint8 (H, W, 3) of a JPEG, PNG or ``.npy`` file (module
+    docstring); None with a warning for a corrupt one; ValueError for another
+    format or a coding the port does not decode."""
     if str(file_name).endswith(".npy"):
         try:
             arr = np.load(file_name)
@@ -181,15 +188,35 @@ def read_image(file_name: str) -> Optional[np.ndarray]:
             arr[..., :1], 3, axis=2)
     with open(file_name, "rb") as f:
         data = f.read()
-    if data[:3] == b"\xff\xd8\xff" or str(file_name).lower().endswith((".jpg", ".jpeg")):
-        raise ValueError(f"{file_name}: {JPEG_QUEUED}")
-    if not data.startswith(PNG_MAGIC):
-        raise ValueError(f"{file_name}: the port reads PNG and .npy images only")
+    if data.startswith(JPEG_MAGIC):
+        from ape_tpu_torch.data.jpeg import decode_jpeg as decode
+    elif data.startswith(PNG_MAGIC):
+        decode = decode_png
+    else:
+        raise ValueError(f"{file_name}: the port reads JPEG, PNG and .npy images only")
     try:
-        return decode_png(data)
+        return decode(data)
     except CorruptImage as e:
         logger.warning(f"failed to read {file_name}: {e}")
         return None
+
+
+def write_image(file_name: str, image: np.ndarray) -> None:
+    """Write a uint8 (H, W) or (H, W, 3) image as PIL's
+    ``Image.fromarray(image).save(file_name)`` does, by its extension:
+    ``.jpg``/``.jpeg`` as JPEG (PIL's bytes), ``.png`` as PNG."""
+    ext = os.path.splitext(str(file_name))[1].lower()
+    if ext in (".jpg", ".jpeg"):
+        from ape_tpu_torch.data.jpeg import encode_jpeg
+
+        data = encode_jpeg(image)
+        with open(file_name, "wb") as f:
+            f.write(data)
+    elif ext == ".png":
+        write_png(file_name, image)
+    else:
+        raise ValueError(f"{file_name}: the port writes .jpg, .jpeg and .png images, not "
+                         f"{ext or 'a file without an extension'}")
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

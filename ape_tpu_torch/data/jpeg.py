@@ -1,0 +1,74 @@
+"""JPEG decoding and encoding on the host CPU without PIL: a ctypes binding
+of the port's C++ codec (``csrc/jpeg_host.cpp``, built at first use by
+``ops._build.host_library`` with the host compiler; a failed build raises).
+
+``decode_jpeg`` gives what ``np.asarray(PIL.Image.open(f).convert("RGB"))``
+gives under PIL 12.1 on libjpeg-turbo 3.1, bit for bit: baseline, extended
+and progressive Huffman JPEG, restart markers, 8- and 16-bit quantization
+tables, any integral sampling factors, gray, YCbCr, Adobe RGB and Adobe
+CMYK. No EXIF orientation is applied (JAX's reader applies none). A damaged
+or truncated stream raises ``image_io.CorruptImage``; arithmetic coding,
+lossless, hierarchical, 12-bit, YCCK and progressive files that would take
+libjpeg's block smoothing raise ``ValueError`` naming the feature.
+
+``encode_jpeg`` writes the bytes of ``PIL.Image.fromarray(x).save(f)`` with
+no options (quality 75, 4:2:0 for RGB, standard Huffman tables).
+
+Each call releases the GIL while it runs (ctypes), so loader and evaluator
+threads decode beside the step.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+from ape_tpu_torch.data.image_io import CorruptImage
+from ape_tpu_torch.ops._build import host_library
+
+_ERR_LEN = 512
+
+
+def _raise(rc: int, err, what: str):
+    message = f"{what}: {err.value.decode(errors='replace')}"
+    raise CorruptImage(message) if rc == 1 else ValueError(message)
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> RGB uint8 (H, W, 3), as PIL's ``convert("RGB")`` of them."""
+    lib = host_library()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    width, height = ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    rc = lib.ape_jpeg_decode(data, len(data), ctypes.byref(out), ctypes.byref(width),
+                             ctypes.byref(height), err, _ERR_LEN)
+    if rc != 0:
+        _raise(rc, err, "JPEG decode")
+    try:
+        return np.ctypeslib.as_array(out, (height.value, width.value, 3)).copy()
+    finally:
+        lib.ape_jpeg_free(out)
+
+
+def encode_jpeg(image: np.ndarray) -> bytes:
+    """uint8 (H, W) or (H, W, 3) -> the JPEG bytes PIL's ``save`` writes for it."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or image.ndim not in (2, 3) or (
+            image.ndim == 3 and image.shape[2] != 3):
+        raise ValueError(f"encode_jpeg takes uint8 (H, W) or (H, W, 3), not {image.dtype} "
+                         f"{image.shape}")
+    image = np.ascontiguousarray(image)
+    lib = host_library()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    size = ctypes.c_size_t()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    channels = 1 if image.ndim == 2 else 3
+    rc = lib.ape_jpeg_encode(image.ctypes.data, image.shape[1], image.shape[0], channels,
+                             ctypes.byref(out), ctypes.byref(size), err, _ERR_LEN)
+    if rc != 0:
+        _raise(rc, err, "JPEG encode")
+    try:
+        return ctypes.string_at(out, size.value)
+    finally:
+        lib.ape_jpeg_free(out)

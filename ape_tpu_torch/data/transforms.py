@@ -33,6 +33,7 @@ so this module reproduces PIL 12.1's results bit for bit in NumPy:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -41,10 +42,12 @@ import numpy as np
 PRECISION_BITS = 32 - 8 - 2  # PIL's fixed point for 8-bit resampling
 
 
+@functools.lru_cache(maxsize=256)
 def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
     """PIL's ``precompute_coeffs`` for the bilinear filter: per output
     pixel the first input tap (out_size,) and the tap weights (out_size,
-    ksize), zero past the taps that lie inside the input."""
+    ksize), zero past the taps that lie inside the input. Cached by size,
+    read-only."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = 1.0 * filterscale
@@ -62,6 +65,7 @@ def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
             ww += w
         starts[xx] = xmin
         weights[xx, :xmax] = [w / ww for w in k] if ww != 0.0 else k
+    starts.flags.writeable = weights.flags.writeable = False
     return starts, weights
 
 
@@ -72,12 +76,15 @@ def _fixed_point(weights: np.ndarray) -> np.ndarray:
     return np.where(scaled < 0, scaled - 0.5, scaled + 0.5).astype(np.int64)
 
 
-def _resample(x: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample(x: np.ndarray, out_size: int, axis: int, keep: slice = slice(None)) -> np.ndarray:
     """One PIL pass along ``axis`` of a float32 or uint8 array: the taps
     summed in PIL's order (a tap whose weight is 0 everywhere is skipped:
-    it would add 0)."""
+    it would add 0). ``keep``: the output pixels to compute (each depends
+    on its own taps only)."""
     in_size = x.shape[axis]
     starts, weights = _coefficients(in_size, out_size)
+    starts, weights = starts[keep], weights[keep]
+    out_size = len(starts)
     integer = x.dtype == np.uint8
     coeffs = _fixed_point(weights) if integer else weights
     shape = [1] * x.ndim
@@ -97,17 +104,16 @@ def _resample(x: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return acc.astype(np.float32)
 
 
-def pil_resize(x: np.ndarray, h: int, w: int) -> np.ndarray:
+def pil_resize(x: np.ndarray, h: int, w: int, rows: slice = slice(None),
+               cols: slice = slice(None)) -> np.ndarray:
     """``np.asarray(Image.fromarray(x).resize((w, h), Image.BILINEAR))`` for
     a float32 or uint8 array (..., H, W): columns first, then rows; a side
-    that keeps its size is not resampled."""
+    that keeps its size is not resampled. ``rows`` and ``cols`` crop the
+    result, and only the crop is computed."""
     if x.dtype not in (np.float32, np.uint8):
         raise TypeError(f"pil_resize takes float32 or uint8 maps, not {x.dtype}")
-    if x.shape[-1] != w:
-        x = _resample(x, w, x.ndim - 1)
-    if x.shape[-2] != h:
-        x = _resample(x, h, x.ndim - 2)
-    return x
+    x = _resample(x, w, x.ndim - 1, cols) if x.shape[-1] != w else x[..., cols]
+    return _resample(x, h, x.ndim - 2, rows) if x.shape[-2] != h else x[..., rows, :]
 
 
 def resize_image(img: np.ndarray, h: int, w: int) -> np.ndarray:

@@ -9,6 +9,11 @@ include, so a changed file rebuilds and an unchanged build loads at once.
 Nothing is compiled when a module is imported: the first kernel launch
 builds. A failed build raises.
 
+``host_library`` builds the host-side C++ sources (``csrc/*.cpp``: the JPEG
+codec) with the host compiler (``$CXX``, else ``c++`` or ``g++``) into a
+library of their own beside it, keyed the same way; it needs no CUDA, so it
+builds and runs on any machine, the CPU-only one included.
+
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
 where it launches its kernel and nowhere else.
 """
@@ -31,6 +36,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libape_tpu_torch_kernels.so"
+HOST_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared")
+HOST_LIB_NAME = "libape_tpu_torch_host.so"
 
 LAUNCHES = {"msda_fwd": 0, "msda_fwd_window": 0, "msda_bwd": 0, "msda_bwd_offatt": 0, "msda_bwd_value": 0,
             "attn_fwd": 0, "attn_bwd_dkv": 0, "attn_bwd_dq": 0,
@@ -58,12 +65,17 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def build_dir() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):  # sources and the headers they include
+def _digest(flags, files) -> str:
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for src in files:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_ROOT / digest.hexdigest()[:16]
+    return digest.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    # the sources and the headers they include
+    return BUILD_ROOT / _digest(NVCC_FLAGS, sorted(CSRC.glob("*.cu*")))
 
 
 def build() -> Path:
@@ -147,6 +159,54 @@ def library() -> ctypes.CDLL:
     lib.ape_msda_pair_probe.restype = i
     lib.ape_attn_fwd_tiles.argtypes = [p, p, p, p, i, i, i, f, i, i, i, p]
     lib.ape_attn_fwd_tiles.restype = i
+    return lib
+
+
+def _host_compiler() -> str:
+    for name in (os.environ.get("CXX"), "c++", "g++"):
+        found = shutil.which(name) if name else None
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler found ($CXX, c++, g++): the host library needs one")
+
+
+def host_build() -> Path:
+    """Compile ``csrc/*.cpp`` into the host library unless this exact build
+    exists; return its path. A failed build raises."""
+    sources = sorted(CSRC.glob("*.cpp"))
+    out_dir = BUILD_ROOT / f"host-{_digest(HOST_FLAGS, sources)}"
+    lib = out_dir / HOST_LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".{HOST_LIB_NAME}.{os.getpid()}"
+    cmd = [_host_compiler(), *HOST_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    (out_dir / "c++.log").write_text(f"{' '.join(cmd)}\n{proc.stdout}")
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"host library build failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def host_library() -> ctypes.CDLL:
+    """The loaded host library, built on first use. ctypes releases the GIL
+    for each call, so threads decode and encode beside each other."""
+    lib = ctypes.CDLL(str(host_build()))
+    p, i, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    out = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))
+    # data, length, out, width, height, err, errlen
+    lib.ape_jpeg_decode.argtypes = [p, size, out, ctypes.POINTER(i), ctypes.POINTER(i),
+                                    ctypes.c_char_p, i]
+    lib.ape_jpeg_decode.restype = i
+    # pixels, width, height, channels, out, out_len, err, errlen
+    lib.ape_jpeg_encode.argtypes = [p, i, i, i, out, ctypes.POINTER(size), ctypes.c_char_p, i]
+    lib.ape_jpeg_encode.restype = i
+    lib.ape_jpeg_free.argtypes = [p]
+    lib.ape_jpeg_free.restype = None
     return lib
 
 

@@ -8,7 +8,8 @@ stage, the host merge and evaluators; APE-L on the non-CLIP EVA-02-L,
 serving and training), the ResNet-50 family's (APE-DETA R50 with and
 without fusion, DETA R50, Deformable-DETR R50), then the other ViT trees'
 (ViTDet, EVA-01, ViT-E and the LSJ-1536 trees serving; ViTDet-L training),
-then ``train_net`` on APE-Ti's COCO recipe (train, resume, evaluate).
+then ``train_net`` on APE-Ti's COCO recipe (train, resume, evaluate) on
+JPEG images, then the prompted demo and the JSON visualiser on JPEGs.
 
     python3 chip_smoke.py
 
@@ -236,7 +237,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 17. train_net: ``python -m ape_tpu_torch.tools.train_net`` on APE-Ti's COCO
     recipe (TN_CONFIG, read by the port's ``LazyConfig``; 1024^2 LSJ, 900
     queries, masks, the 4-scale pyramid, bf16) through
-    ``train_net.main`` on a synthetic COCO layout of PNG files under
+    ``train_net.main`` on a synthetic COCO layout of JPEG files (the port's
+    encoder; the mapper reads them through its decoder) under
     ``$DETECTRON2_DATASETS`` (8 train and 4 val images, 80 categories,
     polygons and a crowd RLE): TN_STEPS steps at batch 2 from seeded
     weights, then ``--resume`` (the first run's state, its checkpoint and
@@ -246,6 +248,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     checkpoints kept, COCOEvaluator's AP 100 on the ground truth itself;
     s/step, data wait, the mapper's seconds an image, host syncs, peak
     memory, checkpoint seconds, eval images/s by stage;
+    demo: the host JPEG codec's digests (a seeded 640x480 image encoded
+    and decoded by the port against the SHA-256s of PIL's bytes and pixels,
+    and PIL's pixels of small embedded progressive, restart-marker, h1v2
+    and CMYK files, ``JPEG_SAMPLES``) and its decode and encode ms; then
+    ``python -m ape_tpu_torch.demo.demo_lazy`` through ``demo_lazy.main`` on
+    TN_CONFIG with train_net's ``model_final.pth``, a text prompt, masks and
+    sem_seg, on three JPEGs (landscape, portrait, gray): each request
+    launches exactly an eval image's kernels, every overlay decodes to its
+    input's shape, ``predictions.json`` holds every instance of each
+    request; each request's device, draw and write seconds; then
+    ``tools.visualize_json_results`` on that file, one overlay an image;
 18. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
     form at both pyramids and both offset draws, its per-pair suites, and
     the ``pair`` and ``rows`` ops by device time under each body, each query
@@ -269,7 +282,7 @@ over all of them, ``launches_main`` over the serving and training phases
 alone, 5-17, ``launches_default`` over those of them that run the default
 flags: slice, serve, train, full serve, full train with the merged backward,
 L_D's slice, serve, train and f32 train, the ADE20k and APE-L phases but the
-f32 ones, R50's, the ViT trees' and train_net's; error, time, plain and library
+f32 ones, R50's, the ViT trees', train_net's and the demo's; error, time, plain and library
 time, and bound; for K1, K3, K4, K6, K7, K8 and K9, whose D = 32 body runs
 there, the general body's time as ``general_ms``; for K6 and K7 also the
 op's device time, ``device_ms``; for K5, K5-dkv and K5-dq their bf16
@@ -3505,6 +3518,74 @@ TN_STEPS, TN_RESUME_STEPS, TN_PERIOD = 6, 8, 3
 TN_STEP_LAUNCHES = {"msda_fwd": 12, "msda_bwd": 12, "attn_fwd": 4, "attn_bwd_dkv": 4,
                     "attn_bwd_dq": 4}
 
+# --- demo: the host JPEG codec, the prompted demo CLI, the JSON visualiser ---
+# SHA-256 of the bytes PIL's save writes for jpeg_check_image() and of the
+# pixels PIL decodes from them (tests/test_torch_jpeg.py asserts both)
+JPEG_CHECK_DIGESTS = {"jpeg": "5bfe417a3868de36079d56074176eecfbacdd2737b34c898d3bd7adc9370ae58",
+                      "pixels": "2a666c81350fbb8ded54822ed0323accf6a4dbdc095de03d472bb0ad6373c781"}
+# small files the encoder cannot make (PIL's progressive, restart-marker and
+# CMYK files and an h1v2 file of the test's coefficient writer, 24x16), as
+# base64, each with the SHA-256 of the pixels PIL decodes from it
+JPEG_SAMPLES = {
+    "progressive": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIs"
+        "IxwcKDcpLDAxNDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+        "MjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjL/wgARCAAQABgDASIAAhEBAxEB/8QAFgABAQEAAAAAAAAAAAAAAAAA"
+        "BgAF/8QAFwEAAwEAAAAAAAAAAAAAAAAAAQQFBv/aAAwDAQACEAMQAAABI6SLUlrHZtHSf//EABoQAAIDAQEAAAAA"
+        "AAAAAAAAAAIDAAQRARP/2gAIAQEAAQUCGsWrr9nKpYKB1SRniM//xAAYEQADAQEAAAAAAAAAAAAAAAAAAQUEEf/a"
+        "AAgBAwEBPwHDSfRUj//EABcRAQEBAQAAAAAAAAAAAAAAAAEABAL/2gAIAQIBAT8BdS3Olv/EABcQAQADAAAAAAAA"
+        "AAAAAAAAABARITH/2gAIAQEABj8Cokw//8QAGxAAAgMBAQEAAAAAAAAAAAAAAAERITFRkaH/2gAIAQEAAT8hfqdf"
+        "SVe8RhIQxy8UEm/AnLNUH//aAAwDAQACAAMAAAAQfD//xAAYEQACAwAAAAAAAAAAAAAAAAAAAREhMf/aAAgBAwEB"
+        "PxDUQ+LP/8QAFxEBAAMAAAAAAAAAAAAAAAAAABExQf/aAAgBAgEBPxDORqf/xAAfEAEAAgICAgMAAAAAAAAAAAAB"
+        "ESEAMVGRQXFhocH/2gAIAQEAAT8QhykSO/lH3xg3GIUF1uSZ8fuMK0LFRUmq45hpyTXBJsDEnGj3goGEJ2L7jvGl"
+        "vQiHnwu8/9k="
+        , "2af98c53304e6acda2665d13e8103da6b8cfc8c1f40ec1df1ef9a5fefcc1665c"),
+    "restart": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIs"
+        "IxwcKDcpLDAxNDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+        "MjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjL/wAARCAAQABgDASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAA"
+        "AAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAk"
+        "M2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKT"
+        "lJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QA"
+        "HwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdh"
+        "cRMiMoEIFEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hp"
+        "anN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk"
+        "5ebn6Onq8vP09fb3+Pn6/90ABAAB/9oADAMBAAIRAxEAPwDyO18MXbzYjRiVGQeu71x+vpXS6f4clDneMNjhVHPH"
+        "XIznt/WvRLfQ7Z5s8q2NqleoBxkenQfWuo0vRrUNh4gBgj5fqOfzx+dfMTzWcuh52R8Sy5tUf//Qz4vC90YhIV2r"
+        "xyCSCSM8cenrg8GivbE0W2ZT8p+ZdvbGD69ietFfNUszlbY+3hxK7an/2Q=="
+        , "2af98c53304e6acda2665d13e8103da6b8cfc8c1f40ec1df1ef9a5fefcc1665c"),
+    "cmyk": (
+        "/9j/7gAOQWRvYmUAZAAAAAAA/9sAQwAIBgYHBgUIBwcHCQkICgwUDQwLCwwZEhMPFB0aHx4dGhwcICQuJyAiLCMc"
+        "HCg3KSwwMTQ0NB8nOT04MjwuMzQy/8AAFAgAEAAYBEMRAE0RAFkRAEsRAP/EAB8AAAEFAQEBAQEBAAAAAAAAAAAB"
+        "AgMEBQYHCAkKC//EALUQAAIBAwMCBAMFBQQEAAABfQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEVUtHwJDNi"
+        "coIJChYXGBkaJSYnKCkqNDU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6g4SFhoeIiYqSk5SV"
+        "lpeYmZqio6Slpqeoqaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5+v/aAA4E"
+        "QwBNAFkASwAAPwDxTRf+PmNkVvOQ56ZyDxkemCe3PPtXmKfD3U5ZWWKNiqrkHruPfGPx4JH6jPgccYcMSegyADz/"
+        "AJ/z617/AF7v4NAeR5CY0i8th/qzknI565H456dsikHgW5V/LlDeb2ROvAOcgnqdvqBznsQNS3tTH+9CspQ5UM21"
+        "mKn7232B98YPuaK9stN4t1WRAjDqA2R68dPXv/8AXp//AAr2+eETqAsWBhgSwYkE4B2+nY4Pyniup0+0kSSMyQuP"
+        "MAKgKxXJHPQ8DHqOck/Qr4d0JQ12gRWM29WTaCTx2+nX36Yr6sfwnYSOTgr8hRSvUK2M+3RQM9fc1zNnZKZAzTNH"
+        "tXll4AG4enX1x69aK928GyDBgf8AdxKuVClWychenQZ3Acdc8inReF9PR9zwAkgg7TgDkEHjHORnpXR6XpqExqYw"
+        "saMNrKmSdw5OcdPujOcYx75K9stAwt03HLEZJ9/f3/zxTm8Lac+/KEbkKdiMHrkHgnr27109rpnmY+zhmQgH95tC"
+        "Y4yS38WTg4Bz9eaK/9k="
+        , "ed24eda6485289e6cad9d761689ddb4b7f7752a459e1eedba763c31d1b1a3f2c"),
+    "h1v2": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAQEBAQEBAQEBAQEBAQEBAQEBAQEBAQEBAQEBAQEBAQEBAQEBAQEBAQE"
+        "BAQEBAQEBAQEBAQEBAQEBAQEBAQEBAT/2wBDAQQEBAQEBAQEBAQEBAQEBAQEBAQEBAQEBAQEBAQEBAQEBAQEBAQE"
+        "BAQEBAQEBAQEBAQEBAQEBAQEBAQEBAQEBAT/wAARCAAQABgDARIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAA"
+        "AAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAk"
+        "M2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKT"
+        "lJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/9oA"
+        "DAMBAAIAAwAAPwDL/wCvn/tj/wC3v/Hn/n/n4/iroP8A95+4pf8AkIL/ANwv/uGz/wDP/wD2d/n/ANLawP8AP/Et"
+        "/wCn/wD54f8A7/S64b/R/tH/AJC/s7/P+f8AsF1P/wATD/R/+P3/AMj/APTh/n7F/wBxSu4//jf+nH/Sa9Wvv+Qb"
+        "+5/9s/8AyH/Zlh/zEq9X/wCWnkf9/p/+fP8A6h3/AH9+w/6P/wCRmrz3zv8AU+d/n/l4/wCW3/X1/wBO3/LP/lrX"
+        "If5/+v8A2bpf+f8At9rhf/A7/P8A7Y1//9k="
+        , "acd5b700ae85ba0d8f50e314e058e0654fa184166f24ef5b34b3f6e8b405f66a"),
+}
+CODEC_ITERS = 20  # timed decodes and encodes of the 640x480 image (median)
+DEMO_PROMPT = "person,dog,frisbee"
+DEMO_INPUTS = (("landscape.jpg", (480, 640), "RGB"), ("portrait.jpg", (640, 427), "RGB"),
+               ("gray.jpg", (480, 640), "L"))
+
 
 def _tn_polygon(rng, h: int, w: int):
     """A convex-ish polygon of 5-9 vertices inside an (h, w) image, flat."""
@@ -3521,13 +3602,13 @@ def _tn_polygon(rng, h: int, w: int):
 def write_coco_layout(root: Path, seed: int = SEED):
     """A synthetic COCO layout under ``root`` as ``configs/common/data/coco.py``
     reads it: ``coco/annotations/instances_{train,val}2017.json`` and
-    ``coco/{train,val}2017/*.png`` (the port's PNG writer), TN_TRAIN and TN_VAL
+    ``coco/{train,val}2017/*.jpg`` (the port's JPEG encoder), TN_TRAIN and TN_VAL
     images of TN_SIZES, TN_CATEGORIES categories, 1-12 objects an image with
     polygon segmentations drawn into the image, one crowd region as RLE in
     each split, one train image without annotations."""
     import numpy as np
 
-    from ape_tpu_torch.data.image_io import write_png
+    from ape_tpu_torch.data.image_io import write_image
     from ape_tpu_torch.data.transforms import polygons_to_mask, rle_encode
 
     rng = np.random.RandomState(seed)
@@ -3555,10 +3636,23 @@ def write_coco_layout(root: Path, seed: int = SEED):
                              "bbox": [x0, y0, float(xs.max()) + 1 - x0, float(ys.max()) + 1 - y0],
                              "area": float(mask.sum()), "iscrowd": int(crowd),
                              "segmentation": seg})
-            write_png(str(root / "coco" / split / f"{i:012d}.png"), img)
-            images.append({"id": i + 1, "file_name": f"{i:012d}.png", "height": h, "width": w})
+            write_image(str(root / "coco" / split / f"{i:012d}.jpg"), img)
+            images.append({"id": i + 1, "file_name": f"{i:012d}.jpg", "height": h, "width": w})
         with open(root / "coco" / "annotations" / f"instances_{split}.json", "w") as f:
             json.dump({"images": images, "annotations": anns, "categories": cats}, f)
+
+
+def jpeg_check_image(seed: int = SEED, h: int = 480, w: int = 640):
+    """The codec check's seeded RGB image, 640x480 by default: smooth
+    gradients plus noise, stretched past 0..255 so that colours saturate
+    (the formula of ``tests/test_torch_jpeg.image``)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx * 255.0 / (w - 1), yy * 255.0 / (h - 1), (xx + yy) * 127.0 / (w + h - 2)],
+                    -1)
+    return np.clip(base * 1.6 - 60 + rng.randn(h, w, 3) * 25, 0, 255).astype(np.uint8)
 
 
 def _tn_metrics(out: Path):
@@ -3799,7 +3893,128 @@ def train_net_phase(dev, card):
         metrics=metrics, closed_form=closed, eval_s=eval_s,
         launches_per_image=FORWARD_LAUNCHES, card=card)
     log(phase="train_net_done", seconds=time.perf_counter() - t_phase)
-    return train_launches, resume_launches, eval_launches
+    return [train_launches, resume_launches, eval_launches], out / "model_final.pth"
+
+
+def _sha(data) -> str:
+    import hashlib
+
+    return hashlib.sha256(data).hexdigest()
+
+
+def codec_check() -> dict:
+    """The host JPEG codec, as built on the running machine, against PIL's digests
+    (JPEG_CHECK_DIGESTS, JPEG_SAMPLES), and its decode and encode ms of
+    the 640x480 4:2:0 image (median of CODEC_ITERS, host clock)."""
+    import base64
+
+    import numpy as np
+
+    from ape_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+
+    img = jpeg_check_image()
+    data = encode_jpeg(img)
+    got = {"jpeg": _sha(data), "pixels": _sha(decode_jpeg(data).tobytes())}
+    if got != JPEG_CHECK_DIGESTS:
+        fail(f"JPEG codec: digests {got}, PIL's {JPEG_CHECK_DIGESTS}")
+    for name, (b64, digest) in JPEG_SAMPLES.items():
+        pixels = decode_jpeg(base64.b64decode(b64))
+        if _sha(pixels.tobytes()) != digest:
+            fail(f"JPEG codec: the {name} sample decodes to {_sha(pixels.tobytes())}, PIL's "
+                 f"pixels are {digest}")
+
+    def median_ms(fn, arg):
+        times = []
+        for _ in range(CODEC_ITERS):
+            t0 = time.perf_counter()
+            fn(arg)
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)) * 1e3
+
+    return {"decode_ms": median_ms(decode_jpeg, data), "encode_ms": median_ms(encode_jpeg, img),
+            "jpeg_bytes": len(data), "samples": sorted(JPEG_SAMPLES)}
+
+
+def demo_phase(dev, card, checkpoint: Path):
+    """The prompted demo CLI (``demo_lazy.main``) on TN_CONFIG with the
+    train_net phase's ``checkpoint``: DEMO_INPUTS written as JPEG by the
+    port, DEMO_PROMPT, masks and sem_seg. Gates: the codec's digests
+    (``codec_check``), exactly FORWARD_LAUNCHES a request, each overlay
+    decoding to its input's shape, ``predictions.json`` holding every
+    instance of each request (score at least 0.05), and
+    ``visualize_json_results`` writing one overlay an image of the file.
+    Returns the launches."""
+    import tempfile
+
+    import numpy as np
+
+    from ape_tpu_torch.data.image_io import read_image, write_image
+    from ape_tpu_torch.demo import demo_lazy, predictor_lazy
+    from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.tools import visualize_json_results
+
+    t_phase = time.perf_counter()
+    codec = codec_check()
+    tmp = Path(tempfile.mkdtemp(prefix="demo_"))
+    (tmp / "in").mkdir()
+    shapes = {}
+    for i, (name, (h, w), mode) in enumerate(DEMO_INPUTS):
+        img = jpeg_check_image(SEED + 1 + i, h, w)
+        write_image(str(tmp / "in" / name), np.ascontiguousarray(img[..., 1]) if mode == "L"
+                    else img)
+        shapes[name] = (h, w, 3)
+    per_request = []
+    run_on_image = predictor_lazy.VisualizationDemo.run_on_image
+
+    def counted(self, *args, **kwargs):
+        before = dict(_build.LAUNCHES)
+        out = run_on_image(self, *args, **kwargs)
+        per_request.append({k: _build.LAUNCHES[k] - before[k] for k in before})
+        return out
+
+    out = tmp / "out"
+    argv = ["--config-file", str(ROOT / TN_CONFIG), "--input", str(tmp / "in" / "*.jpg"),
+            "--output", str(out), "--text-prompt", DEMO_PROMPT, "--with-mask", "--with-sseg",
+            "--init-checkpoint", str(checkpoint)]
+    predictor_lazy.VisualizationDemo.run_on_image = counted
+    _build.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        records = demo_lazy.main(argv)
+        demo_s = time.perf_counter() - t0
+    finally:
+        predictor_lazy.VisualizationDemo.run_on_image = run_on_image
+    launches = dict(_build.LAUNCHES)
+    want = {k: FORWARD_LAUNCHES.get(k, 0) for k in _build.LAUNCHES}
+    if len(records) != len(DEMO_INPUTS) or any(r != want for r in per_request):
+        fail(f"demo: {len(records)} requests launched {per_request}, expected "
+             f"{len(DEMO_INPUTS)} of {want}")
+    for name, shape in shapes.items():
+        vis = read_image(str(out / name))
+        if vis is None or vis.shape != shape:
+            fail(f"demo: the overlay {name} decodes to {None if vis is None else vis.shape}, "
+                 f"expected {shape}")
+    rows = json.load(open(out / "predictions.json")) if (out / "predictions.json").exists() else []
+    counts = {name: sum(r["image_id"] == name for r in rows) for name in shapes}
+    instances = {Path(r["path"]).name: r["instances"] for r in records}
+    if counts != instances or any(r["score"] < 0.05 or len(r["bbox"]) != 4 for r in rows):
+        fail(f"demo: predictions.json rows an image {counts}, instances {instances}")
+    t0 = time.perf_counter()
+    written = visualize_json_results.main(["--input", str(out / "predictions.json"),
+                                           "--image-root", str(tmp / "in"),
+                                           "--output", str(tmp / "vis")]) if rows else []
+    vis_s = time.perf_counter() - t0
+    drawn = {Path(p).name for p in written}
+    if drawn != {name for name, n in counts.items() if n} or any(
+            read_image(p).shape != shapes[Path(p).name] for p in written):
+        fail(f"visualize_json_results: wrote {sorted(drawn)} for rows {counts}")
+    log(phase="demo", config=TN_CONFIG, prompt=DEMO_PROMPT, codec=codec,
+        requests=[{k: v for k, v in r.items() if k != "path"} | {"image": Path(r["path"]).name}
+                  for r in records],
+        launches_per_request=FORWARD_LAUNCHES, rows=len(rows), demo_s=demo_s,
+        visualize_s=vis_s, visualized=sorted(drawn), card=card)
+    log(phase="demo_done", seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def race_phase(dev, card):
@@ -3944,7 +4159,9 @@ def main():
     default_runs.append(vitl_train_phase(dev, card))
     default_runs.append(vitl_train_f32_phase(dev))
     log(phase="vit_done", seconds=time.perf_counter() - t0)
-    default_runs += train_net_phase(dev, card)
+    train_net_runs, final_checkpoint = train_net_phase(dev, card)
+    default_runs += train_net_runs
+    default_runs.append(demo_phase(dev, card, final_checkpoint))
     main_runs = default_runs + flag_runs
     runs = list(main_runs)
     runs.append(race_phase(dev, card))

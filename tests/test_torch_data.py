@@ -68,9 +68,9 @@ def test_png_writer_files_and_errors(tmp_path):
                                       np.asarray(Image.open(tmp_path / "a.png").convert("RGB")))
     np.save(tmp_path / "b.npy", arr[..., :3])
     np.testing.assert_array_equal(read_image(str(tmp_path / "b.npy")), arr[..., :3])
-    Image.fromarray(arr[..., :3]).save(tmp_path / "c.jpg")
-    with pytest.raises(ValueError, match="JPEG.*ROADMAP"):
-        read_image(str(tmp_path / "c.jpg"))
+    Image.fromarray(arr[..., :3]).save(tmp_path / "c.jpg")  # JPEG: decoded as PIL decodes it
+    np.testing.assert_array_equal(read_image(str(tmp_path / "c.jpg")),
+                                  np.asarray(Image.open(tmp_path / "c.jpg").convert("RGB")))
     data = bytearray((tmp_path / "a.png").read_bytes())
     data[40] ^= 0xFF  # a damaged chunk: its CRC fails
     (tmp_path / "d.png").write_bytes(bytes(data))
@@ -259,6 +259,24 @@ def test_mapper_equals_jax(dataset, is_train):
     kw = dict(is_train=is_train, image_size=96, max_gt=6, mask_size=24, seed=3)
     port, jax_ = DatasetMapperDETR(**kw), j_mapper.DatasetMapperDETR(**kw)
     for rep in range(3):
+        for d in dicts:
+            _same_example(port(d), jax_(d))
+
+
+@pytest.mark.parametrize("is_train", [True, False])
+def test_mapper_on_jpeg_equals_jax(tmp_path, is_train):
+    """The same records with their images saved as JPEG by PIL (4:2:0 and,
+    for one, progressive): the port's mapper, reading them through its own
+    decoder, equals JAX's, which reads them through PIL, bit for bit."""
+    js, root = write_dataset(tmp_path / "coco", n=4, seed=5)
+    dicts = load_coco_json(js, root)
+    for k, d in enumerate(dicts):
+        jpg = d["file_name"][:-4] + ".jpg"
+        Image.open(d["file_name"]).save(jpg, quality=90, progressive=k == 1)
+        d["file_name"] = jpg
+    kw = dict(is_train=is_train, image_size=96, max_gt=6, mask_size=24, seed=3)
+    port, jax_ = DatasetMapperDETR(**kw), j_mapper.DatasetMapperDETR(**kw)
+    for rep in range(2):
         for d in dicts:
             _same_example(port(d), jax_(d))
 
