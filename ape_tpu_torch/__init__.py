@@ -26,9 +26,11 @@ It is driven as APE is, by ``python -m ape_tpu_torch.tools.train_net
 --config-file <config>``: the repository's config files read without JAX
 (``config``), the model and criterion built from them (``model_zoo``), a
 COCO-format dataset read from JPEG or PNG without PIL (``data``: the JPEG
-codec is C++ for the host, ``csrc/jpeg_host.cpp``), the trainer,
-checkpoints and the COCO and LVIS evaluators (``engine``, ``checkpoint``,
-``evaluation``); and by ``python -m ape_tpu_torch.demo.demo_lazy``, the
+codec is C++ for the host, ``csrc/jpeg_host.cpp``), the builtin datasets
+registered under ``$DETECTRON2_DATASETS`` (``data.datasets.builtin``), the
+semantic, panoptic and copy-paste mappers of the data mixes, the trainer,
+checkpoints and every evaluation route (COCO, LVIS, OpenImages, semantic,
+referring, panoptic; ``engine``, ``checkpoint``, ``evaluation``); and by ``python -m ape_tpu_torch.demo.demo_lazy``, the
 prompted demo, and ``tools.visualize_json_results`` (``demo``,
 ``utils.draw``).
 """

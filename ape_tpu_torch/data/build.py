@@ -7,12 +7,18 @@ maps on a prefetch thread, as JAX's does; an exception there reaches the
 step that waits for the batch and fails it (JAX's thread would die and
 leave the step waiting), and no batch is skipped. A record whose mapper
 returns None, or whose example holds no valid target, is dropped, as
-JAX drops it.
+JAX drops it. A group left with no records raises (JAX's loader would wait
+forever).
+
+With ``copypaste_prob`` above 0 a group's mapper is wrapped in
+``CopyPasteMapper``, which draws backgrounds from the group's own records,
+as JAX's loader does.
 
 The loader's position is part of a checkpoint: ``state_dict`` gives the
 sampler indices behind the batches handed out and the mapper's generator
-state after the last of them, ``load_state_dict`` restarts there, so a
-resumed run reads the batches the uninterrupted one would have.
+state after the last of them (the copy-paste mapper's and its base
+mapper's), ``load_state_dict`` restarts there, so a resumed run reads the
+batches the uninterrupted one would have.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from ape_tpu_torch.data.catalog import DatasetCatalog
+from ape_tpu_torch.data.copypaste import CopyPasteMapper
 from ape_tpu_torch.data.samplers import (
     ClassAwareSampler,
     InferenceSampler,
@@ -68,12 +75,22 @@ def _stack_batch(samples: List[Dict]) -> Dict:
         out["phrases"] = [s["phrases"] for s in samples]
     if "dataset_id" in samples[0]:
         out["dataset_id"] = samples[0]["dataset_id"]
+    out["copypaste"] = sum(s.get("copypaste", 0) for s in samples)  # examples pasted onto
     return out
 
 
 def _rng_state(mapper):
+    if isinstance(mapper, CopyPasteMapper):
+        return mapper.get_state()
     rng = getattr(mapper, "_rng", None)
     return None if rng is None else rng.get_state()
+
+
+def _set_rng_state(mapper, state) -> None:
+    if isinstance(mapper, CopyPasteMapper):
+        mapper.set_state(state)
+    else:
+        mapper._rng.set_state(state)
 
 
 class TrainLoader:
@@ -104,7 +121,7 @@ class TrainLoader:
         for _ in range(self._consumed):
             next(it)
         if self._mapper_state is not None:
-            self.mapper._rng.set_state(self._mapper_state)
+            _set_rng_state(self.mapper, self._mapper_state)
         consumed = self._consumed
         while True:
             batch = []
@@ -169,11 +186,15 @@ def build_detection_train_loader(
     repeat_thresh: float = 0.001, seed: int = 0, rank: int = 0, world_size: int = 1,
     dataset_id: int = 0, filter_empty: bool = True, copypaste_prob: float = 0.0,
 ):
-    if copypaste_prob > 0:
-        raise NotImplementedError("copypaste_prob > 0: the copy-paste mapper is not ported yet "
-                                  "(ROADMAP Queue 1 #3, the semantic, panoptic and copy-paste "
-                                  "mappers)")
     dicts = get_detection_dataset_dicts(dataset_names, filter_empty, dataset_id)
+    if not dicts:  # JAX's sampler would spin forever on an empty group
+        raise ValueError(f"{list(dataset_names)}: no training records"
+                         f"{' with annotations (filter_empty)' if filter_empty else ''}")
+    if copypaste_prob > 0:
+        # the reference's _copypaste loader draws backgrounds from the group's
+        # own dataset pool (build_multi_dataset_copypaste.py:402-412, flagship
+        # data config dataset_bg = the same names) at copypaste_prob=0.5
+        mapper = CopyPasteMapper(mapper, dicts, prob=copypaste_prob, seed=seed)
     if sampler_name == "RepeatFactorTrainingSampler":
         rf = repeat_factors_from_category_frequency(dicts, repeat_thresh)
         sampler = RepeatFactorTrainingSampler(rf, seed, rank, world_size)

@@ -14,6 +14,12 @@ it, for:
   three channels and a palette is looked up, as PIL converts.
 * ``.npy``: a uint8 (H, W) or (H, W, 3|4) array.
 
+``read_rgb`` is the same read raising on a corrupt file (the panoptic
+mapper's ``convert("RGB")`` of an id PNG), which ``read_image`` turns into
+None; ``read_label_map`` gives a PNG's
+stored samples as ``np.asarray(Image.open(f))`` does (the semantic labels:
+palette indices, not colours).
+
 The format is read off the file's first bytes, as PIL sniffs it: a PNG
 named ``.jpg`` reads as PNG and a JPEG named ``.png`` as JPEG. Any other
 format, and a coding the port does not decode (interlaced or 16-bit PNG;
@@ -123,8 +129,10 @@ def _unfilter(data: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> RGB uint8 (H, W, 3), PIL's ``convert("RGB")`` of it."""
+def _png_samples(data: bytes):
+    """PNG bytes -> (samples (H, W, C) uint8, color type): the stored samples
+    as PIL opens them, palette indices not looked up, gray of 2 or 4 bits
+    scaled to 0..255 and of 1 bit left 0/1."""
     header, idat, palette = None, [], None
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -142,6 +150,8 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError(f"PNG of color type {color} at bit depth {depth} is not decoded by "
                          "the port (8-bit gray, gray + alpha, RGB, RGBA; palette and gray "
                          "also at 1, 2 or 4 bits)")
+    if color == 3 and palette is None:
+        raise CorruptImage("palette image without a PLTE chunk")
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
@@ -153,33 +163,52 @@ def decode_png(data: bytes) -> np.ndarray:
         bits = np.unpackbits(rows, axis=1).reshape(height, -1, depth)[:, :width]
         weights = 1 << np.arange(depth - 1, -1, -1)
         samples = (bits * weights).sum(-1).astype(np.uint8)
-        if color == 0:  # PIL scales gray of fewer bits to 0..255
+        if color == 0 and depth > 1:  # PIL opens gray of 2 or 4 bits as L, scaled
             samples = (samples.astype(np.int64) * 255 // ((1 << depth) - 1)).astype(np.uint8)
-        pixels = samples[..., None]
-    else:
-        pixels = rows.reshape(height, width, channels)
+        return samples[..., None], color, depth, palette
+    return rows.reshape(height, width, channels), color, depth, palette
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> RGB uint8 (H, W, 3), PIL's ``convert("RGB")`` of it."""
+    pixels, color, depth, palette = _png_samples(data)
     if color == 3:
-        if palette is None:
-            raise CorruptImage("palette image without a PLTE chunk")
-        idx = pixels[..., 0]
         full = np.zeros((256, 3), np.uint8)
         full[:len(palette)] = palette
-        return full[idx]
+        return full[pixels[..., 0]]
+    if color == 0 and depth == 1:  # PIL's "1" converts to 0 and 255
+        pixels = pixels * np.uint8(255)
     if color in (0, 4):
         return np.repeat(pixels[..., :1], 3, axis=2)
     return np.ascontiguousarray(pixels[..., :3])
 
 
-def read_image(file_name: str) -> Optional[np.ndarray]:
+def read_label_map(file_name: str) -> np.ndarray:
+    """A label map as ``np.asarray(PIL.Image.open(file_name))`` gives it, for
+    a PNG: palette images give their indices (not the colours), gray its
+    values (H, W) uint8 (1-bit gray bool, as PIL's mode "1"), gray + alpha
+    (H, W, 2), RGB (H, W, 3) and RGBA (H, W, 4). Another format, and a
+    corrupt file, raise."""
+    with open(file_name, "rb") as f:
+        data = f.read()
+    if not data.startswith(PNG_MAGIC):
+        raise ValueError(f"{file_name}: the port reads label maps from PNG files only")
+    pixels, color, depth, _ = _png_samples(data)
+    if color in (0, 3):
+        return pixels[..., 0].astype(bool) if color == 0 and depth == 1 else pixels[..., 0]
+    return pixels
+
+
+def read_rgb(file_name: str) -> np.ndarray:
     """RGB uint8 (H, W, 3) of a JPEG, PNG or ``.npy`` file (module
-    docstring); None with a warning for a corrupt one; ValueError for another
-    format or a coding the port does not decode."""
+    docstring), raising ``CorruptImage`` on a corrupt one as PIL's
+    ``Image.open(file_name).convert("RGB")`` raises, and ValueError for
+    another format or a coding the port does not decode."""
     if str(file_name).endswith(".npy"):
         try:
             arr = np.load(file_name)
         except (OSError, ValueError) as e:
-            logger.warning(f"failed to read {file_name}: {e}")
-            return None
+            raise CorruptImage(str(e)) from e
         if arr.dtype != np.uint8 or arr.ndim not in (2, 3):
             raise ValueError(f"{file_name}: .npy images are uint8 (H, W) or (H, W, C)")
         if arr.ndim == 2:
@@ -194,8 +223,14 @@ def read_image(file_name: str) -> Optional[np.ndarray]:
         decode = decode_png
     else:
         raise ValueError(f"{file_name}: the port reads JPEG, PNG and .npy images only")
+    return decode(data)
+
+
+def read_image(file_name: str) -> Optional[np.ndarray]:
+    """``read_rgb``, with None and a warning for a corrupt file, as JAX's
+    reader returns None and its mapper then drops the record."""
     try:
-        return decode(data)
+        return read_rgb(file_name)
     except CorruptImage as e:
         logger.warning(f"failed to read {file_name}: {e}")
         return None

@@ -6,7 +6,9 @@ padded to ``max_gt`` with a validity mask. The record's draws come from the
 mapper's seeded ``np.random.RandomState`` in JAX's order (scale, flip, crop
 row, crop column), and every resize and rasterization is PIL's bit for bit
 (``data.transforms``), so an example equals JAX's for the same record and
-seed. The semantic mapper waits (ROADMAP Queue 1 #3).
+seed. ``DatasetMapperSemantic`` turns each class of a semantic label map
+(``read_label_map``: palette indices, not colours) into a stuff instance
+with its mask, then maps as the instance mapper does.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ape_tpu_torch.data.image_io import read_image
+from ape_tpu_torch.data.image_io import read_image, read_label_map
 from ape_tpu_torch.data.transforms import (
     TransformRecord,
     apply_to_boxes,
@@ -151,3 +153,36 @@ class DatasetMapperDETR:
             out["targets"]["masks"] = masks
         out["phrases"] = phrases
         return out
+
+
+@dataclasses.dataclass
+class DatasetMapperSemantic(DatasetMapperDETR):
+    """Semantic variant: stuff regions become instances with masks
+    (DatasetMapper_detr_semantic behavior)."""
+
+    ignore_label: int = 255
+
+    def __call__(self, record: Dict) -> Optional[Dict]:
+        if "sem_seg_file_name" not in record:
+            return super().__call__(record)
+        img = read_image(record["file_name"])
+        if img is None:
+            return None
+        sem = read_label_map(record["sem_seg_file_name"])
+        anns = []
+        for cls in np.unique(sem):
+            if cls == self.ignore_label:
+                continue
+            m = sem == cls
+            ys, xs = np.nonzero(m)
+            anns.append(
+                {
+                    "bbox": [xs.min(), ys.min(), xs.max() + 1, ys.max() + 1],
+                    "category_id": int(cls),
+                    "segmentation": None,
+                    "_mask": m,
+                    "is_thing": False,
+                }
+            )
+        rec2 = dict(record, annotations=anns)
+        return super().__call__(rec2)

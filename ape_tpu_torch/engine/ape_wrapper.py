@@ -159,9 +159,11 @@ class APE:
     @torch.no_grad()
     def __call__(self, batched_inputs: List[Dict]) -> List[Dict]:
         """Inference on mapped inputs: ``image`` (H, W, 3) normalized and padded,
-        ``image_size`` (2,) valid (h, w), optional ``text_prompt`` and ``scale``
-        (input pixels per original pixel). Mask outputs need ``mask_on``:
-        ``instances["mask_logits"]`` (N, Hm, Wm), ``sem_seg`` (T_pad, Hm, Wm)
+        ``image_size`` (2,) valid (h, w), optional ``text_prompt`` and the
+        input pixels per original pixel: a mapper's ``transform`` record (its
+        ``scale``) or ``scale``; the boxes come back in original pixels. Mask
+        outputs need ``mask_on``: ``instances["mask_logits"]`` (N, Hm, Wm),
+        ``sem_seg`` (T_pad, Hm, Wm)
         over the padded vocabulary, and ``panoptic_raw``, all at the
         mask-feature resolution of the padded input."""
         results = []
@@ -199,8 +201,13 @@ class APE:
             score_thresh=self.test_score_thresh, nms_thresh=self.test_nms_thresh,
             topk=self.select_box_nums)
         keep = inst["valid"]
+        # boxes in the input's pixels back to the original image's, by the
+        # mapper's TransformRecord (JAX's _rescale_factor) or the predictor's
+        # resize ratio
+        rec = inp.get("transform")
         instances = {
-            "boxes": inst["boxes"][keep] / inp.get("scale", 1.0),
+            "boxes": inst["boxes"][keep] * (1.0 / (rec.scale if rec is not None
+                                                   else inp.get("scale", 1.0))),
             "scores": inst["scores"][keep],
             "classes": inst["classes"][keep],
         }

@@ -109,6 +109,7 @@ class Trainer:
         data_time = time.perf_counter() - start
 
         ds_id = batch.pop("dataset_id", 0)
+        pasted = batch.pop("copypaste", 0)
         batch.pop("phrases", None)
         for k in ("image_id", "height", "width"):
             batch.pop(k, None)
@@ -134,6 +135,8 @@ class Trainer:
                 f"Loss became non-finite at iteration {self.storage.iter}: {metrics}")
         self.storage.put_scalar("total_loss", total)
         self.storage.put_scalar("data_time", data_time)
+        self.storage.put_scalar("dataset_id", ds_id)
+        self.storage.put_scalar("count_copypaste", pasted)
         self.storage.put_scalar(f"count_image/{ds_id}", n_img)
         self.storage.put_scalar(f"count_object/{ds_id}", n_obj)
         for k, v in metrics.items():

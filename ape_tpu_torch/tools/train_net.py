@@ -20,10 +20,15 @@ the CUDA card; with no card it raises unless ``device="cpu"`` is passed to
 the card (the reference's AMP) and in float32 on the CPU; its parameters are
 f32.
 
-As JAX's: ``train.fast_dev_run.enabled`` (20 iterations, eval at 10, a
+The datasets are those the catalog holds: the builtin tables register every
+dataset whose files exist under ``$DETECTRON2_DATASETS`` when a config
+imports ``ape_tpu.data.datasets`` (its ``metadata``, as most do; the port's
+``data/datasets/builtin.py``), and some configs register their own. As
+JAX's: ``train.fast_dev_run.enabled`` (20 iterations, eval at 10, a
 log line a step, and synthetic data when the config's datasets are not
 registered; without it a dataset that is not registered raises, where JAX
-falls back to the synthetic data), ``iter_size`` (micro-batches a step), ``ema_decay``
+falls back to the synthetic data), a group's ``copypaste_prob`` (its mapper
+wrapped in the copy-paste mapper), ``iter_size`` (micro-batches a step), ``ema_decay``
 (evaluation reads the EMA when there is one), ``dataset_ratio`` (the
 per-step group choice), ``init_checkpoint`` (weights only, tolerant) and
 ``--resume`` (the newest checkpoint of ``train.output_dir``: model,

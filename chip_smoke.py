@@ -9,7 +9,10 @@ serving and training), the ResNet-50 family's (APE-DETA R50 with and
 without fusion, DETA R50, Deformable-DETR R50), then the other ViT trees'
 (ViTDet, EVA-01, ViT-E and the LSJ-1536 trees serving; ViTDet-L training),
 then ``train_net`` on APE-Ti's COCO recipe (train, resume, evaluate) on
-JPEG images, then the prompted demo and the JSON visualiser on JPEGs.
+JPEG images, then the prompted demo and the JSON visualiser on JPEGs, then
+APE-Ti's flagship data mix through ``train_net`` (nine groups, copy-paste)
+and every evaluation route (LVIS, OpenImages, semantic, referring,
+panoptic).
 
     python3 chip_smoke.py
 
@@ -93,7 +96,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    steps; finite losses and gradients, launches per step, s/step, memory;
    then a warm-up and one step under ``FUSED`` (K8 forward and recompute,
    K2 backward);
-9. train f32: one f32 step at 512^2, batch 1, protocol pyramid, fan-in
+9. train f32: one f32 step at 512^2, batch 1, protocol pyramid, encoder
+   and decoder cut to F32_DETECTION_LAYERS (3 + 3) layers, fan-in
    weights: every parameter's gradient held against the plain versions on
    the CPU, and the plain gradients' own floor under a perturbation of the
    images at f32 rounding size;
@@ -108,7 +112,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     backward (K2), then as many with the split one (K3 + K4,
     ``msda_dispatch.BWD_MERGED = False``); exact launches of each form;
 12. full train f32: phase 9 for the masked model on the default pyramid,
-    its encoder and decoder cut to F32_MASKED_LAYERS (3 + 3) layers, then
+    its encoder and decoder cut to F32_MASKED_LAYERS (2 + 2) layers, then
     the same step once more with the split backward, held against the
     merged one;
 13. L_D: the port's text tower (``EVA02CLIP``, random weights, the
@@ -138,8 +142,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     "attn_bwd_dkv": 8, "attn_bwd_dq": 8}``; finite losses and gradients
     (none for the last fusion layer's language side, which name prompts do
     not read), s/step, images/s, peak memory; ``l_d_train_f32``: one f32
-    step of the cut L_D (as ``l_d_f32``, masked on the 4-scale pyramid,
-    300 queries, drop path 0.4, the fed loss, phrase prompts, so that every
+    step of the cut L_D (as ``l_d_f32`` but 1 + 1 layers, masked on the
+    4-scale pyramid, 300 queries, drop path 0.4, the fed loss, phrase
+    prompts, so that every
     parameter's gradient is read) with the CUDA kernels against
     the plain versions on the CPU, both drawing keep masks, assignment
     noise and the federated uniforms from CPU generators of one seed:
@@ -259,6 +264,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     input's shape, ``predictions.json`` holds every instance of each
     request; each request's device, draw and write seconds; then
     ``tools.visualize_json_results`` on that file, one overlay an image;
+    mix_train: ``train_net.main`` on APE-Ti's flagship mix recipe
+    (MIX_CONFIG: the fusion over the 1280-text bank, encoder recompute,
+    iter_size 4 at micro-batch MIX_BATCH) on a synthetic layout written at the
+    builtin tables' paths (``write_mix_layout``: every dataset of the nine
+    groups, JPEGs with polygons, SA-1B's RLE, phrases) and registered by
+    ``builtin.register_all``, seeded weights, as many steps as the config's
+    seed and ratios take to draw group 0: the ten criteria build (the
+    OpenImages one with OpenImages v6's fed-loss weights), exact launches a
+    micro-batch (MIX_MICRO_LAUNCHES), finite losses, the groups drawn as the
+    sampler draws them, an example of group 0 copy-pasted; s/step, data wait,
+    peak memory; mix_eval: ``--eval-only`` on the mix recipe with the weights
+    training left (LVIS bbox and segm, OpenImages, the referring route over
+    the registered RefCOCO JSON and over its records with expressions, the
+    semantic route over the COCO-Stuff stuff-only JSON) and on APE-Ti's
+    ADE20k panoptic recipe (ADE_CONFIG; the panoptic route over the
+    registered JSON and over records carrying ``pan_seg``, the semantic
+    route over 8-bit label PNGs): per dataset the images run and scored
+    equal the host's count of what JAX's loop scores, exact launches a
+    forward, every metric finite or NaN exactly where the ground truth makes
+    JAX's NaN, one metric recomputed from what the route scored (mIoU from
+    the argmax maps, P@0.5 from the top-1 boxes, PQ from the segments) or,
+    for LVIS and OpenImages, AP 100 on the ground truth itself; images/s and
+    the device, postprocess and evaluator seconds;
 18. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
     form at both pyramids and both offset draws, its per-pair suites, and
     the ``pair`` and ``rows`` ops by device time under each body, each query
@@ -282,7 +310,8 @@ over all of them, ``launches_main`` over the serving and training phases
 alone, 5-17, ``launches_default`` over those of them that run the default
 flags: slice, serve, train, full serve, full train with the merged backward,
 L_D's slice, serve, train and f32 train, the ADE20k and APE-L phases but the
-f32 ones, R50's, the ViT trees', train_net's and the demo's; error, time, plain and library
+f32 ones, R50's, the ViT trees', train_net's, the demo's and the mix's; error, time, plain
+and library
 time, and bound; for K1, K3, K4, K6, K7, K8 and K9, whose D = 32 body runs
 there, the general body's time as ``general_ms``; for K6 and K7 also the
 op's device time, ``device_ms``; for K5, K5-dkv and K5-dq their bf16
@@ -300,6 +329,7 @@ a CUDA card; it imports no JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import functools
 import json
@@ -333,10 +363,12 @@ STEP_LAUNCHES = {"msda_fwd": 24, "msda_bwd": 12, "attn_fwd": 4, "attn_bwd_dkv": 
 # With the split form the encoder's 6 MSDA backwards run K3 + K4 and the
 # decoder's 6 stay on K2. The mask head launches no MSDA or attention kernel.
 SPLIT_STEP_LAUNCHES = dict(STEP_LAUNCHES, msda_bwd=6, msda_bwd_offatt=6, msda_bwd_value=6)
-# The masked f32 step's encoder and decoder layers: 3 + 3, which keeps the
-# smoke inside its ~450 s budget with the train_net phase (the step's CPU
-# half at 6 + 6 took most of its 54 s)
-F32_MASKED_LAYERS = 3
+# The f32 steps' encoder and decoder layers: the masked one 2 + 2 (3 + 3
+# until the mix phases came; its CPU half at 6 + 6 took most of its 54 s),
+# the detection one 3 + 3 (6 + 6 until then): cuts that keep the smoke near
+# its budget with train_net and the mix
+F32_MASKED_LAYERS = 2
+F32_DETECTION_LAYERS = 3
 # APE-L_D training as the LVIS recipe runs it (tools/bench_train.py with
 # BENCH_MODEL=l_d, at batch 1): build_ape_l_d's defaults (masked, 4-scale,
 # recompute, drop path 0.4 by depth) with 300 queries and 1203 texts, the
@@ -1970,7 +2002,7 @@ def train_f32_phase(dev, mask_on: bool = False):
     from ape_tpu_torch.ops import _build, msda_dispatch
 
     pyramid = {} if mask_on else {"scale_factors": (2.0, 1.0, 0.5)}
-    layers = F32_MASKED_LAYERS if mask_on else 6
+    layers = F32_MASKED_LAYERS if mask_on else F32_DETECTION_LAYERS
     model = build_ape_ti(num_queries=TRAIN_QUERIES, window_radius=RADIUS, mask_on=mask_on,
                          use_act_checkpoint=True, num_layers=layers, **pyramid)
     model = init_weights(model, SEED, fan_in=True).train()
@@ -2196,6 +2228,9 @@ L_D_ATTN_SHAPE = (1, 16, 4096, 64)  # a global block at 1024^2: 64^2 tokens, 16 
 # global; 2 + 2 transformer layers) so that the CPU's plain forward takes
 # seconds, at 512^2.
 L_D_F32_IMG, L_D_F32_DEPTH, L_D_F32_LAYERS = 512, 6, 2
+# L_D's f32 train step: 1 + 1 layers (2 + 2 until the mix phases came: its
+# CPU half, the fusion over 1203 texts fore and back, took 29-34 s)
+L_D_TRAIN_F32_LAYERS = 1
 L_D_REQUESTS = (((480, 640), "person, car, dog, umbrella"),
                 ((800, 600), "a person riding a bike"),
                 ((600, 800), "a red umbrella, a dog on the grass"))
@@ -2476,8 +2511,8 @@ def l_d_train_phase(dev, card):
 
 def l_d_train_f32_phase(dev):
     """One f32 step (TF32 off) of L_D at full width with its depth cut
-    (L_D_F32_DEPTH blocks, 2 of them global; L_D_F32_LAYERS + L_D_F32_LAYERS
-    layers) at 512^2, masked on the 4-scale pyramid, 1203 texts, fan-in
+    (L_D_F32_DEPTH blocks, 2 of them global; L_D_TRAIN_F32_LAYERS +
+    L_D_TRAIN_F32_LAYERS layers) at 512^2, masked on the 4-scale pyramid, 1203 texts, fan-in
     weights with the encoder's sampling_offsets weights at 0 (as phase 12),
     drop path 0.4 and the federated loss: the card's step with the CUDA
     kernels and the plain versions' on the CPU draw their keep masks,
@@ -2498,7 +2533,7 @@ def l_d_train_f32_phase(dev):
     from ape_tpu_torch.ops import _build
 
     model = build_ape_l_d(num_queries=TRAIN_QUERIES, window_radius=RADIUS, depth=L_D_F32_DEPTH,
-                          num_layers=L_D_F32_LAYERS, device="cpu")
+                          num_layers=L_D_TRAIN_F32_LAYERS, device="cpu")
     model = init_weights(model, SEED, fan_in=True).train()
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -2515,7 +2550,7 @@ def l_d_train_f32_phase(dev):
     _build.reset_launches()
     gpu_total, gpu_sel, gpu_grads = step_grads(model, crit, _to(batch, dev), SEED, "phrase")
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-    layers = 2 * L_D_F32_LAYERS  # encoder and decoder
+    layers = 2 * L_D_TRAIN_F32_LAYERS  # encoder and decoder
     global_blocks = L_D_F32_DEPTH // 3
     want = {"msda_fwd": 2 * layers, "msda_bwd": layers, "attn_fwd": global_blocks,
             "attn_bwd_dkv": global_blocks, "attn_bwd_dq": global_blocks}
@@ -2536,7 +2571,7 @@ def l_d_train_f32_phase(dev):
                      torch.Generator().manual_seed(SEED))
     dropped = int((~keep).sum())
     log(phase="l_d_train_f32_vs_plain", image=F32_TRAIN_IMG, depth=L_D_F32_DEPTH,
-        layers=L_D_F32_LAYERS, texts=L_D_TEXT, prompt="phrase", launches=launches,
+        layers=L_D_TRAIN_F32_LAYERS, texts=L_D_TEXT, prompt="phrase", launches=launches,
         total_loss_cuda=gpu_total,
         total_loss_cpu=cpu_total, first_stage_indices_identical=same_sel, params=len(rel),
         dropped_branches=dropped,
@@ -4017,6 +4052,583 @@ def demo_phase(dev, card, checkpoint: Path):
     return launches
 
 
+# --- the flagship data mix: APE-Ti's mix recipe trains, and every route evaluates ---
+MIX_CONFIG = ("configs/LVISCOCOCOCOSTUFF_O365_OID_VGR_SA1B_REFCOCO_GQA_PhraseCut_Flickr30k/"
+              "ape_deta/ape_deta_vitt_eva02_vlf_lsj1024_cp_16x4_1080k.py")
+ADE_CONFIG = "configs/ADE20k_PanopticSegmentation/ape_deta/ape_deta_vitt_eva02_vlf_lsj1024.py"
+MIX_BATCH = 2  # a micro-batch; the recipe's iter_size (4) stands
+MIX_IMAGES, MIX_CATEGORIES = 4, 20  # images a dataset, categories a detection dataset
+MIX_REF_IMAGES = 2  # the referring test set's: a phrase forward fuses the 1280-slot bank
+# A micro-batch of the mix recipe: the encoder recomputed (its 6 MSDA
+# forwards twice), the decoder's 6 once, a backward each; the backbone's 4
+# global blocks once each way. The fusion layers are matmuls.
+MIX_MICRO_LAUNCHES = {"msda_fwd": 18, "msda_bwd": 12, "attn_fwd": 4, "attn_bwd_dkv": 4,
+                      "attn_bwd_dq": 4}
+# the test datasets the layout writes (the rest of the config's tests are
+# not registered, and run_eval skips them) and the evaluated records that
+# carry what JAX's referring and panoptic loops read, registered beside
+MIX_EVAL = ("lvis_v1_val", "coco_2017_val_panoptic_stuffonly", "openimages_v6_val_bbox",
+            "refcoco-unc-val")
+MIX_REF_CARRY, ADE_PAN_CARRY = "refcoco-unc-val_expressions", "ade20k_panoptic_val_pan_seg"
+ADE_SIZES = ((96, 128), (128, 96), (112, 112))  # small: the merge keeps all 900 queries
+ADE_IMAGES = 3
+
+
+def _builtin_paths(name: str):
+    """(annotation file, image root) of a builtin dataset, from the port's
+    tables (``data/datasets/builtin.py`` and ``metadata``'s split tables)."""
+    from ape_tpu_torch.data.datasets import builtin
+    from ape_tpu_torch.data.datasets import metadata as M
+
+    if name in builtin._COCO_STYLE:
+        return builtin._COCO_STYLE[name][:2]
+    for table in [M.objects365_splits(), *M.oid_splits().values()]:
+        if name in table:
+            img_rel, json_rel = table[name]
+            return json_rel, img_rel
+    raise KeyError(name)
+
+
+def _mix_json(root: Path, name: str, rng, n_cat: int, rle: bool = False,
+              expressions: bool = False, n_images: int = MIX_IMAGES):
+    """A COCO-style dataset at ``name``'s builtin paths: ``n_images`` JPEGs of
+    TN_SIZES (the port's encoder) with 1-6 objects each drawn into them,
+    polygons (``rle``: RLE), a phrase each, and with ``expressions`` one or
+    two referring expressions each."""
+    import numpy as np
+
+    from ape_tpu_torch.data.image_io import write_image
+    from ape_tpu_torch.data.transforms import polygons_to_mask, rle_encode
+
+    json_rel, img_rel = _builtin_paths(name)
+    sub = name.replace("+", "_")
+    (root / img_rel / sub).mkdir(parents=True, exist_ok=True)
+    images, anns = [], []
+    for i in range(n_images):
+        h, w = TN_SIZES[i % len(TN_SIZES)]
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8) // 4
+        for j in range(rng.randint(1, 7)):
+            poly = _tn_polygon(rng, h, w)
+            mask = polygons_to_mask([poly], h, w)
+            img[mask] = rng.randint(64, 256, 3)
+            ys, xs = np.nonzero(mask)
+            seg = [poly]
+            if rle:
+                seg = rle_encode(mask)
+                seg["counts"] = seg["counts"].decode()
+            x0, y0 = float(xs.min()), float(ys.min())
+            cat = int(rng.randint(n_cat))
+            ann = {"id": len(anns) + 1, "image_id": i + 1, "category_id": cat + 1,
+                   "bbox": [x0, y0, float(xs.max()) + 1 - x0, float(ys.max()) + 1 - y0],
+                   "area": float(mask.sum()), "iscrowd": 0, "segmentation": seg,
+                   "phrase": f"the object of kind {cat}"}
+            if expressions:
+                ann["expressions"] = [f"the object of kind {cat}", "the one on the left"][
+                    :1 + j % 2]
+            anns.append(ann)
+        write_image(str(root / img_rel / sub / f"{i:06d}.jpg"), img)
+        images.append({"id": i + 1, "file_name": f"{sub}/{i:06d}.jpg", "height": h, "width": w})
+    (root / json_rel).parent.mkdir(parents=True, exist_ok=True)
+    with open(root / json_rel, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": c + 1, "name": f"kind {c}"} for c in range(n_cat)]}, f)
+
+
+def write_mix_layout(root: Path, cfg, seed: int = SEED):
+    """The mix recipe's datasets under ``root`` at the builtin tables'
+    paths: every dataset of its 9 train groups (SA-1B's masks as RLE, one
+    class) and its LVIS, COCO-Stuff, OpenImages and RefCOCO test sets (the
+    referring annotations with expressions)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    for g in cfg.dataloader.train.groups:
+        for name in g["dataset_names"]:
+            _mix_json(root, name, rng, 1 if name.startswith("sa1b") else MIX_CATEGORIES,
+                      rle=name.startswith("sa1b"))
+    for name in MIX_EVAL:
+        ref = name.startswith("refcoco")
+        _mix_json(root, name, rng, MIX_CATEGORIES, expressions=ref,
+                  n_images=MIX_REF_IMAGES if ref else MIX_IMAGES)
+
+
+def write_ade_layout(root: Path, seed: int = SEED):
+    """ADE20k's panoptic and semantic validation sets at the builtin tables'
+    paths: ADE_IMAGES small JPEGs, their id PNGs (segments of 100 thing and
+    50 stuff classes) and panoptic JSON, and 8-bit label PNGs (255 void).
+    Returns the records with ``pan_seg`` (the id map) for the carry set."""
+    import numpy as np
+
+    from ape_tpu_torch.data.datasets import builtin
+    from ape_tpu_torch.data.image_io import write_image, write_png
+
+    rng = np.random.RandomState(seed + 1)
+    json_rel, img_rel, pan_rel = builtin._PANOPTIC["ade20k_panoptic_val"]
+    gt_rel, sem_img_rel = builtin._SEM_SEG["ade20k_sem_seg_val"]
+    assert sem_img_rel == img_rel
+    for rel in (img_rel, pan_rel, gt_rel):
+        (root / rel).mkdir(parents=True, exist_ok=True)
+    images, anns = [], []
+    for i in range(ADE_IMAGES):
+        h, w = ADE_SIZES[i % len(ADE_SIZES)]
+        ids = np.zeros((h, w), np.int64)
+        info = []
+        for j in range(1, 7):
+            y, x = rng.randint(0, h - 16), rng.randint(0, w - 16)
+            ids[y:y + rng.randint(12, h // 2), x:x + rng.randint(12, w // 2)] = j
+            cat = int(rng.randint(L_CLASSES))
+            info.append({"id": j, "category_id": cat, "isthing": int(cat < ADE_THINGS)})
+        info = [s for s in info if (ids == s["id"]).any()]
+        write_image(str(root / img_rel / f"ADE_val_{i:08d}.jpg"),
+                    rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+        write_png(str(root / pan_rel / f"ADE_val_{i:08d}.png"),
+                  np.stack([ids % 256, ids // 256 % 256, ids // 65536], -1).astype(np.uint8))
+        labels = rng.randint(0, L_CLASSES, (h, w)).astype(np.uint8)
+        labels[: h // 8] = 255
+        write_png(str(root / gt_rel / f"ADE_val_{i:08d}.png"), labels)
+        images.append({"id": i, "file_name": f"ADE_val_{i:08d}.jpg", "height": h, "width": w})
+        anns.append({"image_id": i, "file_name": f"ADE_val_{i:08d}.png", "segments_info": info,
+                     "pan_seg": ids})
+    with open(root / json_rel, "w") as f:
+        json.dump({"images": images,
+                   "annotations": [{k: v for k, v in a.items() if k != "pan_seg"} for a in anns]},
+                  f)
+    return [{"file_name": str(root / img_rel / im["file_name"]), "image_id": im["id"],
+             "height": im["height"], "width": im["width"], "pan_seg": a["pan_seg"],
+             "segments_info": a["segments_info"]} for im, a in zip(images, anns)]
+
+
+def _eval_config(tmp: Path, config: str, extra_tests) -> str:
+    """A config file that is ``config`` with ``extra_tests`` (dataset name,
+    evaluator type) appended to its test list, each with its first test's
+    mapper: how the smoke evaluates the records it registers itself."""
+    path = tmp / f"eval_{Path(config).stem}.py"
+    path.write_text(
+        "from ape_tpu.config import LazyConfig\n"
+        f"globals().update(LazyConfig.load({str(ROOT / config)!r}))\n"
+        "dataloader.tests = list(dataloader.tests) + [\n"
+        + "".join(f"    dict(dataset_name={n!r}, evaluator_type={t!r},\n"
+                  "         mapper=dataloader.tests[0]['mapper']),\n" for n, t in extra_tests)
+        + "]\n")
+    return str(path)
+
+
+@contextlib.contextmanager
+def recorded(cls, method: str):
+    """The arguments of every call of ``cls.method`` in the block."""
+    calls, original = [], getattr(cls, method)
+
+    def spy(self, *args):
+        calls.append(args)
+        return original(self, *args)
+
+    setattr(cls, method, spy)
+    try:
+        yield calls
+    finally:
+        setattr(cls, method, original)
+
+
+def _expected_scored(route: str, dicts) -> int:
+    """What JAX's loop of ``route`` scores on ``dicts``, counted on the host:
+    every image for the instance routes; an image with a semantic ground
+    truth (``sem_seg``, ``sem_seg_file_name``) or with ``pan_seg``; each
+    expression (``expressions`` or ``expression``) for the referring one."""
+    if route in ("lvis", "coco", "oid"):
+        return len(dicts)
+    if route == "sem_seg":
+        return sum(d.get("sem_seg") is not None or bool(d.get("sem_seg_file_name"))
+                   for d in dicts)
+    if route == "panoptic":
+        return sum(d.get("pan_seg") is not None for d in dicts)
+    return sum(len(a.get("expressions") or ([a["expression"]] if "expression" in a else []))
+               for d in dicts for a in d.get("annotations", []))
+
+
+def _nan_expected(route: str, dicts, res: dict, pq_counts=None) -> set:
+    """The metrics JAX's evaluators leave NaN, derived from the ground truth
+    (and, for panoptic, from the matches counted by ``_pq_recomputed``):
+    COCO and LVIS AP over an area range (or an r/c/f bucket of images a
+    category) that holds no non-crowd ground truth; OID's empty buckets;
+    mIoU and mACC with no image scored; PQ, RQ and the thing and stuff PQs
+    with no segment counted, SQ with no true positive; referring: none."""
+    nan = set()
+    if route in ("lvis", "coco"):
+        ranges = {"": (0, 1e10), "s": (0, 32 ** 2), "m": (32 ** 2, 96 ** 2), "l": (96 ** 2, 1e10)}
+        imgs = {}
+        for d in dicts:
+            for a in d["annotations"]:
+                imgs.setdefault(a["category_id"], set()).add(d["image_id"])
+        for t in ("bbox", "segm"):
+            if f"{t}/AP" not in res:
+                continue
+            for k, (lo, hi) in ranges.items():
+                areas = [(a["bbox"][2] - a["bbox"][0]) * (a["bbox"][3] - a["bbox"][1])
+                         for d in dicts for a in d["annotations"] if not a.get("iscrowd", 0)]
+                if not any(lo <= x < hi for x in areas):
+                    nan |= {f"{t}/AP{k}"} | ({f"{t}/AP50", f"{t}/AP75"} if not k else set())
+            if route == "lvis":
+                cats = {a["category_id"] for d in dicts for a in d["annotations"]
+                        if not a.get("iscrowd", 0)}
+                for b in "rcf":
+                    n = [len(imgs[c]) for c in cats]
+                    hit = [x < 10 if b == "r" else (10 <= x <= 100 if b == "c" else x > 100)
+                           for x in n]
+                    if not any(hit):
+                        nan.add(f"{t}/AP{b}")
+    elif route == "oid":
+        imgs = {}
+        for d in dicts:
+            for a in d["annotations"]:
+                imgs.setdefault(a["category_id"], set()).add(d["image_id"])
+        n = [len(s) for s in imgs.values()]
+        for b, hit in (("r", [x < 10 for x in n]), ("c", [10 <= x < 100 for x in n]),
+                       ("f", [x >= 100 for x in n])):
+            if not any(hit):
+                nan.add(f"bbox/AP{b}")
+    elif route == "sem_seg":
+        if res["scored"] == 0:
+            nan |= {"sem_seg/mIoU", "sem_seg/mACC"}
+    elif route == "panoptic":
+        tp, fp, fn = pq_counts
+        valid = {c for c in set(tp) | set(fp) | set(fn) if tp.get(c, 0) + fp.get(c, 0)
+                 + fn.get(c, 0) > 0}
+        if not valid:
+            nan |= {"panoptic/PQ", "panoptic/SQ", "panoptic/RQ", "panoptic/PQ_th",
+                    "panoptic/PQ_st"}
+        if not any(tp.get(c, 0) for c in valid):
+            nan.add("panoptic/SQ")
+        things = res["_thing_ids"]
+        if not valid & things:
+            nan.add("panoptic/PQ_th")
+        if not valid - things:
+            nan.add("panoptic/PQ_st")
+    return {k for k in nan if k in res}
+
+
+def _miou_recomputed(pairs, num_classes: int, ignore: int = 255) -> float:
+    """mIoU from the (argmax map, ground truth) pairs the route scored, by
+    a per-class count of intersections and unions."""
+    import numpy as np
+
+    inter, union = np.zeros(num_classes), np.zeros(num_classes)
+    for pred, gt in pairs:
+        keep = gt != ignore
+        p, g = pred[keep], gt[keep].astype(np.int64)
+        for c in range(num_classes):
+            pc, gc = p == c, g == c
+            inter[c] += np.count_nonzero(pc & gc)
+            union[c] += np.count_nonzero(pc | gc)
+    present = union > 0
+    return 100.0 * float(np.mean(inter[present] / union[present])) if present.any() else float("nan")
+
+
+def _p50_recomputed(pairs, total: int) -> float:
+    """P@0.5 from the (top-1 box, ground-truth box) pairs the route scored,
+    over every expression it counted (those without a box count as misses)."""
+    def area(b):
+        return max(0.0, b[2] - b[0]) * max(0.0, b[3] - b[1])
+
+    hits = 0
+    for pred, gt in pairs[:total]:
+        inter = (max(0.0, min(pred[2], gt[2]) - max(pred[0], gt[0]))
+                 * max(0.0, min(pred[3], gt[3]) - max(pred[1], gt[1])))
+        hits += inter / max(area(pred) + area(gt) - inter, 1e-9) > 0.5
+    return 100.0 * hits / max(total, 1)
+
+
+def _pq_recomputed(calls, num_classes: int):
+    """PQ from the (segments, info, ground truth, info) the route scored: a
+    segment pair matches at IoU > 0.5 within one class; PQ is the mean over
+    the classes counted of IoU sum / (TP + FP / 2 + FN / 2). Returns (PQ,
+    per-class TP, FP and FN)."""
+    import numpy as np
+
+    iou_sum, tp, fp, fn = {}, {}, {}, {}
+    for seg, info, gt, gt_info in calls:
+        pred = {s["id"]: s["category_id"] for s in info}
+        true = {s["id"]: s["category_id"] for s in gt_info}
+        p_area = {k: int(np.count_nonzero(seg == k)) for k in pred}
+        g_area = {k: int(np.count_nonzero(gt == k)) for k in true}
+        hit_p, hit_g = set(), set()
+        for g, gc in true.items():
+            for p, pc in pred.items():
+                if gc != pc or not g_area[g] or not p_area[p]:
+                    continue
+                inter = int(np.count_nonzero((gt == g) & (seg == p)))
+                iou = inter / (g_area[g] + p_area[p] - inter)
+                if iou > 0.5:
+                    tp[gc] = tp.get(gc, 0) + 1
+                    iou_sum[gc] = iou_sum.get(gc, 0.0) + iou
+                    hit_p.add(p)
+                    hit_g.add(g)
+        for g, gc in true.items():
+            if g not in hit_g and g_area[g]:
+                fn[gc] = fn.get(gc, 0) + 1
+        for p, pc in pred.items():
+            if p not in hit_p and p_area[p]:
+                fp[pc] = fp.get(pc, 0) + 1
+    pq = [iou_sum.get(c, 0.0) / (tp.get(c, 0) + 0.5 * fp.get(c, 0) + 0.5 * fn.get(c, 0))
+          for c in range(num_classes) if tp.get(c, 0) + fp.get(c, 0) + fn.get(c, 0)]
+    return (100.0 * float(np.mean(pq)) if pq else float("nan")), (tp, fp, fn)
+
+
+def _closed_form(name: str, route: str) -> float:
+    """The route's evaluator fed the dataset's own non-crowd ground-truth
+    boxes as detections (score 1): AP 100 (LVIS: bbox; OID: its protocol)."""
+    import numpy as np
+
+    from ape_tpu_torch.data.catalog import DatasetCatalog
+    from ape_tpu_torch.evaluation.lvis_eval import LVISEvaluator
+    from ape_tpu_torch.evaluation.oid_eval import OIDEvaluator
+
+    dicts = DatasetCatalog.get(name)
+    ev = LVISEvaluator(dicts, "bbox") if route == "lvis" else OIDEvaluator(dicts)
+    for d in dicts:
+        anns = [a for a in d["annotations"] if not a.get("iscrowd", 0)]
+        ev.process([{"image_id": d["image_id"], "instances": {
+            "boxes": np.asarray([a["bbox"] for a in anns], np.float64).reshape(-1, 4),
+            "scores": np.ones(len(anns)), "classes": np.asarray([a["category_id"] for a in anns])}}])
+    return ev.evaluate()["bbox/AP"]
+
+
+def mix_train_phase(dev, card, tmp: Path):
+    """``train_net.main`` on APE-Ti's flagship mix recipe (MIX_CONFIG: the
+    fusion over the 1280-text bank, encoder recompute, 9 groups, group 0's
+    LVIS+COCO and COCO-Stuff records copy-pasted at 0.5) on the synthetic
+    layout of ``write_mix_layout``, seeded weights: as many steps as it
+    takes the config's own seed and ratios to draw group 0, each of the
+    recipe's iter_size micro-batches of MIX_BATCH. Gates: the ten criteria
+    build (the OpenImages one with the federated loss over OpenImages v6's
+    weights), finite losses, exact launches a micro-batch
+    (MIX_MICRO_LAUNCHES), an example of group 0 copy-pasted. Returns the
+    launches and the final checkpoint."""
+    import numpy as np
+    import torch
+
+    from ape_tpu_torch.config import LazyConfig
+    from ape_tpu_torch.data.datasets import builtin
+    from ape_tpu_torch.data.datasets.metadata import fed_loss_cls_weights
+    from ape_tpu_torch.data.samplers import MultiDatasetSampler
+    from ape_tpu_torch.model_zoo import build_criterion, build_model
+    from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    cfg_file = str(ROOT / MIX_CONFIG)
+    cfg = LazyConfig.load(cfg_file)
+    root = tmp / "datasets"
+    write_mix_layout(root, cfg)
+    registered = builtin.register_all(str(root))
+    crits = [build_criterion(cfg, i) for i in range(len(cfg.criterions))]
+    oid = np.asarray(fed_loss_cls_weights("openimages_v6"), np.float32)
+    if len(crits) != 10 or not crits[2].use_fed_loss or not np.array_equal(
+            crits[2].fed_loss_cls_weights.numpy(), oid):
+        fail(f"mix: {len(crits)} criteria, the OpenImages one's fed loss "
+             f"{crits[2].use_fed_loss if len(crits) > 2 else None}")
+    ratio, seed = list(cfg.train.dataset_ratio), int(cfg.train.seed)
+    sampler = MultiDatasetSampler(ratio, seed)
+    draws = [sampler.next_dataset()]
+    while draws[-1] != 0:
+        draws.append(sampler.next_dataset())
+    steps, iter_size = len(draws), int(cfg.train.iter_size)
+    model = init_weights(build_model(cfg, device="cpu"), SEED)
+    torch.save({"model": model.state_dict()}, tmp / "mix_init.pth")
+    del model
+    out = tmp / "mix_output"
+    groups = len(cfg.dataloader.train.groups)
+    argv = ["--config-file", cfg_file, f"train.output_dir={out}", "train.log_period=1",
+            "train.eval_period=0", f"train.checkpoint_period={steps}", "train.sync_debug=True",
+            f"train.max_iter={steps}", f"train.init_checkpoint={tmp / 'mix_init.pth'}",
+            *[f"dataloader.train.groups.{i}.batch_size={MIX_BATCH}" for i in range(groups)]]
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    train_net.main(argv)
+    train_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    want = {k: steps * iter_size * MIX_MICRO_LAUNCHES.get(k, 0) for k in _build.LAUNCHES}
+    if launches != want:
+        fail(f"mix train: launches over {steps} steps of {iter_size} micro-batches {launches}, "
+             f"expected {want}")
+    rows = _tn_metrics(out)
+    drawn = [int(r["dataset_id"]) for r in rows]
+    losses_ok = all(np.isfinite(v) for r in rows for k, v in r.items() if "loss" in k)
+    pasted = [int(r["count_copypaste"]) for r in rows]
+    if len(rows) != steps or not losses_ok or drawn != draws:
+        fail(f"mix train: {len(rows)} rows, groups drawn {drawn} (the sampler's {draws}), "
+             f"finite losses {losses_ok}")
+    if not any(p for p, d in zip(pasted, drawn) if d == 0):
+        fail(f"mix train: no example of group 0 copy-pasted ({pasted})")
+    step_s = [r["time"] for r in rows]
+    log(phase="mix_train", config=MIX_CONFIG, registered=registered, criteria=len(crits),
+        steps=steps, iter_size=iter_size, micro_batch=MIX_BATCH, groups_drawn=drawn,
+        copypasted=pasted, num_text=int(cfg.train.num_text),
+        s_per_step=float(np.median(step_s[1:])), seconds_per_step=step_s,
+        data_seconds_per_step=[r["data_time"] for r in rows],
+        host_syncs_per_step=[r.get("host_syncs") for r in rows],
+        max_memory_allocated_gib=peak_gib, losses_last=rows[-1], train_s=train_s,
+        launches_per_micro_batch=MIX_MICRO_LAUNCHES, card=card)
+    log(phase="mix_train_done", seconds=time.perf_counter() - t_phase)
+    return launches, out / "model_final.pth"
+
+
+def _eval_gates(label: str, results: dict, checks: dict, calls: dict, launches: dict) -> dict:
+    """The gates of one ``--eval-only`` run (``mix_eval_phase``): per dataset
+    its images and what it scored against the host's count, its metrics
+    finite or NaN exactly where ``_nan_expected`` says, one metric
+    recomputed from what the route scored; the launches of every forward.
+    Returns each dataset's record."""
+    import numpy as np
+
+    from ape_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog, get_text_list
+
+    records, forwards = {}, 0
+    for name, route in checks.items():
+        res = results.get(name)
+        if res is None:
+            fail(f"{label}: {name} was not evaluated ({sorted(results)})")
+        dicts = DatasetCatalog.get(name)
+        want = _expected_scored(route, dicts)
+        n_forwards = want if route == "refcoco" else len(dicts)
+        if (res["images"], res["scored"], res["forwards"]) != (len(dicts), want, n_forwards):
+            fail(f"{label} {name} ({route}): images, scored, forwards "
+                 f"{res['images'], res['scored'], res['forwards']}, the host counts "
+                 f"{len(dicts), want, n_forwards}")
+        forwards += res["forwards"]
+        metrics = {k: v for k, v in res.items()
+                   if "/" in k and not k.startswith(("seconds/", "suite/"))}
+        meta = MetadataCatalog.get(name)
+        recomputed = None
+        pq_counts = None
+        if route == "sem_seg":
+            n_cls = len(get_text_list(meta))
+            recomputed = ("sem_seg/mIoU", _miou_recomputed(calls["sem_seg"].get(name, []), n_cls))
+        elif route == "refcoco":
+            pairs = [(a[0], a[1]) for a in calls["refcoco"].get(name, [])]
+            recomputed = ("refcoco/P@0.5", _p50_recomputed(pairs, res["scored"]))
+        elif route == "panoptic":
+            pq, pq_counts = _pq_recomputed(calls["panoptic"].get(name, []),
+                                           len(get_text_list(meta)))
+            recomputed = ("panoptic/PQ", pq)
+            metrics["_thing_ids"] = set(meta.get("thing_ids", range(len(
+                meta.get("thing_classes", []) or []))))
+        elif route in ("lvis", "oid"):
+            recomputed = ("closed_form_AP", _closed_form(name, route))
+        nan_want = _nan_expected(route, dicts, {**metrics, "scored": res["scored"]}, pq_counts)
+        metrics.pop("_thing_ids", None)
+        nan_got = {k for k, v in metrics.items() if np.isnan(v)}
+        if nan_got != nan_want or not all(np.isfinite(v) for k, v in metrics.items()
+                                          if k not in nan_got):
+            fail(f"{label} {name}: NaN metrics {sorted(nan_got)}, expected {sorted(nan_want)}")
+        key, value = recomputed
+        got = 100.0 if key == "closed_form_AP" else metrics[key]
+        if not (np.isnan(got) and np.isnan(value)) and not abs(got - value) <= 1e-9:
+            fail(f"{label} {name}: {key} {got}, recomputed {value}")
+        seconds = {k.split("/", 1)[1]: v for k, v in res.items() if k.startswith("seconds/")}
+        total = sum(seconds[k] for k in ("data", "device", "postprocess", "eval"))
+        records[name] = {"route": route, "images": res["images"], "scored": res["scored"],
+                         "forwards": res["forwards"], "metrics": metrics,
+                         "recomputed": {key: value}, "seconds": seconds,
+                         "images_per_s": res["images"] / total if total else None}
+    want = {k: forwards * FORWARD_LAUNCHES.get(k, 0) for k in launches}
+    if launches != want:
+        fail(f"{label}: launches {launches} over {forwards} forwards, expected {want}")
+    return records
+
+
+def mix_eval_phase(dev, card, tmp: Path, checkpoint: Path):
+    """``--eval-only`` twice. The mix recipe on the weights its training
+    left: LVIS bbox and segm, OpenImages, the referring route over the
+    registered RefCOCO JSON (no expression kept: trait 24) and over its
+    records with their expressions (MIX_REF_CARRY), the semantic route over
+    the COCO-Stuff stuff-only JSON (no ground truth: trait 23). Then APE-Ti's
+    ADE20k panoptic recipe on seeded weights: the panoptic route over the
+    registered ADE20k JSON (trait 20) and over records that carry
+    ``pan_seg`` (ADE_PAN_CARRY), the semantic route over its label PNGs
+    (``load_sem_seg``; the 150 class names set as a user's registration
+    sets them: trait 25). Gates: ``_eval_gates``. Returns the launches."""
+    import torch
+
+    from ape_tpu_torch.config import LazyConfig
+    from ape_tpu_torch.data.catalog import DatasetCatalog, MetadataCatalog
+    from ape_tpu_torch.data.datasets import builtin
+    from ape_tpu_torch.data.datasets.coco import load_coco_json
+    from ape_tpu_torch.evaluation.other_evals import (
+        PanopticEvaluator,
+        RefCOCOEvaluator,
+        SemSegEvaluator,
+    )
+    from ape_tpu_torch.model_zoo import build_model
+    from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    root = tmp / "datasets"
+    json_rel, img_rel = _builtin_paths("refcoco-unc-val")
+    DatasetCatalog.register(MIX_REF_CARRY, lambda: load_coco_json(
+        str(root / json_rel), str(root / img_rel), extra_annotation_keys=["expressions"]))
+    carry = write_ade_layout(root)
+    builtin.register_all(str(root))
+    MetadataCatalog.get("ade20k_sem_seg_val").set(stuff_classes=list(ADE_NAMES))
+    DatasetCatalog.register(ADE_PAN_CARRY, lambda: carry)
+    MetadataCatalog.get(ADE_PAN_CARRY).set(thing_classes=list(ADE_NAMES[:ADE_THINGS]),
+                                           stuff_classes=list(ADE_NAMES[ADE_THINGS:]))
+    runs, records, launches_out = [], {}, []
+    for label, config, extra, init, checks in (
+            ("mix_eval", MIX_CONFIG, [(MIX_REF_CARRY, "refcoco")], checkpoint,
+             {"lvis_v1_val": "lvis", "openimages_v6_val_bbox": "oid",
+              "refcoco-unc-val": "refcoco", MIX_REF_CARRY: "refcoco",
+              "coco_2017_val_panoptic_stuffonly": "sem_seg"}),
+            ("ade_eval", ADE_CONFIG, [(ADE_PAN_CARRY, "panoptic")], None,
+             {"ade20k_panoptic_val": "panoptic", ADE_PAN_CARRY: "panoptic",
+              "ade20k_sem_seg_val": "sem_seg"})):
+        cfg_file = _eval_config(tmp, config, extra)
+        if init is None:
+            init = tmp / "ade_init.pth"
+            model = init_weights(build_model(LazyConfig.load(cfg_file), device="cpu"), SEED)
+            torch.save({"model": model.state_dict()}, init)
+            del model
+        calls = {}
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with recorded(SemSegEvaluator, "process") as sem, \
+                recorded(RefCOCOEvaluator, "process") as ref, \
+                recorded(PanopticEvaluator, "process") as pan:
+            results = train_net.main(["--eval-only", "--config-file", cfg_file,
+                                      f"train.output_dir={tmp / label}",
+                                      f"train.init_checkpoint={init}"])
+        eval_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        # each recording belongs to the one dataset of its route that scores
+        for route, got in (("sem_seg", sem), ("refcoco", ref), ("panoptic", pan)):
+            scoring = [n for n, r in checks.items() if r == route and results[n]["scored"]]
+            if len(scoring) > 1:
+                fail(f"{label}: {scoring} all score the {route} route")
+            calls[route] = {scoring[0]: got} if scoring else {}
+        records[label] = _eval_gates(label, results, checks, calls, launches)
+        log(phase=label, config=config, datasets=records[label], eval_s=eval_s,
+            launches_per_forward=FORWARD_LAUNCHES, card=card)
+        launches_out.append(launches)
+        torch.cuda.empty_cache()
+    log(phase="mix_eval_done", seconds=time.perf_counter() - t_phase)
+    return launches_out
+
+
+def mix_phase(dev, card):
+    """The flagship mix: ``mix_train_phase``, then ``mix_eval_phase`` on its
+    checkpoint. Returns the launches of each run."""
+    import tempfile
+
+    import torch
+
+    tmp = Path(tempfile.mkdtemp(prefix="mix_"))
+    train_launches, checkpoint = mix_train_phase(dev, card, tmp)
+    torch.cuda.empty_cache()
+    return [train_launches] + mix_eval_phase(dev, card, tmp, checkpoint)
+
+
 def race_phase(dev, card):
     """``ape_tpu_torch.tools.msda_race`` as a path of its own: every
     window-MSDA form at both pyramids and offset draws, then the per-pair
@@ -4162,6 +4774,7 @@ def main():
     train_net_runs, final_checkpoint = train_net_phase(dev, card)
     default_runs += train_net_runs
     default_runs.append(demo_phase(dev, card, final_checkpoint))
+    default_runs += mix_phase(dev, card)
     main_runs = default_runs + flag_runs
     runs = list(main_runs)
     runs.append(race_phase(dev, card))

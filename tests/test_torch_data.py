@@ -350,9 +350,12 @@ def test_loader_worker_error_fails_the_step(dataset):
     loader = build.TrainLoader(dicts, broken, 2)
     with pytest.raises(RuntimeError, match="data loader worker failed"):
         next(iter(loader))
-    with pytest.raises(NotImplementedError, match="copy-paste"):
-        build.build_detection_train_loader(["port_loader_test"], DatasetMapperDETR(), 2,
-                                           copypaste_prob=0.5)
+    # the same through the copy-paste mapper, which wraps the broken one
+    register_coco_instances("port_broken_test", {}, js, root)
+    loader = build.build_detection_train_loader(["port_broken_test"], broken, 2,
+                                                copypaste_prob=0.5)
+    with pytest.raises(RuntimeError, match="data loader worker failed"):
+        next(iter(loader))
 
 
 def test_test_loader_equals_jax(dataset):

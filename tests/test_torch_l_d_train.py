@@ -223,12 +223,13 @@ def test_fed_loss_class_matches_jax(rng, case):
 
 
 def test_lvis_fed_loss_weights_match_jax():
-    """The port's copy of the LVIS counts gives JAX's weights, bit for bit."""
+    """The port's copy of the LVIS counts gives JAX's weights, bit for bit;
+    a dataset without a count table gets JAX's None."""
     want = j_metadata.fed_loss_cls_weights("lvis_v1_train")
     got = fed_loss_cls_weights("lvis_v1_train")
     assert len(got) == 1203 and got == want
-    with pytest.raises(ValueError):
-        fed_loss_cls_weights("coco_2017_train")
+    assert fed_loss_cls_weights("coco_2017_train") is None
+    assert j_metadata.fed_loss_cls_weights("coco_2017_train") is None
 
 
 @pytest.fixture(scope="module")
