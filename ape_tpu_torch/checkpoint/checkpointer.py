@@ -12,6 +12,17 @@ Beside it the trainer stores the rest of the run's state: the optimizer
 ``torch.Generator``, the loaders' positions and the text router's bank.
 Periodic files are ``model_{iteration:07d}.pth``; the one at ``max_iter``
 is ``model_final.pth``.
+
+Across ranks (``parallel.mesh``) every rank gathers the state (collective
+under FSDP2) and the main one writes it: whole tensors under the one-process
+model's names, without DDP's ``module.`` prefix, the optimizer's state keyed
+by parameter name (``model_state``, ``optimizer_state``: the full state
+dicts of ``torch.distributed.checkpoint.state_dict``; ``ema_state``). One
+process writes the same format. Any world size loads it: the model's
+weights into the one-process model before DDP copies or FSDP2 shards it,
+the optimizer's by ``load_optimizer_state`` and the EMA's by ``load_ema``;
+each rank reads the file and keeps its shards, as JAX's orbax restores to
+any mesh.
 """
 
 from __future__ import annotations
@@ -23,7 +34,63 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ape_tpu_torch.parallel.mesh import is_main_process
+
 logger = logging.getLogger("ape_tpu_torch")
+
+
+def _full(cpu_offload: bool = True):
+    from torch.distributed.checkpoint.state_dict import StateDictOptions
+
+    return StateDictOptions(full_state_dict=True, cpu_offload=cpu_offload)
+
+
+def model_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's whole state_dict on the CPU under the one-process names
+    (DDP's or FSDP2's model; on the main rank, {} on the others: call it
+    on every rank)."""
+    from torch.distributed.checkpoint.state_dict import get_model_state_dict
+
+    return get_model_state_dict(model, options=_full())
+
+
+def optimizer_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> Dict:
+    """The optimizer's whole state_dict on the CPU, keyed by parameter name
+    (on the main rank, {} on the others: call it on every rank). Call it
+    after a step: on an optimizer without state PyTorch takes a step at
+    learning rate 0 to make one, which counts in AdamW's bias correction."""
+    from torch.distributed.checkpoint.state_dict import get_optimizer_state_dict
+
+    return get_optimizer_state_dict(model, optimizer, options=_full())
+
+
+def load_optimizer_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                         state: Dict) -> None:
+    """Load ``optimizer_state``'s dict; under FSDP2 each rank keeps its
+    shard of every moment."""
+    from torch.distributed.checkpoint.state_dict import set_optimizer_state_dict
+
+    set_optimizer_state_dict(model, optimizer, state, options=_full(cpu_offload=False))
+
+
+def ema_state(ema: Optional[List[torch.Tensor]]) -> Optional[List[torch.Tensor]]:
+    """The EMA's tensors whole on the CPU (FSDP2's gathered by
+    ``DTensor.full_tensor``: call it on every rank)."""
+    if ema is None:
+        return None
+    return [(e.full_tensor() if hasattr(e, "full_tensor") else e).detach().cpu() for e in ema]
+
+
+def load_ema(ema: List[torch.Tensor], saved: List[torch.Tensor]) -> None:
+    """Copy ``ema_state``'s tensors into the EMA, each rank its shards."""
+    from torch.distributed.tensor import distribute_tensor
+
+    with torch.no_grad():
+        for e, v in zip(ema, saved):
+            v = v.to(e.device)
+            if hasattr(e, "device_mesh"):
+                v = distribute_tensor(v, e.device_mesh, e.placements, src_data_rank=None)
+            e.copy_(v)
 
 
 def _to_cpu(obj: Any) -> Any:
@@ -53,9 +120,12 @@ class Checkpointer:
     def save(self, step: int, state: Dict[str, Any], name: Optional[str] = None) -> str:
         """Write ``state`` (tensors to the CPU) with ``iteration=step`` as
         ``name`` (default ``model_{step:07d}.pth``), tag it as the newest and
-        delete the files older than the newest ``keep``. Returns its path."""
+        delete the files older than the newest ``keep``. Returns its path.
+        Only the main process writes."""
         name = name or f"model_{step:07d}.pth"
         path = os.path.join(self.save_dir, name)
+        if not is_main_process():
+            return path
         torch.save(_to_cpu({**state, "iteration": step}), path + ".tmp")
         os.replace(path + ".tmp", path)
         saved = [e for e in self._saved() if e[1] != name] + [(step, name)]
@@ -105,7 +175,8 @@ class PeriodicCheckpointer:
     def step(self, iteration: int, state_fn) -> Optional[str]:
         """After iteration ``iteration`` (0-based): save ``state_fn()`` every
         ``period`` iterations and at ``max_iter`` (as ``model_final.pth``).
-        Returns the path written, if any."""
+        Returns the path written, if any. Call it on every rank: gathering a
+        sharded state is collective."""
         done = iteration + 1
         if self.max_iter and done >= self.max_iter:
             return self.checkpointer.save(done, state_fn(), "model_final.pth")

@@ -181,11 +181,52 @@ class TrainLoader:
             self._stop = self._thread = None
 
 
+def _reseed(mapper, seed: int, rank: int) -> None:
+    """The mapper's generator seeded by (``seed``, ``rank``): with one seed
+    every rank would flip, scale and paste alike."""
+    if getattr(mapper, "_rng", None) is not None:
+        mapper._rng = np.random.RandomState([seed, rank])
+
+
+def loader_state(loader, index: int = 0, count: int = 1):
+    """A loader's position for a checkpoint (called on every rank): its
+    ``state_dict`` for one chunk, else ``{"chunks": [...]}``, the state of
+    each of the ``count`` chunks of the batch, gathered from their ranks."""
+    from ape_tpu_torch.parallel.mesh import all_gather_object
+
+    if not hasattr(loader, "state_dict"):
+        return None
+    if count == 1:
+        return loader.state_dict()
+    chunks = dict(all_gather_object((index, loader.state_dict())))
+    return {"chunks": [chunks[k] for k in range(count)]}
+
+
+def load_loader_state(loader, state, index: int = 0, count: int = 1) -> None:
+    """Restart a loader where ``loader_state`` left it: at the same number of
+    chunks each its own chunk's position and mapper draws, as the
+    uninterrupted run; at another, the global position (the chunks' samples
+    summed, even while no record was dropped) shared out anew, with the
+    mappers' own streams."""
+    if state is None or not hasattr(loader, "load_state_dict"):
+        return
+    chunks = state.get("chunks", [state])
+    if len(chunks) == count:
+        loader.load_state_dict(chunks[index])
+    else:
+        total = sum(int(c["consumed"]) for c in chunks)
+        loader.load_state_dict({"consumed": total // count, "mapper_rng": None})
+
+
 def build_detection_train_loader(
     dataset_names, mapper, batch_size, sampler_name: str = "TrainingSampler",
     repeat_thresh: float = 0.001, seed: int = 0, rank: int = 0, world_size: int = 1,
     dataset_id: int = 0, filter_empty: bool = True, copypaste_prob: float = 0.0,
 ):
+    """One group's loader of ``batch_size`` rows a batch. Across ranks
+    (``rank`` of ``world_size`` chunks of the global batch) the sampler
+    takes every ``world_size``-th index from ``rank`` on and the mappers
+    draw from a stream of the rank's own."""
     dicts = get_detection_dataset_dicts(dataset_names, filter_empty, dataset_id)
     if not dicts:  # JAX's sampler would spin forever on an empty group
         raise ValueError(f"{list(dataset_names)}: no training records"
@@ -195,6 +236,11 @@ def build_detection_train_loader(
         # own dataset pool (build_multi_dataset_copypaste.py:402-412, flagship
         # data config dataset_bg = the same names) at copypaste_prob=0.5
         mapper = CopyPasteMapper(mapper, dicts, prob=copypaste_prob, seed=seed)
+    if world_size > 1:
+        base = getattr(mapper, "base", mapper)
+        _reseed(base, getattr(base, "seed", 0), rank)
+        if base is not mapper:
+            _reseed(mapper, seed, rank)
     if sampler_name == "RepeatFactorTrainingSampler":
         rf = repeat_factors_from_category_frequency(dicts, repeat_thresh)
         sampler = RepeatFactorTrainingSampler(rf, seed, rank, world_size)

@@ -76,8 +76,9 @@ class DefaultPredictor:
 def default_argument_parser():
     """The command line of ``tools/train_net.py`` (JAX's parser, detectron2's
     flags): ``--config-file``, ``--resume``, ``--eval-only``, ``--num-gpus``
-    (one card and one process until DDP is ported), the multi-machine flags,
-    and ``key=value`` config overrides."""
+    (ranks on this machine, ``parallel.mesh.launch``), the multi-machine
+    flags (``--num-machines``, ``--machine-rank``, ``--dist-url``), and
+    ``key=value`` config overrides."""
     parser = argparse.ArgumentParser(description="APE on PyTorch: training and evaluation")
     parser.add_argument("--config-file", default="", metavar="FILE")
     parser.add_argument("--resume", action="store_true")

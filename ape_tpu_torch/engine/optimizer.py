@@ -23,6 +23,14 @@ arguments. As optax, the optimizer steps every parameter, one the loss
 does not read as one whose gradient is zero: Adam's moments stay 0 and only
 the decay moves it (the R50 stem behind its ``stop_gradient``, ROADMAP
 Queue 3). ``torch.optim.AdamW`` alone would skip it.
+
+Across ranks (``parallel.mesh``) the optimizer is built on the module DDP
+wraps (``mesh.unwrap``) or on the model after FSDP2 has sharded it: the
+groups read the parameter names, which neither changes, and a missing
+gradient's zeros are a shard like the parameter's. The groups without masks
+and the heads a criterion does not read leave parameters without a
+gradient on every rank alike, which DDP takes with
+``find_unused_parameters=True`` (``mesh.wrap_model``).
 """
 
 from __future__ import annotations

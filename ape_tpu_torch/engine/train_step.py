@@ -9,6 +9,15 @@ micro-batches along B; their gradients are summed and divided by
 ``iter_size`` (JAX: a ``lax.scan`` over micro-batches). ``num_boxes`` is the
 micro-batch's count of valid targets, clamped to 1.
 
+Across ranks (``parallel.mesh``) the step is told which ``rows`` of the
+global batch its batch holds (``mesh.batch_rows``): ``num_boxes`` is the
+global count over the chunks, the model and the criterion draw at the
+global batch and reduce their own counts through ``rows``, the backward of
+all but the last micro-batch skips the gradient reduction, and the logged
+loss terms are the ranks' mean, so the NaN guard raises on every rank
+together. The clip's norm is the global one (``clip_grad_norm_`` on
+FSDP2's DTensor gradients).
+
 ``prompt`` is the loader group's prompt type, as in JAX: ``"name"`` aligns
 the class logits to the original text features, a phrase or expression to
 the fused ones (``align_on_fused=prompt != "name"``). The step's generator
@@ -26,6 +35,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ape_tpu_torch.modeling.ape_deta.criterion import DeformableCriterion
+from ape_tpu_torch.parallel import mesh
+from ape_tpu_torch.utils.rows import WHOLE, Rows
 
 BATCH_KEYS = ("images", "image_sizes", "text_features", "text_valid")
 GRAD_CLIP = 0.1  # global-norm clip of the recipe (ape_tpu build_optimizer's grad_clip)
@@ -40,13 +51,15 @@ def _micro(batch: Dict, i: int, n: int) -> Dict:
 
 
 def loss_fn(model, criterion: DeformableCriterion, batch: Dict,
-            generator: Optional[torch.Generator] = None, prompt: str = "name"):
-    """(total, losses, outputs) of one batch: the model, then the criterion."""
+            generator: Optional[torch.Generator] = None, prompt: str = "name",
+            rows: Rows = WHOLE):
+    """(total, losses, outputs) of one batch, the ``rows`` of the step's
+    global batch: the model, then the criterion."""
     outputs = model(*(batch[k] for k in BATCH_KEYS), align_on_fused=prompt != "name",
-                    generator=generator)
+                    generator=generator, rows=rows)
     targets = batch["targets"]
-    num_boxes = targets["valid"].float().sum().clamp(min=1.0)
-    losses = criterion(outputs, targets, num_boxes, batch.get("class_valid"), generator)
+    num_boxes = rows.normaliser(targets["valid"].float().sum())
+    losses = criterion(outputs, targets, num_boxes, batch.get("class_valid"), generator, rows)
     return criterion.total(losses), losses, outputs
 
 
@@ -59,14 +72,18 @@ def make_train_step(
     ema_decay: float = 0.0,
     prompt: str = "name",
     ema: Optional[list] = None,
+    rows: Rows = WHOLE,
 ) -> Callable:
     """Returns step(batch, generator=None) -> metrics (tensors, on the device).
 
     With ema_decay > 0, ``step.ema`` holds the exponential moving average of
     the trainable parameters, updated after every step: ``ema`` (one tensor
     a trainable parameter, in order) when given, so that the step functions
-    of one run share it, else a copy of the parameters."""
+    of one run share it, else a copy of the parameters. ``rows``: the rows
+    of each global micro-batch that the step's batches hold (module
+    docstring)."""
     params = [p for p in model.parameters() if p.requires_grad]
+    distributed = torch.distributed.is_initialized()
     if ema_decay > 0 and ema is None:
         ema = [p.detach().clone() for p in params]
     elif ema_decay <= 0:
@@ -78,10 +95,15 @@ def make_train_step(
         totals, losses = [], {}
         for i in range(iter_size):
             micro = _micro(batch, i, iter_size) if iter_size > 1 else batch
-            total, losses, _ = loss_fn(model, criterion, micro, generator, prompt)
-            total.backward()
+            with mesh.no_gradient_sync(model, i < iter_size - 1):
+                total, losses, _ = loss_fn(model, criterion, micro, generator, prompt, rows)
+                total.backward()
             totals.append(total.detach())
         total = torch.stack(totals).mean()
+        if distributed:
+            names = list(losses) if iter_size == 1 else []
+            total, *terms = mesh.mean_over_ranks([total] + [losses[k] for k in names])
+            losses = dict(zip(names, terms))
         if not bool(torch.isfinite(total)):
             raise FloatingPointError(f"Loss became non-finite: {float(total)}")
         if iter_size > 1:
@@ -89,6 +111,8 @@ def make_train_step(
                 if p.grad is not None:
                     p.grad.div_(iter_size)
         grad_norm = torch.nn.utils.clip_grad_norm_(params, GRAD_CLIP)
+        if hasattr(grad_norm, "full_tensor"):  # FSDP2's: a replicated DTensor
+            grad_norm = grad_norm.full_tensor()
         optimizer.step()
         if scheduler is not None:
             scheduler.step()

@@ -12,6 +12,14 @@ non-blocking copies on the card), then the step function of that dataset
 type) with the run's ``torch.Generator``. ``sync_debug`` counts each step's
 host syncs (``torch.cuda.set_sync_debug_mode``) into the ``host_syncs``
 scalar.
+
+Across ranks (``parallel.mesh``) each rank loads its chunk of every global
+batch, and each group's step function knows its chunk; every rank takes the
+same group each step (the dataset sampler is seeded alike) and the same
+generator. The writers and the profile window run on the main process only,
+as JAX's do; the checkpointer and ``eval_fn`` are called on every rank,
+since gathering a sharded state is collective, and write or evaluate on the
+main one.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ape_tpu_torch.parallel import mesh
 from ape_tpu_torch.utils.events import (
     CommonMetricPrinter,
     EventStorage,
@@ -85,12 +94,13 @@ class Trainer:
         self.profile_start = profile_start
         self.profile_iters = profile_iters
         self.sync_debug = sync_debug
+        self.is_main = mesh.is_main_process()
         self.storage = EventStorage()
         self.writers = [
             CommonMetricPrinter(max_iter, log_period),
             JSONWriter(f"{output_dir}/metrics.json", log_period),
             TensorboardWriter(f"{output_dir}/tb", log_period),
-        ]
+        ] if self.is_main else []
         self.checkpoint_seconds: list = []  # (path, seconds) of each save
 
     def _next_batch(self) -> Dict:
@@ -150,7 +160,7 @@ class Trainer:
         prof = None
         try:
             for it in range(start_iter, self.max_iter):
-                if self.profile_dir:
+                if self.profile_dir and self.is_main:
                     if it == self.profile_start:
                         logger.info(f"profiler: tracing to {self.profile_dir}")
                         prof = torch.profiler.profile(

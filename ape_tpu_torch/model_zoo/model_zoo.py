@@ -132,6 +132,8 @@ _CRITERION = dict(losses=("class", "boxes", "masks"), alpha=0.25, gamma=2.0, num
                   fed_loss_cls_weights=None, fed_loss_pad_type=None, mask_point_sample=False,
                   mask_num_points=12544, mask_oversample_ratio=3.0,
                   mask_importance_sample_ratio=0.75, mask_max_masks=128)
+# JAX's criterion arguments the port takes at JAX's defaults only
+_CRITERION_FIXED = ("use_stage1", "cost_class", "cost_bbox", "cost_giou")
 _MODELING = "ape_tpu.modeling."
 
 
@@ -263,7 +265,7 @@ def build_model(cfg, device=None, dtype: torch.dtype = torch.float32):
 def build_criterion(cfg, index: Optional[int] = None):
     """The port's ``DeformableCriterion`` of ``cfg.criterion`` (or of
     ``cfg.criterions[index]``): JAX's arguments, its matcher costs and
-    point-sampling sizes accepted at JAX's defaults only; a
+    ``use_stage1`` accepted at JAX's defaults only; a
     ``fed_loss_cls_weights`` node is instantiated."""
     from ape_tpu_torch.modeling.ape_deta.criterion import DeformableCriterion
 
@@ -272,10 +274,8 @@ def build_criterion(cfg, index: Optional[int] = None):
     name = _MODELING + "ape_deta.criterion.DeformableCriterion"
     _check_target(node, "ape_deta.criterion.DeformableCriterion")
     kw = _args(node, {"num_classes": None, "weight_dict": None, **_CRITERION}, name,
-               fixed=("use_stage1", "cost_class", "cost_bbox", "cost_giou", "mask_num_points",
-                      "mask_oversample_ratio", "mask_importance_sample_ratio", "mask_max_masks"))
-    for k in ("use_stage1", "cost_class", "cost_bbox", "cost_giou", "mask_num_points",
-              "mask_oversample_ratio", "mask_importance_sample_ratio", "mask_max_masks"):
+               fixed=_CRITERION_FIXED)
+    for k in _CRITERION_FIXED:
         kw.pop(k)
     weights = kw["fed_loss_cls_weights"]
     if isinstance(weights, LazyNode):

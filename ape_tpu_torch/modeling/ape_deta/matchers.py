@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ape_tpu_torch.ops.box_ops import box_cxcywh_to_xyxy, box_iou, generalized_box_iou
+from ape_tpu_torch.utils.rows import WHOLE, Rows
 
 NEG = -1e9
 
@@ -59,10 +60,11 @@ def _threshold_labels(matched_val, thresholds, labels):
 
 
 def subsample_positives(pos_mask: torch.Tensor, max_pos: int,
-                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Randomly keep at most max_pos True entries per row of (B, K)."""
-    gen_device = generator.device if generator is not None else pos_mask.device
-    noise = torch.rand(pos_mask.shape, generator=generator, device=gen_device).to(pos_mask.device)
+                        generator: Optional[torch.Generator] = None,
+                        rows: Rows = WHOLE) -> torch.Tensor:
+    """Randomly keep at most max_pos True entries per row of (B, K); the
+    noise is drawn at the global batch and cut to ``rows``."""
+    noise = rows.rand(pos_mask.shape, 0, generator, pos_mask.device)
     score = torch.where(pos_mask, noise, torch.full_like(noise, -1.0))
     keep_n = pos_mask.sum(1, keepdim=True).clamp(max=max_pos)
     order = torch.argsort(-score, dim=1)
@@ -91,12 +93,13 @@ def stage2_assign(
     iou_thresh: float = 0.6,
     max_k: int = 4,
     generator: Optional[torch.Generator] = None,
+    rows: Rows = WHOLE,
 ) -> torch.Tensor:
     """Stage2Assigner -> assign (B, K): gt index or -1."""
     iou, _ = box_iou(box_cxcywh_to_xyxy(gt_boxes), box_cxcywh_to_xyxy(init_reference))
     iou = torch.where(gt_valid[..., None], iou, torch.full_like(iou, -1.0))
     matched_idx, label = threshold_match(iou, gt_valid, (iou_thresh,), (0, 1))
-    pos = subsample_positives(label == 1, int(num_queries * positive_fraction), generator)
+    pos = subsample_positives(label == 1, int(num_queries * positive_fraction), generator, rows)
     assign = torch.where(pos, matched_idx, torch.full_like(matched_idx, -1))
     return topk_per_gt(assign, iou, max_k)
 
@@ -112,6 +115,7 @@ def stage1_assign(
     positive_fraction: float = 0.5,
     max_k: int = 4,
     generator: Optional[torch.Generator] = None,
+    rows: Rows = WHOLE,
 ) -> torch.Tensor:
     """Stage1Assigner on the encoder's anchors -> assign (B, S)."""
     iou, _ = box_iou(box_cxcywh_to_xyxy(gt_boxes), box_cxcywh_to_xyxy(anchors))
@@ -120,7 +124,7 @@ def stage1_assign(
     label = _threshold_labels(matched_val, (t_low, t_high), (0, -1, 1))
     label = torch.where(_low_quality(iou, gt_valid) & anchor_valid, torch.ones_like(label), label)
     pos = subsample_positives((label == 1) & anchor_valid,
-                              int(batch_size_per_image * positive_fraction), generator)
+                              int(batch_size_per_image * positive_fraction), generator, rows)
     assign = torch.where(pos, matched_idx, torch.full_like(matched_idx, -1))
     assign = topk_per_gt(assign, iou, max_k)
     return torch.where(gt_valid.any(1, keepdim=True), assign, torch.full_like(assign, -1))

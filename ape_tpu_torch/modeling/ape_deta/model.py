@@ -42,6 +42,7 @@ from ape_tpu_torch.layers.align import VisionLanguageAlign
 from ape_tpu_torch.layers.common import MLP, Linear
 from ape_tpu_torch.modeling.ape_deta.transformer import PRIOR_BIAS, DeformableDetrTransformer
 from ape_tpu_torch.ops.posemb import position_embedding_sine
+from ape_tpu_torch.utils.rows import WHOLE, Rows
 
 
 def _group_norm(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
@@ -268,6 +269,7 @@ class APEDeta(nn.Module):
         fusion_text_mode: str = "text",
         generator: Optional[torch.Generator] = None,
         mask_prompt: Optional[torch.Tensor] = None,
+        rows: Rows = WHOLE,
     ) -> Dict[str, torch.Tensor]:
         """fusion_text_mode: what the fusion layers see: ``"text"`` the text
         features, ``"zero"`` one zero token, ``"learnable"`` the learned
@@ -276,15 +278,16 @@ class APEDeta(nn.Module):
         else to the original; only ``"text"`` has fused text to align to. A
         model without fusion layers gives the same outputs under both.
         generator: the backbone's drop-path draws in ``train()`` mode (JAX's
-        ``rngs={"dropout": rng}``). With a class bank the text passed in is
-        not read. mask_prompt: (B, H, W) bool, where the first stage may
-        propose."""
+        ``rngs={"dropout": rng}``), drawn at the global batch of which
+        ``images`` are the ``rows`` (``utils.rows``). With a class bank the
+        text passed in is not read. mask_prompt: (B, H, W) bool, where the
+        first stage may propose."""
         if self.num_learned_classes:
             b = images.shape[0]
             text_features = self.class_embedding[None].expand(b, -1, -1).to(self.dtype)
             text_valid = torch.ones(b, self.num_learned_classes, dtype=torch.bool,
                                     device=images.device)
-        backbone_feats = self.backbone(images.to(self.dtype), generator)
+        backbone_feats = self.backbone(images.to(self.dtype), generator, rows)
         feats = self.neck(backbone_feats)
         multi_level_feats = [feats[f] for f in self.in_features]
         level_shapes = [(f.shape[1], f.shape[2]) for f in multi_level_feats]

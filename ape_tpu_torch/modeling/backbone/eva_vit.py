@@ -59,6 +59,7 @@ from ape_tpu_torch.modeling.backbone.vit_utils import (
 )
 from ape_tpu_torch.ops.attention import HEAD_DIMS, global_attention
 from ape_tpu_torch.ops.tables import device_table
+from ape_tpu_torch.utils.rows import WHOLE, Rows
 
 
 class Attention(nn.Module):
@@ -188,14 +189,14 @@ class DropPath(nn.Module):
 
 
 def draw_keep(rates: Sequence[float], batch: int, device,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None, rows: Rows = WHOLE) -> torch.Tensor:
     """Keep masks (len(rates), 2, batch) bool on ``device``: entry [i, j, b]
     keeps branch j of block i for sample b with probability 1 - rates[i]
     (JAX's ``bernoulli``: a uniform below the keep rate). All are drawn on
     the generator's device (the CPU's default one without a generator), then
-    copied in one transfer."""
+    copied in one transfer; drawn at the global batch and cut to ``rows``."""
     gen_device = generator.device if generator is not None else "cpu"
-    u = torch.rand(len(rates), 2, batch, generator=generator, device=gen_device)
+    u = rows.rand((len(rates), 2, batch), 2, generator, gen_device)
     keep = torch.tensor([1.0 - r for r in rates], device=gen_device)
     return (u < keep[:, None, None]).to(device)
 
@@ -336,9 +337,10 @@ class EVAViT(nn.Module):
             return None, None
         return _rope_on(self.embed_dim // self.num_heads // 2, seq_len, self.pt_hw_seq_len, device)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None, rows: Rows = WHOLE):
         """x: (B, H, W, 3) -> (B, H/16, W/16, embed_dim). In ``train()`` mode
-        with drop path the keep masks come from ``generator``."""
+        with drop path the keep masks come from ``generator`` (``draw_keep``
+        at ``rows``)."""
         x = self.patch_embed(x)
         b, h, w, c = x.shape
         x = x + resize_abs_pos(self.pos_embed, self.pretrain_use_cls_token, (h, w)).to(x.dtype)
@@ -346,7 +348,7 @@ class EVAViT(nn.Module):
         rope_g = self._rope(h, x.device)
         keep = None
         if self.training and any(self.drop_path_rates):
-            keep = draw_keep(self.drop_path_rates, b, x.device, generator)
+            keep = draw_keep(self.drop_path_rates, b, x.device, generator, rows)
         for i, blk in enumerate(self.blocks):
             x = blk(x, *(rope_w if i in self.window_block_indexes else rope_g),
                     None if keep is None else keep[i])
@@ -411,8 +413,9 @@ class SimpleFeaturePyramid(nn.Module):
             self.add_module(f"simfp_{stage}", nn.Sequential(*layers))
             self.stages.append(stage)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        feat = self.net(x, generator).permute(0, 3, 1, 2)
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                rows: Rows = WHOLE) -> Dict[str, torch.Tensor]:
+        feat = self.net(x, generator, rows).permute(0, 3, 1, 2)
         results = {}
         for stage in self.stages:
             results[f"p{stage}"] = getattr(self, f"simfp_{stage}")(feat).permute(0, 2, 3, 1)

@@ -118,11 +118,12 @@ class ResNet(nn.Module):
             self.out_channels[name] = out_ch
             in_ch, out_ch = out_ch, out_ch * 2
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
-        """x (B, H, W, 3) -> {name: (B, H_s, W_s, C_s)}. ``generator`` is
-        unused (the ResNet draws nothing; the ViT backbones' signature)."""
-        del generator
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                rows=None) -> Dict[str, torch.Tensor]:
+        """x (B, H, W, 3) -> {name: (B, H_s, W_s, C_s)}. ``generator`` and
+        ``rows`` are unused (the ResNet draws nothing; the ViT backbones'
+        signature)."""
+        del generator, rows
         x = self.stem(x.permute(0, 3, 1, 2)).detach()
         feats = {}
         for name in self.stage_names:

@@ -12,9 +12,21 @@ checkpoints and evaluation; ``--eval-only`` (``do_test``) loads
 ``train.init_checkpoint`` and evaluates every registered test dataset
 (``run_eval``).
 
-One card and one process: ``--num-gpus`` or ``--num-machines`` above 1 and
-``train.fsdp > 1`` raise until DDP and FSDP are ported (ROADMAP Queue 1 #3),
-as does a language tower of another kind than ``eva02clip``. The run takes
+Training across processes (``parallel.mesh``): ``--num-gpus N`` spawns N
+ranks (``launch``; ``--num-machines``, ``--machine-rank`` and
+``--dist-url tcp://host:port`` across machines), and torchrun's environment
+(``WORLD_SIZE`` > 1) is read as well. The ranks form JAX's mesh: ``fsdp =
+gcd(train.fsdp, world)`` and a data axis of the gcd of every group's
+micro-batch and ``world // fsdp`` (``mesh.data_axis``); ranks past ``data *
+fsdp``, whose devices JAX would leave idle, log that and return without
+joining. ``train.fsdp > 1`` shards the model with FSDP2, else DDP wraps it;
+each rank loads its chunk of every group's micro-batch (``mesh.batch_rows``)
+and the step is the one-process step on the global batch. NCCL on the card
+(one card a rank), gloo on the CPU. ``--eval-only`` evaluates in one
+process, as JAX's ``run_eval``; evaluation during training runs on the main
+rank while the others wait (``mesh.run_on_main``).
+
+A language tower of another kind than ``eva02clip`` raises. The run takes
 the CUDA card; with no card it raises unless ``device="cpu"`` is passed to
 ``main`` or ``train.device=cpu`` is set. The model computes in bfloat16 on
 the card (the reference's AMP) and in float32 on the CPU; its parameters are
@@ -41,20 +53,24 @@ import contextlib
 import functools
 import logging
 import os
+import sys
 import time
 
 import numpy as np
 import torch
 
+from ape_tpu_torch.parallel import mesh
+
 logger = logging.getLogger("ape_tpu_torch")
 
-ROADMAP_DDP = "ROADMAP Queue 1 #3, item 2: DDP/FSDP"
 
-
-def setup_logger(output_dir: str = ""):
+def setup_logger(output_dir: str = "", main: bool = True):
     """INFO lines of the port's logger on stderr and, with ``output_dir``,
-    into its ``log.txt`` (a later call moves the file handler)."""
-    logger.setLevel(logging.INFO)
+    into its ``log.txt`` (a later call moves the file handler); a rank other
+    than the main one logs warnings alone, to stderr."""
+    logger.setLevel(logging.INFO if main else logging.WARNING)
+    if not main:
+        output_dir = ""
     fmt = logging.Formatter("[%(asctime)s %(name)s]: %(message)s")
     for h in list(logger.handlers):
         if isinstance(h, logging.FileHandler):
@@ -71,9 +87,12 @@ def setup_logger(output_dir: str = ""):
         logger.addHandler(h)
 
 
-def synthetic_loader(batch_size, image_size, num_text, text_dim, max_gt=8, mask_size=None):
+def synthetic_loader(batch_size, image_size, num_text, text_dim, max_gt=8, mask_size=None,
+                     chunk=(0, 1), iter_size=1):
     """fast_dev_run data when no dataset is registered (smoke tests, CI):
-    JAX's stream, NumPy on the host."""
+    JAX's stream, NumPy on the host. ``batch_size`` is the global batch (of
+    ``iter_size`` micro-batches); a rank keeps its ``chunk`` (index, count)
+    of every micro-batch (``mesh.local_rows``)."""
     mask_size = mask_size or image_size // 4
     rng = np.random.RandomState(0)
 
@@ -83,7 +102,7 @@ def synthetic_loader(batch_size, image_size, num_text, text_dim, max_gt=8, mask_
             boxes = np.zeros((batch_size, max_gt, 4), np.float32)
             boxes[:, :, :2] = rng.uniform(0.3, 0.7, (batch_size, max_gt, 2))
             boxes[:, :, 2:] = rng.uniform(0.1, 0.25, (batch_size, max_gt, 2))
-            yield {
+            batch = {
                 "images": rng.randn(batch_size, image_size, image_size, 3).astype(np.float32),
                 "image_sizes": np.asarray([[image_size, image_size]] * batch_size, np.int32),
                 "targets": {
@@ -94,6 +113,9 @@ def synthetic_loader(batch_size, image_size, num_text, text_dim, max_gt=8, mask_
                               ).astype(np.float32),
                 },
             }
+            if chunk[1] > 1:
+                batch = mesh.local_rows(batch, *chunk, iter_size)
+            yield batch
 
     class Loader:
         def __iter__(self):
@@ -174,14 +196,29 @@ def swapped_in(model, ema):
                 p.copy_(s)
 
 
-def do_train(args, cfg, device) -> dict:
-    """Train as the config says (module docstring). Returns a summary: the
-    iterations run, the checkpoints kept, the seconds of each save and of
-    the load, the trainer, the model, its optimizer and scheduler."""
-    from ape_tpu_torch.checkpoint.checkpointer import Checkpointer, PeriodicCheckpointer
+def do_train(args, cfg, device, fsdp: int = 1) -> dict:
+    """Train as the config says (module docstring), on this rank's share
+    when a process group is joined (``fsdp``: its FSDP axis). Returns a
+    summary: the iterations run, the checkpoints kept, the seconds of each
+    save and of the load, the trainer, the model (wrapped, across ranks),
+    its optimizer and scheduler, and this rank's (index, count) chunk of
+    each group's batch."""
+    from ape_tpu_torch.checkpoint.checkpointer import (
+        Checkpointer,
+        PeriodicCheckpointer,
+        ema_state,
+        load_ema,
+        load_optimizer_state,
+        model_state,
+        optimizer_state,
+    )
     from ape_tpu_torch.checkpoint.convert import load_checkpoint_tolerant
     from ape_tpu_torch.config import instantiate
-    from ape_tpu_torch.data.build import build_detection_train_loader
+    from ape_tpu_torch.data.build import (
+        build_detection_train_loader,
+        load_loader_state,
+        loader_state,
+    )
     from ape_tpu_torch.data.catalog import DatasetCatalog
     from ape_tpu_torch.data.samplers import MultiDatasetSampler
     from ape_tpu_torch.engine.optimizer import build_optimizer, lr_lambda
@@ -207,6 +244,22 @@ def do_train(args, cfg, device) -> dict:
     seed = int(train.get("seed", 0))
     model = _build(cfg, device)
     logger.info(f"model parameters: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M")
+    # the weights load into the one-process model, which DDP then copies and
+    # FSDP2 shards (every rank reads the file)
+    ckpt = Checkpointer(train.output_dir, keep=2)
+    t0 = time.perf_counter()
+    state, start_iter = ckpt.resume_or_load(resume=args.resume)
+    if state is not None:
+        model.load_state_dict(state["model"])
+    elif train.get("init_checkpoint", ""):
+        load_checkpoint_tolerant(train.init_checkpoint, model)
+    load_seconds = time.perf_counter() - t0
+    world = mesh.get_world_size()
+    if world > 1:
+        logger.info(f"mesh (data={world // fsdp}, fsdp={fsdp}): "
+                    f"{'FSDP2' if fsdp > 1 else 'DDP'} over {world} ranks")
+    model = mesh.wrap_model(model, mesh.make_mesh(world, fsdp, device.type), fsdp)
+    module = mesh.unwrap(model)
     n_crit = len(cfg.get("criterions", None) or [cfg.criterion])
     criterions = [build_criterion(cfg, i) for i in range(n_crit)]
 
@@ -214,62 +267,59 @@ def do_train(args, cfg, device) -> dict:
     if float(opt_cfg.pop("grad_clip", GRAD_CLIP)) != GRAD_CLIP:
         raise NotImplementedError(f"optimizer.grad_clip={cfg.optimizer.grad_clip}: every config "
                                   f"clips at {GRAD_CLIP}, make_train_step's constant")
-    optimizer, scheduler = build_optimizer(model, **opt_cfg)
+    optimizer, scheduler = build_optimizer(module, **opt_cfg)
     factor = lr_lambda(opt_cfg.get("milestones", ()), opt_cfg.get("warmup_steps", 0))
     base_lr = float(opt_cfg.get("base_lr", 2e-4))
     iter_size = int(train.get("iter_size", 1))
     ema_decay = float(train.get("ema_decay", 0.0))
-    ema = ([p.detach().clone() for p in model.parameters() if p.requires_grad]
+    ema = ([p.detach().clone() for p in module.parameters() if p.requires_grad]
            if ema_decay > 0 else None)
     generator = torch.Generator(device=device).manual_seed(seed)
 
     img = int(train.get("image_size", 1024))
     num_text = int(train.get("num_text", 80))
     text_dim = int(train.get("text_dim", 1024))
+    micro = [int(g.get("batch_size", 1)) for g in groups]
+    rows = [mesh.batch_rows(b) for b in micro]  # this rank's rows of each group's batch
+    chunks = [(r.index, r.count) for r in rows]
     if registered:
         loaders = [build_detection_train_loader(
-            list(g["dataset_names"]), instantiate(g["mapper"]),
-            int(g.get("batch_size", 1)) * iter_size, g.get("sampler", "TrainingSampler"),
-            seed=seed + i, dataset_id=i, filter_empty=bool(g.get("filter_empty", True)),
-            copypaste_prob=float(g.get("copypaste_prob", 0.0))) for i, g in enumerate(groups)]
+            list(g["dataset_names"]), instantiate(g["mapper"]), b // count * iter_size,
+            g.get("sampler", "TrainingSampler"), seed=seed + i, rank=index, world_size=count,
+            dataset_id=i, filter_empty=bool(g.get("filter_empty", True)),
+            copypaste_prob=float(g.get("copypaste_prob", 0.0)))
+            for i, (g, b, (index, count)) in enumerate(zip(groups, micro, chunks))]
     else:
         logger.warning("datasets not registered; fast_dev_run trains on synthetic data")
-        loaders = [synthetic_loader(int(g.get("batch_size", 1)) * iter_size, img, num_text,
-                                    text_dim) for g in groups]
+        loaders = [synthetic_loader(b * iter_size, img, num_text, text_dim, chunk=chunk,
+                                    iter_size=iter_size) for b, chunk in zip(micro, chunks)]
     ratio = list(train.get("dataset_ratio", [1.0] * len(groups)))
     mds = MultiDatasetSampler(ratio, seed=seed) if len(loaders) > 1 else None
     text_fn = build_text_fn(cfg)
 
-    ckpt = Checkpointer(train.output_dir, keep=2)
     t0 = time.perf_counter()
-    state, start_iter = ckpt.resume_or_load(resume=args.resume)
     if state is not None:
-        model.load_state_dict(state["model"])
-        optimizer.load_state_dict(state["optimizer"])
+        load_optimizer_state(model, optimizer, state["optimizer"])
         scheduler.load_state_dict(state["scheduler"])
         if ema is not None and state.get("ema") is not None:
-            for e, v in zip(ema, state["ema"]):
-                e.copy_(v)
+            load_ema(ema, state["ema"])
         generator.set_state(state["generator"])
-        for ld, s in zip(loaders, state.get("loaders", [])):
-            if s is not None and hasattr(ld, "load_state_dict"):
-                ld.load_state_dict(s)
+        for ld, s, chunk in zip(loaders, state.get("loaders", []), chunks):
+            load_loader_state(ld, s, *chunk)
         if mds is not None and state.get("dataset_sampler") is not None:
             mds.load_state_dict(state["dataset_sampler"])
         if state.get("text_bank") is not None:
             text_fn.bank[...] = state["text_bank"]
-    elif train.get("init_checkpoint", ""):
-        load_checkpoint_tolerant(train.init_checkpoint, model)
-    load_seconds = time.perf_counter() - t0
+    load_seconds += time.perf_counter() - t0
 
-    def state_fn():
+    def state_fn():  # on every rank: gathering FSDP2's shards is collective
         return {
-            "model": model.state_dict(),
-            "optimizer": optimizer.state_dict(),
+            "model": model_state(model),
+            "optimizer": optimizer_state(model, optimizer),
             "scheduler": scheduler.state_dict(),
-            "ema": ema,
+            "ema": ema_state(ema),
             "generator": generator.get_state(),
-            "loaders": [ld.state_dict() if hasattr(ld, "state_dict") else None for ld in loaders],
+            "loaders": [loader_state(ld, *chunk) for ld, chunk in zip(loaders, chunks)],
             "dataset_sampler": mds.state_dict() if mds is not None else None,
             "text_bank": text_fn.bank.copy(),
         }
@@ -277,20 +327,21 @@ def do_train(args, cfg, device) -> dict:
     dataset_prompts = list(train.get("dataset_prompts", []) or [])
 
     @functools.lru_cache(maxsize=None)
-    def _step_fn_for(crit_idx: int, prompt: str):
+    def _step_fn_for(crit_idx: int, prompt: str, group_rows):
         return make_train_step(model, criterions[crit_idx], optimizer, scheduler,
-                               iter_size=iter_size, ema_decay=ema_decay, prompt=prompt, ema=ema)
+                               iter_size=iter_size, ema_decay=ema_decay, prompt=prompt, ema=ema,
+                               rows=group_rows)
 
     def step_fn_for(ds_id: int):
-        # groups sharing one (criterion, prompt type) share one step function
+        # groups sharing one (criterion, prompt type, rows) share one step function
         prompt = dataset_prompts[ds_id] if ds_id < len(dataset_prompts) else "name"
-        return _step_fn_for(min(ds_id, len(criterions) - 1), prompt)
+        return _step_fn_for(min(ds_id, len(criterions) - 1), prompt, rows[ds_id])
 
     eval_fn = None
     if train.get("eval_period", 0) and cfg.dataloader.get("tests", []):
-        def eval_fn():
-            with swapped_in(model, ema):
-                return run_eval(cfg, model, device)
+        def eval_fn():  # on every rank: the main one evaluates, the others wait
+            with swapped_in(module, ema):
+                return eval_on_main(cfg, model, device)
 
     trainer = Trainer(
         step_fn_for, loaders, device, generator=generator, dataset_sampler=mds, text_fn=text_fn,
@@ -306,7 +357,8 @@ def do_train(args, cfg, device) -> dict:
     trainer.train(start_iter)
     return {"start_iter": start_iter, "max_iter": train.max_iter, "checkpoints": ckpt.kept(),
             "checkpoint_seconds": trainer.checkpoint_seconds, "load_seconds": load_seconds,
-            "trainer": trainer, "model": model, "optimizer": optimizer, "scheduler": scheduler}
+            "trainer": trainer, "model": model, "optimizer": optimizer, "scheduler": scheduler,
+            "batch_chunks": chunks}
 
 
 def run_eval(cfg, model, device) -> dict:
@@ -358,6 +410,25 @@ def run_eval(cfg, model, device) -> dict:
     return results
 
 
+def eval_on_main(cfg, model, device) -> dict:
+    """``run_eval`` on the main rank over the whole set while the other
+    ranks wait (JAX's ``run_eval`` takes no rank; ``mesh.run_on_main``, a
+    wait that outlasts a collective's timeout): DDP's module as it is,
+    FSDP2's gathered into a one-process model first (a collective of every
+    rank). One process evaluates ``model``; the other ranks return {}."""
+    if not torch.distributed.is_initialized():
+        return run_eval(cfg, model, device)
+    plain = mesh.unwrap(model)
+    if mesh.is_sharded(model):
+        from ape_tpu_torch.checkpoint.checkpointer import model_state
+
+        state = model_state(model)
+        if mesh.is_main_process():
+            plain = _build(cfg, device)
+            plain.load_state_dict(state)
+    return mesh.run_on_main(lambda: run_eval(cfg, plain, device)) or {}
+
+
 def do_test(args, cfg, device) -> dict:
     """``--eval-only``: the model with ``train.init_checkpoint``'s weights
     (its EMA when the file holds one), evaluated by ``run_eval``."""
@@ -381,29 +452,79 @@ def do_test(args, cfg, device) -> dict:
     return run_eval(cfg, model, device)
 
 
-def main(argv=None, device=None):
-    """Parse ``argv`` (default: the command line), load and override the
-    config, and train or evaluate. ``device``: where to run (default the
-    config's ``train.device``, else the CUDA card, raising without one)."""
+def _setup(argv, device):
+    """(args, cfg, device) of a command line: the parsed arguments, the
+    config with its overrides, the device (module docstring)."""
     from ape_tpu_torch.config import LazyConfig
     from ape_tpu_torch.device import default_device
     from ape_tpu_torch.engine.defaults import default_argument_parser
 
     args = default_argument_parser().parse_args(argv)
-    if args.num_gpus > 1 or args.num_machines > 1:
-        raise NotImplementedError(f"--num-gpus {args.num_gpus} --num-machines "
-                                  f"{args.num_machines}: one card and one process until DDP is "
-                                  f"ported ({ROADMAP_DDP})")
     cfg = LazyConfig.load(args.config_file)
     LazyConfig.apply_overrides(cfg, [o for o in (args.opts or []) if "=" in o])
-    if int(cfg.train.get("fsdp", 1)) > 1:
-        raise NotImplementedError(f"train.fsdp={cfg.train.fsdp}: FSDP is not ported "
-                                  f"({ROADMAP_DDP})")
-    setup_logger(cfg.train.get("output_dir", ""))
     device = torch.device(default_device("train_net", device or cfg.train.get("device", None)))
+    return args, cfg, device
+
+
+def train_ranks(args, cfg, device):
+    """Train in this process, one rank of torchrun's or ``launch``'s
+    environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``; one process
+    without them): JAX's mesh arithmetic over the world, the extra ranks
+    leaving before they join, the others joining the process group for
+    ``do_train`` and leaving it after. Returns ``do_train``'s summary, None
+    on a rank that left."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
+    setup_logger(cfg.train.get("output_dir", ""), main=rank == 0)
+    if world <= 1:
+        return do_train(args, cfg, device)
+    micro = [int(g.get("batch_size", 1)) for g in _train_groups(cfg)]
+    data, fsdp = mesh.data_axis(micro, world, int(cfg.train.get("fsdp", 1)))
+    used = data * fsdp
+    if rank >= used:
+        logger.warning(f"rank {rank} leaves: the mesh (data={data}, fsdp={fsdp}) takes {used} of "
+                       f"{world} ranks (micro-batches {micro}), as JAX leaves devices idle")
+        return None
+    if used == 1:
+        return do_train(args, cfg, device)
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    mesh.initialize_distributed(world_size=used, device_type=device.type)
+    try:
+        return do_train(args, cfg, device, fsdp=fsdp)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _rank_main(argv, device):
+    """One spawned rank of ``main``'s ``launch``."""
+    args, cfg, device = _setup(argv, device)
+    train_ranks(args, cfg, device)
+
+
+def main(argv=None, device=None):
+    """Parse ``argv`` (default: the command line), load and override the
+    config, and train or evaluate. ``device``: where to run (default the
+    config's ``train.device``, else the CUDA card, raising without one).
+    ``--num-gpus`` (times ``--num-machines``) above 1 spawns the ranks
+    (``mesh.launch``) and returns None; one process returns the summary
+    of ``do_train`` or the results of ``do_test``."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args, cfg, device = _setup(argv, device)
     if args.eval_only:
+        setup_logger(cfg.train.get("output_dir", ""))
         return do_test(args, cfg, device)
-    return do_train(args, cfg, device)
+    if args.num_gpus * args.num_machines > 1:
+        # the ranks unpickle the function by its module's name, which a run
+        # as __main__ (python -m) does not give
+        from ape_tpu_torch.tools.train_net import _rank_main
+
+        setup_logger(cfg.train.get("output_dir", ""))
+        mesh.launch(_rank_main, args.num_gpus, args.num_machines, args.machine_rank,
+                    args.dist_url, args=(argv, str(device)), device_type=device.type)
+        return None
+    return train_ranks(args, cfg, device)
 
 
 if __name__ == "__main__":

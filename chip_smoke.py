@@ -99,8 +99,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 9. train f32: one f32 step at 512^2, batch 1, protocol pyramid, encoder
    and decoder cut to F32_DETECTION_LAYERS (3 + 3) layers, fan-in
    weights: every parameter's gradient held against the plain versions on
-   the CPU, and the plain gradients' own floor under a perturbation of the
-   images at f32 rounding size;
+   the CPU;
 10. full serve: ``build_ape_ti()`` with its defaults, the masked model on the
     4-scale pyramid (1024^2, bf16, 900 queries, S = 87,296 tokens): launches
     per forward, finite ``pred_masks`` (1, 900, 256, 256), images/s, and
@@ -287,6 +286,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     the argmax maps, P@0.5 from the top-1 boxes, PQ from the segments) or,
     for LVIS and OpenImages, AP 100 on the ground truth itself; images/s and
     the device, postprocess and evaluator seconds;
+    training across processes (``parallel_phase``; two ranks share the one
+    card under gloo, which prices the path, not the speed of data
+    parallelism): ddp_train, two ranks spawned by the port's
+    ``parallel.mesh.launch``, an f32 step of the masked APE-Ti cut to 2 + 2
+    layers under DDP (loss and gradients within PAR_GRAD_BOUND of the
+    one-process card step's on the same global batch taken image by image,
+    within ``f32_grad_bound`` of the whole batch's in one pass and of the
+    CPU's, the CPU's own assignments differing in at most PAR_ASSIGN_DIFFER
+    entries), then TN_CONFIG through ``train_net.do_train`` under DDP,
+    PAR_STEPS bf16 steps at a global batch of 2: exact launches a step on
+    each rank, s/step and peak memory a rank; fsdp_train, FSDP_CONFIG
+    (ViT-L) under FSDP2 (``fully_shard``, fsdp = 2) at full depth,
+    FSDP_STEPS ``make_train_step`` steps with exact launches, each rank's
+    peak memory beside ``vitl_train``'s, and an f32 check of its tree cut
+    to VITL_F32_DEPTH blocks: the ranks' gradient shards put together
+    within PAR_GRAD_BOUND of the one-process step's; nccl_train, one rank
+    under NCCL at world size 1, TN_CONFIG under DDP and under FSDP2,
+    NCCL_STEPS steps each with exact launches, then FSDP2's checkpoint
+    through the port's checkpointer, which one process loads bit for bit
+    (parameters, AdamW state, dataset sampler); iouloss_train, IOU_CONFIG with its
+    encoder's ``pred_iou`` loss (``_iou_config``) through ``train_net.main``
+    (fast_dev_run, synthetic data): ``loss_iou_enc`` finite, exact launches,
+    and its f32 value on the card within F32_GRAD_RTOL of the CPU's;
 18. race: ``ape_tpu_torch.tools.msda_race``, every window-MSDA forward
     form at both pyramids and both offset draws, its per-pair suites, and
     the ``pair`` and ``rows`` ops by device time under each body, each query
@@ -310,7 +332,8 @@ over all of them, ``launches_main`` over the serving and training phases
 alone, 5-17, ``launches_default`` over those of them that run the default
 flags: slice, serve, train, full serve, full train with the merged backward,
 L_D's slice, serve, train and f32 train, the ADE20k and APE-L phases but the
-f32 ones, R50's, the ViT trees', train_net's, the demo's and the mix's; error, time, plain
+f32 ones, R50's, the ViT trees', train_net's, the demo's, the mix's and
+the two-rank, NCCL and IoU-loss runs' (each rank's counts summed); error, time, plain
 and library
 time, and bound; for K1, K3, K4, K6, K7, K8 and K9, whose D = 32 body runs
 there, the general body's time as ``general_ms``; for K6 and K7 also the
@@ -333,6 +356,7 @@ import contextlib
 import copy
 import functools
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -405,7 +429,8 @@ ENCODER_LAYERS = 6
 # selects them: K8 under FUSED, K9 (+ K1 on the narrow query levels) under V6.
 FORM_FLAGS = {"qlevel": "FUSED", "dense": "V6"}
 WINDOW_FORMS = ("pair", "rows", "qlevel", "dense")
-FORM_ITERS = 10  # timed calls per form (kernels phase) and per race measurement
+FORM_ITERS = 10  # timed calls per form (kernels phase) and per probe measurement
+RACE_ITERS = 5  # timed calls per race measurement
 # Peaks of an H100 SXM at 700 W: HBM bytes/s; dense bf16 tensor-core
 # FLOP/s for the attention products; f32 FLOP/s outside the tensor cores
 # for MSDA's per-sample arithmetic and f32 attention.
@@ -440,8 +465,12 @@ F32_SPLIT_RTOL = 1e-3
 START = time.monotonic()
 
 
+LOGGED = {}  # the last record of each phase, for a later phase to read
+
+
 def log(**rec):
     """One record a line, with ``t``: seconds since the script started."""
+    LOGGED[rec.get("phase")] = rec
     print(json.dumps(dict(rec, t=round(time.monotonic() - START, 1))), flush=True)
 
 
@@ -1991,9 +2020,9 @@ def step_grads(model, crit, batch, seed: int, prompt: str = "name"):
 def train_f32_phase(dev, mask_on: bool = False):
     """One f32 step (512^2, batch 1, fan-in weights) with the CUDA kernels,
     every parameter's gradient held against the plain versions on the CPU
-    within its bound; the first-stage indices must match. Then the plain
-    version against itself on perturbed images: the gradients' floor. The
-    detection model runs the protocol pyramid; the masked model (mask_on) the
+    within its bound; the first-stage indices must match (the plain
+    gradients' own floor under perturbed images is held at tiny dims by
+    ``tests/test_torch_train.py``). The detection model runs the protocol pyramid; the masked model (mask_on) the
     default one, and its step runs once more with the split MSDA backward,
     held against the merged one."""
     import torch
@@ -2042,9 +2071,7 @@ def train_f32_phase(dev, mask_on: bool = False):
         split = grad_rel_errors(split_grads, gpu_grads)
         del split_grads
     cpu_total, cpu_sel, cpu_grads = step_grads(cpu_model, crit, batch, SEED)
-    _, floor_sel, floor_grads = step_grads(cpu_model, crit, perturbed(batch, SEED + 6), SEED)
     rel = grad_rel_errors(gpu_grads, cpu_grads)
-    floor = grad_rel_errors(floor_grads, cpu_grads)
     over = sorted(((n, r, f32_grad_bound(n)) for n, r in rel.items() if not r <= f32_grad_bound(n)),
                   key=lambda t: -t[1] / t[2])
 
@@ -2062,8 +2089,6 @@ def train_f32_phase(dev, mask_on: bool = False):
         total_loss_cpu=cpu_total, first_stage_indices_identical=same_sel, params=len(rel),
         worst_grad_rel_err=worst(rel, False), bound=F32_GRAD_RTOL,
         worst_offset_grad_rel_err=worst(rel, True), offset_bound=F32_OFFSET_GRAD_RTOL,
-        perturbation=PERTURB, floor_first_stage_indices_identical=bool(torch.equal(floor_sel, cpu_sel)),
-        floor_worst_grad_rel_err=worst(floor, False), floor_worst_offset_grad_rel_err=worst(floor, True),
         **rec, seconds=time.perf_counter() - t0)
     if not same_sel:
         fail("f32 train step: first-stage indices differ between the CUDA kernels and the plain versions")
@@ -3716,9 +3741,11 @@ def _tn_state(summary) -> dict:
     the parameters, the optimizer (AdamW's moments and steps), the
     scheduler, the step's generator, the loaders' positions and mapper
     draws, and the text bank."""
+    from ape_tpu_torch.checkpoint.checkpointer import optimizer_state
+
     trainer = summary["trainer"]
     return _tn_host({"model": summary["model"].state_dict(),
-                     "optimizer": summary["optimizer"].state_dict(),
+                     "optimizer": optimizer_state(summary["model"], summary["optimizer"]),
                      "scheduler": summary["scheduler"].state_dict(),
                      "generator": trainer.generator.get_state(),
                      "loaders": [ld.state_dict() for ld in trainer.loaders],
@@ -4629,6 +4656,701 @@ def mix_phase(dev, card):
     return [train_launches] + mix_eval_phase(dev, card, tmp, checkpoint)
 
 
+# --- training across processes: DDP and FSDP2 (parallel/mesh.py) under train_net ---
+PAR_RANKS = 2  # ranks sharing the one card under gloo (NCCL takes one card a rank)
+PAR_STEPS = 3  # bf16 steps of each two-rank train_net run, the first a warm-up
+PAR_GRAD_BOUND = 1e-5  # of each parameter's largest gradient: two ranks against one process
+# entries in which the CPU's own stage assignments may differ from the card's
+# (3 anchors of one image in one run, 0 in two, PERF.md §6)
+PAR_ASSIGN_DIFFER = 8
+PAR_F32_IMG = 256  # the DDP f32 check's images (its CPU half, two images, is the phase's cost)
+FSDP_STEPS = 2  # bf16 steps of the FSDP run, the first a warm-up (ViT-L's steps ~10 s under gloo)
+# the FSDP config's step as it builds it: K1 and K2 once a layer of the
+# encoder and the decoder, K5's three in its global blocks
+FSDP_STEP_LAUNCHES = {"msda_fwd": 12, "msda_bwd": 12, "attn_fwd": 8, "attn_bwd_dkv": 8,
+                      "attn_bwd_dq": 8}
+FSDP_CONFIG = "configs/COCO_InstanceSegmentation/ape_deta/ape_deta_vitl_eva02_clip_lsj1024_cp_12ep_fsdp.py"
+FSDP_F32_TREE = "vitl_eva02_clip"  # the FSDP config's backbone tree
+IOU_CONFIG = "configs/LVIS_SA1B_InstanceSegmentation/ape_deta/ape_deta_r50_50ep_iouloss_lp.py"
+NCCL_STEPS = 2
+# the R50 recipe's step as its config builds it (no recompute): K1 and K2
+# once a layer of the encoder and the decoder
+IOU_STEP_LAUNCHES = {"msda_fwd": 12, "msda_bwd": 12}
+
+
+def _par_f32_model(kind: str):
+    """The f32 model of a two-rank check on the CPU, fan-in weights and every
+    sampling_offsets weight at 0 (the reference's init: a rank's matrix
+    products take fewer rows and round otherwise, and with random offset
+    weights that moves samples across pixels, where the location gradient
+    is one-sided): "ddp" the masked APE-Ti cut to F32_MASKED_LAYERS layers
+    (recompute on, as the recipe) at PAR_F32_IMG^2; "fsdp" the FSDP config's EVA-02-CLIP-L
+    cut to VITL_F32_DEPTH blocks and 2 + 2 layers on the protocol pyramid."""
+    import torch
+
+    from ape_tpu_torch.modeling.build import build_ape_ti, build_ape_vit
+
+    if kind == "ddp":
+        model = build_ape_ti(num_queries=TRAIN_QUERIES, window_radius=RADIUS, mask_on=True,
+                             use_act_checkpoint=True, num_layers=F32_MASKED_LAYERS, device="cpu")
+    else:
+        model = build_ape_vit(FSDP_F32_TREE, mask_on=False, scale_factors=(2.0, 1.0, 0.5),
+                              depth=VITL_F32_DEPTH, num_layers=L_D_F32_LAYERS,
+                              img_size=F32_TRAIN_IMG, device="cpu")
+    model = init_weights(model, SEED, fan_in=True).train()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("sampling_offsets.weight"):
+                p.zero_()
+    return model
+
+
+def _par_f32_criterion(kind: str):
+    if kind == "ddp":
+        return _criterion(TRAIN_QUERIES, True)
+    return _vitl_criterion()
+
+
+def _par_f32_batches(kind: str):
+    """The global batches of the f32 checks (PAR_RANKS images, CPU tensors)."""
+    if kind == "ddp":
+        return [_train_batch("cpu", PAR_RANKS, PAR_F32_IMG, SEED + 5, masks=True)]
+    return [_train_batch("cpu", PAR_RANKS, F32_TRAIN_IMG, SEED + 7, num_text=VITL_TEXT_SLOTS,
+                         classes=VITL_CLASSES)]
+
+
+def _local_grads(module):
+    """{name: this rank's gradient on the CPU}: DDP's whole (averaged)
+    gradient, FSDP2's local shard of dim 0 (no collective: DTensor's
+    gather segfaults under gloo on CUDA tensors, PERF.md §7)."""
+    return {n: (p.grad.to_local() if hasattr(p.grad, "to_local") else p.grad).detach().cpu()
+            for n, p in module.named_parameters() if p.grad is not None}
+
+
+def _rank_grads(kind: str, outs: list) -> dict:
+    """The ranks' gradients whole: DDP's from rank 0, FSDP2's shards of dim 0
+    put together in rank order (torch.chunk's, as FSDP2 cuts them)."""
+    import torch
+
+    if kind == "ddp":
+        return outs[0]["grads"]
+    return {n: torch.cat([o["grads"][n] for o in outs]) for n in outs[0]["grads"]}
+
+
+@contextlib.contextmanager
+def shared_assignments(crit, replay=None):
+    """Within the block, the criterion's stage-2 and stage-1 assignments
+    (``match``, ``match_encoder``) in call order: recorded into the list
+    it yields, or, with ``replay`` (another side's list), that side's
+    returned after the matcher ran (so the generator moves alike). The
+    assigners' thresholds and ties read anchor and reference IoUs, which
+    the card and the CPU round otherwise; sharing them, as the draws are
+    shared, leaves the gradients to the kernels."""
+    def wrap(fn):
+        def matched(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if replay is not None:
+                own, out = out, replay[len(record)].to(out.device)
+                record.differ.append(int((own != out).sum()))
+            record.append(out)
+            return out
+        return matched
+
+    record = _Assignments()
+    crit.match, crit.match_encoder = wrap(crit.match), wrap(crit.match_encoder)
+    try:
+        yield record
+    finally:
+        del crit.match, crit.match_encoder
+
+
+class _Assignments(list):
+    """The assignments of ``shared_assignments``; under replay ``differ``
+    counts, a call each, the entries where the side's own differed."""
+
+    def __init__(self):
+        super().__init__()
+        self.differ = []
+
+
+def split_grads(model, crit, batch, seed: int, chunks: int = PAR_RANKS):
+    """The one-process step on a global batch taken chunk by chunk as the
+    ranks take it: each chunk's loss at the global ``num_boxes`` over the
+    chunks, with the global batch's draws (``utils.rows.Rows``, a
+    generator of ``seed`` a chunk, as each rank's), over ``chunks`` (the
+    ranks' average), gradients summed: (total, {name: gradient on the
+    CPU}). A whole-batch pass rounds its products otherwise, and at f32
+    rounding size a ReLU gate or an MSDA sample's pixel cell flips (a
+    one-sided jump in some gradient), so the two-rank step is held to
+    this to isolate the reduction, the normalisers and the draws."""
+    import torch
+
+    from ape_tpu_torch.engine.train_step import BATCH_KEYS
+    from ape_tpu_torch.parallel import mesh
+    from ape_tpu_torch.utils.rows import Rows
+
+    model.zero_grad(set_to_none=True)
+    num_boxes = batch["targets"]["valid"].float().sum().clamp(min=1.0) / chunks
+    total = 0.0
+    for i in range(chunks):
+        part = mesh.local_rows(batch, i, chunks)
+        gen = torch.Generator().manual_seed(seed)
+        rows = Rows(i, chunks)
+        out = model(*(part[k] for k in BATCH_KEYS), align_on_fused=False, generator=gen,
+                    rows=rows)
+        t = crit.total(crit(out, part["targets"], num_boxes, part.get("class_valid"), gen, rows))
+        (t / chunks).backward()
+        total += float(t.detach()) / chunks
+    return total, {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _par_f32(job: dict, rank: int, dev) -> None:
+    """A rank's f32 check: one loss and backward of its rows of the global
+    batch, under DDP ("ddp") or FSDP2 at fsdp = PAR_RANKS ("fsdp"); the
+    averaged loss and this rank's gradients (``_local_grads``) to
+    ``f32_out``.rank."""
+    import torch
+
+    from ape_tpu_torch.engine.train_step import loss_fn
+    from ape_tpu_torch.parallel import mesh
+
+    kind = job["f32"]
+    model = _par_f32_model(kind)
+    model.load_state_dict(torch.load(job["weights"]))
+    fsdp = PAR_RANKS if kind == "fsdp" else 1
+    model = mesh.wrap_model(model.to(dev), mesh.make_mesh(PAR_RANKS, fsdp, "cuda"), fsdp)
+    rows = mesh.batch_rows(PAR_RANKS)
+    batch = _to(mesh.local_rows(torch.load(job["batches"], weights_only=False)[0], rows.index,
+                                rows.count), dev)
+    total, _, _ = loss_fn(model, _par_f32_criterion(kind), batch,
+                          torch.Generator().manual_seed(SEED), rows=rows)
+    total.backward()
+    torch.save({"total": float(mesh.mean_over_ranks([total])[0]),
+                "grads": _local_grads(mesh.unwrap(model))}, f"{job['f32_out']}.rank{rank}")
+
+
+def _par_fsdp_steps(job: dict, dev) -> dict:
+    """FSDP_CONFIG's model (bf16, ``init_weights`` drawn on the card from
+    SEED, alike on every rank) under FSDP2 at fsdp = PAR_RANKS, its optimizer, scheduler and criterion:
+    FSDP_STEPS ``make_train_step`` steps of this rank's row of a seeded
+    global batch of 2 at the config's image size and text slots
+    (``_train_batch``). ``do_train`` would end in a checkpoint, whose full
+    state dict segfaults under gloo on CUDA tensors (PERF.md §7). Returns
+    the record: launches from 0, s/step, peak memory, the averaged losses,
+    the mesh."""
+    import torch
+
+    from ape_tpu_torch.engine.optimizer import build_optimizer
+    from ape_tpu_torch.engine.train_step import make_train_step
+    from ape_tpu_torch.model_zoo import build_criterion
+    from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.parallel import mesh
+    from ape_tpu_torch.tools import train_net
+
+    _, cfg, _ = train_net._setup(job["argv"], "cuda")
+    micro = [int(g.get("batch_size", 1)) for g in train_net._train_groups(cfg)]
+    data, fsdp = mesh.data_axis(micro, PAR_RANKS, int(cfg.train.get("fsdp", 1)))
+    model = init_weights(train_net._build(cfg, dev), SEED, device=dev)
+    model = mesh.wrap_model(model, mesh.make_mesh(PAR_RANKS, fsdp, "cuda"), fsdp)
+    opt_cfg = {k: v for k, v in dict(cfg.optimizer).items() if k != "grad_clip"}
+    optimizer, scheduler = build_optimizer(mesh.unwrap(model), **opt_cfg)
+    rows = mesh.batch_rows(micro[0])
+    step = make_train_step(model, build_criterion(cfg), optimizer, scheduler, rows=rows)
+    batch = _train_batch("cpu", micro[0], int(cfg.train.get("image_size", 1024)), SEED + 11,
+                         masks=True, num_text=int(cfg.train.get("num_text", 80)), classes=80)
+    batch = _to(mesh.local_rows(batch, rows.index, rows.count), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    seconds, losses = [], []
+    for _ in range(FSDP_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch, gen)["total_loss"]))
+        torch.cuda.synchronize(dev)
+        seconds.append(time.perf_counter() - t0)
+    return {"mesh": [data, fsdp], "launches": dict(_build.LAUNCHES),
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "seconds_per_step": seconds, "total_loss": losses, "rows": [rows.index, rows.count],
+            "sharded": mesh.is_sharded(model)}
+
+
+def _par_rank(job: dict) -> None:
+    """One rank of the two-rank phases (``mesh.launch`` on the one card,
+    gloo): the f32 check, then the bf16 run with the launch counts set to
+    0 just before it: ``train_net.do_train`` on ``job["argv"]`` (DDP), or
+    ``_par_fsdp_steps`` (FSDP2); its record (launches, s/step, peak memory,
+    losses) to a JSON file."""
+    import os
+
+    import torch
+
+    from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.parallel import mesh
+    from ape_tpu_torch.tools import train_net
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh.initialize_distributed(device_type="cuda", backend="gloo")
+    try:
+        _par_f32(job, rank, dev)
+        torch.cuda.empty_cache()
+        if job["f32"] == "fsdp":
+            rec = dict(_par_fsdp_steps(job, dev), rank=rank)
+        else:
+            args, cfg, device = train_net._setup(job["argv"], "cuda")
+            micro = [int(g.get("batch_size", 1)) for g in train_net._train_groups(cfg)]
+            data, fsdp = mesh.data_axis(micro, PAR_RANKS, int(cfg.train.get("fsdp", 1)))
+            torch.cuda.reset_peak_memory_stats(dev)
+            _build.reset_launches()
+            summary = train_net.do_train(args, cfg, dev, fsdp=fsdp)
+            torch.cuda.synchronize(dev)
+            hist = summary["trainer"].storage.histories()
+            rec = {"rank": rank, "mesh": [data, fsdp], "launches": dict(_build.LAUNCHES),
+                   "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                   "seconds_per_step": list(hist["time"]._window),
+                   "total_loss": list(hist["total_loss"]._window),
+                   "rows": list(summary["batch_chunks"][0]),
+                   "sharded": mesh.is_sharded(summary["model"])}
+    finally:
+        torch.distributed.destroy_process_group()
+    Path(f"{job['out']}.rank{rank}.json").write_text(json.dumps(rec))
+
+
+def _par_run(tmp: Path, name: str, job: dict) -> tuple:
+    """Spawn the PAR_RANKS ranks of ``job`` through the port's ``launch`` on
+    the one card under gloo; a rank that fails fails the phase. Returns
+    their records and their f32 outputs."""
+    import torch
+
+    from ape_tpu_torch.parallel import mesh
+
+    job = dict(job, out=str(tmp / name), f32_out=str(tmp / f"{name}_f32"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh.launch(_par_rank, PAR_RANKS, device_type="cuda", backend="gloo", args=(job,))
+    recs = [json.loads((tmp / f"{name}.rank{r}.json").read_text()) for r in range(PAR_RANKS)]
+    for rec in recs:
+        rec["wall_s"] = time.perf_counter() - t0
+    outs = [torch.load(f"{job['f32_out']}.rank{r}", weights_only=False) for r in range(PAR_RANKS)]
+    return recs, outs
+
+
+def _par_argv(tmp: Path, config: str, name: str, steps: int, init: Path = None) -> list:
+    return ["--config-file", str(ROOT / config), f"train.output_dir={tmp / name}",
+            f"train.max_iter={steps}", "train.log_period=1", "train.eval_period=0",
+            "train.checkpoint_period=100000", "dataloader.train.batch_size=2"] + (
+        [f"train.init_checkpoint={init}"] if init else [])
+
+
+def _par_gates(label: str, recs: list, steps: int, per_step: dict) -> dict:
+    """Both ranks: ``steps`` finite losses, exactly ``per_step`` launches
+    each step, one image a rank of the batch of 2. Returns the launches
+    summed over the ranks."""
+    import numpy as np
+
+    launches = [r["launches"] for r in recs]
+    bad = [r["rank"] for r in recs if not all(np.isfinite(v) for v in r["total_loss"])
+           or len(r["total_loss"]) != steps]
+    if bad:
+        fail(f"{label}: ranks {bad} with non-finite losses or not {steps} steps")
+    want = {k: steps * per_step.get(k, 0) for k in launches[0]}
+    if any(ld != want for ld in launches):
+        fail(f"{label}: launches by rank {launches}, expected {want} each")
+    if any(r["rows"] != [r["rank"], PAR_RANKS] for r in recs):
+        fail(f"{label}: batch chunks {[r['rows'] for r in recs]}")
+    return {k: sum(ld[k] for ld in launches) for k in launches[0]}
+
+
+def _par_grad_check(label: str, got: dict, want: dict, bound) -> tuple:
+    """(worst three (name, max |got - want| / max |want|), names over ``bound``
+    (a number, or a function of the name))."""
+    if sorted(got) != sorted(want):
+        fail(f"{label}: gradients of {sorted(set(got) ^ set(want))[:5]} on one side only")
+    shapes = [n for n in want if got[n].shape != want[n].shape]
+    if shapes:
+        fail(f"{label}: gradient shapes differ for {shapes[:5]}")
+    rel = grad_rel_errors(got, want)
+    limit = bound if callable(bound) else (lambda n: bound)
+    over = [(n, r) for n, r in rel.items() if not r <= limit(n)]
+    return sorted(rel.items(), key=lambda kv: -kv[1])[:3], over
+
+
+def ddp_train_phase(dev, card, tmp: Path, init: Path):
+    """Two ranks spawned by the port's ``launch`` on the one card (gloo:
+    NCCL refuses two ranks on one device; this measures the path, not the
+    speed of data parallelism). Each first takes the f32 check: the masked
+    APE-Ti cut to F32_MASKED_LAYERS layers at PAR_F32_IMG^2 under DDP,
+    one loss and backward of its image of a global batch of 2. The loss
+    and the gradients must be the one-process card step's on that batch
+    taken image by image (``split_grads``) within PAR_GRAD_BOUND of each
+    parameter's largest; the one-process card step on the whole batch in
+    one pass: the loss within PAR_GRAD_BOUND, the gradients within
+    ``f32_grad_bound`` (rounding flips of gates and MSDA cells, up to
+    3.7e-2 on the decoder's sampling offsets); the CPU's (its assignments
+    the card's, ``shared_assignments``, its own differing in at most
+    PAR_ASSIGN_DIFFER entries) within ``f32_grad_bound``. Then APE-Ti's
+    COCO recipe from its config file (TN_CONFIG) at full width through
+    ``train_net.do_train`` under DDP, PAR_STEPS bf16 steps at a global
+    batch of 2: finite losses, exactly TN_STEP_LAUNCHES a step on each
+    rank, s/step and peak memory a rank. Returns the ranks' launches."""
+    import torch
+
+    t_phase = time.perf_counter()
+    model = _par_f32_model("ddp")
+    torch.save(model.state_dict(), tmp / "ddp_f32.pt")
+    batches = _par_f32_batches("ddp")
+    torch.save(batches, tmp / "ddp_batches.pt")
+    crit = _par_f32_criterion("ddp")
+    # the one-process step on the card, then on the CPU, on the whole batch
+    cpu_model = copy.deepcopy(model)
+    cpu_model.transformer.encoder.use_act_checkpoint = False
+    cpu_model.transformer.decoder.use_act_checkpoint = False
+    model = model.to(dev)
+    gpu_batch = _to(batches[0], dev)
+    with shared_assignments(crit) as card_assign:
+        one_total, one_grads = split_grads(model, crit, gpu_batch, SEED)
+    whole_total, _, whole_grads = step_grads(model, crit, gpu_batch, SEED)
+    with shared_assignments(crit, [a.cpu() for a in card_assign]) as cpu_assign:
+        cpu_total, cpu_grads = split_grads(cpu_model, crit, batches[0], SEED)
+    del model, cpu_model, gpu_batch
+    recs, outs = _par_run(tmp, "ddp", dict(
+        f32="ddp", weights=str(tmp / "ddp_f32.pt"), batches=str(tmp / "ddp_batches.pt"),
+        argv=_par_argv(tmp, TN_CONFIG, "ddp_out", PAR_STEPS, init)))
+    ranks = {"total": outs[0]["total"], "grads": _rank_grads("ddp", outs)}
+    launches = _par_gates("ddp_train", recs, PAR_STEPS, TN_STEP_LAUNCHES)
+    worst_one, over_one = _par_grad_check("ddp_train f32", ranks["grads"], one_grads,
+                                          PAR_GRAD_BOUND)
+    worst_whole, over_whole = _par_grad_check("ddp_train f32", ranks["grads"], whole_grads,
+                                              f32_grad_bound)
+    worst_cpu, over_cpu = _par_grad_check("ddp_train f32", ranks["grads"], cpu_grads,
+                                          f32_grad_bound)
+    log(phase="ddp_train", config=TN_CONFIG, ranks=PAR_RANKS, backend="gloo", batch=2,
+        steps=PAR_STEPS, note="two ranks share one card: the path, not data-parallel speed",
+        s_per_step=[statistics.median(r["seconds_per_step"][1:]) for r in recs],
+        seconds_per_step=[r["seconds_per_step"] for r in recs],
+        max_memory_allocated_gib=[r["max_memory_allocated_gib"] for r in recs],
+        launches_per_rank=[r["launches"] for r in recs], total_loss=[r["total_loss"] for r in recs],
+        wall_s=recs[0]["wall_s"], f32_layers=F32_MASKED_LAYERS, f32_image=PAR_F32_IMG,
+        f32_total_two_ranks=ranks["total"], f32_total_one_process=one_total,
+        f32_total_cpu=cpu_total, f32_worst_vs_one_process=worst_one, bound=PAR_GRAD_BOUND,
+        f32_total_whole_batch=whole_total, f32_worst_vs_whole_batch=worst_whole,
+        whole_batch_bound=[F32_GRAD_RTOL, F32_OFFSET_GRAD_RTOL],
+        f32_worst_vs_cpu=worst_cpu, cpu_bound=[F32_GRAD_RTOL, F32_OFFSET_GRAD_RTOL],
+        f32_cpu_own_assignments_differ=cpu_assign.differ, assign_bound=PAR_ASSIGN_DIFFER,
+        seconds=time.perf_counter() - t_phase, card=card)
+    if over_one or over_whole or over_cpu:
+        fail(f"ddp_train f32: gradients over the one-process bound {over_one[:3]}, over the "
+             f"whole batch's {over_whole[:3]}, over the CPU's {over_cpu[:3]}")
+    for name, want in (("one process", one_total), ("the whole batch", whole_total)):
+        if not abs(ranks["total"] - want) <= PAR_GRAD_BOUND * abs(want):
+            fail(f"ddp_train f32: loss {ranks['total']} at two ranks, {want} for {name}")
+    if sum(cpu_assign.differ) > PAR_ASSIGN_DIFFER:
+        fail(f"ddp_train f32: the CPU's own assignments differ from the card's in "
+             f"{cpu_assign.differ} entries, over {PAR_ASSIGN_DIFFER}")
+    return launches
+
+
+def fsdp_train_phase(dev, card, tmp: Path, vitl_gib: float):
+    """FSDP2 (``fully_shard`` at fsdp = PAR_RANKS) on the two ranks of the one
+    card under gloo. The f32 check: the FSDP config's EVA-02-CLIP-L cut to
+    VITL_F32_DEPTH blocks and 2 + 2 layers at F32_TRAIN_IMG^2, one loss and
+    backward of each rank's image of a global batch of 2; the ranks' shards
+    put together (``_rank_grads``) must be the one-process card step's on
+    that batch taken image by image (``split_grads``) within PAR_GRAD_BOUND
+    of each parameter's largest, the loss too. Then the FSDP config
+    (FSDP_CONFIG) at full width and depth, FSDP_STEPS bf16 steps at a global
+    batch of 2 (``_par_fsdp_steps``: the port's step, its clip's DTensor
+    norm reduced over gloo; the checkpoint's full state dicts segfault
+    under gloo on CUDA, and ``nccl_train`` saves one on the card): finite losses,
+    exactly FSDP_STEP_LAUNCHES a step on each rank, each rank's peak memory
+    beside the one-process ``vitl_train``'s (``vitl_gib``). Returns the
+    ranks' launches."""
+    import torch
+
+    t_phase = time.perf_counter()
+    model = _par_f32_model("fsdp")
+    torch.save(model.state_dict(), tmp / "fsdp_f32.pt")
+    batches = _par_f32_batches("fsdp")
+    torch.save(batches, tmp / "fsdp_batches.pt")
+    model = model.to(dev)
+    one_total, one_grads = split_grads(model, _par_f32_criterion("fsdp"), _to(batches[0], dev),
+                                       SEED)
+    del model
+    torch.cuda.empty_cache()
+    recs, outs = _par_run(tmp, "fsdp", dict(
+        f32="fsdp", weights=str(tmp / "fsdp_f32.pt"), batches=str(tmp / "fsdp_batches.pt"),
+        argv=_par_argv(tmp, FSDP_CONFIG, "fsdp_out", FSDP_STEPS)))
+    ranks = {"total": outs[0]["total"], "grads": _rank_grads("fsdp", outs)}
+    launches = _par_gates("fsdp_train", recs, FSDP_STEPS, FSDP_STEP_LAUNCHES)
+    if not all(r["sharded"] and r["mesh"] == [1, PAR_RANKS] for r in recs):
+        fail(f"fsdp_train: meshes {[r['mesh'] for r in recs]}, sharded "
+             f"{[r['sharded'] for r in recs]}, expected (1, {PAR_RANKS}) under FSDP2")
+    worst, over = _par_grad_check("fsdp_train f32", ranks["grads"], one_grads, PAR_GRAD_BOUND)
+    log(phase="fsdp_train", config=FSDP_CONFIG, ranks=PAR_RANKS, backend="gloo", batch=2,
+        steps=FSDP_STEPS, mesh=recs[0]["mesh"],
+        note="two ranks share one card: the path, not data-parallel speed",
+        s_per_step=[statistics.median(r["seconds_per_step"][1:]) for r in recs],
+        seconds_per_step=[r["seconds_per_step"] for r in recs],
+        max_memory_allocated_gib=[r["max_memory_allocated_gib"] for r in recs],
+        vitl_train_one_process_gib=vitl_gib,
+        launches_per_rank=[r["launches"] for r in recs], total_loss=[r["total_loss"] for r in recs],
+        wall_s=recs[0]["wall_s"], f32_tree=FSDP_F32_TREE, f32_depth=VITL_F32_DEPTH,
+        f32_total_two_ranks=ranks["total"], f32_total_one_process=one_total,
+        f32_worst_vs_one_process=worst, bound=PAR_GRAD_BOUND,
+        seconds=time.perf_counter() - t_phase, card=card)
+    if over:
+        fail(f"fsdp_train f32: gradients over the bound {over[:3]}")
+    if not abs(ranks["total"] - one_total) <= PAR_GRAD_BOUND * abs(one_total):
+        fail(f"fsdp_train f32: loss {ranks['total']} at two ranks, {one_total} in one process")
+    return launches
+
+
+def _nccl_checkpoint(cfg, model, optimizer, tmp: Path, dev) -> dict:
+    """FSDP2's checkpoint under NCCL through the port's checkpointer
+    (``model_state``, ``optimizer_state``: PyTorch's full state dicts) with
+    a dataset sampler's state, loaded into a one-process model and
+    optimizer: what differs from the saved file, bit for bit."""
+    import numpy as np
+    import torch
+
+    from ape_tpu_torch.checkpoint.checkpointer import (
+        Checkpointer,
+        load_optimizer_state,
+        model_state,
+        optimizer_state,
+    )
+    from ape_tpu_torch.data.samplers import MultiDatasetSampler
+    from ape_tpu_torch.engine.optimizer import build_optimizer
+    from ape_tpu_torch.model_zoo import build_model
+
+    mds = MultiDatasetSampler([1.0, 3.0], seed=SEED)
+    groups = [mds.next_dataset() for _ in range(5)]
+    state = {"model": model_state(model), "optimizer": optimizer_state(model, optimizer),
+             "dataset_sampler": mds.state_dict()}
+    saved = torch.load(Checkpointer(str(tmp / "nccl_ckpt")).save(NCCL_STEPS, state),
+                       map_location="cpu", weights_only=False)
+    live = {n: p.to_local().detach().cpu() for n, p in model.named_parameters()}  # 1 rank: whole
+    plain = build_model(cfg, device="cpu", dtype=torch.bfloat16)
+    plain.load_state_dict(saved["model"])
+    plain = plain.to(dev)
+    opt, _ = build_optimizer(plain, **{k: v for k, v in dict(cfg.optimizer).items()
+                                       if k != "grad_clip"})
+    load_optimizer_state(plain, opt, saved["optimizer"])
+    mds2 = MultiDatasetSampler([1.0, 3.0], seed=SEED)
+    mds2.load_state_dict(saved["dataset_sampler"])
+    loaded = plain.state_dict()
+    return {"groups_before_save": groups,
+            "model_vs_live": [n for n, v in live.items() if not torch.equal(saved["model"][n], v)],
+            "model_loaded": _tn_differences(_tn_host(saved["model"]), _tn_host(loaded)),
+            "optimizer_loaded": _tn_differences(_tn_host(saved["optimizer"]),
+                                                _tn_host(optimizer_state(plain, opt))),
+            "dataset_sampler_loaded": not all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b
+                                              in zip(mds2.state_dict()["rng"],
+                                                     saved["dataset_sampler"]["rng"])),
+            "optimizer_entries": len(saved["optimizer"]["state"])}
+
+
+def nccl_train_phase(dev, card, tmp: Path):
+    """One rank under NCCL, the card's own backend, at world size 1: APE-Ti's
+    COCO recipe (TN_CONFIG, full width) wrapped in DDP, then sharded by
+    FSDP2 (``fully_shard`` on a 1 x 1 mesh), NCCL_STEPS bf16 steps each at
+    batch 2 through ``make_train_step`` with the rank's rows
+    (``mesh.batch_rows``: the normalisers, the metrics and FSDP2's clip norm
+    reduced over the communicator): finite losses and exactly
+    TN_STEP_LAUNCHES a step. Then FSDP2's checkpoint through the port's
+    checkpointer (``_nccl_checkpoint``), loaded into one process: the model,
+    AdamW's state and a dataset sampler's state bit for bit. Returns the
+    launches."""
+    import torch
+    import torch.distributed as dist
+
+    from ape_tpu_torch.config import LazyConfig
+    from ape_tpu_torch.engine.optimizer import build_optimizer
+    from ape_tpu_torch.engine.train_step import make_train_step
+    from ape_tpu_torch.model_zoo import build_criterion, build_model
+    from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    cfg = LazyConfig.load(str(ROOT / TN_CONFIG))
+    batch = _train_batch(dev, 2, TRAIN_IMG, SEED + 9, masks=True,
+                         num_text=int(cfg.train.num_text), classes=80)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{mesh.free_port()}",
+                            world_size=1, rank=0)
+    recs, total, ckpt = {}, {}, None
+    try:
+        for kind in ("ddp", "fsdp"):
+            model = init_weights(build_model(cfg, device="cpu", dtype=torch.bfloat16), SEED)
+            ranks_mesh = mesh.make_mesh(1, 1, "cuda")
+            model = (mesh.wrap_model(model.to(dev), ranks_mesh, 1) if kind == "ddp"
+                     else mesh.param_sharding(ranks_mesh, model.to(dev)))
+            optimizer, scheduler = build_optimizer(mesh.unwrap(model), **{
+                k: v for k, v in dict(cfg.optimizer).items() if k != "grad_clip"})
+            step = make_train_step(model, build_criterion(cfg), optimizer, scheduler,
+                                   rows=mesh.batch_rows(2))
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            _build.reset_launches()
+            seconds, losses = [], []
+            for _ in range(NCCL_STEPS):
+                t0 = time.perf_counter()
+                metrics = step(batch, gen)
+                torch.cuda.synchronize(dev)
+                seconds.append(time.perf_counter() - t0)
+                losses.append(float(metrics["total_loss"]))
+            launches = dict(_build.LAUNCHES)
+            want = {k: NCCL_STEPS * TN_STEP_LAUNCHES.get(k, 0) for k in launches}
+            if launches != want or not all(abs(v) < float("inf") for v in losses):
+                fail(f"nccl_train {kind}: launches {launches}, expected {want}; losses {losses}")
+            recs[kind] = dict(seconds_per_step=seconds, total_loss=losses,
+                              wrapped=type(model).__name__)
+            total = {k: total.get(k, 0) + v for k, v in launches.items()}
+            if kind == "fsdp":
+                ckpt = _nccl_checkpoint(cfg, model, optimizer, tmp, dev)
+            del model, optimizer, step
+            torch.cuda.empty_cache()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    log(phase="nccl_train", config=TN_CONFIG, backend=backend, world_size=1, batch=2,
+        steps=NCCL_STEPS, runs=recs, checkpoint=ckpt, seconds=time.perf_counter() - t_phase,
+        card=card)
+    bad = {k: v for k, v in ckpt.items() if k.endswith(("_live", "_loaded")) and v}
+    if bad:
+        fail(f"nccl_train: FSDP2's checkpoint loaded in one process differs: {bad}")
+    return total
+
+
+def _iou_config(tmp: Path) -> str:
+    """IOU_CONFIG with its first group's criterion regressing the encoder's
+    IoU (``pred_iou``, ``loss_iou`` weight 1), as the ViT-L twin
+    (``ape_deta_vitl_iouloss_lp_mdl.py``) sets it; the R50 file itself
+    mirrors the reference's base recipe and leaves its losses as they are."""
+    path = tmp / "iouloss_r50.py"
+    path.write_text(
+        "from ape_tpu.config import LazyConfig\n"
+        f"_base = LazyConfig.load({str(ROOT / IOU_CONFIG)!r})\n"
+        "model, optimizer, train, dataloader = _base.model, _base.optimizer, _base.train, "
+        "_base.dataloader\n"
+        "language = _base.language\n"
+        "criterions = _base.criterions\n"
+        "criterions[0].losses = tuple(criterions[0].losses) + ('pred_iou',)\n"
+        "criterions[0].weight_dict = dict(criterions[0].weight_dict, loss_iou=1.0)\n"
+        "criterion = criterions[0]\n")
+    return str(path)
+
+
+def iouloss_train_phase(dev, card, tmp: Path):
+    """The R50 IoU-regression recipe (IOU_CONFIG with ``pred_iou``,
+    ``_iou_config``) through ``train_net.main`` at full width and depth,
+    ``fast_dev_run`` (its datasets are not in the synthetic layout: 20 steps
+    of synthetic data at the config's 1024^2 and 1216 text slots, batch 2 a
+    group): ``loss_iou_enc`` logged and finite at every step of the first
+    group (the LVIS criterion's), launches exact (IOU_STEP_LAUNCHES a step,
+    and R50_FORWARD_LAUNCHES an image of fast_dev_run's evaluation at step
+    10 of the test sets an earlier phase registered).
+    Then its model cut to R50_F32_LAYERS + R50_F32_LAYERS layers at
+    F32_TRAIN_IMG^2 in f32: one loss of the card's against the CPU's, every
+    term (``loss_iou_enc`` among them) within F32_GRAD_RTOL. Returns the
+    launches of the run."""
+    import numpy as np
+    import torch
+
+    from ape_tpu_torch.config import LazyConfig
+    from ape_tpu_torch.engine.train_step import loss_fn
+    from ape_tpu_torch.model_zoo import build_criterion
+    from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.tools import train_net
+
+    t_phase = time.perf_counter()
+    cfg_file = _iou_config(tmp)
+    out = tmp / "iouloss_out"
+    groups = len(train_net._train_groups(LazyConfig.load(cfg_file)))
+    argv = ["--config-file", cfg_file, f"train.output_dir={out}", "train.fast_dev_run.enabled=True",
+            "train.checkpoint_period=100000", "train.eval_period=0"]
+    argv += [f"dataloader.train.groups.{i}.batch_size=2" for i in range(groups)] if groups > 1 \
+        else ["dataloader.train.batch_size=2"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    summary = train_net.main(argv)
+    launches = dict(_build.LAUNCHES)
+    rows = _tn_metrics(out)
+    steps = summary["max_iter"]
+    # the writer's row holds each scalar's latest value: a step of the
+    # second group (no IoU loss) repeats the last one, so read the first's
+    iou = [r.get("loss_iou_enc") for r in rows if int(r["dataset_id"]) == 0]
+    # fast_dev_run evaluates at step 10 the config's test sets that are
+    # registered (an earlier phase's LVIS layout), an R50 forward an image
+    evaluated = launches["msda_fwd_window"] // R50_FORWARD_LAUNCHES["msda_fwd_window"]
+    want = {k: steps * IOU_STEP_LAUNCHES.get(k, 0) + evaluated * R50_FORWARD_LAUNCHES.get(k, 0)
+            for k in launches}
+    if len(rows) != steps or not iou or not all(v is not None and np.isfinite(v) for v in iou):
+        fail(f"iouloss_train: {len(rows)} rows, loss_iou_enc of group 0's steps {iou}")
+    if launches != want:
+        fail(f"iouloss_train: launches {launches}, expected {want} ({steps} steps, "
+             f"{evaluated} evaluated images)")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    step_s = [r["time"] for r in rows]
+    del summary
+    torch.cuda.empty_cache()
+    # f32: the cut model's loss terms on the card against the CPU's
+    crit = build_criterion(LazyConfig.load(cfg_file), 0)
+    model = _r50_cpu_model("build_ape_r50", SEED, num_queries=TRAIN_QUERIES).train()
+    cpu_model = copy.deepcopy(model)
+    batch = _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5, masks=True,
+                         num_text=crit.num_classes, classes=crit.num_classes)
+    _, gpu_losses, _ = loss_fn(model.to(dev), crit, _to(batch, dev),
+                               torch.Generator().manual_seed(SEED))
+    _, cpu_losses, _ = loss_fn(cpu_model, crit, batch, torch.Generator().manual_seed(SEED))
+    rel = {k: abs(float(gpu_losses[k]) - float(v)) / max(abs(float(v)), 1e-30)
+           for k, v in cpu_losses.items()}
+    log(phase="iouloss_train", config=IOU_CONFIG, losses=list(crit.losses), steps=steps,
+        loss_iou_enc=iou, s_per_step=float(np.median(step_s[1:])), seconds_per_step=step_s,
+        max_memory_allocated_gib=peak, launches_per_step=IOU_STEP_LAUNCHES,
+        evaluated_images=evaluated,
+        f32_loss_iou_enc_cuda=float(gpu_losses["loss_iou_enc"]),
+        f32_loss_iou_enc_cpu=float(cpu_losses["loss_iou_enc"]),
+        f32_worst_loss_rel_err=sorted(rel.items(), key=lambda kv: -kv[1])[:3],
+        bound=F32_GRAD_RTOL, seconds=time.perf_counter() - t_phase, card=card)
+    over = {k: r for k, r in rel.items() if not r <= F32_GRAD_RTOL}
+    if "loss_iou_enc" not in cpu_losses or over:
+        fail(f"iouloss_train f32: loss terms over {F32_GRAD_RTOL} of the CPU's: {over}")
+    return launches
+
+
+def parallel_phase(dev, card, vitl_gib: float):
+    """The phases of training across processes on a synthetic COCO layout
+    under ``$DETECTRON2_DATASETS``, APE-Ti's seeded weights as
+    ``train.init_checkpoint``: ``ddp_train``, ``fsdp_train``, ``nccl_train``,
+    ``iouloss_train``. Returns their launches, one dict a run."""
+    import os
+    import tempfile
+
+    import torch
+
+    from ape_tpu_torch.config import LazyConfig
+    from ape_tpu_torch.model_zoo import build_model
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="parallel_"))
+    os.environ["DETECTRON2_DATASETS"] = str(tmp / "datasets")
+    write_coco_layout(tmp / "datasets")
+    model = init_weights(build_model(LazyConfig.load(str(ROOT / TN_CONFIG)), device="cpu"), SEED)
+    torch.save({"model": model.state_dict()}, tmp / "init.pth")
+    del model
+    runs = [ddp_train_phase(dev, card, tmp, tmp / "init.pth"),
+            fsdp_train_phase(dev, card, tmp, vitl_gib)]
+    torch.cuda.empty_cache()
+    runs.append(nccl_train_phase(dev, card, tmp))
+    torch.cuda.empty_cache()
+    runs.append(iouloss_train_phase(dev, card, tmp))
+    torch.cuda.empty_cache()
+    log(phase="parallel_done", seconds=time.perf_counter() - t0)
+    return runs
+
+
 def race_phase(dev, card):
     """``ape_tpu_torch.tools.msda_race`` as a path of its own: every
     window-MSDA form at both pyramids and offset draws, then the per-pair
@@ -4640,8 +5362,8 @@ def race_phase(dev, card):
 
     _build.reset_launches()
     t0 = time.perf_counter()
-    recs = race(dev, card, iters=FORM_ITERS)
-    bwd = msda_bwd_race.race(dev, card, iters=FORM_ITERS)
+    recs = race(dev, card, iters=RACE_ITERS)
+    bwd = msda_bwd_race.race(dev, card, iters=RACE_ITERS)
     launches = dict(_build.LAUNCHES)
     bad = msda_bwd_race.failures(bwd)
     if bad:
@@ -4775,6 +5497,7 @@ def main():
     default_runs += train_net_runs
     default_runs.append(demo_phase(dev, card, final_checkpoint))
     default_runs += mix_phase(dev, card)
+    default_runs += parallel_phase(dev, card, LOGGED["vitl_train"]["max_memory_allocated_gib"])
     main_runs = default_runs + flag_runs
     runs = list(main_runs)
     runs.append(race_phase(dev, card))

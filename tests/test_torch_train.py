@@ -176,10 +176,12 @@ def test_criterion_matches(rng):
 
 
 def test_criterion_refuses_unported_losses():
-    """The point-sampled mask loss is not ported: asking for it raises."""
-    with pytest.raises(NotImplementedError):
-        DeformableCriterion(num_classes=3, weight_dict={}, losses=("class", "masks_maskdino"),
-                            mask_point_sample=True)
+    """Every loss of JAX's is ported (tests/test_torch_criterion_iou.py); a
+    loss name neither has still raises, naming the criterion's losses."""
+    DeformableCriterion(num_classes=3, weight_dict={}, losses=("class", "masks_maskdino"),
+                        mask_point_sample=True)
+    with pytest.raises(ValueError, match="unknown losses.*'boxes_iou'"):
+        DeformableCriterion(num_classes=3, weight_dict={}, losses=("class", "boxes_iou"))
 
 
 @pytest.mark.parametrize("name,layer", [

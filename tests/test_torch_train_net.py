@@ -67,9 +67,11 @@ def test_train_resume_eval_without_jax(tmp_path):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """No card and no device: it raises (the port's device rule); more than
-    one card or process, FSDP and other language towers wait for their
-    ROADMAP items."""
+    """No card and no device: it raises (the port's device rule), and other
+    language towers than EVA-CLIP wait for their wrappers. More than one
+    process and FSDP are no longer refused: ``--num-gpus 2`` runs two gloo
+    ranks on the CPU under DDP and, with ``train.fsdp=2``, under FSDP2
+    (tests/test_torch_parallel.py holds their steps)."""
     from ape_tpu_torch.tools import train_net
 
     tiny = str(ROOT / "configs" / "tests" / "ape_deta_tiny.py")
@@ -77,10 +79,16 @@ def test_refusals(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_net.main(["--config-file", tiny, out])
-    with pytest.raises(NotImplementedError, match="DDP"):
-        train_net.main(["--num-gpus", "2", "--config-file", tiny, out], device="cpu")
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        train_net.main(["--config-file", tiny, out, "train.fsdp=2"], device="cpu")
+    cfg = write_tiny_setup(tmp_path, "train_net_ranks")
+    for extra, kind in (([], "DDP"), (["train.fsdp=2"], "FSDP2")):
+        run = tmp_path / kind
+        log = _train_net("--num-gpus", "2", "--config-file", cfg, "train.device=cpu",
+                         f"train.output_dir={run}", "train.max_iter=2", "train.eval_period=0",
+                         "train.log_period=1", *extra)
+        assert f"{kind} over 2 ranks" in log and "Starting training from iteration 0 to 2" in log
+        rows = [json.loads(line) for line in open(run / "metrics.json")]
+        assert [r["iteration"] for r in rows] == [0, 1]
+        assert torch.load(run / "model_final.pth", weights_only=False)["iteration"] == 2
     from ape_tpu_torch.config import LazyConfig
 
     cfg = LazyConfig.load(tiny)
