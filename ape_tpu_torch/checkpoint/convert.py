@@ -29,7 +29,10 @@ single-stage trees, which keep JAX's names here: ``class_embedding``,
 ``transformer.query_embed`` and ``transformer.reference_points``.
 
 ``language_state_dict_from_jax`` is likewise the inverse of
-``convert_language_state_dict`` for the EVA-CLIP text tower.
+``convert_language_state_dict`` for the EVA-CLIP text tower, and
+``language_state_dict_from_torch`` reads a torch CLIP checkpoint's text
+tower (OpenAI's layout is EVA-CLIP's) as JAX's ``build_clip_text_encoder``
+reads it.
 
 ``load_checkpoint_tolerant`` loads a checkpoint of reference names (the
 released ``.pth`` files, or the port's own) into a port model, as JAX's
@@ -261,6 +264,34 @@ def language_state_dict_from_jax(flat_params: Mapping[str, np.ndarray]) -> Dict[
         raise KeyError(f"language_state_dict_from_jax: no rule for {len(unplaced)} keys: "
                        f"{unplaced[:10]}")
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in out.items()}
+
+
+_TEXT_SCALARS = ("logit_scale", "input_resolution", "context_length", "vocab_size")
+
+
+def language_state_dict_from_torch(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A CLIP text tower's torch state dict (OpenAI's or EVA-CLIP's layout,
+    the keys JAX's ``convert_language_state_dict`` reads) to the port
+    tower's, f32: the prefixes ``model_language.``, ``net.`` and ``text.``
+    stripped, the image tower (``visual.*``), the four scalars of a whole
+    CLIP checkpoint and any ``attn_mask`` dropped, as JAX drops them; a key
+    of no other rule is logged and skipped, as JAX's converter does."""
+    out: Dict[str, torch.Tensor] = {}
+    unmatched = []
+    blocks = set(_TEXT_BLOCK.values())
+    for name, v in state_dict.items():
+        if name.startswith("visual.") or name in _TEXT_SCALARS or "attn_mask" in name:
+            continue
+        for pref in ("model_language.", "net.", "text."):
+            name = name.removeprefix(pref)
+        m = re.fullmatch(r"transformer\.resblocks\.\d+\.(.+)", name)
+        if name in _TEXT_TOP.values() or (m and m[1] in blocks):
+            out[name] = v.detach().float().cpu().contiguous()
+        elif "logit_scale" not in name:
+            unmatched.append(name)
+    if unmatched:
+        logger.warning(f"language_state_dict_from_torch: unmatched keys: {unmatched[:10]}")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,7 @@ module imports nothing of JAX; the port keeps its own copy).
 Plain-Python lazy config trees with detectron2's LazyConfig/L/instantiate
 ergonomics:
 
-    from ape_tpu.config import LazyCall as L, instantiate
+    from ape_tpu_torch.config import LazyCall as L, instantiate
     cfg.model = L(MyModel)(depth=12, width="${..embed_dim}")
     model = instantiate(cfg.model)
 

@@ -22,9 +22,13 @@ takes the cells it leaves out of the first stage as padding does.
 Gradients stop (``.detach()``) where JAX's ``jax.lax.stop_gradient`` stops
 them: at the selected proposal boxes and features, and at the references
 between decoder layers (``with_box_refine``). ``use_act_checkpoint`` recomputes every
-encoder and decoder layer in the backward (JAX's ``nn.remat``, policy
-``full``), and every fusion layer (JAX's ``nn.remat(BiAttentionBlock)``): only
-one fusion layer's (S, T) logits and softmaxes are then alive at a time.
+encoder and decoder layer in the backward (JAX's ``nn.remat``), and every
+fusion layer (JAX's ``nn.remat(BiAttentionBlock)``): only one fusion layer's
+(S, T) logits and softmaxes are then alive at a time. An encoder layer's
+recompute follows ``msda_dispatch.REMAT_POLICY``, JAX's ``_remat_policy``: by
+default ("msda") it keeps the layer's window-MSDA output from the forward and
+recomputes the rest; under ``APE_REMAT_POLICY=full`` it recomputes all. The
+decoder and fusion layers are recomputed whole under either.
 
 Parameter names are the reference's detrex names (``encoder.layers.{i}.
 attentions.0``, ``ffns.0``, ``norms.{j}``, ``decoder.bbox_embed.{i}``, ...).
@@ -38,11 +42,12 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from ape_tpu_torch.layers.common import FFN, MLP, LayerNorm, Linear, MultiheadAttention
 from ape_tpu_torch.layers.fuse import VisionLanguageFusion
 from ape_tpu_torch.layers.msda_module import MultiScaleDeformableAttention
+from ape_tpu_torch.ops import msda_dispatch
 from ape_tpu_torch.ops.box_ops import box_cxcywh_to_xyxy
 from ape_tpu_torch.ops.misc import inverse_sigmoid
 from ape_tpu_torch.ops.msda import level_start_index
@@ -54,9 +59,9 @@ from ape_tpu_torch.ops.tables import device_table, shapes_key
 PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 
 
-def _run_layer(layer: nn.Module, use_act_checkpoint: bool, *args):
+def _run_layer(layer: nn.Module, use_act_checkpoint: bool, *args, context_fn=noop_context_fn):
     if use_act_checkpoint and torch.is_grad_enabled():
-        return checkpoint(layer, *args, use_reentrant=False)
+        return checkpoint(layer, *args, use_reentrant=False, context_fn=context_fn)
     return layer(*args)
 
 
@@ -273,7 +278,8 @@ class DeformableTransformerEncoder(nn.Module):
                 x, text = _run_layer(self.vl_layers[i], self.use_act_checkpoint, x, text,
                                      text_valid)
             x = _run_layer(layer, self.use_act_checkpoint, x, pos, valid_mask, spatial_shapes,
-                           reference_points, grid_corrections)
+                           reference_points, grid_corrections,
+                           context_fn=msda_dispatch.remat_context_fn())
         return x, text
 
 

@@ -1,7 +1,8 @@
 """The EVA-CLIP text transformer (counterpart of
 ``ape_tpu/modeling/text/clip_text.py``): token and position embeddings,
 pre-LN residual blocks with causal attention (mask -1e9, softmax in f32),
-exact GELU, ``ln_final``, ``text_projection``; per-token projected states and
+exact GELU (or with ``quick_gelu`` OpenAI CLIP's x * sigmoid(1.702 x), its
+only architectural difference), ``ln_final``, ``text_projection``; per-token projected states and
 the state at the end-of-text token, found as the argmax of the token ids.
 
 The tower is frozen in APE and small beside the vision model's work per
@@ -46,9 +47,10 @@ class _Mlp(nn.Module):
 
 
 class TextBlock(nn.Module):
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, quick_gelu: bool = False):
         super().__init__()
         self.heads = heads
+        self.quick_gelu = quick_gelu
         self.ln_1 = LayerNorm(width, eps=1e-5)
         self.attn = _Attention(width)
         self.ln_2 = LayerNorm(width, eps=1e-5)
@@ -64,24 +66,26 @@ class TextBlock(nn.Module):
         attn = torch.softmax(logits.float(), -1).to(v.dtype)
         y = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, c)
         x = x + self.attn.out_proj(y)
-        y = F.gelu(self.mlp.c_fc(self.ln_2(x)), approximate="none")
+        y = self.mlp.c_fc(self.ln_2(x))
+        y = y * torch.sigmoid(1.702 * y) if self.quick_gelu else F.gelu(y, approximate="none")
         return x + self.mlp.c_proj(y)
 
 
 class _Resblocks(nn.Module):
-    def __init__(self, width: int, heads: int, layers: int):
+    def __init__(self, width: int, heads: int, layers: int, quick_gelu: bool):
         super().__init__()
-        self.resblocks = nn.ModuleList(TextBlock(width, heads) for _ in range(layers))
+        self.resblocks = nn.ModuleList(TextBlock(width, heads, quick_gelu) for _ in range(layers))
 
 
 class CLIPTextTransformer(nn.Module):
     def __init__(self, vocab_size: int = 49408, context_length: int = 77, width: int = 1024,
-                 heads: int = 16, layers: int = 24, output_dim: int = 1024):
+                 heads: int = 16, layers: int = 24, output_dim: int = 1024,
+                 quick_gelu: bool = False):
         super().__init__()
         self.context_length = context_length
         self.token_embedding = nn.Embedding(vocab_size, width)
         self.positional_embedding = nn.Parameter(0.01 * torch.randn(context_length, width))
-        self.transformer = _Resblocks(width, heads, layers)
+        self.transformer = _Resblocks(width, heads, layers, quick_gelu)
         self.ln_final = LayerNorm(width, eps=1e-5)
         self.text_projection = nn.Parameter(width**-0.5 * torch.randn(width, output_dim))
 

@@ -8,7 +8,10 @@ JAX runs the einsum path, which ``global_attention_plain`` mirrors.
 Gradients on the card run ``csrc/attn_bwd.cu`` (the library kernel's two
 backward kernels: dQ, whose prologue also computes rowsum(dO * O), then
 dK/dV), from the log-sum-exp the forward saves; on the CPU, torch autograd
-of the plain version. In bf16 every kernel runs on the tensor cores
+of the plain version. On the card the forward and the two backward kernels
+run as dispatcher operators (``ape::attn_fwd``, ``ape::attn_bwd_dq``,
+``ape::attn_bwd_dkv``), which ``FlopCounterMode`` counts by ``attn_flops``.
+In bf16 every kernel runs on the tensor cores
 (mma.sync; P and dS rounded to bf16 before their second product); in f32
 every kernel is plain f32 FMAs.
 
@@ -23,7 +26,10 @@ Layout: q, k, v and the result are (B, H, N, Dh), as in JAX.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ape_tpu_torch.ops import _build
 
@@ -124,12 +130,74 @@ def attn_bwd_cuda(q, k, v, out, grad_out, lse, scale: float):
     return (dq, *attn_bwd_dkv_cuda(q, k, v, grad_out, lse, delta, scale))
 
 
+# K5 and its backward as PyTorch dispatcher operators, so that
+# FlopCounterMode counts them (``attn_flops``) as it counts the plain
+# version's products on the CPU.
+@torch.library.custom_op("ape::attn_fwd", mutates_args=())
+def attn_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``attn_fwd_cuda`` as an operator: (out, lse), lse empty without
+    with_lse."""
+    if with_lse:
+        return attn_fwd_cuda(q, k, v, scale, with_lse=True)
+    return attn_fwd_cuda(q, k, v, scale), q.new_empty(0, dtype=torch.float32)
+
+
+@attn_fwd_op.register_fake
+def _(q, k, v, scale, with_lse):
+    return torch.empty_like(q), q.new_empty(q.shape[:3] if with_lse else (0,), dtype=torch.float32)
+
+
+@torch.library.custom_op("ape::attn_bwd_dq", mutates_args=())
+def attn_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                   grad_out: torch.Tensor, lse: torch.Tensor,
+                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``attn_bwd_dq_cuda`` (K5-dq) as an operator: (dq, delta)."""
+    return attn_bwd_dq_cuda(q, k, v, out, grad_out, lse, scale)
+
+
+@attn_bwd_dq_op.register_fake
+def _(q, k, v, out, grad_out, lse, scale):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@torch.library.custom_op("ape::attn_bwd_dkv", mutates_args=())
+def attn_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, grad_out: torch.Tensor,
+                    lse: torch.Tensor, delta: torch.Tensor,
+                    scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``attn_bwd_dkv_cuda`` (K5-dkv) as an operator: (dk, dv)."""
+    return attn_bwd_dkv_cuda(q, k, v, grad_out, lse, delta, scale)
+
+
+@attn_bwd_dkv_op.register_fake
+def _(q, k, v, grad_out, lse, delta, scale):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+def attn_flops(q_shape, k_shape) -> int:
+    """FLOPs of each attention operator on (B, H, Nq, Dh) queries and (B, H,
+    Nk, Dh) keys: 4 B H Nq Nk Dh, two products of 2 B H Nq Nk Dh. The
+    forward's are S = q k^T and O = P v; K5-dq's dP = dO v^T and dQ = dS k;
+    K5-dkv's dV = P^T dO and dK = dS^T q: the products that autograd of the
+    plain version takes, which ``FlopCounterMode`` counts on the CPU, so the
+    count is the same on the card. The kernels also recompute S (and K5-dkv
+    dP), which the bounds of PERF.md count and this count leaves out."""
+    b, h, nq, dh = q_shape
+    return 4 * b * h * nq * k_shape[2] * dh
+
+
+@register_flop_formula([torch.ops.ape.attn_fwd, torch.ops.ape.attn_bwd_dq,
+                        torch.ops.ape.attn_bwd_dkv])
+def _attn_flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
+    return attn_flops(q_shape, k_shape)
+
+
 class _FlashAttention(torch.autograd.Function):
     """attn_fwd.cu forward (saving the log-sum-exp), attn_bwd.cu backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        out, lse = attn_fwd_cuda(q, k, v, scale, with_lse=True)
+        out, lse = torch.ops.ape.attn_fwd(q, k, v, scale, True)
         ctx.scale = scale
         ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -137,7 +205,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = attn_bwd_cuda(q, k, v, out, grad_out.contiguous(), lse, ctx.scale)
+        grad_out = grad_out.contiguous()
+        dq, delta = torch.ops.ape.attn_bwd_dq(q, k, v, out, grad_out, lse, ctx.scale)
+        dk, dv = torch.ops.ape.attn_bwd_dkv(q, k, v, grad_out, lse, delta, ctx.scale)
         return dq, dk, dv, None
 
 
@@ -196,7 +266,7 @@ def global_attention(q, k, v, scale: float) -> torch.Tensor:
     if q.is_cuda:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
             return _FlashAttention.apply(q, k, v, scale)
-        return attn_fwd_cuda(q, k, v, scale)
+        return torch.ops.ape.attn_fwd(q, k, v, scale, False)[0]
     if q.device.type == "cpu":
         return global_attention_plain(q, k, v, scale)
     raise ValueError(f"no attention implementation for device {q.device}")

@@ -1,5 +1,6 @@
 """MSDA entry points: the CUDA gather kernel and its backward for CUDA
-tensors, the plain version (and torch autograd of it) for CPU tensors.
+tensors, the plain version and its gradient (``ops/msda.py``) for CPU
+tensors.
 
 Counterpart of ``ape_tpu/ops/msda_dispatch.py`` (encoder, window mode) and
 ``ape_tpu/ops/msda_decoder.py`` (decoder, exact mode). Both modes reduce to
@@ -38,6 +39,20 @@ level size stay in torch (``window_locations``), so autograd carries their
 chain rule. JAX's dense-matmul decoder backward (``_dvalue_dense``) is not
 ported: the decoder's backward runs on K2 too.
 
+Operators. The forward (K1, its window entry, the forms below) and the
+backward (K2, or K3 + K4) are PyTorch dispatcher operators, ``ape::msda_fwd``,
+``ape::msda_fwd_window`` and ``ape::msda_bwd``, on the card and on the CPU
+(where they run the plain versions, ``ops/msda.py``), for two reasons:
+``FlopCounterMode`` counts each by a registered formula (``msda_flops``),
+which it cannot do for a ``ctypes`` launch or a gather; and the encoder's
+recompute can keep the forward's output (JAX's ``msda_out`` remat policy,
+``REMAT_POLICY``): ``remat_context_fn`` gives ``torch.utils.checkpoint`` a
+selective-checkpoint policy that saves the output of every window-mode
+``ape::msda_fwd`` call, the forward's own tensor in its dtype, and hands it
+to the recompute in place of a second launch. The backward then runs K2 (or
+K3 + K4) on the recomputed locations with the incoming gradient. The exact
+mode (the decoder) saves nothing.
+
 Forms of the encoder's forward. JAX selects two other window-MSDA forwards
 with environment variables, and so does the port, with module flags of the
 same names, read at each call so that one process can run every form:
@@ -58,13 +73,21 @@ CPU tensors every form is the plain version.
 
 from __future__ import annotations
 
+import functools
+import math
 import os
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
+from torch.utils.flop_counter import register_flop_formula
 
 from ape_tpu_torch.ops import _build, msda_window_forms
-from ape_tpu_torch.ops.msda import level_start_index, ms_deform_attn
+from ape_tpu_torch.ops.msda import level_start_index, ms_deform_attn, ms_deform_attn_backward
 from ape_tpu_torch.ops.tables import device_table, shapes_key
 
 # The encoder's window-MSDA backward: merged (K2) unless APE_MSDA_BWD_MERGED=0
@@ -74,6 +97,12 @@ BWD_MERGED = os.environ.get("APE_MSDA_BWD_MERGED", "1") != "0"
 # heads, APE_MSDA_V6 (K9 + K1) selects another form.
 FUSED = os.environ.get("APE_MSDA_FUSED", "0") != "0"
 V6 = os.environ.get("APE_MSDA_V6", "0") != "0"
+# The encoder layers' recompute (``use_act_checkpoint``), as JAX's
+# ``_remat_policy`` reads APE_REMAT_POLICY: "msda" (the default, any value
+# but "full") keeps each layer's window-MSDA output from the forward, so the
+# recompute reruns only the projections and the locations; "full"
+# recomputes everything. Read at each layer's call (``remat_context_fn``).
+REMAT_POLICY = "full" if os.environ.get("APE_REMAT_POLICY", "msda") == "full" else "msda"
 
 
 # K1's two bodies (csrc/msda_fwd.cu), by the entries' ``body`` argument.
@@ -387,12 +416,107 @@ def msda_bwd_value_cuda(
     return d_value.to(grad_out.dtype)
 
 
+# f32 flops per (sample, channel) that the MSDA operators' FLOP formulas
+# count: the forward's 4 corner FMAs and the attention weight's; the
+# backward's three dot products (d_att, d_x, d_y) and 4 scatters (K2, or K3's
+# 22 and K4's 4).
+SAMPLE_FLOPS = {"fwd": 10, "bwd": 26}
+
+
+def msda_flops(kind: str, value_shape, att_shape) -> int:
+    """FLOPs of an MSDA operator of ``kind`` ("fwd" or "bwd") on a value (B,
+    S, H, D) and attention weights (B, Q, H, L, P): ``SAMPLE_FLOPS[kind]``
+    per sample and channel, from the shapes alone, so that the count is the
+    same on the card and on the CPU, whatever implements the operator. The
+    window entry's clip and the locations' arithmetic are elementwise work,
+    which ``FlopCounterMode`` counts on neither device."""
+    return SAMPLE_FLOPS[kind] * math.prod(att_shape) * int(value_shape[-1])
+
+
+def _shapes_arg(spatial_shapes) -> List[int]:
+    return [int(x) for hw in spatial_shapes for x in hw]
+
+
+def _shapes_of(flat: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    return tuple((int(flat[i]), int(flat[i + 1])) for i in range(0, len(flat), 2))
+
+
+# The MSDA forward and backward as operators of PyTorch's dispatcher, so that
+# FlopCounterMode counts them by ``msda_flops`` and the encoder's recompute
+# policy (``remat_context_fn``) can keep the forward's output: the CUDA
+# kernels on the card, the plain versions (``ops/msda.py``) on the CPU.
+@torch.library.custom_op("ape::msda_fwd", mutates_args=())
+def msda_fwd_op(value: torch.Tensor, loc: torch.Tensor, att: torch.Tensor, shapes: List[int],
+                form: str, pixel_offsets: Optional[torch.Tensor], radius: float) -> torch.Tensor:
+    """The MSDA forward at the f32 locations ``loc``: (B, Q, H * D). form:
+    "exact" for the decoder, else the form of the encoder's window op
+    (``window_form``): K1 for "exact" and "gather", K8 or K9 + K1 from the
+    clipped ``pixel_offsets`` for "qlevel" and "dense"; the plain version on
+    CPU tensors. shapes: the levels' (H, W), flattened."""
+    spatial_shapes = _shapes_of(shapes)
+    if not value.is_cuda:
+        return ms_deform_attn(value, spatial_shapes, loc, att)
+    if form in ("exact", "gather"):
+        return msda_fwd_cuda(value, spatial_shapes, loc, att)
+    return msda_window_forms.window_form_cuda(form, value, spatial_shapes, pixel_offsets, att,
+                                              radius)
+
+
+@msda_fwd_op.register_fake
+def _(value, loc, att, shapes, form, pixel_offsets, radius):
+    return value.new_empty(value.shape[0], loc.shape[1], value.shape[2] * value.shape[3])
+
+
+@torch.library.custom_op("ape::msda_fwd_window", mutates_args=())
+def msda_fwd_window_op(value: torch.Tensor, pixel_offsets: torch.Tensor, att: torch.Tensor,
+                       shapes: List[int], radius: float) -> torch.Tensor:
+    """K1's window entry (``msda_fwd_window_cuda``) as an operator."""
+    return msda_fwd_window_cuda(value, _shapes_of(shapes), pixel_offsets, att, radius)
+
+
+@msda_fwd_window_op.register_fake
+def _(value, pixel_offsets, att, shapes, radius):
+    return value.new_empty(value.shape[0], pixel_offsets.shape[1],
+                           value.shape[2] * value.shape[3])
+
+
+@torch.library.custom_op("ape::msda_bwd", mutates_args=())
+def msda_bwd_op(value: torch.Tensor, loc: torch.Tensor, att: torch.Tensor,
+                grad_out: torch.Tensor, shapes: List[int],
+                split: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(d_value, d_loc, d_att) of ``msda_fwd_op`` for grad_out (B, Q, H * D):
+    K2, or with ``split`` K3 + K4; the plain backward on CPU tensors."""
+    spatial_shapes = _shapes_of(shapes)
+    if not value.is_cuda:
+        return ms_deform_attn_backward(value, spatial_shapes, loc, att, grad_out)
+    if split:
+        d_loc, d_att = msda_bwd_offatt_cuda(value, spatial_shapes, loc, att, grad_out)
+        return msda_bwd_value_cuda(spatial_shapes, loc, att, grad_out), d_loc, d_att
+    return msda_bwd_cuda(value, spatial_shapes, loc, att, grad_out)
+
+
+@msda_bwd_op.register_fake
+def _(value, loc, att, grad_out, shapes, split):
+    return (torch.empty_like(value), torch.empty_like(loc, dtype=torch.float32),
+            torch.empty_like(att))
+
+
+@register_flop_formula([torch.ops.ape.msda_fwd, torch.ops.ape.msda_fwd_window])
+def _msda_fwd_flops(value_shape, loc_shape, att_shape, *args, out_shape=None, **kwargs):
+    return msda_flops("fwd", value_shape, att_shape)
+
+
+@register_flop_formula(torch.ops.ape.msda_bwd)
+def _msda_bwd_flops(value_shape, loc_shape, att_shape, *args, out_shape=None, **kwargs):
+    return msda_flops("bwd", value_shape, att_shape)
+
+
 class _MSDAFunction(torch.autograd.Function):
-    """msda_fwd.cu forward, or for the encoder's window mode another form
-    (``window``: (form, pixel offsets, radius), ``window_form``);
-    msda_bwd.cu backward, or for the window mode under ``BWD_MERGED = False``
-    msda_bwd_split.cu (CUDA tensors only). Every form's backward reads the
-    locations, whose gradient carries the clip's."""
+    """The forward operator (K1, or for the encoder's window mode another
+    form: ``window`` is (form, pixel offsets, radius), ``window_form``), then
+    the backward operator: K2, or for the window mode under ``BWD_MERGED =
+    False`` K3 + K4; on CPU tensors the plain versions. Every form's backward
+    reads the locations, whose gradient carries the clip's."""
 
     @staticmethod
     def forward(ctx, value, loc, att, spatial_shapes, window):
@@ -404,34 +528,46 @@ class _MSDAFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         value, loc, att = ctx.saved_tensors
-        grad_out = grad_out.contiguous()
-        if ctx.window and not BWD_MERGED:
-            d_loc, d_att = msda_bwd_offatt_cuda(value, ctx.spatial_shapes, loc, att, grad_out)
-            d_value = msda_bwd_value_cuda(ctx.spatial_shapes, loc, att, grad_out)
-        else:
-            d_value, d_loc, d_att = msda_bwd_cuda(value, ctx.spatial_shapes, loc, att, grad_out)
+        d_value, d_loc, d_att = torch.ops.ape.msda_bwd(
+            value, loc, att, grad_out.contiguous(), _shapes_arg(ctx.spatial_shapes),
+            ctx.window and not BWD_MERGED)
         return d_value, d_loc, d_att, None, None
 
 
 def _forward(value, spatial_shapes, loc, att, window):
-    """The forward kernels: K1, or the window form ``window`` names."""
-    if window is None or window[0] == "gather":
-        return msda_fwd_cuda(value, spatial_shapes, loc, att)
-    form, pixel_offsets, radius = window
-    return msda_window_forms.window_form_cuda(form, value, spatial_shapes, pixel_offsets, att,
-                                              radius)
+    """The forward operator: the exact mode, or the window form ``window``
+    names."""
+    form, pixel_offsets, radius = ("exact", None, 0.0) if window is None else window
+    return torch.ops.ape.msda_fwd(value, loc, att, _shapes_arg(spatial_shapes), form,
+                                  pixel_offsets, float(radius))
 
 
 def _route(value, spatial_shapes, loc, att, window=None):
     """window: None for the exact mode, else (form, pixel offsets, radius)."""
-    if value.is_cuda:
-        if torch.is_grad_enabled() and (value.requires_grad or loc.requires_grad
-                                        or att.requires_grad):
-            return _MSDAFunction.apply(value, loc, att, spatial_shapes, window)
-        return _forward(value, spatial_shapes, loc, att, window)
-    if value.device.type == "cpu":
-        return ms_deform_attn(value, spatial_shapes, loc, att)
-    raise ValueError(f"no MSDA implementation for device {value.device}")
+    if value.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no MSDA implementation for device {value.device}")
+    if torch.is_grad_enabled() and (value.requires_grad or loc.requires_grad
+                                    or att.requires_grad):
+        return _MSDAFunction.apply(value, loc, att, spatial_shapes, window)
+    return _forward(value, spatial_shapes, loc, att, window)
+
+
+def _save_window_output(ctx, op, *args, **kwargs):
+    """The selective recompute's policy: keep the window forward's output."""
+    if op is torch.ops.ape.msda_fwd.default and args[4] != "exact":
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_context_fn():
+    """``torch.utils.checkpoint``'s ``context_fn`` for an encoder layer's
+    recompute under ``REMAT_POLICY``: under "msda" the recompute takes the
+    window forward's output that the forward kept, so the backward launches
+    no forward kernel; under "full" (``noop_context_fn``) it runs the
+    forward again."""
+    if REMAT_POLICY == "full":
+        return noop_context_fn
+    return functools.partial(create_selective_checkpoint_contexts, _save_window_output)
 
 
 def ms_deform_attn_window(
@@ -451,8 +587,9 @@ def ms_deform_attn_window(
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (value, pixel_offsets, attention_weights))
     if window_route(form, value.device.type, needs_grad) == "window":
-        return msda_fwd_window_cuda(value, spatial_shapes, pixel_offsets.float().contiguous(),
-                                    attention_weights.contiguous(), radius)
+        return torch.ops.ape.msda_fwd_window(value, pixel_offsets.float().contiguous(),
+                                             attention_weights.contiguous(),
+                                             _shapes_arg(spatial_shapes), float(radius))
     loc = window_locations(spatial_shapes, pixel_offsets, radius)
     off = None if form == "gather" else pixel_offsets.detach().float().contiguous()
     return _route(value, spatial_shapes, loc.contiguous(), attention_weights.contiguous(),

@@ -94,8 +94,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    recompute checkpointing, 80 texts, 8 target slots with 4 valid), through
    ``build_optimizer`` and ``make_train_step``: one warm-up step, three timed
    steps; finite losses and gradients, launches per step, s/step, memory;
-   then a warm-up and one step under ``FUSED`` (K8 forward and recompute,
-   K2 backward);
+   then a warm-up and one step under ``FUSED`` (K8 forward, whose output
+   the recompute keeps, K2 backward); then ``remat_policy``: the same
+   model, weights and batch under the encoder's recompute policies
+   (``msda_dispatch.REMAT_POLICY``) "msda" and "full", alternately, two
+   rounds: exact launches (K1 18 and 24, K2 12 each), the loss bit for bit
+   the same, every gradient within ``GRAD_BOUNDS["bfloat16"]`` of its
+   largest entry, peak memory and seconds of each;
 9. train f32: one f32 step at 512^2, batch 1, protocol pyramid, encoder
    and decoder cut to F32_DETECTION_LAYERS (3 + 3) layers, fan-in
    weights: every parameter's gradient held against the plain versions on
@@ -137,7 +142,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     valid and masks, the federated class loss over 50 classes with the LVIS
     weights, ``build_optimizer(vit_num_layers=24)``, ``make_train_step``
     with name prompts): a warm-up step, then three timed steps, each
-    launching exactly ``{"msda_fwd": 24, "msda_bwd": 12, "attn_fwd": 8,
+    launching exactly ``{"msda_fwd": 18, "msda_bwd": 12, "attn_fwd": 8,
     "attn_bwd_dkv": 8, "attn_bwd_dq": 8}``; finite losses and gradients
     (none for the last fusion layer's language side, which name prompts do
     not read), s/step, images/s, peak memory; ``l_d_train_f32``: one f32
@@ -200,7 +205,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     ``r50_train``: APE-DETA R50 masked at 1024^2, batch 2, bf16 over f32
     params, 300 queries, recompute, 80 texts, 8 target slots (4 valid),
     ``build_optimizer(**R50_RECIPE)``: a warm-up and three timed steps,
-    exactly ``{"msda_fwd": 24, "msda_bwd": 12}`` each, finite losses and
+    exactly ``{"msda_fwd": 18, "msda_bwd": 12}`` each, finite losses and
     gradients (none for the stem behind ``freeze_at``), FrozenBN's buffers
     bit for bit, the stem stepped by the optimizer every step and moved as
     its decay alone moves it, s/step, images/s,
@@ -285,7 +290,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     JAX's NaN, one metric recomputed from what the route scored (mIoU from
     the argmax maps, P@0.5 from the top-1 boxes, PQ from the segments) or,
     for LVIS and OpenImages, AP 100 on the ground truth itself; images/s and
-    the device, postprocess and evaluator seconds;
+    the device, postprocess and evaluator seconds; beside the mix phases a
+    process of its own computes the CPU halves of the next two
+    (``cpu_references``); clip_openai: ``TextModel("CLIP", ...)`` (OpenAI
+    CLIP's tower, quick GELU, random weights from its seed) encodes
+    CLIP_NAMES names on the card, timed, the bank within CLIP_BOUND of the
+    CPU's; flops: ``tools/flops_report.py`` for FLOPS_CASES (Ti protocol,
+    full and train, L_D protocol) on the card at 1024^2, GFLOPs per image by
+    operator and the compute floor, and at FLOPS_CHECK_IMG on the card and
+    the CPU, the two counts equal;
     training across processes (``parallel_phase``; two ranks share the one
     card under gloo, which prices the path, not the speed of data
     parallelism): ddp_train, two ranks spawned by the port's
@@ -359,6 +372,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 import zlib
@@ -380,9 +394,12 @@ SEED = 0
 TRAIN_IMG, TRAIN_BATCH, TRAIN_QUERIES, TRAIN_STEPS = 1024, 2, 300, 3
 TRAIN_SHAPES = ((256, 256), (128, 128), (64, 64), (32, 32), (16, 16))  # default pyramid at 1024^2
 # Launches per train step with every encoder and decoder layer recomputed in
-# the backward: 6 + 6 MSDA forwards, again in the recompute, one backward
-# each; the backbone (not recomputed) runs 4 global blocks once each way.
-STEP_LAUNCHES = {"msda_fwd": 24, "msda_bwd": 12, "attn_fwd": 4, "attn_bwd_dkv": 4,
+# the backward: 6 + 6 MSDA forwards, the decoder's 6 again in the recompute
+# (the encoder's recompute takes the window-MSDA output its forward kept,
+# msda_dispatch.REMAT_POLICY "msda", JAX's default: 24 under "full"), one
+# backward each; the backbone (not recomputed) runs 4 global blocks once
+# each way.
+STEP_LAUNCHES = {"msda_fwd": 18, "msda_bwd": 12, "attn_fwd": 4, "attn_bwd_dkv": 4,
                  "attn_bwd_dq": 4}
 # With the split form the encoder's 6 MSDA backwards run K3 + K4 and the
 # decoder's 6 stay on K2. The mask head launches no MSDA or attention kernel.
@@ -1942,17 +1959,82 @@ def train_phase(dev, card):
     launches = rec.pop("launches")
     log(phase="train", dtype="bfloat16", image=TRAIN_IMG, batch=TRAIN_BATCH, queries=TRAIN_QUERIES,
         tokens=sum(h * w for h, w in TRAIN_SHAPES), **rec, card=card)
-    # under FUSED: K8 in the encoder's forward and in its recompute, K2 backward
+    # under FUSED: K8 in the encoder's forward (its recompute takes the kept
+    # output), K2 backward
     _set_form("qlevel")
     try:
         fused = _train_steps(model, step, batch, dev,
-                             with_form(STEP_LAUNCHES, "qlevel", TRAIN_SHAPES, 2, passes=2), steps=1)
+                             with_form(STEP_LAUNCHES, "qlevel", TRAIN_SHAPES, 2), steps=1)
     finally:
         _set_form("gather")
     fused_launches = fused.pop("launches")
     log(phase="train_fused", form="qlevel", dtype="bfloat16", image=TRAIN_IMG, batch=TRAIN_BATCH,
         **fused, card=card)
-    return launches, fused_launches
+    return (launches, fused_launches) + remat_policy_phase(dev, card, model, batch)
+
+
+# A Ti recompute step's MSDA launches under each recompute policy: "msda"
+# keeps the encoder's 6 window outputs, "full" runs them again.
+REMAT_LAUNCHES = {"msda": STEP_LAUNCHES, "full": dict(STEP_LAUNCHES, msda_fwd=24)}
+REMAT_ROUNDS = 2  # loss and backward under each policy, alternately
+
+
+def remat_policy_phase(dev, card, model, batch):
+    """Phase 8's model, weights and batch (APE-Ti at 1024^2, batch 2, bf16,
+    300 queries, recompute) under ``msda_dispatch.REMAT_POLICY`` "msda" and
+    "full", alternately: exact launches of each loss and backward
+    (REMAT_LAUNCHES: K1 18 and 24, K2 12), the loss bit for bit the same,
+    every gradient within ``GRAD_BOUNDS["bfloat16"]`` of its largest entry
+    (the order of K2's atomics is the only difference), the peak memory and
+    the seconds of each. Returns the launches of one round of each: (msda,
+    full)."""
+    import torch
+
+    from ape_tpu_torch.ops import _build, msda_dispatch
+    from ape_tpu_torch.ops.bounds import GRAD_BOUNDS
+
+    crit = _criterion(TRAIN_QUERIES, False)
+    runs = {}
+    try:
+        for _ in range(REMAT_ROUNDS):
+            for policy in REMAT_LAUNCHES:
+                msda_dispatch.REMAT_POLICY = policy
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                total, _, grads = step_grads(model, crit, batch, SEED)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+                if launches != REMAT_LAUNCHES[policy]:
+                    fail(f"remat_policy {policy}: launches {launches}, "
+                         f"expected {REMAT_LAUNCHES[policy]}")
+                runs.setdefault(policy, []).append(dict(
+                    total=total, grads=grads, seconds=seconds, launches=launches,
+                    gib=torch.cuda.max_memory_allocated(dev) / 2**30))
+    finally:
+        msda_dispatch.REMAT_POLICY = "msda"
+    model.zero_grad(set_to_none=True)
+    msda, full = runs["msda"][-1], runs["full"][-1]
+    rel = grad_rel_errors(msda["grads"], full["grads"])
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    totals = {p: [r["total"] for r in rs] for p, rs in runs.items()}
+    log(phase="remat_policy", dtype="bfloat16", image=TRAIN_IMG, batch=TRAIN_BATCH,
+        queries=TRAIN_QUERIES, launches={p: rs[-1]["launches"] for p, rs in runs.items()},
+        total_loss=totals, loss_identical=len({t for ts in totals.values() for t in ts}) == 1,
+        worst_grad_rel_err=worst, bound=GRAD_BOUNDS["bfloat16"],
+        max_memory_allocated_gib={p: [r["gib"] for r in rs] for p, rs in runs.items()},
+        seconds={p: [r["seconds"] for r in rs] for p, rs in runs.items()}, card=card)
+    if len({t for ts in totals.values() for t in ts}) != 1:
+        fail(f"remat_policy: the loss differs between policies or rounds: {totals}")
+    if msda["grads"].keys() != full["grads"].keys():
+        fail("remat_policy: the policies' gradients cover different parameters")
+    over = [(n, r) for n, r in rel.items() if not r <= GRAD_BOUNDS["bfloat16"]]
+    if over:
+        fail(f"remat_policy: {len(over)} gradients differ by more than "
+             f"{GRAD_BOUNDS['bfloat16']} of their largest entry, e.g. {over[:3]}")
+    return msda["launches"], full["launches"]
 
 
 def full_train_phase(dev, card):
@@ -2063,7 +2145,7 @@ def train_f32_phase(dev, mask_on: bool = False):
         finally:
             msda_dispatch.BWD_MERGED = True
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-        want = dict(SPLIT_STEP_LAUNCHES, msda_fwd=4 * layers, msda_bwd=layers,
+        want = dict(SPLIT_STEP_LAUNCHES, msda_fwd=3 * layers, msda_bwd=layers,
                     msda_bwd_offatt=layers, msda_bwd_value=layers)
         if launches != want or not torch.equal(split_sel, gpu_sel):
             fail(f"f32 split step: launches {launches}, expected {want}; "
@@ -2577,7 +2659,9 @@ def l_d_train_f32_phase(dev):
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
     layers = 2 * L_D_TRAIN_F32_LAYERS  # encoder and decoder
     global_blocks = L_D_F32_DEPTH // 3
-    want = {"msda_fwd": 2 * layers, "msda_bwd": layers, "attn_fwd": global_blocks,
+    # the encoder's MSDA forward once (its recompute keeps the output), the
+    # decoder's twice
+    want = {"msda_fwd": 3 * L_D_TRAIN_F32_LAYERS, "msda_bwd": layers, "attn_fwd": global_blocks,
             "attn_bwd_dkv": global_blocks, "attn_bwd_dq": global_blocks}
     if launches != want:
         fail(f"L_D f32 train step: launches {launches}, expected {want}")
@@ -2970,9 +3054,10 @@ def ambiguous_f32_phase(dev):
 # layers, no attention kernel (the ResNet's convolutions are cuDNN's).
 R50_FORWARD_LAUNCHES = {"msda_fwd": 6, "msda_fwd_window": 6}
 # APE-DETA R50 training with recompute: Ti's step without the ViT's
-# attention; Deformable-DETR R50 (no recompute, as its recipe) runs each
-# MSDA forward once.
-R50_STEP_LAUNCHES = {"msda_fwd": 24, "msda_bwd": 12}
+# attention (the encoder's MSDA forwards once, the decoder's twice);
+# Deformable-DETR R50 (no recompute, as its recipe) runs each MSDA forward
+# once.
+R50_STEP_LAUNCHES = {"msda_fwd": 18, "msda_bwd": 12}
 DETR_STEP_LAUNCHES = {"msda_fwd": 12, "msda_bwd": 12}
 R50_STEM = "backbone.stem.conv1.weight"  # behind freeze_at's stop: no gradient
 # the recipes' milestones (ape_deta_r50_12ep.py, deformable_detr_r50_50ep.py)
@@ -4086,10 +4171,11 @@ ADE_CONFIG = "configs/ADE20k_PanopticSegmentation/ape_deta/ape_deta_vitt_eva02_v
 MIX_BATCH = 2  # a micro-batch; the recipe's iter_size (4) stands
 MIX_IMAGES, MIX_CATEGORIES = 4, 20  # images a dataset, categories a detection dataset
 MIX_REF_IMAGES = 2  # the referring test set's: a phrase forward fuses the 1280-slot bank
-# A micro-batch of the mix recipe: the encoder recomputed (its 6 MSDA
-# forwards twice), the decoder's 6 once, a backward each; the backbone's 4
-# global blocks once each way. The fusion layers are matmuls.
-MIX_MICRO_LAUNCHES = {"msda_fwd": 18, "msda_bwd": 12, "attn_fwd": 4, "attn_bwd_dkv": 4,
+# A micro-batch of the mix recipe: the encoder recomputed, its 6 MSDA
+# forwards once (the recompute takes their kept outputs; 18 under
+# APE_REMAT_POLICY=full), the decoder's 6 once, a backward each; the
+# backbone's 4 global blocks once each way. The fusion layers are matmuls.
+MIX_MICRO_LAUNCHES = {"msda_fwd": 12, "msda_bwd": 12, "attn_fwd": 4, "attn_bwd_dkv": 4,
                       "attn_bwd_dq": 4}
 # the test datasets the layout writes (the rest of the config's tests are
 # not registered, and run_eval skips them) and the evaluated records that
@@ -5403,6 +5489,134 @@ def probes_phase(dev, card):
                       "attn_fwd_tiles": min(tiles, key=lambda r: r["ms"])}
 
 
+# --- the last of JAX's modules: OpenAI-CLIP's text tower, the FLOP counts ---
+CLIP_NAMES = 1203  # LVIS's vocabulary size (names "lvis class i", as l_d_text's)
+# f32 bank, card against CPU, over the CPU's largest entry: 12 layers of f32
+# matmuls summed in another order (TF32 off)
+CLIP_BOUND = 1e-4
+# flops_report's builds: counted on the card at 1024^2 (GFLOPs per image),
+# and on the card and the CPU at FLOPS_CHECK_IMG, where the CPU's count takes
+# seconds and not the minutes of 1024^2 (PERF.md), equal
+FLOPS_CASES = (("ti", "protocol"), ("ti", "full"), ("ti", "train"), ("l_d", "protocol"))
+FLOPS_CHECK_IMG = 256
+# cores left to this process while the CPU references run beside the mix
+CPU_REF_CORES_LEFT = 3
+
+
+def cpu_references(out_dir: str):
+    """The CPU halves of ``clip_openai`` and ``flops``, in a process of its
+    own (``start_cpu_references``): the CPU tower's bank of the token ids in
+    ``clip_tokens.npy`` (``clip_bank.pt``) and flops_report's count of each
+    of FLOPS_CASES at FLOPS_CHECK_IMG on the CPU (``cpu_references.json``),
+    each with its seconds."""
+    import numpy as np
+    import torch
+
+    from ape_tpu_torch.modeling.text import TextModel
+    from ape_tpu_torch.tools import flops_report
+
+    out = Path(out_dir)
+    t0 = time.perf_counter()
+    bank = TextModel("CLIP", "RN50", "", device="cpu").model.encode_text(
+        np.load(out / "clip_tokens.npy"))
+    torch.save(bank, out / "clip_bank.pt")
+    rec = {"clip_seconds": time.perf_counter() - t0, "threads": torch.get_num_threads(),
+           "flops": {}}
+    for model, mode in FLOPS_CASES:
+        t0 = time.perf_counter()
+        count = flops_report.report(model, mode, img=FLOPS_CHECK_IMG, device="cpu")
+        rec["flops"][f"{model}-{mode}"] = dict(count, seconds=time.perf_counter() - t0)
+    (out / "cpu_references.json").write_text(json.dumps(rec))
+
+
+def start_cpu_references(tmp: Path):
+    """Tokenize the CLIP names here (the HashTokenizer's ids follow this
+    process's salted ``hash()``) and start ``cpu_references`` in a process
+    of its own on all cores but CPU_REF_CORES_LEFT. Returns the process."""
+    import os
+
+    import numpy as np
+
+    from ape_tpu_torch.modeling.text.tokenizer import get_tokenizer
+
+    names = [f"a lvis class {i}" for i in range(CLIP_NAMES)]
+    np.save(tmp / "clip_tokens.npy", np.asarray(get_tokenizer(None)(names, 77), np.int32))
+    threads = max(1, len(os.sched_getaffinity(0)) - CPU_REF_CORES_LEFT)
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import torch; "
+            f"torch.set_num_threads({threads}); import chip_smoke; "
+            f"chip_smoke.cpu_references({str(tmp)!r})")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT)
+
+
+def cpu_references_done(proc, tmp: Path) -> dict:
+    """Wait for ``cpu_references`` and read what it wrote."""
+    rc = proc.wait()
+    if rc:
+        fail(f"the CPU references' process exited {rc}")
+    return json.loads((tmp / "cpu_references.json").read_text())
+
+
+def clip_openai_phase(dev, card, tmp: Path, refs: dict):
+    """``TextModel("CLIP", ...)`` without a checkpoint (``CLIPTEXT``'s
+    defaults: 512 wide, 12 layers, quick GELU, random weights from its seed,
+    the HashTokenizer) encodes CLIP_NAMES names on the card, timed after a
+    warm-up; the bank is held against the same tower's on the CPU (the CPU
+    references') within CLIP_BOUND of its largest entry."""
+    import numpy as np
+    import torch
+
+    from ape_tpu_torch.modeling.text import TextModel
+
+    names = [f"lvis class {i}" for i in range(CLIP_NAMES)]
+    tm = TextModel("CLIP", "RN50", "", device=dev)
+    if not np.array_equal(tm.model.tokenize(["a " + n for n in names]),
+                          np.load(tmp / "clip_tokens.npy")):
+        fail("clip_openai: the names tokenize otherwise than for the CPU references")
+    tm.forward_text(names[:64])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank = tm.forward_text(names)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = torch.load(tmp / "clip_bank.pt")
+    err = float((bank.cpu() - want).abs().max()) / float(want.abs().max())
+    log(phase="clip_openai", names=CLIP_NAMES, shape=list(bank.shape), seconds=seconds,
+        cpu_seconds=refs["clip_seconds"], cpu_threads=refs["threads"], max_rel_err=err,
+        bound=CLIP_BOUND, card=card)
+    if tuple(bank.shape) != (CLIP_NAMES, 512) or not bool(torch.isfinite(bank).all()):
+        fail(f"clip_openai: bank {tuple(bank.shape)} for {CLIP_NAMES} names, or not finite")
+    if not err <= CLIP_BOUND:
+        fail(f"clip_openai: the card's bank differs from the CPU's by {err} > {CLIP_BOUND}")
+
+
+def flops_phase(dev, card, refs: dict):
+    """``tools/flops_report.py`` (--no-save) for each of FLOPS_CASES on the
+    card at 1024^2: GFLOPs per image by operator and the compute floor; and
+    at FLOPS_CHECK_IMG, whose count must equal the CPU's (the CPU
+    references')."""
+    import torch
+
+    from ape_tpu_torch.tools import flops_report
+
+    for model, mode in FLOPS_CASES:
+        t0 = time.perf_counter()
+        got = flops_report.report(model, mode, device=dev)
+        seconds = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        small = flops_report.report(model, mode, img=FLOPS_CHECK_IMG, device=dev)
+        torch.cuda.empty_cache()
+        want = refs["flops"][f"{model}-{mode}"]
+        log(phase="flops", model=model, mode=mode, img=got["img"], batch=got["batch"],
+            dtype=got["dtype"], params=got["params"], gflops_per_img=got["gflops_per_img"],
+            gflops_per_img_by_op=got["gflops_per_img_by_op"],
+            compute_floor_ms=got["compute_floor_ms"], peak_tflops=got["peak_tflops"],
+            seconds=seconds, check_img=FLOPS_CHECK_IMG, check_flops=small["flops"],
+            check_flops_cpu=want["flops"], cpu_seconds=want["seconds"], card=card)
+        if small["flops"] != want["flops"]:
+            fail(f"flops {model} {mode} at {FLOPS_CHECK_IMG}^2: the card counts "
+                 f"{small['gflops_per_img_by_op']}, the CPU {want['gflops_per_img_by_op']}")
+
+
 def main():
     import torch
 
@@ -5434,9 +5648,9 @@ def main():
     f32_phase(model)
     del model
     torch.cuda.empty_cache()
-    train_launches, fused_launches = train_phase(dev, card)
-    default_runs.append(train_launches)
-    flag_runs.append(fused_launches)
+    train_launches, fused_launches, remat_msda, remat_full = train_phase(dev, card)
+    default_runs += [train_launches, remat_msda]
+    flag_runs += [fused_launches, remat_full]
     train_f32_phase(dev)
     torch.cuda.empty_cache()
     full_serve_launches, v6_launches = full_serve_phase(dev, card)
@@ -5496,7 +5710,16 @@ def main():
     train_net_runs, final_checkpoint = train_net_phase(dev, card)
     default_runs += train_net_runs
     default_runs.append(demo_phase(dev, card, final_checkpoint))
-    default_runs += mix_phase(dev, card)
+    tmp = Path(tempfile.mkdtemp(prefix="cpu_refs_"))
+    cpu_refs = start_cpu_references(tmp)
+    try:
+        default_runs += mix_phase(dev, card)
+        refs = cpu_references_done(cpu_refs, tmp)
+    finally:
+        if cpu_refs.poll() is None:
+            cpu_refs.kill()
+    clip_openai_phase(dev, card, tmp, refs)
+    flops_phase(dev, card, refs)
     default_runs += parallel_phase(dev, card, LOGGED["vitl_train"]["max_memory_allocated_gib"])
     main_runs = default_runs + flag_runs
     runs = list(main_runs)
