@@ -32,7 +32,8 @@ single-stage trees, which keep JAX's names here: ``class_embedding``,
 ``convert_language_state_dict`` for the EVA-CLIP text tower, and
 ``language_state_dict_from_torch`` reads a torch CLIP checkpoint's text
 tower (OpenAI's layout is EVA-CLIP's) as JAX's ``build_clip_text_encoder``
-reads it.
+reads it. ``hf_text_state_dict`` carries JAX's BERT, T5 and Llama-2 towers
+(``transformers`` modules) across by a checkpoint's name mapping.
 
 ``load_checkpoint_tolerant`` loads a checkpoint of reference names (the
 released ``.pth`` files, or the port's own) into a port model, as JAX's
@@ -291,6 +292,22 @@ def language_state_dict_from_torch(state_dict: Mapping[str, torch.Tensor]) -> Di
             unmatched.append(name)
     if unmatched:
         logger.warning(f"language_state_dict_from_torch: unmatched keys: {unmatched[:10]}")
+    return out
+
+
+def hf_text_state_dict(flat: Mapping[str, np.ndarray], kind: str) -> Dict[str, torch.Tensor]:
+    """JAX's BERT, T5 or Llama-2 tower parameters (the ``transformers``
+    module's state dict as NumPy arrays; ``kind`` "bert", "t5" or "llama2")
+    to the port tower's state dict, f32, by the names a checkpoint maps by
+    (``modeling.text.hf_files.model_key``): entries the base model does not
+    hold are dropped."""
+    from ape_tpu_torch.modeling.text.hf_files import model_key
+
+    out = {}
+    for name, v in flat.items():
+        key = model_key(kind, name)
+        if key is not None:
+            out[key] = torch.from_numpy(np.array(v, dtype=np.float32))
     return out
 
 

@@ -26,7 +26,14 @@ and the step is the one-process step on the global batch. NCCL on the card
 process, as JAX's ``run_eval``; evaluation during training runs on the main
 rank while the others wait (``mesh.run_on_main``).
 
-A language tower of another kind than ``eva02clip`` raises. The run takes
+The language tower (``build_language``) is ``language.kind``'s: the port's
+EVA-CLIP (``eva02clip``, the default) or the BERT, T5 or Llama-2 tower read
+from ``language.model_name_or_path``, a Hugging Face directory (JAX's
+routes, ``modeling/text/hf_wrappers.py``). Evaluation and the demo encode
+their prompts with it; training embeds its prompts by the text router's
+hash, as JAX's does, unless ``train.text_tower=True``, which encodes each
+step's prompts with the frozen tower (a name vocabulary once, cached), as
+the reference model encodes them. The run takes
 the CUDA card; with no card it raises unless ``device="cpu"`` is passed to
 ``main`` or ``train.device=cpu`` is set. The model computes in bfloat16 on
 the card (the reference's AMP) and in float32 on the CPU; its parameters are
@@ -125,15 +132,20 @@ def synthetic_loader(batch_size, image_size, num_text, text_dim, max_gt=8, mask_
 
 
 def build_language(cfg, device):
-    """The frozen language tower of ``cfg.language`` (the port's EVA02CLIP;
-    other kinds wait for their wrappers)."""
+    """The frozen language tower of ``cfg.language`` on ``device``: ``kind``
+    "eva02clip" (the default) the port's EVA02CLIP; "bert", "t5" and "llama2"
+    the Hugging Face towers (``hf_wrappers.build_hf_text_model``, which
+    raises ``KeyError`` on any other kind), as JAX's ``build_language``
+    routes them."""
     from ape_tpu_torch.modeling.text.wrapper import EVA02CLIP
 
     lang_cfg = dict(cfg.get("language", {}) or {})
     kind = lang_cfg.pop("kind", "eva02clip")
     if kind != "eva02clip":
-        raise NotImplementedError(f"language kind {kind!r}: the port has the EVA-CLIP tower only "
-                                  "(the BERT, T5 and Llama-2 wrappers are not ported)")
+        from ape_tpu_torch.modeling.text.hf_wrappers import build_hf_text_model
+
+        lang_cfg.pop("output_dim", None)
+        return build_hf_text_model(kind, **lang_cfg, device=device)
     lang_cfg.setdefault("output_dim", int(cfg.train.get("text_dim", 1024)))
     return EVA02CLIP(**lang_cfg, device=device)
 
@@ -295,7 +307,8 @@ def do_train(args, cfg, device, fsdp: int = 1) -> dict:
                                     iter_size=iter_size) for b, chunk in zip(micro, chunks)]
     ratio = list(train.get("dataset_ratio", [1.0] * len(groups)))
     mds = MultiDatasetSampler(ratio, seed=seed) if len(loaders) > 1 else None
-    text_fn = build_text_fn(cfg)
+    text_fn = build_text_fn(cfg, build_language(cfg, device) if train.get("text_tower", False)
+                            else None)
 
     t0 = time.perf_counter()
     if state is not None:

@@ -8,7 +8,9 @@ stage, the host merge and evaluators; APE-L on the non-CLIP EVA-02-L,
 serving and training), the ResNet-50 family's (APE-DETA R50 with and
 without fusion, DETA R50, Deformable-DETR R50), then the other ViT trees'
 (ViTDet, EVA-01, ViT-E and the LSJ-1536 trees serving; ViTDet-L training),
-then ``train_net`` on APE-Ti's COCO recipe (train, resume, evaluate) on
+then the BERT, T5 and Llama-2 language towers read without
+``transformers`` and the configs that train and serve with them, then
+``train_net`` on APE-Ti's COCO recipe (train, resume, evaluate) on
 JPEG images, then the prompted demo and the JSON visualiser on JPEGs, then
 APE-Ti's flagship data mix through ``train_net`` (nine groups, copy-paste)
 and every evaluation route (LVIS, OpenImages, semantic, referring,
@@ -16,7 +18,11 @@ panoptic).
 
     python3 chip_smoke.py
 
-Phases, one JSON line each; any failure raises and exits non-zero:
+Phases, one JSON line each; any failure raises and exits non-zero. The CPU
+halves of the f32 checks (the plain versions' outputs and gradients on the
+CPU) run in a process of their own from the build on (``CpuHalves``,
+CPU_HALVES in the order the card phases read them), each check waiting
+for its half (``cpu_waited_seconds``); the process is stopped at exit:
 
 1. device: the card's name and power limit (nvidia-smi's own line too);
 2. build: compile ``ape_tpu_torch/csrc/*.cu`` into ``build/ape_tpu_torch/``;
@@ -243,7 +249,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
     relative-position tables' among them) within F32_GRAD_RTOL
     (F32_OFFSET_GRAD_RTOL for sampling offsets), first-stage indices
     identical;
-17. train_net: ``python -m ape_tpu_torch.tools.train_net`` on APE-Ti's COCO
+17. the language towers (``hf_phase``): ``hf_towers``, BERT-base
+    (12 x 768), T5-base (12 x 768, relu) and Llama-2-7B (32 x 4096) at
+    their published config.json widths with N(0, 0.02) weights drawn on the
+    card, BERT written as a hand-made ``model.safetensors`` under its hub
+    names and read back through ``Bert(model_name_or_path=...)`` bit for
+    bit, Llama-2 with the smoke's byte-fallback BPE ``tokenizer.json``, T5
+    with the WordPiece vocabulary: each encodes HF_NAMES names (seconds,
+    names a second, peak memory), then each at 2 layers in f32 against the
+    CPU's within HF_TOWER_BOUND; ``llama2_serve``: LLAMA2_CONFIG's model
+    (EVA-02-CLIP-L, the fusion over 4096-wide text) with the Llama-2
+    tower, a name prompt of HF_NAMES names and a phrase, exact launches;
+    ``bert_serve``: BERT_CONFIG's model (R50, the fusion over 768-wide
+    text) with the BERT tower, an expression and 80 names, exact launches;
+    ``bert_train``: ``train_net.main`` on BERT_CONFIG, ``fast_dev_run``
+    (20 steps, batch 2, 1024^2, synthetic data) with the tower encoding the
+    prompts (``train.text_tower``): exact launches a step, finite losses,
+    s/step, peak memory;
+    train_net: ``python -m ape_tpu_torch.tools.train_net`` on APE-Ti's COCO
     recipe (TN_CONFIG, read by the port's ``LazyConfig``; 1024^2 LSJ, 900
     queries, masks, the 4-scale pyramid, bf16) through
     ``train_net.main`` on a synthetic COCO layout of JPEG files (the port's
@@ -364,6 +387,7 @@ a CUDA card; it imports no JAX.
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import contextlib
 import copy
@@ -1794,24 +1818,40 @@ def forms_phase(model, dev, card):
     return runs
 
 
-def f32_phase(model):
+def slice_f32_cpu(tmp: Path) -> dict:
+    """The CPU half of ``f32_phase``: the protocol forward's outputs in f32
+    on the CPU (the plain versions) with fan-in weights."""
+    import torch
+
+    from ape_tpu_torch.modeling.build import build_ape_ti
+
+    model = build_ape_ti(num_queries=QUERIES, mask_on=False, window_radius=RADIUS,
+                         scale_factors=(2.0, 1.0, 0.5), device="cpu")
+    model = init_weights(model, SEED, fan_in=True).eval()
+    with torch.no_grad():
+        out = model(*_inputs())
+    return {k: out[k] for k in ("memory", "first_stage_indices", "pred_boxes", "pred_logits")}
+
+
+def f32_phase(model, halves):
     """The same forward in f32, CUDA kernels against the plain versions (CPU
-    tensors take them), with fan-in weights: under the bench's N(0, 0.02)
-    weights the first-stage scores are spread so thinly that float order
-    alone reorders near-ties, which would test the weights, not the kernels."""
+    tensors take them; ``slice_f32_cpu`` in the CPU halves' process), with
+    fan-in weights: under the bench's N(0, 0.02) weights the first-stage
+    scores are spread so thinly that float order alone reorders near-ties,
+    which would test the weights, not the kernels."""
     import torch
 
     from ape_tpu_torch.ops import _build
 
     init_weights(model, SEED, fan_in=True)
     model.dtype = torch.float32
-    cpu_model = copy.deepcopy(model).cpu()
     inputs = _inputs()
     dev = next(model.parameters()).device
     with torch.no_grad():
         t0 = time.perf_counter()
         gpu = model(*(t.to(dev) for t in inputs))
-        cpu = cpu_model(*inputs)
+    ref = halves.result("slice_f32")
+    cpu = ref["result"]
     forms = {}
     for form in FORM_FLAGS:  # the encoder memory under each other form, f32
         _set_form(form)
@@ -1839,7 +1879,8 @@ def f32_phase(model):
         first_stage_positions_differing=int((sel_gpu != sel_cpu).sum()),
         pred_boxes_max_abs_err=float((gpu["pred_boxes"].cpu() - cpu["pred_boxes"]).abs().max()),
         pred_logits_max_abs_err=float((gpu["pred_logits"].cpu() - cpu["pred_logits"]).abs().max()),
-        forms=forms, seconds=time.perf_counter() - t0)
+        forms=forms, seconds=time.perf_counter() - t0, cpu_seconds=ref["seconds"],
+        cpu_waited_seconds=ref["waited_seconds"])
     if not mem_err <= MEMORY_BOUND:
         fail(f"f32 encoder memory differs by {mem_err} > {MEMORY_BOUND}")
     if not same_sel:
@@ -2099,23 +2140,34 @@ def step_grads(model, crit, batch, seed: int, prompt: str = "name"):
             {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None})
 
 
-def train_f32_phase(dev, mask_on: bool = False):
-    """One f32 step (512^2, batch 1, fan-in weights) with the CUDA kernels,
-    every parameter's gradient held against the plain versions on the CPU
-    within its bound; the first-stage indices must match (the plain
-    gradients' own floor under perturbed images is held at tiny dims by
-    ``tests/test_torch_train.py``). The detection model runs the protocol pyramid; the masked model (mask_on) the
-    default one, and its step runs once more with the split MSDA backward,
-    held against the merged one."""
+def f32_step_cpu(setup, *args, prompt: str = "name", recompute: bool = True,
+                 floor: bool = False) -> tuple:
+    """The CPU half of an f32 step check: ``setup(*args)``'s (model,
+    criterion, batch) stepped on the CPU by ``step_grads`` (its recompute
+    off unless ``recompute``: the same gradients, a forward fewer), and with
+    ``floor`` once more on images perturbed by PERTURB: (total, first-stage
+    indices, gradients[, the perturbed step's gradients])."""
+    model, crit, batch = setup(*args)
+    if not recompute:
+        model.transformer.encoder.use_act_checkpoint = False
+        model.transformer.decoder.use_act_checkpoint = False
+    out = step_grads(model, crit, batch, SEED, prompt)
+    if floor:
+        out += (step_grads(model, crit, perturbed(batch, SEED + 6), SEED, prompt)[2],)
+    return out
+
+
+def _train_f32_setup(mask_on: bool) -> tuple:
+    """``train_f32_phase``'s model (on the CPU, fan-in weights), criterion
+    and batch."""
     import torch
 
     from ape_tpu_torch.modeling.build import build_ape_ti
-    from ape_tpu_torch.ops import _build, msda_dispatch
 
     pyramid = {} if mask_on else {"scale_factors": (2.0, 1.0, 0.5)}
     layers = F32_MASKED_LAYERS if mask_on else F32_DETECTION_LAYERS
     model = build_ape_ti(num_queries=TRAIN_QUERIES, window_radius=RADIUS, mask_on=mask_on,
-                         use_act_checkpoint=True, num_layers=layers, **pyramid)
+                         use_act_checkpoint=True, num_layers=layers, device="cpu", **pyramid)
     model = init_weights(model, SEED, fan_in=True).train()
     if mask_on:
         # The encoder's sampling_offsets weights at 0, as the reference
@@ -2127,12 +2179,25 @@ def train_f32_phase(dev, mask_on: bool = False):
             for name, p in model.named_parameters():
                 if name.startswith("transformer.encoder.") and name.endswith("sampling_offsets.weight"):
                     p.zero_()
-    cpu_model = copy.deepcopy(model).cpu()
-    # without recompute on the CPU: the same gradients, one forward fewer
-    cpu_model.transformer.encoder.use_act_checkpoint = False
-    cpu_model.transformer.decoder.use_act_checkpoint = False
-    crit = _criterion(TRAIN_QUERIES, mask_on)
-    batch = _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5, masks=mask_on)
+    return (model, _criterion(TRAIN_QUERIES, mask_on),
+            _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5, masks=mask_on))
+
+
+def train_f32_phase(dev, halves, mask_on: bool = False):
+    """One f32 step (512^2, batch 1, fan-in weights) with the CUDA kernels,
+    every parameter's gradient held against the plain versions on the CPU
+    within its bound; the first-stage indices must match (the plain
+    gradients' own floor under perturbed images is held at tiny dims by
+    ``tests/test_torch_train.py``). The detection model runs the protocol pyramid; the masked model (mask_on) the
+    default one, and its step runs once more with the split MSDA backward,
+    held against the merged one."""
+    import torch
+
+    from ape_tpu_torch.ops import _build, msda_dispatch
+
+    layers = F32_MASKED_LAYERS if mask_on else F32_DETECTION_LAYERS
+    model, crit, batch = _train_f32_setup(mask_on)
+    model = model.to(dev)
     gpu_batch = _to(batch, dev)
     t0 = time.perf_counter()
     gpu_total, gpu_sel, gpu_grads = step_grads(model, crit, gpu_batch, SEED)
@@ -2152,7 +2217,8 @@ def train_f32_phase(dev, mask_on: bool = False):
                  f"first-stage indices as the merged step's: {torch.equal(split_sel, gpu_sel)}")
         split = grad_rel_errors(split_grads, gpu_grads)
         del split_grads
-    cpu_total, cpu_sel, cpu_grads = step_grads(cpu_model, crit, batch, SEED)
+    ref = halves.result("full_train_f32" if mask_on else "train_f32")
+    cpu_total, cpu_sel, cpu_grads = ref["result"]
     rel = grad_rel_errors(gpu_grads, cpu_grads)
     over = sorted(((n, r, f32_grad_bound(n)) for n, r in rel.items() if not r <= f32_grad_bound(n)),
                   key=lambda t: -t[1] / t[2])
@@ -2171,7 +2237,8 @@ def train_f32_phase(dev, mask_on: bool = False):
         total_loss_cpu=cpu_total, first_stage_indices_identical=same_sel, params=len(rel),
         worst_grad_rel_err=worst(rel, False), bound=F32_GRAD_RTOL,
         worst_offset_grad_rel_err=worst(rel, True), offset_bound=F32_OFFSET_GRAD_RTOL,
-        **rec, seconds=time.perf_counter() - t0)
+        **rec, seconds=time.perf_counter() - t0, cpu_seconds=ref["seconds"],
+        cpu_waited_seconds=ref["waited_seconds"])
     if not same_sel:
         fail("f32 train step: first-stage indices differ between the CUDA kernels and the plain versions")
     if over:
@@ -2460,11 +2527,22 @@ def l_d_serve_phase(dev, card, tower):
     return launches
 
 
-def cut_f32_check(dev, model, phase: str, want_launches: dict, bf16_gap: bool = False,
-                  bound: float = MEMORY_BOUND, **fields):
+def cut_f32_cpu(tmp: Path, build, *args) -> dict:
+    """The CPU half of ``cut_f32_check``: ``build(*args)``'s model in f32
+    with fan-in weights, its outputs at L_D_F32_IMG with L_D_TEXT texts."""
+    import torch
+
+    model = init_weights(build(*args), SEED, fan_in=True).eval()
+    with torch.no_grad():
+        return dict(model(*_inputs(L_D_TEXT, L_D_F32_IMG)))
+
+
+def cut_f32_check(dev, model, phase: str, want_launches: dict, halves, name: str,
+                  bf16_gap: bool = False, bound: float = MEMORY_BOUND, **fields):
     """A model at full width with its depth cut, on the CPU in f32 with
     fan-in weights, at L_D_F32_IMG with L_D_TEXT texts: the plain versions
-    there, then the CUDA kernels on the card (TF32 off), exactly
+    there (``cut_f32_cpu``, the CPU halves' ``name``), then the CUDA
+    kernels on the card (TF32 off), exactly
     ``want_launches``: the card's encoder memory and the text the heads
     aligned to within ``bound`` of the CPU's. The first stage: whether
     the selected proposals are the CPU's, in order and as a set, and
@@ -2488,10 +2566,7 @@ def cut_f32_check(dev, model, phase: str, want_launches: dict, bf16_gap: bool = 
         recorded.append([a.cpu() if torch.is_tensor(a) else a for a in args])
         return select(*args)
 
-    t0 = time.perf_counter()
     with torch.no_grad():
-        cpu = model(*inputs)
-        cpu_s = time.perf_counter() - t0
         model = model.to(dev)
         _build.reset_launches()
         tr.deta_first_stage_select = recording_select
@@ -2505,6 +2580,8 @@ def cut_f32_check(dev, model, phase: str, want_launches: dict, bf16_gap: bool = 
             bf16 = model(*(t.to(dev) for t in inputs))
     if launches != want_launches:
         fail(f"{phase}: launches per forward {launches}, expected {want_launches}")
+    ref = halves.result(name)
+    cpu = ref["result"]
 
     def gap(a, b, key):
         return float((a[key].float().cpu() - b[key].float().cpu()).abs().max())
@@ -2528,7 +2605,7 @@ def cut_f32_check(dev, model, phase: str, want_launches: dict, bf16_gap: bool = 
         **{f"{k}_max_abs_err": v for k, v in errs.items()}, bound=bound,
         memory_max_abs=float(cpu["memory"].abs().max()),
         text_max_abs=float(cpu["text_features"].abs().max()), first_stage=stage,
-        cpu_seconds=cpu_s, **extra, **fields)
+        cpu_seconds=ref["seconds"], cpu_waited_seconds=ref["waited_seconds"], **extra, **fields)
     for k in ("memory", "text_features"):
         if not errs[k] <= bound:
             fail(f"{phase}: {k} differs from the CPU's by {errs[k]} > {bound}")
@@ -2537,20 +2614,24 @@ def cut_f32_check(dev, model, phase: str, want_launches: dict, bf16_gap: bool = 
     return cpu, gpu, stage
 
 
-def l_d_f32_phase(dev):
+def _l_d_f32_model(proposal_ambiguous: int = 0):
     """L_D at full width with its depth cut (L_D_F32_DEPTH blocks,
-    L_D_F32_LAYERS + L_D_F32_LAYERS layers) at 512^2 (``cut_f32_check``),
-    its bf16 gap reported."""
+    L_D_F32_LAYERS + L_D_F32_LAYERS layers) on the CPU."""
     from ape_tpu_torch.modeling.build import build_ape_l_d
 
-    model = build_ape_l_d(num_queries=QUERIES, mask_on=False, window_radius=RADIUS,
-                          scale_factors=(2.0, 1.0, 0.5), use_act_checkpoint=False,
-                          drop_path_rate=0.0, depth=L_D_F32_DEPTH, num_layers=L_D_F32_LAYERS,
-                          device="cpu")
+    return build_ape_l_d(num_queries=QUERIES, mask_on=False, window_radius=RADIUS,
+                         scale_factors=(2.0, 1.0, 0.5), use_act_checkpoint=False,
+                         drop_path_rate=0.0, depth=L_D_F32_DEPTH, num_layers=L_D_F32_LAYERS,
+                         proposal_ambiguous=proposal_ambiguous, device="cpu")
+
+
+def l_d_f32_phase(dev, halves):
+    """L_D at full width with its depth cut (``_l_d_f32_model``) at 512^2
+    (``cut_f32_check``), its bf16 gap reported."""
     want = {"msda_fwd": L_D_F32_LAYERS, "msda_fwd_window": L_D_F32_LAYERS,
             "attn_fwd": L_D_F32_DEPTH // 3}
-    cut_f32_check(dev, model, "l_d_f32_vs_plain", want, bf16_gap=True, depth=L_D_F32_DEPTH,
-                  layers=L_D_F32_LAYERS)
+    cut_f32_check(dev, _l_d_f32_model(), "l_d_f32_vs_plain", want, halves, "l_d_f32",
+                  bf16_gap=True, depth=L_D_F32_DEPTH, layers=L_D_F32_LAYERS)
 
 
 def l_d_unused(model) -> frozenset:
@@ -2616,7 +2697,24 @@ def l_d_train_phase(dev, card):
     return launches
 
 
-def l_d_train_f32_phase(dev):
+def _l_d_train_f32_setup() -> tuple:
+    """``l_d_train_f32_phase``'s model (on the CPU), criterion and batch."""
+    import torch
+
+    from ape_tpu_torch.modeling.build import build_ape_l_d
+
+    model = build_ape_l_d(num_queries=TRAIN_QUERIES, window_radius=RADIUS, depth=L_D_F32_DEPTH,
+                          num_layers=L_D_TRAIN_F32_LAYERS, device="cpu")
+    model = init_weights(model, SEED, fan_in=True).train()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("transformer.encoder.") and name.endswith("sampling_offsets.weight"):
+                p.zero_()
+    return (model, _l_d_criterion(),
+            _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5, masks=True, num_text=L_D_TEXT))
+
+
+def l_d_train_f32_phase(dev, halves):
     """One f32 step (TF32 off) of L_D at full width with its depth cut
     (L_D_F32_DEPTH blocks, 2 of them global; L_D_TRAIN_F32_LAYERS +
     L_D_TRAIN_F32_LAYERS layers) at 512^2, masked on the 4-scale pyramid, 1203 texts, fan-in
@@ -2636,23 +2734,10 @@ def l_d_train_f32_phase(dev):
     import torch
 
     from ape_tpu_torch.modeling.backbone.eva_vit import draw_keep
-    from ape_tpu_torch.modeling.build import build_ape_l_d
     from ape_tpu_torch.ops import _build
 
-    model = build_ape_l_d(num_queries=TRAIN_QUERIES, window_radius=RADIUS, depth=L_D_F32_DEPTH,
-                          num_layers=L_D_TRAIN_F32_LAYERS, device="cpu")
-    model = init_weights(model, SEED, fan_in=True).train()
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.startswith("transformer.encoder.") and name.endswith("sampling_offsets.weight"):
-                p.zero_()
-    cpu_model = copy.deepcopy(model)
-    # without recompute on the CPU: the same gradients, one forward fewer
-    cpu_model.transformer.encoder.use_act_checkpoint = False
-    cpu_model.transformer.decoder.use_act_checkpoint = False
+    model, crit, batch = _l_d_train_f32_setup()
     model = model.to(dev)
-    crit = _l_d_criterion()
-    batch = _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5, masks=True, num_text=L_D_TEXT)
     t0 = time.perf_counter()
     _build.reset_launches()
     gpu_total, gpu_sel, gpu_grads = step_grads(model, crit, _to(batch, dev), SEED, "phrase")
@@ -2666,7 +2751,8 @@ def l_d_train_f32_phase(dev):
     if launches != want:
         fail(f"L_D f32 train step: launches {launches}, expected {want}")
     gpu_s = time.perf_counter() - t0
-    cpu_total, cpu_sel, cpu_grads = step_grads(cpu_model, crit, batch, SEED, "phrase")
+    ref = halves.result("l_d_train_f32")
+    cpu_total, cpu_sel, cpu_grads = ref["result"]
     names = set(n for n, _ in model.named_parameters())
     if set(gpu_grads) != names or set(cpu_grads) != names:
         fail(f"L_D f32 train step: parameters without a gradient "
@@ -2688,14 +2774,14 @@ def l_d_train_f32_phase(dev):
                                   key=lambda kv: -kv[1])[:3], bound=F32_GRAD_RTOL,
         worst_offset_grad_rel_err=sorted(((n, r) for n, r in rel.items()
                                           if "sampling_offsets" in n), key=lambda kv: -kv[1])[:3],
-        offset_bound=F32_OFFSET_GRAD_RTOL, gpu_seconds=gpu_s,
-        cpu_seconds=time.perf_counter() - t0 - gpu_s)
+        offset_bound=F32_OFFSET_GRAD_RTOL, gpu_seconds=gpu_s, cpu_seconds=ref["seconds"],
+        cpu_waited_seconds=ref["waited_seconds"])
     if not same_sel:
         fail("L_D f32 train step: first-stage indices differ between the card and the CPU")
     if over:
         fail(f"L_D f32 train step: {len(over)} gradients over their bound, worst (name, rel, "
              f"bound) {over[:3]}")
-    del model, cpu_model, gpu_grads, cpu_grads
+    del model, gpu_grads, cpu_grads
     torch.cuda.empty_cache()
     return launches
 
@@ -2750,18 +2836,22 @@ def l_serve_phase(dev, card):
     return launches
 
 
-def l_f32_phase(dev):
+def _l_f32_model():
     """APE-L at full width with its depth cut (L_D_F32_DEPTH blocks, block 5
-    global; L_D_F32_LAYERS + L_D_F32_LAYERS layers) at 512^2
-    (``cut_f32_check``): the card's encoder memory within MEMORY_BOUND of the
-    CPU's."""
+    global; L_D_F32_LAYERS + L_D_F32_LAYERS layers) on the CPU."""
     from ape_tpu_torch.modeling.build import build_ape_l
 
-    model = build_ape_l(mask_on=False, scale_factors=(2.0, 1.0, 0.5), depth=L_D_F32_DEPTH,
-                        num_layers=L_D_F32_LAYERS, device="cpu")
+    return build_ape_l(mask_on=False, scale_factors=(2.0, 1.0, 0.5), depth=L_D_F32_DEPTH,
+                       num_layers=L_D_F32_LAYERS, device="cpu")
+
+
+def l_f32_phase(dev, halves):
+    """APE-L cut (``_l_f32_model``) at 512^2 (``cut_f32_check``): the card's
+    encoder memory within MEMORY_BOUND of the CPU's."""
     want = {"msda_fwd": L_D_F32_LAYERS, "msda_fwd_window": L_D_F32_LAYERS,
             "attn_fwd": L_D_F32_DEPTH // 6}
-    cut_f32_check(dev, model, "l_f32_vs_plain", want, depth=L_D_F32_DEPTH, layers=L_D_F32_LAYERS)
+    cut_f32_check(dev, _l_f32_model(), "l_f32_vs_plain", want, halves, "l_f32",
+                  depth=L_D_F32_DEPTH, layers=L_D_F32_LAYERS)
 
 
 def _l_criterion():
@@ -3020,7 +3110,7 @@ def ambiguous_serve_phase(dev, card, tower):
     return {k: launches[k] + prompt_launches.get(k, 0) for k in launches}
 
 
-def ambiguous_f32_phase(dev):
+def ambiguous_f32_phase(dev, halves):
     """L_D cut as in ``l_d_f32_phase``, with ``proposal_ambiguous=1``
     (``cut_f32_check``), memory within MEMORY_BOUND: the head each proposal
     took identical on the card and the CPU, the selected proposals the
@@ -3028,17 +3118,11 @@ def ambiguous_f32_phase(dev):
     boxes giving the card's indices in their order."""
     import torch
 
-    from ape_tpu_torch.modeling.build import build_ape_l_d
-
-    model = build_ape_l_d(num_queries=QUERIES, mask_on=False, window_radius=RADIUS,
-                          scale_factors=(2.0, 1.0, 0.5), use_act_checkpoint=False,
-                          drop_path_rate=0.0, depth=L_D_F32_DEPTH, num_layers=L_D_F32_LAYERS,
-                          proposal_ambiguous=1, device="cpu")
     want = {"msda_fwd": L_D_F32_LAYERS, "msda_fwd_window": L_D_F32_LAYERS,
             "attn_fwd": L_D_F32_DEPTH // 3}
-    cpu, gpu, stage = cut_f32_check(dev, model, "ambiguous_f32_vs_plain", want,
-                                    depth=L_D_F32_DEPTH, layers=L_D_F32_LAYERS,
-                                    proposal_ambiguous=1)
+    cpu, gpu, stage = cut_f32_check(dev, _l_d_f32_model(1), "ambiguous_f32_vs_plain", want,
+                                    halves, "ambiguous_f32", depth=L_D_F32_DEPTH,
+                                    layers=L_D_F32_LAYERS, proposal_ambiguous=1)
     heads_cpu, heads_gpu = cpu["first_stage_heads"], gpu["first_stage_heads"].cpu()
     same_heads = torch.equal(heads_gpu, heads_cpu)
     log(phase="ambiguous_f32_heads", heads_identical=same_heads,
@@ -3181,7 +3265,22 @@ def _r50_cpu_model(build_name: str, seed: int, **kw):
     return init_frozen_bn(init_weights(model, seed, fan_in=True), seed + 1)
 
 
-def r50_f32_phase(dev):
+def r50_f32_cpu(tmp: Path, build_name: str, kw: dict) -> dict:
+    """The CPU half of ``r50_f32_phase`` for one tree: its outputs."""
+    import torch
+
+    model = _r50_cpu_model(build_name, SEED, **kw).eval()
+    with torch.no_grad():
+        out = model(*_inputs(NUM_TEXT, F32_TRAIN_IMG))
+    return {k: out[k] for k in ("memory", "pred_logits", "pred_boxes", "first_stage_indices")
+            if k in out}
+
+
+R50_F32_FORWARD = (("ape_r50", "build_ape_r50", {"mask_on": False}),
+                   ("deformable_detr_r50", "build_deformable_detr_r50", {}))
+
+
+def r50_f32_phase(dev, halves):
     """The full-depth ResNet with a 2 + 2-layer transformer at 512^2, f32
     (TF32 off for cuBLAS and cuDNN), fan-in weights and FrozenBN near
     identity, APE-DETA R50 (900 queries, no masks) and Deformable-DETR R50:
@@ -3193,14 +3292,12 @@ def r50_f32_phase(dev):
 
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         fail("r50 f32: TF32 is on")
-    for name, build_name, kw in (("ape_r50", "build_ape_r50", {"mask_on": False}),
-                                 ("deformable_detr_r50", "build_deformable_detr_r50", {})):
+    for name, build_name, kw in R50_F32_FORWARD:
         model = _r50_cpu_model(build_name, SEED, **kw).eval()
         inputs = _inputs(NUM_TEXT, F32_TRAIN_IMG)
-        t0 = time.perf_counter()
+        ref = halves.result(f"r50_f32:{name}")
+        cpu = ref["result"]
         with torch.no_grad():
-            cpu = model(*inputs)
-            cpu_s = time.perf_counter() - t0
             model = model.to(dev)
             _build.reset_launches()
             gpu = model(*(t.to(dev) for t in inputs))
@@ -3215,7 +3312,8 @@ def r50_f32_phase(dev):
         log(phase="r50_f32_vs_plain", model=name, image=F32_TRAIN_IMG, layers=R50_F32_LAYERS,
             launches_per_forward=launches, **{f"{k}_max_abs_err": v for k, v in errs.items()},
             bound=MEMORY_BOUND, memory_max_abs=float(cpu["memory"].abs().max()),
-            first_stage_indices_identical=same, cpu_seconds=cpu_s)
+            first_stage_indices_identical=same, cpu_seconds=ref["seconds"],
+            cpu_waited_seconds=ref["waited_seconds"])
         if not errs["memory"] <= MEMORY_BOUND:
             fail(f"{name} f32: encoder memory differs from the CPU's by {errs['memory']} "
                  f"> {MEMORY_BOUND}")
@@ -3349,7 +3447,23 @@ R50_F32_TREES = (("ape_r50", "build_ape_r50", {"num_queries": TRAIN_QUERIES}),
                  ("deformable_detr_r50", "build_deformable_detr_r50", {}))
 
 
-def r50_train_f32_phase(dev):
+def _r50_train_f32_setup(i: int) -> tuple:
+    """``r50_train_f32_phase``'s model (on the CPU), criterion and batch of
+    R50_F32_TREES[i]."""
+    import torch
+
+    _, build_name, kw = R50_F32_TREES[i]
+    detr = build_name == "build_deformable_detr_r50"
+    model = _r50_cpu_model(build_name, SEED, **kw).train()
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.startswith("transformer.encoder.") and n.endswith("sampling_offsets.weight"):
+                p.zero_()
+    crit = _detr_criterion() if detr else _criterion(TRAIN_QUERIES, True)
+    return model, crit, _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5, masks=not detr)
+
+
+def r50_train_f32_phase(dev, halves):
     """One f32 step (TF32 off) of each R50 tree cut to 2 + 2 layers at
     512^2, batch 1, fan-in weights, FrozenBN near identity, the encoder's
     sampling_offsets weights at 0 (as phase 12): APE-DETA R50 and DETA R50
@@ -3368,17 +3482,9 @@ def r50_train_f32_phase(dev):
     from ape_tpu_torch.ops import _build
 
     total_launches = {}
-    for name, build_name, kw in R50_F32_TREES:
-        detr = build_name == "build_deformable_detr_r50"
-        model = _r50_cpu_model(build_name, SEED, **kw).train()
-        with torch.no_grad():
-            for n, p in model.named_parameters():
-                if n.startswith("transformer.encoder.") and n.endswith("sampling_offsets.weight"):
-                    p.zero_()
-        cpu_model = copy.deepcopy(model)
+    for i, (name, _, _) in enumerate(R50_F32_TREES):
+        model, crit, batch = _r50_train_f32_setup(i)
         model = model.to(dev)
-        crit = _detr_criterion() if detr else _criterion(TRAIN_QUERIES, True)
-        batch = _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5, masks=not detr)
         t0 = time.perf_counter()
         _build.reset_launches()
         gpu_total, gpu_sel, gpu_grads = step_grads(model, crit, _to(batch, dev), SEED)
@@ -3389,8 +3495,8 @@ def r50_train_f32_phase(dev):
             fail(f"{name} f32 train step: launches {launches}, expected {want}")
         total_launches = {k: total_launches.get(k, 0) + v for k, v in launches.items()}
         gpu_s = time.perf_counter() - t0
-        cpu_total, cpu_sel, cpu_grads = step_grads(cpu_model, crit, batch, SEED)
-        _, _, floor_grads = step_grads(cpu_model, crit, perturbed(batch, SEED + 6), SEED)
+        ref = halves.result(f"r50_train_f32:{name}")
+        cpu_total, cpu_sel, cpu_grads, floor_grads = ref["result"]
         rel = grad_rel_errors(gpu_grads, cpu_grads)
         floor = grad_rel_errors(floor_grads, cpu_grads)
         by_floor = sorted(n for n, r in rel.items()
@@ -3415,14 +3521,14 @@ def r50_train_f32_phase(dev):
                                              key=lambda kv: -kv[1])[:3],
             offset_bound=F32_OFFSET_GRAD_RTOL, perturbation=PERTURB,
             floor_worst_grad_rel_err=sorted(floor.items(), key=lambda kv: -kv[1])[:3],
-            held_by_floor=by_floor, gpu_seconds=gpu_s,
-            cpu_seconds=time.perf_counter() - t0 - gpu_s)
+            held_by_floor=by_floor, gpu_seconds=gpu_s, cpu_seconds=ref["seconds"],
+            cpu_waited_seconds=ref["waited_seconds"])
         if same_sel is False:
             fail(f"{name} f32 train step: first-stage indices differ between the card and the CPU")
         if over:
             fail(f"{name} f32 train step: {len(over)} gradients over their bound and twice the "
                  f"floor, worst (name, rel, bound, floor) {over[:3]}")
-        del model, cpu_model, gpu_grads, cpu_grads, floor_grads
+        del model, gpu_grads, cpu_grads, floor_grads
         torch.cuda.empty_cache()
     return total_launches
 
@@ -3531,21 +3637,27 @@ def vit_1536_serve_phase(dev, card, tower):
     return launches
 
 
-def vit_f32_phase(dev):
-    """Each VIT_F32 tree at full width with its depth cut, 2 + 2 layers, at
-    512^2 in f32 (``cut_f32_check``): exact launches (no attention kernel:
-    each global block is rel-pos or 88 wide), the card's encoder memory
-    within VIT_F32_BOUND of the CPU's."""
+def _vit_f32_model(tree: str, depth: int):
+    """A VIT_F32 tree at full width with its depth cut, 2 + 2 layers, on the
+    CPU."""
     from ape_tpu_torch.modeling.build import build_ape_vit
 
+    return build_ape_vit(tree, mask_on=False, scale_factors=(2.0, 1.0, 0.5), depth=depth,
+                         num_layers=L_D_F32_LAYERS, img_size=L_D_F32_IMG, device="cpu")
+
+
+def vit_f32_phase(dev, halves):
+    """Each VIT_F32 tree (``_vit_f32_model``) at 512^2 in f32
+    (``cut_f32_check``): exact launches (no attention kernel: each global
+    block is rel-pos or 88 wide), the card's encoder memory within
+    VIT_F32_BOUND of the CPU's."""
     for tree, depth in VIT_F32:
-        model = build_ape_vit(tree, mask_on=False, scale_factors=(2.0, 1.0, 0.5), depth=depth,
-                              num_layers=L_D_F32_LAYERS, img_size=L_D_F32_IMG, device="cpu")
+        model = _vit_f32_model(tree, depth)
         if [b.attn.flash for b in model.backbone.net.blocks] != [False] * depth:
             fail(f"vit_f32 {tree}: a block routed to K5")
         want = {"msda_fwd": L_D_F32_LAYERS, "msda_fwd_window": L_D_F32_LAYERS}
-        cut_f32_check(dev, model, "vit_f32_vs_plain", want, bound=VIT_F32_BOUND, tree=tree,
-                      depth=depth, layers=L_D_F32_LAYERS)
+        cut_f32_check(dev, model, "vit_f32_vs_plain", want, halves, f"vit_f32:{tree}",
+                      bound=VIT_F32_BOUND, tree=tree, depth=depth, layers=L_D_F32_LAYERS)
 
 
 def _vitl_criterion():
@@ -3591,7 +3703,21 @@ def vitl_train_phase(dev, card):
     return launches
 
 
-def vitl_train_f32_phase(dev):
+def _vitl_train_f32_setup() -> tuple:
+    """``vitl_train_f32_phase``'s model (on the CPU), criterion and batch."""
+    from ape_tpu_torch.modeling.ape_deta.criterion import DeformableCriterion, default_weight_dict
+    from ape_tpu_torch.modeling.build import build_ape_vit
+
+    model = build_ape_vit("vitl", mask_on=False, scale_factors=(2.0, 1.0, 0.5),
+                          depth=VITL_F32_DEPTH, num_layers=L_D_F32_LAYERS, img_size=F32_TRAIN_IMG,
+                          device="cpu")
+    model = init_weights(model, SEED, fan_in=True).train()
+    crit = DeformableCriterion(num_classes=NUM_TEXT, weight_dict=default_weight_dict(),
+                               num_queries=QUERIES, losses=("class", "boxes"))
+    return model, crit, _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5)
+
+
+def vitl_train_f32_phase(dev, halves):
     """One f32 step (TF32 off) of ViTDet-L APE-DETA cut to VITL_F32_DEPTH
     blocks and 2 + 2 layers at 512^2 on the protocol pyramid, fan-in
     weights, 80 texts, name prompts: the card's step with the CUDA kernels
@@ -3601,19 +3727,10 @@ def vitl_train_f32_phase(dev):
     F32_OFFSET_GRAD_RTOL). Returns the card step's launches."""
     import torch
 
-    from ape_tpu_torch.modeling.ape_deta.criterion import DeformableCriterion, default_weight_dict
-    from ape_tpu_torch.modeling.build import build_ape_vit
     from ape_tpu_torch.ops import _build
 
-    model = build_ape_vit("vitl", mask_on=False, scale_factors=(2.0, 1.0, 0.5),
-                          depth=VITL_F32_DEPTH, num_layers=L_D_F32_LAYERS, img_size=F32_TRAIN_IMG,
-                          device="cpu")
-    model = init_weights(model, SEED, fan_in=True).train()
-    cpu_model = copy.deepcopy(model)
+    model, crit, batch = _vitl_train_f32_setup()
     model = model.to(dev)
-    crit = DeformableCriterion(num_classes=NUM_TEXT, weight_dict=default_weight_dict(),
-                               num_queries=QUERIES, losses=("class", "boxes"))
-    batch = _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5)
     t0 = time.perf_counter()
     _build.reset_launches()
     gpu_total, gpu_sel, gpu_grads = step_grads(model, crit, _to(batch, dev), SEED)
@@ -3622,7 +3739,8 @@ def vitl_train_f32_phase(dev):
     if launches != want:
         fail(f"ViTDet-L f32 train step: launches {launches}, expected {want}")
     gpu_s = time.perf_counter() - t0
-    cpu_total, cpu_sel, cpu_grads = step_grads(cpu_model, crit, batch, SEED)
+    ref = halves.result("vitl_train_f32")
+    cpu_total, cpu_sel, cpu_grads = ref["result"]
     names = set(n for n, _ in model.named_parameters())
     if set(gpu_grads) != names or set(cpu_grads) != names:
         fail(f"ViTDet-L f32 train step: parameters without a gradient "
@@ -3641,13 +3759,13 @@ def vitl_train_f32_phase(dev):
                                           if "sampling_offsets" in n), key=lambda kv: -kv[1])[:3],
         offset_bound=F32_OFFSET_GRAD_RTOL, rel_pos_tables=len(rel_pos),
         worst_rel_pos_grad_rel_err=max(rel_pos.values()), gpu_seconds=gpu_s,
-        cpu_seconds=time.perf_counter() - t0 - gpu_s)
+        cpu_seconds=ref["seconds"], cpu_waited_seconds=ref["waited_seconds"])
     if not same_sel:
         fail("ViTDet-L f32 train step: first-stage indices differ between the card and the CPU")
     if over:
         fail(f"ViTDet-L f32 train step: {len(over)} gradients over their bound, worst (name, rel, "
              f"bound) {over[:3]}")
-    del model, cpu_model, gpu_grads, cpu_grads
+    del model, gpu_grads, cpu_grads
     torch.cuda.empty_cache()
     return launches
 
@@ -5437,6 +5555,383 @@ def parallel_phase(dev, card, vitl_gib: float):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# The BERT, T5 and Llama-2 language towers: hf_towers,
+# llama2_serve, bert_serve, bert_train
+# ---------------------------------------------------------------------------
+
+# the published config.json of each tower, the fields the port reads:
+# bert-base-uncased, t5-base, meta-llama/Llama-2-7b-hf
+BERT_BASE = dict(model_type="bert", vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072, hidden_act="gelu",
+                 max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12,
+                 position_embedding_type="absolute")
+T5_BASE = dict(model_type="t5", vocab_size=32128, d_model=768, d_kv=64, d_ff=3072, num_layers=12,
+               num_heads=12, relative_attention_num_buckets=32,
+               relative_attention_max_distance=128, layer_norm_epsilon=1e-6,
+               feed_forward_proj="relu")
+LLAMA2_7B = dict(model_type="llama", vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                 num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+                 hidden_act="silu", max_position_embeddings=4096, rms_norm_eps=1e-5,
+                 rope_theta=10000.0, rope_scaling=None, attention_bias=False)
+HF_CONFIGS = {"bert": BERT_BASE, "t5": T5_BASE, "llama2": LLAMA2_7B}
+HF_DEPTH_KEY = {"bert": "num_hidden_layers", "t5": "num_layers", "llama2": "num_hidden_layers"}
+HF_WIDTH = {"bert": 768, "t5": 768, "llama2": 4096}
+HF_NAMES = 1203  # LVIS's vocabulary size
+HF_CHECK_NAMES = 64  # the f32 check against the CPU: these many names,
+HF_CHECK_LAYERS = 2  # at full width and this depth
+HF_TOWER_BOUND = 1e-4  # f32 card against CPU, of the features' largest magnitude
+LLAMA_PREFIX = 6  # the smoke's BPE builds each word from its start up to this length
+BERT_CONFIG = "configs/REFCOCO_VisualGrounding/ape_deta/ape_deta_r50_bert_vlf_12ep.py"
+LLAMA2_CONFIG = ("configs/LVISCOCOCOCOSTUFF_O365_OID_VGR_SA1B_REFCOCO_GQA_PhraseCut_Flickr30k/"
+                 "ape_deta/ape_deta_vitl_eva02_clip_vlf_lsj1024_cp_16x4_1080k_mdl_llama2.py")
+BERT_SERVE_NAMES = 80
+# BERT_CONFIG's step: its encoder recomputes (the recompute keeps the MSDA
+# output), its decoder does not: each MSDA forward and backward once
+BERT_STEP_LAUNCHES = {"msda_fwd": 12, "msda_bwd": 12}
+FAST_DEV_RUN_STEPS = 20  # train_net's fast_dev_run: 20 iterations
+
+
+@functools.lru_cache(maxsize=None)
+def hf_names() -> tuple:
+    """HF_NAMES category names (LVIS's own are not in the repository): the
+    repository's OpenImages, Objects365 and ODinW names, deduplicated
+    (1088), then the first of them again with "small " in front."""
+    from ape_tpu_torch.data.datasets import metadata
+
+    cats = (metadata.oid_categories() + metadata.objects365_categories()
+            + [c for v in metadata.odinw_categories().values() for c in v])
+    names = list(dict.fromkeys(c["name"] for c in cats))
+    names += [f"small {n}" for n in names]
+    return tuple(names[:HF_NAMES])
+
+
+def write_bert_vocab(path: Path, names) -> None:
+    """A ``vocab.txt`` in bert-base-uncased's layout (30522 entries: [PAD]
+    0, [unused*], [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103) over the
+    names' words as the basic tokenizer splits them, their characters and
+    the characters' continuations, filled up with unused entries."""
+    from ape_tpu_torch.modeling.text.wordpiece import WordPieceTokenizer
+
+    basic = WordPieceTokenizer({})._basic
+    words = sorted({w for n in names for w in basic(n)})
+    chars = sorted({c for w in words for c in w})
+    tokens = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    tokens = list(dict.fromkeys(tokens + chars + [f"##{c}" for c in chars] + words))
+    tokens += [f"[unused{i}]" for i in range(99, 99 + BERT_BASE["vocab_size"] - len(tokens))]
+    path.write_text("\n".join(tokens) + "\n", encoding="utf-8")
+
+
+def write_llama_tokenizer(d: Path, names) -> None:
+    """A Llama-2-style ``tokenizer.json`` (byte-fallback BPE, fused unk, no
+    pre-tokenizer, ``Prepend("▁")`` + ``Replace(" ", "▁")``, the ``<s>``
+    template) whose merges build each word of the names from its start up
+    to LLAMA_PREFIX characters, and a ``tokenizer_config.json``
+    (LlamaTokenizer, pad token ``<unk>``, padding on the class's side)."""
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    words = sorted({"▁" + w for n in names for w in n.split(" ") if w})
+    for c in sorted({c for w in words for c in w}):
+        vocab.setdefault(c, len(vocab))
+    merges = []
+    for n in range(2, LLAMA_PREFIX + 1):
+        for w in words:
+            if len(w) >= n and w[:n] not in vocab:
+                merges.append(f"{w[:n - 1]} {w[n - 1]}")
+                vocab[w[:n]] = len(vocab)
+    if len(vocab) > LLAMA2_7B["vocab_size"]:
+        fail(f"the smoke's Llama vocabulary holds {len(vocab)} tokens")
+    special = [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+                "normalized": False, "special": True} for i, t in enumerate(("<unk>", "<s>", "</s>"))]
+    spec = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": special,
+            "normalizer": {"type": "Sequence", "normalizers": [
+                {"type": "Prepend", "prepend": "▁"},
+                {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]},
+            "pre_tokenizer": None,
+            "post_processor": {"type": "TemplateProcessing",
+                               "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                                          {"Sequence": {"id": "A", "type_id": 0}}],
+                               "pair": [], "special_tokens": {"<s>": {"id": "<s>", "ids": [1],
+                                                                      "tokens": ["<s>"]}}},
+            "decoder": None,
+            "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                      "vocab": vocab, "merges": merges}}
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False), encoding="utf-8")
+    (d / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "LlamaTokenizer", "bos_token": "<s>", "eos_token": "</s>",
+         "unk_token": "<unk>", "pad_token": "<unk>", "add_bos_token": True,
+         "add_eos_token": False}))
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """A ``.safetensors`` file written by hand: the 8-byte little-endian
+    header length, the JSON header (spaces to an 8-byte boundary), then each
+    tensor's f32 bytes, taken to the host one at a time."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * 4
+        header[name] = {"dtype": "F32", "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-(8 + len(raw)) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.detach().float().cpu().contiguous().numpy().tobytes())
+
+
+def write_hf_files(tmp: Path) -> dict:
+    """The towers' directories: ``bert`` (bert-base-uncased's config.json and
+    the smoke's vocab.txt; ``hf_towers`` writes its weights) and ``llama2``
+    (Llama-2-7b-hf's config.json and the smoke's tokenizer files)."""
+    names = hf_names()
+    dirs = {"bert": tmp / "bert", "llama2": tmp / "llama2"}
+    for kind, d in dirs.items():
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "config.json").write_text(json.dumps(HF_CONFIGS[kind]))
+    write_bert_vocab(dirs["bert"] / "vocab.txt", names)
+    write_llama_tokenizer(dirs["llama2"], names)
+    return dirs
+
+
+def hf_tokenizers(tmp: Path) -> dict:
+    """Each tower's tokenizer from ``write_hf_files``' directories; T5's is
+    the WordPiece one (the port refuses T5's own Unigram tokenizer)."""
+    from ape_tpu_torch.modeling.text.hf_wrappers import load_tokenizer
+
+    bert = load_tokenizer("bert", tmp / "bert")
+    return {"bert": bert, "t5": bert, "llama2": load_tokenizer("llama2", tmp / "llama2")}
+
+
+def hf_check_features(kind: str, tokenizer, device):
+    """The f32 check's features: the ``kind`` tower at full width and
+    HF_CHECK_LAYERS layers, its weights drawn on the CPU (the same in every
+    process), on the first HF_CHECK_NAMES names, on ``device``."""
+    from ape_tpu_torch.modeling.text import T5, Bert, Llama2, build_tower
+
+    cfg = dict(HF_CONFIGS[kind], **{HF_DEPTH_KEY[kind]: HF_CHECK_LAYERS})
+    model = build_tower(kind, cfg, "cpu", seed=SEED + 1)
+    cls = {"bert": Bert, "t5": T5, "llama2": Llama2}[kind]
+    tower = cls(model=model, tokenizer=tokenizer, device=device)
+    out = tower.forward_text(list(hf_names()[:HF_CHECK_NAMES]))
+    return out if kind == "t5" else out["last_hidden_state_eot"]
+
+
+def hf_towers_cpu(tmp: Path) -> dict:
+    """The CPU half of ``hf_towers``' f32 checks."""
+    toks = hf_tokenizers(tmp)
+    return {kind: hf_check_features(kind, toks[kind], "cpu") for kind in HF_CONFIGS}
+
+
+def _encode_timed(tower, names) -> tuple:
+    """(features, seconds, tokens) of ``names`` after a warm-up on a
+    chunk's worth."""
+    import torch
+
+    tower.forward_text(list(names[:64]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tower.forward_text(list(names))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    feats = out if not isinstance(out, dict) else out["last_hidden_state_eot"]
+    tokens = (None if not isinstance(out, dict) else
+              [int(out["attention_mask"].sum()), list(out["attention_mask"].shape)])
+    return feats, seconds, tokens
+
+
+def hf_towers_phase(dev, card, tmp: Path, halves) -> dict:
+    """BERT-base, T5-base and Llama-2-7B at their published widths with
+    N(0, 0.02) weights drawn on the card (biases 0, norms 1): BERT written
+    to ``tmp/bert`` as a hand-written ``model.safetensors`` (under its
+    hub names, a head entry beside) and read back through
+    ``Bert(model_name_or_path=...)``, every weight equal bit for bit to the
+    drawn one; T5 with the WordPiece tokenizer; Llama-2 built on the card
+    with the smoke's byte-fallback BPE. Each encodes the HF_NAMES names:
+    finite features of its width, seconds, names a second, tokens, peak
+    memory. Then each at HF_CHECK_LAYERS layers in f32 on HF_CHECK_NAMES
+    names against the CPU's (the CPU halves' process) within
+    HF_TOWER_BOUND. Returns the BERT and Llama-2 towers."""
+    import torch
+
+    from ape_tpu_torch.modeling.text import T5, Bert, Llama2, build_tower
+
+    names = hf_names()
+    toks = hf_tokenizers(tmp)
+    towers = {}
+    for kind in ("bert", "t5", "llama2"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model = build_tower(kind, HF_CONFIGS[kind], dev, seed=SEED)
+        torch.cuda.synchronize()
+        rec = {"build_seconds": time.perf_counter() - t0,
+               "params": sum(p.numel() for p in model.parameters())}
+        if kind == "bert":
+            drawn = model.state_dict()
+            ckpt = {f"bert.{k}": v for k, v in drawn.items()}
+            ckpt["cls.predictions.bias"] = torch.zeros(BERT_BASE["vocab_size"], device=dev)
+            t0 = time.perf_counter()
+            write_safetensors(tmp / "bert" / "model.safetensors", ckpt)
+            rec["write_seconds"] = time.perf_counter() - t0
+            del ckpt, model
+            t0 = time.perf_counter()
+            tower = Bert(str(tmp / "bert"), device=dev)
+            torch.cuda.synchronize()
+            rec["read_seconds"] = time.perf_counter() - t0
+            rec["file_bytes"] = (tmp / "bert" / "model.safetensors").stat().st_size
+            differ = [k for k, v in tower.model.state_dict().items() if not torch.equal(v, drawn[k])]
+            if differ or len(drawn) != len(tower.model.state_dict()):
+                fail(f"hf_towers: BERT read back from its safetensors differs in {differ[:4]}")
+            del drawn
+        else:
+            cls = T5 if kind == "t5" else Llama2
+            tower = cls(model=model, tokenizer=toks[kind], device=dev)
+        feats, seconds, tokens = _encode_timed(tower, names)
+        if tuple(feats.shape) != (HF_NAMES, HF_WIDTH[kind]) or not bool(torch.isfinite(feats).all()):
+            fail(f"hf_towers {kind}: features {tuple(feats.shape)} for {HF_NAMES} names, or not "
+                 "finite")
+        log(phase="hf_towers", tower=kind, config=HF_CONFIGS[kind], names=HF_NAMES,
+            chunk=tower.max_batch_size, seconds=seconds, names_per_s=HF_NAMES / seconds,
+            valid_tokens_and_padded_shape=tokens,
+            weights_gib=rec["params"] * 4 / 2**30,
+            max_memory_allocated_gib=torch.cuda.max_memory_allocated(dev) / 2**30, **rec,
+            card=card)
+        if kind != "t5":
+            towers[kind] = tower
+        del tower, feats
+    refs = halves.result("hf_towers")
+    for kind in HF_CONFIGS:
+        got = hf_check_features(kind, toks[kind], dev).cpu()
+        want = refs["result"][kind]
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        log(phase="hf_towers_f32_vs_cpu", tower=kind, layers=HF_CHECK_LAYERS,
+            names=HF_CHECK_NAMES, max_rel_err=err, bound=HF_TOWER_BOUND,
+            cpu_seconds=refs["seconds"], card=card)
+        if tuple(got.shape) != tuple(want.shape) or not err <= HF_TOWER_BOUND:
+            fail(f"hf_towers {kind}: the card's f32 features differ from the CPU's by {err} > "
+                 f"{HF_TOWER_BOUND}")
+    torch.cuda.empty_cache()
+    return towers
+
+
+def _config_model(config: str, dev):
+    """The model of a config file, built on the card in bf16 by
+    ``model_zoo.build_model``, N(0, 0.02) weights drawn there."""
+    import torch
+
+    from ape_tpu_torch.config import LazyConfig
+    from ape_tpu_torch.model_zoo import build_model
+
+    model = build_model(LazyConfig.load(str(ROOT / config)), device=dev, dtype=torch.bfloat16)
+    return init_weights(model, SEED, device=dev).eval()
+
+
+def llama2_serve_phase(dev, card, tower):
+    """LLAMA2_CONFIG's model (EVA-02-CLIP-L, the fusion over 4096-wide text,
+    masked) behind APE and DefaultPredictor with the Llama-2-7B tower on the
+    card: a name prompt of the HF_NAMES names, then a phrase; exact
+    launches (L_D's forward), finite outputs, each request's seconds, peak
+    memory. Returns the launches."""
+    import torch
+
+    model = _config_model(LLAMA2_CONFIG, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    requests = (((768, 1024), ", ".join(hf_names())),
+                ((1024, 768), "a person riding a red bike next to a small dog"))
+    launches = serve_phase(model, "llama2_serve", tower, L_D_FORWARD_LAUNCHES, requests)
+    log(phase="llama2_serve_done", config=LLAMA2_CONFIG,
+        peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=card)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bert_serve_phase(dev, card, tower):
+    """BERT_CONFIG's model (APE-DETA R50 masked, the fusion 2048 wide over
+    768-wide text) behind APE and DefaultPredictor with the BERT-base tower:
+    an expression, then BERT_SERVE_NAMES names, on the 1024^2 canvas: exact
+    launches (R50's forward), finite outputs. Returns the launches."""
+    import torch
+
+    model = _config_model(BERT_CONFIG, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    requests = (((768, 1024), "the person on the left holding a red umbrella"),
+                ((1024, 768), ", ".join(hf_names()[:BERT_SERVE_NAMES])))
+    launches = serve_phase(model, "bert_serve", tower, R50_FORWARD_LAUNCHES, requests)
+    log(phase="bert_serve_done", config=BERT_CONFIG,
+        peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2**30, card=card)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bert_train_phase(dev, card, tmp: Path):
+    """``train_net.main`` on BERT_CONFIG at full width (R50, the fusion,
+    encoder recompute; 1024^2, batch 2), ``fast_dev_run`` on synthetic data
+    (its FAST_DEV_RUN_STEPS steps), the BERT-base tower of ``tmp/bert``
+    encoding the prompts (``train.text_tower``; the name vocabulary once,
+    cached), no evaluation: exact launches (BERT_STEP_LAUNCHES a step),
+    finite losses, s/step, peak memory. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.tools import train_net
+
+    out = tmp / "bert_train"
+    argv = ["--config-file", str(ROOT / BERT_CONFIG), f"train.output_dir={out}",
+            "train.fast_dev_run.enabled=True", "train.checkpoint_period=100000",
+            "dataloader.train.batch_size=2", "dataloader.tests=[]", "train.text_tower=True",
+            f"language.model_name_or_path={tmp / 'bert'}"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    summary = train_net.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    rows = _tn_metrics(out)
+    steps = summary["max_iter"]
+    want = {k: steps * BERT_STEP_LAUNCHES.get(k, 0) for k in launches}
+    lang = summary["trainer"].text_fn.lang
+    if launches != want or steps != FAST_DEV_RUN_STEPS:
+        fail(f"bert_train: launches {launches} over {steps} steps, expected {want}")
+    if len(rows) != steps or not all(np.isfinite(r["total_loss"]) for r in rows):
+        fail(f"bert_train: {len(rows)} rows, total losses {[r['total_loss'] for r in rows]}")
+    if type(lang).__name__ != "Bert" or not lang._cache:
+        fail(f"bert_train: the prompts were not encoded by the BERT tower ({type(lang).__name__})")
+    step_s = [r["time"] for r in rows]
+    log(phase="bert_train", config=BERT_CONFIG, steps=steps, batch=2,
+        s_per_step=float(np.median(step_s[1:])), seconds_per_step=step_s,
+        launches_per_step=BERT_STEP_LAUNCHES, msda_bwd_launches=launches.get("msda_bwd", 0),
+        total_loss=[r["total_loss"] for r in rows],
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+        seconds=seconds, card=card)
+    del summary, lang
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hf_phase(dev, card, tmp: Path, halves) -> list:
+    """``hf_towers``, ``llama2_serve``, ``bert_serve``, ``bert_train``.
+    Returns the launches of the serving and training runs."""
+    import torch
+
+    t0 = time.perf_counter()
+    towers = hf_towers_phase(dev, card, tmp, halves)
+    runs = [llama2_serve_phase(dev, card, towers.pop("llama2"))]
+    torch.cuda.empty_cache()
+    runs.append(bert_serve_phase(dev, card, towers.pop("bert")))
+    runs.append(bert_train_phase(dev, card, tmp))
+    log(phase="hf_done", seconds=time.perf_counter() - t0)
+    return runs
+
+
 def race_phase(dev, card):
     """``ape_tpu_torch.tools.msda_race`` as a path of its own: every
     window-MSDA form at both pyramids and offset draws, then the per-pair
@@ -5617,6 +6112,81 @@ def flops_phase(dev, card, refs: dict):
                  f"{small['gflops_per_img_by_op']}, the CPU {want['gflops_per_img_by_op']}")
 
 
+class CpuHalves:
+    """The CPU halves of the f32 checks (CPU_HALVES, in the order the card
+    phases read them) in a process of its own on all cores but
+    CPU_REF_CORES_LEFT, while the card phases run: each result saved to
+    ``{name}.pt`` as it finishes, with its seconds."""
+
+    def __init__(self, tmp: Path):
+        import os
+
+        self.tmp = tmp
+        threads = max(1, len(os.sched_getaffinity(0)) - CPU_REF_CORES_LEFT)
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import torch; "
+                f"torch.set_num_threads({threads}); import chip_smoke; "
+                f"chip_smoke.run_cpu_halves({str(tmp)!r})")
+        self.proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT)
+
+    def result(self, name: str) -> dict:
+        """``name``'s record (``result``, ``seconds``, ``threads``), waited
+        for (``waited_seconds``)."""
+        import torch
+
+        path = self.tmp / f"{name}.pt"
+        t0 = time.perf_counter()
+        while not path.exists():
+            if self.proc.poll() is not None and not path.exists():
+                fail(f"the CPU halves' process exited {self.proc.returncode} before {name}")
+            time.sleep(0.1)
+        rec = torch.load(path, weights_only=False)
+        path.unlink()
+        rec["waited_seconds"] = time.perf_counter() - t0
+        return rec
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def run_cpu_halves(tmp: str):
+    """Each of CPU_HALVES in turn (``CpuHalves``' process)."""
+    import torch
+
+    tmp = Path(tmp)
+    for name, fn in CPU_HALVES.items():
+        t0 = time.perf_counter()
+        result = fn(tmp)
+        part = tmp / f"{name}.pt.part"
+        torch.save({"result": result, "seconds": time.perf_counter() - t0,
+                    "threads": torch.get_num_threads()}, part)
+        part.replace(tmp / f"{name}.pt")
+
+
+# the CPU halves, in the order the card phases read them
+CPU_HALVES = {
+    "slice_f32": slice_f32_cpu,
+    "train_f32": lambda tmp: f32_step_cpu(_train_f32_setup, False, recompute=False),
+    "full_train_f32": lambda tmp: f32_step_cpu(_train_f32_setup, True, recompute=False),
+    "l_d_f32": lambda tmp: cut_f32_cpu(tmp, _l_d_f32_model),
+    "l_d_train_f32": lambda tmp: f32_step_cpu(_l_d_train_f32_setup, prompt="phrase",
+                                              recompute=False),
+    "ambiguous_f32": lambda tmp: cut_f32_cpu(tmp, _l_d_f32_model, 1),
+    "l_f32": lambda tmp: cut_f32_cpu(tmp, _l_f32_model),
+    **{f"r50_f32:{name}": functools.partial(r50_f32_cpu, build_name=b, kw=kw)
+       for name, b, kw in R50_F32_FORWARD},
+    **{f"r50_train_f32:{name}": functools.partial(
+        lambda tmp, i: f32_step_cpu(_r50_train_f32_setup, i, floor=True), i=i)
+       for i, (name, _, _) in enumerate(R50_F32_TREES)},
+    **{f"vit_f32:{tree}": functools.partial(
+        lambda tmp, tree, depth: cut_f32_cpu(tmp, _vit_f32_model, tree, depth), tree=tree, depth=depth)
+       for tree, depth in VIT_F32},
+    "vitl_train_f32": lambda tmp: f32_step_cpu(_vitl_train_f32_setup),
+    "hf_towers": hf_towers_cpu,
+}
+
+
 def main():
     import torch
 
@@ -5626,6 +6196,10 @@ def main():
     kind, card = device_phase()
     dev = torch.device("cuda", 0)
     disassembly = build_phase()
+    halves_dir = Path(tempfile.mkdtemp(prefix="cpu_halves_"))
+    write_hf_files(halves_dir)
+    halves = CpuHalves(halves_dir)
+    atexit.register(halves.close)
     kern = kernels_phase(dev)
     kern.update(backward_kernels_phase(dev))
     l_d_attn = attn_kernels_phase(dev, L_D_ATTN_SHAPE, "l_d")
@@ -5645,13 +6219,13 @@ def main():
     model, slice_launches = slice_phase(dev, card)
     default_runs += [slice_launches, serve_phase(model)]
     flag_runs += forms_phase(model, dev, card)
-    f32_phase(model)
+    f32_phase(model, halves)
     del model
     torch.cuda.empty_cache()
     train_launches, fused_launches, remat_msda, remat_full = train_phase(dev, card)
     default_runs += [train_launches, remat_msda]
     flag_runs += [fused_launches, remat_full]
-    train_f32_phase(dev)
+    train_f32_phase(dev, halves)
     torch.cuda.empty_cache()
     full_serve_launches, v6_launches = full_serve_phase(dev, card)
     default_runs.append(full_serve_launches)
@@ -5661,7 +6235,7 @@ def main():
     default_runs.append(merged_launches)
     flag_runs.append(split_launches)
     torch.cuda.empty_cache()
-    train_f32_phase(dev, mask_on=True)
+    train_f32_phase(dev, halves, mask_on=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     tower = l_d_text_tower(dev, card)
@@ -5682,31 +6256,32 @@ def main():
     vit_serve_s = time.perf_counter() - t1
     del tower
     torch.cuda.empty_cache()
-    l_d_f32_phase(dev)
+    l_d_f32_phase(dev, halves)
     default_runs.append(l_d_train_phase(dev, card))
-    default_runs.append(l_d_train_f32_phase(dev))
+    default_runs.append(l_d_train_f32_phase(dev, halves))
     log(phase="l_d_done",
         seconds=time.perf_counter() - t0 - r50_serve_s - ade_serve_s - vit_serve_s)
     t0 = time.perf_counter() - ade_serve_s
-    ambiguous_f32_phase(dev)
+    ambiguous_f32_phase(dev, halves)
     default_runs.append(l_slice_phase(dev, card))
     default_runs.append(l_serve_phase(dev, card))
-    l_f32_phase(dev)
+    l_f32_phase(dev, halves)
     default_runs.append(l_train_phase(dev, card))
     log(phase="l_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter() - r50_serve_s
     default_runs.append(r50_slice_phase(dev, card))
-    r50_f32_phase(dev)
+    r50_f32_phase(dev, halves)
     default_runs.append(r50_train_phase(dev, card))
     default_runs.append(r50_train_phase(dev, card, detr=True))
-    default_runs.append(r50_train_f32_phase(dev))
+    default_runs.append(r50_train_f32_phase(dev, halves))
     log(phase="r50_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter() - vit_serve_s
     default_runs.append(vit_slice_phase(dev, card))
-    vit_f32_phase(dev)
+    vit_f32_phase(dev, halves)
     default_runs.append(vitl_train_phase(dev, card))
-    default_runs.append(vitl_train_f32_phase(dev))
+    default_runs.append(vitl_train_f32_phase(dev, halves))
     log(phase="vit_done", seconds=time.perf_counter() - t0)
+    default_runs += hf_phase(dev, card, halves_dir, halves)
     train_net_runs, final_checkpoint = train_net_phase(dev, card)
     default_runs += train_net_runs
     default_runs.append(demo_phase(dev, card, final_checkpoint))

@@ -10,6 +10,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -67,11 +68,11 @@ def test_train_resume_eval_without_jax(tmp_path):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """No card and no device: it raises (the port's device rule), and other
-    language towers than EVA-CLIP wait for their wrappers. More than one
-    process and FSDP are no longer refused: ``--num-gpus 2`` runs two gloo
-    ranks on the CPU under DDP and, with ``train.fsdp=2``, under FSDP2
-    (tests/test_torch_parallel.py holds their steps)."""
+    """No card and no device: it raises (the port's device rule). More than
+    one process and FSDP are no longer refused: ``--num-gpus 2`` runs two
+    gloo ranks on the CPU under DDP and, with ``train.fsdp=2``, under FSDP2
+    (tests/test_torch_parallel.py holds their steps). Nor are the BERT, T5
+    and Llama-2 towers (``test_build_language_routes_the_hf_towers``)."""
     from ape_tpu_torch.tools import train_net
 
     tiny = str(ROOT / "configs" / "tests" / "ape_deta_tiny.py")
@@ -89,12 +90,6 @@ def test_refusals(tmp_path, monkeypatch):
         rows = [json.loads(line) for line in open(run / "metrics.json")]
         assert [r["iteration"] for r in rows] == [0, 1]
         assert torch.load(run / "model_final.pth", weights_only=False)["iteration"] == 2
-    from ape_tpu_torch.config import LazyConfig
-
-    cfg = LazyConfig.load(tiny)
-    LazyConfig.apply_overrides(cfg, ["language.kind=bert"])
-    with pytest.raises(NotImplementedError, match="bert"):
-        train_net.build_language(cfg, "cpu")
 
 
 def test_unregistered_dataset_raises_outside_fast_dev_run(tmp_path, monkeypatch):
@@ -113,3 +108,114 @@ def test_unregistered_dataset_raises_outside_fast_dev_run(tmp_path, monkeypatch)
                        device="cpu")
     with pytest.raises(ValueError, match="the config names none"):
         train_net.main(common + ["train.fast_dev_run.enabled=False"], device="cpu")
+
+
+def _tiny_tower_dirs(root):
+    """Tiny saved BERT, T5 and Llama-2 directories, each with a tokenizer
+    the port reads (T5's a BPE ``tokenizer.json``: the port refuses T5's own
+    Unigram)."""
+    from tests.test_torch_hf_files import tiny_model, write_bert_vocab
+    from tests.test_torch_hf_tokenizers import write_llama_tokenizer
+
+    dirs = {k: root / k for k in ("bert", "t5", "llama2")}
+    tiny_model("bert", head=True).save_pretrained(dirs["bert"])
+    write_bert_vocab(dirs["bert"])
+    tiny_model("t5", head=True).save_pretrained(dirs["t5"])
+    write_llama_tokenizer(dirs["t5"])
+    tiny_model("llama2", head=True).save_pretrained(dirs["llama2"])
+    write_llama_tokenizer(dirs["llama2"])
+    return dirs
+
+
+def test_build_language_routes_the_hf_towers(tmp_path):
+    """``language.kind`` bert, t5 and llama2 build the port's towers from a
+    tiny saved directory, as JAX's ``build_language`` routes them; an
+    unknown kind raises."""
+    pytest.importorskip("transformers")
+    from ape_tpu_torch.config import LazyConfig
+    from ape_tpu_torch.modeling.text import T5, Bert, Llama2
+    from ape_tpu_torch.tools import train_net
+
+    tiny = str(ROOT / "configs" / "tests" / "ape_deta_tiny.py")
+    dirs = _tiny_tower_dirs(tmp_path)
+    for kind, cls in (("bert", Bert), ("t5", T5), ("llama2", Llama2)):
+        cfg = LazyConfig.load(tiny)
+        LazyConfig.apply_overrides(cfg, [f"language.kind={kind}",
+                                         f"language.model_name_or_path={dirs[kind]}"])
+        tower = train_net.build_language(cfg, torch.device("cpu"))
+        assert type(tower) is cls and tower.device == torch.device("cpu")
+        out = tower.forward_text(["a cat", "the dog"])
+        feats = out["last_hidden_state_eot"] if isinstance(out, dict) else out
+        assert feats.shape[0] == 2 and bool(torch.isfinite(feats).all())
+    cfg = LazyConfig.load(tiny)
+    LazyConfig.apply_overrides(cfg, ["language.kind=gpt2"])
+    with pytest.raises(KeyError, match="gpt2"):
+        train_net.build_language(cfg, torch.device("cpu"))
+
+
+# the five configs JAX's train_net routes to the BERT and Llama-2 towers
+HF_CONFIGS = [
+    "configs/REFCOCO_VisualGrounding/ape_deta/ape_deta_r50_bert_vlf_12ep.py",
+    "configs/COCO_REFCOCO/ape_deta/ape_deta_r50_vlf_bert_36ep.py",
+    "configs/LVISCOCOCOCOSTUFF_REFCOCO/ape_deta/ape_deta_r50_vlf_lsj1024_cp_bert_50ep.py",
+    "configs/LVISCOCOCOCOSTUFF_O365_OID_VGR_SA1B_REFCOCO_GQA_PhraseCut_Flickr30k/ape_deta/"
+    "ape_deta_vitl_eva02_clip_vlf_lsj1024_cp_16x4_1080k_mdl_llama2.py",
+    "configs/LVISCOCOCOCOSTUFF_O365_OID_VGR_SA1B_REFCOCO_GQA_PhraseCut_Flickr30k/ape_deta/"
+    "ape_deta_vitl_eva02_clip_vlf_lsj1024_cp_16x4x270k_mdl_llama2.py",
+]
+
+# a config's recipe (criteria, optimizer, data groups, prompts, tower) on the
+# tiny model tree of its backbone family, at 64^2, one image a group
+TINY_HF_CONFIG = """
+from ape_tpu.config import LazyConfig
+_cfg = LazyConfig.load({config!r})
+_tiny = LazyConfig.load({tiny!r})
+model = _tiny.model
+model.transformer.encoder.vl_fusion = True
+model.transformer.encoder.vl_embed_dim = 32
+model.transformer.encoder.use_act_checkpoint = _cfg.model.transformer.encoder.use_act_checkpoint
+model.embed_dim_language = {width}
+model.transformer.encoder.embed_dim_language = {width}
+optimizer = _cfg.optimizer
+dataloader = _cfg.dataloader
+for _g in dataloader.train.get("groups", None) or [dataloader.train]:
+    _g.batch_size = 1
+criterion = _cfg.criterion
+if "criterions" in _cfg:
+    criterions = _cfg.criterions
+language = dict(_cfg.language, model_name_or_path={tower!r})
+train = _cfg.train
+train.update(image_size=64, iter_size=1, text_dim={width}, text_tower=True)
+"""
+
+
+@pytest.mark.parametrize("config", HF_CONFIGS, ids=lambda c: c.rsplit("/", 1)[-1][:-3])
+def test_fast_dev_run_of_the_hf_tower_configs(tmp_path, config):
+    """Each config JAX routes to a BERT or Llama-2 tower trains a
+    ``fast_dev_run`` on the CPU at tiny size, its prompts encoded by its
+    tower read from a tiny saved directory (``train.text_tower``)."""
+    pytest.importorskip("transformers")
+    from ape_tpu_torch.tools import train_net
+
+    kind = "bert" if "bert" in config else "llama2"
+    from tests.test_torch_hf_files import tiny_model, write_bert_vocab
+    from tests.test_torch_hf_tokenizers import write_llama_tokenizer
+
+    tower = tmp_path / kind
+    tiny_model(kind, head=True).save_pretrained(tower)
+    (write_bert_vocab if kind == "bert" else write_llama_tokenizer)(tower)
+    tiny = "ape_deta_tiny_r50.py" if "r50" in config else "ape_deta_tiny.py"
+    path = tmp_path / "tiny_hf.py"
+    path.write_text(TINY_HF_CONFIG.format(config=str(ROOT / config), tower=str(tower),
+                                          tiny=str(ROOT / "configs" / "tests" / tiny),
+                                          width=16 if kind == "bert" else 32))
+    out = tmp_path / "out"
+    summary = train_net.main(["--config-file", str(path), f"train.output_dir={out}",
+                              "train.fast_dev_run.enabled=True", "train.checkpoint_period=100"],
+                             device="cpu")
+    assert summary["max_iter"] == 20
+    rows = [json.loads(line) for line in open(out / "metrics.json")]
+    assert len(rows) == 20 and all(np.isfinite(r["total_loss"]) for r in rows)
+    lang = summary["trainer"].text_fn.lang
+    assert type(lang).__name__ == {"bert": "Bert", "llama2": "Llama2"}[kind]
+    assert lang._cache  # the name vocabulary went through the tower
