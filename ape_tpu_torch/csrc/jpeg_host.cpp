@@ -1,32 +1,45 @@
 // JPEG codec for the host CPU, in plain C++17 (no library): the port's
-// counterpart of PIL's JPEG plugin over libjpeg-turbo 3.1.
+// counterpart of PIL's JPEG plugin over libjpeg-turbo 3.1. The rule is the
+// one JAX's reader follows through PIL: a file PIL decodes is decoded bit for
+// bit; a file PIL refuses gets the "refused" status, which the reader turns
+// into a dropped record.
 //
-// Decoder: Huffman-coded baseline and extended sequential (SOF0, SOF1) and
-// progressive (SOF2) frames of 8-bit samples with 1, 3 or 4 components, to
-// RGB exactly as PIL's `Image.open(f).convert("RGB")` gives it with
-// libjpeg-turbo's defaults:
+// Decoder: frames of 8-bit samples with 1, 3 or 4 components, to RGB exactly
+// as PIL's `Image.open(f).convert("RGB")` gives it with libjpeg-turbo's
+// defaults:
+//   * Huffman-coded baseline, extended sequential and progressive frames
+//     (SOF0-2), arithmetic-coded sequential and progressive frames (SOF9,
+//     SOF10: jdarith.c's QM decoder with T.81 Table D.2, DAC conditioning,
+//     restart intervals, zeros past a marker), and lossless frames (SOF3:
+//     jdlhuff.c and jdpred.c, predictors 1-7, the point transform, restarts
+//     at MCU-row boundaries);
 //   * the ISLOW integer IDCT (jidctint.c, CONST_BITS 13, PASS1_BITS 2) in
 //     the 16-bit arithmetic of the SIMD build that PIL ships (`idct_islow`);
+//   * progressive files decoded whole before the output pass, as libjpeg
+//     does outside buffered-image mode, with jdcoefct.c's block smoothing
+//     (decompress_smooth_data: the first nine AC coefficients, and the DC
+//     when no AC scan came, estimated from the 5x5 neighbourhood's DC
+//     values) wherever smoothing_ok holds;
 //   * fancy upsampling (jdsample.c): h2v1 and h2v2 triangle filters with
 //     their alternating rounding biases, h1v2, and replication for every
 //     other integral ratio and for a component at most 2 samples wide; the
 //     context rows above and below a component replicate its first and last
-//     real rows (jdmainct.c);
+//     real rows (jdmainct.c). Lossless frames replicate (no fancy filter);
 //   * YCbCr -> RGB through jdcolor.c's tables (SCALEBITS 16); RGB (Adobe
 //     transform 0) copied; gray repeated over the three channels;
-//   * 4-component Adobe CMYK read as PIL reads it ("CMYK;I", then its
-//     cmyk2rgb).
+//   * 4-component Adobe CMYK, and YCCK through ycck_cmyk_convert, read as
+//     PIL reads them ("CMYK;I", then its cmyk2rgb).
 // The colour space is libjpeg's guess (jdapimin.c default_decompress_parms):
 // a JFIF marker, then the Adobe transform, then the component ids.
-// Progressive files are decoded whole before the output pass, as libjpeg
-// does when it is not in buffered-image mode; a file whose scans leave any
-// of the first ten coefficients of a component unrefined would take
-// libjpeg's block smoothing, which is not ported, and is refused.
 //
-// Refused with an "unsupported" status naming the feature: arithmetic coding,
-// lossless and hierarchical frames, 12-bit samples, YCCK, 2 components,
-// fractional sampling ratios, DNL. A damaged or truncated stream gives a
-// "corrupt" status.
+// Refused (status 3), as libjpeg-turbo or PIL's plugin refuse them: samples
+// of another precision than 8 bits, 2 or more than 4 components,
+// hierarchical frames (SOF5-7, SOF13-15, DHP, EXP), lossless arithmetic
+// coding (SOF11), fractional sampling ratios, a height left to a DNL marker,
+// a lossless frame that would need a colour conversion (YCbCr or YCCK), and
+// an arithmetic-coded scan whose data runs past the end of the 64 KiB blocks
+// PIL feeds libjpeg (whose arithmetic decoder cannot suspend for more input).
+// A damaged or truncated stream gives a "corrupt" status.
 //
 // Encoder: the bytes of PIL's `Image.fromarray(x).save(f)` with no options,
 // for RGB and gray: JFIF 1.01 (density 1:1, no unit), quality 75 with
@@ -36,7 +49,8 @@
 // standard Huffman tables, libjpeg's marker order.
 //
 // C interface (ctypes): ape_jpeg_decode / ape_jpeg_encode return 0, 1
-// (corrupt) or 2 (unsupported) and write a message into `err`; their
+// (corrupt), 2 (unsupported: a form PIL encodes and the encoder does not)
+// or 3 (refused as PIL refuses it) and write a message into `err`; their
 // output buffers are released with ape_jpeg_free.
 
 #include <algorithm>
@@ -51,12 +65,13 @@
 namespace {
 
 struct Failure {
-  int code;  // 1 corrupt, 2 unsupported
+  int code;  // 1 corrupt, 2 unsupported, 3 refused as PIL refuses it
   std::string message;
 };
 
 [[noreturn]] void corrupt(const std::string& m) { throw Failure{1, m}; }
 [[noreturn]] void unsupported(const std::string& m) { throw Failure{2, m}; }
+[[noreturn]] void refused(const std::string& m) { throw Failure{3, m + " (PIL refuses it too)"}; }
 
 // jpeg_natural_order: zigzag index -> natural index, with 16 extra entries
 // (63) that absorb a run past the block in damaged data, as libjpeg's do.
@@ -89,6 +104,7 @@ inline int32_t descale(int64_t x, int n) { return (int32_t)((x + ((int64_t)1 << 
 
 struct HuffTable {
   bool defined = false;
+  int max_symbol = 0;  // the largest value, checked when a scan takes it as a DC table
   int32_t maxcode[18];
   int32_t valoffset[18];
   uint8_t vals[256];
@@ -96,7 +112,7 @@ struct HuffTable {
 };
 
 // jdhuff.c jpeg_make_d_derived_tbl
-void build_huff(HuffTable& t, const uint8_t bits[17], const uint8_t* vals, bool dc) {
+void build_huff(HuffTable& t, const uint8_t bits[17], const uint8_t* vals) {
   int huffsize[257];
   uint32_t huffcode[257];
   int p = 0;
@@ -140,10 +156,8 @@ void build_huff(HuffTable& t, const uint8_t bits[17], const uint8_t* vals, bool 
       for (int ctr = 1 << (9 - l); ctr > 0; --ctr) t.look[lookbits++] = (uint16_t)((l << 8) | vals[p]);
     }
   }
-  if (dc) {
-    for (int i = 0; i < numsymbols; ++i)
-      if (vals[i] > 15) corrupt("bad Huffman table");
-  }
+  t.max_symbol = 0;
+  for (int i = 0; i < numsymbols; ++i) t.max_symbol = std::max(t.max_symbol, (int)vals[i]);
   t.defined = true;
 }
 
@@ -232,16 +246,135 @@ struct BitReader {
 
 inline int extend(int r, int s) { return r < (1 << (s - 1)) ? r + (int)((~0u) << s) + 1 : r; }
 
+// T.81 Table D.2 (jaricom.c): Qe, Next_Index_MPS, Next_Index_LPS with
+// Switch_MPS in bit 7; entry 113 is the fixed 0.5 estimate of signs and
+// refinement bits
+struct QeEntry {
+  int32_t qe;
+  uint8_t nmps, nlps;
+};
+constexpr QeEntry kQe[114] = {
+    {0x5a1d, 1, 1 | 0x80},  {0x2586, 2, 14},        {0x1114, 3, 16},        {0x080b, 4, 18},
+    {0x03d8, 5, 20},        {0x01da, 6, 23},        {0x00e5, 7, 25},        {0x006f, 8, 28},
+    {0x0036, 9, 30},        {0x001a, 10, 33},       {0x000d, 11, 35},       {0x0006, 12, 9},
+    {0x0003, 13, 10},       {0x0001, 13, 12},       {0x5a7f, 15, 15 | 0x80}, {0x3f25, 16, 36},
+    {0x2cf2, 17, 38},       {0x207c, 18, 39},       {0x17b9, 19, 40},       {0x1182, 20, 42},
+    {0x0cef, 21, 43},       {0x09a1, 22, 45},       {0x072f, 23, 46},       {0x055c, 24, 48},
+    {0x0406, 25, 49},       {0x0303, 26, 51},       {0x0240, 27, 52},       {0x01b1, 28, 54},
+    {0x0144, 29, 56},       {0x00f5, 30, 57},       {0x00b7, 31, 59},       {0x008a, 32, 60},
+    {0x0068, 33, 62},       {0x004e, 34, 63},       {0x003b, 35, 32},       {0x002c, 9, 33},
+    {0x5ae1, 37, 37 | 0x80}, {0x484c, 38, 64},       {0x3a0d, 39, 65},       {0x2ef1, 40, 67},
+    {0x261f, 41, 68},       {0x1f33, 42, 69},       {0x19a8, 43, 70},       {0x1518, 44, 72},
+    {0x1177, 45, 73},       {0x0e74, 46, 74},       {0x0bfb, 47, 75},       {0x09f8, 48, 77},
+    {0x0861, 49, 78},       {0x0706, 50, 79},       {0x05cd, 51, 48},       {0x04de, 52, 50},
+    {0x040f, 53, 50},       {0x0363, 54, 51},       {0x02d4, 55, 52},       {0x025c, 56, 53},
+    {0x01f8, 57, 54},       {0x01a4, 58, 55},       {0x0160, 59, 56},       {0x0125, 60, 57},
+    {0x00f6, 61, 58},       {0x00cb, 62, 59},       {0x00ab, 63, 61},       {0x008f, 32, 61},
+    {0x5b12, 65, 65 | 0x80}, {0x4d04, 66, 80},       {0x412c, 67, 81},       {0x37d8, 68, 82},
+    {0x2fe8, 69, 83},       {0x293c, 70, 84},       {0x2379, 71, 86},       {0x1edf, 72, 87},
+    {0x1aa9, 73, 87},       {0x174e, 74, 72},       {0x1424, 75, 72},       {0x119c, 76, 74},
+    {0x0f6b, 77, 74},       {0x0d51, 78, 75},       {0x0bb6, 79, 77},       {0x0a40, 48, 77},
+    {0x5832, 81, 80 | 0x80}, {0x4d1c, 82, 88},       {0x438e, 83, 89},       {0x3bdd, 84, 90},
+    {0x34ee, 85, 91},       {0x2eae, 86, 92},       {0x299a, 87, 93},       {0x2516, 71, 86},
+    {0x5570, 89, 88 | 0x80}, {0x4ca9, 90, 95},       {0x44d9, 91, 96},       {0x3e22, 92, 97},
+    {0x3824, 93, 99},       {0x32b4, 94, 99},       {0x2e17, 86, 93},       {0x56a8, 96, 95 | 0x80},
+    {0x4f46, 97, 101},      {0x47e5, 98, 102},      {0x41cf, 99, 103},      {0x3c3d, 100, 104},
+    {0x375e, 93, 99},       {0x5231, 102, 105},     {0x4c0f, 103, 106},     {0x4639, 104, 107},
+    {0x415e, 99, 103},      {0x5627, 106, 105 | 0x80}, {0x50e7, 107, 108},  {0x4b85, 103, 109},
+    {0x5597, 109, 110},     {0x504f, 107, 111},     {0x5a10, 111, 110 | 0x80}, {0x5522, 109, 112},
+    {0x59eb, 111, 112 | 0x80}, {0x5a1d, 113, 113}};
+constexpr uint8_t kFixedBin = 113;
+
+// jdarith.c's arith_decode over the entropy-coded data from `pos`: a marker
+// met inside the data is legal and supplies zeros from then on (its code is
+// kept); the end of the file is a truncation.
+struct ArithReader {
+  const uint8_t* d = nullptr;
+  size_t n = 0, pos = 0;
+  int64_t c = 0, a = 0;
+  int ct = -16;    // -16 before the first two bytes, -1 after a decoding error
+  int marker = 0;  // the code of the marker the data ran into, 0 before one
+
+  void reset(size_t p) {
+    pos = p;
+    c = a = 0;
+    ct = -16;
+    marker = 0;
+  }
+
+  int get_byte() {
+    if (pos >= n) corrupt("image file is truncated");
+    return d[pos++];
+  }
+
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data = 0;
+        if (!marker) {
+          data = get_byte();
+          if (data == 0xFF) {
+            do data = get_byte();
+            while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              marker = data;
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the first two bytes are in
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    const QeEntry& e = kQe[sv & 0x7F];
+    int64_t qe = e.qe;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ e.nmps);
+      } else {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ e.nlps);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ e.nlps);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ e.nmps);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+// PIL feeds libjpeg the file in blocks of this many bytes (ImageFile.MAXBLOCK)
+constexpr size_t kPilBlock = 65536;
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int width_in_blocks = 0, height_in_blocks = 0;  // jdinput.c initial_setup
   int dw = 0, dh = 0;                             // downsampled width and height
   int bw = 0, bh = 0;                             // stored blocks (MCU-padded)
-  std::vector<int16_t> coef;
+  std::vector<int16_t> coef;                      // DCT frames: bw * bh blocks of 64
+  std::vector<int32_t> diff;                      // lossless frames: bw * bh differences
+  std::vector<uint8_t> sample;                    // lossless frames: bw * bh samples
   uint16_t qt[64] = {};  // latched at the component's first scan
   bool latched = false;
   int coef_bits[64];
 };
+
+// natural positions of the coefficients block smoothing estimates: zigzag 1..9
+constexpr int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
 
 class Decoder {
  public:
@@ -250,19 +383,21 @@ class Decoder {
   std::vector<uint8_t> decode(int* out_w, int* out_h) {
     if (n_ < 3 || d_[0] != 0xFF || d_[1] != 0xD8) corrupt("not a JPEG file (no SOI marker)");
     pos_ = 2;
+    for (int t = 0; t < 16; ++t) {  // jdmarker.c get_soi: the default conditioning
+      dc_l_[t] = 0;
+      dc_u_[t] = 1;
+      ac_k_[t] = 5;
+    }
     bool done = false;
     while (!done) {
       int m = next_marker();
       switch (m) {
-        case 0xC0:
-        case 0xC1:
-        case 0xC2: read_sof(m); break;
-        case 0xC3: unsupported("lossless JPEG (SOF3)");
-        case 0xC5: case 0xC6: case 0xC7: case 0xDE: case 0xDF:
-          unsupported("hierarchical JPEG (differential frames, DHP, EXP)");
-        case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF: case 0xCC:
-          unsupported("arithmetic-coded JPEG (SOF9-11, SOF13-15, DAC)");
+        case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA: read_sof(m); break;
+        case 0xCB: refused("lossless arithmetic-coded JPEG (SOF11)");
+        case 0xC5: case 0xC6: case 0xC7: case 0xCD: case 0xCE: case 0xCF: case 0xDE: case 0xDF:
+          refused("hierarchical JPEG (differential frames, DHP, EXP)");
         case 0xC4: read_dht(); break;
+        case 0xCC: read_dac(); break;
         case 0xDB: read_dqt(); break;
         case 0xDD: read_dri(); break;
         case 0xDA: read_sos(); break;
@@ -279,10 +414,12 @@ class Decoder {
           }
           corrupt("unknown JPEG marker 0x" + hex(m));
       }
+      // the marker reader waits for PIL's next block where a segment crosses one
+      while (pos_ > pil_end_) pil_end_ += kPilBlock;
     }
     if (!frame_) corrupt("no frame before EOI");
     if (scans_ == 0) corrupt("no scan before EOI");
-    if (progressive_) check_complete();
+    if (progressive_) smoothing_ = smoothing_ok();
     *out_w = width_;
     *out_h = height_;
     return output();
@@ -294,14 +431,19 @@ class Decoder {
   uint16_t qt_[4][64];
   bool qt_defined_[4] = {false, false, false, false};
   HuffTable dc_[4], ac_[4];
+  uint8_t dc_l_[16], dc_u_[16], ac_k_[16];  // DAC conditioning of each table
+  uint8_t dc_stats_[16][64], ac_stats_[16][256];
   int restart_interval_ = 0;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = -1;
-  bool frame_ = false, progressive_ = false;
+  bool frame_ = false, progressive_ = false, arith_ = false, lossless_ = false;
+  bool smoothing_ = false;
   int width_ = 0, height_ = 0, ncomp_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   int scans_ = 0;
   Component comp_[4];
   BitReader br_;
+  ArithReader ar_;
+  size_t pil_end_ = kPilBlock;  // the end of the bytes PIL has fed libjpeg so far
 
   static std::string hex(int v) {
     const char* digits = "0123456789ABCDEF";
@@ -383,9 +525,26 @@ class Decoder {
       if (count > 256 || pos_ + count > end) corrupt("bad Huffman table");
       uint8_t vals[256] = {0};
       for (int i = 0; i < count; ++i) vals[i] = (uint8_t)byte();
-      build_huff(tc ? ac_[th] : dc_[th], bits, vals, tc == 0);
+      build_huff(tc ? ac_[th] : dc_[th], bits, vals);
     }
     if (pos_ != end) corrupt("bad DHT length");
+  }
+
+  // jdmarker.c get_dac: DC tables 0-15 take (L, U), AC tables 16-31 take Kx
+  void read_dac() {
+    size_t end = segment_end();
+    while (end - pos_ >= 2) {
+      int index = byte(), val = byte();
+      if (index >= 32) corrupt("bad DAC table index");
+      if (index >= 16) {
+        ac_k_[index - 16] = (uint8_t)val;
+      } else {
+        dc_l_[index] = (uint8_t)(val & 15);
+        dc_u_[index] = (uint8_t)(val >> 4);
+        if (dc_l_[index] > dc_u_[index]) corrupt("bad DAC value");
+      }
+    }
+    if (pos_ != end) corrupt("bad DAC length");
   }
 
   void read_dri() {
@@ -401,13 +560,12 @@ class Decoder {
     height_ = word();
     width_ = word();
     ncomp_ = byte();
-    if (precision != 8) unsupported(std::to_string(precision) + "-bit JPEG samples");
-    if (height_ == 0) unsupported("JPEG without its height (DNL)");
+    if (precision != 8) refused(std::to_string(precision) + "-bit JPEG samples");
+    if (ncomp_ == 2 || ncomp_ > 4 || ncomp_ == 0) refused(std::to_string(ncomp_) + "-component JPEG");
+    if (height_ == 0) refused("JPEG without its height (DNL)");
     if (width_ == 0) corrupt("empty JPEG image");
     if ((int64_t)width_ * height_ > 178956970)
       corrupt("image size exceeds the decompression-bomb limit");
-    if (ncomp_ == 2 || ncomp_ > 4 || ncomp_ == 0)
-      unsupported(std::to_string(ncomp_) + "-component JPEG");
     if (end - pos_ != (size_t)(3 * ncomp_)) corrupt("bad SOF length");
     for (int c = 0; c < ncomp_; ++c) {
       Component& k = comp_[c];
@@ -420,21 +578,29 @@ class Decoder {
       hmax_ = std::max(hmax_, k.h);
       vmax_ = std::max(vmax_, k.v);
     }
-    mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
-    mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
+    lossless_ = marker == 0xC3;
+    const int unit = lossless_ ? 1 : 8;  // a lossless "block" is one sample
+    mcux_ = (width_ + unit * hmax_ - 1) / (unit * hmax_);
+    mcuy_ = (height_ + unit * vmax_ - 1) / (unit * vmax_);
     for (int c = 0; c < ncomp_; ++c) {
       Component& k = comp_[c];
-      if (hmax_ % k.h || vmax_ % k.v) unsupported("fractional JPEG sampling ratios");
+      if (hmax_ % k.h || vmax_ % k.v) refused("fractional JPEG sampling ratios");
       k.dw = (int)(((int64_t)width_ * k.h + hmax_ - 1) / hmax_);
       k.dh = (int)(((int64_t)height_ * k.v + vmax_ - 1) / vmax_);
-      k.width_in_blocks = (int)(((int64_t)width_ * k.h + 8 * hmax_ - 1) / (8 * hmax_));
-      k.height_in_blocks = (int)(((int64_t)height_ * k.v + 8 * vmax_ - 1) / (8 * vmax_));
+      k.width_in_blocks = (int)(((int64_t)width_ * k.h + unit * hmax_ - 1) / (unit * hmax_));
+      k.height_in_blocks = (int)(((int64_t)height_ * k.v + unit * vmax_ - 1) / (unit * vmax_));
       k.bw = mcux_ * k.h;
       k.bh = mcuy_ * k.v;
-      k.coef.assign((size_t)k.bw * k.bh * 64, 0);
+      if (lossless_) {
+        k.diff.assign((size_t)k.bw * k.bh, 0);
+        k.sample.assign((size_t)k.bw * k.bh, 0);
+      } else {
+        k.coef.assign((size_t)k.bw * k.bh * 64, 0);
+      }
       for (int i = 0; i < 64; ++i) k.coef_bits[i] = -1;
     }
-    progressive_ = marker == 0xC2;
+    progressive_ = marker == 0xC2 || marker == 0xCA;
+    arith_ = marker == 0xC9 || marker == 0xCA;
     frame_ = true;
   }
 
@@ -454,7 +620,7 @@ class Decoder {
         if (idx[j] == idx[i]) corrupt("SOS names a component twice");
       td[i] = t >> 4;
       ta[i] = t & 15;
-      if (td[i] > 3 || ta[i] > 3) corrupt("bad Huffman table number");
+      if (!arith_ && (td[i] > 3 || ta[i] > 3)) corrupt("bad Huffman table number");
     }
     int ss = byte(), se = byte(), a = byte();
     int ah = a >> 4, al = a & 15;
@@ -462,6 +628,17 @@ class Decoder {
       int blocks = 0;
       for (int i = 0; i < ns; ++i) blocks += comp_[idx[i]].h * comp_[idx[i]].v;
       if (blocks > 10) corrupt("too many blocks in an MCU");
+    }
+    if (lossless_) {  // jdlossls.c start_pass_lossless
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8) corrupt("bad lossless parameters");
+      for (int i = 0; i < ns; ++i) {
+        const HuffTable& t = dc_[td[i]];
+        if (!t.defined) corrupt("undefined Huffman table");
+        if (t.max_symbol > 16) corrupt("bad Huffman table");
+      }
+      lossless_scan(ns, idx, td, ss, al);
+      ++scans_;
+      return;
     }
     for (int i = 0; i < ns; ++i) {  // jdinput.c latch_quant_tables
       Component& k = comp_[idx[i]];
@@ -487,14 +664,39 @@ class Decoder {
         }
       }
     }
+    if (arith_) {
+      arith_scan(ns, idx, td, ta, ss, se, ah, al);
+      ++scans_;
+      return;
+    }
     for (int i = 0; i < ns; ++i) {
       bool need_dc = !progressive_ || (ss == 0 && ah == 0);
       bool need_ac = !progressive_ || ss != 0;
       if (need_dc && !dc_[td[i]].defined) corrupt("undefined Huffman table");
+      if (need_dc && dc_[td[i]].max_symbol > 15) corrupt("bad Huffman table");
       if (need_ac && !ac_[ta[i]].defined) corrupt("undefined Huffman table");
     }
     scan(ns, idx, td, ta, ss, se, ah, al);
     ++scans_;
+  }
+
+  // the block (by, bx) of component idx[i] that MCU m's (v, h) block is, in
+  // a scan of ns components of mx_count MCUs a row
+  int16_t* block_at(int ns, const int* idx, int i, int64_t m, int mx_count, int v, int h) {
+    Component& k = comp_[idx[i]];
+    int my = (int)(m / mx_count), mx = (int)(m % mx_count);
+    int by = ns == 1 ? my : my * k.v + v, bx = ns == 1 ? mx : mx * k.h + h;
+    return &k.coef[((size_t)by * k.bw + bx) * 64];
+  }
+
+  void mcu_counts(int ns, const int* idx, int* mx_count, int* my_count) const {
+    if (ns == 1) {
+      *mx_count = comp_[idx[0]].width_in_blocks;
+      *my_count = comp_[idx[0]].height_in_blocks;
+    } else {
+      *mx_count = mcux_;
+      *my_count = mcuy_;
+    }
   }
 
   void scan(int ns, const int* idx, const int* td, const int* ta, int ss, int se, int ah, int al) {
@@ -505,13 +707,7 @@ class Decoder {
     int pred[4] = {0, 0, 0, 0};
     int eobrun = 0;
     int mx_count, my_count;
-    if (ns == 1) {
-      mx_count = comp_[idx[0]].width_in_blocks;
-      my_count = comp_[idx[0]].height_in_blocks;
-    } else {
-      mx_count = mcux_;
-      my_count = mcuy_;
-    }
+    mcu_counts(ns, idx, &mx_count, &my_count);
     int64_t total = (int64_t)mx_count * my_count;
     int restarts_left = restart_interval_, next_rst = 0;
     for (int64_t m = 0; m < total; ++m) {
@@ -522,14 +718,12 @@ class Decoder {
         pred[0] = pred[1] = pred[2] = pred[3] = 0;
         eobrun = 0;
       }
-      int my = (int)(m / mx_count), mx = (int)(m % mx_count);
       for (int i = 0; i < ns; ++i) {
-        Component& k = comp_[idx[i]];
+        const Component& k = comp_[idx[i]];
         int nv = ns == 1 ? 1 : k.v, nh = ns == 1 ? 1 : k.h;
         for (int v = 0; v < nv; ++v) {
           for (int h = 0; h < nh; ++h) {
-            int by = ns == 1 ? my : my * k.v + v, bx = ns == 1 ? mx : mx * k.h + h;
-            int16_t* blk = &k.coef[((size_t)by * k.bw + bx) * 64];
+            int16_t* blk = block_at(ns, idx, i, m, mx_count, v, h);
             if (!progressive_) {
               sequential_block(blk, dc_[td[i]], ac_[ta[i]], pred[i]);
             } else if (ss == 0) {
@@ -551,7 +745,7 @@ class Decoder {
       }
       --restarts_left;
     }
-    pos_ = after_entropy();
+    pos_ = after_entropy(br_.pos);
   }
 
   void sequential_block(int16_t* blk, const HuffTable& dct, const HuffTable& act, int& pred) {
@@ -635,6 +829,277 @@ class Decoder {
     }
   }
 
+  // --- arithmetic-coded scans (jdarith.c)
+
+  // F.1.4.4.1.2 / F.23-F.24: the magnitude of a nonzero value after its
+  // sign, from bin st; x1: the first magnitude-category bin past the first
+  // two (DC: the shared X1 at 20; AC: 189 or 217 by the conditioning).
+  // Returns 0 on a magnitude overflow (libjpeg then stops the scan).
+  int arith_magnitude(uint8_t* stats, uint8_t* st, int x1, bool dc, int* category) {
+    int m = ar_.decode(st);
+    if (m) {
+      if (dc || ar_.decode(st)) {
+        if (!dc) m <<= 1;
+        st = stats + x1;
+        while (ar_.decode(st)) {
+          if ((m <<= 1) == 0x8000) return 0;
+          st += 1;
+        }
+      }
+    }
+    *category = m;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar_.decode(st)) v |= m;
+    return v + 1;
+  }
+
+  void arith_reset_stats(int ns, const int* td, const int* ta, int ss, int ah,
+                         int* last_dc, int* dc_ctx) {
+    for (int i = 0; i < ns; ++i) {
+      if (!progressive_ || (ss == 0 && ah == 0)) {
+        std::memset(dc_stats_[td[i]], 0, sizeof(dc_stats_[0]));
+        last_dc[i] = 0;
+        dc_ctx[i] = 0;
+      }
+      if (!progressive_ || ss) std::memset(ac_stats_[ta[i]], 0, sizeof(ac_stats_[0]));
+    }
+  }
+
+  void arith_scan(int ns, const int* idx, const int* td, const int* ta, int ss, int se, int ah,
+                  int al) {
+    while (pos_ > pil_end_) pil_end_ += kPilBlock;  // the SOS segment is read whole first
+    ar_.d = d_;
+    ar_.n = n_;
+    ar_.reset(pos_);
+    int last_dc[4] = {0, 0, 0, 0}, dc_ctx[4] = {0, 0, 0, 0};
+    arith_reset_stats(ns, td, ta, ss, ah, last_dc, dc_ctx);
+    uint8_t fixed = kFixedBin;
+    int mx_count, my_count;
+    mcu_counts(ns, idx, &mx_count, &my_count);
+    int64_t total = (int64_t)mx_count * my_count;
+    int restarts_left = restart_interval_, next_rst = 0;
+    size_t extent = pos_;
+    for (int64_t m = 0; m < total; ++m) {
+      if (restart_interval_) {
+        if (restarts_left == 0) {  // jdarith.c process_restart
+          size_t p;
+          int code = ar_.marker;
+          if (code) {
+            p = ar_.pos;
+          } else {
+            p = marker_at(ar_.pos, &code);
+            while (d_[p] == 0xFF) ++p;
+            ++p;
+          }
+          if (code != 0xD0 + next_rst) corrupt("missing restart marker");
+          next_rst = (next_rst + 1) & 7;
+          arith_reset_stats(ns, td, ta, ss, ah, last_dc, dc_ctx);
+          ar_.reset(p);
+          extent = std::max(extent, p);
+          restarts_left = restart_interval_;
+        }
+        --restarts_left;
+      }
+      if (ar_.ct == -1) continue;  // a decoding error: the rest of the interval stays as is
+      for (int i = 0; i < ns && ar_.ct != -1; ++i) {
+        const Component& k = comp_[idx[i]];
+        int nv = ns == 1 ? 1 : k.v, nh = ns == 1 ? 1 : k.h;
+        for (int v = 0; v < nv && ar_.ct != -1; ++v)
+          for (int h = 0; h < nh && ar_.ct != -1; ++h)
+            arith_block(block_at(ns, idx, i, m, mx_count, v, h), td[i], ta[i], ss, se, ah, al,
+                        last_dc[i], dc_ctx[i], &fixed);
+      }
+    }
+    extent = std::max(extent, ar_.pos);
+    if (extent > pil_end_)
+      refused("arithmetic-coded JPEG whose scan data runs past PIL's 64 KiB read block "
+              "(libjpeg's arithmetic decoder cannot wait for more input)");
+    if (ar_.marker) {  // the marker the data ran into is the next one read
+      pos_ = ar_.pos - 2;
+    } else {
+      pos_ = after_entropy(ar_.pos);
+    }
+  }
+
+  void arith_block(int16_t* blk, int dct, int act, int ss, int se, int ah, int al, int& last_dc,
+                   int& dc_ctx, uint8_t* fixed) {
+    if (!progressive_ || (ss == 0 && ah == 0)) {  // F.19: the DC difference
+      uint8_t* stats = dc_stats_[dct];
+      uint8_t* st = stats + dc_ctx;
+      if (ar_.decode(st) == 0) {
+        dc_ctx = 0;
+      } else {
+        int sign = ar_.decode(st + 1);
+        int m;
+        int v = arith_magnitude(stats, st + 2 + sign, 20, true, &m);
+        if (!v) {
+          ar_.ct = -1;
+          return;
+        }
+        if (m < (int)((1L << dc_l_[dct]) >> 1))
+          dc_ctx = 0;
+        else if (m > (int)((1L << dc_u_[dct]) >> 1))
+          dc_ctx = 12 + sign * 4;
+        else
+          dc_ctx = 4 + sign * 4;
+        if (sign) v = -v;
+        last_dc = (last_dc + v) & 0xFFFF;
+      }
+      blk[0] = (int16_t)(uint16_t)((uint32_t)last_dc << al);
+      if (progressive_) return;
+      ss = 1;
+      se = 63;
+    } else if (ss == 0) {  // DC refinement: the next bit of the two's complement
+      if (ar_.decode(fixed)) blk[0] = (int16_t)(blk[0] | (1 << al));
+      return;
+    }
+    uint8_t* stats = ac_stats_[act];
+    if (ah == 0 || !progressive_) {  // F.20: the AC coefficients
+      for (int k = ss; k <= se; ++k) {
+        uint8_t* st = stats + 3 * (k - 1);
+        if (ar_.decode(st)) break;  // EOB
+        while (ar_.decode(st + 1) == 0) {
+          st += 3;
+          if (++k > se) {
+            ar_.ct = -1;  // spectral overflow
+            return;
+          }
+        }
+        int sign = ar_.decode(fixed);
+        int m;
+        int v = arith_magnitude(stats, st + 2, k <= ac_k_[act] ? 189 : 217, false, &m);
+        if (!v) {
+          ar_.ct = -1;
+          return;
+        }
+        if (sign) v = -v;
+        blk[kNatural[k]] = (int16_t)(int)((unsigned)v << al);
+      }
+      return;
+    }
+    // G.1.3.3: AC refinement
+    int p1 = 1 << al, m1 = (int)((~0u) << al);
+    int kex = se;
+    for (; kex > 0; --kex)
+      if (blk[kNatural[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ar_.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* c = &blk[kNatural[k]];
+        if (*c) {
+          if (ar_.decode(st + 2)) *c = (int16_t)(*c < 0 ? *c + m1 : *c + p1);
+          break;
+        }
+        if (ar_.decode(st + 1)) {
+          *c = (int16_t)(ar_.decode(fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) {
+          ar_.ct = -1;
+          return;
+        }
+      }
+    }
+  }
+
+  // --- lossless scans (jdlhuff.c, jddiffct.c, jdpred.c)
+
+  void lossless_scan(int ns, const int* idx, const int* td, int psv, int pt) {
+    br_.d = d_;
+    br_.n = n_;
+    br_.pos = pos_;
+    br_.reset();
+    int mx_count, my_count;
+    mcu_counts(ns, idx, &mx_count, &my_count);
+    const int per_restart = restart_interval_ ? restart_interval_ / mx_count : 0;
+    int rows_left = per_restart, next_rst = 0;
+    bool first_row[4] = {true, true, true, true};  // start_pass: the first-row undifferencer
+    for (int imcu = 0; imcu < mcuy_; ++imcu) {
+      const bool last = imcu == mcuy_ - 1;
+      int mcu_rows = 1;
+      if (ns == 1) {
+        const Component& k = comp_[idx[0]];
+        mcu_rows = last ? (k.height_in_blocks % k.v ? k.height_in_blocks % k.v : k.v) : k.v;
+      }
+      for (int r = 0; r < mcu_rows; ++r) {
+        if (restart_interval_) {
+          if (rows_left == 0) {
+            restart(next_rst);
+            next_rst = (next_rst + 1) & 7;
+            rows_left = per_restart;
+            for (int i = 0; i < 4; ++i) first_row[i] = true;
+          }
+        }
+        for (int mx = 0; mx < mx_count; ++mx) {
+          for (int i = 0; i < ns; ++i) {
+            Component& k = comp_[idx[i]];
+            int nv = ns == 1 ? 1 : k.v, nh = ns == 1 ? 1 : k.h;
+            for (int v = 0; v < nv; ++v)
+              for (int h = 0; h < nh; ++h) {
+                int y = ns == 1 ? imcu * k.v + r : imcu * k.v + v, x = ns == 1 ? mx : mx * k.h + h;
+                int s = br_.decode(dc_[td[i]]);
+                if (s == 16) {
+                  s = 32768;
+                } else if (s) {
+                  s = extend(br_.get_bits(s), s);
+                }
+                k.diff[(size_t)y * k.bw + x] = s;
+              }
+          }
+        }
+        if (restart_interval_) --rows_left;
+      }
+      // undifference and scale the component rows of this iMCU row
+      for (int i = 0; i < ns; ++i) {
+        Component& k = comp_[idx[i]];
+        int rows = last ? (k.height_in_blocks % k.v ? k.height_in_blocks % k.v : k.v) : k.v;
+        for (int r = 0; r < rows; ++r) {
+          int y = imcu * k.v + r;
+          undifference(k, y, psv, pt, first_row[idx[i]]);
+          first_row[idx[i]] = false;
+        }
+      }
+    }
+    pos_ = after_entropy(br_.pos);
+  }
+
+  static void undifference(Component& k, int y, int psv, int pt, bool first) {
+    const int32_t* diff = &k.diff[(size_t)y * k.bw];
+    int32_t* out = &k.diff[(size_t)y * k.bw];  // undifferenced in place
+    const int32_t* prev = y > 0 ? &k.diff[(size_t)(y - 1) * k.bw] : nullptr;
+    const int w = k.width_in_blocks;
+    int ra;
+    if (first) {
+      ra = (diff[0] + (1 << (8 - pt - 1))) & 0xFFFF;
+      out[0] = ra;
+      for (int x = 1; x < w; ++x) out[x] = ra = (diff[x] + ra) & 0xFFFF;
+    } else {
+      int rb = prev[0], rc;
+      out[0] = ra = (diff[0] + rb) & 0xFFFF;
+      for (int x = 1; x < w; ++x) {
+        rc = rb;
+        rb = prev[x];
+        int64_t p;
+        switch (psv) {
+          case 1: p = ra; break;
+          case 2: p = rb; break;
+          case 3: p = rc; break;
+          case 4: p = (int64_t)ra + rb - rc; break;
+          case 5: p = ra + (((int64_t)rb - rc) >> 1); break;
+          case 6: p = rb + (((int64_t)ra - rc) >> 1); break;
+          default: p = ((int64_t)ra + rb) >> 1; break;
+        }
+        out[x] = ra = (int)((diff[x] + p) & 0xFFFF);
+      }
+    }
+    uint8_t* s = &k.sample[(size_t)y * k.bw];
+    for (int x = 0; x < w; ++x) s[x] = (uint8_t)(out[x] << pt);
+  }
+
   // the marker that ends entropy-coded data: its position and code
   size_t marker_at(size_t p, int* code) {
     for (;;) {
@@ -663,23 +1128,25 @@ class Decoder {
     br_.reset();
   }
 
-  size_t after_entropy() {
+  size_t after_entropy(size_t p) {
     int code;
-    return marker_at(br_.pos, &code);  // next_marker reads it from here
+    return marker_at(p, &code);  // next_marker reads it from here
   }
 
-  // jdcoefct.c smoothing_ok: libjpeg smooths when any of a component's first
-  // ten coefficients is left unrefined; the port does not, so it refuses.
-  void check_complete() {
-    bool dc_known = true, useful = false;
+  // jdcoefct.c smoothing_ok: libjpeg smooths when every component's DC is
+  // known and any of a component's first ten coefficients is left unrefined
+  bool smoothing_ok() {
+    bool useful = false;
     for (int c = 0; c < ncomp_; ++c) {
-      if (comp_[c].coef_bits[0] < 0) dc_known = false;
+      const Component& k = comp_[c];
+      if (!k.latched) return false;
+      for (int pos : kSmoothPos)
+        if (k.qt[pos] == 0) return false;
+      if (k.coef_bits[0] < 0) return false;
       for (int i = 1; i < 10; ++i)
-        if (comp_[c].coef_bits[i] != 0) useful = true;
+        if (k.coef_bits[i] != 0) useful = true;
     }
-    if (dc_known && useful)
-      unsupported("progressive JPEG whose scans leave low-frequency coefficients unrefined "
-                  "(libjpeg's block smoothing)");
+    return useful;
   }
 
   // --- output pass
@@ -748,15 +1215,118 @@ class Decoder {
     }
   }
 
-  // A component's samples: (height_in_blocks * 8, width_in_blocks * 8)
+  // jdcoefct.c decompress_smooth_data's estimate of one coefficient from
+  // num = Q00 x (a weighted sum of DC values), clamped below 2^Al
+  static void estimate(int16_t* ws, int pos, int al, int64_t q, int64_t num) {
+    if (al == 0 || ws[pos] != 0) return;
+    int pred;
+    if (num >= 0) {
+      pred = (int)(((q << 7) + num) / (q << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    } else {
+      pred = (int)(((q << 7) - num) / (q << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      pred = -pred;
+    }
+    ws[pos] = (int16_t)pred;
+  }
+
+  // A component's samples: (height_in_blocks * 8, width_in_blocks * 8),
+  // or a lossless component's (bh, bw)
   std::vector<uint8_t> samples(const Component& k, int* stride) const {
+    if (lossless_) {
+      *stride = k.bw;
+      return k.sample;
+    }
     int sw = k.width_in_blocks * 8, sh = k.height_in_blocks * 8;
     std::vector<uint8_t> plane((size_t)sw * sh);
-    for (int by = 0; by < k.height_in_blocks; ++by)
-      for (int bx = 0; bx < k.width_in_blocks; ++bx)
-        idct_islow(&k.coef[((size_t)by * k.bw + bx) * 64], k.qt,
-                   &plane[(size_t)by * 8 * sw + (size_t)bx * 8], sw);
     *stride = sw;
+    if (!smoothing_) {
+      for (int by = 0; by < k.height_in_blocks; ++by)
+        for (int bx = 0; bx < k.width_in_blocks; ++bx)
+          idct_islow(&k.coef[((size_t)by * k.bw + bx) * 64], k.qt,
+                     &plane[(size_t)by * 8 * sw + (size_t)bx * 8], sw);
+      return plane;
+    }
+    // decompress_smooth_data, over the iMCU rows as libjpeg walks them (its
+    // image_block_row of the last iMCU row counts that row's own height)
+    const int* bits = k.coef_bits;
+    bool change_dc = true;  // DC interpolation only where no AC scan came
+    for (int i = 1; i < 10; ++i)
+      if (bits[i] != -1) change_dc = false;
+    const int64_t q00 = k.qt[0];
+    const int total = mcuy_, last_col = k.width_in_blocks - 1;
+    auto dc = [&](int row, int col) { return (int64_t)k.coef[((size_t)row * k.bw + col) * 64]; };
+    int16_t ws[64];
+    for (int imcu = 0; imcu < total; ++imcu) {
+      int block_rows = imcu < total - 1 ? k.v
+                                        : (k.height_in_blocks % k.v ? k.height_in_blocks % k.v : k.v);
+      int image_block_rows = block_rows * total;
+      for (int br = 0; br < block_rows; ++br) {
+        int ibr = imcu * block_rows + br, row = imcu * k.v + br;
+        int prev = ibr > 0 ? row - 1 : row;
+        int rows[5] = {ibr > 1 ? row - 2 : prev, prev, row, 0, 0};
+        rows[3] = ibr < image_block_rows - 1 ? row + 1 : row;
+        rows[4] = ibr < image_block_rows - 2 ? row + 2 : rows[3];
+        for (int col = 0; col <= last_col; ++col) {
+          // D[r][j] is DC(5r + j + 1): rows above to below, columns left to
+          // right, both clamped to the component's blocks
+          int64_t D[5][5];
+          for (int r = 0; r < 5; ++r)
+            for (int j = 0; j < 5; ++j)
+              D[r][j] = dc(rows[r], std::min(std::max(col + j - 2, 0), last_col));
+          std::memcpy(ws, &k.coef[((size_t)row * k.bw + col) * 64], sizeof(ws));
+          const int64_t DC01 = D[0][0], DC02 = D[0][1], DC03 = D[0][2], DC04 = D[0][3],
+                        DC05 = D[0][4], DC06 = D[1][0], DC07 = D[1][1], DC08 = D[1][2],
+                        DC09 = D[1][3], DC10 = D[1][4], DC11 = D[2][0], DC12 = D[2][1],
+                        DC13 = D[2][2], DC14 = D[2][3], DC15 = D[2][4], DC16 = D[3][0],
+                        DC17 = D[3][1], DC18 = D[3][2], DC19 = D[3][3], DC20 = D[3][4],
+                        DC21 = D[4][0], DC22 = D[4][1], DC23 = D[4][2], DC24 = D[4][3],
+                        DC25 = D[4][4];
+          estimate(ws, 1, bits[1], k.qt[1], q00 * (change_dc ?
+              (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 + 3 * DC10 -
+               3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 +
+               3 * DC20 - DC21 - DC22 + DC24 + DC25) :
+              (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)));
+          estimate(ws, 8, bits[2], k.qt[8], q00 * (change_dc ?
+              (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 + 38 * DC08 +
+               13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+               3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+              (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)));
+          estimate(ws, 16, bits[3], k.qt[16], q00 * (change_dc ?
+              (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 - 5 * DC14 +
+               2 * DC17 + 7 * DC18 + 2 * DC19 + DC23) :
+              (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)));
+          estimate(ws, 9, bits[4], k.qt[9], q00 * (change_dc ?
+              (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 - DC25) :
+              (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 + DC04 - DC06 +
+               10 * DC07 - 10 * DC09)));
+          estimate(ws, 2, bits[5], k.qt[2], q00 * (change_dc ?
+              (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 + 7 * DC14 + DC15 +
+               2 * DC17 - 5 * DC18 + 2 * DC19) :
+              (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)));
+          if (change_dc) {
+            estimate(ws, 3, bits[6], k.qt[3],
+                     q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19));
+            estimate(ws, 10, bits[7], k.qt[10],
+                     q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19));
+            estimate(ws, 17, bits[8], k.qt[17],
+                     q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19));
+            estimate(ws, 24, bits[9], k.qt[24],
+                     q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19));
+            int64_t num = q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 -
+                                 6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 -
+                                 8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 - 8 * DC15 -
+                                 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+                                 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25);
+            int pred = num >= 0 ? (int)(((q00 << 7) + num) / (q00 << 8))
+                                : -(int)(((q00 << 7) - num) / (q00 << 8));
+            ws[0] = (int16_t)pred;
+          }
+          idct_islow(ws, k.qt, &plane[(size_t)row * 8 * sw + (size_t)col * 8], sw);
+        }
+      }
+    }
     return plane;
   }
 
@@ -766,11 +1336,12 @@ class Decoder {
     std::vector<uint8_t> in = samples(k, &sw);
     int he = hmax_ / k.h, ve = vmax_ / k.v;
     const int W = width_, H = height_, dw = k.dw, dh = k.dh;
+    const bool fancy = !lossless_;  // do_fancy needs a DCT scaled size above 1
     std::vector<uint8_t> out((size_t)W * H);
     auto row = [&](int y) { return &in[(size_t)std::min(std::max(y, 0), dh - 1) * sw]; };
     if (he == 1 && ve == 1) {
       for (int y = 0; y < H; ++y) std::memcpy(&out[(size_t)y * W], row(y), W);
-    } else if (he == 2 && ve == 1 && dw > 2) {  // h2v1_fancy_upsample
+    } else if (fancy && he == 2 && ve == 1 && dw > 2) {  // h2v1_fancy_upsample
       std::vector<uint8_t> line((size_t)2 * dw);
       for (int y = 0; y < H; ++y) {
         const uint8_t* ip = row(y);
@@ -788,7 +1359,7 @@ class Decoder {
         op[2 * dw - 1] = (uint8_t)v;
         std::memcpy(&out[(size_t)y * W], op, W);
       }
-    } else if (he == 1 && ve == 2) {  // h1v2_fancy_upsample
+    } else if (fancy && he == 1 && ve == 2) {  // h1v2_fancy_upsample
       for (int y = 0; y < H; ++y) {
         int i = y >> 1;
         const uint8_t* p0 = row(i);
@@ -797,7 +1368,7 @@ class Decoder {
         uint8_t* op = &out[(size_t)y * W];
         for (int x = 0; x < W; ++x) op[x] = (uint8_t)((p0[x] * 3 + p1[x] + bias) >> 2);
       }
-    } else if (he == 2 && ve == 2 && dw > 2) {  // h2v2_fancy_upsample
+    } else if (fancy && he == 2 && ve == 2 && dw > 2) {  // h2v2_fancy_upsample
       std::vector<uint8_t> line((size_t)2 * dw);
       for (int y = 0; y < H; ++y) {
         int i = y >> 1;
@@ -831,8 +1402,25 @@ class Decoder {
   }
 
   std::vector<uint8_t> output() const {
-    // 4 components: CMYK unless the Adobe marker says YCCK (libjpeg's guess)
-    if (ncomp_ == 4 && adobe_ && adobe_transform_ != 0) unsupported("YCCK JPEG (Adobe transform 2)");
+    // libjpeg's colour-space guess: 3 components are YCbCr under JFIF, then
+    // as the Adobe transform says, then unless the ids are 'R' 'G' 'B' (RGB
+    // for any ids in a lossless frame); 4 are YCCK under a nonzero Adobe
+    // transform, else CMYK
+    bool ycc = false;
+    if (ncomp_ == 3) {
+      if (jfif_) {
+        ycc = true;
+      } else if (adobe_) {
+        ycc = adobe_transform_ != 0;
+      } else {
+        ycc = !lossless_ && !(comp_[0].id == 82 && comp_[1].id == 71 && comp_[2].id == 66);
+      }
+    } else if (ncomp_ == 4) {
+      ycc = adobe_ && adobe_transform_ != 0;
+    }
+    if (lossless_ && ycc)
+      refused(std::string("lossless JPEG in ") + (ncomp_ == 3 ? "YCbCr" : "YCCK") +
+              " (libjpeg-turbo converts no colour in lossless mode)");
     const size_t npix = (size_t)width_ * height_;
     std::vector<uint8_t> rgb(npix * 3);
     std::vector<uint8_t> planes[4];
@@ -841,40 +1429,37 @@ class Decoder {
       for (size_t i = 0; i < npix; ++i) rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = planes[0][i];
       return rgb;
     }
-    if (ncomp_ == 3) {
-      bool ycc;
-      if (jfif_) {
-        ycc = true;
-      } else if (adobe_) {
-        ycc = adobe_transform_ != 0;
-      } else {
-        ycc = !(comp_[0].id == 82 && comp_[1].id == 71 && comp_[2].id == 66);  // 'R' 'G' 'B'
-      }
-      if (!ycc) {
-        for (size_t i = 0; i < npix; ++i)
-          for (int c = 0; c < 3; ++c) rgb[3 * i + c] = planes[c][i];
-        return rgb;
-      }
-      // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
-      constexpr int SCALEBITS = 16;
-      constexpr int64_t ONE_HALF = (int64_t)1 << (SCALEBITS - 1);
-      auto fix = [](double x) { return (int64_t)(x * (1 << SCALEBITS) + 0.5); };
-      int cr_r[256], cb_b[256];
-      int64_t cr_g[256], cb_g[256];
-      for (int i = 0, x = -128; i < 256; ++i, ++x) {
-        cr_r[i] = (int)((fix(1.40200) * x + ONE_HALF) >> SCALEBITS);
-        cb_b[i] = (int)((fix(1.77200) * x + ONE_HALF) >> SCALEBITS);
-        cr_g[i] = -fix(0.71414) * x;
-        cb_g[i] = -fix(0.34414) * x + ONE_HALF;
-      }
-      auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+    if (ncomp_ == 3 && !ycc) {
+      for (size_t i = 0; i < npix; ++i)
+        for (int c = 0; c < 3; ++c) rgb[3 * i + c] = planes[c][i];
+      return rgb;
+    }
+    // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert (ycck_cmyk_convert:
+    // the same, subtracted from 255)
+    constexpr int SCALEBITS = 16;
+    constexpr int64_t ONE_HALF = (int64_t)1 << (SCALEBITS - 1);
+    auto fix = [](double x) { return (int64_t)(x * (1 << SCALEBITS) + 0.5); };
+    int cr_r[256], cb_b[256];
+    int64_t cr_g[256], cb_g[256];
+    for (int i = 0, x = -128; i < 256; ++i, ++x) {
+      cr_r[i] = (int)((fix(1.40200) * x + ONE_HALF) >> SCALEBITS);
+      cb_b[i] = (int)((fix(1.77200) * x + ONE_HALF) >> SCALEBITS);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + ONE_HALF;
+    }
+    auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+    if (ycc) {
       for (size_t i = 0; i < npix; ++i) {
         int y = planes[0][i], cb = planes[1][i], cr = planes[2][i];
-        rgb[3 * i] = clamp(y + cr_r[cr]);
-        rgb[3 * i + 1] = clamp(y + (int)((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
-        rgb[3 * i + 2] = clamp(y + cb_b[cb]);
+        int c[3] = {y + cr_r[cr], y + (int)((cb_g[cb] + cr_g[cr]) >> SCALEBITS), y + cb_b[cb]};
+        for (int j = 0; j < 3; ++j) {
+          if (ncomp_ == 4)
+            planes[j][i] = clamp(255 - c[j]);  // YCCK: the CMY samples, K passes
+          else
+            rgb[3 * i + j] = clamp(c[j]);
+        }
       }
-      return rgb;
+      if (ncomp_ == 3) return rgb;
     }
     for (size_t i = 0; i < npix; ++i) {
       // PIL's "CMYK;I" unpack inverts, then its cmyk2rgb

@@ -1,32 +1,43 @@
 """Reading and writing images without PIL (the port's own; JAX's mapper
 reads through ``PIL.Image.open(...).convert("RGB")``, which the card machine
-lacks).
+lacks). The rule is JAX's reader's through PIL 12.1: a file PIL decodes is
+decoded to the same pixels, and a file PIL refuses is dropped.
 
 ``read_image`` returns RGB uint8 (H, W, 3) as PIL's ``convert("RGB")`` gives
 it, for:
 
 * JPEG, decoded by the port's host codec (``data.jpeg``) bit for bit as
   PIL 12.1 on libjpeg-turbo 3.1 decodes it (no EXIF orientation applied,
-  as JAX's reader applies none);
-* PNG, decoded with the standard library's ``zlib``: 8-bit gray, gray +
-  alpha, RGB, RGBA and palette (bit depth 1, 2, 4 or 8), every filter type,
-  not interlaced. The alpha channel is dropped, gray is repeated over the
-  three channels and a palette is looked up, as PIL converts.
+  as JAX's reader applies none): Huffman baseline, extended and
+  progressive, arithmetic-coded sequential and progressive, lossless;
+  gray, YCbCr, RGB, CMYK and YCCK; libjpeg's block smoothing;
+* PNG, decoded with the standard library's ``zlib``: every color type and
+  bit depth the format has (gray at 1, 2, 4, 8 and 16 bits, palette at 1,
+  2, 4 and 8, gray + alpha, RGB and RGBA at 8 and 16), plain or Adam7
+  interlaced, every filter type. The alpha channel is dropped, gray is
+  repeated over the three channels, a palette is looked up, 16-bit color
+  keeps its high byte and 16-bit gray is clipped to 255, as PIL converts;
 * ``.npy``: a uint8 (H, W) or (H, W, 3|4) array.
 
-``read_rgb`` is the same read raising on a corrupt file (the panoptic
-mapper's ``convert("RGB")`` of an id PNG), which ``read_image`` turns into
-None; ``read_label_map`` gives a PNG's
-stored samples as ``np.asarray(Image.open(f))`` does (the semantic labels:
-palette indices, not colours).
-
 The format is read off the file's first bytes, as PIL sniffs it: a PNG
-named ``.jpg`` reads as PNG and a JPEG named ``.png`` as JPEG. Any other
-format, and a coding the port does not decode (interlaced or 16-bit PNG;
-arithmetic-coded, lossless, hierarchical, 12-bit or YCCK JPEG), raises
-``ValueError`` naming it. A file of a supported format that is corrupt (a
-bad CRC, a truncated stream) returns None with a warning, as JAX's reader
-returns None on an unreadable file and its mapper then drops the record.
+named ``.jpg`` reads as PNG and a JPEG named ``.png`` as JPEG.
+
+``read_image`` returns None with a warning, as JAX's reader does on PIL's
+exception (its mapper then drops the record), for a file that is corrupt (a
+bad CRC, a truncated stream, an empty file) and for one PIL refuses too
+(12-bit, 2-component, hierarchical, lossless arithmetic-coded JPEG,
+fractional sampling ratios, a height left to a DNL marker, lossless JPEG
+that needs a colour conversion, an arithmetic-coded scan past PIL's 64 KiB
+read block; a PNG of an undefined color type and depth). A file PIL reads
+and the port does not (GIF, BMP, TIFF, WebP and any other format) raises
+``ValueError`` naming it, so that no record JAX trains on is dropped
+quietly.
+
+``read_rgb`` is the same read raising ``CorruptImage`` where ``read_image``
+returns None (the panoptic mapper's ``convert("RGB")`` of an id PNG);
+``read_label_map`` gives a PNG's stored samples as ``np.asarray(Image.open(f))``
+does (the semantic labels: palette indices, not colours; 16-bit gray as
+uint16).
 
 ``write_png`` writes gray, RGB or RGBA uint8 arrays (filter type 0 or 1 per
 row, alternating, so the reader's filters are exercised). ``write_image``
@@ -50,6 +61,12 @@ logger = logging.getLogger("ape_tpu_torch")
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 JPEG_MAGIC = b"\xff\xd8\xff"  # PIL's JpegImagePlugin._accept
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG color type -> samples a pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))  # (x0, y0, dx, dy) of each interlace pass
+# first bytes of the formats PIL reads and the port does not (their plugins' _accept)
+_OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
+                  (b"MM\x00*", "TIFF"))
 
 
 class CorruptImage(ValueError):
@@ -75,81 +92,55 @@ def _chunks(data: bytes):
     raise CorruptImage("no IEND chunk")
 
 
-def _paeth_row(raw: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
-    """Undo the Paeth filter of one row: sequential over its bytes."""
-    out = bytearray(raw.tobytes())
-    up = prior.tobytes()
-    for i in range(len(out)):
-        a = out[i - bpp] if i >= bpp else 0
-        b = up[i]
-        c = up[i - bpp] if i >= bpp else 0
-        p = a + b - c
-        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        out[i] = (out[i] + pred) & 0xFF
-    return np.frombuffer(bytes(out), np.uint8)
-
-
-def _average_row(raw: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
-    """Undo the Average filter of one row: sequential over its bytes."""
-    out = bytearray(raw.tobytes())
-    up = prior.tobytes()
-    for i in range(len(out)):
-        a = out[i - bpp] if i >= bpp else 0
-        out[i] = (out[i] + ((a + up[i]) >> 1)) & 0xFF
-    return np.frombuffer(bytes(out), np.uint8)
-
-
 def _unfilter(data: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
-    """The scanlines of a non-interlaced image, filters undone: (H, stride) uint8."""
+    """The scanlines of one image (or interlace pass), filters undone by the
+    host library's ``ape_png_unfilter``: (H, stride) uint8."""
     if len(data) != height * (stride + 1):
         raise CorruptImage(f"{len(data)} bytes of image data for {height} rows of {stride + 1}")
-    rows = np.frombuffer(data, np.uint8).reshape(height, stride + 1)
-    out = np.zeros((height, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(height):
-        kind, raw = rows[y, 0], rows[y, 1:]
-        if kind == 0:
-            row = raw.copy()
-        elif kind == 1:  # Sub: a running sum along each byte lane of the pixel
-            pad = -stride % bpp
-            lanes = np.concatenate([raw, np.zeros(pad, np.uint8)]).reshape(-1, bpp)
-            row = (np.cumsum(lanes, axis=0, dtype=np.uint64) % 256).astype(np.uint8).ravel()
-            row = row[:stride]
-        elif kind == 2:
-            row = raw + prior
-        elif kind == 3:
-            row = _average_row(raw, prior, bpp)
-        elif kind == 4:
-            row = _paeth_row(raw, prior, bpp)
-        else:
-            raise CorruptImage(f"unknown filter type {kind} in row {y}")
-        out[y] = row
-        prior = out[y]
+    from ape_tpu_torch.ops._build import host_library
+
+    out = np.empty((height, stride), np.uint8)
+    bad = host_library().ape_png_unfilter(data, height, stride, bpp, out.ctypes.data)
+    if bad:
+        raise CorruptImage(f"unknown filter type {data[(bad - 1) * (stride + 1)]} in row {bad - 1}")
     return out
 
 
+def _unpack(rows: np.ndarray, width: int, channels: int, depth: int, color: int) -> np.ndarray:
+    """Scanline bytes -> samples (H, W, C): uint16 at depth 16, else uint8;
+    gray of 2 or 4 bits scaled to 0..255 (PIL opens it as L), of 1 bit 0/1."""
+    height = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").reshape(height, width, channels).astype(np.uint16)
+    if depth == 8:
+        return rows.reshape(height, width, channels)
+    bits = np.unpackbits(rows, axis=1).reshape(height, -1, depth)[:, :width]
+    samples = (bits * (1 << np.arange(depth - 1, -1, -1))).sum(-1).astype(np.uint8)
+    if color == 0 and depth > 1:
+        samples = (samples.astype(np.int64) * 255 // ((1 << depth) - 1)).astype(np.uint8)
+    return samples[..., None]
+
+
 def _png_samples(data: bytes):
-    """PNG bytes -> (samples (H, W, C) uint8, color type): the stored samples
-    as PIL opens them, palette indices not looked up, gray of 2 or 4 bits
-    scaled to 0..255 and of 1 bit left 0/1."""
+    """PNG bytes -> (samples (H, W, C), color type, depth, palette): the
+    stored samples as PIL opens them (``_unpack``), palette indices not
+    looked up, the Adam7 passes put back in place."""
     header, idat, palette = None, [], None
     for kind, body in _chunks(data):
         if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
+            if len(body) < 13:
+                raise CorruptImage("truncated IHDR chunk")
+            header = struct.unpack(">IIBBBBB", body[:13])
         elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
         raise CorruptImage("no IHDR chunk")
-    width, height, depth, color, _, _, interlace = header
-    if interlace:
-        raise ValueError("interlaced PNG is not decoded by the port")
-    if color not in _CHANNELS or depth not in ((1, 2, 4, 8) if color in (0, 3) else (8,)):
-        raise ValueError(f"PNG of color type {color} at bit depth {depth} is not decoded by "
-                         "the port (8-bit gray, gray + alpha, RGB, RGBA; palette and gray "
-                         "also at 1, 2 or 4 bits)")
+    width, height, depth, color, _, filter_method, interlace = header
+    if depth not in _DEPTHS.get(color, ()) or filter_method:
+        raise CorruptImage(f"PNG of color type {color} at bit depth {depth}, filter method "
+                           f"{filter_method}: no PNG mode (PIL refuses it too)")
     if color == 3 and palette is None:
         raise CorruptImage("palette image without a PLTE chunk")
     try:
@@ -157,16 +148,27 @@ def _png_samples(data: bytes):
     except zlib.error as e:
         raise CorruptImage(f"image data: {e}") from e
     channels = _CHANNELS[color]
-    stride = (width * channels * depth + 7) // 8
-    rows = _unfilter(raw, height, stride, max(1, channels * depth // 8))
-    if depth < 8:
-        bits = np.unpackbits(rows, axis=1).reshape(height, -1, depth)[:, :width]
-        weights = 1 << np.arange(depth - 1, -1, -1)
-        samples = (bits * weights).sum(-1).astype(np.uint8)
-        if color == 0 and depth > 1:  # PIL opens gray of 2 or 4 bits as L, scaled
-            samples = (samples.astype(np.int64) * 255 // ((1 << depth) - 1)).astype(np.uint8)
-        return samples[..., None], color, depth, palette
-    return rows.reshape(height, width, channels), color, depth, palette
+    bpp = max(1, channels * depth // 8)
+
+    def stride(w):
+        return (w * channels * depth + 7) // 8
+
+    if not interlace:  # PIL takes any nonzero interlace method as Adam7
+        rows = _unfilter(raw, height, stride(width), bpp)
+        return _unpack(rows, width, channels, depth, color), color, depth, palette
+    samples = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in ADAM7:
+        pw, ph = (width - x0 + dx - 1) // dx, (height - y0 + dy - 1) // dy
+        if pw <= 0 or ph <= 0:
+            continue  # an empty pass has no scanlines
+        n = ph * (stride(pw) + 1)
+        rows = _unfilter(raw[pos:pos + n], ph, stride(pw), bpp)
+        samples[y0::dy, x0::dx] = _unpack(rows, pw, channels, depth, color)
+        pos += n
+    if pos != len(raw):
+        raise CorruptImage(f"{len(raw)} bytes of interlaced image data, {pos} expected")
+    return samples, color, depth, palette
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -174,8 +176,10 @@ def decode_png(data: bytes) -> np.ndarray:
     pixels, color, depth, palette = _png_samples(data)
     if color == 3:
         full = np.zeros((256, 3), np.uint8)
-        full[:len(palette)] = palette
+        full[:len(palette)] = palette[:256]
         return full[pixels[..., 0]]
+    if depth == 16:  # PIL's I;16 -> RGB clips; its ;16B rawmodes keep the high byte
+        pixels = (np.minimum(pixels, 255) if color == 0 else pixels >> 8).astype(np.uint8)
     if color == 0 and depth == 1:  # PIL's "1" converts to 0 and 255
         pixels = pixels * np.uint8(255)
     if color in (0, 4):
@@ -186,9 +190,11 @@ def decode_png(data: bytes) -> np.ndarray:
 def read_label_map(file_name: str) -> np.ndarray:
     """A label map as ``np.asarray(PIL.Image.open(file_name))`` gives it, for
     a PNG: palette images give their indices (not the colours), gray its
-    values (H, W) uint8 (1-bit gray bool, as PIL's mode "1"), gray + alpha
-    (H, W, 2), RGB (H, W, 3) and RGBA (H, W, 4). Another format, and a
-    corrupt file, raise."""
+    values (H, W) uint8 (1-bit gray bool, as PIL's mode "1"; 16-bit gray
+    uint16, as its "I;16"), gray + alpha (H, W, 2), RGB (H, W, 3) and RGBA
+    (H, W, 4), 16-bit color as the high bytes (16-bit gray + alpha as RGBA,
+    the gray repeated, as PIL opens it). Another format, and a corrupt file,
+    raise."""
     with open(file_name, "rb") as f:
         data = f.read()
     if not data.startswith(PNG_MAGIC):
@@ -196,14 +202,18 @@ def read_label_map(file_name: str) -> np.ndarray:
     pixels, color, depth, _ = _png_samples(data)
     if color in (0, 3):
         return pixels[..., 0].astype(bool) if color == 0 and depth == 1 else pixels[..., 0]
+    if depth == 16:
+        pixels = (pixels >> 8).astype(np.uint8)
+        if color == 4:
+            return np.ascontiguousarray(pixels[..., [0, 0, 0, 1]])
     return pixels
 
 
 def read_rgb(file_name: str) -> np.ndarray:
     """RGB uint8 (H, W, 3) of a JPEG, PNG or ``.npy`` file (module
-    docstring), raising ``CorruptImage`` on a corrupt one as PIL's
-    ``Image.open(file_name).convert("RGB")`` raises, and ValueError for
-    another format or a coding the port does not decode."""
+    docstring), raising ``CorruptImage`` on a corrupt file and on one PIL
+    refuses, as PIL's ``Image.open(file_name).convert("RGB")`` raises, and
+    ValueError for a format PIL reads and the port does not."""
     if str(file_name).endswith(".npy"):
         try:
             arr = np.load(file_name)
@@ -221,14 +231,28 @@ def read_rgb(file_name: str) -> np.ndarray:
         from ape_tpu_torch.data.jpeg import decode_jpeg as decode
     elif data.startswith(PNG_MAGIC):
         decode = decode_png
+    elif not data:
+        raise CorruptImage(f"{file_name}: an empty file")
     else:
-        raise ValueError(f"{file_name}: the port reads JPEG, PNG and .npy images only")
+        raise ValueError(f"{file_name}: {_format_name(data)}, which PIL reads and the port does "
+                         "not yet (the port reads JPEG, PNG and .npy images)")
     return decode(data)
 
 
+def _format_name(data: bytes) -> str:
+    """The container PIL would sniff in ``data``'s first bytes, for the error."""
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "a WebP image"
+    for magic, name in _OTHER_FORMATS:
+        if data.startswith(magic):
+            return f"a {name} image"
+    return f"an image of another format (first bytes {data[:8].hex()})"
+
+
 def read_image(file_name: str) -> Optional[np.ndarray]:
-    """``read_rgb``, with None and a warning for a corrupt file, as JAX's
-    reader returns None and its mapper then drops the record."""
+    """``read_rgb``, with None and a warning for a corrupt file and for one
+    PIL refuses, as JAX's reader returns None and its mapper then drops the
+    record."""
     try:
         return read_rgb(file_name)
     except CorruptImage as e:

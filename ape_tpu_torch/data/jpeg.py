@@ -3,13 +3,21 @@ of the port's C++ codec (``csrc/jpeg_host.cpp``, built at first use by
 ``ops._build.host_library`` with the host compiler; a failed build raises).
 
 ``decode_jpeg`` gives what ``np.asarray(PIL.Image.open(f).convert("RGB"))``
-gives under PIL 12.1 on libjpeg-turbo 3.1, bit for bit: baseline, extended
-and progressive Huffman JPEG, restart markers, 8- and 16-bit quantization
-tables, any integral sampling factors, gray, YCbCr, Adobe RGB and Adobe
-CMYK. No EXIF orientation is applied (JAX's reader applies none). A damaged
-or truncated stream raises ``image_io.CorruptImage``; arithmetic coding,
-lossless, hierarchical, 12-bit, YCCK and progressive files that would take
-libjpeg's block smoothing raise ``ValueError`` naming the feature.
+gives under PIL 12.1 on libjpeg-turbo 3.1, bit for bit, for every file PIL
+decodes: baseline, extended and progressive Huffman JPEG, arithmetic-coded
+sequential and progressive JPEG with DAC conditioning, lossless JPEG
+(predictors 1-7, point transform), restart markers, 8- and 16-bit
+quantization tables, any integral sampling factors, gray, YCbCr, Adobe RGB,
+CMYK and YCCK, and libjpeg's block smoothing of progressive files whose
+scans leave low coefficients unrefined. No EXIF orientation is applied
+(JAX's reader applies none).
+
+A damaged or truncated stream raises ``image_io.CorruptImage``, and so does
+a file PIL refuses too (12-bit or 2-component frames, hierarchical or
+lossless arithmetic-coded frames, fractional sampling ratios, a height left
+to a DNL marker, a lossless frame that needs a colour conversion, an
+arithmetic-coded scan past PIL's 64 KiB read block): ``image_io.read_image``
+turns both into None, as JAX's reader turns PIL's exception into None.
 
 ``encode_jpeg`` writes the bytes of ``PIL.Image.fromarray(x).save(f)`` with
 no options (quality 75, 4:2:0 for RGB, standard Huffman tables).
@@ -31,8 +39,11 @@ _ERR_LEN = 512
 
 
 def _raise(rc: int, err, what: str):
+    """Status 1 (corrupt) and 3 (refused as PIL refuses it) raise
+    ``CorruptImage``; 2 (a form PIL handles and the codec does not),
+    ``ValueError``."""
     message = f"{what}: {err.value.decode(errors='replace')}"
-    raise CorruptImage(message) if rc == 1 else ValueError(message)
+    raise ValueError(message) if rc == 2 else CorruptImage(message)
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:

@@ -10,9 +10,10 @@ Nothing is compiled when a module is imported: the first kernel launch
 builds. A failed build raises.
 
 ``host_library`` builds the host-side C++ sources (``csrc/*.cpp``: the JPEG
-codec) with the host compiler (``$CXX``, else ``c++`` or ``g++``) into a
-library of their own beside it, keyed the same way; it needs no CUDA, so it
-builds and runs on any machine, the CPU-only one included.
+codec and the PNG unfilter) with the host compiler (``$CXX``, else ``c++``
+or ``g++``) into a library of their own beside it, keyed the same way; it
+needs no CUDA, so it builds and runs on any machine, the CPU-only one
+included.
 
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
 where it launches its kernel and nowhere else.
@@ -207,6 +208,9 @@ def host_library() -> ctypes.CDLL:
     lib.ape_jpeg_encode.restype = i
     lib.ape_jpeg_free.argtypes = [p]
     lib.ape_jpeg_free.restype = None
+    # PNG scanlines: data, height, stride, bytes a pixel, out
+    lib.ape_png_unfilter.argtypes = [p, i, i, i, p]
+    lib.ape_png_unfilter.restype = i
     return lib
 
 

@@ -3845,6 +3845,24 @@ JPEG_SAMPLES = {
         , "acd5b700ae85ba0d8f50e314e058e0654fa184166f24ef5b34b3f6e8b405f66a"),
 }
 CODEC_ITERS = 20  # timed decodes and encodes of the 640x480 image (median)
+# image_forms: each form JAX's reader takes through PIL and the codec once
+# refused, written at COCO's common size by tests/torch_image_writers.py
+FORMS_SIZE = (480, 640)  # (h, w)
+FORMS_ITERS = 20  # timed reads a form (median)
+# SHA-256 of what PIL 12.1 reads from each file image_forms_files() writes:
+# np.asarray(Image.open(f).convert("RGB")), and np.asarray(Image.open(f))
+# for the label map (tests/test_torch_jpeg.py asserts them)
+IMAGE_FORMS_DIGESTS = {
+    "ycck": "87fb32c5d22be3ef294a6b318eedcdc53f30df938fea64eba3e297d577376457",
+    "arithmetic": "98718494b647355b1e6d1049184fa4e24a0c42b64c26a548ba283059e1800ddf",
+    "arithmetic_progressive": "98718494b647355b1e6d1049184fa4e24a0c42b64c26a548ba283059e1800ddf",
+    "progressive_smoothed": "8526f2bbe55a4b08167d1e1ecda6928f830f43c5868804da2d349bdb415d2f53",
+    "lossless": "49901d88ea1cff5d68c5b43ac2b4563ec46a1dbddbcdb11757b8a97849be3390",
+    "png_adam7": "49901d88ea1cff5d68c5b43ac2b4563ec46a1dbddbcdb11757b8a97849be3390",
+    "png_16bit": "49901d88ea1cff5d68c5b43ac2b4563ec46a1dbddbcdb11757b8a97849be3390",
+    "label_16bit": "45a11c5e4ca4455c268513132252c197e097cf85753f8522031c97ddf46a7491"}
+# the forms PIL refuses, made from the files above: the mapper pass drops them
+FORMS_REFUSED = ("12-bit", "hierarchical", "arithmetic_past_read_block", "truncated")
 DEMO_PROMPT = "person,dog,frisbee"
 DEMO_INPUTS = (("landscape.jpg", (480, 640), "RGB"), ("portrait.jpg", (640, 427), "RGB"),
                ("gray.jpg", (480, 640), "L"))
@@ -4200,10 +4218,151 @@ def codec_check() -> dict:
             "jpeg_bytes": len(data), "samples": sorted(JPEG_SAMPLES)}
 
 
+def _image_writers():
+    """``tests/torch_image_writers.py`` of this checkout (numpy and the
+    standard library only)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_image_writers",
+                                                  ROOT / "tests" / "torch_image_writers.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def image_forms_files() -> dict:
+    """name -> the bytes of each form at FORMS_SIZE, from the seeded
+    ``jpeg_check_image``: YCCK (baseline, restart markers), arithmetic
+    sequential (DAC conditioning, restart markers) and progressive, an
+    arithmetic progressive file cut after its seventh scan (libjpeg's block
+    smoothing), lossless (predictor 4, restart markers), an Adam7 RGB PNG, a
+    16-bit RGBA PNG, and a 16-bit Adam7 gray label map."""
+    import numpy as np
+
+    W = _image_writers()
+    h, w = FORMS_SIZE
+    img = jpeg_check_image(SEED + 7, h, w)
+    q = [W.quality_table(W.LUM_QUANT, 75), W.quality_table(W.CHROM_QUANT, 75)]
+    s420 = ((2, 2), (1, 1), (1, 1))
+    coefs = W.coefficients(W.planes_of(img, "ycc"), s420, q)
+    k = ((img[..., :1].astype(np.int64) + img[..., 1:2]) // 2).astype(np.uint8)
+    s4 = ((2, 2), (1, 1), (1, 1), (2, 2))
+    ycck = W.coefficients(W.planes_of(np.concatenate([img, k], -1), "ycck"), s4, q,
+                          table_of=[0, 1, 1, 0])
+    wide = (img.astype(np.uint16) << 8) | img[..., ::-1]
+    yy, xx = np.mgrid[0:h, 0:w]
+    return {
+        "ycck": W.huffman_jpeg(w, h, s4, ycck, q, table_of=[0, 1, 1, 0], jfif=False, adobe=2,
+                               restart=40),
+        "arithmetic": W.arithmetic_jpeg(w, h, s420, coefs, q, restart=40,
+                                        dac={("dc", 0): (1, 4), ("ac", 0): 12}),
+        "arithmetic_progressive": W.arithmetic_jpeg(w, h, s420, coefs, q, progressive=True),
+        "progressive_smoothed": W.arithmetic_jpeg(w, h, s420, coefs, q, progressive=True,
+                                                  scans=W.progression(3)[:7]),
+        "lossless": W.lossless_jpeg([img[..., c] for c in range(3)], psv=4, restart_rows=60,
+                                    adobe=0, jfif=False),
+        "png_adam7": W.png(img, 2, 8, interlace=True),
+        "png_16bit": W.png(np.concatenate([wide, wide[..., :1]], -1), 6, 16),
+        "label_16bit": W.png(((xx // 40) * 1000 + (yy // 40) * 7).astype(np.uint16), 0, 16,
+                             interlace=True),
+    }
+
+
+def refused_forms(files: dict) -> dict:
+    """FORMS_REFUSED made from ``image_forms_files``: the YCCK file's frame
+    at 12 bits and as a hierarchical SOF5, the arithmetic file behind
+    comment segments that push its scan across PIL's first 64 KiB read
+    block, and the lossless file cut in half."""
+    def patched(data: bytes, offset: int, value: int) -> bytes:
+        out = bytearray(data)
+        out[data.index(b"\xff\xc0") + offset] = value
+        return bytes(out)
+
+    arith = files["arithmetic"]
+    n = 65536 - len(arith) // 2 - 6  # the file's middle lands on byte 65536
+    comment = b"\xff\xfe" + (n + 2).to_bytes(2, "big") + b"c" * n
+    return {"12-bit": patched(files["ycck"], 4, 12),
+            "hierarchical": patched(files["ycck"], 1, 0xC5),
+            "arithmetic_past_read_block": arith[:2] + comment + arith[2:],
+            "truncated": files["lossless"][:len(files["lossless"]) // 2]}
+
+
+def image_forms_phase(card, tmp: Path) -> bytes:
+    """Each form of ``image_forms_files`` written under ``tmp`` and read by
+    the port on this machine's host: the SHA-256 of its pixels (of the
+    label map's samples) against PIL's (IMAGE_FORMS_DIGESTS), its read ms
+    (median of FORMS_ITERS, host clock) beside the card's name and power
+    limit. Then one pass of the port's DatasetMapperDETR (LSJ at 1024) over
+    the forms and FORMS_REFUSED: it keeps every form and drops each refused
+    file with a warning, as JAX's mapper drops what PIL refuses. Returns the
+    YCCK file, which the demo then serves."""
+    import logging
+
+    import numpy as np
+
+    from ape_tpu_torch.data.image_io import read_image, read_label_map
+    from ape_tpu_torch.data.mapper import DatasetMapperDETR
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    files = image_forms_files()
+    write_s = time.perf_counter() - t0
+    forms = {}
+    for name, data in files.items():
+        path = tmp / f"{name}.{'png' if 'png' in name or 'label' in name else 'jpg'}"
+        path.write_bytes(data)
+        read = read_label_map if name.startswith("label") else read_image
+        pixels = read(str(path))
+        if pixels is None or _sha(np.ascontiguousarray(pixels).tobytes()) != IMAGE_FORMS_DIGESTS[name]:
+            fail(f"image_forms: {name} reads to {None if pixels is None else pixels.shape}, not "
+                 "PIL's pixels")
+        times = []
+        for _ in range(FORMS_ITERS):
+            t0 = time.perf_counter()
+            read(str(path))
+            times.append(time.perf_counter() - t0)
+        forms[name] = {"bytes": len(data), "shape": list(pixels.shape), "dtype": str(pixels.dtype),
+                       "read_ms": float(np.median(times)) * 1e3}
+    records = [{"file_name": str(tmp / f"{name}.{'png' if 'png' in name else 'jpg'}"),
+                "image_id": i, "height": FORMS_SIZE[0], "width": FORMS_SIZE[1], "annotations": []}
+               for i, name in enumerate(n for n in files if not n.startswith("label"))]
+    for name, data in refused_forms(files).items():
+        (tmp / f"refused_{name}.jpg").write_bytes(data)
+        records.append({"file_name": str(tmp / f"refused_{name}.jpg"), "image_id": len(records),
+                        "height": FORMS_SIZE[0], "width": FORMS_SIZE[1], "annotations": []})
+    warnings = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    catch = Catch(logging.WARNING)
+    port_logger = logging.getLogger("ape_tpu_torch")
+    port_logger.addHandler(catch)
+    mapper = DatasetMapperDETR(is_train=True, image_size=IMG, seed=SEED)
+    t0 = time.perf_counter()
+    try:
+        out = {Path(r["file_name"]).stem: mapper(r) for r in records}
+    finally:
+        port_logger.removeHandler(catch)
+    mapper_s = time.perf_counter() - t0
+    dropped = sorted(name[len("refused_"):] for name, ex in out.items() if ex is None)
+    if dropped != sorted(FORMS_REFUSED) or len(warnings) != len(FORMS_REFUSED) or any(
+            ex is not None and not np.isfinite(ex["image"]).all() for ex in out.values()):
+        fail(f"image_forms: the mapper dropped {dropped} with warnings {warnings}, expected "
+             f"{sorted(FORMS_REFUSED)}")
+    log(phase="image_forms", size=list(FORMS_SIZE), forms=forms, write_s=write_s,
+        mapper={"records": len(records), "kept": len(records) - len(dropped), "dropped": dropped,
+                "warnings": warnings, "seconds": mapper_s}, card=card)
+    log(phase="image_forms_done", seconds=time.perf_counter() - t_phase)
+    return files["ycck"]
+
+
 def demo_phase(dev, card, checkpoint: Path):
     """The prompted demo CLI (``demo_lazy.main``) on TN_CONFIG with the
     train_net phase's ``checkpoint``: DEMO_INPUTS written as JPEG by the
-    port, DEMO_PROMPT, masks and sem_seg. Gates: the codec's digests
+    port and the YCCK file of ``image_forms_phase`` (which runs first),
+    DEMO_PROMPT, masks and sem_seg. Gates: the codec's digests
     (``codec_check``), exactly FORWARD_LAUNCHES a request, each overlay
     decoding to its input's shape, ``predictions.json`` holding every
     instance of each request (score at least 0.05), and
@@ -4222,12 +4381,17 @@ def demo_phase(dev, card, checkpoint: Path):
     codec = codec_check()
     tmp = Path(tempfile.mkdtemp(prefix="demo_"))
     (tmp / "in").mkdir()
+    (tmp / "forms").mkdir()
     shapes = {}
     for i, (name, (h, w), mode) in enumerate(DEMO_INPUTS):
         img = jpeg_check_image(SEED + 1 + i, h, w)
         write_image(str(tmp / "in" / name), np.ascontiguousarray(img[..., 1]) if mode == "L"
                     else img)
         shapes[name] = (h, w, 3)
+    forms_s = time.perf_counter()
+    (tmp / "in" / "ycck.jpg").write_bytes(image_forms_phase(card, tmp / "forms"))
+    forms_s = time.perf_counter() - forms_s
+    shapes["ycck.jpg"] = FORMS_SIZE + (3,)
     per_request = []
     run_on_image = predictor_lazy.VisualizationDemo.run_on_image
 
@@ -4251,9 +4415,13 @@ def demo_phase(dev, card, checkpoint: Path):
         predictor_lazy.VisualizationDemo.run_on_image = run_on_image
     launches = dict(_build.LAUNCHES)
     want = {k: FORWARD_LAUNCHES.get(k, 0) for k in _build.LAUNCHES}
-    if len(records) != len(DEMO_INPUTS) or any(r != want for r in per_request):
+    if len(records) != len(shapes) or any(r != want for r in per_request):
         fail(f"demo: {len(records)} requests launched {per_request}, expected "
-             f"{len(DEMO_INPUTS)} of {want}")
+             f"{len(shapes)} of {want}")
+    ycck = [i for i, r in enumerate(records) if Path(r["path"]).name == "ycck.jpg"][0]
+    log(phase="image_forms_serve", image="ycck.jpg", config=TN_CONFIG,
+        launches=per_request[ycck], instances=records[ycck]["instances"],
+        **{k: v for k, v in records[ycck].items() if k not in ("path", "instances")}, card=card)
     for name, shape in shapes.items():
         vis = read_image(str(out / name))
         if vis is None or vis.shape != shape:
@@ -4278,7 +4446,7 @@ def demo_phase(dev, card, checkpoint: Path):
                   for r in records],
         launches_per_request=FORWARD_LAUNCHES, rows=len(rows), demo_s=demo_s,
         visualize_s=vis_s, visualized=sorted(drawn), card=card)
-    log(phase="demo_done", seconds=time.perf_counter() - t_phase)
+    log(phase="demo_done", seconds=time.perf_counter() - t_phase - forms_s)
     return launches
 
 

@@ -16,9 +16,12 @@ CPU:
   wraps; the port decodes as the SIMD build does;
 * ``encode_jpeg`` and ``write_image`` equal to PIL's ``save`` bytes for RGB
   and L at every size above;
-* each coding the port refuses raises ``ValueError`` naming it;
+* the codings the codec once refused: those PIL decodes equal PIL, those
+  PIL refuses too raise ``CorruptImage`` naming them (the other forms are
+  in ``test_torch_image_forms.py``);
 * the digests ``chip_smoke.py`` checks on the card: PIL's bytes and pixels
-  of its seeded 640x480 image, and PIL's pixels of its embedded samples.
+  of its seeded 640x480 image, PIL's pixels of its embedded samples, and
+  PIL's pixels of each image form its image_forms phase writes.
 """
 
 import base64
@@ -31,8 +34,9 @@ import pytest
 from PIL import Image
 
 import chip_smoke
+import torch_image_writers as W
 from ape_tpu.data.mapper import read_image as jax_read_image
-from ape_tpu_torch.data.image_io import CorruptImage, read_image, write_image
+from ape_tpu_torch.data.image_io import CorruptImage, read_image, read_label_map, write_image
 from ape_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
 
 SIZES = ((1, 1), (5, 7), (9, 17), (48, 64), (640, 427))  # (h, w): 1x1, 7x5, 17x9, 64x48, 427x640
@@ -328,26 +332,47 @@ def _incomplete_progressive() -> bytes:
     return data[:last_scan] + b"\xff\xd9"
 
 
+def _writer_stream(kind: str) -> bytes:
+    """The test-side writers' real arithmetic-coded (SOF9) or lossless (SOF3)
+    stream of the 64x48 image."""
+    img = image(48, 64)
+    if kind == "lossless":
+        return W.lossless_jpeg([img[..., c] for c in range(3)], psv=4, adobe=0, jfif=False)
+    q = [W.quality_table(W.LUM_QUANT, 75), W.quality_table(W.CHROM_QUANT, 75)]
+    sampling = ((2, 2), (1, 1), (1, 1))
+    return W.arithmetic_jpeg(64, 48, sampling, W.coefficients(W.planes_of(img, "ycc"), sampling, q),
+                             q)
+
+
+# the six codings the codec refused before it took what PIL takes: (file,
+# None where PIL decodes it, else the words of the refusal)
 REFUSED = {
-    "arithmetic": (lambda d: _patched(d, 0xC0, 1, 0xC9), "arithmetic-coded"),
-    "lossless": (lambda d: _patched(d, 0xC0, 1, 0xC3), "lossless"),
-    "hierarchical": (lambda d: _patched(d, 0xC0, 1, 0xC5), "hierarchical"),
-    "12-bit": (lambda d: _patched(d, 0xC0, 4, 12), "12-bit"),
-    "ycck": (lambda d: _patched(d, 0xEE, 15, 2), "YCCK"),
-    "block_smoothing": (lambda d: _incomplete_progressive(), "block smoothing"),
+    "arithmetic": (lambda: _writer_stream("arithmetic"), None),
+    "lossless": (lambda: _writer_stream("lossless"), None),
+    "hierarchical": (lambda: _patched(pil_jpeg(image(48, 64)), 0xC0, 1, 0xC5), "hierarchical"),
+    "12-bit": (lambda: _patched(pil_jpeg(image(48, 64)), 0xC0, 4, 12), "12-bit"),
+    "ycck": (lambda: _patched(pil_jpeg(image(48, 64), "CMYK"), 0xEE, 15, 2), None),
+    "block_smoothing": (_incomplete_progressive, None),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_refused_codings_raise_naming_them(tmp_path, case):
-    patch, words = REFUSED[case]
-    data = patch(pil_jpeg(image(48, 64), "CMYK" if case == "ycck" else None))
-    with pytest.raises(ValueError, match=words) as info:
-        decode_jpeg(data)
-    assert not isinstance(info.value, CorruptImage)
+    """The codings the codec once refused: the four PIL decodes now give
+    PIL's pixels; the two PIL refuses too raise ``CorruptImage`` naming
+    them, which ``read_image`` turns into None as JAX's reader does."""
+    make, words = REFUSED[case]
+    data = make()
     (tmp_path / "r.jpg").write_bytes(data)
-    with pytest.raises(ValueError, match=words):
-        read_image(str(tmp_path / "r.jpg"))
+    if words is None:
+        np.testing.assert_array_equal(decode_jpeg(data), pil_pixels(data))
+        np.testing.assert_array_equal(read_image(str(tmp_path / "r.jpg")),
+                                      jax_read_image(str(tmp_path / "r.jpg")))
+        return
+    with pytest.raises(CorruptImage, match=words):
+        decode_jpeg(data)
+    assert jax_read_image(str(tmp_path / "r.jpg")) is None
+    assert read_image(str(tmp_path / "r.jpg")) is None
 
 
 def test_corrupt_data_and_bad_arguments():
@@ -381,3 +406,30 @@ def test_chip_smoke_digests_are_pils():
         sample = base64.b64decode(b64)
         assert hashlib.sha256(pil_pixels(sample).tobytes()).hexdigest() == digest, name
         assert hashlib.sha256(decode_jpeg(sample).tobytes()).hexdigest() == digest, name
+
+
+def test_chip_smoke_image_forms_digests_are_pils(tmp_path):
+    """The SHA-256s chip_smoke.py's image_forms phase holds the card
+    machine's reader to are PIL's: of the pixels PIL decodes from each form
+    ``image_forms_files`` writes (of ``np.asarray(Image.open(f))`` for the
+    label map), which the port reads alike here; and PIL refuses each file of
+    ``refused_forms``, which the port drops."""
+    files = chip_smoke.image_forms_files()
+    assert sorted(files) == sorted(chip_smoke.IMAGE_FORMS_DIGESTS)
+    for name, data in files.items():
+        label = name.startswith("label")
+        path = tmp_path / f"{name}.{'png' if label or 'png' in name else 'jpg'}"
+        path.write_bytes(data)
+        im = Image.open(path)
+        want = np.asarray(im) if label else np.asarray(im.convert("RGB"))
+        assert hashlib.sha256(want.tobytes()).hexdigest() == \
+            chip_smoke.IMAGE_FORMS_DIGESTS[name], name
+        got = read_label_map(str(path)) if label else read_image(str(path))
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    refused = chip_smoke.refused_forms(files)
+    assert sorted(refused) == sorted(chip_smoke.FORMS_REFUSED)
+    for name, data in refused.items():
+        (tmp_path / "r.jpg").write_bytes(data)
+        assert jax_read_image(str(tmp_path / "r.jpg")) is None, name
+        assert read_image(str(tmp_path / "r.jpg")) is None, name

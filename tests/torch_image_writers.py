@@ -1,0 +1,809 @@
+"""Writers of image files that neither PIL nor the port writes, for the
+tests of the port's reader and for ``chip_smoke.py`` (numpy and the
+standard library only, so that the card machine can load it):
+
+* ``arithmetic_jpeg``: arithmetic-coded sequential (SOF9) and progressive
+  (SOF10) JPEG of given quantized coefficients, after libjpeg's
+  ``jcarith.c`` (T.81 Annex D's QM coder, F.1.4 and G.1.3's contexts),
+  with DAC conditioning and restart intervals;
+* ``huffman_jpeg``: a baseline (SOF0) file of the same coefficients with
+  the standard luminance tables, as the oracle's twin of an arithmetic
+  file and as the smoke's YCCK file;
+* ``lossless_jpeg``: lossless (SOF3) JPEG, predictors 1-7, a point
+  transform and restart intervals, with a Huffman table built from the
+  difference counts;
+* ``png``: PNG of any color type at bit depth 8 or 16, plain or Adam7
+  interlaced.
+
+``coefficients`` turns an image into the quantized blocks the JPEG writers
+take: an integer colour transform, box downsampling and an integer DCT,
+all exact integer arithmetic so that a seeded image gives the same bytes on
+every machine.
+"""
+
+from __future__ import annotations
+
+import heapq
+import struct
+import zlib
+
+import numpy as np
+
+NATURAL = []  # zigzag index -> natural index
+for _s in range(15):
+    _lo, _hi = max(0, _s - 7), min(_s, 7)
+    NATURAL += [r * 8 + (_s - r) for r in (range(_hi, _lo - 1, -1) if _s % 2 == 0
+                                           else range(_lo, _hi + 1))]
+NATURAL = np.array(NATURAL)
+
+# jcparam.c's standard tables (natural order)
+LUM_QUANT = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+CHROM_QUANT = np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+                        24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+                       + [99] * 32)
+DC_BITS = (0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0)
+AC_BITS = (0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D)
+AC_VALS = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f024336272820"
+    "90a161718191a25262728292a3435363738393a434445464748494a535455565758595a6364"
+    "65666768696a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8"
+    "a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9"
+    "eaf1f2f3f4f5f6f7f8f9fa")
+
+# round(4096 * c(u) / 2 * cos((2x + 1) u pi / 16)), c(0) = 1 / sqrt(2): the
+# DCT-II basis in integers
+DCT_BASIS = np.array([
+    [1448, 1448, 1448, 1448, 1448, 1448, 1448, 1448],
+    [2009, 1703, 1138, 400, -400, -1138, -1703, -2009],
+    [1892, 784, -784, -1892, -1892, -784, 784, 1892],
+    [1703, -400, -2009, -1138, 1138, 2009, 400, -1703],
+    [1448, -1448, -1448, 1448, 1448, -1448, -1448, 1448],
+    [1138, -2009, 400, 1703, -1703, -400, 2009, -1138],
+    [784, -1892, 1892, -784, -784, 1892, -1892, 784],
+    [400, -1138, 1703, -2009, 2009, -1703, 1138, -400]], np.int64)
+
+
+def quality_table(base: np.ndarray, quality: int) -> np.ndarray:
+    """jcparam.c's scaling of a standard table to ``quality``, baseline-limited."""
+    scale = 5000 // quality if quality < 50 else 200 - quality * 2
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def _ycc(rgb: np.ndarray) -> np.ndarray:
+    """jccolor.c's RGB -> YCbCr in its integer tables: (3, H, W) uint8."""
+    fix = lambda x: int(x * 65536 + 0.5)  # noqa: E731
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    half, off = 1 << 15, 128 << 16
+    y = (fix(0.299) * r + fix(0.587) * g + fix(0.114) * b + half) >> 16
+    cb = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + off + half - 1) >> 16
+    cr = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + off + half - 1) >> 16
+    return np.stack([y, cb, cr]).astype(np.uint8)
+
+
+def planes_of(image: np.ndarray, color: str) -> list:
+    """The component planes a JPEG of ``color`` stores for a uint8 image:
+    ``gray`` (H, W), ``ycc`` and ``rgb`` from (H, W, 3), ``cmyk`` (Adobe's
+    inverted samples) and ``ycck`` from (H, W, 4) CMYK."""
+    if color == "gray":
+        return [image]
+    if color == "rgb":
+        return [image[..., c] for c in range(3)]
+    if color == "ycc":
+        return list(_ycc(image))
+    inverted = 255 - image
+    if color == "cmyk":
+        return [inverted[..., c] for c in range(4)]
+    if color == "ycck":  # jccolor.c cmyk_ycck_convert: C, M, Y as 255 - R, G, B
+        return list(_ycc(image[..., :3])) + [inverted[..., 3]]
+    raise ValueError(color)
+
+
+def _blocks_of(plane: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """(rows, cols, 64) samples - 128 of ``plane`` edge-padded to whole blocks."""
+    h, w = plane.shape
+    padded = np.pad(plane.astype(np.int64), ((0, rows * 8 - h), (0, cols * 8 - w)), mode="edge")
+    return padded.reshape(rows, 8, cols, 8).transpose(0, 2, 1, 3).reshape(rows, cols, 64) - 128
+
+
+def coefficients(planes, sampling, qtables, table_of=None):
+    """Quantized DCT blocks of full-size ``planes`` under ``sampling``
+    ((h, v) a component): each plane box-downsampled by (hmax / h, vmax /
+    v), cut into the MCU-padded blocks of its component, transformed and
+    divided by its table (``table_of[c]``, default 0 for the first
+    component and 1 for the rest) with rounding. Returns int64 (rows,
+    cols, 64) arrays in natural order."""
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    height, width = planes[0].shape
+    mx, my = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    table_of = table_of or [min(c, len(qtables) - 1) for c in range(len(sampling))]
+    out = []
+    for c, (h, v) in enumerate(sampling):
+        fx, fy = hmax // h, vmax // v
+        plane = planes[c].astype(np.int64)
+        ph, pw = -(-height // fy) * fy, -(-width // fx) * fx
+        plane = np.pad(plane, ((0, ph - height), (0, pw - width)), mode="edge")
+        n = fx * fy
+        small = (plane.reshape(ph // fy, fy, pw // fx, fx).sum((1, 3)) + n // 2) // n
+        blocks = _blocks_of(small, my * v, mx * h).reshape(my * v, mx * h, 8, 8)
+        raw = np.einsum("ux,rcxy,vy->rcuv", DCT_BASIS, blocks, DCT_BASIS).reshape(
+            my * v, mx * h, 64)
+        q = np.asarray(qtables[table_of[c]], np.int64) << 24
+        out.append(np.sign(raw) * ((np.abs(raw) + q // 2) // q))
+    return out
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def _headers(width, height, sampling, qtables, table_of, sof, ids, jfif, adobe):
+    out = b"\xff\xd8"
+    if jfif:
+        out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    if adobe is not None:
+        out += _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([adobe]))
+    for t, q in enumerate(qtables or ()):
+        wide = max(q) > 255
+        zz = [int(q[NATURAL[i]]) for i in range(64)]
+        out += _segment(0xDB, bytes([t | (16 if wide else 0)])
+                        + (struct.pack(">64H", *zz) if wide else bytes(zz)))
+    body = struct.pack(">BHHB", 8, height, width, len(sampling))
+    for c, (h, v) in enumerate(sampling):
+        body += bytes([ids[c], (h << 4) | v, table_of[c] if table_of else 0])
+    return out + _segment(sof, body)
+
+
+def _codes(bits, vals):
+    out, code, k = {}, 0, 0
+    for length, n in enumerate(bits, 1):
+        for _ in range(n):
+            out[vals[k]] = (code, length)
+            code, k = code + 1, k + 1
+        code <<= 1
+    return out
+
+
+class _Bits:
+    """MSB-first bits with 0xFF 0x00 stuffing; ``flush`` pads with 1 bits."""
+
+    def __init__(self):
+        self.acc, self.n, self.data = 0, 0, bytearray()
+
+    def put(self, value: int, n: int):
+        self.acc, self.n = (self.acc << n) | (value & ((1 << n) - 1)), self.n + n
+        while self.n >= 8:
+            byte = (self.acc >> (self.n - 8)) & 0xFF
+            self.data.append(byte)
+            if byte == 0xFF:
+                self.data.append(0)
+            self.n -= 8
+        self.acc &= (1 << self.n) - 1
+
+    def flush(self) -> bytes:
+        if self.n:
+            self.put(0x7F, 8 - self.n)
+        out, self.data = bytes(self.data), bytearray()
+        return out
+
+
+def _mcu_blocks(sampling, coefs, width, height, comps):
+    """(component, block) of each MCU of an interleaved scan over ``comps``,
+    or of each block of a one-component scan, in coding order."""
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    mx, my = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    if len(comps) == 1:
+        c = comps[0]
+        h, v = sampling[c]
+        bw, bh = -(-width * h // (8 * hmax)), -(-height * v // (8 * vmax))
+        return [[(c, coefs[c][y, x])] for y in range(bh) for x in range(bw)]
+    mcus = []
+    for y in range(my):
+        for x in range(mx):
+            mcus.append([(c, coefs[c][by, bx]) for c in comps
+                         for by in range(y * sampling[c][1], (y + 1) * sampling[c][1])
+                         for bx in range(x * sampling[c][0], (x + 1) * sampling[c][0])])
+    return mcus
+
+
+def huffman_jpeg(width, height, sampling, coefs, qtables, table_of=None, ids=None, jfif=True,
+                 adobe=None, restart=0) -> bytes:
+    """A baseline (SOF0) file of ``coefs`` in one interleaved scan, every
+    component on the standard luminance tables (DC within +-2047 of its
+    neighbour, AC within +-1023)."""
+    ids = ids or list(range(1, len(sampling) + 1))
+    table_of = table_of or [min(c, len(qtables) - 1) for c in range(len(sampling))]
+    dc, ac = _codes(DC_BITS, list(range(12))), _codes(AC_BITS, AC_VALS)
+    out = _headers(width, height, sampling, qtables, table_of, 0xC0, ids, jfif, adobe)
+    out += _segment(0xC4, b"\x00" + bytes(DC_BITS) + bytes(range(12)))
+    out += _segment(0xC4, b"\x10" + bytes(AC_BITS) + AC_VALS)
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    out += _segment(0xDA, bytes([len(sampling)]) + b"".join(bytes([i, 0]) for i in ids)
+                    + b"\x00\x3f\x00")
+    bits, data = _Bits(), bytearray()
+    pred = [0] * len(sampling)
+    for m, mcu in enumerate(_mcu_blocks(sampling, coefs, width, height,
+                                        list(range(len(sampling))))):
+        if restart and m and m % restart == 0:
+            data += bits.flush() + bytes([0xFF, 0xD0 + (m // restart - 1) % 8])
+            pred = [0] * len(sampling)
+        for c, blk in mcu:
+            diff, pred[c] = int(blk[0]) - pred[c], int(blk[0])
+            n = abs(diff).bit_length()
+            bits.put(*dc[n])
+            if n:
+                bits.put(diff if diff >= 0 else diff - 1, n)
+            run = 0
+            for k in range(1, 64):
+                a = int(blk[NATURAL[k]])
+                if a == 0:
+                    run += 1
+                    continue
+                while run > 15:
+                    bits.put(*ac[0xF0])
+                    run -= 16
+                n = abs(a).bit_length()
+                bits.put(*ac[(run << 4) | n])
+                bits.put(a if a >= 0 else a - 1, n)
+                run = 0
+            if run:
+                bits.put(*ac[0])
+    return out + bytes(data) + bits.flush() + b"\xff\xd9"
+
+
+# --- arithmetic coding --------------------------------------------------------
+
+# T.81 Table D.2 as libjpeg's jaricom.c packs it: Qe << 16 | Next_Index_MPS << 8
+# | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 estimate
+_QE = [
+    (0x5a1d, 1, 1, 1), (0x2586, 2, 14, 0), (0x1114, 3, 16, 0), (0x080b, 4, 18, 0),
+    (0x03d8, 5, 20, 0), (0x01da, 6, 23, 0), (0x00e5, 7, 25, 0), (0x006f, 8, 28, 0),
+    (0x0036, 9, 30, 0), (0x001a, 10, 33, 0), (0x000d, 11, 35, 0), (0x0006, 12, 9, 0),
+    (0x0003, 13, 10, 0), (0x0001, 13, 12, 0), (0x5a7f, 15, 15, 1), (0x3f25, 16, 36, 0),
+    (0x2cf2, 17, 38, 0), (0x207c, 18, 39, 0), (0x17b9, 19, 40, 0), (0x1182, 20, 42, 0),
+    (0x0cef, 21, 43, 0), (0x09a1, 22, 45, 0), (0x072f, 23, 46, 0), (0x055c, 24, 48, 0),
+    (0x0406, 25, 49, 0), (0x0303, 26, 51, 0), (0x0240, 27, 52, 0), (0x01b1, 28, 54, 0),
+    (0x0144, 29, 56, 0), (0x00f5, 30, 57, 0), (0x00b7, 31, 59, 0), (0x008a, 32, 60, 0),
+    (0x0068, 33, 62, 0), (0x004e, 34, 63, 0), (0x003b, 35, 32, 0), (0x002c, 9, 33, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 38, 64, 0), (0x3a0d, 39, 65, 0), (0x2ef1, 40, 67, 0),
+    (0x261f, 41, 68, 0), (0x1f33, 42, 69, 0), (0x19a8, 43, 70, 0), (0x1518, 44, 72, 0),
+    (0x1177, 45, 73, 0), (0x0e74, 46, 74, 0), (0x0bfb, 47, 75, 0), (0x09f8, 48, 77, 0),
+    (0x0861, 49, 78, 0), (0x0706, 50, 79, 0), (0x05cd, 51, 48, 0), (0x04de, 52, 50, 0),
+    (0x040f, 53, 50, 0), (0x0363, 54, 51, 0), (0x02d4, 55, 52, 0), (0x025c, 56, 53, 0),
+    (0x01f8, 57, 54, 0), (0x01a4, 58, 55, 0), (0x0160, 59, 56, 0), (0x0125, 60, 57, 0),
+    (0x00f6, 61, 58, 0), (0x00cb, 62, 59, 0), (0x00ab, 63, 61, 0), (0x008f, 32, 61, 0),
+    (0x5b12, 65, 65, 1), (0x4d04, 66, 80, 0), (0x412c, 67, 81, 0), (0x37d8, 68, 82, 0),
+    (0x2fe8, 69, 83, 0), (0x293c, 70, 84, 0), (0x2379, 71, 86, 0), (0x1edf, 72, 87, 0),
+    (0x1aa9, 73, 87, 0), (0x174e, 74, 72, 0), (0x1424, 75, 72, 0), (0x119c, 76, 74, 0),
+    (0x0f6b, 77, 74, 0), (0x0d51, 78, 75, 0), (0x0bb6, 79, 77, 0), (0x0a40, 48, 77, 0),
+    (0x5832, 81, 80, 1), (0x4d1c, 82, 88, 0), (0x438e, 83, 89, 0), (0x3bdd, 84, 90, 0),
+    (0x34ee, 85, 91, 0), (0x2eae, 86, 92, 0), (0x299a, 87, 93, 0), (0x2516, 71, 86, 0),
+    (0x5570, 89, 88, 1), (0x4ca9, 90, 95, 0), (0x44d9, 91, 96, 0), (0x3e22, 92, 97, 0),
+    (0x3824, 93, 99, 0), (0x32b4, 94, 99, 0), (0x2e17, 86, 93, 0), (0x56a8, 96, 95, 1),
+    (0x4f46, 97, 101, 0), (0x47e5, 98, 102, 0), (0x41cf, 99, 103, 0), (0x3c3d, 100, 104, 0),
+    (0x375e, 93, 99, 0), (0x5231, 102, 105, 0), (0x4c0f, 103, 106, 0), (0x4639, 104, 107, 0),
+    (0x415e, 99, 103, 0), (0x5627, 106, 105, 1), (0x50e7, 107, 108, 0), (0x4b85, 103, 109, 0),
+    (0x5597, 109, 110, 0), (0x504f, 107, 111, 0), (0x5a10, 111, 110, 1), (0x5522, 109, 112, 0),
+    (0x59eb, 111, 112, 1), (0x5a1d, 113, 113, 0)]
+FIXED = 113  # the state of the fixed 0.5 estimate (jcarith.c fixed_bin)
+
+
+class _QMEncoder:
+    """jcarith.c's arith_encode and finish_pass over context bins, each a
+    state index with the MPS in bit 7."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.reset()
+
+    def reset(self):
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _emit(self, b):
+        self.out.append(b)
+
+    def _zeros(self):
+        self.out += b"\x00" * self.zc
+        self.zc = 0
+
+    def encode(self, bins, i, val):
+        sv = bins[i]
+        qe, nm, nl, switch = _QE[sv & 0x7F]
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            bins[i] = (sv & 0x80) ^ (nl | (switch << 7))
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            bins[i] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self._zeros()
+                        self._emit(self.buffer + 1)
+                        if self.buffer + 1 == 0xFF:
+                            self._emit(0)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    if self.buffer == 0:
+                        self.zc += 1
+                    elif self.buffer >= 0:
+                        self._zeros()
+                        self._emit(self.buffer)
+                    if self.sc:
+                        self._zeros()
+                        self.out += b"\xff\x00" * self.sc
+                        self.sc = 0
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._zeros()
+                self._emit(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self._emit(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._zeros()
+                self._emit(self.buffer)
+            if self.sc:
+                self._zeros()
+                self.out += b"\xff\x00" * self.sc
+                self.sc = 0
+        if self.c & 0x7FFF800:
+            self._zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if (self.c >> 19) & 0xFF == 0xFF:
+                self._emit(0)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+                if (self.c >> 11) & 0xFF == 0xFF:
+                    self._emit(0)
+        out, self.out = bytes(self.out), bytearray()
+        self.reset()
+        return out
+
+
+def _magnitude(enc, bins, st, v, big):
+    """F.8 and F.9: the magnitude category and bits of ``v`` (>= 1) after
+    its sign, from bin ``st``; ``big`` the bin of the X2.. categories."""
+    m = 0
+    v -= 1
+    if v:
+        enc.encode(bins, st, 1)
+        m, v2 = 1, v
+        v2 >>= 1
+        if big is None:  # DC: X1 at 20
+            st = 20
+            while v2:
+                enc.encode(bins, st, 1)
+                m <<= 1
+                st += 1
+                v2 >>= 1
+        elif v2:
+            enc.encode(bins, st, 1)
+            m <<= 1
+            st = big
+            v2 >>= 1
+            while v2:
+                enc.encode(bins, st, 1)
+                m <<= 1
+                st += 1
+                v2 >>= 1
+    enc.encode(bins, st, 0)
+    st += 14
+    m >>= 1
+    while m:
+        enc.encode(bins, st, 1 if m & v else 0)
+        m >>= 1
+
+
+def _dc_diff(enc, bins, ctx, v, lo, hi):
+    """F.1.4.1's DC difference ``v`` in context ``ctx``; returns the next context."""
+    if v == 0:
+        enc.encode(bins, ctx, 0)
+        return 0
+    enc.encode(bins, ctx, 1)
+    sign = v < 0
+    enc.encode(bins, ctx + 1, int(sign))
+    a = -v if sign else v
+    # the category decides the next context (F.1.4.4.1.2)
+    m = 0 if a == 1 else 1 << ((a - 1).bit_length() - 1)
+    _magnitude(enc, bins, ctx + 2 + sign, a, None)
+    if m < (1 << lo) >> 1:
+        return 0
+    return (12 if m > (1 << hi) >> 1 else 4) + 4 * sign
+
+
+def _ac_first(enc, bins, fixed, blk, ss, se, al, k_cond):
+    """F.1.4.4.2 / G.1.3.2: the AC coefficients ss..se of ``blk`` >> al."""
+    vals = [int(blk[NATURAL[k]]) for k in range(64)]
+    shifted = [(-((-x) >> al) if x < 0 else x >> al) for x in vals]
+    ke = se
+    while ke >= ss and shifted[ke] == 0:
+        ke -= 1
+    k = ss
+    while k <= ke:
+        st = 3 * (k - 1)
+        enc.encode(bins, st, 0)
+        while shifted[k] == 0:
+            enc.encode(bins, st + 1, 0)
+            st += 3
+            k += 1
+        enc.encode(bins, st + 1, 1)
+        v = shifted[k]
+        enc.encode(fixed, 0, int(v < 0))
+        _magnitude(enc, bins, st + 2, abs(v), 189 if k <= k_cond else 217)
+        k += 1
+    if k <= se:
+        enc.encode(bins, 3 * (k - 1), 1)
+
+
+def _ac_refine(enc, bins, fixed, blk, ss, se, al):
+    """G.1.3.3: bit ``al`` of the AC coefficients ss..se of ``blk``."""
+    vals = [abs(int(blk[NATURAL[k]])) for k in range(64)]
+    signs = [int(blk[NATURAL[k]]) < 0 for k in range(64)]
+    ke = se
+    while ke > 0 and vals[ke] >> al == 0:
+        ke -= 1
+    kex = ke
+    while kex > 0 and vals[kex] >> (al + 1) == 0:
+        kex -= 1
+    k = ss
+    while k <= ke:
+        st = 3 * (k - 1)
+        if k > kex:
+            enc.encode(bins, st, 0)
+        while True:
+            v = vals[k] >> al
+            if v:
+                if v >> 1:
+                    enc.encode(bins, st + 2, v & 1)
+                else:
+                    enc.encode(bins, st + 1, 1)
+                    enc.encode(fixed, 0, int(signs[k]))
+                break
+            enc.encode(bins, st + 1, 0)
+            st += 3
+            k += 1
+        k += 1
+    if k <= se:
+        enc.encode(bins, 3 * (k - 1), 1)
+
+
+# libjpeg's jpeg_simple_progression scripts: (components, Ss, Se, Ah, Al)
+PROGRESSION_YCC = (((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+                   ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                   ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+                   ((0,), 1, 63, 1, 0))
+PROGRESSION_GRAY = (((0,), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((0,), 6, 63, 0, 2),
+                    ((0,), 1, 63, 2, 1), ((0,), 0, 0, 1, 0), ((0,), 1, 63, 1, 0))
+
+
+def progression(ncomp: int) -> tuple:
+    """libjpeg's simple progression for 1 or 3 components, and its
+    every-component-alone form for 4 (DC, then AC in two bits)."""
+    if ncomp == 1:
+        return PROGRESSION_GRAY
+    if ncomp == 3:
+        return PROGRESSION_YCC
+    comps = tuple(range(ncomp))
+    return ((comps, 0, 0, 0, 1),) + tuple(((c,), 1, 63, 0, 1) for c in comps) + (
+        (comps, 0, 0, 1, 0),) + tuple(((c,), 1, 63, 1, 0) for c in comps)
+
+
+def arithmetic_jpeg(width, height, sampling, coefs, qtables, table_of=None, progressive=False,
+                    scans=None, restart=0, dac=None, ids=None, jfif=True, adobe=None) -> bytes:
+    """An arithmetic-coded file of ``coefs`` (natural order, the blocks of
+    ``coefficients``): SOF9 in one interleaved scan, or SOF10 with
+    ``scans`` ((components, Ss, Se, Ah, Al) each; default ``progression``).
+    Component c codes with DC and AC conditioning table ``table_of[c]``;
+    ``dac``: {("dc", t): (L, U)} and {("ac", t): Kx} written as DAC
+    segments; ``restart``: the restart interval in MCUs."""
+    ids = ids or list(range(1, len(sampling) + 1))
+    table_of = table_of or [min(c, len(qtables) - 1) for c in range(len(sampling))]
+    out = _headers(width, height, sampling, qtables, table_of, 0xCA if progressive else 0xC9,
+                   ids, jfif, adobe)
+    cond = {("dc", t): (0, 1) for t in range(4)} | {("ac", t): 5 for t in range(4)}
+    if dac:
+        cond.update(dac)
+        body = b""
+        for (kind, t), value in sorted(dac.items()):
+            if kind == "dc":
+                body += bytes([t, value[1] << 4 | value[0]])
+            else:
+                body += bytes([0x10 | t, value])
+        out += _segment(0xCC, body)
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    scans = (scans or progression(len(sampling))) if progressive else (
+        (tuple(range(len(sampling))), 0, 63, 0, 0),)
+    enc = _QMEncoder()
+    for comps, ss, se, ah, al in scans:
+        out += _segment(0xDA, bytes([len(comps)])
+                        + b"".join(bytes([ids[c], table_of[c] << 4 | table_of[c]]) for c in comps)
+                        + bytes([ss, se, ah << 4 | al]))
+        dc_bins = {t: [0] * 64 for t in set(table_of)}
+        ac_bins = {t: [0] * 256 for t in set(table_of)}
+        fixed = [FIXED]
+        last, ctx = [0] * len(sampling), [0] * len(sampling)
+        data = bytearray()
+        for m, mcu in enumerate(_mcu_blocks(sampling, coefs, width, height, list(comps))):
+            if restart and m and m % restart == 0:
+                data += enc.finish() + bytes([0xFF, 0xD0 + (m // restart - 1) % 8])
+                dc_bins = {t: [0] * 64 for t in set(table_of)}
+                ac_bins = {t: [0] * 256 for t in set(table_of)}
+                last, ctx = [0] * len(sampling), [0] * len(sampling)
+            for c, blk in mcu:
+                t = table_of[c]
+                if ss == 0 and ah == 0:
+                    dc = int(blk[0]) >> al  # an arithmetic shift, as jcarith.c's
+                    lo, hi = cond[("dc", t)]
+                    ctx[c] = _dc_diff(enc, dc_bins[t], ctx[c], dc - last[c], lo, hi)
+                    last[c] = dc
+                elif ss == 0:
+                    enc.encode(fixed, 0, (int(blk[0]) >> al) & 1)
+                if not progressive:
+                    _ac_first(enc, ac_bins[t], fixed, blk, 1, 63, 0, cond[("ac", t)])
+                elif ss and ah == 0:
+                    _ac_first(enc, ac_bins[t], fixed, blk, ss, se, al, cond[("ac", t)])
+                elif ss:
+                    _ac_refine(enc, ac_bins[t], fixed, blk, ss, se, al)
+        out += bytes(data) + enc.finish()
+    return out + b"\xff\xd9"
+
+
+# --- lossless ------------------------------------------------------------------
+
+def _predict(plane: np.ndarray, psv: int, first: np.ndarray, initial: int) -> np.ndarray:
+    """H.1.2's prediction of every sample of ``plane`` (int64), the rows
+    where ``first`` is set coded as a scan's first line."""
+    h, w = plane.shape
+    ra = np.zeros_like(plane)
+    ra[:, 1:] = plane[:, :-1]
+    rb = np.zeros_like(plane)
+    rb[1:] = plane[:-1]
+    rc = np.zeros_like(plane)
+    rc[1:, 1:] = plane[:-1, :-1]
+    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[psv].copy()
+    pred[:, 0] = rb[:, 0]
+    pred[first, 0] = initial
+    pred[first, 1:] = ra[first, 1:]
+    return pred
+
+
+def _huffman_table(counts) -> tuple:
+    """A length-limited (16 bits) Huffman table for symbol ``counts``, as
+    jchuff.c's jpeg_gen_optimal_table builds one: (bits[1..16], values)."""
+    freq = list(counts) + [0] * (257 - len(counts))
+    freq[256] = 1  # the reserved code point
+    codesize, others = [0] * 257, [-1] * 257
+    heap = [(f, i) for i, f in enumerate(freq) if f]
+    heapq.heapify(heap)
+    groups = {i: [i] for _, i in heap}
+    while len(heap) > 1:
+        f1, c1 = heapq.heappop(heap)
+        f2, c2 = heapq.heappop(heap)
+        for i in groups[c1] + groups[c2]:
+            codesize[i] += 1
+        groups[c1] = groups[c1] + groups.pop(c2)
+        heapq.heappush(heap, (f1 + f2, c1))
+    bits = [0] * 33
+    for i in range(257):
+        if codesize[i]:
+            bits[codesize[i]] += 1
+    for i in range(32, 16, -1):  # jchuff.c's length limit
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1  # drop the reserved code point
+    values = [s for size in range(1, 33) for s in range(256)
+              if codesize[s] == size and freq[s]]
+    return bits[1:17], values
+
+
+def lossless_jpeg(planes, sampling=None, psv=1, pt=0, restart_rows=0, ids=None, jfif=True,
+                  adobe=None, interleave=True) -> bytes:
+    """A lossless (SOF3) file of the component ``planes`` (uint8, already
+    downsampled: component c of (ceil(H v / vmax), ceil(W h / hmax)), the
+    first at full size; ``sampling`` (h, v) each, default 1x1), predictor ``psv`` (1-7),
+    point transform ``pt``, a restart marker every ``restart_rows`` MCU
+    rows, one interleaved scan (or one scan a component), each component's
+    Huffman table built from its difference counts."""
+    ncomp = len(planes)
+    sampling = sampling or [(1, 1)] * ncomp
+    ids = ids or list(range(1, ncomp + 1))
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    height, width = planes[0].shape
+    mx, my = -(-width // hmax), -(-height // vmax)
+    tables = list(range(ncomp))  # a Huffman table a component
+    out = _headers(width, height, sampling, None, tables, 0xC3, ids, jfif, adobe)
+    diffs = []
+    for c, plane in enumerate(planes):
+        h, v = sampling[c]
+        p = plane.astype(np.int64) >> pt
+        if interleave and ncomp > 1:  # the MCU-padded plane, edge-replicated
+            p = np.pad(p, ((0, my * v - p.shape[0]), (0, mx * h - p.shape[1])), mode="edge")
+        rows_per_restart = restart_rows * (v if interleave and ncomp > 1 else 1)
+        first = np.zeros(p.shape[0], bool)
+        first[0] = True
+        if rows_per_restart:
+            first[::rows_per_restart] = True
+        pred = _predict(p, psv, first, 1 << (8 - pt - 1))
+        diffs.append(((p - pred + 32768) % 65536) - 32768)
+    # the difference categories (SSSS): bit lengths of |d|, 16 for -32768
+    cats = [np.frexp(np.abs(d))[1].astype(np.int64) for d in diffs]
+    codes = []
+    for c in range(ncomp):
+        counts = np.bincount(cats[c].ravel(), minlength=17)
+        bits, values = _huffman_table(counts)
+        codes.append(_codes(bits, values))
+        out += _segment(0xC4, bytes([tables[c]]) + bytes(bits) + bytes(values))
+    scans = [list(range(ncomp))] if interleave else [[c] for c in range(ncomp)]
+    for comps in scans:
+        if restart_rows:  # in MCUs: a row of MCUs, or of the scan's component's samples
+            per_row = mx if len(comps) > 1 else diffs[comps[0]].shape[1]
+            out += _segment(0xDD, struct.pack(">H", restart_rows * per_row))
+        out += _segment(0xDA, bytes([len(comps)])
+                        + b"".join(bytes([ids[c], tables[c] << 4]) for c in comps)
+                        + bytes([psv, 0, pt]))
+        if len(comps) > 1:  # MCU by MCU, each component's v x h samples in turn
+            per_mcu = []
+            for c in comps:
+                h, v = sampling[c]
+                yy, xx, dy, dx = np.meshgrid(np.arange(my), np.arange(mx), np.arange(v),
+                                             np.arange(h), indexing="ij")
+                flat = ((yy * v + dy) * diffs[c].shape[1] + xx * h + dx).reshape(my, mx, v * h)
+                per_mcu.append(np.stack([np.full_like(flat, c), flat], -1))
+            units = np.concatenate(per_mcu, 2).reshape(-1, 2)
+            per_row = units.shape[0] // my
+        else:
+            c = comps[0]
+            flat = np.arange(diffs[c].size)
+            units = np.stack([np.full_like(flat, c), flat], -1)
+            per_row = diffs[c].shape[1]
+        comp, at = units[:, 0], units[:, 1]
+        d = np.zeros(len(units), np.int64)
+        s = np.zeros(len(units), np.int64)
+        for c in comps:
+            mask = comp == c
+            d[mask], s[mask] = diffs[c].ravel()[at[mask]], cats[c].ravel()[at[mask]]
+        code = np.zeros(len(units), np.int64)
+        size = np.zeros(len(units), np.int64)
+        for c in comps:
+            mask = comp == c
+            table = np.array([codes[c].get(k, (0, 0)) for k in range(17)])
+            code[mask], size[mask] = table[s[mask], 0], table[s[mask], 1]
+        extra = np.where(s < 16, s, 0)
+        bits_of = np.where(d >= 0, d, d - 1) & ((1 << extra) - 1)
+        values, lengths = (code << extra) | bits_of, size + extra
+        step = per_row * restart_rows if restart_rows else len(units)
+        for n, start in enumerate(range(0, len(units), step)):
+            if n:
+                out += bytes([0xFF, 0xD0 + (n - 1) % 8])
+            out += _pack_bits(values[start:start + step], lengths[start:start + step])
+    return out + b"\xff\xd9"
+
+
+def _pack_bits(values: np.ndarray, lengths: np.ndarray) -> bytes:
+    """Codes of the given bit lengths, MSB first, padded with 1 bits to a
+    byte and 0xFF-stuffed: an entropy-coded segment."""
+    total = int(lengths.sum())
+    starts = np.cumsum(lengths) - lengths
+    item = np.repeat(np.arange(len(lengths)), lengths)
+    shift = lengths[item] - 1 - (np.arange(total) - starts[item])
+    bits = ((values[item] >> shift) & 1).astype(np.uint8)
+    data = np.packbits(np.concatenate([bits, np.ones(-total % 8, np.uint8)]))
+    return np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0).tobytes()
+
+
+# --- PNG -------------------------------------------------------------------------
+
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))  # (x0, y0, dx, dy) of each pass
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def _filtered(rows: np.ndarray, bpp: int, seed: int) -> bytes:
+    """Scanlines of (n, stride) uint8 with filter types 0-4 in turn from ``seed``."""
+    out = bytearray()
+    prior = np.zeros(rows.shape[1], np.int64)
+    for y, row in enumerate(rows.astype(np.int64)):
+        kind = (y + seed) % 5
+        left = np.concatenate([np.zeros(bpp, np.int64), row[:-bpp]])[:row.size]
+        upleft = np.concatenate([np.zeros(bpp, np.int64), prior[:-bpp]])[:row.size]
+        if kind == 0:
+            f = row
+        elif kind == 1:
+            f = row - left
+        elif kind == 2:
+            f = row - prior
+        elif kind == 3:
+            f = row - ((left + prior) >> 1)
+        else:
+            p = left + prior - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prior), np.abs(p - upleft)
+            f = row - np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prior, upleft))
+        out += bytes([kind]) + (f % 256).astype(np.uint8).tobytes()
+        prior = row
+    return bytes(out)
+
+
+def _pack(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(h, w, c) samples -> (h, stride) uint8 scanline bytes at ``depth``."""
+    h, w, c = samples.shape
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, w * c * 2)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(h, w * c)
+    bits = np.unpackbits(samples.astype(np.uint8).reshape(h, w * c, 1), axis=2)[..., 8 - depth:]
+    return np.packbits(bits.reshape(h, -1), axis=1)
+
+
+def png(samples: np.ndarray, color: int, depth: int = 8, interlace: bool = False,
+        palette=None, seed: int = 0) -> bytes:
+    """A PNG of ``samples`` ((H, W) or (H, W, C), uint8 or uint16) of
+    ``color`` type (0 gray, 2 RGB, 3 palette, 4 gray + alpha, 6 RGBA) at
+    ``depth``, Adam7-interlaced if asked, filters 0-4 in turn."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    height, width, channels = samples.shape
+    bpp = max(1, channels * depth // 8)
+    body = PNG_MAGIC + _chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth, color, 0, 0,
+                                                   int(interlace)))
+    if color == 3:
+        body += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if interlace:
+        raw = b""
+        for i, (x0, y0, dx, dy) in enumerate(ADAM7):
+            sub = samples[y0::dy, x0::dx]
+            if sub.size:
+                raw += _filtered(_pack(sub, depth), bpp, seed + i)
+    else:
+        raw = _filtered(_pack(samples, depth), bpp, seed)
+    return body + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b"")
