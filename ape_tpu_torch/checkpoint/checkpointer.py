@@ -132,8 +132,10 @@ class Checkpointer:
         for _, old in saved[:-self.keep]:
             if os.path.exists(os.path.join(self.save_dir, old)):
                 os.remove(os.path.join(self.save_dir, old))
-        with open(self._index, "w") as f:
+        # the index is replaced whole: the other ranks read it as it is written
+        with open(self._index + ".tmp", "w") as f:
             json.dump(saved[-self.keep:], f)
+        os.replace(self._index + ".tmp", self._index)
         with open(os.path.join(self.save_dir, "last_checkpoint"), "w") as f:
             f.write(name)
         return path

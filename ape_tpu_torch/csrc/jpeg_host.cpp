@@ -39,7 +39,24 @@
 // a lossless frame that would need a colour conversion (YCbCr or YCCK), and
 // an arithmetic-coded scan whose data runs past the end of the 64 KiB blocks
 // PIL feeds libjpeg (whose arithmetic decoder cannot suspend for more input).
-// A damaged or truncated stream gives a "corrupt" status.
+//
+// Damaged entropy-coded data decodes as libjpeg-turbo 3.1 recovers it with a
+// warning, which PIL ignores: a marker met inside a scan's data supplies
+// zero bits for the MCU in progress, and the rest of its restart interval is
+// skipped (a sequential frame's blocks stay zero, a progressive frame's keep
+// the earlier scans' coefficients, block smoothing takes the previous scan's
+// coefficient bits past the last good iMCU row, a lossless row restarts its
+// predictor at mid-grey); restart markers out of place go through
+// jpeg_resync_to_restart's three actions; a Huffman code no table holds
+// costs 17 bits and decodes as 0; the arithmetic decoder stops its interval
+// at a bad code; progression warnings pass; a sequential Huffman frame
+// without Huffman tables takes the standard ones. PIL stops a single-scan image at its last row, so
+// nothing after that scan is looked at unless libjpeg refuses it there. The
+// entropy decoder keeps libjpeg's bit buffer exactly (filled to 57 bits;
+// decode_mcu_fast's six bytes at a time where it has 512 bytes a block in
+// hand) and the blocks PIL feeds it, because whether a file cut short fails
+// depends on whether that read-ahead reaches the end of the file: there the
+// "corrupt" status is PIL's "image file is truncated".
 //
 // Encoder: the bytes of PIL's `Image.fromarray(x).save(f)` with no options,
 // for RGB and gray: JFIF 1.01 (density 1:1, no unit), quality 75 with
@@ -67,6 +84,7 @@ namespace {
 struct Failure {
   int code;  // 1 corrupt, 2 unsupported, 3 refused as PIL refuses it
   std::string message;
+  bool truncation = false;  // the file ended where libjpeg waits for more
 };
 
 [[noreturn]] void corrupt(const std::string& m) { throw Failure{1, m}; }
@@ -91,6 +109,39 @@ constexpr std::array<int, 80> make_natural() {
 }
 constexpr std::array<int, 80> kNatural = make_natural();
 
+// jstdhuff.c: the standard tables of the JPEG specification, K.3 (the encoder's, and
+// the decoder's where a sequential Huffman scan uses table 0 or 1 and no DHT
+// defined it)
+const uint8_t kDcLumBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromBits[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
+    0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
+    0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
+    0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
+    0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
+    0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
+    0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
+    0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromBits[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
+    0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
+    0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
+    0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
+    0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
+    0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
+    0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
+    0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
 // libjpeg's fixed-point constants (CONST_BITS 13)
 constexpr int32_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_541196100 = 4433,
                   FIX_0_765366865 = 6270, FIX_0_899976223 = 7373, FIX_1_175875602 = 9633,
@@ -103,12 +154,14 @@ inline int32_t descale(int64_t x, int n) { return (int32_t)((x + ((int64_t)1 << 
 // ---------------------------------------------------------------- decoder
 
 struct HuffTable {
-  bool defined = false;
+  bool defined = false, built = false;
+  uint8_t bits[17];       // as the DHT segment gave them
+  uint8_t raw_vals[256];
   int max_symbol = 0;  // the largest value, checked when a scan takes it as a DC table
   int32_t maxcode[18];
   int32_t valoffset[18];
   uint8_t vals[256];
-  uint16_t look[512];  // 9-bit lookahead: (length << 8) | symbol, 0 for longer codes
+  uint16_t look8[256];  // 8-bit lookahead: (length << 8) | symbol, 0 for longer codes
 };
 
 // jdhuff.c jpeg_make_d_derived_tbl
@@ -148,12 +201,12 @@ void build_huff(HuffTable& t, const uint8_t bits[17], const uint8_t* vals) {
   t.valoffset[17] = 0;
   t.maxcode[17] = 0x7FFFFFFF;
   std::memcpy(t.vals, vals, numsymbols);
-  std::memset(t.look, 0, sizeof(t.look));
+  std::memset(t.look8, 0, sizeof(t.look8));
   p = 0;
-  for (int l = 1; l <= 9; ++l) {
+  for (int l = 1; l <= 8; ++l) {
     for (int i = 1; i <= bits[l]; ++i, ++p) {
-      int lookbits = (int)(huffcode[p] << (9 - l));
-      for (int ctr = 1 << (9 - l); ctr > 0; --ctr) t.look[lookbits++] = (uint16_t)((l << 8) | vals[p]);
+      int lookbits = (int)(huffcode[p] << (8 - l));
+      for (int ctr = 1 << (8 - l); ctr > 0; --ctr) t.look8[lookbits++] = (uint16_t)((l << 8) | vals[p]);
     }
   }
   t.max_symbol = 0;
@@ -161,86 +214,157 @@ void build_huff(HuffTable& t, const uint8_t bits[17], const uint8_t* vals) {
   t.defined = true;
 }
 
-// Entropy-coded data: bytes with 0xFF 0x00 stuffing, up to the next marker.
-// Past a marker (or the end of the data) it supplies zero bits, but
-// consuming any of them is an error: a complete stream never needs them.
+// libjpeg's wait for more input: PIL feeds it the file in blocks, and a read
+// past the bytes fed so far suspends the decoder, which PIL resumes with the
+// next block (the MCU is decoded again from its start)
+struct Suspend {};
+
+[[noreturn]] void truncated() { throw Failure{1, "image file is truncated", true}; }
+
+// Entropy-coded data as jdhuff.c reads it (jpeg_fill_bit_buffer, the
+// HUFF_DECODE macros and decode_mcu_fast's): a 64-bit buffer whose low
+// `bits` bits are unread, filled a byte at a time to at least 57 bits, with
+// 0xFF 0x00 read as 0xFF. A marker stops the filling; a bit wanted past it
+// reads as zero and sets `hit` (JWRN_HIT_MARKER: the decoder then skips the
+// rest of the restart interval). A byte wanted past the bytes PIL has fed
+// suspends, and past the end of the file is a truncation: PIL raises
+// "image file is truncated" where libjpeg waits for more input.
 struct BitReader {
   const uint8_t* d = nullptr;
   size_t n = 0, pos = 0;
-  uint64_t buf = 0;  // MSB-aligned
-  int cnt = 0;       // valid bits in buf, padding included
-  int pad = 0;       // trailing zero bits supplied past the data
-  bool stopped = false, at_eof = false;
+  size_t* fed = nullptr;  // the end of the bytes PIL has fed libjpeg
+  uint64_t buf = 0;       // get_buffer
+  int bits = 0;           // bits_left
+  int marker = 0;         // unread_marker: the code of the marker the data ran into
+  size_t marker_pos = 0;  // its first 0xFF
+  bool hit = false;
 
-  void reset() {
+  void reset(size_t p) {
+    pos = p;
     buf = 0;
-    cnt = pad = 0;
-    stopped = at_eof = false;
+    bits = 0;
+    marker = 0;
+    hit = false;
   }
 
-  void fill() {
-    while (cnt <= 56) {
-      int byte = 0;
-      bool real = false;
-      if (!stopped) {
-        if (pos >= n) {
-          stopped = at_eof = true;
-        } else if (d[pos] != 0xFF) {
-          byte = d[pos++];
-          real = true;
-        } else {
-          size_t q = pos + 1;
-          while (q < n && d[q] == 0xFF) ++q;
-          if (q >= n) {
-            stopped = at_eof = true;
-          } else if (d[q] == 0) {
-            byte = 0xFF;
-            pos = q + 1;
-            real = true;
-          } else {
-            stopped = true;  // a marker: pos stays on its first 0xFF
+  int next_byte() {
+    if (pos >= std::min(*fed, n)) {
+      if (*fed >= n) truncated();
+      throw Suspend{};
+    }
+    return d[pos++];
+  }
+
+  // jpeg_fill_bit_buffer: load at least 57 bits unless a marker stops it
+  void fill(int nbits) {
+    if (!marker) {
+      while (bits < 57) {
+        const size_t at = pos;
+        int c = next_byte();
+        if (c == 0xFF) {
+          do c = next_byte();
+          while (c == 0xFF);
+          if (c != 0) {
+            marker = c;
+            marker_pos = at;
+            break;
           }
+          c = 0xFF;
         }
+        buf = (buf << 8) | (uint64_t)c;
+        bits += 8;
       }
-      if (!real) pad += 8;
-      buf |= (uint64_t)byte << (56 - cnt);
-      cnt += 8;
+      if (!marker) return;
     }
-  }
-
-  void consume(int k) {
-    if (k > cnt - pad) {
-      if (at_eof) corrupt("image file is truncated");
-      corrupt("entropy-coded data ran into a marker");
+    if (nbits > bits) {  // zeros past the marker
+      hit = true;
+      buf <<= 57 - bits;
+      bits = 57;
     }
-    buf <<= k;
-    cnt -= k;
   }
 
   int get_bits(int k) {
     if (k == 0) return 0;
-    if (cnt < k + 8) fill();
-    int v = (int)(buf >> (64 - k));
-    consume(k);
-    return v;
+    if (bits < k) fill(k);
+    bits -= k;
+    return (int)((buf >> bits) & ((1u << k) - 1));
   }
 
+  // HUFF_DECODE with jpeg_huff_decode: 8 bits of lookahead, else bit by
+  // bit; a code no table holds runs to the sentinel length 17 and decodes
+  // as 0 (JWRN_HUFF_BAD_CODE)
   int decode(const HuffTable& t) {
-    if (cnt < 24) fill();
-    int e = t.look[buf >> (64 - 9)];
+    int nb;
+    if (bits < 8) {
+      fill(0);
+      if (bits < 8) {
+        nb = 1;
+        return decode_rest(t, nb);
+      }
+    }
+    const int e = t.look8[(buf >> (bits - 8)) & 0xFF];
     if (e) {
-      consume(e >> 8);
+      bits -= e >> 8;
       return e & 0xFF;
     }
-    int l = 10;
-    int32_t code = (int32_t)(buf >> (64 - l));
-    while (l <= 16 && code > t.maxcode[l]) {
+    return decode_rest(t, 9);
+  }
+
+  int decode_rest(const HuffTable& t, int l) {
+    if (bits < l) fill(l);
+    bits -= l;
+    int32_t code = (int32_t)((buf >> bits) & ((1u << l) - 1));
+    while (code > t.maxcode[l]) {
+      if (bits < 1) fill(1);
+      bits -= 1;
+      code = (code << 1) | (int32_t)((buf >> bits) & 1);
       ++l;
-      code = (int32_t)(buf >> (64 - l));
     }
-    if (l > 16) corrupt("bad Huffman code");
-    consume(l);
+    if (l > 16) return 0;
     return t.vals[(t.valoffset[l] + code) & 0xFF];
+  }
+
+  // decode_mcu_fast's FILL_BIT_BUFFER_FAST and HUFF_DECODE_FAST: six bytes
+  // once 16 bits or fewer are left; at a marker GET_BYTE sets `marker` and
+  // loads a zero byte (the MCU is then decoded again by the slow path).
+  void fill_fast() {
+    if (bits > 16) return;
+    for (int i = 0; i < 6; ++i) {
+      const int c0 = d[pos], c1 = d[pos + 1];
+      ++pos;
+      buf = (buf << 8) | (uint64_t)c0;
+      bits += 8;
+      if (c0 == 0xFF) {
+        ++pos;
+        if (c1 != 0) {  // a marker: a zero byte instead, and the pointer backed onto it
+          marker = c1;
+          pos -= 2;
+          buf &= ~(uint64_t)0xFF;
+        }
+      }
+    }
+  }
+  uint64_t shr(int k) const { return buf >> k; }
+  int get_bits_fast(int k) {
+    fill_fast();
+    bits -= k;
+    return (int)(shr(bits) & ((1u << k) - 1));
+  }
+  int decode_fast(const HuffTable& t) {
+    fill_fast();
+    const int e = t.look8[shr(bits - 8) & 0xFF];
+    const int nb = e ? e >> 8 : 9;
+    bits -= nb;
+    if (nb <= 8) return e & 0xFF;
+    int32_t s = (int32_t)(shr(bits) & ((1u << nb) - 1));
+    int l = nb;
+    while (s > t.maxcode[l]) {
+      s <<= 1;
+      bits -= 1;
+      s |= (int32_t)(shr(bits) & 1);
+      ++l;
+    }
+    return l > 16 ? 0 : t.vals[(s + t.valoffset[l]) & 0xFF];
   }
 };
 
@@ -292,18 +416,20 @@ struct ArithReader {
   const uint8_t* d = nullptr;
   size_t n = 0, pos = 0;
   int64_t c = 0, a = 0;
-  int ct = -16;    // -16 before the first two bytes, -1 after a decoding error
-  int marker = 0;  // the code of the marker the data ran into, 0 before one
+  int ct = -16;        // -16 before the first two bytes, -1 after a decoding error
+  int marker = 0;      // the code of the marker the data ran into, 0 before one
+  size_t marker_pos = 0;  // that marker's first byte
 
-  void reset(size_t p) {
-    pos = p;
+  // from `p`, or against a marker left unread there (`code` at `p`)
+  void reset(size_t p, int code = 0) {
+    pos = marker_pos = p;
     c = a = 0;
     ct = -16;
-    marker = 0;
+    marker = code;
   }
 
   int get_byte() {
-    if (pos >= n) corrupt("image file is truncated");
+    if (pos >= n) truncated();
     return d[pos++];
   }
 
@@ -312,8 +438,10 @@ struct ArithReader {
       if (--ct < 0) {
         int data = 0;
         if (!marker) {
+          const size_t at = pos;
           data = get_byte();
           if (data == 0xFF) {
+            marker_pos = at;
             do data = get_byte();
             while (data == 0xFF);
             if (data == 0) {
@@ -371,6 +499,7 @@ struct Component {
   uint16_t qt[64] = {};  // latched at the component's first scan
   bool latched = false;
   int coef_bits[64];
+  int prev_coef_bits[64];  // before the component's last progressive scan (jdphuff.c)
 };
 
 // natural positions of the coefficients block smoothing estimates: zigzag 1..9
@@ -390,7 +519,21 @@ class Decoder {
     }
     bool done = false;
     while (!done) {
-      int m = next_marker();
+      int m;
+      try {
+        m = next_marker();
+      } catch (const Failure& f) {
+        // a single-scan image is complete once its scan is: PIL stops at its
+        // last row, and libjpeg's wait for more input past it goes unseen
+        if (f.truncation && image_done_) break;
+        throw;
+      }
+      if (image_done_ && m == 0xDA) {  // get_sos reads the header, then consume_markers refuses it
+        const int len = word();
+        for (int i = 2; i < len; ++i) byte();
+        corrupt("a second scan in a single-scan JPEG (EOI expected)");
+      }
+      try {
       switch (m) {
         case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA: read_sof(m); break;
         case 0xCB: refused("lossless arithmetic-coded JPEG (SOF11)");
@@ -402,8 +545,7 @@ class Decoder {
         case 0xDD: read_dri(); break;
         case 0xDA: read_sos(); break;
         case 0xD9: done = true; break;
-        case 0xE0: read_app0(); break;
-        case 0xEE: read_app14(); break;
+        case 0xE0: case 0xEE: read_app(m); break;
         case 0xDC: skip_segment(); break;  // DNL: libjpeg skips it
         case 0xD0: case 0xD1: case 0xD2: case 0xD3: case 0xD4: case 0xD5: case 0xD6: case 0xD7:
         case 0x01: break;  // parameterless
@@ -413,6 +555,10 @@ class Decoder {
             break;
           }
           corrupt("unknown JPEG marker 0x" + hex(m));
+      }
+      } catch (const Failure& f) {
+        if (f.truncation && image_done_) break;
+        throw;
       }
       // the marker reader waits for PIL's next block where a segment crosses one
       while (pos_ > pil_end_) pil_end_ += kPilBlock;
@@ -440,6 +586,14 @@ class Decoder {
   bool smoothing_ = false;
   int width_ = 0, height_ = 0, ncomp_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   int scans_ = 0;
+  // jdhuff.c insufficient_data: the scan's data ran into a marker, so the
+  // rest of the restart interval is skipped; and libjpeg-turbo's
+  // last_good_iMCU_row, the last iMCU row begun with data in hand
+  bool insufficient_ = false;
+  int last_good_imcu_ = 0;
+  // libjpeg's has_multiple_scans, set by the first scan; a single-scan image
+  // is output as its scan is decoded, so nothing after that scan matters
+  bool multi_scan_ = false, image_done_ = false;
   Component comp_[4];
   BitReader br_;
   ArithReader ar_;
@@ -451,7 +605,7 @@ class Decoder {
   }
 
   int byte() {
-    if (pos_ >= n_) corrupt("image file is truncated");
+    if (pos_ >= n_) truncated();
     return d_[pos_++];
   }
   int word() {
@@ -469,72 +623,88 @@ class Decoder {
     }
   }
 
-  // a segment's payload: [pos_, end)
-  size_t segment_end() {
-    int len = word();
-    if (len < 2) corrupt("bad marker length");
-    size_t end = pos_ + (size_t)len - 2;
-    if (end > n_) corrupt("image file is truncated");
-    return end;
+  // The segments are read as jdmarker.c reads them, a byte at a time: a
+  // check fails where libjpeg's does, and a segment cut by the end of the
+  // file is a truncation only where libjpeg reaches that end.
+
+  // jdmarker.c skip_variable: a length below 2 skips nothing
+  void skip_segment() {
+    int len = word() - 2;
+    if (len > 0) skip(len);
   }
 
-  void skip_segment() { pos_ = segment_end(); }
-
-  void read_app0() {
-    size_t end = segment_end();
-    if (end - pos_ >= 14 && std::memcmp(d_ + pos_, "JFIF\0", 5) == 0) jfif_ = true;
-    pos_ = end;
+  void skip(size_t len) {
+    if (pos_ + len > n_) truncated();
+    pos_ += len;
   }
 
-  void read_app14() {
-    size_t end = segment_end();
-    if (end - pos_ >= 12 && std::memcmp(d_ + pos_, "Adobe", 5) == 0) {
+  // get_interesting_appn: APP0 (JFIF) and APP14 (Adobe) look at their first
+  // 14 bytes
+  void read_app(int marker) {
+    int len = word() - 2;
+    const int look = len >= 14 ? 14 : len > 0 ? len : 0;
+    uint8_t b[14];
+    for (int i = 0; i < look; ++i) b[i] = (uint8_t)byte();
+    len -= look;
+    if (marker == 0xE0 && look >= 14 && std::memcmp(b, "JFIF\0", 5) == 0) jfif_ = true;
+    if (marker == 0xEE && look >= 12 && std::memcmp(b, "Adobe", 5) == 0) {
       adobe_ = true;
-      adobe_transform_ = d_[pos_ + 11];
+      adobe_transform_ = b[11];
     }
-    pos_ = end;
+    if (len > 0) skip(len);
   }
 
   void read_dqt() {
-    size_t end = segment_end();
-    while (pos_ < end) {
+    int len = word() - 2;
+    while (len > 0) {
+      --len;
       int pq = byte();
       int prec = pq >> 4, tq = pq & 15;
-      if (tq > 3 || prec > 1) corrupt("bad DQT table");
+      if (tq > 3) corrupt("bad DQT table");
       for (int i = 0; i < 64; ++i) {
         int q = prec ? word() : byte();
         qt_[tq][kNatural[i]] = (uint16_t)q;
       }
       qt_defined_[tq] = true;
+      len -= prec ? 128 : 64;
     }
-    if (pos_ != end) corrupt("bad DQT length");
+    if (len != 0) corrupt("bad DQT length");
   }
 
+  // get_dht: the tables are kept as read and built where a scan uses them
   void read_dht() {
-    size_t end = segment_end();
-    while (pos_ < end) {
-      int tc_th = byte();
-      int tc = tc_th >> 4, th = tc_th & 15;
-      if (tc > 1 || th > 3) corrupt("bad DHT table");
+    int len = word() - 2;
+    while (len > 16) {
+      int index = byte();
       uint8_t bits[17] = {0};
       int count = 0;
       for (int l = 1; l <= 16; ++l) {
         bits[l] = (uint8_t)byte();
         count += bits[l];
       }
-      if (count > 256 || pos_ + count > end) corrupt("bad Huffman table");
+      len -= 17;
+      if (count > 256 || count > len) corrupt("bad Huffman table");
       uint8_t vals[256] = {0};
       for (int i = 0; i < count; ++i) vals[i] = (uint8_t)byte();
-      build_huff(tc ? ac_[th] : dc_[th], bits, vals);
+      len -= count;
+      const bool ac = index & 0x10;
+      if (ac) index -= 0x10;
+      if (index > 3) corrupt("bad DHT table");
+      HuffTable& t = ac ? ac_[index] : dc_[index];
+      std::memcpy(t.bits, bits, sizeof(bits));
+      std::memcpy(t.raw_vals, vals, sizeof(vals));
+      t.defined = true;
+      t.built = false;
     }
-    if (pos_ != end) corrupt("bad DHT length");
+    if (len != 0) corrupt("bad DHT length");
   }
 
   // jdmarker.c get_dac: DC tables 0-15 take (L, U), AC tables 16-31 take Kx
   void read_dac() {
-    size_t end = segment_end();
-    while (end - pos_ >= 2) {
+    int len = word() - 2;
+    while (len > 0) {
       int index = byte(), val = byte();
+      len -= 2;
       if (index >= 32) corrupt("bad DAC table index");
       if (index >= 16) {
         ac_k_[index - 16] = (uint8_t)val;
@@ -544,13 +714,19 @@ class Decoder {
         if (dc_l_[index] > dc_u_[index]) corrupt("bad DAC value");
       }
     }
-    if (pos_ != end) corrupt("bad DAC length");
+    if (len != 0) corrupt("bad DAC length");
   }
 
   void read_dri() {
-    size_t end = segment_end();
-    if (end - pos_ != 2) corrupt("bad DRI length");
+    if (word() != 4) corrupt("bad DRI length");
     restart_interval_ = word();
+  }
+
+  // the end of an SOF or SOS segment, whose bytes are then read one by one
+  size_t segment_end() {
+    int len = word();
+    if (len < 2) corrupt("bad marker length");
+    return pos_ + (size_t)len - 2;
   }
 
   void read_sof(int marker) {
@@ -597,7 +773,7 @@ class Decoder {
       } else {
         k.coef.assign((size_t)k.bw * k.bh * 64, 0);
       }
-      for (int i = 0; i < 64; ++i) k.coef_bits[i] = -1;
+      for (int i = 0; i < 64; ++i) k.coef_bits[i] = k.prev_coef_bits[i] = -1;
     }
     progressive_ = marker == 0xC2 || marker == 0xCA;
     arith_ = marker == 0xC9 || marker == 0xCA;
@@ -620,10 +796,10 @@ class Decoder {
         if (idx[j] == idx[i]) corrupt("SOS names a component twice");
       td[i] = t >> 4;
       ta[i] = t & 15;
-      if (!arith_ && (td[i] > 3 || ta[i] > 3)) corrupt("bad Huffman table number");
     }
     int ss = byte(), se = byte(), a = byte();
     int ah = a >> 4, al = a & 15;
+    if (scans_ == 0) multi_scan_ = ns < ncomp_ || progressive_;
     if (ns > 1) {
       int blocks = 0;
       for (int i = 0; i < ns; ++i) blocks += comp_[idx[i]].h * comp_[idx[i]].v;
@@ -632,12 +808,15 @@ class Decoder {
     if (lossless_) {  // jdlossls.c start_pass_lossless
       if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8) corrupt("bad lossless parameters");
       for (int i = 0; i < ns; ++i) {
+        if (td[i] > 3) corrupt("bad Huffman table number");
+        if (!dc_[td[i]].defined) corrupt("undefined Huffman table");
+        table(dc_, td[i], true);
         const HuffTable& t = dc_[td[i]];
-        if (!t.defined) corrupt("undefined Huffman table");
         if (t.max_symbol > 16) corrupt("bad Huffman table");
       }
       lossless_scan(ns, idx, td, ss, al);
       ++scans_;
+      image_done_ = !multi_scan_;
       return;
     }
     for (int i = 0; i < ns; ++i) {  // jdinput.c latch_quant_tables
@@ -654,30 +833,55 @@ class Decoder {
       if (ah != 0 && al != ah - 1) bad = true;
       if (al > 13) bad = true;
       if (bad) corrupt("bad progression parameters");
+      // an AC scan before the DC scan, or an Ah the earlier scans did not
+      // leave, is only a warning to libjpeg (JWRN_BOGUS_PROGRESSION)
       for (int i = 0; i < ns; ++i) {
         Component& k = comp_[idx[i]];
-        if (!dc_band && k.coef_bits[0] < 0) corrupt("an AC scan before the DC scan");
-        for (int c = ss; c <= se; ++c) {
-          int expected = k.coef_bits[c] < 0 ? 0 : k.coef_bits[c];
-          if (ah != expected) corrupt("bogus progression");
-          k.coef_bits[c] = al;
-        }
+        for (int c = std::min(ss, 1); c <= std::max(se, 9); ++c)
+          k.prev_coef_bits[c] = scans_ > 0 ? k.coef_bits[c] : 0;
+        for (int c = ss; c <= se; ++c) k.coef_bits[c] = al;
       }
     }
     if (arith_) {
       arith_scan(ns, idx, td, ta, ss, se, ah, al);
       ++scans_;
+      image_done_ = !multi_scan_;
       return;
     }
-    for (int i = 0; i < ns; ++i) {
+    for (int i = 0; i < ns; ++i) {  // jdhuff.c / jdphuff.c start_pass: the tables used
       bool need_dc = !progressive_ || (ss == 0 && ah == 0);
       bool need_ac = !progressive_ || ss != 0;
-      if (need_dc && !dc_[td[i]].defined) corrupt("undefined Huffman table");
+      if (need_dc) table(dc_, td[i], true);
       if (need_dc && dc_[td[i]].max_symbol > 15) corrupt("bad Huffman table");
-      if (need_ac && !ac_[ta[i]].defined) corrupt("undefined Huffman table");
+      if (need_ac) table(ac_, ta[i], false);
     }
     scan(ns, idx, td, ta, ss, se, ah, al);
     ++scans_;
+    image_done_ = !multi_scan_;
+  }
+
+  // jpeg_make_d_derived_tbl: a table number past 3, or a table no DHT
+  // defined, is an error, except that jinit_huff_decoder gives a sequential
+  // Huffman frame the standard tables 0 and 1 where none are defined
+  // (jstdhuff.c, for Motion-JPEG); progressive and lossless frames get none
+  void table(HuffTable* tables, int number, bool dc) {
+    if (number > 3) corrupt("bad Huffman table number");
+    HuffTable& t = tables[number];
+    if (!t.defined) {
+      if (number > 1 || progressive_ || lossless_) corrupt("undefined Huffman table");
+      std::memcpy(t.bits, dc ? (number ? kDcChromBits : kDcLumBits) : (number ? kAcChromBits : kAcLumBits),
+                  17);
+      std::memset(t.raw_vals, 0, sizeof(t.raw_vals));
+      if (dc)
+        std::memcpy(t.raw_vals, kDcVals, sizeof(kDcVals));
+      else
+        std::memcpy(t.raw_vals, number ? kAcChromVals : kAcLumVals, 162);
+      t.defined = true;
+    }
+    if (!t.built) {
+      build_huff(t, t.bits, t.raw_vals);
+      t.built = true;
+    }
   }
 
   // the block (by, bx) of component idx[i] that MCU m's (v, h) block is, in
@@ -699,18 +903,40 @@ class Decoder {
     }
   }
 
-  void scan(int ns, const int* idx, const int* td, const int* ta, int ss, int se, int ah, int al) {
+  void start_reader() {
     br_.d = d_;
     br_.n = n_;
-    br_.pos = pos_;
-    br_.reset();
+    br_.fed = &pil_end_;
+    br_.reset(pos_);
+  }
+
+  // where the marker reader goes on after a scan's entropy-coded data
+  size_t end_of_data() { return br_.marker ? br_.marker_pos : resume_after(br_.pos); }
+
+  size_t resume_after(size_t p) {
+    try {
+      return after_entropy(p);
+    } catch (const Failure& f) {
+      if (f.truncation && !multi_scan_) return n_;  // the image is out; what follows is unseen
+      throw;
+    }
+  }
+
+  void scan(int ns, const int* idx, const int* td, const int* ta, int ss, int se, int ah, int al) {
+    start_reader();
     int pred[4] = {0, 0, 0, 0};
     int eobrun = 0;
     int mx_count, my_count;
     mcu_counts(ns, idx, &mx_count, &my_count);
     int64_t total = (int64_t)mx_count * my_count;
     int restarts_left = restart_interval_, next_rst = 0;
+    insufficient_ = false;
+    std::vector<int16_t*> blocks;
+    std::vector<const HuffTable*> dcs, acs;
+    std::vector<int> comp;
+    std::vector<int16_t> saved;
     for (int64_t m = 0; m < total; ++m) {
+      if (!insufficient_) last_good_imcu_ = imcu_row(ns, idx, m, mx_count);
       if (restart_interval_ && restarts_left == 0) {
         restart(next_rst);
         next_rst = (next_rst + 1) & 7;
@@ -718,17 +944,49 @@ class Decoder {
         pred[0] = pred[1] = pred[2] = pred[3] = 0;
         eobrun = 0;
       }
+      --restarts_left;
+      // past the marker: the blocks keep what they hold (zeros in a
+      // sequential frame, the earlier scans' coefficients in a progressive one)
+      if (insufficient_) continue;
+      blocks.clear();
+      dcs.clear();
+      acs.clear();
+      comp.clear();
       for (int i = 0; i < ns; ++i) {
         const Component& k = comp_[idx[i]];
         int nv = ns == 1 ? 1 : k.v, nh = ns == 1 ? 1 : k.h;
-        for (int v = 0; v < nv; ++v) {
+        for (int v = 0; v < nv; ++v)
           for (int h = 0; h < nh; ++h) {
-            int16_t* blk = block_at(ns, idx, i, m, mx_count, v, h);
+            blocks.push_back(block_at(ns, idx, i, m, mx_count, v, h));
+            dcs.push_back(&dc_[td[i] & 3]);
+            acs.push_back(&ac_[ta[i] & 3]);
+            comp.push_back(i);
+          }
+      }
+      // jdhuff.c decode_mcu: decode_mcu_fast where libjpeg has 512 bytes a
+      // block in hand, no restart interval and no marker met, falling back
+      // to the slow path at a marker; decoded again from the MCU's start
+      // after a suspension, with PIL's next block fed
+      saved.resize(blocks.size() * 64);
+      for (size_t b = 0; b < blocks.size(); ++b) std::memcpy(&saved[b * 64], blocks[b], 128);
+      const BitReader at_start = br_;
+      const int pred_start[4] = {pred[0], pred[1], pred[2], pred[3]};
+      const int eobrun_start = eobrun;
+      for (;;) {
+        try {
+          if (!progressive_ && !restart_interval_ && !br_.marker &&
+              std::min(pil_end_, n_) - br_.pos >= 512 * blocks.size()) {
+            if (mcu_fast(blocks, dcs, acs, comp, pred)) break;
+            br_ = at_start;
+          }
+          for (size_t b = 0; b < blocks.size(); ++b) {
+            int16_t* blk = blocks[b];
+            const int i = comp[b];
             if (!progressive_) {
-              sequential_block(blk, dc_[td[i]], ac_[ta[i]], pred[i]);
+              sequential_block(blk, *dcs[b], *acs[b], pred[i]);
             } else if (ss == 0) {
               if (ah == 0) {
-                int s = br_.decode(dc_[td[i]]);
+                int s = br_.decode(*dcs[b]);
                 if (s) s = extend(br_.get_bits(s), s);
                 pred[i] = (int)((unsigned)pred[i] + (unsigned)s);
                 blk[0] = (int16_t)(int)((unsigned)pred[i] << al);
@@ -736,16 +994,57 @@ class Decoder {
                 blk[0] = (int16_t)(blk[0] | (1 << al));
               }
             } else if (ah == 0) {
-              ac_first(blk, ac_[ta[i]], ss, se, al, eobrun);
+              ac_first(blk, *acs[b], ss, se, al, eobrun);
             } else {
-              ac_refine(blk, ac_[ta[i]], ss, se, al, eobrun);
+              ac_refine(blk, *acs[b], ss, se, al, eobrun);
             }
           }
+          break;
+        } catch (const Suspend&) {
+          br_ = at_start;
+          for (int c = 0; c < 4; ++c) pred[c] = pred_start[c];
+          eobrun = eobrun_start;
+          for (size_t b = 0; b < blocks.size(); ++b) std::memcpy(blocks[b], &saved[b * 64], 128);
+          pil_end_ += kPilBlock;
         }
       }
-      --restarts_left;
+      if (br_.hit) insufficient_ = true;
     }
-    pos_ = after_entropy(br_.pos);
+    pos_ = end_of_data();
+  }
+
+  // decode_mcu_fast: false where it met a marker (its writes stay)
+  bool mcu_fast(const std::vector<int16_t*>& blocks, const std::vector<const HuffTable*>& dcs,
+                const std::vector<const HuffTable*>& acs, const std::vector<int>& comp, int* pred) {
+    int p[4] = {pred[0], pred[1], pred[2], pred[3]};
+    for (size_t b = 0; b < blocks.size(); ++b) {
+      int16_t* blk = blocks[b];
+      int s = br_.decode_fast(*dcs[b]);
+      if (s) s = extend(br_.get_bits_fast(s), s);
+      p[comp[b]] = (int)((unsigned)p[comp[b]] + (unsigned)s);
+      blk[0] = (int16_t)p[comp[b]];
+      for (int k = 1; k < 64; ++k) {
+        s = br_.decode_fast(*acs[b]);
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          k += r;
+          blk[kNatural[k]] = (int16_t)extend(br_.get_bits_fast(s), s);
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+    }
+    if (br_.marker) return false;
+    for (int c = 0; c < 4; ++c) pred[c] = p[c];
+    return true;
+  }
+
+  // the iMCU row MCU m of a scan lies in
+  int imcu_row(int ns, const int* idx, int64_t m, int mx_count) const {
+    int my = (int)(m / mx_count);
+    return ns == 1 ? my / comp_[idx[0]].v : my;
   }
 
   void sequential_block(int16_t* blk, const HuffTable& dct, const HuffTable& act, int& pred) {
@@ -799,8 +1098,7 @@ class Decoder {
         int s = br_.decode(t);
         int r = s >> 4;
         s &= 15;
-        if (s) {
-          if (s != 1) corrupt("bad coefficient in a refinement scan");
+        if (s) {  // a size other than 1 is JWRN_HUFF_BAD_CODE: read as 1
           s = br_.get_bits(1) ? p1 : m1;
         } else if (r != 15) {
           eobrun = 1 << r;
@@ -884,24 +1182,17 @@ class Decoder {
     for (int64_t m = 0; m < total; ++m) {
       if (restart_interval_) {
         if (restarts_left == 0) {  // jdarith.c process_restart
-          size_t p;
-          int code = ar_.marker;
-          if (code) {
-            p = ar_.pos;
-          } else {
-            p = marker_at(ar_.pos, &code);
-            while (d_[p] == 0xFF) ++p;
-            ++p;
-          }
-          if (code != 0xD0 + next_rst) corrupt("missing restart marker");
+          int unread;
+          size_t p = resync(ar_.marker ? ar_.marker_pos : ar_.pos, next_rst, &unread);
           next_rst = (next_rst + 1) & 7;
           arith_reset_stats(ns, td, ta, ss, ah, last_dc, dc_ctx);
-          ar_.reset(p);
+          ar_.reset(p, unread);  // a marker left in place supplies zeros
           extent = std::max(extent, p);
           restarts_left = restart_interval_;
         }
         --restarts_left;
       }
+      last_good_imcu_ = imcu_row(ns, idx, m, mx_count);
       if (ar_.ct == -1) continue;  // a decoding error: the rest of the interval stays as is
       for (int i = 0; i < ns && ar_.ct != -1; ++i) {
         const Component& k = comp_[idx[i]];
@@ -917,9 +1208,9 @@ class Decoder {
       refused("arithmetic-coded JPEG whose scan data runs past PIL's 64 KiB read block "
               "(libjpeg's arithmetic decoder cannot wait for more input)");
     if (ar_.marker) {  // the marker the data ran into is the next one read
-      pos_ = ar_.pos - 2;
+      pos_ = ar_.marker_pos;
     } else {
-      pos_ = after_entropy(ar_.pos);
+      pos_ = resume_after(ar_.pos);
     }
   }
 
@@ -1009,15 +1300,15 @@ class Decoder {
   // --- lossless scans (jdlhuff.c, jddiffct.c, jdpred.c)
 
   void lossless_scan(int ns, const int* idx, const int* td, int psv, int pt) {
-    br_.d = d_;
-    br_.n = n_;
-    br_.pos = pos_;
-    br_.reset();
+    start_reader();
+    size_t everything = n_;  // jdlhuff.c has no fast path: a suspension changes nothing
+    br_.fed = &everything;
     int mx_count, my_count;
     mcu_counts(ns, idx, &mx_count, &my_count);
     const int per_restart = restart_interval_ ? restart_interval_ / mx_count : 0;
     int rows_left = per_restart, next_rst = 0;
     bool first_row[4] = {true, true, true, true};  // start_pass: the first-row undifferencer
+    insufficient_ = false;
     for (int imcu = 0; imcu < mcuy_; ++imcu) {
       const bool last = imcu == mcuy_ - 1;
       int mcu_rows = 1;
@@ -1034,6 +1325,11 @@ class Decoder {
             for (int i = 0; i < 4; ++i) first_row[i] = true;
           }
         }
+        // jdlhuff.c decode_mcus: past the marker an MCU row's differences are
+        // zero and the undifferencer starts over (samples at mid-grey)
+        const bool skip = insufficient_;
+        if (skip)
+          for (int i = 0; i < 4; ++i) first_row[i] = true;
         for (int mx = 0; mx < mx_count; ++mx) {
           for (int i = 0; i < ns; ++i) {
             Component& k = comp_[idx[i]];
@@ -1041,7 +1337,7 @@ class Decoder {
             for (int v = 0; v < nv; ++v)
               for (int h = 0; h < nh; ++h) {
                 int y = ns == 1 ? imcu * k.v + r : imcu * k.v + v, x = ns == 1 ? mx : mx * k.h + h;
-                int s = br_.decode(dc_[td[i]]);
+                int s = skip ? 0 : br_.decode(dc_[td[i]]);
                 if (s == 16) {
                   s = 32768;
                 } else if (s) {
@@ -1051,6 +1347,7 @@ class Decoder {
               }
           }
         }
+        if (br_.hit) insufficient_ = true;
         if (restart_interval_) --rows_left;
       }
       // undifference and scale the component rows of this iMCU row
@@ -1064,7 +1361,8 @@ class Decoder {
         }
       }
     }
-    pos_ = after_entropy(br_.pos);
+    pos_ = end_of_data();
+    br_.fed = &pil_end_;
   }
 
   static void undifference(Component& k, int y, int psv, int pt, bool first) {
@@ -1103,14 +1401,14 @@ class Decoder {
   // the marker that ends entropy-coded data: its position and code
   size_t marker_at(size_t p, int* code) {
     for (;;) {
-      if (p >= n_) corrupt("image file is truncated");
+      if (p >= n_) truncated();
       if (d_[p] != 0xFF) {
         ++p;  // extraneous bytes before the marker (libjpeg warns and skips)
         continue;
       }
       size_t q = p + 1;
       while (q < n_ && d_[q] == 0xFF) ++q;
-      if (q >= n_) corrupt("image file is truncated");
+      if (q >= n_) truncated();
       if (d_[q] != 0) {
         *code = d_[q];
         return p;
@@ -1119,13 +1417,54 @@ class Decoder {
     }
   }
 
-  void restart(int expected) {
+  // jdmarker.c read_restart_marker and jpeg_resync_to_restart: the marker
+  // that ends a restart interval, found from `p` (the data's next byte or a
+  // marker the data ran into). The expected RSTn is swallowed; otherwise
+  // libjpeg's recovery: a marker below SOF0, or one of the two restarts
+  // before the one expected, is skipped and the next marker decides again
+  // (action 2); any other non-RST marker, or one of the next two restarts,
+  // is left in place (action 3: the interval reads as empty); any other RST
+  // is discarded (action 1). Returns where the data resumes, with *unread
+  // the marker left in place, else 0.
+  size_t resync(size_t p, int expected, int* unread) {
     int code;
-    size_t p = marker_at(br_.pos, &code);
-    if (code != 0xD0 + expected) corrupt("missing restart marker");
-    while (d_[p] == 0xFF) ++p;
-    br_.pos = p + 1;
-    br_.reset();
+    size_t start = marker_at(p, &code);
+    auto past = [this](size_t at) {
+      while (d_[at] == 0xFF) ++at;
+      return at + 1;
+    };
+    *unread = 0;
+    if (code == 0xD0 + expected) return past(start);
+    for (;;) {
+      int action = 1;
+      if (code < 0xC0) {
+        action = 2;
+      } else if (code < 0xD0 || code > 0xD7) {
+        action = 3;
+      } else {
+        const int r = code - 0xD0;
+        if (r == ((expected + 1) & 7) || r == ((expected + 2) & 7))
+          action = 3;
+        else if (r == ((expected - 1) & 7) || r == ((expected - 2) & 7))
+          action = 2;
+      }
+      if (action == 1) return past(start);
+      if (action == 3) {
+        *unread = code;
+        return start;
+      }
+      start = marker_at(past(start), &code);
+    }
+  }
+
+  // jdhuff.c process_restart: the bit buffer is dropped; insufficient_data
+  // is cleared unless a marker was left in place
+  void restart(int expected) {
+    int unread;
+    const size_t p = resync(br_.marker ? br_.marker_pos : br_.pos, expected, &unread);
+    while (p > pil_end_) pil_end_ += kPilBlock;  // next_marker waits for PIL's blocks
+    br_.reset(p);
+    if (!unread) insufficient_ = false;
   }
 
   size_t after_entropy(size_t p) {
@@ -1250,15 +1589,20 @@ class Decoder {
     }
     // decompress_smooth_data, over the iMCU rows as libjpeg walks them (its
     // image_block_row of the last iMCU row counts that row's own height)
-    const int* bits = k.coef_bits;
-    bool change_dc = true;  // DC interpolation only where no AC scan came
-    for (int i = 1; i < 10; ++i)
-      if (bits[i] != -1) change_dc = false;
+    // the coefficient bits latched at the output pass; the iMCU rows past
+    // last_good_iMCU_row (the last scan ran out of data there) take those
+    // from before each component's last scan
+    int prev_bits[64];
+    for (int i = 0; i < 64; ++i) prev_bits[i] = i == 0 ? k.coef_bits[0] : scans_ > 1 ? k.prev_coef_bits[i] : -1;
     const int64_t q00 = k.qt[0];
     const int total = mcuy_, last_col = k.width_in_blocks - 1;
     auto dc = [&](int row, int col) { return (int64_t)k.coef[((size_t)row * k.bw + col) * 64]; };
     int16_t ws[64];
     for (int imcu = 0; imcu < total; ++imcu) {
+      const int* bits = imcu > last_good_imcu_ ? prev_bits : k.coef_bits;
+      bool change_dc = true;  // DC interpolation only where no AC scan came
+      for (int i = 1; i < 10; ++i)
+        if (bits[i] != -1) change_dc = false;
       int block_rows = imcu < total - 1 ? k.v
                                         : (k.height_in_blocks % k.v ? k.height_in_blocks % k.v : k.v);
       int image_block_rows = block_rows * total;
@@ -1479,37 +1823,6 @@ class Decoder {
 };
 
 // ---------------------------------------------------------------- encoder
-
-// jstdhuff.c: the standard tables of the JPEG specification, K.3
-const uint8_t kDcLumBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
-const uint8_t kDcChromBits[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
-const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
-const uint8_t kAcLumBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
-const uint8_t kAcLumVals[162] = {
-    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
-    0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
-    0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
-    0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
-    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
-    0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
-    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
-    0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
-    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
-    0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
-    0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
-const uint8_t kAcChromBits[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
-const uint8_t kAcChromVals[162] = {
-    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
-    0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
-    0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
-    0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
-    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
-    0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
-    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
-    0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
-    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
-    0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
-    0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
 // jcparam.c: the standard quantization tables (natural order)
 const uint16_t kLumQuant[64] = {

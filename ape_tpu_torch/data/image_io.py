@@ -10,40 +10,59 @@ it, for:
   PIL 12.1 on libjpeg-turbo 3.1 decodes it (no EXIF orientation applied,
   as JAX's reader applies none): Huffman baseline, extended and
   progressive, arithmetic-coded sequential and progressive, lossless;
-  gray, YCbCr, RGB, CMYK and YCCK; libjpeg's block smoothing;
+  gray, YCbCr, RGB, CMYK and YCCK; libjpeg's block smoothing; and damaged
+  entropy-coded data as libjpeg recovers it (zero bits past a marker and
+  the rest of the restart interval skipped, restart markers resynced, a
+  code no table holds read as 0, the standard Huffman tables where a
+  sequential frame defines none, nothing after a single-scan image's scan
+  looked at);
 * PNG, decoded with the standard library's ``zlib``: every color type and
   bit depth the format has (gray at 1, 2, 4, 8 and 16 bits, palette at 1,
   2, 4 and 8, gray + alpha, RGB and RGBA at 8 and 16), plain or Adam7
   interlaced, every filter type. The alpha channel is dropped, gray is
   repeated over the three channels, a palette is looked up, 16-bit color
   keeps its high byte and 16-bit gray is clipped to 255, as PIL converts;
+* BMP (``data.bmp``): 1-, 4- and 8-bit palettes, RLE8 and RLE4, 16-bit
+  555 and 565, 24-bit, 32-bit with every BITFIELDS mask set PIL takes,
+  OS/2, V4 and V5 headers, top-down rows;
+* GIF (``data.gif``): the first frame as PIL presents it (the screen
+  around it filled with the transparency index or 0, a palette looked up,
+  mode "L" where the palette is the identity gray ramp);
+* WebP (``data.webp``): lossy, lossless, with alpha, animated (the first
+  frame on its canvas), as libwebp 1.6's WebPAnimDecoder gives it to PIL;
 * ``.npy``: a uint8 (H, W) or (H, W, 3|4) array.
 
-The format is read off the file's first bytes, as PIL sniffs it: a PNG
-named ``.jpg`` reads as PNG and a JPEG named ``.png`` as JPEG.
+The format is read off the file's first bytes, as PIL's plugins sniff it
+(``sniff``): a PNG named ``.jpg`` reads as PNG and a WebP named ``.bmp`` as
+WebP.
 
 ``read_image`` returns None with a warning, as JAX's reader does on PIL's
-exception (its mapper then drops the record), for a file that is corrupt (a
-bad CRC, a truncated stream, an empty file) and for one PIL refuses too
-(12-bit, 2-component, hierarchical, lossless arithmetic-coded JPEG,
-fractional sampling ratios, a height left to a DNL marker, lossless JPEG
-that needs a colour conversion, an arithmetic-coded scan past PIL's 64 KiB
-read block; a PNG of an undefined color type and depth). A file PIL reads
-and the port does not (GIF, BMP, TIFF, WebP and any other format) raises
-``ValueError`` naming it, so that no record JAX trains on is dropped
-quietly.
+exception (its mapper then drops the record), for a file that is corrupt in
+a way PIL raises on (a truncated stream, a bad CRC, an empty file, a GIF
+whose LZW data breaks, a WebP shorter than its RIFF size) and for one PIL
+refuses too (12-bit, 2-component, hierarchical, lossless arithmetic-coded
+JPEG, fractional sampling ratios, a height left to a DNL marker, lossless
+JPEG that needs a colour conversion, an arithmetic-coded scan past PIL's
+64 KiB read block; a PNG of an undefined color type and depth; a BMP of an
+unknown depth, mask set or compression; a RIFF WebP whose first chunk PIL
+does not take). A file PIL reads and the port does not (TIFF, PPM, ICO,
+TGA, AVIF, JPEG 2000 and any other format) raises ``ValueError`` naming it,
+so that no record JAX trains on is dropped quietly.
 
 ``read_rgb`` is the same read raising ``CorruptImage`` where ``read_image``
 returns None (the panoptic mapper's ``convert("RGB")`` of an id PNG);
-``read_label_map`` gives a PNG's stored samples as ``np.asarray(Image.open(f))``
-does (the semantic labels: palette indices, not colours; 16-bit gray as
-uint16).
+``read_label_map`` gives a PNG's, BMP's or GIF's stored samples as
+``np.asarray(Image.open(f))`` does (the semantic labels: palette indices,
+not colours; 16-bit gray as uint16; a BMP's "1" as bool, its direct colour
+as RGB or RGBA).
 
 ``write_png`` writes gray, RGB or RGBA uint8 arrays (filter type 0 or 1 per
 row, alternating, so the reader's filters are exercised). ``write_image``
 is the counterpart of PIL's ``Image.fromarray(x).save(path)``: ``.jpg`` and
-``.jpeg`` through ``encode_jpeg`` (PIL's bytes), ``.png`` through
-``write_png`` (the same pixels, not PIL's bytes).
+``.jpeg`` through ``encode_jpeg`` (PIL's bytes), ``.bmp`` through
+``encode_bmp`` (PIL's bytes), ``.png`` through ``write_png`` (the same
+pixels, not PIL's bytes); ``.webp``, ``.gif`` and other extensions raise
+``ValueError`` naming them.
 """
 
 from __future__ import annotations
@@ -65,12 +84,24 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
          (0, 1, 1, 2))  # (x0, y0, dx, dy) of each interlace pass
 # first bytes of the formats PIL reads and the port does not (their plugins' _accept)
-_OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
-                  (b"MM\x00*", "TIFF"))
+_OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"),
+                  (b"MM\x00+", "TIFF"), (b"\x00\x00\x01\x00", "ICO"), (b"P1", "PPM"),
+                  (b"P2", "PPM"), (b"P3", "PPM"), (b"P4", "PPM"), (b"P5", "PPM"), (b"P6", "PPM"),
+                  (b"P7", "PPM"), (b"Pf", "PPM"), (b"PF", "PPM"),
+                  (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
+                  (b"\xff\x4f\xff\x51", "JPEG 2000"))
+MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3  # PIL's Image.MAX_IMAGE_PIXELS
 
 
 class CorruptImage(ValueError):
     """A file of a format the port reads whose content is damaged."""
+
+
+def bomb_check(width: int, height: int) -> None:
+    """PIL's ``_decompression_bomb_check``: ``Image.open`` raises past twice
+    ``MAX_IMAGE_PIXELS``."""
+    if max(1, width) * max(1, height) > 2 * MAX_IMAGE_PIXELS:
+        raise CorruptImage(f"image size ({width}x{height}) exceeds the decompression-bomb limit")
 
 
 def _chunks(data: bytes):
@@ -193,12 +224,23 @@ def read_label_map(file_name: str) -> np.ndarray:
     values (H, W) uint8 (1-bit gray bool, as PIL's mode "1"; 16-bit gray
     uint16, as its "I;16"), gray + alpha (H, W, 2), RGB (H, W, 3) and RGBA
     (H, W, 4), 16-bit color as the high bytes (16-bit gray + alpha as RGBA,
-    the gray repeated, as PIL opens it). Another format, and a corrupt file,
+    the gray repeated, as PIL opens it); for a BMP or GIF, ``decode_bmp``'s
+    and ``decode_gif``'s samples. Another format, and a corrupt file,
     raise."""
     with open(file_name, "rb") as f:
         data = f.read()
-    if not data.startswith(PNG_MAGIC):
-        raise ValueError(f"{file_name}: the port reads label maps from PNG files only")
+    kind = sniff(data)
+    if kind == "gif":
+        from ape_tpu_torch.data.gif import decode_gif
+
+        return decode_gif(data)[0]
+    if kind == "bmp":
+        from ape_tpu_torch.data.bmp import decode_bmp
+
+        return decode_bmp(data)[0]
+    if kind != "png":
+        raise ValueError(f"{file_name}: the port reads label maps from PNG, BMP and GIF files "
+                         "only")
     pixels, color, depth, _ = _png_samples(data)
     if color in (0, 3):
         return pixels[..., 0].astype(bool) if color == 0 and depth == 1 else pixels[..., 0]
@@ -210,10 +252,10 @@ def read_label_map(file_name: str) -> np.ndarray:
 
 
 def read_rgb(file_name: str) -> np.ndarray:
-    """RGB uint8 (H, W, 3) of a JPEG, PNG or ``.npy`` file (module
-    docstring), raising ``CorruptImage`` on a corrupt file and on one PIL
-    refuses, as PIL's ``Image.open(file_name).convert("RGB")`` raises, and
-    ValueError for a format PIL reads and the port does not."""
+    """RGB uint8 (H, W, 3) of a JPEG, PNG, BMP, GIF, WebP or ``.npy`` file
+    (module docstring), raising ``CorruptImage`` on a corrupt file and on
+    one PIL refuses, as PIL's ``Image.open(file_name).convert("RGB")``
+    raises, and ValueError for a format PIL reads and the port does not."""
     if str(file_name).endswith(".npy"):
         try:
             arr = np.load(file_name)
@@ -227,25 +269,82 @@ def read_rgb(file_name: str) -> np.ndarray:
             arr[..., :1], 3, axis=2)
     with open(file_name, "rb") as f:
         data = f.read()
+    kind = sniff(data)
+    if kind is None:
+        if not data:
+            raise CorruptImage(f"{file_name}: an empty file")
+        raise ValueError(f"{file_name}: {_format_name(data, file_name)}, which PIL reads and the "
+                         "port does not yet (the port reads JPEG, PNG, BMP, GIF, WebP and .npy "
+                         "images)")
+    return decode_rgb(data, kind)
+
+
+def sniff(data: bytes) -> Optional[str]:
+    """The container the port reads that PIL would open ``data`` as, by its
+    plugins' ``_accept`` tests: "jpeg", "png", "bmp", "gif", "webp", or None.
+    A RIFF WebP file whose first chunk is not VP8, VP8L or VP8X is no image
+    to PIL: "webp" all the same, and its decoder refuses it."""
     if data.startswith(JPEG_MAGIC):
-        from ape_tpu_torch.data.jpeg import decode_jpeg as decode
-    elif data.startswith(PNG_MAGIC):
-        decode = decode_png
-    elif not data:
-        raise CorruptImage(f"{file_name}: an empty file")
-    else:
-        raise ValueError(f"{file_name}: {_format_name(data)}, which PIL reads and the port does "
-                         "not yet (the port reads JPEG, PNG and .npy images)")
-    return decode(data)
-
-
-def _format_name(data: bytes) -> str:
-    """The container PIL would sniff in ``data``'s first bytes, for the error."""
+        return "jpeg"
+    if data.startswith(PNG_MAGIC):
+        return "png"
+    if data.startswith(b"BM"):
+        return "bmp"
+    if data.startswith((b"GIF87a", b"GIF89a")):
+        return "gif"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "a WebP image"
+        return "webp"
+    return None
+
+
+def decode_rgb(data: bytes, kind: str) -> np.ndarray:
+    """The bytes of a ``sniff``-ed container -> RGB uint8 (H, W, 3), PIL's
+    ``convert("RGB")``: palettes looked up, gray repeated, alpha dropped."""
+    if kind == "jpeg":
+        from ape_tpu_torch.data.jpeg import decode_jpeg
+
+        return decode_jpeg(data)
+    if kind == "png":
+        return decode_png(data)
+    if kind == "webp":
+        from ape_tpu_torch.data.webp import decode_webp
+
+        return np.ascontiguousarray(decode_webp(data)[..., :3])
+    if kind == "gif":
+        from ape_tpu_torch.data.gif import decode_gif
+
+        samples, palette = decode_gif(data)
+        mode = "L" if palette is None else "P"
+    else:
+        from ape_tpu_torch.data.bmp import decode_bmp
+
+        samples, mode, palette = decode_bmp(data)
+    if mode == "P":
+        return _palette_lookup(samples, palette)
+    if mode in ("L", "1"):
+        gray = samples.astype(np.uint8) * np.uint8(255) if mode == "1" else samples
+        return np.repeat(gray[..., None], 3, axis=2)
+    return np.ascontiguousarray(samples[..., :3])
+
+
+def _palette_lookup(indices: np.ndarray, palette: np.ndarray) -> np.ndarray:
+    """P -> RGB as PIL converts it: a palette of fewer than 256 entries
+    gives black past its end."""
+    full = np.zeros((256, 3), np.uint8)
+    full[:min(len(palette), 256)] = palette[:256]
+    return full[indices]
+
+
+def _format_name(data: bytes, file_name: str = "") -> str:
+    """The container PIL would sniff in ``data``'s first bytes, for the error."""
     for magic, name in _OTHER_FORMATS:
         if data.startswith(magic):
             return f"a {name} image"
+    if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis", b"mif1", b"msf1"):
+        return "an AVIF image"
+    if data.endswith(b"TRUEVISION-XFILE.\x00") or str(file_name).lower().endswith(
+            (".tga", ".icb", ".vda", ".vst")):
+        return "a TGA image"
     return f"an image of another format (first bytes {data[:8].hex()})"
 
 
@@ -263,18 +362,22 @@ def read_image(file_name: str) -> Optional[np.ndarray]:
 def write_image(file_name: str, image: np.ndarray) -> None:
     """Write a uint8 (H, W) or (H, W, 3) image as PIL's
     ``Image.fromarray(image).save(file_name)`` does, by its extension:
-    ``.jpg``/``.jpeg`` as JPEG (PIL's bytes), ``.png`` as PNG."""
+    ``.jpg``/``.jpeg`` as JPEG and ``.bmp`` as BMP (PIL's bytes), ``.png``
+    as PNG."""
     ext = os.path.splitext(str(file_name))[1].lower()
-    if ext in (".jpg", ".jpeg"):
-        from ape_tpu_torch.data.jpeg import encode_jpeg
+    if ext in (".jpg", ".jpeg", ".bmp"):
+        if ext == ".bmp":
+            from ape_tpu_torch.data.bmp import encode_bmp as encode
+        else:
+            from ape_tpu_torch.data.jpeg import encode_jpeg as encode
 
-        data = encode_jpeg(image)
+        data = encode(image)
         with open(file_name, "wb") as f:
             f.write(data)
     elif ext == ".png":
         write_png(file_name, image)
     else:
-        raise ValueError(f"{file_name}: the port writes .jpg, .jpeg and .png images, not "
+        raise ValueError(f"{file_name}: the port writes .jpg, .jpeg, .png and .bmp images, not "
                          f"{ext or 'a file without an extension'}")
 
 

@@ -12,12 +12,16 @@ CMYK and YCCK, and libjpeg's block smoothing of progressive files whose
 scans leave low coefficients unrefined. No EXIF orientation is applied
 (JAX's reader applies none).
 
-A damaged or truncated stream raises ``image_io.CorruptImage``, and so does
-a file PIL refuses too (12-bit or 2-component frames, hierarchical or
-lossless arithmetic-coded frames, fractional sampling ratios, a height left
-to a DNL marker, a lossless frame that needs a colour conversion, an
-arithmetic-coded scan past PIL's 64 KiB read block): ``image_io.read_image``
-turns both into None, as JAX's reader turns PIL's exception into None.
+Damaged entropy-coded data decodes as libjpeg recovers it (see
+``csrc/jpeg_host.cpp``: zero bits past a marker, restart resync, a bad code
+read as 0). A stream PIL raises on (cut where libjpeg's read-ahead reaches
+the end of the file, a broken marker segment) raises
+``image_io.CorruptImage``, and so does a file PIL refuses too (12-bit or
+2-component frames, hierarchical or lossless arithmetic-coded frames,
+fractional sampling ratios, a height left to a DNL marker, a lossless frame
+that needs a colour conversion, an arithmetic-coded scan past PIL's 64 KiB
+read block): ``image_io.read_image`` turns both into None, as JAX's reader
+turns PIL's exception into None.
 
 ``encode_jpeg`` writes the bytes of ``PIL.Image.fromarray(x).save(f)`` with
 no options (quality 75, 4:2:0 for RGB, standard Huffman tables).

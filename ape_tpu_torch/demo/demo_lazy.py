@@ -5,9 +5,11 @@
         --text-prompt "person,dog" [--with-mask] [--with-sseg] key=value ...
 
 JAX's flags and outputs: one overlay a file under ``--output`` with the
-input's basename (written by ``data.image_io.write_image``: a ``.jpg`` input
-gives PIL's JPEG bytes for the overlay), and ``predictions.json`` with one
-row an instance (every instance the model returns, score at least 0.05:
+input's basename (the input read by ``data.image_io.read_image``: JPEG, PNG,
+BMP, GIF or WebP, by content; the overlay written by ``write_image``: a
+``.jpg`` or ``.bmp`` name gives PIL's bytes, a ``.webp`` or ``.gif`` name
+raises ``ValueError``, as the port writes neither), and ``predictions.json``
+with one row an instance (every instance the model returns, score at least 0.05:
 image id, category id and name, xywh box, score). ``--video-input``,
 ``--webcam`` and ``--grabcut`` need OpenCV and raise ``ImportError`` without
 it.

@@ -10,7 +10,8 @@ Nothing is compiled when a module is imported: the first kernel launch
 builds. A failed build raises.
 
 ``host_library`` builds the host-side C++ sources (``csrc/*.cpp``: the JPEG
-codec and the PNG unfilter) with the host compiler (``$CXX``, else ``c++``
+codec, the PNG unfilter, BMP's run lengths, GIF's LZW and the WebP decoder)
+with the host compiler (``$CXX``, else ``c++``
 or ``g++``) into a library of their own beside it, keyed the same way; it
 needs no CUDA, so it builds and runs on any machine, the CPU-only one
 included.
@@ -211,6 +212,18 @@ def host_library() -> ctypes.CDLL:
     # PNG scanlines: data, height, stride, bytes a pixel, out
     lib.ape_png_unfilter.argtypes = [p, i, i, i, p]
     lib.ape_png_unfilter.restype = i
+    # BMP run lengths: file, length, offset, rle4, width, height, out
+    lib.ape_bmp_rle.argtypes = [p, size, size, i, i, i, p]
+    lib.ape_bmp_rle.restype = i
+    # GIF image data: file, length, offset, code size, interlace, width, height, out
+    lib.ape_gif_lzw.argtypes = [p, size, size, i, i, i, i, p]
+    lib.ape_gif_lzw.restype = i
+    # WebP: data, length, out (RGBA), width, height, err, errlen
+    lib.ape_webp_decode.argtypes = [p, size, out, ctypes.POINTER(i), ctypes.POINTER(i),
+                                    ctypes.c_char_p, i]
+    lib.ape_webp_decode.restype = i
+    lib.ape_webp_free.argtypes = [p]
+    lib.ape_webp_free.restype = None
     return lib
 
 

@@ -3863,6 +3863,31 @@ IMAGE_FORMS_DIGESTS = {
     "label_16bit": "45a11c5e4ca4455c268513132252c197e097cf85753f8522031c97ddf46a7491"}
 # the forms PIL refuses, made from the files above: the mapper pass drops them
 FORMS_REFUSED = ("12-bit", "hierarchical", "arithmetic_past_read_block", "truncated")
+# image_containers: the BMP, GIF and WebP images JAX's reader takes and the
+# damaged JPEGs libjpeg recovers, at FORMS_SIZE. The WebP files come from
+# tests/make_image_container_fixtures.py (the card machine has no libwebp);
+# the rest are written here by tests/torch_image_writers.py and the port's
+# JPEG encoder.
+CONTAINER_FIXTURES = "tests/data/image_containers"
+# SHA-256 of np.asarray(Image.open(f).convert("RGB")) under PIL 12.1 for each
+# file image_containers_files() gives (tests/test_torch_image_containers.py
+# asserts them)
+IMAGE_CONTAINERS_DIGESTS = {
+    "webp_lossy.webp": "3a0d41e459cfb07e9c7103144a8a4bb653b0f74b469973abdc1e78a61186dd18",
+    "webp_alpha.webp": "10fa1d91a54bf18a6f6890e7e3ae9a9bdea45135749d58a734313b0c5f79c451",
+    "webp_lossless.webp": "862b35df28ad999806d400e71b7f125e413052d288cac51bda1bf238e19cbd14",
+    "webp_animated.webp": "6a620ff35b3d3fa9fcc0cdcd41d0b66b2830b8c7a2fbb5f56792dabd6087c2a8",
+    "gif.gif": "8abb43bc2fa438946a5292dc25de7220fb20a2ab39f7c137dd8765e83e4bd418",
+    "gif_interlaced.gif": "8abb43bc2fa438946a5292dc25de7220fb20a2ab39f7c137dd8765e83e4bd418",
+    "gif_local_palette.gif": "30e58b0f392856714f3a4678c9921cfd6bc24f0b55596967a64654b3498aa1a6",
+    "bmp_24.bmp": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "bmp_rle8.bmp": "8abb43bc2fa438946a5292dc25de7220fb20a2ab39f7c137dd8765e83e4bd418",
+    "bmp_bitfields.bmp": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "jpeg_hit_marker.jpg": "492b4f65c5703f2f1e696c3e1ac4709454235e9264f2887b52ef931d2c971b72",
+    "jpeg_bad_code.jpg": "e70e95c8987d129990f76d526262643dfe166ef08041486a22c9729e8b5b8616",
+    "jpeg_restart_moved.jpg": "14e192b172b9e9cdd44889f5d3eb2fb113884c964d3a9c6257232c0fc829571b"}
+# a GIF cut inside its image data, which PIL refuses: the mapper pass drops it
+CONTAINERS_REFUSED = "gif_truncated"
 DEMO_PROMPT = "person,dog,frisbee"
 DEMO_INPUTS = (("landscape.jpg", (480, 640), "RGB"), ("portrait.jpg", (640, 427), "RGB"),
                ("gray.jpg", (480, 640), "L"))
@@ -4358,10 +4383,144 @@ def image_forms_phase(card, tmp: Path) -> bytes:
     return files["ycck"]
 
 
+def container_image():
+    """The image_containers files' seeded 640x480 RGB image and an alpha
+    plane (a radial ramp with transparent tiles)."""
+    import numpy as np
+
+    h, w = FORMS_SIZE
+    img = jpeg_check_image(SEED + 9, h, w)
+    yy, xx = np.mgrid[0:h, 0:w]
+    alpha = np.clip(255 - np.hypot(yy - h // 2, xx - w // 2) * 0.8, 0, 255).astype(np.uint8)
+    alpha[(xx // 40 + yy // 40) % 5 == 0] = 0
+    return img, alpha
+
+
+def image_containers_files() -> dict:
+    """name -> the bytes of each file of the image_containers phase: the
+    WebP fixtures (lossy, lossy with alpha, lossless, animated); a GIF, an
+    interlaced GIF and a GIF whose frame has a local palette (indices of an
+    8x8x4 colour cube); a 24-bit, an RLE8 and a 32-bit BITFIELDS BMP; and
+    three damaged JPEGs libjpeg recovers: PIL's bytes (the port's encoder)
+    with the entropy-coded data cut at 60 % before EOI (``hit_marker``), with
+    eight stuffed 0xFF bytes spliced in twice (``bad_code``), and a
+    restart-interval file with one RST marker renumbered and the next one
+    removed (``restart_moved``)."""
+    import numpy as np
+
+    from ape_tpu_torch.data.jpeg import encode_jpeg
+
+    W = _image_writers()
+    h, w = FORMS_SIZE
+    img, _ = container_image()
+    files = {name: (ROOT / CONTAINER_FIXTURES / name).read_bytes()
+             for name in ("webp_lossy.webp", "webp_alpha.webp", "webp_lossless.webp",
+                          "webp_animated.webp")}
+    cube = np.array([[r * 32 + 16, g * 32 + 16, b * 64 + 32] for r in range(8) for g in range(8)
+                     for b in range(4)], np.uint8)
+    idx = ((img[..., 0] >> 5) * 32 + (img[..., 1] >> 5) * 4 + (img[..., 2] >> 6)).astype(np.uint8)
+    files["gif.gif"] = W.gif([dict(indices=idx)], global_palette=cube)
+    files["gif_interlaced.gif"] = W.gif([dict(indices=idx, interlace=True)], global_palette=cube)
+    files["gif_local_palette.gif"] = W.gif([dict(indices=idx[::-1], palette=cube[::-1])],
+                                           global_palette=cube)
+    files["bmp_24.bmp"] = W.bmp(img, 24)
+    files["bmp_rle8.bmp"] = W.bmp(idx, 8, palette=cube, compression=1)
+    argb = (img[..., 0].astype(np.uint32) << 16) | (img[..., 1].astype(np.uint32) << 8) | img[..., 2]
+    files["bmp_bitfields.bmp"] = W.bmp(argb << 8, 32, compression=3, header=56,
+                                       masks=(0xFF000000, 0xFF0000, 0xFF00, 0))
+    jpeg = encode_jpeg(img)
+    sos = jpeg.index(b"\xff\xda")
+    start, end = sos + 2 + int.from_bytes(jpeg[sos + 2:sos + 4], "big"), len(jpeg) - 2
+    files["jpeg_hit_marker.jpg"] = jpeg[:start + (end - start) * 3 // 5] + b"\xff\xd9"
+    bad = b"\xff\x00" * 8  # 64 one bits: longer than any code
+    third = start + (end - start) // 3
+    files["jpeg_bad_code.jpg"] = jpeg[:third] + bad + jpeg[third:2 * third - start] + bad + \
+        jpeg[2 * third - start:]
+    q = [W.quality_table(W.LUM_QUANT, 75), W.quality_table(W.CHROM_QUANT, 75)]
+    s420 = ((2, 2), (1, 1), (1, 1))
+    rst = bytearray(W.huffman_jpeg(w, h, s420, W.coefficients(W.planes_of(img, "ycc"), s420, q), q,
+                                   restart=40))
+    at = [i for i in range(len(rst) - 1) if rst[i] == 0xFF and 0xD0 <= rst[i + 1] <= 0xD7]
+    rst[at[10] + 1] = 0xD0 + (rst[at[10] + 1] - 0xD0 + 3) % 8
+    files["jpeg_restart_moved.jpg"] = bytes(rst[:at[11]] + rst[at[11] + 2:])
+    return files
+
+
+def image_containers_phase(card, tmp: Path) -> bytes:
+    """Each file of ``image_containers_files`` written under ``tmp`` and
+    read by the port on this machine's host: the SHA-256 of its pixels
+    against PIL's (IMAGE_CONTAINERS_DIGESTS), its decode ms (median of
+    FORMS_ITERS, host clock) beside the card's name and power limit. Then
+    one pass of the port's DatasetMapperDETR over the damaged JPEGs, which
+    it keeps, and CONTAINERS_REFUSED, which it drops with a warning, as
+    JAX's mapper drops what PIL refuses. Returns the lossy WebP file, which
+    the demo then serves."""
+    import logging
+
+    import numpy as np
+
+    from ape_tpu_torch.data.image_io import read_image
+    from ape_tpu_torch.data.mapper import DatasetMapperDETR
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    files = image_containers_files()
+    write_s = time.perf_counter() - t0
+    decoded = {}
+    for name, data in files.items():
+        path = tmp / name
+        path.write_bytes(data)
+        pixels = read_image(str(path))
+        if pixels is None or _sha(pixels.tobytes()) != IMAGE_CONTAINERS_DIGESTS[name]:
+            fail(f"image_containers: {name} reads to {None if pixels is None else pixels.shape}, "
+                 "not PIL's pixels")
+        times = []
+        for _ in range(FORMS_ITERS):
+            t0 = time.perf_counter()
+            read_image(str(path))
+            times.append(time.perf_counter() - t0)
+        decoded[name] = {"bytes": len(data), "decode_ms": float(np.median(times)) * 1e3}
+    gif = files["gif.gif"]
+    (tmp / f"{CONTAINERS_REFUSED}.gif").write_bytes(gif[:len(gif) // 2])
+    records = [{"file_name": str(tmp / name), "image_id": i, "height": FORMS_SIZE[0],
+                "width": FORMS_SIZE[1], "annotations": []}
+               for i, name in enumerate(n for n in files if n.startswith("jpeg_"))]
+    records.append({"file_name": str(tmp / f"{CONTAINERS_REFUSED}.gif"), "image_id": len(records),
+                    "height": FORMS_SIZE[0], "width": FORMS_SIZE[1], "annotations": []})
+    warnings = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+
+    catch = Catch(logging.WARNING)
+    port_logger = logging.getLogger("ape_tpu_torch")
+    port_logger.addHandler(catch)
+    mapper = DatasetMapperDETR(is_train=True, image_size=IMG, seed=SEED)
+    t0 = time.perf_counter()
+    try:
+        out = {Path(r["file_name"]).stem: mapper(r) for r in records}
+    finally:
+        port_logger.removeHandler(catch)
+    mapper_s = time.perf_counter() - t0
+    dropped = sorted(name for name, ex in out.items() if ex is None)
+    if dropped != [CONTAINERS_REFUSED] or len(warnings) != 1 or any(
+            ex is not None and not np.isfinite(ex["image"]).all() for ex in out.values()):
+        fail(f"image_containers: the mapper dropped {dropped} with warnings {warnings}, expected "
+             f"[{CONTAINERS_REFUSED}]")
+    log(phase="image_containers", size=list(FORMS_SIZE), files=decoded, write_s=write_s,
+        mapper={"records": len(records), "kept": len(records) - len(dropped), "dropped": dropped,
+                "warnings": warnings, "seconds": mapper_s}, card=card)
+    log(phase="image_containers_done", seconds=time.perf_counter() - t_phase)
+    return files["webp_lossy.webp"]
+
+
 def demo_phase(dev, card, checkpoint: Path):
     """The prompted demo CLI (``demo_lazy.main``) on TN_CONFIG with the
     train_net phase's ``checkpoint``: DEMO_INPUTS written as JPEG by the
-    port and the YCCK file of ``image_forms_phase`` (which runs first),
+    port, the YCCK file of ``image_forms_phase`` and the lossy WebP file of
+    ``image_containers_phase`` (which run first; the WebP under a .bmp name,
+    so that its overlay is written as BMP),
     DEMO_PROMPT, masks and sem_seg. Gates: the codec's digests
     (``codec_check``), exactly FORWARD_LAUNCHES a request, each overlay
     decoding to its input's shape, ``predictions.json`` holding every
@@ -4390,8 +4549,14 @@ def demo_phase(dev, card, checkpoint: Path):
         shapes[name] = (h, w, 3)
     forms_s = time.perf_counter()
     (tmp / "in" / "ycck.jpg").write_bytes(image_forms_phase(card, tmp / "forms"))
+    (tmp / "containers").mkdir()
+    # the lossy WebP under a .bmp name: read by its content, as PIL reads it,
+    # and its overlay written as BMP (a .webp overlay would raise, since the
+    # port writes no WebP)
+    (tmp / "in" / "webp_lossy.bmp").write_bytes(image_containers_phase(card, tmp / "containers"))
     forms_s = time.perf_counter() - forms_s
     shapes["ycck.jpg"] = FORMS_SIZE + (3,)
+    shapes["webp_lossy.bmp"] = FORMS_SIZE + (3,)
     per_request = []
     run_on_image = predictor_lazy.VisualizationDemo.run_on_image
 
@@ -4403,8 +4568,8 @@ def demo_phase(dev, card, checkpoint: Path):
 
     out = tmp / "out"
     argv = ["--config-file", str(ROOT / TN_CONFIG), "--input", str(tmp / "in" / "*.jpg"),
-            "--output", str(out), "--text-prompt", DEMO_PROMPT, "--with-mask", "--with-sseg",
-            "--init-checkpoint", str(checkpoint)]
+            str(tmp / "in" / "*.bmp"), "--output", str(out), "--text-prompt", DEMO_PROMPT,
+            "--with-mask", "--with-sseg", "--init-checkpoint", str(checkpoint)]
     predictor_lazy.VisualizationDemo.run_on_image = counted
     _build.reset_launches()
     try:
@@ -4418,10 +4583,12 @@ def demo_phase(dev, card, checkpoint: Path):
     if len(records) != len(shapes) or any(r != want for r in per_request):
         fail(f"demo: {len(records)} requests launched {per_request}, expected "
              f"{len(shapes)} of {want}")
-    ycck = [i for i, r in enumerate(records) if Path(r["path"]).name == "ycck.jpg"][0]
-    log(phase="image_forms_serve", image="ycck.jpg", config=TN_CONFIG,
-        launches=per_request[ycck], instances=records[ycck]["instances"],
-        **{k: v for k, v in records[ycck].items() if k not in ("path", "instances")}, card=card)
+    for phase, image in (("image_forms_serve", "ycck.jpg"),
+                         ("image_containers_serve", "webp_lossy.bmp")):
+        at = [i for i, r in enumerate(records) if Path(r["path"]).name == image][0]
+        log(phase=phase, image=image, config=TN_CONFIG, launches=per_request[at],
+            instances=records[at]["instances"],
+            **{k: v for k, v in records[at].items() if k not in ("path", "instances")}, card=card)
     for name, shape in shapes.items():
         vis = read_image(str(out / name))
         if vis is None or vis.shape != shape:

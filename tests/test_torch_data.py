@@ -75,9 +75,9 @@ def test_png_writer_files_and_errors(tmp_path):
     data[40] ^= 0xFF  # a damaged chunk: its CRC fails
     (tmp_path / "d.png").write_bytes(bytes(data))
     assert read_image(str(tmp_path / "d.png")) is None
-    (tmp_path / "e.gif").write_bytes(b"GIF89a" + bytes(20))
-    with pytest.raises(ValueError, match="PNG and .npy"):
-        read_image(str(tmp_path / "e.gif"))
+    (tmp_path / "e.gif").write_bytes(b"GIF89a" + bytes(20))  # no image in it: PIL raises
+    assert j_mapper.read_image(str(tmp_path / "e.gif")) is None
+    assert read_image(str(tmp_path / "e.gif")) is None
 
 
 # --- resizes and polygons ----------------------------------------------------

@@ -364,15 +364,19 @@ def test_empty_file_is_dropped(tmp_path):
     dropped_as_jax(tmp_path, b"", "empty")
 
 
-@pytest.mark.parametrize("fmt", ("GIF", "BMP", "TIFF", "WEBP", "PPM"))
+@pytest.mark.parametrize("fmt", ("GIF", "BMP", "TIFF", "WEBP", "PPM", "AVIF", "ICO", "TGA"))
 def test_formats_pil_reads_raise_naming_them(tmp_path, fmt):
-    """JAX trains on these (PIL reads them) and the port does not read them
-    yet: ``read_image`` raises ``ValueError`` naming the format, never None."""
+    """JAX trains on these (PIL reads them). The port reads GIF, BMP and
+    WebP as PIL does (``test_torch_image_containers``); the others it does
+    not read yet: ``read_image`` raises ``ValueError`` naming the format,
+    never None."""
     path = tmp_path / f"a.{fmt.lower()}"
-    Image.fromarray(image(9, 17)).save(path, fmt)
+    Image.fromarray(image(24, 40)).save(path, fmt)  # ICO keeps the icon sizes that fit
     assert jax_read_image(str(path)) is not None
-    name = {"WEBP": "WebP", "PPM": "another format"}.get(fmt, fmt)
-    with pytest.raises(ValueError, match=name) as info:
+    if fmt in ("GIF", "BMP", "WEBP"):
+        np.testing.assert_array_equal(read_image(str(path)), jax_read_image(str(path)))
+        return
+    with pytest.raises(ValueError, match=fmt) as info:
         read_image(str(path))
     assert not isinstance(info.value, CorruptImage)
 

@@ -386,8 +386,8 @@ def test_corrupt_data_and_bad_arguments():
         decode_jpeg(b"\xff\xd9")
     with pytest.raises(ValueError, match="uint8"):
         encode_jpeg(np.zeros((4, 4, 4), np.uint8))
-    with pytest.raises(ValueError, match=r"\.bmp"):
-        write_image("x.bmp", np.zeros((4, 4, 3), np.uint8))
+    with pytest.raises(ValueError, match=r"\.webp"):
+        write_image("x.webp", np.zeros((4, 4, 3), np.uint8))
 
 
 def test_chip_smoke_digests_are_pils():

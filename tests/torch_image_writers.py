@@ -13,7 +13,13 @@ standard library only, so that the card machine can load it):
   transform and restart intervals, with a Huffman table built from the
   difference counts;
 * ``png``: PNG of any color type at bit depth 8 or 16, plain or Adam7
-  interlaced.
+  interlaced;
+* ``bmp``: BMP of 1-, 4-, 8-, 16-, 24- and 32-bit pixels, RLE8 and RLE4
+  (encoded and absolute runs, deltas), BITFIELDS masks, OS/2, V4 and V5
+  headers, top-down rows;
+* ``gif``: GIF of one or more frames, with global or local palettes,
+  interlace, a frame offset inside a larger screen, a transparency index,
+  and an LZW stream that clears its table when full or keeps it.
 
 ``coefficients`` turns an image into the quantized blocks the JPEG writers
 take: an integer colour transform, box downsampling and an integer DCT,
@@ -807,3 +813,233 @@ def png(samples: np.ndarray, color: int, depth: int = 8, interlace: bool = False
     else:
         raw = _filtered(_pack(samples, depth), bpp, seed)
     return body + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b"")
+
+
+# --- BMP -------------------------------------------------------------------------
+
+BMP_HEADERS = (12, 40, 52, 56, 64, 108, 124)
+
+
+def _rle_row(row: np.ndarray, rle4: bool, pos: int, runs: str) -> bytes:
+    """One row of RLE8/RLE4 ops (no end-of-line): "encoded" repeats each
+    value, "absolute" writes literal runs (2 + n bytes, then a pad byte where
+    the file offset ``pos`` after them is odd, as PIL aligns), "mixed" takes
+    repeats of 3 or more encoded and the rest absolute."""
+    out = bytearray()
+    vals = [int(v) for v in row]
+    i, n = 0, len(vals)
+
+    def literal(chunk):
+        nonlocal out
+        if len(chunk) < 3:  # an absolute run takes 3 or more pixels
+            for v in chunk:
+                out += bytes([1, v * 17 if rle4 else v])
+            return
+        out += bytes([0, len(chunk)])
+        if rle4:
+            padded = chunk + [0] * (len(chunk) % 2)
+            out += bytes((padded[k] << 4) | padded[k + 1] for k in range(0, len(padded), 2))
+        else:
+            out += bytes(chunk)
+        if (pos + len(out)) % 2:
+            out += b"\x00"
+
+    while i < n:
+        j = i + 1
+        while j < n and vals[j] == vals[i] and j - i < 255:
+            j += 1
+        if runs == "encoded" or (runs == "mixed" and j - i >= 3):
+            out += bytes([j - i, vals[i] * 17 if rle4 else vals[i]])
+            i = j
+            continue
+        k = i
+        while k < n and k - i < 254 and not (runs == "mixed" and k + 2 < n
+                                             and vals[k] == vals[k + 1] == vals[k + 2]):
+            k += 1
+        literal(vals[i:k])
+        i = k
+    return bytes(out)
+
+
+def bmp(pixels: np.ndarray, bits: int, palette=None, compression: int = 0, header: int = 40,
+        top_down: bool = False, masks=None, clr_used: int = None, runs: str = "mixed",
+        delta: tuple = None, end_of_bitmap: bool = True) -> bytes:
+    """A BMP of ``pixels``: palette indices (H, W) at ``bits`` 1, 4 or 8
+    (``palette`` (N, 3) RGB, ``clr_used`` entries recorded, default N);
+    at 16 and 32 bits the raw little-endian pixel values (H, W) (``masks``
+    (r, g, b[, a]) under BITFIELDS, ``compression`` 3); at 24 bits RGB
+    (H, W, 3). ``compression`` 1 and 2 are RLE8 and RLE4 of the indices
+    (``runs``, see ``_rle_row``; ``delta`` = (row, col, right, up) puts a
+    delta escape at that place of that row). ``header`` is the info header's
+    size (12: OS/2, 3-byte palette entries). Rows run bottom-up, or
+    top-down (a negative height) if ``top_down``."""
+    pixels = np.asarray(pixels)
+    height, width = pixels.shape[:2]
+    entry = 3 if header == 12 else 4
+    table = b""
+    if palette is not None:
+        pal = np.asarray(palette, np.uint8)
+        table = b"".join(bytes([b, g, r]) + (b"\x00" if entry == 4 else b"") for r, g, b in pal)
+    extra = b""
+    if compression == 3 and header == 40:
+        extra = struct.pack("<III", *masks[:3])
+    offset = 14 + header + len(extra) + len(table)
+    order = range(height) if top_down else range(height - 1, -1, -1)
+    if compression in (1, 2):
+        body = bytearray()
+        for y in order:
+            row = pixels[y]
+            if delta is not None and delta[0] == y:
+                body += _rle_row(row[:delta[1]], compression == 2, offset + len(body), runs)
+                body += bytes([0, 2, delta[2], delta[3]])
+                row = row[delta[1]:]
+            body += _rle_row(row, compression == 2, offset + len(body), runs) + b"\x00\x00"
+        if end_of_bitmap:
+            body += b"\x00\x01"
+        body = bytes(body)
+    else:
+        stride = ((width * bits + 31) >> 3) & ~3
+        if bits <= 8:
+            packed = np.packbits(np.unpackbits(pixels.astype(np.uint8)[..., None], axis=2)[
+                ..., 8 - bits:].reshape(height, -1), axis=1)
+        elif bits == 16:
+            packed = pixels.astype("<u2").view(np.uint8).reshape(height, -1)
+        elif bits == 24:
+            packed = pixels[..., ::-1].astype(np.uint8).reshape(height, -1)
+        else:
+            packed = pixels.astype("<u4").view(np.uint8).reshape(height, -1)
+        rows = np.zeros((height, stride), np.uint8)
+        rows[:, :packed.shape[1]] = packed
+        body = rows[list(order)].tobytes()
+    n_colors = (len(table) // entry) if clr_used is None else clr_used
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, width, height, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, width, -height if top_down else height, 1,
+                           bits, compression, len(body), 2835, 2835, n_colors, 0)
+        if header >= 52:
+            m = tuple(masks) + (0,) * (4 - len(masks)) if masks else (0, 0, 0, 0)
+            info += struct.pack("<III", *m[:3]) + (struct.pack("<I", m[3]) if header >= 56 else b"")
+        if header >= 108:
+            info += b"BGRs" + bytes(48)  # LCS_sRGB, endpoints, gammas
+        if header == 124:
+            info += struct.pack("<IIII", 4, 0, 0, 0)  # intent, profile data, size, reserved
+        info += bytes(header - len(info))
+    return (b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset) + info + extra + table
+            + body)
+
+
+# --- GIF -------------------------------------------------------------------------
+
+def _lzw(indices: np.ndarray, min_size: int, clear_when_full: bool = True) -> bytes:
+    """GIF LZW of a flat index sequence (a clear code first, the end code
+    last), each code written at the width the decoder reads it at; a full
+    table (4096 codes) is cleared, or kept and no longer grown."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    acc, nbits, out = 0, 0, bytearray()
+
+    def emit(code, width):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+
+    def reset():
+        return {(i,): i for i in range(clear)}, clear + 2
+
+    table, nxt = reset()
+    dec_next, dec_size, dec_codes = clear + 2, min_size + 1, 0  # the decoder's view
+    emit(clear, dec_size)
+
+    def sent(code):
+        nonlocal dec_next, dec_size, dec_codes
+        emit(code, dec_size)
+        dec_codes += 1
+        if dec_codes >= 2 and dec_next < 4096:
+            if dec_next == (1 << dec_size) - 1 and dec_size < 12:
+                dec_size += 1
+            dec_next += 1
+
+    w = ()
+    for v in (int(x) for x in np.asarray(indices).ravel()):
+        wc = w + (v,)
+        if wc in table:
+            w = wc
+            continue
+        sent(table[w])
+        if nxt < 4096:
+            table[wc] = nxt
+            nxt += 1
+        elif clear_when_full:
+            emit(clear, dec_size)
+            table, nxt = reset()
+            dec_next, dec_size, dec_codes = clear + 2, min_size + 1, 0
+        w = (v,)
+    if w:
+        sent(table[w])
+    emit(end, dec_size)
+    if nbits:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def sub_blocks(data: bytes) -> bytes:
+    """GIF data sub-blocks of ``data`` (at most 255 bytes each), then the
+    terminator."""
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\x00"
+
+
+def _gif_palette(palette) -> tuple:
+    """(size field, table bytes) of a palette padded to a power of two."""
+    pal = np.asarray(palette, np.uint8).reshape(-1, 3)
+    size = max(1, int(np.ceil(np.log2(max(len(pal), 2)))))
+    table = np.zeros((1 << size, 3), np.uint8)
+    table[:len(pal)] = pal
+    return size - 1, table.tobytes()
+
+
+INTERLACE_ROWS = ((0, 8), (4, 8), (2, 4), (1, 2))
+
+
+def gif(frames, screen=None, global_palette=None, version: bytes = b"GIF89a") -> bytes:
+    """A GIF of ``frames``: each a dict of ``indices`` (h, w), and optional
+    ``offset`` (x, y), ``palette`` (a local palette (N, 3)), ``interlace``,
+    ``transparency`` (an index, in a graphic control extension),
+    ``min_size`` (the LZW minimum code size, default the palette's bits
+    or the indices', at least 2) and ``clear_when_full``. ``screen`` (w, h) defaults to the
+    first frame's extent."""
+    first = frames[0]
+    if screen is None:
+        h, w = np.asarray(first["indices"]).shape
+        x, y = first.get("offset", (0, 0))
+        screen = (x + w, y + h)
+    flags, table = 0, b""
+    if global_palette is not None:
+        size, table = _gif_palette(global_palette)
+        flags = 0x80 | 0x70 | size
+    out = version + struct.pack("<HHBBB", screen[0], screen[1], flags, 0, 0) + table
+    if len(frames) > 1:
+        out += b"!\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+    for f in frames:
+        idx = np.asarray(f["indices"], np.uint8)
+        h, w = idx.shape
+        if "transparency" in f or len(frames) > 1:
+            t = f.get("transparency")
+            out += b"!\xf9\x04" + struct.pack("<BHB", 1 if t is not None else 0, 10, t or 0) + b"\x00"
+        x, y = f.get("offset", (0, 0))
+        fflags, local = 0, b""
+        if f.get("palette") is not None:
+            size, local = _gif_palette(f["palette"])
+            fflags = 0x80 | size
+        if f.get("interlace"):
+            fflags |= 0x40
+            idx = np.concatenate([idx[r0::step] for r0, step in INTERLACE_ROWS])
+        pal_bits = (fflags & 7 if local else flags & 7) + 1
+        min_size = f.get("min_size", max(2, pal_bits, int(idx.max()).bit_length()))
+        out += b"," + struct.pack("<HHHHB", x, y, w, h, fflags) + local + bytes([min_size])
+        out += sub_blocks(_lzw(idx, min_size, f.get("clear_when_full", True)))
+    return out + b";"
