@@ -508,6 +508,8 @@ constexpr int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
 class Decoder {
  public:
   Decoder(const uint8_t* data, size_t len) : d_(data), n_(len) {}
+  void set_colour(int colour) { colour_ = colour; }
+  int channels() const { return colour_ == kRaw ? ncomp_ : 3; }
 
   std::vector<uint8_t> decode(int* out_w, int* out_h) {
     if (n_ < 3 || d_[0] != 0xFF || d_[1] != 0xD8) corrupt("not a JPEG file (no SOI marker)");
@@ -1745,13 +1747,33 @@ class Decoder {
     return out;
   }
 
+  // the colour setting: kGuess as PIL's JPEG plugin leaves libjpeg to guess
+  // (RGB out); as libtiff's JPEG codec sets it, kYcc (JPEGCOLORMODE_RGB:
+  // YCbCr in, RGB out, whatever the markers say) or kRaw (JCS_UNKNOWN: the
+  // components as stored, one channel each)
+  static constexpr int kGuess = -1, kRaw = 0, kYcc = 1;
+  int colour_ = kGuess;
+
   std::vector<uint8_t> output() const {
+    const size_t npix = (size_t)width_ * height_;
+    if (colour_ == kRaw) {
+      std::vector<uint8_t> raw(npix * ncomp_);
+      for (int c = 0; c < ncomp_; ++c) {
+        const std::vector<uint8_t> plane = upsampled(comp_[c]);
+        for (size_t i = 0; i < npix; ++i) raw[i * ncomp_ + c] = plane[i];
+      }
+      return raw;
+    }
+    if (colour_ == kYcc && ncomp_ != 3)
+      corrupt("JPEGCOLORMODE_RGB on a " + std::to_string(ncomp_) + "-component frame");
     // libjpeg's colour-space guess: 3 components are YCbCr under JFIF, then
     // as the Adobe transform says, then unless the ids are 'R' 'G' 'B' (RGB
     // for any ids in a lossless frame); 4 are YCCK under a nonzero Adobe
     // transform, else CMYK
     bool ycc = false;
-    if (ncomp_ == 3) {
+    if (colour_ == kYcc) {
+      ycc = true;
+    } else if (ncomp_ == 3) {
       if (jfif_) {
         ycc = true;
       } else if (adobe_) {
@@ -1765,7 +1787,6 @@ class Decoder {
     if (lossless_ && ycc)
       refused(std::string("lossless JPEG in ") + (ncomp_ == 3 ? "YCbCr" : "YCCK") +
               " (libjpeg-turbo converts no colour in lossless mode)");
-    const size_t npix = (size_t)width_ * height_;
     std::vector<uint8_t> rgb(npix * 3);
     std::vector<uint8_t> planes[4];
     for (int c = 0; c < ncomp_; ++c) planes[c] = upsampled(comp_[c]);
@@ -2216,13 +2237,17 @@ void set_error(char* err, int errlen, const std::string& m) {
 
 extern "C" {
 
-// JPEG bytes -> RGB uint8 (H, W, 3), allocated here (release with ape_jpeg_free).
-int ape_jpeg_decode(const uint8_t* data, size_t len, uint8_t** out, int* width, int* height,
-                    char* err, int errlen) {
+// JPEG bytes -> uint8 (H, W, channels), allocated here (release with
+// ape_jpeg_free): RGB under colour -1 (PIL's JPEG plugin) and 1 (libtiff's
+// YCbCr to RGB), the stored components under 0 (libtiff's raw samples)
+int ape_jpeg_decode(const uint8_t* data, size_t len, int colour, uint8_t** out, int* width,
+                    int* height, int* channels, char* err, int errlen) {
   *out = nullptr;
   try {
     Decoder dec(data, len);
+    dec.set_colour(colour);
     std::vector<uint8_t> rgb = dec.decode(width, height);
+    *channels = dec.channels();
     *out = static_cast<uint8_t*>(std::malloc(rgb.size()));
     if (!*out) {
       set_error(err, errlen, "out of memory");

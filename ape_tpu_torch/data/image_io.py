@@ -30,39 +30,57 @@ it, for:
   mode "L" where the palette is the identity gray ramp);
 * WebP (``data.webp``): lossy, lossless, with alpha, animated (the first
   frame on its canvas), as libwebp 1.6's WebPAnimDecoder gives it to PIL;
+* TIFF (``data.tiff``): PIL's ``OPEN_INFO`` modes, uncompressed through
+  PIL's raw decoder, CCITT, LZW, PackBits, Deflate, LZMA and JPEG as
+  libtiff gives them to PIL, strips and tiles, both byte orders, BigTIFF,
+  predictors, planar files, YCbCr through libtiff's RGBA interface, the
+  Orientation tag applied as PIL applies it to TIFF;
+* Netpbm (``data.netpbm``): P1-P6 plain and raw at any maxval, Pf;
+* TGA (``data.tga``): colour-mapped, true colour and gray, raw and RLE;
+* ICO (``data.ico``): the entry PIL picks, PNG or DIB with its mask;
 * ``.npy``: a uint8 (H, W) or (H, W, 3|4) array.
 
-The format is read off the file's first bytes, as PIL's plugins sniff it
-(``sniff``): a PNG named ``.jpg`` reads as PNG and a WebP named ``.bmp`` as
-WebP.
+Every container but JPEG and WebP is decoded first to the samples and mode
+``Image.open`` holds (``image_of``), then converted as PIL's
+``convert("RGB")`` converts that mode (``convert_rgb``).
+
+The format is read off the file's first bytes, as ``Image.open`` asks its
+plugins in turn (``sniff``, ``PIL_PLUGINS``): a PNG named ``.jpg`` reads as
+PNG, a WebP named ``.bmp`` as WebP, and TGA, which has no magic number, only
+where no plugin PIL tries first keeps the file.
 
 ``read_image`` returns None with a warning, as JAX's reader does on PIL's
 exception (its mapper then drops the record), for a file that is corrupt in
 a way PIL raises on (a truncated stream, a bad CRC, an empty file, a GIF
-whose LZW data breaks, a WebP shorter than its RIFF size) and for one PIL
-refuses too (12-bit, 2-component, hierarchical, lossless arithmetic-coded
-JPEG, fractional sampling ratios, a height left to a DNL marker, lossless
-JPEG that needs a colour conversion, an arithmetic-coded scan past PIL's
-64 KiB read block; a PNG of an undefined color type and depth; a BMP of an
-unknown depth, mask set or compression; a RIFF WebP whose first chunk PIL
-does not take). A file PIL reads and the port does not (TIFF, PPM, ICO,
-TGA, AVIF, JPEG 2000 and any other format) raises ``ValueError`` naming it,
-so that no record JAX trains on is dropped quietly.
+whose LZW data breaks, a WebP shorter than its RIFF size, a TIFF strip cut
+short) and for one PIL refuses too (12-bit, 2-component, hierarchical,
+lossless arithmetic-coded JPEG, fractional sampling ratios, a height left
+to a DNL marker, lossless JPEG that needs a colour conversion, an
+arithmetic-coded scan past PIL's 64 KiB read block; a PNG of an undefined
+color type and depth; a BMP of an unknown depth, mask set or compression;
+a RIFF WebP whose first chunk PIL does not take; a TIFF whose key is not in
+``OPEN_INFO`` or whose compression code PIL does not know; a P7 PAM or PF
+file, which PIL 12.1 opens no plugin for). A file PIL reads and the port
+does not (AVIF, JPEG 2000, a CIELab TIFF, a TIFF under zstd, WebP,
+old-style JPEG, ThunderScan, SGILog or RLEW, and any other format) raises
+``ValueError`` naming it, so that no record JAX trains on is dropped
+quietly.
 
 ``read_rgb`` is the same read raising ``CorruptImage`` where ``read_image``
 returns None (the panoptic mapper's ``convert("RGB")`` of an id PNG);
-``read_label_map`` gives a PNG's, BMP's or GIF's stored samples as
+``read_label_map`` gives a file's stored samples as
 ``np.asarray(Image.open(f))`` does (the semantic labels: palette indices,
-not colours; 16-bit gray as uint16; a BMP's "1" as bool, its direct colour
-as RGB or RGBA).
+not colours; 16-bit gray as uint16, big-endian for an MM TIFF; 32-bit
+integers as int32, floats as float32; a "1" image as bool).
 
 ``write_png`` writes gray, RGB or RGBA uint8 arrays (filter type 0 or 1 per
 row, alternating, so the reader's filters are exercised). ``write_image``
-is the counterpart of PIL's ``Image.fromarray(x).save(path)``: ``.jpg`` and
-``.jpeg`` through ``encode_jpeg`` (PIL's bytes), ``.bmp`` through
-``encode_bmp`` (PIL's bytes), ``.png`` through ``write_png`` (the same
-pixels, not PIL's bytes); ``.webp``, ``.gif`` and other extensions raise
-``ValueError`` naming them.
+is the counterpart of PIL's ``Image.fromarray(x).save(path)``, PIL's bytes
+for ``.jpg`` and ``.jpeg`` (``encode_jpeg``), ``.bmp`` (``encode_bmp``),
+``.tif`` and ``.tiff`` (``encode_tiff``), ``.ppm``, ``.pgm``, ``.pbm`` and
+``.pnm`` (``encode_netpbm``: P5 or P6 whatever the name) and ``.tga``
+(``encode_tga``), the same pixels for ``.png`` (``write_png``); ``.ico``,
+``.webp``, ``.gif`` and other extensions raise ``ValueError`` naming them.
 """
 
 from __future__ import annotations
@@ -83,13 +101,86 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG color type -> samples a pixel
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
          (0, 1, 1, 2))  # (x0, y0, dx, dy) of each interlace pass
-# first bytes of the formats PIL reads and the port does not (their plugins' _accept)
-_OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"),
-                  (b"MM\x00+", "TIFF"), (b"\x00\x00\x01\x00", "ICO"), (b"P1", "PPM"),
-                  (b"P2", "PPM"), (b"P3", "PPM"), (b"P4", "PPM"), (b"P5", "PPM"), (b"P6", "PPM"),
-                  (b"P7", "PPM"), (b"Pf", "PPM"), (b"PF", "PPM"),
-                  (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-                  (b"\xff\x4f\xff\x51", "JPEG 2000"))
+
+
+def _i16(data: bytes, pos: int = 0, order: str = "<") -> int:
+    return struct.unpack_from(order + "H", data, pos)[0] if len(data) >= pos + 2 else -1
+
+
+def _i32(data: bytes, pos: int = 0, order: str = "<") -> int:
+    return struct.unpack_from(order + "I", data, pos)[0] if len(data) >= pos + 4 else -1
+
+
+def _cur_claims(d: bytes) -> bool:
+    """Whether PIL's CUR plugin keeps a file its _accept takes: its _open
+    raises an error ``Image.open`` passes over (no entry, a short entry, a
+    bitmap header past the file: TypeError, IndexError, struct.error) and
+    the next plugin is asked, or it goes on to the bitmap."""
+    if not d.startswith(b"\0\0\2\0"):
+        return False
+    m = b""
+    for i in range(_i16(d, 4)):
+        s = d[6 + 16 * i:22 + 16 * i]
+        if not s:
+            return False
+        if not m:
+            m = s
+        elif s[0] > m[0] and s[1] > m[1]:
+            m = s
+    return len(m) == 16 and _i32(d, _i32(m, 12)) != -1
+
+
+def _gbr_claims(d: bytes) -> bool:
+    """Whether PIL's GIMP brush plugin keeps a file: its _accept, then the
+    header checks whose SyntaxError sends ``Image.open`` to the next plugin
+    (big-endian words)."""
+    if len(d) < 20 or _i32(d, 0, ">") < 20 or _i32(d, 4, ">") not in (1, 2):
+        return False
+    if _i32(d, 8, ">") == 0 or _i32(d, 12, ">") == 0 or _i32(d, 16, ">") not in (1, 4):
+        return False
+    return _i32(d, 4, ">") == 1 or d[20:24] == b"GIMP"
+
+
+# the plugins Image.open tries, in its order (Image.preinit's, then the rest
+# of Image.init's ID list up to TGA, the one without a magic number), with
+# their _accept tests: the port's containers by name, the others for the
+# error that names them
+PIL_PLUGINS = (
+    ("bmp", lambda d: d.startswith(b"BM")),
+    ("DIB", lambda d: _i32(d) in (12, 40, 52, 56, 64, 108, 124)),
+    ("gif", lambda d: d.startswith((b"GIF87a", b"GIF89a"))),
+    ("jpeg", lambda d: d.startswith(JPEG_MAGIC)),
+    ("netpbm", lambda d: len(d) >= 2 and d.startswith(b"P") and d[1] in b"0123456fy"),
+    ("png", lambda d: d.startswith(PNG_MAGIC)),
+    ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
+    ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2"))),
+    ("BUFR", lambda d: d.startswith((b"BUFR", b"ZCZC"))),
+    ("CUR", lambda d: _cur_claims(d)),
+    ("PCX", lambda d: len(d) >= 2 and d[0] == 10 and d[1] in (0, 2, 3, 5)),
+    ("DCX", lambda d: _i32(d) == 987654321),
+    ("DDS", lambda d: d.startswith(b"DDS ")),
+    ("EPS", lambda d: d.startswith(b"%!PS") or _i32(d) == 0xC6D3D0C5),
+    ("FITS", lambda d: d.startswith(b"SIMPLE")),
+    ("FLI", lambda d: len(d) >= 16 and _i16(d, 4) in (0xAF11, 0xAF12) and _i16(d, 14) in (0, 3)),
+    ("FTEX", lambda d: d.startswith(b"FTEX")),
+    ("GBR", lambda d: _gbr_claims(d)),
+    ("GRIB", lambda d: len(d) >= 8 and d.startswith(b"GRIB") and d[7] == 1),
+    ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n")),
+    ("JPEG 2000", lambda d: d.startswith((b"\xff\x4f\xff\x51",
+                                          b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"))),
+    ("ICNS", lambda d: d.startswith(b"icns")),
+    ("ico", lambda d: d.startswith(b"\0\0\1\0")),
+    ("McIdas", lambda d: d.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04")),
+    ("MPEG", lambda d: d.startswith(b"\x00\x00\x01\xb3")),
+    ("tiff", lambda d: d.startswith((b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00",
+                                     b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00"))),
+    ("MSP", lambda d: d.startswith((b"DanM", b"LinS"))),
+    ("PIXAR", lambda d: d.startswith(b"\200\350\000\000")),
+    ("PSD", lambda d: d.startswith(b"8BPS")),
+    ("QOI", lambda d: d.startswith(b"qoif")),
+    ("SGI", lambda d: _i16(d, 0, ">") == 474),
+    ("SUN", lambda d: _i32(d, 0, ">") == 0x59A66A95),
+)
 MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3  # PIL's Image.MAX_IMAGE_PIXELS
 
 
@@ -202,53 +293,43 @@ def _png_samples(data: bytes):
     return samples, color, depth, palette
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> RGB uint8 (H, W, 3), PIL's ``convert("RGB")`` of it."""
+def png_image(data: bytes):
+    """PNG bytes -> (samples, mode, palette) as PIL opens them: "1" (bool),
+    "L", "I;16" (uint16) and "P" (indices) (H, W); "LA", "RGB" and "RGBA"
+    (H, W, C) uint8, 16-bit color as its high bytes (16-bit gray + alpha as
+    "RGBA", the gray repeated)."""
     pixels, color, depth, palette = _png_samples(data)
     if color == 3:
-        full = np.zeros((256, 3), np.uint8)
-        full[:len(palette)] = palette[:256]
-        return full[pixels[..., 0]]
-    if depth == 16:  # PIL's I;16 -> RGB clips; its ;16B rawmodes keep the high byte
-        pixels = (np.minimum(pixels, 255) if color == 0 else pixels >> 8).astype(np.uint8)
-    if color == 0 and depth == 1:  # PIL's "1" converts to 0 and 255
-        pixels = pixels * np.uint8(255)
-    if color in (0, 4):
-        return np.repeat(pixels[..., :1], 3, axis=2)
-    return np.ascontiguousarray(pixels[..., :3])
-
-
-def read_label_map(file_name: str) -> np.ndarray:
-    """A label map as ``np.asarray(PIL.Image.open(file_name))`` gives it, for
-    a PNG: palette images give their indices (not the colours), gray its
-    values (H, W) uint8 (1-bit gray bool, as PIL's mode "1"; 16-bit gray
-    uint16, as its "I;16"), gray + alpha (H, W, 2), RGB (H, W, 3) and RGBA
-    (H, W, 4), 16-bit color as the high bytes (16-bit gray + alpha as RGBA,
-    the gray repeated, as PIL opens it); for a BMP or GIF, ``decode_bmp``'s
-    and ``decode_gif``'s samples. Another format, and a corrupt file,
-    raise."""
-    with open(file_name, "rb") as f:
-        data = f.read()
-    kind = sniff(data)
-    if kind == "gif":
-        from ape_tpu_torch.data.gif import decode_gif
-
-        return decode_gif(data)[0]
-    if kind == "bmp":
-        from ape_tpu_torch.data.bmp import decode_bmp
-
-        return decode_bmp(data)[0]
-    if kind != "png":
-        raise ValueError(f"{file_name}: the port reads label maps from PNG, BMP and GIF files "
-                         "only")
-    pixels, color, depth, _ = _png_samples(data)
-    if color in (0, 3):
-        return pixels[..., 0].astype(bool) if color == 0 and depth == 1 else pixels[..., 0]
+        return pixels[..., 0], "P", palette
+    if color == 0:
+        return ((pixels[..., 0].astype(bool), "1", None) if depth == 1 else
+                (pixels[..., 0], "I;16" if depth == 16 else "L", None))
     if depth == 16:
         pixels = (pixels >> 8).astype(np.uint8)
         if color == 4:
-            return np.ascontiguousarray(pixels[..., [0, 0, 0, 1]])
-    return pixels
+            return np.ascontiguousarray(pixels[..., [0, 0, 0, 1]]), "RGBA", None
+    return pixels, {2: "RGB", 4: "LA", 6: "RGBA"}[color], None
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> RGB uint8 (H, W, 3), PIL's ``convert("RGB")`` of it."""
+    return convert_rgb(*png_image(data))
+
+
+def read_label_map(file_name: str) -> np.ndarray:
+    """A label map as ``np.asarray(PIL.Image.open(file_name))`` gives it
+    (``image_of``'s samples): palette images give their indices (not the
+    colours), gray its values (H, W) uint8, 1-bit gray bool (PIL's "1"),
+    16-bit gray uint16 ("I;16", big-endian for a TIFF's "I;16B"), 32-bit
+    integers int32 ("I"), floats float32 ("F"); color (H, W, C). A JPEG,
+    WebP or ``.npy`` file, and a corrupt one, raise."""
+    with open(file_name, "rb") as f:
+        data = f.read()
+    kind = sniff(data)
+    if kind is None or kind in ("jpeg", "webp"):
+        raise ValueError(f"{file_name}: the port reads label maps from PNG, BMP, GIF, TIFF, "
+                         "Netpbm, TGA and ICO files only")
+    return image_of(data, kind)[0]
 
 
 def read_rgb(file_name: str) -> np.ndarray:
@@ -273,28 +354,67 @@ def read_rgb(file_name: str) -> np.ndarray:
     if kind is None:
         if not data:
             raise CorruptImage(f"{file_name}: an empty file")
-        raise ValueError(f"{file_name}: {_format_name(data, file_name)}, which PIL reads and the "
-                         "port does not yet (the port reads JPEG, PNG, BMP, GIF, WebP and .npy "
-                         "images)")
+        raise ValueError(f"{file_name}: {_format_name(data)}, which PIL reads and the port does "
+                         "not yet (the port reads JPEG, PNG, BMP, GIF, WebP, TIFF, Netpbm, TGA, "
+                         "ICO and .npy images)")
     return decode_rgb(data, kind)
 
 
 def sniff(data: bytes) -> Optional[str]:
-    """The container the port reads that PIL would open ``data`` as, by its
-    plugins' ``_accept`` tests: "jpeg", "png", "bmp", "gif", "webp", or None.
-    A RIFF WebP file whose first chunk is not VP8, VP8L or VP8X is no image
-    to PIL: "webp" all the same, and its decoder refuses it."""
-    if data.startswith(JPEG_MAGIC):
-        return "jpeg"
-    if data.startswith(PNG_MAGIC):
-        return "png"
-    if data.startswith(b"BM"):
-        return "bmp"
-    if data.startswith((b"GIF87a", b"GIF89a")):
-        return "gif"
+    """The container the port reads that PIL would open ``data`` as:
+    "jpeg", "png", "bmp", "gif", "netpbm", "ico", "tiff", "tga", "webp", or
+    None. The plugins are asked in ``Image.open``'s order (``PIL_PLUGINS``),
+    so a file that another plugin claims first (a DIB, a CUR, a PCX, ...)
+    is not read as TGA, which has no magic number and comes after them; P7
+    and PF Netpbm files, which no plugin of PIL 12.1 takes, are "netpbm",
+    whose decoder refuses them. A RIFF WebP file whose first chunk is not
+    VP8, VP8L or VP8X is no image to PIL: "webp" all the same, and its
+    decoder refuses it."""
+    for name, accepts in PIL_PLUGINS:
+        if accepts(data):
+            return name if name.islower() else None
+    if data[:2] in (b"P7", b"PF"):
+        return "netpbm"
+    from ape_tpu_torch.data.tga import accept as tga_accept
+
+    if tga_accept(data):
+        return "tga"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "webp"
     return None
+
+
+def image_of(data: bytes, kind: str):
+    """(samples, mode, palette) of a ``sniff``-ed container: what
+    ``Image.open`` holds, before any conversion (``np.asarray`` of it)."""
+    if kind == "png":
+        return png_image(data)
+    if kind == "gif":
+        from ape_tpu_torch.data.gif import decode_gif
+
+        samples, palette = decode_gif(data)
+        return samples, "L" if palette is None else "P", palette
+    if kind == "bmp":
+        from ape_tpu_torch.data.bmp import decode_bmp
+
+        return decode_bmp(data)
+    if kind == "tiff":
+        from ape_tpu_torch.data.tiff import decode_tiff
+
+        return decode_tiff(data)
+    if kind == "netpbm":
+        from ape_tpu_torch.data.netpbm import decode_netpbm
+
+        return decode_netpbm(data) + (None,)
+    if kind == "tga":
+        from ape_tpu_torch.data.tga import decode_tga
+
+        return decode_tga(data)
+    if kind == "ico":
+        from ape_tpu_torch.data.ico import decode_ico
+
+        return decode_ico(data)
+    raise ValueError(f"no sample reader for {kind}")
 
 
 def decode_rgb(data: bytes, kind: str) -> np.ndarray:
@@ -304,27 +424,48 @@ def decode_rgb(data: bytes, kind: str) -> np.ndarray:
         from ape_tpu_torch.data.jpeg import decode_jpeg
 
         return decode_jpeg(data)
-    if kind == "png":
-        return decode_png(data)
     if kind == "webp":
         from ape_tpu_torch.data.webp import decode_webp
 
         return np.ascontiguousarray(decode_webp(data)[..., :3])
-    if kind == "gif":
-        from ape_tpu_torch.data.gif import decode_gif
+    return convert_rgb(*image_of(data, kind))
 
-        samples, palette = decode_gif(data)
-        mode = "L" if palette is None else "P"
+
+def convert_rgb(samples: np.ndarray, mode: str, palette) -> np.ndarray:
+    """PIL's ``convert("RGB")`` of a mode's samples: "1" to 0 and 255, "L"
+    and "LA" repeated, "I;16", "I;16B" and "I" clipped to 0..255, "F"
+    clipped and truncated (f2l), "P" and "PA" looked up, "CMYK" through
+    ``cmyk2rgb``, alpha dropped; "LAB" goes through LittleCMS in PIL and
+    raises ``ValueError`` here."""
+    if mode in ("P", "PA"):
+        return _palette_lookup(samples if mode == "P" else samples[..., 0], palette)
+    if mode == "LAB":
+        raise ValueError("a CIELab image: PIL converts LAB to RGB through LittleCMS, which the "
+                         "port does not carry")
+    if mode == "CMYK":
+        return cmyk_to_rgb(samples)
+    if mode in ("RGB", "RGBA"):
+        return np.ascontiguousarray(samples[..., :3])
+    if mode == "1":
+        gray = samples.astype(np.uint8) * np.uint8(255)
+    elif mode == "LA":
+        gray = samples[..., 0]
+    elif mode == "F":
+        v = np.nan_to_num(samples.astype(np.float32), nan=0.0)
+        gray = np.where(v <= 0, 0, np.where(v >= 255, 255, v)).astype(np.uint8)
+    elif mode in ("I;16", "I;16B", "I"):
+        gray = np.clip(samples.astype(np.int64), 0, 255).astype(np.uint8)
     else:
-        from ape_tpu_torch.data.bmp import decode_bmp
+        gray = samples
+    return np.repeat(gray[..., None], 3, axis=2)
 
-        samples, mode, palette = decode_bmp(data)
-    if mode == "P":
-        return _palette_lookup(samples, palette)
-    if mode in ("L", "1"):
-        gray = samples.astype(np.uint8) * np.uint8(255) if mode == "1" else samples
-        return np.repeat(gray[..., None], 3, axis=2)
-    return np.ascontiguousarray(samples[..., :3])
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's cmyk2rgb: C, M and Y each scaled by 255 - K and taken from it."""
+    v = cmyk.astype(np.int32)
+    nk = 255 - v[..., 3:4]
+    tmp = v[..., :3] * nk + 128
+    return np.clip(nk - (((tmp >> 8) + tmp) >> 8), 0, 255).astype(np.uint8)
 
 
 def _palette_lookup(indices: np.ndarray, palette: np.ndarray) -> np.ndarray:
@@ -335,16 +476,11 @@ def _palette_lookup(indices: np.ndarray, palette: np.ndarray) -> np.ndarray:
     return full[indices]
 
 
-def _format_name(data: bytes, file_name: str = "") -> str:
-    """The container PIL would sniff in ``data``'s first bytes, for the error."""
-    for magic, name in _OTHER_FORMATS:
-        if data.startswith(magic):
+def _format_name(data: bytes) -> str:
+    """The format PIL would open ``data`` as, for the error."""
+    for name, accepts in PIL_PLUGINS:
+        if accepts(data):
             return f"a {name} image"
-    if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis", b"mif1", b"msf1"):
-        return "an AVIF image"
-    if data.endswith(b"TRUEVISION-XFILE.\x00") or str(file_name).lower().endswith(
-            (".tga", ".icb", ".vda", ".vst")):
-        return "a TGA image"
     return f"an image of another format (first bytes {data[:8].hex()})"
 
 
@@ -359,25 +495,34 @@ def read_image(file_name: str) -> Optional[np.ndarray]:
         return None
 
 
+# extension -> (module, encoder) of the containers written with PIL's bytes
+_ENCODERS = {".jpg": ("jpeg", "encode_jpeg"), ".jpeg": ("jpeg", "encode_jpeg"),
+             ".bmp": ("bmp", "encode_bmp"), ".tif": ("tiff", "encode_tiff"),
+             ".tiff": ("tiff", "encode_tiff"), ".ppm": ("netpbm", "encode_netpbm"),
+             ".pgm": ("netpbm", "encode_netpbm"), ".pbm": ("netpbm", "encode_netpbm"),
+             ".pnm": ("netpbm", "encode_netpbm"), ".tga": ("tga", "encode_tga")}
+
+
 def write_image(file_name: str, image: np.ndarray) -> None:
     """Write a uint8 (H, W) or (H, W, 3) image as PIL's
-    ``Image.fromarray(image).save(file_name)`` does, by its extension:
-    ``.jpg``/``.jpeg`` as JPEG and ``.bmp`` as BMP (PIL's bytes), ``.png``
-    as PNG."""
+    ``Image.fromarray(image).save(file_name)`` does, by its extension: PIL's
+    bytes for ``.jpg``/``.jpeg`` (JPEG), ``.bmp``, ``.tif``/``.tiff``
+    (uncompressed TIFF), ``.ppm``/``.pgm``/``.pbm``/``.pnm`` (P5 or P6)
+    and ``.tga``; the same pixels for ``.png``."""
     ext = os.path.splitext(str(file_name))[1].lower()
-    if ext in (".jpg", ".jpeg", ".bmp"):
-        if ext == ".bmp":
-            from ape_tpu_torch.data.bmp import encode_bmp as encode
-        else:
-            from ape_tpu_torch.data.jpeg import encode_jpeg as encode
+    if ext in _ENCODERS:
+        import importlib
 
+        module, name = _ENCODERS[ext]
+        encode = getattr(importlib.import_module(f"ape_tpu_torch.data.{module}"), name)
         data = encode(image)
         with open(file_name, "wb") as f:
             f.write(data)
     elif ext == ".png":
         write_png(file_name, image)
     else:
-        raise ValueError(f"{file_name}: the port writes .jpg, .jpeg, .png and .bmp images, not "
+        raise ValueError(f"{file_name}: the port writes .jpg, .jpeg, .png, .bmp, .tif, .tiff, "
+                         f".ppm, .pgm, .pbm, .pnm and .tga images, not "
                          f"{ext or 'a file without an extension'}")
 
 

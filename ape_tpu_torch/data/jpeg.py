@@ -50,18 +50,26 @@ def _raise(rc: int, err, what: str):
     raise ValueError(message) if rc == 2 else CorruptImage(message)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> RGB uint8 (H, W, 3), as PIL's ``convert("RGB")`` of them."""
+# the colour settings of ``decode_jpeg``: libjpeg's guess, as PIL's JPEG
+# plugin leaves it; and as libtiff's JPEG codec sets it for a TIFF strip,
+# the components as stored (JCS_UNKNOWN) or YCbCr converted to RGB
+# (JPEGCOLORMODE_RGB)
+GUESS, RAW, YCC = -1, 0, 1
+
+
+def decode_jpeg(data: bytes, colour: int = GUESS) -> np.ndarray:
+    """JPEG bytes -> RGB uint8 (H, W, 3), as PIL's ``convert("RGB")`` of them;
+    under ``colour=RAW`` the stored components (H, W, components)."""
     lib = host_library()
     out = ctypes.POINTER(ctypes.c_uint8)()
-    width, height = ctypes.c_int(), ctypes.c_int()
+    width, height, channels = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(_ERR_LEN)
-    rc = lib.ape_jpeg_decode(data, len(data), ctypes.byref(out), ctypes.byref(width),
-                             ctypes.byref(height), err, _ERR_LEN)
+    rc = lib.ape_jpeg_decode(data, len(data), colour, ctypes.byref(out), ctypes.byref(width),
+                             ctypes.byref(height), ctypes.byref(channels), err, _ERR_LEN)
     if rc != 0:
         _raise(rc, err, "JPEG decode")
     try:
-        return np.ctypeslib.as_array(out, (height.value, width.value, 3)).copy()
+        return np.ctypeslib.as_array(out, (height.value, width.value, channels.value)).copy()
     finally:
         lib.ape_jpeg_free(out)
 

@@ -10,7 +10,8 @@ Nothing is compiled when a module is imported: the first kernel launch
 builds. A failed build raises.
 
 ``host_library`` builds the host-side C++ sources (``csrc/*.cpp``: the JPEG
-codec, the PNG unfilter, BMP's run lengths, GIF's LZW and the WebP decoder)
+codec, the PNG unfilter, BMP's run lengths, GIF's LZW, the WebP decoder and
+TIFF's LZW, PackBits and CCITT codecs, TGA's run lengths)
 with the host compiler (``$CXX``, else ``c++``
 or ``g++``) into a library of their own beside it, keyed the same way; it
 needs no CUDA, so it builds and runs on any machine, the CPU-only one
@@ -200,9 +201,9 @@ def host_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(host_build()))
     p, i, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     out = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))
-    # data, length, out, width, height, err, errlen
-    lib.ape_jpeg_decode.argtypes = [p, size, out, ctypes.POINTER(i), ctypes.POINTER(i),
-                                    ctypes.c_char_p, i]
+    # data, length, colour, out, width, height, channels, err, errlen
+    lib.ape_jpeg_decode.argtypes = [p, size, i, out, ctypes.POINTER(i), ctypes.POINTER(i),
+                                    ctypes.POINTER(i), ctypes.c_char_p, i]
     lib.ape_jpeg_decode.restype = i
     # pixels, width, height, channels, out, out_len, err, errlen
     lib.ape_jpeg_encode.argtypes = [p, i, i, i, out, ctypes.POINTER(size), ctypes.c_char_p, i]
@@ -224,6 +225,16 @@ def host_library() -> ctypes.CDLL:
     lib.ape_webp_decode.restype = i
     lib.ape_webp_free.argtypes = [p]
     lib.ape_webp_free.restype = None
+    # TIFF strips: data, length, out, output bytes (LZW, PackBits); data,
+    # length, compression, T4Options, width, rows, out (CCITT)
+    for name in ("ape_tiff_lzw", "ape_tiff_packbits"):
+        getattr(lib, name).argtypes = [p, size, p, size]
+        getattr(lib, name).restype = i
+    lib.ape_tiff_fax.argtypes = [p, size, i, i, i, i, p]
+    lib.ape_tiff_fax.restype = i
+    # TGA run lengths: file, length, offset, bytes a pixel, row bytes, rows, out
+    lib.ape_tga_rle.argtypes = [p, size, size, i, size, size, p]
+    lib.ape_tga_rle.restype = i
     return lib
 
 

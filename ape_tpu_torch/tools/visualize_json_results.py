@@ -7,10 +7,11 @@
 Each prediction (``demo_lazy``'s or an evaluator's rows: ``image_id``, an xywh
 ``bbox``, ``score``, ``category_name`` or ``category_id``) at or above the
 threshold is drawn on its image as a red width-3 box with its label; the
-image is read by ``data.image_io.read_image`` (JPEG, PNG, BMP, GIF or WebP)
-and written under the same basename by ``write_image`` (JPEG, BMP or PNG;
-a ``.webp`` or ``.gif`` name raises ``ValueError``). Images that are not found are skipped, as JAX's
-are. The boxes equal PIL's bit for bit; the labels come from the port's
+image is read by ``data.image_io.read_image`` (JPEG, PNG, BMP, GIF, WebP,
+TIFF, Netpbm, TGA or ICO) and written under the same basename by
+``write_image`` (JPEG, BMP, TIFF, Netpbm, TGA or PNG; a ``.webp``, ``.gif``
+or ``.ico`` name raises ``ValueError``). Images that are not found are
+skipped, as JAX's are. The boxes equal PIL's bit for bit; the labels come from the port's
 glyph table (``utils.draw.draw_label``).
 """
 

@@ -3863,8 +3863,8 @@ IMAGE_FORMS_DIGESTS = {
     "label_16bit": "45a11c5e4ca4455c268513132252c197e097cf85753f8522031c97ddf46a7491"}
 # the forms PIL refuses, made from the files above: the mapper pass drops them
 FORMS_REFUSED = ("12-bit", "hierarchical", "arithmetic_past_read_block", "truncated")
-# image_containers: the BMP, GIF and WebP images JAX's reader takes and the
-# damaged JPEGs libjpeg recovers, at FORMS_SIZE. The WebP files come from
+# image_containers: the BMP, GIF, WebP, TIFF, Netpbm, TGA and ICO images
+# JAX's reader takes and the damaged JPEGs libjpeg recovers, at FORMS_SIZE. The WebP files come from
 # tests/make_image_container_fixtures.py (the card machine has no libwebp);
 # the rest are written here by tests/torch_image_writers.py and the port's
 # JPEG encoder.
@@ -3885,9 +3885,29 @@ IMAGE_CONTAINERS_DIGESTS = {
     "bmp_bitfields.bmp": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
     "jpeg_hit_marker.jpg": "492b4f65c5703f2f1e696c3e1ac4709454235e9264f2887b52ef931d2c971b72",
     "jpeg_bad_code.jpg": "e70e95c8987d129990f76d526262643dfe166ef08041486a22c9729e8b5b8616",
-    "jpeg_restart_moved.jpg": "14e192b172b9e9cdd44889f5d3eb2fb113884c964d3a9c6257232c0fc829571b"}
-# a GIF cut inside its image data, which PIL refuses: the mapper pass drops it
+    "jpeg_restart_moved.jpg": "14e192b172b9e9cdd44889f5d3eb2fb113884c964d3a9c6257232c0fc829571b",
+    "tiff_raw_rgb.tif": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "tiff_lzw_predictor.tif": "87db09999ead26014f91536be868a1b822150079e57d6654dca9bb20de96423a",
+    "tiff_deflate_tiles.tif": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "tiff_packbits_palette.tif": "8abb43bc2fa438946a5292dc25de7220fb20a2ab39f7c137dd8765e83e4bd418",
+    "tiff_jpeg_ycbcr.tif": "c72fba1cbe73f3a8e9f304d233525d16973b5a795040376882df8b7f3945808c",
+    "tiff_g4.tif": "fc0aa3edc1d01fd7336fc9e1337346ab177d848dec64bd7f8787e19fafdf103e",
+    "tiff_gray16.tif": "0a45f530eb7bf15a28b2733833f6c49bae5c1b163a28eaab70b149642964b753",
+    "tiff_lzma_cmyk.tif": "063ea3c7d5d47d5c3f117e4e54872a86d869f70e039d53446f932e5f90236f9f",
+    "p6.ppm": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "p5_16bit.pgm": "0a45f530eb7bf15a28b2733833f6c49bae5c1b163a28eaab70b149642964b753",
+    "p6_maxval1000.ppm": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "tga_rle.tga": "ae3576030a61764e1e05db0f5b043c723f59ced228964ed68192ea2fe741cf39",
+    "tga_colormap.tga": "8abb43bc2fa438946a5292dc25de7220fb20a2ab39f7c137dd8765e83e4bd418",
+    "ico_png.ico": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "ico_dib32.ico": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a"}
+# a GIF cut inside its image data and a TIFF whose strips run past its end,
+# which PIL refuses: the mapper pass drops them, one warning each
 CONTAINERS_REFUSED = "gif_truncated"
+TIFF_REFUSED = "tiff_strip_cut"
+# the TIFF the demo serves under its own name (its overlay written as TIFF)
+DEMO_TIFF = "tiff_jpeg_ycbcr.tif"
+NEW_CONTAINERS = (".tif", ".ppm", ".pgm", ".tga", ".ico")  # the mapper pass keeps them all
 DEMO_PROMPT = "person,dog,frisbee"
 DEMO_INPUTS = (("landscape.jpg", (480, 640), "RGB"), ("portrait.jpg", (640, 427), "RGB"),
                ("gray.jpg", (480, 640), "L"))
@@ -4443,18 +4463,66 @@ def image_containers_files() -> dict:
     at = [i for i in range(len(rst) - 1) if rst[i] == 0xFF and 0xD0 <= rst[i + 1] <= 0xD7]
     rst[at[10] + 1] = 0xD0 + (rst[at[10] + 1] - 0xD0 + 3) % 8
     files["jpeg_restart_moved.jpg"] = bytes(rst[:at[11]] + rst[at[11] + 2:])
+    files.update(tiff_netpbm_tga_ico_files())
     return files
 
 
-def image_containers_phase(card, tmp: Path) -> bytes:
+def tiff_netpbm_tga_ico_files() -> dict:
+    """The TIFF, Netpbm, TGA and ICO files of the image_containers phase, at
+    FORMS_SIZE from ``container_image``, written by
+    ``tests/torch_image_writers.py``: TIFF uncompressed RGB, LZW with
+    predictor 2 (of the image at 16 levels a channel), Deflate in 128x128
+    tiles (the last row of tiles cropped), a PackBits palette (the colour
+    cube's 16-bit ColorMap), YCbCr 4:2:0 JPEG strips with JPEGTables, Group
+    4 bilevel, 16-bit gray and LZMA CMYK (8 levels a channel); a P6, a 16-bit P5 and a P6 of maxval 1000 (PIL scales it to 8
+    bits); an RLE true-colour TGA and a bottom-up colour-mapped one; an ICO
+    of one PNG entry and one of a 32-bit DIB entry with its AND mask."""
+    import numpy as np
+
+    W = _image_writers()
+    h, w = FORMS_SIZE
+    img, alpha = container_image()
+    cube = np.array([[r * 32 + 16, g * 32 + 16, b * 64 + 32] for r in range(8) for g in range(8)
+                     for b in range(4)], np.uint8)
+    idx = ((img[..., 0] >> 5) * 32 + (img[..., 1] >> 5) * 4 + (img[..., 2] >> 6)).astype(np.uint8)
+    q = [W.quality_table(W.LUM_QUANT, 75), W.quality_table(W.CHROM_QUANT, 75)]
+    gray16 = img[..., 0].astype(np.uint16) * 257 + (img[..., 1] >> 4)
+    bgra = (img[..., 2].astype(np.uint32) | img[..., 1].astype(np.uint32) << 8
+            | img[..., 0].astype(np.uint32) << 16 | alpha.astype(np.uint32) << 24)
+    return {
+        "tiff_raw_rgb.tif": W.tiff(img, rows_per_strip=64),
+        "tiff_lzw_predictor.tif": W.tiff(img // 16 * 16, compression=5, predictor=2,
+                                         rows_per_strip=32),
+        "tiff_deflate_tiles.tif": W.tiff(img, compression=8, tile=(128, 128)),
+        "tiff_packbits_palette.tif": W.tiff(idx, photometric=3, compression=32773,
+                                            colormap=cube.astype(np.uint16) * 257),
+        DEMO_TIFF: W.jpeg_tiff(img, ((2, 2), (1, 1), (1, 1)), q, rows=64),
+        "tiff_g4.tif": W.tiff(img[..., 0] > 128, photometric=0, bits=1, compression=4),
+        "tiff_gray16.tif": W.tiff(gray16, photometric=1, bits=16),
+        "tiff_lzma_cmyk.tif": W.tiff(np.dstack([img, alpha]) // 32 * 32, photometric=5,
+                                     compression=34925),
+        "p6.ppm": W.netpbm(b"P6", img),
+        "p5_16bit.pgm": W.netpbm(b"P5", gray16, 65535),
+        "p6_maxval1000.ppm": W.netpbm(b"P6", img.astype(np.int64) * 1000 // 255, 1000),
+        "tga_rle.tga": W.tga(W.tga_rle((img // 32 * 32)[..., ::-1].reshape(h, -1), 3), w, h,
+                             10, 24, 0x20),
+        "tga_colormap.tga": W.tga(idx[::-1].tobytes(), w, h, 1, 8, 0, cube[:, ::-1].tobytes(), 0,
+                                  len(cube), 24),
+        "ico_png.ico": W.ico([(W.png(img, 2), (w, h), 32, 0)]),
+        "ico_dib32.ico": W.ico([(W.dib_entry(bgra, 32, alpha < 128), (w, h), 32, 0)]),
+    }
+
+
+def image_containers_phase(card, tmp: Path) -> dict:
     """Each file of ``image_containers_files`` written under ``tmp`` and
     read by the port on this machine's host: the SHA-256 of its pixels
     against PIL's (IMAGE_CONTAINERS_DIGESTS), its decode ms (median of
     FORMS_ITERS, host clock) beside the card's name and power limit. Then
-    one pass of the port's DatasetMapperDETR over the damaged JPEGs, which
-    it keeps, and CONTAINERS_REFUSED, which it drops with a warning, as
-    JAX's mapper drops what PIL refuses. Returns the lossy WebP file, which
-    the demo then serves."""
+    one pass of the port's DatasetMapperDETR over the damaged JPEGs and the
+    TIFF, Netpbm, TGA and ICO files, which it keeps, and CONTAINERS_REFUSED
+    and TIFF_REFUSED, which it drops with a warning each, as JAX's mapper
+    drops what PIL refuses. Returns the files, of which the demo then
+    serves the lossy WebP and DEMO_TIFF."""
     import logging
 
     import numpy as np
@@ -4482,11 +4550,15 @@ def image_containers_phase(card, tmp: Path) -> bytes:
         decoded[name] = {"bytes": len(data), "decode_ms": float(np.median(times)) * 1e3}
     gif = files["gif.gif"]
     (tmp / f"{CONTAINERS_REFUSED}.gif").write_bytes(gif[:len(gif) // 2])
+    img, _ = container_image()  # one strip holding half the rows its directory promises
+    (tmp / f"{TIFF_REFUSED}.tif").write_bytes(_image_writers().tiff(
+        size=FORMS_SIZE[::-1], spp=3, segments=[img.tobytes()[:img.size // 2]]))
+    kept = [n for n in files if n.startswith("jpeg_") or n.endswith(NEW_CONTAINERS)]
     records = [{"file_name": str(tmp / name), "image_id": i, "height": FORMS_SIZE[0],
-                "width": FORMS_SIZE[1], "annotations": []}
-               for i, name in enumerate(n for n in files if n.startswith("jpeg_"))]
-    records.append({"file_name": str(tmp / f"{CONTAINERS_REFUSED}.gif"), "image_id": len(records),
-                    "height": FORMS_SIZE[0], "width": FORMS_SIZE[1], "annotations": []})
+                "width": FORMS_SIZE[1], "annotations": []} for i, name in enumerate(kept)]
+    for name in (f"{CONTAINERS_REFUSED}.gif", f"{TIFF_REFUSED}.tif"):
+        records.append({"file_name": str(tmp / name), "image_id": len(records),
+                        "height": FORMS_SIZE[0], "width": FORMS_SIZE[1], "annotations": []})
     warnings = []
 
     class Catch(logging.Handler):
@@ -4504,27 +4576,31 @@ def image_containers_phase(card, tmp: Path) -> bytes:
         port_logger.removeHandler(catch)
     mapper_s = time.perf_counter() - t0
     dropped = sorted(name for name, ex in out.items() if ex is None)
-    if dropped != [CONTAINERS_REFUSED] or len(warnings) != 1 or any(
+    refused = sorted([CONTAINERS_REFUSED, TIFF_REFUSED])
+    if dropped != refused or len(warnings) != len(refused) or any(
             ex is not None and not np.isfinite(ex["image"]).all() for ex in out.values()):
         fail(f"image_containers: the mapper dropped {dropped} with warnings {warnings}, expected "
-             f"[{CONTAINERS_REFUSED}]")
+             f"{refused}, one warning each")
     log(phase="image_containers", size=list(FORMS_SIZE), files=decoded, write_s=write_s,
         mapper={"records": len(records), "kept": len(records) - len(dropped), "dropped": dropped,
                 "warnings": warnings, "seconds": mapper_s}, card=card)
     log(phase="image_containers_done", seconds=time.perf_counter() - t_phase)
-    return files["webp_lossy.webp"]
+    return files
 
 
 def demo_phase(dev, card, checkpoint: Path):
     """The prompted demo CLI (``demo_lazy.main``) on TN_CONFIG with the
     train_net phase's ``checkpoint``: DEMO_INPUTS written as JPEG by the
-    port, the YCCK file of ``image_forms_phase`` and the lossy WebP file of
-    ``image_containers_phase`` (which run first; the WebP under a .bmp name,
-    so that its overlay is written as BMP),
+    port, the YCCK file of ``image_forms_phase``, and the lossy WebP file
+    and DEMO_TIFF of ``image_containers_phase`` (which run first; the WebP
+    under a .bmp name, so that its overlay is written as BMP; the TIFF under
+    its own name, so that its overlay is written as TIFF),
     DEMO_PROMPT, masks and sem_seg. Gates: the codec's digests
     (``codec_check``), exactly FORWARD_LAUNCHES a request, each overlay
-    decoding to its input's shape, ``predictions.json`` holding every
-    instance of each request (score at least 0.05), and
+    decoding to its input's shape, the TIFF overlay's bytes those of PIL's
+    TIFF writer for its pixels (``encode_tiff``, which
+    tests/test_torch_tiff.py holds to PIL's bytes), ``predictions.json``
+    holding every instance of each request (score at least 0.05), and
     ``visualize_json_results`` writing one overlay an image of the file.
     Returns the launches."""
     import tempfile
@@ -4532,6 +4608,7 @@ def demo_phase(dev, card, checkpoint: Path):
     import numpy as np
 
     from ape_tpu_torch.data.image_io import read_image, write_image
+    from ape_tpu_torch.data.tiff import encode_tiff
     from ape_tpu_torch.demo import demo_lazy, predictor_lazy
     from ape_tpu_torch.ops import _build
     from ape_tpu_torch.tools import visualize_json_results
@@ -4553,10 +4630,13 @@ def demo_phase(dev, card, checkpoint: Path):
     # the lossy WebP under a .bmp name: read by its content, as PIL reads it,
     # and its overlay written as BMP (a .webp overlay would raise, since the
     # port writes no WebP)
-    (tmp / "in" / "webp_lossy.bmp").write_bytes(image_containers_phase(card, tmp / "containers"))
+    containers = image_containers_phase(card, tmp / "containers")
+    (tmp / "in" / "webp_lossy.bmp").write_bytes(containers["webp_lossy.webp"])
+    (tmp / "in" / DEMO_TIFF).write_bytes(containers[DEMO_TIFF])
     forms_s = time.perf_counter() - forms_s
     shapes["ycck.jpg"] = FORMS_SIZE + (3,)
     shapes["webp_lossy.bmp"] = FORMS_SIZE + (3,)
+    shapes[DEMO_TIFF] = FORMS_SIZE + (3,)
     per_request = []
     run_on_image = predictor_lazy.VisualizationDemo.run_on_image
 
@@ -4568,7 +4648,8 @@ def demo_phase(dev, card, checkpoint: Path):
 
     out = tmp / "out"
     argv = ["--config-file", str(ROOT / TN_CONFIG), "--input", str(tmp / "in" / "*.jpg"),
-            str(tmp / "in" / "*.bmp"), "--output", str(out), "--text-prompt", DEMO_PROMPT,
+            str(tmp / "in" / "*.bmp"), str(tmp / "in" / "*.tif"), "--output", str(out),
+            "--text-prompt", DEMO_PROMPT,
             "--with-mask", "--with-sseg", "--init-checkpoint", str(checkpoint)]
     predictor_lazy.VisualizationDemo.run_on_image = counted
     _build.reset_launches()
@@ -4584,7 +4665,8 @@ def demo_phase(dev, card, checkpoint: Path):
         fail(f"demo: {len(records)} requests launched {per_request}, expected "
              f"{len(shapes)} of {want}")
     for phase, image in (("image_forms_serve", "ycck.jpg"),
-                         ("image_containers_serve", "webp_lossy.bmp")):
+                         ("image_containers_serve", "webp_lossy.bmp"),
+                         ("image_tiff_serve", DEMO_TIFF)):
         at = [i for i, r in enumerate(records) if Path(r["path"]).name == image][0]
         log(phase=phase, image=image, config=TN_CONFIG, launches=per_request[at],
             instances=records[at]["instances"],
@@ -4594,6 +4676,9 @@ def demo_phase(dev, card, checkpoint: Path):
         if vis is None or vis.shape != shape:
             fail(f"demo: the overlay {name} decodes to {None if vis is None else vis.shape}, "
                  f"expected {shape}")
+    overlay = (out / DEMO_TIFF).read_bytes()
+    if not overlay.startswith(b"II*\x00") or overlay != encode_tiff(read_image(str(out / DEMO_TIFF))):
+        fail(f"demo: the overlay {DEMO_TIFF} is not PIL's TIFF bytes for its pixels")
     rows = json.load(open(out / "predictions.json")) if (out / "predictions.json").exists() else []
     counts = {name: sum(r["image_id"] == name for r in rows) for name in shapes}
     instances = {Path(r["path"]).name: r["instances"] for r in records}
@@ -4612,7 +4697,8 @@ def demo_phase(dev, card, checkpoint: Path):
         requests=[{k: v for k, v in r.items() if k != "path"} | {"image": Path(r["path"]).name}
                   for r in records],
         launches_per_request=FORWARD_LAUNCHES, rows=len(rows), demo_s=demo_s,
-        visualize_s=vis_s, visualized=sorted(drawn), card=card)
+        visualize_s=vis_s, visualized=sorted(drawn), tiff_overlay={
+            "name": DEMO_TIFF, "bytes": len(overlay), "sha256": _sha(overlay)}, card=card)
     log(phase="demo_done", seconds=time.perf_counter() - t_phase - forms_s)
     return launches
 

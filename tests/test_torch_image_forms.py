@@ -366,14 +366,15 @@ def test_empty_file_is_dropped(tmp_path):
 
 @pytest.mark.parametrize("fmt", ("GIF", "BMP", "TIFF", "WEBP", "PPM", "AVIF", "ICO", "TGA"))
 def test_formats_pil_reads_raise_naming_them(tmp_path, fmt):
-    """JAX trains on these (PIL reads them). The port reads GIF, BMP and
-    WebP as PIL does (``test_torch_image_containers``); the others it does
-    not read yet: ``read_image`` raises ``ValueError`` naming the format,
-    never None."""
+    """JAX trains on these (PIL reads them). The port reads GIF, BMP, WebP,
+    TIFF, PPM, ICO and TGA as PIL does (``test_torch_image_containers``,
+    ``test_torch_tiff``, ``test_torch_netpbm_tga_ico``); AVIF it does not
+    read yet: ``read_image`` raises ``ValueError`` naming the format, never
+    None."""
     path = tmp_path / f"a.{fmt.lower()}"
     Image.fromarray(image(24, 40)).save(path, fmt)  # ICO keeps the icon sizes that fit
     assert jax_read_image(str(path)) is not None
-    if fmt in ("GIF", "BMP", "WEBP"):
+    if fmt != "AVIF":
         np.testing.assert_array_equal(read_image(str(path)), jax_read_image(str(path)))
         return
     with pytest.raises(ValueError, match=fmt) as info:

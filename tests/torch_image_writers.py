@@ -19,7 +19,16 @@ standard library only, so that the card machine can load it):
   headers, top-down rows;
 * ``gif``: GIF of one or more frames, with global or local palettes,
   interlace, a frame offset inside a larger screen, a transparency index,
-  and an LZW stream that clears its table when full or keeps it.
+  and an LZW stream that clears its table when full or keeps it;
+* ``tiff``: TIFF of strips or tiles, classic or BigTIFF, either byte
+  order, uncompressed, CCITT (``ccitt``: modified Huffman, Group 3 1-D and
+  2-D, Group 4), LZW (``lzw_tiff``, old style too), Deflate, PackBits and
+  LZMA, predictors 2 and 3, FillOrder 2, planar files, YCbCr blocks
+  (``ycbcr_blocks``) and JPEG strips or tiles with JPEGTables
+  (``jpeg_tiff``);
+* ``netpbm``: P1-P6, plain or raw, any maxval;
+* ``tga``: TGA of raw or RLE (``tga_rle``) pixels, colour-mapped or not,
+  any origin; ``ico``: ICO of PNG and DIB (``dib_entry``) entries.
 
 ``coefficients`` turns an image into the quantized blocks the JPEG writers
 take: an integer colour transform, box downsampling and an integer DCT,
@@ -1043,3 +1052,578 @@ def gif(frames, screen=None, global_palette=None, version: bytes = b"GIF89a") ->
         out += b"," + struct.pack("<HHHHB", x, y, w, h, fflags) + local + bytes([min_size])
         out += sub_blocks(_lzw(idx, min_size, f.get("clear_when_full", True)))
     return out + b";"
+
+
+# --- TIFF ------------------------------------------------------------------------
+
+# ITU-T T.4 run-length codes (bits as text) of white and black runs 0-63,
+# makeup runs 64-1728, and the makeup runs 1792-2560 both colors share
+_T4_WHITE = (
+    "00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 001000 000011 "
+    "110100 110101 101010 101011 0100111 0001100 0001000 0010111 0000011 0000100 0101000 "
+    "0101011 0010011 0100100 0011000 00000010 00000011 00011010 00011011 00010010 00010011 "
+    "00010100 00010101 00010110 00010111 00101000 00101001 00101010 00101011 00101100 "
+    "00101101 00000100 00000101 00001010 00001011 01010010 01010011 01010100 01010101 "
+    "00100100 00100101 01011000 01011001 01011010 01011011 01001010 01001011 00110010 "
+    "00110011 00110100 11011 10010 010111 0110111 00110110 00110111 01100100 01100101 "
+    "01101000 01100111 011001100 011001101 011010010 011010011 011010100 011010101 011010110 "
+    "011010111 011011000 011011001 011011010 011011011 010011000 010011001 010011010 011000 "
+    "010011011").split()
+_T4_BLACK = (
+    "0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 0000101 0000111 00000100 "
+    "00000111 000011000 0000010111 0000011000 0000001000 00001100111 00001101000 00001101100 "
+    "00000110111 00000101000 00000010111 00000011000 000011001010 000011001011 000011001100 "
+    "000011001101 000001101000 000001101001 000001101010 000001101011 000011010010 "
+    "000011010011 000011010100 000011010101 000011010110 000011010111 000001101100 "
+    "000001101101 000011011010 000011011011 000001010100 000001010101 000001010110 "
+    "000001010111 000001100100 000001100101 000001010010 000001010011 000000100100 "
+    "000000110111 000000111000 000000100111 000000101000 000001011000 000001011001 "
+    "000000101011 000000101100 000001011010 000001100110 000001100111 0000001111 "
+    "000011001000 000011001001 000001011011 000000110011 000000110100 000000110101 "
+    "0000001101100 0000001101101 0000001001010 0000001001011 0000001001100 0000001001101 "
+    "0000001110010 0000001110011 0000001110100 0000001110101 0000001110110 0000001110111 "
+    "0000001010010 0000001010011 0000001010100 0000001010101 0000001011010 0000001011011 "
+    "0000001100100 0000001100101").split()
+_T4_EXT = ("00000001000 00000001100 00000001101 000000010010 000000010011 000000010100 "
+           "000000010101 000000010110 000000010111 000000011100 000000011101 000000011110 "
+           "000000011111").split()
+_T4_EOL = "000000000001"
+
+
+def _t4_run(run: int, black: bool) -> str:
+    """The T.4 codes of one run: makeup codes (2560 at most each), then a
+    terminating code."""
+    table = _T4_BLACK if black else _T4_WHITE
+    out = ""
+    while run >= 2560 + 64:
+        out += _T4_EXT[-1]
+        run -= 2560
+    if run >= 1792:
+        out += _T4_EXT[(run - 1792) // 64]
+        run %= 64
+    elif run >= 64:
+        out += table[63 + run // 64]
+        run %= 64
+    return out + table[run]
+
+
+def _changes(row: np.ndarray) -> list:
+    """Positions where a bilevel row (True black) changes color, the
+    imaginary pixel before it white."""
+    prev = np.concatenate([[False], row[:-1]])
+    return list(np.flatnonzero(row != prev))
+
+
+def _t4_1d(row: np.ndarray) -> str:
+    edges = _changes(row) + [row.size]
+    out, x, black = "", 0, False
+    for e in edges:
+        out += _t4_run(e - x, black)
+        x, black = e, not black
+    return out
+
+
+def _t4_2d(row: np.ndarray, ref: np.ndarray) -> str:
+    """One row coded against the row above (T.4 section 4.2, T.6)."""
+    width = row.size
+    cur_changes, ref_changes = _changes(row), _changes(ref)
+
+    def next_change(changes, after):
+        for c in changes:
+            if c > after:
+                return c
+        return width
+
+    def ref_b1(a0, color):
+        for c in ref_changes:  # a change to the opposite of `color` past a0
+            if c > a0 and bool(ref[c]) != color:
+                return c
+        return width
+
+    out, a0, color = "", -1, False
+    vertical = {0: "1", 1: "011", 2: "000011", 3: "0000011", -1: "010", -2: "000010",
+                -3: "0000010"}
+    while a0 < width:
+        a1 = next_change(cur_changes, a0)
+        b1 = ref_b1(a0, color)
+        b2 = next_change(ref_changes, b1)
+        if b2 < a1:
+            out += "0001"
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            out += vertical[a1 - b1]
+            a0, color = a1, not color
+        else:
+            a2 = next_change(cur_changes, a1)
+            out += "001" + _t4_run(a1 - max(a0, 0), color) + _t4_run(a2 - a1, not color)
+            a0 = a2
+    return out
+
+
+def _bits_to_bytes(bits: str) -> bytes:
+    bits += "0" * (-len(bits) % 8)
+    return int(bits, 2).to_bytes(len(bits) // 8, "big") if bits else b""
+
+
+def ccitt(pixels: np.ndarray, compression: int, options: int = 0, eofb: bool = True,
+          rtc: bool = True) -> bytes:
+    """A bilevel image (True black) coded as CCITT modified Huffman (2: each
+    row 1-D and byte aligned), Group 3 (3: an EOL before each row, under
+    ``options`` bit 0 a tag bit and 2-D rows between 1-D ones, bit 2 EOLs
+    byte aligned; ``rtc`` ends with six EOLs) or Group 4 (4: every row 2-D;
+    ``eofb`` ends with two EOLs)."""
+    pixels = np.asarray(pixels, bool)
+    ref = np.zeros(pixels.shape[1], bool)
+    if compression == 2:
+        return b"".join(_bits_to_bytes(_t4_1d(row)) for row in pixels)
+    out = ""
+    for y, row in enumerate(pixels):
+        if compression == 3:
+            eol = _T4_EOL
+            if options & 4:  # fill bits so that the EOL ends a byte
+                eol = "0" * ((4 - len(out)) % 8) + eol
+            out += eol
+            if options & 1:
+                one_d = y % 3 == 0
+                out += ("1" if one_d else "0") + (_t4_1d(row) if one_d else _t4_2d(row, ref))
+            else:
+                out += _t4_1d(row)
+        else:
+            out += _t4_2d(row, ref)
+        ref = row
+    if compression == 3 and rtc:
+        out += (_T4_EOL + ("1" if options & 1 else "")) * 6
+    if compression == 4 and eofb:
+        out += _T4_EOL * 2
+    return _bits_to_bytes(out)
+
+
+def lzw_tiff(data: bytes, compat: bool = False) -> bytes:
+    """TIFF LZW: a clear code first, codes of 9-12 bits most significant bit
+    first, the width growing as libtiff's encoder grows it, a clear where
+    the table is full, the end code last. ``compat``: the old style (least
+    significant bit first, the width growing one code late), which decodes
+    only as long as the table needs no clear."""
+    codes, widths = [256], [9]
+    nbits, next_code = 9, 258
+    table = {}  # (prefix code << 8 | byte) -> code
+
+    def grow():
+        nonlocal nbits, next_code, table
+        next_code += 1
+        if next_code == 4094:
+            codes.append(256)
+            widths.append(nbits)
+            table, nbits, next_code = {}, 9, 258
+        elif next_code > (1 << nbits) - (0 if compat else 1):
+            nbits += 1
+
+    w = -1
+    for c in data:
+        if w < 0:
+            w = c
+            continue
+        key = w << 8 | c
+        code = table.get(key)
+        if code is not None:
+            w = code
+            continue
+        codes.append(w)
+        widths.append(nbits)
+        table[key] = next_code
+        grow()
+        w = c
+    if w >= 0:
+        codes.append(w)
+        widths.append(nbits)
+        grow()
+    codes.append(257)
+    widths.append(nbits)
+    acc, bits, out = 0, 0, bytearray()
+    for code, width in zip(codes, widths):
+        if compat:
+            acc |= code << bits
+            bits += width
+            while bits >= 8:
+                out.append(acc & 255)
+                acc >>= 8
+                bits -= 8
+        else:
+            acc = (acc << width) | code
+            bits += width
+            while bits >= 8:
+                out.append((acc >> (bits - 8)) & 255)
+                bits -= 8
+            acc &= (1 << bits) - 1
+    if bits:
+        out.append(acc & 255 if compat else (acc << (8 - bits)) & 255)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: repeats of 3-128 bytes as runs, the rest as literals of up
+    to 128."""
+    out, i, n = bytearray(), 0, len(data)
+    lit = bytearray()
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            while lit:
+                out += bytes([len(lit[:128]) - 1]) + lit[:128]
+                lit = lit[128:]
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+        else:
+            lit.append(data[i])
+            i += 1
+    while lit:
+        out += bytes([len(lit[:128]) - 1]) + lit[:128]
+        lit = lit[128:]
+    return bytes(out)
+
+
+def jpeg_tables(stream: bytes):
+    """A JPEG stream split as a TIFF holds it: (the JPEGTables stream: SOI,
+    the DQT and DHT segments, EOI; the abbreviated stream: SOI, then the
+    rest without APPn segments)."""
+    tables, rest, pos = b"", b"", 2
+    while pos < len(stream):
+        marker = stream[pos + 1]
+        if marker == 0xDA:
+            rest += stream[pos:]
+            break
+        length = struct.unpack(">H", stream[pos + 2:pos + 4])[0]
+        seg = stream[pos:pos + 2 + length]
+        if marker in (0xDB, 0xC4):
+            tables += seg
+        elif not 0xE0 <= marker <= 0xEF:
+            rest += seg
+        pos += 2 + length
+    return b"\xff\xd8" + tables + b"\xff\xd9", b"\xff\xd8" + rest
+
+
+def ycbcr_blocks(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int, vs: int) -> bytes:
+    """Full-size Y and chroma planes (chroma taken at each block's top left)
+    -> YCbCr data in blocks of hs x vs luma samples, Cb and Cr; the image
+    padded to whole blocks by repeating its last row and column."""
+    h, w = y.shape
+    bh, bw = -(-h // vs), -(-w // hs)
+    pad = ((0, bh * vs - h), (0, bw * hs - w))
+    y, cb, cr = (np.pad(p, pad, mode="edge") for p in (y, cb, cr))
+    blocks = y.reshape(bh, vs, bw, hs).transpose(0, 2, 1, 3).reshape(bh, bw, vs * hs)
+    return np.concatenate([blocks, cb[::vs, ::hs, None], cr[::vs, ::hs, None]], -1).astype(
+        np.uint8).tobytes()
+
+
+def _samples_bytes(samples: np.ndarray, bits: int, order: str) -> bytes:
+    """Rows of (h, w, c) samples at ``bits`` (1, 2, 4: packed, rows padded
+    to a byte; 8-64: in ``order``'s byte order)."""
+    h, w, c = samples.shape
+    if bits < 8:
+        v = samples.astype(np.uint8).reshape(h, w * c, 1)
+        packed = np.unpackbits(v, axis=2)[..., 8 - bits:].reshape(h, -1)
+        return np.packbits(packed, axis=1).tobytes()
+    if bits == 8:
+        return samples.astype(np.uint8).tobytes()
+    kind = samples.dtype.kind if samples.dtype.kind in "fi" else "u"
+    return samples.astype(f"{order}{kind}{bits // 8}").tobytes()
+
+
+def _tiff_predict(raw: bytes, predictor: int, width: int, spp: int, bits: int, order: str,
+             rows: int) -> bytes:
+    """The encoder's side of predictor 2 (horizontal differences of the
+    samples) and 3 (the float predictor: byte planes, most significant
+    first, then byte differences)."""
+    if predictor == 2:
+        dt = {8: np.uint8, 16: f"{order}u2", 32: f"{order}u4"}[bits]
+        v = np.frombuffer(raw, dt).reshape(rows, width, spp).astype(np.int64)
+        d = v.copy()
+        d[:, 1:] -= v[:, :-1]
+        return (d % (1 << bits)).astype(dt).tobytes()
+    nb = bits // 8
+    v = np.frombuffer(raw, f"{order}f{nb}").reshape(rows, width * spp).astype(f">f{nb}")
+    planes = v.view(np.uint8).reshape(rows, width * spp, nb).transpose(0, 2, 1).reshape(rows, -1)
+    d = planes.astype(np.int64)
+    d[:, spp:] -= planes[:, :-spp].astype(np.int64)
+    return (d % 256).astype(np.uint8).tobytes()
+
+
+def _compress(raw: bytes, compression: int) -> bytes:
+    if compression in (8, 32946):
+        return zlib.compress(raw, 6)
+    if compression == 5:
+        return lzw_tiff(raw)
+    if compression == 32773:
+        return packbits(raw)
+    if compression == 34925:
+        import lzma
+
+        return lzma.compress(raw, format=lzma.FORMAT_XZ, check=lzma.CHECK_CRC32, preset=1)
+    return raw
+
+
+def tiff(samples=None, photometric: int = 2, bits: int = 8, compression: int = 1,
+         sample_format: int = 1, extra=(), predictor: int = 1, planar: int = 1,
+         fillorder: int = 1, order: str = "<", big: bool = False, tile=None,
+         rows_per_strip=None, colormap=None, options: int = 0, orientation=None,
+         segments=None, size=None, spp=None, tags=()) -> bytes:
+    """A TIFF of ``samples`` (H, W) or (H, W, C) as stored (uint8, uint16,
+    uint32, int or float arrays; 1, 2 and 4 bits packed from uint8 values):
+    strips of ``rows_per_strip`` rows or ``tile`` = (width, length) tiles,
+    PlanarConfiguration 1 or 2, each segment compressed (1 none, 2/3/4 CCITT
+    of a bilevel image whose True is black, 5 LZW, 8 Deflate, 32773
+    PackBits, 34925 LZMA) after ``predictor``; FillOrder 2 reverses the
+    bits of each stored byte; ``order`` "<" (II) or ">" (MM); ``big`` for
+    BigTIFF. ``segments`` gives the stored strips or tiles instead (JPEG,
+    YCbCr blocks), with ``size`` = (W, H) and ``spp``. ``tags`` adds
+    (tag, type, values) entries, replacing any of the same number."""
+    if samples is not None:
+        samples = np.asarray(samples)
+        if samples.ndim == 2:
+            samples = samples[..., None]
+        height, width, spp = samples.shape
+    else:
+        width, height = size
+    spp = spp or 1
+    tw, th = tile if tile else (width, rows_per_strip or height)
+    if segments is None:
+        segments = []
+        across, down = -(-width // tw), -(-height // th)
+        planes = range(spp) if planar == 2 else (None,)
+        for plane in planes:
+            for sy in range(down):
+                for sx in range(across):
+                    if tile:  # whole tiles, the edge ones padded with zeros
+                        part = np.zeros((th, tw, spp), samples.dtype)
+                        src = samples[sy * th:(sy + 1) * th, sx * tw:(sx + 1) * tw]
+                        part[:src.shape[0], :src.shape[1]] = src
+                    else:
+                        part = samples[sy * th:(sy + 1) * th]
+                    if plane is not None:
+                        part = part[..., plane:plane + 1]
+                    rows, pw, pc = part.shape
+                    if compression in (2, 3, 4):
+                        data = ccitt(part[..., 0].astype(bool), compression, options)
+                    else:
+                        data = _samples_bytes(part, bits, order)
+                        if predictor != 1:
+                            data = _tiff_predict(data, predictor, pw, pc, bits, order, rows)
+                        data = _compress(data, compression)
+                    segments.append(data)
+    if fillorder == 2:
+        rev = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+        segments = [rev[np.frombuffer(s, np.uint8)].tobytes() for s in segments]
+    head = 16 if big else 8
+    body = b"".join(segments)
+    offsets, pos = [], head
+    for s in segments:
+        offsets.append(pos)
+        pos += len(s)
+    long_type = 16 if big else 4
+    entries = {256: (4, (width,)), 257: (4, (height,)), 258: (3, (bits,) * spp),
+               259: (3, (compression,)), 262: (3, (photometric,)), 277: (3, (spp,)),
+               284: (3, (planar,))}
+    if tile:
+        entries.update({322: (3, (tw,)), 323: (3, (th,)), 324: (long_type, tuple(offsets)),
+                        325: (long_type, tuple(len(s) for s in segments))})
+    else:
+        entries.update({273: (long_type, tuple(offsets)), 278: (4, (th,)),
+                        279: (long_type, tuple(len(s) for s in segments))})
+    if fillorder != 1:
+        entries[266] = (3, (fillorder,))
+    if sample_format != 1:
+        entries[339] = (3, (sample_format,) * spp)
+    if extra:
+        entries[338] = (3, tuple(extra))
+    if predictor != 1:
+        entries[317] = (3, (predictor,))
+    if colormap is not None:
+        entries[320] = (3, tuple(int(v) for v in np.asarray(colormap).T.reshape(-1)))
+    if options:
+        entries[292 if compression == 3 else 293] = (4, (options,))
+    if orientation:
+        entries[274] = (3, (orientation,))
+    for tag, typ, values in tags:
+        entries[tag] = (typ, values)
+    e = order
+    codes = {1: "B", 2: "s", 3: "H", 4: "L", 5: "LL", 7: "s", 11: "f", 12: "d", 16: "Q"}
+    sizes = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 7: 1, 11: 4, 12: 8, 16: 8}
+    inline = 8 if big else 4
+    ifd_at = head + len(body) + (len(body) % 2)
+    ifd_len = (8 + 20 * len(entries) + 8) if big else (2 + 12 * len(entries) + 4)
+    extra_at = ifd_at + ifd_len
+    ifd, out_of_line = bytearray(), bytearray()
+    for tag in sorted(entries):
+        typ, values = entries[tag]
+        if typ in (2, 7) or isinstance(values, (bytes, bytearray)):
+            data, count = bytes(values), len(values)
+        elif typ == 5:
+            flat = [int(x) for v in values for x in (round(v * 10000), 10000)]
+            data, count = struct.pack(f"{e}{2 * len(values)}L", *flat), len(values)
+        else:
+            data, count = struct.pack(f"{e}{len(values)}{codes[typ]}", *values), len(values)
+        if len(data) <= inline:
+            value = data.ljust(inline, b"\0")
+        else:
+            value = struct.pack(f"{e}{'Q' if big else 'L'}", extra_at + len(out_of_line))
+            out_of_line += data + b"\0" * (len(data) % 2)
+        ifd += struct.pack(f"{e}HH{'Q' if big else 'L'}", tag, typ, count) + value
+    count = struct.pack(f"{e}{'Q' if big else 'H'}", len(entries))
+    nxt = struct.pack(f"{e}{'Q' if big else 'L'}", 0)
+    prefix = b"II" if order == "<" else b"MM"
+    if big:
+        header = prefix + struct.pack(f"{e}HHHQ", 43, 8, 0, ifd_at)
+    else:
+        header = prefix + struct.pack(f"{e}HL", 42, ifd_at)
+    return header + body + b"\0" * (len(body) % 2) + count + bytes(ifd) + nxt + bytes(out_of_line)
+
+
+def jpeg_tiff(img: np.ndarray, sampling, qtables, rows=None, tile=None, tables: bool = True,
+              photometric: int = 6) -> bytes:
+    """A JPEG-compressed TIFF of an RGB image: strips of ``rows`` rows (or
+    one), or ``tile`` x ``tile`` tiles, each a baseline stream of
+    ``huffman_jpeg`` without a JFIF marker (YCbCr samples under photometric
+    6, the RGB values as stored under 2, gray under 1 with one sampling
+    pair), their tables moved to the JPEGTables tag unless ``tables`` is
+    False."""
+    h, w = img.shape[:2]
+    color = "gray" if len(sampling) == 1 else "ycc" if photometric == 6 else "rgb"
+
+    def stream(part):
+        ph, pw = part.shape[:2]
+        planes = planes_of(part[..., 0] if color == "gray" else part, color)
+        return huffman_jpeg(pw, ph, sampling, coefficients(planes, sampling, qtables), qtables,
+                            jfif=False)
+
+    parts = []
+    if tile:
+        for ty in range(0, h, tile):
+            for tx in range(0, w, tile):
+                part = np.zeros((tile, tile, 3), np.uint8)
+                src = img[ty:ty + tile, tx:tx + tile]
+                part[:src.shape[0], :src.shape[1]] = src
+                parts.append(stream(part))
+    else:
+        step = rows or h
+        parts = [stream(img[y:y + step]) for y in range(0, h, step)]
+    extra = [(530, 3, tuple(sampling[0]))] if photometric == 6 else []
+    if tables:
+        split = [jpeg_tables(p) for p in parts]
+        parts = [s[1] for s in split]
+        extra.append((347, 7, split[0][0]))
+    return tiff(size=(w, h), spp=len(sampling), photometric=photometric, compression=7,
+                segments=parts, rows_per_strip=rows, tile=(tile, tile) if tile else None,
+                tags=tuple(extra))
+
+
+def netpbm(magic: bytes, samples: np.ndarray, maxval: int = 255) -> bytes:
+    """A Netpbm file of (H, W) or (H, W, 3) samples: P1-P3 as text (P1's
+    samples 1 black), P4 packed bits, P5 and P6 one byte a sample up to a
+    maxval of 255, else two big-endian."""
+    samples = np.asarray(samples)
+    h, w = samples.shape[:2]
+    head = magic + b"\n%d %d\n" % (w, h)
+    if magic in (b"P1", b"P4"):
+        bits = samples.astype(np.uint8)
+        if magic == b"P4":
+            return head + np.packbits(bits, axis=1).tobytes()
+        return head + b"\n".join(b" ".join(b"%d" % v for v in row) for row in bits) + b"\n"
+    head += b"%d\n" % maxval
+    if magic in (b"P2", b"P3"):
+        rows = samples.reshape(h, -1)
+        return head + b"\n".join(b" ".join(b"%d" % v for v in row) for row in rows) + b"\n"
+    return head + samples.astype(np.uint8 if maxval < 256 else ">u2").tobytes()
+
+
+# --- TGA and ICO -----------------------------------------------------------------
+
+TGA_FOOTER = b"\0" * 8 + b"TRUEVISION-XFILE." + b"\0"
+
+
+def tga(pixels: bytes, w: int, h: int, imagetype: int, depth: int, flags: int = 0,
+        cmap: bytes = b"", cm_start: int = 0, cm_len: int = 0, cm_depth: int = 0,
+        ident: bytes = b"", footer: bool = False) -> bytes:
+    """A TGA of stored ``pixels`` (raw or ``tga_rle`` packets): the 18-byte
+    header (the colour-map type set where ``cm_len`` is), the ID field, the
+    colour map, the pixels, and with ``footer`` the TGA 2.0 footer."""
+    head = struct.pack("<BBBHHBHHHHBB", len(ident), int(bool(cm_len)), imagetype, cm_start,
+                       cm_len, cm_depth, 0, 0, w, h, depth, flags)
+    return head + ident + cmap + pixels + (TGA_FOOTER if footer else b"")
+
+
+def tga_rle(rows: np.ndarray, depth: int, cross_rows: bool = False) -> bytes:
+    """TGA RLE packets of (h, w * depth) pixel bytes: runs of 2 or more as
+    run packets, the rest literal; with ``cross_rows`` the rows are one
+    stream, runs stay inside a row and literals of up to 128 pixels run on
+    past its end."""
+    h = rows.shape[0]
+    width = rows.shape[1] // depth
+    px = np.ascontiguousarray(rows).reshape(h * width, depth)
+    # a run starts where a pixel differs from the one before, or a row starts
+    key = px.view(np.dtype((np.void, depth)))[:, 0]
+    start = np.ones(h * width, bool)
+    start[1:] = key[1:] != key[:-1]
+    start[::width] = True
+    bounds = list(np.flatnonzero(start)) + [h * width]
+    out = bytearray()
+    literal = []  # pixel indices waiting for a literal packet
+
+    def flush():
+        while literal:
+            take = literal[:128]
+            if not cross_rows:  # a literal stays inside its row
+                row = take[0] // width
+                take = [i for i in take if i // width == row]
+            out.append(len(take) - 1)
+            out.extend(px[take[0]:take[-1] + 1].tobytes())
+            del literal[:len(take)]
+
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        if b - a >= 2:
+            flush()
+            while a < b:
+                n = min(128, b - a)
+                if n == 1:
+                    literal.append(a)
+                    flush()
+                    break
+                out.append(0x80 | (n - 1))
+                out.extend(px[a].tobytes())
+                a += n
+        else:
+            literal.append(a)
+    flush()
+    return bytes(out)
+
+
+def dib_entry(pixels: np.ndarray, bits: int, mask: np.ndarray, palette=None) -> bytes:
+    """A DIB for an ICO entry: the bitmap header with twice the height, the
+    XOR image bottom-up and the AND mask (1 transparent) bottom-up, rows of
+    both padded to 32 bits."""
+    h, w = pixels.shape[:2]
+    data = bmp(pixels, bits, palette=palette)
+    offset = struct.unpack_from("<I", data, 10)[0]
+    header = bytearray(data[14:offset])
+    struct.pack_into("<i", header, 8, 2 * h)
+    stride = (w + 31) // 32 * 4
+    rows = np.zeros((h, stride * 8), np.uint8)
+    rows[:, :w] = mask
+    return bytes(header) + data[offset:] + np.packbits(rows[::-1], axis=1).tobytes()
+
+
+def ico(entries) -> bytes:
+    """An ICO of ``entries``: (payload (a PNG or ``dib_entry``), (w, h) for
+    the directory (256 written as 0), bits per pixel, color count)."""
+    out = b"\0\0\1\0" + struct.pack("<H", len(entries))
+    pos = 6 + 16 * len(entries)
+    body = b""
+    for (payload, (w, h), bpp, colors) in entries:
+        out += struct.pack("<BBBBHHII", w % 256 if w <= 256 else 0, h % 256 if h <= 256 else 0,
+                           colors, 0, 1, bpp, len(payload),
+                           pos + len(body))
+        body += payload
+    return out + body
+
+
