@@ -47,6 +47,8 @@
 #include <string>
 #include <vector>
 
+#include "vp8_common.h"
+
 namespace {
 
 struct Failure {
@@ -54,334 +56,6 @@ struct Failure {
 };
 
 [[noreturn]] void fail(const std::string& m) { throw Failure{m}; }
-
-// RFC 6386 section 13.5: the default coefficient probabilities
-const uint8_t kCoeffsProba0[4][8][3][11] = {
-    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-    253, 136, 254, 255, 228, 219, 128, 128, 128, 128, 128,
-    189, 129, 242, 255, 227, 213, 255, 219, 128, 128, 128,
-    106, 126, 227, 252, 214, 209, 255, 255, 128, 128, 128,
-    1, 98, 248, 255, 236, 226, 255, 255, 128, 128, 128,
-    181, 133, 238, 254, 221, 234, 255, 154, 128, 128, 128,
-    78, 134, 202, 247, 198, 180, 255, 219, 128, 128, 128,
-    1, 185, 249, 255, 243, 255, 128, 128, 128, 128, 128,
-    184, 150, 247, 255, 236, 224, 128, 128, 128, 128, 128,
-    77, 110, 216, 255, 236, 230, 128, 128, 128, 128, 128,
-    1, 101, 251, 255, 241, 255, 128, 128, 128, 128, 128,
-    170, 139, 241, 252, 236, 209, 255, 255, 128, 128, 128,
-    37, 116, 196, 243, 228, 255, 255, 255, 128, 128, 128,
-    1, 204, 254, 255, 245, 255, 128, 128, 128, 128, 128,
-    207, 160, 250, 255, 238, 128, 128, 128, 128, 128, 128,
-    102, 103, 231, 255, 211, 171, 128, 128, 128, 128, 128,
-    1, 152, 252, 255, 240, 255, 128, 128, 128, 128, 128,
-    177, 135, 243, 255, 234, 225, 128, 128, 128, 128, 128,
-    80, 129, 211, 255, 194, 224, 128, 128, 128, 128, 128,
-    1, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    246, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    255, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-    198, 35, 237, 223, 193, 187, 162, 160, 145, 155, 62,
-    131, 45, 198, 221, 172, 176, 220, 157, 252, 221, 1,
-    68, 47, 146, 208, 149, 167, 221, 162, 255, 223, 128,
-    1, 149, 241, 255, 221, 224, 255, 255, 128, 128, 128,
-    184, 141, 234, 253, 222, 220, 255, 199, 128, 128, 128,
-    81, 99, 181, 242, 176, 190, 249, 202, 255, 255, 128,
-    1, 129, 232, 253, 214, 197, 242, 196, 255, 255, 128,
-    99, 121, 210, 250, 201, 198, 255, 202, 128, 128, 128,
-    23, 91, 163, 242, 170, 187, 247, 210, 255, 255, 128,
-    1, 200, 246, 255, 234, 255, 128, 128, 128, 128, 128,
-    109, 178, 241, 255, 231, 245, 255, 255, 128, 128, 128,
-    44, 130, 201, 253, 205, 192, 255, 255, 128, 128, 128,
-    1, 132, 239, 251, 219, 209, 255, 165, 128, 128, 128,
-    94, 136, 225, 251, 218, 190, 255, 255, 128, 128, 128,
-    22, 100, 174, 245, 186, 161, 255, 199, 128, 128, 128,
-    1, 182, 249, 255, 232, 235, 128, 128, 128, 128, 128,
-    124, 143, 241, 255, 227, 234, 128, 128, 128, 128, 128,
-    35, 77, 181, 251, 193, 211, 255, 205, 128, 128, 128,
-    1, 157, 247, 255, 236, 231, 255, 255, 128, 128, 128,
-    121, 141, 235, 255, 225, 227, 255, 255, 128, 128, 128,
-    45, 99, 188, 251, 195, 217, 255, 224, 128, 128, 128,
-    1, 1, 251, 255, 213, 255, 128, 128, 128, 128, 128,
-    203, 1, 248, 255, 255, 128, 128, 128, 128, 128, 128,
-    137, 1, 177, 255, 224, 255, 128, 128, 128, 128, 128,
-    253, 9, 248, 251, 207, 208, 255, 192, 128, 128, 128,
-    175, 13, 224, 243, 193, 185, 249, 198, 255, 255, 128,
-    73, 17, 171, 221, 161, 179, 236, 167, 255, 234, 128,
-    1, 95, 247, 253, 212, 183, 255, 255, 128, 128, 128,
-    239, 90, 244, 250, 211, 209, 255, 255, 128, 128, 128,
-    155, 77, 195, 248, 188, 195, 255, 255, 128, 128, 128,
-    1, 24, 239, 251, 218, 219, 255, 205, 128, 128, 128,
-    201, 51, 219, 255, 196, 186, 128, 128, 128, 128, 128,
-    69, 46, 190, 239, 201, 218, 255, 228, 128, 128, 128,
-    1, 191, 251, 255, 255, 128, 128, 128, 128, 128, 128,
-    223, 165, 249, 255, 213, 255, 128, 128, 128, 128, 128,
-    141, 124, 248, 255, 255, 128, 128, 128, 128, 128, 128,
-    1, 16, 248, 255, 255, 128, 128, 128, 128, 128, 128,
-    190, 36, 230, 255, 236, 255, 128, 128, 128, 128, 128,
-    149, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    1, 226, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    247, 192, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    240, 128, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    1, 134, 252, 255, 255, 128, 128, 128, 128, 128, 128,
-    213, 62, 250, 255, 255, 128, 128, 128, 128, 128, 128,
-    55, 93, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
-    202, 24, 213, 235, 186, 191, 220, 160, 240, 175, 255,
-    126, 38, 182, 232, 169, 184, 228, 174, 255, 187, 128,
-    61, 46, 138, 219, 151, 178, 240, 170, 255, 216, 128,
-    1, 112, 230, 250, 199, 191, 247, 159, 255, 255, 128,
-    166, 109, 228, 252, 211, 215, 255, 174, 128, 128, 128,
-    39, 77, 162, 232, 172, 180, 245, 178, 255, 255, 128,
-    1, 52, 220, 246, 198, 199, 249, 220, 255, 255, 128,
-    124, 74, 191, 243, 183, 193, 250, 221, 255, 255, 128,
-    24, 71, 130, 219, 154, 170, 243, 182, 255, 255, 128,
-    1, 182, 225, 249, 219, 240, 255, 224, 128, 128, 128,
-    149, 150, 226, 252, 216, 205, 255, 171, 128, 128, 128,
-    28, 108, 170, 242, 183, 194, 254, 223, 255, 255, 128,
-    1, 81, 230, 252, 204, 203, 255, 192, 128, 128, 128,
-    123, 102, 209, 247, 188, 196, 255, 233, 128, 128, 128,
-    20, 95, 153, 243, 164, 173, 255, 203, 128, 128, 128,
-    1, 222, 248, 255, 216, 213, 128, 128, 128, 128, 128,
-    168, 175, 246, 252, 235, 205, 255, 255, 128, 128, 128,
-    47, 116, 215, 255, 211, 212, 255, 255, 128, 128, 128,
-    1, 121, 236, 253, 212, 214, 255, 255, 128, 128, 128,
-    141, 84, 213, 252, 201, 202, 255, 219, 128, 128, 128,
-    42, 80, 160, 240, 162, 185, 255, 205, 128, 128, 128,
-    1, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    244, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-    238, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
-};
-
-// RFC 6386 section 13.4: the probabilities of a coefficient probability update
-const uint8_t kCoeffsUpdateProba[4][8][3][11] = {
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    176, 246, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    223, 241, 252, 255, 255, 255, 255, 255, 255, 255, 255,
-    249, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 244, 252, 255, 255, 255, 255, 255, 255, 255, 255,
-    234, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    253, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 246, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    239, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 248, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    251, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    251, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 254, 253, 255, 254, 255, 255, 255, 255, 255, 255,
-    250, 255, 254, 255, 254, 255, 255, 255, 255, 255, 255,
-    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    217, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    225, 252, 241, 253, 255, 255, 254, 255, 255, 255, 255,
-    234, 250, 241, 250, 253, 255, 253, 254, 255, 255, 255,
-    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    223, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    238, 253, 254, 254, 255, 255, 255, 255, 255, 255, 255,
-    255, 248, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    249, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 253, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    247, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    252, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    253, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 254, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-    250, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    186, 251, 250, 255, 255, 255, 255, 255, 255, 255, 255,
-    234, 251, 244, 254, 255, 255, 255, 255, 255, 255, 255,
-    251, 251, 243, 253, 254, 255, 254, 255, 255, 255, 255,
-    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    236, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    251, 253, 253, 254, 254, 255, 255, 255, 255, 255, 255,
-    255, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    248, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    250, 254, 252, 254, 255, 255, 255, 255, 255, 255, 255,
-    248, 254, 249, 253, 255, 255, 255, 255, 255, 255, 255,
-    255, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-    246, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-    252, 254, 251, 254, 254, 255, 255, 255, 255, 255, 255,
-    255, 254, 252, 255, 255, 255, 255, 255, 255, 255, 255,
-    248, 254, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-    253, 255, 254, 254, 255, 255, 255, 255, 255, 255, 255,
-    255, 251, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    245, 251, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    253, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 251, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-    252, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 252, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    249, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 253, 255, 255, 255, 255, 255, 255, 255, 255,
-    250, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
-};
-
-// RFC 6386 section 11.5: the key-frame subblock mode probabilities [above][left],
-// in the mode order below
-const uint8_t kBModesProba[10][10][9] = {
-    231, 120, 48, 89, 115, 113, 120, 152, 112,
-    152, 179, 64, 126, 170, 118, 46, 70, 95,
-    175, 69, 143, 80, 85, 82, 72, 155, 103,
-    56, 58, 10, 171, 218, 189, 17, 13, 152,
-    114, 26, 17, 163, 44, 195, 21, 10, 173,
-    121, 24, 80, 195, 26, 62, 44, 64, 85,
-    144, 71, 10, 38, 171, 213, 144, 34, 26,
-    170, 46, 55, 19, 136, 160, 33, 206, 71,
-    63, 20, 8, 114, 114, 208, 12, 9, 226,
-    81, 40, 11, 96, 182, 84, 29, 16, 36,
-    134, 183, 89, 137, 98, 101, 106, 165, 148,
-    72, 187, 100, 130, 157, 111, 32, 75, 80,
-    66, 102, 167, 99, 74, 62, 40, 234, 128,
-    41, 53, 9, 178, 241, 141, 26, 8, 107,
-    74, 43, 26, 146, 73, 166, 49, 23, 157,
-    65, 38, 105, 160, 51, 52, 31, 115, 128,
-    104, 79, 12, 27, 217, 255, 87, 17, 7,
-    87, 68, 71, 44, 114, 51, 15, 186, 23,
-    47, 41, 14, 110, 182, 183, 21, 17, 194,
-    66, 45, 25, 102, 197, 189, 23, 18, 22,
-    88, 88, 147, 150, 42, 46, 45, 196, 205,
-    43, 97, 183, 117, 85, 38, 35, 179, 61,
-    39, 53, 200, 87, 26, 21, 43, 232, 171,
-    56, 34, 51, 104, 114, 102, 29, 93, 77,
-    39, 28, 85, 171, 58, 165, 90, 98, 64,
-    34, 22, 116, 206, 23, 34, 43, 166, 73,
-    107, 54, 32, 26, 51, 1, 81, 43, 31,
-    68, 25, 106, 22, 64, 171, 36, 225, 114,
-    34, 19, 21, 102, 132, 188, 16, 76, 124,
-    62, 18, 78, 95, 85, 57, 50, 48, 51,
-    193, 101, 35, 159, 215, 111, 89, 46, 111,
-    60, 148, 31, 172, 219, 228, 21, 18, 111,
-    112, 113, 77, 85, 179, 255, 38, 120, 114,
-    40, 42, 1, 196, 245, 209, 10, 25, 109,
-    88, 43, 29, 140, 166, 213, 37, 43, 154,
-    61, 63, 30, 155, 67, 45, 68, 1, 209,
-    100, 80, 8, 43, 154, 1, 51, 26, 71,
-    142, 78, 78, 16, 255, 128, 34, 197, 171,
-    41, 40, 5, 102, 211, 183, 4, 1, 221,
-    51, 50, 17, 168, 209, 192, 23, 25, 82,
-    138, 31, 36, 171, 27, 166, 38, 44, 229,
-    67, 87, 58, 169, 82, 115, 26, 59, 179,
-    63, 59, 90, 180, 59, 166, 93, 73, 154,
-    40, 40, 21, 116, 143, 209, 34, 39, 175,
-    47, 15, 16, 183, 34, 223, 49, 45, 183,
-    46, 17, 33, 183, 6, 98, 15, 32, 183,
-    57, 46, 22, 24, 128, 1, 54, 17, 37,
-    65, 32, 73, 115, 28, 128, 23, 128, 205,
-    40, 3, 9, 115, 51, 192, 18, 6, 223,
-    87, 37, 9, 115, 59, 77, 64, 21, 47,
-    104, 55, 44, 218, 9, 54, 53, 130, 226,
-    64, 90, 70, 205, 40, 41, 23, 26, 57,
-    54, 57, 112, 184, 5, 41, 38, 166, 213,
-    30, 34, 26, 133, 152, 116, 10, 32, 134,
-    39, 19, 53, 221, 26, 114, 32, 73, 255,
-    31, 9, 65, 234, 2, 15, 1, 118, 73,
-    75, 32, 12, 51, 192, 255, 160, 43, 51,
-    88, 31, 35, 67, 102, 85, 55, 186, 85,
-    56, 21, 23, 111, 59, 205, 45, 37, 192,
-    55, 38, 70, 124, 73, 102, 1, 34, 98,
-    125, 98, 42, 88, 104, 85, 117, 175, 82,
-    95, 84, 53, 89, 128, 100, 113, 101, 45,
-    75, 79, 123, 47, 51, 128, 81, 171, 1,
-    57, 17, 5, 71, 102, 57, 53, 41, 49,
-    38, 33, 13, 121, 57, 73, 26, 1, 85,
-    41, 10, 67, 138, 77, 110, 90, 47, 114,
-    115, 21, 2, 10, 102, 255, 166, 23, 6,
-    101, 29, 16, 10, 85, 128, 101, 196, 26,
-    57, 18, 10, 102, 102, 213, 34, 20, 43,
-    117, 20, 15, 36, 163, 128, 68, 1, 26,
-    102, 61, 71, 37, 34, 53, 31, 243, 192,
-    69, 60, 71, 38, 73, 119, 28, 222, 37,
-    68, 45, 128, 34, 1, 47, 11, 245, 171,
-    62, 17, 19, 70, 146, 85, 55, 62, 70,
-    37, 43, 37, 154, 100, 163, 85, 160, 1,
-    63, 9, 92, 136, 28, 64, 32, 201, 85,
-    75, 15, 9, 9, 64, 255, 184, 119, 16,
-    86, 6, 28, 5, 64, 255, 25, 248, 1,
-    56, 8, 17, 132, 137, 255, 55, 116, 128,
-    58, 15, 20, 82, 135, 57, 26, 121, 40,
-    164, 50, 31, 137, 154, 133, 25, 35, 218,
-    51, 103, 44, 131, 131, 123, 31, 6, 158,
-    86, 40, 64, 135, 148, 224, 45, 183, 128,
-    22, 26, 17, 131, 240, 154, 14, 1, 209,
-    45, 16, 21, 91, 64, 222, 7, 1, 197,
-    56, 21, 39, 155, 60, 138, 23, 102, 213,
-    83, 12, 13, 54, 192, 255, 68, 47, 28,
-    85, 26, 85, 85, 128, 128, 32, 146, 171,
-    18, 11, 7, 63, 144, 171, 4, 4, 246,
-    35, 27, 10, 146, 174, 171, 12, 26, 128,
-    190, 80, 35, 99, 180, 80, 126, 54, 45,
-    85, 126, 47, 87, 176, 51, 41, 20, 32,
-    101, 75, 128, 139, 118, 146, 116, 128, 85,
-    56, 41, 15, 176, 236, 85, 37, 9, 62,
-    71, 30, 17, 119, 118, 255, 17, 18, 138,
-    101, 38, 60, 138, 55, 70, 43, 26, 142,
-    146, 36, 19, 30, 171, 255, 97, 27, 20,
-    138, 45, 61, 62, 219, 1, 81, 188, 64,
-    32, 41, 20, 117, 151, 142, 20, 21, 163,
-    112, 19, 12, 61, 195, 128, 48, 4, 24,
-};
-
-// RFC 6386 section 14.1: the DC and AC quantizer steps of each index
-const uint8_t kDcTable[128] = {
-    4, 5, 6, 7, 8, 9, 10, 10, 11, 12, 13, 14, 15, 16, 17, 17,
-    18, 19, 20, 20, 21, 21, 22, 22, 23, 23, 24, 25, 25, 26, 27, 28,
-    29, 30, 31, 32, 33, 34, 35, 36, 37, 37, 38, 39, 40, 41, 42, 43,
-    44, 45, 46, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58,
-    59, 60, 61, 62, 63, 64, 65, 66, 67, 68, 69, 70, 71, 72, 73, 74,
-    75, 76, 76, 77, 78, 79, 80, 81, 82, 83, 84, 85, 86, 87, 88, 89,
-    91, 93, 95, 96, 98, 100, 101, 102, 104, 106, 108, 110, 112, 114, 116, 118,
-    122, 124, 126, 128, 130, 132, 134, 136, 138, 140, 143, 145, 148, 151, 154, 157,
-};
-
-const uint16_t kAcTable[128] = {
-    4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
-    20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35,
-    36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47, 48, 49, 50, 51,
-    52, 53, 54, 55, 56, 57, 58, 60, 62, 64, 66, 68, 70, 72, 74, 76,
-    78, 80, 82, 84, 86, 88, 90, 92, 94, 96, 98, 100, 102, 104, 106, 108,
-    110, 112, 114, 116, 119, 122, 125, 128, 131, 134, 137, 140, 143, 146, 149, 152,
-    155, 158, 161, 164, 167, 170, 173, 177, 181, 185, 189, 193, 197, 201, 205, 209,
-    213, 217, 221, 225, 229, 234, 239, 245, 249, 254, 259, 264, 269, 274, 279, 284,
-};
 
 // RFC 9649 section 5.2.2: the distance codes 1-120 as (dy << 4) | (8 - dx)
 const uint8_t kCodeToPlane[120] = {
@@ -886,243 +560,6 @@ struct BoolReader {
     return bit(0x80) ? -v : v;
   }
 };
-
-// libwebp's intra modes: the subblock modes, then the 16x16 and chroma
-// ones by the same numbers (DC, TM, V = VE, H = HE)
-enum { B_DC, B_TM, B_VE, B_HE, B_RD, B_VR, B_LD, B_VL, B_HD, B_HU };
-enum { DC_NOTOP = 4, DC_NOLEFT = 5, DC_NOTOPLEFT = 6 };
-constexpr int8_t kYModesIntra4[18] = {-B_DC, 1, -B_TM, 2, -B_VE, 3, 4, 6, -B_HE, 5,
-                                      -B_RD, -B_VR, -B_LD, 7, -B_VL, 8, -B_HD, -B_HU};
-constexpr uint8_t kBands[17] = {0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0};
-constexpr uint8_t kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};
-constexpr uint8_t kCat3[] = {173, 148, 140, 0};
-constexpr uint8_t kCat4[] = {176, 155, 140, 135, 0};
-constexpr uint8_t kCat5[] = {180, 157, 141, 134, 130, 0};
-constexpr uint8_t kCat6[] = {254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129, 0};
-constexpr const uint8_t* kCat3456[4] = {kCat3, kCat4, kCat5, kCat6};
-
-constexpr int BPS = 32;  // the work buffer's stride (libwebp's yuv_b_)
-constexpr int Y_OFF = BPS * 1 + 8, U_OFF = Y_OFF + BPS * 16 + BPS, V_OFF = U_OFF + 16;
-constexpr int YUV_SIZE = BPS * 17 + BPS * 9;
-
-inline uint8_t clip8(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
-inline int avg3(int a, int b, int c) { return (a + 2 * b + c + 2) >> 2; }
-inline int avg2(int a, int b) { return (a + b + 1) >> 1; }
-
-void true_motion(uint8_t* dst, int size) {
-  const uint8_t* top = dst - BPS;
-  for (int y = 0; y < size; ++y, dst += BPS)
-    for (int x = 0; x < size; ++x) dst[x] = clip8(top[x] + dst[-1] - top[-1]);
-}
-
-void fill(uint8_t* dst, int size, int v) {
-  for (int y = 0; y < size; ++y) std::memset(dst + y * BPS, v, size);
-}
-
-// 16x16 luma (size 16) and 8x8 chroma (size 8) prediction, mode by number
-void predict_block(uint8_t* dst, int size, int mode) {
-  const int shift = size == 16 ? 4 : 3;
-  int dc;
-  switch (mode) {
-    case B_DC:
-      dc = size;
-      for (int i = 0; i < size; ++i) dc += dst[i - BPS] + dst[-1 + i * BPS];
-      fill(dst, size, dc >> (shift + 1));
-      break;
-    case B_TM: true_motion(dst, size); break;
-    case B_VE:
-      for (int y = 0; y < size; ++y) std::memcpy(dst + y * BPS, dst - BPS, size);
-      break;
-    case B_HE:
-      for (int y = 0; y < size; ++y) std::memset(dst + y * BPS, dst[-1 + y * BPS], size);
-      break;
-    case DC_NOTOP:
-      dc = size / 2;
-      for (int i = 0; i < size; ++i) dc += dst[-1 + i * BPS];
-      fill(dst, size, dc >> shift);
-      break;
-    case DC_NOLEFT:
-      dc = size / 2;
-      for (int i = 0; i < size; ++i) dc += dst[i - BPS];
-      fill(dst, size, dc >> shift);
-      break;
-    default: fill(dst, size, 0x80); break;
-  }
-}
-
-#define DST(x, y) dst[(x) + (y) * BPS]
-// dsp/dec.c's 4x4 predictors
-void predict4(uint8_t* dst, int mode) {
-  const int I = dst[-1], J = dst[-1 + BPS], K = dst[-1 + 2 * BPS], L = dst[-1 + 3 * BPS];
-  const int X = dst[-1 - BPS], A = dst[-BPS], B = dst[1 - BPS], C = dst[2 - BPS],
-            D = dst[3 - BPS], E = dst[4 - BPS], F = dst[5 - BPS], G = dst[6 - BPS],
-            H = dst[7 - BPS];
-  switch (mode) {
-    case B_DC: {
-      int dc = 4;
-      for (int i = 0; i < 4; ++i) dc += dst[i - BPS] + dst[-1 + i * BPS];
-      fill(dst, 4, dc >> 3);
-      break;
-    }
-    case B_TM: true_motion(dst, 4); break;
-    case B_VE: {
-      const int v[4] = {avg3(X, A, B), avg3(A, B, C), avg3(B, C, D), avg3(C, D, E)};
-      for (int y = 0; y < 4; ++y)
-        for (int x = 0; x < 4; ++x) DST(x, y) = (uint8_t)v[x];
-      break;
-    }
-    case B_HE: {
-      const int v[4] = {avg3(X, I, J), avg3(I, J, K), avg3(J, K, L), avg3(K, L, L)};
-      for (int y = 0; y < 4; ++y) std::memset(dst + y * BPS, v[y], 4);
-      break;
-    }
-    case B_RD:
-      DST(0, 3) = avg3(J, K, L);
-      DST(1, 3) = DST(0, 2) = avg3(I, J, K);
-      DST(2, 3) = DST(1, 2) = DST(0, 1) = avg3(X, I, J);
-      DST(3, 3) = DST(2, 2) = DST(1, 1) = DST(0, 0) = avg3(A, X, I);
-      DST(3, 2) = DST(2, 1) = DST(1, 0) = avg3(B, A, X);
-      DST(3, 1) = DST(2, 0) = avg3(C, B, A);
-      DST(3, 0) = avg3(D, C, B);
-      break;
-    case B_LD:
-      DST(0, 0) = avg3(A, B, C);
-      DST(1, 0) = DST(0, 1) = avg3(B, C, D);
-      DST(2, 0) = DST(1, 1) = DST(0, 2) = avg3(C, D, E);
-      DST(3, 0) = DST(2, 1) = DST(1, 2) = DST(0, 3) = avg3(D, E, F);
-      DST(3, 1) = DST(2, 2) = DST(1, 3) = avg3(E, F, G);
-      DST(3, 2) = DST(2, 3) = avg3(F, G, H);
-      DST(3, 3) = avg3(G, H, H);
-      break;
-    case B_VR:
-      DST(0, 0) = DST(1, 2) = avg2(X, A);
-      DST(1, 0) = DST(2, 2) = avg2(A, B);
-      DST(2, 0) = DST(3, 2) = avg2(B, C);
-      DST(3, 0) = avg2(C, D);
-      DST(0, 3) = avg3(K, J, I);
-      DST(0, 2) = avg3(J, I, X);
-      DST(0, 1) = DST(1, 3) = avg3(I, X, A);
-      DST(1, 1) = DST(2, 3) = avg3(X, A, B);
-      DST(2, 1) = DST(3, 3) = avg3(A, B, C);
-      DST(3, 1) = avg3(B, C, D);
-      break;
-    case B_VL:
-      DST(0, 0) = avg2(A, B);
-      DST(1, 0) = DST(0, 2) = avg2(B, C);
-      DST(2, 0) = DST(1, 2) = avg2(C, D);
-      DST(3, 0) = DST(2, 2) = avg2(D, E);
-      DST(0, 1) = avg3(A, B, C);
-      DST(1, 1) = DST(0, 3) = avg3(B, C, D);
-      DST(2, 1) = DST(1, 3) = avg3(C, D, E);
-      DST(3, 1) = DST(2, 3) = avg3(D, E, F);
-      DST(3, 2) = avg3(E, F, G);
-      DST(3, 3) = avg3(F, G, H);
-      break;
-    case B_HD:
-      DST(0, 0) = DST(2, 1) = avg2(I, X);
-      DST(0, 1) = DST(2, 2) = avg2(J, I);
-      DST(0, 2) = DST(2, 3) = avg2(K, J);
-      DST(0, 3) = avg2(L, K);
-      DST(3, 0) = avg3(A, B, C);
-      DST(2, 0) = avg3(X, A, B);
-      DST(1, 0) = DST(3, 1) = avg3(I, X, A);
-      DST(1, 1) = DST(3, 2) = avg3(J, I, X);
-      DST(1, 2) = DST(3, 3) = avg3(K, J, I);
-      DST(1, 3) = avg3(L, K, J);
-      break;
-    default:  // B_HU
-      DST(0, 0) = avg2(I, J);
-      DST(2, 0) = DST(0, 1) = avg2(J, K);
-      DST(2, 1) = DST(0, 2) = avg2(K, L);
-      DST(1, 0) = avg3(I, J, K);
-      DST(3, 0) = DST(1, 1) = avg3(J, K, L);
-      DST(3, 1) = DST(1, 2) = avg3(K, L, L);
-      DST(3, 2) = DST(2, 2) = DST(0, 3) = DST(1, 3) = DST(2, 3) = DST(3, 3) = L;
-      break;
-  }
-}
-#undef DST
-
-inline int mul1(int a) { return ((a * 20091) >> 16) + a; }
-inline int mul2(int a) { return (a * 35468) >> 16; }
-
-// the inverse DCT of one 4x4 block, added to dst (TransformOne)
-void transform(const int16_t* in, uint8_t* dst) {
-  int C[16];
-  int* tmp = C;
-  for (int i = 0; i < 4; ++i, ++in, tmp += 4) {  // vertical pass
-    const int a = in[0] + in[8], b = in[0] - in[8];
-    const int c = mul2(in[4]) - mul1(in[12]), d = mul1(in[4]) + mul2(in[12]);
-    tmp[0] = a + d;
-    tmp[1] = b + c;
-    tmp[2] = b - c;
-    tmp[3] = a - d;
-  }
-  tmp = C;
-  for (int i = 0; i < 4; ++i, ++tmp, dst += BPS) {  // horizontal pass
-    const int dc = tmp[0] + 4;
-    const int a = dc + tmp[8], b = dc - tmp[8];
-    const int c = mul2(tmp[4]) - mul1(tmp[12]), d = mul1(tmp[4]) + mul2(tmp[12]);
-    dst[0] = clip8(dst[0] + ((a + d) >> 3));
-    dst[1] = clip8(dst[1] + ((b + c) >> 3));
-    dst[2] = clip8(dst[2] + ((b - c) >> 3));
-    dst[3] = clip8(dst[3] + ((a - d) >> 3));
-  }
-}
-
-// The same transform as libwebp's SSE2 build computes it (Transform_SSE2,
-// which the decoder takes for a block with coefficients past the third in
-// zigzag order, and for all four blocks of a chroma plane with any AC): in
-// 16-bit lanes that wrap, the multiplies as 16-bit high halves. It equals
-// `transform` wherever no sum leaves int16, as in every stream an encoder
-// writes; damaged data tells them apart.
-inline int16_t w16(int v) { return (int16_t)(uint16_t)(unsigned)v; }
-inline int16_t mulhi(int16_t a, int k) { return (int16_t)((a * k) >> 16); }
-
-void transform16(const int16_t* in, uint8_t* dst) {
-  int16_t T[16];
-  for (int i = 0; i < 4; ++i) {  // vertical pass, written transposed
-    const int16_t in0 = in[i], in1 = in[4 + i], in2 = in[8 + i], in3 = in[12 + i];
-    const int16_t a = w16(in0 + in2), b = w16(in0 - in2);
-    const int16_t c = w16(w16(in1 - in3) + w16(mulhi(in1, -30068) - mulhi(in3, 20091)));
-    const int16_t d = w16(w16(in1 + in3) + w16(mulhi(in1, 20091) + mulhi(in3, -30068)));
-    T[i * 4 + 0] = w16(a + d);
-    T[i * 4 + 1] = w16(b + c);
-    T[i * 4 + 2] = w16(b - c);
-    T[i * 4 + 3] = w16(a - d);
-  }
-  for (int r = 0; r < 4; ++r, dst += BPS) {  // horizontal pass over each output row
-    const int16_t t0 = T[r], t1 = T[4 + r], t2 = T[8 + r], t3 = T[12 + r];
-    const int16_t dc = w16(t0 + 4);
-    const int16_t a = w16(dc + t2), b = w16(dc - t2);
-    const int16_t c = w16(w16(t1 - t3) + w16(mulhi(t1, -30068) - mulhi(t3, 20091)));
-    const int16_t d = w16(w16(t1 + t3) + w16(mulhi(t1, 20091) + mulhi(t3, -30068)));
-    const int16_t v[4] = {w16(a + d), w16(b + c), w16(b - c), w16(a - d)};
-    for (int x = 0; x < 4; ++x) dst[x] = clip8(dst[x] + (v[x] >> 3));
-  }
-}
-
-// the inverse WHT of the 16 luma DC values into each block's coefficient 0
-void transform_wht(const int16_t* in, int16_t* out) {
-  int tmp[16];
-  for (int i = 0; i < 4; ++i) {
-    const int a0 = in[0 + i] + in[12 + i], a1 = in[4 + i] + in[8 + i];
-    const int a2 = in[4 + i] - in[8 + i], a3 = in[0 + i] - in[12 + i];
-    tmp[0 + i] = a0 + a1;
-    tmp[8 + i] = a0 - a1;
-    tmp[4 + i] = a3 + a2;
-    tmp[12 + i] = a3 - a2;
-  }
-  for (int i = 0; i < 4; ++i, out += 64) {
-    const int dc = tmp[0 + i * 4] + 3;
-    const int a0 = dc + tmp[3 + i * 4], a1 = tmp[1 + i * 4] + tmp[2 + i * 4];
-    const int a2 = tmp[1 + i * 4] - tmp[2 + i * 4], a3 = dc - tmp[3 + i * 4];
-    out[0] = (int16_t)((a0 + a1) >> 3);
-    out[16] = (int16_t)((a3 + a2) >> 3);
-    out[32] = (int16_t)((a0 - a1) >> 3);
-    out[48] = (int16_t)((a3 - a2) >> 3);
-  }
-}
 
 // --- the loop filters (dsp/dec.c)
 
@@ -1650,31 +1087,6 @@ class VP8Decoder {
         std::memcpy(&U[(size_t)(mb_y * 8 + j) * uv_stride + mb_x * 8], u_dst + j * BPS, 8);
         std::memcpy(&V[(size_t)(mb_y * 8 + j) * uv_stride + mb_x * 8], v_dst + j * BPS, 8);
       }
-    }
-  }
-
-  // frame_dec.c DoTransform: the SSE2 transform for a block with a
-  // coefficient past the third in zigzag order, else the C code's AC3 and
-  // DC-only transforms (int arithmetic, as `transform`)
-  static void luma_transform(int code, const int16_t* in, uint8_t* dst) {
-    if (code == 3)
-      transform16(in, dst);
-    else if (code)
-      transform(in, dst);
-  }
-
-  // DoUVTransform: nothing for a plane without coefficients; the SSE2
-  // transform for all four blocks where any has an AC coefficient, else the
-  // DC-only transform of each block with a DC
-  static void chroma_transform(const uint8_t* code, const int16_t* in, uint8_t* dst) {
-    if (!(code[0] | code[1] | code[2] | code[3])) return;
-    const bool ac = code[0] >= 2 || code[1] >= 2 || code[2] >= 2 || code[3] >= 2;
-    for (int n = 0; n < 4; ++n) {
-      uint8_t* d = dst + (n & 1) * 4 + (n >> 1) * 4 * BPS;
-      if (ac)
-        transform16(in + n * 16, d);
-      else if (in[n * 16])
-        transform(in + n * 16, d);
     }
   }
 

@@ -21,8 +21,11 @@ reads and writes them, for ``image_io``.
 
 Everything else PIL raises on (another depth, mask set or compression, a
 palette of more than 65536 entries, a truncated file) raises
-``CorruptImage``. ``encode_bmp`` writes the bytes of
-``Image.fromarray(x).save(f, "BMP")`` for uint8 (H, W) and (H, W, 3).
+``CorruptImage``. A DIB (a BMP without its file header: PIL's "DIB"
+plugin, ``.dib`` files) reads as the BMP ``dib_as_bmp`` makes of it.
+``encode_bmp`` writes the bytes of ``Image.fromarray(x).save(f, "BMP")``
+for uint8 (H, W) and (H, W, 3), ``encode_dib`` those of ``save(f,
+"DIB")``.
 """
 
 from __future__ import annotations
@@ -216,3 +219,40 @@ def encode_bmp(image: np.ndarray) -> bytes:
     return (b"BM" + struct.pack("<IIIIiiHHIIiiII", offset + size, 0, offset, 40, width, height,
                                 1, bits, 0, size, ppm, ppm, colors, colors)
             + palette + body[::-1].tobytes())
+
+
+def encode_dib(image: np.ndarray) -> bytes:
+    """The bytes of PIL's ``save(f, "DIB")`` (the ``.dib`` name): the BMP
+    of ``encode_bmp`` without its 14-byte file header."""
+    return encode_bmp(image)[14:]
+
+
+def dib_pixel_start(dib: bytes) -> int:
+    """Where PIL's ``DibImageFile`` (a BMP without its 14-byte file header,
+    as ``.dib`` files and ICO entries hold it) reads the pixels: after the
+    header, the three bitfield masks that follow a 40-byte BITFIELDS
+    header, and a palette of ``clr_used`` (else 2 ** bits) entries for 8
+    bits or fewer (3 bytes each under the 12-byte header, else 4)."""
+    if len(dib) < 16:
+        raise CorruptImage("truncated DIB header")
+    header_size = _u32(dib, 0)
+    if header_size == 12:
+        bits = _u16(dib, 10)
+        colors, padding, compression = 1 << bits, 3, 0
+    else:
+        if len(dib) < 36:
+            raise CorruptImage("truncated DIB header")
+        bits, compression, used = _u16(dib, 14), _u32(dib, 16), _u32(dib, 32)
+        colors, padding = used or 1 << bits, 4
+    start = header_size
+    if header_size == 40 and compression == 3:
+        start += 12
+    if bits <= 8:
+        start += padding * colors
+    return start
+
+
+def dib_as_bmp(dib: bytes) -> bytes:
+    """A DIB as the BMP file ``decode_bmp`` reads to the same image: the
+    file header, its pixel offset at ``dib_pixel_start``."""
+    return b"BM" + struct.pack("<IHHI", 14 + len(dib), 0, 0, 14 + dib_pixel_start(dib)) + dib

@@ -28,6 +28,7 @@ them:
 
 from __future__ import annotations
 
+import math
 import struct
 
 import numpy as np
@@ -147,3 +148,86 @@ def _palette_needed(p: bytes) -> bool:
 
 def _palette_array(p: bytes) -> np.ndarray:
     return np.frombuffer(p[:len(p) // 3 * 3], np.uint8).reshape(-1, 3)
+
+
+# --- writing: PIL 12.1's GifImagePlugin._save of one frame
+
+def quantize(image: np.ndarray):
+    """RGB uint8 (H, W, 3) -> (indices (H, W) uint8, palette (N, 3) uint8):
+    PIL's ``convert("P", palette=ADAPTIVE)``, Pillow's median cut
+    (``csrc/gif_host.cpp``)."""
+    from ape_tpu_torch.ops._build import host_library
+
+    rgb = np.ascontiguousarray(image, np.uint8)
+    height, width = rgb.shape[:2]
+    palette = np.zeros((256, 3), np.uint8)
+    indices = np.empty((height, width), np.uint8)
+    n = host_library().ape_gif_quantize(rgb.ctypes.data, height * width, palette.ctypes.data,
+                                        indices.ctypes.data)
+    return indices, palette[:n]
+
+
+def _optimized(indices: np.ndarray, n_palette: int, gray: bool):
+    """GifImagePlugin._get_optimize: the palette entries in use, where PIL
+    remaps the palette to them (always for "L"; for "P" below 512 x 512
+    pixels, where an entry is unused or the used ones fit half the
+    power-of-two table), else None."""
+    height, width = indices.shape
+    if not gray and width * height >= 512 * 512:
+        return None
+    used = np.flatnonzero(np.bincount(indices.ravel(), minlength=256))
+    if gray or used.max() >= len(used):
+        return used
+    current = 1 << (n_palette - 1).bit_length()
+    if len(used) <= current // 2 and current > 2:
+        return used
+    return None
+
+
+def _color_table_size(n: int) -> int:
+    """GifImagePlugin._get_color_table_size of n entries."""
+    return 0 if n == 0 else 1 if n < 3 else math.ceil(math.log(n, 2)) - 1
+
+
+def encode_gif(image: np.ndarray) -> bytes:
+    """uint8 (H, W) or (H, W, 3) -> the bytes of PIL's
+    ``Image.fromarray(image).save(f, "GIF")``: RGB quantised to an adaptive
+    palette (``quantize``), "L" given the gray ramp; the palette remapped to
+    the used entries where ``_get_optimize`` says so, padded to a power of
+    two (at least 4); GIF87a, one frame, interlaced unless a side is below
+    16; LZW of code size 8 (``csrc/gif_host.cpp``)."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or image.ndim not in (2, 3) or (
+            image.ndim == 3 and image.shape[2] != 3):
+        raise ValueError(f"encode_gif takes uint8 (H, W) or (H, W, 3), not {image.dtype} "
+                         f"{image.shape}")
+    height, width = image.shape[:2]
+    if height == 0 or width == 0:
+        raise ValueError("encode_gif: an empty image")
+    gray = image.ndim == 2
+    if gray:
+        indices = np.ascontiguousarray(image)
+        palette = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+    else:
+        indices, palette = quantize(image)
+    used = _optimized(indices, len(palette), gray)
+    if used is not None:  # Image.remap_palette
+        positions = np.zeros(256, np.uint8)
+        positions[used] = np.arange(len(used), dtype=np.uint8)
+        indices, palette = positions[indices], palette[used]
+    size = _color_table_size(len(palette))
+    table = np.zeros((2 << size, 3), np.uint8)
+    table[:len(palette)] = palette
+    interlace = 0 if min(width, height) < 16 else 1
+    from ape_tpu_torch.ops._build import host_library
+
+    indices = np.ascontiguousarray(indices)
+    cap = 2 * width * height + 1024
+    out = np.empty(cap, np.uint8)
+    n = host_library().ape_gif_lzw_encode(indices.ctypes.data, width, height, interlace, 8,
+                                          out.ctypes.data, cap)
+    if n < 0:
+        raise RuntimeError("GIF LZW encoder: output buffer too small")
+    return (b"GIF87a" + struct.pack("<HHBBB", width, height, size + 128, 0, 0) + table.tobytes()
+            + b"," + struct.pack("<HHHHB", 0, 0, width, height, 64 * interlace) + b"\x08"
+            + out[:n].tobytes() + b"\x00;")

@@ -24,7 +24,7 @@ import struct
 
 import numpy as np
 
-from ape_tpu_torch.data.bmp import decode_bmp
+from ape_tpu_torch.data.bmp import decode_bmp, dib_as_bmp, dib_pixel_start
 from ape_tpu_torch.data.image_io import PNG_MAGIC, CorruptImage, bomb_check, convert_rgb, png_image
 
 ICO_MAGIC = b"\0\0\1\0"  # IcoImagePlugin._MAGIC
@@ -69,30 +69,21 @@ def _dib(data: bytes, entry):
     header_size = struct.unpack_from("<I", data, at)[0]
     dib = bytearray(data[at:])
     if header_size == 12:
-        width, height, _, bits = struct.unpack_from("<HHHH", dib, 4)
+        width, height = struct.unpack_from("<HH", dib, 4)
         half = int(height / 2)
         struct.pack_into("<H", dib, 6, half)
-        colors, padding, compression = 1 << bits, 3, 0
     else:
         width, height = struct.unpack_from("<Ii", dib, 4)
-        bits, compression, used = (struct.unpack_from("<H", dib, 14)[0],
-                                   struct.unpack_from("<I", dib, 16)[0],
-                                   struct.unpack_from("<I", dib, 32)[0])
+        struct.unpack_from("<I", dib, 32)  # a header cut short raises here, as PIL's does
         bomb_check(width, abs(height))
         half = int(height / 2)
         struct.pack_into("<i", dib, 8, half)
-        colors, padding = used or 1 << bits, 4
     # the pixels start after the header, the bitfield masks and the palette,
     # where PIL's DibImageFile finds them
-    start = 14 + header_size
-    if header_size == 40 and compression == 3:
-        start += 12
-    if bits <= 8:
-        start += padding * colors
-    bmp = b"BM" + struct.pack("<IHHI", 14 + len(dib), 0, 0, start) + bytes(dib)
+    pixel_start = at + dib_pixel_start(bytes(dib))
+    bmp = dib_as_bmp(bytes(dib))
     samples, mode, palette = decode_bmp(bmp)
     height = abs(half)
-    pixel_start = at + start - 14
     if entry["bpp"] == 32:
         alpha_bytes = data[pixel_start:pixel_start + width * height * 4][3::4]
         if len(alpha_bytes) < width * height:
@@ -109,3 +100,61 @@ def _dib(data: bytes, entry):
         alpha = np.where(mask_bits[::-1, :width] == 1, 0, 255).astype(np.uint8)
     rgb = convert_rgb(samples, mode, palette)
     return np.concatenate([rgb, alpha[..., None]], -1), "RGBA", None
+
+
+# --- writing: PIL 12.1's IcoImagePlugin._save with its default sizes
+
+SIZES = ((16, 16), (24, 24), (32, 32), (48, 48), (64, 64), (128, 128), (256, 256))
+
+
+def thumbnail_size(width: int, height: int, size) -> tuple:
+    """``Image.thumbnail(size)``'s final (width, height) of a width x height
+    image: the aspect kept, each side the floor or the ceiling of its
+    exact value, whichever keeps the aspect closer, at least 1; the image's
+    own size where it already fits."""
+    x, y = size
+    if x >= width and y >= height:
+        return width, height
+
+    def round_aspect(number: float, key) -> int:
+        return max(min(math.floor(number), math.ceil(number), key=key), 1)
+
+    aspect = width / height
+    if x / y >= aspect:
+        x = round_aspect(y * aspect, key=lambda n: abs(aspect - n / y))
+    else:
+        y = round_aspect(x / aspect, key=lambda n: 0 if n == 0 else abs(aspect - x / n))
+    return x, y
+
+
+def encode_ico(image: np.ndarray) -> bytes:
+    """uint8 (H, W) or (H, W, 3) -> the bytes of PIL's
+    ``Image.fromarray(image).save(f, "ICO")``: a frame for each of
+    ``SIZES`` no wider and no taller than the image, each the image's
+    ``thumbnail`` under LANCZOS (``transforms.resize_lanczos``) stored as
+    PIL's PNG bytes (``png.encode_png``), 32 bits in the directory."""
+    from ape_tpu_torch.data.png import encode_png
+    from ape_tpu_torch.data.transforms import resize_lanczos
+
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or image.ndim not in (2, 3) or (
+            image.ndim == 3 and image.shape[2] != 3):
+        raise ValueError(f"encode_ico takes uint8 (H, W) or (H, W, 3), not {image.dtype} "
+                         f"{image.shape}")
+    height, width = image.shape[:2]
+    frames = []
+    for size in sorted(set(SIZES)):
+        if size[0] > width or size[1] > height or size[0] > 256 or size[1] > 256:
+            continue
+        w, h = thumbnail_size(width, height, size)
+        frame = image if (w, h) == (width, height) else resize_lanczos(image, h, w)
+        frames.append((w, h, encode_png(frame)))
+    head = ICO_MAGIC + struct.pack("<H", len(frames))
+    offset = len(head) + 16 * len(frames)
+    directory, body = b"", b""
+    for w, h, data in frames:
+        directory += struct.pack("<BBBBHHII", w if w < 256 else 0, h if h < 256 else 0, 0, 0,
+                                 0, 32, len(data), offset)
+        body += data
+        offset += len(data)
+    return head + directory + body

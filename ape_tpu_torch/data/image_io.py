@@ -24,7 +24,8 @@ it, for:
   keeps its high byte and 16-bit gray is clipped to 255, as PIL converts;
 * BMP (``data.bmp``): 1-, 4- and 8-bit palettes, RLE8 and RLE4, 16-bit
   555 and 565, 24-bit, 32-bit with every BITFIELDS mask set PIL takes,
-  OS/2, V4 and V5 headers, top-down rows;
+  OS/2, V4 and V5 headers, top-down rows; and DIB, a BMP without its file
+  header, as PIL's DIB plugin reads it;
 * GIF (``data.gif``): the first frame as PIL presents it (the screen
   around it filled with the transparency index or 0, a palette looked up,
   mode "L" where the palette is the identity gray ramp);
@@ -74,13 +75,20 @@ not colours; 16-bit gray as uint16, big-endian for an MM TIFF; 32-bit
 integers as int32, floats as float32; a "1" image as bool).
 
 ``write_png`` writes gray, RGB or RGBA uint8 arrays (filter type 0 or 1 per
-row, alternating, so the reader's filters are exercised). ``write_image``
-is the counterpart of PIL's ``Image.fromarray(x).save(path)``, PIL's bytes
-for ``.jpg`` and ``.jpeg`` (``encode_jpeg``), ``.bmp`` (``encode_bmp``),
-``.tif`` and ``.tiff`` (``encode_tiff``), ``.ppm``, ``.pgm``, ``.pbm`` and
-``.pnm`` (``encode_netpbm``: P5 or P6 whatever the name) and ``.tga``
-(``encode_tga``), the same pixels for ``.png`` (``write_png``); ``.ico``,
-``.webp``, ``.gif`` and other extensions raise ``ValueError`` naming them.
+row, alternating, so the reader's filters are exercised; the reader tests'
+fixtures). ``write_image`` is the counterpart of PIL's
+``Image.fromarray(x).save(path)`` under every name PIL 12.1 registers for a
+format the port reads (``_ENCODERS``): PIL's bytes for JPEG (``.jpg``,
+``.jpeg``, ``.jfif``, ``.jpe``, ``.mpo``: ``encode_jpeg``), PNG (``.png``,
+``.apng``: ``png.encode_png``), BMP and DIB (``encode_bmp``,
+``encode_dib``), GIF (``gif.encode_gif``), ICO (``ico.encode_ico``), TIFF
+(``encode_tiff``), Netpbm (``.ppm``, ``.pgm``, ``.pbm``, ``.pnm``,
+``.pfm``: ``encode_netpbm``, P5 or P6 whatever the name) and TGA (``.tga``,
+``.icb``, ``.vda``, ``.vst``: ``encode_tga``); a lossy WebP file for
+``.webp`` (``webp.encode_webp``, libwebp's settings under PIL, not its
+bytes). Other extensions (``.jp2``, ``.avif``, ``.qoi``, ``.pcx``, ...,
+which PIL writes and the port does not read) raise ``ValueError`` naming
+them.
 """
 
 from __future__ import annotations
@@ -147,7 +155,7 @@ def _gbr_claims(d: bytes) -> bool:
 # error that names them
 PIL_PLUGINS = (
     ("bmp", lambda d: d.startswith(b"BM")),
-    ("DIB", lambda d: _i32(d) in (12, 40, 52, 56, 64, 108, 124)),
+    ("dib", lambda d: _i32(d) in (12, 40, 52, 56, 64, 108, 124)),
     ("gif", lambda d: d.startswith((b"GIF87a", b"GIF89a"))),
     ("jpeg", lambda d: d.startswith(JPEG_MAGIC)),
     ("netpbm", lambda d: len(d) >= 2 and d.startswith(b"P") and d[1] in b"0123456fy"),
@@ -327,13 +335,13 @@ def read_label_map(file_name: str) -> np.ndarray:
         data = f.read()
     kind = sniff(data)
     if kind is None or kind in ("jpeg", "webp"):
-        raise ValueError(f"{file_name}: the port reads label maps from PNG, BMP, GIF, TIFF, "
-                         "Netpbm, TGA and ICO files only")
+        raise ValueError(f"{file_name}: the port reads label maps from PNG, BMP, DIB, GIF, "
+                         "TIFF, Netpbm, TGA and ICO files only")
     return image_of(data, kind)[0]
 
 
 def read_rgb(file_name: str) -> np.ndarray:
-    """RGB uint8 (H, W, 3) of a JPEG, PNG, BMP, GIF, WebP or ``.npy`` file
+    """RGB uint8 (H, W, 3) of a file of a format the port reads
     (module docstring), raising ``CorruptImage`` on a corrupt file and on
     one PIL refuses, as PIL's ``Image.open(file_name).convert("RGB")``
     raises, and ValueError for a format PIL reads and the port does not."""
@@ -355,19 +363,19 @@ def read_rgb(file_name: str) -> np.ndarray:
         if not data:
             raise CorruptImage(f"{file_name}: an empty file")
         raise ValueError(f"{file_name}: {_format_name(data)}, which PIL reads and the port does "
-                         "not yet (the port reads JPEG, PNG, BMP, GIF, WebP, TIFF, Netpbm, TGA, "
-                         "ICO and .npy images)")
+                         "not yet (the port reads JPEG, PNG, BMP, DIB, GIF, WebP, TIFF, Netpbm, "
+                         "TGA, ICO and .npy images)")
     return decode_rgb(data, kind)
 
 
 def sniff(data: bytes) -> Optional[str]:
     """The container the port reads that PIL would open ``data`` as:
-    "jpeg", "png", "bmp", "gif", "netpbm", "ico", "tiff", "tga", "webp", or
-    None. The plugins are asked in ``Image.open``'s order (``PIL_PLUGINS``),
-    so a file that another plugin claims first (a DIB, a CUR, a PCX, ...)
-    is not read as TGA, which has no magic number and comes after them; P7
-    and PF Netpbm files, which no plugin of PIL 12.1 takes, are "netpbm",
-    whose decoder refuses them. A RIFF WebP file whose first chunk is not
+    "jpeg", "png", "bmp", "dib", "gif", "netpbm", "ico", "tiff", "tga",
+    "webp", or None. The plugins are asked in ``Image.open``'s order
+    (``PIL_PLUGINS``), so a file that another plugin claims first (a DIB, a
+    CUR, a PCX, ...) is not read as TGA, which has no magic number and comes
+    after them; P7 and PF Netpbm files, which no plugin of PIL 12.1 takes,
+    are "netpbm", whose decoder refuses them. A RIFF WebP file whose first chunk is not
     VP8, VP8L or VP8X is no image to PIL: "webp" all the same, and its
     decoder refuses it."""
     for name, accepts in PIL_PLUGINS:
@@ -398,6 +406,10 @@ def image_of(data: bytes, kind: str):
         from ape_tpu_torch.data.bmp import decode_bmp
 
         return decode_bmp(data)
+    if kind == "dib":
+        from ape_tpu_torch.data.bmp import decode_bmp, dib_as_bmp
+
+        return decode_bmp(dib_as_bmp(data))
     if kind == "tiff":
         from ape_tpu_torch.data.tiff import decode_tiff
 
@@ -495,35 +507,52 @@ def read_image(file_name: str) -> Optional[np.ndarray]:
         return None
 
 
-# extension -> (module, encoder) of the containers written with PIL's bytes
+# extension -> (module, encoder) of each name PIL 12.1 registers for a
+# format the port reads and PIL writes (Image.registered_extensions()); PIL
+# writes ".mpo" as its JPEG, ".pfm" as its PPM, ".dib" as BMP without the
+# file header
 _ENCODERS = {".jpg": ("jpeg", "encode_jpeg"), ".jpeg": ("jpeg", "encode_jpeg"),
-             ".bmp": ("bmp", "encode_bmp"), ".tif": ("tiff", "encode_tiff"),
-             ".tiff": ("tiff", "encode_tiff"), ".ppm": ("netpbm", "encode_netpbm"),
-             ".pgm": ("netpbm", "encode_netpbm"), ".pbm": ("netpbm", "encode_netpbm"),
-             ".pnm": ("netpbm", "encode_netpbm"), ".tga": ("tga", "encode_tga")}
+             ".jfif": ("jpeg", "encode_jpeg"), ".jpe": ("jpeg", "encode_jpeg"),
+             ".mpo": ("jpeg", "encode_jpeg"), ".png": ("png", "encode_png"),
+             ".apng": ("png", "encode_png"), ".bmp": ("bmp", "encode_bmp"),
+             ".dib": ("bmp", "encode_dib"), ".gif": ("gif", "encode_gif"),
+             ".ico": ("ico", "encode_ico"), ".webp": ("webp", "encode_webp"),
+             ".tif": ("tiff", "encode_tiff"), ".tiff": ("tiff", "encode_tiff"),
+             ".ppm": ("netpbm", "encode_netpbm"), ".pgm": ("netpbm", "encode_netpbm"),
+             ".pbm": ("netpbm", "encode_netpbm"), ".pnm": ("netpbm", "encode_netpbm"),
+             ".pfm": ("netpbm", "encode_netpbm"), ".tga": ("tga", "encode_tga"),
+             ".icb": ("tga", "encode_tga"), ".vda": ("tga", "encode_tga"),
+             ".vst": ("tga", "encode_tga")}
+
+
+def encoder_of(file_name: str):
+    """The encoder ``write_image`` uses for ``file_name``'s extension (any
+    case); ``ValueError`` naming the extension where the port writes none."""
+    import importlib
+
+    ext = os.path.splitext(str(file_name))[1].lower()
+    if ext not in _ENCODERS:
+        raise ValueError(f"{file_name}: the port writes {', '.join(_ENCODERS)} images, not "
+                         f"{ext or 'a file without an extension'}")
+    module, name = _ENCODERS[ext]
+    return getattr(importlib.import_module(f"ape_tpu_torch.data.{module}"), name)
 
 
 def write_image(file_name: str, image: np.ndarray) -> None:
     """Write a uint8 (H, W) or (H, W, 3) image as PIL's
     ``Image.fromarray(image).save(file_name)`` does, by its extension: PIL's
-    bytes for ``.jpg``/``.jpeg`` (JPEG), ``.bmp``, ``.tif``/``.tiff``
-    (uncompressed TIFF), ``.ppm``/``.pgm``/``.pbm``/``.pnm`` (P5 or P6)
-    and ``.tga``; the same pixels for ``.png``."""
-    ext = os.path.splitext(str(file_name))[1].lower()
-    if ext in _ENCODERS:
-        import importlib
-
-        module, name = _ENCODERS[ext]
-        encode = getattr(importlib.import_module(f"ape_tpu_torch.data.{module}"), name)
-        data = encode(image)
-        with open(file_name, "wb") as f:
-            f.write(data)
-    elif ext == ".png":
-        write_png(file_name, image)
-    else:
-        raise ValueError(f"{file_name}: the port writes .jpg, .jpeg, .png, .bmp, .tif, .tiff, "
-                         f".ppm, .pgm, .pbm, .pnm and .tga images, not "
-                         f"{ext or 'a file without an extension'}")
+    bytes for JPEG (``.jpg``, ``.jpeg``, ``.jfif``, ``.jpe``, ``.mpo``),
+    PNG (``.png``, ``.apng``), BMP (``.bmp``; ``.dib`` without the file
+    header), GIF (``.gif``: PIL's median-cut palette and LZW), ICO
+    (``.ico``: PIL's seven sizes as PNG frames), uncompressed TIFF
+    (``.tif``, ``.tiff``), Netpbm (``.ppm``, ``.pgm``, ``.pbm``, ``.pnm``,
+    ``.pfm``: P5 or P6) and TGA (``.tga``, ``.icb``, ``.vda``, ``.vst``);
+    for ``.webp`` a lossy WebP file encoded at PIL's settings (quality 80,
+    method 4), whose bytes may differ from libwebp's. Any other extension
+    raises ``ValueError`` naming it; nothing is written then."""
+    data = encoder_of(file_name)(image)
+    with open(file_name, "wb") as f:
+        f.write(data)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -15,6 +15,8 @@ so this module reproduces PIL 12.1's results bit for bit in NumPy:
   the coefficients to 22-bit fixed point, sum in integers from half a unit,
   shift and clip each pass to 0..255. An RGB image resizes channel by
   channel (``resize_image``): PIL's 8-bit passes treat the bands alike.
+  ``resize_lanczos`` is the same 8-bit resize under PIL's LANCZOS filter
+  (``sinc(x) sinc(x / 3)``, support 3), for the ICO writer's frames.
 * ``resize_nearest``: ``Image.resize(..., NEAREST)``: PIL's scale-only affine
   transform, the source coordinate of each output pixel accumulated in f64
   from half a step, truncated.
@@ -42,15 +44,37 @@ import numpy as np
 PRECISION_BITS = 32 - 8 - 2  # PIL's fixed point for 8-bit resampling
 
 
+def _bilinear(x: float) -> float:
+    return max(0.0, 1.0 - abs(x))
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: float) -> float:
+    """Resample.c's lanczos_filter: sinc(x) sinc(x / 3) on [-3, 3)."""
+    return _sinc(x) * _sinc(x / 3) if -3.0 <= x < 3.0 else 0.0
+
+
+# Resample.c's filters: name -> (function, support)
+FILTERS = {"bilinear": (_bilinear, 1.0), "lanczos": (_lanczos, 3.0)}
+
+
 @functools.lru_cache(maxsize=256)
-def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
-    """PIL's ``precompute_coeffs`` for the bilinear filter: per output
+def _coefficients(in_size: int, out_size: int,
+                  kind: str = "bilinear") -> Tuple[np.ndarray, np.ndarray]:
+    """PIL's ``precompute_coeffs`` for a filter of ``FILTERS``: per output
     pixel the first input tap (out_size,) and the tap weights (out_size,
     ksize), zero past the taps that lie inside the input. Cached by size,
     read-only."""
+    kernel, filter_support = FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = filter_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     starts = np.zeros(out_size, np.int64)
     weights = np.zeros((out_size, ksize), np.float64)
@@ -59,7 +83,7 @@ def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        k = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) * ss)) for x in range(xmax)]
+        k = [kernel((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         ww = 0.0
         for w in k:
             ww += w
@@ -122,6 +146,35 @@ def resize_image(img: np.ndarray, h: int, w: int) -> np.ndarray:
         return pil_resize(img, h, w)
     return np.ascontiguousarray(pil_resize(np.ascontiguousarray(img.transpose(2, 0, 1)), h, w)
                                 .transpose(1, 2, 0))
+
+
+def resize_lanczos(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """``Image.resize((w, h), Image.LANCZOS)`` of a uint8 (H, W) or (H, W, C)
+    image: Resample.c's 8-bit passes under the Lanczos filter (support 3),
+    columns first, each pass clipped to uint8; a side that keeps its size is
+    not resampled. The taps and weights are computed here
+    (``_coefficients``, ``_fixed_point``), the sums by the host library's
+    ``ape_resample_u8`` (``csrc/resample_host.cpp``)."""
+    from ape_tpu_torch.ops._build import host_library
+
+    src = np.ascontiguousarray(img, np.uint8)
+    in_h, in_w = src.shape[:2]
+    channels = 1 if src.ndim == 2 else src.shape[2]
+
+    def plan(n_in, n_out):
+        if n_in == n_out:
+            return np.zeros(1, np.int64), np.zeros(1, np.int32), 0
+        starts, weights = _coefficients(n_in, n_out, "lanczos")
+        fixed = np.ascontiguousarray(_fixed_point(weights).astype(np.int32))
+        return np.ascontiguousarray(starts), fixed, fixed.shape[1]
+
+    hs, hw, hk = plan(in_w, w)
+    vs, vw, vk = plan(in_h, h)
+    out = np.empty((h, w) + src.shape[2:], np.uint8)
+    host_library().ape_resample_u8(src.ctypes.data, in_w, in_h, channels, hs.ctypes.data,
+                                   hw.ctypes.data, hk, w, vs.ctypes.data, vw.ctypes.data, vk, h,
+                                   out.ctypes.data)
+    return out
 
 
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:

@@ -37,3 +37,43 @@ def decode_webp(data: bytes) -> np.ndarray:
         return np.ctypeslib.as_array(out, (height.value, width.value, 4)).copy()
     finally:
         lib.ape_webp_free(out)
+
+
+def encode_webp(image: np.ndarray) -> bytes:
+    """uint8 (H, W) or (H, W, 3) -> a lossy WebP file (a 'VP8 ' key frame in
+    a simple RIFF container) encoded as PIL's ``save`` asks libwebp to
+    encode it (quality 80, method 4; ``csrc/webp_enc_host.cpp``). Gray is
+    repeated over the three channels, as PIL converts "L" to "RGB" first."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or image.ndim not in (2, 3) or (
+            image.ndim == 3 and image.shape[2] != 3):
+        raise ValueError(f"encode_webp takes uint8 (H, W) or (H, W, 3), not {image.dtype} "
+                         f"{image.shape}")
+    if image.ndim == 2:
+        image = np.repeat(image[..., None], 3, axis=2)
+    image = np.ascontiguousarray(image)
+    height, width = image.shape[:2]
+    lib = host_library()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    size = ctypes.c_size_t()
+    if lib.ape_webp_encode(image.ctypes.data, width, height, ctypes.byref(out),
+                           ctypes.byref(size)):
+        raise ValueError(f"encode_webp: a {width}x{height} image (WebP holds 1 to 16383 a side)")
+    try:
+        return ctypes.string_at(out, size.value)
+    finally:
+        lib.ape_webp_enc_free(out)
+
+
+def yuv420(image: np.ndarray):
+    """The encoder's YUV 4:2:0 planes of an RGB uint8 (H, W, 3) image, as
+    libwebp's ``WebPPictureImportRGB`` converts it: (Y (H, W), U, V
+    ((H + 1) // 2, (W + 1) // 2))."""
+    rgb = np.ascontiguousarray(image, np.uint8)
+    height, width = rgb.shape[:2]
+    y = np.empty((height, width), np.uint8)
+    u = np.empty(((height + 1) // 2, (width + 1) // 2), np.uint8)
+    v = np.empty_like(u)
+    host_library().ape_webp_yuv420(rgb.ctypes.data, width, height, y.ctypes.data, u.ctypes.data,
+                                   v.ctypes.data)
+    return y, u, v

@@ -7,10 +7,10 @@
 JAX's flags and outputs: one overlay a file under ``--output`` with the
 input's basename (the input read by ``data.image_io.read_image``: JPEG, PNG,
 BMP, GIF, WebP, TIFF, Netpbm, TGA or ICO, by content; the overlay written by
-``write_image``: a ``.jpg``, ``.bmp``, ``.tif``, ``.ppm`` (``.pgm``,
-``.pbm``, ``.pnm``) or ``.tga`` name gives PIL's bytes, a ``.webp``, ``.gif``
-or ``.ico`` name raises ``ValueError``, as the port writes none of them),
-and ``predictions.json``
+``write_image`` under every name PIL registers for those formats: PIL's
+bytes for JPEG, PNG, BMP/DIB, GIF, ICO, TIFF, Netpbm and TGA names, a lossy
+WebP file at PIL's settings for ``.webp``; any other name raises
+``ValueError``), and ``predictions.json``
 with one row an instance (every instance the model returns, score at least 0.05:
 image id, category id and name, xywh box, score). ``--video-input``,
 ``--webcam`` and ``--grabcut`` need OpenCV and raise ``ImportError`` without

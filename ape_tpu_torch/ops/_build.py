@@ -174,10 +174,11 @@ def _host_compiler() -> str:
 
 
 def host_build() -> Path:
-    """Compile ``csrc/*.cpp`` into the host library unless this exact build
-    exists; return its path. A failed build raises."""
+    """Compile ``csrc/*.cpp`` (with the headers ``csrc/*.h`` they include)
+    into the host library unless this exact build exists; return its path.
+    A failed build raises."""
     sources = sorted(CSRC.glob("*.cpp"))
-    out_dir = BUILD_ROOT / f"host-{_digest(HOST_FLAGS, sources)}"
+    out_dir = BUILD_ROOT / f"host-{_digest(HOST_FLAGS, sources + sorted(CSRC.glob('*.h')))}"
     lib = out_dir / HOST_LIB_NAME
     if lib.exists():
         return lib
@@ -219,12 +220,29 @@ def host_library() -> ctypes.CDLL:
     # GIF image data: file, length, offset, code size, interlace, width, height, out
     lib.ape_gif_lzw.argtypes = [p, size, size, i, i, i, i, p]
     lib.ape_gif_lzw.restype = i
+    # GIF writer: RGB pixels, count, palette out, indices out; indices, width,
+    # height, interlace, code size, out, capacity
+    lib.ape_gif_quantize.argtypes = [p, size, p, p]
+    lib.ape_gif_quantize.restype = i
+    lib.ape_gif_lzw_encode.argtypes = [p, i, i, i, i, p, size]
+    lib.ape_gif_lzw_encode.restype = ctypes.c_long
+    # 8-bit resampling: in, in_w, in_h, channels, column starts, weights,
+    # taps, out_w, row starts, weights, taps, out_h, out
+    lib.ape_resample_u8.argtypes = [p, i, i, i, p, p, i, i, p, p, i, i, p]
+    lib.ape_resample_u8.restype = i
     # WebP: data, length, out (RGBA), width, height, err, errlen
     lib.ape_webp_decode.argtypes = [p, size, out, ctypes.POINTER(i), ctypes.POINTER(i),
                                     ctypes.c_char_p, i]
     lib.ape_webp_decode.restype = i
     lib.ape_webp_free.argtypes = [p]
     lib.ape_webp_free.restype = None
+    # WebP writer: RGB, width, height, out, size; the YUV planes alone
+    lib.ape_webp_encode.argtypes = [p, i, i, out, ctypes.POINTER(size)]
+    lib.ape_webp_encode.restype = i
+    lib.ape_webp_enc_free.argtypes = [p]
+    lib.ape_webp_enc_free.restype = None
+    lib.ape_webp_yuv420.argtypes = [p, i, i, p, p, p]
+    lib.ape_webp_yuv420.restype = None
     # TIFF strips: data, length, out, output bytes (LZW, PackBits); data,
     # length, compression, T4Options, width, rows, out (CCITT)
     for name in ("ape_tiff_lzw", "ape_tiff_packbits"):

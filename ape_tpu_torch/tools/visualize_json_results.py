@@ -9,8 +9,9 @@ Each prediction (``demo_lazy``'s or an evaluator's rows: ``image_id``, an xywh
 threshold is drawn on its image as a red width-3 box with its label; the
 image is read by ``data.image_io.read_image`` (JPEG, PNG, BMP, GIF, WebP,
 TIFF, Netpbm, TGA or ICO) and written under the same basename by
-``write_image`` (JPEG, BMP, TIFF, Netpbm, TGA or PNG; a ``.webp``, ``.gif``
-or ``.ico`` name raises ``ValueError``). Images that are not found are
+``write_image`` (PIL's bytes for JPEG, PNG, BMP/DIB, GIF, ICO, TIFF, Netpbm
+and TGA names, a lossy WebP file at PIL's settings for ``.webp``; another
+name raises ``ValueError``). Images that are not found are
 skipped, as JAX's are. The boxes equal PIL's bit for bit; the labels come from the port's
 glyph table (``utils.draw.draw_label``).
 """

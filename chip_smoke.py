@@ -3911,6 +3911,25 @@ NEW_CONTAINERS = (".tif", ".ppm", ".pgm", ".tga", ".ico")  # the mapper pass kee
 DEMO_PROMPT = "person,dog,frisbee"
 DEMO_INPUTS = (("landscape.jpg", (480, 640), "RGB"), ("portrait.jpg", (640, 427), "RGB"),
                ("gray.jpg", (480, 640), "L"))
+# the demo's requests under the names the port writes since PR 27: the lossy
+# WebP fixture under its own name, a GIF (480x640, 256 colours) and an ICO of
+# one 256x192 PNG entry, both written by tests/torch_image_writers.py
+DEMO_WEBP, DEMO_GIF, DEMO_ICO = "webp_lossy.webp", "demo.gif", "demo.ico"
+# writer_check: SHA-256 of each writer's bytes for writer_check_image()
+# (tests/test_torch_image_writers.py holds the GIF, PNG and ICO bytes to PIL
+# 12.1's and the WebP file to PIL's by its bounds); the PNG and ICO rows hold
+# under the zlib of PIL 12.1's wheels, WRITER_ZLIB
+WRITER_DIGESTS = {"gif": "5976d1116331d74fbe55ad2fff7ab50839cb5d908cf44387c0f0aa792c113325",
+                  "png": "52b1c7f69be851babc21effa56233b84cd80af22b86678e485b684ae382453c2",
+                  "ico": "a45340f744902d8678be79092a72d9cfb0ce3dbba2f2d5bb397813c30f526c30",
+                  "webp": "948f360804ad910741065693e70b9be3d448be167e40b5747c5234e474423e67"}
+WRITER_ZLIB = "1.2.13"
+WRITER_ITERS = 5  # timed encodes of each writer (median): GIF and WebP take ~0.2 s each
+# the lossy WebP fixture's pixels saved as WebP by PIL 12.1: the PSNR (dB) of
+# PIL's file against them, which the port's file may undercut by 0.5 dB at
+# most (tests/test_torch_image_writers.py computes it)
+WEBP_FIXTURE_PSNR = 36.68510105609013
+WEBP_PSNR_SLACK = 0.5
 
 
 def _tn_polygon(rng, h: int, w: int):
@@ -4263,6 +4282,97 @@ def codec_check() -> dict:
             "jpeg_bytes": len(data), "samples": sorted(JPEG_SAMPLES)}
 
 
+def writer_check_image():
+    """writer_check's seeded 480x640 RGB image."""
+    return jpeg_check_image(SEED + 11)
+
+
+def writer_files(img) -> dict:
+    """The bytes of each writer of PR 27 for ``img``: GIF, PNG, ICO, WebP."""
+    from ape_tpu_torch.data.gif import encode_gif
+    from ape_tpu_torch.data.ico import encode_ico
+    from ape_tpu_torch.data.png import encode_png
+    from ape_tpu_torch.data.webp import encode_webp
+
+    return {"gif": encode_gif(img), "png": encode_png(img), "ico": encode_ico(img),
+            "webp": encode_webp(img)}
+
+
+def _psnr(a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return 10 * float(np.log10(255.0 ** 2 / mse)) if mse else 99.0
+
+
+def writer_check(card) -> dict:
+    """The GIF, PNG, ICO and WebP writers, as built on the running machine,
+    on writer_check_image(): their SHA-256s against WRITER_DIGESTS (where
+    this machine's zlib is not WRITER_ZLIB, the PNG and ICO files are held
+    by their decoded pixels instead: the PNG's the image's, each ICO frame
+    the LANCZOS thumbnail of it); the lossy fixture's pixels written as
+    WebP within WEBP_PSNR_SLACK of PIL's PSNR; each writer's ms (median of
+    WRITER_ITERS, the card machine's host clock)."""
+    import zlib
+
+    import numpy as np
+
+    from ape_tpu_torch.data.ico import thumbnail_size
+    from ape_tpu_torch.data.image_io import decode_png, read_rgb
+    from ape_tpu_torch.data.transforms import resize_lanczos
+    from ape_tpu_torch.data.webp import decode_webp, encode_webp
+
+    img = writer_check_image()
+    files = writer_files(img)
+    got = {name: _sha(data) for name, data in files.items()}
+    same_zlib = zlib.ZLIB_VERSION == WRITER_ZLIB
+    held = {}
+    for name, digest in got.items():
+        if digest == WRITER_DIGESTS[name]:
+            held[name] = "digest"
+            continue
+        if same_zlib or name not in ("png", "ico"):
+            fail(f"writer_check: the {name} writer's digest {digest}, expected "
+                 f"{WRITER_DIGESTS[name]} (zlib {zlib.ZLIB_VERSION})")
+        data = files[name]
+        if name == "png" and not np.array_equal(decode_png(data), img):
+            fail(f"writer_check: the PNG's pixels are not the image's (zlib {zlib.ZLIB_VERSION})")
+        if name == "ico":
+            count = int.from_bytes(data[4:6], "little")
+            for k in range(count):
+                size, at = (int.from_bytes(data[6 + 16 * k + o:10 + 16 * k + o], "little")
+                            for o in (8, 12))
+                w, h = (b or 256 for b in data[6 + 16 * k:8 + 16 * k])
+                tw, th = thumbnail_size(img.shape[1], img.shape[0], (w, h))
+                if not np.array_equal(decode_png(data[at:at + size]),
+                                      resize_lanczos(img, th, tw)):
+                    fail(f"writer_check: ICO frame {k} is not the {tw}x{th} LANCZOS thumbnail")
+        held[name] = "pixels"
+    fixture = read_rgb(str(ROOT / CONTAINER_FIXTURES / DEMO_WEBP))
+    data = encode_webp(fixture)
+    fixture_psnr = _psnr(decode_webp(data)[..., :3], fixture)
+    if fixture_psnr < WEBP_FIXTURE_PSNR - WEBP_PSNR_SLACK:
+        fail(f"writer_check: the fixture's WebP at {fixture_psnr:.3f} dB, PIL's "
+             f"{WEBP_FIXTURE_PSNR:.3f} dB")
+    from ape_tpu_torch.data.gif import encode_gif
+    from ape_tpu_torch.data.ico import encode_ico
+    from ape_tpu_torch.data.png import encode_png
+
+    ms = {}
+    for name, encode in (("gif", encode_gif), ("png", encode_png), ("ico", encode_ico),
+                         ("webp", encode_webp)):
+        times = []
+        for _ in range(WRITER_ITERS):
+            t0 = time.perf_counter()
+            encode(img)
+            times.append(time.perf_counter() - t0)
+        ms[name] = float(np.median(times)) * 1e3
+    return {"digests": held, "zlib": zlib.ZLIB_VERSION, "zlib_expected": WRITER_ZLIB,
+            "bytes": {k: len(v) for k, v in files.items()}, "host_ms": ms,
+            "webp_fixture_psnr": fixture_psnr, "webp_fixture_psnr_pil": WEBP_FIXTURE_PSNR,
+            "card": card}
+
+
 def _image_writers():
     """``tests/torch_image_writers.py`` of this checkout (numpy and the
     standard library only)."""
@@ -4593,28 +4703,39 @@ def demo_phase(dev, card, checkpoint: Path):
     train_net phase's ``checkpoint``: DEMO_INPUTS written as JPEG by the
     port, the YCCK file of ``image_forms_phase``, and the lossy WebP file
     and DEMO_TIFF of ``image_containers_phase`` (which run first; the WebP
-    under a .bmp name, so that its overlay is written as BMP; the TIFF under
-    its own name, so that its overlay is written as TIFF),
-    DEMO_PROMPT, masks and sem_seg. Gates: the codec's digests
-    (``codec_check``), exactly FORWARD_LAUNCHES a request, each overlay
-    decoding to its input's shape, the TIFF overlay's bytes those of PIL's
-    TIFF writer for its pixels (``encode_tiff``, which
-    tests/test_torch_tiff.py holds to PIL's bytes), ``predictions.json``
-    holding every instance of each request (score at least 0.05), and
-    ``visualize_json_results`` writing one overlay an image of the file.
+    under a .bmp name, so that its overlay is written as BMP, and under its
+    own name DEMO_WEBP; the TIFF under its own name, so that its overlay is
+    written as TIFF), DEMO_GIF and DEMO_ICO, DEMO_PROMPT, masks and sem_seg.
+    Gates: the codec's digests (``codec_check``), the writers' digests
+    (``writer_check``), exactly FORWARD_LAUNCHES a request, each overlay
+    decoding to its input's shape (an ICO's largest frame to PIL's
+    thumbnail size), the TIFF, GIF, ICO and WebP overlays' bytes those of
+    the port's writers for the pixels written (``encode_tiff``,
+    ``encode_gif``, ``encode_ico``: PIL's bytes, which the CPU tests hold;
+    ``encode_webp``), the GIF's pixels the palette lookup of its indices,
+    ``predictions.json`` holding every instance of each request (score at
+    least 0.05), and ``visualize_json_results`` writing one overlay an
+    image of the file, DEMO_WEBP, DEMO_GIF and DEMO_ICO among them.
     Returns the launches."""
     import tempfile
 
     import numpy as np
 
+    from ape_tpu_torch.data import image_io
+    from ape_tpu_torch.data.gif import encode_gif, quantize
+    from ape_tpu_torch.data.ico import SIZES, encode_ico, thumbnail_size
     from ape_tpu_torch.data.image_io import read_image, write_image
     from ape_tpu_torch.data.tiff import encode_tiff
+    from ape_tpu_torch.data.webp import decode_webp, encode_webp
     from ape_tpu_torch.demo import demo_lazy, predictor_lazy
     from ape_tpu_torch.ops import _build
     from ape_tpu_torch.tools import visualize_json_results
 
     t_phase = time.perf_counter()
     codec = codec_check()
+    t_writers = time.perf_counter()
+    writers = writer_check(card)
+    writer_s = time.perf_counter() - t_writers
     tmp = Path(tempfile.mkdtemp(prefix="demo_"))
     (tmp / "in").mkdir()
     (tmp / "forms").mkdir()
@@ -4637,6 +4758,29 @@ def demo_phase(dev, card, checkpoint: Path):
     shapes["ycck.jpg"] = FORMS_SIZE + (3,)
     shapes["webp_lossy.bmp"] = FORMS_SIZE + (3,)
     shapes[DEMO_TIFF] = FORMS_SIZE + (3,)
+    # the names the port writes since PR 27: each overlay under the input's name
+    writers_lib = _image_writers()
+    (tmp / "in" / DEMO_WEBP).write_bytes(containers[DEMO_WEBP])
+    rng = np.random.RandomState(SEED + 12)
+    gif_palette = rng.randint(0, 256, (256, 3)).astype(np.uint8)
+    gif_indices = jpeg_check_image(SEED + 13)[..., 0]
+    (tmp / "in" / DEMO_GIF).write_bytes(writers_lib.gif([{"indices": gif_indices}],
+                                                        global_palette=gif_palette))
+    ico_image = jpeg_check_image(SEED + 14, 192, 256)
+    (tmp / "in" / DEMO_ICO).write_bytes(writers_lib.ico([(writers_lib.png(ico_image, 2),
+                                                          (256, 192), 32, 0)]))
+    shapes[DEMO_WEBP] = shapes[DEMO_GIF] = FORMS_SIZE + (3,)
+    shapes[DEMO_ICO] = (192, 256, 3)
+    ico_frame = max((thumbnail_size(256, 192, size) for size in SIZES
+                     if size[0] <= 256 and size[1] <= 192), key=lambda s: s[0] * s[1])
+    readback = dict(shapes)
+    readback[DEMO_ICO] = (ico_frame[1], ico_frame[0], 3)
+    written_arrays = {}
+    write = image_io.write_image
+
+    def recording(file_name, image):
+        written_arrays[Path(file_name).name] = np.array(image)
+        return write(file_name, image)
     per_request = []
     run_on_image = predictor_lazy.VisualizationDemo.run_on_image
 
@@ -4648,10 +4792,12 @@ def demo_phase(dev, card, checkpoint: Path):
 
     out = tmp / "out"
     argv = ["--config-file", str(ROOT / TN_CONFIG), "--input", str(tmp / "in" / "*.jpg"),
-            str(tmp / "in" / "*.bmp"), str(tmp / "in" / "*.tif"), "--output", str(out),
+            str(tmp / "in" / "*.bmp"), str(tmp / "in" / "*.tif"), str(tmp / "in" / "*.gif"),
+            str(tmp / "in" / "*.webp"), str(tmp / "in" / "*.ico"), "--output", str(out),
             "--text-prompt", DEMO_PROMPT,
             "--with-mask", "--with-sseg", "--init-checkpoint", str(checkpoint)]
     predictor_lazy.VisualizationDemo.run_on_image = counted
+    image_io.write_image = recording
     _build.reset_launches()
     try:
         t0 = time.perf_counter()
@@ -4659,6 +4805,7 @@ def demo_phase(dev, card, checkpoint: Path):
         demo_s = time.perf_counter() - t0
     finally:
         predictor_lazy.VisualizationDemo.run_on_image = run_on_image
+        image_io.write_image = write
     launches = dict(_build.LAUNCHES)
     want = {k: FORWARD_LAUNCHES.get(k, 0) for k in _build.LAUNCHES}
     if len(records) != len(shapes) or any(r != want for r in per_request):
@@ -4671,7 +4818,7 @@ def demo_phase(dev, card, checkpoint: Path):
         log(phase=phase, image=image, config=TN_CONFIG, launches=per_request[at],
             instances=records[at]["instances"],
             **{k: v for k, v in records[at].items() if k not in ("path", "instances")}, card=card)
-    for name, shape in shapes.items():
+    for name, shape in readback.items():
         vis = read_image(str(out / name))
         if vis is None or vis.shape != shape:
             fail(f"demo: the overlay {name} decodes to {None if vis is None else vis.shape}, "
@@ -4679,6 +4826,25 @@ def demo_phase(dev, card, checkpoint: Path):
     overlay = (out / DEMO_TIFF).read_bytes()
     if not overlay.startswith(b"II*\x00") or overlay != encode_tiff(read_image(str(out / DEMO_TIFF))):
         fail(f"demo: the overlay {DEMO_TIFF} is not PIL's TIFF bytes for its pixels")
+    t_gates = time.perf_counter()
+    new_names = {}
+    for name, encode in ((DEMO_GIF, encode_gif), (DEMO_ICO, encode_ico), (DEMO_WEBP, encode_webp)):
+        data, pixels = (out / name).read_bytes(), written_arrays.get(name)
+        if pixels is None or pixels.shape != shapes[name] or data != encode(pixels):
+            fail(f"demo: the overlay {name} is not its writer's bytes for the pixels drawn")
+        new_names[name] = {"bytes": len(data), "sha256": _sha(data)}
+        at = [i for i, r in enumerate(records) if Path(r["path"]).name == name][0]
+        log(phase="image_writers_serve", image=name, config=TN_CONFIG, launches=per_request[at],
+            instances=records[at]["instances"],
+            **{k: v for k, v in records[at].items() if k not in ("path", "instances")}, card=card)
+    indices, palette = quantize(written_arrays[DEMO_GIF])
+    if not np.array_equal(read_image(str(out / DEMO_GIF)), palette[indices]):
+        fail(f"demo: the overlay {DEMO_GIF} does not read back as its palette lookup")
+    webp_pixels = decode_webp((out / DEMO_WEBP).read_bytes())[..., :3]
+    new_names[DEMO_WEBP]["psnr"] = _psnr(webp_pixels, written_arrays[DEMO_WEBP])
+    new_names[DEMO_GIF]["psnr"] = _psnr(read_image(str(out / DEMO_GIF)),
+                                        written_arrays[DEMO_GIF])
+    gates_s = time.perf_counter() - t_gates
     rows = json.load(open(out / "predictions.json")) if (out / "predictions.json").exists() else []
     counts = {name: sum(r["image_id"] == name for r in rows) for name in shapes}
     instances = {Path(r["path"]).name: r["instances"] for r in records}
@@ -4691,14 +4857,19 @@ def demo_phase(dev, card, checkpoint: Path):
     vis_s = time.perf_counter() - t0
     drawn = {Path(p).name for p in written}
     if drawn != {name for name, n in counts.items() if n} or any(
-            read_image(p).shape != shapes[Path(p).name] for p in written):
+            read_image(p).shape != readback[Path(p).name] for p in written) or not {
+            DEMO_WEBP, DEMO_GIF, DEMO_ICO} <= drawn:
         fail(f"visualize_json_results: wrote {sorted(drawn)} for rows {counts}")
+    new_s = writer_s + gates_s + sum(r.get("device", 0) + r.get("draw", 0) + r.get("write", 0)
+                           for r in records if Path(r["path"]).name in new_names)
     log(phase="demo", config=TN_CONFIG, prompt=DEMO_PROMPT, codec=codec,
         requests=[{k: v for k, v in r.items() if k != "path"} | {"image": Path(r["path"]).name}
                   for r in records],
         launches_per_request=FORWARD_LAUNCHES, rows=len(rows), demo_s=demo_s,
         visualize_s=vis_s, visualized=sorted(drawn), tiff_overlay={
-            "name": DEMO_TIFF, "bytes": len(overlay), "sha256": _sha(overlay)}, card=card)
+            "name": DEMO_TIFF, "bytes": len(overlay), "sha256": _sha(overlay)},
+        writers=writers, new_overlays=new_names, writer_s=writer_s, pr27_additions_s=new_s,
+        card=card)
     log(phase="demo_done", seconds=time.perf_counter() - t_phase - forms_s)
     return launches
 

@@ -638,10 +638,15 @@ def test_write_image_bmp_is_pils_bytes(tmp_path, size, channels):
 
 
 def test_write_image_webp_and_gif_raise_naming_them(tmp_path):
+    """``.webp`` and ``.gif`` write a file PIL opens at the image's size; an
+    array the format's encoder cannot take raises ``ValueError`` naming
+    that encoder, and nothing is written."""
     for ext in (".webp", ".gif"):
-        with pytest.raises(ValueError, match=ext):
-            write_image(str(tmp_path / f"a{ext}"), image(8, 8))
-        assert not (tmp_path / f"a{ext}").exists()
+        write_image(str(tmp_path / f"a{ext}"), image(8, 8))
+        assert Image.open(tmp_path / f"a{ext}").size == (8, 8)
+        with pytest.raises(ValueError, match=f"encode_{ext[1:]}"):
+            write_image(str(tmp_path / f"b{ext}"), np.zeros((8, 8, 4), np.float32))
+        assert not (tmp_path / f"b{ext}").exists()
 
 
 @pytest.mark.parametrize("is_train", [True, False])

@@ -27,6 +27,7 @@ CPU:
 import base64
 import hashlib
 import io
+import re
 import struct
 
 import numpy as np
@@ -386,8 +387,24 @@ def test_corrupt_data_and_bad_arguments():
         decode_jpeg(b"\xff\xd9")
     with pytest.raises(ValueError, match="uint8"):
         encode_jpeg(np.zeros((4, 4, 4), np.uint8))
-    with pytest.raises(ValueError, match=r"\.webp"):
-        write_image("x.webp", np.zeros((4, 4, 3), np.uint8))
+    with pytest.raises(ValueError, match=r"\.jp2"):
+        write_image("x.jp2", np.zeros((4, 4, 3), np.uint8))
+
+
+@pytest.mark.parametrize("ext", (".webp", ".jp2", ".avif", ".qoi", ".pcx"))
+def test_write_image_webp_writes_and_unread_formats_raise(tmp_path, ext):
+    """``.webp`` writes a WebP file PIL decodes at the image's size; the
+    names of formats PIL writes and the port does not read raise
+    ``ValueError`` naming the extension, and nothing is written."""
+    path = tmp_path / f"x{ext}"
+    img = image(24, 40, seed=7)
+    if ext == ".webp":
+        write_image(str(path), img)
+        assert np.asarray(Image.open(path).convert("RGB")).shape == img.shape
+        return
+    with pytest.raises(ValueError, match=re.escape(ext)):
+        write_image(str(path), img)
+    assert not path.exists()
 
 
 def test_chip_smoke_digests_are_pils():

@@ -387,8 +387,14 @@ def test_write_image_is_pils_bytes(tmp_path, ext, size, channels):
 
 @pytest.mark.parametrize("ext", (".ico", ".webp", ".gif"))
 def test_write_image_raises_naming_the_format(tmp_path, ext):
-    with pytest.raises(ValueError, match=ext):
-        write_image(str(tmp_path / f"w{ext}"), image(9, 13))
+    """An array the format cannot hold raises ``ValueError`` naming the
+    format's encoder and writes nothing; a uint8 image writes a file PIL
+    opens (17 x 19: an ICO of a side below 16 holds no frame)."""
+    with pytest.raises(ValueError, match=f"encode_{ext[1:]}"):
+        write_image(str(tmp_path / f"w{ext}"), np.zeros((9, 13, 2), np.uint8))
+    assert not (tmp_path / f"w{ext}").exists()
+    write_image(str(tmp_path / f"w{ext}"), image(17, 19))
+    Image.open(tmp_path / f"w{ext}").load()
 
 
 # --- the mapper --------------------------------------------------------------
