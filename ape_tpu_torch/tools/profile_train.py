@@ -8,10 +8,13 @@ no recompute, 150 classes in 160 text slots), the R50 family in its
 ``r50_train`` and ``detr_r50_train`` ones (batch 2, 300 queries, the R50
 recipe's optimizer), or ViTDet-L APE-DETA in its ``vitl_train`` one (the
 COCO recipe: batch 2, masked, 900 queries, no recompute, 80 classes in 96
-text slots):
+text slots), or one of the EVA-01 ViT-g recipes built from its config file
+as ``train_net`` builds it (``VITG_RECIPES``: ``vitg``, the DETA recipe at
+LSJ 1024, chip_smoke's ``vitg_train``; ``vitg_1536``, EVA-01-CLIP-g's
+APE-DETA recipe at LSJ 1536; batch 1 by default):
 
     python3 -m ape_tpu_torch.tools.profile_train [--masked]
-                                                 [--model ti|l_d|l|r50|detr_r50|vitl]
+                                                 [--model ti|l_d|l|r50|detr_r50|vitl|vitg|vitg_1536]
                                                  [--batch N]
 
 Without flags the Ti detection model (chip_smoke's phase 8); ``--masked``
@@ -21,8 +24,12 @@ APE-L_D (phase 13's ``l_d_train``); ``--model l`` APE-L (phase 14's
 ``vitl_train``); ``--model r50`` APE-DETA R50 (masked,
 recompute, DETA's criterion with masks); ``--model detr_r50``
 Deformable-DETR R50 (no masks, the Hungarian on every layer, no
-recompute); ``--batch`` another batch size (a
-step that runs out of card memory prints its peak and exits 1). Under
+recompute); ``--batch`` another batch size. A
+step that runs out of card memory prints the allocator's figures
+(``out_of_memory``: allocated, reserved and peak, the card's total, the
+request that failed, the error's text), then the backbone's share
+(``backbone_memory``, below), and exits 1; a ViT-g recipe's step that
+fits is followed by that share too. Under
 ``APE_MSDA_BWD_MERGED=0`` the encoder's MSDA backward runs on the split
 kernels (K3 + K4) instead of K2; under ``APE_MSDA_FUSED=1`` (K8) or
 ``APE_MSDA_V6=1`` (K9 + K1) its forward takes another form.
@@ -42,13 +49,22 @@ Prints three JSON lines and the card's nvidia-smi line:
   union of kernel intervals) against the step's wall time, kernel and launch
   counts, and the top kernels by summed device time;
 * ``kernels``: the port's own kernels' launches and summed device time in
-  that step, [count, ms] by name.
+  that step, [count, ms] by name;
+* ``backbone_memory`` (after an out-of-memory step, and for a ViT-g recipe):
+  the backbone alone, freshly built with the model's weights' draw, a
+  forward under autograd of one batch and a backward of its pyramid's sum of
+  squares, in bf16: the allocated bytes after each block's forward (what
+  autograd keeps, block by block, windowed and global apart), after the
+  pyramid, and the peak; a forward or backward that runs out of memory
+  records how far it came and the allocator's figures.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -68,6 +84,13 @@ from ape_tpu_torch.modeling.build import (
 )
 from ape_tpu_torch.ops import msda_dispatch
 
+# the ViT-g recipes by --model: their config files, which build the model,
+# the criterion and the optimizer
+VITG_RECIPES = {
+    "vitg": cs.VITG_CONFIG,
+    "vitg_1536": "configs/COCO_InstanceSegmentation/ape_deta/"
+                 "ape_deta_vitg_eva01_clip_lsj1536_cp_64x90k.py",
+}
 PORT_KERNELS = ("msda_fwd_kernel", "msda_fwd_qlevel", "msda_fwd_dense", "msda_bwd_kernel",
                 "msda_bwd_offatt", "msda_bwd_value", "attn_fwd", "attn_bwd")
 
@@ -257,6 +280,20 @@ def setup(model_name: str, masked: bool, batch_size, dev):
                                 cs.SEED + 4, masks=True, num_text=cs.VITL_TEXT_SLOTS,
                                 classes=cs.VITL_CLASSES)
         gen = torch.Generator().manual_seed(cs.SEED)
+    elif model_name in VITG_RECIPES:
+        from ape_tpu_torch.config import LazyConfig
+        from ape_tpu_torch.model_zoo import build_criterion, build_model
+
+        cfg = LazyConfig.load(str(cs.ROOT / VITG_RECIPES[model_name]))
+        model = cs.init_weights(build_model(cfg, device=dev, dtype=torch.bfloat16), cs.SEED,
+                                device=dev)
+        crit = build_criterion(cfg)
+        opt, sched = build_optimizer(model, **{k: v for k, v in cfg.optimizer.items()
+                                               if k != "grad_clip"})
+        batch = cs._train_batch(dev, batch_size or 1, int(cfg.train.image_size), cs.SEED + 4,
+                                masks=model.mask_on, num_text=int(cfg.train.num_text),
+                                classes=crit.num_classes)
+        return model, crit, opt, sched, batch, torch.Generator().manual_seed(cs.SEED)
     elif model_name in ("r50", "detr_r50"):
         detr = model_name == "detr_r50"
         kw = dict(window_radius=cs.RADIUS, dtype=torch.bfloat16, device=dev)
@@ -281,40 +318,123 @@ def setup(model_name: str, masked: bool, batch_size, dev):
     return cs.init_weights(model, cs.SEED), crit, opt, sched, batch, gen
 
 
+def allocator(error: str = "") -> dict:
+    """The caching allocator's figures now, in GiB: allocated, reserved and
+    the peak allocated since the last reset, the card's total; with an
+    out-of-memory ``error``, the request that failed (its "Tried to
+    allocate") and the error's text."""
+    gib = 2**30
+    rec = {"allocated_gib": torch.cuda.memory_allocated() / gib,
+           "reserved_gib": torch.cuda.memory_reserved() / gib,
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / gib,
+           "total_gib": torch.cuda.get_device_properties(0).total_memory / gib}
+    if error:
+        m = re.search(r"Tried to allocate ([0-9.]+) ([GMK]i?B)", error)
+        if m:
+            scale = {"GiB": 1, "MiB": 2**-10, "KiB": 2**-20}.get(m[2], 1)
+            rec["requested_gib"] = float(m[1]) * scale
+        rec["error"] = " ".join(error.split())
+    return rec
+
+
+def backbone_memory(model_name: str, batch_size, dev) -> dict:
+    """``setup``'s model's backbone alone (freshly built, its weights drawn as
+    the model's, train mode, bf16): one forward under autograd on the
+    setup's batch, recording the allocated GiB after each block's forward
+    and after the pyramid, then a backward of the pyramid's sum of squares;
+    the peak. Out of memory, the record says where (``stopped_in``,
+    ``blocks_done``) with the allocator's figures."""
+    model, _, _, _, batch, gen = setup(model_name, True, batch_size, dev)
+    backbone = model.backbone.train()
+    images = batch["images"].to(torch.bfloat16)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gib = 2**30
+    net = backbone.net
+    after = []
+    hooks = [b.register_forward_hook(lambda *_: after.append(torch.cuda.memory_allocated() / gib))
+             for b in net.blocks]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / gib
+    rec = {"model": model_name, "batch": int(images.shape[0]), "image": int(images.shape[1]),
+           "blocks": len(net.blocks), "global_blocks": [i for i, b in enumerate(net.blocks)
+                                                          if b.window_size == 0],
+           "params_gib": sum(p.numel() * p.element_size() for p in backbone.parameters()) / gib,
+           "allocated_before_gib": base}
+    stage = "forward"
+    try:
+        feats = backbone(images, gen)
+        rec["after_forward_gib"] = torch.cuda.memory_allocated() / gib
+        stage = "backward"
+        sum(f.float().square().sum() for f in feats.values()).backward()
+        torch.cuda.synchronize()
+        rec["fits"] = True
+    except torch.cuda.OutOfMemoryError as e:
+        rec.update(fits=False, stopped_in=stage, **allocator(str(e)))
+    for h in hooks:
+        h.remove()
+    kept = [a - b for a, b in zip(after, [base] + after[:-1])]
+    rec.update(blocks_done=len(after), after_block_gib=after, kept_by_block_gib=kept,
+               peak_gib=torch.cuda.max_memory_allocated() / gib)
+    glob = set(rec["global_blocks"])
+    for kind, sel in (("global", lambda i: i in glob), ("windowed", lambda i: i not in glob)):
+        ks = [k for i, k in enumerate(kept) if sel(i)]
+        rec[f"kept_{kind}_block_gib"] = (min(ks), max(ks)) if ks else None
+    return rec
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--masked", action="store_true", help="the full masked Ti model")
-    parser.add_argument("--model", choices=("ti", "l_d", "l", "r50", "detr_r50", "vitl"),
+    parser.add_argument("--model", choices=("ti", "l_d", "l", "r50", "detr_r50", "vitl",
+                                            *VITG_RECIPES),
                         default="ti",
                         help="APE-Ti, APE-L_D (masked, batch 1 by default), APE-L (masked), "
-                             "APE-DETA R50 (masked), Deformable-DETR R50 or ViTDet-L APE-DETA "
-                             "(masked)")
+                             "APE-DETA R50 (masked), Deformable-DETR R50, ViTDet-L APE-DETA "
+                             "(masked), or a ViT-g recipe (VITG_RECIPES, batch 1 by default)")
     parser.add_argument("--batch", type=int, default=None,
-                        help="batch size (default: 2, 1 for L_D)")
+                        help="batch size (default: 2, 1 for L_D and the ViT-g recipes)")
     args = parser.parse_args()
-    cs.device_phase()
+    card = cs.device_phase()[1]
     dev = torch.device("cuda", 0)
     model, crit, opt, sched, batch, gen = setup(args.model, args.masked, args.batch, dev)
     step = make_train_step(model, crit, opt, sched)
     form = {"model": args.model,
-            "masked": args.masked or args.model in ("l_d", "l", "r50", "vitl"),
+            "masked": bool(args.masked or model.mask_on),
             "batch": batch["images"].shape[0], "split": not msda_dispatch.BWD_MERGED,
-            "window_forward": msda_dispatch.window_form(8)}
+            "window_forward": msda_dispatch.window_form(8),
+            "params": sum(p.numel() for p in model.parameters())}
+    if args.model in VITG_RECIPES:
+        form["config"] = VITG_RECIPES[args.model]
     torch.cuda.reset_peak_memory_stats()
+    error = ""
     try:
         for _ in range(2):
             step(batch, gen)
         torch.cuda.synchronize()
     except torch.cuda.OutOfMemoryError as e:
-        print(json.dumps({"out_of_memory": {**form, "peak_memory_gib":
-                                            torch.cuda.max_memory_allocated() / 2**30,
-                                            "error": str(e).splitlines()[0]}}), flush=True)
+        error = str(e)
+    if error:
+        print(json.dumps({"out_of_memory": {**form, **allocator(error), "card": card}}),
+              flush=True)
+        del model, crit, opt, sched, batch, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(json.dumps({"backbone_memory": {**backbone_memory(args.model, args.batch, dev),
+                                              "card": card}}), flush=True)
         sys.exit(1)
     print(json.dumps({"form": form}), flush=True)
     print(json.dumps({"stage_split": stage_split(model, crit, opt, sched, batch, gen)}), flush=True)
     prof, ours = profile_call(lambda: step(batch, gen))
     print(json.dumps({"profile": prof}), flush=True)
     print(json.dumps({"kernels": ours}), flush=True)
+    if args.model in VITG_RECIPES:
+        del model, crit, opt, sched, batch, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(json.dumps({"backbone_memory": backbone_memory(args.model, args.batch, dev)}),
+              flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
 

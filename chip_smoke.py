@@ -265,7 +265,26 @@ for its half (``cpu_waited_seconds``); the process is stopped at exit:
     ``bert_train``: ``train_net.main`` on BERT_CONFIG, ``fast_dev_run``
     (20 steps, batch 2, 1024^2, synthetic data) with the tower encoding the
     prompts (``train.text_tower``): exact launches a step, finite losses,
-    s/step, peak memory;
+    s/step, peak memory; then the Llama-2 tower's weights written as
+    Llama-2-7b-hf's files hold them (``llama2_checkpoint``: float16 in two
+    safetensors shards and their index), seconds and bytes;
+    the recipes' training: ``vitg_train``, VITG_CONFIG (the DETA recipe on
+    EVA-01 ViT-g at LSJ 1024: 40 blocks of width 1408, relative positions,
+    1203 learned classes, the federated loss) built from its file by
+    ``model_zoo`` with ``cfg.optimizer``, batch 1, bf16: a warm-up and three
+    timed steps, exactly ``step_launches`` (K1 12, K2 12, no K5) each,
+    finite losses and gradients, s/step (mean, median, spread), peak memory,
+    host syncs; ``vitg_train_f32``: the same config cut to 4 blocks (a
+    rel-pos global block at head width 88) and 2 + 2 layers at 512^2, one
+    f32 step on the card against the CPU's, first-stage indices identical,
+    every gradient (the relative-position tables' among them) within
+    F32_GRAD_RTOL (F32_OFFSET_GRAD_RTOL for sampling offsets);
+    ``llama2_train``: ``train_net.main`` on LLAMA2_CONFIG (``fast_dev_run``,
+    20 steps of one image a group, iter_size 1) with ``train.text_tower``,
+    the Llama-2-7B tower read from the files just written (their digest
+    checked): exact launches a step (L_D's), finite losses and gradients,
+    the tower's cache of the names, s/step, host syncs, peak memory and the
+    tower's resident GiB beside the step's;
     train_net: ``python -m ape_tpu_torch.tools.train_net`` on APE-Ti's COCO
     recipe (TN_CONFIG, read by the port's ``LazyConfig``; 1024^2 LSJ, 900
     queries, masks, the 4-scale pyramid, bf16) through
@@ -368,7 +387,8 @@ over all of them, ``launches_main`` over the serving and training phases
 alone, 5-17, ``launches_default`` over those of them that run the default
 flags: slice, serve, train, full serve, full train with the merged backward,
 L_D's slice, serve, train and f32 train, the ADE20k and APE-L phases but the
-f32 ones, R50's, the ViT trees', train_net's, the demo's, the mix's and
+f32 ones, R50's, the ViT trees', the ViT-g and Llama-2 recipes' training,
+train_net's, the demo's, the mix's and
 the two-rank, NCCL and IoU-loss runs' (each rank's counts summed); error, time, plain
 and library
 time, and bound; for K1, K3, K4, K6, K7, K8 and K9, whose D = 32 body runs
@@ -3721,37 +3741,47 @@ def vitl_train_f32_phase(dev, halves):
     """One f32 step (TF32 off) of ViTDet-L APE-DETA cut to VITL_F32_DEPTH
     blocks and 2 + 2 layers at 512^2 on the protocol pyramid, fan-in
     weights, 80 texts, name prompts: the card's step with the CUDA kernels
-    against the plain versions' on the CPU, exact launches, identical
-    first-stage indices, every gradient (the relative-position tables'
-    among them) within F32_GRAD_RTOL (sampling offsets
-    F32_OFFSET_GRAD_RTOL). Returns the card step's launches."""
+    against the plain versions' on the CPU (``vit_train_f32_check``).
+    Returns the card step's launches."""
+    want = {"msda_fwd": 2 * L_D_F32_LAYERS, "msda_bwd": 2 * L_D_F32_LAYERS}
+    return vit_train_f32_check(dev, halves, "vitl_train_f32", "ViTDet-L", _vitl_train_f32_setup,
+                               want, depth=VITL_F32_DEPTH)
+
+
+def vit_train_f32_check(dev, halves, name: str, label: str, setup, want: dict, **fields):
+    """One f32 step of ``setup()``'s (model, criterion, batch) with the CUDA
+    kernels on the card against the CPU half ``name`` of the same step with
+    the plain versions: exact launches (``want``), identical first-stage
+    indices, every parameter with a gradient on both sides and each (the
+    relative-position tables' among them) within F32_GRAD_RTOL (sampling
+    offsets F32_OFFSET_GRAD_RTOL); logged as ``{name}_vs_plain`` with
+    ``fields``. Returns the card step's launches."""
     import torch
 
     from ape_tpu_torch.ops import _build
 
-    model, crit, batch = _vitl_train_f32_setup()
+    model, crit, batch = setup()
     model = model.to(dev)
     t0 = time.perf_counter()
     _build.reset_launches()
     gpu_total, gpu_sel, gpu_grads = step_grads(model, crit, _to(batch, dev), SEED)
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-    want = {"msda_fwd": 2 * L_D_F32_LAYERS, "msda_bwd": 2 * L_D_F32_LAYERS}
     if launches != want:
-        fail(f"ViTDet-L f32 train step: launches {launches}, expected {want}")
+        fail(f"{label} f32 train step: launches {launches}, expected {want}")
     gpu_s = time.perf_counter() - t0
-    ref = halves.result("vitl_train_f32")
+    ref = halves.result(name)
     cpu_total, cpu_sel, cpu_grads = ref["result"]
     names = set(n for n, _ in model.named_parameters())
     if set(gpu_grads) != names or set(cpu_grads) != names:
-        fail(f"ViTDet-L f32 train step: parameters without a gradient "
+        fail(f"{label} f32 train step: parameters without a gradient "
              f"{sorted(names - set(gpu_grads))} (card), {sorted(names - set(cpu_grads))} (CPU)")
     rel = grad_rel_errors(gpu_grads, cpu_grads)
     over = sorted(((n, r, f32_grad_bound(n)) for n, r in rel.items() if not r <= f32_grad_bound(n)),
                   key=lambda t: -t[1] / t[2])
     same_sel = bool(torch.equal(gpu_sel, cpu_sel))
     rel_pos = {n: r for n, r in rel.items() if "rel_pos" in n}
-    log(phase="vitl_train_f32_vs_plain", image=F32_TRAIN_IMG, depth=VITL_F32_DEPTH,
-        layers=L_D_F32_LAYERS, launches=launches, total_loss_cuda=gpu_total,
+    log(phase=f"{name}_vs_plain", image=F32_TRAIN_IMG, **fields, layers=L_D_F32_LAYERS,
+        launches=launches, total_loss_cuda=gpu_total,
         total_loss_cpu=cpu_total, first_stage_indices_identical=same_sel, params=len(rel),
         worst_grad_rel_err=sorted(((n, r) for n, r in rel.items() if "sampling_offsets" not in n),
                                   key=lambda kv: -kv[1])[:3], bound=F32_GRAD_RTOL,
@@ -3761,13 +3791,155 @@ def vitl_train_f32_phase(dev, halves):
         worst_rel_pos_grad_rel_err=max(rel_pos.values()), gpu_seconds=gpu_s,
         cpu_seconds=ref["seconds"], cpu_waited_seconds=ref["waited_seconds"])
     if not same_sel:
-        fail("ViTDet-L f32 train step: first-stage indices differ between the card and the CPU")
+        fail(f"{label} f32 train step: first-stage indices differ between the card and the CPU")
     if over:
-        fail(f"ViTDet-L f32 train step: {len(over)} gradients over their bound, worst (name, rel, "
+        fail(f"{label} f32 train step: {len(over)} gradients over their bound, worst (name, rel, "
              f"bound) {over[:3]}")
     del model, gpu_grads, cpu_grads
     torch.cuda.empty_cache()
     return launches
+
+
+# --- the EVA-01 ViT-g recipes' training ---
+# The DETA recipe on ViT-g at LSJ 1024, built from its file as train_net
+# builds it (model_zoo.build_model, build_criterion, cfg.optimizer): 40
+# blocks of width 1408, 16 heads of 88, window 16 with every fourth block
+# global (10), relative positions in every block, its inline tree's GELU MLP
+# at JAX's default ratio 4 * 2 / 3 (trait 17; 0.78 B parameters), no drop
+# path; no masks, 1203 learned classes, the federated loss over 50 classes
+# with LVIS's weights; AdamW with layer decay 0.8 over 40 blocks. Its global
+# blocks are rel-pos at head width 88: the plain product (f32 softmax over
+# (16, 4096, 4096) a block), as in JAX, so no attention kernel runs. Batch 1:
+# batch 2 does not fit one card.
+VITG_CONFIG = "configs/LVIS_Detection/deformable_deta/deformable_deta_vitg_eva_lsj1024_cp_24ep.py"
+VITG_TRAIN_BATCH = 1
+# The config recomputes nothing (its encoder and decoder set no
+# use_act_checkpoint): the encoder's 6 MSDA forwards run once on K1 under
+# autograd (the clip in torch), the decoder's 6 once, each backward once on
+# K2 (``step_launches`` derives this from the built model).
+VITG_STEP_LAUNCHES = {"msda_fwd": 12, "msda_bwd": 12}
+VITG_F32_DEPTH = 4  # blocks 0-2 windowed (16^2 windows over the 32^2 grid), block 3 global
+
+
+def step_launches(model) -> dict:
+    """The kernel launches of one train step of an APE-DETA ``model``, from
+    its recompute settings: each encoder and decoder layer's MSDA forward
+    once on K1 (under autograd the encoder's clip stays in torch), a
+    recomputed decoder layer's once more (a recomputed encoder layer keeps
+    its MSDA output, ``msda_dispatch.REMAT_POLICY`` "msda"), one K2 backward
+    each; each K5 block of the backbone (which no config recomputes) once
+    forward and once each way backward."""
+    enc, dec = model.transformer.encoder, model.transformer.decoder
+    out = {"msda_fwd": len(enc.layers) + len(dec.layers) * (2 if dec.use_act_checkpoint else 1),
+           "msda_bwd": len(enc.layers) + len(dec.layers)}
+    k5 = sum(b.attn.flash for b in model.backbone.net.blocks)
+    if k5:
+        out.update(attn_fwd=k5, attn_bwd_dkv=k5, attn_bwd_dq=k5)
+    return out
+
+
+def _vitg_config(depth: int = None, layers: int = None, img: int = None):
+    """VITG_CONFIG as the port's LazyConfig reads it, its backbone cut to
+    ``depth`` blocks (each windowed or global as in the tree) at ``img``^2
+    and its encoder and decoder to ``layers`` each, where given."""
+    from ape_tpu_torch.config import LazyConfig
+
+    cfg = LazyConfig.load(str(ROOT / VITG_CONFIG))
+    net, tr = cfg.model.backbone.net, cfg.model.transformer
+    if depth is not None:
+        net["depth"] = depth
+        net["window_block_indexes"] = tuple(i for i in net.window_block_indexes if i < depth)
+    if img is not None:
+        net["img_size"] = img
+    if layers is not None:
+        tr.encoder["num_layers"] = tr.decoder["num_layers"] = layers
+    return cfg
+
+
+def _median_spread(seconds) -> dict:
+    """The median and the spread (max - min) of steps' seconds."""
+    return {"s_per_step_median": statistics.median(seconds),
+            "s_per_step_spread": max(seconds) - min(seconds)}
+
+
+def vitg_train_phase(dev, card):
+    """VITG_CONFIG trained as its recipe: the model, criterion and optimizer
+    built from the file (``model_zoo.build_model`` in bf16 over f32
+    parameters, N(0, 0.02) weights drawn on the card, ``build_criterion``,
+    ``build_optimizer(**cfg.optimizer)``; ``make_train_step`` clips at
+    0.1), 1024^2, batch VITG_TRAIN_BATCH, the recipe's 1216 text slots,
+    labels among its 1203 classes, 8 target slots with 4 valid, name
+    prompts, the step's generator on the CPU: a warm-up step (finite losses,
+    every parameter's gradient finite), three timed steps launching exactly
+    ``step_launches(model)`` (VITG_STEP_LAUNCHES) each, then one step's host
+    syncs. Logs s/step (mean, median, spread), peak memory over the timed
+    steps, parameters. Returns the launches of the timed steps."""
+    import torch
+
+    from ape_tpu_torch.engine.optimizer import build_optimizer
+    from ape_tpu_torch.engine.train_step import GRAD_CLIP, make_train_step
+    from ape_tpu_torch.model_zoo import build_criterion, build_model
+
+    cfg = _vitg_config()
+    t0 = time.perf_counter()
+    model = init_weights(build_model(cfg, device=dev, dtype=torch.bfloat16), SEED, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    per_step = step_launches(model)
+    if per_step != VITG_STEP_LAUNCHES:
+        fail(f"vitg_train: the config's model launches {per_step} a step, the smoke expects "
+             f"{VITG_STEP_LAUNCHES}")
+    opt_cfg = dict(cfg.optimizer)
+    if float(opt_cfg.pop("grad_clip")) != GRAD_CLIP:
+        fail(f"vitg_train: the recipe clips at {cfg.optimizer.grad_clip}, the step at {GRAD_CLIP}")
+    optimizer, scheduler = build_optimizer(model, **opt_cfg)
+    crit = build_criterion(cfg)
+    step = make_train_step(model, crit, optimizer, scheduler)
+    batch = _train_batch(dev, VITG_TRAIN_BATCH, TRAIN_IMG, SEED + 4,
+                         num_text=int(cfg.train.num_text), classes=crit.num_classes)
+    gen = torch.Generator().manual_seed(SEED)
+    rec = _train_steps(model, step, batch, dev, per_step, gen=gen)
+    launches = rec.pop("launches")
+    syncs, _ = _host_syncs(step, batch, gen)
+    net = model.backbone.net
+    log(phase="vitg_train", config=VITG_CONFIG, dtype="bfloat16", image=TRAIN_IMG,
+        batch=VITG_TRAIN_BATCH, queries=QUERIES, classes=crit.num_classes,
+        text_slots=int(cfg.train.num_text), fed_loss_classes=crit.fed_loss_num_classes,
+        global_blocks=sum(b.window_size == 0 for b in net.blocks),
+        k5_blocks=sum(b.attn.flash for b in net.blocks),
+        params=sum(p.numel() for p in model.parameters()),
+        backbone_params=sum(p.numel() for p in net.parameters()), build_seconds=build_s,
+        host_syncs_per_step=syncs, **_median_spread(rec["seconds_per_step"]), **rec, card=card)
+    del model, step, optimizer, scheduler, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _vitg_train_f32_setup() -> tuple:
+    """``vitg_train_f32_phase``'s model (on the CPU, fan-in weights),
+    criterion and batch: VITG_CONFIG cut to VITG_F32_DEPTH blocks at
+    F32_TRAIN_IMG^2 and 2 + 2 layers, built by ``model_zoo``."""
+    from ape_tpu_torch.model_zoo import build_criterion, build_model
+
+    cfg = _vitg_config(VITG_F32_DEPTH, L_D_F32_LAYERS, F32_TRAIN_IMG)
+    model = init_weights(build_model(cfg, device="cpu"), SEED, fan_in=True).train()
+    crit = build_criterion(cfg)
+    return model, crit, _train_batch("cpu", 1, F32_TRAIN_IMG, SEED + 5,
+                                     num_text=int(cfg.train.num_text), classes=crit.num_classes)
+
+
+def vitg_train_f32_phase(dev, halves, card):
+    """One f32 step (TF32 off) of VITG_CONFIG cut to VITG_F32_DEPTH blocks
+    (3 windowed and padded, then a global one with relative positions at
+    head width 88) and 2 + 2 layers at 512^2, the recipe's 4-scale pyramid,
+    1203 learned classes and federated loss (its uniforms from CPU
+    generators of one seed on both sides), fan-in weights: the card's step
+    with the CUDA kernels against the plain versions' on the CPU
+    (``vit_train_f32_check``; the 8 relative-position tables' gradients
+    among those held). Returns the card step's launches."""
+    want = {"msda_fwd": 2 * L_D_F32_LAYERS, "msda_bwd": 2 * L_D_F32_LAYERS}
+    return vit_train_f32_check(dev, halves, "vitg_train_f32", "ViT-g", _vitg_train_f32_setup,
+                               want, depth=VITG_F32_DEPTH, config=VITG_CONFIG, card=card)
 
 
 # --- train_net: the config-driven entry point on APE-Ti's COCO recipe ---
@@ -6178,6 +6350,21 @@ BERT_CONFIG = "configs/REFCOCO_VisualGrounding/ape_deta/ape_deta_r50_bert_vlf_12
 LLAMA2_CONFIG = ("configs/LVISCOCOCOCOSTUFF_O365_OID_VGR_SA1B_REFCOCO_GQA_PhraseCut_Flickr30k/"
                  "ape_deta/ape_deta_vitl_eva02_clip_vlf_lsj1024_cp_16x4_1080k_mdl_llama2.py")
 BERT_SERVE_NAMES = 80
+# The Llama-2 recipe's training (llama2_train): train_net.main on
+# LLAMA2_CONFIG with train.text_tower=True, its Llama-2-7B tower read from
+# the directory hf_phase writes (the seeded weights at the published widths,
+# in float16 in Llama-2-7b-hf's LLAMA2_SHARDS shards), fast_dev_run (20 steps
+# on synthetic data, the groups drawn by the config's ratios), each group's
+# micro-batch LLAMA2_TRAIN_BATCH (L_D's batch 2 runs out of memory) and
+# iter_size LLAMA2_ITER_SIZE (the recipe's 4 micro-batches a step, cut to 1
+# for the smoke's time: the peak is a micro-batch's either way). The model
+# is L_D's tree (EVA-02-CLIP-L, 8 global blocks on K5, drop path 0.4, the
+# fusion over 4096-wide text) with the config's encoder and decoder
+# recompute: L_D's launches a step (``step_launches``).
+LLAMA2_SHARDS = 2
+LLAMA2_DIGEST_KEY = "model.layers.31.mlp.down_proj.weight"
+LLAMA2_TRAIN_BATCH = 1
+LLAMA2_ITER_SIZE = 1
 # BERT_CONFIG's step: its encoder recomputes (the recompute keeps the MSDA
 # output), its decoder does not: each MSDA forward and backward once
 BERT_STEP_LAUNCHES = {"msda_fwd": 12, "msda_bwd": 12}
@@ -6259,14 +6446,19 @@ def write_llama_tokenizer(d: Path, names) -> None:
          "add_eos_token": False}))
 
 
-def write_safetensors(path: Path, tensors: dict) -> None:
+def write_safetensors(path: Path, tensors: dict, dtype: str = "F32") -> None:
     """A ``.safetensors`` file written by hand: the 8-byte little-endian
     header length, the JSON header (spaces to an 8-byte boundary), then each
-    tensor's f32 bytes, taken to the host one at a time."""
+    tensor's bytes in ``dtype`` ("F32" or "F16"), taken to the host one at a
+    time."""
+    import torch
+
+    tdtype = {"F32": torch.float32, "F16": torch.float16}[dtype]
+    size = torch.empty((), dtype=tdtype).element_size()
     header, offset = {}, 0
     for name, t in tensors.items():
-        n = t.numel() * 4
-        header[name] = {"dtype": "F32", "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        n = t.numel() * size
+        header[name] = {"dtype": dtype, "shape": list(t.shape), "data_offsets": [offset, offset + n]}
         offset += n
     raw = json.dumps(header).encode()
     raw += b" " * (-(8 + len(raw)) % 8)
@@ -6274,7 +6466,47 @@ def write_safetensors(path: Path, tensors: dict) -> None:
         f.write(len(raw).to_bytes(8, "little"))
         f.write(raw)
         for t in tensors.values():
-            f.write(t.detach().float().cpu().contiguous().numpy().tobytes())
+            f.write(t.detach().to(tdtype).cpu().contiguous().numpy().tobytes())
+
+
+def write_llama_checkpoint(d: Path, model) -> dict:
+    """The Llama-2-7B tower ``model`` written into ``d`` as Llama-2-7b-hf's
+    files hold it: float16 safetensors in LLAMA2_SHARDS shards under the
+    hub's names (``model.`` before each, and ``lm_head.weight``, which the
+    port drops, here a copy of the embedding) with
+    ``model.safetensors.index.json``. Fails without room for them on the
+    disk. Returns the seconds, the bytes and LLAMA2_DIGEST_KEY's float16
+    bytes' SHA-256."""
+    import hashlib
+    import os
+
+    import torch
+
+    tensors = {f"model.{k}": v for k, v in model.state_dict().items()}
+    tensors["lm_head.weight"] = tensors["model.embed_tokens.weight"]
+    nbytes = sum(t.numel() * 2 for t in tensors.values())
+    stat = os.statvfs(d)
+    if stat.f_bavail * stat.f_frsize < 1.2 * nbytes:
+        fail(f"llama2 checkpoint: {stat.f_bavail * stat.f_frsize / 2**30:.1f} GiB free under {d}, "
+             f"{nbytes / 2**30:.1f} GiB needed")
+    names, shards, size = list(tensors), [[]], 0
+    for name in names:
+        if size >= nbytes / LLAMA2_SHARDS * len(shards) and len(shards) < LLAMA2_SHARDS:
+            shards.append([])
+        shards[-1].append(name)
+        size += tensors[name].numel() * 2
+    t0 = time.perf_counter()
+    weight_map = {}
+    for i, shard in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        write_safetensors(d / fname, {n: tensors[n] for n in shard}, dtype="F16")
+        weight_map.update({n: fname for n in shard})
+    (d / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": nbytes}, "weight_map": weight_map}))
+    seconds = time.perf_counter() - t0
+    digest = hashlib.sha256(tensors[LLAMA2_DIGEST_KEY].detach().to(torch.float16).cpu()
+                            .numpy().tobytes()).hexdigest()
+    return {"write_seconds": seconds, "bytes": nbytes, "shards": len(shards), "digest": digest}
 
 
 def write_hf_files(tmp: Path) -> dict:
@@ -6509,19 +6741,114 @@ def bert_train_phase(dev, card, tmp: Path):
     return launches
 
 
-def hf_phase(dev, card, tmp: Path, halves) -> list:
-    """``hf_towers``, ``llama2_serve``, ``bert_serve``, ``bert_train``.
-    Returns the launches of the serving and training runs."""
+def llama2_train_phase(dev, card, tmp: Path, written: dict):
+    """``train_net.main`` on LLAMA2_CONFIG (the settings above LLAMA2_SHARDS),
+    its tower read from ``tmp/llama2`` as ``write_llama_checkpoint`` wrote
+    it (``written``), then those files removed. Gates: the tower is the
+    port's ``Llama2`` with the written weights (LLAMA2_DIGEST_KEY's SHA-256)
+    and encoded the prompts (its cache holds the name vocabulary), the
+    trained model launches ``step_launches`` (L_D_STEP_LAUNCHES) a step and
+    exactly that 20 times, every loss finite, the last step's gradients
+    finite and present but for what its prompt leaves unread
+    (``l_d_unused`` under a name prompt). Logs s/step (median of the steps
+    after the first, spread), host syncs a step, the data wait, peak memory
+    and the tower's resident GiB apart from the step's, the load and
+    checkpoint seconds. Returns the launches."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ape_tpu_torch.config import LazyConfig
+    from ape_tpu_torch.ops import _build
+    from ape_tpu_torch.tools import train_net
+
+    cfg = LazyConfig.load(str(ROOT / LLAMA2_CONFIG))
+    groups = len(cfg.dataloader.train.groups)
+    out = tmp / "llama2_train"
+    argv = ["--config-file", str(ROOT / LLAMA2_CONFIG), f"train.output_dir={out}",
+            "train.fast_dev_run.enabled=True", "train.checkpoint_period=100000",
+            f"train.iter_size={LLAMA2_ITER_SIZE}", "dataloader.tests=[]",
+            "train.text_tower=True", "train.sync_debug=True",
+            f"language.model_name_or_path={tmp / 'llama2'}",
+            *[f"dataloader.train.groups.{i}.batch_size={LLAMA2_TRAIN_BATCH}"
+              for i in range(groups)]]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before_gib = torch.cuda.memory_allocated(dev) / 2**30
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        summary = train_net.main(argv)
+    finally:
+        for f in (tmp / "llama2").glob("model*.safetensors*"):
+            f.unlink()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    rows = _tn_metrics(out)
+    steps = summary["max_iter"]
+    model, lang = summary["model"], summary["trainer"].text_fn.lang
+    per_step = step_launches(model)
+    want = {k: steps * per_step.get(k, 0) for k in launches}
+    if per_step != L_D_STEP_LAUNCHES or launches != want or steps != FAST_DEV_RUN_STEPS:
+        fail(f"llama2_train: launches {launches} over {steps} steps, expected {want} "
+             f"({per_step} a step, L_D's {L_D_STEP_LAUNCHES})")
+    losses_ok = all(np.isfinite(v) for r in rows for k, v in r.items() if "loss" in k)
+    if len(rows) != steps or not losses_ok:
+        fail(f"llama2_train: {len(rows)} rows, total losses {[r['total_loss'] for r in rows]}")
+    key = LLAMA2_DIGEST_KEY[len("model."):]
+    digest = hashlib.sha256(lang.model.get_parameter(key).detach().to(torch.float16).cpu()
+                            .numpy().tobytes()).hexdigest()
+    if type(lang).__name__ != "Llama2" or not lang._cache or digest != written["digest"]:
+        fail(f"llama2_train: the prompts were not encoded by the written Llama-2 tower "
+             f"({type(lang).__name__}, cache {len(lang._cache)}, digest {digest})")
+    last_prompt = list(cfg.train.dataset_prompts)[int(rows[-1]["dataset_id"])]
+    unread = l_d_unused(model) if last_prompt == "name" else frozenset()
+    no_grad = [n for n, p in model.named_parameters()
+               if p.requires_grad and ((p.grad is None) != (n in unread) or (
+                   p.grad is not None and not bool(torch.isfinite(p.grad).all())))]
+    if no_grad:
+        fail(f"llama2_train: the last step's missing, unexpected or non-finite gradients "
+             f"{no_grad[:10]}")
+    tower_gib = sum(t.numel() * t.element_size() for t in lang.model.state_dict().values()) / 2**30
+    step_s = [r["time"] for r in rows]
+    log(phase="llama2_train", config=LLAMA2_CONFIG, steps=steps, batch=LLAMA2_TRAIN_BATCH,
+        iter_size=LLAMA2_ITER_SIZE, groups_drawn=[int(r["dataset_id"]) for r in rows],
+        prompts=len(lang._cache), **_median_spread(step_s[1:]), seconds_per_step=step_s,
+        data_seconds_per_step=[r["data_time"] for r in rows],
+        host_syncs_per_step=[r.get("host_syncs") for r in rows],
+        launches_per_step=per_step, total_loss=[r["total_loss"] for r in rows],
+        max_memory_allocated_gib=peak_gib, allocated_before_gib=before_gib,
+        tower_resident_gib=tower_gib, step_peak_beside_tower_gib=peak_gib - tower_gib - before_gib,
+        checkpoint=written, load_seconds=summary["load_seconds"],
+        checkpoint_seconds=summary["checkpoint_seconds"], seconds=seconds, card=card)
+    del summary, model, lang
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hf_phase(dev, card, tmp: Path, halves) -> tuple:
+    """``hf_towers``, ``llama2_serve``, the Llama-2 tower's weights written
+    into ``tmp/llama2`` (``write_llama_checkpoint``), ``bert_serve``,
+    ``bert_train``. Returns the launches of the serving and training runs
+    and the written checkpoint's record."""
     import torch
 
     t0 = time.perf_counter()
     towers = hf_towers_phase(dev, card, tmp, halves)
-    runs = [llama2_serve_phase(dev, card, towers.pop("llama2"))]
+    llama = towers.pop("llama2")
+    runs = [llama2_serve_phase(dev, card, llama)]
+    written = write_llama_checkpoint(tmp / "llama2", llama.model)
+    log(phase="llama2_checkpoint", **written, card=card)
+    del llama
     torch.cuda.empty_cache()
     runs.append(bert_serve_phase(dev, card, towers.pop("bert")))
     runs.append(bert_train_phase(dev, card, tmp))
     log(phase="hf_done", seconds=time.perf_counter() - t0)
-    return runs
+    return runs, written
 
 
 def race_phase(dev, card):
@@ -6776,6 +7103,7 @@ CPU_HALVES = {
        for tree, depth in VIT_F32},
     "vitl_train_f32": lambda tmp: f32_step_cpu(_vitl_train_f32_setup),
     "hf_towers": hf_towers_cpu,
+    "vitg_train_f32": lambda tmp: f32_step_cpu(_vitg_train_f32_setup),
 }
 
 
@@ -6873,7 +7201,14 @@ def main():
     default_runs.append(vitl_train_phase(dev, card))
     default_runs.append(vitl_train_f32_phase(dev, halves))
     log(phase="vit_done", seconds=time.perf_counter() - t0)
-    default_runs += hf_phase(dev, card, halves_dir, halves)
+    hf_runs, llama_written = hf_phase(dev, card, halves_dir, halves)
+    default_runs += hf_runs
+    # the ViT-g and Llama-2 recipes' training
+    t0 = time.perf_counter()
+    default_runs.append(vitg_train_phase(dev, card))
+    default_runs.append(vitg_train_f32_phase(dev, halves, card))
+    default_runs.append(llama2_train_phase(dev, card, halves_dir, llama_written))
+    log(phase="recipes_done", seconds=time.perf_counter() - t0)
     train_net_runs, final_checkpoint = train_net_phase(dev, card)
     default_runs += train_net_runs
     default_runs.append(demo_phase(dev, card, final_checkpoint))

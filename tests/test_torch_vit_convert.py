@@ -5,7 +5,10 @@
   backbone at full size, ViT-g and ViT-E cut to 4 blocks (their full size
   is 4-17 GB of numpy), each taken strictly by the port's build function;
 * the optimizer's layer ids and decay sets for 40 and 64 blocks equal
-  JAX's ``lr_multiplier_tree`` and the decay mask of its ``build_optimizer``.
+  JAX's ``lr_multiplier_tree`` and the decay mask of its ``build_optimizer``;
+  the DETA ViT-g recipe's whole model at full size (its names from
+  ``jax.eval_shape`` and the meta device) has JAX's multipliers at 40
+  blocks and the recipe's decay, and its optimizer's groups carry them.
 """
 
 import os
@@ -118,3 +121,63 @@ def test_optimizer_layer_ids_and_decay_for_deep_trees(tree, depth):
     assert got_decay == want_decay
     assert f"backbone.net.blocks.{depth - 1}.attn.rel_pos_h" in got_decay
     assert got_mult["backbone.net.blocks.0.attn.qkv.weight"] == pytest.approx(0.8 ** depth)
+
+
+VITG_DETA_CONFIG = "configs/LVIS_Detection/deformable_deta/deformable_deta_vitg_eva_lsj1024_cp_24ep.py"
+
+
+def _constant(value: float, shape):
+    """An f32 array of ``shape`` holding ``value`` everywhere, in one element
+    of memory (every stride 0)."""
+    return np.lib.stride_tricks.as_strided(np.full(1, value, np.float32), shape, (0,) * len(shape))
+
+
+def test_vitg_deta_recipe_lr_multipliers_match_jax_at_full_size():
+    """The DETA ViT-g recipe's whole model at full size (40 blocks of width
+    1408, 1203 learned classes), its names from ``jax.eval_shape`` and from
+    the port's build on the meta device, so that none of its 0.78 B
+    parameters is allocated: the port's ``lr_multiplier_tree`` equals JAX's
+    at the config's ``vit_num_layers=40`` and decay 0.8, by name through
+    the converter, and ``build_optimizer(**cfg.optimizer)`` gives each
+    parameter base_lr times its multiplier (before the warmup's factor)."""
+    from ape_tpu.engine.optimizer import lr_multiplier_tree as j_lr_multiplier_tree
+    from ape_tpu_torch.config import LazyConfig as PortLazyConfig
+    from ape_tpu_torch.engine.optimizer import build_optimizer
+    from ape_tpu_torch.model_zoo import build_model
+
+    cfg = LazyConfig.load(os.path.join(ROOT, VITG_DETA_CONFIG))
+    opt = dict(cfg.optimizer)
+    assert (opt["vit_num_layers"], opt["layer_decay"]) == (40, 0.8)
+    jm = instantiate(cfg.model)
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 256, 256, 3)), jnp.asarray([[256, 256]]),
+        jnp.zeros((1, 4, 1024)), jnp.ones((1, 4), bool)))["params"]
+    mults = flatten(j_lr_multiplier_tree(shapes, opt["vit_num_layers"], opt["layer_decay"]))
+    shapes = {k: tuple(v.shape) for k, v in flatten(shapes).items()}
+    # the backbone leaf by leaf (its converted views are never copied), the
+    # rest (50 M parameters) through the whole converter
+    want = {}
+    for key, shape in shapes.items():
+        if key.startswith("backbone/"):
+            name, value = convert._convert_one(key, _constant(float(mults[key]), shape), (), 0)
+            want[name] = float(value.flat[0])
+    rest = state_dict_from_jax({k: _constant(float(mults[k]), s) for k, s in shapes.items()
+                                if not k.startswith("backbone/")})
+    want.update({k: float(v.flatten()[0]) for k, v in rest.items()})
+
+    port_cfg = PortLazyConfig.load(os.path.join(ROOT, VITG_DETA_CONFIG))
+    model = build_model(port_cfg, device="meta")
+    assert len(model.backbone.net.blocks) == 40 and model.num_learned_classes == 1203
+    got = lr_multiplier_tree(model, opt["vit_num_layers"], opt["layer_decay"])
+    assert sorted(got) == sorted(want)
+    for name, m in got.items():
+        assert m == pytest.approx(want[name], rel=1e-6), name
+    assert round(sum(p.numel() for p in model.parameters()) / 1e9, 2) == 0.78
+    assert got["backbone.net.blocks.0.attn.qkv.weight"] == pytest.approx(0.8 ** 40)
+    assert got["backbone.net.patch_embed.proj.weight"] == pytest.approx(0.8 ** 41)
+    assert got["backbone.net.blocks.39.attn.rel_pos_h"] == pytest.approx(0.8)
+    assert got["class_embedding"] == 1.0
+    optimizer, _ = build_optimizer(model, **{k: v for k, v in opt.items() if k != "grad_clip"})
+    lr = {id(p): g["initial_lr"] for g in optimizer.param_groups for p in g["params"]}
+    for name, p in model.named_parameters():
+        assert lr[id(p)] == pytest.approx(opt["base_lr"] * want[name], rel=1e-6), name

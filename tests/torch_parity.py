@@ -142,6 +142,18 @@ L_VIT = dict(subln=True, inner_attn_ln=False, swiglu_subln=True, packed_swiglu=F
 # last global, windows of 3 tokens (the 16^2 grid padded to 18^2).
 VITDET_VIT = dict(rope=False, use_rel_pos=True, mlp_type="gelu", packed_swiglu=False, depth=3,
                   window_size=3, window_block_indexes=(0, 1), pretrain_img_size=224)
+# The tiny EVA-01 ViT-g trees, at ViT-g's head width 88 (2 heads over 176),
+# every fourth block global: three windows of 3 tokens (the 16^2 grid padded
+# to 18^2), then a global block. The DETA recipe's
+# (configs/LVIS_Detection/deformable_deta/deformable_deta_vitg_eva_lsj1024_cp_24ep.py:
+# relative positions, its inline tree's GELU MLP at JAX's default ratio, no
+# drop path) and EVA-01-CLIP-g's (configs/common/backbone/vitg_eva01_clip_1536.py:
+# no relative positions, the GELU MLP at 6144/1408, drop path 0.6).
+VITG_DIMS = dict(DIMS, vit_embed=176, vit_heads=2)
+VITG_DETA_VIT = dict(VITDET_VIT, depth=4, window_block_indexes=(0, 1, 2))
+VITG_CLIP_VIT = dict(VITG_DETA_VIT, use_rel_pos=False, mlp_ratio=6144 / 1408, drop_path_rate=0.6)
+# the DETA recipe's closed vocabulary: LVIS's 1203 classes, learned
+VITG_LEARNED_CLASSES = 1203
 
 
 def jax_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, vit=None, fusion=None,
@@ -163,10 +175,11 @@ def jax_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, vit=None, f
 
     _, levels = pyramid_features(scale_factors)
     vit = {"depth": d["vit_depth"], "window_size": d["win"], "window_block_indexes": (0,),
-           "pretrain_img_size": 224, "packed_swiglu": True, **(vit or {})}
+           "pretrain_img_size": 224, "packed_swiglu": True, "mlp_ratio": 4 * 2 / 3,
+           **(vit or {})}
     backbone = SimpleFeaturePyramid(
         net=EVAViT(img_size=d["img"], patch_size=16, embed_dim=d["vit_embed"],
-                   num_heads=d["vit_heads"], mlp_ratio=4 * 2 / 3, pt_hw_seq_len=16, **vit),
+                   num_heads=d["vit_heads"], pt_hw_seq_len=16, **vit),
         out_channels=d["embed"], scale_factors=scale_factors)
     transformer = DeformableDetrTransformer(
         encoder=DeformableTransformerEncoder(
@@ -199,10 +212,10 @@ def torch_tiny(d=DIMS, window_radius=4, scale_factors=PROTOCOL_SCALES, vit=None,
 
     sfp, levels = pyramid_features(scale_factors)
     vit = {"depth": d["vit_depth"], "window_size": d["win"], "window_block_indexes": (0,),
-           "pretrain_img_size": 224, **(vit or {})}
+           "pretrain_img_size": 224, "mlp_ratio": 4 * 2 / 3, **(vit or {})}
     backbone = SimpleFeaturePyramid(
         EVAViT(img_size=d["img"], patch_size=16, embed_dim=d["vit_embed"],
-               num_heads=d["vit_heads"], mlp_ratio=4 * 2 / 3, pt_hw_seq_len=16, **vit),
+               num_heads=d["vit_heads"], pt_hw_seq_len=16, **vit),
         out_channels=d["embed"], scale_factors=scale_factors)
     transformer = DeformableDetrTransformer(
         DeformableTransformerEncoder(d["embed"], d["heads"], d["ffn"], d["layers"], 5,
@@ -270,6 +283,24 @@ def jax_tiny_vitdet(d=DIMS, **kw):
 def torch_tiny_vitdet(d=DIMS, **kw):
     """The port's tiny ViTDet-L APE-DETA."""
     return torch_tiny(d, 4, MASKED_SCALES, vit=VITDET_VIT, mask_on=True, **kw)
+
+
+def jax_tiny_vitg(deta: bool, d=VITG_DIMS, **kw):
+    """ape_tpu APEDeta as a tiny ViT-g on the 4-scale pyramid: with ``deta``
+    the DETA recipe's (no masks, VITG_LEARNED_CLASSES learned classes),
+    else EVA-01-CLIP-g's (masked, open vocabulary)."""
+    if deta:
+        return jax_tiny(d, 4, MASKED_SCALES, vit=VITG_DETA_VIT, mask_on=False,
+                        num_learned_classes=VITG_LEARNED_CLASSES, **kw)
+    return jax_tiny(d, 4, MASKED_SCALES, vit=VITG_CLIP_VIT, mask_on=True, **kw)
+
+
+def torch_tiny_vitg(deta: bool, d=VITG_DIMS, **kw):
+    """The port's tiny ViT-g of the same recipe."""
+    if deta:
+        return torch_tiny(d, 4, MASKED_SCALES, vit=VITG_DETA_VIT, mask_on=False,
+                          num_learned_classes=VITG_LEARNED_CLASSES, **kw)
+    return torch_tiny(d, 4, MASKED_SCALES, vit=VITG_CLIP_VIT, mask_on=True, **kw)
 
 
 def tiny_inputs(d=DIMS, seed=3, h=None, w=None):
