@@ -39,33 +39,46 @@ it, for:
 * Netpbm (``data.netpbm``): P1-P6 plain and raw at any maxval, Pf;
 * TGA (``data.tga``): colour-mapped, true colour and gray, raw and RLE;
 * ICO (``data.ico``): the entry PIL picks, PNG or DIB with its mask;
+* QOI (``data.qoi``), PCX and DCX's first page (``data.pcx``), SGI
+  (``data.sgi``), Sun raster (``data.sun``), PIL's IM (``data.im``), MSP
+  (``data.msp``) and XBM (``data.xbm``): every mode PIL opens them in, with
+  PIL's decoders' quirks;
 * ``.npy``: a uint8 (H, W) or (H, W, 3|4) array.
 
 Every container but JPEG and WebP is decoded first to the samples and mode
 ``Image.open`` holds (``image_of``), then converted as PIL's
 ``convert("RGB")`` converts that mode (``convert_rgb``).
 
-The format is read off the file's first bytes, as ``Image.open`` asks its
-plugins in turn (``sniff``, ``PIL_PLUGINS``): a PNG named ``.jpg`` reads as
-PNG, a WebP named ``.bmp`` as WebP, and TGA, which has no magic number, only
-where no plugin PIL tries first keeps the file.
+The format is read off the file's content, as ``Image.open`` asks its
+plugins in turn (``pil_format``, ``sniff``, ``PIL_PLUGINS``: the accept
+tests and, where ``Image.open`` passes a file on, the checks of each
+plugin's _open, IM's, IMT's, IPTC's, PCD's and SPIDER's among them, which
+have no accept test): a PNG named ``.jpg`` reads as PNG, a WebP named
+``.bmp`` as WebP, and TGA, which has no magic number, only where no plugin
+PIL tries first keeps the file.
 
 ``read_image`` returns None with a warning, as JAX's reader does on PIL's
 exception (its mapper then drops the record), for a file that is corrupt in
 a way PIL raises on (a truncated stream, a bad CRC, an empty file, a GIF
 whose LZW data breaks, a WebP shorter than its RIFF size, a TIFF strip cut
-short) and for one PIL refuses too (12-bit, 2-component, hierarchical,
-lossless arithmetic-coded JPEG, fractional sampling ratios, a height left
-to a DNL marker, lossless JPEG that needs a colour conversion, an
-arithmetic-coded scan past PIL's 64 KiB read block; a PNG of an undefined
-color type and depth; a BMP of an unknown depth, mask set or compression;
-a RIFF WebP whose first chunk PIL does not take; a TIFF whose key is not in
-``OPEN_INFO`` or whose compression code PIL does not know; a P7 PAM or PF
-file, which PIL 12.1 opens no plugin for). A file PIL reads and the port
-does not (AVIF, JPEG 2000, a CIELab TIFF, a TIFF under zstd, WebP,
-old-style JPEG, ThunderScan, SGILog or RLEW, and any other format) raises
-``ValueError`` naming it, so that no record JAX trains on is dropped
-quietly.
+short, a run past a PCX line or an SGI row) and for one PIL refuses too
+(12-bit, 2-component, hierarchical, lossless arithmetic-coded JPEG,
+fractional sampling ratios, a height left to a DNL marker, lossless JPEG
+that needs a colour conversion, an arithmetic-coded scan past PIL's 64 KiB
+read block; a PNG of an undefined color type and depth; a BMP of an
+unknown depth, mask set or compression; a RIFF WebP whose first chunk PIL
+does not take; a TIFF whose key is not in ``OPEN_INFO`` or whose
+compression code PIL does not know; a P7 PAM or PF file, which PIL 12.1
+opens no plugin for; a file whose magic number a plugin takes and whose
+header it then refuses, when no other plugin opens it). So it does for the
+files PIL opens and cannot load (``STUBS``): BUFR, GRIB and HDF5 (stubs
+without a handler), MPEG (a header alone) and WMF or EMF (PIL has no
+loader for them off Windows); and for EPS where no Ghostscript is installed
+(``shutil.which("gs")``). A file PIL reads and the port does not (AVIF,
+JPEG 2000, a CIELab TIFF, a TIFF under zstd, WebP, old-style JPEG,
+ThunderScan, SGILog or RLEW, an IM image of PIL's bit decoder, EPS where
+Ghostscript is installed, and any other format) raises ``ValueError``
+naming it, so that no record JAX trains on is dropped quietly.
 
 ``read_rgb`` is the same read raising ``CorruptImage`` where ``read_image``
 returns None (the panoptic mapper's ``convert("RGB")`` of an id PNG);
@@ -83,18 +96,22 @@ format the port reads (``_ENCODERS``): PIL's bytes for JPEG (``.jpg``,
 ``.apng``: ``png.encode_png``), BMP and DIB (``encode_bmp``,
 ``encode_dib``), GIF (``gif.encode_gif``), ICO (``ico.encode_ico``), TIFF
 (``encode_tiff``), Netpbm (``.ppm``, ``.pgm``, ``.pbm``, ``.pnm``,
-``.pfm``: ``encode_netpbm``, P5 or P6 whatever the name) and TGA (``.tga``,
-``.icb``, ``.vda``, ``.vst``: ``encode_tga``); a lossy WebP file for
+``.pfm``: ``encode_netpbm``, P5 or P6 whatever the name), TGA (``.tga``,
+``.icb``, ``.vda``, ``.vst``: ``encode_tga``), QOI (``qoi.encode_qoi``),
+PCX (``pcx.encode_pcx``), SGI (``.sgi``, ``.rgb``, ``.rgba``, ``.bw``:
+``sgi.encode_sgi``) and IM (``im.encode_im``); a lossy WebP file for
 ``.webp`` (``webp.encode_webp``, libwebp's settings under PIL, not its
-bytes). Other extensions (``.jp2``, ``.avif``, ``.qoi``, ``.pcx``, ...,
-which PIL writes and the port does not read) raise ``ValueError`` naming
-them.
+bytes). ``.ras``, ``.dcx``, ``.msp`` and ``.xbm``, which the port reads and
+PIL cannot write from a uint8 image, raise ``ValueError`` with PIL's
+reason; other extensions (``.jp2``, ``.avif``, ...) raise ``ValueError``
+naming them.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import shutil
 import struct
 import zlib
 from typing import Optional
@@ -149,46 +166,93 @@ def _gbr_claims(d: bytes) -> bool:
     return _i32(d, 4, ">") == 1 or d[20:24] == b"GIMP"
 
 
-# the plugins Image.open tries, in its order (Image.preinit's, then the rest
-# of Image.init's ID list up to TGA, the one without a magic number), with
-# their _accept tests: the port's containers by name, the others for the
-# error that names them
+def _port(module: str, name: str = "claims"):
+    """A plugin test that lives in one of the port's modules, imported at
+    first use (the modules import this one)."""
+    def test(data: bytes):
+        import importlib
+
+        return getattr(importlib.import_module(f"ape_tpu_torch.data.{module}"), name)(data)
+    return test
+
+
+def _tiff_prefix(d: bytes) -> bool:
+    return d.startswith((b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
+                         b"MM\x00\x2b", b"II\x2b\x00"))
+
+
+def _gbr_short(d: bytes) -> bool:
+    """Whether a file PIL opens as a GIMP brush holds less than its width x
+    height x depth bytes after its header (PIL's load then raises "not
+    enough image data"): a version 2 header shorter than 28 bytes reads its
+    comment to the end of the file."""
+    size, version, width, height, depth = struct.unpack_from(">5I", d)
+    start = size if version == 1 or size >= 28 else len(d)
+    return len(d) - min(start, len(d)) < width * height * depth
+
+
+# the plugins Image.open tries, in its order (Image.preinit's six, then the
+# rest of Image.ID after Image.init): (the format PIL names, the port's
+# container or None, the test). A test answers False where the plugin's
+# _accept refuses the file (or, without an _accept, its _open passes it
+# on), a reason where its _accept takes the file and its _open raises a
+# SyntaxError (Image.open then asks the next plugin), True where the plugin
+# opens the file; it raises CorruptImage where Image.open raises. The
+# plugins the port does not read are there for their place in the order
+# and for the error that names them.
 PIL_PLUGINS = (
-    ("bmp", lambda d: d.startswith(b"BM")),
-    ("dib", lambda d: _i32(d) in (12, 40, 52, 56, 64, 108, 124)),
-    ("gif", lambda d: d.startswith((b"GIF87a", b"GIF89a"))),
-    ("jpeg", lambda d: d.startswith(JPEG_MAGIC)),
-    ("netpbm", lambda d: len(d) >= 2 and d.startswith(b"P") and d[1] in b"0123456fy"),
-    ("png", lambda d: d.startswith(PNG_MAGIC)),
-    ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1")),
-    ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2"))),
-    ("BUFR", lambda d: d.startswith((b"BUFR", b"ZCZC"))),
-    ("CUR", lambda d: _cur_claims(d)),
-    ("PCX", lambda d: len(d) >= 2 and d[0] == 10 and d[1] in (0, 2, 3, 5)),
-    ("DCX", lambda d: _i32(d) == 987654321),
-    ("DDS", lambda d: d.startswith(b"DDS ")),
-    ("EPS", lambda d: d.startswith(b"%!PS") or _i32(d) == 0xC6D3D0C5),
-    ("FITS", lambda d: d.startswith(b"SIMPLE")),
-    ("FLI", lambda d: len(d) >= 16 and _i16(d, 4) in (0xAF11, 0xAF12) and _i16(d, 14) in (0, 3)),
-    ("FTEX", lambda d: d.startswith(b"FTEX")),
-    ("GBR", lambda d: _gbr_claims(d)),
-    ("GRIB", lambda d: len(d) >= 8 and d.startswith(b"GRIB") and d[7] == 1),
-    ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n")),
-    ("JPEG 2000", lambda d: d.startswith((b"\xff\x4f\xff\x51",
-                                          b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"))),
-    ("ICNS", lambda d: d.startswith(b"icns")),
-    ("ico", lambda d: d.startswith(b"\0\0\1\0")),
-    ("McIdas", lambda d: d.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04")),
-    ("MPEG", lambda d: d.startswith(b"\x00\x00\x01\xb3")),
-    ("tiff", lambda d: d.startswith((b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00",
-                                     b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00"))),
-    ("MSP", lambda d: d.startswith((b"DanM", b"LinS"))),
-    ("PIXAR", lambda d: d.startswith(b"\200\350\000\000")),
-    ("PSD", lambda d: d.startswith(b"8BPS")),
-    ("QOI", lambda d: d.startswith(b"qoif")),
-    ("SGI", lambda d: _i16(d, 0, ">") == 474),
-    ("SUN", lambda d: _i32(d, 0, ">") == 0x59A66A95),
+    ("BMP", "bmp", lambda d: d.startswith(b"BM")),
+    ("DIB", "dib", lambda d: _i32(d) in (12, 40, 52, 56, 64, 108, 124)),
+    ("GIF", "gif", lambda d: d.startswith((b"GIF87a", b"GIF89a"))),
+    ("JPEG", "jpeg", lambda d: d.startswith(JPEG_MAGIC)),
+    ("PPM", "netpbm", lambda d: len(d) >= 2 and d.startswith(b"P") and d[1] in b"0123456fy"),
+    ("PNG", "png", lambda d: d.startswith(PNG_MAGIC)),
+    ("AVIF", None, lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1",
+                                                                b"msf1")),
+    ("BLP", None, lambda d: d.startswith((b"BLP1", b"BLP2"))),
+    ("BUFR", None, lambda d: d.startswith((b"BUFR", b"ZCZC"))),
+    ("CUR", None, lambda d: _cur_claims(d)),
+    ("PCX", "pcx", _port("pcx")),
+    ("DCX", "dcx", _port("pcx", "dcx_claims")),
+    ("DDS", None, lambda d: d.startswith(b"DDS ")),
+    ("EPS", None, lambda d: d.startswith(b"%!PS") or _i32(d) == 0xC6D3D0C5),
+    ("FITS", None, lambda d: d.startswith(b"SIMPLE")),
+    ("FLI", None, lambda d: len(d) >= 16 and _i16(d, 4) in (0xAF11, 0xAF12)
+     and _i16(d, 14) in (0, 3)),
+    ("FTEX", None, lambda d: d.startswith(b"FTEX")),
+    ("GBR", None, lambda d: _gbr_claims(d)),
+    ("GRIB", None, lambda d: len(d) >= 8 and d.startswith(b"GRIB") and d[7] == 1),
+    ("HDF5", None, lambda d: d.startswith(b"\x89HDF\r\n\x1a\n")),
+    ("JPEG2000", None, lambda d: d.startswith((b"\xff\x4f\xff\x51",
+                                               b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"))),
+    ("ICNS", None, lambda d: d.startswith(b"icns")),
+    ("ICO", "ico", lambda d: d.startswith(b"\0\0\1\0")),
+    ("IM", "im", _port("im")),
+    ("IMT", None, _port("pil_plugins", "imt_claims")),
+    ("IPTC", None, _port("pil_plugins", "iptc_claims")),
+    ("MCIDAS", None, lambda d: d.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04")),
+    ("MPEG", None, _port("pil_plugins", "mpeg_claims")),
+    ("TIFF", "tiff", _tiff_prefix),
+    ("MSP", "msp", _port("msp")),
+    ("PCD", None, _port("pil_plugins", "pcd_claims")),
+    ("PIXAR", None, lambda d: d.startswith(b"\200\350\000\000")),
+    ("PSD", None, lambda d: d.startswith(b"8BPS")),
+    ("QOI", "qoi", _port("qoi")),
+    ("SGI", "sgi", _port("sgi")),
+    ("SPIDER", None, _port("pil_plugins", "spider_claims")),
+    ("SUN", "sun", _port("sun")),
+    ("TGA", "tga", _port("tga", "accept")),
+    ("WEBP", "webp", lambda d: d.startswith(b"RIFF") and d[8:12] == b"WEBP"
+     and d[12:16] in (b"VP8 ", b"VP8X", b"VP8L")),
+    ("WMF", None, _port("pil_plugins", "wmf_claims")),
+    ("XBM", "xbm", _port("xbm")),
+    ("XPM", None, _port("pil_plugins", "xpm_claims")),
+    ("XVThumb", None, _port("pil_plugins", "xvthumb_claims")),
 )
+_KINDS = {fmt: kind for fmt, kind, _ in PIL_PLUGINS}
+# the formats PIL opens as an image it has no loader for: convert("RGB")
+# raises (a stub without its handler; MPEG's header alone; WMF off Windows)
+STUBS = ("BUFR", "GRIB", "HDF5", "MPEG", "WMF")
 MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3  # PIL's Image.MAX_IMAGE_PIXELS
 
 
@@ -328,23 +392,25 @@ def read_label_map(file_name: str) -> np.ndarray:
     """A label map as ``np.asarray(PIL.Image.open(file_name))`` gives it
     (``image_of``'s samples): palette images give their indices (not the
     colours), gray its values (H, W) uint8, 1-bit gray bool (PIL's "1"),
-    16-bit gray uint16 ("I;16", big-endian for a TIFF's "I;16B"), 32-bit
-    integers int32 ("I"), floats float32 ("F"); color (H, W, C). A JPEG,
-    WebP or ``.npy`` file, and a corrupt one, raise."""
+    16-bit gray uint16 ("I;16", big-endian for a TIFF's or an IM's
+    "I;16B"), 32-bit integers int32 ("I"), floats float32 ("F"); color
+    (H, W, C). A JPEG, WebP or ``.npy`` file, and a corrupt one, raise."""
     with open(file_name, "rb") as f:
         data = f.read()
     kind = sniff(data)
     if kind is None or kind in ("jpeg", "webp"):
         raise ValueError(f"{file_name}: the port reads label maps from PNG, BMP, DIB, GIF, "
-                         "TIFF, Netpbm, TGA and ICO files only")
+                         "TIFF, Netpbm, TGA, ICO, QOI, PCX, DCX, SGI, Sun raster, IM, MSP and "
+                         "XBM files only")
     return image_of(data, kind)[0]
 
 
 def read_rgb(file_name: str) -> np.ndarray:
     """RGB uint8 (H, W, 3) of a file of a format the port reads
-    (module docstring), raising ``CorruptImage`` on a corrupt file and on
-    one PIL refuses, as PIL's ``Image.open(file_name).convert("RGB")``
-    raises, and ValueError for a format PIL reads and the port does not."""
+    (module docstring), raising ``CorruptImage`` where PIL's
+    ``Image.open(file_name).convert("RGB")`` raises (a corrupt file, one
+    PIL refuses, one PIL opens and cannot load), and ValueError for a
+    format PIL reads and the port does not."""
     if str(file_name).endswith(".npy"):
         try:
             arr = np.load(file_name)
@@ -358,38 +424,71 @@ def read_rgb(file_name: str) -> np.ndarray:
             arr[..., :1], 3, axis=2)
     with open(file_name, "rb") as f:
         data = f.read()
-    kind = sniff(data)
+    fmt, kind = _open_as(data)
     if kind is None:
         if not data:
             raise CorruptImage(f"{file_name}: an empty file")
-        raise ValueError(f"{file_name}: {_format_name(data)}, which PIL reads and the port does "
-                         "not yet (the port reads JPEG, PNG, BMP, DIB, GIF, WebP, TIFF, Netpbm, "
-                         "TGA, ICO and .npy images)")
+        if fmt in STUBS:
+            raise CorruptImage(f"PIL opens it as a {fmt} image and has no loader for it (cannot "
+                               "load this image)")
+        if fmt == "GBR" and _gbr_short(data):
+            raise CorruptImage("PIL opens it as a GBR image and finds not enough image data")
+        if fmt == "EPS":
+            if shutil.which("gs") is None:
+                raise CorruptImage("an EPS image, which PIL loads through Ghostscript, and no "
+                                   "Ghostscript is installed")
+            raise ValueError(f"{file_name}: an EPS image, which PIL rasterises through "
+                             "Ghostscript and the port does not")
+        raise ValueError(f"{file_name}: {_format_name(fmt, data)}, which PIL reads and the port "
+                         "does not yet (the port reads JPEG, PNG, BMP, DIB, GIF, WebP, TIFF, "
+                         "Netpbm, TGA, ICO, QOI, PCX, DCX, SGI, Sun raster, IM, MSP, XBM and "
+                         ".npy images)")
     return decode_rgb(data, kind)
+
+
+def pil_format(data: bytes) -> Optional[str]:
+    """The format ``Image.open`` opens ``data`` as (``Image.open(f).format``:
+    "JPEG", "PNG", "BUFR", "XVThumb", ...), asking ``PIL_PLUGINS`` in turn;
+    None where no plugin takes it. Raises ``CorruptImage`` where
+    ``Image.open`` raises: a plugin's _open fails on the file in a way PIL
+    does not pass over, or a plugin took the file by its magic number,
+    refused it, and no other plugin opens it."""
+    refused = None
+    for fmt, _, test in PIL_PLUGINS:
+        got = test(data)
+        if got is True:
+            return fmt
+        if got and refused is None:
+            refused = f"PIL's {fmt} plugin refuses it ({got}) and no other plugin opens it"
+    if refused:
+        raise CorruptImage(refused)
+    return None
+
+
+def _open_as(data: bytes):
+    """(``pil_format``'s answer, the port's container for it or None)."""
+    fmt = pil_format(data)
+    if fmt is not None:
+        return fmt, _KINDS[fmt]
+    if data[:2] in (b"P7", b"PF"):
+        return None, "netpbm"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return None, "webp"
+    return None, None
 
 
 def sniff(data: bytes) -> Optional[str]:
     """The container the port reads that PIL would open ``data`` as:
     "jpeg", "png", "bmp", "dib", "gif", "netpbm", "ico", "tiff", "tga",
-    "webp", or None. The plugins are asked in ``Image.open``'s order
-    (``PIL_PLUGINS``), so a file that another plugin claims first (a DIB, a
-    CUR, a PCX, ...) is not read as TGA, which has no magic number and comes
-    after them; P7 and PF Netpbm files, which no plugin of PIL 12.1 takes,
-    are "netpbm", whose decoder refuses them. A RIFF WebP file whose first chunk is not
-    VP8, VP8L or VP8X is no image to PIL: "webp" all the same, and its
-    decoder refuses it."""
-    for name, accepts in PIL_PLUGINS:
-        if accepts(data):
-            return name if name.islower() else None
-    if data[:2] in (b"P7", b"PF"):
-        return "netpbm"
-    from ape_tpu_torch.data.tga import accept as tga_accept
-
-    if tga_accept(data):
-        return "tga"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "webp"
-    return None
+    "webp", "qoi", "pcx", "dcx", "sgi", "sun", "im", "msp", "xbm", or None
+    (``pil_format``: the plugins are asked in ``Image.open``'s order, so a
+    file that another plugin claims first, a DIB, a CUR, an IM header, is
+    not read as TGA, which has no magic number and comes after them). P7 and
+    PF Netpbm files, which no plugin of PIL 12.1 takes, are "netpbm", whose
+    decoder refuses them; so is a RIFF WebP file whose first chunk is not
+    VP8, VP8L or VP8X, which is no image to PIL: "webp", and its decoder
+    refuses it. Raises ``CorruptImage`` where ``pil_format`` does."""
+    return _open_as(data)[1]
 
 
 def image_of(data: bytes, kind: str):
@@ -402,31 +501,29 @@ def image_of(data: bytes, kind: str):
 
         samples, palette = decode_gif(data)
         return samples, "L" if palette is None else "P", palette
-    if kind == "bmp":
-        from ape_tpu_torch.data.bmp import decode_bmp
-
-        return decode_bmp(data)
     if kind == "dib":
         from ape_tpu_torch.data.bmp import decode_bmp, dib_as_bmp
 
         return decode_bmp(dib_as_bmp(data))
-    if kind == "tiff":
-        from ape_tpu_torch.data.tiff import decode_tiff
-
-        return decode_tiff(data)
     if kind == "netpbm":
         from ape_tpu_torch.data.netpbm import decode_netpbm
 
         return decode_netpbm(data) + (None,)
-    if kind == "tga":
-        from ape_tpu_torch.data.tga import decode_tga
+    if kind not in _READERS:
+        raise ValueError(f"no sample reader for {kind}")
+    import importlib
 
-        return decode_tga(data)
-    if kind == "ico":
-        from ape_tpu_torch.data.ico import decode_ico
+    module, name = _READERS[kind]
+    return getattr(importlib.import_module(f"ape_tpu_torch.data.{module}"), name)(data)
 
-        return decode_ico(data)
-    raise ValueError(f"no sample reader for {kind}")
+
+# container -> (module, decoder of (samples, mode, palette))
+_READERS = {"bmp": ("bmp", "decode_bmp"), "tiff": ("tiff", "decode_tiff"),
+            "tga": ("tga", "decode_tga"), "ico": ("ico", "decode_ico"),
+            "qoi": ("qoi", "decode_qoi"), "pcx": ("pcx", "decode_pcx"),
+            "dcx": ("pcx", "decode_dcx"), "sgi": ("sgi", "decode_sgi"),
+            "sun": ("sun", "decode_sun"), "im": ("im", "decode_im"),
+            "msp": ("msp", "decode_msp"), "xbm": ("xbm", "decode_xbm")}
 
 
 def decode_rgb(data: bytes, kind: str) -> np.ndarray:
@@ -445,10 +542,10 @@ def decode_rgb(data: bytes, kind: str) -> np.ndarray:
 
 def convert_rgb(samples: np.ndarray, mode: str, palette) -> np.ndarray:
     """PIL's ``convert("RGB")`` of a mode's samples: "1" to 0 and 255, "L"
-    and "LA" repeated, "I;16", "I;16B" and "I" clipped to 0..255, "F"
-    clipped and truncated (f2l), "P" and "PA" looked up, "CMYK" through
-    ``cmyk2rgb``, alpha dropped; "LAB" goes through LittleCMS in PIL and
-    raises ``ValueError`` here."""
+    and "LA" repeated, "I;16", "I;16L", "I;16B" and "I" clipped to 0..255,
+    "F" clipped and truncated (f2l), "P" and "PA" looked up, "CMYK" through
+    ``cmyk2rgb``, "YCbCr" through ``ycbcr2rgb``, alpha dropped; "LAB" goes
+    through LittleCMS in PIL and raises ``ValueError`` here."""
     if mode in ("P", "PA"):
         return _palette_lookup(samples if mode == "P" else samples[..., 0], palette)
     if mode == "LAB":
@@ -456,6 +553,8 @@ def convert_rgb(samples: np.ndarray, mode: str, palette) -> np.ndarray:
                          "port does not carry")
     if mode == "CMYK":
         return cmyk_to_rgb(samples)
+    if mode == "YCbCr":
+        return ycbcr_to_rgb(samples)
     if mode in ("RGB", "RGBA"):
         return np.ascontiguousarray(samples[..., :3])
     if mode == "1":
@@ -465,7 +564,7 @@ def convert_rgb(samples: np.ndarray, mode: str, palette) -> np.ndarray:
     elif mode == "F":
         v = np.nan_to_num(samples.astype(np.float32), nan=0.0)
         gray = np.where(v <= 0, 0, np.where(v >= 255, 255, v)).astype(np.uint8)
-    elif mode in ("I;16", "I;16B", "I"):
+    elif mode in ("I;16", "I;16L", "I;16B", "I"):
         gray = np.clip(samples.astype(np.int64), 0, 255).astype(np.uint8)
     else:
         gray = samples
@@ -480,6 +579,25 @@ def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
     return np.clip(nk - (((tmp >> 8) + tmp) >> 8), 0, 255).astype(np.uint8)
 
 
+def _ycbcr_table(c: float) -> np.ndarray:
+    """One of ConvertYCbCr.c's tables: c * (i - 128) at 6 fraction bits, as
+    C's ``(int)(x + 0.5)`` rounds it."""
+    return np.trunc(c * 64 * (np.arange(256) - 128) + 0.5).astype(np.int32)
+
+
+_R_CR, _G_CB, _G_CR, _B_CB = (_ycbcr_table(c) for c in (1.402, -0.34414, -0.71414, 1.772))
+
+
+def ycbcr_to_rgb(ycc: np.ndarray) -> np.ndarray:
+    """PIL's ycbcr2rgb (ConvertYCbCr.c): fixed-point offsets from Cb and Cr
+    added to Y, each shifted down by 6 bits, clipped to 0..255."""
+    y = ycc[..., 0].astype(np.int32)
+    cb, cr = ycc[..., 1], ycc[..., 2]
+    rgb = np.stack([y + (_R_CR[cr] >> 6), y + ((_G_CB[cb] + _G_CR[cr]) >> 6),
+                    y + (_B_CB[cb] >> 6)], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
 def _palette_lookup(indices: np.ndarray, palette: np.ndarray) -> np.ndarray:
     """P -> RGB as PIL converts it: a palette of fewer than 256 entries
     gives black past its end."""
@@ -488,12 +606,11 @@ def _palette_lookup(indices: np.ndarray, palette: np.ndarray) -> np.ndarray:
     return full[indices]
 
 
-def _format_name(data: bytes) -> str:
-    """The format PIL would open ``data`` as, for the error."""
-    for name, accepts in PIL_PLUGINS:
-        if accepts(data):
-            return f"a {name} image"
-    return f"an image of another format (first bytes {data[:8].hex()})"
+def _format_name(fmt: Optional[str], data: bytes) -> str:
+    """The format PIL opens ``data`` as (``pil_format``), for the error."""
+    if fmt is None:
+        return f"an image of another format (first bytes {data[:8].hex()})"
+    return f"a {fmt} image"
 
 
 def read_image(file_name: str) -> Optional[np.ndarray]:
@@ -510,7 +627,7 @@ def read_image(file_name: str) -> Optional[np.ndarray]:
 # extension -> (module, encoder) of each name PIL 12.1 registers for a
 # format the port reads and PIL writes (Image.registered_extensions()); PIL
 # writes ".mpo" as its JPEG, ".pfm" as its PPM, ".dib" as BMP without the
-# file header
+# file header, ".rgb", ".rgba" and ".bw" as any SGI image
 _ENCODERS = {".jpg": ("jpeg", "encode_jpeg"), ".jpeg": ("jpeg", "encode_jpeg"),
              ".jfif": ("jpeg", "encode_jpeg"), ".jpe": ("jpeg", "encode_jpeg"),
              ".mpo": ("jpeg", "encode_jpeg"), ".png": ("png", "encode_png"),
@@ -522,15 +639,31 @@ _ENCODERS = {".jpg": ("jpeg", "encode_jpeg"), ".jpeg": ("jpeg", "encode_jpeg"),
              ".pbm": ("netpbm", "encode_netpbm"), ".pnm": ("netpbm", "encode_netpbm"),
              ".pfm": ("netpbm", "encode_netpbm"), ".tga": ("tga", "encode_tga"),
              ".icb": ("tga", "encode_tga"), ".vda": ("tga", "encode_tga"),
-             ".vst": ("tga", "encode_tga")}
+             ".vst": ("tga", "encode_tga"), ".qoi": ("qoi", "encode_qoi"),
+             ".pcx": ("pcx", "encode_pcx"), ".sgi": ("sgi", "encode_sgi"),
+             ".rgb": ("sgi", "encode_sgi"), ".rgba": ("sgi", "encode_sgi"),
+             ".bw": ("sgi", "encode_sgi"), ".im": ("im", "encode_im")}
+# the encoders that write the file's name into its header, as PIL's do
+_NAMED = ("encode_sgi", "encode_im")
+# names of formats the port reads that PIL cannot write from a uint8 gray
+# or RGB image, with PIL's reason
+_UNWRITABLE = {".ras": "PIL registers no Sun raster writer (its save raises KeyError 'SUN')",
+               ".dcx": "PIL registers no DCX writer (its save raises KeyError 'DCX')",
+               ".msp": "PIL writes MSP from mode \"1\" images only (cannot write mode RGB or "
+                       "L as MSP)",
+               ".xbm": "PIL writes XBM from mode \"1\" images only (cannot write mode RGB or "
+                       "L as XBM)"}
 
 
 def encoder_of(file_name: str):
     """The encoder ``write_image`` uses for ``file_name``'s extension (any
-    case); ``ValueError`` naming the extension where the port writes none."""
+    case); ``ValueError`` naming the extension where the port writes none,
+    with PIL's reason where PIL cannot write it either."""
     import importlib
 
     ext = os.path.splitext(str(file_name))[1].lower()
+    if ext in _UNWRITABLE:
+        raise ValueError(f"{file_name}: {_UNWRITABLE[ext]}, so the port writes no {ext} images")
     if ext not in _ENCODERS:
         raise ValueError(f"{file_name}: the port writes {', '.join(_ENCODERS)} images, not "
                          f"{ext or 'a file without an extension'}")
@@ -546,11 +679,15 @@ def write_image(file_name: str, image: np.ndarray) -> None:
     header), GIF (``.gif``: PIL's median-cut palette and LZW), ICO
     (``.ico``: PIL's seven sizes as PNG frames), uncompressed TIFF
     (``.tif``, ``.tiff``), Netpbm (``.ppm``, ``.pgm``, ``.pbm``, ``.pnm``,
-    ``.pfm``: P5 or P6) and TGA (``.tga``, ``.icb``, ``.vda``, ``.vst``);
-    for ``.webp`` a lossy WebP file encoded at PIL's settings (quality 80,
-    method 4), whose bytes may differ from libwebp's. Any other extension
-    raises ``ValueError`` naming it; nothing is written then."""
-    data = encoder_of(file_name)(image)
+    ``.pfm``: P5 or P6), TGA (``.tga``, ``.icb``, ``.vda``, ``.vst``), QOI
+    (``.qoi``), PCX (``.pcx``), SGI (``.sgi``, ``.rgb``, ``.rgba``,
+    ``.bw``) and IM (``.im``), the last two with the file's name in their
+    header; for ``.webp`` a lossy WebP file encoded at PIL's settings
+    (quality 80, method 4), whose bytes may differ from libwebp's. Any other
+    extension raises ``ValueError`` naming it (``.ras``, ``.dcx``, ``.msp``
+    and ``.xbm`` with PIL's reason); nothing is written then."""
+    encode = encoder_of(file_name)
+    data = encode(image, str(file_name)) if encode.__name__ in _NAMED else encode(image)
     with open(file_name, "wb") as f:
         f.write(data)
 

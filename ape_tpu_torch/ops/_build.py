@@ -253,6 +253,22 @@ def host_library() -> ctypes.CDLL:
     # TGA run lengths: file, length, offset, bytes a pixel, row bytes, rows, out
     lib.ape_tga_rle.argtypes = [p, size, size, i, size, size, p]
     lib.ape_tga_rle.restype = i
+    # QOI: file, length, offset, channels, pixels, out; pixels, count,
+    # channels, out
+    lib.ape_qoi_decode.argtypes = [p, size, size, i, size, p]
+    lib.ape_qoi_decode.restype = i
+    lib.ape_qoi_encode.argtypes = [p, size, i, p]
+    lib.ape_qoi_encode.restype = ctypes.c_long
+    # PCX and Sun run lengths: file, length, offset, line bytes, rows, out;
+    # PCX writer: lines, rows, line bytes, planes, padding, out
+    for name in ("ape_pcx_rle", "ape_sun_rle"):
+        getattr(lib, name).argtypes = [p, size, size, size, size, p]
+        getattr(lib, name).restype = i
+    lib.ape_pcx_encode.argtypes = [p, size, size, i, i, p]
+    lib.ape_pcx_encode.restype = ctypes.c_long
+    # SGI run lengths: file, length, bytes a sample, width, height, channels, out
+    lib.ape_sgi_rle.argtypes = [p, size, i, i, i, i, p]
+    lib.ape_sgi_rle.restype = i
     return lib
 
 

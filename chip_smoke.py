@@ -4073,13 +4073,40 @@ IMAGE_CONTAINERS_DIGESTS = {
     "tga_colormap.tga": "8abb43bc2fa438946a5292dc25de7220fb20a2ab39f7c137dd8765e83e4bd418",
     "ico_png.ico": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
     "ico_dib32.ico": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a"}
+# SHA-256 of np.asarray(Image.open(f).convert("RGB")) under PIL 12.1 for each
+# file raster_files() gives: QOI, PCX, DCX, SGI, Sun raster, IM, MSP and XBM
+# (tests/test_torch_image_containers.py asserts them with the rest)
+RASTER_DIGESTS = {
+    "qoi_rgb.qoi": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "qoi_rgba.qoi": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "pcx_rgb.pcx": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "pcx_palette.pcx": "8abb43bc2fa438946a5292dc25de7220fb20a2ab39f7c137dd8765e83e4bd418",
+    "pcx_1bit.pcx": "f77bfceece7a3ec42af5f9bce436a9ecad00e86ee9a71c23eb1cc40a64e5b0fd",
+    "dcx_two_pages.dcx": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "sgi_rgb.sgi": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "sgi_rle_rgba.sgi": "b456b29e88ed795d1bfa22a06c0286c1ab52913a3c6f9a02fd535ab61b995470",
+    "sgi_16bit.sgi": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "sun_24.ras": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "sun_rle_map.ras": "8abb43bc2fa438946a5292dc25de7220fb20a2ab39f7c137dd8765e83e4bd418",
+    "im_rgb.im": "bd3f51c4cd3dbbc032fcdb2d258aec76ea6a7992ba55c819842e53efe789014a",
+    "im_gray.im": "ed2c8378f1c044519ec0d6b3dbedae67e17665c4a8157c47cdfb3ae6e1033ca1",
+    "msp_v2.msp": "f77bfceece7a3ec42af5f9bce436a9ecad00e86ee9a71c23eb1cc40a64e5b0fd",
+    "xbm.xbm": "f77bfceece7a3ec42af5f9bce436a9ecad00e86ee9a71c23eb1cc40a64e5b0fd"}
+IMAGE_CONTAINERS_DIGESTS = {**IMAGE_CONTAINERS_DIGESTS, **RASTER_DIGESTS}
 # a GIF cut inside its image data and a TIFF whose strips run past its end,
 # which PIL refuses: the mapper pass drops them, one warning each
 CONTAINERS_REFUSED = "gif_truncated"
 TIFF_REFUSED = "tiff_strip_cut"
 # the TIFF the demo serves under its own name (its overlay written as TIFF)
 DEMO_TIFF = "tiff_jpeg_ycbcr.tif"
-NEW_CONTAINERS = (".tif", ".ppm", ".pgm", ".tga", ".ico")  # the mapper pass keeps them all
+NEW_CONTAINERS = (".tif", ".ppm", ".pgm", ".tga", ".ico", ".qoi", ".pcx", ".dcx", ".sgi", ".ras",
+                  ".im", ".msp", ".xbm")  # the mapper pass keeps them all
+# files PIL opens and cannot load (BUFR, GRIB, HDF5, MPEG, a placeable WMF),
+# which the mapper pass drops, one warning each, as JAX's mapper drops them;
+# and an EPS file, dropped as well where the machine has no Ghostscript
+STUB_NAMES = ("bufr_stub.bufr", "grib_stub.grib", "hdf5_stub.h5", "mpeg_stub.mpg",
+              "wmf_stub.wmf")
+EPS_NAME = "eps_drawing.eps"
 DEMO_PROMPT = "person,dog,frisbee"
 DEMO_INPUTS = (("landscape.jpg", (480, 640), "RGB"), ("portrait.jpg", (640, 427), "RGB"),
                ("gray.jpg", (480, 640), "L"))
@@ -4087,14 +4114,21 @@ DEMO_INPUTS = (("landscape.jpg", (480, 640), "RGB"), ("portrait.jpg", (640, 427)
 # WebP fixture under its own name, a GIF (480x640, 256 colours) and an ICO of
 # one 256x192 PNG entry, both written by tests/torch_image_writers.py
 DEMO_WEBP, DEMO_GIF, DEMO_ICO = "webp_lossy.webp", "demo.gif", "demo.ico"
+# two requests under the names of the small rasters the port writes: the
+# QOI and PCX files of raster_files(), each overlay written by its encoder
+DEMO_QOI, DEMO_PCX = "qoi_rgb.qoi", "pcx_rgb.pcx"
 # writer_check: SHA-256 of each writer's bytes for writer_check_image()
-# (tests/test_torch_image_writers.py holds the GIF, PNG and ICO bytes to PIL
-# 12.1's and the WebP file to PIL's by its bounds); the PNG and ICO rows hold
-# under the zlib of PIL 12.1's wheels, WRITER_ZLIB
+# (tests/test_torch_image_writers.py holds the GIF, PNG, ICO, QOI, PCX, SGI
+# and IM bytes to PIL 12.1's and the WebP file to PIL's by its bounds); the
+# PNG and ICO rows hold under the zlib of PIL 12.1's wheels, WRITER_ZLIB
 WRITER_DIGESTS = {"gif": "5976d1116331d74fbe55ad2fff7ab50839cb5d908cf44387c0f0aa792c113325",
                   "png": "52b1c7f69be851babc21effa56233b84cd80af22b86678e485b684ae382453c2",
                   "ico": "a45340f744902d8678be79092a72d9cfb0ce3dbba2f2d5bb397813c30f526c30",
-                  "webp": "948f360804ad910741065693e70b9be3d448be167e40b5747c5234e474423e67"}
+                  "webp": "948f360804ad910741065693e70b9be3d448be167e40b5747c5234e474423e67",
+                  "qoi": "65359b104a2aab831add15d9f391b9b76c7bf69fb42de87d5d7ab79c594d3c0a",
+                  "pcx": "b564bff31f111a0f68b594e1c1f3d44eaa71f63f5e947bf75a414eed95cf3995",
+                  "sgi": "48b90bf35da810b6b95447c82fbf7b29a9826d044ad80f537ae2613ba4832d0b",
+                  "im": "44fdc6156d2faa56d50197fa7ac2a6853a0fcb626789d3b2c833810ea660cc61"}
 WRITER_ZLIB = "1.2.13"
 WRITER_ITERS = 5  # timed encodes of each writer (median): GIF and WebP take ~0.2 s each
 # the lossy WebP fixture's pixels saved as WebP by PIL 12.1: the PSNR (dB) of
@@ -4459,15 +4493,26 @@ def writer_check_image():
     return jpeg_check_image(SEED + 11)
 
 
-def writer_files(img) -> dict:
-    """The bytes of each writer of PR 27 for ``img``: GIF, PNG, ICO, WebP."""
+def _writers() -> dict:
+    """Name -> encoder of each writer the writer check holds to digests."""
     from ape_tpu_torch.data.gif import encode_gif
     from ape_tpu_torch.data.ico import encode_ico
+    from ape_tpu_torch.data.im import encode_im
+    from ape_tpu_torch.data.pcx import encode_pcx
     from ape_tpu_torch.data.png import encode_png
+    from ape_tpu_torch.data.qoi import encode_qoi
+    from ape_tpu_torch.data.sgi import encode_sgi
     from ape_tpu_torch.data.webp import encode_webp
 
-    return {"gif": encode_gif(img), "png": encode_png(img), "ico": encode_ico(img),
-            "webp": encode_webp(img)}
+    return {"gif": encode_gif, "png": encode_png, "ico": encode_ico, "webp": encode_webp,
+            "qoi": encode_qoi, "pcx": encode_pcx, "sgi": encode_sgi, "im": encode_im}
+
+
+def writer_files(img) -> dict:
+    """The bytes of the GIF, PNG, ICO, WebP, QOI, PCX, SGI and IM writers
+    for ``img`` (SGI and IM as PIL writes them to a file object without a
+    name)."""
+    return {name: encode(img) for name, encode in _writers().items()}
 
 
 def _psnr(a, b) -> float:
@@ -4478,8 +4523,9 @@ def _psnr(a, b) -> float:
 
 
 def writer_check(card) -> dict:
-    """The GIF, PNG, ICO and WebP writers, as built on the running machine,
-    on writer_check_image(): their SHA-256s against WRITER_DIGESTS (where
+    """The GIF, PNG, ICO, WebP, QOI, PCX, SGI and IM writers, as built on
+    the running machine, on writer_check_image(): their SHA-256s against
+    WRITER_DIGESTS (where
     this machine's zlib is not WRITER_ZLIB, the PNG and ICO files are held
     by their decoded pixels instead: the PNG's the image's, each ICO frame
     the LANCZOS thumbnail of it); the lossy fixture's pixels written as
@@ -4526,13 +4572,8 @@ def writer_check(card) -> dict:
     if fixture_psnr < WEBP_FIXTURE_PSNR - WEBP_PSNR_SLACK:
         fail(f"writer_check: the fixture's WebP at {fixture_psnr:.3f} dB, PIL's "
              f"{WEBP_FIXTURE_PSNR:.3f} dB")
-    from ape_tpu_torch.data.gif import encode_gif
-    from ape_tpu_torch.data.ico import encode_ico
-    from ape_tpu_torch.data.png import encode_png
-
     ms = {}
-    for name, encode in (("gif", encode_gif), ("png", encode_png), ("ico", encode_ico),
-                         ("webp", encode_webp)):
+    for name, encode in _writers().items():
         times = []
         for _ in range(WRITER_ITERS):
             t0 = time.perf_counter()
@@ -4746,7 +4787,70 @@ def image_containers_files() -> dict:
     rst[at[10] + 1] = 0xD0 + (rst[at[10] + 1] - 0xD0 + 3) % 8
     files["jpeg_restart_moved.jpg"] = bytes(rst[:at[11]] + rst[at[11] + 2:])
     files.update(tiff_netpbm_tga_ico_files())
+    files.update(raster_files())
     return files
+
+
+def raster_files() -> dict:
+    """The QOI, PCX, DCX, SGI, Sun raster, IM, MSP and XBM files of the
+    image_containers phase, at FORMS_SIZE from ``container_image``: QOI of
+    the image and of it with its alpha plane; PCX of the image by the
+    port's encoder, of the colour cube's indices with an 8-bit palette
+    trailer, and of one bit; a two-page DCX; SGI verbatim RGB, RLE RGBA and
+    16-bit RGB; a raw 24-bit and an RLE 8-bit colour-mapped Sun raster; IM
+    of the image and of its green plane (the port's encoders); a version 2
+    MSP and an XBM of one bit. The files PIL cannot write come from
+    ``tests/torch_image_writers.py``."""
+    import numpy as np
+
+    from ape_tpu_torch.data.im import encode_im
+    from ape_tpu_torch.data.pcx import encode_pcx
+    from ape_tpu_torch.data.qoi import encode_qoi
+    from ape_tpu_torch.data.sgi import encode_sgi
+
+    W = _image_writers()
+    h, w = FORMS_SIZE
+    img, alpha = container_image()
+    cube = np.array([[r * 32 + 16, g * 32 + 16, b * 64 + 32] for r in range(8) for g in range(8)
+                     for b in range(4)], np.uint8)
+    idx = ((img[..., 0] >> 5) * 32 + (img[..., 1] >> 5) * 4 + (img[..., 2] >> 6)).astype(np.uint8)
+    bit = img[..., 1] > 128
+    rgba = np.dstack([img, alpha])
+    return {
+        "qoi_rgb.qoi": encode_qoi(img),
+        "qoi_rgba.qoi": encode_qoi(rgba),
+        "pcx_rgb.pcx": encode_pcx(img),
+        "pcx_palette.pcx": W.pcx(idx, w, h, 8, 1, trailer=b"\x0c" + cube.tobytes()),
+        "pcx_1bit.pcx": W.pcx(np.packbits(bit, axis=1), w, h, 1, 1),
+        "dcx_two_pages.dcx": W.dcx([encode_pcx(img), encode_pcx(img[..., 1])]),
+        "sgi_rgb.sgi": encode_sgi(img),
+        "sgi_rle_rgba.sgi": W.sgi(rgba.transpose(2, 0, 1) // 8 * 8, rle=True),
+        "sgi_16bit.sgi": W.sgi(img.transpose(2, 0, 1).astype(np.uint16) * 257, 2),
+        "sun_24.ras": W.sun(W.sun_rows(img[..., ::-1].reshape(h, -1)), w, h, 24),
+        "sun_rle_map.ras": W.sun(W.sun_rle(idx.tobytes()), w, h, 8, 2,
+                                 colormap=cube.T.tobytes()),
+        "im_rgb.im": encode_im(img),
+        "im_gray.im": encode_im(img[..., 1]),
+        "msp_v2.msp": W.msp(bit, 2),
+        "xbm.xbm": W.xbm(bit),
+    }
+
+
+def stub_files() -> dict:
+    """Files PIL opens and has no loader for: BUFR, GRIB and HDF5 headers
+    (PIL's stubs without a handler), an MPEG sequence header, and a
+    placeable WMF (PIL draws WMF on Windows only); then an EPS file, which
+    PIL rasterises through Ghostscript."""
+    import struct
+
+    bufr, grib, hdf5, mpeg, wmf = STUB_NAMES
+    return {bufr: b"BUFR" + bytes(60), grib: b"GRIB\0\0\0\x01" + bytes(60),
+            hdf5: b"\x89HDF\r\n\x1a\n" + bytes(60),
+            mpeg: b"\x00\x00\x01\xb3\x28\x01\xe0" + bytes(60),
+            wmf: struct.pack("<IHhhhhHIH", 0x9AC6CDD7, 0, 0, 0, 640, 480, 96, 0, 0)
+            + b"\x01\x00\t\x00" + bytes(60),
+            EPS_NAME: b"%!PS-Adobe-3.0 EPSF-3.0\n%%BoundingBox: 0 0 640 480\n%%EndComments\n"
+                      b"0 0 moveto 640 480 lineto stroke\nshowpage\n%%EOF\n"}
 
 
 def tiff_netpbm_tga_ico_files() -> dict:
@@ -4801,15 +4905,19 @@ def image_containers_phase(card, tmp: Path) -> dict:
     against PIL's (IMAGE_CONTAINERS_DIGESTS), its decode ms (median of
     FORMS_ITERS, host clock) beside the card's name and power limit. Then
     one pass of the port's DatasetMapperDETR over the damaged JPEGs and the
-    TIFF, Netpbm, TGA and ICO files, which it keeps, and CONTAINERS_REFUSED
-    and TIFF_REFUSED, which it drops with a warning each, as JAX's mapper
-    drops what PIL refuses. Returns the files, of which the demo then
-    serves the lossy WebP and DEMO_TIFF."""
+    TIFF, Netpbm, TGA, ICO, QOI, PCX, DCX, SGI, Sun raster, IM, MSP and XBM
+    files, which it keeps, and CONTAINERS_REFUSED, TIFF_REFUSED and the
+    files PIL opens and cannot load (STUB_NAMES; EPS_NAME where this
+    machine has no Ghostscript), which it drops with a warning each, as
+    JAX's mapper drops them. Where Ghostscript is installed, the EPS file
+    must raise ValueError naming it instead. Returns the files, of which
+    the demo then serves the lossy WebP, DEMO_TIFF, DEMO_QOI and DEMO_PCX."""
     import logging
+    import shutil
 
     import numpy as np
 
-    from ape_tpu_torch.data.image_io import read_image
+    from ape_tpu_torch.data.image_io import CorruptImage, read_image
     from ape_tpu_torch.data.mapper import DatasetMapperDETR
 
     t_phase = time.perf_counter()
@@ -4817,7 +4925,10 @@ def image_containers_phase(card, tmp: Path) -> dict:
     files = image_containers_files()
     write_s = time.perf_counter() - t0
     decoded = {}
+    rasters = set(RASTER_DIGESTS)
+    raster_s = 0.0
     for name, data in files.items():
+        t_file = time.perf_counter()
         path = tmp / name
         path.write_bytes(data)
         pixels = read_image(str(path))
@@ -4830,6 +4941,8 @@ def image_containers_phase(card, tmp: Path) -> dict:
             read_image(str(path))
             times.append(time.perf_counter() - t0)
         decoded[name] = {"bytes": len(data), "decode_ms": float(np.median(times)) * 1e3}
+        if name in rasters:
+            raster_s += time.perf_counter() - t_file
     gif = files["gif.gif"]
     (tmp / f"{CONTAINERS_REFUSED}.gif").write_bytes(gif[:len(gif) // 2])
     img, _ = container_image()  # one strip holding half the rows its directory promises
@@ -4838,9 +4951,25 @@ def image_containers_phase(card, tmp: Path) -> dict:
     kept = [n for n in files if n.startswith("jpeg_") or n.endswith(NEW_CONTAINERS)]
     records = [{"file_name": str(tmp / name), "image_id": i, "height": FORMS_SIZE[0],
                 "width": FORMS_SIZE[1], "annotations": []} for i, name in enumerate(kept)]
-    for name in (f"{CONTAINERS_REFUSED}.gif", f"{TIFF_REFUSED}.tif"):
+    stubs = stub_files()
+    ghostscript = shutil.which("gs")
+    unloadable = list(STUB_NAMES) + ([] if ghostscript else [EPS_NAME])
+    for name in unloadable:
+        (tmp / name).write_bytes(stubs[name])
+    for name in [f"{CONTAINERS_REFUSED}.gif", f"{TIFF_REFUSED}.tif"] + unloadable:
         records.append({"file_name": str(tmp / name), "image_id": len(records),
                         "height": FORMS_SIZE[0], "width": FORMS_SIZE[1], "annotations": []})
+    if ghostscript:
+        (tmp / EPS_NAME).write_bytes(stubs[EPS_NAME])
+        try:
+            read_image(str(tmp / EPS_NAME))
+            fail("image_containers: the EPS file read though the port cannot rasterise it")
+        except ValueError as e:
+            if isinstance(e, CorruptImage) or "Ghostscript" not in str(e):
+                fail(f"image_containers: the EPS file raised {e!r}, not the Ghostscript error")
+        eps = f"raised ValueError naming Ghostscript ({ghostscript} is installed)"
+    else:
+        eps = "dropped with the stubs (no Ghostscript on this machine)"
     warnings = []
 
     class Catch(logging.Handler):
@@ -4858,14 +4987,15 @@ def image_containers_phase(card, tmp: Path) -> dict:
         port_logger.removeHandler(catch)
     mapper_s = time.perf_counter() - t0
     dropped = sorted(name for name, ex in out.items() if ex is None)
-    refused = sorted([CONTAINERS_REFUSED, TIFF_REFUSED])
+    refused = sorted([CONTAINERS_REFUSED, TIFF_REFUSED] + [Path(n).stem for n in unloadable])
     if dropped != refused or len(warnings) != len(refused) or any(
             ex is not None and not np.isfinite(ex["image"]).all() for ex in out.values()):
         fail(f"image_containers: the mapper dropped {dropped} with warnings {warnings}, expected "
              f"{refused}, one warning each")
     log(phase="image_containers", size=list(FORMS_SIZE), files=decoded, write_s=write_s,
         mapper={"records": len(records), "kept": len(records) - len(dropped), "dropped": dropped,
-                "warnings": warnings, "seconds": mapper_s}, card=card)
+                "warnings": warnings, "seconds": mapper_s}, eps=eps, rasters_read_s=raster_s,
+        card=card)
     log(phase="image_containers_done", seconds=time.perf_counter() - t_phase)
     return files
 
@@ -4877,17 +5007,19 @@ def demo_phase(dev, card, checkpoint: Path):
     and DEMO_TIFF of ``image_containers_phase`` (which run first; the WebP
     under a .bmp name, so that its overlay is written as BMP, and under its
     own name DEMO_WEBP; the TIFF under its own name, so that its overlay is
-    written as TIFF), DEMO_GIF and DEMO_ICO, DEMO_PROMPT, masks and sem_seg.
-    Gates: the codec's digests (``codec_check``), the writers' digests
-    (``writer_check``), exactly FORWARD_LAUNCHES a request, each overlay
-    decoding to its input's shape (an ICO's largest frame to PIL's
-    thumbnail size), the TIFF, GIF, ICO and WebP overlays' bytes those of
-    the port's writers for the pixels written (``encode_tiff``,
-    ``encode_gif``, ``encode_ico``: PIL's bytes, which the CPU tests hold;
-    ``encode_webp``), the GIF's pixels the palette lookup of its indices,
-    ``predictions.json`` holding every instance of each request (score at
-    least 0.05), and ``visualize_json_results`` writing one overlay an
-    image of the file, DEMO_WEBP, DEMO_GIF and DEMO_ICO among them.
+    written as TIFF), DEMO_GIF and DEMO_ICO, DEMO_QOI and DEMO_PCX (the QOI
+    and PCX files of ``raster_files``, each under its own name), DEMO_PROMPT,
+    masks and sem_seg. Gates: the codec's digests (``codec_check``), the
+    writers' digests (``writer_check``), exactly FORWARD_LAUNCHES a request,
+    each overlay decoding to its input's shape (an ICO's largest frame to
+    PIL's thumbnail size), the TIFF, GIF, ICO, WebP, QOI and PCX overlays'
+    bytes those of the port's writers for the pixels written
+    (``encode_tiff``, ``encode_gif``, ``encode_ico``, ``encode_qoi``,
+    ``encode_pcx``: PIL's bytes, which the CPU tests hold; ``encode_webp``),
+    the GIF's pixels the palette lookup of its indices, ``predictions.json``
+    holding every instance of each request (score at least 0.05), and
+    ``visualize_json_results`` writing one overlay an image of the file,
+    DEMO_WEBP, DEMO_GIF, DEMO_ICO, DEMO_QOI and DEMO_PCX among them.
     Returns the launches."""
     import tempfile
 
@@ -4897,6 +5029,8 @@ def demo_phase(dev, card, checkpoint: Path):
     from ape_tpu_torch.data.gif import encode_gif, quantize
     from ape_tpu_torch.data.ico import SIZES, encode_ico, thumbnail_size
     from ape_tpu_torch.data.image_io import read_image, write_image
+    from ape_tpu_torch.data.pcx import encode_pcx
+    from ape_tpu_torch.data.qoi import encode_qoi
     from ape_tpu_torch.data.tiff import encode_tiff
     from ape_tpu_torch.data.webp import decode_webp, encode_webp
     from ape_tpu_torch.demo import demo_lazy, predictor_lazy
@@ -4941,7 +5075,9 @@ def demo_phase(dev, card, checkpoint: Path):
     ico_image = jpeg_check_image(SEED + 14, 192, 256)
     (tmp / "in" / DEMO_ICO).write_bytes(writers_lib.ico([(writers_lib.png(ico_image, 2),
                                                           (256, 192), 32, 0)]))
-    shapes[DEMO_WEBP] = shapes[DEMO_GIF] = FORMS_SIZE + (3,)
+    for name in (DEMO_QOI, DEMO_PCX):
+        (tmp / "in" / name).write_bytes(containers[name])
+    shapes[DEMO_WEBP] = shapes[DEMO_GIF] = shapes[DEMO_QOI] = shapes[DEMO_PCX] = FORMS_SIZE + (3,)
     shapes[DEMO_ICO] = (192, 256, 3)
     ico_frame = max((thumbnail_size(256, 192, size) for size in SIZES
                      if size[0] <= 256 and size[1] <= 192), key=lambda s: s[0] * s[1])
@@ -4965,7 +5101,8 @@ def demo_phase(dev, card, checkpoint: Path):
     out = tmp / "out"
     argv = ["--config-file", str(ROOT / TN_CONFIG), "--input", str(tmp / "in" / "*.jpg"),
             str(tmp / "in" / "*.bmp"), str(tmp / "in" / "*.tif"), str(tmp / "in" / "*.gif"),
-            str(tmp / "in" / "*.webp"), str(tmp / "in" / "*.ico"), "--output", str(out),
+            str(tmp / "in" / "*.webp"), str(tmp / "in" / "*.ico"), str(tmp / "in" / "*.qoi"),
+            str(tmp / "in" / "*.pcx"), "--output", str(out),
             "--text-prompt", DEMO_PROMPT,
             "--with-mask", "--with-sseg", "--init-checkpoint", str(checkpoint)]
     predictor_lazy.VisualizationDemo.run_on_image = counted
@@ -5000,7 +5137,8 @@ def demo_phase(dev, card, checkpoint: Path):
         fail(f"demo: the overlay {DEMO_TIFF} is not PIL's TIFF bytes for its pixels")
     t_gates = time.perf_counter()
     new_names = {}
-    for name, encode in ((DEMO_GIF, encode_gif), (DEMO_ICO, encode_ico), (DEMO_WEBP, encode_webp)):
+    for name, encode in ((DEMO_GIF, encode_gif), (DEMO_ICO, encode_ico), (DEMO_WEBP, encode_webp),
+                         (DEMO_QOI, encode_qoi), (DEMO_PCX, encode_pcx)):
         data, pixels = (out / name).read_bytes(), written_arrays.get(name)
         if pixels is None or pixels.shape != shapes[name] or data != encode(pixels):
             fail(f"demo: the overlay {name} is not its writer's bytes for the pixels drawn")
@@ -5030,10 +5168,12 @@ def demo_phase(dev, card, checkpoint: Path):
     drawn = {Path(p).name for p in written}
     if drawn != {name for name, n in counts.items() if n} or any(
             read_image(p).shape != readback[Path(p).name] for p in written) or not {
-            DEMO_WEBP, DEMO_GIF, DEMO_ICO} <= drawn:
+            DEMO_WEBP, DEMO_GIF, DEMO_ICO, DEMO_QOI, DEMO_PCX} <= drawn:
         fail(f"visualize_json_results: wrote {sorted(drawn)} for rows {counts}")
     new_s = writer_s + gates_s + sum(r.get("device", 0) + r.get("draw", 0) + r.get("write", 0)
                            for r in records if Path(r["path"]).name in new_names)
+    rasters = {Path(r["path"]).name: {k: r.get(k, 0.0) for k in ("device", "draw", "write")}
+               for r in records if Path(r["path"]).name in (DEMO_QOI, DEMO_PCX)}
     log(phase="demo", config=TN_CONFIG, prompt=DEMO_PROMPT, codec=codec,
         requests=[{k: v for k, v in r.items() if k != "path"} | {"image": Path(r["path"]).name}
                   for r in records],
@@ -5041,6 +5181,7 @@ def demo_phase(dev, card, checkpoint: Path):
         visualize_s=vis_s, visualized=sorted(drawn), tiff_overlay={
             "name": DEMO_TIFF, "bytes": len(overlay), "sha256": _sha(overlay)},
         writers=writers, new_overlays=new_names, writer_s=writer_s, pr27_additions_s=new_s,
+        raster_requests=rasters, raster_requests_s=sum(sum(v.values()) for v in rasters.values()),
         card=card)
     log(phase="demo_done", seconds=time.perf_counter() - t_phase - forms_s)
     return launches

@@ -393,14 +393,19 @@ def test_corrupt_data_and_bad_arguments():
 
 @pytest.mark.parametrize("ext", (".webp", ".jp2", ".avif", ".qoi", ".pcx"))
 def test_write_image_webp_writes_and_unread_formats_raise(tmp_path, ext):
-    """``.webp`` writes a WebP file PIL decodes at the image's size; the
-    names of formats PIL writes and the port does not read raise
-    ``ValueError`` naming the extension, and nothing is written."""
+    """``.webp`` writes a WebP file PIL decodes at the image's size, and
+    ``.qoi`` and ``.pcx``, which the port reads since it took the small
+    rasters, PIL's files of the image's pixels; the names of formats PIL
+    writes and the port does not read raise ``ValueError`` naming the
+    extension, and nothing is written."""
     path = tmp_path / f"x{ext}"
     img = image(24, 40, seed=7)
-    if ext == ".webp":
+    if ext in (".webp", ".qoi", ".pcx"):
         write_image(str(path), img)
-        assert np.asarray(Image.open(path).convert("RGB")).shape == img.shape
+        got = np.asarray(Image.open(path).convert("RGB"))
+        assert got.shape == img.shape
+        if ext != ".webp":
+            np.testing.assert_array_equal(got, img)
         return
     with pytest.raises(ValueError, match=re.escape(ext)):
         write_image(str(path), img)

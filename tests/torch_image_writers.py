@@ -28,7 +28,13 @@ standard library only, so that the card machine can load it):
   (``jpeg_tiff``);
 * ``netpbm``: P1-P6, plain or raw, any maxval;
 * ``tga``: TGA of raw or RLE (``tga_rle``) pixels, colour-mapped or not,
-  any origin; ``ico``: ICO of PNG and DIB (``dib_entry``) entries.
+  any origin; ``ico``: ICO of PNG and DIB (``dib_entry``) entries;
+* ``pcx``: PCX of any depth, plane count, stride and version (runs that
+  stay in a line or cross it), ``dcx`` of PCX pages; ``sgi``: SGI at 1 or
+  2 bytes a sample, verbatim or RLE with its tables; ``sun``: Sun raster
+  raw (``sun_rows``) or RLE (``sun_rle``), with a colour map; ``msp``: MSP
+  versions 1 and 2; ``xbm``: X10 and X11 bitmaps; ``im``: IM headers over
+  any data and lookup table.
 
 ``coefficients`` turns an image into the quantized blocks the JPEG writers
 take: an integer colour transform, box downsampling and an integer DCT,
@@ -1627,3 +1633,236 @@ def ico(entries) -> bytes:
     return out + body
 
 
+
+
+# --- the small rasters: PCX, DCX, SGI, Sun raster, MSP, XBM, IM ---------------------
+
+def pcx_runs(lines: np.ndarray, cross_lines: bool = False) -> bytes:
+    """PCX run-length data of (h, line bytes) lines: runs of 2 or more (and
+    any byte of 0xC0 or more) as 0xC0 | n, v (n up to 63), the rest
+    literal; with ``cross_lines`` the lines are one stream, so that a run
+    may reach past a line's end."""
+    stream = [np.ascontiguousarray(lines).reshape(-1)] if cross_lines else list(lines)
+    out = bytearray()
+    for row in stream:
+        i = 0
+        while i < len(row):
+            j = i
+            while j < len(row) and j - i < 63 and row[j] == row[i]:
+                j += 1
+            if j - i > 1 or row[i] >= 0xC0:
+                out += bytes([0xC0 | (j - i), row[i]])
+            else:
+                out.append(row[i])
+            i = j
+    return bytes(out)
+
+
+def pcx(lines: np.ndarray, width: int, height: int, bits: int, planes: int,
+        version: int = 5, palette16: bytes = bytes(48), stride: int = None,
+        trailer: bytes = b"", x0: int = 0, y0: int = 0, cross_lines: bool = False) -> bytes:
+    """A PCX file of (h, planes * stride) stored lines: the 128-byte header
+    (its bounding box from (x0, y0), the 16-colour palette, the stride it
+    states), the run-length data, then ``trailer`` (b"\\x0c" and 768 bytes
+    for an 8-bit palette)."""
+    stride = lines.shape[1] // planes if stride is None else stride
+    head = struct.pack("<BBBBHHHHHH", 10, version, 1, bits, x0, y0, x0 + width - 1,
+                       y0 + height - 1, 72, 72) + palette16 + b"\0" + bytes([planes])
+    head += struct.pack("<HHHH", stride, 1, width, height) + b"\0" * 54
+    return head + pcx_runs(lines, cross_lines) + trailer
+
+
+def dcx(pages) -> bytes:
+    """A DCX file: the magic number, the pages' offsets ended by 0, the pages."""
+    pos = 4 + 4 * (len(pages) + 1)
+    table = b""
+    for page in pages:
+        table += struct.pack("<I", pos)
+        pos += len(page)
+    return struct.pack("<I", 987654321) + table + b"\0\0\0\0" + b"".join(pages)
+
+
+def sgi_rle_row(values: np.ndarray, bpc: int) -> bytes:
+    """One SGI RLE row of samples: runs of 3 or more as a count and one
+    sample, the rest as copies (0x80 | n, n samples), counts up to 127,
+    a 0 count at the end (``bpc`` bytes a count and a sample)."""
+    dt = ">u2" if bpc == 2 else "u1"
+    out = bytearray()
+
+    def count(n):
+        out.extend(n.to_bytes(bpc, "big"))
+
+    i, lit = 0, []
+    vals = [int(v) for v in values]
+
+    def flush():
+        while lit:
+            take = lit[:127]
+            count(0x80 | len(take))
+            out.extend(np.array(take, dt).tobytes())
+            del lit[:len(take)]
+
+    while i < len(vals):
+        j = i
+        while j < len(vals) and j - i < 127 and vals[j] == vals[i]:
+            j += 1
+        if j - i >= 3:
+            flush()
+            count(j - i)
+            out.extend(np.array([vals[i]], dt).tobytes())
+        else:
+            lit.extend(vals[i:j])
+        i = j
+    flush()
+    count(0)
+    return bytes(out)
+
+
+def sgi(planes: np.ndarray, bpc: int = 1, rle: bool = False, dimension: int = None,
+        rows=None, shared: bool = False) -> bytes:
+    """An SGI file of (channels, h, w) samples (uint8, or uint16 at
+    ``bpc`` 2), rows stored bottom-up: verbatim, or RLE with the offset and
+    length tables (``rows``: a function of (channel, row index from the
+    bottom, samples) to a row's RLE bytes, else ``sgi_rle_row``; with
+    ``shared`` identical rows point at one copy)."""
+    z, h, w = planes.shape
+    dimension = dimension or (3 if z > 1 else 2)
+    head = struct.pack(">hBBHHHHll4s79ss", 474, int(rle), bpc, dimension, w, h, z, 0,
+                       65535 if bpc == 2 else 255, b"", b"fixture", b"")
+    head += struct.pack(">l404s", 0, b"")
+    flipped = planes[:, ::-1]
+    if not rle:
+        return head + np.ascontiguousarray(flipped).astype(">u2" if bpc == 2 else "u1").tobytes()
+    make = rows or (lambda c, y, v: sgi_rle_row(v, bpc))
+    starts, lengths, body, seen = [], [], b"", {}
+    base = 512 + 8 * z * h
+    for c in range(z):
+        for y in range(h):
+            data = make(c, y, flipped[c, y])
+            if shared and data in seen:
+                starts.append(seen[data])
+            else:
+                seen[data] = base + len(body)
+                starts.append(base + len(body))
+                body += data
+            lengths.append(len(data))
+    return head + struct.pack(f">{2 * z * h}I", *starts, *lengths) + body
+
+
+def sun(data: bytes, width: int, height: int, depth: int, file_type: int = 1,
+        colormap: bytes = b"", map_type: int = None) -> bytes:
+    """A Sun raster file: the 32-byte header (the data length, the colour
+    map's type and length), the colour map (red, green and blue planes),
+    the data."""
+    map_type = (1 if colormap else 0) if map_type is None else map_type
+    return struct.pack(">8I", 0x59A66A95, width, height, depth, len(data), file_type,
+                       map_type, len(colormap)) + colormap + data
+
+
+def sun_rows(rows: np.ndarray) -> bytes:
+    """Raw Sun rows of (h, w bytes) padded to 16 bits."""
+    h, n = rows.shape
+    out = np.zeros((h, n + n % 2), np.uint8)
+    out[:, :n] = rows
+    return out.tobytes()
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun run-length data of one byte stream: runs of 3 or more as 0x80,
+    n - 1, v (n up to 256), a lone 0x80 as 0x80 0, the rest literal."""
+    out = bytearray()
+    i = 0
+    while i < len(data):
+        j = i
+        while j < len(data) and j - i < 256 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([0x80, j - i - 1, data[i]])
+            i = j
+        elif data[i] == 0x80:
+            out += b"\x80\x00"
+            i += 1
+        else:
+            out.append(data[i])
+            i += 1
+    return bytes(out)
+
+
+def msp(bits: np.ndarray, version: int = 2, runs: int = 8, blank: bool = False) -> bytes:
+    """An MSP file of (h, w) 0/1 pixels (1 white): version 1 raw, or
+    version 2 with the row table and each row as runs (0, n, v) of at least
+    ``runs`` equal bytes and copies (n, n bytes) of the rest (with
+    ``blank``, a row of white bytes as count 0 and no data); the header's
+    checksum word makes its 16 words XOR to 0."""
+    h, w = bits.shape
+    rows = np.packbits(bits.astype(np.uint8), axis=1)
+    words = [int.from_bytes(b"Da" if version == 1 else b"Li", "little"),
+             int.from_bytes(b"nM" if version == 1 else b"nS", "little"), w, h, 1, 1, 1, 1, w, h,
+             0, 0, 0, 0, 0, 0]
+    check = 0
+    for v in words:
+        check ^= v
+    words[12] = check
+    head = struct.pack("<16H", *words)
+    if version == 1:
+        return head + rows.tobytes()
+    body, table = b"", []
+    for row in rows:
+        if blank and (row == 0xFF).all():
+            table.append(0)
+            continue
+        out, i, lit = bytearray(), 0, bytearray()
+        while i < len(row):
+            j = i
+            while j < len(row) and j - i < 255 and row[j] == row[i]:
+                j += 1
+            if j - i >= runs:
+                while lit:
+                    out += bytes([min(len(lit), 255)]) + lit[:255]
+                    del lit[:255]
+                out += bytes([0, j - i, row[i]])
+            else:
+                lit += bytes(row[i:j])
+            i = j
+        while lit:
+            out += bytes([min(len(lit), 255)]) + lit[:255]
+            del lit[:255]
+        table.append(len(out))
+        body += bytes(out)
+    return head + struct.pack(f"<{h}H", *table) + body
+
+
+def xbm(bits: np.ndarray, x10: bool = False, hotspot=None, name: str = "img") -> bytes:
+    """An XBM file of (h, w) 0/1 pixels: X11 (bytes, bits least
+    significant first) or X10 (16-bit words), with an optional hotspot."""
+    h, w = bits.shape
+    packed = np.packbits(bits.astype(np.uint8), axis=1, bitorder="little")
+    out = f"#define {name}_width {w}\n#define {name}_height {h}\n"
+    if hotspot:
+        out += f"#define {name}_x_hot {hotspot[0]}\n#define {name}_y_hot {hotspot[1]}\n"
+    if x10:
+        if packed.shape[1] % 2:
+            packed = np.concatenate([packed, np.zeros((h, 1), np.uint8)], 1)
+        words = packed.reshape(-1, 2)
+        values = [f"0x{b:02x}{a:02x}" for a, b in words]
+        out += f"static short {name}_bits[] = {{\n"
+    else:
+        values = [f"0x{v:02x}" for v in packed.reshape(-1)]
+        out += f"static char {name}_bits[] = {{\n"
+    lines = [", ".join(values[i:i + 12]) for i in range(0, len(values), 12)]
+    return (out + ",\n".join("   " + line for line in lines) + " };\n").encode("ascii")
+
+
+def im(image_type: str, width: int, height: int, body: bytes, lut: bytes = None,
+       lines=(), pad: bool = True) -> bytes:
+    """An IM file: the "Image type", "Image size" and extra header lines,
+    "Lut: 1" with a 768-byte lookup table, zeros up to byte 511 (with
+    ``pad``), 0x1A, the table, the data (rows bottom-up, as PIL stores
+    them)."""
+    head = f"Image type: {image_type}\r\nImage size (x*y): {width}*{height}\r\n"
+    head += "".join(f"{line}\r\n" for line in lines)
+    if lut is not None:
+        head += "Lut: 1\r\n"
+    head = head.encode("latin-1")
+    head += (b"\0" * (511 - len(head)) if pad else b"") + b"\x1a"
+    return head + (lut or b"") + body
