@@ -22,6 +22,7 @@ from .hf_wrappers import (
 )
 from .llama import LlamaModel
 from .t5 import T5Encoder
+from .unigram import HFUnigramTokenizer
 from .tokenizer import BPETokenizer, HashTokenizer, get_tokenizer
 from .wordpiece import WordPieceTokenizer
 from .wrapper import EVA02CLIP, reduce_language_feature

@@ -39,8 +39,9 @@ SAFETENSORS_DTYPES = {
 # a header longer than this is not a safetensors file (the format's own cap)
 MAX_HEADER_BYTES = 100_000_000
 
-# JAX's tower kinds -> the checkpoints' model_type
-MODEL_TYPES = {"bert": "bert", "t5": "t5", "llama2": "llama"}
+# JAX's tower kinds -> the checkpoints' model_types (AutoModelForSeq2SeqLM
+# reads an mt5 directory as MT5ForConditionalGeneration, whose encoder is T5's)
+MODEL_TYPES = {"bert": ("bert",), "t5": ("t5", "mt5"), "llama2": ("llama",)}
 # the base model's prefix in a checkpoint of a model with heads
 _PREFIX = {"bert": "bert.", "llama2": "model.", "t5": "encoder."}
 # checkpoint entries the base model does not hold (by prefix, after the
@@ -69,21 +70,30 @@ def _token_content(value):
     return value
 
 
-def read_tokenizer_config(path) -> dict:
-    """``tokenizer_config.json`` with ``special_tokens_map.json`` over it
-    (``from_pretrained`` lets the map's tokens win), every special token as
-    its string; {} where the directory has neither."""
+def read_tokenizer_config(path, flatten: bool = True) -> dict:
+    """``tokenizer_config.json`` with, where it has no
+    ``added_tokens_decoder``, ``special_tokens_map.json`` over it
+    (``from_pretrained`` lets the map's tokens win, and appends its
+    additional special tokens to the config's); every special token as its
+    string, or with ``flatten`` false as the files give it (a string or an
+    ``AddedToken`` dict); {} where the directory has neither."""
     d = Path(path)
     out = {}
     if (d / "tokenizer_config.json").is_file():
         out.update(read_json(d / "tokenizer_config.json"))
-    if (d / "special_tokens_map.json").is_file():
-        out.update(read_json(d / "special_tokens_map.json"))
-    for k, v in list(out.items()):
-        if k.endswith("_token"):
-            out[k] = _token_content(v)
-        elif k == "additional_special_tokens" and v is not None:
-            out[k] = [_token_content(t) for t in v]
+    if (d / "special_tokens_map.json").is_file() and "added_tokens_decoder" not in out:
+        for k, v in read_json(d / "special_tokens_map.json").items():
+            if k == "additional_special_tokens" and isinstance(v, list):
+                have = list(out.get("additional_special_tokens") or [])
+                names = {_token_content(t) for t in have}
+                v = have + [t for t in v if _token_content(t) not in names]
+            out[k] = v
+    if flatten:
+        for k, v in list(out.items()):
+            if k.endswith("_token"):
+                out[k] = _token_content(v)
+            elif k == "additional_special_tokens" and v is not None:
+                out[k] = [_token_content(t) for t in v]
     return out
 
 

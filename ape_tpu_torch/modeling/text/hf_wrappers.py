@@ -1,7 +1,8 @@
 """The frozen BERT, T5 and Llama-2 language towers behind ``forward_text``
 (counterpart of ``ape_tpu/modeling/text/hf_wrappers.py``), read from Hugging
 Face directories without ``transformers`` (``hf_files``, ``wordpiece``,
-``bpe``; the towers: ``bert``, ``t5``, ``llama``).
+``hf_pipeline`` with ``bpe`` and ``unigram``; the towers: ``bert``, ``t5``,
+which also reads mT5, and ``llama``).
 
 JAX's contract, per family:
 
@@ -32,8 +33,10 @@ from ape_tpu_torch.device import default_device
 from ape_tpu_torch.modeling.text import hf_files
 from ape_tpu_torch.modeling.text.bert import BertModel
 from ape_tpu_torch.modeling.text.bpe import HFBPETokenizer
+from ape_tpu_torch.modeling.text.hf_pipeline import read_dir, refuse
 from ape_tpu_torch.modeling.text.llama import LlamaModel
 from ape_tpu_torch.modeling.text.t5 import T5Encoder
+from ape_tpu_torch.modeling.text.unigram import HFUnigramTokenizer
 from ape_tpu_torch.modeling.text.wordpiece import WordPieceTokenizer
 
 TOWERS = {"bert": BertModel, "t5": T5Encoder, "llama2": LlamaModel}
@@ -80,23 +83,29 @@ def load_tower(kind: str, path, device) -> torch.nn.Module:
     missing weight raises)."""
     config = hf_files.read_config(path)
     want = hf_files.MODEL_TYPES[kind]
-    if config.get("model_type", want) != want:
+    if config.get("model_type", want[0]) not in want:
         raise ValueError(f"{path}: model_type {config['model_type']!r}, a {kind} tower "
-                         f"reads {want!r}")
+                         f"reads {' or '.join(map(repr, want))}")
     model = build_tower(kind, config, device)
     hf_files.load_state(model, hf_files.iter_checkpoint(path), kind)
     return model
 
 
 def load_tokenizer(kind: str, path):
-    """BERT's WordPiece from ``vocab.txt``; T5's and Llama-2's from
-    ``tokenizer.json`` (``bpe``, which refuses any model but BPE)."""
+    """BERT's WordPiece from ``vocab.txt``; T5's, mT5's and Llama-2's from
+    ``tokenizer.json``, by its model's type: ``BPE`` (``bpe``) or
+    ``Unigram`` (``unigram``); any other raises."""
     if kind == "bert":
         return WordPieceTokenizer.from_dir(path)
     if not (Path(path) / "tokenizer.json").is_file():
         raise NotImplementedError(f"{path}: no tokenizer.json (a sentencepiece model alone is "
                                   "not read)")
-    return HFBPETokenizer.from_dir(path)
+    spec, config, model_type = read_dir(path)
+    classes = {"BPE": HFBPETokenizer, "Unigram": HFUnigramTokenizer}
+    model = spec["model"].get("type")
+    if model not in classes:
+        refuse("model", model)
+    return classes[model](spec, config, model_type)
 
 
 class _FrozenHF:

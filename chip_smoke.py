@@ -255,8 +255,10 @@ for its half (``cpu_waited_seconds``); the process is stopped at exit:
     card, BERT written as a hand-made ``model.safetensors`` under its hub
     names and read back through ``Bert(model_name_or_path=...)`` bit for
     bit, Llama-2 with the smoke's byte-fallback BPE ``tokenizer.json``, T5
-    with the WordPiece vocabulary: each encodes HF_NAMES names (seconds,
-    names a second, peak memory), then each at 2 layers in f32 against the
+    with its own Unigram ``tokenizer.json`` at t5-base's size (Precompiled
+    NFKC, Metaspace; ``hf_t5_tokenizer``: the host's seconds for the
+    names, their ids' SHA-256 against T5_IDS_SHA256): each encodes
+    HF_NAMES names (seconds, names a second, peak memory), then each at 2 layers in f32 against the
     CPU's within HF_TOWER_BOUND; ``llama2_serve``: LLAMA2_CONFIG's model
     (EVA-02-CLIP-L, the fusion over 4096-wide text) with the Llama-2
     tower, a name prompt of HF_NAMES names and a phrase, exact launches;
@@ -6487,6 +6489,21 @@ HF_CHECK_NAMES = 64  # the f32 check against the CPU: these many names,
 HF_CHECK_LAYERS = 2  # at full width and this depth
 HF_TOWER_BOUND = 1e-4  # f32 card against CPU, of the features' largest magnitude
 LLAMA_PREFIX = 6  # the smoke's BPE builds each word from its start up to this length
+# T5-base's own tokenizer (t5-base's spiece.model, as T5Converter writes it
+# into tokenizer.json): a Unigram of T5_PIECES pieces (<pad> 0, </s> 1,
+# <unk> 2, then pieces drawn from the names: each character, every substring
+# of a word up to T5_PIECE_CHARS characters, then seeded ones across words),
+# scores drawn from SEED; T5_EXTRA_IDS <extra_id_*> after them in reverse
+# order; Precompiled (a charsmap of the NFKC mappings of Python 3.12's
+# unicodedata, Unicode 15.0.0), Strip(right), Replace(" {2,}", "▁"),
+# Metaspace(prepend_scheme "always"). T5_IDS_SHA256 is the SHA-256 of the
+# HF_NAMES names' input_ids ("longest" padding, little-endian int64) as
+# transformers' AutoTokenizer gives them from these files.
+T5_PIECES = 32000
+T5_EXTRA_IDS = 100
+T5_PIECE_CHARS = 16
+T5_NFKC_MAPPINGS = 4928
+T5_IDS_SHA256 = "9d2c0c4ccfd3121a55ceaffdad567e43917eb780d6ba003d215942068af445f8"
 BERT_CONFIG = "configs/REFCOCO_VisualGrounding/ape_deta/ape_deta_r50_bert_vlf_12ep.py"
 LLAMA2_CONFIG = ("configs/LVISCOCOCOCOSTUFF_O365_OID_VGR_SA1B_REFCOCO_GQA_PhraseCut_Flickr30k/"
                  "ape_deta/ape_deta_vitl_eva02_clip_vlf_lsj1024_cp_16x4_1080k_mdl_llama2.py")
@@ -6587,6 +6604,92 @@ def write_llama_tokenizer(d: Path, names) -> None:
          "add_eos_token": False}))
 
 
+def t5_pieces(names) -> list:
+    """T5_PIECES - 3 (piece, score) pairs drawn from the names as
+    T5_PIECES' comment sets out, by score, highest first."""
+    import unicodedata
+
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    texts = ["▁" + "▁".join(unicodedata.normalize("NFKC", n).split()) for n in names]
+    within, across = set(), set()
+    for t in texts:
+        for i in range(len(t)):
+            for j in range(i + 1, min(len(t), i + T5_PIECE_CHARS) + 1):
+                (across if "▁" in t[i + 1:j] else within).add(t[i:j])
+    pieces = sorted(within)
+    need = T5_PIECES - 3 - len(pieces)
+    if need < 0 or need > len(across):
+        fail(f"t5 pieces: {len(pieces)} within words and {len(across)} across them for "
+             f"{T5_PIECES - 3}")
+    pieces += [str(x) for x in rng.choice(sorted(across), need, replace=False)]
+    scores = -rng.uniform(2.0, 14.0, len(pieces))
+    order = sorted(range(len(pieces)), key=lambda i: (-scores[i], pieces[i]))
+    return [(pieces[i], float(scores[i])) for i in order]
+
+
+def write_t5_tokenizer(d: Path, names) -> None:
+    """T5-base's ``tokenizer.json`` and ``tokenizer_config.json`` as
+    T5_PIECES' comment sets out, written by hand (no ``tokenizers`` on the
+    card's machine)."""
+    import base64
+    import unicodedata
+
+    from ape_tpu_torch.modeling.text.charsmap import build_charsmap
+
+    if unicodedata.unidata_version != "15.0.0":
+        fail(f"t5 tokenizer: unicodedata {unicodedata.unidata_version}, the charsmap and "
+             "T5_IDS_SHA256 are Unicode 15.0.0's")
+    nfkc = {}
+    for c in range(0x110000):
+        if not 0xD800 <= c < 0xE000 and unicodedata.normalize("NFKC", chr(c)) != chr(c):
+            nfkc[chr(c)] = unicodedata.normalize("NFKC", chr(c))
+    if len(nfkc) != T5_NFKC_MAPPINGS:
+        fail(f"t5 tokenizer: {len(nfkc)} NFKC mappings, not {T5_NFKC_MAPPINGS}")
+    extra = [f"<extra_id_{i}>" for i in range(T5_EXTRA_IDS - 1, -1, -1)]
+    vocab = ([["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0]]
+             + [list(p) for p in t5_pieces(names)] + [[t, 0.0] for t in extra])
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": True}
+             for i, t in [(0, "<pad>"), (1, "</s>"), (2, "<unk>")]
+             + [(T5_PIECES + k, t) for k, t in enumerate(extra)]]
+    charsmap = base64.b64encode(build_charsmap(nfkc)).decode()
+    spec = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+            "normalizer": {"type": "Sequence", "normalizers": [
+                {"type": "Precompiled", "precompiled_charsmap": charsmap},
+                {"type": "Strip", "strip_left": False, "strip_right": True},
+                {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": "▁"}]},
+            "pre_tokenizer": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+                              "split": True},
+            "post_processor": {"type": "TemplateProcessing",
+                               "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                                          {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+                               "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                                        {"SpecialToken": {"id": "</s>", "type_id": 0}},
+                                        {"Sequence": {"id": "B", "type_id": 0}},
+                                        {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+                               "special_tokens": {"</s>": {"id": "</s>", "ids": [1],
+                                                           "tokens": ["</s>"]}}},
+            "decoder": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+                        "split": True},
+            "model": {"type": "Unigram", "unk_id": 2, "vocab": vocab, "byte_fallback": False}}
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False), encoding="utf-8")
+    (d / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "T5Tokenizer", "eos_token": "</s>", "unk_token": "<unk>",
+         "pad_token": "<pad>", "extra_ids": T5_EXTRA_IDS, "model_max_length": 512}))
+
+
+def t5_ids_digest(batch) -> str:
+    """The SHA-256 of a batch's ``input_ids`` as little-endian int64."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.asarray(batch["input_ids"], "<i8").tobytes()).hexdigest()
+
+
 def write_safetensors(path: Path, tensors: dict, dtype: str = "F32") -> None:
     """A ``.safetensors`` file written by hand: the 8-byte little-endian
     header length, the JSON header (spaces to an 8-byte boundary), then each
@@ -6652,25 +6755,52 @@ def write_llama_checkpoint(d: Path, model) -> dict:
 
 def write_hf_files(tmp: Path) -> dict:
     """The towers' directories: ``bert`` (bert-base-uncased's config.json and
-    the smoke's vocab.txt; ``hf_towers`` writes its weights) and ``llama2``
-    (Llama-2-7b-hf's config.json and the smoke's tokenizer files)."""
+    the smoke's vocab.txt; ``hf_towers`` writes its weights), ``t5``
+    (t5-base's config.json and the smoke's Unigram tokenizer files) and
+    ``llama2`` (Llama-2-7b-hf's config.json and the smoke's tokenizer
+    files)."""
     names = hf_names()
-    dirs = {"bert": tmp / "bert", "llama2": tmp / "llama2"}
+    dirs = {kind: tmp / kind for kind in HF_CONFIGS}
     for kind, d in dirs.items():
         d.mkdir(parents=True, exist_ok=True)
         (d / "config.json").write_text(json.dumps(HF_CONFIGS[kind]))
     write_bert_vocab(dirs["bert"] / "vocab.txt", names)
+    write_t5_tokenizer(dirs["t5"], names)
     write_llama_tokenizer(dirs["llama2"], names)
     return dirs
 
 
 def hf_tokenizers(tmp: Path) -> dict:
-    """Each tower's tokenizer from ``write_hf_files``' directories; T5's is
-    the WordPiece one (the port refuses T5's own Unigram tokenizer)."""
+    """Each tower's own tokenizer from ``write_hf_files``' directories:
+    BERT's WordPiece, T5's Unigram, Llama-2's BPE."""
     from ape_tpu_torch.modeling.text.hf_wrappers import load_tokenizer
 
-    bert = load_tokenizer("bert", tmp / "bert")
-    return {"bert": bert, "t5": bert, "llama2": load_tokenizer("llama2", tmp / "llama2")}
+    return {kind: load_tokenizer(kind, tmp / kind) for kind in HF_CONFIGS}
+
+
+def t5_tokenizer_check(tmp: Path, card) -> None:
+    """T5's tokenizer on the host: the seconds to load it from ``tmp/t5``,
+    to tokenize the HF_NAMES names with it fresh, and again; the SHA-256 of
+    their ids, which must be T5_IDS_SHA256."""
+    from ape_tpu_torch.modeling.text.hf_wrappers import load_tokenizer
+
+    t0 = time.perf_counter()
+    tok = load_tokenizer("t5", tmp / "t5")
+    load = time.perf_counter() - t0
+    names = list(hf_names())
+    t0 = time.perf_counter()
+    batch = tok(names)
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tok(names)
+    warm = time.perf_counter() - t0
+    digest = t5_ids_digest(batch)
+    log(phase="hf_t5_tokenizer", names=HF_NAMES, load_seconds=load, tokenize_seconds=cold,
+        tokenize_seconds_cached=warm, padded_shape=list(batch["input_ids"].shape),
+        tokens=int(batch["attention_mask"].sum()), sha256=digest, pinned=T5_IDS_SHA256,
+        card=card)
+    if digest != T5_IDS_SHA256:
+        fail(f"hf_t5_tokenizer: the names' ids hash to {digest}, not {T5_IDS_SHA256}")
 
 
 def hf_check_features(kind: str, tokenizer, device):
@@ -6716,8 +6846,10 @@ def hf_towers_phase(dev, card, tmp: Path, halves) -> dict:
     to ``tmp/bert`` as a hand-written ``model.safetensors`` (under its
     hub names, a head entry beside) and read back through
     ``Bert(model_name_or_path=...)``, every weight equal bit for bit to the
-    drawn one; T5 with the WordPiece tokenizer; Llama-2 built on the card
-    with the smoke's byte-fallback BPE. Each encodes the HF_NAMES names:
+    drawn one; T5 with its own Unigram tokenizer (``t5_tokenizer_check``
+    first: its seconds on the host and its ids' digest); Llama-2 built on
+    the card with the smoke's byte-fallback BPE. Each encodes the HF_NAMES
+    names:
     finite features of its width, seconds, names a second, tokens, peak
     memory. Then each at HF_CHECK_LAYERS layers in f32 on HF_CHECK_NAMES
     names against the CPU's (the CPU halves' process) within
@@ -6727,6 +6859,7 @@ def hf_towers_phase(dev, card, tmp: Path, halves) -> dict:
     from ape_tpu_torch.modeling.text import T5, Bert, Llama2, build_tower
 
     names = hf_names()
+    t5_tokenizer_check(tmp, card)
     toks = hf_tokenizers(tmp)
     towers = {}
     for kind in ("bert", "t5", "llama2"):

@@ -5,10 +5,10 @@ truncation), and ``bpe.HFBPETokenizer`` against the ``LlamaTokenizerFast``
 that ``AutoTokenizer`` reads from a Llama-style byte-fallback BPE
 ``tokenizer.json`` built in memory by ``tokenizers`` (JAX's Llama2 call:
 "longest" padding), on the left and the right; ids and masks exact, also over
-random strings. Files the port does not read (T5's Unigram, its Precompiled
-normalizer, a pre-tokenizer) raise ``NotImplementedError`` naming the
-type, and a Llama directory without a pad token raises ``ValueError`` on
-both sides (trait 26)."""
+random strings. Files the port does not read (a normalizer or a
+pre-tokenizer it has no counterpart of, an added-token flag, BPE dropout)
+raise ``NotImplementedError`` naming the type, and a Llama directory
+without a pad token raises ``ValueError`` on both sides (trait 26)."""
 
 import functools
 import json
@@ -164,6 +164,24 @@ def test_bpe_add_eos_and_a_new_pad_token(tmp_path):
     assert got.pad_id == want.pad_token_id
 
 
+def test_bpe_code_llama_class(tmp_path):
+    """``CodeLlamaTokenizer`` as ``AutoTokenizer`` reads it: Llama's
+    template and left padding, and its four infilling tokens added at the
+    next ids."""
+    d = write_llama_tokenizer(tmp_path / "tok")
+    cfg = json.loads((d / "tokenizer_config.json").read_text())
+    (d / "tokenizer_config.json").write_text(json.dumps(dict(cfg,
+                                                             tokenizer_class="CodeLlamaTokenizer")))
+    want = transformers.AutoTokenizer.from_pretrained(str(d))
+    got = HFBPETokenizer.from_dir(d)
+    texts = LLAMA_TEXTS + ["x▁<PRE>y ▁<EOT>", "▁<MID>▁<SUF>"]
+    assert type(want).__name__ == "CodeLlamaTokenizerFast"
+    assert got.padding_side == want.padding_side == "left"
+    np.testing.assert_array_equal(got(texts)["input_ids"],
+                                  want(texts, padding="longest")["input_ids"])
+    assert got.token_id("▁<EOT>") == want.convert_tokens_to_ids("▁<EOT>")
+
+
 @settings(max_examples=150, deadline=None, derandomize=True)
 @given(st.lists(st.sampled_from(list("ab cdthpoeéfr🙂日<>/\t") + ["<s>", "</s>", "é\u0301"]),
                 max_size=30).map("".join))
@@ -184,9 +202,8 @@ def test_bpe_without_a_pad_token_raises_as_jax(tmp_path):
 
 @pytest.mark.parametrize("edit,named", [
     (lambda s: s["model"].update(type="Unigram"), "Unigram"),
-    (lambda s: s.update(normalizer={"type": "Precompiled", "precompiled_charsmap": ""}),
-     "Precompiled"),
-    (lambda s: s.update(pre_tokenizer={"type": "Metaspace", "replacement": "▁"}), "Metaspace"),
+    (lambda s: s.update(normalizer={"type": "NFKC"}), "NFKC"),
+    (lambda s: s.update(pre_tokenizer={"type": "BertPreTokenizer"}), "BertPreTokenizer"),
     (lambda s: s.update(post_processor={"type": "ByteLevel"}), "ByteLevel"),
     (lambda s: s["added_tokens"][0].update(lstrip=True), "lstrip"),
     (lambda s: s["model"].update(dropout=0.1), "dropout"),

@@ -6,8 +6,9 @@ directories: ``last_hidden_state`` at the valid positions and
 ``last_hidden_state_eot`` within 1e-5 abs + 1e-5 rel in f32, masks and
 ``end_token_idx`` exact; left- and right-padded Llama rows, a chunk boundary
 (``max_batch_size`` patched on both sides), the cache, T5's pooled return;
-and a process with JAX, the JAX package, ``transformers``, ``safetensors``
-and ``tokenizers`` refused loads a saved directory and encodes."""
+and a process with JAX, the JAX package, ``transformers``, ``safetensors``,
+``tokenizers``, ``sentencepiece`` and ``regex`` refused loads a saved
+directory of each tower and encodes."""
 
 import os
 import subprocess
@@ -28,6 +29,7 @@ from ape_tpu_torch.modeling.text.bpe import HFBPETokenizer  # noqa: E402
 from ape_tpu_torch.modeling.text.wordpiece import WordPieceTokenizer  # noqa: E402
 from tests.test_torch_hf_files import tiny_config, tiny_model, write_bert_vocab  # noqa: E402
 from tests.test_torch_hf_tokenizers import write_llama_tokenizer  # noqa: E402
+from tests.test_torch_hf_unigram import write_t5_tokenizer  # noqa: E402
 from tests.torch_config_tree import ROOT  # noqa: E402
 
 TEXTS = ["a cat", "a photo of the dog", "red car on the table", "small blue sky", "x",
@@ -119,8 +121,9 @@ def test_llama2_equals_jax(tmp_path, side, chunk):
 
 @pytest.fixture(scope="module")
 def saved_dirs(tmp_path_factory):
-    """A BERT directory (BertForMaskedLM's checkpoint, vocab.txt) and a
-    Llama-2 one (LlamaForCausalLM's, tokenizer.json), both saved by
+    """A BERT directory (BertForMaskedLM's checkpoint, vocab.txt), a
+    Llama-2 one (LlamaForCausalLM's, a BPE tokenizer.json) and a T5 one
+    (T5ForConditionalGeneration's, a Unigram tokenizer.json), each saved by
     ``save_pretrained``."""
     root = tmp_path_factory.mktemp("hf_towers")
     bert = root / "bert"
@@ -129,7 +132,10 @@ def saved_dirs(tmp_path_factory):
     llama = root / "llama"
     tiny_model("llama2", seed=2, head=True).save_pretrained(llama)
     write_llama_tokenizer(llama)
-    return {"bert": bert, "llama2": llama}
+    t5 = root / "t5"
+    tiny_model("t5", seed=4, head=True).save_pretrained(t5)
+    write_t5_tokenizer(t5, "always")
+    return {"bert": bert, "llama2": llama, "t5": t5}
 
 
 def test_directories_load_as_jax_loads_them(saved_dirs):
@@ -148,17 +154,24 @@ def test_factory_and_refusals(saved_dirs, tmp_path, monkeypatch):
         port_hf.build_hf_text_model("gpt2", str(saved_dirs["bert"]), device="cpu")
     with pytest.raises(ValueError, match="model_name_or_path"):
         port_hf.Bert(device="cpu")
-    # a T5 directory holds a sentencepiece Unigram tokenizer, which the port
-    # does not read
+    # a T5 directory with only a sentencepiece model: the port reads
+    # tokenizer.json alone
     d = tmp_path / "t5"
     tiny_model("t5", head=True).save_pretrained(d)
+    (d / "spiece.model").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="tokenizer.json"):
         port_hf.T5(str(d), device="cpu")
-    from tokenizers import Tokenizer, models
+    from tokenizers import Tokenizer, models, pre_tokenizers
 
-    Tokenizer(models.Unigram([("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0), ("▁a", -1.0)],
-                             unk_id=2)).save(str(d / "tokenizer.json"))
-    with pytest.raises(NotImplementedError, match="Unigram"):
+    # a Unigram tokenizer.json is read; one with a pre-tokenizer the port has
+    # no counterpart of raises, naming it
+    tok = Tokenizer(models.Unigram([("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0), ("▁a", -1.0)],
+                                   unk_id=2))
+    tok.save(str(d / "tokenizer.json"))
+    assert port_hf.T5(str(d), device="cpu").forward_text(["a"]).shape == (1, 16)
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel()
+    tok.save(str(d / "tokenizer.json"))
+    with pytest.raises(NotImplementedError, match="ByteLevel"):
         port_hf.T5(str(d), device="cpu")
     # no card and no device named: the towers raise rather than fall back
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -184,28 +197,34 @@ def test_t5_cannot_feed_the_text_router():
 
 RUN = textwrap.dedent("""
     import sys
+    REFUSED = ("jax", "jaxlib", "flax", "ape_tpu", "transformers", "safetensors", "tokenizers",
+               "sentencepiece", "regex")
     class Refuse:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "flax", "ape_tpu", "transformers",
-                                      "safetensors", "tokenizers"):
+            if name.split(".")[0] in REFUSED:
                 raise ImportError("refused: " + name)
     sys.meta_path.insert(0, Refuse())
     import torch
     from ape_tpu_torch.modeling.text import build_hf_text_model
-    for kind, path in (("bert", sys.argv[1]), ("llama2", sys.argv[2])):
+    for kind, path in (("bert", sys.argv[1]), ("llama2", sys.argv[2]), ("t5", sys.argv[3])):
         out = build_hf_text_model(kind, path, device="cpu").forward_text(["a cat", "the dog"])
-        assert torch.isfinite(out["last_hidden_state_eot"]).all(), kind
-        print(kind, tuple(out["last_hidden_state_eot"].shape))
-    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "ape_tpu", "transformers",
-                                                            "safetensors", "tokenizers")]
+        out = out if kind == "t5" else out["last_hidden_state_eot"]
+        assert torch.isfinite(out).all(), kind
+        print(kind, tuple(out.shape))
+    leaked = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     assert not leaked, leaked
 """)
 
 
 def test_towers_load_without_transformers(saved_dirs):
+    """BERT, Llama-2 and T5 (its Unigram tokenizer, the Precompiled
+    normalizer, the grapheme table) load and encode in a process that
+    refuses JAX, the JAX package, ``transformers``, ``safetensors``,
+    ``tokenizers``, ``sentencepiece`` and ``regex``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
     res = subprocess.run([sys.executable, "-c", RUN, str(saved_dirs["bert"]),
-                          str(saved_dirs["llama2"])], cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=300)
+                          str(saved_dirs["llama2"]), str(saved_dirs["t5"])], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
     assert "bert (2, 16)" in res.stdout and "llama2 (2, 32)" in res.stdout
+    assert "t5 (2, 16)" in res.stdout
